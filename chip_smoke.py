@@ -28,14 +28,41 @@ Phases (each prints its seconds; any failure exits non-zero):
    to 2 layers, prefill + 8 teacher-forced decode steps; logits agree within
    E2E_TOL * max|plain| and greedy tokens agree wherever the plain top-2
    margin exceeds twice the largest logit difference.
+6. the paged-attention kernel against its plain version (the page-walk
+   fold) at Llama-2-7B shape: B = 8 rows at ragged positions 0..4095,
+   32 heads of 128, 16-token pages, 256 pages a row, layers 0 and L-1 of a
+   3-layer pool, bf16 and int8 pools: max|kernel - plain| <=
+   ATTN_TOL * max|plain|.  Times the kernel (cold L2), the plain version
+   and torch's scaled_dot_product_attention on the K/V pre-gathered to
+   contiguous bf16 with a per-row mask (a yardstick the port never calls).
+7. the serving path at full width: the API server in-process on the
+   phase-3 model (--batch-slots 8 --kv-pages 513 --kv-page-size 16
+   --sched-prefill-chunk 16) answers 16 concurrent greedy requests (prompts
+   of 8 to 512 tokens, max_tokens 32 to 64, 4 chats sharing a system
+   prompt, 2 streamed; the first chat goes ahead until its prompt pages
+   are cached).  Every answer is 200; the slot engine's last logits are
+   finite; every single-token slot forward launched the attention kernel
+   once per layer and no decode read ran the plain version; no Q40 matmul
+   ran the plain version; the prefix cache hit; a request sent alone twice
+   answers byte for byte.  Prints tok/s, TTFT and latency percentiles,
+   peak memory and a torch.profiler split of an 8-slot decode step and of
+   an 8-slot mixed prefill step.  Then a shorter pass with --kv-quant int8.
+8. slot path, kernels against plain versions: the phase-5 model through
+   Engine.slot_step on a paged pool (bf16 and int8), a ragged prefill
+   chunk + 8 teacher-forced decode steps, kernels (``auto``) against
+   ``quant_impl = attn_impl = "plain"``: logits within E2E_TOL and greedy
+   agreement where the margin is decisive.
 
-Prints the kernel table as one JSON line before the last line; the last
-line is ``{"ok": true, "device": {...}}``.
+``--only 1,6`` runs a subset of the phases (for bring-up; it prints no
+result lines).  Prints the kernel table as one JSON line before the last
+line; the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import argparse
 import contextlib
+import gc
 import io
 import json
 import os
@@ -43,7 +70,10 @@ import re
 import shutil
 import subprocess
 import sys
+import threading
 import time
+import urllib.error
+import urllib.request
 
 import numpy as np
 import torch
@@ -71,6 +101,18 @@ SHAPES = [("wqkv", 4096, 12288, True, "dllama_tpu/ops/q40.py:449"),
           ("wcls", 4096, 32000, False, "dllama_tpu/ops/q40.py:330")]
 ROWS = (1, 16, 128)
 STACK_L = 3
+# paged attention (phase 6): kernel vs plain, the TPU kernel's own bar —
+# the two fold the same bf16 operands in another summation order
+ATTN_TOL = 1e-2
+ATTN_SRC = "dllama_tpu_torch/ops/csrc/paged_attention.cu"
+ATTN_REPLACES = "dllama_tpu/ops/attention.py:394"
+ATTN_POS = (0, 15, 16, 700, 1500, 2047, 3001, 4095)  # ragged rows
+PAGE = 16
+# serving (phase 7)
+SERVE_ARGS = ["--batch-slots", "8", "--kv-pages", "513", "--kv-page-size", "16",
+              "--sched-prefill-chunk", "16", "--temperature", "0",
+              "--max-pending", "64", "--host", "127.0.0.1", "--port", "0"]
+CHATML = "{% for message in messages %}<|im_start|>...{% endfor %}"
 
 
 @contextlib.contextmanager
@@ -186,11 +228,12 @@ def synth_model(path_m: str, path_t: str, n_layers: int, mfile, tfile, quants,
     words = [b" ", b"a", b"e", b"o", b"t", b"he", b"the", b" the", b"on", b"ce",
              b" upon", b" time", b"Once", b" capital", b" of", b" France", b" is"]
     vocab = [b"<unk>", b"<s>", b"</s>"] + [f"<0x{i:02X}>".encode() for i in range(256)]
-    vocab += words
+    vocab += words + [b"<|im_start|>", b"<|im_end|>"]
     vocab += [f"<extra_{i}>".encode() for i in range(len(vocab), LLAMA2_7B["vocab_size"])]
     tfile.write_tfile(path_t, tfile.TokenizerData(
         vocab=vocab, scores=[float(len(v)) if v in words else 0.0 for v in vocab],
-        bos_id=1, eos_id=2))
+        bos_id=1, eos_id=2, chat_eos_id=vocab.index(b"<|im_end|>"),
+        chat_template=CHATML))
 
 
 def run_cli(cli, argv: list[str]):
@@ -325,7 +368,334 @@ def end_to_end(mfile, params_mod, transformer, config, m2: str, dev) -> None:
           f"({int(agree.sum())}/9 overall)")
 
 
+def _percentile(xs, q: float) -> float:
+    return float(np.percentile(np.asarray(xs, np.float64), q)) if xs else float("nan")
+
+
+def attn_bound(pos, hkv: int, dh: int, hq: int, kv_bytes: float) -> tuple[float, str]:
+    """Least time for one paged decode read: the live K/V positions
+    (pos_b + 1 per row, K and V, ``kv_bytes`` per element plus 4-byte
+    scales for int8) read once, q read and the output written once,
+    against the HBM rate; 4 flops per K/V element (QK and PV) against the
+    bf16 peak."""
+    live = sum(int(p) + 1 for p in pos)
+    nbytes = live * hkv * 2 * (dh * kv_bytes + (4 if kv_bytes == 1 else 0))
+    nbytes += len(pos) * hq * dh * 2 * 2 + len(pos) * 4
+    b_ms = nbytes / HBM_BYTES_S * 1e3
+    o_ms = 4.0 * live * hq * dh / BF16_FLOPS * 1e3
+    return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
+
+
+def check_paged_attention(attention, dev) -> dict:
+    """Phase 6; returns {codec: numbers} for the JSON line."""
+    B, H, DH, L = 8, LLAMA2_7B["n_heads"], 128, 3
+    maxp = LLAMA2_7B["seq_len"] // PAGE
+    n_pages = 1 + B * maxp
+    g = torch.Generator(device=dev)
+    g.manual_seed(6)
+    rng = np.random.RandomState(6)
+    # each row owns its own pages, in a random physical order
+    table = torch.from_numpy((1 + rng.permutation(B * maxp)).reshape(B, maxp)
+                             .astype(np.int32)).to(dev)
+    pos = torch.tensor(ATTN_POS, dtype=torch.int32, device=dev)
+    q = torch.randn((B, H, 1, DH), generator=g, device=dev).to(torch.bfloat16)
+    flush = torch.ones(16 << 20, dtype=torch.float32, device=dev)
+    shape = (L, n_pages, H, PAGE, DH)
+    out = {}
+    print("codec  kernel_ms  plain_ms  sdpa_ms  bound_ms(by)  max_abs_err  rel")
+    for codec in ("bf16", "int8"):
+        if codec == "bf16":
+            pk = (torch.randn(shape, generator=g, device=dev) * 0.5).to(torch.bfloat16)
+            pv = (torch.randn(shape, generator=g, device=dev) * 0.5).to(torch.bfloat16)
+            scales, kv_bytes = None, 2
+        else:
+            pk, sk = attention.quantize_kv(torch.randn(shape, generator=g, device=dev) * 0.5)
+            pv, sv = attention.quantize_kv(torch.randn(shape, generator=g, device=dev) * 0.5)
+            scales, kv_bytes = (sk, sv), 1
+        err = 0.0
+        for layer in (0, L - 1):
+            k = attention.paged_attention(q, pk, pv, layer, table, pos, scales)
+            p = attention.paged_decode_attention(q, pk, pv, layer, table, pos, scales)
+            torch.cuda.synchronize()
+            e = float((k.float() - p.float()).abs().max())
+            scale = float(p.float().abs().max())
+            if not (torch.isfinite(k).all() and e <= ATTN_TOL * scale):
+                raise AssertionError(f"paged attention {codec} layer {layer}: "
+                                     f"max|kernel-plain| {e} > {ATTN_TOL} * {scale}")
+            err = max(err, e)
+        layer = L - 1
+        k_ms = cold_ms(lambda: attention.paged_attention(q, pk, pv, layer, table, pos,
+                                                         scales), 20, flush)
+        p_ms = cold_ms(lambda: attention.paged_decode_attention(q, pk, pv, layer, table,
+                                                                pos, scales), 3, flush)
+        ks, vs = scales if scales is not None else (None, None)
+        kg = attention.paged_gather_layer(pk, layer, table, ks).to(torch.bfloat16)
+        vg = attention.paged_gather_layer(pv, layer, table, vs).to(torch.bfloat16)
+        mask = (torch.arange(kg.shape[2], device=dev)[None, :] <= pos[:, None].long())
+        mask = mask[:, None, None, :]
+        l_ms = cold_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, kg, vg, attn_mask=mask), 20, flush)
+        b_ms, by = attn_bound(ATTN_POS, H, DH, H, kv_bytes)
+        print(f"{codec:5s} {k_ms:10.4f} {p_ms:9.4f} {l_ms:8.4f} {b_ms:9.4f}({by[0]}) "
+              f"{err:12.6g} {err / scale:.2e}")
+        out[codec] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                          bound_by=by, library_ms=l_ms)
+        del pk, pv, scales, kg, vg
+    del flush
+    torch.cuda.empty_cache()
+    return out
+
+
+def _post(base: str, path: str, body: dict) -> tuple[int, dict | str]:
+    req = urllib.request.Request(base + path, json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            raw = r.read().decode()
+            return r.status, raw if body.get("stream") else json.loads(raw)
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def _answer_text(path: str, body: dict, ans) -> str:
+    """The completion text of a JSON or SSE answer."""
+    if body.get("stream"):
+        text = ""
+        for line in ans.splitlines():
+            if line.startswith("data: {"):
+                ch = json.loads(line[6:])["choices"][0]
+                text += ch.get("text") or ch.get("delta", {}).get("content") or ""
+        return text
+    ch = ans["choices"][0]
+    return ch["text"] if path == "/v1/completions" else ch["message"]["content"]
+
+
+def serving_requests(n: int, seed: int = 7) -> list[tuple[str, dict]]:
+    """``n`` greedy requests: prompts of 8 to 512 characters (about a token
+    each with this tokenizer), max_tokens 32 to 64, four chats sharing a
+    system prompt (the first first, the rest last), two streamed."""
+    rng = np.random.RandomState(seed)
+    letters = list("abcdefghijklmnopqrstuvwxyz  ")
+
+    def text(k):
+        return "".join(rng.choice(letters, k))
+
+    system = "You are a terse assistant. " + text(200)
+    lens = np.linspace(8, 512, n - 4).astype(int)
+    reqs = [("/v1/completions", {"prompt": text(int(k)),
+                                 "max_tokens": int(rng.randint(32, 65)),
+                                 "temperature": 0}) for k in lens]
+    chats = [("/v1/chat/completions", {
+        "messages": [{"role": "system", "content": system},
+                     {"role": "user", "content": text(int(rng.randint(8, 64)))}],
+        "max_tokens": int(rng.randint(32, 65)), "temperature": 0}) for _ in range(4)]
+    reqs[1][1]["stream"] = True
+    chats[2][1]["stream"] = True
+    return chats[:1] + reqs + chats[1:]
+
+
+def profile_slot_step(engine, scheduler, steps: int = 2) -> None:
+    """Where an 8-slot step's time goes: torch.profiler over ``steps``
+    single-token decode steps, then over one mixed prefill step (16 tokens
+    a row), on the serving engine with the scheduler parked; rows at
+    positions 300..1000 on private pages.  The idle share compares device
+    busy time with the unprofiled step wall."""
+    from torch.profiler import ProfilerActivity, profile
+    b = engine.batch
+    per = 64  # pages a row: 1024 positions
+    ptab = np.zeros((b, engine.max_pages_per_slot), np.int32)
+    for r in range(b):
+        ptab[r, :per] = 1 + r * per + np.arange(per, dtype=np.int32)
+    pos = np.linspace(300, 1000, b).astype(np.int32)
+    zeros = np.zeros(b, np.float32)
+
+    def step(t):
+        return engine.slot_step(np.full((b, t), 5, np.int32), pos, np.full(b, t, np.int32),
+                                temps_np=zeros, topps_np=zeros + 0.9, page_tables_np=ptab)
+
+    with scheduler.exclusive():
+        for t, n in ((1, steps), (16, 1)):
+            step(t)
+            t0 = time.perf_counter()
+            for _ in range(n):
+                step(t)
+            wall = (time.perf_counter() - t0) * 1e3 / n
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(n):
+                    step(t)
+            rows = []
+            for e in prof.key_averages():
+                us = getattr(e, "self_device_time_total", 0) or 0
+                if us > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
+                    rows.append((us / n / 1e3, e.count // n, e.key))
+            if not rows:
+                print("slot step profile: the profiler recorded no device time "
+                      "(not measured)")
+                return
+            busy = sum(r[0] for r in rows)
+            attn = sum(r[0] for r in rows if "paged_attention" in r[2])
+            q40k = sum(r[0] for r in rows if "q40_" in r[2])
+            what = "decode step" if t == 1 else f"mixed step ({t} tokens a row)"
+            print(f"8-slot {what}, {n} profiled: wall {wall:.3f} ms unprofiled, device "
+                  f"busy {busy:.3f} ms -> idle share {1 - busy / wall:.3f}; paged attention "
+                  f"kernel {attn:.3f} ms, q40 {q40k:.3f} ms, other {busy - attn - q40k:.3f} "
+                  f"ms; {sum(r[1] for r in rows)} kernel launches a step")
+            for ms_, k, name in sorted(rows, reverse=True)[:8]:
+                print(f"  {ms_:8.4f} ms/step {k:5d}x  {name[:90]}")
+
+
+def serve_path(api, attention, q40, m: str, t: str, n_requests: int,
+               extra: list[str], profile: bool) -> dict:
+    """Phase 7, one pass; returns its numbers."""
+    # a previous pass's server can linger in reference cycles: free it
+    # before the peak-memory reading starts
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_load = time.perf_counter()
+    server = api.start(["--model", m, "--tokenizer", t, *SERVE_ARGS, *extra])
+    print(f"server up in {time.perf_counter() - t_load:.1f} s")
+    try:
+        state = server.state
+        eng, sched = state.batch_engine, state.scheduler
+        if eng.params["wqkv"].qpacked.data_ptr() != state.engine.params["wqkv"].qpacked.data_ptr():
+            raise AssertionError("the slot engine holds its own copy of the weights")
+        base = f"http://127.0.0.1:{server.server_address[1]}"
+        reqs = serving_requests(n_requests)
+        attention.reset_counters()
+        q40.reset_counters()
+        f0 = eng.slot_decode_forwards
+        results: list = [None] * len(reqs)
+
+        def run(i):
+            results[i] = _post(base, *reqs[i])
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=run, args=(i,)) for i in range(len(reqs))]
+        # the first chat goes ahead until its prompt pages are in the prefix
+        # cache: the other chats can share only a finished prefill (on the
+        # card, handler threads contend for the GIL with the dispatch loop,
+        # so arrival order alone does not guarantee it)
+        threads[0].start()
+        while sched.occupancy()["prefix_nodes"] == 0 and threads[0].is_alive():
+            time.sleep(0.01)
+        for th in threads[1:]:
+            th.start()
+            time.sleep(0.01)
+        for th in threads:
+            th.join()
+        wall = time.perf_counter() - t0
+        ac, qc = attention.counters(), q40.counters()
+        n_dec = eng.slot_decode_forwards - f0
+        bad = [(reqs[i][0], code, ans) for i, (code, ans) in enumerate(results) if code != 200]
+        if bad:
+            raise AssertionError(f"{len(bad)} requests failed: {str(bad)[:800]}")
+        if not torch.isfinite(eng.last_logits).all():
+            raise AssertionError("the slot engine ended on non-finite logits")
+        L = eng.cfg.n_layers
+        if n_dec == 0 or ac["kernel_launches"] != L * n_dec or ac["plain_calls"]:
+            raise AssertionError(f"paged attention counters {ac} over {n_dec} "
+                                 f"single-token slot forwards (want {L} launches each)")
+        if qc["plain_calls"] or qc["dense_prefill_calls"]:
+            raise AssertionError(f"a Q40 matmul left the kernel: {qc}")
+        occ = sched.occupancy()
+        if not occ["prefix_hits"]:
+            raise AssertionError(f"the chats sharing a system prompt never hit the prefix "
+                                 f"cache: {occ}")
+        recs = list(state.finished)[-len(reqs):]
+        n_tok = sum(r["completion_tokens"] for r in recs)
+        if any(r["completion_tokens"] == 0 for r in recs):
+            raise AssertionError("a request produced no tokens")
+        ttft = [r["ttft_s"] * 1e3 for r in recs if r["ttft_s"] is not None]
+        lat = [r["latency_s"] * 1e3 for r in recs]
+        peak = torch.cuda.max_memory_allocated()
+        print(f"{len(reqs)} requests in {wall:.2f} s: {n_tok} completion tokens, "
+              f"{n_tok / wall:.2f} tok/s aggregate; TTFT p50 {_percentile(ttft, 50):.1f} "
+              f"p99 {_percentile(ttft, 99):.1f} ms; latency p50 {_percentile(lat, 50):.1f} "
+              f"p99 {_percentile(lat, 99):.1f} max {max(lat):.1f} ms; peak device memory "
+              f"{peak / 2**30:.2f} GiB")
+        print(f"prompt tokens {sum(r['prompt_tokens'] for r in recs)}; scheduler {occ}; "
+              f"{n_dec} single-token slot forwards, attention kernel launches "
+              f"{ac['kernel_launches']} ({L} each), plain {ac['plain_calls']}; "
+              f"q40 kernel {qc['kernel_launches']}, plain {qc['plain_calls']}, "
+              f"dense {qc['dense_prefill_calls']}")
+        print("latency ms by request: " + " ".join(f"{x:.0f}" for x in lat))
+        # one request alone, twice: byte for byte (the second run finds its
+        # prompt's pages in the prefix cache)
+        path, body = reqs[5]
+        texts = [_answer_text(path, body, _post(base, path, body)[1]) for _ in range(2)]
+        if texts[0] != texts[1] or not texts[0]:
+            raise AssertionError(f"a request alone twice differs: {texts!r}")
+        hits = sched.occupancy()["prefix_hits"]
+        print(f"one request alone twice: {len(texts[0])} chars, byte for byte; "
+              f"prefix cache hits {occ['prefix_hits']} in the burst, {hits} in all")
+        if profile:
+            profile_slot_step(eng, sched)
+        return dict(attn_launches=ac["kernel_launches"], tok_s=n_tok / wall,
+                    ttft_p50=_percentile(ttft, 50), ttft_p99=_percentile(ttft, 99),
+                    peak_bytes=peak)
+    finally:
+        api.stop(server)
+        del server
+        torch.cuda.empty_cache()
+
+
+def slot_end_to_end(mfile, params_mod, config, engine_mod, m2: str, dev) -> None:
+    """Phase 8."""
+    with mfile.MFile(m2) as mf:
+        cfg, params = params_mod.load_params(
+            mf, config.ModelConfig.from_spec(mf.spec, dtype=torch.bfloat16), device=dev)
+    rng = np.random.RandomState(8)
+    b, t = 4, 16
+    prompt = rng.randint(3, cfg.vocab_size, (b, t)).astype(np.int32)
+    n_valid = np.array([16, 9, 12, 5], np.int32)
+    forced = rng.randint(3, cfg.vocab_size, (8, b)).astype(np.int32)
+    pages = cfg.seq_len // PAGE
+    ptab = (1 + np.arange(b * pages, dtype=np.int32)).reshape(b, pages)
+    zeros = np.zeros(b, np.float32)
+    for kv in (None, "q8"):
+        logits = {}
+        for impl in ("auto", "plain"):
+            c = cfg.with_(quant_impl=impl, attn_impl=impl)
+            eng = engine_mod.Engine(c, params, device=dev, batch=b, kv_dtype=kv,
+                                    kv_pages=1 + b * pages, kv_page_size=PAGE)
+            pos = np.zeros(b, np.int32)
+            eng.slot_step(prompt, pos, n_valid, temps_np=zeros, topps_np=zeros + 0.9,
+                          page_tables_np=ptab)
+            steps = [eng.last_logits.float()]
+            pos = pos + n_valid
+            for i in range(len(forced)):
+                eng.slot_step(forced[i][:, None], pos, np.ones(b, np.int32),
+                              temps_np=zeros, topps_np=zeros + 0.9, page_tables_np=ptab)
+                steps.append(eng.last_logits.float())
+                pos = pos + 1
+            logits[impl] = torch.stack(steps)
+            del eng
+        k, p = logits["auto"], logits["plain"]
+        err, scale = float((k - p).abs().max()), float(p.abs().max())
+        if not (torch.isfinite(k).all() and err <= E2E_TOL * scale):
+            raise AssertionError(f"slot path kernel vs plain logits ({kv or 'bf16'} pool): "
+                                 f"{err} > {E2E_TOL} * {scale}")
+        top2 = p.topk(2, dim=-1).values
+        decided = (top2[..., 0] - top2[..., 1]) > 2 * err
+        agree = k.argmax(-1) == p.argmax(-1)
+        if not bool(agree[decided].all()):
+            raise AssertionError("slot path greedy tokens differ where the margin is decisive")
+        print(f"slot path ({kv or 'bf16'} pool, 2 layers): max|kernel-plain| {err:.4g} of "
+              f"max|plain| {scale:.4g} ({err / scale:.2e}, limit {E2E_TOL:g}); greedy agrees "
+              f"at {int(decided.sum())}/{decided.numel()} row-steps whose margin exceeds 2x "
+              f"that ({int(agree.sum())}/{agree.numel()} overall)")
+    del params
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser(description="chip smoke of dllama_tpu_torch")
+    ap.add_argument("--only", default=None,
+                    help="comma-separated phases to run (bring-up; no result lines)")
+    only = ap.parse_args().only
+    run_phase = (lambda n: True) if only is None else \
+        (lambda n: str(n) in only.split(","))
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — needs an NVIDIA GPU",
               file=sys.stderr)
@@ -334,7 +704,9 @@ def main() -> int:
     from dllama_tpu_torch import cli, quants
     from dllama_tpu_torch.io import mfile, tfile
     from dllama_tpu_torch.models import config, params as params_mod, transformer
-    from dllama_tpu_torch.ops import _build, q40
+    from dllama_tpu_torch.ops import _build, attention, q40
+    from dllama_tpu_torch.runtime import engine as engine_mod
+    from dllama_tpu_torch.server import api
 
     dev = torch.device("cuda", 0)
     with phase("1 card and build"):
@@ -350,22 +722,42 @@ def main() -> int:
               f"{torch.cuda.get_device_name(0)}")
         _build.load()
         print(_build.build_log.strip() or f"kernel library {_build.library_path()}")
-    with phase("2 kernel vs plain at the 7B shapes"):
-        table = check_kernel(q40, dev)
+    if run_phase(2):
+        with phase("2 kernel vs plain at the 7B shapes"):
+            table = check_kernel(q40, dev)
+    if run_phase(6):
+        with phase("6 paged attention kernel vs plain at the 7B shape"):
+            attn = check_paged_attention(attention, dev)
     os.makedirs(WORK, exist_ok=True)
     try:
         m, t, m2 = (os.path.join(WORK, f) for f in ("llama2-7b.m", "llama2-7b.t", "l2.m"))
-        with phase("3 main path: inference at Llama-2-7B width"):
+        if run_phase(3) or run_phase(4) or run_phase(7):
             synth_model(m, t, LLAMA2_7B["n_layers"], mfile, tfile, quants)
             print(f"synthesized {os.path.getsize(m) / 1e9:.2f} GB")
-            run = main_path(cli, q40, m, t)
-        with phase("4 requests: generate"):
-            requests(cli, q40, m, t)
-        with phase("5 kernel path vs plain path end to end"):
+        if run_phase(3):
+            with phase("3 main path: inference at Llama-2-7B width"):
+                run = main_path(cli, q40, m, t)
+        if run_phase(4):
+            with phase("4 requests: generate"):
+                requests(cli, q40, m, t)
+        if run_phase(5) or run_phase(8):
             synth_model(m2, t, 2, mfile, tfile, quants, fresh=True)
-            end_to_end(mfile, params_mod, transformer, config, m2, dev)
+        if run_phase(5):
+            with phase("5 kernel path vs plain path end to end"):
+                end_to_end(mfile, params_mod, transformer, config, m2, dev)
+        if run_phase(7):
+            with phase("7 serving: API server, slot scheduler, paged KV at 7B width"):
+                served = {"bf16": serve_path(api, attention, q40, m, t, 16, [], True)}
+            with phase("7b serving with --kv-quant int8"):
+                served["int8"] = serve_path(api, attention, q40, m, t, 8,
+                                            ["--kv-quant", "int8"], False)
+        if run_phase(8):
+            with phase("8 slot path: kernels vs plain versions end to end"):
+                slot_end_to_end(mfile, params_mod, config, engine_mod, m2, dev)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
+    if only is not None:
+        return 0
 
     counts = run["counts"]["launches_by_shape"]
     kernels = [dict(name=f"q40_matmul[{site}]", route="cuda", source=SRC,
@@ -374,6 +766,12 @@ def main() -> int:
                     bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                     library_ms=r["library_ms"])
                for site, r in table.items()]
+    kernels += [dict(name=f"paged_attention[{codec}]", route="cuda", source=ATTN_SRC,
+                     replaces=ATTN_REPLACES, launches=served[codec]["attn_launches"],
+                     max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+                     bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                     library_ms=r["library_ms"])
+                for codec, r in attn.items()]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -8,10 +8,12 @@ asking for ``cuda`` where there is none is an error):
 * ``generate``  — stream text for ``--steps`` tokens.
 
 Both end with one line of Q40 launch counters (which matmul route ran how
-often), the counterpart of the JAX package's dispatch summary.  Modes and
-flags of the JAX CLI outside this slice (``chat``, ``batch``, ``worker``,
-``--workers``, ``--sp``, ``--dp``, ``--pld``, ``--kv-cache-dtype q8``) exit
-with a message naming them as not yet ported.
+often), the counterpart of the JAX package's dispatch summary.  The API
+server (``python -m dllama_tpu_torch.server.api``) reuses this parser and
+its serving flags.  Modes and flags of the JAX CLI outside the port
+(``chat``, ``batch``, ``worker``, ``--workers``, ``--sp``, ``--dp``,
+``--pld``, ``--kv-cache-dtype q8``, and the serving flags in
+``NOT_PORTED_FLAGS``) exit with a message naming them as not yet ported.
 
 ``python -m dllama_tpu_torch inference --model m.m --tokenizer t.t``
 """
@@ -34,6 +36,19 @@ from .tokenizer.bpe import Tokenizer
 
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16, "f16": torch.float16}
 NOT_PORTED_MODES = ("chat", "batch", "worker")
+# serving flags of the JAX CLI that the port does not carry, with the JAX
+# defaults: a value other than the default exits naming the flag
+NOT_PORTED_FLAGS = {
+    "--kv-reserve": "full", "--spill-headroom": 16, "--kv-host-pool-mb": 64.0,
+    "--spec": "off", "--spec-k": 4, "--draft-model": None,
+    "--preempt-age-ms": 5000.0, "--preempt-cap": 3, "--preempt-spill-dir": None,
+    "--io-timeout": 15.0, "--drain-grace": 30.0, "--step-timeout": None,
+    "--snapshot-dir": None, "--handoff": False, "--handoff-ttl": 0.0,
+    "--slo": None, "--log-format": None, "--log-level": None,
+    "--trace-buffer": None, "--flight-buffer": None, "--event-buffer": None,
+    "--event-log": None, "--numeric-checks": False, "--verify-weights": False,
+    "--no-sched-overlap": False, "--no-preempt": False,
+}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -59,7 +74,37 @@ def build_parser() -> argparse.ArgumentParser:
                         "first so the timed stats measure steady state")
     p.add_argument("--device", choices=DEVICES, default="cuda",
                    help="where the model runs (default cuda)")
+    # serving (python -m dllama_tpu_torch.server.api), the JAX defaults
+    p.add_argument("--host", default="0.0.0.0", help="API server bind address")
+    p.add_argument("--port", type=int, default=9990, help="API server port")
+    p.add_argument("--batch-slots", type=int, default=0,
+                   help="API server: slots of the continuous-batching engine "
+                        "(0: every request takes the batch-1 mutex path)")
+    p.add_argument("--kv-pages", type=int, default=0,
+                   help="API server: paged KV pool of this many pages for the "
+                        "slot engine (0: contiguous slot rows)")
+    p.add_argument("--kv-page-size", type=int, default=16, help="tokens per KV page")
+    p.add_argument("--kv-quant", choices=("off", "int8"), default="off",
+                   help="int8 pool pages with per-position scales (needs --kv-pages)")
+    p.add_argument("--sched-prefill-chunk", type=int, default=16,
+                   help="prompt tokens a prefilling slot feeds per dispatch")
+    p.add_argument("--sched-max-wait-ms", type=float, default=50.0,
+                   help="bound on how long queued work waits for a decode burst")
+    p.add_argument("--sched-max-queue", type=int, default=32,
+                   help="requests waiting for a slot before 429")
+    p.add_argument("--no-prefix-reuse", action="store_true",
+                   help="turn off the paged pool's radix prefix cache")
+    p.add_argument("--max-pending", type=int, default=8,
+                   help="requests in flight or queued before 429")
+    p.add_argument("--request-timeout", type=float, default=0.0,
+                   help="default per-request deadline in seconds (0: none)")
     # flags of the JAX CLI that this port does not carry yet
+    for flag, default in NOT_PORTED_FLAGS.items():
+        if isinstance(default, bool):
+            p.add_argument(flag, action="store_true", help=argparse.SUPPRESS)
+        else:
+            p.add_argument(flag, default=default, help=argparse.SUPPRESS,
+                           type=type(default) if default is not None else str)
     p.add_argument("--workers", default=None, help=argparse.SUPPRESS)
     p.add_argument("--sp", type=int, default=1, help=argparse.SUPPRESS)
     p.add_argument("--dp", type=int, default=1, help=argparse.SUPPRESS)
@@ -67,7 +112,8 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _not_ported(args) -> list[str]:
+def not_ported(args) -> list[str]:
+    """The modes and flags of ``args`` that the port does not carry."""
     out = []
     if args.mode in NOT_PORTED_MODES:
         out.append(f"mode {args.mode!r}")
@@ -81,6 +127,9 @@ def _not_ported(args) -> list[str]:
         out.append("--pld")
     if args.kv_cache_dtype == "q8":
         out.append("--kv-cache-dtype q8")
+    for flag, default in NOT_PORTED_FLAGS.items():
+        if getattr(args, flag[2:].replace("-", "_")) != default:
+            out.append(flag)
     return out
 
 
@@ -190,7 +239,7 @@ def cmd_generate(args) -> Engine:
 def main(argv=None) -> Engine:
     """Run one command; returns its Engine (for callers in-process)."""
     args = build_parser().parse_args(argv)
-    missing = _not_ported(args)
+    missing = not_ported(args)
     if missing:
         raise SystemExit(f"not yet ported to dllama_tpu_torch: {', '.join(missing)} "
                          "(run python -m dllama_tpu for these)")

@@ -33,6 +33,10 @@ class ModelConfig:
     # the plain version on any device — the reference path a comparison
     # on the card holds the kernel against
     quant_impl: str = "auto"
+    # paged decode attention route (ops.attention.fused_paged_attention):
+    # "auto" launches the kernel on the card; "plain" runs its plain
+    # version on any device (the same reference path as quant_impl)
+    attn_impl: str = "auto"
 
     @property
     def head_size(self) -> int:

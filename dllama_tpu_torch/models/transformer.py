@@ -1,11 +1,14 @@
 """Llama forward pass — the port of ``dllama_tpu/models/transformer.py``
-(dense FFN, contiguous KV cache).
+(dense FFN; contiguous KV cache, contiguous slot rows, paged KV pool).
 
 One function serves prefill (T > 1) and decode (T == 1): tokens enter as
 ``(B, T)``, the KV cache as stacked ``(L, B, Hkv, S, Dh)`` buffers, and
-``pos`` is the position of the first token.  The layer loop is a Python
-loop over the layer index of the stacked weights; a packed Q40 weight is
-read in place at that index by the kernel, never sliced into a copy.
+``pos`` is the position of the first token.  :func:`forward_slots` is the
+continuous-batching step: every row has its own clock (``pos_rows``), over
+contiguous slot rows or a paged pool (``(L, P, Hkv, ps, Dh)`` addressed
+through a page table).  The layer loop is a Python loop over the layer
+index of the stacked weights; a packed Q40 weight is read in place at
+that index by the kernel, never sliced into a copy.
 Every ``astype(cfg.dtype)`` rounding point of the JAX code is kept (the
 matmul outputs, the residual stream).
 """
@@ -17,15 +20,26 @@ from typing import NamedTuple
 import torch
 
 from ..ops import q40
-from ..ops.attention import gqa_attention_at, update_kv_cache_at
+from ..ops.attention import (gqa_attention_at, paged_gqa_attention_at,
+                             paged_update_kv_rows, paged_write_indices,
+                             quantize_kv, slot_gqa_attention_at,
+                             update_kv_cache_at, update_kv_cache_rows)
 from ..ops.kernels import ACTIVATIONS, apply_rope, rmsnorm, rope_angles
 from .config import ModelConfig
 from .params import Params
 
 
 class KVCache(NamedTuple):
-    k: torch.Tensor  # (L, B, Hkv, S, Dh)
+    k: torch.Tensor  # (L, B, Hkv, S, Dh), or a pool (L, P, Hkv, ps, Dh)
     v: torch.Tensor
+    # per-position f32 dequant scales with a trailing 1, present only for
+    # the int8 pool
+    k_scale: torch.Tensor | None = None
+    v_scale: torch.Tensor | None = None
+
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, seq_len: int | None = None,
@@ -33,6 +47,23 @@ def init_kv_cache(cfg: ModelConfig, batch: int, seq_len: int | None = None,
     """Preallocated full-length cache in ``dtype`` (default cfg.dtype)."""
     shape = (cfg.n_layers, batch, cfg.n_kv_heads, seq_len or cfg.seq_len,
              cfg.head_size)
+    dt = dtype or cfg.dtype
+    return KVCache(torch.zeros(shape, dtype=dt, device=device),
+                   torch.zeros(shape, dtype=dt, device=device))
+
+
+def init_kv_pool(cfg: ModelConfig, n_pages: int, page_size: int, dtype=None,
+                 quant: bool = False, device="cpu") -> KVCache:
+    """Paged KV pool ``(L, n_pages, Hkv, page_size, Dh)``; page 0 is the
+    reserved scratch page.  ``quant`` stores int8 values plus a
+    per-(page, head, position) f32 scale plane ``(L, P, Hkv, ps, 1)``."""
+    shape = (cfg.n_layers, n_pages, cfg.n_kv_heads, page_size, cfg.head_size)
+    if quant:
+        sshape = shape[:-1] + (1,)
+        return KVCache(torch.zeros(shape, dtype=torch.int8, device=device),
+                       torch.zeros(shape, dtype=torch.int8, device=device),
+                       torch.zeros(sshape, dtype=torch.float32, device=device),
+                       torch.zeros(sshape, dtype=torch.float32, device=device))
     dt = dtype or cfg.dtype
     return KVCache(torch.zeros(shape, dtype=dt, device=device),
                    torch.zeros(shape, dtype=dt, device=device))
@@ -50,8 +81,33 @@ def _mm(x: torch.Tensor, w, cfg: ModelConfig, layer: int | None = None,
     return (x @ wl).to(out_dtype)
 
 
+def _slot_attention(q, k, v, layer: int, cfg: ModelConfig, cache: KVCache,
+                    pos_rows, paged):
+    """Write this layer's step KV at per-row positions and read it back
+    with per-row ceilings: through the page table when ``paged`` is
+    ``(page_table, pidx, oidx)``, else into contiguous slot rows."""
+    if paged is None:
+        update_kv_cache_rows(cache.k, cache.v, k, v, layer, pos_rows)
+        return slot_gqa_attention_at(q, cache.k, cache.v, layer, pos_rows)
+    page_table, pidx, oidx = paged
+    scales = None
+    if cache.quantized:
+        # int8 pages: quantize the step window once and scatter values and
+        # scales through the same indices; attention dequantizes on read
+        qk, sk = quantize_kv(k)
+        qv, sv = quantize_kv(v)
+        paged_update_kv_rows(cache.k, cache.v, qk, qv, layer, pidx, oidx)
+        paged_update_kv_rows(cache.k_scale, cache.v_scale, sk, sv, layer, pidx, oidx)
+        scales = (cache.k_scale, cache.v_scale)
+    else:
+        paged_update_kv_rows(cache.k, cache.v, k, v, layer, pidx, oidx)
+    return paged_gqa_attention_at(q, cache.k, cache.v, layer, page_table,
+                                  pos_rows, scales, impl=cfg.attn_impl)
+
+
 def _attention_block(x, params: Params, layer: int, cfg: ModelConfig,
-                     cache: KVCache, cos, sin, pos: int) -> torch.Tensor:
+                     cache: KVCache, cos, sin, pos: int, pos_rows=None,
+                     paged=None) -> torch.Tensor:
     b, t, _ = x.shape
     hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_size
     xb = rmsnorm(x, params["rms_att"][layer])
@@ -65,8 +121,11 @@ def _attention_block(x, params: Params, layer: int, cfg: ModelConfig,
     q = q.transpose(1, 2)  # (B, Hq, T, Dh)
     k = k.transpose(1, 2)
     v = v.reshape(b, t, hkv, dh).transpose(1, 2)
-    update_kv_cache_at(cache.k, cache.v, k, v, layer, pos)
-    att = gqa_attention_at(q, cache.k, cache.v, layer, pos, t)
+    if pos_rows is not None:
+        att = _slot_attention(q, k, v, layer, cfg, cache, pos_rows, paged)
+    else:
+        update_kv_cache_at(cache.k, cache.v, k, v, layer, pos)
+        att = gqa_attention_at(q, cache.k, cache.v, layer, pos, t)
     att = att.transpose(1, 2).reshape(b, t, hq * dh)
     return _mm(att, params["wo"], cfg, layer)
 
@@ -82,18 +141,24 @@ def _dense_ffn(xb, params: Params, layer: int, cfg: ModelConfig) -> torch.Tensor
 
 
 def run_blocks(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-               cache: KVCache, pos: int) -> tuple[torch.Tensor, KVCache]:
+               cache: KVCache, pos: int, pos_rows: torch.Tensor | None = None,
+               paged=None) -> tuple[torch.Tensor, KVCache]:
     """Embed + all transformer blocks; returns the residual stream
-    (B, T, D) and the cache (updated in place)."""
+    (B, T, D) and the cache (updated in place).  ``pos_rows`` (B,) gives
+    every row its own clock (slot requests start at cache position 0, so
+    cache position is the RoPE position)."""
     if cfg.is_moe:
         raise NotImplementedError("MoE blocks are not yet ported to "
                                   "dllama_tpu_torch")
     t = tokens.shape[1]
     x = params["embedding"][tokens.long()].to(cfg.dtype)
     positions = pos + torch.arange(t, device=tokens.device)
+    if pos_rows is not None:
+        positions = pos_rows.long()[:, None] + positions[None, :]
     cos, sin = rope_angles(positions, cfg.head_size, cfg.rope_theta)
     for layer in range(cfg.n_layers):
-        x = x + _attention_block(x, params, layer, cfg, cache, cos, sin, pos)
+        x = x + _attention_block(x, params, layer, cfg, cache, cos, sin, pos,
+                                 pos_rows, paged)
         xb = rmsnorm(x, params["rms_ffn"][layer])
         x = x + _dense_ffn(xb, params, layer, cfg)
     return x, cache
@@ -121,3 +186,29 @@ def forward_last(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     returns (B, V)."""
     x, cache = run_blocks(params, cfg, tokens, cache, pos)
     return _head(params, cfg, x[:, last_index]), cache
+
+
+def forward_slots(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+                  cache: KVCache, pos_rows: torch.Tensor, n_valid: torch.Tensor,
+                  page_table: torch.Tensor | None = None
+                  ) -> tuple[torch.Tensor, KVCache]:
+    """Continuous-batching slot step: row ``r`` of ``tokens`` (B, T)
+    occupies positions ``pos_rows[r]..pos_rows[r]+T-1`` and only its first
+    ``n_valid[r]`` tokens are real.  Returns the logits (B, V) f32 at each
+    row's last valid token and the cache.  A prefilling row feeds a prompt
+    chunk, a decoding row its previous sample plus padding, a free row
+    rides at position 0; rows never see each other, so each row's stream
+    is the one it would decode alone.  With ``page_table`` (B, max_pages)
+    int32 the cache is a paged pool and invalid-token writes go to the
+    scratch page (the write indices are computed once for all layers)."""
+    b, t = tokens.shape
+    paged = None
+    if page_table is not None:
+        pidx, oidx = paged_write_indices(page_table, pos_rows, n_valid, t,
+                                         cache.k.shape[3])
+        paged = (page_table, pidx, oidx)
+    x, cache = run_blocks(params, cfg, tokens, cache, 0, pos_rows=pos_rows,
+                          paged=paged)
+    last = torch.clamp(n_valid.long() - 1, 0, t - 1)
+    x_last = x[torch.arange(b, device=x.device), last]  # (B, D)
+    return _head(params, cfg, x_last), cache

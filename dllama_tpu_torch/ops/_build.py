@@ -1,10 +1,13 @@
 """Build and load the port's CUDA kernels.
 
-``nvcc`` compiles ``csrc/*.cu`` into a shared library with a plain C
-interface, loaded with ``ctypes``:
+``nvcc`` compiles each ``csrc/*.cu`` into an object, all sources at
+once in parallel processes, and links them into one shared library with a
+plain C interface, loaded with ``ctypes``:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -o build/libdllama_kernels-<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \\
+         -Xcompiler -fPIC -Xptxas -v -c -o build/<source>-<hash>.o csrc/<source>.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared \\
+         -o build/libdllama_kernels-<hash>.so build/*-<hash>.o
 
 The library lands in ``dllama_tpu_torch/build/`` at first use, named by a
 hash of the sources and flags, so an edited source rebuilds and an
@@ -23,10 +26,11 @@ import subprocess
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PKG = os.path.dirname(HERE)
-SOURCES = [os.path.join(HERE, "csrc", "q40_matmul.cu")]
+SOURCES = [os.path.join(HERE, "csrc", n)
+           for n in ("q40_matmul.cu", "paged_attention.cu")]
 BUILD_DIR = os.path.join(PKG, "build")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lib: ctypes.CDLL | None = None
 #: nvcc's output from the build this process ran (``-Xptxas -v`` register
@@ -62,6 +66,18 @@ def library_path() -> str:
     return os.path.join(BUILD_DIR, f"libdllama_kernels-{h.hexdigest()[:16]}.so")
 
 
+def _run_all(cmds: list[list[str]]) -> str:
+    """Run the commands as parallel processes; returns their joined output,
+    raises naming the first that failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}): {' '.join(cmd)}\n{out}")
+    return "".join(outs)
+
+
 def build() -> str:
     """Compile the sources unless the library for their hash exists;
     returns its path."""
@@ -71,13 +87,19 @@ def build() -> str:
         return path
     nvcc = find_nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
+    tag = f"{os.path.basename(path)[:-3]}.{os.getpid()}"
+    objs = [os.path.join(BUILD_DIR, f"{os.path.basename(src)[:-3]}-{tag}.o")
+            for src in SOURCES]
     tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *SOURCES]
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({r.returncode}): {' '.join(cmd)}\n"
-                           f"{r.stdout}\n{r.stderr}")
-    build_log = r.stdout + r.stderr
+    try:
+        log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", o, src]
+                        for src, o in zip(SOURCES, objs)])
+        log += _run_all([[nvcc, *ARCH, "-shared", "-o", tmp, *objs]])
+    finally:
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
+    build_log = log
     os.replace(tmp, path)  # atomic: a concurrent build never loads a partial file
     return path
 
@@ -86,6 +108,6 @@ def load() -> ctypes.CDLL:
     """Build if needed, load once per process, and declare signatures."""
     global _lib
     if _lib is None:
-        from . import q40
-        _lib = q40.bind(ctypes.CDLL(build()))
+        from . import attention, q40
+        _lib = attention.bind(q40.bind(ctypes.CDLL(build())))
     return _lib

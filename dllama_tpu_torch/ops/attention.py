@@ -1,8 +1,11 @@
-"""Grouped-query attention over a contiguous KV cache — the port of the
-contiguous-cache half of ``dllama_tpu/ops/attention.py``.
+"""Grouped-query attention over a contiguous KV cache or a paged KV pool —
+the port of ``dllama_tpu/ops/attention.py``.
 
-The cache layout is the JAX package's stacked ``(L, B, Hkv, S, Dh)``.
-Three algorithms, chosen by the same rules as the JAX package:
+The contiguous cache layout is the JAX package's stacked
+``(L, B, Hkv, S, Dh)``; the slot and paged halves (continuous batching)
+are at the end of the module, with the fused paged-attention kernel
+(``csrc/paged_attention.cu``).  Three contiguous algorithms, chosen by the
+same rules as the JAX package:
 
 * one-shot causal GQA (:func:`gqa_attention`): the whole score tensor at
   once;
@@ -22,6 +25,8 @@ JAX package's "bf16 in, f32 accumulate" on every device.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -69,9 +74,12 @@ def _einsum_f32(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def _online_fold(qf, kb, vb, mask, m, l, acc, scale):
     """Fold one KV block into the running (max, denom, numerator); ``mask``
-    is (T, S) broadcast over (B, Hkv, G)."""
+    is (T, S) broadcast over (B, Hkv, G), or (B, T, S) for per-row
+    ceilings."""
     scores = _einsum_f32("bhgtd,bhsd->bhgts", qf.to(kb.dtype), kb) * scale
-    scores = torch.where(mask[None, None, None], scores, _NEG)
+    if mask.dim() == 2:
+        mask = mask[None]
+    scores = torch.where(mask[:, None, None], scores, _NEG)
     m_new = torch.maximum(m, scores.amax(dim=-1))
     alpha = torch.exp(m - m_new)
     p = torch.exp(scores - m_new[..., None])
@@ -108,22 +116,35 @@ def blocked_gqa_attention(q: torch.Tensor, k_cache: torch.Tensor,
     return out.reshape(b, hq, t, dh).to(q.dtype)
 
 
-def blocked_live_fold(qf, k, v, pos: int):
-    """Walk only the KV blocks of ``k``/``v`` (B, Hkv, S, Dh) that cover
-    live positions ≤ ``pos``, folding each into the running softmax state.
-    Returns raw ``(m, l, acc)``; the caller normalizes."""
+def _slice_seq(cache, start: int, length: int):
+    return cache[:, :, start:start + length]
+
+
+def blocked_live_fold(qf, slice_block, k, v, pos: int, c: int,
+                      row_pos: torch.Tensor | None = None,
+                      block: int | None = None):
+    """Walk only the KV blocks of a cache of length ``c`` that cover live
+    positions ≤ ``pos``, folding each into the running softmax state.
+    ``slice_block(cache, start, length)`` cuts one (B, Hkv, length, Dh)
+    block out of ``k``/``v``.  ``row_pos`` (B,) replaces the scalar causal
+    ceiling with a per-row one (T must be 1): ``pos`` then only bounds the
+    walk (pass the row max).  ``block`` fixes the block width where the
+    storage does (a paged pool walks page-sized blocks).  Returns raw
+    ``(m, l, acc)``; the caller normalizes."""
     b, hkv, g, t, dh = qf.shape
-    s = k.shape[2]
-    block = _kv_chunk(s)
+    block = block or _kv_chunk(c)
     scale = float(np.float32(1.0) / np.sqrt(np.float32(dh)))
-    n_live = min(max(pos, 0), s - 1) // block + 1
+    n_live = min(max(pos, 0), c - 1) // block + 1
     m, l, acc = _fold_init(b, hkv, g, t, dh, qf.device)
     for i in range(n_live):
         start = i * block
         s_idx = start + torch.arange(block, device=qf.device)
-        mask = (s_idx <= pos)[None, :]
-        m, l, acc = _online_fold(qf, k[:, :, start:start + block],
-                                 v[:, :, start:start + block], mask, m, l, acc,
+        if row_pos is not None:
+            mask = s_idx[None, None, :] <= row_pos[:, None, None]  # (B, 1, blk)
+        else:
+            mask = (s_idx <= pos)[None, :]
+        m, l, acc = _online_fold(qf, slice_block(k, start, block),
+                                 slice_block(v, start, block), mask, m, l, acc,
                                  scale)
     return m, l, acc
 
@@ -139,7 +160,8 @@ def decode_gqa_attention(q: torch.Tensor, k_cache: torch.Tensor,
     b, hq, t, dh = q.shape
     hkv = k_cache.shape[1]
     qf = q.to(torch.float32).reshape(b, hkv, hq // hkv, t, dh)
-    _, l, acc = blocked_live_fold(qf, k_cache, v_cache, pos)
+    _, l, acc = blocked_live_fold(qf, _slice_seq, k_cache, v_cache, pos,
+                                  k_cache.shape[2])
     out = acc / torch.clamp(l, min=1e-38)[..., None]
     return out.reshape(b, hq, t, dh).to(q.dtype)
 
@@ -176,3 +198,336 @@ def gqa_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     probs = softmax_f32(scores, dim=-1)
     out = _einsum_f32("bhgts,bhsd->bhgtd", probs.to(v_cache.dtype), v_cache)
     return out.reshape(b, hq, t, dh).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Continuous-batching slots.  Every row of the batch belongs to its own
+# request and keeps its own clock: a row's query tokens occupy positions
+# pos_rows[r]..pos_rows[r]+T-1 and see keys up to its own causal ceiling.
+#
+# Paged KV: the pool is (L, n_pages, Hkv, page_size, Dh) — the stacked
+# layout with the batch axis generalized to physical pages and the sequence
+# axis shrunk to one page.  A slot's logical cache is one (max_pages,) int32
+# row of the page table: logical position p of slot r lives at
+# pool[:, table[r, p // ps], :, p % ps].  Physical page 0 is the scratch
+# page: table entries past a slot's reserved pages point at it, and every
+# invalid token write lands there, where no mask ever exposes it.  Writes
+# are in place (the JAX package's functional updates become index_put_).
+
+def quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-position int8 quantization over the last axis: int8 values and
+    f32 ``absmax / 127`` scales with a trailing axis of 1."""
+    xf = x.to(torch.float32)
+    scale = xf.abs().amax(dim=-1, keepdim=True) / 127.0
+    live = scale > 0
+    inv = torch.where(live, 1.0 / torch.where(live, scale, 1.0), 0.0)
+    return torch.round(xf * inv).to(torch.int8), scale
+
+
+def dequant_kv(vals: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """int8 values × f32 per-position scale → bf16 (the dot operand)."""
+    return (vals.to(torch.float32) * scale).to(torch.bfloat16)
+
+
+def update_kv_cache_rows(k_cache: torch.Tensor, v_cache: torch.Tensor,
+                         k_new: torch.Tensor, v_new: torch.Tensor,
+                         layer: int, pos_rows: torch.Tensor
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Write one layer's step KV (B, Hkv, T, Dh) into the stacked
+    (L, B, Hkv, S, Dh) caches at per-row positions (B,), in place.  Callers
+    keep ``pos_rows[r] + T <= S`` (the engine refuses a step past it)."""
+    b, _, t, _ = k_new.shape
+    rows = torch.arange(b, device=k_new.device)[:, None]
+    tpos = pos_rows.long()[:, None] + torch.arange(t, device=k_new.device)[None, :]
+    k_cache[layer][rows, :, tpos] = k_new.transpose(1, 2).to(k_cache.dtype)
+    v_cache[layer][rows, :, tpos] = v_new.transpose(1, 2).to(v_cache.dtype)
+    return k_cache, v_cache
+
+
+def _rows_ceiling_attention(q: torch.Tensor, k_l: torch.Tensor,
+                            v_l: torch.Tensor, pos_rows: torch.Tensor
+                            ) -> torch.Tensor:
+    """One-shot causal GQA over one layer's K/V (B, Hkv, S, Dh) with a
+    per-row causal ceiling: row r's token t sees keys at positions
+    ``<= pos_rows[r] + t``.  Shared by the contiguous slot read and the
+    paged gather read, so the two layouts cannot drift."""
+    b, hq, t, dh = q.shape
+    hkv, s = k_l.shape[1], k_l.shape[2]
+    g = hq // hkv
+    qc = q.reshape(b, hkv, g, t, dh).to(k_l.dtype)
+    scores = _einsum_f32("bhgtd,bhsd->bhgts", qc, k_l) / _sqrt_dh(dh)
+    s_idx = torch.arange(s, device=q.device)[None, None, :]
+    t_idx = pos_rows.long()[:, None, None] + torch.arange(t, device=q.device)[None, :, None]
+    scores = torch.where((s_idx <= t_idx)[:, None, None], scores, _NEG)
+    probs = softmax_f32(scores, dim=-1)
+    out = _einsum_f32("bhgts,bhsd->bhgtd", probs.to(v_l.dtype), v_l)
+    return out.reshape(b, hq, t, dh).to(q.dtype)
+
+
+def slot_gqa_attention_at(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
+                          layer: int, pos_rows: torch.Tensor) -> torch.Tensor:
+    """Per-row-ceiling GQA over the stacked contiguous caches at ``layer``.
+    A freed slot is reused by handing its row position 0 again: the last
+    occupant's keys sit above the new ceiling until overwritten."""
+    return _rows_ceiling_attention(q, ck[layer], cv[layer], pos_rows)
+
+
+def paged_write_indices(page_table: torch.Tensor, pos_rows: torch.Tensor,
+                        n_valid: torch.Tensor, t: int, page_size: int
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Physical (page, offset) indices, both (B, T) int32, of one slot
+    step's KV writes.  Tokens at ``t_local >= n_valid[r]`` go to scratch
+    page 0; logical pages past the table clamp into its last entry."""
+    maxp = page_table.shape[1]
+    ar = torch.arange(t, device=page_table.device)
+    tpos = pos_rows.long()[:, None] + ar[None, :]
+    valid = ar[None, :] < n_valid.long()[:, None]
+    pslot = torch.clamp(tpos // page_size, 0, maxp - 1)
+    pidx = torch.gather(page_table.long(), 1, pslot)
+    pidx = torch.where(valid, pidx, 0)
+    return pidx.to(torch.int32), (tpos % page_size).to(torch.int32)
+
+
+def paged_update_kv_rows(pool_k: torch.Tensor, pool_v: torch.Tensor,
+                         k_new: torch.Tensor, v_new: torch.Tensor, layer: int,
+                         pidx: torch.Tensor, oidx: torch.Tensor
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Scatter one layer's step KV (B, Hkv, T, Dh) into the pools
+    (L, P, Hkv, ps, Dh) at the (B, T) physical indices, in place.  Invalid
+    tokens all target scratch page 0; which of them wins is unordered, and
+    nothing reads that page unmasked."""
+    pi, oi = pidx.long(), oidx.long()
+    pool_k[layer][pi, :, oi] = k_new.transpose(1, 2).to(pool_k.dtype)
+    pool_v[layer][pi, :, oi] = v_new.transpose(1, 2).to(pool_v.dtype)
+    return pool_k, pool_v
+
+
+def paged_gather_layer(pool: torch.Tensor, layer: int, page_table: torch.Tensor,
+                       scale_pool: torch.Tensor | None = None) -> torch.Tensor:
+    """One layer's logical KV view (B, Hkv, maxp·ps, Dh) gathered through
+    the page table; ``scale_pool`` (L, P, Hkv, ps, 1) dequantizes an int8
+    pool after the gather."""
+    table = page_table.long()
+    view = pool[layer][table]  # (B, maxp, Hkv, ps, Dh)
+    b, maxp, hkv, ps, dh = view.shape
+    out = view.permute(0, 2, 1, 3, 4).reshape(b, hkv, maxp * ps, dh)
+    if scale_pool is None:
+        return out
+    sc = scale_pool[layer][table].permute(0, 2, 1, 3, 4).reshape(b, hkv, maxp * ps, 1)
+    return dequant_kv(out, sc)
+
+
+def paged_decode_attention(q: torch.Tensor, pool_k: torch.Tensor,
+                           pool_v: torch.Tensor, layer: int,
+                           page_table: torch.Tensor, pos_rows: torch.Tensor,
+                           scales: tuple[torch.Tensor, torch.Tensor] | None = None
+                           ) -> torch.Tensor:
+    """Single-token decode over the pool that walks only live pages:
+    :func:`blocked_live_fold` with the page as the block and one page
+    gather per step.  Rows whose table runs out before the longest
+    neighbor's read scratch page 0, fully masked.  ``scales`` are the int8
+    pool's (k, v) scale planes: each step dequantizes the page it read.
+    This is the plain version of the fused kernel."""
+    b, hq, t, dh = q.shape
+    hkv, ps = pool_k.shape[2], pool_k.shape[3]
+    maxp = page_table.shape[1]
+    qf = q.to(torch.float32).reshape(b, hkv, hq // hkv, t, dh)
+    table = page_table.long()
+
+    def page(pool, start, length):
+        return pool[layer, table[:, start // ps]]  # (B, Hkv, ps, Dh)
+
+    if scales is None:
+        sl, kc, vc = page, pool_k, pool_v
+    else:
+        def sl(pair, start, length):
+            return dequant_kv(page(pair[0], start, length),
+                              page(pair[1], start, length))
+
+        kc, vc = (pool_k, scales[0]), (pool_v, scales[1])
+    _, l, acc = blocked_live_fold(qf, sl, kc, vc, int(pos_rows.max()), maxp * ps,
+                                  row_pos=pos_rows, block=ps)
+    out = acc / torch.clamp(l, min=1e-38)[..., None]
+    return out.reshape(b, hq, t, dh).to(q.dtype)
+
+
+def paged_gqa_attention_at(q: torch.Tensor, pool_k: torch.Tensor,
+                           pool_v: torch.Tensor, layer: int,
+                           page_table: torch.Tensor, pos_rows: torch.Tensor,
+                           scales: tuple[torch.Tensor, torch.Tensor] | None = None,
+                           impl: str = "auto") -> torch.Tensor:
+    """Causal GQA through the page table at ``layer`` with per-row
+    ceilings.  A single token on a CUDA tensor goes to
+    :func:`fused_paged_attention` (the kernel, or its plain version when
+    ``impl="plain"``).  Otherwise the JAX package's CPU route: the page
+    walk for a single token over a long table, else the gather of the
+    logical view and the one-shot per-row-ceiling attention."""
+    t = q.shape[2]
+    s = page_table.shape[1] * pool_k.shape[3]
+    if t == 1 and q.is_cuda:
+        return fused_paged_attention(q, pool_k, pool_v, layer, page_table,
+                                     pos_rows, scales, impl=impl)
+    if _use_blocked_decode(t, s):
+        return paged_decode_attention(q, pool_k, pool_v, layer, page_table,
+                                      pos_rows, scales)
+    ks, vs = scales if scales is not None else (None, None)
+    k_l = paged_gather_layer(pool_k, layer, page_table, scale_pool=ks)
+    v_l = paged_gather_layer(pool_v, layer, page_table, scale_pool=vs)
+    return _rows_ceiling_attention(q, k_l, v_l, pos_rows)
+
+
+# ---------------------------------------------------------------------------
+# The fused paged-attention kernel (csrc/paged_attention.cu) and its wrapper.
+#
+# Counters (plain ints): ``kernel_launches`` counts launches of the kernel,
+# ``plain_calls`` calls that ran its plain version (a CPU tensor, or
+# impl="plain").  :func:`reset_counters` zeroes them.
+
+kernel_launches = 0
+plain_calls = 0
+# threads per block: must match kThreads in the source
+THREADS = 128
+# the card's shared-memory limit per block (H100: 227 KB)
+MAX_SMEM = 232448
+_QTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_KVTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_LAYER_IDS: dict[torch.device, torch.Tensor] = {}
+
+
+def reset_counters() -> None:
+    global kernel_launches, plain_calls
+    kernel_launches = plain_calls = 0
+
+
+def counters() -> dict:
+    return {"kernel_launches": kernel_launches, "plain_calls": plain_calls}
+
+
+def fused_paged_attention(q: torch.Tensor, pool_k: torch.Tensor,
+                          pool_v: torch.Tensor, layer: int,
+                          page_table: torch.Tensor, pos_rows: torch.Tensor,
+                          scales: tuple[torch.Tensor, torch.Tensor] | None = None,
+                          impl: str = "auto") -> torch.Tensor:
+    """Single-token paged GQA (T == 1) as one kernel: page-table walk,
+    in-register int8 dequant, online softmax.  A CUDA tensor launches the
+    kernel or raises; a CPU tensor, or ``impl="plain"``, runs the plain
+    version (:func:`paged_decode_attention`)."""
+    global plain_calls
+    if impl not in ("auto", "plain"):
+        raise ValueError(f"unknown paged attention impl {impl!r}")
+    if q.shape[2] != 1:
+        raise ValueError("fused paged attention is decode-only (T must be 1)")
+    if impl == "plain" or not q.is_cuda:
+        plain_calls += 1
+        return paged_decode_attention(q, pool_k, pool_v, layer, page_table,
+                                      pos_rows, scales)
+    return paged_attention(q, pool_k, pool_v, layer, page_table, pos_rows, scales)
+
+
+def smem_bytes(g: int, ps: int, dh: int) -> int:
+    """Dynamic shared memory of one block: the staged K and V page, q and
+    the accumulators of the G query heads, their page scores and
+    max/denominator/rescale (mirrors the source's carve-up)."""
+    return 4 * (2 * ps * dh + 2 * g * dh + g * ps + 3 * g)
+
+
+def _layer_index(dev: torch.device, layer: int, n_layers: int) -> torch.Tensor:
+    """A (1,) int32 device view holding ``layer``: the kernel reads the
+    layer from device memory, so the launch needs no host value that a
+    captured graph could not replay.  The index table is made once per
+    device."""
+    ids = _LAYER_IDS.get(dev)
+    if ids is None or ids.numel() < n_layers:
+        ids = torch.arange(max(n_layers, 128), dtype=torch.int32, device=dev)
+        _LAYER_IDS[dev] = ids
+    return ids[layer:layer + 1]
+
+
+def _require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(f"paged_attention: {msg}")
+
+
+def paged_attention(q: torch.Tensor, pool_k: torch.Tensor, pool_v: torch.Tensor,
+                    layer: int, page_table: torch.Tensor, pos_rows: torch.Tensor,
+                    scales: tuple[torch.Tensor, torch.Tensor] | None = None
+                    ) -> torch.Tensor:
+    """Launch the fused paged-attention kernel: q (B, Hq, 1, Dh) f32/bf16
+    against the pools (L, P, Hkv, ps, Dh) bf16/f32, or int8 with (k, v)
+    f32 scale planes (L, P, Hkv, ps, 1), through ``page_table`` (B, maxp)
+    int32 at per-row positions ``pos_rows`` (B,) int32 → (B, Hq, 1, Dh) in
+    q's dtype.  CUDA tensors only; no host sync (the page table, the
+    positions and the layer are read on the device)."""
+    global kernel_launches
+    _require(q.is_cuda, f"q must be a CUDA tensor, got device {q.device}")
+    dev = q.device
+    _require(q.dim() == 4 and q.shape[2] == 1, f"q shape {tuple(q.shape)} != (B, Hq, 1, Dh)")
+    b, hq, _, dh = q.shape
+    _require(pool_k.dim() == 5 and pool_k.shape == pool_v.shape,
+             f"pool shapes {tuple(pool_k.shape)} / {tuple(pool_v.shape)} "
+             "are not one (L, P, Hkv, ps, Dh)")
+    n_layers, n_pages, hkv, ps, dh_kv = pool_k.shape
+    _require(dh_kv == dh and 1 <= dh <= 256, f"head dim {dh_kv} vs q's {dh} (max 256)")
+    _require(hq % hkv == 0, f"{hq} query heads not a multiple of {hkv} kv heads")
+    _require(q.dtype in _QTYPES, f"q dtype {q.dtype} not float32/bfloat16")
+    _require(pool_k.dtype in _KVTYPES and pool_v.dtype == pool_k.dtype,
+             f"pool dtypes {pool_k.dtype}/{pool_v.dtype} not one of "
+             "float32/bfloat16/int8")
+    tensors = [pool_k, pool_v, page_table, pos_rows]
+    if pool_k.dtype == torch.int8:
+        _require(scales is not None, "an int8 pool needs its scale planes")
+        sk, sv = scales
+        for sc in (sk, sv):
+            _require(sc.dtype == torch.float32 and
+                     tuple(sc.shape) == (n_layers, n_pages, hkv, ps, 1),
+                     f"scale plane {sc.dtype} {tuple(sc.shape)} != float32 "
+                     f"{(n_layers, n_pages, hkv, ps, 1)}")
+        tensors += [sk, sv]
+    else:
+        _require(scales is None, f"scale planes given for a {pool_k.dtype} pool")
+    _require(page_table.dtype == torch.int32 and page_table.dim() == 2
+             and page_table.shape[0] == b,
+             f"page table {page_table.dtype} {tuple(page_table.shape)} != int32 ({b}, maxp)")
+    _require(pos_rows.dtype == torch.int32 and tuple(pos_rows.shape) == (b,),
+             f"positions {pos_rows.dtype} {tuple(pos_rows.shape)} != int32 ({b},)")
+    _require(all(x.device == dev for x in tensors), "every operand must be on q's device")
+    _require(all(x.is_contiguous() for x in tensors),
+             "pools, scales, page table and positions must be contiguous")
+    layer = int(layer)
+    _require(0 <= layer < n_layers, f"layer {layer} outside 0..{n_layers - 1}")
+    g = hq // hkv
+    smem = smem_bytes(g, ps, dh)
+    _require(smem <= MAX_SMEM, f"page of {ps}x{dh} with {g} query heads needs "
+             f"{smem} B of shared memory (max {MAX_SMEM})")
+    from . import _build
+    lib = _build.load()
+    qc = q.contiguous()
+    out = torch.empty_like(qc)
+    if b == 0:
+        return out
+    layer_t = _layer_index(dev, layer, n_layers)
+    sk_ptr = scales[0].data_ptr() if scales is not None else None
+    sv_ptr = scales[1].data_ptr() if scales is not None else None
+    inv_sqrt = float(np.float32(1.0 / np.sqrt(dh)))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        rc = lib.paged_attention(
+            qc.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), sk_ptr, sv_ptr,
+            layer_t.data_ptr(), page_table.data_ptr(), pos_rows.data_ptr(),
+            out.data_ptr(), _QTYPES[q.dtype], _KVTYPES[pool_k.dtype], b, hq, hkv,
+            ps, dh, page_table.shape[1], n_pages, n_layers, inv_sqrt, stream)
+    if rc != 0:
+        raise RuntimeError(f"paged_attention launch failed: CUDA error {rc} "
+                           f"({lib.q40_error_string(rc).decode()}) at B={b} "
+                           f"Hq={hq} Hkv={hkv} ps={ps} Dh={dh} smem={smem}")
+    kernel_launches += 1
+    return out
+
+
+def bind(lib):
+    """Declare the kernel's C signature (pointers and the stream as
+    ``c_void_p``, so ctypes never cuts a 64-bit pointer)."""
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.paged_attention.argtypes = [vp] * 9 + [ci] * 10 + [ctypes.c_float, vp]
+    lib.paged_attention.restype = ci
+    return lib

@@ -1,5 +1,6 @@
-"""Inference engine: prefill/decode + generation loop + G/I/T stats — the
-port of the batch-1 half of ``dllama_tpu/runtime/engine.py``.
+"""Inference engine: prefill/decode + generation loop + G/I/T stats, and
+the slot step of continuous batching — the port of
+``dllama_tpu/runtime/engine.py`` (batch-1 streams and the slot engine).
 
 Prefill pads the prompt up to a bucket (clamped to the cache) and runs it in
 one forward; decode runs chunks of on-device steps
@@ -11,6 +12,7 @@ it reads the clock, so I and T are the device's, not the enqueue's.
 
 from __future__ import annotations
 
+import contextlib
 import time
 from dataclasses import dataclass, field
 
@@ -20,9 +22,9 @@ import torch
 from ..device import resolve, synchronize
 from ..models.config import ModelConfig
 from ..models.params import Params, to_device
-from ..models.transformer import forward_last, init_kv_cache
+from ..models.transformer import forward_last, init_kv_cache, init_kv_pool
 from ..sampling import Sampler
-from .decode_loop import decode_chunk, device_sample
+from .decode_loop import decode_chunk, device_sample, slot_chunk
 
 
 def _next_bucket(n: int, minimum: int = 16) -> int:
@@ -91,22 +93,66 @@ class RunStats:
         return 1000.0 / g if g > 0 else 0.0
 
 
+def on_device(device: torch.device):
+    """Make ``device`` the current CUDA device for the block (work issued
+    from a thread other than the one that made the engine names its
+    card); a no-op on the CPU."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
+
+
 class Engine:
-    """One stream (batch 1): owns the params on the device, the KV cache,
-    the position and the sampling generator.  ``device`` defaults to
-    ``cuda`` (see :mod:`dllama_tpu_torch.device`)."""
+    """Owns the params on the device, the KV cache, the position and the
+    sampling generator.  ``device`` defaults to ``cuda`` (see
+    :mod:`dllama_tpu_torch.device`).
+
+    ``batch`` > 1 makes a slot engine for :meth:`slot_step_async`: each
+    row is a slot with its own clock.  ``kv_pages`` > 0 replaces its
+    per-row contiguous cache with a paged pool of that many
+    ``kv_page_size``-token pages (page 0 is scratch), addressed through
+    per-slot page tables; ``kv_dtype="q8"`` stores the pool in int8 with
+    per-position scales.  Params already on ``device`` are shared, not
+    copied, so a slot engine built from a batch-1 engine's params adds only
+    its cache."""
 
     def __init__(self, cfg: ModelConfig, params: Params,
-                 seq_len: int | None = None, kv_dtype=None, device=None):
+                 seq_len: int | None = None, kv_dtype=None, device=None,
+                 batch: int = 1, kv_pages: int = 0, kv_page_size: int = 16):
         self.device = resolve(device)
         self.cfg = cfg
+        self.batch = int(batch)
         self.seq_len = min(seq_len or cfg.seq_len, cfg.seq_len)
         self.params = to_device(params, self.device)
-        self.cache = init_kv_cache(cfg, 1, self.seq_len, dtype=kv_dtype,
-                                   device=self.device)
+        kv_quant = kv_dtype == "q8"
+        self.paged = kv_pages > 0
+        self.kv_pages = int(kv_pages)
+        self.kv_page_size = int(kv_page_size)
+        if self.paged:
+            if self.kv_pages < 2:
+                raise ValueError("kv_pages must be >= 2 (page 0 is the "
+                                 "reserved scratch page)")
+            if self.kv_page_size < 1:
+                raise ValueError(f"kv_page_size must be >= 1, got {self.kv_page_size}")
+            # per-slot table width: enough logical pages to cover seq_len
+            self.max_pages_per_slot = -(-self.seq_len // self.kv_page_size)
+            self.cache = init_kv_pool(cfg, self.kv_pages, self.kv_page_size,
+                                      dtype=None if kv_quant else kv_dtype,
+                                      quant=kv_quant, device=self.device)
+        elif kv_quant:
+            raise ValueError("the contiguous int8 KV cache is not yet ported to "
+                             "dllama_tpu_torch; int8 needs a paged pool (kv_pages)")
+        else:
+            self.cache = init_kv_cache(cfg, self.batch, self.seq_len,
+                                       dtype=kv_dtype, device=self.device)
         self.pos = 0
         #: model forwards run (prefill passes + decode steps)
         self.forwards = 0
+        #: single-token forwards of slot dispatches (each reads attention
+        #: once per layer through the decode route)
+        self.slot_decode_forwards = 0
+        #: enqueue-to-ready ms of the newest landed slot dispatch
+        self.last_slot_dispatch_ms = 0.0
         #: logits (B, V) of the newest forward, left on the device
         self.last_logits: torch.Tensor | None = None
         self._gen = torch.Generator(device=self.device)
@@ -240,6 +286,82 @@ class Engine:
             if pending is not None:
                 self._gen.set_state(pending[-1])
 
+    def slot_step_async(self, tokens_np: np.ndarray | None,
+                        pos_rows_np: np.ndarray, n_valid_np: np.ndarray, *,
+                        temps_np: np.ndarray, topps_np: np.ndarray,
+                        topks_np: np.ndarray | None = None, steps: int = 1,
+                        page_tables_np: np.ndarray | None = None,
+                        feed_dev: torch.Tensor | None = None) -> "SlotDispatch":
+        """Enqueue one continuous-batching dispatch without waiting for it:
+        row ``r`` consumes its first ``n_valid_np[r]`` tokens of
+        ``tokens_np`` (B, T) at its own positions ``pos_rows_np[r]..``,
+        then ``steps - 1`` pure decode steps run on the device
+        (:func:`decode_loop.slot_chunk`).  ``feed_dev`` (B,) replaces
+        ``tokens_np`` with a prior dispatch's on-device last row, so the
+        sampled tokens never visit the host on the input side.  A paged
+        engine needs ``page_tables_np`` (B, max_pages) int32.  Sampled
+        rows draw from the engine's generator.  Does not touch
+        ``self.pos``: the batch-1 path and the slot path may share an
+        engine as long as their uses do not overlap in time (the
+        scheduler's ``exclusive()``)."""
+        if self.paged and page_tables_np is None:
+            raise ValueError("paged engine: slot_step needs page_tables_np")
+        if not self.paged and page_tables_np is not None:
+            raise ValueError("page tables passed to a contiguous engine")
+        if feed_dev is not None:
+            if tokens_np is not None:
+                raise ValueError("feed_dev replaces tokens_np; pass one")
+            t = 1
+        elif tokens_np is None:
+            raise ValueError("slot step needs tokens_np or feed_dev")
+        else:
+            t = int(tokens_np.shape[1])
+        if steps < 1:
+            raise ValueError("steps must be positive")
+        # a write past seq_len would land outside a contiguous row (or
+        # clamp into the scratch page) — refuse instead
+        hi = max(int(np.max(pos_rows_np)) + t,
+                 int(np.max(pos_rows_np + n_valid_np)) + (steps - 1))
+        if hi > self.seq_len:
+            raise ContextOverflow(
+                f"slot step would write position {hi - 1} past seq_len "
+                f"{self.seq_len}; retire rows at the context edge first")
+        greedy = bool(np.all(temps_np == 0.0))
+        if topks_np is None:
+            topks_np = np.zeros(len(pos_rows_np), np.int32)
+        dev = self.device
+
+        def put(a, dt):
+            return torch.tensor(np.asarray(a), dtype=dt, device=dev)
+
+        t0 = time.perf_counter()
+        with on_device(dev):
+            toks = (feed_dev.to(torch.int32)[:, None] if feed_dev is not None
+                    else put(tokens_np, torch.int32))
+            ptab = put(page_tables_np, torch.int32) if self.paged else None
+            toks_dev, self.cache, last_dev, logits = slot_chunk(
+                self.params, self.cfg, self.cache, toks,
+                put(pos_rows_np, torch.int32), put(n_valid_np, torch.int32),
+                self._gen, put(temps_np, torch.float32),
+                put(topps_np, torch.float32), put(topks_np, torch.int32),
+                steps=steps, greedy=greedy, page_table=ptab)
+        self.forwards += steps
+        self.slot_decode_forwards += steps if t == 1 else steps - 1
+        self.last_logits = logits
+        return SlotDispatch(self, toks_dev, last_dev, t=t, steps=steps,
+                            enqueued_at=t0)
+
+    def slot_step(self, tokens_np: np.ndarray, pos_rows_np: np.ndarray,
+                  n_valid_np: np.ndarray, *, temps_np: np.ndarray,
+                  topps_np: np.ndarray, topks_np: np.ndarray | None = None,
+                  steps: int = 1, page_tables_np: np.ndarray | None = None
+                  ) -> np.ndarray:
+        """:meth:`slot_step_async`, then wait: the sampled ids (steps, B)."""
+        return self.slot_step_async(
+            tokens_np, pos_rows_np, n_valid_np, temps_np=temps_np,
+            topps_np=topps_np, topks_np=topks_np, steps=steps,
+            page_tables_np=page_tables_np).wait()
+
     def generate(self, prompt_tokens: list[int], steps: int, sampler: Sampler,
                  eos_ids: tuple[int, ...] = ()):
         """Yield ``(token_id, stats)`` for up to ``steps`` tokens with the
@@ -260,3 +382,33 @@ class Engine:
                 return
             logits, stats = self.decode_one(token)
             token = int(sampler.sample(logits[0]))
+
+
+class SlotDispatch:
+    """Completion handle of one :meth:`Engine.slot_step_async` dispatch:
+    ``tokens_dev`` is the (steps, B) sampled-id tensor, ``last_dev`` the
+    (B,) final row kept on the device for a ``feed_dev`` successor.
+    ``wait()`` (idempotent) is the one device→host transfer a dispatch
+    pays; it stamps the engine's ``last_slot_dispatch_ms``."""
+
+    __slots__ = ("_engine", "tokens_dev", "last_dev", "t", "steps",
+                 "enqueued_at", "ready_at", "_out")
+
+    def __init__(self, engine, tokens_dev, last_dev, *, t: int, steps: int,
+                 enqueued_at: float):
+        self._engine = engine
+        self.tokens_dev = tokens_dev
+        self.last_dev = last_dev
+        self.t = t
+        self.steps = steps
+        self.enqueued_at = enqueued_at  # perf_counter at enqueue
+        self.ready_at: float | None = None
+        self._out: np.ndarray | None = None
+
+    def wait(self) -> np.ndarray:
+        """Block until the dispatch lands; returns the (steps, B) ids."""
+        if self._out is None:
+            self._out = self.tokens_dev.cpu().numpy()
+            self.ready_at = time.perf_counter()
+            self._engine.last_slot_dispatch_ms = (self.ready_at - self.enqueued_at) * 1e3
+        return self._out

@@ -1,0 +1,572 @@
+"""Continuous-batching slot scheduler over the slot engine — a trimmed copy
+of ``dllama_tpu/runtime/scheduler.py`` in its ``overlap=False``,
+``kv_reserve="full"`` configuration.
+
+One daemon thread owns the ``--batch-slots`` engine and drives
+:meth:`Engine.slot_step_async`, admitting a waiting request into any free
+slot between dispatches and retiring finished ones without disturbing
+their neighbors (iteration-level scheduling, Orca OSDI'22 / vLLM
+SOSP'23).  Per dispatch:
+
+* every active slot is either **prefilling** (its prompt feeds in chunks
+  of ``prefill_chunk`` tokens, riding the same mixed forward as its
+  neighbors' decode tokens) or **decoding** (feeds its previous sample);
+* when no slot is mid-prefill, decode runs in on-device bursts
+  (``steps > 1``), clamped so queued work waits at most ~``max_wait_ms``;
+* a freed slot is reused by handing its row position 0 again: the last
+  occupant's KV sits above the newcomer's causal ceiling, so the cache is
+  never zeroed.
+
+Paged engines (``engine.kv_pages > 0``) reserve every page a request can
+touch at admission (prompt + budget), so a dispatch never fails on
+allocation and exhaustion surfaces as queueing.  With ``prefix_reuse`` a
+radix tree over full prompt pages lets a later prompt with the same prefix
+bind those pages copy-free and prefill only its suffix.
+
+Each request gets a :class:`Ticket`, a thread-safe token stream the HTTP
+handler consumes.  Cancellation (disconnect, stop string, deadline) takes
+effect at the next step boundary.  A failed dispatch retires every active
+slot with the error and the loop keeps serving.  Greedy requests produce
+the same tokens whichever slot they land in and whatever their neighbors
+do; sampled requests draw from the engine's shared generator, so their
+draws depend on co-scheduling.
+
+Left out of the copy (``ROADMAP.md``): the overlapped two-deep pipeline,
+priorities and preemption, parking, KV spill and tiering, hand-off and
+snapshots, speculative decoding, and the observability calls.  ``stats``
+keeps plain counters in their place.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import logging
+import queue
+import threading
+import time
+from collections import deque
+
+import numpy as np
+
+from .engine import ContextOverflow
+from .pagepool import PagePool, PagePoolExhausted, RadixTree
+
+_log = logging.getLogger("dllama_tpu_torch.runtime.scheduler")
+
+_DONE = object()  # ticket stream terminator
+
+
+class SchedulerClosed(RuntimeError):
+    """submit() after begin_drain()/close(): no new work is admitted."""
+
+
+class SchedulerSaturated(RuntimeError):
+    """submit() with the wait queue at its bound (the server answers 429)."""
+
+
+class Ticket:
+    """One request's handle: a token stream plus the finish verdict.
+    Produced by the scheduler thread, consumed by the HTTP handler
+    thread; ``cancel`` may be called from either side."""
+
+    def __init__(self, prompt, max_new, temperature, top_p, eos_ids,
+                 deadline, top_k: int = 0):
+        self.prompt = list(prompt)
+        self.max_new = int(max_new)
+        self.temperature = float(temperature)
+        self.top_p = float(top_p)
+        self.top_k = int(top_k)
+        self.eos_ids = tuple(eos_ids)
+        self.deadline = deadline  # time.monotonic() or None
+        # finish: stop/length/timeout/aborted/error
+        self.finish: str | None = None
+        self.error: BaseException | None = None
+        self.slot: int | None = None
+        self.submitted_at = time.monotonic()
+        #: monotonic time of the first completion token (time to first token)
+        self.first_token_at: float | None = None
+        #: prompt tokens this request fed through the model (a prefix-cache
+        #: hit skips the rest)
+        self.prefilled = 0
+        self.stop: list[str] = []
+        self.emitted: list[int] = []
+        self._q: queue.SimpleQueue = queue.SimpleQueue()
+        self._cancel: str | None = None
+        self._on_cancel = None  # scheduler wakeup, bound at submit
+        self._page_deferred = False
+
+    def cancel(self, reason: str = "aborted") -> None:
+        """Retire this request at the next step boundary (idempotent).  A
+        queued ticket is dropped without ever occupying a slot."""
+        if self._cancel is None and self.finish is None:
+            self._cancel = reason
+            if self._on_cancel is not None:
+                self._on_cancel()
+
+    def tokens(self):
+        """Yield completion token ids until the request retires; then
+        ``finish`` holds the verdict.  A scheduler-side failure re-raises
+        here, on the consumer's thread."""
+        while True:
+            item = self._q.get()
+            if item is _DONE:
+                break
+            yield item
+        if self.error is not None:
+            raise self.error
+
+
+class _Slot:
+    __slots__ = ("ticket", "pos", "fed", "produced", "last", "pages",
+                 "prefix_tokens", "inserted")
+
+    def __init__(self):
+        self.ticket: Ticket | None = None
+        self.pos = 0        # this row's cache clock
+        self.fed = 0        # prompt tokens consumed so far
+        self.produced = 0   # completion tokens emitted
+        self.last = 0       # previous sample (decode feedback)
+        self.pages: list[int] = []   # paged mode: owned pool pages
+        self.prefix_tokens = 0       # prompt tokens bound from the radix tree
+        self.inserted = False        # prompt pages handed to the tree yet?
+
+
+class _Pending:
+    """One in-flight dispatch: the engine's completion handle plus who rode
+    it and with how many valid tokens each."""
+
+    __slots__ = ("handle", "error", "active", "steps", "n_valid", "enq_tp")
+
+    def __init__(self, **kw):
+        for k in self.__slots__:
+            setattr(self, k, kw.get(k))
+
+
+class SlotScheduler:
+    """Owns the batch engine; see the module docstring.  ``max_queue``
+    bounds requests waiting for a slot (beyond it submit() raises
+    :class:`SchedulerSaturated`)."""
+
+    def __init__(self, engine, *, prefill_chunk: int = 16,
+                 max_wait_ms: float = 50.0, decode_burst: int = 16,
+                 max_queue: int = 32, prefix_reuse: bool = True):
+        if engine.cache.quantized and not engine.paged:
+            raise ValueError("slot scheduling needs a dense or paged-int8 KV cache")
+        self.engine = engine
+        self.slots = [_Slot() for _ in range(engine.batch)]
+        self.prefill_chunk = max(1, int(prefill_chunk))
+        self.max_wait_ms = float(max_wait_ms)
+        self.decode_burst = max(1, int(decode_burst))
+        self.max_queue = max(1, int(max_queue))
+        self.paged = bool(engine.paged)
+        self.pool: PagePool | None = None
+        self.prefix_cache: RadixTree | None = None
+        if self.paged:
+            self.pool = PagePool(engine.kv_pages, engine.kv_page_size)
+            if prefix_reuse:
+                self.prefix_cache = RadixTree(self.pool)
+            self._page_tables = np.zeros(
+                (engine.batch, engine.max_pages_per_slot), np.int32)
+        #: plain counters: dispatches, prefill tokens fed, prefix-cache hits
+        #: and the prompt tokens they skipped, admissions deferred for pages
+        self.stats = {"dispatches": 0, "prefill_tokens": 0, "prefix_hits": 0,
+                      "prefix_tokens_reused": 0, "kv_pool_exhausted": 0}
+        self._queue: deque[Ticket] = deque()
+        self._cond = threading.Condition()
+        self._draining = False
+        self._stop = False
+        self._idle = threading.Event()  # set while paused with empty slots
+        self._paused = 0
+        self._step_ms_ema: float | None = None
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="dllama-torch-slot-scheduler")
+        self._thread.start()
+
+    # -- submission-side API -------------------------------------------
+    def submit(self, prompt: list[int], max_new: int, *,
+               temperature: float = 0.0, top_p: float = 0.9,
+               top_k: int = 0, eos_ids: tuple[int, ...] = (),
+               deadline: float | None = None) -> Ticket:
+        """Queue one request; returns its :class:`Ticket` immediately.
+        ``deadline`` is a ``time.monotonic()`` instant; an expired request
+        retires with finish ``timeout`` and what it produced."""
+        if not prompt:
+            raise ValueError("empty prompt")
+        if max_new < 1:
+            raise ValueError("max_new must be positive")
+        if self.pool is not None:
+            # a reservation larger than the whole pool would wait forever:
+            # a sizing error, not transient saturation
+            need = min(len(prompt) + max_new, self.engine.seq_len)
+            n_pages = -(-need // self.pool.page_size)
+            if n_pages > self.pool.capacity:
+                raise ContextOverflow(
+                    f"request needs {n_pages} KV pages but the pool has "
+                    f"{self.pool.capacity}; raise --kv-pages or shorten the request")
+        t = Ticket(prompt, max_new, temperature, top_p, eos_ids, deadline,
+                   top_k=top_k)
+        with self._cond:
+            if self._stop or self._draining:
+                raise SchedulerClosed("scheduler is draining")
+            # admission runs on the scheduler thread: tickets that free
+            # slots will absorb at once do not count against the bound
+            free = sum(1 for s in self.slots if s.ticket is None)
+            if len(self._queue) >= self.max_queue + (0 if self._paused else free):
+                raise SchedulerSaturated(f"{len(self._queue)} requests already waiting")
+            t._on_cancel = self._wake
+            self._queue.append(t)
+            self._cond.notify_all()
+        return t
+
+    def occupancy(self) -> dict:
+        """Live state for /health and the over-capacity error body."""
+        with self._cond:
+            out = {"slots": len(self.slots),
+                   "active": sum(1 for s in self.slots if s.ticket is not None),
+                   "queued": len(self._queue)}
+            if self.pool is not None:
+                out["kv_pages_total"] = self.pool.capacity
+                out["kv_pages_free"] = self.pool.available
+                if self.prefix_cache is not None:
+                    out["prefix_nodes"] = len(self.prefix_cache)
+            out.update(self.stats)
+            return out
+
+    def begin_drain(self, deadline: float | None) -> None:
+        """Stop admitting and clamp every live and queued deadline."""
+        with self._cond:
+            self._draining = True
+            for t in list(self._queue) + [s.ticket for s in self.slots
+                                          if s.ticket is not None]:
+                t.deadline = min(t.deadline, deadline) \
+                    if (t.deadline and deadline) else (t.deadline or deadline)
+            self._cond.notify_all()
+
+    def close(self, timeout: float = 5.0) -> None:
+        """Stop the loop; still-live tickets retire as ``aborted``."""
+        with self._cond:
+            self._stop = True
+            self._cond.notify_all()
+        self._thread.join(timeout)
+
+    @contextlib.contextmanager
+    def exclusive(self):
+        """Park the scheduler until every slot has retired, so the caller
+        may run other work on the card (the server's batch-1 mutex path).
+        Admission pauses; queued requests keep their place."""
+        with self._cond:
+            self._paused += 1
+            self._cond.notify_all()
+        self._idle.wait()
+        try:
+            yield
+        finally:
+            with self._cond:
+                self._paused -= 1
+                if self._paused == 0:
+                    self._idle.clear()
+                self._cond.notify_all()
+
+    def _wake(self):
+        with self._cond:
+            self._cond.notify_all()
+
+    # -- scheduler thread ----------------------------------------------
+    def _retire(self, slot_idx: int, reason: str,
+                error: BaseException | None = None) -> None:
+        s = self.slots[slot_idx]
+        t = s.ticket
+        if t is None:
+            return
+        t.finish = reason
+        t.error = error
+        s.ticket = None
+        if self.pool is not None and s.pages:
+            # drop this slot's references; pages the radix tree retained
+            # stay live for the next matching prompt
+            self.pool.decref(s.pages)
+            s.pages = []
+            self._page_tables[slot_idx][:] = 0
+        _log.debug("slot %d retire: %s after %d tokens", slot_idx, reason, s.produced)
+        t._q.put(_DONE)
+
+    def _fail_ticket(self, t: Ticket, reason: str,
+                     error: BaseException | None = None) -> None:
+        t.finish = reason
+        t.error = error
+        t._q.put(_DONE)
+
+    def _bind_pages(self, slot_idx: int, t: Ticket) -> bool:
+        """Paged admission: match the prompt against the radix tree, then
+        reserve every page the request can touch (matched prefix + fresh
+        pages through ``min(len(prompt) + max_new, seq_len)``).  Returns
+        False, binding nothing, when the pool cannot supply them: the
+        request stays queued.  Caller holds the lock."""
+        pool = self.pool
+        ps = pool.page_size
+        prompt = t.prompt
+        matched, shared = 0, []
+        if self.prefix_cache is not None:
+            matched, shared = self.prefix_cache.match(prompt)
+            # leave >= 1 prompt token to feed: the forward over the suffix
+            # is what samples the first token
+            while matched >= len(prompt):
+                matched -= ps
+                shared = shared[:-1]
+        # reference the shared pages BEFORE any allocation/eviction, so the
+        # evictor cannot free a page this admission just matched
+        pool.incref(shared)
+        need_len = min(len(prompt) + t.max_new, self.engine.seq_len)
+        fresh = -(-need_len // ps) - len(shared)
+        try:
+            new_pages = pool.alloc(fresh)
+        except PagePoolExhausted:
+            new_pages = None
+            if self.prefix_cache is not None:
+                self.prefix_cache.evict(fresh - pool.available)
+                try:
+                    new_pages = pool.alloc(fresh)
+                except PagePoolExhausted:
+                    pass
+        if new_pages is None:
+            pool.decref(shared)
+            if not t._page_deferred:
+                t._page_deferred = True
+                self.stats["kv_pool_exhausted"] += 1
+                _log.info("kv pool exhausted: need %d pages, %d free", fresh,
+                          pool.available)
+            return False
+        s = self.slots[slot_idx]
+        s.pages = list(shared) + new_pages
+        s.prefix_tokens = matched
+        s.inserted = False
+        # the page-table row: reserved pages first, scratch page 0 after
+        row = self._page_tables[slot_idx]
+        row[:] = 0
+        row[:len(s.pages)] = s.pages
+        if matched:
+            self.stats["prefix_hits"] += 1
+            self.stats["prefix_tokens_reused"] += matched
+        return True
+
+    def _admit_locked(self, now: float) -> None:
+        """Move waiting tickets into free slots in arrival order (caller
+        holds the lock).  A ticket that cannot get its pages keeps the head
+        of the queue and admission stops for the round."""
+        while self._queue:
+            t = self._queue[0]
+            if t._cancel is not None or (t.deadline is not None
+                                         and now >= t.deadline):
+                self._queue.popleft()
+                self._fail_ticket(t, t._cancel or "timeout")
+                continue
+            free = next((i for i, s in enumerate(self.slots)
+                         if s.ticket is None), None)
+            if free is None:
+                return
+            if self.pool is not None and not self._bind_pages(free, t):
+                return
+            self._queue.popleft()
+            s = self.slots[free]
+            s.ticket = t
+            # a prefix hit's matched tokens are already in the cache
+            # (shared pages): the clock starts past them
+            s.pos = s.fed = s.prefix_tokens if self.pool is not None else 0
+            s.produced = 0
+            s.last = 0
+            t.slot = free
+            _log.debug("slot %d join: %d prompt tokens, %d reused, queued %.1f ms",
+                       free, len(t.prompt), s.pos, (now - t.submitted_at) * 1e3)
+
+    def _active(self) -> list[int]:
+        return [i for i, s in enumerate(self.slots) if s.ticket is not None]
+
+    def _run(self) -> None:
+        try:
+            while True:
+                with self._cond:
+                    now = time.monotonic()
+                    # honor cancels/deadlines first so their slots free up
+                    for i in self._active():
+                        t = self.slots[i].ticket
+                        if t._cancel is not None:
+                            self._retire(i, t._cancel)
+                        elif t.deadline is not None and now >= t.deadline:
+                            self._retire(i, "timeout")
+                    for t in [q for q in self._queue
+                              if q._cancel is not None
+                              or (q.deadline is not None and now >= q.deadline)]:
+                        self._queue.remove(t)
+                        self._fail_ticket(t, t._cancel or "timeout")
+                    if not self._paused:
+                        self._admit_locked(now)
+                    active = self._active()
+                    queued = len(self._queue)
+                    if self._stop:
+                        return
+                    if not active:
+                        if self._paused:
+                            self._idle.set()
+                        # submissions, cancels and close notify at once; the
+                        # timeout only has to cover the earliest queued
+                        # deadline (a paused scheduler holds its queue)
+                        timeout = 0.5
+                        dls = [t.deadline for t in self._queue if t.deadline is not None]
+                        if dls:
+                            timeout = min(timeout, max(min(dls) - now, 0.0))
+                        self._cond.wait(timeout)
+                        continue
+                self._dispatch(active, queued)
+        except BaseException:  # the loop must not die silently
+            _log.exception("scheduler loop failed")
+            raise
+        finally:
+            with self._cond:
+                for i in self._active():
+                    self._retire(i, "aborted")
+                while self._queue:
+                    self._fail_ticket(self._queue.popleft(), "aborted")
+                self._idle.set()
+
+    def _dispatch(self, active: list[int], queued: int) -> None:
+        """One synchronous dispatch round: enqueue, land, fan out.  Zero
+        dispatches are in flight when this returns, so admission and
+        ``exclusive()`` happen at a plain step boundary."""
+        self._land_and_fanout(self._enqueue_first(active, queued))
+
+    def _enqueue_first(self, active: list[int], queued: int) -> _Pending:
+        """Build and enqueue the round's dispatch without blocking on the
+        device."""
+        eng = self.engine
+        b = eng.batch
+        slots = self.slots
+        prefilling = [i for i in active
+                      if slots[i].fed < len(slots[i].ticket.prompt)]
+        room = min(eng.seq_len - slots[i].pos for i in active)
+        # both dispatch dimensions are rounded down to a power of two: a
+        # few distinct shapes, each reused (the JAX package compiles one
+        # program per shape; here it keeps step times comparable)
+        if prefilling:
+            # mixed step: prefill chunks ride with the decode rows' single
+            # tokens; steps=1 keeps every row's clock advancing by n_valid
+            t_width = min(self.prefill_chunk, room,
+                          max(len(slots[i].ticket.prompt) - slots[i].fed
+                              for i in prefilling))
+            t_width = 1 << (t_width.bit_length() - 1)
+            steps = 1
+        else:
+            # pure decode: burst on the device, clamped so no row outruns
+            # the context edge and queued work waits ~max_wait_ms at most;
+            # a row that hits its budget mid-burst retires and the fanout
+            # discards its overrun
+            t_width = 1
+            steps = min(self.decode_burst, room)
+            if queued and self._step_ms_ema:
+                steps = min(steps, max(1, int(self.max_wait_ms / self._step_ms_ema)))
+            steps = max(1, steps)
+            steps = 1 << (steps.bit_length() - 1)
+
+        tokens = np.zeros((b, t_width), np.int32)
+        n_valid = np.ones((b,), np.int32)
+        pos_rows = np.zeros((b,), np.int32)
+        temps = np.zeros((b,), np.float32)
+        topps = np.full((b,), 0.9, np.float32)
+        topks = np.zeros((b,), np.int32)
+        for i in active:
+            s = slots[i]
+            pos_rows[i] = s.pos
+            temps[i] = s.ticket.temperature
+            topps[i] = s.ticket.top_p
+            topks[i] = s.ticket.top_k
+            if s.fed < len(s.ticket.prompt):
+                c = min(t_width, len(s.ticket.prompt) - s.fed)
+                tokens[i, :c] = s.ticket.prompt[s.fed:s.fed + c]
+                n_valid[i] = c
+            else:
+                tokens[i, 0] = s.last
+        handle, error = None, None
+        try:
+            handle = eng.slot_step_async(
+                tokens, pos_rows, n_valid, temps_np=temps, topps_np=topps,
+                topks_np=topks, steps=steps,
+                page_tables_np=self._page_tables if self.paged else None)
+        except Exception as e:
+            error = e
+        return _Pending(handle=handle, error=error, active=list(active),
+                        steps=steps, n_valid=n_valid, enq_tp=time.perf_counter())
+
+    def _land_and_fanout(self, cur: _Pending) -> bool:
+        """Block until ``cur``'s tokens land and fan them out to their
+        tickets.  Returns False when the dispatch failed: every active
+        slot retires with the error (stale cache garbage sits above future
+        occupants' ceilings) and the loop keeps serving."""
+        error, out = cur.error, None
+        if error is None:
+            try:
+                out = cur.handle.wait()
+            except Exception as e:
+                error = e
+        wall_ms = (time.perf_counter() - cur.enq_tp) * 1e3
+        self.stats["dispatches"] += 1
+        if error is not None:
+            _log.error("slot dispatch failed: %r", error)
+            with self._cond:
+                for i in self._active():
+                    self._retire(i, "error", error=error)
+            return False
+        self._note_step_time(wall_ms, cur.steps)
+        # the fanout holds _cond: slot clocks and tickets are never seen
+        # half-advanced from another thread
+        with self._cond:
+            self._fanout(cur.active, cur.steps, out, cur.n_valid)
+        return True
+
+    def _note_step_time(self, wall_ms: float, steps: int) -> None:
+        """Fold one dispatch's per-step wall into the EMA that clamps burst
+        size under queue pressure."""
+        step_ms = wall_ms / max(1, steps)
+        self._step_ms_ema = step_ms if self._step_ms_ema is None \
+            else 0.8 * self._step_ms_ema + 0.2 * step_ms
+
+    def _fanout(self, active: list[int], steps: int, out, n_valid) -> None:
+        """Distribute one dispatch's sampled tokens to their tickets and
+        advance the slot clocks.  Caller holds ``self._cond``."""
+        eng = self.engine
+        slots = self.slots
+        for j in range(steps):
+            for i in active:
+                s = slots[i]
+                t = s.ticket
+                if t is None:  # retired earlier this burst
+                    continue
+                tok = int(out[j, i])
+                if j == 0 and s.fed < len(t.prompt):
+                    s.fed += int(n_valid[i])
+                    s.pos += int(n_valid[i])
+                    t.prefilled += int(n_valid[i])
+                    self.stats["prefill_tokens"] += int(n_valid[i])
+                    if s.fed < len(t.prompt):
+                        continue  # mid-prefill: the sample means nothing yet
+                    # prefill just completed: this sample is the first
+                    # completion token.  The prompt's full pages are now
+                    # written for good, so they become shareable.
+                    if self.prefix_cache is not None and not s.inserted:
+                        s.inserted = True
+                        n_full = len(t.prompt) // self.pool.page_size
+                        if n_full:
+                            self.prefix_cache.insert(
+                                t.prompt[:n_full * self.pool.page_size],
+                                s.pages[:n_full])
+                else:
+                    s.pos += 1
+                s.last = tok
+                if tok in t.eos_ids:
+                    self._retire(i, "stop")
+                    continue
+                if t.first_token_at is None:
+                    t.first_token_at = time.monotonic()
+                s.produced += 1
+                t.emitted.append(tok)
+                t._q.put(tok)
+                if s.produced >= t.max_new or s.pos >= eng.seq_len:
+                    self._retire(i, "length")

@@ -28,6 +28,9 @@ class Tokenizer:
         self.scores: list[float] = data.scores
         self.bos_id = data.bos_id
         self.eos_id = data.eos_id
+        self.chat_eos_id = data.chat_eos_id
+        self.chat_template = data.chat_template
+        self.chat_stop = data.chat_stop
         self.vocab_size = data.vocab_size
         self._index: dict[bytes, int] = {}
         # first occurrence wins, matching a binary search over a vocab

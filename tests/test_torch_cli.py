@@ -91,18 +91,30 @@ def test_cuda_request_without_cuda_fails(model_files):
 
 
 def test_port_never_imports_jax_or_dllama_tpu(model_files):
-    """Import every module of the port, run its CLI, then look at
-    sys.modules: no jax, no dllama_tpu."""
+    """Import every module of the port, run its CLI and serve one request
+    through its API server's slot scheduler, then look at sys.modules: no
+    jax, no dllama_tpu."""
     m, t = model_files
     code = f"""
-import importlib, pkgutil, sys
+import importlib, json, pkgutil, sys, urllib.request
 import dllama_tpu_torch
 for mod in pkgutil.walk_packages(dllama_tpu_torch.__path__, "dllama_tpu_torch."):
     if not mod.name.endswith("__main__"):
         importlib.import_module(mod.name)
+for name in ("server.api", "runtime.scheduler", "runtime.pagepool", "runtime.stream",
+             "tokenizer.chat", "tokenizer.eos", "server.backoff"):
+    assert "dllama_tpu_torch." + name in sys.modules, name
 from dllama_tpu_torch import cli
 cli.main(["generate", "--model", {m!r}, "--tokenizer", {t!r}, "--prompt", "hello",
           "--steps", "6", "--temperature", "0", "--device", "cpu"])
+from dllama_tpu_torch.server import api
+srv = api.start(["--model", {m!r}, "--tokenizer", {t!r}, "--device", "cpu", "--port", "0",
+                 "--host", "127.0.0.1", "--batch-slots", "2", "--kv-pages", "40",
+                 "--kv-page-size", "4"])
+req = urllib.request.Request(f"http://127.0.0.1:{{srv.server_address[1]}}/v1/completions",
+                             json.dumps({{"prompt": "hi", "max_tokens": 4}}).encode())
+assert urllib.request.urlopen(req, timeout=60).status == 200
+api.stop(srv)
 bad = sorted(k for k in sys.modules
              if k.split(".")[0] in ("jax", "jaxlib", "dllama_tpu"))
 print("FOREIGN", bad)
