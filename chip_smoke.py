@@ -6,14 +6,14 @@
 Phases (each prints its seconds; any failure exits non-zero):
 
 1. card and build — the card's name and power limit from nvidia-smi, TF32
-   off for matmuls and cuDNN, the Q40 kernel built with nvcc from
-   ``dllama_tpu_torch/ops/csrc``.
-2. kernel against its plain version at the five Llama-2-7B matmul shapes
-   (wqkv, wo, w13, w2 stacked; wcls flat) for t in {1, 16, 128}, stacked
-   calls at layers 0 and L-1, random packed planes from a numpy seed:
-   max|kernel - plain| <= KERNEL_TOL * max|plain|.  Times the kernel, the
-   plain version and torch.matmul on the pre-dequantized bf16 weight (a
-   yardstick the port never calls), each launch on a cold L2.
+   off for matmuls and cuDNN, the kernels built with nvcc from
+   ``dllama_tpu_torch/ops/csrc`` (one process per source).
+2. Q40 kernel against its plain version at the five Llama-2-7B matmul
+   shapes (wqkv, wo, w13, w2 stacked; wcls flat) for t in {1, 16, 128},
+   stacked calls at layers 0 and L-1, random packed planes made on the card
+   from a seed: max|kernel - plain| <= KERNEL_TOL * max|plain|.  Times the
+   kernel, the plain version and torch.matmul on the pre-dequantized bf16
+   weight (a yardstick the port never calls), each launch on a cold L2.
 3. the main path at full width: a Llama-2-7B-shaped Q40 model synthesized
    from a seed (random nibbles, constant f16 scale 0.008; no weights needed),
    ``inference --temperature 0 --steps 64 --chunk 16 --warmup 16`` on cuda
@@ -23,7 +23,8 @@ Phases (each prints its seconds; any failure exits non-zero):
    idle share, and the kernels that take the time.
 4. a few requests: ``generate`` with three prompts, two greedy (each run
    twice, byte-identical) and one at temperature 0.8 seed 1; every run ends
-   on finite logits.
+   on finite logits.  On the phase-5 model (7B width, 2 layers): five
+   loads of the 32-layer file took most of the script's time.
 5. kernel path against plain path end to end: the same 7B-width model cut
    to 2 layers, prefill + 8 teacher-forced decode steps; logits agree within
    E2E_TOL * max|plain| and greedy tokens agree wherever the plain top-2
@@ -35,6 +36,8 @@ Phases (each prints its seconds; any failure exits non-zero):
    ATTN_TOL * max|plain|.  Times the kernel (cold L2), the plain version
    and torch's scaled_dot_product_attention on the K/V pre-gathered to
    contiguous bf16 with a per-row mask (a yardstick the port never calls).
+   Then the bf16 pool at Mixtral's shape: 32 query heads on 8 kv heads
+   (G = 4 query heads a block).
 7. the serving path at full width: the API server in-process on the
    phase-3 model (--batch-slots 8 --kv-pages 513 --kv-page-size 16
    --sched-prefill-chunk 16) answers 16 concurrent greedy requests (prompts
@@ -52,9 +55,31 @@ Phases (each prints its seconds; any failure exits non-zero):
    chunk + 8 teacher-forced decode steps, kernels (``auto``) against
    ``quant_impl = attn_impl = "plain"``: logits within E2E_TOL and greedy
    agreement where the margin is decisive.
+9. the Q80 kernel against its plain version as in phase 2: the five 7B
+   sites, Mixtral's wqkv and experts (up/gate 4096->14336, down
+   14336->4096) in an (8 layers, 8 experts) stack at flat indices 0 and
+   63, Grok-1's experts (6144->32768, 32768->6144) in a (2, 8) stack; the
+   expert planes addressed by an int32 index on the card.  Then the Q40
+   kernel at Mixtral's shapes through the same device index.
+10. Q80 Llama-2-7B at full width and depth: ``inference`` as in phase 3;
+   the Q80 counters show exactly 129 kernel launches a forward and no
+   plain call; the profiler split and the peak memory.
+11. Mixtral-8x7B (mistralai/Mixtral-8x7B-v0.1's published shape) in Q40,
+   cut to 8 of its 32 layers, context cut to 4096: ``inference`` as in
+   phase 3 with exactly 8 * 8 + 1 = 65 Q40 launches a single-token forward
+   (wqkv, wo, 2 experts x 3 a layer, wcls) and no plain call; the
+   decode-route MoE FFN (1 and 3 tokens) under
+   ``torch.cuda.set_sync_debug_mode("error")``, so the experts chosen on
+   the card are never read by the host, against its plain version; then
+   the API server as in phase 7 with 8 requests.
+12. MoE kernels against plain versions end to end: Mixtral width cut to 2
+   layers, Q40 and Q80, the phase-5 and phase-8 checks (batch-1 and slot
+   paths, both MoE routes: all experts for the prompt, the selected ones
+   for decode).
 
-``--only 1,6`` runs a subset of the phases (for bring-up; it prints no
-result lines).  Prints the kernel table as one JSON line before the last
+They run in the order 1, 2, 9, 6, 3, 4, 5, 8, 7, 10, 11, 12; each
+synthesized model is deleted when its phases end.  ``--only 1,6``
+runs a subset of the phases (for bring-up; it prints no result lines).  Prints the kernel table as one JSON line before the last
 line; the last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -91,16 +116,31 @@ KERNEL_TOL = 1e-3
 E2E_TOL = 3e-2
 
 LLAMA2_7B = dict(dim=4096, hidden_dim=11008, n_layers=32, n_heads=32,
-                 n_kv_heads=32, vocab_size=32000, seq_len=4096)
+                 n_kv_heads=32, vocab_size=32000, seq_len=4096, rope_theta=10000.0)
+# mistralai/Mixtral-8x7B-v0.1's published config; run cut to 8 of its 32
+# layers (a ~7 GB file to write and load) and to a 4096-token context
+MIXTRAL_8X7B = dict(dim=4096, hidden_dim=14336, n_layers=32, n_heads=32,
+                    n_kv_heads=8, n_experts=8, n_active_experts=2,
+                    vocab_size=32000, seq_len=32768, rope_theta=1e6)
+MIXTRAL_LAYERS = 8
+MIXTRAL_CTX = "4096"
 SRC = "dllama_tpu_torch/ops/csrc/q40_matmul.cu"
-# (site, n, d, stacked, the TPU kernel it replaces)
-SHAPES = [("wqkv", 4096, 12288, True, "dllama_tpu/ops/q40.py:449"),
-          ("wo", 4096, 4096, True, "dllama_tpu/ops/q40.py:449"),
-          ("w13", 4096, 22016, True, "dllama_tpu/ops/q40.py:449"),
-          ("w2", 11008, 4096, True, "dllama_tpu/ops/q40.py:449"),
-          ("wcls", 4096, 32000, False, "dllama_tpu/ops/q40.py:330")]
-ROWS = (1, 16, 128)
+Q8_SRC = "dllama_tpu_torch/ops/csrc/q8_matmul.cu"
+# the TPU kernels replaced: (2-D plane, stacked planes)
+Q40_REPLACES = ("dllama_tpu/ops/q40.py:330", "dllama_tpu/ops/q40.py:449")
+Q8_REPLACES = ("dllama_tpu/ops/q8.py:192", "dllama_tpu/ops/q8.py:220")
 STACK_L = 3
+# (site, n, d, leading dims of the stacked planes): one stacked dim is a
+# layer stack read at int layers 0 and L-1; two are a (layers, experts)
+# stack read at flat indices 0 and L*E-1 given as an int32 on the card
+LLAMA_SITES = [("wqkv", 4096, 12288, (STACK_L,)), ("wo", 4096, 4096, (STACK_L,)),
+               ("w13", 4096, 22016, (STACK_L,)), ("w2", 11008, 4096, (STACK_L,)),
+               ("wcls", 4096, 32000, ())]
+MIXTRAL_SITES = [("mixtral.wqkv", 4096, 6144, (STACK_L,)),
+                 ("mixtral.up", 4096, 14336, (MIXTRAL_LAYERS, 8)),
+                 ("mixtral.down", 14336, 4096, (MIXTRAL_LAYERS, 8))]
+GROK_SITES = [("grok.up", 6144, 32768, (2, 8)), ("grok.down", 32768, 6144, (2, 8))]
+ROWS = (1, 16, 128)
 # paged attention (phase 6): kernel vs plain, the TPU kernel's own bar —
 # the two fold the same bf16 operands in another summation order
 ATTN_TOL = 1e-2
@@ -145,52 +185,77 @@ def cold_ms(fn, iters: int, flush: torch.Tensor) -> float:
     return total / iters
 
 
-def bound(t: int, n: int, d: int) -> tuple[float, str]:
-    """Least time for the work: each input read once, the output written
-    once, against the HBM rate; the multiply-adds against the bf16 peak."""
-    nbytes = t * n * 2 + n * d // 2 + (n // 32) * d * 2 + t * d * 4
+def bound(t: int, n: int, d: int, value_bytes: float = 0.5) -> tuple[float, str]:
+    """Least time for the work: each input read once (x in bf16, the packed
+    values at ``value_bytes`` a weight: 0.5 for Q40, 1 for Q80, and the f16
+    block scales), the f32 output written once, against the HBM rate; the
+    multiply-adds against the bf16 peak."""
+    nbytes = t * n * 2 + n * d * value_bytes + (n // 32) * d * 2 + t * d * 4
     b_ms, o_ms = nbytes / HBM_BYTES_S * 1e3, 2.0 * t * n * d / BF16_FLOPS * 1e3
     return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
 
 
-def check_kernel(q40, dev) -> dict:
-    """Phase 2; returns {site: (t=1 numbers)} for the JSON line."""
-    rng = np.random.RandomState(0)
+def random_planes(codec, lead: tuple, n: int, d: int, g: torch.Generator, dev):
+    """Random packed planes of ``codec`` (q40 or q8), logical (n, d) under
+    leading dims ``lead``, made on the card from ``g``: random value bytes,
+    f16 scales uniform in +-0.02 (Q40) or +-0.0005 (Q80: about the same
+    weights), zero scales in the pack padding as the loader writes them."""
+    is_q8 = codec.__name__.endswith(".q8")
+    np_ = codec.padded_n(n)
+    vals = torch.randint(0, 256, (*lead, np_ if is_q8 else np_ // 2, d),
+                         dtype=torch.uint8, generator=g, device=dev)
+    amp = 0.0005 if is_q8 else 0.02
+    sc = ((torch.rand((*lead, np_ // 32, d), generator=g, device=dev) * 2 - 1) * amp)
+    sc = sc.to(torch.float16)
+    sc[..., n // 32:, :] = 0
+    if is_q8:
+        return codec.Q8Tensor(vals.view(torch.int8), sc, (n, d))
+    return codec.QTensor(vals, sc, (n, d))
+
+
+def check_sites(codec, sites, dev, seed: int) -> dict:
+    """Phases 2 and 9: ``codec``'s kernel against its plain version at each
+    site and row count; returns {site: t=1 numbers} for the JSON line."""
+    is_q8 = codec.__name__.endswith(".q8")
+    kernel = codec.q8_matmul if is_q8 else codec.q40_matmul
+    replaces = Q8_REPLACES if is_q8 else Q40_REPLACES
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
     flush = torch.ones(16 << 20, dtype=torch.float32, device=dev)
     out = {}
-    print("site   t    kernel_ms  plain_ms  library_ms  bound_ms(by)      max_abs_err  rel")
-    for site, n, d, stacked, replaces in SHAPES:
-        np_ = q40.padded_n(n)
-        lead = (STACK_L,) if stacked else ()
-        qp = rng.randint(0, 256, size=(*lead, np_ // 2, d), dtype=np.uint8)
-        sc = (rng.uniform(-0.02, 0.02, size=(*lead, np_ // 32, d))).astype(np.float16)
-        sc[..., n // 32:, :] = 0  # pack padding: zero scales, as the loader writes
-        qt = q40.QTensor(torch.from_numpy(qp).to(dev), torch.from_numpy(sc).to(dev), (n, d))
-        layers = (0, STACK_L - 1) if stacked else (None,)
-        w_lib = q40.dequantize(qt, torch.bfloat16, layer=layers[-1])
+    print("site           t    kernel_ms  plain_ms  library_ms  bound_ms(by)      "
+          "max_abs_err  rel")
+    for site, n, d, lead in sites:
+        qt = random_planes(codec, lead, n, d, g, dev)
+        if len(lead) == 2:  # an expert stack: flat index on the card
+            layers = tuple(torch.tensor([i], dtype=torch.int32, device=dev)
+                           for i in (0, lead[0] * lead[1] - 1))
+        else:
+            layers = (0, lead[0] - 1) if lead else (None,)
+        w_lib = codec.dequantize(qt, torch.bfloat16, layer=layers[-1])
         for t in ROWS:
-            x = torch.from_numpy(rng.randn(t, n).astype(np.float32)).to(dev, torch.bfloat16)
+            x = torch.randn((t, n), generator=g, device=dev).to(torch.bfloat16)
             err = 0.0
             for layer in layers:
-                k = q40.q40_matmul(x, qt.qpacked, qt.scales, n, layer)
-                p = q40.matmul_plain(x, qt, layer)
+                k = kernel(x, qt.qpacked, qt.scales, n, layer)
+                p = codec.matmul_plain(x, qt, layer)
                 torch.cuda.synchronize()
                 e = float((k - p).abs().max())
                 scale = float(p.abs().max())
                 if not (torch.isfinite(k).all() and e <= KERNEL_TOL * scale):
-                    raise AssertionError(f"{site} t={t} layer={layer}: max|kernel-plain| "
+                    raise AssertionError(f"{site} t={t} index={layer}: max|kernel-plain| "
                                          f"{e} > {KERNEL_TOL} * {scale}")
                 err = max(err, e)
             layer = layers[-1]
-            k_ms = cold_ms(lambda: q40.q40_matmul(x, qt.qpacked, qt.scales, n, layer), 20, flush)
-            p_ms = cold_ms(lambda: q40.matmul_plain(x, qt, layer), 5, flush)
+            k_ms = cold_ms(lambda: kernel(x, qt.qpacked, qt.scales, n, layer), 20, flush)
+            p_ms = cold_ms(lambda: codec.matmul_plain(x, qt, layer), 5, flush)
             l_ms = cold_ms(lambda: torch.matmul(x, w_lib), 20, flush)
-            b_ms, by = bound(t, n, d)
-            print(f"{site:5s} {t:4d} {k_ms:10.4f} {p_ms:9.4f} {l_ms:11.4f} "
+            b_ms, by = bound(t, n, d, 1.0 if is_q8 else 0.5)
+            print(f"{site:12s} {t:4d} {k_ms:10.4f} {p_ms:9.4f} {l_ms:11.4f} "
                   f"{b_ms:9.4f}({by[0]}) {err:14.6g} {err / scale:.2e}")
             if t == 1:
-                out[site] = dict(replaces=replaces, max_abs_err=err, ms=k_ms,
-                                 plain_ms=p_ms, bound_ms=b_ms, bound_by=by,
+                out[site] = dict(replaces=replaces[1 if lead else 0], max_abs_err=err,
+                                 ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=by,
                                  library_ms=l_ms, n=n, d=d)
         del qt, w_lib
     del flush
@@ -198,33 +263,47 @@ def check_kernel(q40, dev) -> dict:
     return out
 
 
-def synth_model(path_m: str, path_t: str, n_layers: int, mfile, tfile, quants,
-                fresh: bool = False) -> None:
-    """A Llama-2-7B-shaped Q40 `.m` at packed size (random nibble blocks, a
-    constant small f16 scale) and a matching 32000-piece `.t`.  By default
-    the nibbles tile a 4 MB random pattern (fast to write at 7B size; wcls
-    rows then repeat every 2048 rows, so logits tie); ``fresh`` draws every
-    byte, so the logits have no ties."""
-    spec = mfile.ModelSpec(arch=mfile.ARCH_LLAMA, hidden_act=mfile.ACT_SILU,
-                           rope_theta=10000.0, weights_ftype=quants.Q40,
-                           **{**LLAMA2_7B, "n_layers": n_layers})
+def synth_model(path_m: str, n_layers: int, mfile, quants, fresh: bool = False,
+                dims: dict = LLAMA2_7B, ftype: int | None = None) -> None:
+    """A `.m` of ``dims``'s shape (Llama-2-7B, or Mixtral when ``dims`` has
+    experts) at packed size in ``ftype`` (Q40 by default, or Q80): random
+    value blocks with a constant small f16 scale (0.008 for Q40's nibbles,
+    0.0005 for Q80's int8 values: weights of about the same spread; the
+    MoE router is such a tensor too, so it routes at random).  By default
+    the values tile a 4 MB random pattern from a random offset per tensor
+    (fast to write at full size; wcls rows then repeat every 2048 rows, so
+    logits tie); ``fresh`` draws every byte, so the logits have no ties."""
+    ftype = quants.Q40 if ftype is None else ftype
+    moe = dims.get("n_experts", 0) > 0
+    spec = mfile.ModelSpec(arch=mfile.ARCH_MIXTRAL if moe else mfile.ARCH_LLAMA,
+                           hidden_act=mfile.ACT_SILU, weights_ftype=ftype,
+                           **{**dims, "n_layers": n_layers})
     rng = np.random.RandomState(0)
-    scale = np.frombuffer(np.float16(0.008).tobytes(), np.uint8)
-    nib_pool = rng.randint(0, 256, 1 << 22, dtype=np.uint8)
+    block = quants.Q40_BLOCK_BYTES if ftype == quants.Q40 else quants.Q80_BLOCK_BYTES
+    scale = np.frombuffer(np.float16(0.008 if ftype == quants.Q40 else 0.0005).tobytes(),
+                          np.uint8)
+    pool = rng.randint(0, 256, 1 << 22, dtype=np.uint8)
     with mfile.MFileWriter(path_m, spec) as w:
         for info in w.plan:
             n = int(np.prod(info.shape))
-            if info.ftype == quants.Q40:
-                arr = np.empty((n // 32, quants.Q40_BLOCK_BYTES), np.uint8)
+            if info.ftype == ftype:
+                arr = np.empty((n // 32, block), np.uint8)
                 arr[:, :2] = scale
-                arr[:, 2:] = (rng.randint(0, 256, (n // 32, 16), dtype=np.uint8) if fresh
-                              else np.resize(nib_pool, (n // 32, 16)))
+                shape = (n // 32, block - 2)
+                arr[:, 2:] = (np.frombuffer(rng.bytes(arr[:, 2:].size), np.uint8).reshape(shape)
+                              if fresh else np.resize(np.roll(pool, rng.randint(1 << 22)),
+                                                      shape))
                 w.write_raw(info.name, arr)
             else:
                 w.write_tensor(info.name,
                                (rng.randn(*info.shape) * 0.02).astype(np.float32)
                                if info.name == "token_embedding"
                                else np.ones(info.shape, np.float32))
+
+
+def synth_tokenizer(path_t: str, tfile) -> None:
+    """A 32000-piece `.t` (the vocab of Llama-2 and Mixtral): a few words,
+    the byte pieces, ChatML markers and filler pieces."""
     words = [b" ", b"a", b"e", b"o", b"t", b"he", b"the", b" the", b"on", b"ce",
              b" upon", b" time", b"Once", b" capital", b" of", b" France", b" is"]
     vocab = [b"<unk>", b"<s>", b"</s>"] + [f"<0x{i:02X}>".encode() for i in range(256)]
@@ -245,39 +324,50 @@ def run_cli(cli, argv: list[str]):
     return engine, buf.getvalue()
 
 
-def main_path(cli, q40, m: str, t: str) -> dict:
-    """Phase 3; returns the run's numbers."""
+def main_path(cli, codec, m: str, t: str, want, extra: tuple = (),
+              keep: bool = False):
+    """Phases 3, 10, 11: ``inference`` through the CLI with ``codec``'s (q40
+    or q8) counters set to 0 just before it and read just after;
+    ``want(engine)`` is the run's exact kernel launch count.  Returns the
+    run's numbers (and the engine, with ``keep``)."""
+    # an earlier phase's server can linger in reference cycles: free it
+    # before the peak-memory reading starts
+    gc.collect()
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    q40.reset_counters()
+    codec.reset_counters()
     engine, out = run_cli(cli, ["inference", "--model", m, "--tokenizer", t,
                                 "--temperature", "0", "--steps", "64",
-                                "--chunk", "16", "--warmup", "16"])
-    c = q40.counters()
+                                "--chunk", "16", "--warmup", "16", *extra])
+    c = codec.counters()
     peak = torch.cuda.max_memory_allocated()
     print("\n".join(out.splitlines()[-8:]))
-    per_fwd = 4 * LLAMA2_7B["n_layers"] + 1
-    if c["kernel_launches"] != per_fwd * engine.forwards or c["plain_calls"] \
-            or c["dense_prefill_calls"]:
-        raise AssertionError(f"main path did not run every matmul through the "
-                             f"kernel: {c} over {engine.forwards} forwards")
+    if c["kernel_launches"] != want(engine) or c["plain_calls"] or c["dense_prefill_calls"]:
+        raise AssertionError(f"main path did not run every matmul through the kernel: "
+                             f"{c} over {engine.forwards} forwards, want "
+                             f"{want(engine)} launches")
     tps = float(re.search(r"Avg tokens / second: ([\d.]+)", out).group(1))
     ms = float(re.search(r"Avg generation time: ([\d.]+) ms", out).group(1))
     if not torch.isfinite(engine.last_logits).all():
         raise AssertionError("main path ended on non-finite logits")
     print(f"main path: {tps} tok/s, {ms} ms/token, peak device memory "
           f"{peak / 2**30:.2f} GiB, {engine.forwards} forwards, "
-          f"{c['kernel_launches']} kernel launches ({per_fwd} per forward)")
-    profile_decode(engine, ms)
+          f"{c['kernel_launches']} kernel launches")
+    profile_decode(engine, ms, "q8_" if codec.__name__.endswith(".q8") else "q40_")
+    run = dict(counts=c, tok_s=tps, ms_token=ms, peak_bytes=peak)
+    if keep:
+        return run, engine
     del engine
     torch.cuda.empty_cache()
-    return dict(counts=c, tok_s=tps, ms_token=ms, peak_bytes=peak)
+    return run
 
 
-def profile_decode(engine, ms_token: float, steps: int = 8) -> None:
+def profile_decode(engine, ms_token: float, kname: str = "q40_", steps: int = 8) -> None:
     """Where a decode token's time goes: torch.profiler over ``steps``
     greedy decode steps of the main path's engine.  Device busy time per
-    token is the sum of the kernels' device times; the idle share compares
-    it with the unprofiled ms/token of the run above."""
+    token is the sum of the kernels' device times (``kname`` picks out the
+    matmul kernel's); the idle share compares it with the unprofiled
+    ms/token of the run above."""
     from torch.profiler import ProfilerActivity, profile
     from dllama_tpu_torch.runtime.decode_loop import decode_chunk
 
@@ -302,10 +392,10 @@ def profile_decode(engine, ms_token: float, steps: int = 8) -> None:
         print("decode profile: the profiler recorded no device time (not measured)")
         return
     busy = sum(r[0] for r in rows)
-    q40_ms = sum(r[0] for r in rows if "q40_" in r[2])
+    mm_ms = sum(r[0] for r in rows if kname in r[2])
     print(f"decode profile ({steps} steps): device busy {busy:.3f} ms/token of "
           f"{ms_token} ms/token unprofiled -> idle share {1 - busy / ms_token:.3f}; "
-          f"q40 kernels {q40_ms:.3f} ms/token, other kernels {busy - q40_ms:.3f} "
+          f"{kname[:-1]} kernels {mm_ms:.3f} ms/token, other kernels {busy - mm_ms:.3f} "
           f"ms/token, {sum(r[1] for r in rows)} kernel launches/token")
     for ms_, n, name in sorted(rows, reverse=True)[:10]:
         print(f"  {ms_:8.4f} ms/token {n:5d}x  {name[:90]}")
@@ -334,22 +424,63 @@ def requests(cli, q40, m: str, t: str) -> None:
     torch.cuda.empty_cache()
 
 
-def end_to_end(mfile, params_mod, transformer, config, m2: str, dev) -> None:
-    """Phase 5."""
-    with mfile.MFile(m2) as mf:
-        cfg, params = params_mod.load_params(
+@contextlib.contextmanager
+def routing_log(transformer, cfg, log: list):
+    """Record the experts each MoE layer selects during one run (phase
+    12): the router's top-k wrapped for the run's duration.  A no-op for a
+    dense model."""
+    if not cfg.is_moe:
+        yield log
+        return
+    real = transformer.top_k
+
+    def rec(x, k):
+        vals, idx = real(x, k)
+        log.append(idx.sort(dim=-1).values)
+        return vals, idx
+
+    transformer.top_k = rec
+    try:
+        yield log
+    finally:
+        transformer.top_k = real
+
+
+def routing_note(routes: dict) -> str:
+    """How many token-layers chose another expert set in the kernel run
+    than in the plain run: a near-tie of router probabilities that the two
+    runs' f32 summation orders decide differently."""
+    a, b = routes["auto"], routes["plain"]
+    if not a:
+        return ""
+    flips = sum(int((x != y).any(-1).sum()) for x, y in zip(a, b))
+    return (f"; expert sets differ at {flips} of {sum(x.shape[0] for x in a)} "
+            f"token-layers")
+
+
+def load_bf16(mfile, params_mod, config, path: str, dev):
+    """The model at ``path`` on the card with bf16 activations (phases 5,
+    8, 12 load it once for both of their checks)."""
+    with mfile.MFile(path) as mf:
+        return params_mod.load_params(
             mf, config.ModelConfig.from_spec(mf.spec, dtype=torch.bfloat16), device=dev)
+
+
+def end_to_end(transformer, cfg, params, dev, label: str = "2 layers, bf16") -> None:
+    """Phases 5 and 12: prefill + 8 teacher-forced decode steps at batch 1,
+    the kernels (``auto``) against ``quant_impl="plain"``."""
     rng = np.random.RandomState(1)
     prompt = torch.from_numpy(rng.randint(3, cfg.vocab_size, (1, 12))).to(dev)
     forced = rng.randint(3, cfg.vocab_size, 8).tolist()
-    logits = {}
+    logits, routes = {}, {"auto": [], "plain": []}
     for impl in ("auto", "plain"):
         c = cfg.with_(quant_impl=impl)
         cache = transformer.init_kv_cache(c, 1, device=dev)
-        steps = [transformer.forward_last(params, c, prompt, cache, 0, 11)[0]]
-        for i, tok in enumerate(forced):
-            x = torch.tensor([[tok]], device=dev)
-            steps.append(transformer.forward_last(params, c, x, cache, 12 + i, 0)[0])
+        with routing_log(transformer, cfg, routes[impl]):
+            steps = [transformer.forward_last(params, c, prompt, cache, 0, 11)[0]]
+            for i, tok in enumerate(forced):
+                x = torch.tensor([[tok]], device=dev)
+                steps.append(transformer.forward_last(params, c, x, cache, 12 + i, 0)[0])
         logits[impl] = torch.stack(steps).float()
     k, p = logits["auto"], logits["plain"]
     err, scale = float((k - p).abs().max()), float(p.abs().max())
@@ -362,10 +493,49 @@ def end_to_end(mfile, params_mod, transformer, config, m2: str, dev) -> None:
     agree = k.argmax(-1) == p.argmax(-1)
     if not bool(agree[decided].all()):
         raise AssertionError("greedy tokens differ where the margin is decisive")
-    print(f"end to end (2 layers, bf16): max|kernel-plain| {err:.4g} of max|plain| "
+    print(f"end to end ({label}): max|kernel-plain| {err:.4g} of max|plain| "
           f"{scale:.4g} ({err / scale:.2e}, limit {E2E_TOL:g}); greedy agrees at "
           f"{int(decided.sum())}/9 steps whose top-2 margin exceeds 2x that "
-          f"({int(agree.sum())}/9 overall)")
+          f"({int(agree.sum())}/9 overall){routing_note(routes)}")
+
+
+def moe_decode_checks(engine, transformer, q40, dev) -> None:
+    """Phase 11, on the main path's engine: one single-token forward
+    launches exactly (2 + 3k) * L + 1 Q40 kernels (wqkv, wo, k experts'
+    gate/up/down a layer, wcls); the decode-route MoE FFN of the last layer
+    (1 and 3 tokens) runs under sync-debug "error" (the expert ids of the
+    top-k on the card reach the kernels as device indices, never through
+    the host) and agrees with its plain version within E2E_TOL."""
+    cfg, params = engine.cfg, engine.params
+    want = (2 + 3 * cfg.n_active_experts) * cfg.n_layers + 1
+    q40.reset_counters()
+    engine.decode_one(5)
+    c = q40.counters()
+    if c["kernel_launches"] != want or c["plain_calls"] or c["dense_prefill_calls"]:
+        raise AssertionError(f"a single-token Mixtral forward: {c}, want {want} launches")
+    print(f"one single-token forward: {c['kernel_launches']} Q40 kernel launches, "
+          f"0 plain ({c['launches_by_shape']})")
+    g = torch.Generator(device=dev)
+    g.manual_seed(11)
+    layer = cfg.n_layers - 1
+    for n in (1, 3):
+        x = torch.randn((n, cfg.dim), generator=g, device=dev).to(cfg.dtype)
+        torch.cuda.synchronize()
+        q40.reset_counters()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            k = transformer.moe_ffn(x, params, layer, cfg)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        launches = q40.counters()["kernel_launches"]
+        p = transformer.moe_ffn(x, params, layer, cfg.with_(quant_impl="plain"))
+        err, scale = float((k.float() - p.float()).abs().max()), float(p.float().abs().max())
+        if launches != 3 * cfg.n_active_experts * n or not (
+                torch.isfinite(k).all() and err <= E2E_TOL * scale):
+            raise AssertionError(f"decode-route moe_ffn, {n} tokens: {launches} launches, "
+                                 f"max|kernel-plain| {err} of {scale}")
+        print(f"decode-route moe_ffn, {n} token(s), layer {layer}: no host sync, "
+              f"{launches} kernel launches, max|kernel-plain| {err:.4g} of {scale:.4g}")
 
 
 def _percentile(xs, q: float) -> float:
@@ -386,8 +556,10 @@ def attn_bound(pos, hkv: int, dh: int, hq: int, kv_bytes: float) -> tuple[float,
     return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
 
 
-def check_paged_attention(attention, dev) -> dict:
-    """Phase 6; returns {codec: numbers} for the JSON line."""
+def check_paged_attention(attention, dev, hkv: int = LLAMA2_7B["n_kv_heads"],
+                          codecs=("bf16", "int8")) -> dict:
+    """Phase 6, 32 query heads on ``hkv`` kv heads; returns {codec:
+    numbers} for the JSON line."""
     B, H, DH, L = 8, LLAMA2_7B["n_heads"], 128, 3
     maxp = LLAMA2_7B["seq_len"] // PAGE
     n_pages = 1 + B * maxp
@@ -400,10 +572,11 @@ def check_paged_attention(attention, dev) -> dict:
     pos = torch.tensor(ATTN_POS, dtype=torch.int32, device=dev)
     q = torch.randn((B, H, 1, DH), generator=g, device=dev).to(torch.bfloat16)
     flush = torch.ones(16 << 20, dtype=torch.float32, device=dev)
-    shape = (L, n_pages, H, PAGE, DH)
+    shape = (L, n_pages, hkv, PAGE, DH)
     out = {}
+    print(f"{H} query heads on {hkv} kv heads")
     print("codec  kernel_ms  plain_ms  sdpa_ms  bound_ms(by)  max_abs_err  rel")
-    for codec in ("bf16", "int8"):
+    for codec in codecs:
         if codec == "bf16":
             pk = (torch.randn(shape, generator=g, device=dev) * 0.5).to(torch.bfloat16)
             pv = (torch.randn(shape, generator=g, device=dev) * 0.5).to(torch.bfloat16)
@@ -434,8 +607,8 @@ def check_paged_attention(attention, dev) -> dict:
         mask = (torch.arange(kg.shape[2], device=dev)[None, :] <= pos[:, None].long())
         mask = mask[:, None, None, :]
         l_ms = cold_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            q, kg, vg, attn_mask=mask), 20, flush)
-        b_ms, by = attn_bound(ATTN_POS, H, DH, H, kv_bytes)
+            q, kg, vg, attn_mask=mask, enable_gqa=H != hkv), 20, flush)
+        b_ms, by = attn_bound(ATTN_POS, hkv, DH, H, kv_bytes)
         print(f"{codec:5s} {k_ms:10.4f} {p_ms:9.4f} {l_ms:8.4f} {b_ms:9.4f}({by[0]}) "
               f"{err:12.6g} {err / scale:.2e}")
         out[codec] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
@@ -640,11 +813,10 @@ def serve_path(api, attention, q40, m: str, t: str, n_requests: int,
         torch.cuda.empty_cache()
 
 
-def slot_end_to_end(mfile, params_mod, config, engine_mod, m2: str, dev) -> None:
-    """Phase 8."""
-    with mfile.MFile(m2) as mf:
-        cfg, params = params_mod.load_params(
-            mf, config.ModelConfig.from_spec(mf.spec, dtype=torch.bfloat16), device=dev)
+def slot_end_to_end(engine_mod, transformer, cfg, params, dev, pools=(None, "q8"),
+                    label: str = "2 layers") -> None:
+    """Phases 8 and 12: the slot path over a paged pool (bf16, or int8 for
+    ``"q8"``), kernels against plain versions."""
     rng = np.random.RandomState(8)
     b, t = 4, 16
     prompt = rng.randint(3, cfg.vocab_size, (b, t)).astype(np.int32)
@@ -653,22 +825,23 @@ def slot_end_to_end(mfile, params_mod, config, engine_mod, m2: str, dev) -> None
     pages = cfg.seq_len // PAGE
     ptab = (1 + np.arange(b * pages, dtype=np.int32)).reshape(b, pages)
     zeros = np.zeros(b, np.float32)
-    for kv in (None, "q8"):
-        logits = {}
+    for kv in pools:
+        logits, routes = {}, {"auto": [], "plain": []}
         for impl in ("auto", "plain"):
             c = cfg.with_(quant_impl=impl, attn_impl=impl)
             eng = engine_mod.Engine(c, params, device=dev, batch=b, kv_dtype=kv,
                                     kv_pages=1 + b * pages, kv_page_size=PAGE)
             pos = np.zeros(b, np.int32)
-            eng.slot_step(prompt, pos, n_valid, temps_np=zeros, topps_np=zeros + 0.9,
-                          page_tables_np=ptab)
-            steps = [eng.last_logits.float()]
-            pos = pos + n_valid
-            for i in range(len(forced)):
-                eng.slot_step(forced[i][:, None], pos, np.ones(b, np.int32),
-                              temps_np=zeros, topps_np=zeros + 0.9, page_tables_np=ptab)
-                steps.append(eng.last_logits.float())
-                pos = pos + 1
+            with routing_log(transformer, cfg, routes[impl]):
+                eng.slot_step(prompt, pos, n_valid, temps_np=zeros, topps_np=zeros + 0.9,
+                              page_tables_np=ptab)
+                steps = [eng.last_logits.float()]
+                pos = pos + n_valid
+                for i in range(len(forced)):
+                    eng.slot_step(forced[i][:, None], pos, np.ones(b, np.int32),
+                                  temps_np=zeros, topps_np=zeros + 0.9, page_tables_np=ptab)
+                    steps.append(eng.last_logits.float())
+                    pos = pos + 1
             logits[impl] = torch.stack(steps)
             del eng
         k, p = logits["auto"], logits["plain"]
@@ -681,12 +854,10 @@ def slot_end_to_end(mfile, params_mod, config, engine_mod, m2: str, dev) -> None
         agree = k.argmax(-1) == p.argmax(-1)
         if not bool(agree[decided].all()):
             raise AssertionError("slot path greedy tokens differ where the margin is decisive")
-        print(f"slot path ({kv or 'bf16'} pool, 2 layers): max|kernel-plain| {err:.4g} of "
+        print(f"slot path ({kv or 'bf16'} pool, {label}): max|kernel-plain| {err:.4g} of "
               f"max|plain| {scale:.4g} ({err / scale:.2e}, limit {E2E_TOL:g}); greedy agrees "
               f"at {int(decided.sum())}/{decided.numel()} row-steps whose margin exceeds 2x "
-              f"that ({int(agree.sum())}/{agree.numel()} overall)")
-    del params
-    torch.cuda.empty_cache()
+              f"that ({int(agree.sum())}/{agree.numel()} overall){routing_note(routes)}")
 
 
 def main() -> int:
@@ -704,7 +875,7 @@ def main() -> int:
     from dllama_tpu_torch import cli, quants
     from dllama_tpu_torch.io import mfile, tfile
     from dllama_tpu_torch.models import config, params as params_mod, transformer
-    from dllama_tpu_torch.ops import _build, attention, q40
+    from dllama_tpu_torch.ops import _build, attention, q8, q40
     from dllama_tpu_torch.runtime import engine as engine_mod
     from dllama_tpu_torch.server import api
 
@@ -724,54 +895,126 @@ def main() -> int:
         print(_build.build_log.strip() or f"kernel library {_build.library_path()}")
     if run_phase(2):
         with phase("2 kernel vs plain at the 7B shapes"):
-            table = check_kernel(q40, dev)
+            table = check_sites(q40, LLAMA_SITES, dev, seed=0)
+    if run_phase(9):
+        with phase("9 Q80 kernel vs plain at the 7B, Mixtral and Grok-1 shapes"):
+            q8_table = check_sites(q8, LLAMA_SITES + MIXTRAL_SITES + GROK_SITES, dev, seed=9)
+        with phase("9b Q40 kernel vs plain at Mixtral's shapes, experts by device index"):
+            mix_table = check_sites(q40, MIXTRAL_SITES, dev, seed=10)
     if run_phase(6):
         with phase("6 paged attention kernel vs plain at the 7B shape"):
             attn = check_paged_attention(attention, dev)
+        with phase("6b paged attention kernel vs plain at Mixtral's shape (G = 4)"):
+            attn_g4 = check_paged_attention(attention, dev, MIXTRAL_8X7B["n_kv_heads"],
+                                            ("bf16",))
     os.makedirs(WORK, exist_ok=True)
     try:
-        m, t, m2 = (os.path.join(WORK, f) for f in ("llama2-7b.m", "llama2-7b.t", "l2.m"))
-        if run_phase(3) or run_phase(4) or run_phase(7):
-            synth_model(m, t, LLAMA2_7B["n_layers"], mfile, tfile, quants)
+        m, t, m2 = (os.path.join(WORK, f) for f in ("llama2-7b.m", "32k.t", "l2.m"))
+        synth_tokenizer(t, tfile)
+        per_fwd = 4 * LLAMA2_7B["n_layers"] + 1
+        if run_phase(3) or run_phase(7):
+            synth_model(m, LLAMA2_7B["n_layers"], mfile, quants)
             print(f"synthesized {os.path.getsize(m) / 1e9:.2f} GB")
+        if run_phase(4) or run_phase(5) or run_phase(8):
+            synth_model(m2, 2, mfile, quants, fresh=True)
         if run_phase(3):
             with phase("3 main path: inference at Llama-2-7B width"):
-                run = main_path(cli, q40, m, t)
+                run = main_path(cli, q40, m, t, lambda e: per_fwd * e.forwards)
         if run_phase(4):
-            with phase("4 requests: generate"):
-                requests(cli, q40, m, t)
+            with phase("4 requests: generate (7B width, 2 layers)"):
+                requests(cli, q40, m2, t)
         if run_phase(5) or run_phase(8):
-            synth_model(m2, t, 2, mfile, tfile, quants, fresh=True)
-        if run_phase(5):
-            with phase("5 kernel path vs plain path end to end"):
-                end_to_end(mfile, params_mod, transformer, config, m2, dev)
+            # the 2-layer model is freed before phase 7's peak-memory reading
+            small = load_bf16(mfile, params_mod, config, m2, dev)
+            if run_phase(5):
+                with phase("5 kernel path vs plain path end to end"):
+                    end_to_end(transformer, *small, dev)
+            if run_phase(8):
+                with phase("8 slot path: kernels vs plain versions end to end"):
+                    slot_end_to_end(engine_mod, transformer, *small, dev)
+            del small
+            torch.cuda.empty_cache()
         if run_phase(7):
             with phase("7 serving: API server, slot scheduler, paged KV at 7B width"):
                 served = {"bf16": serve_path(api, attention, q40, m, t, 16, [], True)}
             with phase("7b serving with --kv-quant int8"):
                 served["int8"] = serve_path(api, attention, q40, m, t, 8,
                                             ["--kv-quant", "int8"], False)
-        if run_phase(8):
-            with phase("8 slot path: kernels vs plain versions end to end"):
-                slot_end_to_end(mfile, params_mod, config, engine_mod, m2, dev)
+        for f in (m, m2):
+            if os.path.exists(f):
+                os.remove(f)
+        if run_phase(10):
+            with phase("10 Q80 Llama-2-7B at full width and depth: inference"):
+                synth_model(m, LLAMA2_7B["n_layers"], mfile, quants, ftype=quants.Q80)
+                print(f"synthesized {os.path.getsize(m) / 1e9:.2f} GB (Q80)")
+                run_q8 = main_path(cli, q8, m, t, lambda e: per_fwd * e.forwards)
+                os.remove(m)
+        mix = {**MIXTRAL_8X7B, "n_layers": MIXTRAL_LAYERS}
+        if run_phase(11):
+            L, E, k = MIXTRAL_LAYERS, mix["n_experts"], mix["n_active_experts"]
+            per_tok, per_prefill = (2 + 3 * k) * L + 1, (2 + 3 * E) * L + 1
+            synth_model(m, L, mfile, quants, dims=mix)
+            print(f"synthesized {os.path.getsize(m) / 1e9:.2f} GB (Mixtral-8x7B, Q40, "
+                  f"{L} layers)")
+            with phase("11 Mixtral-8x7B Q40 (8 layers): inference"):
+                # two prefills (warmup, then the timed run) take the
+                # all-experts route; every other forward is a single token
+                run_mix, eng = main_path(
+                    cli, q40, m, t,
+                    lambda e: per_tok * (e.forwards - 2) + 2 * per_prefill,
+                    ("--max-seq-len", MIXTRAL_CTX), keep=True)
+                moe_decode_checks(eng, transformer, q40, dev)
+                del eng
+                torch.cuda.empty_cache()
+            with phase("11b Mixtral-8x7B Q40 (8 layers): serving"):
+                served["g4"] = serve_path(api, attention, q40, m, t, 8,
+                                          ["--max-seq-len", MIXTRAL_CTX], True)
+            os.remove(m)
+        if run_phase(12):
+            for name, ftype in (("Q40", quants.Q40), ("Q80", quants.Q80)):
+                with phase(f"12 Mixtral width, 2 layers, {name}: kernels vs plain end to end"):
+                    synth_model(m2, 2, mfile, quants, fresh=True,
+                                dims={**mix, "seq_len": LLAMA2_7B["seq_len"]}, ftype=ftype)
+                    label = f"Mixtral width, 2 layers, {name}"
+                    small = load_bf16(mfile, params_mod, config, m2, dev)
+                    end_to_end(transformer, *small, dev, label)
+                    slot_end_to_end(engine_mod, transformer, *small, dev, (None,), label)
+                    del small
+                    torch.cuda.empty_cache()
+                    os.remove(m2)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     if only is not None:
         return 0
 
-    counts = run["counts"]["launches_by_shape"]
-    kernels = [dict(name=f"q40_matmul[{site}]", route="cuda", source=SRC,
-                    replaces=r["replaces"], launches=counts.get((r["n"], r["d"]), 0),
-                    max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
-                    bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-                    library_ms=r["library_ms"])
-               for site, r in table.items()]
-    kernels += [dict(name=f"paged_attention[{codec}]", route="cuda", source=ATTN_SRC,
-                     replaces=ATTN_REPLACES, launches=served[codec]["attn_launches"],
+    def entries(name, src, sites, counts):
+        return [dict(name=f"{name}[{site}]", route="cuda", source=src,
+                     replaces=r["replaces"], launches=counts.get((r["n"], r["d"]), 0),
                      max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
                      bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                      library_ms=r["library_ms"])
-                for codec, r in attn.items()]
+                for site, r in sites.items()]
+
+    # each kernel at the shapes of the path that ran it, with that path's
+    # launches: Q40 on the 7B path (phase 3) and Mixtral's (phase 11; its
+    # up/gate count holds both), Q80 on the Q80 7B path (phase 10), kernel
+    # 7 in the serving runs (phases 7, 11b)
+    kernels = entries("q40_matmul", SRC, table, run["counts"]["launches_by_shape"])
+    kernels += entries("q40_matmul", SRC, mix_table, run_mix["counts"]["launches_by_shape"])
+    kernels += entries("q8_matmul", Q8_SRC,
+                       {s: q8_table[s] for s, *_ in LLAMA_SITES},
+                       run_q8["counts"]["launches_by_shape"])
+    attn_rows = [(c, r, served[c]) for c, r in attn.items()]
+    attn_rows.append(("bf16,G=4", attn_g4["bf16"], served["g4"]))
+    kernels += [dict(name=f"paged_attention[{label}]", route="cuda", source=ATTN_SRC,
+                     replaces=ATTN_REPLACES, launches=run_["attn_launches"],
+                     max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+                     bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                     library_ms=r["library_ms"])
+                for label, r, run_ in attn_rows]
+    idle = [k["name"] for k in kernels if k["launches"] == 0]
+    if idle:
+        raise AssertionError(f"kernels the main paths never launched: {idle}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -7,8 +7,9 @@ asking for ``cuda`` where there is none is an error):
 * ``inference`` — benchmark mode: per-token ``G/I/T`` lines + run averages.
 * ``generate``  — stream text for ``--steps`` tokens.
 
-Both end with one line of Q40 launch counters (which matmul route ran how
-often), the counterpart of the JAX package's dispatch summary.  The API
+Both end with one line of launch counters of the model's matmul codec (Q40
+or Q80: which route ran how often), the counterpart of the JAX package's
+dispatch summary.  The API
 server (``python -m dllama_tpu_torch.server.api``) reuses this parser and
 its serving flags.  Modes and flags of the JAX CLI outside the port
 (``chat``, ``batch``, ``worker``, ``--workers``, ``--sp``, ``--dp``,
@@ -30,7 +31,7 @@ from .device import DEVICES, resolve
 from .io import mfile, tfile
 from .models.config import ModelConfig
 from .models.params import load_params
-from .ops import q40
+from .ops import q8, q40
 from .runtime.engine import Engine, RunStats
 from .tokenizer.bpe import Tokenizer
 
@@ -168,10 +169,12 @@ def _encode_prompt(engine: Engine, tok: Tokenizer, prompt: str) -> list[int]:
 
 
 def launch_line(engine: Engine) -> str:
-    """End-of-run line: how often each Q40 matmul route ran, per forward."""
-    c = q40.counters()
+    """End-of-run line: how often each matmul route of the model's codec
+    ran (Q80 for a Q80 file, else Q40), per forward."""
+    is_q8 = any(isinstance(v, q8.Q8Tensor) for v in engine.params.values())
+    name, c = ("q8", q8.counters()) if is_q8 else ("q40", q40.counters())
     per = c["kernel_launches"] / engine.forwards if engine.forwards else 0.0
-    return (f"💡 q40 launches: kernel={c['kernel_launches']} "
+    return (f"💡 {name} launches: kernel={c['kernel_launches']} "
             f"plain={c['plain_calls']} dense_prefill={c['dense_prefill_calls']} "
             f"forwards={engine.forwards} kernel_per_forward={per:g} "
             f"device={engine.device.type}")

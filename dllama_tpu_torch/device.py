@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 
 DEVICES = ("cuda", "cpu")
+_INDEX_TABLES: dict[torch.device, torch.Tensor] = {}
 
 
 def resolve(device: str | torch.device | None = None) -> torch.device:
@@ -37,3 +38,16 @@ def synchronize(device: torch.device) -> None:
     CPU, where every op has already run when it returns)."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def index_view(dev: torch.device, i: int, n: int) -> torch.Tensor:
+    """A (1,) int32 tensor on ``dev`` holding ``i`` (``0 <= i < n``): a
+    view into a per-device table of ``0..max(n, 128)-1``, made once.  The
+    kernels read their layer or plane index from device memory, so a
+    launch at a static index needs no host-to-device copy and a captured
+    graph can replay it."""
+    ids = _INDEX_TABLES.get(dev)
+    if ids is None or ids.numel() < n:
+        ids = torch.arange(max(n, 128), dtype=torch.int32, device=dev)
+        _INDEX_TABLES[dev] = ids
+    return ids[i:i + 1]

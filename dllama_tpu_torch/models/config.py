@@ -12,6 +12,11 @@ import torch
 
 from ..io import mfile
 
+# Grok-1 scaling constants (the JAX package's config.py, from the reference
+# grok1-tasks.cpp)
+GROK_EMBEDDING_SCALE = 78.38367176906169
+GROK_LOGIT_SCALE = 0.5773502691896257
+
 
 @dataclass(frozen=True)
 class ModelConfig:
@@ -28,7 +33,7 @@ class ModelConfig:
     hidden_act: int
     rope_theta: float
     dtype: torch.dtype = torch.float32
-    # Q40 matmul route (ops.q40.matmul): "auto" dispatches on the device
+    # Q40/Q80 matmul route (ops.q40.mm): "auto" dispatches on the device
     # (the plain version on the CPU, the kernel on the card); "plain" runs
     # the plain version on any device — the reference path a comparison
     # on the card holds the kernel against
@@ -59,6 +64,21 @@ class ModelConfig:
     def add_bos(self) -> bool:
         """Grok-1 prompts are encoded without BOS."""
         return self.arch != mfile.ARCH_GROK1
+
+    @property
+    def embedding_scale(self) -> float:
+        return GROK_EMBEDDING_SCALE if self.arch == mfile.ARCH_GROK1 else 1.0
+
+    @property
+    def logit_scale(self) -> float:
+        return GROK_LOGIT_SCALE if self.arch == mfile.ARCH_GROK1 else 1.0
+
+    @property
+    def post_block_norms(self) -> bool:
+        """Grok-1 normalizes each sub-block's output before the residual
+        add (``rms_ffn`` after attention, ``rms_ffn2`` after the MoE, whose
+        input norm is ``rms_moe``); Llama and Mixtral add raw outputs."""
+        return self.arch == mfile.ARCH_GROK1
 
     @classmethod
     def from_spec(cls, spec: mfile.ModelSpec, dtype=torch.float32) -> "ModelConfig":

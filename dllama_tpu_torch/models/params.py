@@ -1,12 +1,15 @@
 """Parameter dicts: random init (tests), `.m`-file loading, and conversion
 from the JAX package's params — the port of ``dllama_tpu/models/params.py``
-for dense Llama.
+(Llama, Mixtral, Grok-1; Q40, Q80, F16 and F32 files).
 
 Weights are stored input-dim-first (``x @ w``) and layer-stacked (a
 leading ``n_layers`` axis); the model's layer loop indexes the stacks.  A
-Q40 file keeps its matmuls packed (``ops.q40.QTensor``), with q/k/v fused
-into ``wqkv`` and w1/w3 into ``w13`` (one kernel launch each per layer);
-norms and the embedding load dense.  F32/F16 files load dense.
+Q40 or Q80 file keeps its matmuls packed (``ops.q40.QTensor``,
+``ops.q8.Q8Tensor``), with q/k/v fused into ``wqkv`` and w1/w3 into
+``w13`` (one kernel launch each per layer); MoE experts stack as
+``(L, E, ...)`` planes that the kernels read at a flat index
+``layer·E + expert``.  Norms, the embedding and the MoE router load dense.
+F32/F16 files load dense.
 """
 
 from __future__ import annotations
@@ -16,20 +19,18 @@ import torch
 
 from .. import quants
 from ..io import mfile
-from ..ops import q40
+from ..ops import q8, q40
 from .config import ModelConfig
 
-Params = dict  # str -> torch.Tensor | q40.QTensor
+Params = dict  # str -> torch.Tensor | q40.QTensor | q8.Q8Tensor
+CODECS = {quants.Q40: q40, quants.Q80: q8}
 
 
 def param_shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
-    if cfg.is_moe:
-        raise NotImplementedError("MoE models (Mixtral, Grok-1) are not yet "
-                                  "ported to dllama_tpu_torch")
     L, D, F, V = cfg.n_layers, cfg.dim, cfg.hidden_dim, cfg.vocab_size
     hq = cfg.n_heads * cfg.head_size
     hkv = cfg.n_kv_heads * cfg.head_size
-    return {
+    shapes = {
         "embedding": (V, D),
         "wq": (L, D, hq),
         "wk": (L, D, hkv),
@@ -39,10 +40,16 @@ def param_shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
         "rms_ffn": (L, D),
         "rms_final": (D,),
         "wcls": (D, V),
-        "w1": (L, D, F),
-        "w2": (L, F, D),
-        "w3": (L, D, F),
     }
+    if cfg.is_moe:
+        E = cfg.n_experts
+        shapes.update({"router": (L, D, E), "up": (L, E, D, F),
+                       "gate": (L, E, D, F), "down": (L, E, F, D)})
+        if cfg.post_block_norms:  # Grok-1's extra norms
+            shapes.update({"rms_moe": (L, D), "rms_ffn2": (L, D)})
+    else:
+        shapes.update({"w1": (L, D, F), "w2": (L, F, D), "w3": (L, D, F)})
+    return shapes
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, scale: float = 0.02) -> Params:
@@ -59,18 +66,27 @@ def init_params(cfg: ModelConfig, seed: int = 0, scale: float = 0.02) -> Params:
     return params
 
 
-def quantize_matmuls(params: Params, cfg: ModelConfig) -> Params:
-    """Convert the dense matmul weights to packed Q40, fused as the loader
-    fuses them (``wqkv``, ``w13``)."""
+def quantize_matmuls(params: Params, cfg: ModelConfig, codec=q40) -> Params:
+    """Convert the dense matmul weights to packed ``codec`` (``ops.q40`` or
+    ``ops.q8``), fused as the loader fuses them (``wqkv``, ``w13``); MoE
+    expert stacks quantize per expert along their input axis, the router
+    and the embedding stay dense."""
     def f32(k):
         return params[k].to(torch.float32).numpy()
 
-    out = {k: v for k, v in params.items()
-           if k not in ("wq", "wk", "wv", "w1", "w3")}
-    out["wqkv"] = q40.quantize(np.concatenate([f32(k) for k in ("wq", "wk", "wv")], axis=-1))
-    out["w13"] = q40.quantize(np.concatenate([f32(k) for k in ("w1", "w3")], axis=-1))
-    for k in ("wo", "w2", "wcls"):
-        out[k] = q40.quantize(f32(k))
+    fused = {"wqkv": ("wq", "wk", "wv")}
+    keys = ["wo", "wcls"]
+    if cfg.is_moe:
+        keys += ["up", "gate", "down"]
+    else:
+        fused["w13"] = ("w1", "w3")
+        keys.append("w2")
+    parts = {k for names in fused.values() for k in names}
+    out = {k: v for k, v in params.items() if k not in parts}
+    for k, names in fused.items():
+        out[k] = codec.quantize(np.concatenate([f32(n) for n in names], axis=-1))
+    for k in keys:
+        out[k] = codec.quantize(f32(k))
     return out
 
 
@@ -81,50 +97,82 @@ def _stack(mf: mfile.MFile, names: list[str], transpose: bool, dtype) -> torch.T
     return torch.from_numpy(np.stack(mats)).to(dtype)
 
 
-def _stack_q(mf: mfile.MFile, names: list[list[str]]) -> q40.QTensor:
-    """Layer-stack Q40 tensors straight from their packed file bytes (a byte
-    transpose per tensor, no f32 transit); each inner list fuses its
-    tensors' output dims."""
+def _stack_q(mf: mfile.MFile, names: list[list[str]], codec):
+    """Layer-stack Q40/Q80 (``codec``) tensors straight from their packed
+    file bytes (a byte transpose per tensor, no f32 transit); each inner
+    list fuses its tensors' output dims."""
     def entry(name):
         t = mf.info(name)
         return (mf.raw(name), int(np.prod(t.shape[:-1])), t.shape[-1])
 
-    return q40.pack_file_groups([[entry(n) for n in group] for group in names])
+    return codec.pack_file_groups([[entry(n) for n in group] for group in names])
+
+
+def _stack_q_experts(mf: mfile.MFile, cfg: ModelConfig, fname: str, codec):
+    """Layer × expert stacked packed expert weights ``(L, E, ...)``, filled
+    tensor by tensor into preallocated host planes: host transit is bounded
+    by the packed size, with no f32 copy."""
+    L, E = cfg.n_layers, cfg.n_experts
+    t0 = mf.info(f"layers.0.experts.0.{fname}")
+    d, n = int(np.prod(t0.shape[:-1])), t0.shape[-1]
+    np_ = q40.padded_n(n)
+    qp = codec.alloc_value_plane((L, E), np_, d)
+    sc = np.zeros((L, E, np_ // 32, d), np.float16)
+    for l in range(L):
+        for e in range(E):
+            codec.repack_file_bytes_into(
+                mf.raw(f"layers.{l}.experts.{e}.{fname}"), d, n, qp[l, e], sc[l, e])
+    codec.check_finite(sc, f"{fname} expert scale plane")
+    return codec.from_np(qp, sc, (n, d))
 
 
 def load_params(mf: mfile.MFile, cfg: ModelConfig | None = None,
                 device="cpu") -> tuple[ModelConfig, Params]:
     """Load a `.m` file into the runtime layout on ``device``.
 
-    Q40 files keep their matmuls packed and fused (the JAX package's
-    ``keep_quantized=True, fuse=True``); F32/F16 files load dense.  Q80
-    files and MoE models raise ``NotImplementedError``."""
+    Q40 and Q80 files keep their matmuls packed and fused (the JAX
+    package's ``keep_quantized=True, fuse=True``); F32/F16 files load
+    dense."""
     if cfg is None:
         cfg = ModelConfig.from_spec(mf.spec)
-    ftype = mf.spec.weights_ftype
-    if ftype == quants.Q80:
-        raise NotImplementedError("Q80 weights are not yet ported to "
-                                  "dllama_tpu_torch (use a Q40, F16 or F32 file)")
-    if cfg.is_moe:
-        raise NotImplementedError("MoE models (Mixtral, Grok-1) are not yet "
-                                  "ported to dllama_tpu_torch")
+    codec = CODECS.get(mf.spec.weights_ftype)
     L, dt = cfg.n_layers, cfg.dtype
-    per_layer = lambda key: [f"layers.{i}.{key}" for i in range(L)]  # noqa: E731
+
+    def per_layer(key):
+        return [f"layers.{i}.{key}" for i in range(L)]
+
     p: Params = {"embedding": torch.from_numpy(mf.tensor("token_embedding")).to(dt)}
-    if ftype == quants.Q40:
+    if codec is not None:
         p["wqkv"] = _stack_q(mf, [[f"layers.{i}.{k}" for k in ("wq", "wk", "wv")]
-                                  for i in range(L)])
-        p["wo"] = _stack_q(mf, [[n] for n in per_layer("wo")])
-        p["w13"] = _stack_q(mf, [[f"layers.{i}.w1", f"layers.{i}.w3"] for i in range(L)])
-        p["w2"] = _stack_q(mf, [[n] for n in per_layer("w2")])
+                                  for i in range(L)], codec)
+        p["wo"] = _stack_q(mf, [[n] for n in per_layer("wo")], codec)
         tw = mf.info("wcls")
-        p["wcls"] = q40.pack_file_groups(
+        p["wcls"] = codec.pack_file_groups(
             [[(mf.raw("wcls"), int(np.prod(tw.shape[:-1])), tw.shape[-1])]],
             stacked=False)
     else:
-        for key in ("wq", "wk", "wv", "wo", "w1", "w2", "w3"):
+        for key in ("wq", "wk", "wv", "wo"):
             p[key] = _stack(mf, per_layer(key), True, dt)
         p["wcls"] = torch.from_numpy(np.ascontiguousarray(mf.tensor("wcls").T)).to(dt)
+    if cfg.is_moe:
+        p["router"] = _stack(mf, per_layer("moe_router"), True, dt)
+        for key in ("up", "gate", "down"):
+            if codec is not None:
+                p[key] = _stack_q_experts(mf, cfg, key, codec)
+            else:
+                p[key] = torch.from_numpy(np.stack([np.stack(
+                    [np.ascontiguousarray(mf.tensor(f"layers.{i}.experts.{e}.{key}").T)
+                     for e in range(cfg.n_experts)]) for i in range(L)])).to(dt)
+        if cfg.post_block_norms:
+            p["rms_moe"] = _stack(mf, per_layer("rms_moe"), False, torch.float32)
+            p["rms_ffn2"] = _stack(mf, per_layer("rms_ffn2"), False, torch.float32)
+    elif codec is not None:
+        p["w13"] = _stack_q(mf, [[f"layers.{i}.w1", f"layers.{i}.w3"] for i in range(L)],
+                            codec)
+        p["w2"] = _stack_q(mf, [[n] for n in per_layer("w2")], codec)
+    else:
+        for key in ("w1", "w2", "w3"):
+            p[key] = _stack(mf, per_layer(key), True, dt)
     p["rms_att"] = _stack(mf, per_layer("rms_att"), False, torch.float32)
     p["rms_ffn"] = _stack(mf, per_layer("rms_ffn"), False, torch.float32)
     p["rms_final"] = torch.from_numpy(mf.tensor("rms_final").astype(np.float32))
@@ -145,16 +193,18 @@ def _tensor(a: np.ndarray) -> torch.Tensor:
 
 def from_jax_params(arrays: dict, cfg: ModelConfig, device="cpu") -> Params:
     """The port's params from the JAX package's, handed over as numpy: each
-    packed weight as its ``(qpacked u8, scales uint16 f16-bits,
-    logical_nd)`` triple, every other leaf as an array.  Bits are kept
-    exactly, so both packages then run on the same weights."""
+    packed weight as its ``(qpacked, scales uint16 f16-bits, logical_nd)``
+    triple — uint8 values are Q40, int8 values Q80, with any leading dims
+    (``(L, E, ...)`` expert stacks) — every other leaf as an array.  Bits
+    are kept exactly, so both packages then run on the same weights."""
     out: Params = {}
     for k, v in arrays.items():
         if isinstance(v, tuple):
             qp, sc_bits, nd = v
-            out[k] = q40.QTensor(_tensor(qp),
-                                 _tensor(np.asarray(sc_bits, np.uint16).view(np.float16)),
-                                 tuple(nd))
+            cls = q8.Q8Tensor if np.asarray(qp).dtype == np.int8 else q40.QTensor
+            out[k] = cls(_tensor(qp),
+                         _tensor(np.asarray(sc_bits, np.uint16).view(np.float16)),
+                         tuple(nd))
         else:
             out[k] = _tensor(np.asarray(v))
     return to_device(out, device)

@@ -27,7 +27,7 @@ import subprocess
 HERE = os.path.dirname(os.path.abspath(__file__))
 PKG = os.path.dirname(HERE)
 SOURCES = [os.path.join(HERE, "csrc", n)
-           for n in ("q40_matmul.cu", "paged_attention.cu")]
+           for n in ("q40_matmul.cu", "q8_matmul.cu", "paged_attention.cu")]
 BUILD_DIR = os.path.join(PKG, "build")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -108,6 +108,6 @@ def load() -> ctypes.CDLL:
     """Build if needed, load once per process, and declare signatures."""
     global _lib
     if _lib is None:
-        from . import attention, q40
-        _lib = attention.bind(q40.bind(ctypes.CDLL(build())))
+        from . import attention, q8, q40
+        _lib = attention.bind(q8.bind(q40.bind(ctypes.CDLL(build()))))
     return _lib

@@ -31,6 +31,7 @@ import ctypes
 import numpy as np
 import torch
 
+from ..device import index_view
 from .kernels import softmax_f32
 
 _BLOCKED_THRESHOLD = 1 << 21
@@ -391,7 +392,6 @@ THREADS = 128
 MAX_SMEM = 232448
 _QTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KVTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-_LAYER_IDS: dict[torch.device, torch.Tensor] = {}
 
 
 def reset_counters() -> None:
@@ -429,18 +429,6 @@ def smem_bytes(g: int, ps: int, dh: int) -> int:
     the accumulators of the G query heads, their page scores and
     max/denominator/rescale (mirrors the source's carve-up)."""
     return 4 * (2 * ps * dh + 2 * g * dh + g * ps + 3 * g)
-
-
-def _layer_index(dev: torch.device, layer: int, n_layers: int) -> torch.Tensor:
-    """A (1,) int32 device view holding ``layer``: the kernel reads the
-    layer from device memory, so the launch needs no host value that a
-    captured graph could not replay.  The index table is made once per
-    device."""
-    ids = _LAYER_IDS.get(dev)
-    if ids is None or ids.numel() < n_layers:
-        ids = torch.arange(max(n_layers, 128), dtype=torch.int32, device=dev)
-        _LAYER_IDS[dev] = ids
-    return ids[layer:layer + 1]
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -505,7 +493,7 @@ def paged_attention(q: torch.Tensor, pool_k: torch.Tensor, pool_v: torch.Tensor,
     out = torch.empty_like(qc)
     if b == 0:
         return out
-    layer_t = _layer_index(dev, layer, n_layers)
+    layer_t = index_view(dev, layer, n_layers)
     sk_ptr = scales[0].data_ptr() if scales is not None else None
     sv_ptr = scales[1].data_ptr() if scales is not None else None
     inv_sqrt = float(np.float32(1.0 / np.sqrt(dh)))

@@ -7,6 +7,11 @@
 //
 //   y (t, d) f32 = bf16(x) (t, n) @ W,   W[k, j] = bf16(f32(nib(k, j) - 8) * f32(s[k/32, j]))
 //
+// Stacked planes (layers, or layer x expert of an MoE stack) are one
+// buffer; the plane to read is an int32 in device memory, read by every
+// block (the counterpart of the TPU kernel's scalar-prefetched index), so
+// an expert chosen by a top-k on the device needs no host read.
+//
 // Storage (block-local, byte-identical to the JAX package): packed row
 // 16b + r of the (np/2, d) uint8 plane holds logical row 32b + r in its low
 // nibble and 32b + 16 + r in its high nibble, biased +8; scales are f16
@@ -64,11 +69,17 @@ __device__ __forceinline__ float nib_minus_8(uint32_t nib) {
 template <int TG>
 __global__ void __launch_bounds__(kThreads)
 q40_matmul_kernel(const __nv_bfloat16* __restrict__ x,   // (t, n)
-                  const uint8_t* __restrict__ qp,         // (np/2, d), this layer
-                  const __half* __restrict__ sc,          // (np/32, d), this layer
+                  const uint8_t* __restrict__ qpacked,    // (n_planes, np/2, d)
+                  const __half* __restrict__ scales,      // (n_planes, np/32, d)
+                  const int* __restrict__ plane_p,        // the plane to read
                   float* __restrict__ part,               // (splits, t, d)
-                  int t, int n, int d, int kb_per) {
+                  int t, int n, int np, int d, int n_planes, int kb_per) {
   __shared__ float xs[TG][kChunk * 32];
+  // the plane index lives in device memory (a layer, or layer*E + expert
+  // chosen on the device); clamping keeps a bad value inside the planes
+  const size_t plane = (size_t)min(max(*plane_p, 0), n_planes - 1);
+  const uint8_t* qp = qpacked + plane * (size_t)(np / 2) * (size_t)d;
+  const __half* sc = scales + plane * (size_t)(np / 32) * (size_t)d;
   const int col0 = (blockIdx.x * kThreads + threadIdx.x) * kCols;
   const int nb = n / 32;
   const int kb_begin = blockIdx.y * kb_per;
@@ -170,38 +181,38 @@ __global__ void q40_reduce_splits(const float* __restrict__ part,
 
 template <int TG>
 void launch(const __nv_bfloat16* x, const uint8_t* qp, const __half* sc,
-            float* part, int t, int n, int d, int splits, int kb_per,
-            cudaStream_t stream) {
+            const int* idx, float* part, int t, int n, int np, int d,
+            int n_planes, int splits, int kb_per, cudaStream_t stream) {
   const dim3 grid((d + kBlockCols - 1) / kBlockCols, splits);
-  q40_matmul_kernel<TG><<<grid, kThreads, 0, stream>>>(x, qp, sc, part, t, n,
-                                                        d, kb_per);
+  q40_matmul_kernel<TG><<<grid, kThreads, 0, stream>>>(
+      x, qp, sc, idx, part, t, n, np, d, n_planes, kb_per);
 }
 
 }  // namespace
 
-// x (t, n) bf16; qpacked (L, np/2, d) u8 or (np/2, d); scales (L, np/32, d)
-// f16 or (np/32, d); out (t, d) f32; scratch (splits, t, d) f32 when
-// splits > 1.  Reads layer `layer` of the stacked planes in place.
-// Returns cudaGetLastError() after the launches (0 = success).
+// x (t, n) bf16; qpacked (n_planes, np/2, d) u8 (any leading dims,
+// flattened); scales (n_planes, np/32, d) f16; idx one int32 in device
+// memory, the plane to read (clamped to 0..n_planes-1); out (t, d) f32;
+// scratch (splits, t, d) f32 when splits > 1.  Returns cudaGetLastError()
+// after the launches (0 = success).
 extern "C" int q40_matmul(const void* x, const void* qpacked,
-                          const void* scales, void* out, void* scratch, int t,
-                          int n, int np, int d, long long layer, int splits,
-                          int kb_per, void* stream) {
-  const uint8_t* qp = static_cast<const uint8_t*>(qpacked) +
-                      (size_t)layer * (size_t)(np / 2) * (size_t)d;
-  const __half* sc = static_cast<const __half*>(scales) +
-                     (size_t)layer * (size_t)(np / 32) * (size_t)d;
+                          const void* scales, void* out, void* scratch,
+                          const void* idx, int t, int n, int np, int d,
+                          int n_planes, int splits, int kb_per, void* stream) {
+  const uint8_t* qp = static_cast<const uint8_t*>(qpacked);
+  const __half* sc = static_cast<const __half*>(scales);
+  const int* ip = static_cast<const int*>(idx);
   const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
   float* part = static_cast<float*>(splits > 1 ? scratch : out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (t == 1)
-    launch<1>(xb, qp, sc, part, t, n, d, splits, kb_per, s);
+    launch<1>(xb, qp, sc, ip, part, t, n, np, d, n_planes, splits, kb_per, s);
   else if (t == 2)
-    launch<2>(xb, qp, sc, part, t, n, d, splits, kb_per, s);
+    launch<2>(xb, qp, sc, ip, part, t, n, np, d, n_planes, splits, kb_per, s);
   else if (t <= 4)
-    launch<4>(xb, qp, sc, part, t, n, d, splits, kb_per, s);
+    launch<4>(xb, qp, sc, ip, part, t, n, np, d, n_planes, splits, kb_per, s);
   else
-    launch<8>(xb, qp, sc, part, t, n, d, splits, kb_per, s);
+    launch<8>(xb, qp, sc, ip, part, t, n, np, d, n_planes, splits, kb_per, s);
   if (splits > 1) {
     const size_t total = (size_t)t * (size_t)d;
     q40_reduce_splits<<<(unsigned)((total + 255) / 256), 256, 0, s>>>(

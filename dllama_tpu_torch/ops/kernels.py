@@ -7,6 +7,7 @@ none of them is a Pallas kernel).  Numerics follow the JAX functions:
 * rmsnorm accumulates the sum of squares in f32 and places eps *after*
   the mean: ``1/sqrt(mean(x²) + 1e-5)``, then casts back to x's dtype.
 * gelu is the tanh approximation.
+* top-k breaks ties toward the lower index, as ``jax.lax.top_k`` does.
 * RoPE has two conventions: ``interleaved`` (Llama: adjacent pairs
   (2j, 2j+1)) and rotate-half (Grok-1/Mixtral: pairs (j, j+half)); the
   rotation runs in f32 and casts back.
@@ -81,3 +82,12 @@ def softmax_f32(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     m = torch.amax(xf, dim=dim, keepdim=True)
     e = torch.exp(xf - m)
     return e / torch.sum(e, dim=dim, keepdim=True)
+
+
+def top_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The ``k`` largest values along the last axis and their indices,
+    largest first, equal values in ascending index order — the order of
+    ``jax.lax.top_k`` (``torch.topk`` promises none).  A stable descending
+    sort, cut to ``k``; it runs on the device with no host read."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]

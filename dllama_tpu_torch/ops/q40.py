@@ -15,6 +15,13 @@ Device layout (block-local, the same bytes as the JAX package's):
   uint16 planes.  Rows past ``n`` (the ``padded_n`` padding) have zero
   scales.
 
+Leading dims stack planes: ``(L, ...)`` for layers, ``(L, E, ...)`` for
+MoE expert stacks.  One plane is addressed by a flat index over the
+leading dims (``layer·E + expert``), a Python int or an int32 tensor that
+the kernel reads from device memory, so an expert id chosen on the card is
+never read back by the host.  :func:`mm` dispatches any weight (Q40, Q80
+or dense) to its matmul.
+
 :func:`matmul` computes the ``classic`` contract of the JAX kernel: weights
 ``bf16(f32(v-8)·s)``, activations cast to bf16 first, products summed in
 f32, an f32 result.  Dispatch:
@@ -36,12 +43,14 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import sys
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from .. import quants
+from ..device import index_view
 
 # Pack-time padding granularity of the input dim (the JAX package's
 # TILE_N default): padded rows carry zero scales, so the packed planes are
@@ -95,7 +104,12 @@ class QTensor:
                        self.logical_nd)
 
 
-def _check_finite(sc: np.ndarray, what: str) -> None:
+def alloc_value_plane(lead: tuple, np_: int, d: int) -> np.ndarray:
+    """Two nibbles a byte: ``np_/2`` packed rows per plane."""
+    return np.zeros((*lead, np_ // 2, d), np.uint8)
+
+
+def check_finite(sc: np.ndarray, what: str) -> None:
     # the kernel widens f16 bits as they are: an inf/NaN scale from a
     # corrupt or overflowed file would give silently wrong weights
     if not np.isfinite(sc).all():
@@ -122,15 +136,15 @@ def pack_planes_np(qvals: np.ndarray, scales: np.ndarray
     return packed, scales.astype(np.float16), (n, d)
 
 
-def _from_np(packed: np.ndarray, sc: np.ndarray, nd: tuple[int, int]) -> QTensor:
+def from_np(packed: np.ndarray, sc: np.ndarray, nd: tuple[int, int]) -> QTensor:
     return QTensor(torch.from_numpy(np.ascontiguousarray(packed)),
                    torch.from_numpy(np.ascontiguousarray(sc, np.float16)), nd)
 
 
 def pack_planes(qvals: np.ndarray, scales: np.ndarray) -> QTensor:
     packed, sc, nd = pack_planes_np(qvals, scales)
-    _check_finite(sc, "scale (|block amax| > 8*65504, or NaN)")
-    return _from_np(packed, sc, nd)
+    check_finite(sc, "scale (|block amax| > 8*65504, or NaN)")
+    return from_np(packed, sc, nd)
 
 
 def quantize(w: np.ndarray) -> QTensor:
@@ -185,31 +199,44 @@ def pack_file_groups(groups: list[list[tuple[np.ndarray, int, int]]],
                 raise ValueError(f"fused group mixes input dims {gn} != {n}")
             repack_file_bytes_into(raw, d, n, qp[l], sc[l], col)
             col += d
-    _check_finite(sc, "scale plane")
+    check_finite(sc, "scale plane")
     if not stacked:
         if L != 1:
             raise ValueError("stacked=False needs exactly one group")
-        return _from_np(qp[0], sc[0], (n, d_total))
-    return _from_np(qp, sc, (n, d_total))
+        return from_np(qp[0], sc[0], (n, d_total))
+    return from_np(qp, sc, (n, d_total))
 
 
-def _planes(qt: QTensor, layer: int | None) -> tuple[torch.Tensor, torch.Tensor]:
-    """The 2-D planes of ``qt`` (a view of layer ``layer`` of a stacked
-    QTensor; no copy)."""
+def plane(a: torch.Tensor, layer) -> torch.Tensor:
+    """The 2-D plane of ``a`` at ``layer``: a flat index over the flattened
+    leading dims (a layer of ``(L, n, d)``, or ``layer·E + expert`` of an
+    ``(L, E, n, d)`` expert stack), as the JAX package's
+    ``QLayerView.flat_planes`` takes it.  A Python int gives a view; a 0-d
+    or 1-element int tensor is read on its device (``index_select``, no
+    host read).  ``None`` returns ``a`` as it is."""
     if layer is None:
-        if qt.qpacked.dim() != 2:
-            raise ValueError(f"a stacked QTensor {qt.shape} needs a layer index")
-        return qt.qpacked, qt.scales
-    if qt.qpacked.dim() != 3:
-        raise ValueError(f"layer index given for a non-stacked QTensor {qt.shape}")
-    return qt.qpacked[layer], qt.scales[layer]
+        return a
+    a = a.reshape(-1, *a.shape[-2:])
+    if isinstance(layer, torch.Tensor):
+        return a.index_select(0, layer.reshape(1).to(a.device, torch.long))[0]
+    return a[layer]
 
 
-def dequantize(qt: QTensor, dtype=torch.float32, layer: int | None = None) -> torch.Tensor:
-    """Reconstruct the dense array (of one layer of a stacked QTensor when
-    ``layer`` is given): ``f32(v-8)·f32(s)``, then cast to ``dtype`` —
-    bit-identical to the JAX package's ``dequantize``; the f16→f32 widening
-    is exact, subnormals included."""
+def _planes(qt, layer) -> tuple[torch.Tensor, torch.Tensor]:
+    """``qt``'s two planes at ``layer`` (:func:`plane`); a Q40 or a Q80
+    tensor (the same field names)."""
+    if layer is None and qt.qpacked.dim() != 2:
+        raise ValueError(f"a stacked {type(qt).__name__} {qt.shape} needs a layer index")
+    if layer is not None and qt.qpacked.dim() < 3:
+        raise ValueError(f"layer index given for a non-stacked {type(qt).__name__} {qt.shape}")
+    return plane(qt.qpacked, layer), plane(qt.scales, layer)
+
+
+def dequantize(qt: QTensor, dtype=torch.float32, layer=None) -> torch.Tensor:
+    """Reconstruct the dense array (of one plane of a stacked QTensor when
+    ``layer`` is given, see :func:`plane`): ``f32(v-8)·f32(s)``, then cast
+    to ``dtype`` — bit-identical to the JAX package's ``dequantize``; the
+    f16→f32 widening is exact, subnormals included."""
     if layer is None:
         qp, sc = qt.qpacked, qt.scales
     else:
@@ -228,7 +255,7 @@ def dequantize(qt: QTensor, dtype=torch.float32, layer: int | None = None) -> to
     return w.to(dtype)
 
 
-def matmul_plain(x2: torch.Tensor, qt: QTensor, layer: int | None = None) -> torch.Tensor:
+def matmul_plain(x2: torch.Tensor, qt: QTensor, layer=None) -> torch.Tensor:
     """The plain version: ``bf16(x) (t, n) @ bf16(W) (n, d)`` with products
     summed in f32, result f32.  Both bf16 operands are widened to f32 before
     the product (exact), because a bf16×bf16 ``torch.matmul`` rounds its
@@ -238,33 +265,59 @@ def matmul_plain(x2: torch.Tensor, qt: QTensor, layer: int | None = None) -> tor
                         w.to(torch.float32))
 
 
-def matmul(x: torch.Tensor, qt: QTensor, layer: int | None = None,
+def matmul(x: torch.Tensor, qt: QTensor, layer=None,
            out_dtype=None, impl: str = "auto") -> torch.Tensor:
     """``x @ dequantize(qt)`` with f32 accumulation.
 
     x: (..., n); ``qt`` logical (n, d), 2-D, or stacked with ``layer`` the
-    index into its ``(L, n/2, d)`` planes (the counterpart of the JAX
-    package's ``QLayerView``).  Returns (..., d) in ``out_dtype`` (default
+    flat index of one of its planes, a Python int or an int32 device
+    tensor (:func:`plane`; the counterpart of the JAX package's
+    ``QLayerView``).  Returns (..., d) in ``out_dtype`` (default
     ``x.dtype``).  ``impl="plain"`` runs the plain version on any device —
     the reference path that a comparison on the card holds the kernel
     against; ``"auto"`` dispatches as the module docstring says."""
-    global plain_calls, dense_prefill_calls
+    return dispatch(sys.modules[__name__], q40_matmul, x, qt, layer, out_dtype, impl)
+
+
+def dispatch(codec, kernel, x: torch.Tensor, qt, layer, out_dtype, impl: str
+             ) -> torch.Tensor:
+    """The routing :func:`matmul` and ``q8.matmul`` share, counted on
+    ``codec``'s (the module's) counters: a CPU tensor or ``impl="plain"`` →
+    ``codec.matmul_plain``; a CUDA tensor of up to ``PALLAS_MAX_ROWS`` rows
+    → ``kernel``; more rows → the plain version (``dense_prefill_calls``)."""
     if impl not in ("auto", "plain"):
-        raise ValueError(f"unknown q40 matmul impl {impl!r}")
+        raise ValueError(f"unknown {codec.__name__} matmul impl {impl!r}")
     n, d = qt.logical_nd
     lead = x.shape[:-1]
     rows = int(np.prod(lead)) if lead else 1
-    out_dtype = out_dtype or x.dtype
     x2 = x.reshape(rows, n)
     if impl == "plain" or x.device.type == "cpu":
-        plain_calls += 1
-        out = matmul_plain(x2, qt, layer)
+        codec.plain_calls += 1
+        out = codec.matmul_plain(x2, qt, layer)
     elif rows <= PALLAS_MAX_ROWS:
-        out = q40_matmul(x2, qt.qpacked, qt.scales, n, layer)
+        out = kernel(x2, qt.qpacked, qt.scales, n, layer)
     else:
-        dense_prefill_calls += 1
-        out = matmul_plain(x2, qt, layer)
-    return out.reshape(*lead, d).to(out_dtype)
+        codec.dense_prefill_calls += 1
+        out = codec.matmul_plain(x2, qt, layer)
+    return out.reshape(*lead, d).to(out_dtype or x.dtype)
+
+
+def mm(x: torch.Tensor, w, layer=None, impl: str = "auto",
+       out_dtype=None) -> torch.Tensor:
+    """Generic matmul: a packed weight (Q40 or Q80, bare or at a flat plane
+    index ``layer``) goes to its codec's :func:`matmul`, a dense tensor (its
+    plane at ``layer``, see :func:`plane`) to ``x @ w`` — the JAX package's
+    ``q40.mm``.  ``out_dtype`` defaults to ``x.dtype`` for packed weights
+    and to the product's dtype for dense ones."""
+    from . import q8
+    if isinstance(w, QTensor):
+        return matmul(x, w, layer, out_dtype=out_dtype, impl=impl)
+    if isinstance(w, q8.Q8Tensor):
+        return q8.matmul(x, w, layer, out_dtype=out_dtype, impl=impl)
+    if not isinstance(w, torch.Tensor):
+        raise TypeError(f"mm: unsupported weight type {type(w).__name__}")
+    out = x @ plane(w, layer)
+    return out.to(out_dtype) if out_dtype is not None else out
 
 
 # ---------------------------------------------------------------------------
@@ -299,46 +352,83 @@ def _sm_count(dev: torch.device) -> int:
     return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
-def _require(cond: bool, msg: str) -> None:
+def _require(cond: bool, msg: str, who: str = "q40_matmul") -> None:
     if not cond:
-        raise ValueError(f"q40_matmul: {msg}")
+        raise ValueError(f"{who}: {msg}")
+
+
+def plane_index(planes: torch.Tensor, layer, dev: torch.device, who: str
+                ) -> tuple[torch.Tensor, int]:
+    """The plane a kernel reads, as a (1,) int32 tensor on ``dev``, and the
+    plane count of ``planes`` (the product of its leading dims).  ``layer``
+    None is the one plane of a 2-D tensor; a Python int becomes a view into
+    the device's index table (:func:`device.index_view`); an int32 device
+    tensor (an expert id computed on the card) passes as it is, and the
+    kernel clamps it to the plane count.  No path reads the device."""
+    if layer is None:
+        if planes.dim() != 2:
+            raise ValueError(f"{who}: a stacked plane needs a layer index")
+        return index_view(dev, 0, 1), 1
+    if planes.dim() < 3:
+        raise ValueError(f"{who}: layer index given for a 2-D plane")
+    n_planes = int(np.prod(planes.shape[:-2]))
+    if isinstance(layer, torch.Tensor):
+        if not (layer.device == dev and layer.dtype == torch.int32 and layer.numel() == 1):
+            raise ValueError(f"{who}: a tensor index must be one int32 on {dev}, got "
+                             f"{layer.dtype} {tuple(layer.shape)} on {layer.device}")
+        return layer, n_planes
+    layer = int(layer)
+    if not 0 <= layer < n_planes:
+        raise ValueError(f"{who}: layer {layer} outside 0..{n_planes - 1}")
+    return index_view(dev, layer, n_planes), n_planes
 
 
 def q40_matmul(x2: torch.Tensor, qpacked: torch.Tensor, scales: torch.Tensor,
-               n: int, layer: int | None = None) -> torch.Tensor:
+               n: int, layer=None) -> torch.Tensor:
     """Launch the Q40 dequant-matmul kernel: ``bf16(x2) (t, n) @ W`` → f32
-    ``(t, d)``, reading layer ``layer`` of a stacked ``(L, np/2, d)`` plane
-    in place (or the 2-D plane when ``layer`` is None).  CUDA tensors only:
-    it launches the kernel or raises; it never computes on another path."""
+    ``(t, d)``, reading plane ``layer`` of stacked ``(..., np/2, d)`` planes
+    in place (a flat index over the leading dims, a Python int or an int32
+    device tensor, see :func:`plane_index`), or the 2-D plane when
+    ``layer`` is None.  CUDA tensors only: it launches the kernel or
+    raises; it never computes on another path."""
     global kernel_launches
-    _require(x2.is_cuda, f"x must be a CUDA tensor, got device {x2.device}")
+    out = launch("q40_matmul", x2, qpacked, scales, n, layer, torch.uint8, 2)
+    kernel_launches += 1
+    key = (n, out.shape[1])
+    launches_by_shape[key] = launches_by_shape.get(key, 0) + 1
+    return out
+
+
+def launch(fn: str, x2: torch.Tensor, values: torch.Tensor, scales: torch.Tensor,
+           n: int, layer, value_dtype: torch.dtype, per_byte: int) -> torch.Tensor:
+    """Check the operands of the Q40 or Q80 kernel (C entry point ``fn``,
+    values of ``value_dtype`` holding ``per_byte`` weights a byte: 2 for
+    Q40's nibbles, 1 for Q80's int8) and launch it on the current stream;
+    returns the f32 ``(t, d)`` output.  Raises on anything the kernel does
+    not take, a CPU tensor first."""
+    def req(cond, msg):
+        _require(cond, msg, fn)
+
+    req(x2.is_cuda, f"x must be a CUDA tensor, got device {x2.device}")
     dev = x2.device
-    _require(qpacked.device == dev and scales.device == dev,
-             "x, qpacked and scales must be on one device")
-    _require(qpacked.dtype == torch.uint8, f"qpacked dtype {qpacked.dtype} != uint8")
-    _require(scales.dtype == torch.float16, f"scales dtype {scales.dtype} != float16")
-    _require(qpacked.is_contiguous() and scales.is_contiguous(),
-             "qpacked and scales must be contiguous")
-    _require(qpacked.data_ptr() % 4 == 0 and scales.data_ptr() % 8 == 0,
-             "qpacked/scales not aligned for the kernel's vector loads")
-    _require(x2.dim() == 2 and x2.shape[1] == n, f"x shape {tuple(x2.shape)} != (t, {n})")
+    req(values.device == dev and scales.device == dev,
+        "x, values and scales must be on one device")
+    req(values.dtype == value_dtype, f"values dtype {values.dtype} != {value_dtype}")
+    req(scales.dtype == torch.float16, f"scales dtype {scales.dtype} != float16")
+    req(values.is_contiguous() and scales.is_contiguous(),
+        "values and scales must be contiguous")
+    req(values.data_ptr() % 4 == 0 and scales.data_ptr() % 8 == 0,
+        "values/scales not aligned for the kernel's vector loads")
+    req(x2.dim() == 2 and x2.shape[1] == n, f"x shape {tuple(x2.shape)} != (t, {n})")
     t = x2.shape[0]
-    _require(1 <= t <= PALLAS_MAX_ROWS, f"{t} rows outside 1..{PALLAS_MAX_ROWS}")
-    _require(n % 32 == 0, f"n={n} not a multiple of 32")
-    if layer is None:
-        _require(qpacked.dim() == 2, "a stacked plane needs a layer index")
-        layer_i = 0
-    else:
-        _require(qpacked.dim() == 3, "layer index given for a 2-D plane")
-        layer_i = int(layer)
-        _require(0 <= layer_i < qpacked.shape[0],
-                 f"layer {layer_i} outside 0..{qpacked.shape[0] - 1}")
-    np_ = qpacked.shape[-2] * 2
-    d = qpacked.shape[-1]
-    _require(np_ >= n and np_ % 32 == 0, f"packed rows {np_ // 2} do not cover n={n}")
-    _require(tuple(scales.shape) == tuple(qpacked.shape[:-2]) + (np_ // 32, d),
-             f"scales shape {tuple(scales.shape)} does not match qpacked "
-             f"{tuple(qpacked.shape)}")
+    req(1 <= t <= PALLAS_MAX_ROWS, f"{t} rows outside 1..{PALLAS_MAX_ROWS}")
+    req(n % 32 == 0, f"n={n} not a multiple of 32")
+    idx, n_planes = plane_index(values, layer, dev, fn)
+    np_ = values.shape[-2] * per_byte
+    d = values.shape[-1]
+    req(np_ >= n and np_ % 32 == 0, f"value rows {values.shape[-2]} do not cover n={n}")
+    req(tuple(scales.shape) == tuple(values.shape[:-2]) + (np_ // 32, d),
+        f"scales shape {tuple(scales.shape)} does not match values {tuple(values.shape)}")
     from . import _build
     lib = _build.load()
     xb = x2.to(torch.bfloat16).contiguous()
@@ -348,15 +438,13 @@ def q40_matmul(x2: torch.Tensor, qpacked: torch.Tensor, scales: torch.Tensor,
                if splits > 1 else out)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        rc = lib.q40_matmul(xb.data_ptr(), qpacked.data_ptr(), scales.data_ptr(),
-                            out.data_ptr(), scratch.data_ptr(), t, n, np_, d,
-                            layer_i, splits, per, stream)
+        rc = getattr(lib, fn)(xb.data_ptr(), values.data_ptr(), scales.data_ptr(),
+                              out.data_ptr(), scratch.data_ptr(), idx.data_ptr(),
+                              t, n, np_, d, n_planes, splits, per, stream)
     if rc != 0:
-        raise RuntimeError(f"q40_matmul launch failed: CUDA error {rc} "
+        raise RuntimeError(f"{fn} launch failed: CUDA error {rc} "
                            f"({lib.q40_error_string(rc).decode()}) at "
                            f"t={t} n={n} d={d} splits={splits}")
-    kernel_launches += 1
-    launches_by_shape[(n, d)] = launches_by_shape.get((n, d), 0) + 1
     return out
 
 
@@ -364,8 +452,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C entry points' signatures (every pointer and the stream
     as ``c_void_p``, so ctypes never cuts a 64-bit pointer)."""
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.q40_matmul.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci,
-                               ctypes.c_longlong, ci, ci, vp]
+    lib.q40_matmul.argtypes = [vp] * 6 + [ci] * 7 + [vp]
     lib.q40_matmul.restype = ci
     lib.q40_error_string.argtypes = [ci]
     lib.q40_error_string.restype = ctypes.c_char_p

@@ -40,7 +40,7 @@ from collections import deque
 from dataclasses import dataclass, field
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
-from ..ops import attention, q40
+from ..ops import attention, q8, q40
 from ..runtime.engine import ContextOverflow, Engine
 from ..runtime.scheduler import SchedulerClosed, SchedulerSaturated, SlotScheduler
 from ..runtime.stream import drain_generation
@@ -327,7 +327,6 @@ class ApiState:
         counters."""
         eng = self.engine
         in_flight, queued = self.queue_depths()
-        qc = q40.counters()
         return {
             "status": "draining" if self.draining else "ok",
             "ready": True,  # the model loads before serve() binds the port
@@ -342,7 +341,8 @@ class ApiState:
             "uptime_s": round(time.time() - self.metrics.started_at, 3),
             **self.metrics.snapshot(),
             "launches": {
-                "q40": {k: v for k, v in qc.items() if isinstance(v, int)},
+                **{name: {k: v for k, v in mod.counters().items() if isinstance(v, int)}
+                   for name, mod in (("q40", q40), ("q8", q8))},
                 "paged_attention": attention.counters()},
         }
 

@@ -103,7 +103,7 @@ def test_health_and_models(servers):
         health = json.loads(r.read())
     assert health["status"] == "ok" and health["backend"] == "cpu"
     assert health["batch_slots"] == 2 and health["scheduler"]["kv_pages_total"] == 39
-    assert set(health["launches"]) == {"q40", "paged_attention"}
+    assert set(health["launches"]) == {"q40", "q8", "paged_attention"}
 
 
 @pytest.mark.parametrize("path,body", [

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from dllama_tpu import quants
+from dllama_tpu.io import mfile
 from fixtures import REPO, cpu_env, run_cli, write_tiny_model, write_tiny_tokenizer
 
 PORT = os.path.join(REPO, "dllama_tpu_torch")
@@ -90,11 +91,13 @@ def test_cuda_request_without_cuda_fails(model_files):
     assert "torch.cuda.is_available() is False" in r.stderr
 
 
-def test_port_never_imports_jax_or_dllama_tpu(model_files):
-    """Import every module of the port, run its CLI and serve one request
-    through its API server's slot scheduler, then look at sys.modules: no
-    jax, no dllama_tpu."""
+def test_port_never_imports_jax_or_dllama_tpu(model_files, tmp_path):
+    """Import every module of the port, run its CLI (on a Q40 Llama and a
+    Q80 Mixtral file) and serve one request through its API server's slot
+    scheduler, then look at sys.modules: no jax, no dllama_tpu."""
     m, t = model_files
+    moe = str(tmp_path / "mixtral-q80.m")
+    write_tiny_model(moe, arch=mfile.ARCH_MIXTRAL, ftype=quants.Q80, n_experts=4)
     code = f"""
 import importlib, json, pkgutil, sys, urllib.request
 import dllama_tpu_torch
@@ -102,11 +105,12 @@ for mod in pkgutil.walk_packages(dllama_tpu_torch.__path__, "dllama_tpu_torch.")
     if not mod.name.endswith("__main__"):
         importlib.import_module(mod.name)
 for name in ("server.api", "runtime.scheduler", "runtime.pagepool", "runtime.stream",
-             "tokenizer.chat", "tokenizer.eos", "server.backoff"):
+             "tokenizer.chat", "tokenizer.eos", "server.backoff", "ops.q8"):
     assert "dllama_tpu_torch." + name in sys.modules, name
 from dllama_tpu_torch import cli
-cli.main(["generate", "--model", {m!r}, "--tokenizer", {t!r}, "--prompt", "hello",
-          "--steps", "6", "--temperature", "0", "--device", "cpu"])
+for model in ({m!r}, {moe!r}):
+    cli.main(["generate", "--model", model, "--tokenizer", {t!r}, "--prompt", "hello",
+              "--steps", "6", "--temperature", "0", "--device", "cpu"])
 from dllama_tpu_torch.server import api
 srv = api.start(["--model", {m!r}, "--tokenizer", {t!r}, "--device", "cpu", "--port", "0",
                  "--host", "127.0.0.1", "--batch-slots", "2", "--kv-pages", "40",

@@ -19,7 +19,7 @@ import torch
 from dllama_tpu import quants
 from dllama_tpu.io import mfile as jmfile
 from dllama_tpu.models import config as jconfig, params as jparams, transformer as jtr
-from dllama_tpu.ops import q40 as jq40
+from dllama_tpu.ops import q8 as jq8, q40 as jq40
 from dllama_tpu_torch.io import mfile as tmfile
 from dllama_tpu_torch.models import config as tconfig, params as tparams, transformer as ttr
 from dllama_tpu_torch.runtime.engine import Engine
@@ -62,14 +62,13 @@ def q40_file(tmp_path_factory):
     return str(path)
 
 
-def test_load_params_matches_jax(q40_file):
-    jcfg, jp = jparams.load_params(jmfile.MFile(q40_file), keep_quantized=True)
-    with tmfile.MFile(q40_file) as mf:
-        tcfg, tp = tparams.load_params(mf)
+def _same_params(tp, jp):
+    """Every leaf equal bit for bit; packed weights of the same codec."""
     assert set(tp) == set(jp)
     for k, jv in jp.items():
         tv = tp[k]
-        if isinstance(jv, jq40.QTensor):
+        if isinstance(jv, (jq40.QTensor, jq8.Q8Tensor)):
+            assert type(tv).__name__ == type(jv).__name__, k
             assert tv.logical_nd == jv.logical_nd
             np.testing.assert_array_equal(tv.qpacked.numpy(), np.asarray(jv.qpacked))
             np.testing.assert_array_equal(tv.scales.numpy().view(np.uint16),
@@ -78,11 +77,45 @@ def test_load_params_matches_jax(q40_file):
             np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
 
 
-def test_load_params_rejects_q80(tmp_path):
+def _load_both(path):
+    jcfg, jp = jparams.load_params(jmfile.MFile(str(path)), keep_quantized=True)
+    with tmfile.MFile(str(path)) as mf:
+        tcfg, tp = tparams.load_params(mf)
+    return jp, tp
+
+
+def test_load_params_matches_jax(q40_file):
+    jp, tp = _load_both(q40_file)
+    _same_params(tp, jp)
+
+
+def test_load_params_q80_matches_jax(tmp_path):
+    """A Q80 file keeps its matmuls packed as int8 planes, fused like Q40's,
+    bit-identical to the JAX package's ``keep_quantized=True`` load."""
     path = tmp_path / "q80.m"
     write_tiny_model(path, ftype=quants.Q80, vocab_size=128, seq_len=64)
-    with tmfile.MFile(path) as mf, pytest.raises(NotImplementedError, match="Q80"):
-        tparams.load_params(mf)
+    jp, tp = _load_both(path)
+    _same_params(tp, jp)
+    assert {k for k, v in tp.items() if not isinstance(v, torch.Tensor)} == \
+        {"wqkv", "wo", "w13", "w2", "wcls"}
+    assert tp["wqkv"].qpacked.dtype == torch.int8
+
+
+@pytest.mark.parametrize("arch,ftype", [(jmfile.ARCH_MIXTRAL, quants.Q40),
+                                        (jmfile.ARCH_MIXTRAL, quants.Q80),
+                                        (jmfile.ARCH_GROK1, quants.Q40),
+                                        (jmfile.ARCH_MIXTRAL, quants.F32)])
+def test_load_moe_matches_jax(tmp_path, arch, ftype):
+    """Tiny Mixtral/Grok-1 `.m` files: the router dense, the experts as
+    (L, E, ...) planes (packed for Q40/Q80, dense for F32), Grok's extra
+    norms; all equal to the JAX package's load."""
+    path = tmp_path / "moe.m"
+    write_tiny_model(path, arch=arch, ftype=ftype, n_experts=4, vocab_size=128,
+                     seq_len=64)
+    jp, tp = _load_both(path)
+    _same_params(tp, jp)
+    assert tp["up"].shape == (2, 4, 64, 96) and tp["router"].shape == (2, 64, 4)
+    assert ("rms_moe" in tp) == (arch == jmfile.ARCH_GROK1)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
