@@ -76,11 +76,39 @@ Phases (each prints its seconds; any failure exits non-zero):
    layers, Q40 and Q80, the phase-5 and phase-8 checks (batch-1 and slot
    paths, both MoE routes: all experts for the prompt, the selected ones
    for decode).
+13. kernel 3 (the Q40 matmul over tile-contiguous "blocked" planes)
+   against its plain version (unblock the plane, then phase 2's plain
+   version) at the five 7B sites in the default tiles (512, 2048) (stacked
+   planes read at 0 and L-1 through an int32 on the card; wcls as an L = 1
+   stack) and two narrow shapes whose column tiles cut through a thread
+   block (d = 320: td clamped to 384; d = 1000 in tiles (256, 384)), t in
+   {1, 16, 128}.  Times kernel 3, kernels 1-2 on the same weights
+   row-major, the plain version and torch.matmul on the dequantized bf16
+   weight, each launch on a cold L2, the bound from the stored (d padded
+   to td) bytes; prints max|kernel 3 - kernels 1-2| (0: bit for bit).
+14. the blocked main path at full Llama-2-7B width and depth, phase 3's
+   file with ``DLLAMA_Q40_LAYOUT=blocked``: ``inference`` as phase 3, with
+   exactly 129 kernel-3 launches a forward and no row-major launch or
+   plain call, its profiler split and peak memory (the load included);
+   ``batch`` of 8 prompts (8 to 200 characters) from a prompts file,
+   greedy, ``--steps 48`` (kernel 3 at t = 8 in decode), run twice: the
+   same bytes, every row finished, finite logits; the API server as in
+   phase 7b with 8 requests, kernel 3 on the slot path.
+15. blocked and batch end to end against the plain path on the phase-5
+   model: kernel 3 against ``quant_impl="plain"`` (and against kernels
+   1-2: bit for bit), the lockstep batch of 4 ragged prompts against each
+   prompt's single-stream run (prefill + 8 teacher-forced steps, the
+   phase-5 margin rule), and ``chat`` over stdin on a copy whose wcls
+   rows of two tokens dwarf the others with opposite signs, the chat EOS
+   and a token whose piece is the tokenizer's chat stop string, so a
+   reply ends within a token or two whatever the sign of the hidden
+   state: two turns, the second starting where the first ended.
 
-They run in the order 1, 2, 9, 6, 3, 4, 5, 8, 7, 10, 11, 12; each
-synthesized model is deleted when its phases end.  ``--only 1,6``
-runs a subset of the phases (for bring-up; it prints no result lines).  Prints the kernel table as one JSON line before the last
-line; the last line is ``{"ok": true, "device": {...}}``.
+They run in the order 1, 2, 13, 9, 6, 3, 4, 5, 8, 15, 7, 14, 10, 11, 12;
+each synthesized model is deleted when its phases end.  ``--only 1,6``
+runs a subset of the phases (for bring-up; it prints no result lines).
+Prints the kernel table as one JSON line before the last line; the last
+line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -141,6 +169,13 @@ MIXTRAL_SITES = [("mixtral.wqkv", 4096, 6144, (STACK_L,)),
                  ("mixtral.down", 14336, 4096, (MIXTRAL_LAYERS, 8))]
 GROK_SITES = [("grok.up", 6144, 32768, (2, 8)), ("grok.down", 32768, 6144, (2, 8))]
 ROWS = (1, 16, 128)
+# kernel 3 (phase 13): the 7B sites in the default tiles, then two narrow
+# shapes whose column tiles cut through a 512-column thread block: d = 320
+# (td clamped to 384, one partial tile) and d = 1000 in tiles (256, 384)
+BLOCKED_REPLACES = "dllama_tpu/ops/q40.py:840"
+BLOCKED_SITES = [(site, n, d, lead, None) for site, n, d, lead in LLAMA_SITES] + [
+    ("narrow.d320", 4096, 320, (STACK_L,), None),
+    ("narrow.d1000", 4096, 1000, (STACK_L,), (256, 384))]
 # paged attention (phase 6): kernel vs plain, the TPU kernel's own bar —
 # the two fold the same bf16 operands in another summation order
 ATTN_TOL = 1e-2
@@ -264,7 +299,8 @@ def check_sites(codec, sites, dev, seed: int) -> dict:
 
 
 def synth_model(path_m: str, n_layers: int, mfile, quants, fresh: bool = False,
-                dims: dict = LLAMA2_7B, ftype: int | None = None) -> None:
+                dims: dict = LLAMA2_7B, ftype: int | None = None,
+                boost_rows: dict | None = None) -> None:
     """A `.m` of ``dims``'s shape (Llama-2-7B, or Mixtral when ``dims`` has
     experts) at packed size in ``ftype`` (Q40 by default, or Q80): random
     value blocks with a constant small f16 scale (0.008 for Q40's nibbles,
@@ -272,7 +308,10 @@ def synth_model(path_m: str, n_layers: int, mfile, quants, fresh: bool = False,
     MoE router is such a tensor too, so it routes at random).  By default
     the values tile a 4 MB random pattern from a random offset per tensor
     (fast to write at full size; wcls rows then repeat every 2048 rows, so
-    logits tie); ``fresh`` draws every byte, so the logits have no ties."""
+    logits tie); ``fresh`` draws every byte, so the logits have no ties.
+    ``boost_rows`` {token: byte} fills those wcls rows (the tokens'
+    logits) with the packed byte (0xFF: every weight +7, 0x11: every
+    weight -7) at the scale 0.5, so their logits dwarf the others'."""
     ftype = quants.Q40 if ftype is None else ftype
     moe = dims.get("n_experts", 0) > 0
     spec = mfile.ModelSpec(arch=mfile.ARCH_MIXTRAL if moe else mfile.ARCH_LLAMA,
@@ -293,6 +332,12 @@ def synth_model(path_m: str, n_layers: int, mfile, quants, fresh: bool = False,
                 arr[:, 2:] = (np.frombuffer(rng.bytes(arr[:, 2:].size), np.uint8).reshape(shape)
                               if fresh else np.resize(np.roll(pool, rng.randint(1 << 22)),
                                                       shape))
+                if info.name == "wcls":
+                    per_row = info.shape[-1] // 32
+                    for row, byte in (boost_rows or {}).items():
+                        blocks = arr[row * per_row:(row + 1) * per_row]
+                        blocks[:, :2] = np.frombuffer(np.float16(0.5).tobytes(), np.uint8)
+                        blocks[:, 2:] = byte
                 w.write_raw(info.name, arr)
             else:
                 w.write_tensor(info.name,
@@ -301,18 +346,20 @@ def synth_model(path_m: str, n_layers: int, mfile, quants, fresh: bool = False,
                                else np.ones(info.shape, np.float32))
 
 
-def synth_tokenizer(path_t: str, tfile) -> None:
+def synth_tokenizer(path_t: str, tfile, chat_stop: str | None = None):
     """A 32000-piece `.t` (the vocab of Llama-2 and Mixtral): a few words,
-    the byte pieces, ChatML markers and filler pieces."""
+    the byte pieces, ChatML markers and filler pieces; returns its data."""
     words = [b" ", b"a", b"e", b"o", b"t", b"he", b"the", b" the", b"on", b"ce",
              b" upon", b" time", b"Once", b" capital", b" of", b" France", b" is"]
     vocab = [b"<unk>", b"<s>", b"</s>"] + [f"<0x{i:02X}>".encode() for i in range(256)]
     vocab += words + [b"<|im_start|>", b"<|im_end|>"]
     vocab += [f"<extra_{i}>".encode() for i in range(len(vocab), LLAMA2_7B["vocab_size"])]
-    tfile.write_tfile(path_t, tfile.TokenizerData(
+    data = tfile.TokenizerData(
         vocab=vocab, scores=[float(len(v)) if v in words else 0.0 for v in vocab],
         bos_id=1, eos_id=2, chat_eos_id=vocab.index(b"<|im_end|>"),
-        chat_template=CHATML))
+        chat_template=CHATML, chat_stop=chat_stop)
+    tfile.write_tfile(path_t, data)
+    return data
 
 
 def run_cli(cli, argv: list[str]):
@@ -325,11 +372,13 @@ def run_cli(cli, argv: list[str]):
 
 
 def main_path(cli, codec, m: str, t: str, want, extra: tuple = (),
-              keep: bool = False):
-    """Phases 3, 10, 11: ``inference`` through the CLI with ``codec``'s (q40
-    or q8) counters set to 0 just before it and read just after;
-    ``want(engine)`` is the run's exact kernel launch count.  Returns the
-    run's numbers (and the engine, with ``keep``)."""
+              keep: bool = False, key: str = "kernel_launches"):
+    """Phases 3, 10, 11, 14: ``inference`` through the CLI with ``codec``'s
+    (q40 or q8) counters set to 0 just before it and read just after;
+    ``want(engine)`` is the run's exact launch count of counter ``key``
+    (``blocked_launches``: kernel 3, with no launch of kernels 1-2; else
+    kernels 1-2 with no launch of kernel 3).  Returns the run's numbers
+    (and the engine, with ``keep``)."""
     # an earlier phase's server can linger in reference cycles: free it
     # before the peak-memory reading starts
     gc.collect()
@@ -342,17 +391,19 @@ def main_path(cli, codec, m: str, t: str, want, extra: tuple = (),
     c = codec.counters()
     peak = torch.cuda.max_memory_allocated()
     print("\n".join(out.splitlines()[-8:]))
-    if c["kernel_launches"] != want(engine) or c["plain_calls"] or c["dense_prefill_calls"]:
+    other = "kernel_launches" if key == "blocked_launches" else "blocked_launches"
+    if (c[key] != want(engine) or c.get(other, 0) or c["plain_calls"]
+            or c["dense_prefill_calls"]):
         raise AssertionError(f"main path did not run every matmul through the kernel: "
                              f"{c} over {engine.forwards} forwards, want "
-                             f"{want(engine)} launches")
+                             f"{want(engine)} {key}")
     tps = float(re.search(r"Avg tokens / second: ([\d.]+)", out).group(1))
     ms = float(re.search(r"Avg generation time: ([\d.]+) ms", out).group(1))
     if not torch.isfinite(engine.last_logits).all():
         raise AssertionError("main path ended on non-finite logits")
     print(f"main path: {tps} tok/s, {ms} ms/token, peak device memory "
           f"{peak / 2**30:.2f} GiB, {engine.forwards} forwards, "
-          f"{c['kernel_launches']} kernel launches")
+          f"{c[key]} {key}")
     profile_decode(engine, ms, "q8_" if codec.__name__.endswith(".q8") else "q40_")
     run = dict(counts=c, tok_s=tps, ms_token=ms, peak_bytes=peak)
     if keep:
@@ -362,24 +413,37 @@ def main_path(cli, codec, m: str, t: str, want, extra: tuple = (),
     return run
 
 
-def profile_decode(engine, ms_token: float, kname: str = "q40_", steps: int = 8) -> None:
+def profile_decode(engine, ms_token: float | None, kname: str = "q40_", steps: int = 8,
+                   prompts: list[list[int]] | None = None) -> None:
     """Where a decode token's time goes: torch.profiler over ``steps``
     greedy decode steps of the main path's engine.  Device busy time per
     token is the sum of the kernels' device times (``kname`` picks out the
     matmul kernel's); the idle share compares it with the unprofiled
-    ms/token of the run above."""
+    ms/token of the run above.  With ``prompts`` (a batch engine) the steps
+    are lockstep steps of the ragged batch after ``prefill_ragged``, and
+    the unprofiled wall (``ms_token`` None) is taken here: host clock
+    around the same steps, synchronized."""
     from torch.profiler import ProfilerActivity, profile
     from dllama_tpu_torch.runtime.decode_loop import decode_chunk
 
     engine.reset()
-    engine.prefill([1, 2, 3, 4])
-    tok = torch.tensor([4], device=engine.device)
+    if prompts is None:
+        engine.prefill([1, 2, 3, 4])
+    else:
+        engine.prefill_ragged(prompts)
+    unit = "token" if engine.batch == 1 else "step"
+    tok = torch.full((engine.batch,), 4, device=engine.device)
     gen = torch.Generator(device=engine.device)  # greedy: never drawn from
     run = lambda: decode_chunk(engine.params, engine.cfg, engine.cache, tok,  # noqa: E731
                                engine.pos, gen, steps=steps, temperature=0.0,
-                               topp=0.9)
+                               topp=0.9, offsets=engine.offsets)
     run()
     torch.cuda.synchronize()
+    if ms_token is None:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        ms_token = (time.perf_counter() - t0) * 1e3 / steps
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
@@ -393,12 +457,13 @@ def profile_decode(engine, ms_token: float, kname: str = "q40_", steps: int = 8)
         return
     busy = sum(r[0] for r in rows)
     mm_ms = sum(r[0] for r in rows if kname in r[2])
-    print(f"decode profile ({steps} steps): device busy {busy:.3f} ms/token of "
-          f"{ms_token} ms/token unprofiled -> idle share {1 - busy / ms_token:.3f}; "
-          f"{kname[:-1]} kernels {mm_ms:.3f} ms/token, other kernels {busy - mm_ms:.3f} "
-          f"ms/token, {sum(r[1] for r in rows)} kernel launches/token")
+    print(f"decode profile ({steps} steps, {engine.batch} row(s)): device busy "
+          f"{busy:.3f} ms/{unit} of {ms_token:.3f} ms/{unit} unprofiled -> idle share "
+          f"{1 - busy / ms_token:.3f}; {kname[:-1]} kernels {mm_ms:.3f} ms/{unit}, other "
+          f"kernels {busy - mm_ms:.3f} ms/{unit}, {sum(r[1] for r in rows)} kernel "
+          f"launches/{unit}")
     for ms_, n, name in sorted(rows, reverse=True)[:10]:
-        print(f"  {ms_:8.4f} ms/token {n:5d}x  {name[:90]}")
+        print(f"  {ms_:8.4f} ms/{unit} {n:5d}x  {name[:90]}")
 
 
 def requests(cli, q40, m: str, t: str) -> None:
@@ -718,8 +783,9 @@ def profile_slot_step(engine, scheduler, steps: int = 2) -> None:
 
 
 def serve_path(api, attention, q40, m: str, t: str, n_requests: int,
-               extra: list[str], profile: bool) -> dict:
-    """Phase 7, one pass; returns its numbers."""
+               extra: list[str], profile: bool, blocked: bool = False) -> dict:
+    """Phase 7, one pass; returns its numbers.  ``blocked``: the weights are
+    in the blocked layout, so every Q40 launch must be kernel 3's."""
     # a previous pass's server can linger in reference cycles: free it
     # before the peak-memory reading starts
     gc.collect()
@@ -771,6 +837,10 @@ def serve_path(api, attention, q40, m: str, t: str, n_requests: int,
                                  f"single-token slot forwards (want {L} launches each)")
         if qc["plain_calls"] or qc["dense_prefill_calls"]:
             raise AssertionError(f"a Q40 matmul left the kernel: {qc}")
+        mine, other = (("blocked_launches", "kernel_launches") if blocked
+                       else ("kernel_launches", "blocked_launches"))
+        if not qc[mine] or qc[other]:
+            raise AssertionError(f"Q40 launches {qc}: want only {mine}")
         occ = sched.occupancy()
         if not occ["prefix_hits"]:
             raise AssertionError(f"the chats sharing a system prompt never hit the prefix "
@@ -790,7 +860,8 @@ def serve_path(api, attention, q40, m: str, t: str, n_requests: int,
         print(f"prompt tokens {sum(r['prompt_tokens'] for r in recs)}; scheduler {occ}; "
               f"{n_dec} single-token slot forwards, attention kernel launches "
               f"{ac['kernel_launches']} ({L} each), plain {ac['plain_calls']}; "
-              f"q40 kernel {qc['kernel_launches']}, plain {qc['plain_calls']}, "
+              f"q40 kernels 1-2 {qc['kernel_launches']}, kernel 3 "
+              f"{qc['blocked_launches']}, plain {qc['plain_calls']}, "
               f"dense {qc['dense_prefill_calls']}")
         print("latency ms by request: " + " ".join(f"{x:.0f}" for x in lat))
         # one request alone, twice: byte for byte (the second run finds its
@@ -860,6 +931,264 @@ def slot_end_to_end(engine_mod, transformer, cfg, params, dev, pools=(None, "q8"
               f"that ({int(agree.sum())}/{agree.numel()} overall){routing_note(routes)}")
 
 
+@contextlib.contextmanager
+def blocked_layout():
+    """``DLLAMA_Q40_LAYOUT=blocked`` for the block: engines made inside it
+    load their Q40 weights in the tile-contiguous layout (kernel 3)."""
+    old = os.environ.get("DLLAMA_Q40_LAYOUT")
+    os.environ["DLLAMA_Q40_LAYOUT"] = "blocked"
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["DLLAMA_Q40_LAYOUT"]
+        else:
+            os.environ["DLLAMA_Q40_LAYOUT"] = old
+
+
+def blocked_bound(t: int, n: int, d: int, dp: int) -> tuple[float, str]:
+    """Kernel 3's least time: as :func:`bound`, with the weight planes'
+    stored width ``dp`` (d padded to a td multiple) in place of d."""
+    nbytes = t * n * 2 + n * dp * 0.5 + (n // 32) * dp * 2 + t * d * 4
+    b_ms, o_ms = nbytes / HBM_BYTES_S * 1e3, 2.0 * t * n * d / BF16_FLOPS * 1e3
+    return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
+
+
+def check_blocked(q40, dev, seed: int = 13) -> dict:
+    """Phase 13: kernel 3 against its plain version at every site and row
+    count, and against kernels 1-2 on the same weights row-major; returns
+    {site: t=1 numbers} for the 7B sites."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    flush = torch.ones(16 << 20, dtype=torch.float32, device=dev)
+    out, k12_diff = {}, 0.0
+    print("site           t  tiles        k3_ms  k12_ms  plain_ms  library_ms  "
+          "bound_ms(by)  max_abs_err  rel       |k3-k12|")
+    for site, n, d, lead, tiles in BLOCKED_SITES:
+        qt = random_planes(q40, lead, n, d, g, dev)
+        bqt = q40.to_blocked(qt, *(tiles or (None, None)))
+        dp = bqt.qpacked.shape[2] * bqt.qpacked.shape[4]
+        if lead:
+            layers = (torch.tensor([0], dtype=torch.int32, device=dev),
+                      torch.tensor([lead[0] - 1], dtype=torch.int32, device=dev))
+        else:
+            layers = (None,)
+        w_lib = q40.dequantize(qt, torch.bfloat16, layer=(lead[0] - 1) if lead else None)
+        for t in ROWS:
+            x = torch.randn((t, n), generator=g, device=dev).to(torch.bfloat16)
+            err = 0.0
+            for layer in layers:
+                k = q40.q40_blocked_matmul(x, bqt.qpacked, bqt.scales, (n, d), layer)
+                k12 = q40.q40_matmul(x, qt.qpacked, qt.scales, n, layer)
+                p = q40.matmul_plain(x, bqt, layer)
+                torch.cuda.synchronize()
+                e = float((k - p).abs().max())
+                scale = float(p.abs().max())
+                if not (k.shape == (t, d) and torch.isfinite(k).all()
+                        and e <= KERNEL_TOL * scale):
+                    raise AssertionError(f"kernel 3 {site} t={t} plane={layer}: "
+                                         f"max|kernel-plain| {e} > {KERNEL_TOL} * {scale}")
+                err = max(err, e)
+                k12_diff = max(k12_diff, float((k - k12).abs().max()))
+            layer = layers[-1]
+            k_ms = cold_ms(lambda: q40.q40_blocked_matmul(x, bqt.qpacked, bqt.scales,
+                                                          (n, d), layer), 20, flush)
+            r_ms = cold_ms(lambda: q40.q40_matmul(x, qt.qpacked, qt.scales, n, layer),
+                           20, flush)
+            p_ms = cold_ms(lambda: q40.matmul_plain(x, bqt, layer), 5, flush)
+            l_ms = cold_ms(lambda: torch.matmul(x, w_lib), 20, flush)
+            b_ms, by = blocked_bound(t, n, d, dp)
+            print(f"{site:12s} {t:4d} {str(bqt.tiles):11s} {k_ms:8.4f} {r_ms:7.4f} "
+                  f"{p_ms:9.4f} {l_ms:11.4f} {b_ms:9.4f}({by[0]}) {err:12.6g} "
+                  f"{err / scale:.2e} {k12_diff:g}")
+            if t == 1 and not site.startswith("narrow"):
+                out[site] = dict(replaces=BLOCKED_REPLACES, max_abs_err=err, ms=k_ms,
+                                 plain_ms=p_ms, bound_ms=b_ms, bound_by=by,
+                                 library_ms=l_ms, n=n, d=d, rowmajor_ms=r_ms)
+        del qt, bqt, w_lib
+    print(f"max|kernel 3 - kernels 1-2| over every site, row count and plane: "
+          f"{k12_diff:g} ({'bit for bit' if k12_diff == 0 else 'NOT bit for bit'})")
+    del flush
+    torch.cuda.empty_cache()
+    return out
+
+
+def batch_prompts(n: int = 8, seed: int = 14) -> list[str]:
+    """``n`` prompts of 8 to 200 characters (about a token each)."""
+    rng = np.random.RandomState(seed)
+    letters = list("abcdefghijklmnopqrstuvwxyz  ")
+    return ["".join(rng.choice(letters, int(k))).strip() or "a"
+            for k in np.linspace(8, 200, n)]
+
+
+def batch_path(cli, q40, m: str, t: str, tfile, steps: int = 48) -> dict:
+    """Phase 14's lockstep batch: ``batch`` of 8 ragged prompts through the
+    CLI, greedy, run twice.  The one prefill (8 x 256 rows) takes the
+    dense route (above PALLAS_MAX_ROWS) for the 4 L layer matmuls and
+    kernel 3 for wcls at its 8 last rows; every decode forward launches
+    kernel 3 4 L + 1 times (129 at 32 layers) at t = 8.  Then the profile
+    of 8 lockstep decode steps of the batch."""
+    from dllama_tpu_torch.tokenizer.bpe import Tokenizer
+    prompts = batch_prompts()
+    pf = os.path.join(WORK, "prompts.txt")
+    with open(pf, "w", encoding="utf-8") as f:
+        f.write("\n".join(prompts) + "\n")
+    tok = Tokenizer(tfile.read_tfile(t))
+    want_tokens = sum(max(0, steps - len(tok.encode(p, add_bos=True))) for p in prompts)
+    outs, run = [], None
+    for _ in range(2):
+        gc.collect()
+        torch.cuda.empty_cache()
+        q40.reset_counters()
+        t0 = time.perf_counter()
+        engine, out = run_cli(cli, ["batch", "--model", m, "--tokenizer", t,
+                                    "--prompts-file", pf, "--steps", str(steps),
+                                    "--temperature", "0"])
+        wall = time.perf_counter() - t0
+        c = q40.counters()
+        decode = engine.forwards - 1
+        per = 4 * engine.cfg.n_layers
+        if not torch.isfinite(engine.last_logits).all():
+            raise AssertionError("batch ended on non-finite logits")
+        if (c["kernel_launches"] or c["plain_calls"] or decode < 1
+                or c["blocked_launches"] != (per + 1) * decode + 1
+                or c["dense_prefill_calls"] != per):
+            raise AssertionError(f"batch counters {c} over {engine.forwards} forwards: "
+                                 f"want {per + 1} kernel-3 launches a decode forward, "
+                                 f"{per} dense prefill calls + 1 kernel-3 wcls")
+        got = int(re.search(r"Generated tokens: +(\d+) over 8 streams", out).group(1))
+        if got != want_tokens:
+            raise AssertionError(f"batch generated {got} tokens, every row finishing "
+                                 f"at {steps} needs {want_tokens}")
+        tps = float(re.search(r"Batched throughput: +([\d.]+) tok/s", out).group(1))
+        outs.append([ln for ln in out.splitlines()
+                     if not ln.startswith(("Batched throughput", "💡"))])
+        run = dict(counts=c, tok_s=tps, wall_s=wall, decode_forwards=decode,
+                   tokens=got)
+        if len(outs) == 2:  # a lockstep step at t = 8 on the second run's engine
+            profile_decode(engine, None, prompts=[tok.encode(p, add_bos=True)
+                                                  for p in prompts])
+        del engine
+    if outs[0] != outs[1]:
+        raise AssertionError("the greedy batch differs between two runs")
+    print(f"batch: 8 prompts of {min(map(len, prompts))}-{max(map(len, prompts))} chars, "
+          f"{run['tokens']} tokens over {run['decode_forwards']} lockstep decode "
+          f"forwards, every row finished; {run['tok_s']} tok/s batched "
+          f"({run['wall_s']:.1f} s with the load); kernel-3 launches "
+          f"{run['counts']['blocked_launches']}; repeats byte for byte")
+    torch.cuda.empty_cache()
+    return run
+
+
+def teacher_forced(transformer, decode_chunk, engine_mod, cfg, params, dev, prompts,
+                   forced) -> torch.Tensor:
+    """Logits (B, 1 + steps, V) of a lockstep ragged batch (a single-stream
+    run for one prompt): the prefill, then ``forced`` (steps, B) fed one
+    step at a time (decode_chunk with one step per call teacher-forces its
+    input)."""
+    eng = engine_mod.Engine(cfg, params, device=dev, batch=len(prompts))
+    if len(prompts) > 1:
+        eng.prefill_ragged(prompts)
+    else:  # the single-stream run
+        eng.prefill(prompts[0])
+    steps = [eng.last_logits.float()]
+    gen = torch.Generator(device=dev)
+    for row in forced:
+        tok = torch.tensor(row, device=dev)
+        _, eng.cache, _, _, logits = decode_chunk(
+            params, cfg, eng.cache, tok, eng.pos, gen, steps=1, temperature=0.0,
+            topp=0.9, offsets=eng.offsets)
+        eng.pos += 1
+        steps.append(logits.float())
+    return torch.stack(steps, 1)
+
+
+def margin_check(k: torch.Tensor, p: torch.Tensor, what: str) -> str:
+    """The phase-5 rule: logits within E2E_TOL of max|p|, greedy agreement
+    where p's top-2 margin exceeds twice the largest difference."""
+    err, scale = float((k - p).abs().max()), float(p.abs().max())
+    if not (torch.isfinite(k).all() and err <= E2E_TOL * scale):
+        raise AssertionError(f"{what}: logits {err} > {E2E_TOL} * {scale}")
+    top2 = p.topk(2, dim=-1).values
+    decided = (top2[..., 0] - top2[..., 1]) > 2 * err
+    agree = k.argmax(-1) == p.argmax(-1)
+    if not bool(agree[decided].all()):
+        raise AssertionError(f"{what}: greedy tokens differ where the margin is decisive")
+    return (f"max diff {err:.4g} of max {scale:.4g} ({err / scale:.2e}, limit "
+            f"{E2E_TOL:g}); greedy agrees at {int(decided.sum())}/{decided.numel()} "
+            f"decisive steps ({int(agree.sum())}/{agree.numel()} overall)")
+
+
+def blocked_and_batch_end_to_end(q40, transformer, engine_mod, cfg, params, dev) -> None:
+    """Phase 15, first two checks, on the phase-5 model: the blocked kernel
+    path against the plain path (and against kernels 1-2), then the
+    lockstep ragged batch against single-stream runs."""
+    from dllama_tpu_torch.runtime.decode_loop import decode_chunk
+    bparams = q40.blocked_params(params)
+    end_to_end(transformer, cfg, bparams, dev, "kernel 3, 2 layers, bf16")
+    rng = np.random.RandomState(15)
+    prompt = torch.from_numpy(rng.randint(3, cfg.vocab_size, (1, 12))).to(dev)
+    rows = []
+    for p in (params, bparams):
+        cache = transformer.init_kv_cache(cfg, 1, device=dev)
+        rows.append(transformer.forward_last(p, cfg, prompt, cache, 0, 11)[0])
+    diff = float((rows[0] - rows[1]).abs().max())
+    print(f"prefill logits, kernel 3 against kernels 1-2: max diff {diff:g} "
+          f"({'bit for bit' if diff == 0 else 'NOT bit for bit'})")
+    prompts = [rng.randint(3, cfg.vocab_size, n).tolist() for n in (12, 3, 7, 1)]
+    forced = rng.randint(3, cfg.vocab_size, (8, len(prompts))).tolist()
+    q40.reset_counters()
+    batched = teacher_forced(transformer, decode_chunk, engine_mod, cfg, bparams, dev,
+                             prompts, forced)
+    c = q40.counters()
+    if c["kernel_launches"] or c["plain_calls"] or not c["blocked_launches"]:
+        raise AssertionError(f"lockstep batch counters {c}: want kernel 3 only")
+    single = torch.cat([teacher_forced(transformer, decode_chunk, engine_mod, cfg,
+                                       bparams, dev, [p], [[f[r]] for f in forced])
+                        for r, p in enumerate(prompts)])
+    print("lockstep batch of 4 ragged prompts (12, 3, 7, 1 tokens) against single "
+          "streams, prefill + 8 forced steps: " + margin_check(batched, single, "batch"))
+
+
+def chat_path(cli, engine_mod, q40, m: str, t: str) -> None:
+    """Phase 15's chat: two user turns on stdin through the CLI under the
+    blocked layout; both turns answer, the second starts at the position
+    where the first ended, and only kernel 3 ran the matmuls."""
+    starts, ends = [], []
+    real_stream, real_drain = engine_mod.Engine.generate_stream, cli.drain_generation
+
+    def stream(self, prompt_tokens, *a, **kw):
+        starts.append(self.pos)
+        return real_stream(self, prompt_tokens, *a, **kw)
+
+    def drain(engine, *a, **kw):
+        res = real_drain(engine, *a, **kw)
+        ends.append(engine.pos)
+        return res
+
+    stdin = sys.stdin
+    engine_mod.Engine.generate_stream, cli.drain_generation = stream, drain
+    sys.stdin = io.StringIO("You are terse.\nOnce upon a time\nthe capital of France\n")
+    try:
+        q40.reset_counters()
+        _, out = run_cli(cli, ["chat", "--model", m, "--tokenizer", t, "--temperature",
+                               "0", "--max-seq-len", "512"])
+    finally:
+        engine_mod.Engine.generate_stream, cli.drain_generation = real_stream, real_drain
+        sys.stdin = stdin
+    c = q40.counters()
+    turns = out.count("🤖 Assistant")
+    if turns != 2 or "context window is full" in out or len(ends) != 2:
+        raise AssertionError(f"chat: {turns} assistant turns, want 2:\n{out[-1500:]}")
+    if starts[0] != 0 or starts[1] != ends[0]:
+        raise AssertionError(f"chat turn 2 starts at {starts[1]}, turn 1 ended at {ends[0]}")
+    if c["kernel_launches"] or c["plain_calls"] or not c["blocked_launches"]:
+        raise AssertionError(f"chat counters {c}: want kernel 3 only")
+    print(f"chat: 2 turns; turn 1 at positions 0-{ends[0]}, turn 2 from {starts[1]} to "
+          f"{ends[1]}; kernel-3 launches {c['blocked_launches']}, dense prefill "
+          f"{c['dense_prefill_calls']}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="chip smoke of dllama_tpu_torch")
     ap.add_argument("--only", default=None,
@@ -896,6 +1225,9 @@ def main() -> int:
     if run_phase(2):
         with phase("2 kernel vs plain at the 7B shapes"):
             table = check_sites(q40, LLAMA_SITES, dev, seed=0)
+    if run_phase(13):
+        with phase("13 kernel 3 (blocked planes) vs plain at the 7B shapes"):
+            blocked_table = check_blocked(q40, dev)
     if run_phase(9):
         with phase("9 Q80 kernel vs plain at the 7B, Mixtral and Grok-1 shapes"):
             q8_table = check_sites(q8, LLAMA_SITES + MIXTRAL_SITES + GROK_SITES, dev, seed=9)
@@ -908,14 +1240,16 @@ def main() -> int:
             attn_g4 = check_paged_attention(attention, dev, MIXTRAL_8X7B["n_kv_heads"],
                                             ("bf16",))
     os.makedirs(WORK, exist_ok=True)
+    served = {}
     try:
-        m, t, m2 = (os.path.join(WORK, f) for f in ("llama2-7b.m", "32k.t", "l2.m"))
+        m, t, m2, m3, t3 = (os.path.join(WORK, f) for f in (
+            "llama2-7b.m", "32k.t", "l2.m", "l2-chat.m", "32k-chat.t"))
         synth_tokenizer(t, tfile)
         per_fwd = 4 * LLAMA2_7B["n_layers"] + 1
-        if run_phase(3) or run_phase(7):
+        if run_phase(3) or run_phase(7) or run_phase(14):
             synth_model(m, LLAMA2_7B["n_layers"], mfile, quants)
             print(f"synthesized {os.path.getsize(m) / 1e9:.2f} GB")
-        if run_phase(4) or run_phase(5) or run_phase(8):
+        if run_phase(4) or run_phase(5) or run_phase(8) or run_phase(15):
             synth_model(m2, 2, mfile, quants, fresh=True)
         if run_phase(3):
             with phase("3 main path: inference at Llama-2-7B width"):
@@ -923,7 +1257,7 @@ def main() -> int:
         if run_phase(4):
             with phase("4 requests: generate (7B width, 2 layers)"):
                 requests(cli, q40, m2, t)
-        if run_phase(5) or run_phase(8):
+        if run_phase(5) or run_phase(8) or run_phase(15):
             # the 2-layer model is freed before phase 7's peak-memory reading
             small = load_bf16(mfile, params_mod, config, m2, dev)
             if run_phase(5):
@@ -932,14 +1266,40 @@ def main() -> int:
             if run_phase(8):
                 with phase("8 slot path: kernels vs plain versions end to end"):
                     slot_end_to_end(engine_mod, transformer, *small, dev)
+            if run_phase(15):
+                with phase("15 blocked and lockstep batch vs plain and single streams"):
+                    blocked_and_batch_end_to_end(q40, transformer, engine_mod, *small, dev)
             del small
             torch.cuda.empty_cache()
+        if run_phase(15):
+            with phase("15b chat (7B width, 2 layers, blocked), two turns"):
+                # replies end on the chat EOS (its logit > 0) or on the stop
+                # string's token (its logit, the negative of EOS's, > 0)
+                tdata = synth_tokenizer(t3, tfile, chat_stop="<|im_start|>")
+                stop_id = tdata.vocab.index(b"<|im_start|>")
+                synth_model(m3, 2, mfile, quants, fresh=True,
+                            boost_rows={tdata.chat_eos_id: 0xFF, stop_id: 0x11})
+                with blocked_layout():
+                    chat_path(cli, engine_mod, q40, m3, t3)
+                os.remove(m3)
         if run_phase(7):
             with phase("7 serving: API server, slot scheduler, paged KV at 7B width"):
-                served = {"bf16": serve_path(api, attention, q40, m, t, 16, [], True)}
+                served["bf16"] = serve_path(api, attention, q40, m, t, 16, [], True)
             with phase("7b serving with --kv-quant int8"):
                 served["int8"] = serve_path(api, attention, q40, m, t, 8,
                                             ["--kv-quant", "int8"], False)
+        if run_phase(14):
+            with blocked_layout():
+                with phase("14 blocked main path: inference at Llama-2-7B width"):
+                    run_blocked = main_path(cli, q40, m, t,
+                                            lambda e: per_fwd * e.forwards,
+                                            key="blocked_launches")
+                with phase("14b blocked lockstep batch: 8 prompts, twice"):
+                    batch_path(cli, q40, m, t, tfile)
+                with phase("14c blocked serving, --kv-quant int8"):
+                    served["blocked"] = serve_path(api, attention, q40, m, t, 8,
+                                                   ["--kv-quant", "int8"], False,
+                                                   blocked=True)
         for f in (m, m2):
             if os.path.exists(f):
                 os.remove(f)
@@ -987,9 +1347,10 @@ def main() -> int:
     if only is not None:
         return 0
 
-    def entries(name, src, sites, counts):
+    def entries(name, src, sites, counts, layout=()):
         return [dict(name=f"{name}[{site}]", route="cuda", source=src,
-                     replaces=r["replaces"], launches=counts.get((r["n"], r["d"]), 0),
+                     replaces=r["replaces"],
+                     launches=counts.get((*layout, r["n"], r["d"]), 0),
                      max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
                      bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                      library_ms=r["library_ms"])
@@ -997,10 +1358,13 @@ def main() -> int:
 
     # each kernel at the shapes of the path that ran it, with that path's
     # launches: Q40 on the 7B path (phase 3) and Mixtral's (phase 11; its
-    # up/gate count holds both), Q80 on the Q80 7B path (phase 10), kernel
-    # 7 in the serving runs (phases 7, 11b)
+    # up/gate count holds both), kernel 3 on the blocked 7B path (phase
+    # 14), Q80 on the Q80 7B path (phase 10), kernel 7 in the serving runs
+    # (phases 7, 11b)
     kernels = entries("q40_matmul", SRC, table, run["counts"]["launches_by_shape"])
     kernels += entries("q40_matmul", SRC, mix_table, run_mix["counts"]["launches_by_shape"])
+    kernels += entries("q40_matmul_blocked", SRC, blocked_table,
+                       run_blocked["counts"]["launches_by_shape"], ("blocked",))
     kernels += entries("q8_matmul", Q8_SRC,
                        {s: q8_table[s] for s, *_ in LLAMA_SITES},
                        run_q8["counts"]["launches_by_shape"])

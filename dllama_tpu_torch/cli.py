@@ -1,20 +1,24 @@
-"""`dllama_tpu_torch` command line: ``inference | generate``.
+"""`dllama_tpu_torch` command line: ``inference | generate | chat | batch``.
 
-The port of ``dllama_tpu/cli.py``'s single-stream modes, with the same
+The port of ``dllama_tpu/cli.py``'s single-host modes, with the same
 flags where they apply, plus ``--device {cuda,cpu}`` (default ``cuda``;
 asking for ``cuda`` where there is none is an error):
 
 * ``inference`` — benchmark mode: per-token ``G/I/T`` lines + run averages.
 * ``generate``  — stream text for ``--steps`` tokens.
+* ``chat``      — multi-turn REPL on stdin, one KV cache a conversation.
+* ``batch``     — the prompts of ``--prompts-file`` (one a line) decoded
+  as one lockstep ragged batch.
 
-Both end with one line of launch counters of the model's matmul codec (Q40
-or Q80: which route ran how often), the counterpart of the JAX package's
-dispatch summary.  The API
+Each ends with one line of launch counters of the model's matmul codec
+(Q40 or Q80: which route ran how often, and the layout), the counterpart
+of the JAX package's dispatch summary.  ``DLLAMA_Q40_LAYOUT=blocked``
+loads Q40 weights in the tile-contiguous layout (kernel 3).  The API
 server (``python -m dllama_tpu_torch.server.api``) reuses this parser and
 its serving flags.  Modes and flags of the JAX CLI outside the port
-(``chat``, ``batch``, ``worker``, ``--workers``, ``--sp``, ``--dp``,
-``--pld``, ``--kv-cache-dtype q8``, and the serving flags in
-``NOT_PORTED_FLAGS``) exit with a message naming them as not yet ported.
+(``worker``, ``--workers``, ``--sp``, ``--dp``, ``--pld``,
+``--kv-cache-dtype q8``, and the serving flags in ``NOT_PORTED_FLAGS``)
+exit with a message naming them as not yet ported.
 
 ``python -m dllama_tpu_torch inference --model m.m --tokenizer t.t``
 """
@@ -33,10 +37,14 @@ from .models.config import ModelConfig
 from .models.params import load_params
 from .ops import q8, q40
 from .runtime.engine import Engine, RunStats
+from .runtime.stream import drain_generation
 from .tokenizer.bpe import Tokenizer
+from .tokenizer.chat import ChatItem, ChatTemplate, TokenizerChatStops
+from .tokenizer.eos import EosDetector
 
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16, "f16": torch.float16}
-NOT_PORTED_MODES = ("chat", "batch", "worker")
+MODES = ("inference", "generate", "chat", "batch")
+NOT_PORTED_MODES = ("worker",)
 # serving flags of the JAX CLI that the port does not carry, with the JAX
 # defaults: a value other than the default exits naming the flag
 NOT_PORTED_FLAGS = {
@@ -55,10 +63,13 @@ NOT_PORTED_FLAGS = {
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="dllama_tpu_torch", description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
-    p.add_argument("mode", choices=["inference", "generate", *NOT_PORTED_MODES])
+    p.add_argument("mode", choices=[*MODES, *NOT_PORTED_MODES])
     p.add_argument("--model", help="path to .m model file")
     p.add_argument("--tokenizer", help="path to .t tokenizer file")
     p.add_argument("--prompt", default=None)
+    p.add_argument("--prompts-file", default=None,
+                   help="batch mode: one prompt per line, decoded as one "
+                        "lockstep ragged batch")
     p.add_argument("--steps", type=int, default=0)
     p.add_argument("--temperature", type=float, default=0.8)
     p.add_argument("--topp", type=float, default=0.9)
@@ -134,7 +145,10 @@ def not_ported(args) -> list[str]:
     return out
 
 
-def load_stack(args) -> tuple[Engine, Tokenizer]:
+def load_stack(args, batch: int = 1) -> tuple[Engine, Tokenizer]:
+    """The model (loaded on the host, then uploaded by the Engine, which
+    converts it to the blocked layout first when asked) and its
+    tokenizer; ``batch`` rows of contiguous cache."""
     if not args.model or not args.tokenizer:
         raise SystemExit("--model and --tokenizer are required for this mode")
     device = resolve(args.device)
@@ -150,10 +164,10 @@ def load_stack(args) -> tuple[Engine, Tokenizer]:
         print(f"💡 nKvHeads: {cfg.n_kv_heads}\n💡 vocabSize: {cfg.vocab_size}\n💡 seqLen: {cfg.seq_len}")
         name = torch.cuda.get_device_name(device) if device.type == "cuda" else "host"
         print(f"💡 device: {device} ({name})")
-        cfg, params = load_params(mf, cfg, device=device)
+        cfg, params = load_params(mf, cfg)
     kv_dtype = DTYPES[args.kv_cache_dtype] if args.kv_cache_dtype else None
     engine = Engine(cfg, params, seq_len=args.max_seq_len, kv_dtype=kv_dtype,
-                    device=device)
+                    device=device, batch=batch)
     tok = Tokenizer(tfile.read_tfile(args.tokenizer))
     if tok.vocab_size != cfg.vocab_size:
         raise SystemExit("tokenizer is incompatible with model (vocab size mismatch)")
@@ -170,14 +184,20 @@ def _encode_prompt(engine: Engine, tok: Tokenizer, prompt: str) -> list[int]:
 
 def launch_line(engine: Engine) -> str:
     """End-of-run line: how often each matmul route of the model's codec
-    ran (Q80 for a Q80 file, else Q40), per forward."""
+    ran (Q80 for a Q80 file, else Q40), per forward.  A blocked-layout
+    model counts kernel 3 (``blocked=``) apart from kernels 1–2
+    (``kernel=``), and its per-forward figure is kernel 3's."""
     is_q8 = any(isinstance(v, q8.Q8Tensor) for v in engine.params.values())
+    blocked = any(isinstance(v, q40.BlockedQTensor) for v in engine.params.values())
     name, c = ("q8", q8.counters()) if is_q8 else ("q40", q40.counters())
-    per = c["kernel_launches"] / engine.forwards if engine.forwards else 0.0
+    launches = c["blocked_launches"] if blocked else c["kernel_launches"]
+    per = launches / engine.forwards if engine.forwards else 0.0
     return (f"💡 {name} launches: kernel={c['kernel_launches']} "
-            f"plain={c['plain_calls']} dense_prefill={c['dense_prefill_calls']} "
+            + (f"blocked={c['blocked_launches']} " if blocked else "")
+            + f"plain={c['plain_calls']} dense_prefill={c['dense_prefill_calls']} "
             f"forwards={engine.forwards} kernel_per_forward={per:g} "
-            f"device={engine.device.type}")
+            + ("layout=blocked " if blocked else "")
+            + f"device={engine.device.type}")
 
 
 def cmd_inference(args) -> Engine:
@@ -239,6 +259,91 @@ def cmd_generate(args) -> Engine:
     return engine
 
 
+def cmd_batch(args) -> Engine:
+    """Distinct prompts (``--prompts-file``, one a line, or one
+    ``--prompt``) in one lockstep decode; each stream is printed under its
+    own header after the batch, then the aggregate throughput: the decode
+    matmuls read each weight once for all rows."""
+    if args.prompts_file:
+        with open(args.prompts_file, "r", encoding="utf-8") as f:
+            prompts = [ln.rstrip("\r\n") for ln in f if ln.strip()]
+    elif args.prompt is not None:
+        prompts = [args.prompt]
+    else:
+        raise SystemExit("batch mode requires --prompts-file or --prompt")
+    engine, tok = load_stack(args, batch=len(prompts))
+    id_lists = [_encode_prompt(engine, tok, p) for p in prompts]
+    steps = args.steps or engine.seq_len
+    eos = (tok.eos_id,) if tok.eos_id >= 0 else ()
+    t0 = time.perf_counter()
+    outs = engine.generate_batch(id_lists, steps, temperature=args.temperature,
+                                 topp=args.topp, seed=_seed(args), eos_ids=eos,
+                                 chunk=args.chunk)
+    dt = time.perf_counter() - t0
+    generated = sum(len(o) - len(p) for o, p in zip(outs, id_lists))
+    for r, o in enumerate(outs):
+        print(f"▶ stream {r}")
+        print(tok.decode(o))
+    print(f"Generated tokens:    {generated} over {len(prompts)} streams")
+    if dt > 0:
+        print(f"Batched throughput:  {generated / dt:.2f} tok/s")
+    print(launch_line(engine))
+    return engine
+
+
+def cmd_chat(args) -> Engine:
+    """Multi-turn REPL on stdin, one KV cache a conversation.  One sampler
+    stream a session: the seed is resolved once, and later turns continue
+    the stream."""
+    engine, tok = load_stack(args)
+    stops = TokenizerChatStops(tok)
+    template = ChatTemplate(tok.chat_template,
+                            tok.vocab[tok.chat_eos_id].decode("utf-8", "replace"))
+    eos_detector = EosDetector(tok.chat_eos_id, stops.stops,
+                               padding_left=2, padding_right=2)
+
+    print("💻 System prompt (optional): ", end="", flush=True)
+    system = sys.stdin.readline().strip()
+    first = True
+    session_seed: int | None = _seed(args)
+    while True:
+        print("\n👱 User\n> ", end="", flush=True)
+        user = sys.stdin.readline()
+        if not user:
+            print()  # end the prompt line before the launch line
+            break
+        user = user.strip()
+        if not user:
+            continue
+        items = []
+        if first and system:
+            items.append(ChatItem("system", system))
+        items.append(ChatItem("user", user))
+        first = False
+        text = template.generate(items, True)
+        ids = tok.encode(text, add_bos=engine.pos == 0)
+        if engine.pos + len(ids) + 2 >= engine.seq_len:
+            print("🚫 context window is full")
+            break
+        print("\n🤖 Assistant")
+        eos_detector.clear()
+        prompt_end = engine.pos + len(ids)
+        stream = engine.generate_stream(
+            ids, engine.seq_len - engine.pos, temperature=args.temperature,
+            topp=args.topp, seed=session_seed, chunk=args.chunk,
+            eos_ids=(tok.chat_eos_id,))
+        session_seed = None  # continue the session stream on later turns
+
+        def emit(delta):
+            sys.stdout.write(delta)
+            sys.stdout.flush()
+
+        drain_generation(engine, tok, eos_detector, stream, len(ids), prompt_end, emit)
+        print()
+    print(launch_line(engine))
+    return engine
+
+
 def main(argv=None) -> Engine:
     """Run one command; returns its Engine (for callers in-process)."""
     args = build_parser().parse_args(argv)
@@ -246,7 +351,8 @@ def main(argv=None) -> Engine:
     if missing:
         raise SystemExit(f"not yet ported to dllama_tpu_torch: {', '.join(missing)} "
                          "(run python -m dllama_tpu for these)")
-    return {"inference": cmd_inference, "generate": cmd_generate}[args.mode](args)
+    return {"inference": cmd_inference, "generate": cmd_generate, "chat": cmd_chat,
+            "batch": cmd_batch}[args.mode](args)
 
 
 if __name__ == "__main__":

@@ -22,7 +22,7 @@ from ..io import mfile
 from ..ops import q8, q40
 from .config import ModelConfig
 
-Params = dict  # str -> torch.Tensor | q40.QTensor | q8.Q8Tensor
+Params = dict  # str -> torch.Tensor | q40.QTensor | q40.BlockedQTensor | q8.Q8Tensor
 CODECS = {quants.Q40: q40, quants.Q80: q8}
 
 
@@ -195,16 +195,22 @@ def from_jax_params(arrays: dict, cfg: ModelConfig, device="cpu") -> Params:
     """The port's params from the JAX package's, handed over as numpy: each
     packed weight as its ``(qpacked, scales uint16 f16-bits, logical_nd)``
     triple — uint8 values are Q40, int8 values Q80, with any leading dims
-    (``(L, E, ...)`` expert stacks) — every other leaf as an array.  Bits
-    are kept exactly, so both packages then run on the same weights."""
+    (``(L, E, ...)`` expert stacks) — a blocked Q40 weight (the JAX
+    ``BlockedQTensor``) as ``(qpacked 5-D, scales 5-D uint16, logical_nd,
+    tiles, lead_2d)``, every other leaf as an array.  Bits are kept
+    exactly, so both packages then run on the same weights."""
     out: Params = {}
     for k, v in arrays.items():
         if isinstance(v, tuple):
-            qp, sc_bits, nd = v
+            qp, sc_bits, nd, *blocked = v
+            sc = _tensor(np.asarray(sc_bits, np.uint16).view(np.float16))
+            if blocked:
+                tiles, lead_2d = blocked
+                out[k] = q40.BlockedQTensor(_tensor(qp), sc, tuple(nd), tuple(tiles),
+                                            bool(lead_2d))
+                continue
             cls = q8.Q8Tensor if np.asarray(qp).dtype == np.int8 else q40.QTensor
-            out[k] = cls(_tensor(qp),
-                         _tensor(np.asarray(sc_bits, np.uint16).view(np.float16)),
-                         tuple(nd))
+            out[k] = cls(_tensor(qp), sc, tuple(nd))
         else:
             out[k] = _tensor(np.asarray(v))
     return to_device(out, device)

@@ -112,7 +112,7 @@ def _slot_attention(q, k, v, layer: int, cfg: ModelConfig, cache: KVCache,
 
 def _attention_block(x, params: Params, layer: int, cfg: ModelConfig,
                      cache: KVCache, cos, sin, pos: int, pos_rows=None,
-                     paged=None) -> torch.Tensor:
+                     paged=None, offsets=None) -> torch.Tensor:
     b, t, _ = x.shape
     hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_size
     xb = rmsnorm(x, params["rms_att"][layer])
@@ -130,7 +130,7 @@ def _attention_block(x, params: Params, layer: int, cfg: ModelConfig,
         att = _slot_attention(q, k, v, layer, cfg, cache, pos_rows, paged)
     else:
         update_kv_cache_at(cache.k, cache.v, k, v, layer, pos)
-        att = gqa_attention_at(q, cache.k, cache.v, layer, pos, t)
+        att = gqa_attention_at(q, cache.k, cache.v, layer, pos, t, start=offsets)
     att = att.transpose(1, 2).reshape(b, t, hq * dh)
     return _mm(att, params["wo"], cfg, layer)
 
@@ -211,11 +211,17 @@ def moe_ffn(xb2d: torch.Tensor, params: Params, layer: int,
 
 def run_blocks(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                cache: KVCache, pos: int, pos_rows: torch.Tensor | None = None,
-               paged=None) -> tuple[torch.Tensor, KVCache]:
+               paged=None, offsets: torch.Tensor | None = None
+               ) -> tuple[torch.Tensor, KVCache]:
     """Embed + all transformer blocks; returns the residual stream
     (B, T, D) and the cache (updated in place).  ``pos_rows`` (B,) gives
     every row its own clock (slot requests start at cache position 0, so
-    cache position is the RoPE position)."""
+    cache position is the RoPE position).  ``offsets`` (B,) is a ragged
+    batch's left padding: row ``r``'s prompt is right-aligned, its real
+    tokens sit at cache positions ``offsets[r]..``, its RoPE positions are
+    the cache position minus the offset (pad slots clamp to 0) and its
+    attention never sees keys below the offset, so each row decodes as it
+    would alone."""
     b, t = tokens.shape
     x = params["embedding"][tokens.long()].to(cfg.dtype)
     if cfg.embedding_scale != 1.0:
@@ -225,10 +231,12 @@ def run_blocks(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     positions = pos + torch.arange(t, device=tokens.device)
     if pos_rows is not None:
         positions = pos_rows.long()[:, None] + positions[None, :]
+    elif offsets is not None:
+        positions = torch.clamp(positions[None, :] - offsets.long()[:, None], min=0)
     cos, sin = rope_angles(positions, cfg.head_size, cfg.rope_theta)
     for layer in range(cfg.n_layers):
         att = _attention_block(x, params, layer, cfg, cache, cos, sin, pos,
-                               pos_rows, paged)
+                               pos_rows, paged, offsets)
         if cfg.post_block_norms:
             att = rmsnorm(att, params["rms_ffn"][layer])
         x = x + att
@@ -256,19 +264,20 @@ def _head(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-            cache: KVCache, pos: int) -> tuple[torch.Tensor, KVCache]:
+            cache: KVCache, pos: int, offsets: torch.Tensor | None = None
+            ) -> tuple[torch.Tensor, KVCache]:
     """Run the model over ``tokens`` (B, T) from position ``pos``; returns
-    logits (B, T, V) f32 and the cache."""
-    x, cache = run_blocks(params, cfg, tokens, cache, pos)
+    logits (B, T, V) f32 and the cache.  ``offsets``: see :func:`run_blocks`."""
+    x, cache = run_blocks(params, cfg, tokens, cache, pos, offsets=offsets)
     return _head(params, cfg, x), cache
 
 
 def forward_last(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-                 cache: KVCache, pos: int, last_index: int
-                 ) -> tuple[torch.Tensor, KVCache]:
+                 cache: KVCache, pos: int, last_index: int,
+                 offsets: torch.Tensor | None = None) -> tuple[torch.Tensor, KVCache]:
     """Like :func:`forward` with the LM head applied at ``last_index`` only:
     returns (B, V)."""
-    x, cache = run_blocks(params, cfg, tokens, cache, pos)
+    x, cache = run_blocks(params, cfg, tokens, cache, pos, offsets=offsets)
     return _head(params, cfg, x[:, last_index]), cache
 
 

@@ -97,9 +97,11 @@ def _fold_init(b, hkv, g, t, dh, device):
 
 
 def blocked_gqa_attention(q: torch.Tensor, k_cache: torch.Tensor,
-                          v_cache: torch.Tensor, pos: int, q_len: int) -> torch.Tensor:
+                          v_cache: torch.Tensor, pos: int, q_len: int,
+                          start: torch.Tensor | None = None) -> torch.Tensor:
     """Flash-style causal GQA over KV chunks with an online softmax: peak
-    memory O(T·chunk) instead of O(T·S)."""
+    memory O(T·chunk) instead of O(T·S).  ``start`` (B,) masks key
+    positions below a per-row floor (a ragged batch's left padding)."""
     b, hq, t, dh = q.shape
     hkv, s = k_cache.shape[1], k_cache.shape[2]
     g = hq // hkv
@@ -110,8 +112,11 @@ def blocked_gqa_attention(q: torch.Tensor, k_cache: torch.Tensor,
     m, l, acc = _fold_init(b, hkv, g, t, dh, q.device)
     for base in range(0, s, c):
         s_idx = base + torch.arange(c, device=q.device)[None, :]
+        mask = s_idx <= t_idx  # (T, c)
+        if start is not None:
+            mask = mask[None] & (s_idx[None] >= start[:, None, None])  # (B, T, c)
         m, l, acc = _online_fold(qf, k_cache[:, :, base:base + c],
-                                 v_cache[:, :, base:base + c], s_idx <= t_idx,
+                                 v_cache[:, :, base:base + c], mask,
                                  m, l, acc, scale)
     out = acc / torch.clamp(l, min=1e-38)[..., None]
     return out.reshape(b, hq, t, dh).to(q.dtype)
@@ -123,15 +128,17 @@ def _slice_seq(cache, start: int, length: int):
 
 def blocked_live_fold(qf, slice_block, k, v, pos: int, c: int,
                       row_pos: torch.Tensor | None = None,
-                      block: int | None = None):
+                      block: int | None = None,
+                      row_start: torch.Tensor | None = None):
     """Walk only the KV blocks of a cache of length ``c`` that cover live
     positions ≤ ``pos``, folding each into the running softmax state.
     ``slice_block(cache, start, length)`` cuts one (B, Hkv, length, Dh)
     block out of ``k``/``v``.  ``row_pos`` (B,) replaces the scalar causal
     ceiling with a per-row one (T must be 1): ``pos`` then only bounds the
     walk (pass the row max).  ``block`` fixes the block width where the
-    storage does (a paged pool walks page-sized blocks).  Returns raw
-    ``(m, l, acc)``; the caller normalizes."""
+    storage does (a paged pool walks page-sized blocks).  ``row_start``
+    (B,) adds a per-row key floor (a ragged batch's left padding).
+    Returns raw ``(m, l, acc)``; the caller normalizes."""
     b, hkv, g, t, dh = qf.shape
     block = block or _kv_chunk(c)
     scale = float(np.float32(1.0) / np.sqrt(np.float32(dh)))
@@ -144,6 +151,9 @@ def blocked_live_fold(qf, slice_block, k, v, pos: int, c: int,
             mask = s_idx[None, None, :] <= row_pos[:, None, None]  # (B, 1, blk)
         else:
             mask = (s_idx <= pos)[None, :]
+        if row_start is not None:
+            floor = s_idx[None, None, :] >= row_start[:, None, None]  # (B, 1, blk)
+            mask = (mask if mask.dim() == 3 else mask[None]) & floor
         m, l, acc = _online_fold(qf, slice_block(k, start, block),
                                  slice_block(v, start, block), mask, m, l, acc,
                                  scale)
@@ -152,50 +162,61 @@ def blocked_live_fold(qf, slice_block, k, v, pos: int, c: int,
 
 def decode_gqa_attention(q: torch.Tensor, k_cache: torch.Tensor,
                          v_cache: torch.Tensor, pos: int,
-                         layer: int | None = None) -> torch.Tensor:
+                         layer: int | None = None,
+                         start: torch.Tensor | None = None) -> torch.Tensor:
     """Single-token causal GQA that reads only the blocks covering
     positions ``0..pos``.  With ``layer`` the caches are the stacked
-    (L, B, Hkv, S, Dh) buffers and the layer is a view (no copy)."""
+    (L, B, Hkv, S, Dh) buffers and the layer is a view (no copy);
+    ``start`` (B,) is the ragged batch's per-row key floor."""
     if layer is not None:
         k_cache, v_cache = k_cache[layer], v_cache[layer]
     b, hq, t, dh = q.shape
     hkv = k_cache.shape[1]
     qf = q.to(torch.float32).reshape(b, hkv, hq // hkv, t, dh)
     _, l, acc = blocked_live_fold(qf, _slice_seq, k_cache, v_cache, pos,
-                                  k_cache.shape[2])
+                                  k_cache.shape[2], row_start=start)
     out = acc / torch.clamp(l, min=1e-38)[..., None]
     return out.reshape(b, hq, t, dh).to(q.dtype)
 
 
 def gqa_attention_at(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
-                     layer: int, pos: int, q_len: int) -> torch.Tensor:
+                     layer: int, pos: int, q_len: int,
+                     start: torch.Tensor | None = None) -> torch.Tensor:
     """:func:`gqa_attention` over the stacked caches at ``layer``; a decode
     step over a long cache walks the live blocks straight out of them."""
     if _use_blocked_decode(q.shape[2], ck.shape[3]):
-        return decode_gqa_attention(q, ck, cv, pos, layer=layer)
-    return gqa_attention(q, ck[layer], cv[layer], pos, q_len)
+        return decode_gqa_attention(q, ck, cv, pos, layer=layer, start=start)
+    return gqa_attention(q, ck[layer], cv[layer], pos, q_len, start=start)
 
 
 def gqa_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
-                  pos: int, q_len: int) -> torch.Tensor:
+                  pos: int, q_len: int, start: torch.Tensor | None = None
+                  ) -> torch.Tensor:
     """Causal GQA over one layer's cache.
 
     q (B, Hq, T, Dh), already RoPE'd; k_cache/v_cache (B, Hkv, S, Dh),
     positions ≥ pos+T garbage and masked out; pos is the index of q's first
     token.  Returns (B, Hq, T, Dh).  Scale 1/sqrt(head_size); GQA grouping
-    is a reshape to (B, Hkv, G, T, Dh)."""
+    is a reshape to (B, Hkv, G, T, Dh).  ``start`` (B,) is the ragged
+    batch's key floor: row ``b`` sees only key positions ``>= start[b]``
+    (its left padding holds other prompts' alignment)."""
     b, hq, t, dh = q.shape
     hkv, s = k_cache.shape[1], k_cache.shape[2]
     g = hq // hkv
     if t > 1 and g * t * s > _BLOCKED_THRESHOLD:
-        return blocked_gqa_attention(q, k_cache, v_cache, pos, q_len)
+        return blocked_gqa_attention(q, k_cache, v_cache, pos, q_len, start=start)
     if _use_blocked_decode(t, s):
-        return decode_gqa_attention(q, k_cache, v_cache, pos)
+        return decode_gqa_attention(q, k_cache, v_cache, pos, start=start)
     qc = q.reshape(b, hkv, g, t, dh).to(k_cache.dtype)
     scores = _einsum_f32("bhgtd,bhsd->bhgts", qc, k_cache) / _sqrt_dh(dh)
     s_idx = torch.arange(s, device=q.device)[None, :]
     t_idx = pos + torch.arange(t, device=q.device)[:, None]
-    scores = torch.where((s_idx <= t_idx)[None, None, None], scores, _NEG)
+    mask = s_idx <= t_idx  # (T, S)
+    if start is None:
+        scores = torch.where(mask[None, None, None], scores, _NEG)
+    else:
+        mask = mask[None] & (s_idx[None] >= start[:, None, None])  # (B, T, S)
+        scores = torch.where(mask[:, None, None], scores, _NEG)
     probs = softmax_f32(scores, dim=-1)
     out = _einsum_f32("bhgts,bhsd->bhgtd", probs.to(v_cache.dtype), v_cache)
     return out.reshape(b, hq, t, dh).to(q.dtype)

@@ -1,9 +1,11 @@
 // Q40 dequant-matmul for Hopper (sm_90a), bound to PyTorch through ctypes.
 //
 // Replaces: the Pallas kernels of dllama_tpu/ops/q40.py — _q40_kernel
-// (entered through _pallas_matmul, the 2-D wcls head) and
-// _stacked_q40_kernel (entered through _pallas_matmul_stacked, the
-// layer-stacked wqkv/wo/w13/w2), "classic" variant:
+// (entered through _pallas_matmul, the 2-D wcls head), _stacked_q40_kernel
+// (entered through _pallas_matmul_stacked, the layer-stacked
+// wqkv/wo/w13/w2) and, through the q40_matmul_blocked entry (kernel 3),
+// _stacked_q40_kernel over tile-contiguous planes (entered through
+// _pallas_matmul_blocked, DLLAMA_Q40_LAYOUT=blocked); "classic" variant:
 //
 //   y (t, d) f32 = bf16(x) (t, n) @ W,   W[k, j] = bf16(f32(nib(k, j) - 8) * f32(s[k/32, j]))
 //
@@ -17,6 +19,21 @@
 // nibble and 32b + 16 + r in its high nibble, biased +8; scales are f16
 // (np/32, d).  Rows past n (pack padding) have zero scales and are never
 // read: the reduction stops at n, so x is never read past n either.
+//
+// Blocked storage (kernel 3, byte-identical to the JAX package's
+// BlockedQTensor): the same planes cut into (bn, td) tiles, each one
+// contiguous run, (n2/bn, dp/td, bn, td) a plane with dp = d padded to a
+// td multiple (zero scales in the pad columns); the scales the same cut of
+// the f16 plane, (n2/bn, dp/td, bn/16, td).  Packed row r, column c lives
+// at ((r/bn)*nJ + c/td)*bn*td + (r%bn)*td + c%td.  A quantization block's
+// 16 packed rows never straddle a tile (bn % 16 == 0) and a thread's 4
+// columns never do (td % 4 == 0), so the two layouts differ only in where
+// a block's rows start and in their stride (d or td): the kernel body is
+// one template over a Layout, and with the same split plan both layouts
+// add the same products in the same order, bit for bit.  On the TPU the
+// tiles lengthened the HBM DMA bursts; here a warp already reads 128
+// contiguous bytes a row in the row-major layout, so kernel 3 is expected
+// to time like kernels 1-2.
 //
 // What bounds it on this card: at decode (t = 1) each weight is read once
 // and used once, so the kernel is bound by the bytes of the packed planes,
@@ -66,25 +83,58 @@ __device__ __forceinline__ float nib_minus_8(uint32_t nib) {
   return __uint_as_float(0x4B000000u | nib) - 8388616.0f;
 }
 
-template <int TG>
+// Where a quantization block's packed rows and scales live.  val(b, c) is
+// the offset of packed row 16b at column c within a plane, scale(b, c) that
+// of block b's scale; consecutive packed rows of a block are stride() bytes
+// apart; cols() is a plane's stored width (d, or dp when blocked).
+struct RowMajor {
+  int d;
+  __device__ size_t val(size_t b, int c) const { return b * 16 * d + c; }
+  __device__ size_t scale(size_t b, int c) const { return b * d + c; }
+  __device__ int stride() const { return d; }
+  __device__ int cols() const { return d; }
+  // the vector loads need 4 columns inside the row
+  __device__ bool vec(int col0) const { return (d % kCols == 0) && (col0 + kCols <= d); }
+};
+
+struct Blocked {
+  int bn, td, nJ;  // packed rows a tile (a multiple of 16), columns a tile, column tiles
+  __device__ size_t val(size_t b, int c) const {
+    const size_t r = b * 16;
+    return ((r / bn) * nJ + c / td) * (size_t)bn * td + (r % bn) * td + c % td;
+  }
+  __device__ size_t scale(size_t b, int c) const {
+    const size_t bb = bn / 16;  // quantization blocks a tile
+    return ((b / bb) * nJ + c / td) * bb * td + (b % bb) * td + c % td;
+  }
+  __device__ int stride() const { return td; }
+  __device__ int cols() const { return nJ * td; }
+  // td % 4 == 0 and the pad columns exist: 4 columns from col0 < d always lie
+  // in one tile
+  __device__ bool vec(int) const { return true; }
+};
+
+template <int TG, class Layout>
 __global__ void __launch_bounds__(kThreads)
 q40_matmul_kernel(const __nv_bfloat16* __restrict__ x,   // (t, n)
-                  const uint8_t* __restrict__ qpacked,    // (n_planes, np/2, d)
-                  const __half* __restrict__ scales,      // (n_planes, np/32, d)
+                  const uint8_t* __restrict__ qpacked,    // n_planes planes
+                  const __half* __restrict__ scales,      // n_planes planes
                   const int* __restrict__ plane_p,        // the plane to read
                   float* __restrict__ part,               // (splits, t, d)
-                  int t, int n, int np, int d, int n_planes, int kb_per) {
+                  int t, int n, int np, int d, int n_planes, int kb_per,
+                  Layout lay) {
   __shared__ float xs[TG][kChunk * 32];
   // the plane index lives in device memory (a layer, or layer*E + expert
   // chosen on the device); clamping keeps a bad value inside the planes
   const size_t plane = (size_t)min(max(*plane_p, 0), n_planes - 1);
-  const uint8_t* qp = qpacked + plane * (size_t)(np / 2) * (size_t)d;
-  const __half* sc = scales + plane * (size_t)(np / 32) * (size_t)d;
+  const uint8_t* qp = qpacked + plane * (size_t)(np / 2) * (size_t)lay.cols();
+  const __half* sc = scales + plane * (size_t)(np / 32) * (size_t)lay.cols();
   const int col0 = (blockIdx.x * kThreads + threadIdx.x) * kCols;
   const int nb = n / 32;
   const int kb_begin = blockIdx.y * kb_per;
   const int kb_end = min(nb, kb_begin + kb_per);
-  const bool vec = (d % kCols == 0) && (col0 + kCols <= d);
+  const bool vec = lay.vec(col0);
+  const int stride = lay.stride();
   float* dst = part + (size_t)blockIdx.y * t * d;
 
   for (int g0 = 0; g0 < t; g0 += TG) {
@@ -110,7 +160,7 @@ q40_matmul_kernel(const __nv_bfloat16* __restrict__ x,   // (t, n)
         const size_t b = (size_t)(cb + bb);
         float s[kCols];
         if (vec) {
-          const uint2 raw = __ldg(reinterpret_cast<const uint2*>(sc + b * d + col0));
+          const uint2 raw = __ldg(reinterpret_cast<const uint2*>(sc + lay.scale(b, col0)));
           s[0] = __half2float(__ushort_as_half((unsigned short)(raw.x & 0xFFFFu)));
           s[1] = __half2float(__ushort_as_half((unsigned short)(raw.x >> 16)));
           s[2] = __half2float(__ushort_as_half((unsigned short)(raw.y & 0xFFFFu)));
@@ -118,23 +168,23 @@ q40_matmul_kernel(const __nv_bfloat16* __restrict__ x,   // (t, n)
         } else {
 #pragma unroll
           for (int c = 0; c < kCols; ++c)
-            s[c] = col0 + c < d ? __half2float(sc[b * d + col0 + c]) : 0.f;
+            s[c] = col0 + c < d ? __half2float(sc[lay.scale(b, col0) + c]) : 0.f;
         }
         // all 16 packed rows of the block are loaded before any is used,
         // so each thread keeps 16 independent loads in flight
-        const uint8_t* rowp = qp + b * 16 * d + col0;
+        const uint8_t* rowp = qp + lay.val(b, col0);
         uint32_t w4[16];
 #pragma unroll
         for (int r = 0; r < 16; ++r) {
           if (vec) {
-            w4[r] = __ldg(reinterpret_cast<const unsigned int*>(rowp + (size_t)r * d));
+            w4[r] = __ldg(reinterpret_cast<const unsigned int*>(rowp + (size_t)r * stride));
           } else {
             w4[r] = 0x88888888u;  // nibbles of 8: weight 0 in the masked columns
 #pragma unroll
             for (int c = 0; c < kCols; ++c)
               if (col0 + c < d)
                 w4[r] = (w4[r] & ~(0xFFu << (8 * c))) |
-                        ((uint32_t)rowp[(size_t)r * d + c] << (8 * c));
+                        ((uint32_t)rowp[(size_t)r * stride + c] << (8 * c));
           }
         }
 #pragma unroll
@@ -179,13 +229,41 @@ __global__ void q40_reduce_splits(const float* __restrict__ part,
   out[i] = s;
 }
 
-template <int TG>
+template <int TG, class Layout>
 void launch(const __nv_bfloat16* x, const uint8_t* qp, const __half* sc,
             const int* idx, float* part, int t, int n, int np, int d,
-            int n_planes, int splits, int kb_per, cudaStream_t stream) {
+            int n_planes, int splits, int kb_per, Layout lay, cudaStream_t stream) {
   const dim3 grid((d + kBlockCols - 1) / kBlockCols, splits);
-  q40_matmul_kernel<TG><<<grid, kThreads, 0, stream>>>(
-      x, qp, sc, idx, part, t, n, np, d, n_planes, kb_per);
+  q40_matmul_kernel<TG, Layout><<<grid, kThreads, 0, stream>>>(
+      x, qp, sc, idx, part, t, n, np, d, n_planes, kb_per, lay);
+}
+
+// Both entry points: the row-group template by t, then the fixed-order
+// reduce of the splits.  Returns cudaGetLastError() after the launches.
+template <class Layout>
+int run(const void* x, const void* qpacked, const void* scales, void* out,
+        void* scratch, const void* idx, int t, int n, int np, int d,
+        int n_planes, int splits, int kb_per, Layout lay, void* stream) {
+  const uint8_t* qp = static_cast<const uint8_t*>(qpacked);
+  const __half* sc = static_cast<const __half*>(scales);
+  const int* ip = static_cast<const int*>(idx);
+  const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
+  float* part = static_cast<float*>(splits > 1 ? scratch : out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (t == 1)
+    launch<1>(xb, qp, sc, ip, part, t, n, np, d, n_planes, splits, kb_per, lay, s);
+  else if (t == 2)
+    launch<2>(xb, qp, sc, ip, part, t, n, np, d, n_planes, splits, kb_per, lay, s);
+  else if (t <= 4)
+    launch<4>(xb, qp, sc, ip, part, t, n, np, d, n_planes, splits, kb_per, lay, s);
+  else
+    launch<8>(xb, qp, sc, ip, part, t, n, np, d, n_planes, splits, kb_per, lay, s);
+  if (splits > 1) {
+    const size_t total = (size_t)t * (size_t)d;
+    q40_reduce_splits<<<(unsigned)((total + 255) / 256), 256, 0, s>>>(
+        part, static_cast<float*>(out), splits, total);
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -199,26 +277,20 @@ extern "C" int q40_matmul(const void* x, const void* qpacked,
                           const void* scales, void* out, void* scratch,
                           const void* idx, int t, int n, int np, int d,
                           int n_planes, int splits, int kb_per, void* stream) {
-  const uint8_t* qp = static_cast<const uint8_t*>(qpacked);
-  const __half* sc = static_cast<const __half*>(scales);
-  const int* ip = static_cast<const int*>(idx);
-  const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
-  float* part = static_cast<float*>(splits > 1 ? scratch : out);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (t == 1)
-    launch<1>(xb, qp, sc, ip, part, t, n, np, d, n_planes, splits, kb_per, s);
-  else if (t == 2)
-    launch<2>(xb, qp, sc, ip, part, t, n, np, d, n_planes, splits, kb_per, s);
-  else if (t <= 4)
-    launch<4>(xb, qp, sc, ip, part, t, n, np, d, n_planes, splits, kb_per, s);
-  else
-    launch<8>(xb, qp, sc, ip, part, t, n, np, d, n_planes, splits, kb_per, s);
-  if (splits > 1) {
-    const size_t total = (size_t)t * (size_t)d;
-    q40_reduce_splits<<<(unsigned)((total + 255) / 256), 256, 0, s>>>(
-        part, static_cast<float*>(out), splits, total);
-  }
-  return (int)cudaGetLastError();
+  return run(x, qpacked, scales, out, scratch, idx, t, n, np, d, n_planes,
+             splits, kb_per, RowMajor{d}, stream);
+}
+
+// Kernel 3: the same product over blocked planes, qpacked (n_planes, np/2/bn,
+// nJ, bn, td) u8 and scales (n_planes, np/2/bn, nJ, bn/16, td) f16, with
+// bn % 16 == 0 and td % 4 == 0; writes the (t, d) logical columns only.
+extern "C" int q40_matmul_blocked(const void* x, const void* qpacked,
+                                  const void* scales, void* out, void* scratch,
+                                  const void* idx, int t, int n, int np, int d,
+                                  int n_planes, int splits, int kb_per, int bn,
+                                  int td, int nJ, void* stream) {
+  return run(x, qpacked, scales, out, scratch, idx, t, n, np, d, n_planes,
+             splits, kb_per, Blocked{bn, td, nJ}, stream);
 }
 
 extern "C" const char* q40_error_string(int code) {

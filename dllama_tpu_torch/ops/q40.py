@@ -33,16 +33,26 @@ f32, an f32 result.  Dispatch:
   f32 ``torch.matmul`` — the JAX package's own dispatch rule, which leaves
   that product to XLA.
 
-Module counters (plain ints) record which of the three ran:
-``kernel_launches`` (and ``launches_by_shape`` keyed by logical ``(n, d)``),
-``plain_calls`` and ``dense_prefill_calls``.  :func:`reset_counters` zeroes
-them.
+Tile-contiguous ("blocked") storage, :class:`BlockedQTensor` (the JAX
+package's ``DLLAMA_Q40_LAYOUT=blocked``): the same bytes re-cut into
+``(tn/2, td)`` tiles, each one contiguous run of memory.  A CUDA tensor of
+up to ``PALLAS_MAX_ROWS`` rows takes kernel 3 (the ``q40_matmul_blocked``
+entry of the same source), which reads the tiles in place; the plain route
+unblocks the one plane it needs.
+
+Module counters (plain ints) record which route ran:
+``kernel_launches`` (kernels 1–2 on row-major planes), ``blocked_launches``
+(kernel 3 on blocked planes), ``launches_by_shape`` keyed by logical
+``(n, d)`` for kernels 1–2 and ``("blocked", n, d)`` for kernel 3,
+``plain_calls`` and ``dense_prefill_calls``.  :func:`reset_counters`
+zeroes them.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import os
 import sys
 from dataclasses import dataclass
 
@@ -61,20 +71,21 @@ TILE_N = 1024
 PALLAS_MAX_ROWS = 128
 
 kernel_launches = 0
+blocked_launches = 0
 plain_calls = 0
 dense_prefill_calls = 0
-launches_by_shape: dict[tuple[int, int], int] = {}
+launches_by_shape: dict[tuple, int] = {}
 
 
 def reset_counters() -> None:
-    global kernel_launches, plain_calls, dense_prefill_calls
-    kernel_launches = plain_calls = dense_prefill_calls = 0
+    global kernel_launches, blocked_launches, plain_calls, dense_prefill_calls
+    kernel_launches = blocked_launches = plain_calls = dense_prefill_calls = 0
     launches_by_shape.clear()
 
 
 def counters() -> dict:
-    return {"kernel_launches": kernel_launches, "plain_calls": plain_calls,
-            "dense_prefill_calls": dense_prefill_calls,
+    return {"kernel_launches": kernel_launches, "blocked_launches": blocked_launches,
+            "plain_calls": plain_calls, "dense_prefill_calls": dense_prefill_calls,
             "launches_by_shape": dict(launches_by_shape)}
 
 
@@ -207,6 +218,147 @@ def pack_file_groups(groups: list[list[tuple[np.ndarray, int, int]]],
     return from_np(qp, sc, (n, d_total))
 
 
+# ---------------------------------------------------------------------------
+# Tile-contiguous ("blocked") storage — the port of the JAX package's
+# BlockedQTensor / to_blocked / unblock / blocked_params
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class BlockedQTensor:
+    """Layer-stacked Q40 storage re-cut so each ``(tn/2, td)`` tile of the
+    packed plane is one contiguous run: ``qpacked`` ``(L, n2/bn, dp/td, bn,
+    td)`` with ``bn = tn/2`` packed rows a tile and ``dp`` = d padded to a
+    ``td`` multiple (zero scales in the pad columns); ``scales`` the same
+    cut of the f16 plane, ``(L, n2/bn, dp/td, bn/16, td)``.  ``lead_2d``
+    marks a tensor built from a 2-D ``(n2, d)`` one (wcls): storage carries
+    L = 1 and the logical shape has no layer axis."""
+
+    qpacked: torch.Tensor       # uint8   (L, n2/bn, dp/td, bn, td)
+    scales: torch.Tensor        # float16 (L, n2/bn, dp/td, bn/16, td)
+    logical_nd: tuple[int, int]
+    tiles: tuple[int, int]      # (tn, td)
+    lead_2d: bool = False
+
+    @property
+    def shape(self) -> tuple[int, ...]:
+        if self.lead_2d:
+            return self.logical_nd
+        return (self.qpacked.shape[0],) + self.logical_nd
+
+    def to(self, device) -> "BlockedQTensor":
+        return BlockedQTensor(self.qpacked.to(device), self.scales.to(device),
+                              self.logical_nd, self.tiles, self.lead_2d)
+
+
+# default tiles (tn, td), the JAX package's: 512 logical rows by 2048 columns
+DEFAULT_BLOCKED_TILES = (512, 2048)
+
+
+def blocked_tiles_env() -> tuple[int, int]:
+    """The ``DLLAMA_Q40_BLOCK_TILES`` override ("tn,td"), parsed at each
+    :func:`to_blocked` call.  Anything but two positive ints prints one
+    warning on stderr and keeps :data:`DEFAULT_BLOCKED_TILES`."""
+    spec = os.environ.get("DLLAMA_Q40_BLOCK_TILES", "")
+    if not spec:
+        return DEFAULT_BLOCKED_TILES
+    try:
+        parts = tuple(int(v) for v in spec.split(","))
+        if len(parts) != 2 or parts[0] <= 0 or parts[1] <= 0:
+            raise ValueError(spec)
+        return parts
+    except ValueError:
+        _warn_once(f"DLLAMA_Q40_BLOCK_TILES={spec!r} is not two positive ints "
+                   f"'tn,td'; using {DEFAULT_BLOCKED_TILES}")
+        return DEFAULT_BLOCKED_TILES
+
+
+_warned: set[str] = set()
+
+
+def _warn_once(msg: str) -> None:
+    if msg not in _warned:
+        _warned.add(msg)
+        print(f"⚠️  {msg}", file=sys.stderr)
+
+
+def to_blocked(qt: QTensor, tn: int | None = None, td: int | None = None
+               ) -> BlockedQTensor:
+    """Re-cut a 2-D ``(n2, d)`` or layer-stacked ``(L, n2, d)`` QTensor into
+    tiles, on the tensor's own device.  The tiles clamp to the tensor as
+    the JAX package clamps them: ``tn`` halves until ``tn/2`` divides the
+    packed rows (never below 32), ``td`` shrinks to ``d`` rounded up to
+    128.  The output is allocated once and filled one column tile at a time
+    (no padded intermediate copy)."""
+    env_tn, env_td = blocked_tiles_env()
+    tn = tn or env_tn
+    td = td or env_td
+    lead_2d = qt.qpacked.dim() == 2
+    qp0 = qt.qpacked[None] if lead_2d else qt.qpacked
+    sc0 = qt.scales[None] if lead_2d else qt.scales
+    if qp0.dim() != 3:
+        raise ValueError("to_blocked expects a (n/2, d) or layer-stacked "
+                         f"(L, n/2, d) QTensor, got {tuple(qt.qpacked.shape)}")
+    L, n2, d = qp0.shape
+    while tn > 32 and n2 % (tn // 2):
+        tn //= 2
+    td = min(td, -(-d // 128) * 128)
+    bn, bnb = tn // 2, tn // 32
+    if n2 % bn or tn % 32:
+        raise ValueError(f"packed rows {n2} not divisible by tn/2={bn}")
+    nI, nJ = n2 // bn, -(-d // td)
+    qb = torch.zeros((L, nI, nJ, bn, td), dtype=qp0.dtype, device=qp0.device)
+    sb = torch.zeros((L, nI, nJ, bnb, td), dtype=sc0.dtype, device=sc0.device)
+    qv = qp0.reshape(L, nI, bn, d)
+    sv = sc0.reshape(L, nI, bnb, d)
+    for j in range(nJ):
+        w = min(td, d - j * td)
+        qb[:, :, j, :, :w] = qv[..., j * td:j * td + w]
+        sb[:, :, j, :, :w] = sv[..., j * td:j * td + w]
+    return BlockedQTensor(qb, sb, qt.logical_nd, (tn, td), lead_2d)
+
+
+def _uncut(a: torch.Tensor, d: int) -> torch.Tensor:
+    """``(..., nI, nJ, rows, td)`` tiles back to ``(..., nI·rows, d)``."""
+    *lead, nI, nJ, rows, td = a.shape
+    return a.transpose(-3, -2).reshape(*lead, nI * rows, nJ * td)[..., :d]
+
+
+def unblock(bqt: BlockedQTensor) -> QTensor:
+    """Inverse of :func:`to_blocked` (drops the d padding)."""
+    d = bqt.logical_nd[1]
+    qp, sc = _uncut(bqt.qpacked, d), _uncut(bqt.scales, d)
+    if bqt.lead_2d:
+        qp, sc = qp[0], sc[0]
+    return QTensor(qp.contiguous(), sc.contiguous(), bqt.logical_nd)
+
+
+def unblock_plane(bqt: BlockedQTensor, layer=None) -> QTensor:
+    """The one plane ``layer`` of a blocked stack back in 2-D row-major
+    form (plane 0 of a ``lead_2d`` tensor when ``layer`` is None): the plain
+    route's input, which never re-lays out the other planes."""
+    if layer is None:
+        if not bqt.lead_2d:
+            raise ValueError(f"a stacked BlockedQTensor {bqt.shape} needs a layer index")
+        layer = 0
+    elif bqt.lead_2d:
+        raise ValueError(f"layer index given for a 2-D BlockedQTensor {bqt.shape}")
+    d = bqt.logical_nd[1]
+    qp, sc = (_uncut(plane(a.reshape(a.shape[0], -1, a.shape[-1]), layer)
+                     .reshape(a.shape[1:]), d) for a in (bqt.qpacked, bqt.scales))
+    return QTensor(qp, sc, bqt.logical_nd)
+
+
+def blocked_params(params: dict) -> dict:
+    """Every 2-D and layer-stacked 3-D Q40 weight of ``params`` in the
+    blocked layout (``DLLAMA_Q40_LAYOUT=blocked``); 4-D expert stacks, Q80
+    and dense tensors stay as they are, and a BlockedQTensor passes
+    unchanged, so converting twice is converting once.  Converts on the
+    device the params are on; the loader hands host params over, so the
+    card never holds both layouts."""
+    return {k: to_blocked(v) if isinstance(v, QTensor) and v.qpacked.dim() in (2, 3)
+            else v for k, v in params.items()}
+
+
 def plane(a: torch.Tensor, layer) -> torch.Tensor:
     """The 2-D plane of ``a`` at ``layer``: a flat index over the flattened
     leading dims (a layer of ``(L, n, d)``, or ``layer·E + expert`` of an
@@ -255,17 +407,20 @@ def dequantize(qt: QTensor, dtype=torch.float32, layer=None) -> torch.Tensor:
     return w.to(dtype)
 
 
-def matmul_plain(x2: torch.Tensor, qt: QTensor, layer=None) -> torch.Tensor:
+def matmul_plain(x2: torch.Tensor, qt: QTensor | BlockedQTensor,
+                 layer=None) -> torch.Tensor:
     """The plain version: ``bf16(x) (t, n) @ bf16(W) (n, d)`` with products
     summed in f32, result f32.  Both bf16 operands are widened to f32 before
     the product (exact), because a bf16×bf16 ``torch.matmul`` rounds its
-    result to bf16."""
+    result to bf16.  A blocked tensor unblocks the one plane first."""
+    if isinstance(qt, BlockedQTensor):
+        qt, layer = unblock_plane(qt, layer), None
     w = dequantize(qt, torch.bfloat16, layer)
     return torch.matmul(x2.to(torch.bfloat16).to(torch.float32),
                         w.to(torch.float32))
 
 
-def matmul(x: torch.Tensor, qt: QTensor, layer=None,
+def matmul(x: torch.Tensor, qt: QTensor | BlockedQTensor, layer=None,
            out_dtype=None, impl: str = "auto") -> torch.Tensor:
     """``x @ dequantize(qt)`` with f32 accumulation.
 
@@ -275,8 +430,15 @@ def matmul(x: torch.Tensor, qt: QTensor, layer=None,
     ``QLayerView``).  Returns (..., d) in ``out_dtype`` (default
     ``x.dtype``).  ``impl="plain"`` runs the plain version on any device —
     the reference path that a comparison on the card holds the kernel
-    against; ``"auto"`` dispatches as the module docstring says."""
-    return dispatch(sys.modules[__name__], q40_matmul, x, qt, layer, out_dtype, impl)
+    against; ``"auto"`` dispatches as the module docstring says.  ``qt`` may
+    be a :class:`BlockedQTensor`: kernel 3 then reads its tiles."""
+    return dispatch(sys.modules[__name__], _kernel, x, qt, layer, out_dtype, impl)
+
+
+def _kernel(x2: torch.Tensor, qt, layer) -> torch.Tensor:
+    if isinstance(qt, BlockedQTensor):
+        return q40_blocked_matmul(x2, qt.qpacked, qt.scales, qt.logical_nd, layer)
+    return q40_matmul(x2, qt.qpacked, qt.scales, qt.logical_nd[0], layer)
 
 
 def dispatch(codec, kernel, x: torch.Tensor, qt, layer, out_dtype, impl: str
@@ -284,7 +446,8 @@ def dispatch(codec, kernel, x: torch.Tensor, qt, layer, out_dtype, impl: str
     """The routing :func:`matmul` and ``q8.matmul`` share, counted on
     ``codec``'s (the module's) counters: a CPU tensor or ``impl="plain"`` →
     ``codec.matmul_plain``; a CUDA tensor of up to ``PALLAS_MAX_ROWS`` rows
-    → ``kernel``; more rows → the plain version (``dense_prefill_calls``)."""
+    → ``kernel(x2, qt, layer)``; more rows → the plain version
+    (``dense_prefill_calls``)."""
     if impl not in ("auto", "plain"):
         raise ValueError(f"unknown {codec.__name__} matmul impl {impl!r}")
     n, d = qt.logical_nd
@@ -295,7 +458,7 @@ def dispatch(codec, kernel, x: torch.Tensor, qt, layer, out_dtype, impl: str
         codec.plain_calls += 1
         out = codec.matmul_plain(x2, qt, layer)
     elif rows <= PALLAS_MAX_ROWS:
-        out = kernel(x2, qt.qpacked, qt.scales, n, layer)
+        out = kernel(x2, qt, layer)
     else:
         codec.dense_prefill_calls += 1
         out = codec.matmul_plain(x2, qt, layer)
@@ -310,7 +473,7 @@ def mm(x: torch.Tensor, w, layer=None, impl: str = "auto",
     ``q40.mm``.  ``out_dtype`` defaults to ``x.dtype`` for packed weights
     and to the product's dtype for dense ones."""
     from . import q8
-    if isinstance(w, QTensor):
+    if isinstance(w, (QTensor, BlockedQTensor)):
         return matmul(x, w, layer, out_dtype=out_dtype, impl=impl)
     if isinstance(w, q8.Q8Tensor):
         return q8.matmul(x, w, layer, out_dtype=out_dtype, impl=impl)
@@ -357,21 +520,23 @@ def _require(cond: bool, msg: str, who: str = "q40_matmul") -> None:
         raise ValueError(f"{who}: {msg}")
 
 
-def plane_index(planes: torch.Tensor, layer, dev: torch.device, who: str
-                ) -> tuple[torch.Tensor, int]:
+def plane_index(planes: torch.Tensor, layer, dev: torch.device, who: str,
+                plane_dims: int = 2) -> tuple[torch.Tensor, int]:
     """The plane a kernel reads, as a (1,) int32 tensor on ``dev``, and the
-    plane count of ``planes`` (the product of its leading dims).  ``layer``
-    None is the one plane of a 2-D tensor; a Python int becomes a view into
-    the device's index table (:func:`device.index_view`); an int32 device
-    tensor (an expert id computed on the card) passes as it is, and the
-    kernel clamps it to the plane count.  No path reads the device."""
+    plane count of ``planes`` (the product of its leading dims; a plane has
+    ``plane_dims`` trailing dims: 2 row-major, 4 blocked).  ``layer`` None
+    is the one plane of an unstacked tensor; a Python int becomes a view
+    into the device's index table (:func:`device.index_view`); an int32
+    device tensor (an expert id computed on the card) passes as it is, and
+    the kernel clamps it to the plane count.  No path reads the device."""
     if layer is None:
-        if planes.dim() != 2:
+        if planes.dim() != plane_dims:
             raise ValueError(f"{who}: a stacked plane needs a layer index")
         return index_view(dev, 0, 1), 1
-    if planes.dim() < 3:
-        raise ValueError(f"{who}: layer index given for a 2-D plane")
-    n_planes = int(np.prod(planes.shape[:-2]))
+    if planes.dim() <= plane_dims:
+        raise ValueError(f"{who}: layer index given for an unstacked "
+                         f"{plane_dims}-D plane")
+    n_planes = int(np.prod(planes.shape[:-plane_dims]))
     if isinstance(layer, torch.Tensor):
         if not (layer.device == dev and layer.dtype == torch.int32 and layer.numel() == 1):
             raise ValueError(f"{who}: a tensor index must be one int32 on {dev}, got "
@@ -399,13 +564,50 @@ def q40_matmul(x2: torch.Tensor, qpacked: torch.Tensor, scales: torch.Tensor,
     return out
 
 
-def launch(fn: str, x2: torch.Tensor, values: torch.Tensor, scales: torch.Tensor,
-           n: int, layer, value_dtype: torch.dtype, per_byte: int) -> torch.Tensor:
-    """Check the operands of the Q40 or Q80 kernel (C entry point ``fn``,
-    values of ``value_dtype`` holding ``per_byte`` weights a byte: 2 for
-    Q40's nibbles, 1 for Q80's int8) and launch it on the current stream;
-    returns the f32 ``(t, d)`` output.  Raises on anything the kernel does
-    not take, a CPU tensor first."""
+def q40_blocked_matmul(x2: torch.Tensor, qpacked: torch.Tensor, scales: torch.Tensor,
+                       nd: tuple[int, int], layer=None) -> torch.Tensor:
+    """Launch kernel 3, the Q40 dequant-matmul over blocked planes:
+    ``bf16(x2) (t, n) @ W`` → f32 ``(t, d)`` for logical ``nd = (n, d)``,
+    reading plane ``layer`` of ``qpacked`` ``(L, n2/bn, dp/td, bn, td)`` and
+    ``scales`` ``(L, n2/bn, dp/td, bn/16, td)`` in place (a Python int or an
+    int32 device tensor; None for the one plane of an L = 1 tensor).  The
+    kernel takes every tile :func:`to_blocked` makes with ``td`` a multiple
+    of 4 (``tn`` is a multiple of 32 there); it writes only the ``d``
+    logical columns.  CUDA tensors only: it launches the kernel or raises."""
+    global blocked_launches
+    fn = "q40_matmul_blocked"
+    n, d = nd
+
+    def req(cond, msg):
+        _require(cond, msg, fn)
+
+    dev = _check_operands(fn, x2, qpacked, scales, n, torch.uint8)
+    req(qpacked.dim() == 5, f"values {tuple(qpacked.shape)} are not (L, nI, nJ, bn, td)")
+    L, nI, nJ, bn, td = qpacked.shape
+    req(bn % 16 == 0 and td % 4 == 0,
+        f"tiles (tn={2 * bn}, td={td}): the kernel needs tn a multiple of 32, td of 4")
+    req(tuple(scales.shape) == (L, nI, nJ, bn // 16, td),
+        f"scales shape {tuple(scales.shape)} does not match values {tuple(qpacked.shape)}")
+    np_ = nI * bn * 2
+    req(np_ >= n and d <= nJ * td,
+        f"planes {tuple(qpacked.shape)} do not cover (n, d) = {tuple(nd)}")
+    if layer is None:
+        req(L == 1, "a stacked blocked plane needs a layer index")
+        idx, n_planes = index_view(dev, 0, 1), 1
+    else:
+        idx, n_planes = plane_index(qpacked, layer, dev, fn, plane_dims=4)
+    out = _launch(fn, x2, qpacked, scales, idx, n, np_, d, n_planes, bn, td, nJ)
+    blocked_launches += 1
+    key = ("blocked", n, d)
+    launches_by_shape[key] = launches_by_shape.get(key, 0) + 1
+    return out
+
+
+def _check_operands(fn: str, x2: torch.Tensor, values: torch.Tensor,
+                    scales: torch.Tensor, n: int, value_dtype: torch.dtype
+                    ) -> torch.device:
+    """The operand checks every matmul kernel shares; returns x's device.
+    Raises on anything the kernel does not take, a CPU tensor first."""
     def req(cond, msg):
         _require(cond, msg, fn)
 
@@ -420,17 +622,39 @@ def launch(fn: str, x2: torch.Tensor, values: torch.Tensor, scales: torch.Tensor
     req(values.data_ptr() % 4 == 0 and scales.data_ptr() % 8 == 0,
         "values/scales not aligned for the kernel's vector loads")
     req(x2.dim() == 2 and x2.shape[1] == n, f"x shape {tuple(x2.shape)} != (t, {n})")
-    t = x2.shape[0]
-    req(1 <= t <= PALLAS_MAX_ROWS, f"{t} rows outside 1..{PALLAS_MAX_ROWS}")
+    req(1 <= x2.shape[0] <= PALLAS_MAX_ROWS,
+        f"{x2.shape[0]} rows outside 1..{PALLAS_MAX_ROWS}")
     req(n % 32 == 0, f"n={n} not a multiple of 32")
+    return dev
+
+
+def launch(fn: str, x2: torch.Tensor, values: torch.Tensor, scales: torch.Tensor,
+           n: int, layer, value_dtype: torch.dtype, per_byte: int) -> torch.Tensor:
+    """Check the operands of the Q40 or Q80 kernel over row-major planes (C
+    entry point ``fn``, values of ``value_dtype`` holding ``per_byte``
+    weights a byte: 2 for Q40's nibbles, 1 for Q80's int8) and launch it on
+    the current stream; returns the f32 ``(t, d)`` output."""
+    dev = _check_operands(fn, x2, values, scales, n, value_dtype)
     idx, n_planes = plane_index(values, layer, dev, fn)
     np_ = values.shape[-2] * per_byte
     d = values.shape[-1]
-    req(np_ >= n and np_ % 32 == 0, f"value rows {values.shape[-2]} do not cover n={n}")
-    req(tuple(scales.shape) == tuple(values.shape[:-2]) + (np_ // 32, d),
-        f"scales shape {tuple(scales.shape)} does not match values {tuple(values.shape)}")
+    _require(np_ >= n and np_ % 32 == 0,
+             f"value rows {values.shape[-2]} do not cover n={n}", fn)
+    _require(tuple(scales.shape) == tuple(values.shape[:-2]) + (np_ // 32, d),
+             f"scales shape {tuple(scales.shape)} does not match values "
+             f"{tuple(values.shape)}", fn)
+    return _launch(fn, x2, values, scales, idx, n, np_, d, n_planes)
+
+
+def _launch(fn: str, x2: torch.Tensor, values: torch.Tensor, scales: torch.Tensor,
+            idx: torch.Tensor, n: int, np_: int, d: int, n_planes: int,
+            *layout: int) -> torch.Tensor:
+    """Call C entry point ``fn`` on checked operands with the split plan
+    (``layout`` ints follow the plan: kernel 3's tile shape); raises on a
+    launch error."""
     from . import _build
     lib = _build.load()
+    dev, t = x2.device, x2.shape[0]
     xb = x2.to(torch.bfloat16).contiguous()
     splits, per = split_plan(n, d, _sm_count(dev))
     out = torch.empty((t, d), dtype=torch.float32, device=dev)
@@ -440,11 +664,11 @@ def launch(fn: str, x2: torch.Tensor, values: torch.Tensor, scales: torch.Tensor
     with torch.cuda.device(dev):
         rc = getattr(lib, fn)(xb.data_ptr(), values.data_ptr(), scales.data_ptr(),
                               out.data_ptr(), scratch.data_ptr(), idx.data_ptr(),
-                              t, n, np_, d, n_planes, splits, per, stream)
+                              t, n, np_, d, n_planes, splits, per, *layout, stream)
     if rc != 0:
         raise RuntimeError(f"{fn} launch failed: CUDA error {rc} "
                            f"({lib.q40_error_string(rc).decode()}) at "
-                           f"t={t} n={n} d={d} splits={splits}")
+                           f"t={t} n={n} d={d} splits={splits} layout={layout}")
     return out
 
 
@@ -454,6 +678,9 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.q40_matmul.argtypes = [vp] * 6 + [ci] * 7 + [vp]
     lib.q40_matmul.restype = ci
+    # kernel 3: the same operands, then the tile shape (bn, td, nJ)
+    lib.q40_matmul_blocked.argtypes = [vp] * 6 + [ci] * 10 + [vp]
+    lib.q40_matmul_blocked.restype = ci
     lib.q40_error_string.argtypes = [ci]
     lib.q40_error_string.restype = ctypes.c_char_p
     return lib

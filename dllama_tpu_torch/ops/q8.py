@@ -193,7 +193,11 @@ def matmul(x: torch.Tensor, qt: Q8Tensor, layer=None, out_dtype=None,
     kernel up to ``PALLAS_MAX_ROWS`` rows and above that dequantizes and
     runs one f32 matmul (the JAX package's ``"xla"`` route); the routing is
     :func:`.q40.dispatch`."""
-    return dispatch(sys.modules[__name__], q8_matmul, x, qt, layer, out_dtype, impl)
+    return dispatch(sys.modules[__name__], _kernel, x, qt, layer, out_dtype, impl)
+
+
+def _kernel(x2: torch.Tensor, qt: Q8Tensor, layer) -> torch.Tensor:
+    return q8_matmul(x2, qt.qpacked, qt.scales, qt.logical_nd[0], layer)
 
 
 def q8_matmul(x2: torch.Tensor, qvals: torch.Tensor, scales: torch.Tensor,

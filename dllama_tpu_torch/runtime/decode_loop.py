@@ -37,13 +37,18 @@ def device_sample(logits: torch.Tensor, generator: torch.Generator,
 
 def decode_chunk(params, cfg: ModelConfig, cache: KVCache, token: torch.Tensor,
                  pos: int, generator: torch.Generator, *, steps: int,
-                 temperature: float, topp: float):
-    """Generate ``steps`` tokens from ``token`` (B,) at ``pos``.  Returns
-    (tokens (steps, B), cache, last_token, new_pos, last_logits)."""
+                 temperature: float, topp: float,
+                 offsets: torch.Tensor | None = None):
+    """Generate ``steps`` tokens from ``token`` (B,) at ``pos``; every row
+    samples its own next token.  ``offsets`` (B,) is a ragged batch's left
+    padding (per-row RoPE positions and key floors, see
+    ``transformer.run_blocks``).  Returns (tokens (steps, B), cache,
+    last_token, new_pos, last_logits)."""
     toks = []
     logits = None
     for i in range(steps):
-        logits, cache = forward_last(params, cfg, token[:, None], cache, pos + i, 0)
+        logits, cache = forward_last(params, cfg, token[:, None], cache, pos + i, 0,
+                                     offsets=offsets)
         token = device_sample(logits, generator, temperature, topp)
         toks.append(token)
     return torch.stack(toks), cache, token, pos + steps, logits

@@ -1,6 +1,7 @@
-"""Inference engine: prefill/decode + generation loop + G/I/T stats, and
-the slot step of continuous batching — the port of
-``dllama_tpu/runtime/engine.py`` (batch-1 streams and the slot engine).
+"""Inference engine: prefill/decode + generation loop + G/I/T stats, the
+lockstep batch of distinct prompts, and the slot step of continuous
+batching — the port of ``dllama_tpu/runtime/engine.py`` (batch-1 streams,
+``generate_batch`` and the slot engine).
 
 Prefill pads the prompt up to a bucket (clamped to the cache) and runs it in
 one forward; decode runs chunks of on-device steps
@@ -13,6 +14,7 @@ it reads the clock, so I and T are the device's, not the enqueue's.
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 from dataclasses import dataclass, field
 
@@ -23,6 +25,7 @@ from ..device import resolve, synchronize
 from ..models.config import ModelConfig
 from ..models.params import Params, to_device
 from ..models.transformer import forward_last, init_kv_cache, init_kv_pool
+from ..ops import q40
 from ..sampling import Sampler
 from .decode_loop import decode_chunk, device_sample, slot_chunk
 
@@ -114,7 +117,13 @@ class Engine:
     per-slot page tables; ``kv_dtype="q8"`` stores the pool in int8 with
     per-position scales.  Params already on ``device`` are shared, not
     copied, so a slot engine built from a batch-1 engine's params adds only
-    its cache."""
+    its cache.  With a contiguous cache, ``batch`` > 1 also serves
+    :meth:`generate_batch` (distinct prompts in lockstep).
+
+    ``DLLAMA_Q40_LAYOUT=blocked`` (the JAX package's knob) converts every
+    2-D and layer-stacked Q40 weight to the tile-contiguous layout before
+    the upload (:func:`q40.blocked_params`; idempotent), so their matmuls
+    run kernel 3."""
 
     def __init__(self, cfg: ModelConfig, params: Params,
                  seq_len: int | None = None, kv_dtype=None, device=None,
@@ -123,6 +132,8 @@ class Engine:
         self.cfg = cfg
         self.batch = int(batch)
         self.seq_len = min(seq_len or cfg.seq_len, cfg.seq_len)
+        if os.environ.get("DLLAMA_Q40_LAYOUT", "") == "blocked":
+            params = q40.blocked_params(params)
         self.params = to_device(params, self.device)
         kv_quant = kv_dtype == "q8"
         self.paged = kv_pages > 0
@@ -146,6 +157,9 @@ class Engine:
             self.cache = init_kv_cache(cfg, self.batch, self.seq_len,
                                        dtype=kv_dtype, device=self.device)
         self.pos = 0
+        #: a ragged batch's left padding (B,) on the device, set by
+        #: prefill_ragged and cleared by reset
+        self.offsets: torch.Tensor | None = None
         #: model forwards run (prefill passes + decode steps)
         self.forwards = 0
         #: single-token forwards of slot dispatches (each reads attention
@@ -161,13 +175,15 @@ class Engine:
     def reset(self):
         """Restart the sequence; cache memory is reused."""
         self.pos = 0
+        self.offsets = None
 
-    def _run(self, tokens_np: np.ndarray, last_index: int) -> tuple[np.ndarray, StepStats]:
+    def _run(self, tokens_np: np.ndarray, last_index: int,
+             offsets: torch.Tensor | None = None) -> tuple[np.ndarray, StepStats]:
         stats = StepStats()
         t0 = time.perf_counter()
         toks = torch.from_numpy(tokens_np).to(self.device)
         logits, self.cache = forward_last(self.params, self.cfg, toks, self.cache,
-                                          self.pos, last_index)
+                                          self.pos, last_index, offsets=offsets)
         self.forwards += 1
         self.last_logits = logits
         synchronize(self.device)
@@ -195,6 +211,37 @@ class Engine:
         toks[:, :n] = prompt_tokens
         logits, stats = self._run(toks, n - 1)
         self.pos += n
+        return logits, stats
+
+    def prefill_ragged(self, prompts: list[list[int]]) -> tuple[np.ndarray, StepStats]:
+        """Prefill B distinct prompts, right-aligned in one bucket: every
+        row's last real token lands on index ``longest - 1``, and
+        ``offsets[r] = longest - len(prompt_r)`` is kept on the engine for
+        every later decode step (per-row RoPE positions and key floors), so
+        each row sees exactly the keys and angles it would see alone.  The
+        batch shares one clock from ``longest``: a short row batched with a
+        long one has ``longest - len(prompt_r)`` fewer context slots than it
+        would alone.  Returns the (B, V) logits of the last index."""
+        if len(prompts) != self.batch:
+            raise ValueError(f"{len(prompts)} prompts for batch={self.batch}")
+        if self.paged:
+            raise ValueError("ragged batches run on a contiguous cache (kv_pages=0)")
+        if any(len(p) == 0 for p in prompts):
+            raise ValueError("empty prompt")
+        if self.pos != 0:
+            raise ValueError("ragged prefill starts a fresh batch; call reset()")
+        longest = max(len(p) for p in prompts)
+        if longest > self.seq_len:
+            raise ContextOverflow(f"prompt of {longest} exceeds seq_len {self.seq_len}")
+        bucket = max(longest, min(_next_bucket(longest), self.seq_len))
+        toks = np.zeros((self.batch, bucket), np.int64)
+        offsets = np.zeros((self.batch,), np.int64)
+        for r, p in enumerate(prompts):
+            toks[r, longest - len(p):longest] = p
+            offsets[r] = longest - len(p)
+        self.offsets = torch.from_numpy(offsets).to(self.device)
+        logits, stats = self._run(toks, longest - 1, offsets=self.offsets)
+        self.pos = longest
         return logits, stats
 
     def decode_one(self, token: int) -> tuple[np.ndarray, StepStats]:
@@ -283,6 +330,82 @@ class Engine:
             # in-flight chunk is dead rows past the live position; give its
             # random draws back so a later turn's stream does not depend on
             # the pipelining
+            if pending is not None:
+                self._gen.set_state(pending[-1])
+
+    def generate_batch(self, prompts: list[list[int]], steps: int, *,
+                       temperature: float = 0.0, topp: float = 0.9,
+                       seed: int | None = 0, eos_ids: tuple[int, ...] = (),
+                       chunk: int = 16) -> list[list[int]]:
+        """Decode B distinct prompts in lockstep (``batch`` = B): the decode
+        matmuls read each weight once for all B rows.  Returns B token
+        lists, each prompt followed by its continuation, cut per row at
+        ``steps`` total tokens or the row's EOS.  Greedy rows equal the
+        single-stream ``generate_stream`` output while the steps fit the
+        shared clock (see :meth:`prefill_ragged`).  Rows that finish early
+        keep decoding in lockstep, their tokens ignored, until every row is
+        done: the batch is one-shot."""
+        if steps <= 0:
+            raise ValueError("steps must be positive")
+        steps = min(steps, self.seq_len)
+        outs = [list(p) for p in prompts]
+        done = [len(o) >= steps for o in outs]
+        for row_tokens in self.generate_batch_stream(
+                prompts, steps, temperature=temperature, topp=topp, seed=seed,
+                chunk=chunk):
+            for r, t in enumerate(row_tokens.tolist()):
+                if done[r]:
+                    continue
+                outs[r].append(int(t))
+                if int(t) in eos_ids or len(outs[r]) >= steps:
+                    done[r] = True
+            if all(done):
+                break
+        return outs
+
+    def generate_batch_stream(self, prompts: list[list[int]], steps: int, *,
+                              temperature: float = 0.0, topp: float = 0.9,
+                              seed: int | None = 0, chunk: int = 16):
+        """The lockstep core of :meth:`generate_batch`: yields one (B,)
+        int array per decoded step, every row's sampled token, as each
+        on-device chunk lands; ``steps`` yields at most, or the context
+        window.  EOS and length are the consumer's.  Chunk N+1 is enqueued
+        on the device-carried last row before chunk N is fetched (depth-1
+        pipelining, as :meth:`generate_stream`); a consumer that stops
+        early gets the speculative chunk's random draws returned."""
+        if steps <= 0:
+            raise ValueError("steps must be positive")
+        if seed is not None:
+            self._gen.manual_seed(seed)
+        self.prefill_ragged(prompts)
+        tok_vec = device_sample(self.last_logits, self._gen, temperature, topp)
+        yield tok_vec.cpu().numpy()
+
+        def dispatch(in_tok, done):
+            k = min(chunk, steps - done, self.seq_len - self.pos)
+            gen_state = self._gen.get_state()
+            toks_dev, self.cache, last_dev, _, logits = decode_chunk(
+                self.params, self.cfg, self.cache, in_tok, self.pos, self._gen,
+                steps=k, temperature=temperature, topp=topp, offsets=self.offsets)
+            self.forwards += k
+            self.last_logits = logits
+            self.pos += k
+            return k, toks_dev, last_dev, gen_state
+
+        expected = 1  # the prefill's sample is out
+        if expected >= steps or self.pos >= self.seq_len:
+            return
+        pending = dispatch(tok_vec, expected)
+        try:
+            while pending is not None:
+                k, toks_dev, last_dev, _ = pending
+                expected += k
+                pending = dispatch(last_dev, expected) \
+                    if expected < steps and self.pos < self.seq_len else None
+                toks = toks_dev.cpu().numpy()  # (k, B)
+                for j in range(toks.shape[0]):
+                    yield toks[j]
+        finally:
             if pending is not None:
                 self._gen.set_state(pending[-1])
 

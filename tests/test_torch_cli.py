@@ -70,7 +70,7 @@ def test_inference_prints_stats(model_files):
 
 
 @pytest.mark.parametrize("extra,named", [
-    (["chat"], "mode 'chat'"),
+    (["worker"], "mode 'worker'"),
     (["generate", "--workers", "tpu:2"], "--workers"),
     (["generate", "--pld", "4", "--sp", "2"], "--sp, --pld"),
     (["generate", "--kv-cache-dtype", "q8"], "--kv-cache-dtype q8"),
@@ -93,8 +93,9 @@ def test_cuda_request_without_cuda_fails(model_files):
 
 def test_port_never_imports_jax_or_dllama_tpu(model_files, tmp_path):
     """Import every module of the port, run its CLI (on a Q40 Llama and a
-    Q80 Mixtral file) and serve one request through its API server's slot
-    scheduler, then look at sys.modules: no jax, no dllama_tpu."""
+    Q80 Mixtral file, and a blocked-layout batch) and serve one request
+    through its API server's slot scheduler, then look at sys.modules: no
+    jax, no dllama_tpu."""
     m, t = model_files
     moe = str(tmp_path / "mixtral-q80.m")
     write_tiny_model(moe, arch=mfile.ARCH_MIXTRAL, ftype=quants.Q80, n_experts=4)
@@ -111,6 +112,11 @@ from dllama_tpu_torch import cli
 for model in ({m!r}, {moe!r}):
     cli.main(["generate", "--model", model, "--tokenizer", {t!r}, "--prompt", "hello",
               "--steps", "6", "--temperature", "0", "--device", "cpu"])
+import os
+os.environ["DLLAMA_Q40_LAYOUT"] = "blocked"
+cli.main(["batch", "--model", {m!r}, "--tokenizer", {t!r}, "--prompt", "hello",
+          "--steps", "6", "--temperature", "0", "--device", "cpu"])
+del os.environ["DLLAMA_Q40_LAYOUT"]
 from dllama_tpu_torch.server import api
 srv = api.start(["--model", {m!r}, "--tokenizer", {t!r}, "--device", "cpu", "--port", "0",
                  "--host", "127.0.0.1", "--batch-slots", "2", "--kv-pages", "40",

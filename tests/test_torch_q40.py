@@ -168,9 +168,13 @@ def test_bind_declares_pointer_arguments():
         class _Fn:
             pass
         q40_matmul = _Fn()
+        q40_matmul_blocked = _Fn()
         q40_error_string = _Fn()
 
     lib = tq40.bind(Fake())
-    argt = lib.q40_matmul.argtypes
-    assert argt[:5] == [ctypes.c_void_p] * 5 and argt[-1] is ctypes.c_void_p
-    assert lib.q40_matmul.restype is ctypes.c_int
+    for fn in (lib.q40_matmul, lib.q40_matmul_blocked):
+        argt = fn.argtypes
+        assert argt[:6] == [ctypes.c_void_p] * 6 and argt[-1] is ctypes.c_void_p
+        assert set(argt[6:-1]) == {ctypes.c_int}
+        assert fn.restype is ctypes.c_int
+    assert len(lib.q40_matmul_blocked.argtypes) == len(lib.q40_matmul.argtypes) + 3
