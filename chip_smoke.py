@@ -104,8 +104,35 @@ Phases (each prints its seconds; any failure exits non-zero):
    reply ends within a token or two whatever the sign of the hidden
    state: two turns, the second starting where the first ended.
 
-They run in the order 1, 2, 13, 9, 6, 3, 4, 5, 8, 15, 7, 14, 10, 11, 12;
-each synthesized model is deleted when its phases end.  ``--only 1,6``
+16. kernel 4 (the tensor-parallel all-reduce of f32 partial sums) against
+   its plain version (the same adds in the TPU ring's order) with every
+   rank on cuda:0, tp in {2, 4}, t in {1, 8, 128}, d in {4096, 6144}:
+   max|kernel - plain| = 0 on every rank, and at tp = 2 the two ranks'
+   sums equal bit for bit.  Times the kernel, the plain version and
+   ``torch.stack(parts).sum(0)`` (a yardstick the port never calls), each
+   launch on a cold L2.  With two or more cards it repeats the check with
+   rank r on card r (peer reads); on one card it prints that it skipped
+   this.
+17. tensor parallelism on the main path: phase 3's Llama-2-7B file,
+   ``inference --workers tpu:2 --device cuda:0`` as phase 3 (both ranks on
+   one card): exactly 2 * (7 * 32 + 1) = 450 Q40 launches (unfused
+   wq/wk/wv/wo/w1/w3/w2 a layer and the wcls slice, on each rank) and
+   2 * 32 = 64 kernel-4 launches a forward, no plain call; its profile and
+   peak memory; the first forward's logits within E2E_TOL of max|logit| of
+   a tp = 1 forward of the same file.
+18. the API server at ``--workers tpu:2`` on the phase-5 model (7B width,
+   2 layers), 8 slots and a paged pool a rank: 8 greedy requests as phase
+   7b, then the same 8 again, each answering byte for byte; kernel 7
+   launched on both ranks' pools (2 L a single-token slot forward), kernel
+   4 counted.
+19. Q80 Llama-2-7B width and Mixtral-8x7B width (Q40), each cut to 2
+   layers, at tp = 2 on cuda:0 (and, with two or more cards, on cards 0
+   and 1): the kernel path against the plain path (plain matmuls and
+   kernel 4's plain version) end to end, batch-1 and slot paths, as
+   phases 5, 8 and 12.
+
+They run in the order 1, 2, 13, 9, 6, 16, 3, 17, 4, 5, 8, 15, 18, 7, 14,
+10, 11, 12, 19; each synthesized model is deleted when its phases end.  ``--only 1,6``
 runs a subset of the phases (for bring-up; it prints no result lines).
 Prints the kernel table as one JSON line before the last line; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -168,6 +195,11 @@ MIXTRAL_SITES = [("mixtral.wqkv", 4096, 6144, (STACK_L,)),
                  ("mixtral.up", 4096, 14336, (MIXTRAL_LAYERS, 8)),
                  ("mixtral.down", 14336, 4096, (MIXTRAL_LAYERS, 8))]
 GROK_SITES = [("grok.up", 6144, 32768, (2, 8)), ("grok.down", 32768, 6144, (2, 8))]
+# a rank's slices of the 7B sites at tp = 2 (phase 17's shapes: wq/wk/wv,
+# wo, w1/w3, w2 cut at the logical 5504 rows, unpadded, and wcls)
+TP2_SITES = [("tp2.wq", 4096, 2048, (STACK_L,)), ("tp2.wo", 2048, 4096, (STACK_L,)),
+             ("tp2.w1", 4096, 5504, (STACK_L,)), ("tp2.w2", 5504, 4096, (STACK_L,)),
+             ("tp2.wcls", 4096, 16000, ())]
 ROWS = (1, 16, 128)
 # kernel 3 (phase 13): the 7B sites in the default tiles, then two narrow
 # shapes whose column tiles cut through a 512-column thread block: d = 320
@@ -183,6 +215,12 @@ ATTN_SRC = "dllama_tpu_torch/ops/csrc/paged_attention.cu"
 ATTN_REPLACES = "dllama_tpu/ops/attention.py:394"
 ATTN_POS = (0, 15, 16, 700, 1500, 2047, 3001, 4095)  # ragged rows
 PAGE = 16
+# kernel 4, the TP all-reduce (phase 16): t rows a rank at decode, the
+# lockstep batch and a prefill chunk; d of Llama-2-7B/Mixtral and Grok-1
+TP_SRC = "dllama_tpu_torch/ops/csrc/tp_allreduce.cu"
+TP_REPLACES = "dllama_tpu/ops/q40.py:923"
+TP_SHAPES = [(tp, t, d) for tp in (2, 4) for d in (4096, 6144) for t in (1, 8, 128)]
+F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
 # serving (phase 7)
 SERVE_ARGS = ["--batch-slots", "8", "--kv-pages", "513", "--kv-page-size", "16",
               "--sched-prefill-chunk", "16", "--temperature", "0",
@@ -230,13 +268,15 @@ def bound(t: int, n: int, d: int, value_bytes: float = 0.5) -> tuple[float, str]
     return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
 
 
-def random_planes(codec, lead: tuple, n: int, d: int, g: torch.Generator, dev):
+def random_planes(codec, lead: tuple, n: int, d: int, g: torch.Generator, dev,
+                  pad: bool = True):
     """Random packed planes of ``codec`` (q40 or q8), logical (n, d) under
     leading dims ``lead``, made on the card from ``g``: random value bytes,
     f16 scales uniform in +-0.02 (Q40) or +-0.0005 (Q80: about the same
-    weights), zero scales in the pack padding as the loader writes them."""
+    weights), zero scales in the pack padding as the loader writes them
+    (no padding with ``pad`` False: a tensor-parallel column slice)."""
     is_q8 = codec.__name__.endswith(".q8")
-    np_ = codec.padded_n(n)
+    np_ = codec.padded_n(n) if pad else n
     vals = torch.randint(0, 256, (*lead, np_ if is_q8 else np_ // 2, d),
                          dtype=torch.uint8, generator=g, device=dev)
     amp = 0.0005 if is_q8 else 0.02
@@ -248,7 +288,7 @@ def random_planes(codec, lead: tuple, n: int, d: int, g: torch.Generator, dev):
     return codec.QTensor(vals, sc, (n, d))
 
 
-def check_sites(codec, sites, dev, seed: int) -> dict:
+def check_sites(codec, sites, dev, seed: int, pad: bool = True) -> dict:
     """Phases 2 and 9: ``codec``'s kernel against its plain version at each
     site and row count; returns {site: t=1 numbers} for the JSON line."""
     is_q8 = codec.__name__.endswith(".q8")
@@ -261,7 +301,7 @@ def check_sites(codec, sites, dev, seed: int) -> dict:
     print("site           t    kernel_ms  plain_ms  library_ms  bound_ms(by)      "
           "max_abs_err  rel")
     for site, n, d, lead in sites:
-        qt = random_planes(codec, lead, n, d, g, dev)
+        qt = random_planes(codec, lead, n, d, g, dev, pad)
         if len(lead) == 2:  # an expert stack: flat index on the card
             layers = tuple(torch.tensor([i], dtype=torch.int32, device=dev)
                            for i in (0, lead[0] * lead[1] - 1))
@@ -457,6 +497,9 @@ def profile_decode(engine, ms_token: float | None, kname: str = "q40_", steps: i
         return
     busy = sum(r[0] for r in rows)
     mm_ms = sum(r[0] for r in rows if kname in r[2])
+    ar_ms = sum(r[0] for r in rows if "tp_allreduce" in r[2])
+    if ar_ms:
+        print(f"kernel 4 (tp_allreduce): {ar_ms:.4f} ms/{unit}")
     print(f"decode profile ({steps} steps, {engine.batch} row(s)): device busy "
           f"{busy:.3f} ms/{unit} of {ms_token:.3f} ms/{unit} unprofiled -> idle share "
           f"{1 - busy / ms_token:.3f}; {kname[:-1]} kernels {mm_ms:.3f} ms/{unit}, other "
@@ -523,24 +566,37 @@ def routing_note(routes: dict) -> str:
             f"token-layers")
 
 
-def load_bf16(mfile, params_mod, config, path: str, dev):
+def load_bf16(mfile, params_mod, config, path: str, dev, fuse: bool = True):
     """The model at ``path`` on the card with bf16 activations (phases 5,
-    8, 12 load it once for both of their checks)."""
+    8, 12 load it once for both of their checks; phase 19 unfused, on the
+    host, for the ranks' slices)."""
     with mfile.MFile(path) as mf:
         return params_mod.load_params(
-            mf, config.ModelConfig.from_spec(mf.spec, dtype=torch.bfloat16), device=dev)
+            mf, config.ModelConfig.from_spec(mf.spec, dtype=torch.bfloat16), device=dev,
+            fuse=fuse)
 
 
-def end_to_end(transformer, cfg, params, dev, label: str = "2 layers, bf16") -> None:
-    """Phases 5 and 12: prefill + 8 teacher-forced decode steps at batch 1,
-    the kernels (``auto``) against ``quant_impl="plain"``."""
+def new_cache(transformer, cfg, dev, mesh=None):
+    """A batch-1 contiguous cache on ``dev``, or one a rank of ``mesh``."""
+    if mesh is None:
+        return transformer.init_kv_cache(cfg, 1, device=dev)
+    return transformer.ShardedKV(tuple(transformer.init_kv_cache(cfg, 1, device=d, tp=mesh.tp)
+                                       for d in mesh.devices))
+
+
+def end_to_end(transformer, cfg, params, dev, label: str = "2 layers, bf16",
+               mesh=None) -> None:
+    """Phases 5, 12 and 19: prefill + 8 teacher-forced decode steps at
+    batch 1, the kernels (``auto``) against ``quant_impl="plain"`` (params
+    placed over ``mesh`` when given: kernel 4 against its plain version
+    too)."""
     rng = np.random.RandomState(1)
     prompt = torch.from_numpy(rng.randint(3, cfg.vocab_size, (1, 12))).to(dev)
     forced = rng.randint(3, cfg.vocab_size, 8).tolist()
     logits, routes = {}, {"auto": [], "plain": []}
     for impl in ("auto", "plain"):
         c = cfg.with_(quant_impl=impl)
-        cache = transformer.init_kv_cache(c, 1, device=dev)
+        cache = new_cache(transformer, c, dev, mesh)
         with routing_log(transformer, cfg, routes[impl]):
             steps = [transformer.forward_last(params, c, prompt, cache, 0, 11)[0]]
             for i, tok in enumerate(forced):
@@ -783,9 +839,13 @@ def profile_slot_step(engine, scheduler, steps: int = 2) -> None:
 
 
 def serve_path(api, attention, q40, m: str, t: str, n_requests: int,
-               extra: list[str], profile: bool, blocked: bool = False) -> dict:
+               extra: list[str], profile: bool, blocked: bool = False,
+               tp: int = 1) -> dict:
     """Phase 7, one pass; returns its numbers.  ``blocked``: the weights are
-    in the blocked layout, so every Q40 launch must be kernel 3's."""
+    in the blocked layout, so every Q40 launch must be kernel 3's.  ``tp``
+    > 1 (phase 18, ``--workers`` in ``extra``): kernel 7 runs on every
+    rank's pool, kernel 4 sums the partials, and the burst runs a second
+    time, every answer byte for byte."""
     # a previous pass's server can linger in reference cycles: free it
     # before the peak-memory reading starts
     gc.collect()
@@ -797,7 +857,9 @@ def serve_path(api, attention, q40, m: str, t: str, n_requests: int,
     try:
         state = server.state
         eng, sched = state.batch_engine, state.scheduler
-        if eng.params["wqkv"].qpacked.data_ptr() != state.engine.params["wqkv"].qpacked.data_ptr():
+        if eng.tp != tp or (eng.params is not state.engine.params if tp > 1 else
+                            eng.params["wqkv"].qpacked.data_ptr()
+                            != state.engine.params["wqkv"].qpacked.data_ptr()):
             raise AssertionError("the slot engine holds its own copy of the weights")
         base = f"http://127.0.0.1:{server.server_address[1]}"
         reqs = serving_requests(n_requests)
@@ -832,11 +894,13 @@ def serve_path(api, attention, q40, m: str, t: str, n_requests: int,
         if not torch.isfinite(eng.last_logits).all():
             raise AssertionError("the slot engine ended on non-finite logits")
         L = eng.cfg.n_layers
-        if n_dec == 0 or ac["kernel_launches"] != L * n_dec or ac["plain_calls"]:
+        if n_dec == 0 or ac["kernel_launches"] != tp * L * n_dec or ac["plain_calls"]:
             raise AssertionError(f"paged attention counters {ac} over {n_dec} "
-                                 f"single-token slot forwards (want {L} launches each)")
-        if qc["plain_calls"] or qc["dense_prefill_calls"]:
-            raise AssertionError(f"a Q40 matmul left the kernel: {qc}")
+                                 f"single-token slot forwards (want {tp * L} launches each)")
+        if qc["plain_calls"] or qc["dense_prefill_calls"] or qc["allreduce_plain_calls"]:
+            raise AssertionError(f"a Q40 matmul or all-reduce left its kernel: {qc}")
+        if bool(qc["allreduce_launches"]) != (tp > 1):
+            raise AssertionError(f"kernel 4 launches {qc['allreduce_launches']} at tp={tp}")
         mine, other = (("blocked_launches", "kernel_launches") if blocked
                        else ("kernel_launches", "blocked_launches"))
         if not qc[mine] or qc[other]:
@@ -859,11 +923,25 @@ def serve_path(api, attention, q40, m: str, t: str, n_requests: int,
               f"{peak / 2**30:.2f} GiB")
         print(f"prompt tokens {sum(r['prompt_tokens'] for r in recs)}; scheduler {occ}; "
               f"{n_dec} single-token slot forwards, attention kernel launches "
-              f"{ac['kernel_launches']} ({L} each), plain {ac['plain_calls']}; "
+              f"{ac['kernel_launches']} ({tp * L} each), plain {ac['plain_calls']}; "
               f"q40 kernels 1-2 {qc['kernel_launches']}, kernel 3 "
               f"{qc['blocked_launches']}, plain {qc['plain_calls']}, "
               f"dense {qc['dense_prefill_calls']}")
         print("latency ms by request: " + " ".join(f"{x:.0f}" for x in lat))
+        if tp > 1:
+            print(f"tp={tp}: kernel 4 launches {qc['allreduce_launches']}, kernel 7 on "
+                  f"{tp} pools of {eng.cache.k.shape[2]} kv heads")
+            texts = [_answer_text(p, b, ans) for (p, b), (_, ans) in zip(reqs, results)]
+            again: list = [None] * len(reqs)
+            threads = [threading.Thread(target=lambda i=i: again.__setitem__(
+                i, _post(base, *reqs[i]))) for i in range(len(reqs))]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join()
+            if [_answer_text(p, b, ans) for (p, b), (_, ans) in zip(reqs, again)] != texts:
+                raise AssertionError("a greedy request answered differently the second time")
+            print(f"the {len(reqs)} requests again: every answer byte for byte")
         # one request alone, twice: byte for byte (the second run finds its
         # prompt's pages in the prefix cache)
         path, body = reqs[5]
@@ -877,7 +955,7 @@ def serve_path(api, attention, q40, m: str, t: str, n_requests: int,
             profile_slot_step(eng, sched)
         return dict(attn_launches=ac["kernel_launches"], tok_s=n_tok / wall,
                     ttft_p50=_percentile(ttft, 50), ttft_p99=_percentile(ttft, 99),
-                    peak_bytes=peak)
+                    peak_bytes=peak, allreduce_launches=qc["allreduce_launches"])
     finally:
         api.stop(server)
         del server
@@ -885,9 +963,10 @@ def serve_path(api, attention, q40, m: str, t: str, n_requests: int,
 
 
 def slot_end_to_end(engine_mod, transformer, cfg, params, dev, pools=(None, "q8"),
-                    label: str = "2 layers") -> None:
-    """Phases 8 and 12: the slot path over a paged pool (bf16, or int8 for
-    ``"q8"``), kernels against plain versions."""
+                    label: str = "2 layers", mesh=None) -> None:
+    """Phases 8, 12 and 19: the slot path over a paged pool (bf16, or int8
+    for ``"q8"``; one a rank over ``mesh``), kernels against plain
+    versions."""
     rng = np.random.RandomState(8)
     b, t = 4, 16
     prompt = rng.randint(3, cfg.vocab_size, (b, t)).astype(np.int32)
@@ -901,7 +980,7 @@ def slot_end_to_end(engine_mod, transformer, cfg, params, dev, pools=(None, "q8"
         for impl in ("auto", "plain"):
             c = cfg.with_(quant_impl=impl, attn_impl=impl)
             eng = engine_mod.Engine(c, params, device=dev, batch=b, kv_dtype=kv,
-                                    kv_pages=1 + b * pages, kv_page_size=PAGE)
+                                    kv_pages=1 + b * pages, kv_page_size=PAGE, mesh=mesh)
             pos = np.zeros(b, np.int32)
             with routing_log(transformer, cfg, routes[impl]):
                 eng.slot_step(prompt, pos, n_valid, temps_np=zeros, topps_np=zeros + 0.9,
@@ -1189,6 +1268,156 @@ def chat_path(cli, engine_mod, q40, m: str, t: str) -> None:
           f"{c['dense_prefill_calls']}")
 
 
+def allreduce_bound(tp: int, t: int, d: int) -> tuple[float, str]:
+    """Kernel 4's least time: the tp partials read once and the tp sums
+    written once (t * d f32 each) against the HBM rate; the tp * (tp - 1)
+    * t * d f32 adds against the card's f32 rate."""
+    b_ms = 2 * tp * t * d * 4 / HBM_BYTES_S * 1e3
+    o_ms = tp * (tp - 1) * t * d / F32_FLOPS * 1e3
+    return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
+
+
+def check_allreduce(q40, dev, seed: int = 16) -> dict:
+    """Phase 16: kernel 4 against its plain version, every rank on ``dev``
+    (and, with enough cards, rank r on card r); returns {(tp, d, t):
+    numbers} of the one-card runs.  Two more shapes check the ring order
+    at tp = 3 (the ranks' sums differ in the last bits, as on the TPU) and
+    the scalar path (a half row not a multiple of 4 columns)."""
+    g = torch.Generator()
+    g.manual_seed(seed)
+    flush = torch.ones(16 << 20, dtype=torch.float32, device=dev)
+    n_cards = torch.cuda.device_count()
+    out = {}
+    print("tp    t     d   kernel_ms  plain_ms  stack_sum_ms  bound_ms(by)  max_abs_err")
+    for tp, t, d in TP_SHAPES + [(3, 8, 4096), (2, 3, 4102)]:
+        # partials of mixed magnitudes, so the order of the adds shows
+        host = [torch.randn((t, d), generator=g)
+                * 10 ** (torch.rand((t, d), generator=g) * 4 - 2) for _ in range(tp)]
+        places = [("cuda:0", [dev] * tp)]
+        if n_cards >= tp:
+            places.append((f"cards 0..{tp - 1}", [torch.device("cuda", r) for r in range(tp)]))
+        for where, devs in places:
+            parts = [h.to(x) for h, x in zip(host, devs)]
+            k = q40.tp_allreduce_kernel(parts)
+            p = q40.tp_allreduce_plain(parts)
+            for x in set(devs):
+                torch.cuda.synchronize(x)
+            err = max(float((a - b).abs().max()) for a, b in zip(k, p))
+            if err != 0 or not all(torch.isfinite(a).all() for a in k):
+                raise AssertionError(f"kernel 4 tp={tp} t={t} d={d} on {where}: "
+                                     f"max|kernel-plain| {err}, want 0")
+            if tp == 2 and not torch.equal(k[0], k[1].to(k[0].device)):
+                raise AssertionError(f"kernel 4 tp=2 t={t} d={d} on {where}: the ranks differ")
+            if where != "cuda:0":
+                # the launches span cards: a host clock around synchronized runs
+                t0 = time.perf_counter()
+                for _ in range(50):
+                    q40.tp_allreduce_kernel(parts)
+                for x in devs:
+                    torch.cuda.synchronize(x)
+                host_ms = (time.perf_counter() - t0) * 1e3 / 50
+                print(f"{tp:2d} {t:4d} {d:5d}  on {where}: kernel = plain bit for bit; "
+                      f"{host_ms:.4f} ms a call by the host clock")
+                continue
+            if (tp, t, d) not in TP_SHAPES:
+                spread = max(float((a - k[0]).abs().max()) for a in k)
+                print(f"{tp:2d} {t:4d} {d:5d}  kernel = plain bit for bit; the ranks' "
+                      f"sums differ by up to {spread:g}")
+                continue
+            k_ms = cold_ms(lambda: q40.tp_allreduce_kernel(parts), 50, flush)
+            p_ms = cold_ms(lambda: q40.tp_allreduce_plain(parts), 20, flush)
+            l_ms = cold_ms(lambda: torch.stack(parts).sum(0), 50, flush)
+            b_ms, by = allreduce_bound(tp, t, d)
+            print(f"{tp:2d} {t:4d} {d:5d} {k_ms:10.4f} {p_ms:9.4f} {l_ms:13.4f} "
+                  f"{b_ms:9.5f}({by[0]}) {err:12.6g}")
+            out[(tp, d, t)] = dict(replaces=TP_REPLACES, max_abs_err=err, ms=k_ms,
+                                   plain_ms=p_ms, bound_ms=b_ms, bound_by=by,
+                                   library_ms=l_ms)
+    if n_cards < 2:
+        print(f"ranks on distinct cards: skipped, this machine has {n_cards} card "
+              "(peer reads need two or more)")
+    del flush
+    torch.cuda.empty_cache()
+    return out
+
+
+def first_logits(engine) -> np.ndarray:
+    """The logits (1, V) of phase 17's first forward: a fixed 12-token
+    prompt from position 0."""
+    prompt = np.random.RandomState(17).randint(3, LLAMA2_7B["vocab_size"], 12).tolist()
+    engine.reset()
+    return engine.prefill(prompt)[0]
+
+
+def tp_main_path(cli, q40, engine_mod, params_mod, config, mfile, m: str, t: str,
+                 dev, ref: np.ndarray | None) -> dict:
+    """Phase 17: ``inference --workers tpu:2 --device cuda:0`` on the 7B
+    file through :func:`main_path` (450 Q40 launches a forward), kernel 4's
+    64 launches a forward, a single-token forward's counts, and the first
+    forward's logits against ``ref``, a tp = 1 forward of the same file
+    (phase 3's engine; loaded here when phase 3 did not run)."""
+    L = LLAMA2_7B["n_layers"]
+    per_fwd, ar_fwd = 2 * (7 * L + 1), 2 * L
+    run, eng = main_path(cli, q40, m, t, lambda e: per_fwd * e.forwards,
+                         ("--workers", "tpu:2", "--device", "cuda:0"), keep=True)
+    c = run["counts"]  # main_path held kernel_launches to per_fwd a forward
+    if eng.tp != 2 or c["allreduce_launches"] * per_fwd != c["kernel_launches"] * ar_fwd \
+            or c["allreduce_plain_calls"]:
+        raise AssertionError(f"tp=2 main path: {c}, want {ar_fwd} kernel-4 launches a "
+                             f"forward")
+    q40.reset_counters()
+    eng.decode_one(5)
+    one = q40.counters()
+    if (one["kernel_launches"], one["allreduce_launches"], one["plain_calls"],
+            one["allreduce_plain_calls"]) != (per_fwd, ar_fwd, 0, 0):
+        raise AssertionError(f"a single-token tp=2 forward: {one}")
+    print(f"one single-token forward: {one['kernel_launches']} Q40 launches, "
+          f"{one['allreduce_launches']} kernel-4 launches, 0 plain "
+          f"({one['launches_by_shape']})")
+    l2 = first_logits(eng)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    l1 = ref
+    if l1 is None:
+        with mfile.MFile(m) as mf:
+            cfg, params = params_mod.load_params(
+                mf, config.ModelConfig.from_spec(mf.spec, dtype=torch.bfloat16))
+        e1 = engine_mod.Engine(cfg, params, device=dev)
+        l1 = first_logits(e1)
+        del e1, params
+        torch.cuda.empty_cache()
+    err, scale = float(np.abs(l2 - l1).max()), float(np.abs(l1).max())
+    if not (np.isfinite(l2).all() and err <= E2E_TOL * scale):
+        raise AssertionError(f"tp=2 vs tp=1 logits: {err} > {E2E_TOL} * {scale}")
+    print(f"first forward (12-token prompt), tp=2 against tp=1: max diff {err:.4g} of "
+          f"max|logit| {scale:.4g} ({err / scale:.2e}, limit {E2E_TOL:g}); argmax "
+          f"{int(l2.argmax())} / {int(l1.argmax())}")
+    run["allreduce_launches"] = c["allreduce_launches"]
+    return run
+
+
+def tp_end_to_end(mfile, params_mod, config, transformer, engine_mod, q40, sharding,
+                  path: str, mesh, label: str) -> None:
+    """Phase 19: one model at tp = 2 over ``mesh``, the kernels (matmuls
+    and kernel 4) against the plain path, batch-1 and slot paths."""
+    cfg, params = load_bf16(mfile, params_mod, config, path, "cpu", fuse=False)
+    dev = mesh.device
+    placed = sharding.place_params(params, cfg, mesh)
+    del params
+    q40.reset_counters()
+    end_to_end(transformer, cfg, placed, dev, label, mesh=mesh)
+    slot_end_to_end(engine_mod, transformer, cfg, placed, dev, (None,), label, mesh=mesh)
+    c = q40.counters()
+    if not c["allreduce_launches"] or not c["allreduce_plain_calls"]:
+        raise AssertionError(f"{label}: kernel 4 {c['allreduce_launches']} launches, "
+                             f"plain {c['allreduce_plain_calls']}: want both runs")
+    print(f"{label}: kernel 4 launches {c['allreduce_launches']} (kernel runs), plain "
+          f"{c['allreduce_plain_calls']} (plain runs)")
+    del placed
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="chip smoke of dllama_tpu_torch")
     ap.add_argument("--only", default=None,
@@ -1205,6 +1434,7 @@ def main() -> int:
     from dllama_tpu_torch.io import mfile, tfile
     from dllama_tpu_torch.models import config, params as params_mod, transformer
     from dllama_tpu_torch.ops import _build, attention, q8, q40
+    from dllama_tpu_torch.parallel import mesh as mesh_mod, sharding
     from dllama_tpu_torch.runtime import engine as engine_mod
     from dllama_tpu_torch.server import api
 
@@ -1225,6 +1455,8 @@ def main() -> int:
     if run_phase(2):
         with phase("2 kernel vs plain at the 7B shapes"):
             table = check_sites(q40, LLAMA_SITES, dev, seed=0)
+        with phase("2b kernel vs plain at a rank's 7B shapes at tp = 2 (unpadded)"):
+            tp_table = check_sites(q40, TP2_SITES, dev, seed=2, pad=False)
     if run_phase(13):
         with phase("13 kernel 3 (blocked planes) vs plain at the 7B shapes"):
             blocked_table = check_blocked(q40, dev)
@@ -1239,6 +1471,9 @@ def main() -> int:
         with phase("6b paged attention kernel vs plain at Mixtral's shape (G = 4)"):
             attn_g4 = check_paged_attention(attention, dev, MIXTRAL_8X7B["n_kv_heads"],
                                             ("bf16",))
+    if run_phase(16):
+        with phase("16 kernel 4 (TP all-reduce) vs plain, every rank on cuda:0"):
+            ar_table = check_allreduce(q40, dev)
     os.makedirs(WORK, exist_ok=True)
     served = {}
     try:
@@ -1246,14 +1481,24 @@ def main() -> int:
             "llama2-7b.m", "32k.t", "l2.m", "l2-chat.m", "32k-chat.t"))
         synth_tokenizer(t, tfile)
         per_fwd = 4 * LLAMA2_7B["n_layers"] + 1
-        if run_phase(3) or run_phase(7) or run_phase(14):
+        if run_phase(3) or run_phase(7) or run_phase(14) or run_phase(17):
             synth_model(m, LLAMA2_7B["n_layers"], mfile, quants)
             print(f"synthesized {os.path.getsize(m) / 1e9:.2f} GB")
-        if run_phase(4) or run_phase(5) or run_phase(8) or run_phase(15):
+        if run_phase(4) or run_phase(5) or run_phase(8) or run_phase(15) or run_phase(18):
             synth_model(m2, 2, mfile, quants, fresh=True)
+        tp1_logits = None
         if run_phase(3):
             with phase("3 main path: inference at Llama-2-7B width"):
-                run = main_path(cli, q40, m, t, lambda e: per_fwd * e.forwards)
+                run, eng = main_path(cli, q40, m, t, lambda e: per_fwd * e.forwards,
+                                     keep=True)
+                tp1_logits = first_logits(eng)  # phase 17's reference
+                del eng
+                torch.cuda.empty_cache()
+        if run_phase(17):
+            with phase("17 tensor parallelism: inference --workers tpu:2 at Llama-2-7B "
+                       "width, both ranks on cuda:0"):
+                run_tp = tp_main_path(cli, q40, engine_mod, params_mod, config, mfile,
+                                      m, t, dev, tp1_logits)
         if run_phase(4):
             with phase("4 requests: generate (7B width, 2 layers)"):
                 requests(cli, q40, m2, t)
@@ -1282,6 +1527,11 @@ def main() -> int:
                 with blocked_layout():
                     chat_path(cli, engine_mod, q40, m3, t3)
                 os.remove(m3)
+        if run_phase(18):
+            with phase("18 serving at --workers tpu:2 (7B width, 2 layers), cuda:0"):
+                served["tp2"] = serve_path(api, attention, q40, m2, t, 8,
+                                           ["--workers", "tpu:2", "--device", "cuda:0"],
+                                           False, tp=2)
         if run_phase(7):
             with phase("7 serving: API server, slot scheduler, paged KV at 7B width"):
                 served["bf16"] = serve_path(api, attention, q40, m, t, 16, [], True)
@@ -1342,6 +1592,22 @@ def main() -> int:
                     del small
                     torch.cuda.empty_cache()
                     os.remove(m2)
+        if run_phase(19):
+            # both ranks on cuda:0; with two or more cards, rank r on card r too
+            meshes = [("cuda:0", mesh_mod.make_mesh(2, dev))]
+            if torch.cuda.device_count() >= 2:
+                meshes.append(("cards 0 and 1", mesh_mod.make_mesh(2, "cuda")))
+            for name, ftype, dims in (
+                    ("Q80 Llama-2-7B width", quants.Q80, LLAMA2_7B),
+                    ("Mixtral-8x7B width, Q40", quants.Q40,
+                     {**mix, "seq_len": LLAMA2_7B["seq_len"]})):
+                with phase(f"19 tp = 2, {name}, 2 layers: kernels vs plain end to end"):
+                    synth_model(m2, 2, mfile, quants, fresh=True, dims=dims, ftype=ftype)
+                    for where, tp_mesh in meshes:
+                        tp_end_to_end(mfile, params_mod, config, transformer, engine_mod,
+                                      q40, sharding, m2, tp_mesh,
+                                      f"tp=2 on {where}, {name}, 2 layers")
+                    os.remove(m2)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     if only is not None:
@@ -1362,6 +1628,7 @@ def main() -> int:
     # 14), Q80 on the Q80 7B path (phase 10), kernel 7 in the serving runs
     # (phases 7, 11b)
     kernels = entries("q40_matmul", SRC, table, run["counts"]["launches_by_shape"])
+    kernels += entries("q40_matmul", SRC, tp_table, run_tp["counts"]["launches_by_shape"])
     kernels += entries("q40_matmul", SRC, mix_table, run_mix["counts"]["launches_by_shape"])
     kernels += entries("q40_matmul_blocked", SRC, blocked_table,
                        run_blocked["counts"]["launches_by_shape"], ("blocked",))
@@ -1376,6 +1643,10 @@ def main() -> int:
                      bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                      library_ms=r["library_ms"])
                 for label, r, run_ in attn_rows]
+    # kernel 4 on the tp = 2 7B path (phase 17), at its decode shape
+    kernels.append(dict(name="tp_allreduce[tp=2,t=1,d=4096]", route="cuda", source=TP_SRC,
+                        launches=run_tp["allreduce_launches"],
+                        **{k: v for k, v in ar_table[(2, 4096, 1)].items()}))
     idle = [k["name"] for k in kernels if k["launches"] == 0]
     if idle:
         raise AssertionError(f"kernels the main paths never launched: {idle}")

@@ -11,14 +11,18 @@ asking for ``cuda`` where there is none is an error):
   as one lockstep ragged batch.
 
 Each ends with one line of launch counters of the model's matmul codec
-(Q40 or Q80: which route ran how often, and the layout), the counterpart
-of the JAX package's dispatch summary.  ``DLLAMA_Q40_LAYOUT=blocked``
-loads Q40 weights in the tile-contiguous layout (kernel 3).  The API
-server (``python -m dllama_tpu_torch.server.api``) reuses this parser and
-its serving flags.  Modes and flags of the JAX CLI outside the port
-(``worker``, ``--workers``, ``--sp``, ``--dp``, ``--pld``,
-``--kv-cache-dtype q8``, and the serving flags in ``NOT_PORTED_FLAGS``)
-exit with a message naming them as not yet ported.
+(Q40 or Q80: which route ran how often, and the layout; with tensor
+parallelism the all-reduce's too), the counterpart of the JAX package's
+dispatch summary.  ``DLLAMA_Q40_LAYOUT=blocked`` loads Q40 weights in the
+tile-contiguous layout (kernel 3).  ``--workers tpu:N`` slices the model
+over N tensor-parallel ranks (``parallel/mesh.py``): with ``--device
+cpu`` every rank on the CPU, with ``cuda:K`` every rank on card K, with
+``cuda`` rank r on card r.  The API server (``python -m
+dllama_tpu_torch.server.api``) reuses this parser and its serving flags.
+Modes and flags of the JAX CLI outside the port (``worker``, ``--sp``,
+``--dp``, ``--ep``, ``--pld``, ``--kv-cache-dtype q8``, and the serving
+flags in ``NOT_PORTED_FLAGS``) exit with a message naming them as not yet
+ported.
 
 ``python -m dllama_tpu_torch inference --model m.m --tokenizer t.t``
 """
@@ -36,6 +40,8 @@ from .io import mfile, tfile
 from .models.config import ModelConfig
 from .models.params import load_params
 from .ops import q8, q40
+from .parallel.mesh import parse_workers
+from .parallel.sharding import check_tp_constraint
 from .runtime.engine import Engine, RunStats
 from .runtime.stream import drain_generation
 from .tokenizer.bpe import Tokenizer
@@ -84,8 +90,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--warmup", type=int, default=0,
                    help="inference mode: generate this many throwaway tokens "
                         "first so the timed stats measure steady state")
-    p.add_argument("--device", choices=DEVICES, default="cuda",
-                   help="where the model runs (default cuda)")
+    p.add_argument("--device", default="cuda",
+                   help=f"where the model runs: one of {', '.join(DEVICES)}, or "
+                        "cuda:K (default cuda)")
+    p.add_argument("--workers", default=None,
+                   help="tpu:N — N-way tensor parallelism (the JAX CLI's spelling): "
+                        "every rank on the CPU with --device cpu, on card K with "
+                        "cuda:K, rank r on card r with cuda")
     # serving (python -m dllama_tpu_torch.server.api), the JAX defaults
     p.add_argument("--host", default="0.0.0.0", help="API server bind address")
     p.add_argument("--port", type=int, default=9990, help="API server port")
@@ -117,9 +128,9 @@ def build_parser() -> argparse.ArgumentParser:
         else:
             p.add_argument(flag, default=default, help=argparse.SUPPRESS,
                            type=type(default) if default is not None else str)
-    p.add_argument("--workers", default=None, help=argparse.SUPPRESS)
     p.add_argument("--sp", type=int, default=1, help=argparse.SUPPRESS)
     p.add_argument("--dp", type=int, default=1, help=argparse.SUPPRESS)
+    p.add_argument("--ep", type=int, default=1, help=argparse.SUPPRESS)
     p.add_argument("--pld", type=int, default=0, help=argparse.SUPPRESS)
     return p
 
@@ -129,12 +140,9 @@ def not_ported(args) -> list[str]:
     out = []
     if args.mode in NOT_PORTED_MODES:
         out.append(f"mode {args.mode!r}")
-    if args.workers is not None:
-        out.append("--workers")
-    if args.sp != 1:
-        out.append("--sp")
-    if args.dp != 1:
-        out.append("--dp")
+    for flag in ("sp", "dp", "ep"):
+        if getattr(args, flag) != 1:
+            out.append(f"--{flag}")
     if args.pld:
         out.append("--pld")
     if args.kv_cache_dtype == "q8":
@@ -147,11 +155,16 @@ def not_ported(args) -> list[str]:
 
 def load_stack(args, batch: int = 1) -> tuple[Engine, Tokenizer]:
     """The model (loaded on the host, then uploaded by the Engine, which
-    converts it to the blocked layout first when asked) and its
-    tokenizer; ``batch`` rows of contiguous cache."""
+    converts it to the blocked layout first when asked, or slices it over
+    the ``--workers`` mesh) and its tokenizer; ``batch`` rows of
+    contiguous cache."""
     if not args.model or not args.tokenizer:
         raise SystemExit("--model and --tokenizer are required for this mode")
     device = resolve(args.device)
+    try:
+        mesh = parse_workers(args.workers, device)
+    except ValueError as e:
+        raise SystemExit(str(e)) from None
     bft = args.buffer_float_type
     if bft == "q80":
         print("💡 bufferFloatType q80 → bf16 (activations stay on the device; "
@@ -164,10 +177,15 @@ def load_stack(args, batch: int = 1) -> tuple[Engine, Tokenizer]:
         print(f"💡 nKvHeads: {cfg.n_kv_heads}\n💡 vocabSize: {cfg.vocab_size}\n💡 seqLen: {cfg.seq_len}")
         name = torch.cuda.get_device_name(device) if device.type == "cuda" else "host"
         print(f"💡 device: {device} ({name})")
-        cfg, params = load_params(mf, cfg)
+        print(f"💡 mesh: tp={mesh.tp}")
+        try:
+            check_tp_constraint(cfg, mesh.tp)
+        except ValueError as e:
+            raise SystemExit(str(e)) from None
+        cfg, params = load_params(mf, cfg, fuse=mesh.tp == 1)
     kv_dtype = DTYPES[args.kv_cache_dtype] if args.kv_cache_dtype else None
     engine = Engine(cfg, params, seq_len=args.max_seq_len, kv_dtype=kv_dtype,
-                    device=device, batch=batch)
+                    device=device, batch=batch, mesh=mesh)
     tok = Tokenizer(tfile.read_tfile(args.tokenizer))
     if tok.vocab_size != cfg.vocab_size:
         raise SystemExit("tokenizer is incompatible with model (vocab size mismatch)")
@@ -192,10 +210,14 @@ def launch_line(engine: Engine) -> str:
     name, c = ("q8", q8.counters()) if is_q8 else ("q40", q40.counters())
     launches = c["blocked_launches"] if blocked else c["kernel_launches"]
     per = launches / engine.forwards if engine.forwards else 0.0
+    ar = q40.counters()
     return (f"💡 {name} launches: kernel={c['kernel_launches']} "
             + (f"blocked={c['blocked_launches']} " if blocked else "")
             + f"plain={c['plain_calls']} dense_prefill={c['dense_prefill_calls']} "
-            f"forwards={engine.forwards} kernel_per_forward={per:g} "
+            + (f"allreduce={ar['allreduce_launches']} "
+               f"allreduce_plain={ar['allreduce_plain_calls']} tp={engine.tp} "
+               if engine.tp > 1 else "")
+            + f"forwards={engine.forwards} kernel_per_forward={per:g} "
             + ("layout=blocked " if blocked else "")
             + f"device={engine.device.type}")
 

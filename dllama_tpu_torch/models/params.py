@@ -6,7 +6,8 @@ Weights are stored input-dim-first (``x @ w``) and layer-stacked (a
 leading ``n_layers`` axis); the model's layer loop indexes the stacks.  A
 Q40 or Q80 file keeps its matmuls packed (``ops.q40.QTensor``,
 ``ops.q8.Q8Tensor``), with q/k/v fused into ``wqkv`` and w1/w3 into
-``w13`` (one kernel launch each per layer); MoE experts stack as
+``w13`` (one kernel launch each per layer; unfused for tensor
+parallelism); MoE experts stack as
 ``(L, E, ...)`` planes that the kernels read at a flat index
 ``layer·E + expert``.  Norms, the embedding and the MoE router load dense.
 F32/F16 files load dense.
@@ -127,11 +128,13 @@ def _stack_q_experts(mf: mfile.MFile, cfg: ModelConfig, fname: str, codec):
 
 
 def load_params(mf: mfile.MFile, cfg: ModelConfig | None = None,
-                device="cpu") -> tuple[ModelConfig, Params]:
+                device="cpu", fuse: bool = True) -> tuple[ModelConfig, Params]:
     """Load a `.m` file into the runtime layout on ``device``.
 
-    Q40 and Q80 files keep their matmuls packed and fused (the JAX
-    package's ``keep_quantized=True, fuse=True``); F32/F16 files load
+    Q40 and Q80 files keep their matmuls packed, fused into ``wqkv`` and
+    ``w13`` unless ``fuse`` is False (the JAX package's
+    ``keep_quantized=True, fuse=...``: tensor parallelism loads unfused,
+    since a fused concat axis mixes the ranks' slices); F32/F16 files load
     dense."""
     if cfg is None:
         cfg = ModelConfig.from_spec(mf.spec)
@@ -143,8 +146,12 @@ def load_params(mf: mfile.MFile, cfg: ModelConfig | None = None,
 
     p: Params = {"embedding": torch.from_numpy(mf.tensor("token_embedding")).to(dt)}
     if codec is not None:
-        p["wqkv"] = _stack_q(mf, [[f"layers.{i}.{k}" for k in ("wq", "wk", "wv")]
-                                  for i in range(L)], codec)
+        if fuse:
+            p["wqkv"] = _stack_q(mf, [[f"layers.{i}.{k}" for k in ("wq", "wk", "wv")]
+                                      for i in range(L)], codec)
+        else:
+            for key in ("wq", "wk", "wv"):
+                p[key] = _stack_q(mf, [[n] for n in per_layer(key)], codec)
         p["wo"] = _stack_q(mf, [[n] for n in per_layer("wo")], codec)
         tw = mf.info("wcls")
         p["wcls"] = codec.pack_file_groups(
@@ -167,8 +174,12 @@ def load_params(mf: mfile.MFile, cfg: ModelConfig | None = None,
             p["rms_moe"] = _stack(mf, per_layer("rms_moe"), False, torch.float32)
             p["rms_ffn2"] = _stack(mf, per_layer("rms_ffn2"), False, torch.float32)
     elif codec is not None:
-        p["w13"] = _stack_q(mf, [[f"layers.{i}.w1", f"layers.{i}.w3"] for i in range(L)],
-                            codec)
+        if fuse:
+            p["w13"] = _stack_q(mf, [[f"layers.{i}.w1", f"layers.{i}.w3"]
+                                     for i in range(L)], codec)
+        else:
+            p["w1"] = _stack_q(mf, [[n] for n in per_layer("w1")], codec)
+            p["w3"] = _stack_q(mf, [[n] for n in per_layer("w3")], codec)
         p["w2"] = _stack_q(mf, [[n] for n in per_layer("w2")], codec)
     else:
         for key in ("w1", "w2", "w3"):

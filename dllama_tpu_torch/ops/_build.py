@@ -27,7 +27,8 @@ import subprocess
 HERE = os.path.dirname(os.path.abspath(__file__))
 PKG = os.path.dirname(HERE)
 SOURCES = [os.path.join(HERE, "csrc", n)
-           for n in ("q40_matmul.cu", "q8_matmul.cu", "paged_attention.cu")]
+           for n in ("q40_matmul.cu", "q8_matmul.cu", "paged_attention.cu",
+                     "tp_allreduce.cu")]
 BUILD_DIR = os.path.join(PKG, "build")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

@@ -40,12 +40,22 @@ up to ``PALLAS_MAX_ROWS`` rows takes kernel 3 (the ``q40_matmul_blocked``
 entry of the same source), which reads the tiles in place; the plain route
 unblocks the one plane it needs.
 
+Tensor parallelism (the JAX package's ``_sharded_matmul``, ``kind=
+"row"|"col"``): the model walks the ranks itself (``models/transformer``),
+so a row-sliced matmul is each rank's kernel on its slice, and a
+column-sliced one each rank's kernel, then :func:`tp_allreduce` on the f32
+partials, then the cast.  :func:`tp_shardable` says which slices are
+legal.  Kernel 4 (``csrc/tp_allreduce.cu``), its plain version
+:func:`tp_allreduce_plain` and its counters live here, as the TPU ring
+kernel lives in the JAX package's ``q40.py``.
+
 Module counters (plain ints) record which route ran:
 ``kernel_launches`` (kernels 1–2 on row-major planes), ``blocked_launches``
 (kernel 3 on blocked planes), ``launches_by_shape`` keyed by logical
 ``(n, d)`` for kernels 1–2 and ``("blocked", n, d)`` for kernel 3,
-``plain_calls`` and ``dense_prefill_calls``.  :func:`reset_counters`
-zeroes them.
+``plain_calls``, ``dense_prefill_calls``, and kernel 4's
+``allreduce_launches`` and ``allreduce_plain_calls``.
+:func:`reset_counters` zeroes them.
 """
 
 from __future__ import annotations
@@ -79,13 +89,17 @@ launches_by_shape: dict[tuple, int] = {}
 
 def reset_counters() -> None:
     global kernel_launches, blocked_launches, plain_calls, dense_prefill_calls
+    global allreduce_launches, allreduce_plain_calls
     kernel_launches = blocked_launches = plain_calls = dense_prefill_calls = 0
+    allreduce_launches = allreduce_plain_calls = 0
     launches_by_shape.clear()
 
 
 def counters() -> dict:
     return {"kernel_launches": kernel_launches, "blocked_launches": blocked_launches,
             "plain_calls": plain_calls, "dense_prefill_calls": dense_prefill_calls,
+            "allreduce_launches": allreduce_launches,
+            "allreduce_plain_calls": allreduce_plain_calls,
             "launches_by_shape": dict(launches_by_shape)}
 
 
@@ -672,6 +686,155 @@ def _launch(fn: str, x2: torch.Tensor, values: torch.Tensor, scales: torch.Tenso
     return out
 
 
+# ---------------------------------------------------------------------------
+# Tensor parallelism: the slicing rule and kernel 4, the all-reduce of the
+# column-sharded matmuls' f32 partial sums (csrc/tp_allreduce.cu)
+# ---------------------------------------------------------------------------
+
+# most ranks a call takes: must match kMaxTp in the source
+TP_MAX = 8
+
+
+def tp_shardable(n: int, d: int, kind: str | None, tp: int) -> bool:
+    """Can a packed ``(n, d)`` weight be sliced over ``tp`` ranks (the JAX
+    package's ``_tp_shardable``)?  ``"row"`` slices the output dim, which
+    must divide; ``"col"`` slices the input dim, and a rank's slice must
+    hold whole 32-row quantization blocks.  The port slices ``col`` at the
+    logical ``n`` (the reference's ColMatmulSlice), not at the pack-time
+    padded row count as the JAX package does, so every rank's slice of the
+    activations meets its own rows."""
+    if kind == "row":
+        return d % tp == 0
+    if kind == "col":
+        return n % (32 * tp) == 0
+    return False
+
+
+def tp_allreduce_plain(parts: list[torch.Tensor]) -> list[torch.Tensor]:
+    """The plain version of kernel 4: rank ``r``'s sum of the ``tp``
+    partials ``(..., d)`` on rank ``r``'s device, with the TPU ring's adds
+    in its order — the first half of the columns from the left neighbour,
+    ``((x_r + x_{r-1}) + x_{r-2}) + ...``, the second half from the right
+    one, ``((x_r + x_{r+1}) + ...)`` (indices mod tp, ``h = d // 2``)."""
+    tp = len(parts)
+    h = parts[0].shape[-1] // 2
+    outs = []
+    for r, own in enumerate(parts):
+        lo, hi = own[..., :h].clone(), own[..., h:].clone()
+        for s in range(1, tp):
+            lo = lo + parts[(r - s) % tp][..., :h].to(own.device)
+            hi = hi + parts[(r + s) % tp][..., h:].to(own.device)
+        outs.append(torch.cat([lo, hi], dim=-1))
+    return outs
+
+
+allreduce_launches = 0
+allreduce_plain_calls = 0
+_peers_enabled: set[tuple[int, int]] = set()
+
+
+def tp_allreduce(parts: list[torch.Tensor], impl: str = "auto") -> list[torch.Tensor]:
+    """Sum the ranks' f32 partials: ``parts[r]`` ``(..., d)`` lies on rank
+    ``r``'s device; returns every rank's sum (:func:`tp_allreduce_plain`'s
+    function) on its device.  CPU tensors, or ``impl="plain"`` (the
+    reference path of a comparison on the card, as :func:`matmul`'s), take
+    the plain version; CUDA tensors launch kernel 4
+    (:func:`tp_allreduce_kernel`), which raises on anything it does not
+    take."""
+    global allreduce_plain_calls
+    if impl not in ("auto", "plain"):
+        raise ValueError(f"unknown tp_allreduce impl {impl!r}")
+    if impl == "plain" or all(p.device.type == "cpu" for p in parts):
+        allreduce_plain_calls += 1
+        return tp_allreduce_plain(parts)
+    return tp_allreduce_kernel(parts)
+
+
+def tp_allreduce_kernel(parts: list[torch.Tensor]) -> list[torch.Tensor]:
+    """Launch kernel 4.  Ranks on one card: one launch on the current
+    stream.  Ranks on distinct cards (one rank a card): one launch a rank
+    on its card's current stream, ordered after every peer's partial and
+    reading it through a peer pointer; raises when two cards have no peer
+    access (nothing is staged through the host).  Each launch adds one to
+    ``allreduce_launches``."""
+    global allreduce_launches
+    fn = "tp_allreduce"
+
+    def req(cond, msg):
+        _require(cond, msg, fn)
+
+    tp = len(parts)
+    req(2 <= tp <= TP_MAX, f"{tp} ranks outside 2..{TP_MAX}")
+    shape = parts[0].shape
+    d = shape[-1] if len(shape) else 0
+    for p in parts:
+        req(p.is_cuda, f"every partial must be a CUDA tensor, got device {p.device}")
+        req(p.dtype == torch.float32, f"partial dtype {p.dtype} != float32")
+        req(p.shape == shape, f"partial shapes differ: {tuple(p.shape)} != {tuple(shape)}")
+        req(p.is_contiguous(), "partials must be contiguous")
+    req(d >= 2 and d % 2 == 0, f"d={d} must be even")
+    t = parts[0].numel() // d
+    devs = [p.device for p in parts]
+    one_card = len(set(devs)) == 1
+    req(one_card or len(set(devs)) == tp,
+        f"ranks must share one card or take one card each, got {devs}")
+    outs = [torch.empty_like(p) for p in parts]
+    vec = 4 if (d // 2) % 4 == 0 and all(
+        a.data_ptr() % 16 == 0 for a in (*parts, *outs)) else 1
+    arr = ctypes.c_void_p * tp
+    ins = arr(*(p.data_ptr() for p in parts))
+    out_ptrs = arr(*(o.data_ptr() for o in outs))
+    from . import _build
+    lib = _build.load()
+    if one_card:
+        launches = [(devs[0], 0, tp)]
+    else:
+        _enable_peers(lib, devs)
+        ready = []
+        for p in parts:
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(p.device))
+            ready.append(ev)
+        for r, dev in enumerate(devs):
+            stream = torch.cuda.current_stream(dev)
+            for s, p in enumerate(parts):
+                if s != r:
+                    stream.wait_event(ready[s])
+                    # the caching allocator must not hand a partial out
+                    # again while a peer's launch still reads it
+                    p.record_stream(stream)
+        launches = [(dev, r, 1) for r, dev in enumerate(devs)]
+    for dev, rank0, n_ranks in launches:
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        with torch.cuda.device(dev):
+            rc = lib.tp_allreduce(ins, out_ptrs, tp, rank0, n_ranks, t, d, vec, stream)
+        if rc != 0:
+            raise RuntimeError(f"{fn} launch failed: CUDA error {rc} "
+                               f"({lib.q40_error_string(rc).decode()}) at tp={tp} "
+                               f"t={t} d={d} ranks {rank0}..{rank0 + n_ranks - 1}")
+        allreduce_launches += 1
+    return outs
+
+
+def _enable_peers(lib: ctypes.CDLL, devs: list[torch.device]) -> None:
+    """Peer access between every ordered pair of the ranks' cards, once."""
+    for a in devs:
+        for b in devs:
+            key = (a.index, b.index)
+            if a == b or key in _peers_enabled:
+                continue
+            rc = lib.tp_enable_peer(a.index, b.index)
+            if rc == -1:
+                raise RuntimeError(f"tp_allreduce: {a} cannot access {b}'s memory "
+                                   "(no peer access between the cards); kernel 4 "
+                                   "reads peers directly and has no host-staged path")
+            if rc != 0:
+                raise RuntimeError(f"tp_allreduce: enabling peer access {a} -> {b} "
+                                   f"failed: CUDA error {rc} "
+                                   f"({lib.q40_error_string(rc).decode()})")
+            _peers_enabled.add(key)
+
+
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C entry points' signatures (every pointer and the stream
     as ``c_void_p``, so ctypes never cuts a 64-bit pointer)."""
@@ -681,6 +844,11 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     # kernel 3: the same operands, then the tile shape (bn, td, nJ)
     lib.q40_matmul_blocked.argtypes = [vp] * 6 + [ci] * 10 + [vp]
     lib.q40_matmul_blocked.restype = ci
+    # kernel 4: host arrays of the tp input and output pointers
+    lib.tp_allreduce.argtypes = [ctypes.POINTER(vp), ctypes.POINTER(vp)] + [ci] * 6 + [vp]
+    lib.tp_allreduce.restype = ci
+    lib.tp_enable_peer.argtypes = [ci, ci]
+    lib.tp_enable_peer.restype = ci
     lib.q40_error_string.argtypes = [ci]
     lib.q40_error_string.restype = ctypes.c_char_p
     return lib

@@ -22,6 +22,12 @@ layer × expert), addressed by a flat index as in :mod:`.q40`.
 activations cast to bf16, products summed in f32, an f32 result.  Dispatch
 and counters (``kernel_launches``, ``launches_by_shape``, ``plain_calls``,
 ``dense_prefill_calls``) are :mod:`.q40`'s.
+
+Tensor parallelism: on a mesh the JAX package runs Q80 as an XLA dequant
+and lets GSPMD insert the all-reduce (its ``q8.py:309-365``).  The port
+computes the same function with its kernels: kernels 5–6 on every rank's
+slice, then, for a column-sliced weight, ``q40.tp_allreduce`` (kernel 4)
+on the f32 partials before the cast (``models/transformer``).
 """
 
 from __future__ import annotations

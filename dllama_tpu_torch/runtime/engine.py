@@ -24,8 +24,10 @@ import torch
 from ..device import resolve, synchronize
 from ..models.config import ModelConfig
 from ..models.params import Params, to_device
-from ..models.transformer import forward_last, init_kv_cache, init_kv_pool
+from ..models.transformer import ShardedKV, forward_last, init_kv_cache, init_kv_pool
 from ..ops import q40
+from ..parallel.mesh import Mesh
+from ..parallel.sharding import Placed, place_params
 from ..sampling import Sampler
 from .decode_loop import decode_chunk, device_sample, slot_chunk
 
@@ -123,18 +125,40 @@ class Engine:
     ``DLLAMA_Q40_LAYOUT=blocked`` (the JAX package's knob) converts every
     2-D and layer-stacked Q40 weight to the tile-contiguous layout before
     the upload (:func:`q40.blocked_params`; idempotent), so their matmuls
-    run kernel 3."""
+    run kernel 3.
 
-    def __init__(self, cfg: ModelConfig, params: Params,
+    ``mesh`` (a :class:`parallel.mesh.Mesh` of more than one rank) slices
+    the params over its ranks (``parallel.sharding.place_params``; a
+    ``Placed`` made for the same mesh is shared) and gives every rank its
+    own cache or pool of ``n_kv_heads/tp`` heads (:class:`ShardedKV`);
+    ``device`` is then rank 0's, where logits land and sampling runs.  The
+    blocked layout is single-device, as in the JAX package: on a mesh the
+    weights stay row-major, with a warning."""
+
+    def __init__(self, cfg: ModelConfig, params: Params | Placed,
                  seq_len: int | None = None, kv_dtype=None, device=None,
-                 batch: int = 1, kv_pages: int = 0, kv_page_size: int = 16):
-        self.device = resolve(device)
+                 batch: int = 1, kv_pages: int = 0, kv_page_size: int = 16,
+                 mesh: Mesh | None = None):
+        self.mesh = mesh if mesh is not None and mesh.tp > 1 else None
+        self.device = resolve(mesh.device if mesh is not None else device)
         self.cfg = cfg
         self.batch = int(batch)
         self.seq_len = min(seq_len or cfg.seq_len, cfg.seq_len)
         if os.environ.get("DLLAMA_Q40_LAYOUT", "") == "blocked":
-            params = q40.blocked_params(params)
-        self.params = to_device(params, self.device)
+            if self.mesh is None:
+                params = q40.blocked_params(params)
+            else:
+                q40._warn_once(f"DLLAMA_Q40_LAYOUT=blocked is ignored on a tp={self.tp} "
+                               "mesh: blocked storage is single-device; the weights "
+                               "stay row-major, which slices over the ranks")
+        if self.mesh is None:
+            self.params = to_device(params, self.device)
+        elif isinstance(params, Placed):
+            if params.mesh != self.mesh:
+                raise ValueError(f"params placed over {params.mesh}, engine mesh {self.mesh}")
+            self.params = params
+        else:
+            self.params = place_params(params, cfg, self.mesh)
         kv_quant = kv_dtype == "q8"
         self.paged = kv_pages > 0
         self.kv_pages = int(kv_pages)
@@ -147,15 +171,15 @@ class Engine:
                 raise ValueError(f"kv_page_size must be >= 1, got {self.kv_page_size}")
             # per-slot table width: enough logical pages to cover seq_len
             self.max_pages_per_slot = -(-self.seq_len // self.kv_page_size)
-            self.cache = init_kv_pool(cfg, self.kv_pages, self.kv_page_size,
-                                      dtype=None if kv_quant else kv_dtype,
-                                      quant=kv_quant, device=self.device)
+            self.cache = self._per_rank(lambda dev, tp: init_kv_pool(
+                cfg, self.kv_pages, self.kv_page_size, dtype=None if kv_quant else kv_dtype,
+                quant=kv_quant, device=dev, tp=tp))
         elif kv_quant:
             raise ValueError("the contiguous int8 KV cache is not yet ported to "
                              "dllama_tpu_torch; int8 needs a paged pool (kv_pages)")
         else:
-            self.cache = init_kv_cache(cfg, self.batch, self.seq_len,
-                                       dtype=kv_dtype, device=self.device)
+            self.cache = self._per_rank(lambda dev, tp: init_kv_cache(
+                cfg, self.batch, self.seq_len, dtype=kv_dtype, device=dev, tp=tp))
         self.pos = 0
         #: a ragged batch's left padding (B,) on the device, set by
         #: prefill_ragged and cleared by reset
@@ -171,6 +195,16 @@ class Engine:
         self.last_logits: torch.Tensor | None = None
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(0)
+
+    @property
+    def tp(self) -> int:
+        return 1 if self.mesh is None else self.mesh.tp
+
+    def _per_rank(self, make):
+        """``make(device, tp)`` once (one device), or once a rank."""
+        if self.mesh is None:
+            return make(self.device, 1)
+        return ShardedKV(tuple(make(dev, self.tp) for dev in self.mesh.devices))
 
     def reset(self):
         """Restart the sequence; cache memory is reused."""

@@ -1069,7 +1069,8 @@ def build_state(args) -> ApiState:
                               kv_dtype="q8" if args.kv_quant == "int8"
                               else engine.cache.k.dtype,
                               device=engine.device, batch=args.batch_slots,
-                              kv_pages=args.kv_pages, kv_page_size=args.kv_page_size)
+                              kv_pages=args.kv_pages, kv_page_size=args.kv_page_size,
+                              mesh=engine.mesh)
         scheduler = SlotScheduler(
             batch_engine, prefill_chunk=args.sched_prefill_chunk,
             max_wait_ms=args.sched_max_wait_ms, max_queue=args.sched_max_queue,

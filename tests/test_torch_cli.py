@@ -71,7 +71,7 @@ def test_inference_prints_stats(model_files):
 
 @pytest.mark.parametrize("extra,named", [
     (["worker"], "mode 'worker'"),
-    (["generate", "--workers", "tpu:2"], "--workers"),
+    (["generate", "--workers", "tpu:2", "--ep", "2"], "--ep"),
     (["generate", "--pld", "4", "--sp", "2"], "--sp, --pld"),
     (["generate", "--kv-cache-dtype", "q8"], "--kv-cache-dtype q8"),
 ])

@@ -170,6 +170,8 @@ def test_bind_declares_pointer_arguments():
         q40_matmul = _Fn()
         q40_matmul_blocked = _Fn()
         q40_error_string = _Fn()
+        tp_allreduce = _Fn()
+        tp_enable_peer = _Fn()
 
     lib = tq40.bind(Fake())
     for fn in (lib.q40_matmul, lib.q40_matmul_blocked):
@@ -178,3 +180,7 @@ def test_bind_declares_pointer_arguments():
         assert set(argt[6:-1]) == {ctypes.c_int}
         assert fn.restype is ctypes.c_int
     assert len(lib.q40_matmul_blocked.argtypes) == len(lib.q40_matmul.argtypes) + 3
+    # kernel 4: the host arrays of the ranks' pointers, then ints, the stream
+    argt = lib.tp_allreduce.argtypes
+    assert argt[:2] == [ctypes.POINTER(ctypes.c_void_p)] * 2 and argt[-1] is ctypes.c_void_p
+    assert set(argt[2:-1]) == {ctypes.c_int} and lib.tp_allreduce.restype is ctypes.c_int
