@@ -35,9 +35,10 @@ Phases (each prints its seconds; any failure exits non-zero):
    3-layer pool, bf16 and int8 pools: max|kernel - plain| <=
    ATTN_TOL * max|plain|.  Times the kernel (cold L2), the plain version
    and torch's scaled_dot_product_attention on the K/V pre-gathered to
-   contiguous bf16 with a per-row mask (a yardstick the port never calls).
-   Then the bf16 pool at Mixtral's shape: 32 query heads on 8 kv heads
-   (G = 4 query heads a block).
+   contiguous bf16 with a per-row mask (a yardstick the port never calls);
+   prints the bound, the kernel's share of it and the split plan.  Then
+   the bf16 pool at Mixtral's shape: 32 query heads on 8 kv heads (G = 4
+   query heads a block).
 7. the serving path at full width: the API server in-process on the
    phase-3 model (--batch-slots 8 --kv-pages 513 --kv-page-size 16
    --sched-prefill-chunk 16) answers 16 concurrent greedy requests (prompts
@@ -55,15 +56,21 @@ Phases (each prints its seconds; any failure exits non-zero):
    chunk + 8 teacher-forced decode steps, kernels (``auto``) against
    ``quant_impl = attn_impl = "plain"``: logits within E2E_TOL and greedy
    agreement where the margin is decisive.
-9. the Q80 kernel against its plain version as in phase 2: the five 7B
-   sites, Mixtral's wqkv and experts (up/gate 4096->14336, down
-   14336->4096) in an (8 layers, 8 experts) stack at flat indices 0 and
-   63, Grok-1's experts (6144->32768, 32768->6144) in a (2, 8) stack; the
+9. the Q80 kernel against its plain version as in phase 2, at t in {1, 4,
+   8, 16, 128}, both of its bodies (the GEMV body and the tensor-core body:
+   the crossover that sets q8.T_MMA) checked and timed, the routed one
+   reported: the five 7B sites, Mixtral's wqkv and experts (up/gate
+   4096->14336, down 14336->4096) in an (8 layers, 8 experts) stack at
+   flat indices 0 and 63, Grok-1's experts (6144->32768, 32768->6144) in a
+   (2, 8) stack, a rank's 7B sites at tp = 2, and a ragged shape (n = 4128,
+   n/32 odd; d = 1000; t = 17) for the tensor-core body's masks; the
    expert planes addressed by an int32 index on the card.  Then the Q40
    kernel at Mixtral's shapes through the same device index.
-10. Q80 Llama-2-7B at full width and depth: ``inference`` as in phase 3;
-   the Q80 counters show exactly 129 kernel launches a forward and no
-   plain call; the profiler split and the peak memory.
+10. Q80 Llama-2-7B at full width and depth: ``inference`` as in phase 3
+   with an 84-token prompt (its prefill runs at t = 128); the Q80 counters
+   show exactly 129 kernel launches a forward, no plain call, and the
+   prompt forward's 128 matmuls on the tensor-core body; the profiler
+   split and the peak memory.
 11. Mixtral-8x7B (mistralai/Mixtral-8x7B-v0.1's published shape) in Q40,
    cut to 8 of its 32 layers, context cut to 4096: ``inference`` as in
    phase 3 with exactly 8 * 8 + 1 = 65 Q40 launches a single-token forward
@@ -201,6 +208,16 @@ TP2_SITES = [("tp2.wq", 4096, 2048, (STACK_L,)), ("tp2.wo", 2048, 4096, (STACK_L
              ("tp2.w1", 4096, 5504, (STACK_L,)), ("tp2.w2", 5504, 4096, (STACK_L,)),
              ("tp2.wcls", 4096, 16000, ())]
 ROWS = (1, 16, 128)
+# the Q80 sites (phase 9) also run t = 4 and 8: the two bodies' crossover;
+# a ragged shape (d not a multiple of 128 nor of 16, n/32 odd, t not a
+# multiple of 16) exercises the tensor-core body's masks
+Q8_ROWS = (1, 4, 8, 16, 128)
+Q8_RAGGED = [("ragged", 4128, 1000, (STACK_L,))]
+Q8_RAGGED_ROWS = (17,)
+# rows of the JSON line: Q40 at t = 1, Q80 at t = 1, 16 and 128
+JSON_ROWS = {False: (1,), True: (1, 16, 128)}
+# phase 10's prompt: 84 tokens of the synthesized tokenizer, a t = 128 prefill
+Q8_PROMPT = "Once upon a time the capital of France is" * 2
 # kernel 3 (phase 13): the 7B sites in the default tiles, then two narrow
 # shapes whose column tiles cut through a 512-column thread block: d = 320
 # (td clamped to 384, one partial tile) and d = 1000 in tiles (256, 384)
@@ -288,9 +305,12 @@ def random_planes(codec, lead: tuple, n: int, d: int, g: torch.Generator, dev,
     return codec.QTensor(vals, sc, (n, d))
 
 
-def check_sites(codec, sites, dev, seed: int, pad: bool = True) -> dict:
+def check_sites(codec, sites, dev, seed: int, pad: bool = True, rows=ROWS) -> dict:
     """Phases 2 and 9: ``codec``'s kernel against its plain version at each
-    site and row count; returns {site: t=1 numbers} for the JSON line."""
+    site and row count; returns {(site, t): numbers} for the JSON line at
+    t = 1 and, for the Q80 kernel, at t = 16 and 128.  The Q80 kernel runs
+    both of its bodies at every t (the GEMV and the tensor-core body: the
+    crossover that sets ``q8.T_MMA``); its numbers are the routed body's."""
     is_q8 = codec.__name__.endswith(".q8")
     kernel = codec.q8_matmul if is_q8 else codec.q40_matmul
     replaces = Q8_REPLACES if is_q8 else Q40_REPLACES
@@ -298,8 +318,8 @@ def check_sites(codec, sites, dev, seed: int, pad: bool = True) -> dict:
     g.manual_seed(seed)
     flush = torch.ones(16 << 20, dtype=torch.float32, device=dev)
     out = {}
-    print("site           t    kernel_ms  plain_ms  library_ms  bound_ms(by)      "
-          "max_abs_err  rel")
+    print("site           t  route  kernel_ms  plain_ms  library_ms  bound_ms(by)  "
+          "max_abs_err  rel" + ("   gemv_ms    mma_ms" if is_q8 else ""))
     for site, n, d, lead in sites:
         qt = random_planes(codec, lead, n, d, g, dev, pad)
         if len(lead) == 2:  # an expert stack: flat index on the card
@@ -308,30 +328,42 @@ def check_sites(codec, sites, dev, seed: int, pad: bool = True) -> dict:
         else:
             layers = (0, lead[0] - 1) if lead else (None,)
         w_lib = codec.dequantize(qt, torch.bfloat16, layer=layers[-1])
-        for t in ROWS:
+        for t in rows:
             x = torch.randn((t, n), generator=g, device=dev).to(torch.bfloat16)
+            bodies = ("gemv", "mma") if is_q8 else (None,)
             err = 0.0
             for layer in layers:
-                k = kernel(x, qt.qpacked, qt.scales, n, layer)
                 p = codec.matmul_plain(x, qt, layer)
-                torch.cuda.synchronize()
-                e = float((k - p).abs().max())
                 scale = float(p.abs().max())
-                if not (torch.isfinite(k).all() and e <= KERNEL_TOL * scale):
-                    raise AssertionError(f"{site} t={t} index={layer}: max|kernel-plain| "
-                                         f"{e} > {KERNEL_TOL} * {scale}")
-                err = max(err, e)
+                for body in bodies:
+                    k = (kernel(x, qt.qpacked, qt.scales, n, layer, body=body) if is_q8
+                         else kernel(x, qt.qpacked, qt.scales, n, layer))
+                    torch.cuda.synchronize()
+                    e = float((k - p).abs().max())
+                    if not (torch.isfinite(k).all() and e <= KERNEL_TOL * scale):
+                        raise AssertionError(f"{site} t={t} index={layer} body={body}: "
+                                             f"max|kernel-plain| {e} > {KERNEL_TOL} * {scale}")
+                    if body is None or body == codec.route(t):
+                        err = max(err, e)
             layer = layers[-1]
-            k_ms = cold_ms(lambda: kernel(x, qt.qpacked, qt.scales, n, layer), 20, flush)
+            times = {b: cold_ms(lambda: (kernel(x, qt.qpacked, qt.scales, n, layer, body=b)
+                                         if is_q8 else
+                                         kernel(x, qt.qpacked, qt.scales, n, layer)),
+                                20, flush)
+                     for b in bodies}
+            body = codec.route(t) if is_q8 else None
+            k_ms = times[body]
             p_ms = cold_ms(lambda: codec.matmul_plain(x, qt, layer), 5, flush)
             l_ms = cold_ms(lambda: torch.matmul(x, w_lib), 20, flush)
             b_ms, by = bound(t, n, d, 1.0 if is_q8 else 0.5)
-            print(f"{site:12s} {t:4d} {k_ms:10.4f} {p_ms:9.4f} {l_ms:11.4f} "
-                  f"{b_ms:9.4f}({by[0]}) {err:14.6g} {err / scale:.2e}")
-            if t == 1:
-                out[site] = dict(replaces=replaces[1 if lead else 0], max_abs_err=err,
-                                 ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=by,
-                                 library_ms=l_ms, n=n, d=d)
+            print(f"{site:12s} {t:4d} {body or 'gemv':5s} {k_ms:10.4f} {p_ms:9.4f} "
+                  f"{l_ms:11.4f} {b_ms:9.4f}({by[0]}) {err:12.6g} {err / scale:.2e}"
+                  + (f" {times['gemv']:9.4f} {times['mma']:9.4f}" if is_q8 else ""))
+            if t in JSON_ROWS[is_q8]:
+                out[(site, t)] = dict(replaces=replaces[1 if lead else 0], max_abs_err=err,
+                                      ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=by,
+                                      library_ms=l_ms, n=n, d=d,
+                                      key=(("mma",) if body == "mma" else ()) + (n, d))
         del qt, w_lib
     del flush
     torch.cuda.empty_cache()
@@ -695,8 +727,11 @@ def check_paged_attention(attention, dev, hkv: int = LLAMA2_7B["n_kv_heads"],
     flush = torch.ones(16 << 20, dtype=torch.float32, device=dev)
     shape = (L, n_pages, hkv, PAGE, DH)
     out = {}
-    print(f"{H} query heads on {hkv} kv heads")
-    print("codec  kernel_ms  plain_ms  sdpa_ms  bound_ms(by)  max_abs_err  rel")
+    splits, pps = attention.split_plan(maxp, B, hkv,
+                                       torch.cuda.get_device_properties(dev).multi_processor_count)
+    print(f"{H} query heads on {hkv} kv heads; split page walk: {splits} splits of {pps} "
+          f"pages, {attention.stage_pages(PAGE, pps)} pages a ring stage")
+    print("codec  kernel_ms  plain_ms  sdpa_ms  bound_ms(by)  share  max_abs_err  rel")
     for codec in codecs:
         if codec == "bf16":
             pk = (torch.randn(shape, generator=g, device=dev) * 0.5).to(torch.bfloat16)
@@ -731,7 +766,7 @@ def check_paged_attention(attention, dev, hkv: int = LLAMA2_7B["n_kv_heads"],
             q, kg, vg, attn_mask=mask, enable_gqa=H != hkv), 20, flush)
         b_ms, by = attn_bound(ATTN_POS, hkv, DH, H, kv_bytes)
         print(f"{codec:5s} {k_ms:10.4f} {p_ms:9.4f} {l_ms:8.4f} {b_ms:9.4f}({by[0]}) "
-              f"{err:12.6g} {err / scale:.2e}")
+              f"{b_ms / k_ms:6.1%} {err:12.6g} {err / scale:.2e}")
         out[codec] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
                           bound_by=by, library_ms=l_ms)
         del pk, pv, scales, kg, vg
@@ -1036,7 +1071,7 @@ def blocked_bound(t: int, n: int, d: int, dp: int) -> tuple[float, str]:
 def check_blocked(q40, dev, seed: int = 13) -> dict:
     """Phase 13: kernel 3 against its plain version at every site and row
     count, and against kernels 1-2 on the same weights row-major; returns
-    {site: t=1 numbers} for the 7B sites."""
+    {(site, 1): t=1 numbers} for the 7B sites."""
     g = torch.Generator(device=dev)
     g.manual_seed(seed)
     flush = torch.ones(16 << 20, dtype=torch.float32, device=dev)
@@ -1081,9 +1116,10 @@ def check_blocked(q40, dev, seed: int = 13) -> dict:
                   f"{p_ms:9.4f} {l_ms:11.4f} {b_ms:9.4f}({by[0]}) {err:12.6g} "
                   f"{err / scale:.2e} {k12_diff:g}")
             if t == 1 and not site.startswith("narrow"):
-                out[site] = dict(replaces=BLOCKED_REPLACES, max_abs_err=err, ms=k_ms,
-                                 plain_ms=p_ms, bound_ms=b_ms, bound_by=by,
-                                 library_ms=l_ms, n=n, d=d, rowmajor_ms=r_ms)
+                out[(site, t)] = dict(replaces=BLOCKED_REPLACES, max_abs_err=err, ms=k_ms,
+                                      plain_ms=p_ms, bound_ms=b_ms, bound_by=by,
+                                      library_ms=l_ms, n=n, d=d, key=(n, d),
+                                      rowmajor_ms=r_ms)
         del qt, bqt, w_lib
     print(f"max|kernel 3 - kernels 1-2| over every site, row count and plane: "
           f"{k12_diff:g} ({'bit for bit' if k12_diff == 0 else 'NOT bit for bit'})")
@@ -1418,6 +1454,55 @@ def tp_end_to_end(mfile, params_mod, config, transformer, engine_mod, q40, shard
     torch.cuda.empty_cache()
 
 
+def kernel_entries(run, run_tp, run_mix, run_blocked, run_q8, served, table, tp_table,
+                   mix_table, blocked_table, q8_table, attn, attn_g4, ar_table) -> list:
+    """The ``kernels`` JSON line's entries: each kernel at the shapes of the
+    phase that checked it, with the launches of the main path that ran it;
+    raises when a kernel of a path was never launched there."""
+    def entries(name, src, sites, counts, layout=()):
+        return [dict(name=f"{name}[{site}]" if t == 1 else f"{name}[{site},t={t}]",
+                     route="cuda", source=src, replaces=r["replaces"],
+                     launches=counts.get((*layout, *r["key"]), 0),
+                     max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+                     bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                     library_ms=r["library_ms"])
+                for (site, t), r in sites.items()]
+
+    # each kernel at the shapes of the path that ran it, with that path's
+    # launches: Q40 on the 7B path (phase 3) and Mixtral's (phase 11; its
+    # up/gate count holds both), kernel 3 on the blocked 7B path (phase
+    # 14), Q80 on the Q80 7B path (phase 10), kernel 7 in the serving runs
+    # (phases 7, 11b).  Q80 also at t = 16 and 128 (the tensor-core body,
+    # launched by the Q80 path's t = 128 prefill), but for wcls: the LM
+    # head reads one row a sequence, so it runs the GEMV body only
+    kernels = entries("q40_matmul", SRC, table, run["counts"]["launches_by_shape"])
+    kernels += entries("q40_matmul", SRC, tp_table, run_tp["counts"]["launches_by_shape"])
+    kernels += entries("q40_matmul", SRC, mix_table, run_mix["counts"]["launches_by_shape"])
+    kernels += entries("q40_matmul_blocked", SRC, blocked_table,
+                       run_blocked["counts"]["launches_by_shape"], ("blocked",))
+    kernels += entries("q8_matmul", Q8_SRC,
+                       {k: r for k, r in q8_table.items()
+                        if k[0] in {s for s, *_ in LLAMA_SITES}
+                        and (k[1] == 1 or k[0] != "wcls")},
+                       run_q8["counts"]["launches_by_shape"])
+    attn_rows = [(c, r, served[c]) for c, r in attn.items()]
+    attn_rows.append(("bf16,G=4", attn_g4["bf16"], served["g4"]))
+    kernels += [dict(name=f"paged_attention[{label}]", route="cuda", source=ATTN_SRC,
+                     replaces=ATTN_REPLACES, launches=run_["attn_launches"],
+                     max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+                     bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                     library_ms=r["library_ms"])
+                for label, r, run_ in attn_rows]
+    # kernel 4 on the tp = 2 7B path (phase 17), at its decode shape
+    kernels.append(dict(name="tp_allreduce[tp=2,t=1,d=4096]", route="cuda", source=TP_SRC,
+                        launches=run_tp["allreduce_launches"],
+                        **{k: v for k, v in ar_table[(2, 4096, 1)].items()}))
+    idle = [k["name"] for k in kernels if k["launches"] == 0]
+    if idle:
+        raise AssertionError(f"kernels the main paths never launched: {idle}")
+    return kernels
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="chip smoke of dllama_tpu_torch")
     ap.add_argument("--only", default=None,
@@ -1462,7 +1547,10 @@ def main() -> int:
             blocked_table = check_blocked(q40, dev)
     if run_phase(9):
         with phase("9 Q80 kernel vs plain at the 7B, Mixtral and Grok-1 shapes"):
-            q8_table = check_sites(q8, LLAMA_SITES + MIXTRAL_SITES + GROK_SITES, dev, seed=9)
+            q8_table = check_sites(q8, LLAMA_SITES + MIXTRAL_SITES + GROK_SITES, dev, seed=9,
+                                   rows=Q8_ROWS)
+            check_sites(q8, TP2_SITES, dev, seed=11, pad=False, rows=Q8_ROWS)
+            check_sites(q8, Q8_RAGGED, dev, seed=12, rows=Q8_RAGGED_ROWS)
         with phase("9b Q40 kernel vs plain at Mixtral's shapes, experts by device index"):
             mix_table = check_sites(q40, MIXTRAL_SITES, dev, seed=10)
     if run_phase(6):
@@ -1557,7 +1645,15 @@ def main() -> int:
             with phase("10 Q80 Llama-2-7B at full width and depth: inference"):
                 synth_model(m, LLAMA2_7B["n_layers"], mfile, quants, ftype=quants.Q80)
                 print(f"synthesized {os.path.getsize(m) / 1e9:.2f} GB (Q80)")
-                run_q8 = main_path(cli, q8, m, t, lambda e: per_fwd * e.forwards)
+                # an 84-token prompt: its prefill runs at t = 128 (the padded
+                # bucket) on the tensor-core body
+                run_q8 = main_path(cli, q8, m, t, lambda e: per_fwd * e.forwards,
+                                   ("--prompt", Q8_PROMPT))
+                if run_q8["counts"]["mma_launches"] < 4 * LLAMA2_7B["n_layers"]:
+                    raise AssertionError(f"the Q80 prompt forward did not take the "
+                                         f"tensor-core body: {run_q8['counts']}")
+                print(f"Q80 bodies: {run_q8['counts']['mma_launches']} tensor-core "
+                      f"launches, {run_q8['counts']['kernel_launches'] - run_q8['counts']['mma_launches']} GEMV")
                 os.remove(m)
         mix = {**MIXTRAL_8X7B, "n_layers": MIXTRAL_LAYERS}
         if run_phase(11):
@@ -1613,43 +1709,9 @@ def main() -> int:
     if only is not None:
         return 0
 
-    def entries(name, src, sites, counts, layout=()):
-        return [dict(name=f"{name}[{site}]", route="cuda", source=src,
-                     replaces=r["replaces"],
-                     launches=counts.get((*layout, r["n"], r["d"]), 0),
-                     max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
-                     bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-                     library_ms=r["library_ms"])
-                for site, r in sites.items()]
-
-    # each kernel at the shapes of the path that ran it, with that path's
-    # launches: Q40 on the 7B path (phase 3) and Mixtral's (phase 11; its
-    # up/gate count holds both), kernel 3 on the blocked 7B path (phase
-    # 14), Q80 on the Q80 7B path (phase 10), kernel 7 in the serving runs
-    # (phases 7, 11b)
-    kernels = entries("q40_matmul", SRC, table, run["counts"]["launches_by_shape"])
-    kernels += entries("q40_matmul", SRC, tp_table, run_tp["counts"]["launches_by_shape"])
-    kernels += entries("q40_matmul", SRC, mix_table, run_mix["counts"]["launches_by_shape"])
-    kernels += entries("q40_matmul_blocked", SRC, blocked_table,
-                       run_blocked["counts"]["launches_by_shape"], ("blocked",))
-    kernels += entries("q8_matmul", Q8_SRC,
-                       {s: q8_table[s] for s, *_ in LLAMA_SITES},
-                       run_q8["counts"]["launches_by_shape"])
-    attn_rows = [(c, r, served[c]) for c, r in attn.items()]
-    attn_rows.append(("bf16,G=4", attn_g4["bf16"], served["g4"]))
-    kernels += [dict(name=f"paged_attention[{label}]", route="cuda", source=ATTN_SRC,
-                     replaces=ATTN_REPLACES, launches=run_["attn_launches"],
-                     max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
-                     bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-                     library_ms=r["library_ms"])
-                for label, r, run_ in attn_rows]
-    # kernel 4 on the tp = 2 7B path (phase 17), at its decode shape
-    kernels.append(dict(name="tp_allreduce[tp=2,t=1,d=4096]", route="cuda", source=TP_SRC,
-                        launches=run_tp["allreduce_launches"],
-                        **{k: v for k, v in ar_table[(2, 4096, 1)].items()}))
-    idle = [k["name"] for k in kernels if k["launches"] == 0]
-    if idle:
-        raise AssertionError(f"kernels the main paths never launched: {idle}")
+    kernels = kernel_entries(run, run_tp, run_mix, run_blocked, run_q8, served, table,
+                             tp_table, mix_table, blocked_table, q8_table, attn, attn_g4,
+                             ar_table)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

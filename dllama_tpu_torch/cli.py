@@ -30,6 +30,7 @@ ported.
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 import time
 
@@ -50,10 +51,24 @@ from .tokenizer.eos import EosDetector
 
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16, "f16": torch.float16}
 MODES = ("inference", "generate", "chat", "batch")
-NOT_PORTED_MODES = ("worker",)
-# serving flags of the JAX CLI that the port does not carry, with the JAX
-# defaults: a value other than the default exits naming the flag
+NOT_PORTED_MODES = ("worker", "router", "serve-pod")
+# flags of the JAX CLI that the port does not carry, with the JAX defaults:
+# a value other than the default exits naming the flag
 NOT_PORTED_FLAGS = {
+    # multi-host, weight loading and profiling
+    "--weights-float-type": None, "--dequantize": False, "--profile-split": False,
+    "--profile-ops": False, "--coordinator": None, "--nproc": None,
+    "--proc-id": None, "--program": "generate",
+    # the fleet router, the pod supervisor and the elastic pod
+    "--backends": None, "--probe-interval": 2.0, "--eject-after": 3,
+    "--readmit-after": 2, "--router-retries": 2, "--upstream-timeout": 120.0,
+    "--stall-timeout": 0.0, "--checkpoint-interval": 0.0, "--resume-policy": "auto",
+    "--supervise": False, "--respawn-max": 5, "--respawn-window": 30.0,
+    "--elastic": False, "--pod-devices": 0, "--min-replicas": 1, "--max-replicas": 0,
+    "--elastic-interval": 2.0, "--elastic-window": 5, "--elastic-cooldown": 30.0,
+    "--scale-up-util": 0.85, "--scale-down-util": 0.15, "--scale-up-queue": 2.0,
+    "--reshape-kv-low": 0.08,
+    # serving
     "--kv-reserve": "full", "--spill-headroom": 16, "--kv-host-pool-mb": 64.0,
     "--spec": "off", "--spec-k": 4, "--draft-model": None,
     "--preempt-age-ms": 5000.0, "--preempt-cap": 3, "--preempt-spill-dir": None,
@@ -128,6 +143,8 @@ def build_parser() -> argparse.ArgumentParser:
         else:
             p.add_argument(flag, default=default, help=argparse.SUPPRESS,
                            type=type(default) if default is not None else str)
+    p.add_argument("--nthreads", type=int, default=0,
+                   help="accepted for reference CLI parity; unused")
     p.add_argument("--sp", type=int, default=1, help=argparse.SUPPRESS)
     p.add_argument("--dp", type=int, default=1, help=argparse.SUPPRESS)
     p.add_argument("--ep", type=int, default=1, help=argparse.SUPPRESS)
@@ -150,6 +167,9 @@ def not_ported(args) -> list[str]:
     for flag, default in NOT_PORTED_FLAGS.items():
         if getattr(args, flag[2:].replace("-", "_")) != default:
             out.append(flag)
+    variant = os.environ.get("DLLAMA_Q40_VARIANT", "classic")
+    if variant != "classic":
+        out.append(f"DLLAMA_Q40_VARIANT={variant} (only classic)")
     return out
 
 
@@ -202,7 +222,8 @@ def _encode_prompt(engine: Engine, tok: Tokenizer, prompt: str) -> list[int]:
 
 def launch_line(engine: Engine) -> str:
     """End-of-run line: how often each matmul route of the model's codec
-    ran (Q80 for a Q80 file, else Q40), per forward.  A blocked-layout
+    ran (Q80 for a Q80 file, else Q40), per forward; for Q80, ``mma=``
+    counts the kernel launches that took the tensor-core body.  A blocked-layout
     model counts kernel 3 (``blocked=``) apart from kernels 1–2
     (``kernel=``), and its per-forward figure is kernel 3's."""
     is_q8 = any(isinstance(v, q8.Q8Tensor) for v in engine.params.values())
@@ -214,6 +235,7 @@ def launch_line(engine: Engine) -> str:
     return (f"💡 {name} launches: kernel={c['kernel_launches']} "
             + (f"blocked={c['blocked_launches']} " if blocked else "")
             + f"plain={c['plain_calls']} dense_prefill={c['dense_prefill_calls']} "
+            + (f"mma={c['mma_launches']} " if is_q8 else "")
             + (f"allreduce={ar['allreduce_launches']} "
                f"allreduce_plain={ar['allreduce_plain_calls']} tp={engine.tp} "
                if engine.tp > 1 else "")

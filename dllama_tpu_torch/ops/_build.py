@@ -69,13 +69,14 @@ def library_path() -> str:
 
 def _run_all(cmds: list[list[str]]) -> str:
     """Run the commands as parallel processes; returns their joined output,
-    raises naming the first that failed."""
+    raises naming every one that failed, with its output."""
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                               text=True) for c in cmds]
     outs = [p.communicate()[0] for p in procs]
-    for cmd, p, out in zip(cmds, procs, outs):
-        if p.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({p.returncode}): {' '.join(cmd)}\n{out}")
+    failed = [f"nvcc failed ({p.returncode}): {' '.join(cmd)}\n{out}"
+              for cmd, p, out in zip(cmds, procs, outs) if p.returncode != 0]
+    if failed:
+        raise RuntimeError("\n".join(failed))
     return "".join(outs)
 
 

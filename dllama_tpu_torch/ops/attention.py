@@ -33,6 +33,7 @@ import torch
 
 from ..device import index_view
 from .kernels import softmax_f32
+from .q40 import _sm_count
 
 _BLOCKED_THRESHOLD = 1 << 21
 _NEG = -1e30  # finite -inf stand-in (f32 -1e30): keeps the running max finite
@@ -407,10 +408,18 @@ def paged_gqa_attention_at(q: torch.Tensor, pool_k: torch.Tensor,
 
 kernel_launches = 0
 plain_calls = 0
-# threads per block: must match kThreads in the source
+# threads per block, ring stages, head-dim elements a thread holds: must
+# match kThreads, kStages and kVec in the source
 THREADS = 128
+STAGES = 3
+VEC = 8
 # the card's shared-memory limit per block (H100: 227 KB)
 MAX_SMEM = 232448
+# blocks the split plan aims for, per SM: about four waves of four
+# resident blocks (128 threads, ~48 KB of ring each)
+BLOCKS_PER_SM = 16
+# positions a ring stage aims to hold: one __syncthreads per stage
+STAGE_POSITIONS = 32
 _QTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KVTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
@@ -429,10 +438,10 @@ def fused_paged_attention(q: torch.Tensor, pool_k: torch.Tensor,
                           page_table: torch.Tensor, pos_rows: torch.Tensor,
                           scales: tuple[torch.Tensor, torch.Tensor] | None = None,
                           impl: str = "auto") -> torch.Tensor:
-    """Single-token paged GQA (T == 1) as one kernel: page-table walk,
-    in-register int8 dequant, online softmax.  A CUDA tensor launches the
-    kernel or raises; a CPU tensor, or ``impl="plain"``, runs the plain
-    version (:func:`paged_decode_attention`)."""
+    """Single-token paged GQA (T == 1) as one kernel: a split page-table
+    walk, in-register int8 dequant, online softmax, split combine.  A CUDA
+    tensor launches the kernel or raises; a CPU tensor, or
+    ``impl="plain"``, runs the plain version (:func:`paged_decode_attention`)."""
     global plain_calls
     if impl not in ("auto", "plain"):
         raise ValueError(f"unknown paged attention impl {impl!r}")
@@ -445,11 +454,35 @@ def fused_paged_attention(q: torch.Tensor, pool_k: torch.Tensor,
     return paged_attention(q, pool_k, pool_v, layer, page_table, pos_rows, scales)
 
 
-def smem_bytes(g: int, ps: int, dh: int) -> int:
-    """Dynamic shared memory of one block: the staged K and V page, q and
-    the accumulators of the G query heads, their page scores and
-    max/denominator/rescale (mirrors the source's carve-up)."""
-    return 4 * (2 * ps * dh + 2 * g * dh + g * ps + 3 * g)
+def split_plan(maxp: int, b: int, hkv: int, n_sms: int) -> tuple[int, int]:
+    """How pass 1 cuts each row's page walk: returns ``(splits, pps)``,
+    ``splits`` ranges of ``pps`` consecutive pages that cover pages
+    ``0..maxp-1`` once.  From host shapes alone (no position): the grid
+    ``(hkv, b, splits)`` aims for ``BLOCKS_PER_SM`` blocks an SM, the split
+    count a power of two (Llama-2-7B at B = 8 on 132 SMs: 8 splits of 32
+    pages; Mixtral's 8 kv heads: 32 of 8).  The kernel clips each split to
+    the row's live pages on the device; pass 2 combines the live ones."""
+    want = max(1, -(-BLOCKS_PER_SM * n_sms // max(1, b * hkv)))
+    splits = min(1 << (want.bit_length() - 1), maxp)
+    pps = -(-maxp // splits)
+    return -(-maxp // pps), pps
+
+
+def stage_pages(ps: int, pps: int) -> int:
+    """Pages a ring stage holds: about ``STAGE_POSITIONS`` positions, no
+    more than a split walks."""
+    return max(1, min(pps, STAGE_POSITIONS // ps))
+
+
+def smem_bytes(g: int, ps: int, dh: int, kv_bytes: int, pp: int) -> int:
+    """Dynamic shared memory of one pass-1 block (mirrors the source's
+    carve-up): ``STAGES`` ring stages of ``pp`` K and V pages (plus their
+    f32 scale rows for an int8 pool), each stage rounded up to 16 bytes;
+    the position groups' ``(acc[dh], m, l)`` reuse the ring at the end."""
+    stage = pp * (2 * ps * dh * kv_bytes + (8 * ps if kv_bytes == 1 else 0))
+    stage = -(-stage // 16) * 16
+    groups = THREADS // (dh // VEC) * g * (dh + 2) * 4
+    return max(STAGES * stage, groups)
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -476,8 +509,10 @@ def paged_attention(q: torch.Tensor, pool_k: torch.Tensor, pool_v: torch.Tensor,
              f"pool shapes {tuple(pool_k.shape)} / {tuple(pool_v.shape)} "
              "are not one (L, P, Hkv, ps, Dh)")
     n_layers, n_pages, hkv, ps, dh_kv = pool_k.shape
-    _require(dh_kv == dh and 1 <= dh <= 256, f"head dim {dh_kv} vs q's {dh} (max 256)")
-    _require(hq % hkv == 0, f"{hq} query heads not a multiple of {hkv} kv heads")
+    _require(dh_kv == dh and dh in (16, 32, 64, 128, 256),
+             f"head dim {dh_kv} vs q's {dh} (one of 16, 32, 64, 128, 256)")
+    _require(hq % hkv == 0 and hq // hkv <= 8,
+             f"{hq} query heads not a multiple of {hkv} kv heads, at most 8 a kv head")
     _require(q.dtype in _QTYPES, f"q dtype {q.dtype} not float32/bfloat16")
     _require(pool_k.dtype in _KVTYPES and pool_v.dtype == pool_k.dtype,
              f"pool dtypes {pool_k.dtype}/{pool_v.dtype} not one of "
@@ -502,10 +537,15 @@ def paged_attention(q: torch.Tensor, pool_k: torch.Tensor, pool_v: torch.Tensor,
     _require(all(x.device == dev for x in tensors), "every operand must be on q's device")
     _require(all(x.is_contiguous() for x in tensors),
              "pools, scales, page table and positions must be contiguous")
+    _require(pool_k.data_ptr() % 16 == 0 and pool_v.data_ptr() % 16 == 0,
+             "pools not 16-byte aligned for the kernel's cp.async staging")
     layer = int(layer)
     _require(0 <= layer < n_layers, f"layer {layer} outside 0..{n_layers - 1}")
     g = hq // hkv
-    smem = smem_bytes(g, ps, dh)
+    maxp = page_table.shape[1]
+    splits, pps = split_plan(maxp, b, hkv, _sm_count(dev))
+    pp = stage_pages(ps, pps)
+    smem = smem_bytes(g, ps, dh, pool_k.element_size(), pp)
     _require(smem <= MAX_SMEM, f"page of {ps}x{dh} with {g} query heads needs "
              f"{smem} B of shared memory (max {MAX_SMEM})")
     from . import _build
@@ -514,6 +554,7 @@ def paged_attention(q: torch.Tensor, pool_k: torch.Tensor, pool_v: torch.Tensor,
     out = torch.empty_like(qc)
     if b == 0:
         return out
+    part = torch.empty((b, hq, splits, dh + 2), dtype=torch.float32, device=dev)
     layer_t = index_view(dev, layer, n_layers)
     sk_ptr = scales[0].data_ptr() if scales is not None else None
     sv_ptr = scales[1].data_ptr() if scales is not None else None
@@ -523,12 +564,14 @@ def paged_attention(q: torch.Tensor, pool_k: torch.Tensor, pool_v: torch.Tensor,
         rc = lib.paged_attention(
             qc.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), sk_ptr, sv_ptr,
             layer_t.data_ptr(), page_table.data_ptr(), pos_rows.data_ptr(),
-            out.data_ptr(), _QTYPES[q.dtype], _KVTYPES[pool_k.dtype], b, hq, hkv,
-            ps, dh, page_table.shape[1], n_pages, n_layers, inv_sqrt, stream)
+            out.data_ptr(), part.data_ptr(), _QTYPES[q.dtype], _KVTYPES[pool_k.dtype],
+            b, hq, hkv, ps, dh, maxp, n_pages, n_layers, splits, pps, pp, inv_sqrt,
+            stream)
     if rc != 0:
         raise RuntimeError(f"paged_attention launch failed: CUDA error {rc} "
                            f"({lib.q40_error_string(rc).decode()}) at B={b} "
-                           f"Hq={hq} Hkv={hkv} ps={ps} Dh={dh} smem={smem}")
+                           f"Hq={hq} Hkv={hkv} ps={ps} Dh={dh} splits={splits}x{pps} "
+                           f"pp={pp} smem={smem}")
     kernel_launches += 1
     return out
 
@@ -537,6 +580,6 @@ def bind(lib):
     """Declare the kernel's C signature (pointers and the stream as
     ``c_void_p``, so ctypes never cuts a 64-bit pointer)."""
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.paged_attention.argtypes = [vp] * 9 + [ci] * 10 + [ctypes.c_float, vp]
+    lib.paged_attention.argtypes = [vp] * 10 + [ci] * 13 + [ctypes.c_float, vp]
     lib.paged_attention.restype = ci
     return lib

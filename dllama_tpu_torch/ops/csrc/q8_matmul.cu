@@ -187,6 +187,323 @@ void launch(const __nv_bfloat16* x, const int8_t* qv, const __half* sc,
       x, qv, sc, idx, part, t, n, np, d, n_planes, kb_per);
 }
 
+
+// ---------------------------------------------------------------------------
+// The tensor-core body, for t >= T_MMA rows (python: ops/q8.py T_MMA).
+//
+// T_MMA = 4: from t = 4 this body is faster than the GEMV body at 13-14 of
+// the 15 Llama-2-7B, Mixtral, Grok-1 and tp = 2 sites, at t = 8 at all
+// (chip_smoke.py phase 9; PERF.md).  Above a few rows the GEMV body above
+// re-reads and re-dequantizes every weight once a group of 8 rows, on the
+// FP32 FMAs.  This body dequantizes each weight once per BM rows of x and
+// multiplies on the tensor cores:
+//  * A block owns a BM x 128 output tile (BM in 16, 32, 64, 128: the least
+//    that covers t; ops/q8.py mma_plan) and walks its share of n in steps
+//    of 64 rows (two quantization blocks).  Up to BM = 64 a block has 256
+//    threads and an SM holds two; at BM = 128, 512 threads and one.  The M
+//    tiles of one weight tile are neighbours in the grid, so they share its
+//    bytes in L2.  The split-K count fills about one wave of the SMs'
+//    blocks; partial sums go
+//    to f32 scratch (splits, t, d) and add in a fixed order
+//    (q8_reduce_splits), so results repeat bit for bit.
+//  * cp.async brings the raw int8 tile (64 x 128 bytes), its two f16 scale
+//    rows and the bf16 x tile (BM x 64) into a ring of kMmaStages stages,
+//    zero-filling rows past t and n and columns past d; the widest copy
+//    that the row stride and the pointers allow (16, 8 or 4 bytes).
+//  * The threads dequantize step s+1's int8 tile into one of two bf16 tiles
+//    in shared memory, bf16(f32(v) * f32(s)) rounded to nearest even (the
+//    GEMV body's numerics; the int8 values widen four at a time with byte
+//    permutes), while the warps run mma.sync m16n8k16 (bf16 in, f32
+//    accumulate) on step s's tile: x through ldmatrix, the (k, d) weight
+//    tile through ldmatrix.trans.  One barrier a step.  Rows of both shared
+//    tiles are padded by 16 bytes, so ldmatrix reads no bank twice.
+// Products of bf16 values are exact in f32, so the result differs from the
+// GEMV body's only in the order of the f32 sums.
+
+constexpr int kMmaBN = 128;       // output columns a block: ops/q8.py MMA_BN
+constexpr int kMmaBK = 64;        // rows of n a step: ops/q8.py MMA_BK
+constexpr int kMmaStages = 4;     // ring stages
+constexpr int kXS = kMmaBK + 8;   // bf16 row stride of the x tile
+constexpr int kWS = kMmaBN + 8;   // bf16 row stride of a dequantized tile
+constexpr int kMaxSmem = 232448;
+
+template <int N>
+__device__ __forceinline__ void cp_async_zfill(void* dst, const void* src, bool ok) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const int sz = ok ? N : 0;
+  if (N == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(sz)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(s), "l"(src), "n"(N),
+                 "r"(sz)
+                 : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void stage_rows_n(unsigned char* dst, int dst_stride,
+                                             const unsigned char* src, long stride, int rows,
+                                             int row_bytes, int valid_rows, int valid_bytes) {
+  const int per = row_bytes / N;  // a power of two
+  const int shift = __ffs(per) - 1;
+  for (int e = threadIdx.x; e < rows * per; e += blockDim.x) {
+    const int r = e >> shift;
+    const int i = e & (per - 1);
+    const bool ok = r < valid_rows && (i + 1) * N <= valid_bytes;
+    cp_async_zfill<N>(dst + r * dst_stride + i * N, ok ? src + r * stride + i * N : src, ok);
+  }
+}
+
+// `rows` rows of `row_bytes` (64..256, a power of two) from global rows
+// `stride` bytes apart into shared rows `dst_stride` bytes apart; rows at
+// or past `valid_rows` and bytes at or past `valid_bytes` of a row are
+// zero.  `al` (16, 8 or 4) divides the stride, `src` and `valid_bytes`;
+// al == 0 (a row stride of odd bytes) copies byte by byte with plain loads.
+__device__ __forceinline__ void stage_rows(unsigned char* dst, int dst_stride,
+                                           const unsigned char* src, long stride, int rows,
+                                           int row_bytes, int valid_rows, int valid_bytes,
+                                           int al) {
+  switch (al) {
+    case 16:
+      stage_rows_n<16>(dst, dst_stride, src, stride, rows, row_bytes, valid_rows, valid_bytes);
+      break;
+    case 8:
+      stage_rows_n<8>(dst, dst_stride, src, stride, rows, row_bytes, valid_rows, valid_bytes);
+      break;
+    case 4:
+      stage_rows_n<4>(dst, dst_stride, src, stride, rows, row_bytes, valid_rows, valid_bytes);
+      break;
+    default:
+      for (int e = threadIdx.x; e < rows * row_bytes; e += blockDim.x) {
+        const int r = e / row_bytes;
+        const int i = e - r * row_bytes;
+        dst[r * dst_stride + i] =
+            r < valid_rows && i < valid_bytes ? src[r * stride + i] : static_cast<unsigned char>(0);
+      }
+  }
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// int8 byte `k` of `u` (its bytes already XORed with 0x80) as a float,
+// exactly: the byte permute builds 2^23 + v + 128, the subtraction is exact
+template <int K>
+__device__ __forceinline__ float i8x4_f32(uint32_t u) {
+  return __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650 + K)) - 8388736.0f;
+}
+
+// Threads a block (256, or 512 for BM = 128, one block an SM) in WM x WN
+// warps: WM along M (MT m16 tiles each), WN along N (NT n8 tiles each)
+template <int BM> struct MmaShape {
+  static constexpr int Threads = BM == 128 ? 512 : 256;
+  static constexpr int MinBlocks = BM == 128 ? 1 : 2;
+  static constexpr int WM = BM == 128 ? 4 : (BM >= 32 ? 2 : 1);
+  static constexpr int WN = Threads / 32 / WM;
+  static constexpr int MT = BM / WM / 16;
+  static constexpr int NT = kMmaBN / WN / 8;
+  static constexpr int RowsEach = kMmaBK * 32 / Threads;  // dequantized rows a thread
+};
+
+template <int BM>
+__host__ __device__ constexpr int mma_stage_bytes() {
+  return kMmaBK * kMmaBN + 2 * kMmaBN * 2 + BM * kXS * 2;  // int8 tile, scales, x tile
+}
+
+template <int BM>
+__host__ __device__ constexpr int mma_smem_bytes() {
+  return kMmaStages * mma_stage_bytes<BM>() + 2 * kMmaBK * kWS * 2;  // + two bf16 tiles
+}
+
+template <int BM>
+__global__ void __launch_bounds__(MmaShape<BM>::Threads, MmaShape<BM>::MinBlocks)
+q8_matmul_mma_kernel(const __nv_bfloat16* __restrict__ x,  // (t, n)
+                     const int8_t* __restrict__ qvals,      // (n_planes, np, d)
+                     const __half* __restrict__ scales,     // (n_planes, np/32, d)
+                     const int* __restrict__ plane_p,       // the plane to read
+                     float* __restrict__ part,              // (splits, t, d)
+                     int t, int n, int np, int d, int n_planes, int steps_per, int w_al,
+                     int s_al) {
+  using S = MmaShape<BM>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int kStage = mma_stage_bytes<BM>();
+  __nv_bfloat16* wbs = reinterpret_cast<__nv_bfloat16*>(smem + kMmaStages * kStage);
+
+  const size_t plane = (size_t)min(max(*plane_p, 0), n_planes - 1);
+  const unsigned char* qv = reinterpret_cast<const unsigned char*>(qvals) +
+                            plane * (size_t)np * (size_t)d;
+  const unsigned char* sc = reinterpret_cast<const unsigned char*>(
+      scales + plane * (size_t)(np / 32) * (size_t)d);
+  const int m0 = blockIdx.x * BM;
+  const int col0 = blockIdx.y * kMmaBN;
+  const int n_steps = (n + kMmaBK - 1) / kMmaBK;
+  const int s_begin = blockIdx.z * steps_per;
+  const int n_mine = min(n_steps, s_begin + steps_per) - s_begin;
+  const int vc = min(kMmaBN, d - col0);  // live columns of the tile
+  const int nb = n / 32;
+
+  auto fetch = [&](int i) {
+    unsigned char* st = smem + (i % kMmaStages) * kStage;
+    const int k0 = (s_begin + i) * kMmaBK;
+    stage_rows(st, kMmaBN, qv + (size_t)k0 * d + col0, d, kMmaBK, kMmaBN, n - k0, vc, w_al);
+    stage_rows(st + kMmaBK * kMmaBN, 2 * kMmaBN, sc + ((size_t)(k0 / 32) * d + col0) * 2,
+               2L * d, 2, 2 * kMmaBN, nb - k0 / 32, 2 * vc, s_al);
+    stage_rows(st + kMmaBK * kMmaBN + 4 * kMmaBN, kXS * 2,
+               reinterpret_cast<const unsigned char*>(x + (size_t)m0 * n + k0), 2L * n, BM,
+               2 * kMmaBK, t - m0, 2 * min(kMmaBK, n - k0), 16);
+  };
+
+  // dequantization: thread owns columns 4*cg..4*cg+3 of RowsEach rows from
+  // RowsEach*rg, all in one quantization block
+  const int cg = threadIdx.x & 31;
+  const int rg = threadIdx.x >> 5;
+  auto dequant = [&](int i) {
+    const unsigned char* st = smem + (i % kMmaStages) * kStage;
+    __nv_bfloat16* wb = wbs + (i & 1) * kMmaBK * kWS;
+    const uint2 sraw = *reinterpret_cast<const uint2*>(
+        st + kMmaBK * kMmaBN + (rg * S::RowsEach >> 5) * 2 * kMmaBN + cg * 8);
+    const float s0 = f16_bits(sraw.x & 0xFFFFu), s1 = f16_bits(sraw.x >> 16);
+    const float s2 = f16_bits(sraw.y & 0xFFFFu), s3 = f16_bits(sraw.y >> 16);
+#pragma unroll
+    for (int r = 0; r < S::RowsEach; ++r) {
+      const int row = rg * S::RowsEach + r;
+      const uint32_t u =
+          *reinterpret_cast<const uint32_t*>(st + row * kMmaBN + cg * 4) ^ 0x80808080u;
+      const __nv_bfloat162 lo = __floats2bfloat162_rn(i8x4_f32<0>(u) * s0, i8x4_f32<1>(u) * s1);
+      const __nv_bfloat162 hi = __floats2bfloat162_rn(i8x4_f32<2>(u) * s2, i8x4_f32<3>(u) * s3);
+      uint2 packed;
+      packed.x = *reinterpret_cast<const uint32_t*>(&lo);
+      packed.y = *reinterpret_cast<const uint32_t*>(&hi);
+      *reinterpret_cast<uint2*>(wb + row * kWS + cg * 4) = packed;
+    }
+  };
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int wm = warp / S::WN;
+  const int wn = warp - wm * S::WN;
+  // ldmatrix: this lane's row (of 16) and 8-column half of the four 8x8
+  // matrices it addresses
+  const int lr = (lane & 7) + ((lane >> 3) & 1) * 8;
+  const int lc = (lane >> 4) * 8;
+  float acc[S::MT][S::NT][4];
+#pragma unroll
+  for (int i = 0; i < S::MT; ++i)
+#pragma unroll
+    for (int j = 0; j < S::NT; ++j)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) acc[i][j][k] = 0.f;
+
+#pragma unroll
+  for (int i = 0; i < kMmaStages - 1; ++i) {
+    if (i < n_mine) fetch(i);
+    cp_async_commit();
+  }
+  cp_async_wait<kMmaStages - 2>();
+  __syncthreads();
+  dequant(0);
+  for (int it = 0; it < n_mine; ++it) {
+    cp_async_wait<kMmaStages - 3>();
+    // step it+1 landed and step it's bf16 tile is whole; step it-1's mma
+    // is done with its stage and its bf16 tile
+    __syncthreads();
+    if (it + kMmaStages - 1 < n_mine) fetch(it + kMmaStages - 1);
+    cp_async_commit();
+    if (it + 1 < n_mine) dequant(it + 1);
+
+    const __nv_bfloat16* xs = reinterpret_cast<const __nv_bfloat16*>(
+        smem + (it % kMmaStages) * kStage + kMmaBK * kMmaBN + 4 * kMmaBN);
+    const __nv_bfloat16* wb = wbs + (it & 1) * kMmaBK * kWS;
+#pragma unroll
+    for (int kk = 0; kk < kMmaBK / 16; ++kk) {
+      uint32_t a[S::MT][4];
+#pragma unroll
+      for (int i = 0; i < S::MT; ++i)
+        ldmatrix_x4(a[i], xs + (wm * (BM / S::WM) + i * 16 + lr) * kXS + kk * 16 + lc);
+#pragma unroll
+      for (int j = 0; j < S::NT; j += 2) {
+        uint32_t bfr[4];
+        ldmatrix_x4_trans(bfr, wb + (kk * 16 + lr) * kWS + wn * (kMmaBN / S::WN) + j * 8 + lc);
+#pragma unroll
+        for (int i = 0; i < S::MT; ++i) {
+          mma_bf16(acc[i][j], a[i], bfr[0], bfr[1]);
+          mma_bf16(acc[i][j + 1], a[i], bfr[2], bfr[3]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  float* dst = part + (size_t)blockIdx.z * t * d;
+  const int gid = lane >> 2;
+  const int tig = lane & 3;
+#pragma unroll
+  for (int i = 0; i < S::MT; ++i) {
+#pragma unroll
+    for (int j = 0; j < S::NT; ++j) {
+      const int col = col0 + wn * (kMmaBN / S::WN) + j * 8 + tig * 2;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = m0 + wm * (BM / S::WM) + i * 16 + gid + h * 8;
+        if (row >= t) continue;
+        float* o = dst + (size_t)row * d;
+        if (col < d) o[col] = acc[i][j][2 * h];
+        if (col + 1 < d) o[col + 1] = acc[i][j][2 * h + 1];
+      }
+    }
+  }
+}
+
+template <int BM>
+cudaError_t launch_mma(const __nv_bfloat16* x, const int8_t* qv, const __half* sc,
+                       const int* idx, float* part, int t, int n, int np, int d,
+                       int n_planes, int splits, int steps_per, int w_al, int s_al,
+                       cudaStream_t stream) {
+  auto kern = q8_matmul_mma_kernel<BM>;
+  // the dynamic shared-memory opt-in, once per instantiation and device
+  static unsigned done = 0;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= 32 || !(done >> dev & 1u)) {
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    if (e != cudaSuccess) return e;
+    if (dev < 32) done |= 1u << dev;
+  }
+  const dim3 grid((t + BM - 1) / BM, (d + kMmaBN - 1) / kMmaBN, splits);
+  kern<<<grid, MmaShape<BM>::Threads, mma_smem_bytes<BM>(), stream>>>(
+      x, qv, sc, idx, part, t, n, np, d, n_planes, steps_per, w_al, s_al);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // x (t, n) bf16; qvals (n_planes, np, d) int8 (any leading dims,
@@ -212,6 +529,51 @@ extern "C" int q8_matmul(const void* x, const void* qvals, const void* scales,
     launch<4>(xb, qv, sc, ip, part, t, n, np, d, n_planes, splits, kb_per, s);
   else
     launch<8>(xb, qv, sc, ip, part, t, n, np, d, n_planes, splits, kb_per, s);
+  if (splits > 1) {
+    const size_t total = (size_t)t * (size_t)d;
+    q8_reduce_splits<<<(unsigned)((total + 255) / 256), 256, 0, s>>>(
+        part, static_cast<float*>(out), splits, total);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The tensor-core body: x (t, n) bf16 (16-byte aligned); qvals, scales, idx
+// and out as q8_matmul; bm in 16, 32, 64, 128; the reduction over n cut
+// into `splits` ranges of `steps_per` 64-row steps (ops/q8.py mma_plan),
+// scratch (splits, t, d) f32 when splits > 1; w_al / s_al the widest copy
+// (16, 8, 4, or 0 for plain byte loads) that the value / scale rows allow.
+extern "C" int q8_matmul_mma(const void* x, const void* qvals, const void* scales, void* out,
+                             void* scratch, const void* idx, int t, int n, int np, int d,
+                             int n_planes, int bm, int splits, int steps_per, int w_al,
+                             int s_al, void* stream) {
+  const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
+  const int8_t* qv = static_cast<const int8_t*>(qvals);
+  const __half* sc = static_cast<const __half*>(scales);
+  const int* ip = static_cast<const int*>(idx);
+  float* part = static_cast<float*>(splits > 1 ? scratch : out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  switch (bm) {
+    case 16:
+      e = launch_mma<16>(xb, qv, sc, ip, part, t, n, np, d, n_planes, splits, steps_per, w_al,
+                         s_al, s);
+      break;
+    case 32:
+      e = launch_mma<32>(xb, qv, sc, ip, part, t, n, np, d, n_planes, splits, steps_per, w_al,
+                         s_al, s);
+      break;
+    case 64:
+      e = launch_mma<64>(xb, qv, sc, ip, part, t, n, np, d, n_planes, splits, steps_per, w_al,
+                         s_al, s);
+      break;
+    case 128:
+      e = launch_mma<128>(xb, qv, sc, ip, part, t, n, np, d, n_planes, splits, steps_per,
+                          w_al, s_al, s);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  if (e != cudaSuccess) return (int)e;
   if (splits > 1) {
     const size_t total = (size_t)t * (size_t)d;
     q8_reduce_splits<<<(unsigned)((total + 255) / 256), 256, 0, s>>>(

@@ -21,7 +21,10 @@ layer × expert), addressed by a flat index as in :mod:`.q40`.
 ``bf16(f32(v)·f32(s))`` (one bf16 round of the file codec's dequant),
 activations cast to bf16, products summed in f32, an f32 result.  Dispatch
 and counters (``kernel_launches``, ``launches_by_shape``, ``plain_calls``,
-``dense_prefill_calls``) are :mod:`.q40`'s.
+``dense_prefill_calls``) are :mod:`.q40`'s.  The kernel has two bodies,
+chosen by :func:`route` from the row count: the GEMV body below ``T_MMA``
+rows, the tensor-core body (:func:`mma_plan`; counted in ``mma_launches``)
+from ``T_MMA`` rows up.
 
 Tensor parallelism: on a mesh the JAX package runs Q80 as an XLA dequant
 and lets GSPMD insert the all-reduce (its ``q8.py:309-365``).  The port
@@ -40,24 +43,67 @@ import numpy as np
 import torch
 
 from .. import quants
-from .q40 import _planes, dispatch, launch, padded_n
+from .q40 import (_check_operands, _planes, _require, _sm_count, dispatch, launch,
+                  padded_n, plane_index)
 
 kernel_launches = 0
+mma_launches = 0
 plain_calls = 0
 dense_prefill_calls = 0
-launches_by_shape: dict[tuple[int, int], int] = {}
+launches_by_shape: dict[tuple, int] = {}
+
+# Rows from which a call takes the tensor-core body (``q8_matmul_mma`` in
+# csrc/q8_matmul.cu); fewer rows take the GEMV body.  Phase 9 of
+# chip_smoke.py times both at t = 1, 4, 8, 16: from t = 4 the tensor-core
+# body wins at 13-14 of the 15 sites and over a 7B layer's four matmuls,
+# from t = 8 at every site (PERF.md).
+T_MMA = 4
+# The tensor-core body's block: output columns and rows of n a step
+# (kMmaBN, kMmaBK in the source), and the blocks an SM holds at each tile
+# height (MmaShape::MinBlocks: 256 threads up to 64 rows, 512 at 128).
+MMA_BN = 128
+MMA_BK = 64
+MMA_BLOCKS_PER_SM = {16: 2, 32: 2, 64: 2, 128: 1}
+MMA_BMS = tuple(MMA_BLOCKS_PER_SM)
 
 
 def reset_counters() -> None:
-    global kernel_launches, plain_calls, dense_prefill_calls
-    kernel_launches = plain_calls = dense_prefill_calls = 0
+    global kernel_launches, mma_launches, plain_calls, dense_prefill_calls
+    kernel_launches = mma_launches = plain_calls = dense_prefill_calls = 0
     launches_by_shape.clear()
 
 
 def counters() -> dict:
-    return {"kernel_launches": kernel_launches, "plain_calls": plain_calls,
-            "dense_prefill_calls": dense_prefill_calls,
+    """``kernel_launches`` counts every launch of the Q80 kernel, of which
+    ``mma_launches`` took the tensor-core body; ``launches_by_shape`` is
+    keyed ``(n, d)`` for the GEMV body and ``("mma", n, d)`` for the
+    tensor-core body."""
+    return {"kernel_launches": kernel_launches, "mma_launches": mma_launches,
+            "plain_calls": plain_calls, "dense_prefill_calls": dense_prefill_calls,
             "launches_by_shape": dict(launches_by_shape)}
+
+
+def route(t: int) -> str:
+    """The body a call of ``t`` rows takes: ``"gemv"`` below ``T_MMA``
+    rows, else ``"mma"``."""
+    return "mma" if t >= T_MMA else "gemv"
+
+
+def mma_plan(t: int, n: int, d: int, n_sms: int) -> tuple[int, int, int]:
+    """The tensor-core body's grid: returns ``(bm, splits, steps_per)``.
+    ``bm`` is the least tile height in ``MMA_BMS`` that covers ``t``, else
+    the tallest (a weight is dequantized once per ``bm`` rows of x); the
+    ``ceil(t/bm)·ceil(d/128)`` output tiles take just enough split-K over
+    the ``ceil(n/64)`` steps of n to fill one wave of the SMs' blocks
+    (``MMA_BLOCKS_PER_SM[bm]`` each), each split ``steps_per`` steps and
+    none empty.  The f32 scratch is ``splits·t·d`` floats, at most one wave
+    of output tiles (Llama-2-7B's wo at t = 128: 4 splits, 8 MB)."""
+    bm = next((b for b in MMA_BMS if b >= t), MMA_BMS[-1])
+    tiles = -(-t // bm) * -(-d // MMA_BN)
+    steps = -(-n // MMA_BK)
+    want = max(1, min(steps, MMA_BLOCKS_PER_SM[bm] * n_sms // tiles))
+    per = -(-steps // want)
+    return bm, -(-steps // per), per
 
 
 @dataclass(frozen=True)
@@ -207,17 +253,71 @@ def _kernel(x2: torch.Tensor, qt: Q8Tensor, layer) -> torch.Tensor:
 
 
 def q8_matmul(x2: torch.Tensor, qvals: torch.Tensor, scales: torch.Tensor,
-              n: int, layer=None) -> torch.Tensor:
+              n: int, layer=None, body: str | None = None) -> torch.Tensor:
     """Launch the Q80 dequant-matmul kernel: ``bf16(x2) (t, n) @ W`` → f32
     ``(t, d)``, reading plane ``layer`` of stacked ``(..., np, d)`` planes
     in place (:func:`.q40.plane_index`), or the 2-D plane when ``layer`` is
-    None.  CUDA tensors only: it launches the kernel or raises
-    (:func:`.q40.launch` checks the operands)."""
-    global kernel_launches
-    out = launch("q8_matmul", x2, qvals, scales, n, layer, torch.int8, 1)
+    None.  The body is :func:`route`'s for ``t`` rows; ``body`` ("gemv" or
+    "mma") names one, to time the two against each other.  CUDA tensors
+    only: it launches the kernel or raises (:func:`.q40.launch` checks the
+    operands)."""
+    global kernel_launches, mma_launches
+    body = body or route(x2.shape[0])
+    if body == "gemv":
+        out = launch("q8_matmul", x2, qvals, scales, n, layer, torch.int8, 1)
+        key = (n, out.shape[1])
+    elif body == "mma":
+        out = _launch_mma(x2, qvals, scales, n, layer)
+        key = ("mma", n, out.shape[1])
+        mma_launches += 1
+    else:
+        raise ValueError(f"q8_matmul: unknown body {body!r}")
     kernel_launches += 1
-    key = (n, out.shape[1])
     launches_by_shape[key] = launches_by_shape.get(key, 0) + 1
+    return out
+
+
+def _copy_width(row_bytes: int, ptr: int) -> int:
+    """The widest cp.async (16, 8 or 4 bytes) that every row start of a
+    plane with rows ``row_bytes`` apart from ``ptr`` allows; 0 when none
+    does (the kernel then copies byte by byte)."""
+    return next((w for w in (16, 8, 4) if row_bytes % w == 0 and ptr % w == 0), 0)
+
+
+def _launch_mma(x2: torch.Tensor, qvals: torch.Tensor, scales: torch.Tensor, n: int,
+                layer) -> torch.Tensor:
+    """Check the operands as the GEMV body's launch does and launch the
+    tensor-core body (``q8_matmul_mma``) with :func:`mma_plan`; returns the
+    f32 ``(t, d)`` output; raises on a launch error."""
+    fn = "q8_matmul_mma"
+    dev = _check_operands(fn, x2, qvals, scales, n, torch.int8)
+    idx, n_planes = plane_index(qvals, layer, dev, fn)
+    np_, d = qvals.shape[-2], qvals.shape[-1]
+    _require(np_ >= n and np_ % 32 == 0, f"value rows {np_} do not cover n={n}", fn)
+    _require(tuple(scales.shape) == tuple(qvals.shape[:-2]) + (np_ // 32, d),
+             f"scales shape {tuple(scales.shape)} does not match values "
+             f"{tuple(qvals.shape)}", fn)
+    from . import _build
+    lib = _build.load()
+    t = x2.shape[0]
+    xb = x2.to(torch.bfloat16).contiguous()
+    if xb.data_ptr() % 16:  # cp.async reads x in 16-byte pieces
+        xb = xb.clone()
+    bm, splits, per = mma_plan(t, n, d, _sm_count(dev))
+    out = torch.empty((t, d), dtype=torch.float32, device=dev)
+    scratch = (torch.empty((splits, t, d), dtype=torch.float32, device=dev)
+               if splits > 1 else out)
+    w_al = _copy_width(d, qvals.data_ptr())
+    s_al = _copy_width(2 * d, scales.data_ptr())
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        rc = lib.q8_matmul_mma(xb.data_ptr(), qvals.data_ptr(), scales.data_ptr(),
+                               out.data_ptr(), scratch.data_ptr(), idx.data_ptr(),
+                               t, n, np_, d, n_planes, bm, splits, per, w_al, s_al, stream)
+    if rc != 0:
+        raise RuntimeError(f"{fn} launch failed: CUDA error {rc} "
+                           f"({lib.q40_error_string(rc).decode()}) at t={t} n={n} d={d} "
+                           f"bm={bm} splits={splits}x{per} copies={w_al}/{s_al}")
     return out
 
 
@@ -227,4 +327,6 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.q8_matmul.argtypes = [vp] * 6 + [ci] * 7 + [vp]
     lib.q8_matmul.restype = ci
+    lib.q8_matmul_mma.argtypes = [vp] * 6 + [ci] * 10 + [vp]
+    lib.q8_matmul_mma.restype = ci
     return lib

@@ -74,12 +74,46 @@ def test_inference_prints_stats(model_files):
     (["generate", "--workers", "tpu:2", "--ep", "2"], "--ep"),
     (["generate", "--pld", "4", "--sp", "2"], "--sp, --pld"),
     (["generate", "--kv-cache-dtype", "q8"], "--kv-cache-dtype q8"),
+    (["router", "--backends", "127.0.0.1:1"], "mode 'router', --backends"),
+    (["serve-pod", "--supervise"], "mode 'serve-pod', --supervise"),
+    (["generate", "--dequantize", "--weights-float-type", "q40"],
+     "--weights-float-type, --dequantize"),
+    (["inference", "--profile-split", "--profile-ops"], "--profile-split, --profile-ops"),
+    (["worker", "--coordinator", "h:1", "--nproc", "2", "--proc-id", "1",
+      "--program", "chat"], "--coordinator, --nproc, --proc-id, --program"),
+    (["generate", "--elastic", "--pod-devices", "4", "--max-replicas", "2"],
+     "--elastic, --pod-devices, --max-replicas"),
+    (["generate", "--stall-timeout", "5", "--checkpoint-interval", "1",
+      "--resume-policy", "never"], "--stall-timeout, --checkpoint-interval, --resume-policy"),
 ])
 def test_unported_flags_exit_naming_them(model_files, extra, named):
     m, t = model_files
     r = run_port(extra + ["--model", m, "--tokenizer", t, "--device", "cpu"])
     assert r.returncode != 0
     assert "not yet ported" in r.stderr and named in r.stderr
+
+
+def test_nthreads_is_accepted_and_ignored(model_files):
+    """Reference command lines carry ``--nthreads``; the port takes it as
+    the JAX CLI does and prints what it prints without it."""
+    m, t = model_files
+    args = ["generate", "--model", m, "--tokenizer", t, "--prompt", "hello",
+            "--steps", "8", "--temperature", "0", "--device", "cpu"]
+    plain = run_port(args)
+    threads = run_port(args + ["--nthreads", "2"])
+    assert plain.returncode == 0 and threads.returncode == 0, threads.stderr[-2000:]
+    assert threads.stdout == plain.stdout
+
+
+def test_q40_variant_other_than_classic_is_refused(model_files):
+    m, t = model_files
+    env = dict(os.environ, DLLAMA_Q40_VARIANT="fma",
+               PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    r = subprocess.run([sys.executable, "-m", "dllama_tpu_torch", "generate", "--model", m,
+                        "--tokenizer", t, "--prompt", "hi", "--device", "cpu"],
+                       cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
+    assert r.returncode != 0
+    assert "not yet ported" in r.stderr and "DLLAMA_Q40_VARIANT=fma" in r.stderr
 
 
 def test_cuda_request_without_cuda_fails(model_files):

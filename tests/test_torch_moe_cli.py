@@ -10,6 +10,7 @@ import os
 import subprocess
 import sys
 import threading
+import time
 import urllib.request
 
 import pytest
@@ -93,6 +94,11 @@ def test_server_greedy_completions_through_slots(files):
                 th.join()
             assert [code for code, _ in out] == [200, 200]
             answers[mode] = [text for _, text in out]
+            # a handler records its request after the response has gone out,
+            # so the client can read both answers before both records land
+            t_end = time.monotonic() + 10
+            while len(srv.state.finished) < 2 and time.monotonic() < t_end:
+                time.sleep(0.01)
             on_sched = [r["scheduler"] for r in list(srv.state.finished)[-2:]]
             assert on_sched == [mode == "slots"] * 2
         finally:

@@ -191,4 +191,5 @@ def test_kernel_wrapper_takes_only_cuda_decode():
         ta.fused_paged_attention(torch.from_numpy(np.repeat(q, 2, axis=2)), *args[1:])
     with pytest.raises(ValueError, match="impl"):
         ta.fused_paged_attention(*args, impl="fast")
-    assert ta.smem_bytes(1, 16, 128) == 4 * (2 * 16 * 128 + 2 * 128 + 16 + 3)
+    # three ring stages of two bf16 K and two V pages (16 x 128), 48 KB
+    assert ta.smem_bytes(1, 16, 128, 2, 2) == 3 * 2 * (2 * 16 * 128 * 2)

@@ -223,8 +223,12 @@ def test_bind_declares_pointer_arguments():
         class _Fn:
             pass
         q8_matmul = _Fn()
+        q8_matmul_mma = _Fn()
 
     lib = tq8.bind(Fake())
     argt = lib.q8_matmul.argtypes
     assert argt[:6] == [ctypes.c_void_p] * 6 and argt[-1] is ctypes.c_void_p
     assert argt[6:13] == [ctypes.c_int] * 7 and lib.q8_matmul.restype is ctypes.c_int
+    argt = lib.q8_matmul_mma.argtypes
+    assert argt[:6] == [ctypes.c_void_p] * 6 and argt[-1] is ctypes.c_void_p
+    assert argt[6:16] == [ctypes.c_int] * 10 and lib.q8_matmul_mma.restype is ctypes.c_int
