@@ -9,18 +9,24 @@ Phases (each prints its seconds; any failure exits non-zero):
    off for matmuls and cuDNN, the kernels built with nvcc from
    ``dllama_tpu_torch/ops/csrc`` (one process per source).
 2. Q40 kernel against its plain version at the five Llama-2-7B matmul
-   shapes (wqkv, wo, w13, w2 stacked; wcls flat) for t in {1, 16, 128},
-   stacked calls at layers 0 and L-1, random packed planes made on the card
-   from a seed: max|kernel - plain| <= KERNEL_TOL * max|plain|.  Times the
-   kernel, the plain version and torch.matmul on the pre-dequantized bf16
-   weight (a yardstick the port never calls), each launch on a cold L2.
+   shapes (wqkv, wo, w13, w2 stacked; wcls flat) for t in {1, 2, 4, 5, 8,
+   16, 128}, both of its bodies (the GEMV body and the tensor-core body: the
+   crossover that sets q40.T_MMA, printed a t) checked and timed, the
+   routed one reported, and a ragged shape (n = 4128, n/32 odd; d = 1000;
+   t = 17); stacked calls at layers 0 and L-1, random packed planes made on
+   the card from a seed: max|kernel - plain| <= KERNEL_TOL * max|plain|.
+   Times the kernel, the plain version and torch.matmul on the
+   pre-dequantized bf16 weight (a yardstick the port never calls), each
+   launch on a cold L2.  2b: a rank's shapes at tp = 2, t in {1, 16, 128}.
 3. the main path at full width: a Llama-2-7B-shaped Q40 model synthesized
    from a seed (random nibbles, constant f16 scale 0.008; no weights needed),
    ``inference --temperature 0 --steps 64 --chunk 16 --warmup 16`` on cuda
    through the CLI entry point; the Q40 counters must show exactly
-   4 * 32 + 1 = 129 kernel launches per forward and no plain call.  Then
-   torch.profiler over 8 decode steps: device busy time per token, the
-   idle share, and the kernels that take the time.
+   4 * 32 + 1 = 129 kernel launches per forward and no plain call, a
+   single-token forward's 129 all on the GEMV body (the 16-row prompt
+   bucket's on the tensor-core body).  Then torch.profiler over 8 decode
+   steps: device busy time per token, the idle share, and the kernels that
+   take the time.
 4. a few requests: ``generate`` with three prompts, two greedy (each run
    twice, byte-identical) and one at temperature 0.8 seed 1; every run ends
    on finite logits.  On the phase-5 model (7B width, 2 layers): five
@@ -50,7 +56,9 @@ Phases (each prints its seconds; any failure exits non-zero):
    ran the plain version; the prefix cache hit; a request sent alone twice
    answers byte for byte.  Prints tok/s, TTFT and latency percentiles,
    peak memory and a torch.profiler split of an 8-slot decode step and of
-   an 8-slot mixed prefill step.  Then a shorter pass with --kv-quant int8.
+   an 8-slot mixed prefill step, whose Q40 matmuls (8 and 128 rows) run on
+   the body q40.route names (the tensor-core body: launches > 0).  Then a
+   shorter pass with --kv-quant int8.
 8. slot path, kernels against plain versions: the phase-5 model through
    Engine.slot_step on a paged pool (bf16 and int8), a ragged prefill
    chunk + 8 teacher-forced decode steps, kernels (``auto``) against
@@ -65,7 +73,8 @@ Phases (each prints its seconds; any failure exits non-zero):
    (2, 8) stack, a rank's 7B sites at tp = 2, and a ragged shape (n = 4128,
    n/32 odd; d = 1000; t = 17) for the tensor-core body's masks; the
    expert planes addressed by an int32 index on the card.  Then the Q40
-   kernel at Mixtral's shapes through the same device index.
+   kernel at Mixtral's shapes through the same device index, both bodies,
+   t in {1, 8, 16, 128}.
 10. Q80 Llama-2-7B at full width and depth: ``inference`` as in phase 3
    with an 84-token prompt (its prefill runs at t = 128); the Q80 counters
    show exactly 129 kernel launches a forward, no plain call, and the
@@ -87,20 +96,23 @@ Phases (each prints its seconds; any failure exits non-zero):
    against its plain version (unblock the plane, then phase 2's plain
    version) at the five 7B sites in the default tiles (512, 2048) (stacked
    planes read at 0 and L-1 through an int32 on the card; wcls as an L = 1
-   stack) and two narrow shapes whose column tiles cut through a thread
-   block (d = 320: td clamped to 384; d = 1000 in tiles (256, 384)), t in
-   {1, 16, 128}.  Times kernel 3, kernels 1-2 on the same weights
-   row-major, the plain version and torch.matmul on the dequantized bf16
-   weight, each launch on a cold L2, the bound from the stored (d padded
-   to td) bytes; prints max|kernel 3 - kernels 1-2| (0: bit for bit).
+   stack), t in {1, 4, 8, 16, 128}, two narrow shapes whose column tiles
+   cut through a thread block (d = 320: td clamped to 384; d = 1000 in
+   tiles (256, 384)), t in {1, 16, 128}, and the ragged shape in tiles
+   (32, 100), t in {1, 17}; both bodies at every t.  Times kernel 3 (both
+   bodies), kernels 1-2 on the same weights row-major, the plain version
+   and torch.matmul on the dequantized bf16 weight, each launch on a cold
+   L2, the bound from the stored (d padded to td) bytes; fails unless
+   kernel 3 equals kernels 1-2 bit for bit under each body.
 14. the blocked main path at full Llama-2-7B width and depth, phase 3's
    file with ``DLLAMA_Q40_LAYOUT=blocked``: ``inference`` as phase 3, with
    exactly 129 kernel-3 launches a forward and no row-major launch or
    plain call, its profiler split and peak memory (the load included);
    ``batch`` of 8 prompts (8 to 200 characters) from a prompts file,
-   greedy, ``--steps 48`` (kernel 3 at t = 8 in decode), run twice: the
-   same bytes, every row finished, finite logits; the API server as in
-   phase 7b with 8 requests, kernel 3 on the slot path.
+   greedy, ``--steps 48`` (kernel 3 at t = 8 in decode, the body
+   q40.route names), run twice: the same bytes, every row finished, finite
+   logits; the API server as in phase 7b with 8 requests, kernel 3 on the
+   slot path.
 15. blocked and batch end to end against the plain path on the phase-5
    model: kernel 3 against ``quant_impl="plain"`` (and against kernels
    1-2: bit for bit), the lockstep batch of 4 ragged prompts against each
@@ -208,23 +220,35 @@ TP2_SITES = [("tp2.wq", 4096, 2048, (STACK_L,)), ("tp2.wo", 2048, 4096, (STACK_L
              ("tp2.w1", 4096, 5504, (STACK_L,)), ("tp2.w2", 5504, 4096, (STACK_L,)),
              ("tp2.wcls", 4096, 16000, ())]
 ROWS = (1, 16, 128)
-# the Q80 sites (phase 9) also run t = 4 and 8: the two bodies' crossover;
-# a ragged shape (d not a multiple of 128 nor of 16, n/32 odd, t not a
+# the 7B sites of both codecs (phases 2 and 9) also run t = 4 and 8: the
+# crossover of the two bodies (GEMV and tensor core) that sets T_MMA; a
+# ragged shape (d not a multiple of 128 nor of 16, n/32 odd, t not a
 # multiple of 16) exercises the tensor-core body's masks
-Q8_ROWS = (1, 4, 8, 16, 128)
-Q8_RAGGED = [("ragged", 4128, 1000, (STACK_L,))]
-Q8_RAGGED_ROWS = (17,)
-# rows of the JSON line: Q40 at t = 1, Q80 at t = 1, 16 and 128
-JSON_ROWS = {False: (1,), True: (1, 16, 128)}
+CROSS_ROWS = (1, 4, 8, 16, 128)
+# Q40's 7B sites (phase 2) also run t = 2: its GEMV body reads half of
+# Q80's bytes but unpacks slower, so the crossover may lie lower
+Q40_CROSS_ROWS = (1, 2, 4, 5, 8, 16, 128)
+RAGGED = [("ragged", 4128, 1000, (STACK_L,))]
+RAGGED_ROWS = (17,)
+# Q40 at Mixtral's shapes (phase 9b) adds t = 8, the 8-slot step's experts
+MIX_ROWS = (1, 8, 16, 128)
+# rows of the JSON line: the routed body at t = 1, 16 and 128 (the last two
+# the tensor-core body, launched by the main paths' prefills; not wcls:
+# the LM head reads one row a sequence, so it runs the GEMV body only)
+JSON_ROWS = (1, 16, 128)
 # phase 10's prompt: 84 tokens of the synthesized tokenizer, a t = 128 prefill
 Q8_PROMPT = "Once upon a time the capital of France is" * 2
 # kernel 3 (phase 13): the 7B sites in the default tiles, then two narrow
 # shapes whose column tiles cut through a 512-column thread block: d = 320
-# (td clamped to 384, one partial tile) and d = 1000 in tiles (256, 384)
+# (td clamped to 384, one partial tile) and d = 1000 in tiles (256, 384);
+# then the ragged shape in tiles (32, 100): every 64-row step of the
+# tensor-core body spans two row tiles, each 128-column tile two or three
+# column tiles, in 4-byte copies
 BLOCKED_REPLACES = "dllama_tpu/ops/q40.py:840"
-BLOCKED_SITES = [(site, n, d, lead, None) for site, n, d, lead in LLAMA_SITES] + [
-    ("narrow.d320", 4096, 320, (STACK_L,), None),
-    ("narrow.d1000", 4096, 1000, (STACK_L,), (256, 384))]
+BLOCKED_SITES = [(site, n, d, lead, None, CROSS_ROWS) for site, n, d, lead in LLAMA_SITES] + [
+    ("narrow.d320", 4096, 320, (STACK_L,), None, ROWS),
+    ("narrow.d1000", 4096, 1000, (STACK_L,), (256, 384), ROWS),
+    ("ragged.32x100", 4128, 1000, (STACK_L,), (32, 100), (1,) + RAGGED_ROWS)]
 # paged attention (phase 6): kernel vs plain, the TPU kernel's own bar —
 # the two fold the same bf16 operands in another summation order
 ATTN_TOL = 1e-2
@@ -305,21 +329,24 @@ def random_planes(codec, lead: tuple, n: int, d: int, g: torch.Generator, dev,
     return codec.QTensor(vals, sc, (n, d))
 
 
-def check_sites(codec, sites, dev, seed: int, pad: bool = True, rows=ROWS) -> dict:
-    """Phases 2 and 9: ``codec``'s kernel against its plain version at each
-    site and row count; returns {(site, t): numbers} for the JSON line at
-    t = 1 and, for the Q80 kernel, at t = 16 and 128.  The Q80 kernel runs
-    both of its bodies at every t (the GEMV and the tensor-core body: the
-    crossover that sets ``q8.T_MMA``); its numbers are the routed body's."""
+def check_sites(codec, sites, dev, seed: int, pad: bool = True, rows=ROWS,
+                json_rows=JSON_ROWS) -> dict:
+    """Phases 2, 9 and 9b: ``codec``'s kernel (q40 or q8) against its plain
+    version at each site and row count, both of its bodies (the GEMV and
+    the tensor-core body) at every t, checked and timed; the routed one is
+    reported.  Prints, at each t, at how many sites the tensor-core body
+    wins and the sum over a 7B layer's four matmuls: the crossover that
+    sets ``T_MMA``.  Returns {(site, t): numbers} for the JSON line at
+    ``json_rows`` (not wcls above t = 1)."""
     is_q8 = codec.__name__.endswith(".q8")
     kernel = codec.q8_matmul if is_q8 else codec.q40_matmul
     replaces = Q8_REPLACES if is_q8 else Q40_REPLACES
     g = torch.Generator(device=dev)
     g.manual_seed(seed)
     flush = torch.ones(16 << 20, dtype=torch.float32, device=dev)
-    out = {}
+    out, wins = {}, {}
     print("site           t  route  kernel_ms  plain_ms  library_ms  bound_ms(by)  "
-          "max_abs_err  rel" + ("   gemv_ms    mma_ms" if is_q8 else ""))
+          "max_abs_err  rel   gemv_ms    mma_ms")
     for site, n, d, lead in sites:
         qt = random_planes(codec, lead, n, d, g, dev, pad)
         if len(lead) == 2:  # an expert stack: flat index on the card
@@ -330,41 +357,48 @@ def check_sites(codec, sites, dev, seed: int, pad: bool = True, rows=ROWS) -> di
         w_lib = codec.dequantize(qt, torch.bfloat16, layer=layers[-1])
         for t in rows:
             x = torch.randn((t, n), generator=g, device=dev).to(torch.bfloat16)
-            bodies = ("gemv", "mma") if is_q8 else (None,)
             err = 0.0
             for layer in layers:
                 p = codec.matmul_plain(x, qt, layer)
                 scale = float(p.abs().max())
-                for body in bodies:
-                    k = (kernel(x, qt.qpacked, qt.scales, n, layer, body=body) if is_q8
-                         else kernel(x, qt.qpacked, qt.scales, n, layer))
+                for body in ("gemv", "mma"):
+                    k = kernel(x, qt.qpacked, qt.scales, n, layer, body=body)
                     torch.cuda.synchronize()
                     e = float((k - p).abs().max())
                     if not (torch.isfinite(k).all() and e <= KERNEL_TOL * scale):
                         raise AssertionError(f"{site} t={t} index={layer} body={body}: "
                                              f"max|kernel-plain| {e} > {KERNEL_TOL} * {scale}")
-                    if body is None or body == codec.route(t):
+                    if body == codec.route(t):
                         err = max(err, e)
             layer = layers[-1]
-            times = {b: cold_ms(lambda: (kernel(x, qt.qpacked, qt.scales, n, layer, body=b)
-                                         if is_q8 else
-                                         kernel(x, qt.qpacked, qt.scales, n, layer)),
+            times = {b: cold_ms(lambda: kernel(x, qt.qpacked, qt.scales, n, layer, body=b),
                                 20, flush)
-                     for b in bodies}
-            body = codec.route(t) if is_q8 else None
+                     for b in ("gemv", "mma")}
+            body = codec.route(t)
             k_ms = times[body]
             p_ms = cold_ms(lambda: codec.matmul_plain(x, qt, layer), 5, flush)
             l_ms = cold_ms(lambda: torch.matmul(x, w_lib), 20, flush)
             b_ms, by = bound(t, n, d, 1.0 if is_q8 else 0.5)
-            print(f"{site:12s} {t:4d} {body or 'gemv':5s} {k_ms:10.4f} {p_ms:9.4f} "
+            print(f"{site:12s} {t:4d} {body:5s} {k_ms:10.4f} {p_ms:9.4f} "
                   f"{l_ms:11.4f} {b_ms:9.4f}({by[0]}) {err:12.6g} {err / scale:.2e}"
-                  + (f" {times['gemv']:9.4f} {times['mma']:9.4f}" if is_q8 else ""))
-            if t in JSON_ROWS[is_q8]:
+                  f" {times['gemv']:9.4f} {times['mma']:9.4f}")
+            w = wins.setdefault(t, [0, 0, 0.0, 0.0])
+            w[0] += times["mma"] < times["gemv"]
+            w[1] += 1
+            if site in ("wqkv", "wo", "w13", "w2"):  # a 7B layer's four matmuls
+                w[2] += times["gemv"]
+                w[3] += times["mma"]
+            if t in json_rows and (t == 1 or not site.endswith("wcls")):
                 out[(site, t)] = dict(replaces=replaces[1 if lead else 0], max_abs_err=err,
                                       ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=by,
-                                      library_ms=l_ms, n=n, d=d,
+                                      library_ms=l_ms, gemv_ms=times["gemv"],
+                                      mma_ms=times["mma"], n=n, d=d,
                                       key=(("mma",) if body == "mma" else ()) + (n, d))
         del qt, w_lib
+    for t, (won, of, g_ms, m_ms) in wins.items():
+        print(f"crossover, t = {t}: the tensor-core body is faster at {won} of {of} sites"
+              + (f"; a 7B layer's four matmuls {g_ms:.4f} ms GEMV, {m_ms:.4f} ms tensor "
+                 f"core" if g_ms else "") + f" (T_MMA = {codec.T_MMA})")
     del flush
     torch.cuda.empty_cache()
     return out
@@ -476,7 +510,7 @@ def main_path(cli, codec, m: str, t: str, want, extra: tuple = (),
     print(f"main path: {tps} tok/s, {ms} ms/token, peak device memory "
           f"{peak / 2**30:.2f} GiB, {engine.forwards} forwards, "
           f"{c[key]} {key}")
-    profile_decode(engine, ms, "q8_" if codec.__name__.endswith(".q8") else "q40_")
+    profile_decode(engine, ms, codec)
     run = dict(counts=c, tok_s=tps, ms_token=ms, peak_bytes=peak)
     if keep:
         return run, engine
@@ -485,16 +519,18 @@ def main_path(cli, codec, m: str, t: str, want, extra: tuple = (),
     return run
 
 
-def profile_decode(engine, ms_token: float | None, kname: str = "q40_", steps: int = 8,
+def profile_decode(engine, ms_token: float | None, codec, steps: int = 8,
                    prompts: list[list[int]] | None = None) -> None:
     """Where a decode token's time goes: torch.profiler over ``steps``
     greedy decode steps of the main path's engine.  Device busy time per
-    token is the sum of the kernels' device times (``kname`` picks out the
-    matmul kernel's); the idle share compares it with the unprofiled
-    ms/token of the run above.  With ``prompts`` (a batch engine) the steps
-    are lockstep steps of the ragged batch after ``prefill_ragged``, and
-    the unprofiled wall (``ms_token`` None) is taken here: host clock
-    around the same steps, synchronized."""
+    token is the sum of the kernels' device times (``codec``, q40 or q8,
+    picks out the matmul kernel's); the idle share compares it with the
+    unprofiled ms/token of the run above.  With ``prompts`` (a batch
+    engine) the steps are lockstep steps of the ragged batch after
+    ``prefill_ragged``, and the unprofiled wall (``ms_token`` None) is
+    taken here: host clock around the same steps, synchronized.  The
+    profiled steps' matmuls take the body ``codec.route`` names for the
+    batch's rows: tensor-core launches there, and only there."""
     from torch.profiler import ProfilerActivity, profile
     from dllama_tpu_torch.runtime.decode_loop import decode_chunk
 
@@ -516,9 +552,18 @@ def profile_decode(engine, ms_token: float | None, kname: str = "q40_", steps: i
         run()
         torch.cuda.synchronize()
         ms_token = (time.perf_counter() - t0) * 1e3 / steps
+    codec.reset_counters()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
+    c = codec.counters()
+    mm_launches = c["kernel_launches"] + c.get("blocked_launches", 0)
+    if not mm_launches or bool(c["mma_launches"]) != (codec.route(engine.batch) == "mma"):
+        raise AssertionError(f"{engine.batch}-row decode steps: {c}, want the "
+                             f"{codec.route(engine.batch)} body")
+    print(f"{codec.__name__.rsplit('.', 1)[1]} launches over the {steps} steps: "
+          f"{mm_launches}, {c['mma_launches']} on the tensor-core body")
+    kname = codec.__name__.rsplit(".", 1)[1] + "_"
     rows = []
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", 0) or 0
@@ -823,12 +868,14 @@ def serving_requests(n: int, seed: int = 7) -> list[tuple[str, dict]]:
     return chats[:1] + reqs + chats[1:]
 
 
-def profile_slot_step(engine, scheduler, steps: int = 2) -> None:
+def profile_slot_step(engine, scheduler, q40, steps: int = 2) -> None:
     """Where an 8-slot step's time goes: torch.profiler over ``steps``
     single-token decode steps, then over one mixed prefill step (16 tokens
     a row), on the serving engine with the scheduler parked; rows at
     positions 300..1000 on private pages.  The idle share compares device
-    busy time with the unprofiled step wall."""
+    busy time with the unprofiled step wall.  The Q40 matmuls of a step
+    (8 or 128 rows) take the body ``q40.route`` names: tensor-core launches
+    there, and only there."""
     from torch.profiler import ProfilerActivity, profile
     b = engine.batch
     per = 64  # pages a row: 1024 positions
@@ -845,10 +892,17 @@ def profile_slot_step(engine, scheduler, steps: int = 2) -> None:
     with scheduler.exclusive():
         for t, n in ((1, steps), (16, 1)):
             step(t)
+            q40.reset_counters()
             t0 = time.perf_counter()
             for _ in range(n):
                 step(t)
             wall = (time.perf_counter() - t0) * 1e3 / n
+            c = q40.counters()
+            mm = c["kernel_launches"] + c["blocked_launches"]
+            want = q40.route(b * t)
+            if not mm or bool(c["mma_launches"]) != (want == "mma"):
+                raise AssertionError(f"8-slot step of {t} token(s) a row: Q40 {c}, want "
+                                     f"the {want} body at {b * t} rows")
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 for _ in range(n):
                     step(t)
@@ -868,7 +922,8 @@ def profile_slot_step(engine, scheduler, steps: int = 2) -> None:
             print(f"8-slot {what}, {n} profiled: wall {wall:.3f} ms unprofiled, device "
                   f"busy {busy:.3f} ms -> idle share {1 - busy / wall:.3f}; paged attention "
                   f"kernel {attn:.3f} ms, q40 {q40k:.3f} ms, other {busy - attn - q40k:.3f} "
-                  f"ms; {sum(r[1] for r in rows)} kernel launches a step")
+                  f"ms; {sum(r[1] for r in rows)} kernel launches a step, Q40 "
+                  f"{mm // n} ({c['mma_launches'] // n} on the tensor-core body)")
             for ms_, k, name in sorted(rows, reverse=True)[:8]:
                 print(f"  {ms_:8.4f} ms/step {k:5d}x  {name[:90]}")
 
@@ -987,7 +1042,7 @@ def serve_path(api, attention, q40, m: str, t: str, n_requests: int,
         print(f"one request alone twice: {len(texts[0])} chars, byte for byte; "
               f"prefix cache hits {occ['prefix_hits']} in the burst, {hits} in all")
         if profile:
-            profile_slot_step(eng, sched)
+            profile_slot_step(eng, sched, q40)
         return dict(attn_launches=ac["kernel_launches"], tok_s=n_tok / wall,
                     ttft_p50=_percentile(ttft, 50), ttft_p99=_percentile(ttft, 99),
                     peak_bytes=peak, allreduce_launches=qc["allreduce_launches"])
@@ -1070,15 +1125,16 @@ def blocked_bound(t: int, n: int, d: int, dp: int) -> tuple[float, str]:
 
 def check_blocked(q40, dev, seed: int = 13) -> dict:
     """Phase 13: kernel 3 against its plain version at every site and row
-    count, and against kernels 1-2 on the same weights row-major; returns
-    {(site, 1): t=1 numbers} for the 7B sites."""
+    count, both bodies, and against kernels 1-2 on the same weights
+    row-major under the same body (bit for bit); returns {(site, t):
+    numbers of the routed body} for the 7B sites at JSON_ROWS."""
     g = torch.Generator(device=dev)
     g.manual_seed(seed)
     flush = torch.ones(16 << 20, dtype=torch.float32, device=dev)
     out, k12_diff = {}, 0.0
-    print("site           t  tiles        k3_ms  k12_ms  plain_ms  library_ms  "
-          "bound_ms(by)  max_abs_err  rel       |k3-k12|")
-    for site, n, d, lead, tiles in BLOCKED_SITES:
+    print("site           t  tiles       route    k3_ms  k12_ms  plain_ms  library_ms  "
+          "bound_ms(by)  max_abs_err  rel       |k3-k12|  k3_gemv  k3_mma")
+    for site, n, d, lead, tiles, rows in BLOCKED_SITES:
         qt = random_planes(q40, lead, n, d, g, dev)
         bqt = q40.to_blocked(qt, *(tiles or (None, None)))
         dp = bqt.qpacked.shape[2] * bqt.qpacked.shape[4]
@@ -1088,41 +1144,53 @@ def check_blocked(q40, dev, seed: int = 13) -> dict:
         else:
             layers = (None,)
         w_lib = q40.dequantize(qt, torch.bfloat16, layer=(lead[0] - 1) if lead else None)
-        for t in ROWS:
+        for t in rows:
             x = torch.randn((t, n), generator=g, device=dev).to(torch.bfloat16)
             err = 0.0
             for layer in layers:
-                k = q40.q40_blocked_matmul(x, bqt.qpacked, bqt.scales, (n, d), layer)
-                k12 = q40.q40_matmul(x, qt.qpacked, qt.scales, n, layer)
                 p = q40.matmul_plain(x, bqt, layer)
-                torch.cuda.synchronize()
-                e = float((k - p).abs().max())
                 scale = float(p.abs().max())
-                if not (k.shape == (t, d) and torch.isfinite(k).all()
-                        and e <= KERNEL_TOL * scale):
-                    raise AssertionError(f"kernel 3 {site} t={t} plane={layer}: "
-                                         f"max|kernel-plain| {e} > {KERNEL_TOL} * {scale}")
-                err = max(err, e)
-                k12_diff = max(k12_diff, float((k - k12).abs().max()))
+                for body in ("gemv", "mma"):
+                    k = q40.q40_blocked_matmul(x, bqt.qpacked, bqt.scales, (n, d), layer,
+                                               body=body)
+                    k12 = q40.q40_matmul(x, qt.qpacked, qt.scales, n, layer, body=body)
+                    torch.cuda.synchronize()
+                    e = float((k - p).abs().max())
+                    if not (k.shape == (t, d) and torch.isfinite(k).all()
+                            and e <= KERNEL_TOL * scale):
+                        raise AssertionError(f"kernel 3 {site} t={t} plane={layer} "
+                                             f"body={body}: max|kernel-plain| {e} > "
+                                             f"{KERNEL_TOL} * {scale}")
+                    if body == q40.route(t):
+                        err = max(err, e)
+                    k12_diff = max(k12_diff, float((k - k12).abs().max()))
             layer = layers[-1]
-            k_ms = cold_ms(lambda: q40.q40_blocked_matmul(x, bqt.qpacked, bqt.scales,
-                                                          (n, d), layer), 20, flush)
+            body = q40.route(t)
+            times = {b: cold_ms(lambda: q40.q40_blocked_matmul(x, bqt.qpacked, bqt.scales,
+                                                               (n, d), layer, body=b),
+                                20, flush)
+                     for b in ("gemv", "mma")}
+            k_ms = times[body]
             r_ms = cold_ms(lambda: q40.q40_matmul(x, qt.qpacked, qt.scales, n, layer),
                            20, flush)
             p_ms = cold_ms(lambda: q40.matmul_plain(x, bqt, layer), 5, flush)
             l_ms = cold_ms(lambda: torch.matmul(x, w_lib), 20, flush)
             b_ms, by = blocked_bound(t, n, d, dp)
-            print(f"{site:12s} {t:4d} {str(bqt.tiles):11s} {k_ms:8.4f} {r_ms:7.4f} "
+            print(f"{site:12s} {t:4d} {str(bqt.tiles):11s} {body:5s} {k_ms:8.4f} {r_ms:7.4f} "
                   f"{p_ms:9.4f} {l_ms:11.4f} {b_ms:9.4f}({by[0]}) {err:12.6g} "
-                  f"{err / scale:.2e} {k12_diff:g}")
-            if t == 1 and not site.startswith("narrow"):
+                  f"{err / scale:.2e} {k12_diff:g} {times['gemv']:8.4f} {times['mma']:8.4f}")
+            if t in JSON_ROWS and site in {s_ for s_, *_ in LLAMA_SITES} and (
+                    t == 1 or site != "wcls"):
                 out[(site, t)] = dict(replaces=BLOCKED_REPLACES, max_abs_err=err, ms=k_ms,
                                       plain_ms=p_ms, bound_ms=b_ms, bound_by=by,
-                                      library_ms=l_ms, n=n, d=d, key=(n, d),
-                                      rowmajor_ms=r_ms)
+                                      library_ms=l_ms, n=n, d=d, rowmajor_ms=r_ms,
+                                      key=("blocked-mma" if body == "mma" else "blocked",
+                                           n, d))
         del qt, bqt, w_lib
-    print(f"max|kernel 3 - kernels 1-2| over every site, row count and plane: "
+    print(f"max|kernel 3 - kernels 1-2| over every site, row count, plane and body: "
           f"{k12_diff:g} ({'bit for bit' if k12_diff == 0 else 'NOT bit for bit'})")
+    if k12_diff != 0:
+        raise AssertionError(f"kernel 3 differs from kernels 1-2 by {k12_diff}")
     del flush
     torch.cuda.empty_cache()
     return out
@@ -1181,7 +1249,7 @@ def batch_path(cli, q40, m: str, t: str, tfile, steps: int = 48) -> dict:
         run = dict(counts=c, tok_s=tps, wall_s=wall, decode_forwards=decode,
                    tokens=got)
         if len(outs) == 2:  # a lockstep step at t = 8 on the second run's engine
-            profile_decode(engine, None, prompts=[tok.encode(p, add_bos=True)
+            profile_decode(engine, None, q40, prompts=[tok.encode(p, add_bos=True)
                                                   for p in prompts])
         del engine
     if outs[0] != outs[1]:
@@ -1459,10 +1527,10 @@ def kernel_entries(run, run_tp, run_mix, run_blocked, run_q8, served, table, tp_
     """The ``kernels`` JSON line's entries: each kernel at the shapes of the
     phase that checked it, with the launches of the main path that ran it;
     raises when a kernel of a path was never launched there."""
-    def entries(name, src, sites, counts, layout=()):
+    def entries(name, src, sites, counts):
         return [dict(name=f"{name}[{site}]" if t == 1 else f"{name}[{site},t={t}]",
                      route="cuda", source=src, replaces=r["replaces"],
-                     launches=counts.get((*layout, *r["key"]), 0),
+                     launches=counts.get(r["key"], 0),
                      max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
                      bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                      library_ms=r["library_ms"])
@@ -1472,18 +1540,17 @@ def kernel_entries(run, run_tp, run_mix, run_blocked, run_q8, served, table, tp_
     # launches: Q40 on the 7B path (phase 3) and Mixtral's (phase 11; its
     # up/gate count holds both), kernel 3 on the blocked 7B path (phase
     # 14), Q80 on the Q80 7B path (phase 10), kernel 7 in the serving runs
-    # (phases 7, 11b).  Q80 also at t = 16 and 128 (the tensor-core body,
-    # launched by the Q80 path's t = 128 prefill), but for wcls: the LM
-    # head reads one row a sequence, so it runs the GEMV body only
+    # (phases 7, 11b).  The 7B sites of Q40 (both layouts) and Q80 also at
+    # t = 16 and 128: the tensor-core body, launched by the paths' prefills
+    # (Q40: the 16-row bucket; Q80: t = 128), but for wcls (JSON_ROWS)
     kernels = entries("q40_matmul", SRC, table, run["counts"]["launches_by_shape"])
     kernels += entries("q40_matmul", SRC, tp_table, run_tp["counts"]["launches_by_shape"])
     kernels += entries("q40_matmul", SRC, mix_table, run_mix["counts"]["launches_by_shape"])
     kernels += entries("q40_matmul_blocked", SRC, blocked_table,
-                       run_blocked["counts"]["launches_by_shape"], ("blocked",))
+                       run_blocked["counts"]["launches_by_shape"])
     kernels += entries("q8_matmul", Q8_SRC,
                        {k: r for k, r in q8_table.items()
-                        if k[0] in {s for s, *_ in LLAMA_SITES}
-                        and (k[1] == 1 or k[0] != "wcls")},
+                        if k[0] in {s for s, *_ in LLAMA_SITES}},
                        run_q8["counts"]["launches_by_shape"])
     attn_rows = [(c, r, served[c]) for c, r in attn.items()]
     attn_rows.append(("bf16,G=4", attn_g4["bf16"], served["g4"]))
@@ -1539,20 +1606,22 @@ def main() -> int:
         print(_build.build_log.strip() or f"kernel library {_build.library_path()}")
     if run_phase(2):
         with phase("2 kernel vs plain at the 7B shapes"):
-            table = check_sites(q40, LLAMA_SITES, dev, seed=0)
+            table = check_sites(q40, LLAMA_SITES, dev, seed=0, rows=Q40_CROSS_ROWS)
+            check_sites(q40, RAGGED, dev, seed=3, rows=RAGGED_ROWS)
         with phase("2b kernel vs plain at a rank's 7B shapes at tp = 2 (unpadded)"):
-            tp_table = check_sites(q40, TP2_SITES, dev, seed=2, pad=False)
+            tp_table = check_sites(q40, TP2_SITES, dev, seed=2, pad=False, json_rows=(1,))
     if run_phase(13):
         with phase("13 kernel 3 (blocked planes) vs plain at the 7B shapes"):
             blocked_table = check_blocked(q40, dev)
     if run_phase(9):
         with phase("9 Q80 kernel vs plain at the 7B, Mixtral and Grok-1 shapes"):
             q8_table = check_sites(q8, LLAMA_SITES + MIXTRAL_SITES + GROK_SITES, dev, seed=9,
-                                   rows=Q8_ROWS)
-            check_sites(q8, TP2_SITES, dev, seed=11, pad=False, rows=Q8_ROWS)
-            check_sites(q8, Q8_RAGGED, dev, seed=12, rows=Q8_RAGGED_ROWS)
+                                   rows=CROSS_ROWS)
+            check_sites(q8, TP2_SITES, dev, seed=11, pad=False, rows=CROSS_ROWS)
+            check_sites(q8, RAGGED, dev, seed=12, rows=RAGGED_ROWS)
         with phase("9b Q40 kernel vs plain at Mixtral's shapes, experts by device index"):
-            mix_table = check_sites(q40, MIXTRAL_SITES, dev, seed=10)
+            mix_table = check_sites(q40, MIXTRAL_SITES, dev, seed=10, rows=MIX_ROWS,
+                                    json_rows=(1,))
     if run_phase(6):
         with phase("6 paged attention kernel vs plain at the 7B shape"):
             attn = check_paged_attention(attention, dev)
@@ -1579,6 +1648,16 @@ def main() -> int:
             with phase("3 main path: inference at Llama-2-7B width"):
                 run, eng = main_path(cli, q40, m, t, lambda e: per_fwd * e.forwards,
                                      keep=True)
+                q40.reset_counters()
+                eng.decode_one(5)
+                one = q40.counters()
+                if (one["kernel_launches"], one["mma_launches"], one["plain_calls"]) != (
+                        per_fwd, 0, 0):
+                    raise AssertionError(f"a single-token forward: {one}, want {per_fwd} "
+                                         f"GEMV-body launches")
+                print(f"one single-token forward: {per_fwd} Q40 launches, all on the GEMV "
+                      f"body; the run's prompt forwards (16-row bucket): "
+                      f"{run['counts']['mma_launches']} on the tensor-core body")
                 tp1_logits = first_logits(eng)  # phase 17's reference
                 del eng
                 torch.cuda.empty_cache()

@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
-``nvcc`` compiles each ``csrc/*.cu`` into an object, all sources at
-once in parallel processes, and links them into one shared library with a
-plain C interface, loaded with ``ctypes``:
+``nvcc`` compiles each ``csrc/*.cu`` (with the ``csrc/*.cuh`` headers it
+includes) into an object, all sources at once in parallel processes, and
+links them into one shared library with a plain C interface, loaded with
+``ctypes``:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \\
          -Xcompiler -fPIC -Xptxas -v -c -o build/<source>-<hash>.o csrc/<source>.cu
@@ -10,7 +11,7 @@ plain C interface, loaded with ``ctypes``:
          -o build/libdllama_kernels-<hash>.so build/*-<hash>.o
 
 The library lands in ``dllama_tpu_torch/build/`` at first use, named by a
-hash of the sources and flags, so an edited source rebuilds and an
+hash of the sources, headers and flags, so an edited source rebuilds and an
 unchanged one is reused.  Importing the package never needs ``nvcc``: the
 build runs at the first CUDA call (or an explicit :func:`load`).  Without
 ``nvcc`` the build raises — there is no other path to hand back.
@@ -26,9 +27,10 @@ import subprocess
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PKG = os.path.dirname(HERE)
-SOURCES = [os.path.join(HERE, "csrc", n)
-           for n in ("q40_matmul.cu", "q8_matmul.cu", "paged_attention.cu",
-                     "tp_allreduce.cu")]
+CSRC = os.path.join(HERE, "csrc")
+SOURCES = ("q40_matmul.cu", "q8_matmul.cu", "paged_attention.cu", "tp_allreduce.cu")
+# headers the sources include: hashed with them, so an edit rebuilds
+HEADERS = ("mma_common.cuh",)
 BUILD_DIR = os.path.join(PKG, "build")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -61,8 +63,8 @@ def find_nvcc() -> str:
 
 def library_path() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
-        with open(src, "rb") as f:
+    for name in SOURCES + HEADERS:
+        with open(os.path.join(CSRC, name), "rb") as f:
             h.update(f.read())
     return os.path.join(BUILD_DIR, f"libdllama_kernels-{h.hexdigest()[:16]}.so")
 
@@ -90,12 +92,12 @@ def build() -> str:
     nvcc = find_nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
     tag = f"{os.path.basename(path)[:-3]}.{os.getpid()}"
-    objs = [os.path.join(BUILD_DIR, f"{os.path.basename(src)[:-3]}-{tag}.o")
-            for src in SOURCES]
+    srcs = [os.path.join(CSRC, name) for name in SOURCES]
+    objs = [os.path.join(BUILD_DIR, f"{name[:-3]}-{tag}.o") for name in SOURCES]
     tmp = f"{path}.{os.getpid()}.tmp"
     try:
         log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", o, src]
-                        for src, o in zip(SOURCES, objs)])
+                        for src, o in zip(srcs, objs)])
         log += _run_all([[nvcc, *ARCH, "-shared", "-o", tmp, *objs]])
     finally:
         for o in objs:

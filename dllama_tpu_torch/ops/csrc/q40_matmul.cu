@@ -40,7 +40,10 @@
 // 0.5625 B/weight (0.5 nibble + 0.0625 scale), against 3.35 TB/s of HBM on
 // an H100 SXM: 3.74 GB per Llama-2-7B token, a floor of about 1.1 ms.
 //
-// What the design does about it:
+// Two bodies share the storage and the entry points' operands: the GEMV
+// body below for calls of t < T_MMA rows (decode), and the tensor-core body
+// after it for t >= T_MMA (prefill chunks, mixed steps, lockstep batches;
+// ops/q40.py route).  What the GEMV body does about the byte bound:
 //  * Loads are coalesced along d, the contiguous axis of both planes: each
 //    thread owns 4 adjacent output columns and reads 4 packed bytes (one
 //    32-bit load) per packed row and 4 scales (one 64-bit load) per block;
@@ -63,12 +66,14 @@
 //    (256 rows of x), read as broadcasts.  Rows of x are processed in groups
 //    of TG (a template parameter: 1 at decode, up to 8), so t = 128 loops
 //    over 16 row groups instead of holding 128 accumulators per thread.
-// wgmma, TMA and a software pipeline are left to later work.
+// wgmma and TMA are left to later work.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "mma_common.cuh"
 
 namespace {
 
@@ -95,6 +100,23 @@ struct RowMajor {
   __device__ int cols() const { return d; }
   // the vector loads need 4 columns inside the row
   __device__ bool vec(int col0) const { return (d % kCols == 0) && (col0 + kCols <= d); }
+  // the tensor-core body's addressing: val and scale as a part of the step
+  // (blocks b and b + 1: v, s) plus a part of the column (vcol, scol).  The
+  // body walks its steps in order; a Cursor holds the step's first block,
+  // and step_rows moves it on to the next step's
+  struct Cursor {
+    unsigned b;
+  };
+  __device__ Cursor cursor(unsigned b0) const { return {b0}; }
+  __device__ void step_rows(Cursor& c, size_t* v, size_t* s) const {
+    v[0] = (size_t)c.b * 16 * d;
+    v[1] = v[0] + (size_t)16 * d;
+    s[0] = (size_t)c.b * d;
+    s[1] = s[0] + d;
+    c.b += 2;
+  }
+  __device__ size_t vcol(int c) const { return c; }
+  __device__ size_t scol(int c) const { return c; }
 };
 
 struct Blocked {
@@ -112,6 +134,35 @@ struct Blocked {
   // td % 4 == 0 and the pad columns exist: 4 columns from col0 < d always lie
   // in one tile
   __device__ bool vec(int) const { return true; }
+  // the tensor-core body's addressing, as RowMajor's, with no division
+  // after the first step: the Cursor holds the row tile q and the packed row
+  // rem within it of the step's first block, and a block either follows
+  // the one before in its row tile or opens the next (bn % 16 == 0)
+  struct Cursor {
+    unsigned q, rem;
+  };
+  __device__ Cursor cursor(unsigned b0) const {
+    return {b0 * 16 / bn, b0 * 16 % bn};
+  }
+  __device__ void next_block(unsigned& q, unsigned& rem) const {
+    rem += 16;
+    if (rem == (unsigned)bn) {
+      rem = 0;
+      ++q;
+    }
+  }
+  __device__ void step_rows(Cursor& c, size_t* v, size_t* s) const {
+    unsigned q1 = c.q, rem1 = c.rem;
+    next_block(q1, rem1);
+    v[0] = ((size_t)c.q * nJ * bn + c.rem) * td;
+    v[1] = ((size_t)q1 * nJ * bn + rem1) * td;
+    s[0] = ((size_t)c.q * nJ * (bn / 16) + c.rem / 16) * td;
+    s[1] = ((size_t)q1 * nJ * (bn / 16) + rem1 / 16) * td;
+    next_block(q1, rem1);
+    c = {q1, rem1};
+  }
+  __device__ size_t vcol(int c) const { return (size_t)(c / td) * bn * td + c % td; }
+  __device__ size_t scol(int c) const { return (size_t)(c / td) * (bn / 16) * td + c % td; }
 };
 
 template <int TG, class Layout>
@@ -266,6 +317,345 @@ int run(const void* x, const void* qpacked, const void* scales, void* out,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// The tensor-core body, for t >= T_MMA rows (python: ops/q40.py T_MMA,
+// route), in both layouts: the Q80 kernel's tensor-core body (q8_matmul.cu
+// q8_matmul_mma_kernel, its machinery in mma_common.cuh) with a Q40 weight
+// tile.  The GEMV body above dequantizes every weight once a group of up to
+// 8 rows of x, on the FP32 FMAs; this body dequantizes it once per BM rows
+// and multiplies on the tensor cores:
+//  * A block owns a BM x 128 output tile (BM in 16, 32, 64, 128: the least
+//    that covers t; ops/q40.py mma_plan, the Q80 body's plan) and walks its
+//    share of n in steps of 64 logical rows: two quantization blocks, 32
+//    packed rows.  Partial sums of the split-K go to f32 scratch (splits, t,
+//    d) and add in a fixed order (q40_reduce_splits): results repeat bit for
+//    bit.
+//  * cp.async brings a step's packed tile (32 x 128 bytes), its two f16
+//    scale rows and the bf16 x tile (BM x 64) into a ring of kQ4Stages
+//    stages, zero-filling rows of x past t, a second block past n/32 (n/32
+//    odd) and columns past the plane's stored width; copies of 16, 8 or 4
+//    bytes, the widest every row start allows.  Each quantization block's 16
+//    packed rows are addressed through the Layout (val, scale, stride), so
+//    in the blocked layout a step's two blocks may lie in two row tiles and
+//    a 128-column tile may span column tiles: a copy never crosses one, as
+//    its width divides td.  The blocked pad columns d..dp carry zero scales
+//    and are never written.
+//  * The threads unpack step s+1's tile into one of two bf16 (k, d) tiles in
+//    shared memory while the warps run mma.sync on step s's: a byte of packed
+//    row 16b + r gives logical row 32b + r (low nibble) and 32b + 16 + r
+//    (high nibble), each bf16(f32(nib - 8) * f32(s)) rounded to nearest even,
+//    the GEMV body's numerics (nibbles widen four at a time with byte
+//    permutes, the 2^23 trick).  Then ldmatrix (x), ldmatrix.trans (the
+//    weight tile) and mma.sync m16n8k16 with f32 accumulation, as the Q80
+//    body.  One barrier a step.
+// Both layouts take the same plan on the logical d and add the same
+// products in the same order, so kernel 3 equals kernels 1-2 bit for bit
+// under this body too; products of bf16 values are exact in f32, so the
+// result differs from the GEMV body's only in the order of the f32 sums.
+
+constexpr int kQ4Stages = 4;                  // ring stages
+constexpr int kQ4Tile = kMmaBK / 2 * kMmaBN;  // packed bytes a step: 32 rows x 128 columns
+constexpr int kQ4Scales = 2 * kMmaBN * 2;     // two f16 scale rows
+
+template <int BM>
+__host__ __device__ constexpr int q4_stage_bytes() {
+  return kQ4Tile + kQ4Scales + BM * kXS * 2;  // packed tile, scales, x tile
+}
+
+template <int BM>
+__host__ __device__ constexpr int q4_smem_bytes() {
+  return kQ4Stages * q4_stage_bytes<BM>() + 2 * kMmaBK * kWS * 2;  // + two bf16 tiles
+}
+
+// Packed rows r0, r0 + rs, ... < 32 of a step's tile at byte column c, in
+// copies of N bytes (N = 1: plain byte loads, for a row-major plane of
+// d % 4 != 0) from qp + v0|v1 (the step's two blocks) + vc (the column) +
+// the row within the block; rows of a block at or past n_blk, and a column
+// that is not `live`, are zero.
+template <int N>
+__device__ __forceinline__ void stage_packed(unsigned char* dst, const uint8_t* qp, size_t v0,
+                                             size_t v1, size_t vc, int stride, int r0, int rs,
+                                             int c, bool live, int n_blk) {
+  for (int r = r0; r < 32; r += rs) {
+    const bool ok = live && (r >> 4) < n_blk;
+    const uint8_t* src = ok ? qp + ((r >> 4) ? v1 : v0) + vc + (size_t)(r & 15) * stride : qp;
+    if constexpr (N >= 4)
+      cp_async_zfill<N>(dst + r * kMmaBN + c, src, ok);
+    else
+      dst[r * kMmaBN + c] = ok ? *src : static_cast<unsigned char>(0);
+  }
+}
+
+// One copy of N bytes of a scale row (N = 2: a plain load of one scale)
+template <int N>
+__device__ __forceinline__ void stage_scale(unsigned char* dst, const __half* src, bool ok) {
+  if constexpr (N >= 4)
+    cp_async_zfill<N>(dst, src, ok);
+  else
+    *reinterpret_cast<__half*>(dst) = ok ? *src : __ushort_as_half(static_cast<unsigned short>(0));
+}
+
+// nibble byte `k` of `v` (bytes 0..15) minus 8 as a float, exactly: the
+// byte permute builds 2^23 + nib, the subtraction of 2^23 + 8 is exact
+template <int K>
+__device__ __forceinline__ float nib4_f32(uint32_t v) {
+  return __uint_as_float(__byte_perm(v, 0x4B000000u, 0x7650 + K)) - 8388616.0f;
+}
+
+// four weights bf16((nib_c - 8) * s_c) of nibble bytes `v` into p[0..3]
+__device__ __forceinline__ void store_w4(__nv_bfloat16* p, uint32_t v, float s0, float s1,
+                                         float s2, float s3) {
+  const __nv_bfloat162 a = __floats2bfloat162_rn(nib4_f32<0>(v) * s0, nib4_f32<1>(v) * s1);
+  const __nv_bfloat162 b = __floats2bfloat162_rn(nib4_f32<2>(v) * s2, nib4_f32<3>(v) * s3);
+  uint2 packed;
+  packed.x = *reinterpret_cast<const uint32_t*>(&a);
+  packed.y = *reinterpret_cast<const uint32_t*>(&b);
+  *reinterpret_cast<uint2*>(p) = packed;
+}
+
+template <int BM, class Layout>
+__global__ void __launch_bounds__(MmaShape<BM>::Threads, MmaShape<BM>::MinBlocks)
+q40_matmul_mma_kernel(const __nv_bfloat16* __restrict__ x,   // (t, n)
+                      const uint8_t* __restrict__ qpacked,    // n_planes planes
+                      const __half* __restrict__ scales,      // n_planes planes
+                      const int* __restrict__ plane_p,        // the plane to read
+                      float* __restrict__ part,               // (splits, t, d)
+                      int t, int n, int np, int d, int n_planes, int steps_per, int w_al,
+                      int s_al, Layout lay) {
+  using S = MmaShape<BM>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int kStage = q4_stage_bytes<BM>();
+  // packed rows a thread unpacks a step: 4 (256 threads) or 2, in one block
+  constexpr int kPk = kMmaBK / 2 * 32 / S::Threads;
+  __nv_bfloat16* wbs = reinterpret_cast<__nv_bfloat16*>(smem + kQ4Stages * kStage);
+
+  const size_t plane = (size_t)min(max(*plane_p, 0), n_planes - 1);
+  const uint8_t* qp = qpacked + plane * (size_t)(np / 2) * (size_t)lay.cols();
+  const __half* sc = scales + plane * (size_t)(np / 32) * (size_t)lay.cols();
+  const int m0 = blockIdx.x * BM;
+  const int col0 = blockIdx.y * kMmaBN;
+  const int n_steps = (n + kMmaBK - 1) / kMmaBK;
+  const int s_begin = blockIdx.z * steps_per;
+  const int n_mine = min(n_steps, s_begin + steps_per) - s_begin;
+  const int vc = min(kMmaBN, lay.cols() - col0);  // stored columns of the tile
+  const int nb = n / 32;
+
+  // the copies this thread issues every step, fixed for the block: packed
+  // rows wr0, wr0 + wrs, ... < 32 of the tile at byte column wc in copies of
+  // wcp bytes, and, when sr < 2, scale row sr at column scn in copies of scp
+  // bytes.  The widths (w_al, s_al: 16, 8, 4, or 0 for plain loads) divide
+  // every row start and, blocked, td and 2 td: no copy crosses a column
+  // tile.  Columns at or past vc are zero.
+  const int wcp = w_al ? w_al : 1, wper = kMmaBN / wcp;
+  const int wc = threadIdx.x % wper * wcp;
+  const int wr0 = threadIdx.x / wper, wrs = S::Threads / wper;
+  const bool wlive = wc + wcp <= vc;
+  const size_t wcol = lay.vcol(col0 + wc);
+  const int scp = s_al ? s_al : 2, sper = 2 * kMmaBN / scp;
+  const int scn = threadIdx.x % sper * (scp / 2);
+  const int sr = threadIdx.x / sper;
+  const bool slive = scn + scp / 2 <= vc;
+  const size_t scol = lay.scol(col0 + scn);
+  // fetch runs for steps 0, 1, 2, ... in order: the cursor follows it
+  auto cur = lay.cursor((unsigned)s_begin * 2);
+
+  auto fetch = [&](int i) {
+    unsigned char* st = smem + (i % kQ4Stages) * kStage;
+    const int k0 = (s_begin + i) * kMmaBK;
+    const int n_blk = nb - k0 / 32;  // blocks of the step inside n: 1 or more
+    size_t vrow[2], srow[2];
+    lay.step_rows(cur, vrow, srow);
+    const int stride = lay.stride();
+    switch (wcp) {
+      case 16:
+        stage_packed<16>(st, qp, vrow[0], vrow[1], wcol, stride, wr0, wrs, wc, wlive, n_blk);
+        break;
+      case 8:
+        stage_packed<8>(st, qp, vrow[0], vrow[1], wcol, stride, wr0, wrs, wc, wlive, n_blk);
+        break;
+      case 4:
+        stage_packed<4>(st, qp, vrow[0], vrow[1], wcol, stride, wr0, wrs, wc, wlive, n_blk);
+        break;
+      default:
+        stage_packed<1>(st, qp, vrow[0], vrow[1], wcol, stride, wr0, wrs, wc, wlive, n_blk);
+    }
+    if (sr < 2) {
+      const bool ok = slive && sr < n_blk;
+      const __half* src = ok ? sc + (sr ? srow[1] : srow[0]) + scol : sc;
+      unsigned char* sdst = st + kQ4Tile + sr * 2 * kMmaBN + scn * 2;
+      switch (scp) {
+        case 16: stage_scale<16>(sdst, src, ok); break;
+        case 8: stage_scale<8>(sdst, src, ok); break;
+        case 4: stage_scale<4>(sdst, src, ok); break;
+        default: stage_scale<2>(sdst, src, ok);
+      }
+    }
+    stage_rows(st + kQ4Tile + kQ4Scales, kXS * 2,
+               reinterpret_cast<const unsigned char*>(x + (size_t)m0 * n + k0), 2L * n, BM,
+               2 * kMmaBK, t - m0, 2 * min(kMmaBK, n - k0), 16);
+  };
+
+  // unpacking: thread owns columns 4*cg..4*cg+3 of packed rows kPk*rg ..
+  // kPk*rg + kPk - 1, all in quantization block blk of the step
+  const int cg = threadIdx.x & 31;
+  const int r0 = (threadIdx.x >> 5) * kPk;
+  const int blk = r0 >> 4;
+  auto dequant = [&](int i) {
+    const unsigned char* st = smem + (i % kQ4Stages) * kStage;
+    __nv_bfloat16* wb = wbs + (i & 1) * kMmaBK * kWS;
+    const uint2 sraw =
+        *reinterpret_cast<const uint2*>(st + kQ4Tile + blk * 2 * kMmaBN + cg * 8);
+    const float s0 = f16_bits(sraw.x & 0xFFFFu), s1 = f16_bits(sraw.x >> 16);
+    const float s2 = f16_bits(sraw.y & 0xFFFFu), s3 = f16_bits(sraw.y >> 16);
+#pragma unroll
+    for (int r = 0; r < kPk; ++r) {
+      const uint32_t u = *reinterpret_cast<const uint32_t*>(st + (r0 + r) * kMmaBN + cg * 4);
+      const int lo = 32 * blk + ((r0 + r) & 15);  // logical row of the low nibbles
+      store_w4(wb + lo * kWS + cg * 4, u & 0x0F0F0F0Fu, s0, s1, s2, s3);
+      store_w4(wb + (lo + 16) * kWS + cg * 4, (u >> 4) & 0x0F0F0F0Fu, s0, s1, s2, s3);
+    }
+  };
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int wm = warp / S::WN;
+  const int wn = warp - wm * S::WN;
+  // ldmatrix: this lane's row (of 16) and 8-column half of the four 8x8
+  // matrices it addresses
+  const int lr = (lane & 7) + ((lane >> 3) & 1) * 8;
+  const int lc = (lane >> 4) * 8;
+  float acc[S::MT][S::NT][4];
+#pragma unroll
+  for (int i = 0; i < S::MT; ++i)
+#pragma unroll
+    for (int j = 0; j < S::NT; ++j)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) acc[i][j][k] = 0.f;
+
+#pragma unroll
+  for (int i = 0; i < kQ4Stages - 1; ++i) {
+    if (i < n_mine) fetch(i);
+    cp_async_commit();
+  }
+  cp_async_wait<kQ4Stages - 2>();
+  __syncthreads();
+  dequant(0);
+  for (int it = 0; it < n_mine; ++it) {
+    cp_async_wait<kQ4Stages - 3>();
+    // step it+1 landed and step it's bf16 tile is whole; step it-1's mma
+    // is done with its stage and its bf16 tile
+    __syncthreads();
+    if (it + kQ4Stages - 1 < n_mine) fetch(it + kQ4Stages - 1);
+    cp_async_commit();
+    if (it + 1 < n_mine) dequant(it + 1);
+
+    const __nv_bfloat16* xs = reinterpret_cast<const __nv_bfloat16*>(
+        smem + (it % kQ4Stages) * kStage + kQ4Tile + kQ4Scales);
+    const __nv_bfloat16* wb = wbs + (it & 1) * kMmaBK * kWS;
+#pragma unroll
+    for (int kk = 0; kk < kMmaBK / 16; ++kk) {
+      uint32_t a[S::MT][4];
+#pragma unroll
+      for (int i = 0; i < S::MT; ++i)
+        ldmatrix_x4(a[i], xs + (wm * (BM / S::WM) + i * 16 + lr) * kXS + kk * 16 + lc);
+#pragma unroll
+      for (int j = 0; j < S::NT; j += 2) {
+        uint32_t bfr[4];
+        ldmatrix_x4_trans(bfr, wb + (kk * 16 + lr) * kWS + wn * (kMmaBN / S::WN) + j * 8 + lc);
+#pragma unroll
+        for (int i = 0; i < S::MT; ++i) {
+          mma_bf16(acc[i][j], a[i], bfr[0], bfr[1]);
+          mma_bf16(acc[i][j + 1], a[i], bfr[2], bfr[3]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  float* dst = part + (size_t)blockIdx.z * t * d;
+  const int gid = lane >> 2;
+  const int tig = lane & 3;
+#pragma unroll
+  for (int i = 0; i < S::MT; ++i) {
+#pragma unroll
+    for (int j = 0; j < S::NT; ++j) {
+      const int col = col0 + wn * (kMmaBN / S::WN) + j * 8 + tig * 2;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = m0 + wm * (BM / S::WM) + i * 16 + gid + h * 8;
+        if (row >= t) continue;
+        float* o = dst + (size_t)row * d;
+        if (col < d) o[col] = acc[i][j][2 * h];
+        if (col + 1 < d) o[col + 1] = acc[i][j][2 * h + 1];
+      }
+    }
+  }
+}
+
+template <int BM, class Layout>
+cudaError_t launch_mma(const __nv_bfloat16* x, const uint8_t* qp, const __half* sc,
+                       const int* idx, float* part, int t, int n, int np, int d,
+                       int n_planes, int splits, int steps_per, int w_al, int s_al, Layout lay,
+                       cudaStream_t stream) {
+  auto kern = q40_matmul_mma_kernel<BM, Layout>;
+  // the dynamic shared-memory opt-in, once per instantiation and device
+  static unsigned done = 0;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= 32 || !(done >> dev & 1u)) {
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    if (e != cudaSuccess) return e;
+    if (dev < 32) done |= 1u << dev;
+  }
+  const dim3 grid((t + BM - 1) / BM, (d + kMmaBN - 1) / kMmaBN, splits);
+  kern<<<grid, MmaShape<BM>::Threads, q4_smem_bytes<BM>(), stream>>>(
+      x, qp, sc, idx, part, t, n, np, d, n_planes, steps_per, w_al, s_al, lay);
+  return cudaGetLastError();
+}
+
+// Both tensor-core entry points: the tile height by bm, then the
+// fixed-order reduce of the splits.
+template <class Layout>
+int run_mma(const void* x, const void* qpacked, const void* scales, void* out, void* scratch,
+            const void* idx, int t, int n, int np, int d, int n_planes, int bm, int splits,
+            int steps_per, int w_al, int s_al, Layout lay, void* stream) {
+  const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
+  const uint8_t* qp = static_cast<const uint8_t*>(qpacked);
+  const __half* sc = static_cast<const __half*>(scales);
+  const int* ip = static_cast<const int*>(idx);
+  float* part = static_cast<float*>(splits > 1 ? scratch : out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  switch (bm) {
+    case 16:
+      e = launch_mma<16>(xb, qp, sc, ip, part, t, n, np, d, n_planes, splits, steps_per, w_al,
+                         s_al, lay, s);
+      break;
+    case 32:
+      e = launch_mma<32>(xb, qp, sc, ip, part, t, n, np, d, n_planes, splits, steps_per, w_al,
+                         s_al, lay, s);
+      break;
+    case 64:
+      e = launch_mma<64>(xb, qp, sc, ip, part, t, n, np, d, n_planes, splits, steps_per, w_al,
+                         s_al, lay, s);
+      break;
+    case 128:
+      e = launch_mma<128>(xb, qp, sc, ip, part, t, n, np, d, n_planes, splits, steps_per, w_al,
+                          s_al, lay, s);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  if (e != cudaSuccess) return (int)e;
+  if (splits > 1) {
+    const size_t total = (size_t)t * (size_t)d;
+    q40_reduce_splits<<<(unsigned)((total + 255) / 256), 256, 0, s>>>(
+        part, static_cast<float*>(out), splits, total);
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // x (t, n) bf16; qpacked (n_planes, np/2, d) u8 (any leading dims,
@@ -291,6 +681,32 @@ extern "C" int q40_matmul_blocked(const void* x, const void* qpacked,
                                   int td, int nJ, void* stream) {
   return run(x, qpacked, scales, out, scratch, idx, t, n, np, d, n_planes,
              splits, kb_per, Blocked{bn, td, nJ}, stream);
+}
+
+// The tensor-core body (t >= T_MMA) of kernels 1-2: x (t, n) bf16 (16-byte
+// aligned); qpacked, scales, idx and out as q40_matmul; bm in 16, 32, 64,
+// 128; the reduction over n cut into `splits` ranges of `steps_per` 64-row
+// steps (ops/q40.py mma_plan), scratch (splits, t, d) f32 when splits > 1;
+// w_al / s_al the widest copy (16, 8, 4, or 0 for plain loads) that the
+// value / scale rows allow.
+extern "C" int q40_matmul_mma(const void* x, const void* qpacked, const void* scales,
+                              void* out, void* scratch, const void* idx, int t, int n,
+                              int np, int d, int n_planes, int bm, int splits, int steps_per,
+                              int w_al, int s_al, void* stream) {
+  return run_mma(x, qpacked, scales, out, scratch, idx, t, n, np, d, n_planes, bm, splits,
+                 steps_per, w_al, s_al, RowMajor{d}, stream);
+}
+
+// The tensor-core body of kernel 3: operands as q40_matmul_blocked, the
+// plan as q40_matmul_mma's on the logical d; w_al / s_al copy widths that
+// divide td / 2*td (never 0: td % 4 == 0).
+extern "C" int q40_matmul_blocked_mma(const void* x, const void* qpacked, const void* scales,
+                                      void* out, void* scratch, const void* idx, int t, int n,
+                                      int np, int d, int n_planes, int bm, int splits,
+                                      int steps_per, int w_al, int s_al, int bn, int td,
+                                      int nJ, void* stream) {
+  return run_mma(x, qpacked, scales, out, scratch, idx, t, n, np, d, n_planes, bm, splits,
+                 steps_per, w_al, s_al, Blocked{bn, td, nJ}, stream);
 }
 
 extern "C" const char* q40_error_string(int code) {

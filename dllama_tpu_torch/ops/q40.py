@@ -49,13 +49,19 @@ legal.  Kernel 4 (``csrc/tp_allreduce.cu``), its plain version
 :func:`tp_allreduce_plain` and its counters live here, as the TPU ring
 kernel lives in the JAX package's ``q40.py``.
 
+The kernel has two bodies, chosen by :func:`route` from the row count:
+the GEMV body below ``T_MMA`` rows (decode) and, from ``T_MMA`` rows up,
+the tensor-core body (:func:`mma_plan`, the Q80 kernel's plan), in both
+layouts.
+
 Module counters (plain ints) record which route ran:
 ``kernel_launches`` (kernels 1–2 on row-major planes), ``blocked_launches``
-(kernel 3 on blocked planes), ``launches_by_shape`` keyed by logical
-``(n, d)`` for kernels 1–2 and ``("blocked", n, d)`` for kernel 3,
-``plain_calls``, ``dense_prefill_calls``, and kernel 4's
-``allreduce_launches`` and ``allreduce_plain_calls``.
-:func:`reset_counters` zeroes them.
+(kernel 3 on blocked planes), ``mma_launches`` (those of either that took
+the tensor-core body), ``launches_by_shape`` keyed by logical ``(n, d)``
+for kernels 1–2, ``("blocked", n, d)`` for kernel 3 and ``("mma", n, d)``,
+``("blocked-mma", n, d)`` for their tensor-core body, ``plain_calls``,
+``dense_prefill_calls``, and kernel 4's ``allreduce_launches`` and
+``allreduce_plain_calls``.  :func:`reset_counters` zeroes them.
 """
 
 from __future__ import annotations
@@ -82,21 +88,23 @@ PALLAS_MAX_ROWS = 128
 
 kernel_launches = 0
 blocked_launches = 0
+mma_launches = 0
 plain_calls = 0
 dense_prefill_calls = 0
 launches_by_shape: dict[tuple, int] = {}
 
 
 def reset_counters() -> None:
-    global kernel_launches, blocked_launches, plain_calls, dense_prefill_calls
+    global kernel_launches, blocked_launches, mma_launches, plain_calls, dense_prefill_calls
     global allreduce_launches, allreduce_plain_calls
-    kernel_launches = blocked_launches = plain_calls = dense_prefill_calls = 0
+    kernel_launches = blocked_launches = mma_launches = plain_calls = dense_prefill_calls = 0
     allreduce_launches = allreduce_plain_calls = 0
     launches_by_shape.clear()
 
 
 def counters() -> dict:
     return {"kernel_launches": kernel_launches, "blocked_launches": blocked_launches,
+            "mma_launches": mma_launches,
             "plain_calls": plain_calls, "dense_prefill_calls": dense_prefill_calls,
             "allreduce_launches": allreduce_launches,
             "allreduce_plain_calls": allreduce_plain_calls,
@@ -524,6 +532,53 @@ def split_plan(n: int, d: int, n_sms: int) -> tuple[int, int]:
     return -(-nb // per), per
 
 
+# Rows from which a call takes the tensor-core body (``q40_matmul_mma``,
+# ``q40_matmul_blocked_mma`` in csrc/q40_matmul.cu); fewer rows take the
+# GEMV body.  The crossover chip_smoke.py phase 2 measures at the five
+# Llama-2-7B sites (PERF.md): from t = 5, where the GEMV body's row group
+# grows from 4 to 8, the tensor-core body is faster at every site; at
+# t = 4 at 3 of 5, at t = 1-2 at 2 of 5.
+T_MMA = 5
+# The tensor-core body's block, shared with the Q80 kernel's (``q8``
+# re-exports these): output columns and rows of n a step (kMmaBN, kMmaBK in
+# csrc/mma_common.cuh), and the blocks an SM holds at each tile height
+# (MmaShape::MinBlocks: 256 threads up to 64 rows, 512 at 128).
+MMA_BN = 128
+MMA_BK = 64
+MMA_BLOCKS_PER_SM = {16: 2, 32: 2, 64: 2, 128: 1}
+MMA_BMS = tuple(MMA_BLOCKS_PER_SM)
+
+
+def route(t: int) -> str:
+    """The body a Q40 call of ``t`` rows takes: ``"gemv"`` below ``T_MMA``
+    rows, else ``"mma"``."""
+    return "mma" if t >= T_MMA else "gemv"
+
+
+def mma_plan(t: int, n: int, d: int, n_sms: int) -> tuple[int, int, int]:
+    """The tensor-core body's grid (Q40 and Q80): returns ``(bm, splits,
+    steps_per)``.  ``bm`` is the least tile height in ``MMA_BMS`` that
+    covers ``t``, else the tallest (a weight is dequantized once per ``bm``
+    rows of x); the ``ceil(t/bm)·ceil(d/128)`` output tiles take just enough
+    split-K over the ``ceil(n/64)`` steps of n to fill one wave of the SMs'
+    blocks (``MMA_BLOCKS_PER_SM[bm]`` each), each split ``steps_per`` steps
+    and none empty.  The f32 scratch is ``splits·t·d`` floats, at most one
+    wave of output tiles (Llama-2-7B's wo at t = 128: 4 splits, 8 MB)."""
+    bm = next((b for b in MMA_BMS if b >= t), MMA_BMS[-1])
+    tiles = -(-t // bm) * -(-d // MMA_BN)
+    steps = -(-n // MMA_BK)
+    want = max(1, min(steps, MMA_BLOCKS_PER_SM[bm] * n_sms // tiles))
+    per = -(-steps // want)
+    return bm, -(-steps // per), per
+
+
+def _copy_width(row_bytes: int, ptr: int) -> int:
+    """The widest cp.async (16, 8 or 4 bytes) that every row start of a
+    plane with rows ``row_bytes`` apart from ``ptr`` allows; 0 when none
+    does (the kernel then copies with plain loads)."""
+    return next((w for w in (16, 8, 4) if row_bytes % w == 0 and ptr % w == 0), 0)
+
+
 @functools.cache
 def _sm_count(dev: torch.device) -> int:
     return torch.cuda.get_device_properties(dev).multi_processor_count
@@ -563,23 +618,45 @@ def plane_index(planes: torch.Tensor, layer, dev: torch.device, who: str,
 
 
 def q40_matmul(x2: torch.Tensor, qpacked: torch.Tensor, scales: torch.Tensor,
-               n: int, layer=None) -> torch.Tensor:
+               n: int, layer=None, body: str | None = None) -> torch.Tensor:
     """Launch the Q40 dequant-matmul kernel: ``bf16(x2) (t, n) @ W`` → f32
     ``(t, d)``, reading plane ``layer`` of stacked ``(..., np/2, d)`` planes
     in place (a flat index over the leading dims, a Python int or an int32
     device tensor, see :func:`plane_index`), or the 2-D plane when
-    ``layer`` is None.  CUDA tensors only: it launches the kernel or
-    raises; it never computes on another path."""
+    ``layer`` is None.  The body is :func:`route`'s for ``t`` rows;
+    ``body`` ("gemv" or "mma") names one, to time the two against each
+    other.  CUDA tensors only: it launches the kernel or raises; it never
+    computes on another path."""
     global kernel_launches
-    out = launch("q40_matmul", x2, qpacked, scales, n, layer, torch.uint8, 2)
+    mma = _body(body, x2) == "mma"
+    out = launch("q40_matmul_mma" if mma else "q40_matmul", x2, qpacked, scales, n, layer,
+                 torch.uint8, 2, mma)
     kernel_launches += 1
-    key = (n, out.shape[1])
-    launches_by_shape[key] = launches_by_shape.get(key, 0) + 1
+    _count(("mma", n, out.shape[1]) if mma else (n, out.shape[1]))
     return out
 
 
+def _body(body: str | None, x2: torch.Tensor) -> str:
+    """``body``, or :func:`route`'s for ``x2``'s rows; raises on a name
+    that is neither body."""
+    body = body or route(x2.shape[0])
+    if body not in ("gemv", "mma"):
+        raise ValueError(f"q40_matmul: unknown body {body!r}")
+    return body
+
+
+def _count(key: tuple) -> None:
+    """One launch under ``launches_by_shape`` ``key``; a key of the
+    tensor-core body also counts in ``mma_launches``."""
+    global mma_launches
+    launches_by_shape[key] = launches_by_shape.get(key, 0) + 1
+    if key[0] in ("mma", "blocked-mma"):
+        mma_launches += 1
+
+
 def q40_blocked_matmul(x2: torch.Tensor, qpacked: torch.Tensor, scales: torch.Tensor,
-                       nd: tuple[int, int], layer=None) -> torch.Tensor:
+                       nd: tuple[int, int], layer=None, body: str | None = None
+                       ) -> torch.Tensor:
     """Launch kernel 3, the Q40 dequant-matmul over blocked planes:
     ``bf16(x2) (t, n) @ W`` → f32 ``(t, d)`` for logical ``nd = (n, d)``,
     reading plane ``layer`` of ``qpacked`` ``(L, n2/bn, dp/td, bn, td)`` and
@@ -587,9 +664,12 @@ def q40_blocked_matmul(x2: torch.Tensor, qpacked: torch.Tensor, scales: torch.Te
     int32 device tensor; None for the one plane of an L = 1 tensor).  The
     kernel takes every tile :func:`to_blocked` makes with ``td`` a multiple
     of 4 (``tn`` is a multiple of 32 there); it writes only the ``d``
-    logical columns.  CUDA tensors only: it launches the kernel or raises."""
+    logical columns.  ``body`` as :func:`q40_matmul`'s: both bodies run the
+    plan of the logical ``(n, d)``, so each equals kernels 1–2's bit for
+    bit.  CUDA tensors only: it launches the kernel or raises."""
     global blocked_launches
-    fn = "q40_matmul_blocked"
+    body = _body(body, x2)
+    fn = "q40_matmul_blocked" + ("_mma" if body == "mma" else "")
     n, d = nd
 
     def req(cond, msg):
@@ -610,10 +690,12 @@ def q40_blocked_matmul(x2: torch.Tensor, qpacked: torch.Tensor, scales: torch.Te
         idx, n_planes = index_view(dev, 0, 1), 1
     else:
         idx, n_planes = plane_index(qpacked, layer, dev, fn, plane_dims=4)
-    out = _launch(fn, x2, qpacked, scales, idx, n, np_, d, n_planes, bn, td, nJ)
+    if body == "mma":
+        out = _launch_mma(fn, x2, qpacked, scales, idx, n, np_, d, n_planes, td, bn, td, nJ)
+    else:
+        out = _launch(fn, x2, qpacked, scales, idx, n, np_, d, n_planes, bn, td, nJ)
     blocked_launches += 1
-    key = ("blocked", n, d)
-    launches_by_shape[key] = launches_by_shape.get(key, 0) + 1
+    _count(("blocked-mma" if body == "mma" else "blocked", n, d))
     return out
 
 
@@ -643,11 +725,13 @@ def _check_operands(fn: str, x2: torch.Tensor, values: torch.Tensor,
 
 
 def launch(fn: str, x2: torch.Tensor, values: torch.Tensor, scales: torch.Tensor,
-           n: int, layer, value_dtype: torch.dtype, per_byte: int) -> torch.Tensor:
+           n: int, layer, value_dtype: torch.dtype, per_byte: int,
+           mma: bool = False) -> torch.Tensor:
     """Check the operands of the Q40 or Q80 kernel over row-major planes (C
     entry point ``fn``, values of ``value_dtype`` holding ``per_byte``
-    weights a byte: 2 for Q40's nibbles, 1 for Q80's int8) and launch it on
-    the current stream; returns the f32 ``(t, d)`` output."""
+    weights a byte: 2 for Q40's nibbles, 1 for Q80's int8) and launch its
+    GEMV body, or with ``mma`` its tensor-core body, on the current stream;
+    returns the f32 ``(t, d)`` output."""
     dev = _check_operands(fn, x2, values, scales, n, value_dtype)
     idx, n_planes = plane_index(values, layer, dev, fn)
     np_ = values.shape[-2] * per_byte
@@ -657,6 +741,8 @@ def launch(fn: str, x2: torch.Tensor, values: torch.Tensor, scales: torch.Tensor
     _require(tuple(scales.shape) == tuple(values.shape[:-2]) + (np_ // 32, d),
              f"scales shape {tuple(scales.shape)} does not match values "
              f"{tuple(values.shape)}", fn)
+    if mma:
+        return _launch_mma(fn, x2, values, scales, idx, n, np_, d, n_planes, d)
     return _launch(fn, x2, values, scales, idx, n, np_, d, n_planes)
 
 
@@ -683,6 +769,43 @@ def _launch(fn: str, x2: torch.Tensor, values: torch.Tensor, scales: torch.Tenso
         raise RuntimeError(f"{fn} launch failed: CUDA error {rc} "
                            f"({lib.q40_error_string(rc).decode()}) at "
                            f"t={t} n={n} d={d} splits={splits} layout={layout}")
+    return out
+
+
+def _launch_mma(fn: str, x2: torch.Tensor, values: torch.Tensor, scales: torch.Tensor,
+                idx: torch.Tensor, n: int, np_: int, d: int, n_planes: int,
+                row_bytes: int, *layout: int) -> torch.Tensor:
+    """Call tensor-core entry point ``fn`` (the Q40 or Q80 kernel's) on
+    checked operands with :func:`mma_plan`; value rows start ``row_bytes``
+    apart (d row-major, td blocked) and scale rows ``2·row_bytes``, which
+    sets the copy widths; ``layout`` ints follow them (kernel 3's tile
+    shape).  Returns the f32 ``(t, d)`` output; raises on a blocked tile the
+    body cannot copy and on a launch error."""
+    from . import _build
+    lib = _build.load()
+    dev, t = x2.device, x2.shape[0]
+    xb = x2.to(torch.bfloat16).contiguous()
+    if xb.data_ptr() % 16:  # cp.async reads x in 16-byte pieces
+        xb = xb.clone()
+    w_al = _copy_width(row_bytes, values.data_ptr())
+    s_al = _copy_width(2 * row_bytes, scales.data_ptr())
+    _require(not layout or (w_al and s_al),
+             f"tiles of {row_bytes} columns: no cp.async width divides them", fn)
+    bm, splits, per = mma_plan(t, n, d, _sm_count(dev))
+    out = torch.empty((t, d), dtype=torch.float32, device=dev)
+    scratch = (torch.empty((splits, t, d), dtype=torch.float32, device=dev)
+               if splits > 1 else out)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        rc = getattr(lib, fn)(xb.data_ptr(), values.data_ptr(), scales.data_ptr(),
+                              out.data_ptr(), scratch.data_ptr(), idx.data_ptr(),
+                              t, n, np_, d, n_planes, bm, splits, per, w_al, s_al, *layout,
+                              stream)
+    if rc != 0:
+        raise RuntimeError(f"{fn} launch failed: CUDA error {rc} "
+                           f"({lib.q40_error_string(rc).decode()}) at t={t} n={n} d={d} "
+                           f"bm={bm} splits={splits}x{per} copies={w_al}/{s_al} "
+                           f"layout={layout}")
     return out
 
 
@@ -844,6 +967,12 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     # kernel 3: the same operands, then the tile shape (bn, td, nJ)
     lib.q40_matmul_blocked.argtypes = [vp] * 6 + [ci] * 10 + [vp]
     lib.q40_matmul_blocked.restype = ci
+    # the tensor-core body: the plan (bm, splits, steps) and the copy widths
+    # in place of the split plan, then kernel 3's tile shape
+    lib.q40_matmul_mma.argtypes = [vp] * 6 + [ci] * 10 + [vp]
+    lib.q40_matmul_mma.restype = ci
+    lib.q40_matmul_blocked_mma.argtypes = [vp] * 6 + [ci] * 13 + [vp]
+    lib.q40_matmul_blocked_mma.restype = ci
     # kernel 4: host arrays of the tp input and output pointers
     lib.tp_allreduce.argtypes = [ctypes.POINTER(vp), ctypes.POINTER(vp)] + [ci] * 6 + [vp]
     lib.tp_allreduce.restype = ci

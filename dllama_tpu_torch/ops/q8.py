@@ -43,8 +43,8 @@ import numpy as np
 import torch
 
 from .. import quants
-from .q40 import (_check_operands, _planes, _require, _sm_count, dispatch, launch,
-                  padded_n, plane_index)
+from .q40 import (MMA_BK, MMA_BLOCKS_PER_SM, MMA_BMS, MMA_BN,  # noqa: F401 (re-exported)
+                  _planes, dispatch, launch, mma_plan, padded_n)
 
 kernel_launches = 0
 mma_launches = 0
@@ -58,13 +58,8 @@ launches_by_shape: dict[tuple, int] = {}
 # body wins at 13-14 of the 15 sites and over a 7B layer's four matmuls,
 # from t = 8 at every site (PERF.md).
 T_MMA = 4
-# The tensor-core body's block: output columns and rows of n a step
-# (kMmaBN, kMmaBK in the source), and the blocks an SM holds at each tile
-# height (MmaShape::MinBlocks: 256 threads up to 64 rows, 512 at 128).
-MMA_BN = 128
-MMA_BK = 64
-MMA_BLOCKS_PER_SM = {16: 2, 32: 2, 64: 2, 128: 1}
-MMA_BMS = tuple(MMA_BLOCKS_PER_SM)
+# The tensor-core body's block and plan (MMA_BN, MMA_BK, MMA_BLOCKS_PER_SM,
+# MMA_BMS, mma_plan) are the Q40 kernel's, imported above.
 
 
 def reset_counters() -> None:
@@ -87,23 +82,6 @@ def route(t: int) -> str:
     """The body a call of ``t`` rows takes: ``"gemv"`` below ``T_MMA``
     rows, else ``"mma"``."""
     return "mma" if t >= T_MMA else "gemv"
-
-
-def mma_plan(t: int, n: int, d: int, n_sms: int) -> tuple[int, int, int]:
-    """The tensor-core body's grid: returns ``(bm, splits, steps_per)``.
-    ``bm`` is the least tile height in ``MMA_BMS`` that covers ``t``, else
-    the tallest (a weight is dequantized once per ``bm`` rows of x); the
-    ``ceil(t/bm)·ceil(d/128)`` output tiles take just enough split-K over
-    the ``ceil(n/64)`` steps of n to fill one wave of the SMs' blocks
-    (``MMA_BLOCKS_PER_SM[bm]`` each), each split ``steps_per`` steps and
-    none empty.  The f32 scratch is ``splits·t·d`` floats, at most one wave
-    of output tiles (Llama-2-7B's wo at t = 128: 4 splits, 8 MB)."""
-    bm = next((b for b in MMA_BMS if b >= t), MMA_BMS[-1])
-    tiles = -(-t // bm) * -(-d // MMA_BN)
-    steps = -(-n // MMA_BK)
-    want = max(1, min(steps, MMA_BLOCKS_PER_SM[bm] * n_sms // tiles))
-    per = -(-steps // want)
-    return bm, -(-steps // per), per
 
 
 @dataclass(frozen=True)
@@ -267,57 +245,13 @@ def q8_matmul(x2: torch.Tensor, qvals: torch.Tensor, scales: torch.Tensor,
         out = launch("q8_matmul", x2, qvals, scales, n, layer, torch.int8, 1)
         key = (n, out.shape[1])
     elif body == "mma":
-        out = _launch_mma(x2, qvals, scales, n, layer)
+        out = launch("q8_matmul_mma", x2, qvals, scales, n, layer, torch.int8, 1, mma=True)
         key = ("mma", n, out.shape[1])
         mma_launches += 1
     else:
         raise ValueError(f"q8_matmul: unknown body {body!r}")
     kernel_launches += 1
     launches_by_shape[key] = launches_by_shape.get(key, 0) + 1
-    return out
-
-
-def _copy_width(row_bytes: int, ptr: int) -> int:
-    """The widest cp.async (16, 8 or 4 bytes) that every row start of a
-    plane with rows ``row_bytes`` apart from ``ptr`` allows; 0 when none
-    does (the kernel then copies byte by byte)."""
-    return next((w for w in (16, 8, 4) if row_bytes % w == 0 and ptr % w == 0), 0)
-
-
-def _launch_mma(x2: torch.Tensor, qvals: torch.Tensor, scales: torch.Tensor, n: int,
-                layer) -> torch.Tensor:
-    """Check the operands as the GEMV body's launch does and launch the
-    tensor-core body (``q8_matmul_mma``) with :func:`mma_plan`; returns the
-    f32 ``(t, d)`` output; raises on a launch error."""
-    fn = "q8_matmul_mma"
-    dev = _check_operands(fn, x2, qvals, scales, n, torch.int8)
-    idx, n_planes = plane_index(qvals, layer, dev, fn)
-    np_, d = qvals.shape[-2], qvals.shape[-1]
-    _require(np_ >= n and np_ % 32 == 0, f"value rows {np_} do not cover n={n}", fn)
-    _require(tuple(scales.shape) == tuple(qvals.shape[:-2]) + (np_ // 32, d),
-             f"scales shape {tuple(scales.shape)} does not match values "
-             f"{tuple(qvals.shape)}", fn)
-    from . import _build
-    lib = _build.load()
-    t = x2.shape[0]
-    xb = x2.to(torch.bfloat16).contiguous()
-    if xb.data_ptr() % 16:  # cp.async reads x in 16-byte pieces
-        xb = xb.clone()
-    bm, splits, per = mma_plan(t, n, d, _sm_count(dev))
-    out = torch.empty((t, d), dtype=torch.float32, device=dev)
-    scratch = (torch.empty((splits, t, d), dtype=torch.float32, device=dev)
-               if splits > 1 else out)
-    w_al = _copy_width(d, qvals.data_ptr())
-    s_al = _copy_width(2 * d, scales.data_ptr())
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        rc = lib.q8_matmul_mma(xb.data_ptr(), qvals.data_ptr(), scales.data_ptr(),
-                               out.data_ptr(), scratch.data_ptr(), idx.data_ptr(),
-                               t, n, np_, d, n_planes, bm, splits, per, w_al, s_al, stream)
-    if rc != 0:
-        raise RuntimeError(f"{fn} launch failed: CUDA error {rc} "
-                           f"({lib.q40_error_string(rc).decode()}) at t={t} n={n} d={d} "
-                           f"bm={bm} splits={splits}x{per} copies={w_al}/{s_al}")
     return out
 
 
