@@ -10,14 +10,17 @@ Phases (each prints its seconds; any failure exits non-zero):
    ``dllama_tpu_torch/ops/csrc`` (one process per source).
 2. Q40 kernel against its plain version at the five Llama-2-7B matmul
    shapes (wqkv, wo, w13, w2 stacked; wcls flat) for t in {1, 2, 4, 5, 8,
-   16, 128}, both of its bodies (the GEMV body and the tensor-core body: the
-   crossover that sets q40.T_MMA, printed a t) checked and timed, the
-   routed one reported, and a ragged shape (n = 4128, n/32 odd; d = 1000;
-   t = 17); stacked calls at layers 0 and L-1, random packed planes made on
-   the card from a seed: max|kernel - plain| <= KERNEL_TOL * max|plain|.
-   Times the kernel, the plain version and torch.matmul on the
-   pre-dequantized bf16 weight (a yardstick the port never calls), each
-   launch on a cold L2.  2b: a rank's shapes at tp = 2, t in {1, 16, 128}.
+   12, 16, 24, 32, 128}, both of its bodies (the decode body, with its
+   plan, and the tensor-core body: the crossover that sets q40.T_MMA,
+   printed a t) checked and timed, the routed one reported, and a ragged
+   shape (n = 4128, n/32 odd; d = 1000; t = 17); stacked calls at layers 0
+   and L-1, random packed planes made on the card from a seed:
+   max|kernel - plain| <= KERNEL_TOL * max|plain|.  Times the kernel, the
+   plain version and torch.matmul on the pre-dequantized bf16 weight (a
+   yardstick the port never calls), each the median of launches on a cold
+   L2, and an empty kernel the same way (the timing's floor).  2b: a
+   rank's shapes at tp = 2.  2c: the decode body as a decode token meets
+   it, each stacked 7B site over 32 planes back to back, Q40 and Q80.
 3. the main path at full width: a Llama-2-7B-shaped Q40 model synthesized
    from a seed (random nibbles, constant f16 scale 0.008; no weights needed),
    ``inference --temperature 0 --steps 64 --chunk 16 --warmup 16`` on cuda
@@ -65,7 +68,7 @@ Phases (each prints its seconds; any failure exits non-zero):
    ``quant_impl = attn_impl = "plain"``: logits within E2E_TOL and greedy
    agreement where the margin is decisive.
 9. the Q80 kernel against its plain version as in phase 2, at t in {1, 4,
-   8, 16, 128}, both of its bodies (the GEMV body and the tensor-core body:
+   8, 12, 16, 24, 32, 128}, both of its bodies (the decode and the tensor-core body:
    the crossover that sets q8.T_MMA) checked and timed, the routed one
    reported: the five 7B sites, Mixtral's wqkv and experts (up/gate
    4096->14336, down 14336->4096) in an (8 layers, 8 experts) stack at
@@ -224,10 +227,9 @@ ROWS = (1, 16, 128)
 # crossover of the two bodies (GEMV and tensor core) that sets T_MMA; a
 # ragged shape (d not a multiple of 128 nor of 16, n/32 odd, t not a
 # multiple of 16) exercises the tensor-core body's masks
-CROSS_ROWS = (1, 4, 8, 16, 128)
-# Q40's 7B sites (phase 2) also run t = 2: its GEMV body reads half of
-# Q80's bytes but unpacks slower, so the crossover may lie lower
-Q40_CROSS_ROWS = (1, 2, 4, 5, 8, 16, 128)
+CROSS_ROWS = (1, 4, 8, 12, 16, 24, 32, 128)
+# Q40's 7B sites (phase 2) also run t = 2 and 5
+Q40_CROSS_ROWS = (1, 2, 4, 5, 8, 12, 16, 24, 32, 128)
 RAGGED = [("ragged", 4128, 1000, (STACK_L,))]
 RAGGED_ROWS = (17,)
 # Q40 at Mixtral's shapes (phase 9b) adds t = 8, the 8-slot step's experts
@@ -278,14 +280,16 @@ def phase(name: str):
 
 
 def cold_ms(fn, iters: int, flush: torch.Tensor) -> float:
-    """Mean device ms of ``fn`` over ``iters`` launches, each on a cold L2
+    """Median device ms of ``fn`` over ``iters`` launches, each on a cold L2
     (the decode step reads every weight once).  Before each launch the
     device spins ~1 ms while the host enqueues the flush and ``fn``, so the
     events time the device's work and not the host's enqueue; the flush
     reads 64 MB, which leaves L2 full of clean lines (a memset would leave
-    dirty ones for the timed kernel to write back)."""
+    dirty ones for the timed kernel to write back).  The median, as a host
+    stall past the spin now and then leaves the device idle between the
+    events (a single launch then reads many times the median)."""
     fn()
-    total = 0.0
+    times = []
     for _ in range(iters):
         torch.cuda._sleep(2_000_000)
         flush.sum()
@@ -295,8 +299,21 @@ def cold_ms(fn, iters: int, flush: torch.Tensor) -> float:
         fn()
         b.record()
         b.synchronize()
-        total += a.elapsed_time(b)
-    return total / iters
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def warm_clocks(dev) -> None:
+    """Half a second of f32 matmuls, so that the first timed launch of a
+    phase does not meet a card still raising its clocks from idle (the
+    first site's t = 1 read up to 1.7x its repeat otherwise)."""
+    a = torch.randn(4096, 4096, device=dev)
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < 0.5:
+        for _ in range(20):
+            a = (a @ a).clamp_(-1, 1)
+        torch.cuda.synchronize()
+    del a
 
 
 def bound(t: int, n: int, d: int, value_bytes: float = 0.5) -> tuple[float, str]:
@@ -345,6 +362,10 @@ def check_sites(codec, sites, dev, seed: int, pad: bool = True, rows=ROWS,
     g.manual_seed(seed)
     flush = torch.ones(16 << 20, dtype=torch.float32, device=dev)
     out, wins = {}, {}
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    warm_clocks(dev)
+    print(f"timing floor: an empty kernel reads "
+          f"{cold_ms(lambda: torch.cuda._sleep(0), 20, flush):.4f} ms cold")
     print("site           t  route  kernel_ms  plain_ms  library_ms  bound_ms(by)  "
           "max_abs_err  rel   gemv_ms    mma_ms")
     for site, n, d, lead in sites:
@@ -355,6 +376,8 @@ def check_sites(codec, sites, dev, seed: int, pad: bool = True, rows=ROWS,
         else:
             layers = (0, lead[0] - 1) if lead else (None,)
         w_lib = codec.dequantize(qt, torch.bfloat16, layer=layers[-1])
+        print(f"{site}: decode-body plan (splits, blocks a split) "
+              f"{codec.gemv_plan(n, d, n_sms, 1 if is_q8 else 2)}")
         for t in rows:
             x = torch.randn((t, n), generator=g, device=dev).to(torch.bfloat16)
             err = 0.0
@@ -401,6 +424,43 @@ def check_sites(codec, sites, dev, seed: int, pad: bool = True, rows=ROWS,
                  f"core" if g_ms else "") + f" (T_MMA = {codec.T_MMA})")
     del flush
     torch.cuda.empty_cache()
+    return out
+
+
+def decode_sequence(codec, dev, layers: int = 32) -> dict:
+    """Phase 2c: each stacked 7B site's kernel as a decode token meets it,
+    launched back to back over ``layers`` planes (a new plane every launch,
+    on the body ``codec.route(1)`` names), with the host's enqueue hidden
+    behind a device spin: device ms a launch, the best of 5 passes, from
+    CUDA events around the pass.  ``codec`` is a q40 or q8 module (any
+    tree's)."""
+    is_q8 = codec.__name__.endswith(".q8")
+    kernel = codec.q8_matmul if is_q8 else codec.q40_matmul
+    g = torch.Generator(device=dev)
+    g.manual_seed(21)
+    out = {}
+    for site, n, d, lead in LLAMA_SITES[:4]:
+        qt = random_planes(codec, (layers,), n, d, g, dev)
+        x = torch.randn((1, n), generator=g, device=dev).to(torch.bfloat16)
+        run = lambda: [kernel(x, qt.qpacked, qt.scales, n, i)  # noqa: E731
+                       for i in range(layers)]
+        run()
+        best = float("inf")
+        for _ in range(5):
+            torch.cuda._sleep(20_000_000)
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            run()
+            b.record()
+            b.synchronize()
+            best = min(best, a.elapsed_time(b) / layers)
+        out[site] = best
+        del qt
+    torch.cuda.empty_cache()
+    print(f"{codec.__name__.rsplit('.', 1)[1]} decode sequence ({layers} planes back to back, "
+          f"ms a launch): " + ", ".join(f"{k} {v:.4f}" for k, v in out.items())
+          + f"; a layer's four {sum(out.values()):.4f}")
     return out
 
 
@@ -519,6 +579,14 @@ def main_path(cli, codec, m: str, t: str, want, extra: tuple = (),
     return run
 
 
+def matmul_kernel(name: str, codec_name: str) -> bool:
+    """Is profiler kernel ``name`` one of the ``codec_name`` (q40 or q8)
+    kernel's: its tensor-core body and split reduce (``q40_...``), or its
+    decode body (``gemv_kernel<(anonymous namespace)::Q4, ...>``)?"""
+    codec_tag = {"q40": "::Q4,", "q8": "::Q8,"}[codec_name]
+    return f"{codec_name}_" in name or codec_tag in name
+
+
 def profile_decode(engine, ms_token: float | None, codec, steps: int = 8,
                    prompts: list[list[int]] | None = None) -> None:
     """Where a decode token's time goes: torch.profiler over ``steps``
@@ -563,7 +631,7 @@ def profile_decode(engine, ms_token: float | None, codec, steps: int = 8,
                              f"{codec.route(engine.batch)} body")
     print(f"{codec.__name__.rsplit('.', 1)[1]} launches over the {steps} steps: "
           f"{mm_launches}, {c['mma_launches']} on the tensor-core body")
-    kname = codec.__name__.rsplit(".", 1)[1] + "_"
+    kname = codec.__name__.rsplit(".", 1)[1]
     rows = []
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", 0) or 0
@@ -573,17 +641,38 @@ def profile_decode(engine, ms_token: float | None, codec, steps: int = 8,
         print("decode profile: the profiler recorded no device time (not measured)")
         return
     busy = sum(r[0] for r in rows)
-    mm_ms = sum(r[0] for r in rows if kname in r[2])
+    mm_ms = sum(r[0] for r in rows if matmul_kernel(r[2], kname))
     ar_ms = sum(r[0] for r in rows if "tp_allreduce" in r[2])
     if ar_ms:
         print(f"kernel 4 (tp_allreduce): {ar_ms:.4f} ms/{unit}")
+    split_reduce = [r[2] for r in rows if "reduce_splits" in r[2]]
+    if codec.route(engine.batch) == "gemv":
+        # the decode body is one launch a call: no split-reduce pass
+        if split_reduce:
+            raise AssertionError(f"decode-body steps launched {split_reduce}")
+        print("no *_reduce_splits kernel in the decode steps (one launch a matmul)")
     print(f"decode profile ({steps} steps, {engine.batch} row(s)): device busy "
           f"{busy:.3f} ms/{unit} of {ms_token:.3f} ms/{unit} unprofiled -> idle share "
-          f"{1 - busy / ms_token:.3f}; {kname[:-1]} kernels {mm_ms:.3f} ms/{unit}, other "
+          f"{1 - busy / ms_token:.3f}; {kname} kernels {mm_ms:.3f} ms/{unit}, other "
           f"kernels {busy - mm_ms:.3f} ms/{unit}, {sum(r[1] for r in rows)} kernel "
           f"launches/{unit}")
     for ms_, n, name in sorted(rows, reverse=True)[:10]:
         print(f"  {ms_:8.4f} ms/{unit} {n:5d}x  {name[:90]}")
+
+
+def greedy_repeat(engine, steps: int = 24) -> None:
+    """Phase 3: the same greedy decode twice from position 0 (a 16-row
+    prompt forward, then single-token forwards on the decode body) gives
+    the same tokens."""
+    prompt = np.random.RandomState(3).randint(3, LLAMA2_7B["vocab_size"], 5).tolist()
+    runs = []
+    for _ in range(2):
+        engine.reset()
+        runs.append([tok for tok, _ in engine.generate_stream(prompt, steps,
+                                                              temperature=0.0)])
+    if runs[0] != runs[1]:
+        raise AssertionError(f"greedy decode differs between two runs: {runs}")
+    print(f"greedy decode of {steps - len(prompt)} tokens repeats token for token")
 
 
 def requests(cli, q40, m: str, t: str) -> None:
@@ -917,7 +1006,7 @@ def profile_slot_step(engine, scheduler, q40, steps: int = 2) -> None:
                 return
             busy = sum(r[0] for r in rows)
             attn = sum(r[0] for r in rows if "paged_attention" in r[2])
-            q40k = sum(r[0] for r in rows if "q40_" in r[2])
+            q40k = sum(r[0] for r in rows if matmul_kernel(r[2], "q40"))
             what = "decode step" if t == 1 else f"mixed step ({t} tokens a row)"
             print(f"8-slot {what}, {n} profiled: wall {wall:.3f} ms unprofiled, device "
                   f"busy {busy:.3f} ms -> idle share {1 - busy / wall:.3f}; paged attention "
@@ -1132,6 +1221,7 @@ def check_blocked(q40, dev, seed: int = 13) -> dict:
     g.manual_seed(seed)
     flush = torch.ones(16 << 20, dtype=torch.float32, device=dev)
     out, k12_diff = {}, 0.0
+    warm_clocks(dev)
     print("site           t  tiles       route    k3_ms  k12_ms  plain_ms  library_ms  "
           "bound_ms(by)  max_abs_err  rel       |k3-k12|  k3_gemv  k3_mma")
     for site, n, d, lead, tiles, rows in BLOCKED_SITES:
@@ -1610,6 +1700,9 @@ def main() -> int:
             check_sites(q40, RAGGED, dev, seed=3, rows=RAGGED_ROWS)
         with phase("2b kernel vs plain at a rank's 7B shapes at tp = 2 (unpadded)"):
             tp_table = check_sites(q40, TP2_SITES, dev, seed=2, pad=False, json_rows=(1,))
+        with phase("2c the decode body as a decode token meets it, Q40 and Q80"):
+            decode_sequence(q40, dev)
+            decode_sequence(q8, dev)
     if run_phase(13):
         with phase("13 kernel 3 (blocked planes) vs plain at the 7B shapes"):
             blocked_table = check_blocked(q40, dev)
@@ -1658,6 +1751,7 @@ def main() -> int:
                 print(f"one single-token forward: {per_fwd} Q40 launches, all on the GEMV "
                       f"body; the run's prompt forwards (16-row bucket): "
                       f"{run['counts']['mma_launches']} on the tensor-core body")
+                greedy_repeat(eng)
                 tp1_logits = first_logits(eng)  # phase 17's reference
                 del eng
                 torch.cuda.empty_cache()

@@ -26,250 +26,39 @@
 // td multiple (zero scales in the pad columns); the scales the same cut of
 // the f16 plane, (n2/bn, dp/td, bn/16, td).  Packed row r, column c lives
 // at ((r/bn)*nJ + c/td)*bn*td + (r%bn)*td + c%td.  A quantization block's
-// 16 packed rows never straddle a tile (bn % 16 == 0) and a thread's 4
-// columns never do (td % 4 == 0), so the two layouts differ only in where
-// a block's rows start and in their stride (d or td): the kernel body is
-// one template over a Layout, and with the same split plan both layouts
-// add the same products in the same order, bit for bit.  On the TPU the
-// tiles lengthened the HBM DMA bursts; here a warp already reads 128
-// contiguous bytes a row in the row-major layout, so kernel 3 is expected
-// to time like kernels 1-2.
+// 16 packed rows never straddle a tile (bn % 16 == 0) and a load never
+// crosses a column tile (its width divides td, a multiple of 4), so the
+// two layouts differ only in where a block's rows start and in their
+// stride (d or td): each body is one template over a Layout
+// (csrc/gemv_common.cuh), and with the same plan both layouts add the same
+// products in the same order, bit for bit.  On the TPU the tiles
+// lengthened the HBM DMA bursts; here a warp already reads 128 contiguous
+// bytes a row in the row-major layout, so kernel 3 is expected to time
+// like kernels 1-2.
 //
 // What bounds it on this card: at decode (t = 1) each weight is read once
 // and used once, so the kernel is bound by the bytes of the packed planes,
 // 0.5625 B/weight (0.5 nibble + 0.0625 scale), against 3.35 TB/s of HBM on
 // an H100 SXM: 3.74 GB per Llama-2-7B token, a floor of about 1.1 ms.
 //
-// Two bodies share the storage and the entry points' operands: the GEMV
-// body below for calls of t < T_MMA rows (decode), and the tensor-core body
-// after it for t >= T_MMA (prefill chunks, mixed steps, lockstep batches;
-// ops/q40.py route).  What the GEMV body does about the byte bound:
-//  * Loads are coalesced along d, the contiguous axis of both planes: each
-//    thread owns 4 adjacent output columns and reads 4 packed bytes (one
-//    32-bit load) per packed row and 4 scales (one 64-bit load) per block;
-//    a warp reads 128 contiguous bytes per row.
-//  * Each thread loads the 16 packed rows of a quantization block into
-//    registers before it unpacks any, so 16 loads per thread are in flight.
-//  * At decode d / 512 column blocks alone would leave most of the 132 SMs
-//    idle (8 blocks for d = 4096), so the reduction over n is split across
-//    blockIdx.y into an f32 scratch (splits, t, d) that the caller
-//    allocates; a second pass adds the splits in a fixed order.  No float
-//    atomics: results repeat bit for bit, so greedy runs do too.
-//  * The unpack is the compute side of the bound (about 10 operations per
-//    byte is the card's ratio of CUDA-core rate to memory rate), so it is
-//    kept short: a nibble becomes (v - 8) as a float with one OR and one
-//    subtract (the 2^23 magic-number trick, exact) instead of an int->float
-//    conversion, and the bf16 rounding of the lo and hi weights is one
-//    paired __floats2bfloat162_rn (round to nearest even, the same rounding
-//    as __float2bfloat16_rn on each).
-//  * Activations are staged through shared memory in chunks of 8 blocks
-//    (256 rows of x), read as broadcasts.  Rows of x are processed in groups
-//    of TG (a template parameter: 1 at decode, up to 8), so t = 128 loops
-//    over 16 row groups instead of holding 128 accumulators per thread.
-// wgmma and TMA are left to later work.
+// Two bodies share the storage and the entry points' operands: for calls
+// of t < T_MMA rows (decode) the decode body of csrc/gemv_common.cuh, one
+// template with the Q80 kernel's (the Q4 codec here), one launch a call;
+// the tensor-core body below for t >= T_MMA (prefill chunks, mixed steps,
+// lockstep batches; ops/q40.py route).
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "gemv_common.cuh"
 #include "mma_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;                   // threads per block
-constexpr int kCols = 4;                        // output columns per thread
-constexpr int kBlockCols = kThreads * kCols;    // 512: BLOCK_COLS in q40.py
-constexpr int kChunk = 8;                       // quant blocks of x staged per pass
-
-// (nib - 8) as a float, exactly: 0x4B000000 is 2^23, so the OR builds
-// 2^23 + nib and the subtraction of 2^23 + 8 is exact.
-__device__ __forceinline__ float nib_minus_8(uint32_t nib) {
-  return __uint_as_float(0x4B000000u | nib) - 8388616.0f;
-}
-
-// Where a quantization block's packed rows and scales live.  val(b, c) is
-// the offset of packed row 16b at column c within a plane, scale(b, c) that
-// of block b's scale; consecutive packed rows of a block are stride() bytes
-// apart; cols() is a plane's stored width (d, or dp when blocked).
-struct RowMajor {
-  int d;
-  __device__ size_t val(size_t b, int c) const { return b * 16 * d + c; }
-  __device__ size_t scale(size_t b, int c) const { return b * d + c; }
-  __device__ int stride() const { return d; }
-  __device__ int cols() const { return d; }
-  // the vector loads need 4 columns inside the row
-  __device__ bool vec(int col0) const { return (d % kCols == 0) && (col0 + kCols <= d); }
-  // the tensor-core body's addressing: val and scale as a part of the step
-  // (blocks b and b + 1: v, s) plus a part of the column (vcol, scol).  The
-  // body walks its steps in order; a Cursor holds the step's first block,
-  // and step_rows moves it on to the next step's
-  struct Cursor {
-    unsigned b;
-  };
-  __device__ Cursor cursor(unsigned b0) const { return {b0}; }
-  __device__ void step_rows(Cursor& c, size_t* v, size_t* s) const {
-    v[0] = (size_t)c.b * 16 * d;
-    v[1] = v[0] + (size_t)16 * d;
-    s[0] = (size_t)c.b * d;
-    s[1] = s[0] + d;
-    c.b += 2;
-  }
-  __device__ size_t vcol(int c) const { return c; }
-  __device__ size_t scol(int c) const { return c; }
-};
-
-struct Blocked {
-  int bn, td, nJ;  // packed rows a tile (a multiple of 16), columns a tile, column tiles
-  __device__ size_t val(size_t b, int c) const {
-    const size_t r = b * 16;
-    return ((r / bn) * nJ + c / td) * (size_t)bn * td + (r % bn) * td + c % td;
-  }
-  __device__ size_t scale(size_t b, int c) const {
-    const size_t bb = bn / 16;  // quantization blocks a tile
-    return ((b / bb) * nJ + c / td) * bb * td + (b % bb) * td + c % td;
-  }
-  __device__ int stride() const { return td; }
-  __device__ int cols() const { return nJ * td; }
-  // td % 4 == 0 and the pad columns exist: 4 columns from col0 < d always lie
-  // in one tile
-  __device__ bool vec(int) const { return true; }
-  // the tensor-core body's addressing, as RowMajor's, with no division
-  // after the first step: the Cursor holds the row tile q and the packed row
-  // rem within it of the step's first block, and a block either follows
-  // the one before in its row tile or opens the next (bn % 16 == 0)
-  struct Cursor {
-    unsigned q, rem;
-  };
-  __device__ Cursor cursor(unsigned b0) const {
-    return {b0 * 16 / bn, b0 * 16 % bn};
-  }
-  __device__ void next_block(unsigned& q, unsigned& rem) const {
-    rem += 16;
-    if (rem == (unsigned)bn) {
-      rem = 0;
-      ++q;
-    }
-  }
-  __device__ void step_rows(Cursor& c, size_t* v, size_t* s) const {
-    unsigned q1 = c.q, rem1 = c.rem;
-    next_block(q1, rem1);
-    v[0] = ((size_t)c.q * nJ * bn + c.rem) * td;
-    v[1] = ((size_t)q1 * nJ * bn + rem1) * td;
-    s[0] = ((size_t)c.q * nJ * (bn / 16) + c.rem / 16) * td;
-    s[1] = ((size_t)q1 * nJ * (bn / 16) + rem1 / 16) * td;
-    next_block(q1, rem1);
-    c = {q1, rem1};
-  }
-  __device__ size_t vcol(int c) const { return (size_t)(c / td) * bn * td + c % td; }
-  __device__ size_t scol(int c) const { return (size_t)(c / td) * (bn / 16) * td + c % td; }
-};
-
-template <int TG, class Layout>
-__global__ void __launch_bounds__(kThreads)
-q40_matmul_kernel(const __nv_bfloat16* __restrict__ x,   // (t, n)
-                  const uint8_t* __restrict__ qpacked,    // n_planes planes
-                  const __half* __restrict__ scales,      // n_planes planes
-                  const int* __restrict__ plane_p,        // the plane to read
-                  float* __restrict__ part,               // (splits, t, d)
-                  int t, int n, int np, int d, int n_planes, int kb_per,
-                  Layout lay) {
-  __shared__ float xs[TG][kChunk * 32];
-  // the plane index lives in device memory (a layer, or layer*E + expert
-  // chosen on the device); clamping keeps a bad value inside the planes
-  const size_t plane = (size_t)min(max(*plane_p, 0), n_planes - 1);
-  const uint8_t* qp = qpacked + plane * (size_t)(np / 2) * (size_t)lay.cols();
-  const __half* sc = scales + plane * (size_t)(np / 32) * (size_t)lay.cols();
-  const int col0 = (blockIdx.x * kThreads + threadIdx.x) * kCols;
-  const int nb = n / 32;
-  const int kb_begin = blockIdx.y * kb_per;
-  const int kb_end = min(nb, kb_begin + kb_per);
-  const bool vec = lay.vec(col0);
-  const int stride = lay.stride();
-  float* dst = part + (size_t)blockIdx.y * t * d;
-
-  for (int g0 = 0; g0 < t; g0 += TG) {
-    const int tg = min(TG, t - g0);
-    float acc[TG][kCols];
-#pragma unroll
-    for (int i = 0; i < TG; ++i)
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) acc[i][c] = 0.f;
-
-    for (int cb = kb_begin; cb < kb_end; cb += kChunk) {
-      const int span = min(kChunk, kb_end - cb) * 32;
-      __syncthreads();  // every thread is done with the previous chunk
-      for (int idx = threadIdx.x; idx < TG * span; idx += kThreads) {
-        const int row = idx / span;
-        const int k = idx - row * span;
-        xs[row][k] = row < tg
-            ? __bfloat162float(x[(size_t)(g0 + row) * n + cb * 32 + k]) : 0.f;
-      }
-      __syncthreads();
-      if (col0 >= d) continue;
-      for (int bb = 0; bb < span / 32; ++bb) {
-        const size_t b = (size_t)(cb + bb);
-        float s[kCols];
-        if (vec) {
-          const uint2 raw = __ldg(reinterpret_cast<const uint2*>(sc + lay.scale(b, col0)));
-          s[0] = __half2float(__ushort_as_half((unsigned short)(raw.x & 0xFFFFu)));
-          s[1] = __half2float(__ushort_as_half((unsigned short)(raw.x >> 16)));
-          s[2] = __half2float(__ushort_as_half((unsigned short)(raw.y & 0xFFFFu)));
-          s[3] = __half2float(__ushort_as_half((unsigned short)(raw.y >> 16)));
-        } else {
-#pragma unroll
-          for (int c = 0; c < kCols; ++c)
-            s[c] = col0 + c < d ? __half2float(sc[lay.scale(b, col0) + c]) : 0.f;
-        }
-        // all 16 packed rows of the block are loaded before any is used,
-        // so each thread keeps 16 independent loads in flight
-        const uint8_t* rowp = qp + lay.val(b, col0);
-        uint32_t w4[16];
-#pragma unroll
-        for (int r = 0; r < 16; ++r) {
-          if (vec) {
-            w4[r] = __ldg(reinterpret_cast<const unsigned int*>(rowp + (size_t)r * stride));
-          } else {
-            w4[r] = 0x88888888u;  // nibbles of 8: weight 0 in the masked columns
-#pragma unroll
-            for (int c = 0; c < kCols; ++c)
-              if (col0 + c < d)
-                w4[r] = (w4[r] & ~(0xFFu << (8 * c))) |
-                        ((uint32_t)rowp[(size_t)r * stride + c] << (8 * c));
-          }
-        }
-#pragma unroll
-        for (int r = 0; r < 16; ++r) {
-#pragma unroll
-          for (int c = 0; c < kCols; ++c) {
-            const uint32_t byte = (w4[r] >> (8 * c)) & 0xFFu;
-            const __nv_bfloat162 w = __floats2bfloat162_rn(
-                nib_minus_8(byte & 0xFu) * s[c], nib_minus_8(byte >> 4) * s[c]);
-            const float wlo = __low2float(w);
-            const float whi = __high2float(w);
-#pragma unroll
-            for (int i = 0; i < TG; ++i) {
-              acc[i][c] = fmaf(xs[i][bb * 32 + r], wlo, acc[i][c]);
-              acc[i][c] = fmaf(xs[i][bb * 32 + 16 + r], whi, acc[i][c]);
-            }
-          }
-        }
-      }
-    }
-    if (col0 < d) {
-#pragma unroll
-      for (int i = 0; i < TG; ++i) {
-        if (i >= tg) break;
-        float* o = dst + (size_t)(g0 + i) * d + col0;
-#pragma unroll
-        for (int c = 0; c < kCols; ++c)
-          if (col0 + c < d) o[c] = acc[i][c];
-      }
-    }
-  }
-}
-
-// out[i] = part[0][i] + part[1][i] + ... in split order: deterministic.
+// out[i] = part[0][i] + part[1][i] + ... in split order: deterministic
+// (the tensor-core body's split-K).
 __global__ void q40_reduce_splits(const float* __restrict__ part,
                                   float* __restrict__ out, int splits,
                                   size_t total) {
@@ -280,50 +69,12 @@ __global__ void q40_reduce_splits(const float* __restrict__ part,
   out[i] = s;
 }
 
-template <int TG, class Layout>
-void launch(const __nv_bfloat16* x, const uint8_t* qp, const __half* sc,
-            const int* idx, float* part, int t, int n, int np, int d,
-            int n_planes, int splits, int kb_per, Layout lay, cudaStream_t stream) {
-  const dim3 grid((d + kBlockCols - 1) / kBlockCols, splits);
-  q40_matmul_kernel<TG, Layout><<<grid, kThreads, 0, stream>>>(
-      x, qp, sc, idx, part, t, n, np, d, n_planes, kb_per, lay);
-}
-
-// Both entry points: the row-group template by t, then the fixed-order
-// reduce of the splits.  Returns cudaGetLastError() after the launches.
-template <class Layout>
-int run(const void* x, const void* qpacked, const void* scales, void* out,
-        void* scratch, const void* idx, int t, int n, int np, int d,
-        int n_planes, int splits, int kb_per, Layout lay, void* stream) {
-  const uint8_t* qp = static_cast<const uint8_t*>(qpacked);
-  const __half* sc = static_cast<const __half*>(scales);
-  const int* ip = static_cast<const int*>(idx);
-  const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
-  float* part = static_cast<float*>(splits > 1 ? scratch : out);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (t == 1)
-    launch<1>(xb, qp, sc, ip, part, t, n, np, d, n_planes, splits, kb_per, lay, s);
-  else if (t == 2)
-    launch<2>(xb, qp, sc, ip, part, t, n, np, d, n_planes, splits, kb_per, lay, s);
-  else if (t <= 4)
-    launch<4>(xb, qp, sc, ip, part, t, n, np, d, n_planes, splits, kb_per, lay, s);
-  else
-    launch<8>(xb, qp, sc, ip, part, t, n, np, d, n_planes, splits, kb_per, lay, s);
-  if (splits > 1) {
-    const size_t total = (size_t)t * (size_t)d;
-    q40_reduce_splits<<<(unsigned)((total + 255) / 256), 256, 0, s>>>(
-        part, static_cast<float*>(out), splits, total);
-  }
-  return (int)cudaGetLastError();
-}
-
 // ---------------------------------------------------------------------------
 // The tensor-core body, for t >= T_MMA rows (python: ops/q40.py T_MMA,
 // route), in both layouts: the Q80 kernel's tensor-core body (q8_matmul.cu
 // q8_matmul_mma_kernel, its machinery in mma_common.cuh) with a Q40 weight
-// tile.  The GEMV body above dequantizes every weight once a group of up to
-// 8 rows of x, on the FP32 FMAs; this body dequantizes it once per BM rows
-// and multiplies on the tensor cores:
+// tile.  The decode body dequantizes every weight once a group of up to 8
+// rows of x; this body dequantizes it once per BM rows:
 //  * A block owns a BM x 128 output tile (BM in 16, 32, 64, 128: the least
 //    that covers t; ops/q40.py mma_plan, the Q80 body's plan) and walks its
 //    share of n in steps of 64 logical rows: two quantization blocks, 32
@@ -658,29 +409,33 @@ int run_mma(const void* x, const void* qpacked, const void* scales, void* out, v
 
 }  // namespace
 
-// x (t, n) bf16; qpacked (n_planes, np/2, d) u8 (any leading dims,
-// flattened); scales (n_planes, np/32, d) f16; idx one int32 in device
-// memory, the plane to read (clamped to 0..n_planes-1); out (t, d) f32;
-// scratch (splits, t, d) f32 when splits > 1.  Returns cudaGetLastError()
-// after the launches (0 = success).
-extern "C" int q40_matmul(const void* x, const void* qpacked,
-                          const void* scales, void* out, void* scratch,
-                          const void* idx, int t, int n, int np, int d,
-                          int n_planes, int splits, int kb_per, void* stream) {
-  return run(x, qpacked, scales, out, scratch, idx, t, n, np, d, n_planes,
-             splits, kb_per, RowMajor{d}, stream);
+// The decode body (t < T_MMA; a call of more rows launches once a group of
+// 8): x (t, n) bf16, t <= 8; qpacked (n_planes, np/2, d) u8 (any leading
+// dims, flattened); scales (n_planes, np/32, d) f16; idx one int32 in
+// device memory, the plane to read (clamped to 0..n_planes-1); out (t, d)
+// f32; the reduction over n cut into `splits` ranges of `kb_per`
+// quantization blocks (ops/q40.py gemv_plan); with splits > 1, part
+// (splits, ceil(d / 128), t, 128) f32 and count (ceil(d / 128)) int32, zero
+// and left zero, the workspace where the splits of a column tile meet; vw
+// the bytes of a value piece (16, 8, 4 or 1, dividing d and the pointers).
+// One launch.  Returns cudaGetLastError() after it (0 = success).
+extern "C" int q40_matmul(const void* x, const void* qpacked, const void* scales, void* out,
+                          const void* idx, void* part, void* count, int t, int n, int np, int d,
+                          int n_planes, int splits, int kb_per, int vw, void* stream) {
+  return launch_gemv<Q4>(x, qpacked, scales, out, idx, part, count, t, n, np, d, n_planes,
+                         splits, kb_per, vw, RowMajor{d}, stream);
 }
 
 // Kernel 3: the same product over blocked planes, qpacked (n_planes, np/2/bn,
 // nJ, bn, td) u8 and scales (n_planes, np/2/bn, nJ, bn/16, td) f16, with
-// bn % 16 == 0 and td % 4 == 0; writes the (t, d) logical columns only.
-extern "C" int q40_matmul_blocked(const void* x, const void* qpacked,
-                                  const void* scales, void* out, void* scratch,
-                                  const void* idx, int t, int n, int np, int d,
-                                  int n_planes, int splits, int kb_per, int bn,
-                                  int td, int nJ, void* stream) {
-  return run(x, qpacked, scales, out, scratch, idx, t, n, np, d, n_planes,
-             splits, kb_per, Blocked{bn, td, nJ}, stream);
+// bn % 16 == 0 and td % 4 == 0 (vw divides td); writes the (t, d) logical
+// columns only.
+extern "C" int q40_matmul_blocked(const void* x, const void* qpacked, const void* scales,
+                                  void* out, const void* idx, void* part, void* count, int t,
+                                  int n, int np, int d, int n_planes, int splits, int kb_per,
+                                  int vw, int bn, int td, int nJ, void* stream) {
+  return launch_gemv<Q4>(x, qpacked, scales, out, idx, part, count, t, n, np, d, n_planes,
+                         splits, kb_per, vw, Blocked{bn, td, nJ}, stream);
 }
 
 // The tensor-core body (t >= T_MMA) of kernels 1-2: x (t, n) bf16 (16-byte

@@ -50,9 +50,10 @@ legal.  Kernel 4 (``csrc/tp_allreduce.cu``), its plain version
 kernel lives in the JAX package's ``q40.py``.
 
 The kernel has two bodies, chosen by :func:`route` from the row count:
-the GEMV body below ``T_MMA`` rows (decode) and, from ``T_MMA`` rows up,
-the tensor-core body (:func:`mma_plan`, the Q80 kernel's plan), in both
-layouts.
+the GEMV (decode) body below ``T_MMA`` rows, one launch a call on
+:func:`gemv_plan` (shared with the Q80 kernel), and, from ``T_MMA`` rows
+up, the tensor-core body (:func:`mma_plan`, the Q80 kernel's plan), in
+both layouts.
 
 Module counters (plain ints) record which route ran:
 ``kernel_launches`` (kernels 1–2 on row-major planes), ``blocked_launches``
@@ -509,36 +510,98 @@ def mm(x: torch.Tensor, w, layer=None, impl: str = "auto",
 # The CUDA kernel (csrc/q40_matmul.cu) and its wrapper
 # ---------------------------------------------------------------------------
 
-# Output columns one thread block covers (128 threads × 4 columns): must
-# match kThreads * kCols in the source.
-BLOCK_COLS = 512
-# Thread blocks per SM the reduction split aims for: enough resident warps
-# to keep the packed-plane loads in flight at decode.
-BLOCKS_PER_SM = 8
+# The decode body (t < T_MMA rows; csrc/gemv_common.cuh, shared with the
+# Q80 kernel).  A block owns a column tile and a split of n, which its
+# GEMV_WARPS warps walk, adding their partials in warp order; where a
+# tile's n is split over blocks, the last of them to finish adds the
+# splits' sums in split order: one launch a call, one fixed order.
+GEMV_WARPS = 8
+# a block's column tile by weights a byte (Q40 2: 8 lane groups of 16
+# columns, a 16-byte piece of a packed row; Q80 1: 8 of 8); kCols * 8 in
+# csrc/gemv_common.cuh
+GEMV_COLS = {2: 128, 1: 64}
+# blocks an SM runs at once (128 registers a thread, 32 KB of shared
+# memory), and the least quantization blocks a split takes (two a warp)
+GEMV_BLOCKS_PER_SM = 2
+GEMV_MIN_SPLIT = 2 * GEMV_WARPS
+# rows of x a launch (the mma's n: fewer leave rows of zeros; a call of
+# more rows launches once a group of 8), and a block's shared memory: x
+# pairs of a chunk of n, then the warps' partials
+GEMV_ROWS = 8
+GEMV_SMEM_BYTES = 32768
 
 
-def split_plan(n: int, d: int, n_sms: int) -> tuple[int, int]:
-    """How the kernel splits the reduction over ``n``: returns ``(splits,
-    blocks_per_split)`` in 32-row quantization blocks.  At decode a grid of
-    ``ceil(d / 512)`` column blocks alone is too few for the card's SMs
-    (8 for d = 4096 against 132), so the reduction is cut into splits until
-    the grid holds about ``BLOCKS_PER_SM`` blocks per SM; the splits'
-    partial sums are added in a fixed order by a second pass, so results
-    repeat bit for bit."""
+def gemv_plan(n: int, d: int, n_sms: int, per_byte: int = 2) -> tuple[int, int]:
+    """The decode body's grid for the call's own ``(n, d)`` (a tensor-
+    parallel rank's slice gets its own plan) and codec (``per_byte``
+    weights a byte: 2 Q40, 1 Q80): returns ``(splits, blocks_per_split)``
+    in 32-row quantization blocks.  The ``ceil(d / GEMV_COLS[per_byte])``
+    column tiles take as many splits of n as one wave of
+    ``GEMV_BLOCKS_PER_SM`` blocks an SM holds, none shorter than
+    ``GEMV_MIN_SPLIT`` and none empty.  The plan is the same at every t.
+    Llama-2-7B, Q40: wqkv 96 tiles × 2 splits, wo 32 × 8, wcls 250 × 1."""
     nb = n // 32
-    col_blocks = -(-d // BLOCK_COLS)
-    want = max(1, min(nb, -(-BLOCKS_PER_SM * n_sms // col_blocks)))
+    tiles = -(-d // GEMV_COLS[per_byte])
+    want = max(1, min(GEMV_BLOCKS_PER_SM * n_sms // tiles, nb // GEMV_MIN_SPLIT))
     per = -(-nb // want)
     return -(-nb // per), per
 
 
+def _gemv_ws_sizes(splits: int, t: int, d: int, per_byte: int) -> tuple[int, int]:
+    """f32 sums and int32 counts of the decode body's workspace: a sum of
+    ``min(t, GEMV_ROWS)`` rows a split and column tile, a count a column
+    tile; none when n is not split."""
+    if splits == 1:
+        return 0, 0
+    cols = GEMV_COLS[per_byte]
+    tiles = -(-d // cols)
+    return splits * tiles * min(t, GEMV_ROWS) * cols, tiles
+
+
+def gemv_workspace_bytes(splits: int, t: int, d: int, per_byte: int = 2) -> int:
+    """The decode body's workspace for a call of ``t`` rows in ``splits``
+    splits of n: where a tile's splits meet, the last to finish adding the
+    others' sums and resetting the tile's count to 0."""
+    return 4 * sum(_gemv_ws_sizes(splits, t, d, per_byte))
+
+
+_gemv_ws: dict = {}
+
+
+def _gemv_workspace(dev: torch.device, splits: int, t: int, d: int, per_byte: int
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The device's decode-body workspace (:func:`gemv_workspace_bytes`),
+    grown to this call's need and kept for the next: the counts are zero
+    at allocation and every launch leaves them zero.  Launches on one
+    stream at a time share it."""
+    n_part, n_count = _gemv_ws_sizes(splits, t, d, per_byte)
+    part, count = _gemv_ws.get(dev, (None, None))
+    if part is None or part.numel() < n_part:
+        part = torch.empty(max(n_part, 1), dtype=torch.float32, device=dev)
+    if count is None or count.numel() < n_count:
+        count = torch.zeros(max(n_count, 1), dtype=torch.int32, device=dev)
+    _gemv_ws[dev] = (part, count)
+    return part, count
+
+
+def _gemv_width(row_bytes: int, vptr: int, sptr: int, cols: int) -> int:
+    """The widest value piece (``cols``, 8, 4 or 1 bytes: ``cols`` 16 for
+    Q40, 8 for Q80) that a plane with rows ``row_bytes`` apart (d, or td
+    blocked: a piece never crosses a column tile) allows at values ``vptr``
+    and scales ``sptr``; a piece's scales are twice its bytes, read in loads
+    of up to 16."""
+    return next(w for w in (16, 8, 4, 1) if w <= cols and row_bytes % w == 0
+                and vptr % w == 0 and sptr % min(16, 2 * w) == 0)
+
+
 # Rows from which a call takes the tensor-core body (``q40_matmul_mma``,
 # ``q40_matmul_blocked_mma`` in csrc/q40_matmul.cu); fewer rows take the
-# GEMV body.  The crossover chip_smoke.py phase 2 measures at the five
-# Llama-2-7B sites (PERF.md): from t = 5, where the GEMV body's row group
-# grows from 4 to 8, the tensor-core body is faster at every site; at
-# t = 4 at 3 of 5, at t = 1-2 at 2 of 5.
-T_MMA = 5
+# decode body.  The crossover chip_smoke.py phase 2 measures at the five
+# Llama-2-7B sites (PERF.md): up to t = 8 (one pass of the decode body's
+# 8-row mma tile) the decode body is faster over a 7B layer's four
+# matmuls; from t = 9 it makes a second pass over the weights, and at
+# t = 12 the tensor-core body is faster at every site.
+T_MMA = 9
 # The tensor-core body's block, shared with the Q80 kernel's (``q8``
 # re-exports these): output columns and rows of n a step (kMmaBN, kMmaBK in
 # csrc/mma_common.cuh), and the blocks an SM holds at each tile height
@@ -693,7 +756,8 @@ def q40_blocked_matmul(x2: torch.Tensor, qpacked: torch.Tensor, scales: torch.Te
     if body == "mma":
         out = _launch_mma(fn, x2, qpacked, scales, idx, n, np_, d, n_planes, td, bn, td, nJ)
     else:
-        out = _launch(fn, x2, qpacked, scales, idx, n, np_, d, n_planes, bn, td, nJ)
+        out = _launch_gemv(fn, x2, qpacked, scales, idx, n, np_, d, n_planes, 2, td,
+                           bn, td, nJ)
     blocked_launches += 1
     _count(("blocked-mma" if body == "mma" else "blocked", n, d))
     return out
@@ -743,32 +807,38 @@ def launch(fn: str, x2: torch.Tensor, values: torch.Tensor, scales: torch.Tensor
              f"{tuple(values.shape)}", fn)
     if mma:
         return _launch_mma(fn, x2, values, scales, idx, n, np_, d, n_planes, d)
-    return _launch(fn, x2, values, scales, idx, n, np_, d, n_planes)
+    return _launch_gemv(fn, x2, values, scales, idx, n, np_, d, n_planes, per_byte, d)
 
 
-def _launch(fn: str, x2: torch.Tensor, values: torch.Tensor, scales: torch.Tensor,
-            idx: torch.Tensor, n: int, np_: int, d: int, n_planes: int,
-            *layout: int) -> torch.Tensor:
-    """Call C entry point ``fn`` on checked operands with the split plan
-    (``layout`` ints follow the plan: kernel 3's tile shape); raises on a
-    launch error."""
+def _launch_gemv(fn: str, x2: torch.Tensor, values: torch.Tensor, scales: torch.Tensor,
+                 idx: torch.Tensor, n: int, np_: int, d: int, n_planes: int, per_byte: int,
+                 row_bytes: int, *layout: int) -> torch.Tensor:
+    """Call decode-body entry point ``fn`` (the Q40 or Q80 kernel's, values
+    of ``per_byte`` weights a byte) on checked operands with
+    :func:`gemv_plan`; value rows start ``row_bytes`` apart (d row-major,
+    td blocked), which sets the load width; ``layout`` ints follow it
+    (kernel 3's tile shape).  One launch for up to ``GEMV_ROWS`` rows (one
+    a group of them above); raises on a launch error."""
     from . import _build
     lib = _build.load()
     dev, t = x2.device, x2.shape[0]
     xb = x2.to(torch.bfloat16).contiguous()
-    splits, per = split_plan(n, d, _sm_count(dev))
+    splits, per = gemv_plan(n, d, _sm_count(dev), per_byte)
+    part, count = _gemv_workspace(dev, splits, t, d, per_byte)
+    vw = _gemv_width(row_bytes, values.data_ptr(), scales.data_ptr(), GEMV_COLS[per_byte] // 8)
     out = torch.empty((t, d), dtype=torch.float32, device=dev)
-    scratch = (torch.empty((splits, t, d), dtype=torch.float32, device=dev)
-               if splits > 1 else out)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        rc = getattr(lib, fn)(xb.data_ptr(), values.data_ptr(), scales.data_ptr(),
-                              out.data_ptr(), scratch.data_ptr(), idx.data_ptr(),
-                              t, n, np_, d, n_planes, splits, per, *layout, stream)
-    if rc != 0:
-        raise RuntimeError(f"{fn} launch failed: CUDA error {rc} "
-                           f"({lib.q40_error_string(rc).decode()}) at "
-                           f"t={t} n={n} d={d} splits={splits} layout={layout}")
+        for g0 in range(0, t, GEMV_ROWS):
+            tg = min(GEMV_ROWS, t - g0)
+            rc = getattr(lib, fn)(xb[g0:].data_ptr(), values.data_ptr(), scales.data_ptr(),
+                                  out[g0:].data_ptr(), idx.data_ptr(), part.data_ptr(),
+                                  count.data_ptr(), tg, n, np_, d, n_planes, splits, per, vw,
+                                  *layout, stream)
+            if rc != 0:
+                raise RuntimeError(f"{fn} launch failed: CUDA error {rc} "
+                                   f"({lib.q40_error_string(rc).decode()}) at t={t} n={n} "
+                                   f"d={d} splits={splits}x{per} width={vw} layout={layout}")
     return out
 
 
@@ -962,13 +1032,17 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C entry points' signatures (every pointer and the stream
     as ``c_void_p``, so ctypes never cuts a 64-bit pointer)."""
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.q40_matmul.argtypes = [vp] * 6 + [ci] * 7 + [vp]
+    # the decode body: x, values, scales, out, the plane index, the
+    # workspace (partials, counts); t, n, np, d, the plane count, the plan
+    # (splits, blocks a split), the load width
+    lib.q40_matmul.argtypes = [vp] * 7 + [ci] * 8 + [vp]
     lib.q40_matmul.restype = ci
     # kernel 3: the same operands, then the tile shape (bn, td, nJ)
-    lib.q40_matmul_blocked.argtypes = [vp] * 6 + [ci] * 10 + [vp]
+    lib.q40_matmul_blocked.argtypes = [vp] * 7 + [ci] * 11 + [vp]
     lib.q40_matmul_blocked.restype = ci
-    # the tensor-core body: the plan (bm, splits, steps) and the copy widths
-    # in place of the split plan, then kernel 3's tile shape
+    # the tensor-core body: a scratch pointer before the plane index, the
+    # plan (bm, splits, steps) and the copy widths, then kernel 3's tile
+    # shape
     lib.q40_matmul_mma.argtypes = [vp] * 6 + [ci] * 10 + [vp]
     lib.q40_matmul_mma.restype = ci
     lib.q40_matmul_blocked_mma.argtypes = [vp] * 6 + [ci] * 13 + [vp]

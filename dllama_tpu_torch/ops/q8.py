@@ -44,7 +44,7 @@ import torch
 
 from .. import quants
 from .q40 import (MMA_BK, MMA_BLOCKS_PER_SM, MMA_BMS, MMA_BN,  # noqa: F401 (re-exported)
-                  _planes, dispatch, launch, mma_plan, padded_n)
+                  _planes, dispatch, gemv_plan, launch, mma_plan, padded_n)
 
 kernel_launches = 0
 mma_launches = 0
@@ -53,13 +53,16 @@ dense_prefill_calls = 0
 launches_by_shape: dict[tuple, int] = {}
 
 # Rows from which a call takes the tensor-core body (``q8_matmul_mma`` in
-# csrc/q8_matmul.cu); fewer rows take the GEMV body.  Phase 9 of
-# chip_smoke.py times both at t = 1, 4, 8, 16: from t = 4 the tensor-core
-# body wins at 13-14 of the 15 sites and over a 7B layer's four matmuls,
-# from t = 8 at every site (PERF.md).
-T_MMA = 4
+# csrc/q8_matmul.cu); fewer rows take the decode body (the Q40 kernel's
+# template, csrc/gemv_common.cuh).  Phase 9 of chip_smoke.py times both:
+# up to t = 8 (one pass of the decode body's 8-row mma tile) the decode
+# body is faster over a 7B layer's four matmuls and at most sites; from
+# t = 9 it makes a second pass, and at t = 12 the tensor-core body wins at
+# every site (PERF.md).
+T_MMA = 9
 # The tensor-core body's block and plan (MMA_BN, MMA_BK, MMA_BLOCKS_PER_SM,
-# MMA_BMS, mma_plan) are the Q40 kernel's, imported above.
+# MMA_BMS, mma_plan) and the decode body's plan (gemv_plan) are the Q40
+# kernel's, imported above.
 
 
 def reset_counters() -> None:
@@ -259,7 +262,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C entry point's signature (pointers and the stream as
     ``c_void_p``, so ctypes never cuts a 64-bit pointer)."""
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.q8_matmul.argtypes = [vp] * 6 + [ci] * 7 + [vp]
+    lib.q8_matmul.argtypes = [vp] * 7 + [ci] * 8 + [vp]
     lib.q8_matmul.restype = ci
     lib.q8_matmul_mma.argtypes = [vp] * 6 + [ci] * 10 + [vp]
     lib.q8_matmul_mma.restype = ci

@@ -144,7 +144,7 @@ def test_mma_plan_covers_n_and_bounds_scratch(n, d, t):
 
 def test_mma_plan_of_the_7b_wo_at_prefill_width():
     """wo (4096→4096) at t = 128: 32 output tiles of 128 x 128, 4 splits of
-    16 steps, 8 MB of scratch (the GEMV body's plan needs 268 MB there)."""
+    16 steps, 8 MB of scratch (the decode body needs none)."""
     assert tq8.mma_plan(128, 4096, 4096, N_SMS) == (128, 4, 16)
 
 

@@ -153,13 +153,14 @@ def test_cuda_device_request():
 @pytest.mark.parametrize("n,d", [(4096, 12288), (4096, 4096), (4096, 22016),
                                  (11008, 4096), (4096, 32000), (64, 48)])
 def test_split_plan_covers_reduction(n, d):
-    """The split plan covers every quantization block exactly once and,
-    at the 7B shapes, gives the 132-SM card at least one block per SM."""
-    splits, per = tq40.split_plan(n, d, 132)
+    """The decode body's split plan (gemv_plan) covers every quantization
+    block exactly once with no empty split and, at the 7B shapes, gives the
+    132-SM card at least 96 blocks of 128 columns."""
+    splits, per = tq40.gemv_plan(n, d, 132)
     nb = n // 32
     assert (splits - 1) * per < nb <= splits * per
     if n >= 4096:
-        assert splits * -(-d // tq40.BLOCK_COLS) >= 132
+        assert splits * -(-d // tq40.GEMV_COLS[2]) >= 96
 
 
 def test_bind_declares_pointer_arguments():
@@ -177,9 +178,9 @@ def test_bind_declares_pointer_arguments():
 
     lib = tq40.bind(Fake())
     for fn in (lib.q40_matmul, lib.q40_matmul_blocked):
-        argt = fn.argtypes
-        assert argt[:6] == [ctypes.c_void_p] * 6 and argt[-1] is ctypes.c_void_p
-        assert set(argt[6:-1]) == {ctypes.c_int}
+        argt = fn.argtypes  # the decode body: x, values, scales, out, index, workspace
+        assert argt[:7] == [ctypes.c_void_p] * 7 and argt[-1] is ctypes.c_void_p
+        assert set(argt[7:-1]) == {ctypes.c_int}
         assert fn.restype is ctypes.c_int
     assert len(lib.q40_matmul_blocked.argtypes) == len(lib.q40_matmul.argtypes) + 3
     # kernel 4: the host arrays of the ranks' pointers, then ints, the stream

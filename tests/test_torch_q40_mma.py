@@ -52,13 +52,17 @@ def test_mma_plan_covers_n_and_bounds_scratch(n, d, t):
 
 
 def test_7b_wo_scratch_against_the_gemv_plan():
-    """wo (4096→4096) at t = 128: 8 MB of split scratch, against the GEMV
-    body's 128 splits of (128, 4096) f32, 268 MB."""
+    """wo (4096→4096) at t = 128: 8 MB of split scratch, against the decode
+    body's 8 splits of 16 quantization blocks, whose sums meet in a
+    workspace of 8 splits × 32 tiles × 8 rows × 128 f32 (1 MB), one row
+    at decode (128 KB), and a count a tile."""
     bm, splits, _ = tq40.mma_plan(128, 4096, 4096, N_SMS)
     assert (bm, splits) == (128, 4)
     assert splits * 128 * 4096 * 4 == 8 << 20
-    g_splits, _ = tq40.split_plan(4096, 4096, N_SMS)
-    assert g_splits * 128 * 4096 * 4 == 268435456
+    g_splits, per = tq40.gemv_plan(4096, 4096, N_SMS)
+    assert (g_splits, per) == (8, 16)
+    assert tq40.gemv_workspace_bytes(g_splits, 128, 4096) == (1 << 20) + 32 * 4
+    assert tq40.gemv_workspace_bytes(g_splits, 1, 4096) == (128 << 10) + 32 * 4
 
 
 def test_q8_shares_the_plan():

@@ -226,9 +226,9 @@ def test_bind_declares_pointer_arguments():
         q8_matmul_mma = _Fn()
 
     lib = tq8.bind(Fake())
-    argt = lib.q8_matmul.argtypes
-    assert argt[:6] == [ctypes.c_void_p] * 6 and argt[-1] is ctypes.c_void_p
-    assert argt[6:13] == [ctypes.c_int] * 7 and lib.q8_matmul.restype is ctypes.c_int
+    argt = lib.q8_matmul.argtypes  # the decode body: x, values, scales, out, index, workspace
+    assert argt[:7] == [ctypes.c_void_p] * 7 and argt[-1] is ctypes.c_void_p
+    assert argt[7:15] == [ctypes.c_int] * 8 and lib.q8_matmul.restype is ctypes.c_int
     argt = lib.q8_matmul_mma.argtypes
     assert argt[:6] == [ctypes.c_void_p] * 6 and argt[-1] is ctypes.c_void_p
     assert argt[6:16] == [ctypes.c_int] * 10 and lib.q8_matmul_mma.restype is ctypes.c_int
