@@ -24,12 +24,15 @@ Phases (each prints its seconds; any failure exits non-zero):
 3. the main path at full width: a Llama-2-7B-shaped Q40 model synthesized
    from a seed (random nibbles, constant f16 scale 0.008; no weights needed),
    ``inference --temperature 0 --steps 64 --chunk 16 --warmup 16`` on cuda
-   through the CLI entry point; the Q40 counters must show exactly
-   4 * 32 + 1 = 129 kernel launches per forward and no plain call, a
-   single-token forward's 129 all on the GEMV body (the 16-row prompt
-   bucket's on the tensor-core body).  Then torch.profiler over 8 decode
-   steps: device busy time per token, the idle share, and the kernels that
-   take the time.
+   through the CLI entry point, every decode step a replay of its captured
+   CUDA graph; the Q40 counters must show exactly 4 * 32 + 1 = 129 kernel
+   launches per forward and no plain call, a single-token forward's 129 all
+   on the GEMV body (the 16-row prompt bucket's on the tensor-core body).
+   Then torch.profiler over 8 decode steps (graph replays): device busy
+   time per token, the idle share, and the kernels that take the time; then
+   one greedy stream with the engine's graphs on and off: the same tokens
+   byte for byte, the same launch counters, each pass's ms/token.  Phases
+   10, 11 and 14 do the same.
 4. a few requests: ``generate`` with three prompts, two greedy (each run
    twice, byte-identical) and one at temperature 0.8 seed 1; every run ends
    on finite logits.  On the phase-5 model (7B width, 2 layers): five
@@ -60,8 +63,13 @@ Phases (each prints its seconds; any failure exits non-zero):
    answers byte for byte.  Prints tok/s, TTFT and latency percentiles,
    peak memory and a torch.profiler split of an 8-slot decode step and of
    an 8-slot mixed prefill step, whose Q40 matmuls (8 and 128 rows) run on
-   the body q40.route names (the tensor-core body: launches > 0).  Then a
-   shorter pass with --kv-quant int8.
+   the body q40.route names (the tensor-core body: launches > 0); the decode
+   step replays its graph, and its eager wall is timed beside it.  The
+   scheduler's overlapped pipeline is on; then the first 8 requests, queued
+   in order while the scheduler is parked and released at once, run with
+   overlap on and then off: every answer byte for byte, the dispatches,
+   overlapped and discarded ones and tok/s of each.  Then a shorter pass
+   with --kv-quant int8.
 8. slot path, kernels against plain versions: the phase-5 model through
    Engine.slot_step on a paged pool (bf16 and int8), a ragged prefill
    chunk + 8 teacher-forced decode steps, kernels (``auto``) against
@@ -114,8 +122,9 @@ Phases (each prints its seconds; any failure exits non-zero):
    ``batch`` of 8 prompts (8 to 200 characters) from a prompts file,
    greedy, ``--steps 48`` (kernel 3 at t = 8 in decode, the body
    q40.route names), run twice: the same bytes, every row finished, finite
-   logits; the API server as in phase 7b with 8 requests, kernel 3 on the
-   slot path.
+   logits; then the batch with graphs on and off on the same engine: the
+   same rows and counters; the API server as in phase 7b with 8 requests,
+   kernel 3 on the slot path.
 15. blocked and batch end to end against the plain path on the phase-5
    model: kernel 3 against ``quant_impl="plain"`` (and against kernels
    1-2: bit for bit), the lockstep batch of 4 ragged prompts against each
@@ -539,12 +548,14 @@ def run_cli(cli, argv: list[str]):
 
 def main_path(cli, codec, m: str, t: str, want, extra: tuple = (),
               keep: bool = False, key: str = "kernel_launches"):
-    """Phases 3, 10, 11, 14: ``inference`` through the CLI with ``codec``'s
-    (q40 or q8) counters set to 0 just before it and read just after;
-    ``want(engine)`` is the run's exact launch count of counter ``key``
-    (``blocked_launches``: kernel 3, with no launch of kernels 1-2; else
-    kernels 1-2 with no launch of kernel 3).  Returns the run's numbers
-    (and the engine, with ``keep``)."""
+    """Phases 3, 10, 11, 14: ``inference`` through the CLI (its decode steps
+    replaying captured CUDA graphs) with ``codec``'s (q40 or q8) counters
+    set to 0 just before it and read just after; ``want(engine)`` is the
+    run's exact launch count of counter ``key`` (``blocked_launches``:
+    kernel 3, with no launch of kernels 1-2; else kernels 1-2 with no
+    launch of kernel 3).  Then the decode profile and the graphs on/off
+    pass (:func:`graphs_ab`).  Returns the run's numbers (and the engine,
+    with ``keep``)."""
     # an earlier phase's server can linger in reference cycles: free it
     # before the peak-memory reading starts
     gc.collect()
@@ -570,8 +581,10 @@ def main_path(cli, codec, m: str, t: str, want, extra: tuple = (),
     print(f"main path: {tps} tok/s, {ms} ms/token, peak device memory "
           f"{peak / 2**30:.2f} GiB, {engine.forwards} forwards, "
           f"{c[key]} {key}")
-    profile_decode(engine, ms, codec)
-    run = dict(counts=c, tok_s=tps, ms_token=ms, peak_bytes=peak)
+    prof = profile_decode(engine, ms, codec)
+    # tensor parallelism (phase 17) runs eagerly: no graphs to compare
+    ab = graphs_ab(engine, codec, key) if engine.graphs is not None else {}
+    run = dict(counts=c, tok_s=tps, ms_token=ms, peak_bytes=peak, **prof, **ab)
     if keep:
         return run, engine
     del engine
@@ -587,43 +600,67 @@ def matmul_kernel(name: str, codec_name: str) -> bool:
     return f"{codec_name}_" in name or codec_tag in name
 
 
-def profile_decode(engine, ms_token: float | None, codec, steps: int = 8,
-                   prompts: list[list[int]] | None = None) -> None:
-    """Where a decode token's time goes: torch.profiler over ``steps``
-    greedy decode steps of the main path's engine.  Device busy time per
-    token is the sum of the kernels' device times (``codec``, q40 or q8,
-    picks out the matmul kernel's); the idle share compares it with the
-    unprofiled ms/token of the run above.  With ``prompts`` (a batch
-    engine) the steps are lockstep steps of the ragged batch after
-    ``prefill_ragged``, and the unprofiled wall (``ms_token`` None) is
-    taken here: host clock around the same steps, synchronized.  The
-    profiled steps' matmuls take the body ``codec.route`` names for the
-    batch's rows: tensor-core launches there, and only there."""
+def device_rows(fn, n: int) -> list:
+    """torch.profiler over ``fn()``, which makes ``n`` calls: (device ms a
+    call, launches a call, name) of every kernel it recorded."""
     from torch.profiler import ProfilerActivity, profile
-    from dllama_tpu_torch.runtime.decode_loop import decode_chunk
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", 0) or 0
+        if us > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
+            rows.append((us / n / 1e3, e.count // n, e.key))
+    return rows
 
+
+def profile_decode(engine, ms_token: float | None, codec, steps: int = 8,
+                   prompts: list[list[int]] | None = None) -> dict:
+    """Where a decode token's time goes: torch.profiler over ``steps``
+    greedy decode steps of the main path's engine through
+    ``Engine.decode`` (each step a replay of its captured graph when the
+    engine's graphs are on).  Device busy time per token is the sum of the
+    kernels' device times (``codec``, q40 or q8, picks out the matmul
+    kernel's); the idle share compares it with the unprofiled ms/token of
+    the run above.  With ``prompts`` (a batch engine) the steps are
+    lockstep steps of the ragged batch after ``prefill_ragged``, and the
+    unprofiled wall (``ms_token`` None) is taken here: host clock around
+    the same steps, synchronized.  The profiled steps' matmuls take the
+    body ``codec.route`` names for the batch's rows: tensor-core launches
+    there, and only there.  Should the profiler see no kernel inside the
+    graphs, the steps are profiled again eagerly (the same kernels).
+    Returns the busy ms and idle share (None: not measured)."""
     engine.reset()
     if prompts is None:
         engine.prefill([1, 2, 3, 4])
     else:
         engine.prefill_ragged(prompts)
     unit = "token" if engine.batch == 1 else "step"
-    tok = torch.full((engine.batch,), 4, device=engine.device)
-    gen = torch.Generator(device=engine.device)  # greedy: never drawn from
-    run = lambda: decode_chunk(engine.params, engine.cfg, engine.cache, tok,  # noqa: E731
-                               engine.pos, gen, steps=steps, temperature=0.0,
-                               topp=0.9, offsets=engine.offsets)
+    tok = torch.full((engine.batch,), 4, dtype=torch.int32, device=engine.device)
+    p0 = engine.pos
+
+    def run():
+        engine.pos = p0
+        engine.decode(tok, steps, temperature=0.0, topp=0.9)
+        torch.cuda.synchronize()
+
     run()
-    torch.cuda.synchronize()
     if ms_token is None:
         t0 = time.perf_counter()
         run()
-        torch.cuda.synchronize()
         ms_token = (time.perf_counter() - t0) * 1e3 / steps
-    codec.reset_counters()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
+    saved, rows = engine.graphs, []
+    for graphs in ((saved, None) if saved is not None else (None,)):
+        engine.graphs = graphs
+        codec.reset_counters()
+        rows = device_rows(run, steps)
+        if rows:
+            how = "graph replays" if graphs is not None else "eager steps"
+            if graphs is None and saved is not None:
+                how += " (the profiler saw no kernel inside the graphs)"
+            break
+    engine.graphs = saved
     c = codec.counters()
     mm_launches = c["kernel_launches"] + c.get("blocked_launches", 0)
     if not mm_launches or bool(c["mma_launches"]) != (codec.route(engine.batch) == "mma"):
@@ -632,14 +669,9 @@ def profile_decode(engine, ms_token: float | None, codec, steps: int = 8,
     print(f"{codec.__name__.rsplit('.', 1)[1]} launches over the {steps} steps: "
           f"{mm_launches}, {c['mma_launches']} on the tensor-core body")
     kname = codec.__name__.rsplit(".", 1)[1]
-    rows = []
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", 0) or 0
-        if us > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
-            rows.append((us / steps / 1e3, e.count // steps, e.key))
     if not rows:
         print("decode profile: the profiler recorded no device time (not measured)")
-        return
+        return dict(busy_ms=None, idle=None, ms=ms_token)
     busy = sum(r[0] for r in rows)
     mm_ms = sum(r[0] for r in rows if matmul_kernel(r[2], kname))
     ar_ms = sum(r[0] for r in rows if "tp_allreduce" in r[2])
@@ -651,13 +683,51 @@ def profile_decode(engine, ms_token: float | None, codec, steps: int = 8,
         if split_reduce:
             raise AssertionError(f"decode-body steps launched {split_reduce}")
         print("no *_reduce_splits kernel in the decode steps (one launch a matmul)")
-    print(f"decode profile ({steps} steps, {engine.batch} row(s)): device busy "
+    print(f"decode profile ({steps} steps, {engine.batch} row(s), {how}): device busy "
           f"{busy:.3f} ms/{unit} of {ms_token:.3f} ms/{unit} unprofiled -> idle share "
           f"{1 - busy / ms_token:.3f}; {kname} kernels {mm_ms:.3f} ms/{unit}, other "
           f"kernels {busy - mm_ms:.3f} ms/{unit}, {sum(r[1] for r in rows)} kernel "
           f"launches/{unit}")
     for ms_, n, name in sorted(rows, reverse=True)[:10]:
         print(f"  {ms_:8.4f} ms/{unit} {n:5d}x  {name[:90]}")
+    return dict(busy_ms=busy, idle=1 - busy / ms_token, ms=ms_token)
+
+
+def graphs_ab(engine, codec, key: str, steps: int = 48) -> dict:
+    """Phases 3, 10, 11 and 14: one greedy stream on the main path's engine
+    with its decode graphs on, then off (every step eager) on the same
+    engine: byte for byte the same tokens, and the same launch counters
+    over the same forwards (the graphs add a captured step's launches at
+    every replay).  Prints and returns each pass's decode ms/token (the
+    stream's own G, the prefill left out)."""
+    prompt = np.random.RandomState(5).randint(3, engine.cfg.vocab_size, 5).tolist()
+    saved = engine.graphs
+    runs = {}
+    for name, graphs in (("on", saved), ("off", None)):
+        engine.graphs = graphs
+        engine.reset()
+        codec.reset_counters()
+        f0 = engine.forwards
+        toks, g = [], []
+        for tok, st in engine.generate_stream(prompt, steps, temperature=0.0):
+            toks.append(tok)
+            if st.generation_ms > 0 and len(toks) > len(prompt):
+                g.append(st.generation_ms)
+        torch.cuda.synchronize()
+        runs[name] = (toks, codec.counters(), engine.forwards - f0, float(np.mean(g)))
+    engine.graphs = saved
+    (t_on, c_on, f_on, ms_on), (t_off, c_off, f_off, ms_off) = runs["on"], runs["off"]
+    if t_on != t_off:
+        raise AssertionError(f"greedy stream differs with graphs on and off: {t_on} {t_off}")
+    if c_on != c_off or f_on != f_off:
+        raise AssertionError(f"launch counters differ with graphs on and off over "
+                             f"{f_on}/{f_off} forwards: {c_on} / {c_off}")
+    print(f"graphs on/off: the same {steps - len(prompt)} greedy tokens byte for byte, the "
+          f"same launches ({c_on[key]} {key} over {f_on} forwards, {c_on[key] / f_on:g} a "
+          f"forward; plain {c_on['plain_calls']}); decode wall {ms_on:.3f} ms/token with "
+          f"graphs, {ms_off:.3f} without; {saved.captures} graphs captured, "
+          f"{saved.replays} replays")
+    return dict(ms_on=ms_on, ms_off=ms_off)
 
 
 def greedy_repeat(engine, steps: int = 24) -> None:
@@ -957,15 +1027,15 @@ def serving_requests(n: int, seed: int = 7) -> list[tuple[str, dict]]:
     return chats[:1] + reqs + chats[1:]
 
 
-def profile_slot_step(engine, scheduler, q40, steps: int = 2) -> None:
+def profile_slot_step(engine, scheduler, q40, steps: int = 4) -> dict:
     """Where an 8-slot step's time goes: torch.profiler over ``steps``
-    single-token decode steps, then over one mixed prefill step (16 tokens
-    a row), on the serving engine with the scheduler parked; rows at
-    positions 300..1000 on private pages.  The idle share compares device
-    busy time with the unprofiled step wall.  The Q40 matmuls of a step
-    (8 or 128 rows) take the body ``q40.route`` names: tensor-core launches
-    there, and only there."""
-    from torch.profiler import ProfilerActivity, profile
+    single-token decode steps (each a replay of the slot step's graph),
+    then over one mixed prefill step (16 tokens a row, eager), on the
+    serving engine with the scheduler parked; rows at positions 300..1000
+    on private pages.  The idle share compares device busy time with the
+    unprofiled step wall; the decode step's eager wall (graphs off) is
+    timed too.  The Q40 matmuls of a step (8 or 128 rows) take the body
+    ``q40.route`` names: tensor-core launches there, and only there."""
     b = engine.batch
     per = 64  # pages a row: 1024 positions
     ptab = np.zeros((b, engine.max_pages_per_slot), np.int32)
@@ -978,7 +1048,16 @@ def profile_slot_step(engine, scheduler, q40, steps: int = 2) -> None:
         return engine.slot_step(np.full((b, t), 5, np.int32), pos, np.full(b, t, np.int32),
                                 temps_np=zeros, topps_np=zeros + 0.9, page_tables_np=ptab)
 
+    out = {}
     with scheduler.exclusive():
+        saved = engine.graphs
+        engine.graphs = None  # the decode step's eager wall, for the record
+        step(1)
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step(1)
+        out["step_ms_off"] = (time.perf_counter() - t0) * 1e3 / steps
+        engine.graphs = saved
         for t, n in ((1, steps), (16, 1)):
             step(t)
             q40.reset_counters()
@@ -992,39 +1071,81 @@ def profile_slot_step(engine, scheduler, q40, steps: int = 2) -> None:
             if not mm or bool(c["mma_launches"]) != (want == "mma"):
                 raise AssertionError(f"8-slot step of {t} token(s) a row: Q40 {c}, want "
                                      f"the {want} body at {b * t} rows")
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                for _ in range(n):
-                    step(t)
-            rows = []
-            for e in prof.key_averages():
-                us = getattr(e, "self_device_time_total", 0) or 0
-                if us > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
-                    rows.append((us / n / 1e3, e.count // n, e.key))
+            rows = device_rows(lambda: [step(t) for _ in range(n)], n)
+            how = ""
+            if not rows and t == 1:
+                engine.graphs = None
+                rows = device_rows(lambda: [step(t) for _ in range(n)], n)
+                engine.graphs = saved
+                how = " (eager: the profiler saw no kernel inside the graph)"
             if not rows:
                 print("slot step profile: the profiler recorded no device time "
                       "(not measured)")
-                return
+                return out
             busy = sum(r[0] for r in rows)
             attn = sum(r[0] for r in rows if "paged_attention" in r[2])
             q40k = sum(r[0] for r in rows if matmul_kernel(r[2], "q40"))
             what = "decode step" if t == 1 else f"mixed step ({t} tokens a row)"
-            print(f"8-slot {what}, {n} profiled: wall {wall:.3f} ms unprofiled, device "
+            if t == 1:
+                out.update(step_ms=wall, step_busy_ms=busy)
+                print(f"8-slot decode step: wall {wall:.3f} ms replaying its graph, "
+                      f"{out['step_ms_off']:.3f} ms eager")
+            print(f"8-slot {what}, {n} profiled{how}: wall {wall:.3f} ms unprofiled, device "
                   f"busy {busy:.3f} ms -> idle share {1 - busy / wall:.3f}; paged attention "
                   f"kernel {attn:.3f} ms, q40 {q40k:.3f} ms, other {busy - attn - q40k:.3f} "
                   f"ms; {sum(r[1] for r in rows)} kernel launches a step, Q40 "
                   f"{mm // n} ({c['mma_launches'] // n} on the tensor-core body)")
             for ms_, k, name in sorted(rows, reverse=True)[:8]:
                 print(f"  {ms_:8.4f} ms/step {k:5d}x  {name[:90]}")
+    return out
+
+
+def controlled_burst(sched, state, base: str, reqs: list, overlap: bool) -> dict:
+    """``reqs`` (at most the slot count) queued one by one, in order, while
+    the scheduler is parked, then released at once with its overlapped
+    pipeline ``overlap``: every request is admitted in the same round and
+    finds the same prefix-cache pages (the burst before cached them), so
+    the dispatch sequence, and with it each row's kernel bodies, is the
+    same with overlap on and off, and greedy answers must be equal.
+    Returns the answers, tok/s and the dispatch counts that moved."""
+    answers: list = [None] * len(reqs)
+    st0 = dict(sched.stats)
+    sched.overlap = overlap
+    threads = [threading.Thread(target=lambda i=i: answers.__setitem__(
+        i, _post(base, *reqs[i]))) for i in range(len(reqs))]
+    with sched.exclusive():
+        for i, th in enumerate(threads):
+            th.start()
+            while sched.occupancy()["queued"] < i + 1:
+                time.sleep(0.002)
+        t0 = time.perf_counter()
+    for th in threads:
+        th.join()
+    wall = time.perf_counter() - t0
+    sched.overlap = True
+    if any(code != 200 for code, _ in answers):
+        raise AssertionError(f"a released request failed: {str(answers)[:800]}")
+    n_tok = sum(r["completion_tokens"] for r in list(state.finished)[-len(reqs):])
+    st1 = sched.stats
+    return dict(texts=[_answer_text(p, b, ans) for (p, b), (_, ans) in zip(reqs, answers)],
+                tok_s=n_tok / wall,
+                moved={k: st1[k] - st0[k] for k in ("dispatches", "overlapped", "discarded")})
 
 
 def serve_path(api, attention, q40, m: str, t: str, n_requests: int,
                extra: list[str], profile: bool, blocked: bool = False,
-               tp: int = 1) -> dict:
+               tp: int = 1, repeat: bool = False) -> dict:
     """Phase 7, one pass; returns its numbers.  ``blocked``: the weights are
     in the blocked layout, so every Q40 launch must be kernel 3's.  ``tp``
     > 1 (phase 18, ``--workers`` in ``extra``): kernel 7 runs on every
-    rank's pool, kernel 4 sums the partials, and the burst runs a second
-    time, every answer byte for byte."""
+    rank's pool and kernel 4 sums the partials.  With ``repeat`` (phases 7,
+    11b, 18) the first slot-count requests run again twice through
+    :func:`controlled_burst`, overlap on then off: every answer byte for
+    byte, both passes' dispatch counts and tok/s printed.  (The staggered
+    burst's co-scheduling depends on timing, and a decode row that rides
+    a mixed prefill step takes the tensor-core body, whose sums differ in
+    the last bits from the decode body's: a burst repeated with other
+    timing may pick another greedy token at a near tie.)"""
     # a previous pass's server can linger in reference cycles: free it
     # before the peak-memory reading starts
     gc.collect()
@@ -1045,6 +1166,9 @@ def serve_path(api, attention, q40, m: str, t: str, n_requests: int,
         attention.reset_counters()
         q40.reset_counters()
         f0 = eng.slot_decode_forwards
+        st0 = dict(sched.stats)
+        if not sched.overlap:
+            raise AssertionError("the server's scheduler runs without its overlapped pipeline")
         results: list = [None] * len(reqs)
 
         def run(i):
@@ -1110,17 +1234,22 @@ def serve_path(api, attention, q40, m: str, t: str, n_requests: int,
         if tp > 1:
             print(f"tp={tp}: kernel 4 launches {qc['allreduce_launches']}, kernel 7 on "
                   f"{tp} pools of {eng.cache.k.shape[2]} kv heads")
-            texts = [_answer_text(p, b, ans) for (p, b), (_, ans) in zip(reqs, results)]
-            again: list = [None] * len(reqs)
-            threads = [threading.Thread(target=lambda i=i: again.__setitem__(
-                i, _post(base, *reqs[i]))) for i in range(len(reqs))]
-            for th in threads:
-                th.start()
-            for th in threads:
-                th.join()
-            if [_answer_text(p, b, ans) for (p, b), (_, ans) in zip(reqs, again)] != texts:
-                raise AssertionError("a greedy request answered differently the second time")
-            print(f"the {len(reqs)} requests again: every answer byte for byte")
+        out = dict(tok_s=n_tok / wall)
+        if repeat:
+            on, off = (controlled_burst(sched, state, base, reqs[:eng.batch], overlap)
+                       for overlap in (True, False))
+            if on["texts"] != off["texts"]:
+                raise AssertionError("a greedy request answered differently with the "
+                                     "overlapped pipeline off")
+            if not on["moved"]["overlapped"] or off["moved"]["overlapped"]:
+                raise AssertionError(f"overlapped dispatches: {on['moved']} with overlap "
+                                     f"on, {off['moved']} off")
+            out.update(tok_s_on=on["tok_s"], tok_s_off=off["tok_s"], on=on["moved"],
+                       off=off["moved"])
+            print(f"the first {len(on['texts'])} requests released at once, overlap on "
+                  f"then off: every answer byte for byte; on {on['tok_s']:.2f} tok/s, "
+                  f"dispatches {on['moved']}; off {off['tok_s']:.2f} tok/s, dispatches "
+                  f"{off['moved']}")
         # one request alone, twice: byte for byte (the second run finds its
         # prompt's pages in the prefix cache)
         path, body = reqs[5]
@@ -1131,8 +1260,8 @@ def serve_path(api, attention, q40, m: str, t: str, n_requests: int,
         print(f"one request alone twice: {len(texts[0])} chars, byte for byte; "
               f"prefix cache hits {occ['prefix_hits']} in the burst, {hits} in all")
         if profile:
-            profile_slot_step(eng, sched, q40)
-        return dict(attn_launches=ac["kernel_launches"], tok_s=n_tok / wall,
+            out.update(profile_slot_step(eng, sched, q40))
+        return dict(out, attn_launches=ac["kernel_launches"],
                     ttft_p50=_percentile(ttft, 50), ttft_p99=_percentile(ttft, 99),
                     peak_bytes=peak, allreduce_launches=qc["allreduce_launches"])
     finally:
@@ -1158,8 +1287,12 @@ def slot_end_to_end(engine_mod, transformer, cfg, params, dev, pools=(None, "q8"
         logits, routes = {}, {"auto": [], "plain": []}
         for impl in ("auto", "plain"):
             c = cfg.with_(quant_impl=impl, attn_impl=impl)
+            # the plain versions run eagerly (the plain page walk reads the
+            # rows' furthest position on the host); the kernels' single-token
+            # steps replay graphs at tp = 1
             eng = engine_mod.Engine(c, params, device=dev, batch=b, kv_dtype=kv,
-                                    kv_pages=1 + b * pages, kv_page_size=PAGE, mesh=mesh)
+                                    kv_pages=1 + b * pages, kv_page_size=PAGE, mesh=mesh,
+                                    graphs=False if impl == "plain" else None)
             pos = np.zeros(b, np.int32)
             with routing_log(transformer, cfg, routes[impl]):
                 eng.slot_step(prompt, pos, n_valid, temps_np=zeros, topps_np=zeros + 0.9,
@@ -1339,8 +1472,9 @@ def batch_path(cli, q40, m: str, t: str, tfile, steps: int = 48) -> dict:
         run = dict(counts=c, tok_s=tps, wall_s=wall, decode_forwards=decode,
                    tokens=got)
         if len(outs) == 2:  # a lockstep step at t = 8 on the second run's engine
-            profile_decode(engine, None, q40, prompts=[tok.encode(p, add_bos=True)
-                                                  for p in prompts])
+            ids = [tok.encode(p, add_bos=True) for p in prompts]
+            run.update(profile_decode(engine, None, q40, prompts=ids))
+            run.update(batch_graphs_ab(engine, q40, ids, steps))
         del engine
     if outs[0] != outs[1]:
         raise AssertionError("the greedy batch differs between two runs")
@@ -1351,6 +1485,33 @@ def batch_path(cli, q40, m: str, t: str, tfile, steps: int = 48) -> dict:
           f"{run['counts']['blocked_launches']}; repeats byte for byte")
     torch.cuda.empty_cache()
     return run
+
+
+def batch_graphs_ab(engine, q40, ids: list[list[int]], steps: int) -> dict:
+    """Phase 14b: the greedy lockstep batch on the CLI's engine with its
+    graphs on, then off: the same rows byte for byte and the same launch
+    counters over the same forwards; prints each pass's wall a step."""
+    saved, runs = engine.graphs, {}
+    for name, graphs in (("on", saved), ("off", None)):
+        engine.graphs = graphs
+        engine.reset()
+        q40.reset_counters()
+        f0 = engine.forwards
+        t0 = time.perf_counter()
+        rows = engine.generate_batch(ids, steps, temperature=0.0)
+        torch.cuda.synchronize()
+        n = engine.forwards - f0
+        runs[name] = (rows, q40.counters(), n, (time.perf_counter() - t0) * 1e3 / n)
+    engine.graphs = saved
+    (r_on, c_on, n_on, ms_on), (r_off, c_off, n_off, ms_off) = runs["on"], runs["off"]
+    if r_on != r_off or c_on != c_off or n_on != n_off:
+        raise AssertionError(f"the lockstep batch differs with graphs on and off: "
+                             f"{c_on} / {c_off} over {n_on}/{n_off} forwards")
+    print(f"batch graphs on/off: the same 8 rows byte for byte and the same launches "
+          f"({c_on['blocked_launches']} kernel 3 over {n_on} forwards); wall "
+          f"{ms_on:.3f} ms a forward with graphs, {ms_off:.3f} without (the prefill "
+          f"included)")
+    return dict(ms_on=ms_on, ms_off=ms_off)
 
 
 def teacher_forced(transformer, decode_chunk, engine_mod, cfg, params, dev, prompts,
@@ -1792,10 +1953,11 @@ def main() -> int:
             with phase("18 serving at --workers tpu:2 (7B width, 2 layers), cuda:0"):
                 served["tp2"] = serve_path(api, attention, q40, m2, t, 8,
                                            ["--workers", "tpu:2", "--device", "cuda:0"],
-                                           False, tp=2)
+                                           False, tp=2, repeat=True)
         if run_phase(7):
             with phase("7 serving: API server, slot scheduler, paged KV at 7B width"):
-                served["bf16"] = serve_path(api, attention, q40, m, t, 16, [], True)
+                served["bf16"] = serve_path(api, attention, q40, m, t, 16, [], True,
+                                            repeat=True)
             with phase("7b serving with --kv-quant int8"):
                 served["int8"] = serve_path(api, attention, q40, m, t, 8,
                                             ["--kv-quant", "int8"], False)
@@ -1847,7 +2009,7 @@ def main() -> int:
                 torch.cuda.empty_cache()
             with phase("11b Mixtral-8x7B Q40 (8 layers): serving"):
                 served["g4"] = serve_path(api, attention, q40, m, t, 8,
-                                          ["--max-seq-len", MIXTRAL_CTX], True)
+                                          ["--max-seq-len", MIXTRAL_CTX], True, repeat=True)
             os.remove(m)
         if run_phase(12):
             for name, ftype in (("Q40", quants.Q40), ("Q80", quants.Q80)):

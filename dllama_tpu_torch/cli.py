@@ -77,7 +77,7 @@ NOT_PORTED_FLAGS = {
     "--slo": None, "--log-format": None, "--log-level": None,
     "--trace-buffer": None, "--flight-buffer": None, "--event-buffer": None,
     "--event-log": None, "--numeric-checks": False, "--verify-weights": False,
-    "--no-sched-overlap": False, "--no-preempt": False,
+    "--no-preempt": False,
 }
 
 
@@ -132,6 +132,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="requests waiting for a slot before 429")
     p.add_argument("--no-prefix-reuse", action="store_true",
                    help="turn off the paged pool's radix prefix cache")
+    p.add_argument("--no-sched-overlap", action="store_true",
+                   help="slot scheduler: turn off the two-deep overlapped dispatch "
+                        "pipeline and dispatch synchronously (greedy output is "
+                        "byte-identical either way)")
     p.add_argument("--max-pending", type=int, default=8,
                    help="requests in flight or queued before 429")
     p.add_argument("--request-timeout", type=float, default=0.0,

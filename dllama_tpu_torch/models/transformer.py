@@ -5,7 +5,9 @@ contiguous slot rows, or a paged KV pool.
 
 One function serves prefill (T > 1) and decode (T == 1): tokens enter as
 ``(B, T)``, the KV cache as stacked ``(L, B, Hkv, S, Dh)`` buffers, and
-``pos`` is the position of the first token.  :func:`forward_slots` is the
+``pos`` is the position of the first token: a Python int, or an
+``ops.attention.DevicePos`` that a captured decode step reads on the
+device (``runtime.graphs``).  :func:`forward_slots` is the
 continuous-batching step: every row has its own clock (``pos_rows``), over
 contiguous slot rows or a paged pool (``(L, P, Hkv, ps, Dh)`` addressed
 through a page table).  The layer loop is a Python loop over the layer
@@ -35,7 +37,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..ops.attention import (gqa_attention_at, paged_gqa_attention_at,
+from ..ops.attention import (DevicePos, gqa_attention_at, paged_gqa_attention_at,
                              paged_update_kv_rows, paged_write_indices,
                              quantize_kv, slot_gqa_attention_at,
                              update_kv_cache_at, update_kv_cache_rows)
@@ -303,7 +305,8 @@ def _embed(params: Params, cfg: ModelConfig, tokens: torch.Tensor, pos: int,
         # the scale rounded to the activation dtype first, as the JAX
         # package multiplies by jnp.asarray(scale, dtype)
         x = x * torch.tensor(cfg.embedding_scale, dtype=cfg.dtype).item()
-    positions = pos + torch.arange(t, device=tokens.device)
+    at = pos.at if isinstance(pos, DevicePos) else pos
+    positions = at + torch.arange(t, device=tokens.device)
     if pos_rows is not None:
         positions = pos_rows.long()[:, None] + positions[None, :]
     elif offsets is not None:

@@ -27,6 +27,7 @@ JAX package's "bf16 in, f32 accumulate" on every device.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -57,14 +58,52 @@ def _use_blocked_decode(t: int, s: int) -> bool:
     return t == 1 and s >= _DECODE_BLOCKED_MIN_S and _kv_chunk(s) < s
 
 
+class DevicePos(NamedTuple):
+    """A decode step's position read on the device, as a captured CUDA
+    graph needs it: ``at`` is a 0-d int64 tensor (the cache position of
+    the step's first token), ``bound`` the host's upper bound on it.  The
+    bound alone sets how many blocks the decode walk reads
+    (:func:`walk_bucket`); the mask and the KV write read ``at``."""
+    at: torch.Tensor
+    bound: int
+
+
+def walk_bucket(pos: int, s: int) -> int:
+    """The walk bucket of a single-token step at ``pos`` over a cache of
+    ``s`` positions: the live ``_kv_chunk(s)`` blocks the decode walk
+    reads (1..s/chunk; 4 buckets at Llama-2-7B's 4096), or 0 where the step
+    takes the one-shot attention, which reads the whole cache."""
+    if not _use_blocked_decode(1, s):
+        return 0
+    return min(max(pos, 0), s - 1) // _kv_chunk(s) + 1
+
+
+def walk_bound(bucket: int, s: int) -> int:
+    """The last position of walk bucket ``bucket`` (``s - 1`` for 0)."""
+    return bucket * _kv_chunk(s) - 1 if bucket else s - 1
+
+
+def _pos_at(pos):
+    """The position a mask compares with: a Python int, or a DevicePos's
+    device scalar."""
+    return pos.at if isinstance(pos, DevicePos) else pos
+
+
 def update_kv_cache_at(k_cache: torch.Tensor, v_cache: torch.Tensor,
                        k_new: torch.Tensor, v_new: torch.Tensor,
-                       layer: int, pos: int) -> tuple[torch.Tensor, torch.Tensor]:
+                       layer: int, pos) -> tuple[torch.Tensor, torch.Tensor]:
     """Write one layer's step KV (B, Hkv, T, Dh) into the stacked
     (L, B, Hkv, S, Dh) caches at ``(layer, pos)``.  Unlike the JAX package's
     functional update, the write is in place (only the (B, Hkv, T, Dh)
-    window moves); the caches are returned for symmetry with it."""
+    window moves); the caches are returned for symmetry with it.  A
+    :class:`DevicePos` writes through a device index (``index_copy_``),
+    so the host never reads the position."""
     t = k_new.shape[2]
+    if isinstance(pos, DevicePos):
+        idx = pos.at + torch.arange(t, device=k_new.device)
+        k_cache[layer].index_copy_(2, idx, k_new.to(k_cache.dtype))
+        v_cache[layer].index_copy_(2, idx, v_new.to(v_cache.dtype))
+        return k_cache, v_cache
     k_cache[layer, :, :, pos:pos + t] = k_new.to(k_cache.dtype)
     v_cache[layer, :, :, pos:pos + t] = v_new.to(v_cache.dtype)
     return k_cache, v_cache
@@ -162,32 +201,39 @@ def blocked_live_fold(qf, slice_block, k, v, pos: int, c: int,
 
 
 def decode_gqa_attention(q: torch.Tensor, k_cache: torch.Tensor,
-                         v_cache: torch.Tensor, pos: int,
+                         v_cache: torch.Tensor, pos,
                          layer: int | None = None,
                          start: torch.Tensor | None = None) -> torch.Tensor:
     """Single-token causal GQA that reads only the blocks covering
     positions ``0..pos``.  With ``layer`` the caches are the stacked
     (L, B, Hkv, S, Dh) buffers and the layer is a view (no copy);
-    ``start`` (B,) is the ragged batch's per-row key floor."""
+    ``start`` (B,) is the ragged batch's per-row key floor.  A
+    :class:`DevicePos` walks the blocks up to its bound and masks with its
+    device position (the same mask values, so the same result)."""
     if layer is not None:
         k_cache, v_cache = k_cache[layer], v_cache[layer]
     b, hq, t, dh = q.shape
     hkv = k_cache.shape[1]
     qf = q.to(torch.float32).reshape(b, hkv, hq // hkv, t, dh)
-    _, l, acc = blocked_live_fold(qf, _slice_seq, k_cache, v_cache, pos,
-                                  k_cache.shape[2], row_start=start)
+    bound, row_pos = pos, None
+    if isinstance(pos, DevicePos):
+        bound, row_pos = pos.bound, pos.at.expand(b)
+    _, l, acc = blocked_live_fold(qf, _slice_seq, k_cache, v_cache, bound,
+                                  k_cache.shape[2], row_pos=row_pos, row_start=start)
     out = acc / torch.clamp(l, min=1e-38)[..., None]
     return out.reshape(b, hq, t, dh).to(q.dtype)
 
 
 def gqa_attention_at(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
-                     layer: int, pos: int, q_len: int,
+                     layer: int, pos, q_len: int,
                      start: torch.Tensor | None = None) -> torch.Tensor:
     """:func:`gqa_attention` over the stacked caches at ``layer``; a decode
-    step over a long cache walks the live blocks straight out of them."""
+    step over a long cache walks the live blocks straight out of them.
+    ``pos`` is a Python int or a :class:`DevicePos` (both algorithms then
+    mask with the device position)."""
     if _use_blocked_decode(q.shape[2], ck.shape[3]):
         return decode_gqa_attention(q, ck, cv, pos, layer=layer, start=start)
-    return gqa_attention(q, ck[layer], cv[layer], pos, q_len, start=start)
+    return gqa_attention(q, ck[layer], cv[layer], _pos_at(pos), q_len, start=start)
 
 
 def gqa_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
@@ -197,8 +243,8 @@ def gqa_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
 
     q (B, Hq, T, Dh), already RoPE'd; k_cache/v_cache (B, Hkv, S, Dh),
     positions ≥ pos+T garbage and masked out; pos is the index of q's first
-    token.  Returns (B, Hq, T, Dh).  Scale 1/sqrt(head_size); GQA grouping
-    is a reshape to (B, Hkv, G, T, Dh).  ``start`` (B,) is the ragged
+    token (a Python int, or a 0-d device tensor).  Returns (B, Hq, T, Dh).
+    Scale 1/sqrt(head_size); GQA grouping is a reshape to (B, Hkv, G, T, Dh).  ``start`` (B,) is the ragged
     batch's key floor: row ``b`` sees only key positions ``>= start[b]``
     (its left padding holds other prompts' alignment)."""
     b, hq, t, dh = q.shape

@@ -49,10 +49,20 @@ def rope_freqs(head_size: int, theta: float) -> np.ndarray:
     return 1.0 / (theta ** (np.arange(0, half, dtype=np.float32) * 2.0 / head_size))
 
 
+_FREQS: dict[tuple, torch.Tensor] = {}
+
+
 def rope_angles(positions: torch.Tensor, head_size: int, theta: float
                 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """cos/sin tables of shape ``positions.shape + (head_size/2,)``, f32."""
-    freqs = torch.from_numpy(rope_freqs(head_size, theta)).to(positions.device)
+    """cos/sin tables of shape ``positions.shape + (head_size/2,)``, f32.
+    The frequencies go to the device once (kept per device, head size and
+    theta): a forward makes no host-to-device copy, which a captured CUDA
+    graph could not hold and which would wait on the device's queue."""
+    key = (positions.device, head_size, float(theta))
+    freqs = _FREQS.get(key)
+    if freqs is None:
+        freqs = _FREQS[key] = torch.from_numpy(rope_freqs(head_size, theta)).to(
+            positions.device)
     ang = positions.to(torch.float32)[..., None] * freqs
     return torch.cos(ang), torch.sin(ang)
 

@@ -566,6 +566,9 @@ def gemv_workspace_bytes(splits: int, t: int, d: int, per_byte: int = 2) -> int:
 
 
 _gemv_ws: dict = {}
+# workspaces a larger one replaced: kept alive, as a captured CUDA graph may
+# still read them (their counts stay 0 like the live one's)
+_gemv_ws_retired: list[torch.Tensor] = []
 
 
 def _gemv_workspace(dev: torch.device, splits: int, t: int, d: int, per_byte: int
@@ -573,12 +576,17 @@ def _gemv_workspace(dev: torch.device, splits: int, t: int, d: int, per_byte: in
     """The device's decode-body workspace (:func:`gemv_workspace_bytes`),
     grown to this call's need and kept for the next: the counts are zero
     at allocation and every launch leaves them zero.  Launches on one
-    stream at a time share it."""
+    stream at a time share it.  A replaced workspace is never freed: a
+    graph captured with it keeps its address."""
     n_part, n_count = _gemv_ws_sizes(splits, t, d, per_byte)
     part, count = _gemv_ws.get(dev, (None, None))
     if part is None or part.numel() < n_part:
+        if part is not None:
+            _gemv_ws_retired.append(part)
         part = torch.empty(max(n_part, 1), dtype=torch.float32, device=dev)
     if count is None or count.numel() < n_count:
+        if count is not None:
+            _gemv_ws_retired.append(count)
         count = torch.zeros(max(n_count, 1), dtype=torch.int32, device=dev)
     _gemv_ws[dev] = (part, count)
     return part, count

@@ -4,7 +4,9 @@ cross to the host — the port of ``dllama_tpu/runtime/decode_loop.py``
 
 The steps run as a Python loop of eager forwards; the sampled token stays a
 device tensor that feeds the next step's embedding lookup, so a chunk is
-enqueued without a host round trip.  Greedy (temperature 0) is the exact
+enqueued without a host round trip.  On ``cuda`` at tp = 1 the engine
+replays each pure-decode step as a captured CUDA graph instead
+(``runtime.graphs``, whose step bodies are held to these functions).  Greedy (temperature 0) is the exact
 argmax; temperature/top-k/top-p run :func:`sampling.sample_on_device` with
 one uniform coin per row drawn from an explicit ``torch.Generator`` on the
 device.  The coin stream is not the JAX package's threefry stream, so only

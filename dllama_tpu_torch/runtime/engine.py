@@ -4,11 +4,19 @@ batching — the port of ``dllama_tpu/runtime/engine.py`` (batch-1 streams,
 ``generate_batch`` and the slot engine).
 
 Prefill pads the prompt up to a bucket (clamped to the cache) and runs it in
-one forward; decode runs chunks of on-device steps
-(:func:`decode_loop.decode_chunk`).  Stats keep the reference's per-token
-G/I/T contract: G = whole-step wall ms, I = device compute ms, T =
-device→host transfer ms.  On CUDA the engine synchronizes the device before
-it reads the clock, so I and T are the device's, not the enqueue's.
+one forward; decode runs chunks of on-device steps (:meth:`Engine.decode`):
+on ``cuda`` at tp = 1 each step replays a captured CUDA graph
+(:mod:`runtime.graphs`), else :func:`decode_loop.decode_chunk` runs them
+eagerly.  Stats keep the reference's per-token G/I/T contract: G =
+whole-step wall ms, I = device compute ms, T = device→host transfer ms.
+
+A decode dispatch (a chunk, or a slot dispatch) lands through a
+:class:`Landing`: on CUDA an event right after its last op, then a
+non-blocking copy of its token ids into pinned host memory and a second
+event, all enqueued before anything later.  Fetching a dispatch waits on
+its own events only, so the next one, enqueued first, stays in flight while
+the host fans this one out; I and T are read at those events, so they are
+the device's, not the enqueue's.
 """
 
 from __future__ import annotations
@@ -21,7 +29,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from ..device import resolve, synchronize
+from ..device import resolve, synchronize, upload
 from ..models.config import ModelConfig
 from ..models.params import Params, to_device
 from ..models.transformer import ShardedKV, forward_last, init_kv_cache, init_kv_pool
@@ -30,6 +38,7 @@ from ..parallel.mesh import Mesh
 from ..parallel.sharding import Placed, place_params
 from ..sampling import Sampler
 from .decode_loop import decode_chunk, device_sample, slot_chunk
+from .graphs import DecodeGraphs
 
 
 def _next_bucket(n: int, minimum: int = 16) -> int:
@@ -98,6 +107,40 @@ class RunStats:
         return 1000.0 / g if g > 0 else 0.0
 
 
+class Landing:
+    """A dispatch's sampled ids (a device tensor) on their way to the host.
+    On CUDA: an event right after the dispatch's last op, then a
+    non-blocking copy into pinned memory and an event after it, enqueued
+    at once, before any later work; :meth:`wait` blocks on these two
+    events alone.  On the CPU the ids are already there (copied, as a
+    later step may reuse their storage)."""
+
+    __slots__ = ("_done", "_copied", "_host")
+
+    def __init__(self, ids: torch.Tensor):
+        if ids.is_cuda:
+            stream = torch.cuda.current_stream(ids.device)
+            self._done = torch.cuda.Event()
+            self._done.record(stream)
+            self._host = torch.empty(ids.shape, dtype=ids.dtype, pin_memory=True)
+            self._host.copy_(ids, non_blocking=True)
+            self._copied = torch.cuda.Event()
+            self._copied.record(stream)
+        else:
+            self._done = self._copied = None
+            self._host = ids.clone()
+
+    def wait(self) -> tuple[float, float, np.ndarray]:
+        """Block until the ids are on the host: returns the host clock when
+        the dispatch had run, when its ids had arrived, and the ids."""
+        if self._done is not None:
+            self._done.synchronize()
+        t1 = time.perf_counter()
+        if self._copied is not None:
+            self._copied.synchronize()
+        return t1, time.perf_counter(), self._host.numpy()
+
+
 def on_device(device: torch.device):
     """Make ``device`` the current CUDA device for the block (work issued
     from a thread other than the one that made the engine names its
@@ -133,12 +176,18 @@ class Engine:
     own cache or pool of ``n_kv_heads/tp`` heads (:class:`ShardedKV`);
     ``device`` is then rank 0's, where logits land and sampling runs.  The
     blocked layout is single-device, as in the JAX package: on a mesh the
-    weights stay row-major, with a warning."""
+    weights stay row-major, with a warning.
+
+    ``graphs`` (default: on for ``cuda`` at tp = 1) replays the decode
+    steps of :meth:`decode` and the pure-decode slot dispatches as captured
+    CUDA graphs (:mod:`runtime.graphs`, kept in :attr:`graphs`; None runs
+    every step eagerly).  It needs ``cuda`` and tp = 1; the prefill
+    forwards, the mixed slot steps and tp > 1 run eagerly."""
 
     def __init__(self, cfg: ModelConfig, params: Params | Placed,
                  seq_len: int | None = None, kv_dtype=None, device=None,
                  batch: int = 1, kv_pages: int = 0, kv_page_size: int = 16,
-                 mesh: Mesh | None = None):
+                 mesh: Mesh | None = None, graphs: bool | None = None):
         self.mesh = mesh if mesh is not None and mesh.tp > 1 else None
         self.device = resolve(mesh.device if mesh is not None else device)
         self.cfg = cfg
@@ -195,6 +244,13 @@ class Engine:
         self.last_logits: torch.Tensor | None = None
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(0)
+        if graphs is None:
+            graphs = self.device.type == "cuda" and self.mesh is None
+        if graphs and (self.device.type != "cuda" or self.mesh is not None):
+            raise ValueError(f"CUDA graphs need a cuda engine at tp = 1, not {self.device} "
+                             f"at tp = {self.tp}")
+        #: the decode-step graph cache (runtime.graphs); None: every step eager
+        self.graphs: DecodeGraphs | None = DecodeGraphs(self.device) if graphs else None
 
     @property
     def tp(self) -> int:
@@ -286,6 +342,32 @@ class Engine:
         self.pos += 1
         return logits, stats
 
+    def decode(self, token, steps: int, *, temperature: float, topp: float):
+        """``steps`` decode steps from ``self.pos`` fed ``token`` (B,) — a
+        device tensor, or host ids: every row samples its next token on the
+        device (``temperature`` 0: the argmax; else one coin a row from the
+        engine's generator), a ragged batch with its ``offsets``.  Enqueues
+        the steps without waiting for them; returns (ids (steps, B), the
+        last row (B,)) on the device, advances ``self.pos`` and leaves the
+        last step's logits in ``last_logits``.  With :attr:`graphs` each
+        step replays its captured graph, else
+        :func:`decode_loop.decode_chunk` runs them."""
+        p0 = self.pos
+        with on_device(self.device):
+            if self.graphs is not None:
+                toks, last, logits = self.graphs.chunk(self, token, p0, steps,
+                                                       temperature, topp)
+            else:
+                tok = token if isinstance(token, torch.Tensor) else \
+                    upload(np.asarray(token), torch.int64, self.device)
+                toks, self.cache, last, _, logits = decode_chunk(
+                    self.params, self.cfg, self.cache, tok, p0, self._gen, steps=steps,
+                    temperature=temperature, topp=topp, offsets=self.offsets)
+        self.forwards += steps
+        self.last_logits = logits
+        self.pos = p0 + steps
+        return toks, last
+
     def generate_stream(self, prompt_tokens: list[int], steps: int, *,
                         temperature: float = 0.0, topp: float = 0.9,
                         seed: int | None = 0, eos_ids: tuple[int, ...] = (),
@@ -296,7 +378,8 @@ class Engine:
         continues the engine's generator instead of reseeding it.
 
         Chunk N+1 is enqueued (fed the on-device last token) before chunk
-        N's ids are fetched, so the host's Python work overlaps the device.
+        N's ids are fetched, and the fetch waits for chunk N alone
+        (:class:`Landing`), so the host's Python work overlaps the device.
         An EOS inside a chunk rewinds the position past the unconsumed
         overshoot and returns the speculative chunk's random draws."""
         steps = min(steps, self.seq_len - self.pos)
@@ -321,28 +404,20 @@ class Engine:
             p0 = self.pos
             sent = 8 + (in_tok.nbytes if isinstance(in_tok, np.ndarray) else 0)
             t0 = time.perf_counter()
-            tok_dev = torch.as_tensor(in_tok, device=self.device)
-            toks_dev, self.cache, last_dev, _, logits = decode_chunk(
-                self.params, self.cfg, self.cache, tok_dev, p0, self._gen,
-                steps=k, temperature=temperature, topp=topp)
-            self.forwards += k
-            self.last_logits = logits
-            self.pos = p0 + k
-            return k, p0, toks_dev, last_dev, t0, sent, gen_state
+            toks_dev, last_dev = self.decode(in_tok, k, temperature=temperature, topp=topp)
+            return k, p0, Landing(toks_dev), last_dev, t0, sent, gen_state
 
         pending = dispatch(np.full((1,), token, np.int64), produced)
         expected = produced
         boundary = None
         try:
             while pending is not None:
-                k, p0, toks_dev, last_dev, t0, sent, _ = pending
+                k, p0, landing, last_dev, t0, sent, _ = pending
                 expected += k
                 pending = dispatch(last_dev, expected) \
                     if expected < steps and self.pos < self.seq_len else None
-                synchronize(self.device)
-                t1 = time.perf_counter()
-                toks = toks_dev.cpu().numpy()[:, 0]  # (k,)
-                t2 = time.perf_counter()
+                t1, t2, toks = landing.wait()
+                toks = toks[:, 0]  # (k,)
                 # steady-state chunk wall = boundary to boundary
                 g0 = t0 if boundary is None else max(boundary, t0)
                 boundary = t2
@@ -404,9 +479,10 @@ class Engine:
         int array per decoded step, every row's sampled token, as each
         on-device chunk lands; ``steps`` yields at most, or the context
         window.  EOS and length are the consumer's.  Chunk N+1 is enqueued
-        on the device-carried last row before chunk N is fetched (depth-1
-        pipelining, as :meth:`generate_stream`); a consumer that stops
-        early gets the speculative chunk's random draws returned."""
+        on the device-carried last row before chunk N is fetched, and the
+        fetch waits for chunk N alone (depth-1 pipelining, as
+        :meth:`generate_stream`); a consumer that stops early gets the
+        speculative chunk's random draws returned."""
         if steps <= 0:
             raise ValueError("steps must be positive")
         if seed is not None:
@@ -418,13 +494,8 @@ class Engine:
         def dispatch(in_tok, done):
             k = min(chunk, steps - done, self.seq_len - self.pos)
             gen_state = self._gen.get_state()
-            toks_dev, self.cache, last_dev, _, logits = decode_chunk(
-                self.params, self.cfg, self.cache, in_tok, self.pos, self._gen,
-                steps=k, temperature=temperature, topp=topp, offsets=self.offsets)
-            self.forwards += k
-            self.last_logits = logits
-            self.pos += k
-            return k, toks_dev, last_dev, gen_state
+            toks_dev, last_dev = self.decode(in_tok, k, temperature=temperature, topp=topp)
+            return k, Landing(toks_dev), last_dev, gen_state
 
         expected = 1  # the prefill's sample is out
         if expected >= steps or self.pos >= self.seq_len:
@@ -432,11 +503,11 @@ class Engine:
         pending = dispatch(tok_vec, expected)
         try:
             while pending is not None:
-                k, toks_dev, last_dev, _ = pending
+                k, landing, last_dev, _ = pending
                 expected += k
                 pending = dispatch(last_dev, expected) \
                     if expected < steps and self.pos < self.seq_len else None
-                toks = toks_dev.cpu().numpy()  # (k, B)
+                toks = landing.wait()[2]  # (k, B)
                 for j in range(toks.shape[0]):
                     yield toks[j]
         finally:
@@ -457,7 +528,12 @@ class Engine:
         ``tokens_np`` with a prior dispatch's on-device last row, so the
         sampled tokens never visit the host on the input side.  A paged
         engine needs ``page_tables_np`` (B, max_pages) int32.  Sampled
-        rows draw from the engine's generator.  Does not touch
+        rows draw from the engine's generator.  A pure-decode dispatch
+        (one token a row) replays the engine's slot-step graph when
+        :attr:`graphs` is on; a mixed step (t > 1) runs eagerly.  The host
+        arrays go up non-blocking and the ids come back through a
+        :class:`Landing`, so an enqueue never waits for an earlier
+        dispatch.  Does not touch
         ``self.pos``: the batch-1 path and the slot path may share an
         engine as long as their uses do not overlap in time (the
         scheduler's ``exclusive()``)."""
@@ -489,24 +565,29 @@ class Engine:
         dev = self.device
 
         def put(a, dt):
-            return torch.tensor(np.asarray(a), dtype=dt, device=dev)
+            return upload(np.asarray(a), dt, dev)
 
         t0 = time.perf_counter()
         with on_device(dev):
-            toks = (feed_dev.to(torch.int32)[:, None] if feed_dev is not None
-                    else put(tokens_np, torch.int32))
-            ptab = put(page_tables_np, torch.int32) if self.paged else None
-            toks_dev, self.cache, last_dev, logits = slot_chunk(
-                self.params, self.cfg, self.cache, toks,
-                put(pos_rows_np, torch.int32), put(n_valid_np, torch.int32),
-                self._gen, put(temps_np, torch.float32),
-                put(topps_np, torch.float32), put(topks_np, torch.int32),
-                steps=steps, greedy=greedy, page_table=ptab)
+            if self.graphs is not None and t == 1:
+                toks_dev, last_dev, logits = self.graphs.slot(
+                    self, feed_dev, tokens_np, pos_rows_np, n_valid_np, temps_np, topps_np,
+                    topks_np, steps, page_tables_np, greedy)
+            else:
+                toks = (feed_dev.to(torch.int32)[:, None] if feed_dev is not None
+                        else put(tokens_np, torch.int32))
+                ptab = put(page_tables_np, torch.int32) if self.paged else None
+                toks_dev, self.cache, last_dev, logits = slot_chunk(
+                    self.params, self.cfg, self.cache, toks,
+                    put(pos_rows_np, torch.int32), put(n_valid_np, torch.int32),
+                    self._gen, put(temps_np, torch.float32),
+                    put(topps_np, torch.float32), put(topks_np, torch.int32),
+                    steps=steps, greedy=greedy, page_table=ptab)
+            landing = Landing(toks_dev)
         self.forwards += steps
         self.slot_decode_forwards += steps if t == 1 else steps - 1
         self.last_logits = logits
-        return SlotDispatch(self, toks_dev, last_dev, t=t, steps=steps,
-                            enqueued_at=t0)
+        return SlotDispatch(self, landing, last_dev, t=t, steps=steps, enqueued_at=t0)
 
     def slot_step(self, tokens_np: np.ndarray, pos_rows_np: np.ndarray,
                   n_valid_np: np.ndarray, *, temps_np: np.ndarray,
@@ -543,18 +624,19 @@ class Engine:
 
 class SlotDispatch:
     """Completion handle of one :meth:`Engine.slot_step_async` dispatch:
-    ``tokens_dev`` is the (steps, B) sampled-id tensor, ``last_dev`` the
-    (B,) final row kept on the device for a ``feed_dev`` successor.
-    ``wait()`` (idempotent) is the one device→host transfer a dispatch
-    pays; it stamps the engine's ``last_slot_dispatch_ms``."""
+    its sampled ids (steps, B) on their way to the host (a
+    :class:`Landing`), and ``last_dev``, the (B,) final row kept on the
+    device for a ``feed_dev`` successor.  ``wait()`` (idempotent) blocks
+    on this dispatch alone; it stamps the engine's
+    ``last_slot_dispatch_ms``."""
 
-    __slots__ = ("_engine", "tokens_dev", "last_dev", "t", "steps",
+    __slots__ = ("_engine", "_landing", "last_dev", "t", "steps",
                  "enqueued_at", "ready_at", "_out")
 
-    def __init__(self, engine, tokens_dev, last_dev, *, t: int, steps: int,
+    def __init__(self, engine, landing: Landing, last_dev, *, t: int, steps: int,
                  enqueued_at: float):
         self._engine = engine
-        self.tokens_dev = tokens_dev
+        self._landing = landing
         self.last_dev = last_dev
         self.t = t
         self.steps = steps
@@ -565,7 +647,7 @@ class SlotDispatch:
     def wait(self) -> np.ndarray:
         """Block until the dispatch lands; returns the (steps, B) ids."""
         if self._out is None:
-            self._out = self.tokens_dev.cpu().numpy()
+            self._out = self._landing.wait()[2]
             self.ready_at = time.perf_counter()
             self._engine.last_slot_dispatch_ms = (self.ready_at - self.enqueued_at) * 1e3
         return self._out

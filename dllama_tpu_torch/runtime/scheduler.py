@@ -1,6 +1,6 @@
 """Continuous-batching slot scheduler over the slot engine — a trimmed copy
-of ``dllama_tpu/runtime/scheduler.py`` in its ``overlap=False``,
-``kv_reserve="full"`` configuration.
+of ``dllama_tpu/runtime/scheduler.py`` in its ``kv_reserve="full"``
+configuration.
 
 One daemon thread owns the ``--batch-slots`` engine and drives
 :meth:`Engine.slot_step_async`, admitting a waiting request into any free
@@ -15,7 +15,19 @@ SOSP'23).  Per dispatch:
   (``steps > 1``), clamped so queued work waits at most ~``max_wait_ms``;
 * a freed slot is reused by handing its row position 0 again: the last
   occupant's KV sits above the newcomer's causal ceiling, so the cache is
-  never zeroed.
+  never zeroed;
+* with ``overlap`` (default on, ``--no-sched-overlap`` turns it off)
+  steady-state decode runs as a two-deep pipeline: while dispatch N's
+  tokens land and fan out host-side, dispatch N+1 is already enqueued on
+  the device, fed by N's on-device last-token row (``slot_step_async``'s
+  ``feed_dev``: no device→host→device round trip).  Every *flush point* —
+  a queued ticket awaiting admission, cancel or deadline,
+  ``exclusive()`` parking, :meth:`flush`, drain and close — completes the
+  round synchronously: the pipelined dispatch is landed and discarded,
+  its KV writes sit above every surviving row's position (masked by the
+  causal ceiling exactly like slot reuse), and greedy output stays
+  byte-identical with overlap on or off.  A row that retires in N's
+  fanout (EOS, budget) leaves N+1 row-wise: its burst row is ignored.
 
 Paged engines (``engine.kv_pages > 0``) reserve every page a request can
 touch at admission (prompt + budget), so a dispatch never fails on
@@ -31,8 +43,8 @@ the same tokens whichever slot they land in and whatever their neighbors
 do; sampled requests draw from the engine's shared generator, so their
 draws depend on co-scheduling.
 
-Left out of the copy (``ROADMAP.md``): the overlapped two-deep pipeline,
-priorities and preemption, parking, KV spill and tiering, hand-off and
+Left out of the copy (``ROADMAP.md``): priorities and preemption,
+parking, KV spill and tiering and optimistic reservation, hand-off and
 snapshots, speculative decoding, and the observability calls.  ``stats``
 keeps plain counters in their place.
 """
@@ -133,9 +145,12 @@ class _Slot:
 
 class _Pending:
     """One in-flight dispatch: the engine's completion handle plus who rode
-    it and with how many valid tokens each."""
+    it, with how many valid tokens each, and with which sampling params.
+    The pipeline in :meth:`SlotScheduler._dispatch` keeps at most one of
+    these beyond the dispatch it is landing (depth 2)."""
 
-    __slots__ = ("handle", "error", "active", "steps", "n_valid", "enq_tp")
+    __slots__ = ("handle", "error", "active", "tickets", "steps", "n_valid",
+                 "temps", "topps", "topks", "prefset", "enq_tp", "overlapped")
 
     def __init__(self, **kw):
         for k in self.__slots__:
@@ -149,7 +164,8 @@ class SlotScheduler:
 
     def __init__(self, engine, *, prefill_chunk: int = 16,
                  max_wait_ms: float = 50.0, decode_burst: int = 16,
-                 max_queue: int = 32, prefix_reuse: bool = True):
+                 max_queue: int = 32, prefix_reuse: bool = True,
+                 overlap: bool = True):
         if engine.cache.quantized and not engine.paged:
             raise ValueError("slot scheduling needs a dense or paged-int8 KV cache")
         self.engine = engine
@@ -167,9 +183,12 @@ class SlotScheduler:
                 self.prefix_cache = RadixTree(self.pool)
             self._page_tables = np.zeros(
                 (engine.batch, engine.max_pages_per_slot), np.int32)
-        #: plain counters: dispatches, prefill tokens fed, prefix-cache hits
-        #: and the prompt tokens they skipped, admissions deferred for pages
-        self.stats = {"dispatches": 0, "prefill_tokens": 0, "prefix_hits": 0,
+        #: plain counters: dispatches landed, of them pipelined ones
+        #: (``overlapped``) and pipelined ones landed and discarded at a
+        #: flush point, prefill tokens fed, prefix-cache hits and the prompt
+        #: tokens they skipped, admissions deferred for pages
+        self.stats = {"dispatches": 0, "overlapped": 0, "discarded": 0,
+                      "prefill_tokens": 0, "prefix_hits": 0,
                       "prefix_tokens_reused": 0, "kv_pool_exhausted": 0}
         self._queue: deque[Ticket] = deque()
         self._cond = threading.Condition()
@@ -178,6 +197,13 @@ class SlotScheduler:
         self._idle = threading.Event()  # set while paused with empty slots
         self._paused = 0
         self._step_ms_ema: float | None = None
+        # overlapped-dispatch pipeline (see module docstring).  Mutated on
+        # the scheduler thread only; _inflight_n is also read under _cond
+        # by _flushed() waiters, and _flush_req is written by them.
+        self.overlap = bool(overlap)
+        self._inflight_n = 0     # pipelined dispatches on the device
+        self._flush_req = 0      # >0: flush requested, pipelining blocked
+        self._last_land: float | None = None  # perf_counter of the last land
         self._thread = threading.Thread(target=self._run, daemon=True,
                                         name="dllama-torch-slot-scheduler")
         self._thread.start()
@@ -270,6 +296,31 @@ class SlotScheduler:
     def _wake(self):
         with self._cond:
             self._cond.notify_all()
+
+    # -- pipeline flush ------------------------------------------------
+    @contextlib.contextmanager
+    def _flushed(self):
+        """Hold the dispatch pipeline empty: block new pipelining, wait
+        for any in-flight pipelined dispatch to land (it is discarded at
+        the flush point), then yield with ``self._cond`` held and zero
+        dispatches in flight."""
+        with self._cond:
+            self._flush_req += 1
+            self._cond.notify_all()
+            try:
+                if not self._cond.wait_for(lambda: self._inflight_n == 0, timeout=60.0):
+                    _log.error("pipeline flush timed out with %d in flight",
+                               self._inflight_n)
+                yield
+            finally:
+                self._flush_req -= 1
+                self._cond.notify_all()
+
+    def flush(self) -> None:
+        """Synchronize the dispatch pipeline: returns only once zero
+        pipelined dispatches are in flight."""
+        with self._flushed():
+            pass
 
     # -- scheduler thread ----------------------------------------------
     def _retire(self, slot_idx: int, reason: str,
@@ -429,10 +480,25 @@ class SlotScheduler:
                 self._idle.set()
 
     def _dispatch(self, active: list[int], queued: int) -> None:
-        """One synchronous dispatch round: enqueue, land, fan out.  Zero
-        dispatches are in flight when this returns, so admission and
-        ``exclusive()`` happen at a plain step boundary."""
-        self._land_and_fanout(self._enqueue_first(active, queued))
+        """Run one dispatch round — and, with ``overlap`` on, keep a second
+        dispatch enqueued on the device while the first one's tokens land
+        and fan out (a two-deep pipeline).  INVARIANT: zero dispatches are
+        in flight when this returns, so admission, ``exclusive()`` and
+        drain all happen at a plain step boundary."""
+        cur = self._enqueue_first(active, queued)
+        while True:
+            nxt = None
+            if cur.error is None and self.overlap:
+                nxt = self._maybe_pipeline(cur)
+            ok = self._land_and_fanout(cur)
+            if not ok or nxt is None:
+                if nxt is not None:
+                    self._abandon(nxt)
+                return
+            if self._pipeline_verdict(nxt) is None:
+                self._abandon(nxt)
+                return
+            cur = nxt
 
     def _enqueue_first(self, active: list[int], queued: int) -> _Pending:
         """Build and enqueue the round's dispatch without blocking on the
@@ -484,6 +550,8 @@ class SlotScheduler:
                 n_valid[i] = c
             else:
                 tokens[i, 0] = s.last
+        tickets = {i: slots[i].ticket for i in active}
+        tp0 = time.perf_counter()
         handle, error = None, None
         try:
             handle = eng.slot_step_async(
@@ -493,7 +561,141 @@ class SlotScheduler:
         except Exception as e:
             error = e
         return _Pending(handle=handle, error=error, active=list(active),
-                        steps=steps, n_valid=n_valid, enq_tp=time.perf_counter())
+                        tickets=tickets, steps=steps, n_valid=n_valid, temps=temps,
+                        topps=topps, topks=topks, prefset=set(prefilling),
+                        enq_tp=tp0, overlapped=False)
+
+    def _maybe_pipeline(self, cur: _Pending) -> _Pending | None:
+        """While ``cur`` is still in flight, enqueue the next pure-decode
+        dispatch fed by ``cur``'s on-device last-token row.  Returns None
+        at any pipeline flush point — queued admission pending, drain /
+        pause / flush request / close, cancel or expired deadline, a row
+        still mid-prefill after ``cur``, no context room, every row's
+        budget spent by ``cur`` — and the round then completes
+        synchronously."""
+        eng = self.engine
+        slots = self.slots
+        b = eng.batch
+        with self._cond:
+            if (self._stop or self._draining or self._paused
+                    or self._flush_req or self._queue):
+                return None
+            now = time.monotonic()
+            pos2 = np.zeros((b,), np.int32)
+            budget = 0
+            for j in range(b):
+                s = slots[j]
+                t = s.ticket
+                if j not in cur.tickets:
+                    if t is not None:
+                        return None   # a slot bound under us
+                    continue
+                if t is None or t is not cur.tickets[j]:
+                    return None       # slot re-bound under us
+                if t._cancel is not None or (t.deadline is not None
+                                             and now >= t.deadline):
+                    return None
+                nv = int(cur.n_valid[j])
+                if s.fed < len(t.prompt) and s.fed + nv < len(t.prompt):
+                    return None       # still mid-prefill after cur
+                pos2[j] = s.pos + nv + (cur.steps - 1)
+                made = 1 if j in cur.prefset else cur.steps
+                budget = max(budget, t.max_new - (s.produced + made))
+            if budget < 1:
+                # every row hits its token budget during ``cur``: the
+                # pipelined dispatch knows its predecessor's yield up
+                # front, so the all-overrun burst is avoidable waste
+                return None
+            room = min(int(eng.seq_len) - int(pos2[i]) for i in cur.active)
+            if room < 1:
+                return None
+            # sized exactly like the sync burst, so the overlap on/off A/B
+            # compares dispatch pipelining alone
+            steps2 = max(1, min(self.decode_burst, room))
+            steps2 = 1 << (steps2.bit_length() - 1)
+            ptab = self._page_tables.copy() if self.paged else None
+            # reserve the in-flight count before releasing the lock so a
+            # concurrent _flushed() waiter sees this dispatch coming
+            self._inflight_n += 1
+        handle, err = None, None
+        try:
+            handle = eng.slot_step_async(
+                None, pos2, np.ones((b,), np.int32), temps_np=cur.temps,
+                topps_np=cur.topps, topks_np=cur.topks, steps=steps2,
+                page_tables_np=ptab, feed_dev=cur.handle.last_dev)
+        except Exception as e:
+            err = e
+        if err is not None:
+            with self._cond:
+                self._inflight_n -= 1
+                self._cond.notify_all()
+            _log.error("pipelined enqueue failed; round completes synchronously: %r", err)
+            return None
+        return _Pending(handle=handle, error=None, active=list(cur.active),
+                        tickets=dict(cur.tickets), steps=steps2,
+                        n_valid=np.ones((b,), np.int32), temps=cur.temps,
+                        topps=cur.topps, topks=cur.topks, prefset=set(),
+                        enq_tp=time.perf_counter(), overlapped=True)
+
+    def _pipeline_verdict(self, nxt: _Pending) -> list[int] | None:
+        """After ``nxt``'s predecessor landed and fanned out with ``nxt``
+        still in flight: decide whether ``nxt``'s tokens may be emitted.
+        Returns the surviving slot list, or None for a hard flush (``nxt``
+        must be discarded).  A slot that merely retired in the
+        predecessor's fanout (EOS / budget) survives row-wise removal —
+        the burst computed its row for nothing, which is cheaper than
+        flushing the whole pipeline."""
+        slots = self.slots
+        with self._cond:
+            if (self._stop or self._draining or self._paused
+                    or self._flush_req or self._queue):
+                return None
+            now = time.monotonic()
+            survivors = []
+            for j in range(len(slots)):
+                s = slots[j]
+                if j not in nxt.tickets:
+                    if s.ticket is not None:
+                        return None   # a slot bound mid-pipeline
+                    continue
+                t = s.ticket
+                if t is None:
+                    continue          # retired by the predecessor's fanout
+                if t is not nxt.tickets[j]:
+                    return None       # slot re-bound
+                if t._cancel is not None or (t.deadline is not None
+                                             and now >= t.deadline):
+                    return None       # honor the step boundary, like sync
+                survivors.append(j)
+            if not survivors:
+                return None
+            nxt.active = survivors
+            nxt.tickets = {j: nxt.tickets[j] for j in survivors}
+            return survivors
+
+    def _abandon(self, nxt: _Pending) -> None:
+        """Land and discard an in-flight pipelined dispatch at a flush
+        point.  No slot clock ever advanced for it and its tokens are never
+        emitted, so greedy output is byte-identical to never having
+        pipelined: its KV writes all sit above every surviving row's
+        position — masked by the causal ceiling and rewritten identically
+        by the synchronous redo dispatch, exactly like slot reuse.  The
+        sampler draws it consumed are not given back: sampled draws depend
+        on co-scheduling by contract (module docstring); greedy rows never
+        draw."""
+        try:
+            nxt.handle.wait()
+        except Exception as e:
+            # the discarded dispatch owns its own failure: nothing was
+            # emitted from it; the next live dispatch re-probes the device
+            _log.error("discarded in-flight dispatch failed: %r", e)
+        self._last_land = time.perf_counter()
+        self.stats["dispatches"] += 1
+        self.stats["overlapped"] += 1
+        self.stats["discarded"] += 1
+        with self._cond:
+            self._inflight_n -= 1
+            self._cond.notify_all()
 
     def _land_and_fanout(self, cur: _Pending) -> bool:
         """Block until ``cur``'s tokens land and fan them out to their
@@ -506,8 +708,17 @@ class SlotScheduler:
                 out = cur.handle.wait()
             except Exception as e:
                 error = e
-        wall_ms = (time.perf_counter() - cur.enq_tp) * 1e3
+        tp1 = time.perf_counter()
+        # a pipelined dispatch owns the wall from its predecessor's land on
+        start = max(cur.enq_tp, self._last_land or 0.0) if cur.overlapped else cur.enq_tp
+        wall_ms = (tp1 - start) * 1e3
+        self._last_land = tp1
         self.stats["dispatches"] += 1
+        if cur.overlapped:
+            self.stats["overlapped"] += 1
+            with self._cond:
+                self._inflight_n -= 1
+                self._cond.notify_all()
         if error is not None:
             _log.error("slot dispatch failed: %r", error)
             with self._cond:

@@ -1074,10 +1074,10 @@ def build_state(args) -> ApiState:
         scheduler = SlotScheduler(
             batch_engine, prefill_chunk=args.sched_prefill_chunk,
             max_wait_ms=args.sched_max_wait_ms, max_queue=args.sched_max_queue,
-            prefix_reuse=not args.no_prefix_reuse)
-        _log.info("slot scheduler: %d slots, %d pages of %d, kv %s, prefix reuse %s",
-                  args.batch_slots, args.kv_pages, args.kv_page_size, args.kv_quant,
-                  scheduler.prefix_cache is not None)
+            prefix_reuse=not args.no_prefix_reuse, overlap=not args.no_sched_overlap)
+        _log.info("slot scheduler: %d slots, %d pages of %d, kv %s, prefix reuse %s, "
+                  "overlap %s", args.batch_slots, args.kv_pages, args.kv_page_size,
+                  args.kv_quant, scheduler.prefix_cache is not None, scheduler.overlap)
     return ApiState(engine, tok, default_temperature=args.temperature,
                     default_topp=args.topp, chunk=args.chunk,
                     batch_engine=batch_engine, max_pending=args.max_pending,

@@ -20,7 +20,7 @@ SERVE = ["--temperature", "0", "--buffer-float-type", "f32", "--batch-slots", "2
 
 def _jax_server(m: str, t: str):
     """The JAX package's server, built in-process as its main() builds it
-    (the scheduler with overlap off, as the port runs)."""
+    (the scheduler's overlapped pipeline on, the default of both)."""
     from dllama_tpu.cli import build_parser, load_stack
     from dllama_tpu.runtime.engine import Engine
     from dllama_tpu.runtime.scheduler import SlotScheduler
@@ -31,7 +31,7 @@ def _jax_server(m: str, t: str):
     engine, tok = load_stack(args)
     batch = Engine(engine.cfg, engine.params, mesh=engine.mesh, batch=2,
                    kv_dtype=engine.cache.k.dtype, kv_pages=40, kv_page_size=4)
-    sched = SlotScheduler(batch, overlap=False)
+    sched = SlotScheduler(batch, overlap=True)
     state = japi.ApiState(engine, tok, default_temperature=0.0, batch_engine=batch,
                           scheduler=sched)
     return japi.serve(state, host="127.0.0.1", port=0, block=False), sched

@@ -116,6 +116,25 @@ def test_q40_variant_other_than_classic_is_refused(model_files):
     assert "not yet ported" in r.stderr and "DLLAMA_Q40_VARIANT=fma" in r.stderr
 
 
+def test_no_sched_overlap_is_accepted_and_reaches_the_scheduler(model_files):
+    """``--no-sched-overlap`` (the JAX CLI's flag) is accepted by the CLI and
+    the server, and turns the slot scheduler's overlapped pipeline off; the
+    pipeline is on without it."""
+    from dllama_tpu_torch import cli
+    from dllama_tpu_torch.server import api
+    args = cli.build_parser().parse_args(["generate", "--no-sched-overlap"])
+    assert args.no_sched_overlap and cli.not_ported(args) == []
+    m, t = model_files
+    base = ["--model", m, "--tokenizer", t, "--device", "cpu", "--host", "127.0.0.1",
+            "--port", "0", "--batch-slots", "2", "--kv-pages", "40", "--kv-page-size", "4"]
+    for extra, overlap in (([], True), (["--no-sched-overlap"], False)):
+        server = api.start(base + extra)
+        try:
+            assert server.state.scheduler.overlap is overlap
+        finally:
+            api.stop(server)
+
+
 def test_cuda_request_without_cuda_fails(model_files):
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA device")
