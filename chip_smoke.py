@@ -51,6 +51,19 @@ Phases (each prints its seconds; any failure exits non-zero):
    prints the bound, the kernel's share of it and the split plan.  Then
    the bf16 pool at Mixtral's shape: 32 query heads on 8 kv heads (G = 4
    query heads a block).
+6c. the prefill attention kernel (t > 1 query rows over the paged pool,
+   the mixed slot step's read) against its plain version (the gather, then
+   the one-shot per-row-ceiling attention) at the 7B shape (G = 1) and at
+   Mixtral's (G = 4), bf16 and int8 pools, T in {2, 8, 16} and the widest
+   step (128 query rows a block: T = 128 at G = 1, 32 at G = 4): B = 8 rows
+   at position 0, mid-page, across a page edge and near 4095, the step's
+   K/V written first as the slot step writes it (rows with n_valid < T
+   send their padded tokens to scratch page 0; one row's table runs out
+   into page 0): for each query row (row, head, token), max|kernel - plain|
+   <= ATTN_TOL * max|plain| over that row.  Times the kernel
+   (cold L2), the plain version and SDPA on K/V pre-gathered to bf16 with
+   the boolean per-row mask (a yardstick the port never calls); prints the
+   bound and the kernel's share of it.
 7. the serving path at full width: the API server in-process on the
    phase-3 model (--batch-slots 8 --kv-pages 513 --kv-page-size 16
    --sched-prefill-chunk 16) answers 16 concurrent greedy requests (prompts
@@ -60,21 +73,29 @@ Phases (each prints its seconds; any failure exits non-zero):
    finite; every single-token slot forward launched the attention kernel
    once per layer and no decode read ran the plain version; no Q40 matmul
    ran the plain version; the prefix cache hit; a request sent alone twice
-   answers byte for byte.  Prints tok/s, TTFT and latency percentiles,
-   peak memory and a torch.profiler split of an 8-slot decode step and of
-   an 8-slot mixed prefill step, whose Q40 matmuls (8 and 128 rows) run on
-   the body q40.route names (the tensor-core body: launches > 0); the decode
-   step replays its graph, and its eager wall is timed beside it.  The
-   scheduler's overlapped pipeline is on; then the first 8 requests, queued
-   in order while the scheduler is parked and released at once, run with
-   overlap on and then off: every answer byte for byte, the dispatches,
-   overlapped and discarded ones and tok/s of each.  Then a shorter pass
-   with --kv-quant int8.
+   answers byte for byte; every mixed slot forward launched the prefill
+   attention kernel once per layer, never its plain version.  Prints tok/s,
+   TTFT and latency percentiles, peak memory and a torch.profiler split of
+   an 8-slot decode step and of an 8-slot mixed prefill step (16 tokens a
+   row), each replaying its captured graph, with its eager wall timed
+   beside it; their Q40 matmuls (8 and 128 rows) run on the body q40.route
+   names (the tensor-core body: launches > 0), the mixed step runs the
+   prefill kernel once a layer and no cuBLAS GEMM (the plain attention's
+   f32 einsums).  The scheduler's overlapped pipeline is on; then the first
+   8 requests, queued in order while the scheduler is parked and released
+   at once, run with overlap on, overlap off, and with the slot graphs off:
+   every answer byte for byte, the dispatches, overlapped and discarded
+   ones and tok/s of each.  Prints each captured key's capture seconds and
+   memory-pool bytes.  Then a shorter pass with --kv-quant int8 (7b), with
+   its profile.
 8. slot path, kernels against plain versions: the phase-5 model through
-   Engine.slot_step on a paged pool (bf16 and int8), a ragged prefill
-   chunk + 8 teacher-forced decode steps, kernels (``auto``) against
+   Engine.slot_step on a paged pool (bf16 and int8), a ragged mixed step
+   (16 tokens a row; the prefill attention kernel, n_layers launches) + 8
+   teacher-forced decode steps, kernels (``auto``) against
    ``quant_impl = attn_impl = "plain"``: logits within E2E_TOL and greedy
-   agreement where the margin is decisive.
+   agreement where the margin is decisive; the kernels' steps with the
+   engine's graphs on and off give the same logits bit for bit.  Then
+   contiguous slot rows (no pool) the same way, graphs on against off.
 9. the Q80 kernel against its plain version as in phase 2, at t in {1, 4,
    8, 12, 16, 24, 32, 128}, both of its bodies (the decode and the tensor-core body:
    the crossover that sets q8.T_MMA) checked and timed, the routed one
@@ -102,7 +123,9 @@ Phases (each prints its seconds; any failure exits non-zero):
 12. MoE kernels against plain versions end to end: Mixtral width cut to 2
    layers, Q40 and Q80, the phase-5 and phase-8 checks (batch-1 and slot
    paths, both MoE routes: all experts for the prompt, the selected ones
-   for decode).
+   for decode), after a per-layer trace of where the kernel path leaves
+   the plain path (each block's attention, FFN and residual, chained and
+   alone; the logits' gap against max|logits| and against their spread).
 13. kernel 3 (the Q40 matmul over tile-contiguous "blocked" planes)
    against its plain version (unblock the plane, then phase 2's plain
    version) at the five 7B sites in the default tiles (512, 2048) (stacked
@@ -162,9 +185,11 @@ Phases (each prints its seconds; any failure exits non-zero):
    kernel 4's plain version) end to end, batch-1 and slot paths, as
    phases 5, 8 and 12.
 
-They run in the order 1, 2, 13, 9, 6, 16, 3, 17, 4, 5, 8, 15, 18, 7, 14,
-10, 11, 12, 19; each synthesized model is deleted when its phases end.  ``--only 1,6``
-runs a subset of the phases (for bring-up; it prints no result lines).
+They run in the order 1, 2, 13, 9, 6, 6c, 16, 3, 17, 4, 5, 8, 15, 18, 7,
+14, 10, 11, 12, 19; each synthesized model is deleted when its phases end.
+``--only 1,6c`` runs a subset of the phases (for bring-up; it prints no
+result lines; ``6`` includes ``6c``).  Phase 3 also prints each captured
+key's capture seconds and memory-pool bytes.
 Prints the kernel table as one JSON line before the last line; the last
 line is ``{"ok": true, "device": {...}}``.
 """
@@ -266,6 +291,16 @@ ATTN_TOL = 1e-2
 ATTN_SRC = "dllama_tpu_torch/ops/csrc/paged_attention.cu"
 ATTN_REPLACES = "dllama_tpu/ops/attention.py:394"
 ATTN_POS = (0, 15, 16, 700, 1500, 2047, 3001, 4095)  # ragged rows
+# the prefill kernel (phase 6c): every width the scheduler emits at
+# --sched-prefill-chunk 16 is a power of two; these rows sit at position 0,
+# mid-page, across a page edge and near 4095 (clipped to 4096 - T)
+PREFILL_SRC = "dllama_tpu_torch/ops/csrc/paged_prefill_attention.cu"
+PREFILL_REPLACES = "dllama_tpu/ops/attention.py:106 _rows_ceiling_attention"
+PREFILL_T = (2, 8, 16)
+# and the widest step of each shape, 128 query rows a block (two m16 tiles
+# a warp): t = 128 at G = 1 (7B), t = 32 at Mixtral's G = 4
+PREFILL_T_WIDE = {1: 128, 4: 32}
+PREFILL_POS = (0, 7, 14, 300, 1000, 2040, 3001, 4095)
 PAGE = 16
 # kernel 4, the TP all-reduce (phase 16): t rows a rank at decode, the
 # lockstep batch and a prefill chunk; d of Llama-2-7B/Mixtral and Grok-1
@@ -856,6 +891,71 @@ def end_to_end(transformer, cfg, params, dev, label: str = "2 layers, bf16",
           f"({int(agree.sum())}/9 overall){routing_note(routes)}")
 
 
+def layer_gaps(transformer, cfg, params, dev, label: str) -> None:
+    """Phase 12: where the kernel path's logits leave the plain path's.  A
+    12-token prefill through the layer loop written out, kernels (``auto``)
+    and ``quant_impl="plain"``: after each block the largest difference
+    of the two runs' attention output, FFN output and residual stream, each
+    against the plain run's largest value ("chained": each run on its own
+    stream); then each block of the kernel path fed the plain run's input
+    of that block ("alone": the block's own difference, a fresh cache for
+    attention).  The last token's residual is given with its mean and
+    spread and how many of its normed values differ, and the logits' gap
+    also against their spread about their mean: the synthesized weights'
+    codes have a mean of -0.5 (Q40 nibbles less 8, Q80 bytes) times the
+    scale, 16x larger for Q40, which puts a common offset on the residual
+    stream whose bf16 ulp can swallow a last-bit difference."""
+    rng = np.random.RandomState(1)
+    prompt = torch.from_numpy(rng.randint(3, cfg.vocab_size, (1, 12))).to(dev)
+
+    def ffn(c, x, layer):
+        xb = transformer.rmsnorm(x, params["rms_ffn"][layer])
+        if c.is_moe:
+            return transformer.moe_ffn(xb.reshape(-1, c.dim), params, layer, c).reshape(x.shape)
+        return transformer._dense_ffn(xb, params, layer, c)
+
+    runs = {}
+    for impl in ("auto", "plain"):
+        c = cfg.with_(quant_impl=impl)
+        cache = new_cache(transformer, c, dev)
+        x, cos, sin = transformer._embed(params, c, prompt, 0)
+        rec = []
+        for layer in range(c.n_layers):
+            x_in = x
+            att = transformer._attention_block(x, params, layer, c, cache, cos, sin, 0)
+            x = x + att
+            ff = ffn(c, x, layer)
+            rec.append((x_in, att, x, ff))
+            x = x + ff
+        runs[impl] = (rec, x, transformer._head(params, c, x[:, -1]), cos, sin)
+
+    def rel(a, b):
+        return float((a.float() - b.float()).abs().max()) / float(b.float().abs().max())
+
+    auto, plain = runs["auto"], runs["plain"]
+    ca = cfg.with_(quant_impl="auto")
+    for layer, ((_, att_a, mid_a, ff_a), (x_in, att_p, mid_p, ff_p)) in enumerate(
+            zip(auto[0], plain[0])):
+        att_alone = transformer._attention_block(x_in, params, layer, ca,
+                                                 new_cache(transformer, ca, dev),
+                                                 plain[3], plain[4], 0)
+        ff_alone = ffn(ca, mid_p, layer)
+        print(f"{label}: layer {layer}: chained attention {rel(att_a, att_p):.2e}, "
+              f"residual after it {rel(mid_a, mid_p):.2e}, FFN {rel(ff_a, ff_p):.2e}; alone "
+              f"attention {rel(att_alone, att_p):.2e}, FFN {rel(ff_alone, ff_p):.2e}")
+    la, lp = auto[2].float(), plain[2].float()
+    centred = float((lp - lp.mean()).abs().max())
+    xa, xp = auto[1][0, -1], plain[1][0, -1]
+    na, nq = (transformer.rmsnorm(x, params["rms_final"]) for x in (xa, xp))
+    print(f"{label}: final residual {rel(auto[1], plain[1]):.2e}; the last token's residual "
+          f"{rel(xa, xp):.2e} (plain: mean {float(xp.float().mean()):.4g}, std "
+          f"{float(xp.float().std()):.4g}), its normed {na.dtype} values differ at "
+          f"{int((na != nq).sum())} of {na.numel()}; last-token logits {rel(la, lp):.2e} of "
+          f"max|plain| {float(lp.abs().max()):.4g} (mean {float(lp.mean()):.4g}, std "
+          f"{float(lp.std()):.4g}), {float((la - lp).abs().max()) / centred:.2e} of "
+          f"max|plain - mean|")
+
+
 def moe_decode_checks(engine, transformer, q40, dev) -> None:
     """Phase 11, on the main path's engine: one single-token forward
     launches exactly (2 + 3k) * L + 1 Q40 kernels (wqkv, wo, k experts'
@@ -979,6 +1079,136 @@ def check_paged_attention(attention, dev, hkv: int = LLAMA2_7B["n_kv_heads"],
     return out
 
 
+def prefill_bound(pos, t: int, hkv: int, dh: int, hq: int, kv_bytes: float,
+                  ceiling: int) -> tuple[float, str]:
+    """Least time for one mixed-step attention read of ``t`` query tokens a
+    row: each row's live K/V positions (0..pos_b + t - 1, at most
+    ``ceiling``; K and V, ``kv_bytes`` an element plus 4-byte scales for
+    int8) read once, q read and the output written once, against the HBM
+    rate; 4 flops a visible (query, key) pair an element (QK and PV; token
+    i of row b sees pos_b + i + 1 keys) against the bf16 peak."""
+    live = sum(min(int(p) + t, ceiling) for p in pos)
+    nbytes = live * hkv * 2 * (dh * kv_bytes + (4 if kv_bytes == 1 else 0))
+    nbytes += len(pos) * hq * t * dh * 2 * 2 + len(pos) * 4
+    pairs = sum(min(int(p) + i + 1, ceiling) for p in pos for i in range(t))
+    b_ms = nbytes / HBM_BYTES_S * 1e3
+    o_ms = 4.0 * pairs * hq * dh / BF16_FLOPS * 1e3
+    return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
+
+
+def check_prefill_attention(attention, dev, hkv: int, codecs=("bf16", "int8")) -> dict:
+    """Phase 6c: the prefill kernel (t > 1 query rows over the paged pool)
+    against its plain version (the gather, then the one-shot per-row-ceiling
+    attention), 32 query heads on ``hkv`` kv heads, B = 8 rows at
+    PREFILL_POS (position 0, mid-page, across a page edge, near 4095), 256
+    pages of 16 a row, layers 0 and L-1 of a 3-layer pool, bf16 and int8.
+    Before each read the step's K/V is written as the slot step writes it
+    (``paged_write_indices``): rows 1, 3 and 6 have n_valid < T, so their
+    padded tokens go to scratch page 0; row 5's table runs out after 40
+    pages (its later positions read page 0).  The widths are PREFILL_T and
+    the shape's widest step (PREFILL_T_WIDE, 128 query rows a block).  Each
+    query row (row, head, token) is held to ATTN_TOL of its own max|plain|.
+    Prints max|kernel - plain| / max|plain| over the case, the worst query
+    row's relative error, and the worst among the rows at positions >= 300,
+    the kernel's time (cold L2, median of 20), the plain
+    version's, the bound and SDPA's on K/V pre-gathered to bf16 with the
+    boolean per-row mask (a yardstick the port never calls).  Returns
+    {(codec, t): numbers}."""
+    B, H, DH, L = 8, LLAMA2_7B["n_heads"], 128, 3
+    maxp = LLAMA2_7B["seq_len"] // PAGE
+    n_pages = 1 + B * maxp
+    g = torch.Generator(device=dev)
+    g.manual_seed(16)
+    rng = np.random.RandomState(16)
+    table_np = (1 + rng.permutation(B * maxp)).reshape(B, maxp).astype(np.int32)
+    table_np[5, 40:] = 0  # this row's table runs out: page 0 from position 640
+    table = torch.from_numpy(table_np).to(dev)
+    flush = torch.ones(16 << 20, dtype=torch.float32, device=dev)
+    shape = (L, n_pages, hkv, PAGE, DH)
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    splits, pps = attention.split_plan(maxp, B, hkv, n_sms)
+    widths = PREFILL_T + (PREFILL_T_WIDE[H // hkv],)
+    out = {}
+    print(f"{H} query heads on {hkv} kv heads; split page walk: {splits} splits of {pps} pages")
+    print("codec    t  pp  smem_B  kernel_ms  plain_ms  sdpa_ms  bound_ms(by)  share  "
+          "max_abs_err  rel  row_rel  long_row_rel")
+    for codec in codecs:
+        if codec == "bf16":
+            pk = (torch.randn(shape, generator=g, device=dev) * 0.5).to(torch.bfloat16)
+            pv = (torch.randn(shape, generator=g, device=dev) * 0.5).to(torch.bfloat16)
+            scales, kv_bytes = None, 2
+        else:
+            pk, sk = attention.quantize_kv(torch.randn(shape, generator=g, device=dev) * 0.5)
+            pv, sv = attention.quantize_kv(torch.randn(shape, generator=g, device=dev) * 0.5)
+            scales, kv_bytes = (sk, sv), 1
+        for t in widths:
+            pos_np = np.array([min(p, LLAMA2_7B["seq_len"] - t) for p in PREFILL_POS], np.int32)
+            pos = torch.from_numpy(pos_np).to(dev)
+            n_valid = torch.from_numpy(np.array([t, max(1, t // 2), t, 1, t, t, t - 1, t],
+                                                np.int32)).to(dev)
+            q = torch.randn((B, H, t, DH), generator=g, device=dev).to(torch.bfloat16)
+            err = row_err = long_err = abs_err = 0.0
+            for layer in (0, L - 1):
+                kn = torch.randn((B, hkv, t, DH), generator=g, device=dev).to(torch.bfloat16)
+                vn = torch.randn((B, hkv, t, DH), generator=g, device=dev).to(torch.bfloat16)
+                pidx, oidx = attention.paged_write_indices(table, pos, n_valid, t, PAGE)
+                if scales is None:
+                    attention.paged_update_kv_rows(pk, pv, kn, vn, layer, pidx, oidx)
+                else:
+                    (qk, s_k), (qv, s_v) = attention.quantize_kv(kn), attention.quantize_kv(vn)
+                    attention.paged_update_kv_rows(pk, pv, qk, qv, layer, pidx, oidx)
+                    attention.paged_update_kv_rows(*scales, s_k, s_v, layer, pidx, oidx)
+                k = attention.prefill_attention(q, pk, pv, layer, table, pos, scales)
+                p = attention.paged_rows_attention(q, pk, pv, layer, table, pos, scales)
+                torch.cuda.synchronize()
+                diff = (k.float() - p.float()).abs().amax(-1)  # (B, H, T): a query row each
+                mag = p.float().abs().amax(-1)
+                e, scale = float(diff.max()), float(mag.max())
+                # each query row against its own scale: a long row averages
+                # over thousands of keys, and its outputs are far smaller
+                # than those of a row at position 0
+                bad = diff > ATTN_TOL * mag
+                if not torch.isfinite(k).all() or bool(bad.any()):
+                    b_, h_, i_ = (int(x) for x in bad.nonzero()[0]) if bad.any() else (0, 0, 0)
+                    raise AssertionError(
+                        f"prefill attention {codec} t={t} layer {layer}: row {b_} (position "
+                        f"{pos_np[b_]}) head {h_} token {i_}: max|kernel-plain| "
+                        f"{float(diff[b_, h_, i_])} > {ATTN_TOL} * {float(mag[b_, h_, i_])}")
+                rel = diff / mag.clamp_min(torch.finfo(torch.float32).tiny)
+                err, abs_err = max(err, e / scale), max(abs_err, e)
+                row_err = max(row_err, float(rel.max()))
+                long_err = max(long_err, float(rel[torch.from_numpy(pos_np >= 300).to(dev)].max()))
+            layer = L - 1
+            k_ms = cold_ms(lambda: attention.prefill_attention(q, pk, pv, layer, table, pos,
+                                                               scales), 20, flush)
+            p_ms = cold_ms(lambda: attention.paged_rows_attention(q, pk, pv, layer, table, pos,
+                                                                  scales), 3, flush)
+            ks, vs = scales if scales is not None else (None, None)
+            kg = attention.paged_gather_layer(pk, layer, table, ks).to(torch.bfloat16)
+            vg = attention.paged_gather_layer(pv, layer, table, vs).to(torch.bfloat16)
+            s_idx = torch.arange(kg.shape[2], device=dev)
+            mask = s_idx[None, None, :] <= (pos.long()[:, None, None]
+                                            + torch.arange(t, device=dev)[None, :, None])
+            mask = mask[:, None]  # (B, 1, T, S)
+            l_ms = cold_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, kg, vg, attn_mask=mask, enable_gqa=H != hkv), 20, flush)
+            del kg, vg, mask
+            b_ms, by = prefill_bound(pos_np, t, hkv, DH, H, kv_bytes, maxp * PAGE)
+            rows = H // hkv * t
+            pp = attention.prefill_stage_pages(PAGE, pps, rows)
+            smem = attention.prefill_smem_bytes(rows, PAGE, DH, kv_bytes, pp)
+            print(f"{codec:5s} {t:4d} {pp:3d} {smem:7d} {k_ms:10.4f} {p_ms:9.4f} {l_ms:8.4f} "
+                  f"{b_ms:9.4f}({by[0]}) {b_ms / k_ms:6.1%} {abs_err:12.6g} {err:.2e} "
+                  f"{row_err:.2e} {long_err:.2e}")
+            out[(codec, t)] = dict(max_abs_err=abs_err, rel_err=err, row_rel_err=row_err,
+                                   long_row_rel_err=long_err, ms=k_ms, plain_ms=p_ms,
+                                   bound_ms=b_ms, bound_by=by, library_ms=l_ms)
+        del pk, pv, scales
+    del flush
+    torch.cuda.empty_cache()
+    return out
+
+
 def _post(base: str, path: str, body: dict) -> tuple[int, dict | str]:
     req = urllib.request.Request(base + path, json.dumps(body).encode(),
                                  headers={"Content-Type": "application/json"})
@@ -1027,16 +1257,37 @@ def serving_requests(n: int, seed: int = 7) -> list[tuple[str, dict]]:
     return chats[:1] + reqs + chats[1:]
 
 
-def profile_slot_step(engine, scheduler, q40, steps: int = 4) -> dict:
+def graph_costs(engine, label: str) -> dict:
+    """Phases 3 and 7: each captured key's capture seconds and the bytes
+    its private memory pool reserved (``DecodeGraphs.cost``), and their
+    sums against the card's memory."""
+    cost = engine.graphs.cost
+    total_s = sum(c[0] for c in cost.values())
+    total_b = sum(c[1] for c in cost.values())
+    card = torch.cuda.get_device_properties(engine.device).total_memory
+    print(f"graph costs ({label}, seq_len {engine.seq_len}): " + "; ".join(
+        f"{k.path}/{k.batch}/{'greedy' if k.greedy else 'sampled'}/{k.walk}: {c[0]:.3f} s "
+        f"{c[1] / 2**20:.1f} MiB" for k, c in cost.items()))
+    print(f"graph costs ({label}): {len(cost)} keys, {total_s:.3f} s of capture, pools "
+          f"{total_b / 2**20:.1f} MiB = {total_b / card:.2%} of the card's "
+          f"{card / 2**30:.1f} GiB")
+    return dict(keys=len(cost), capture_s=total_s, pool_bytes=total_b)
+
+
+def profile_slot_step(engine, scheduler, q40, attention, steps: int = 4) -> dict:
     """Where an 8-slot step's time goes: torch.profiler over ``steps``
-    single-token decode steps (each a replay of the slot step's graph),
-    then over one mixed prefill step (16 tokens a row, eager), on the
-    serving engine with the scheduler parked; rows at positions 300..1000
-    on private pages.  The idle share compares device busy time with the
-    unprofiled step wall; the decode step's eager wall (graphs off) is
-    timed too.  The Q40 matmuls of a step (8 or 128 rows) take the body
-    ``q40.route`` names: tensor-core launches there, and only there."""
+    single-token decode steps, then over ``steps`` mixed prefill steps (16
+    tokens a row), each a replay of its captured graph, on the serving
+    engine with the scheduler parked; rows at positions 300..1000 on
+    private pages.  The idle share compares device busy time with the
+    unprofiled step wall; each step's eager wall (graphs off) is timed too.
+    The Q40 matmuls of a step (8 or 128 rows) take the body ``q40.route``
+    names: tensor-core launches there, and only there.  A mixed step
+    launches the prefill attention kernel once a layer and never its plain
+    version (the gather and the f32 einsums): no cuBLAS GEMM runs in a
+    dense model's mixed step."""
     b = engine.batch
+    L = engine.cfg.n_layers
     per = 64  # pages a row: 1024 positions
     ptab = np.zeros((b, engine.max_pages_per_slot), np.int32)
     for r in range(b):
@@ -1051,50 +1302,62 @@ def profile_slot_step(engine, scheduler, q40, steps: int = 4) -> dict:
     out = {}
     with scheduler.exclusive():
         saved = engine.graphs
-        engine.graphs = None  # the decode step's eager wall, for the record
-        step(1)
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            step(1)
-        out["step_ms_off"] = (time.perf_counter() - t0) * 1e3 / steps
-        engine.graphs = saved
-        for t, n in ((1, steps), (16, 1)):
+        for t in (1, 16):
+            engine.graphs = None  # the step's eager wall, for the record
             step(t)
-            q40.reset_counters()
             t0 = time.perf_counter()
-            for _ in range(n):
+            for _ in range(steps):
                 step(t)
-            wall = (time.perf_counter() - t0) * 1e3 / n
-            c = q40.counters()
+            out[f"ms_off_{t}"] = (time.perf_counter() - t0) * 1e3 / steps
+            engine.graphs = saved
+            step(t)  # the key's warm-up and capture
+            q40.reset_counters()
+            attention.reset_counters()
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                step(t)
+            wall = (time.perf_counter() - t0) * 1e3 / steps
+            c, ac = q40.counters(), attention.counters()
             mm = c["kernel_launches"] + c["blocked_launches"]
             want = q40.route(b * t)
             if not mm or bool(c["mma_launches"]) != (want == "mma"):
                 raise AssertionError(f"8-slot step of {t} token(s) a row: Q40 {c}, want "
                                      f"the {want} body at {b * t} rows")
-            rows = device_rows(lambda: [step(t) for _ in range(n)], n)
-            how = ""
-            if not rows and t == 1:
-                engine.graphs = None
-                rows = device_rows(lambda: [step(t) for _ in range(n)], n)
-                engine.graphs = saved
-                how = " (eager: the profiler saw no kernel inside the graph)"
+            k_attn, p_attn = (("kernel_launches", "plain_calls") if t == 1 else
+                              ("prefill_launches", "prefill_plain_calls"))
+            if ac[k_attn] != L * steps or ac[p_attn]:
+                raise AssertionError(f"8-slot step of {t} token(s) a row: attention {ac}, "
+                                     f"want {L} {k_attn} a step and no plain call")
+            rows = device_rows(lambda: [step(t) for _ in range(steps)], steps)
+            how = "graph replays"
             if not rows:
-                print("slot step profile: the profiler recorded no device time "
-                      "(not measured)")
-                return out
+                engine.graphs = None
+                rows = device_rows(lambda: [step(t) for _ in range(steps)], steps)
+                engine.graphs = saved
+                how = "eager (the profiler saw no kernel inside the graph)"
+            if not rows:
+                print(f"8-slot {t}-token step profile: the profiler recorded no device "
+                      "time (not measured)")
+                continue
             busy = sum(r[0] for r in rows)
-            attn = sum(r[0] for r in rows if "paged_attention" in r[2])
+            attn = sum(r[0] for r in rows if "paged_attention" in r[2] or "prefill_" in r[2])
             q40k = sum(r[0] for r in rows if matmul_kernel(r[2], "q40"))
+            gemm = [r for r in rows if "gemm" in r[2].lower() and not matmul_kernel(r[2], "q40")]
+            if t > 1 and not engine.cfg.is_moe and gemm:
+                raise AssertionError(f"the mixed step ran cuBLAS GEMMs (the plain attention's "
+                                     f"f32 einsums?): {gemm}")
             what = "decode step" if t == 1 else f"mixed step ({t} tokens a row)"
-            if t == 1:
-                out.update(step_ms=wall, step_busy_ms=busy)
-                print(f"8-slot decode step: wall {wall:.3f} ms replaying its graph, "
-                      f"{out['step_ms_off']:.3f} ms eager")
-            print(f"8-slot {what}, {n} profiled{how}: wall {wall:.3f} ms unprofiled, device "
-                  f"busy {busy:.3f} ms -> idle share {1 - busy / wall:.3f}; paged attention "
-                  f"kernel {attn:.3f} ms, q40 {q40k:.3f} ms, other {busy - attn - q40k:.3f} "
-                  f"ms; {sum(r[1] for r in rows)} kernel launches a step, Q40 "
-                  f"{mm // n} ({c['mma_launches'] // n} on the tensor-core body)")
+            key = "step" if t == 1 else "mixed"
+            out.update({f"{key}_ms": wall, f"{key}_busy_ms": busy,
+                        f"{key}_idle": 1 - busy / wall, f"{key}_ms_off": out[f"ms_off_{t}"]})
+            print(f"8-slot {what}: wall {wall:.3f} ms replaying its graph, "
+                  f"{out[f'ms_off_{t}']:.3f} ms eager")
+            print(f"8-slot {what}, {steps} profiled ({how}): device busy {busy:.3f} ms -> "
+                  f"idle share {1 - busy / wall:.3f}; attention kernel {attn:.3f} ms "
+                  f"({ac[k_attn] // steps} {k_attn} a step, {ac[p_attn]} plain), q40 "
+                  f"{q40k:.3f} ms, other {busy - attn - q40k:.3f} ms; "
+                  f"{sum(r[1] for r in rows)} kernel launches a step, Q40 {mm // steps} "
+                  f"({c['mma_launches'] // steps} on the tensor-core body)")
             for ms_, k, name in sorted(rows, reverse=True)[:8]:
                 print(f"  {ms_:8.4f} ms/step {k:5d}x  {name[:90]}")
     return out
@@ -1165,7 +1428,7 @@ def serve_path(api, attention, q40, m: str, t: str, n_requests: int,
         reqs = serving_requests(n_requests)
         attention.reset_counters()
         q40.reset_counters()
-        f0 = eng.slot_decode_forwards
+        f0, fwd0 = eng.slot_decode_forwards, eng.forwards
         st0 = dict(sched.stats)
         if not sched.overlap:
             raise AssertionError("the server's scheduler runs without its overlapped pipeline")
@@ -1191,6 +1454,7 @@ def serve_path(api, attention, q40, m: str, t: str, n_requests: int,
         wall = time.perf_counter() - t0
         ac, qc = attention.counters(), q40.counters()
         n_dec = eng.slot_decode_forwards - f0
+        n_mix = eng.forwards - fwd0 - n_dec
         bad = [(reqs[i][0], code, ans) for i, (code, ans) in enumerate(results) if code != 200]
         if bad:
             raise AssertionError(f"{len(bad)} requests failed: {str(bad)[:800]}")
@@ -1200,6 +1464,10 @@ def serve_path(api, attention, q40, m: str, t: str, n_requests: int,
         if n_dec == 0 or ac["kernel_launches"] != tp * L * n_dec or ac["plain_calls"]:
             raise AssertionError(f"paged attention counters {ac} over {n_dec} "
                                  f"single-token slot forwards (want {tp * L} launches each)")
+        if (n_mix == 0 or ac["prefill_launches"] != tp * L * n_mix
+                or ac["prefill_plain_calls"]):
+            raise AssertionError(f"prefill attention counters {ac} over {n_mix} mixed "
+                                 f"slot forwards (want {tp * L} launches each)")
         if qc["plain_calls"] or qc["dense_prefill_calls"] or qc["allreduce_plain_calls"]:
             raise AssertionError(f"a Q40 matmul or all-reduce left its kernel: {qc}")
         if bool(qc["allreduce_launches"]) != (tp > 1):
@@ -1227,6 +1495,8 @@ def serve_path(api, attention, q40, m: str, t: str, n_requests: int,
         print(f"prompt tokens {sum(r['prompt_tokens'] for r in recs)}; scheduler {occ}; "
               f"{n_dec} single-token slot forwards, attention kernel launches "
               f"{ac['kernel_launches']} ({tp * L} each), plain {ac['plain_calls']}; "
+              f"{n_mix} mixed slot forwards, prefill attention kernel launches "
+              f"{ac['prefill_launches']} ({tp * L} each), plain {ac['prefill_plain_calls']}; "
               f"q40 kernels 1-2 {qc['kernel_launches']}, kernel 3 "
               f"{qc['blocked_launches']}, plain {qc['plain_calls']}, "
               f"dense {qc['dense_prefill_calls']}")
@@ -1250,6 +1520,22 @@ def serve_path(api, attention, q40, m: str, t: str, n_requests: int,
                   f"then off: every answer byte for byte; on {on['tok_s']:.2f} tok/s, "
                   f"dispatches {on['moved']}; off {off['tok_s']:.2f} tok/s, dispatches "
                   f"{off['moved']}")
+            if eng.graphs is not None:
+                # the same burst with every slot step eager: mixed and decode
+                # steps replay graphs above, so the answers must not move
+                with sched.exclusive():
+                    saved, eng.graphs = eng.graphs, None
+                try:
+                    eager = controlled_burst(sched, state, base, reqs[:eng.batch], True)
+                finally:
+                    with sched.exclusive():
+                        eng.graphs = saved
+                if eager["texts"] != on["texts"]:
+                    raise AssertionError("a greedy request answered differently with the "
+                                         "slot graphs off")
+                out.update(tok_s_eager=eager["tok_s"])
+                print(f"the same burst with graphs off (every mixed and decode step eager): "
+                      f"every answer byte for byte; {eager['tok_s']:.2f} tok/s")
         # one request alone, twice: byte for byte (the second run finds its
         # prompt's pages in the prefix cache)
         path, body = reqs[5]
@@ -1260,8 +1546,11 @@ def serve_path(api, attention, q40, m: str, t: str, n_requests: int,
         print(f"one request alone twice: {len(texts[0])} chars, byte for byte; "
               f"prefix cache hits {occ['prefix_hits']} in the burst, {hits} in all")
         if profile:
-            out.update(profile_slot_step(eng, sched, q40))
+            out.update(profile_slot_step(eng, sched, q40, attention))
+        if eng.graphs is not None:
+            out.update(graph_costs(eng, "slot engine"))
         return dict(out, attn_launches=ac["kernel_launches"],
+                    prefill_launches=ac["prefill_launches"],
                     ttft_p50=_percentile(ttft, 50), ttft_p99=_percentile(ttft, 99),
                     peak_bytes=peak, allreduce_launches=qc["allreduce_launches"])
     finally:
@@ -1270,11 +1559,15 @@ def serve_path(api, attention, q40, m: str, t: str, n_requests: int,
         torch.cuda.empty_cache()
 
 
-def slot_end_to_end(engine_mod, transformer, cfg, params, dev, pools=(None, "q8"),
-                    label: str = "2 layers", mesh=None) -> None:
+def slot_end_to_end(engine_mod, transformer, attention, cfg, params, dev,
+                    pools=(None, "q8"), label: str = "2 layers", mesh=None) -> None:
     """Phases 8, 12 and 19: the slot path over a paged pool (bf16, or int8
     for ``"q8"``; one a rank over ``mesh``), kernels against plain
-    versions."""
+    versions: a mixed step (16 tokens a row, n_valid 16, 9, 12, 5; the
+    prefill attention kernel, ``n_layers`` launches a rank, against its
+    plain version) and 8 teacher-forced decode steps.  At tp = 1 the
+    kernels' steps replay graphs; the same steps with the engine's graphs
+    off give the same logits bit for bit."""
     rng = np.random.RandomState(8)
     b, t = 4, 16
     prompt = rng.randint(3, cfg.vocab_size, (b, t)).astype(np.int32)
@@ -1283,20 +1576,25 @@ def slot_end_to_end(engine_mod, transformer, cfg, params, dev, pools=(None, "q8"
     pages = cfg.seq_len // PAGE
     ptab = (1 + np.arange(b * pages, dtype=np.int32)).reshape(b, pages)
     zeros = np.zeros(b, np.float32)
+    tp = 1 if mesh is None else mesh.tp
+    # (name, impl, graphs): the plain versions run eagerly (the plain page
+    # walk reads the rows' furthest position on the host)
+    runs = [("auto", "auto", None), ("plain", "plain", False)]
+    if mesh is None:
+        runs.append(("eager", "auto", False))
     for kv in pools:
-        logits, routes = {}, {"auto": [], "plain": []}
-        for impl in ("auto", "plain"):
+        logits, routes = {}, {name: [] for name, _, _ in runs}
+        for name, impl, graphs in runs:
             c = cfg.with_(quant_impl=impl, attn_impl=impl)
-            # the plain versions run eagerly (the plain page walk reads the
-            # rows' furthest position on the host); the kernels' single-token
-            # steps replay graphs at tp = 1
             eng = engine_mod.Engine(c, params, device=dev, batch=b, kv_dtype=kv,
                                     kv_pages=1 + b * pages, kv_page_size=PAGE, mesh=mesh,
-                                    graphs=False if impl == "plain" else None)
+                                    graphs=graphs)
             pos = np.zeros(b, np.int32)
-            with routing_log(transformer, cfg, routes[impl]):
+            attention.reset_counters()
+            with routing_log(transformer, cfg, routes[name]):
                 eng.slot_step(prompt, pos, n_valid, temps_np=zeros, topps_np=zeros + 0.9,
                               page_tables_np=ptab)
+                ac = attention.counters()
                 steps = [eng.last_logits.float()]
                 pos = pos + n_valid
                 for i in range(len(forced)):
@@ -1304,7 +1602,11 @@ def slot_end_to_end(engine_mod, transformer, cfg, params, dev, pools=(None, "q8"
                                   temps_np=zeros, topps_np=zeros + 0.9, page_tables_np=ptab)
                     steps.append(eng.last_logits.float())
                     pos = pos + 1
-            logits[impl] = torch.stack(steps)
+            key = "prefill_plain_calls" if impl == "plain" else "prefill_launches"
+            if ac[key] != tp * cfg.n_layers:
+                raise AssertionError(f"{name} mixed step: attention counters {ac}, want "
+                                     f"{tp * cfg.n_layers} {key}")
+            logits[name] = torch.stack(steps)
             del eng
         k, p = logits["auto"], logits["plain"]
         err, scale = float((k - p).abs().max()), float(p.abs().max())
@@ -1316,10 +1618,55 @@ def slot_end_to_end(engine_mod, transformer, cfg, params, dev, pools=(None, "q8"
         agree = k.argmax(-1) == p.argmax(-1)
         if not bool(agree[decided].all()):
             raise AssertionError("slot path greedy tokens differ where the margin is decisive")
+        # a replayed graph calls no Python: the kernels' expert choices are
+        # read from the run with the graphs off
+        routes["auto"] = routes.get("eager", routes["auto"])
+        if "eager" in logits and not torch.equal(logits["eager"], k):
+            raise AssertionError(f"slot path ({kv or 'bf16'} pool): logits differ with the "
+                                 f"graphs on and off")
         print(f"slot path ({kv or 'bf16'} pool, {label}): max|kernel-plain| {err:.4g} of "
               f"max|plain| {scale:.4g} ({err / scale:.2e}, limit {E2E_TOL:g}); greedy agrees "
               f"at {int(decided.sum())}/{decided.numel()} row-steps whose margin exceeds 2x "
-              f"that ({int(agree.sum())}/{agree.numel()} overall){routing_note(routes)}")
+              f"that ({int(agree.sum())}/{agree.numel()} overall){routing_note(routes)}; the "
+              f"mixed step {tp * cfg.n_layers} prefill-kernel launches"
+              + ("; graphs on = off bit for bit" if "eager" in logits else ""))
+
+
+def contiguous_slot_graphs(engine_mod, cfg, params, dev) -> None:
+    """Phase 8: contiguous slot rows (no page pool; the read stays the
+    plain per-row-ceiling op): a mixed step of 16 tokens a row and 8
+    decode steps with the engine's graphs on (the mixed step replays its
+    ``mixed`` key's graph) and off, the same logits bit for bit."""
+    rng = np.random.RandomState(9)
+    b, t = 4, 16
+    prompt = rng.randint(3, cfg.vocab_size, (b, t)).astype(np.int32)
+    n_valid = np.array([16, 3, 11, 7], np.int32)
+    forced = rng.randint(3, cfg.vocab_size, (8, b)).astype(np.int32)
+    zeros = np.zeros(b, np.float32)
+    logits = {}
+    for graphs in (None, False):
+        eng = engine_mod.Engine(cfg, params, device=dev, batch=b, graphs=graphs)
+        pos = np.zeros(b, np.int32)
+        for i in range(2):  # the second pass replays what the first captured
+            eng.slot_step(prompt, pos, n_valid, temps_np=zeros, topps_np=zeros + 0.9)
+        steps = [eng.last_logits.float()]
+        pos = pos + n_valid
+        for i in range(len(forced)):
+            eng.slot_step(forced[i][:, None], pos, np.ones(b, np.int32), temps_np=zeros,
+                          topps_np=zeros + 0.9)
+            steps.append(eng.last_logits.float())
+            pos = pos + 1
+        logits[graphs] = torch.stack(steps)
+        if graphs is None:
+            keys = sorted({k.path for k in eng.graphs.graphs})
+            if eng.graphs.capture and (keys != ["mixed", "slot"] or not eng.graphs.replays):
+                raise AssertionError(f"contiguous slot engine: graphs {keys}, "
+                                     f"{eng.graphs.replays} replays")
+        del eng
+    if not torch.equal(logits[None], logits[False]):
+        raise AssertionError("contiguous slot rows: logits differ with the graphs on and off")
+    print(f"contiguous slot rows: a mixed step (16 tokens a row) and 8 decode steps replay "
+          f"their graphs (mixed, slot); the logits equal the eager steps' bit for bit")
 
 
 @contextlib.contextmanager
@@ -1752,8 +2099,8 @@ def tp_main_path(cli, q40, engine_mod, params_mod, config, mfile, m: str, t: str
     return run
 
 
-def tp_end_to_end(mfile, params_mod, config, transformer, engine_mod, q40, sharding,
-                  path: str, mesh, label: str) -> None:
+def tp_end_to_end(mfile, params_mod, config, transformer, engine_mod, q40, attention,
+                  sharding, path: str, mesh, label: str) -> None:
     """Phase 19: one model at tp = 2 over ``mesh``, the kernels (matmuls
     and kernel 4) against the plain path, batch-1 and slot paths."""
     cfg, params = load_bf16(mfile, params_mod, config, path, "cpu", fuse=False)
@@ -1762,7 +2109,8 @@ def tp_end_to_end(mfile, params_mod, config, transformer, engine_mod, q40, shard
     del params
     q40.reset_counters()
     end_to_end(transformer, cfg, placed, dev, label, mesh=mesh)
-    slot_end_to_end(engine_mod, transformer, cfg, placed, dev, (None,), label, mesh=mesh)
+    slot_end_to_end(engine_mod, transformer, attention, cfg, placed, dev, (None,), label,
+                    mesh=mesh)
     c = q40.counters()
     if not c["allreduce_launches"] or not c["allreduce_plain_calls"]:
         raise AssertionError(f"{label}: kernel 4 {c['allreduce_launches']} launches, "
@@ -1774,7 +2122,8 @@ def tp_end_to_end(mfile, params_mod, config, transformer, engine_mod, q40, shard
 
 
 def kernel_entries(run, run_tp, run_mix, run_blocked, run_q8, served, table, tp_table,
-                   mix_table, blocked_table, q8_table, attn, attn_g4, ar_table) -> list:
+                   mix_table, blocked_table, q8_table, attn, attn_g4, ar_table, prefill,
+                   prefill_g4) -> list:
     """The ``kernels`` JSON line's entries: each kernel at the shapes of the
     phase that checked it, with the launches of the main path that ran it;
     raises when a kernel of a path was never launched there."""
@@ -1811,6 +2160,18 @@ def kernel_entries(run, run_tp, run_mix, run_blocked, run_q8, served, table, tp_
                      bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                      library_ms=r["library_ms"])
                 for label, r, run_ in attn_rows]
+    # the prefill kernel (the port's own: no Pallas counterpart) at the
+    # serving paths' width T = 16, with the mixed steps' launches of the
+    # run on that pool (phases 7, 7b, 11b)
+    pre_rows = [("bf16,t=16", prefill[("bf16", 16)], served["bf16"]),
+                ("int8,t=16", prefill[("int8", 16)], served["int8"]),
+                ("bf16,G=4,t=16", prefill_g4[("bf16", 16)], served["g4"])]
+    kernels += [dict(name=f"paged_prefill_attention[{label}]", route="cuda",
+                     source=PREFILL_SRC, replaces=PREFILL_REPLACES,
+                     launches=run_["prefill_launches"], max_abs_err=r["max_abs_err"],
+                     ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                     bound_by=r["bound_by"], library_ms=r["library_ms"])
+                for label, r, run_ in pre_rows]
     # kernel 4 on the tp = 2 7B path (phase 17), at its decode shape
     kernels.append(dict(name="tp_allreduce[tp=2,t=1,d=4096]", route="cuda", source=TP_SRC,
                         launches=run_tp["allreduce_launches"],
@@ -1882,6 +2243,11 @@ def main() -> int:
         with phase("6b paged attention kernel vs plain at Mixtral's shape (G = 4)"):
             attn_g4 = check_paged_attention(attention, dev, MIXTRAL_8X7B["n_kv_heads"],
                                             ("bf16",))
+    if run_phase(6) or run_phase("6c"):
+        with phase("6c prefill attention kernel (t > 1) vs plain at the 7B shape"):
+            prefill = check_prefill_attention(attention, dev, LLAMA2_7B["n_kv_heads"])
+        with phase("6c prefill attention kernel (t > 1) vs plain at Mixtral's shape (G = 4)"):
+            prefill_g4 = check_prefill_attention(attention, dev, MIXTRAL_8X7B["n_kv_heads"])
     if run_phase(16):
         with phase("16 kernel 4 (TP all-reduce) vs plain, every rank on cuda:0"):
             ar_table = check_allreduce(q40, dev)
@@ -1913,6 +2279,7 @@ def main() -> int:
                       f"body; the run's prompt forwards (16-row bucket): "
                       f"{run['counts']['mma_launches']} on the tensor-core body")
                 greedy_repeat(eng)
+                run.update(graph_costs(eng, "batch-1 engine"))
                 tp1_logits = first_logits(eng)  # phase 17's reference
                 del eng
                 torch.cuda.empty_cache()
@@ -1932,7 +2299,8 @@ def main() -> int:
                     end_to_end(transformer, *small, dev)
             if run_phase(8):
                 with phase("8 slot path: kernels vs plain versions end to end"):
-                    slot_end_to_end(engine_mod, transformer, *small, dev)
+                    slot_end_to_end(engine_mod, transformer, attention, *small, dev)
+                    contiguous_slot_graphs(engine_mod, *small, dev)
             if run_phase(15):
                 with phase("15 blocked and lockstep batch vs plain and single streams"):
                     blocked_and_batch_end_to_end(q40, transformer, engine_mod, *small, dev)
@@ -1960,7 +2328,7 @@ def main() -> int:
                                             repeat=True)
             with phase("7b serving with --kv-quant int8"):
                 served["int8"] = serve_path(api, attention, q40, m, t, 8,
-                                            ["--kv-quant", "int8"], False)
+                                            ["--kv-quant", "int8"], True)
         if run_phase(14):
             with blocked_layout():
                 with phase("14 blocked main path: inference at Llama-2-7B width"):
@@ -2018,8 +2386,10 @@ def main() -> int:
                                 dims={**mix, "seq_len": LLAMA2_7B["seq_len"]}, ftype=ftype)
                     label = f"Mixtral width, 2 layers, {name}"
                     small = load_bf16(mfile, params_mod, config, m2, dev)
+                    layer_gaps(transformer, *small, dev, label)
                     end_to_end(transformer, *small, dev, label)
-                    slot_end_to_end(engine_mod, transformer, *small, dev, (None,), label)
+                    slot_end_to_end(engine_mod, transformer, attention, *small, dev, (None,),
+                                    label)
                     del small
                     torch.cuda.empty_cache()
                     os.remove(m2)
@@ -2036,7 +2406,7 @@ def main() -> int:
                     synth_model(m2, 2, mfile, quants, fresh=True, dims=dims, ftype=ftype)
                     for where, tp_mesh in meshes:
                         tp_end_to_end(mfile, params_mod, config, transformer, engine_mod,
-                                      q40, sharding, m2, tp_mesh,
+                                      q40, attention, sharding, m2, tp_mesh,
                                       f"tp=2 on {where}, {name}, 2 layers")
                     os.remove(m2)
     finally:
@@ -2046,7 +2416,7 @@ def main() -> int:
 
     kernels = kernel_entries(run, run_tp, run_mix, run_blocked, run_q8, served, table,
                              tp_table, mix_table, blocked_table, q8_table, attn, attn_g4,
-                             ar_table)
+                             ar_table, prefill, prefill_g4)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

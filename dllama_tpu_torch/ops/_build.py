@@ -28,7 +28,8 @@ import subprocess
 HERE = os.path.dirname(os.path.abspath(__file__))
 PKG = os.path.dirname(HERE)
 CSRC = os.path.join(HERE, "csrc")
-SOURCES = ("q40_matmul.cu", "q8_matmul.cu", "paged_attention.cu", "tp_allreduce.cu")
+SOURCES = ("q40_matmul.cu", "q8_matmul.cu", "paged_attention.cu", "tp_allreduce.cu",
+           "paged_prefill_attention.cu")
 # headers the sources include: hashed with them, so an edit rebuilds
 HEADERS = ("mma_common.cuh", "gemv_common.cuh")
 BUILD_DIR = os.path.join(PKG, "build")

@@ -420,6 +420,20 @@ def paged_decode_attention(q: torch.Tensor, pool_k: torch.Tensor,
     return out.reshape(b, hq, t, dh).to(q.dtype)
 
 
+def paged_rows_attention(q: torch.Tensor, pool_k: torch.Tensor,
+                         pool_v: torch.Tensor, layer: int,
+                         page_table: torch.Tensor, pos_rows: torch.Tensor,
+                         scales: tuple[torch.Tensor, torch.Tensor] | None = None
+                         ) -> torch.Tensor:
+    """The gather of one layer's logical view, then the one-shot
+    per-row-ceiling attention: the JAX package's CPU route for t > 1, and
+    the plain version of the prefill kernel."""
+    ks, vs = scales if scales is not None else (None, None)
+    k_l = paged_gather_layer(pool_k, layer, page_table, scale_pool=ks)
+    v_l = paged_gather_layer(pool_v, layer, page_table, scale_pool=vs)
+    return _rows_ceiling_attention(q, k_l, v_l, pos_rows)
+
+
 def paged_gqa_attention_at(q: torch.Tensor, pool_k: torch.Tensor,
                            pool_v: torch.Tensor, layer: int,
                            page_table: torch.Tensor, pos_rows: torch.Tensor,
@@ -427,22 +441,23 @@ def paged_gqa_attention_at(q: torch.Tensor, pool_k: torch.Tensor,
                            impl: str = "auto") -> torch.Tensor:
     """Causal GQA through the page table at ``layer`` with per-row
     ceilings.  A single token on a CUDA tensor goes to
-    :func:`fused_paged_attention` (the kernel, or its plain version when
-    ``impl="plain"``).  Otherwise the JAX package's CPU route: the page
-    walk for a single token over a long table, else the gather of the
-    logical view and the one-shot per-row-ceiling attention."""
+    :func:`fused_paged_attention`, t > 1 query rows to
+    :func:`paged_prefill_attention` (each the kernel, or its plain version
+    on a CPU tensor or with ``impl="plain"``).  A single token on the CPU
+    takes the JAX package's CPU route: the page walk over a long table,
+    else the gather and the one-shot per-row-ceiling attention."""
     t = q.shape[2]
     s = page_table.shape[1] * pool_k.shape[3]
     if t == 1 and q.is_cuda:
         return fused_paged_attention(q, pool_k, pool_v, layer, page_table,
                                      pos_rows, scales, impl=impl)
+    if t > 1:
+        return paged_prefill_attention(q, pool_k, pool_v, layer, page_table,
+                                       pos_rows, scales, impl=impl)
     if _use_blocked_decode(t, s):
         return paged_decode_attention(q, pool_k, pool_v, layer, page_table,
                                       pos_rows, scales)
-    ks, vs = scales if scales is not None else (None, None)
-    k_l = paged_gather_layer(pool_k, layer, page_table, scale_pool=ks)
-    v_l = paged_gather_layer(pool_v, layer, page_table, scale_pool=vs)
-    return _rows_ceiling_attention(q, k_l, v_l, pos_rows)
+    return paged_rows_attention(q, pool_k, pool_v, layer, page_table, pos_rows, scales)
 
 
 # ---------------------------------------------------------------------------
@@ -450,10 +465,14 @@ def paged_gqa_attention_at(q: torch.Tensor, pool_k: torch.Tensor,
 #
 # Counters (plain ints): ``kernel_launches`` counts launches of the kernel,
 # ``plain_calls`` calls that ran its plain version (a CPU tensor, or
-# impl="plain").  :func:`reset_counters` zeroes them.
+# impl="plain"); ``prefill_launches`` and ``prefill_plain_calls`` count the
+# same for the prefill kernel (csrc/paged_prefill_attention.cu, at the end
+# of the module).  :func:`reset_counters` zeroes them.
 
 kernel_launches = 0
 plain_calls = 0
+prefill_launches = 0
+prefill_plain_calls = 0
 # threads per block, ring stages, head-dim elements a thread holds: must
 # match kThreads, kStages and kVec in the source
 THREADS = 128
@@ -471,12 +490,14 @@ _KVTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 
 def reset_counters() -> None:
-    global kernel_launches, plain_calls
-    kernel_launches = plain_calls = 0
+    global kernel_launches, plain_calls, prefill_launches, prefill_plain_calls
+    kernel_launches = plain_calls = prefill_launches = prefill_plain_calls = 0
 
 
 def counters() -> dict:
-    return {"kernel_launches": kernel_launches, "plain_calls": plain_calls}
+    return {"kernel_launches": kernel_launches, "plain_calls": plain_calls,
+            "prefill_launches": prefill_launches,
+            "prefill_plain_calls": prefill_plain_calls}
 
 
 def fused_paged_attention(q: torch.Tensor, pool_k: torch.Tensor,
@@ -531,9 +552,56 @@ def smem_bytes(g: int, ps: int, dh: int, kv_bytes: int, pp: int) -> int:
     return max(STAGES * stage, groups)
 
 
-def _require(cond: bool, msg: str) -> None:
+def _require(cond: bool, msg: str, who: str = "paged_attention") -> None:
     if not cond:
-        raise ValueError(f"paged_attention: {msg}")
+        raise ValueError(f"{who}: {msg}")
+
+
+def _check_pools(q: torch.Tensor, pool_k: torch.Tensor, pool_v: torch.Tensor, layer: int,
+                 page_table: torch.Tensor, pos_rows: torch.Tensor, scales, kv_types: dict,
+                 who: str) -> int:
+    """The checks both paged kernels make before a launch (q is a CUDA
+    tensor of four dims, the caller's check): one (L, P, Hkv, ps, Dh) shape
+    and dtype (of ``kv_types``) for both pools, q's head dim and dtype, the
+    int8 pool's f32 scale planes, an int32 (B, maxp) page table, int32 (B,)
+    positions, one device, contiguity, 16-byte aligned pools and a layer
+    inside the pool.  Returns the layer as an int."""
+    dev, b, hq, dh = q.device, q.shape[0], q.shape[1], q.shape[3]
+    _require(pool_k.dim() == 5 and pool_k.shape == pool_v.shape,
+             f"pool shapes {tuple(pool_k.shape)} / {tuple(pool_v.shape)} "
+             "are not one (L, P, Hkv, ps, Dh)", who)
+    n_layers, n_pages, hkv, ps, dh_kv = pool_k.shape
+    _require(dh_kv == dh, f"head dim {dh_kv} vs q's {dh}", who)
+    _require(hq % hkv == 0, f"{hq} query heads not a multiple of {hkv} kv heads", who)
+    _require(q.dtype in _QTYPES, f"q dtype {q.dtype} not float32/bfloat16", who)
+    _require(pool_k.dtype in kv_types and pool_v.dtype == pool_k.dtype,
+             f"pool dtypes {pool_k.dtype}/{pool_v.dtype} not one of "
+             f"{'/'.join(str(t).split('.')[-1] for t in kv_types)}", who)
+    tensors = [pool_k, pool_v, page_table, pos_rows]
+    if pool_k.dtype == torch.int8:
+        _require(scales is not None, "an int8 pool needs its scale planes", who)
+        for sc in scales:
+            _require(sc.dtype == torch.float32 and
+                     tuple(sc.shape) == (n_layers, n_pages, hkv, ps, 1),
+                     f"scale plane {sc.dtype} {tuple(sc.shape)} != float32 "
+                     f"{(n_layers, n_pages, hkv, ps, 1)}", who)
+        tensors += list(scales)
+    else:
+        _require(scales is None, f"scale planes given for a {pool_k.dtype} pool", who)
+    _require(page_table.dtype == torch.int32 and page_table.dim() == 2
+             and page_table.shape[0] == b,
+             f"page table {page_table.dtype} {tuple(page_table.shape)} != int32 ({b}, maxp)",
+             who)
+    _require(pos_rows.dtype == torch.int32 and tuple(pos_rows.shape) == (b,),
+             f"positions {pos_rows.dtype} {tuple(pos_rows.shape)} != int32 ({b},)", who)
+    _require(all(x.device == dev for x in tensors), "every operand must be on q's device", who)
+    _require(all(x.is_contiguous() for x in tensors),
+             "pools, scales, page table and positions must be contiguous", who)
+    _require(pool_k.data_ptr() % 16 == 0 and pool_v.data_ptr() % 16 == 0,
+             "pools not 16-byte aligned for the kernel's cp.async staging", who)
+    layer = int(layer)
+    _require(0 <= layer < n_layers, f"layer {layer} outside 0..{n_layers - 1}", who)
+    return layer
 
 
 def paged_attention(q: torch.Tensor, pool_k: torch.Tensor, pool_v: torch.Tensor,
@@ -551,42 +619,11 @@ def paged_attention(q: torch.Tensor, pool_k: torch.Tensor, pool_v: torch.Tensor,
     dev = q.device
     _require(q.dim() == 4 and q.shape[2] == 1, f"q shape {tuple(q.shape)} != (B, Hq, 1, Dh)")
     b, hq, _, dh = q.shape
-    _require(pool_k.dim() == 5 and pool_k.shape == pool_v.shape,
-             f"pool shapes {tuple(pool_k.shape)} / {tuple(pool_v.shape)} "
-             "are not one (L, P, Hkv, ps, Dh)")
-    n_layers, n_pages, hkv, ps, dh_kv = pool_k.shape
-    _require(dh_kv == dh and dh in (16, 32, 64, 128, 256),
-             f"head dim {dh_kv} vs q's {dh} (one of 16, 32, 64, 128, 256)")
-    _require(hq % hkv == 0 and hq // hkv <= 8,
-             f"{hq} query heads not a multiple of {hkv} kv heads, at most 8 a kv head")
-    _require(q.dtype in _QTYPES, f"q dtype {q.dtype} not float32/bfloat16")
-    _require(pool_k.dtype in _KVTYPES and pool_v.dtype == pool_k.dtype,
-             f"pool dtypes {pool_k.dtype}/{pool_v.dtype} not one of "
-             "float32/bfloat16/int8")
-    tensors = [pool_k, pool_v, page_table, pos_rows]
-    if pool_k.dtype == torch.int8:
-        _require(scales is not None, "an int8 pool needs its scale planes")
-        sk, sv = scales
-        for sc in (sk, sv):
-            _require(sc.dtype == torch.float32 and
-                     tuple(sc.shape) == (n_layers, n_pages, hkv, ps, 1),
-                     f"scale plane {sc.dtype} {tuple(sc.shape)} != float32 "
-                     f"{(n_layers, n_pages, hkv, ps, 1)}")
-        tensors += [sk, sv]
-    else:
-        _require(scales is None, f"scale planes given for a {pool_k.dtype} pool")
-    _require(page_table.dtype == torch.int32 and page_table.dim() == 2
-             and page_table.shape[0] == b,
-             f"page table {page_table.dtype} {tuple(page_table.shape)} != int32 ({b}, maxp)")
-    _require(pos_rows.dtype == torch.int32 and tuple(pos_rows.shape) == (b,),
-             f"positions {pos_rows.dtype} {tuple(pos_rows.shape)} != int32 ({b},)")
-    _require(all(x.device == dev for x in tensors), "every operand must be on q's device")
-    _require(all(x.is_contiguous() for x in tensors),
-             "pools, scales, page table and positions must be contiguous")
-    _require(pool_k.data_ptr() % 16 == 0 and pool_v.data_ptr() % 16 == 0,
-             "pools not 16-byte aligned for the kernel's cp.async staging")
-    layer = int(layer)
-    _require(0 <= layer < n_layers, f"layer {layer} outside 0..{n_layers - 1}")
+    layer = _check_pools(q, pool_k, pool_v, layer, page_table, pos_rows, scales,
+                         _KVTYPES, "paged_attention")
+    n_layers, n_pages, hkv, ps, _ = pool_k.shape
+    _require(dh in (16, 32, 64, 128, 256), f"head dim {dh} (one of 16, 32, 64, 128, 256)")
+    _require(hq // hkv <= 8, f"{hq} query heads on {hkv} kv heads: at most 8 a kv head")
     g = hq // hkv
     maxp = page_table.shape[1]
     splits, pps = split_plan(maxp, b, hkv, _sm_count(dev))
@@ -628,4 +665,176 @@ def bind(lib):
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.paged_attention.argtypes = [vp] * 10 + [ci] * 13 + [ctypes.c_float, vp]
     lib.paged_attention.restype = ci
+    lib.paged_prefill_attention.argtypes = [vp] * 10 + [ci] * 14 + [ctypes.c_float, vp]
+    lib.paged_prefill_attention.restype = ci
     return lib
+
+
+# ---------------------------------------------------------------------------
+# The prefill kernel (csrc/paged_prefill_attention.cu): t > 1 query rows
+# over the paged pool with per-row ceilings, the mixed slot step's read.
+
+# threads per block and ring stages: must match kThreads and kStages in the
+# source
+PREFILL_THREADS = 128
+PREFILL_STAGES = 3
+# query rows (G·T) a block takes: eight m16 tiles, two a warp above 64
+PREFILL_MAX_ROWS = 128
+# head dims the source instantiates
+PREFILL_DH = (64, 128)
+_PREFILL = "paged_prefill_attention"
+
+
+def prefill_max_t(g: int) -> int:
+    """The widest step the kernel takes with ``g`` query heads a kv head:
+    ``PREFILL_MAX_ROWS // g`` tokens (128 for Llama-2-7B, 32 for
+    Mixtral's G = 4)."""
+    return PREFILL_MAX_ROWS // g
+
+
+def prefill_warps(rows: int) -> tuple[int, int, int]:
+    """How the four warps share a block's ``rows`` query rows (mirrors the
+    source): ``(mpw, mtw, kg)`` — m16 tiles a warp (2 above 64 rows), tile
+    slots, and key groups a tile (warps that share a tile take alternate
+    16-key chunks)."""
+    mt = -(-rows // 16)
+    if mt > 4:
+        return 2, 4, 1
+    mtw = 1 if mt <= 1 else (2 if mt <= 2 else 4)
+    return 1, mtw, PREFILL_THREADS // 32 // mtw
+
+
+def prefill_stage_pages(ps: int, pps: int, rows: int) -> int:
+    """Pages a ring stage holds: 16 keys for each key group, at least 32
+    positions (one __syncthreads a stage), no more than a split walks."""
+    want = max(32, 16 * prefill_warps(rows)[2])
+    return max(1, min(pps, want // ps))
+
+
+def prefill_smem_bytes(rows: int, ps: int, dh: int, kv_bytes: int, pp: int) -> int:
+    """Dynamic shared memory of one pass-1 block (mirrors the source's
+    ``Carve``): the query tile (rows rounded up to 16, rows of dh + 8 bf16),
+    then ``PREFILL_STAGES`` ring stages of ``pp`` pages — for bf16 the K
+    and V tiles in the padded layout the products read, for int8 the raw
+    pages and their scales (each stage rounded up to 16 bytes) plus one
+    dequantized bf16 K/V tile pair; the warps' ``(acc[dh], m, l)`` records
+    reuse everything past the query tile."""
+    ld = dh + 8
+    skp = -(-(pp * ps) // 16) * 16
+    q_bytes = -(-rows // 16) * 16 * ld * 2
+    tile = skp * ld * 2
+    if kv_bytes == 1:
+        stage, conv = -(-(pp * ps * dh * 2 + pp * ps * 8) // 16) * 16, 2 * tile
+    else:
+        stage, conv = 2 * tile, 0
+    records = PREFILL_THREADS // 32 * prefill_warps(rows)[0] * 16 * (dh + 2) * 4
+    return q_bytes + max(PREFILL_STAGES * stage + conv, records)
+
+
+def prefill_plan(b: int, hq: int, hkv: int, t: int, ps: int, dh: int, maxp: int,
+                 kv_bytes: int, n_sms: int) -> tuple[int, int, int, int]:
+    """The prefill kernel's launch for these shapes, from host shapes alone:
+    ``(splits, pps, pp, smem)`` — the grid ``(hkv, b, splits)`` of kernel
+    7's :func:`split_plan`, ``pp`` pages a ring stage and the dynamic
+    shared memory of a block.  Raises on a head dim the source does not
+    instantiate, on more than ``PREFILL_MAX_ROWS`` query rows a block (the
+    widest step is :func:`prefill_max_t`) and on a block past the card's
+    shared memory."""
+    _require(dh in PREFILL_DH, f"head dim {dh} (the kernel takes {PREFILL_DH})", _PREFILL)
+    _require(hq % hkv == 0, f"{hq} query heads not a multiple of {hkv} kv heads", _PREFILL)
+    g = hq // hkv
+    _require(1 <= t <= prefill_max_t(g),
+             f"{t} tokens a row with {g} query heads a kv head: the kernel takes "
+             f"at most {prefill_max_t(g)} (G·T <= {PREFILL_MAX_ROWS} query rows "
+             "a block); lower --sched-prefill-chunk", _PREFILL)
+    splits, pps = split_plan(maxp, b, hkv, n_sms)
+    pp = prefill_stage_pages(ps, pps, g * t)
+    smem = prefill_smem_bytes(g * t, ps, dh, kv_bytes, pp)
+    _require(smem <= MAX_SMEM, f"pages of {ps}x{dh} with {g * t} query rows need "
+             f"{smem} B of shared memory (max {MAX_SMEM})", _PREFILL)
+    return splits, pps, pp, smem
+
+
+def check_prefill_config(pool_dtype: torch.dtype, dh: int, g: int, max_t: int = 2) -> None:
+    """Raise, before any request, when the prefill kernel could not read a
+    paged pool on the card: a pool other than bf16 or int8, a head dim the
+    source does not instantiate, or a widest step ``max_t`` past
+    :func:`prefill_max_t` with ``g`` query heads a kv head."""
+    _require(pool_dtype in (torch.bfloat16, torch.int8),
+             f"a {pool_dtype} pool on the card: the kernel reads bf16 or int8 pools "
+             "(set the KV cache dtype to bf16 or q8, or use attn_impl='plain')", _PREFILL)
+    _require(dh in PREFILL_DH, f"head dim {dh} (the kernel takes {PREFILL_DH})", _PREFILL)
+    _require(max_t <= prefill_max_t(g),
+             f"{max_t} tokens a row with {g} query heads a kv head: the kernel takes "
+             f"at most {prefill_max_t(g)} (G·T <= {PREFILL_MAX_ROWS} query rows "
+             "a block); lower --sched-prefill-chunk", _PREFILL)
+
+
+def paged_prefill_attention(q: torch.Tensor, pool_k: torch.Tensor,
+                            pool_v: torch.Tensor, layer: int,
+                            page_table: torch.Tensor, pos_rows: torch.Tensor,
+                            scales: tuple[torch.Tensor, torch.Tensor] | None = None,
+                            impl: str = "auto") -> torch.Tensor:
+    """Paged GQA for t > 1 query rows with per-row ceilings (the mixed
+    slot step) as one kernel: a split page-table walk, tensor-core products,
+    online softmax, split combine.  A CUDA tensor launches the kernel
+    (:func:`prefill_attention`) or raises; a CPU tensor, or
+    ``impl="plain"``, runs the plain version (:func:`paged_rows_attention`)."""
+    global prefill_plain_calls
+    if impl not in ("auto", "plain"):
+        raise ValueError(f"unknown paged attention impl {impl!r}")
+    if impl == "plain" or not q.is_cuda:
+        prefill_plain_calls += 1
+        return paged_rows_attention(q, pool_k, pool_v, layer, page_table, pos_rows, scales)
+    return prefill_attention(q, pool_k, pool_v, layer, page_table, pos_rows, scales)
+
+
+def prefill_attention(q: torch.Tensor, pool_k: torch.Tensor, pool_v: torch.Tensor,
+                      layer: int, page_table: torch.Tensor, pos_rows: torch.Tensor,
+                      scales: tuple[torch.Tensor, torch.Tensor] | None = None
+                      ) -> torch.Tensor:
+    """Launch the prefill kernel: q (B, Hq, T, Dh) f32/bf16 (rounded to the
+    bf16 operand) against the pools (L, P, Hkv, ps, Dh) bf16, or int8 with
+    (k, v) f32 scale planes (L, P, Hkv, ps, 1), through ``page_table``
+    (B, maxp) int32 at per-row positions ``pos_rows`` (B,) int32 →
+    (B, Hq, T, Dh) in q's dtype.  CUDA tensors only; no host sync (the
+    page table, the positions and the layer are read on the device)."""
+    global prefill_launches
+    _require(q.is_cuda, f"q must be a CUDA tensor, got device {q.device}", _PREFILL)
+    dev = q.device
+    _require(q.dim() == 4, f"q shape {tuple(q.shape)} != (B, Hq, T, Dh)", _PREFILL)
+    b, hq, t, dh = q.shape
+    # bf16 or int8 pools: the tensor cores' bf16 operand (an f32 pool has no kernel)
+    layer = _check_pools(q, pool_k, pool_v, layer, page_table, pos_rows, scales,
+                         {torch.bfloat16: 1, torch.int8: 2}, _PREFILL)
+    n_layers, n_pages, hkv, ps, _ = pool_k.shape
+    maxp = page_table.shape[1]
+    splits, pps, pp, smem = prefill_plan(b, hq, hkv, t, ps, dh, maxp,
+                                         pool_k.element_size(), _sm_count(dev))
+    from . import _build
+    lib = _build.load()
+    qb = q.to(torch.bfloat16).contiguous()
+    if qb.data_ptr() % 16:  # the query tile is read in 16-byte pieces
+        qb = qb.clone()
+    out = torch.empty(q.shape, dtype=q.dtype, device=dev)
+    if b == 0:
+        return out
+    part = torch.empty((b, hq, t, splits, dh + 2), dtype=torch.float32, device=dev)
+    layer_t = index_view(dev, layer, n_layers)
+    sk_ptr = scales[0].data_ptr() if scales is not None else None
+    sv_ptr = scales[1].data_ptr() if scales is not None else None
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        rc = lib.paged_prefill_attention(
+            qb.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), sk_ptr, sv_ptr,
+            layer_t.data_ptr(), page_table.data_ptr(), pos_rows.data_ptr(),
+            out.data_ptr(), part.data_ptr(), _QTYPES[q.dtype],
+            _KVTYPES[pool_k.dtype], b, hq, hkv, t, ps, dh, maxp, n_pages, n_layers,
+            splits, pps, pp, _sqrt_dh(dh), stream)
+    if rc != 0:
+        raise RuntimeError(f"paged_prefill_attention launch failed: CUDA error {rc} "
+                           f"({lib.q40_error_string(rc).decode()}) at B={b} Hq={hq} "
+                           f"Hkv={hkv} T={t} ps={ps} Dh={dh} splits={splits}x{pps} "
+                           f"pp={pp} smem={smem}")
+    prefill_launches += 1
+    return out

@@ -33,7 +33,7 @@ from ..device import resolve, synchronize, upload
 from ..models.config import ModelConfig
 from ..models.params import Params, to_device
 from ..models.transformer import ShardedKV, forward_last, init_kv_cache, init_kv_pool
-from ..ops import q40
+from ..ops import attention, q40
 from ..parallel.mesh import Mesh
 from ..parallel.sharding import Placed, place_params
 from ..sampling import Sampler
@@ -179,10 +179,11 @@ class Engine:
     weights stay row-major, with a warning.
 
     ``graphs`` (default: on for ``cuda`` at tp = 1) replays the decode
-    steps of :meth:`decode` and the pure-decode slot dispatches as captured
-    CUDA graphs (:mod:`runtime.graphs`, kept in :attr:`graphs`; None runs
-    every step eagerly).  It needs ``cuda`` and tp = 1; the prefill
-    forwards, the mixed slot steps and tp > 1 run eagerly."""
+    steps of :meth:`decode` and every slot dispatch, pure decode and mixed,
+    as captured CUDA graphs (:mod:`runtime.graphs`, kept in
+    :attr:`graphs`; None runs every step eagerly).  It needs ``cuda`` and
+    tp = 1; the batch-1 and lockstep prefill forwards and tp > 1 run
+    eagerly."""
 
     def __init__(self, cfg: ModelConfig, params: Params | Placed,
                  seq_len: int | None = None, kv_dtype=None, device=None,
@@ -223,6 +224,9 @@ class Engine:
             self.cache = self._per_rank(lambda dev, tp: init_kv_pool(
                 cfg, self.kv_pages, self.kv_page_size, dtype=None if kv_quant else kv_dtype,
                 quant=kv_quant, device=dev, tp=tp))
+            # a mixed slot step reads the pool through the prefill kernel:
+            # refuse a pool it cannot read now, not on the first prompt
+            self.check_slot_width(2)
         elif kv_quant:
             raise ValueError("the contiguous int8 KV cache is not yet ported to "
                              "dllama_tpu_torch; int8 needs a paged pool (kv_pages)")
@@ -251,6 +255,15 @@ class Engine:
                              f"at tp = {self.tp}")
         #: the decode-step graph cache (runtime.graphs); None: every step eager
         self.graphs: DecodeGraphs | None = DecodeGraphs(self.device) if graphs else None
+
+    def check_slot_width(self, t: int) -> None:
+        """Raise when a paged engine on the card could not run a mixed slot
+        step of ``t`` tokens a row: the prefill kernel reads its pool
+        (:func:`attention.check_prefill_config`) unless ``attn_impl`` is
+        ``"plain"``.  A contiguous or CPU engine takes any width."""
+        if self.paged and self.device.type == "cuda" and self.cfg.attn_impl != "plain":
+            attention.check_prefill_config(self.cache.k.dtype, self.cfg.head_size,
+                                           self.cfg.n_heads // self.cfg.n_kv_heads, t)
 
     @property
     def tp(self) -> int:
@@ -528,9 +541,10 @@ class Engine:
         ``tokens_np`` with a prior dispatch's on-device last row, so the
         sampled tokens never visit the host on the input side.  A paged
         engine needs ``page_tables_np`` (B, max_pages) int32.  Sampled
-        rows draw from the engine's generator.  A pure-decode dispatch
-        (one token a row) replays the engine's slot-step graph when
-        :attr:`graphs` is on; a mixed step (t > 1) runs eagerly.  The host
+        rows draw from the engine's generator.  With :attr:`graphs` on, a
+        pure-decode dispatch (one token a row) replays the engine's
+        slot-step graph, and a mixed step (t > 1) replays the mixed-step
+        graph of its width, then the slot graph for its later steps.  The host
         arrays go up non-blocking and the ids come back through a
         :class:`Landing`, so an enqueue never waits for an earlier
         dispatch.  Does not touch
@@ -572,6 +586,10 @@ class Engine:
             if self.graphs is not None and t == 1:
                 toks_dev, last_dev, logits = self.graphs.slot(
                     self, feed_dev, tokens_np, pos_rows_np, n_valid_np, temps_np, topps_np,
+                    topks_np, steps, page_tables_np, greedy)
+            elif self.graphs is not None:
+                toks_dev, last_dev, logits = self.graphs.mixed(
+                    self, tokens_np, pos_rows_np, n_valid_np, temps_np, topps_np,
                     topks_np, steps, page_tables_np, greedy)
             else:
                 toks = (feed_dev.to(torch.int32)[:, None] if feed_dev is not None

@@ -5,7 +5,7 @@ step (``slot_step_async``): a decode step is one program on the card,
 replayed with one launch instead of the ~300 ops a forward issues from
 Python.
 
-Two step bodies, each one step of its eager twin in ``decode_loop``,
+Three step bodies, each one step of its eager twin in ``decode_loop``,
 reading every input from static buffers and writing every output there:
 
 * :func:`chunk_step` — a step of ``decode_chunk``: batch-1 streams
@@ -14,7 +14,13 @@ reading every input from static buffers and writing every output there:
   ``offsets`` a static buffer);
 * :func:`slot_step` — a pure-decode step of ``slot_chunk``
   (``Engine.slot_step_async`` with ``feed_dev`` or one token a row):
-  contiguous slot rows or a paged pool, bf16 or int8.
+  contiguous slot rows or a paged pool, bf16 or int8;
+* :func:`mixed_step` — the first forward of a mixed ``slot_chunk``
+  (t > 1 tokens a row: prefill chunks beside decode rows), the scheduler's
+  prefill step, which sets TTFT.  Its paged read is the prefill kernel
+  (``ops.attention.paged_prefill_attention``); the contiguous slot rows'
+  read stays the plain per-row-ceiling op.  The dispatch's later steps
+  replay the slot graph, fed the mixed step's last row on the device.
 
 :class:`DecodeGraphs` keeps one engine's graphs, keyed by what fixes a
 graph's shapes (:class:`GraphKey`: path, rows, greedy or sampled, walk
@@ -26,9 +32,9 @@ replay that fails raises: nothing runs eagerly in its place.  With
 ``capture=False`` every step runs the same body on the same buffers
 eagerly: the CPU tests drive it so.
 
-Eager by design, and how they run today (every kernel still launches on
-the card): the prefill forwards and the mixed slot steps (t > 1), which are
-device-bound, and tensor parallelism (tp > 1).
+Eager, and how they run today (every kernel still launches on the
+card): the batch-1 and lockstep prefill forwards (``Engine.prefill``,
+``prefill_ragged``) and tensor parallelism (tp > 1).
 
 What a captured step has to hold, and how the bodies hold it:
 
@@ -47,7 +53,10 @@ What a captured step has to hold, and how the bodies hold it:
 * **Buffers that must not move.**  ``q40._gemv_workspace`` and
   ``device.index_view`` keep every buffer they replace alive, so a graph
   captured before a replacement keeps valid addresses; the decode body's
-  counts are 0 after every replay as after every launch.  The RoPE
+  counts are 0 after every replay as after every launch.  Scratch a
+  wrapper allocates per call (the tensor-core body's split-K sums, the
+  attention kernels' split records) is allocated during the capture, from
+  the graph's own pool, which lives as long as the graph.  The RoPE
   frequencies live on the device once (``ops.kernels.rope_angles``): the
   body makes no host-to-device copy.
 * **Launch counters.**  The kernels' counters are Python ints bumped at
@@ -65,7 +74,8 @@ What a captured step has to hold, and how the bodies hold it:
   buffer ``tok`` that the next replay reads, and into an output ring the
   engine copies to the host (``Engine`` part of the dispatch) before a
   later dispatch can overwrite it: by position for the chunk path, by step
-  for the slot path.  Each graph has its own memory pool.
+  for the slot path.  Each graph has its own memory pool; a capture's
+  seconds and the bytes its pool reserved are kept in :attr:`DecodeGraphs.cost`.
 * **Threads.**  Graphs are captured by the thread that steps the engine
   (the scheduler's thread for the slot engine) on a capture stream of
   their own, in ``thread_local`` capture mode, so another thread's work on
@@ -75,6 +85,7 @@ What a captured step has to hold, and how the bodies hold it:
 from __future__ import annotations
 
 import sys
+import time
 from typing import NamedTuple
 
 import numpy as np
@@ -93,8 +104,9 @@ COUNTED = (q40, q8, attention)
 class GraphKey(NamedTuple):
     """What fixes a graph's shapes: ``path`` (``"chunk"``: batch-1 and
     lockstep rows without offsets, ``"ragged"``: the lockstep batch with
-    its offsets, ``"slot"``), ``batch`` rows, ``greedy`` (argmax, no coin)
-    or sampled, and the walk bucket (0 where there is no walk)."""
+    its offsets, ``"slot"``, ``"mixed"``), ``batch`` rows, ``greedy``
+    (argmax, no coin) or sampled, and ``walk``: the walk bucket (0 where
+    there is no walk), or a mixed step's width T."""
     path: str
     batch: int
     greedy: bool
@@ -167,7 +179,8 @@ class SlotBuffers:
     ``nvalid``, later ones one token), the step index ``i`` (1,) int64 into
     the ring ``out`` (seq_len, B) int32, ``coins``/``temps``/``topps`` (B,)
     f32, ``topks`` (B,) int32, the page table (B, maxp) int32 of a paged
-    engine (else None) and ``logits`` (B, V) f32."""
+    engine (else None) and ``logits`` (B, V) f32; ``wide`` holds a mixed
+    step's (B, T) input tokens, one buffer a width."""
 
     def __init__(self, b: int, vocab: int, seq_len: int, dev, max_pages: int | None):
         self.tok = torch.zeros((b,), dtype=torch.int32, device=dev)
@@ -182,6 +195,14 @@ class SlotBuffers:
         self.ptab = (torch.zeros((b, max_pages), dtype=torch.int32, device=dev)
                      if max_pages else None)
         self.logits = torch.zeros((b, vocab), dtype=torch.float32, device=dev)
+        self.wide: dict[int, torch.Tensor] = {}
+
+    def tokens(self, t: int) -> torch.Tensor:
+        """The static (B, t) input of a mixed step of width ``t``."""
+        if t not in self.wide:
+            self.wide[t] = torch.zeros((self.tok.shape[0], t), dtype=torch.int32,
+                                       device=self.tok.device)
+        return self.wide[t]
 
 
 def _sample(logits, buf, greedy: bool, topks) -> torch.Tensor:
@@ -207,13 +228,17 @@ def chunk_step(params, cfg, cache, buf: ChunkBuffers, walk: int, greedy: bool) -
     buf.pos.add_(1)
 
 
-def slot_step(params, cfg, cache, buf: SlotBuffers, greedy: bool) -> None:
+def slot_step(params, cfg, cache, buf: SlotBuffers, greedy: bool,
+              tokens: torch.Tensor | None = None) -> None:
     """One step of ``decode_loop.slot_chunk`` on ``buf``: the slot forward
-    of ``buf.tok`` at ``pos_rows`` with ``nvalid`` valid tokens (through
-    the page table when the engine is paged), its sample written to
-    ``out[i]`` and ``tok``, its logits to ``logits``; the clocks advance by
-    ``nvalid`` and every later step of the dispatch feeds one token."""
-    logits, _ = forward_slots(params, cfg, buf.tok[:, None], cache, buf.pos_rows,
+    of ``tokens`` (B, T), by default ``buf.tok`` (one token a row), at
+    ``pos_rows`` with ``nvalid`` valid tokens (through the page table when
+    the engine is paged), its sample written to ``out[i]`` and ``tok``, its
+    logits to ``logits``; the clocks advance by ``nvalid`` and every later
+    step of the dispatch feeds one token."""
+    if tokens is None:
+        tokens = buf.tok[:, None]
+    logits, _ = forward_slots(params, cfg, tokens, cache, buf.pos_rows,
                               buf.nvalid, page_table=buf.ptab)
     tok = _sample(logits, buf, greedy, buf.topks)
     buf.out.index_copy_(0, buf.i, tok[None])
@@ -222,6 +247,13 @@ def slot_step(params, cfg, cache, buf: SlotBuffers, greedy: bool) -> None:
     buf.logits.copy_(logits)
     buf.pos_rows.add_(buf.nvalid)
     buf.nvalid.fill_(1)
+
+
+def mixed_step(params, cfg, cache, buf: SlotBuffers, greedy: bool, t: int) -> None:
+    """The first forward of a mixed ``decode_loop.slot_chunk``: the slot
+    step (:func:`slot_step`) of the static (B, ``t``) tokens
+    ``buf.tokens(t)``, row ``r`` consuming its first ``nvalid[r]``."""
+    slot_step(params, cfg, cache, buf, greedy, tokens=buf.tokens(t))
 
 
 # -- the graph cache -------------------------------------------------------
@@ -235,7 +267,9 @@ class DecodeGraphs:
     """One engine's decode-step graphs and their buffers (module
     docstring).  ``capture=False`` runs every step's body eagerly.
     Counts: ``captures`` graphs captured, ``replays`` steps replayed,
-    ``eager_steps`` steps run eagerly (each key's first on the card)."""
+    ``eager_steps`` steps run eagerly (each key's first on the card);
+    ``cost`` maps each captured key to (capture seconds, bytes its memory
+    pool reserved)."""
 
     def __init__(self, device: torch.device, capture: bool = True):
         if capture and device.type != "cuda":
@@ -243,6 +277,7 @@ class DecodeGraphs:
         self.device = device
         self.capture = capture
         self.graphs: dict[GraphKey, _Captured] = {}
+        self.cost: dict[GraphKey, tuple[float, int]] = {}
         self._buffers: dict[str, object] = {}
         self._stream = None
         self.captures = self.replays = self.eager_steps = 0
@@ -259,7 +294,14 @@ class DecodeGraphs:
         body()
         self.eager_steps += 1
         if self.capture:
+            # the capture empties the allocator's cache first; so does this,
+            # so the reserved bytes grow by the graph's own pool alone
+            torch.cuda.synchronize(self.device)
+            torch.cuda.empty_cache()
+            t0, pool0 = time.perf_counter(), torch.cuda.memory_reserved(self.device)
             self.graphs[key] = self._capture(body)
+            self.cost[key] = (time.perf_counter() - t0,
+                              torch.cuda.memory_reserved(self.device) - pool0)
 
     def _capture(self, body) -> _Captured:
         """Capture ``body`` once into a graph with its own memory pool on
@@ -317,22 +359,16 @@ class DecodeGraphs:
                                           buf, walk, greedy))
         return buf.out[p0:p0 + steps], buf.tok.clone(), buf.logits.clone()
 
-    def slot(self, engine, feed_dev, tokens_np, pos_rows_np, n_valid_np, temps_np,
-             topps_np, topks_np, steps: int, page_tables_np, greedy: bool):
-        """A pure-decode slot dispatch of ``steps`` steps: the host's rows
-        (or ``feed_dev``, a prior dispatch's last row on the device) copied
-        into the static buffers, then one replay a step.  Returns (ids
-        (steps, B), last row (B,), logits (B, V)) as :meth:`chunk`."""
+    def _slot_buffers(self, engine, pos_rows_np, n_valid_np, temps_np, topps_np,
+                      topks_np, page_tables_np) -> SlotBuffers:
+        """The slot buffers with a dispatch's host rows copied in (the
+        input tokens are the caller's)."""
         buf = self._buffers.get("slot")
         if buf is None:
             buf = self._buffers["slot"] = SlotBuffers(
                 engine.batch, engine.cfg.vocab_size, engine.seq_len, self.device,
                 engine.max_pages_per_slot if engine.paged else None)
         dev = self.device
-        if feed_dev is not None:
-            buf.tok.copy_(feed_dev)
-        else:
-            buf.tok.copy_(upload(tokens_np[:, 0], torch.int32, dev))
         buf.pos_rows.copy_(upload(pos_rows_np, torch.int32, dev))
         buf.nvalid.copy_(upload(n_valid_np, torch.int32, dev))
         buf.temps.copy_(upload(temps_np, torch.float32, dev))
@@ -341,9 +377,46 @@ class DecodeGraphs:
         if buf.ptab is not None:
             buf.ptab.copy_(upload(page_tables_np, torch.int32, dev))
         buf.i.zero_()
+        return buf
+
+    def _decode_steps(self, engine, buf: SlotBuffers, steps: int, greedy: bool) -> None:
         for _ in range(steps):
             if not greedy:
                 buf.coins.uniform_(0.0, 1.0, generator=engine._gen)
             self._step(GraphKey("slot", engine.batch, greedy, 0),
                        lambda: slot_step(engine.params, engine.cfg, engine.cache, buf, greedy))
+
+    def slot(self, engine, feed_dev, tokens_np, pos_rows_np, n_valid_np, temps_np,
+             topps_np, topks_np, steps: int, page_tables_np, greedy: bool):
+        """A pure-decode slot dispatch of ``steps`` steps: the host's rows
+        (or ``feed_dev``, a prior dispatch's last row on the device) copied
+        into the static buffers, then one replay a step.  Returns (ids
+        (steps, B), last row (B,), logits (B, V)) as :meth:`chunk`."""
+        buf = self._slot_buffers(engine, pos_rows_np, n_valid_np, temps_np, topps_np,
+                                 topks_np, page_tables_np)
+        if feed_dev is not None:
+            buf.tok.copy_(feed_dev)
+        else:
+            buf.tok.copy_(upload(tokens_np[:, 0], torch.int32, self.device))
+        self._decode_steps(engine, buf, steps, greedy)
+        return buf.out[:steps], buf.tok.clone(), buf.logits.clone()
+
+    def mixed(self, engine, tokens_np, pos_rows_np, n_valid_np, temps_np, topps_np,
+              topks_np, steps: int, page_tables_np, greedy: bool):
+        """A mixed slot dispatch: the (B, T) host tokens (T > 1) copied into
+        the width's static buffer, the mixed step replayed (its key
+        ``GraphKey("mixed", B, greedy, T)``), then ``steps - 1`` replays of
+        the slot graph fed its last row on the device (the slot buffers are
+        the mixed step's, so its sample, clocks and step index carry over).
+        Returns (ids (steps, B), last row (B,), logits (B, V)) as
+        :meth:`chunk`."""
+        t = int(tokens_np.shape[1])
+        buf = self._slot_buffers(engine, pos_rows_np, n_valid_np, temps_np, topps_np,
+                                 topks_np, page_tables_np)
+        buf.tokens(t).copy_(upload(tokens_np, torch.int32, self.device))
+        if not greedy:
+            buf.coins.uniform_(0.0, 1.0, generator=engine._gen)
+        self._step(GraphKey("mixed", engine.batch, greedy, t),
+                   lambda: mixed_step(engine.params, engine.cfg, engine.cache, buf, greedy, t))
+        self._decode_steps(engine, buf, steps - 1, greedy)
         return buf.out[:steps], buf.tok.clone(), buf.logits.clone()

@@ -171,6 +171,8 @@ class SlotScheduler:
         self.engine = engine
         self.slots = [_Slot() for _ in range(engine.batch)]
         self.prefill_chunk = max(1, int(prefill_chunk))
+        # the widest mixed step this scheduler can emit (a power of two)
+        engine.check_slot_width(1 << (min(self.prefill_chunk, engine.seq_len).bit_length() - 1))
         self.max_wait_ms = float(max_wait_ms)
         self.decode_burst = max(1, int(decode_burst))
         self.max_queue = max(1, int(max_queue))

@@ -11,6 +11,7 @@ Tolerances, relative to max|logits|:
 * dense f32 model against the f64-normed numpy oracle — 1e-4.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -186,3 +187,99 @@ def test_sampled_stream_repeats_and_eos_rewinds(engine_params):
     # the chunk's overshoot is rewound: the cache holds everything before
     # the EOS token, which would be the next step's input
     assert eng.pos == first
+
+
+def _q40_model(n_layers: int, seq_len: int):
+    kw = dict(dim=64, hidden_dim=96, n_layers=n_layers, n_heads=4, n_kv_heads=2,
+              vocab_size=128, seq_len=seq_len)
+    jcfg = jconfig.tiny_config(dtype=jnp.float32, **kw)
+    tcfg = tconfig.tiny_config(**kw)
+    jp = jparams.quantize_matmuls(jparams.init_params(jcfg, seed=3), jcfg)
+    return jcfg, jp, tcfg, tparams.from_jax_params(_jax_arrays(jp), tcfg)
+
+
+@pytest.mark.parametrize("t", [127, 257])
+def test_prefill_agrees_with_jax_to_a_bf16_ulp(t):
+    """The widths where the 2-layer f32 Q40 model's logits differ most from
+    the JAX package's (ROADMAP queue 3, fault 1), pinned.  Layer 0 differs
+    from JAX only in f32 last bits: every f32 op of XLA's CPU backend (the
+    mean of rmsnorm, rsqrt, the dots, RoPE's cos/sin, the softmax's exp)
+    rounds its last bit otherwise than PyTorch's CPU kernels, and no order of
+    operations reproduces XLA's own approximations.  Where such a bit sits on
+    a bf16 rounding edge of a Q40 matmul's input (which the kernel contract
+    rounds to bf16), it flips a bf16 ulp: inside layer 0 at 257 rows, at
+    layer 1's input at both widths.  The logits stay within 1e-3 of max and
+    the greedy token agrees."""
+    prompt = np.random.RandomState(8).randint(3, 128, t)
+    jcfg, jp, tcfg, tp = _q40_model(1, 512)
+    jx, _ = jtr.run_blocks(jp, jcfg, jnp.asarray([prompt]), jtr.init_kv_cache(jcfg, 1),
+                           jnp.int32(0))
+    tx, _ = ttr.run_blocks(tp, tcfg, torch.from_numpy(prompt[None]),
+                           ttr.init_kv_cache(tcfg, 1), 0)
+    jx = np.asarray(jx)
+    gap = np.abs(tx.numpy() - jx).max() / np.abs(jx).max()
+    assert gap <= (2e-7 if t == 127 else 2e-5)
+    jcfg, jp, tcfg, tp = _q40_model(2, 512)
+    eng = Engine(tcfg, tp, device="cpu")
+    logits, _ = eng.prefill(prompt.tolist())
+    ref, _ = jtr.forward_last(jp, jcfg, jnp.asarray([prompt]), jtr.init_kv_cache(jcfg, 1),
+                              jnp.int32(0), jnp.int32(t - 1))
+    ref = np.asarray(ref)
+    assert np.abs(logits - ref).max() <= 1e-3 * np.abs(ref).max()
+    assert int(np.argmax(logits)) == int(np.argmax(ref))
+
+
+def test_layer0_ops_agree_with_jax_to_the_last_bits():
+    """Fault 1's cause, op by op: layer 0 of the f32 Q40 model at t = 127,
+    each op of the port fed the JAX op's input (every JAX op jitted alone,
+    as XLA compiles it): rmsnorm, the fused wqkv dot, RoPE's angles and
+    rotation, attention, wo, rmsnorm, w13, act·mul and w2 each agree with
+    JAX to a few f32 ulps of max (2.5e-7), while layer 0's output differs
+    from JAX's in its last bits (the test above): no single op is at
+    fault."""
+    from dllama_tpu.ops import attention as ja, kernels as jk
+    from dllama_tpu_torch.ops import attention as tatt, kernels as tk, q40 as tq40
+    t, hq, hkv, dh = 127, 4, 2, 16
+    jcfg, jp, tcfg, tp = _q40_model(1, 512)
+    prompt = np.random.RandomState(8).randint(3, 128, t)
+
+    def T(a):
+        return torch.from_numpy(np.array(a))
+
+    def agree(j, p):
+        j, p = np.asarray(j, np.float32), p.numpy()
+        assert np.abs(p - j).max() <= 2.5e-7 * np.abs(j).max()
+
+    def mm(x, name):
+        view = jq40.QLayerView(jp[name], jnp.int32(0))
+        j = jax.jit(lambda a: jq40.mm(a, view, impl=jcfg.quant_impl))(x)
+        agree(j, tq40.mm(T(x), tp[name], 0, impl=tcfg.quant_impl, out_dtype=torch.float32))
+        return np.asarray(j)
+
+    x = np.asarray(jp["embedding"])[prompt][None].astype(np.float32)
+    xb = jax.jit(jk.rmsnorm)(x, jp["rms_att"][0])
+    agree(xb, tk.rmsnorm(T(x), tp["rms_att"][0]))
+    q, k, v = np.split(mm(xb, "wqkv"), [hq * dh, (hq + hkv) * dh], axis=-1)
+    q = q.reshape(1, t, hq, dh)
+    cos, sin = jk.rope_angles(jnp.arange(t), dh, jcfg.rope_theta)
+    tcos, tsin = tk.rope_angles(torch.arange(t), dh, tcfg.rope_theta)
+    agree(cos, tcos)
+    agree(sin, tsin)
+    rope = jax.jit(lambda a, c, s: jk.apply_rope(a, c, s, interleaved=True))
+    agree(rope(q, cos, sin), tk.apply_rope(T(q), T(cos), T(sin), interleaved=True))
+    q = rope(q, cos, sin)
+    k = rope(k.reshape(1, t, hkv, dh), cos, sin)
+    qq = np.asarray(q).transpose(0, 2, 1, 3)
+    ck = np.zeros((1, hkv, 512, dh), np.float32)
+    cv = ck.copy()
+    ck[:, :, :t] = np.asarray(k).transpose(0, 2, 1, 3)
+    cv[:, :, :t] = v.reshape(1, t, hkv, dh).transpose(0, 2, 1, 3)
+    att = jax.jit(lambda a, b, c: ja.gqa_attention(a, b, c, 0, t))(qq, ck, cv)
+    agree(att, tatt.gqa_attention(T(qq), T(ck), T(cv), 0, t))
+    x2 = x + mm(np.asarray(att).transpose(0, 2, 1, 3).reshape(1, t, hq * dh), "wo")
+    xb2 = jax.jit(jk.rmsnorm)(x2, jp["rms_ffn"][0])
+    agree(xb2, tk.rmsnorm(T(x2), tp["rms_ffn"][0]))
+    h1, h3 = np.split(mm(xb2, "w13"), 2, axis=-1)
+    h = jax.jit(lambda a, b: jk.silu(a) * b)(h1, h3)
+    agree(h, tk.silu(T(h1)) * T(h3))
+    mm(np.asarray(h), "w2")

@@ -122,7 +122,8 @@ def test_fused_plain_matches_jax_interpret_kernel(quantized):
     got = ta.fused_paged_attention(
         torch.from_numpy(q), _t(pk), _t(pv), 1, torch.from_numpy(table),
         torch.from_numpy(pos), None if scales is None else tuple(_t(s) for s in scales))
-    assert ta.counters() == {"kernel_launches": 0, "plain_calls": 1}
+    assert ta.counters() == {"kernel_launches": 0, "plain_calls": 1,
+                             "prefill_launches": 0, "prefill_plain_calls": 0}
     assert got.shape == q.shape and got.dtype == torch.float32
     _close(got, ref, 1e-2)
 
