@@ -12,7 +12,9 @@ Phases (each prints its seconds; any failure exits non-zero):
    shapes (wqkv, wo, w13, w2 stacked; wcls flat) for t in {1, 2, 4, 5, 8,
    12, 16, 24, 32, 128}, both of its bodies (the decode body, with its
    plan, and the tensor-core body: the crossover that sets q40.T_MMA,
-   printed a t) checked and timed, the routed one reported, and a ragged
+   printed a t; the tensor-core plan a t) checked and timed, the routed one
+   reported, wcls also at t = 512 and 4096 (phase 20's scoring forward's
+   rows, 8 x 512), and a ragged
    shape (n = 4128, n/32 odd; d = 1000; t = 17); stacked calls at layers 0
    and L-1, random packed planes made on the card from a seed:
    max|kernel - plain| <= KERNEL_TOL * max|plain|.  Times the kernel, the
@@ -184,9 +186,39 @@ Phases (each prints its seconds; any failure exits non-zero):
    and 1): the kernel path against the plain path (plain matmuls and
    kernel 4's plain version) end to end, batch-1 and slot paths, as
    phases 5, 8 and 12.
+20. the OpenAI surface at Llama-2-7B width and depth: phase 3's file
+   served with ``--batch-slots 8 --kv-pages 0`` (the lockstep engine):
+   a list of 8 greedy prompts twice (the same bytes), chat ``n = 4`` at
+   temperature 0.8 seed 1 twice (four choices, their usage, the same
+   bytes), ``logprobs = 5`` with ``echo`` on a ~500-token prompt (the
+   tokens join to the text; the first log-prob null only without a BOS;
+   every other finite and <= 0; five alternatives a position; each greedy
+   token the top-1 where the top-2 margin exceeds 0.05 nats), the list
+   streamed (joined per index = the non-stream texts), ``/metrics`` in
+   both formats (this server's requests served, the TTFT count, the text
+   parses, the HBM gauge within 1 % of ``memory_allocated``) and
+   ``/debug/requests/<id>``, ``/debug/timeline``, ``/debug/trace``; the
+   Q40 counters over those requests show wcls once on the tensor-core body
+   (the logprobs request's scoring forward, at 8 x 512 rows) and no plain
+   call.  Then the scoring forward alone at 8 x 512: wall, device
+   busy time, peak memory, and its counters (4 L + 1 launches, all on the
+   tensor-core body).
+20b. on the phase-5 model: both layers of a scoring forward at 8 x 512
+   rows, kernels against plain with every sub-block fed the plain run's
+   input (attention and FFN outputs within E2E_TOL; layer 1's four Q40
+   products at stacked plane 1 and wcls within KERNEL_TOL; a witness:
+   layer 1's attention, plain against plain with its input one ulp away,
+   printed); ``score_batch`` with the kernels against the
+   plain versions at a 64 bucket (logits by the phase-5 rule, log-probs within twice the
+   largest logit difference, top-5 ids where the margin decides), prefill
+   + 8 teacher-forced steps on the contiguous int8 cache kernel against
+   plain, and a greedy stream on the int8 cache with graphs on and off.
+3q. ``inference --kv-cache-dtype q8`` at Llama-2-7B width and depth, as
+   phase 3 (129 launches a forward, the profile, graphs on and off).
 
-They run in the order 1, 2, 13, 9, 6, 6c, 16, 3, 17, 4, 5, 8, 15, 18, 7,
-14, 10, 11, 12, 19; each synthesized model is deleted when its phases end.
+They run in the order 1, 2, 13, 9, 6, 6c, 16, 3, 17, 4, 5, 8, 15, 20b, 18,
+7, 20, 3q, 14, 10, 11, 12, 19; each synthesized model is deleted when its
+phases end.
 ``--only 1,6c`` runs a subset of the phases (for bring-up; it prints no
 result lines; ``6`` includes ``6c``).  Phase 3 also prints each captured
 key's capture seconds and memory-pool bytes.
@@ -269,9 +301,14 @@ RAGGED_ROWS = (17,)
 # Q40 at Mixtral's shapes (phase 9b) adds t = 8, the 8-slot step's experts
 MIX_ROWS = (1, 8, 16, 128)
 # rows of the JSON line: the routed body at t = 1, 16 and 128 (the last two
-# the tensor-core body, launched by the main paths' prefills; not wcls:
-# the LM head reads one row a sequence, so it runs the GEMV body only)
+# the tensor-core body, launched by the main paths' prefills)
 JSON_ROWS = (1, 16, 128)
+# phase 20's scoring forwards: 8 sequences in a 512-token bucket, so every
+# matmul of the forward, wcls among them, runs at 4096 rows
+SCORE_B, SCORE_T = 8, 512
+# wcls also at 512 rows and at the scoring forward's width (phase 2): the
+# main path launches wcls's tensor-core body at 4096 rows alone
+WCLS_WIDE = (512, SCORE_B * SCORE_T)
 # phase 10's prompt: 84 tokens of the synthesized tokenizer, a t = 128 prefill
 Q8_PROMPT = "Once upon a time the capital of France is" * 2
 # kernel 3 (phase 13): the 7B sites in the default tiles, then two narrow
@@ -398,7 +435,7 @@ def check_sites(codec, sites, dev, seed: int, pad: bool = True, rows=ROWS,
     reported.  Prints, at each t, at how many sites the tensor-core body
     wins and the sum over a 7B layer's four matmuls: the crossover that
     sets ``T_MMA``.  Returns {(site, t): numbers} for the JSON line at
-    ``json_rows`` (not wcls above t = 1)."""
+    ``json_rows``."""
     is_q8 = codec.__name__.endswith(".q8")
     kernel = codec.q8_matmul if is_q8 else codec.q40_matmul
     replaces = Q8_REPLACES if is_q8 else Q40_REPLACES
@@ -421,7 +458,9 @@ def check_sites(codec, sites, dev, seed: int, pad: bool = True, rows=ROWS,
             layers = (0, lead[0] - 1) if lead else (None,)
         w_lib = codec.dequantize(qt, torch.bfloat16, layer=layers[-1])
         print(f"{site}: decode-body plan (splits, blocks a split) "
-              f"{codec.gemv_plan(n, d, n_sms, 1 if is_q8 else 2)}")
+              f"{codec.gemv_plan(n, d, n_sms, 1 if is_q8 else 2)}; tensor-core plan "
+              f"(bm, splits, steps a split) " + ", ".join(
+                  f"t={t} {codec.mma_plan(t, n, d, n_sms)}" for t in rows if t >= codec.T_MMA))
         for t in rows:
             x = torch.randn((t, n), generator=g, device=dev).to(torch.bfloat16)
             err = 0.0
@@ -455,7 +494,7 @@ def check_sites(codec, sites, dev, seed: int, pad: bool = True, rows=ROWS,
             if site in ("wqkv", "wo", "w13", "w2"):  # a 7B layer's four matmuls
                 w[2] += times["gemv"]
                 w[3] += times["mma"]
-            if t in json_rows and (t == 1 or not site.endswith("wcls")):
+            if t in json_rows:
                 out[(site, t)] = dict(replaces=replaces[1 if lead else 0], max_abs_err=err,
                                       ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=by,
                                       library_ms=l_ms, gemv_ms=times["gemv"],
@@ -604,8 +643,7 @@ def main_path(cli, codec, m: str, t: str, want, extra: tuple = (),
     peak = torch.cuda.max_memory_allocated()
     print("\n".join(out.splitlines()[-8:]))
     other = "kernel_launches" if key == "blocked_launches" else "blocked_launches"
-    if (c[key] != want(engine) or c.get(other, 0) or c["plain_calls"]
-            or c["dense_prefill_calls"]):
+    if c[key] != want(engine) or c.get(other, 0) or c["plain_calls"]:
         raise AssertionError(f"main path did not run every matmul through the kernel: "
                              f"{c} over {engine.forwards} forwards, want "
                              f"{want(engine)} {key}")
@@ -847,27 +885,28 @@ def load_bf16(mfile, params_mod, config, path: str, dev, fuse: bool = True):
             fuse=fuse)
 
 
-def new_cache(transformer, cfg, dev, mesh=None):
-    """A batch-1 contiguous cache on ``dev``, or one a rank of ``mesh``."""
+def new_cache(transformer, cfg, dev, mesh=None, quant: bool = False):
+    """A batch-1 contiguous cache on ``dev`` (int8 with ``quant``), or one a
+    rank of ``mesh``."""
     if mesh is None:
-        return transformer.init_kv_cache(cfg, 1, device=dev)
+        return transformer.init_kv_cache(cfg, 1, quant=quant, device=dev)
     return transformer.ShardedKV(tuple(transformer.init_kv_cache(cfg, 1, device=d, tp=mesh.tp)
                                        for d in mesh.devices))
 
 
 def end_to_end(transformer, cfg, params, dev, label: str = "2 layers, bf16",
-               mesh=None) -> None:
-    """Phases 5, 12 and 19: prefill + 8 teacher-forced decode steps at
+               mesh=None, quant: bool = False) -> None:
+    """Phases 5, 12, 19 and 20b: prefill + 8 teacher-forced decode steps at
     batch 1, the kernels (``auto``) against ``quant_impl="plain"`` (params
     placed over ``mesh`` when given: kernel 4 against its plain version
-    too)."""
+    too; ``quant``: on the contiguous int8 cache)."""
     rng = np.random.RandomState(1)
     prompt = torch.from_numpy(rng.randint(3, cfg.vocab_size, (1, 12))).to(dev)
     forced = rng.randint(3, cfg.vocab_size, 8).tolist()
     logits, routes = {}, {"auto": [], "plain": []}
     for impl in ("auto", "plain"):
         c = cfg.with_(quant_impl=impl)
-        cache = new_cache(transformer, c, dev, mesh)
+        cache = new_cache(transformer, c, dev, mesh, quant)
         with routing_log(transformer, cfg, routes[impl]):
             steps = [transformer.forward_last(params, c, prompt, cache, 0, 11)[0]]
             for i, tok in enumerate(forced):
@@ -968,7 +1007,7 @@ def moe_decode_checks(engine, transformer, q40, dev) -> None:
     q40.reset_counters()
     engine.decode_one(5)
     c = q40.counters()
-    if c["kernel_launches"] != want or c["plain_calls"] or c["dense_prefill_calls"]:
+    if c["kernel_launches"] != want or c["plain_calls"]:
         raise AssertionError(f"a single-token Mixtral forward: {c}, want {want} launches")
     print(f"one single-token forward: {c['kernel_launches']} Q40 kernel launches, "
           f"0 plain ({c['launches_by_shape']})")
@@ -1209,15 +1248,22 @@ def check_prefill_attention(attention, dev, hkv: int, codecs=("bf16", "int8")) -
     return out
 
 
-def _post(base: str, path: str, body: dict) -> tuple[int, dict | str]:
-    req = urllib.request.Request(base + path, json.dumps(body).encode(),
-                                 headers={"Content-Type": "application/json"})
+def _request(base: str, path: str, body: dict | None = None, headers: dict | None = None):
+    """(status, headers, body text) of one request; GET without ``body``."""
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(base + path, data, headers={
+        "Content-Type": "application/json", **(headers or {})})
     try:
-        with urllib.request.urlopen(req, timeout=600) as r:
-            raw = r.read().decode()
-            return r.status, raw if body.get("stream") else json.loads(raw)
+        with urllib.request.urlopen(req, timeout=900) as r:
+            return r.status, dict(r.headers), r.read().decode()
     except urllib.error.HTTPError as e:
-        return e.code, e.read().decode()
+        return e.code, dict(e.headers), e.read().decode()
+
+
+def _post(base: str, path: str, body: dict) -> tuple[int, dict | str]:
+    """(status, answer): the JSON of a 200 non-stream answer, else the text."""
+    code, _, raw = _request(base, path, body)
+    return code, json.loads(raw) if code == 200 and not body.get("stream") else raw
 
 
 def _answer_text(path: str, body: dict, ans) -> str:
@@ -1468,7 +1514,7 @@ def serve_path(api, attention, q40, m: str, t: str, n_requests: int,
                 or ac["prefill_plain_calls"]):
             raise AssertionError(f"prefill attention counters {ac} over {n_mix} mixed "
                                  f"slot forwards (want {tp * L} launches each)")
-        if qc["plain_calls"] or qc["dense_prefill_calls"] or qc["allreduce_plain_calls"]:
+        if qc["plain_calls"] or qc["allreduce_plain_calls"]:
             raise AssertionError(f"a Q40 matmul or all-reduce left its kernel: {qc}")
         if bool(qc["allreduce_launches"]) != (tp > 1):
             raise AssertionError(f"kernel 4 launches {qc['allreduce_launches']} at tp={tp}")
@@ -1498,8 +1544,7 @@ def serve_path(api, attention, q40, m: str, t: str, n_requests: int,
               f"{n_mix} mixed slot forwards, prefill attention kernel launches "
               f"{ac['prefill_launches']} ({tp * L} each), plain {ac['prefill_plain_calls']}; "
               f"q40 kernels 1-2 {qc['kernel_launches']}, kernel 3 "
-              f"{qc['blocked_launches']}, plain {qc['plain_calls']}, "
-              f"dense {qc['dense_prefill_calls']}")
+              f"{qc['blocked_launches']}, plain {qc['plain_calls']}")
         print("latency ms by request: " + " ".join(f"{x:.0f}" for x in lat))
         if tp > 1:
             print(f"tp={tp}: kernel 4 launches {qc['allreduce_launches']}, kernel 7 on "
@@ -1557,6 +1602,409 @@ def serve_path(api, attention, q40, m: str, t: str, n_requests: int,
         api.stop(server)
         del server
         torch.cuda.empty_cache()
+
+
+# phase 20: the OpenAI surface on contiguous slot rows (the lockstep engine)
+SURFACE_ARGS = ["--batch-slots", "8", "--kv-pages", "0", "--temperature", "0",
+                "--max-pending", "64", "--host", "127.0.0.1", "--port", "0"]
+# Prometheus text 0.0.4: a sample line
+PROM_SAMPLE = re.compile(r'^[a-zA-Z_:][a-zA-Z0-9_:]*(\{([a-zA-Z_]+="[^"]*",?)*\})? '
+                         r'(-?[0-9.]+(e[-+]?[0-9]+)?|\+Inf)$')
+
+
+def _sse_texts(raw: str) -> dict[int, str]:
+    """An SSE completions body's text joined per choice index."""
+    if not raw.rstrip().endswith("data: [DONE]"):
+        raise AssertionError(f"a stream did not end with [DONE]: {raw[-300:]!r}")
+    out: dict[int, str] = {}
+    for line in raw.splitlines():
+        if line.startswith("data: {"):
+            ch = json.loads(line[6:])["choices"][0]
+            out[ch["index"]] = out.get(ch["index"], "") + (ch.get("text") or "")
+    return out
+
+
+def scoring_forward(eng, q40, seed: int = 20) -> dict:
+    """Phase 20: ``Engine.score_batch`` at 8 x 512 (B x bucket) on the
+    server's slot engine, the scheduler parked: wall (host clock to a
+    synchronize), device busy time (torch.profiler), peak memory above the
+    engine's resident bytes, and the Q40 counters of one forward: 4 L + 1
+    launches, every one on the tensor-core body (t = 4096 rows), wcls
+    among them, no plain call."""
+    rng = np.random.RandomState(seed)
+    seqs = [rng.randint(3, eng.cfg.vocab_size, SCORE_T).tolist() for _ in range(SCORE_B)]
+    eng.score_batch(seqs, top_k=5)  # first call: any lazy setup
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    q40.reset_counters()
+    t0 = time.perf_counter()
+    tok_lp, _, top_lp = eng.score_batch(seqs, top_k=5)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    c = q40.counters()
+    per = 4 * eng.cfg.n_layers + 1
+    n, d = eng.cfg.dim, eng.cfg.vocab_size
+    if (c["kernel_launches"], c["mma_launches"], c["plain_calls"]) != (per, per, 0) \
+            or c["launches_by_shape"].get(("mma", n, d)) != 1:
+        raise AssertionError(f"scoring forward counters {c}: want {per} launches on the "
+                             f"tensor-core body, wcls among them, no plain call")
+    real = np.concatenate([tok_lp[r, -SCORE_T:-1] for r in range(SCORE_B)])
+    if not (np.isfinite(real).all() and (real <= 0).all() and np.isfinite(top_lp).all()):
+        raise AssertionError("scoring forward: non-finite or positive log-probs")
+    rows = device_rows(lambda: eng.score_batch(seqs, top_k=5), 1)
+    busy = sum(r[0] for r in rows)
+    q40_ms = sum(r[0] for r in rows if matmul_kernel(r[2], "q40"))
+    top = sorted(rows, reverse=True)[:6]
+    n_sms = torch.cuda.get_device_properties(eng.device).multi_processor_count
+    print(f"scoring forward {SCORE_B} x {SCORE_T} (t = {SCORE_B * SCORE_T} rows): wall "
+          f"{wall:.3f} ms, device busy {busy:.3f} ms (Q40 bodies {q40_ms:.3f} ms), peak "
+          f"{peak / 2**30:.2f} GiB ({(peak - resident) / 2**30:.2f} GiB above the "
+          f"{resident / 2**30:.2f} GiB resident); Q40 launches {c['kernel_launches']} "
+          f"({per} a forward), tensor-core {c['mma_launches']}, plain {c['plain_calls']}; "
+          f"wcls plan (bm, splits, steps) {q40.mma_plan(SCORE_B * SCORE_T, n, d, n_sms)}")
+    print("scoring forward, top kernels (ms, launches, name): "
+          + "; ".join(f"{ms:.3f} {k} {name[:60]}" for ms, k, name in top))
+    return dict(score_wall_ms=wall, score_busy_ms=busy, score_q40_ms=q40_ms,
+                score_peak_bytes=peak, score_extra_bytes=peak - resident)
+
+
+def openai_surface(api, q40, m: str, t: str) -> dict:
+    """Phase 20: the API server at Llama-2-7B width and depth on contiguous
+    slot rows (``--batch-slots 8 --kv-pages 0``): list prompts, chat
+    ``n = 4``, ``logprobs`` with ``echo``, a streamed list prompt,
+    ``/metrics`` in both formats and the ``/debug`` routes, with the Q40
+    counters set to 0 before the requests and read after them; then the
+    scoring forward alone (:func:`scoring_forward`)."""
+    from dllama_tpu_torch.tokenizer.chat import ChatItem
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_load = time.perf_counter()
+    server = api.start(["--model", m, "--tokenizer", t, *SURFACE_ARGS])
+    print(f"server up in {time.perf_counter() - t_load:.1f} s")
+    try:
+        state = server.state
+        eng = state.batch_engine
+        if state.scheduler is None or eng.paged or eng.batch != 8:
+            raise AssertionError("the surface server runs no contiguous 8-slot scheduler")
+        base = f"http://127.0.0.1:{server.server_address[1]}"
+        rng = np.random.RandomState(20)
+        letters = list("abcdefghijklmnopqrstuvwxyz  ")
+
+        def text(k):
+            return "".join(rng.choice(letters, int(k))).strip() or "a"
+
+        ttft0 = json.loads(_request(base, "/metrics")[2])["ttft_seconds"]["count"]
+        served0 = state.metrics.requests_served
+        q40.reset_counters()
+        sent = 0
+        t0 = time.perf_counter()
+        # 1. a list of 8 greedy prompts, twice: the same bytes
+        batch = {"prompt": [text(k) for k in np.linspace(16, 200, 8)], "max_tokens": 32,
+                 "temperature": 0}
+        answers = [_request(base, "/v1/completions", batch) for _ in range(2)]
+        sent += 2
+        if any(a[0] != 200 for a in answers) or \
+                json.loads(answers[0][2])["choices"] != json.loads(answers[1][2])["choices"]:
+            raise AssertionError(f"list prompt: {[a[0] for a in answers]} or the two "
+                                 f"answers differ")
+        first = json.loads(answers[0][2])
+        texts = {c["index"]: c["text"] for c in first["choices"]}
+        if len(texts) != 8 or first["usage"]["completion_tokens"] < 8:
+            raise AssertionError(f"list prompt: {first['usage']}, {len(texts)} choices")
+        # 2. chat n = 4 sampled, seeded: four choices, usage, and the same
+        # bytes when repeated with the seed
+        chat = {"messages": [{"role": "system", "content": "You are terse. " + text(60)},
+                             {"role": "user", "content": text(40)}],
+                "n": 4, "temperature": 0.8, "seed": 1, "max_tokens": 24}
+        chats = [_request(base, "/v1/chat/completions", chat) for _ in range(2)]
+        sent += 2
+        bodies = [json.loads(c[2]) for c in chats]
+        if any(c[0] != 200 for c in chats) or bodies[0]["choices"] != bodies[1]["choices"]:
+            raise AssertionError(f"chat n=4: {[c[0] for c in chats]}, or the seeded "
+                                 f"repeat differs")
+        u = bodies[0]["usage"]
+        n_words = len(state.tokenizer.encode(state.template.generate(
+            [ChatItem(x["role"], x["content"]) for x in chat["messages"]], True),
+            add_bos=True))
+        if (len(bodies[0]["choices"]) != 4 or u["prompt_tokens"] != n_words
+                or not 0 < u["completion_tokens"] <= 4 * 24
+                or u["total_tokens"] != u["prompt_tokens"] + u["completion_tokens"]):
+            raise AssertionError(f"chat n=4 usage {u} ({n_words} prompt tokens)")
+        distinct = len({c["message"]["content"] for c in bodies[0]["choices"]})
+        # 3. logprobs = 5 with echo on a ~500-token prompt, greedy, 16
+        # tokens: prompt and completion fill one SCORE_T bucket, so its
+        # scoring forward runs wcls at SCORE_B x SCORE_T rows (8 engine rows)
+        lp_text = text(500)
+        while len(state.tokenizer.encode(lp_text, add_bos=True)) + 16 > SCORE_T:
+            lp_text = lp_text[:-4]
+        lp_body = {"prompt": lp_text, "max_tokens": 16, "logprobs": 5, "echo": True,
+                   "temperature": 0}
+        code, hdr, raw = _request(base, "/v1/completions", lp_body,
+                                  headers={"X-Request-Id": "surface-3"})
+        sent += 1
+        if code != 200 or hdr.get("X-Request-Id") != "surface-3":
+            raise AssertionError(f"logprobs request: {code} {raw[:300]}")
+        ch = json.loads(raw)["choices"][0]
+        lp = ch["logprobs"]
+        n_prompt = len(state.tokenizer.encode(lp_body["prompt"], add_bos=True))
+        if not SCORE_T // 2 < n_prompt <= SCORE_T - 16:
+            raise AssertionError(f"logprobs: {n_prompt} prompt tokens fill no {SCORE_T} bucket")
+        if "".join(lp["tokens"]) != ch["text"]:
+            raise AssertionError("logprobs: the tokens do not join to the text")
+        # a leading BOS is skipped, so the first shown token has a real
+        # conditional (on BOS); only a prompt without BOS starts with null
+        bos = state.tokenizer.encode(lp_body["prompt"], add_bos=True)[0] == \
+            state.tokenizer.bos_id
+        vals = lp["token_logprobs"]
+        if (vals[0] is None) == bos or len(vals) != len(lp["tokens"]):
+            raise AssertionError(f"logprobs: first {vals[0]!r} with BOS {bos}")
+        rest = [v for v in vals if v is not None]
+        if not all(np.isfinite(v) and v <= 0 for v in rest):
+            raise AssertionError("logprobs: a log-prob is non-finite or positive")
+        tops = [x for x in lp["top_logprobs"] if x is not None]
+        if len(tops) != len(rest) or any(len(x) != 5 for x in tops):
+            raise AssertionError(f"logprobs: {sum(len(x) != 5 for x in tops)} of {len(tops)} "
+                                 f"positions lack 5 top_logprobs entries")
+        # the completion's tokens (greedy) are the top-1 where the top-2
+        # margin exceeds 0.05 nats, and within 0.05 nats of it where it
+        # does not (the synthesized wcls rows repeat every 2048 rows: many
+        # top-2 are exact ties); the echoed prompt's tokens are the
+        # prompt's, not the model's choice
+        shown = n_prompt - (1 if bos else 0)
+        checked, decisive, flips = 0, 0, []
+        for tok, top in zip(lp["tokens"][shown:], lp["top_logprobs"][shown:]):
+            ranked = sorted(top.items(), key=lambda kv: -kv[1])
+            checked += 1
+            if ranked[0][1] - ranked[1][1] > 0.05:
+                decisive += 1
+                if tok != ranked[0][0]:
+                    flips.append((tok, ranked[:2], top.get(tok)))
+            elif top.get(tok, -np.inf) < ranked[0][1] - 0.05:
+                flips.append((tok, ranked[:2], top.get(tok)))
+        # 4. the list prompt streamed: chunks joined per index = the texts
+        code, _, raw = _request(base, "/v1/completions", dict(batch, stream=True))
+        sent += 1
+        if code != 200 or _sse_texts(raw) != texts:
+            raise AssertionError("the streamed list prompt differs from the non-stream one")
+        wall = time.perf_counter() - t0
+        qc = q40.counters()
+        # 5. /metrics in both formats
+        code, hdr, raw = _request(base, "/metrics")
+        mj = json.loads(raw)
+        alloc = torch.cuda.memory_allocated(0)
+        hbm = mj["hbm_bytes_in_use"].get("0", 0.0)
+        ttft_n = mj["ttft_seconds"]["count"] - ttft0
+        recs = list(state.finished)[-sent:]
+        want_ttft = sum(r["ttft_s"] is not None for r in recs)
+        if (mj["requests_served"] - served0 != sent or ttft_n != want_ttft
+                or abs(hbm - alloc) > 0.01 * alloc):
+            raise AssertionError(f"/metrics: served {mj['requests_served']} (want {sent}), "
+                                 f"TTFT count {ttft_n} (want {want_ttft}), HBM {hbm} against "
+                                 f"memory_allocated {alloc}")
+        code, hdr, prom = _request(base, "/metrics?format=prometheus")
+        bad = [ln for ln in prom.splitlines()
+               if not (ln.startswith(("# HELP ", "# TYPE ")) or PROM_SAMPLE.match(ln))]
+        if code != 200 or bad or "dllama_ttft_seconds_count" not in prom:
+            raise AssertionError(f"Prometheus text: {code}, unparsed lines {bad[:5]}")
+        mm = [ln for ln in prom.splitlines() if ln.startswith("dllama_matmul_dispatch_total{")]
+        # 6. the debug routes
+        rec = json.loads(_request(base, "/debug/requests/surface-3")[2])
+        tl = json.loads(_request(base, "/debug/timeline")[2])
+        tr = json.loads(_request(base, "/debug/trace?last=50")[2])["traceEvents"]
+        if (rec.get("finish") != "served" or rec.get("path") != "/v1/completions"
+                or tl["slots"] != 8 or "components_ms" not in tl
+                or not any(e["name"] == "request" and
+                           e.get("args", {}).get("request_id") == "surface-3" for e in tr)):
+            raise AssertionError(f"/debug: record {rec}, timeline keys {list(tl)}")
+        wcls_mma = ("mma", eng.cfg.dim, eng.cfg.vocab_size)
+        if qc["plain_calls"] or qc["launches_by_shape"].get(wcls_mma) != 1:
+            raise AssertionError(f"the surface requests' Q40 counters {qc}: want wcls once on "
+                                 f"the tensor-core body (the logprobs request's scoring "
+                                 f"forward) and no plain call")
+        print(f"surface: {sent} requests in {wall:.2f} s, all 200; list prompt of 8 twice "
+              f"byte for byte ({first['usage']['completion_tokens']} tokens); chat n=4 "
+              f"sampled seed 1: {distinct} distinct choices, repeat byte for byte, usage "
+              f"{u}; logprobs=5 echo: {len(lp['tokens'])} tokens ({n_prompt} prompt), first "
+              f"log-prob {vals[0]!r}, {checked} completion tokens the top-1 or within 0.05 "
+              f"nats of it ({decisive} at a decisive top-2 margin); streamed list = "
+              f"non-stream; /metrics served {sent}, TTFT count +{ttft_n}, HBM {hbm:.0f} vs "
+              f"allocated {alloc} ({abs(hbm - alloc) / alloc:.2e}); {len(prom.splitlines())} "
+              f"Prometheus lines parse; {mm}; /debug/requests/surface-3 {rec['finish']}, "
+              f"timeline {len(tl['steps'])} steps, trace {len(tr)} events")
+        print(f"surface Q40 counters: {qc['kernel_launches']} launches, tensor-core "
+              f"{qc['mma_launches']}, plain {qc['plain_calls']}; wcls tensor-core "
+              f"{qc['launches_by_shape'].get(wcls_mma)} (at {SCORE_B} x {SCORE_T} rows)")
+        if flips:
+            raise AssertionError(f"logprobs: {len(flips)} of {checked} completion tokens are "
+                                 f"not the scoring forward's top-1: {flips}")
+        with state.exclusive():
+            out = scoring_forward(eng, q40)
+        return dict(out, counts=qc)
+    finally:
+        api.stop(server)
+        del server
+        torch.cuda.empty_cache()
+
+
+def score_layers(transformer, q40, cfg, params, dev, b: int = SCORE_B,
+                 t: int = SCORE_T) -> str:
+    """Phase 20b: both layers of a scoring forward at B x T rows, kernels
+    against ``quant_impl="plain"``, every sub-block fed the plain run's
+    own input: layer 0's attention (the embedding) and FFN, layer 1's
+    attention (plain layer 0's output) and FFN; each output within E2E_TOL
+    of the plain output's max at every position.  Then layer 1's four Q40
+    products and wcls (on the final hidden state), each on the plain run's
+    own activations at B x T rows and stacked plane 1, kernel against
+    ``matmul_plain`` within KERNEL_TOL.  The witness: layer 1's attention,
+    plain against plain with its input moved by one bf16 ulp everywhere
+    (the last mantissa bit flipped), shows how far a last-bit change of
+    the input moves it on these weights (printed)."""
+    rng = np.random.RandomState(22)
+    toks = torch.from_numpy(rng.randint(3, cfg.vocab_size, (b, t))).to(dev)
+    act = transformer.ACTIVATIONS[cfg.hidden_act]
+    rms = transformer.rmsnorm
+
+    def sub_blocks(c):
+        """The four sub-blocks' outputs under ``c``, each on its plain
+        input: ``x0`` and ``ins`` (x0 + att0, x1, x1 + att1, x2)."""
+        cache = transformer.init_kv_cache(c, b, t, device=dev)
+        outs = []
+        for layer, (xa, xf) in enumerate(((x0, ins[0]), (ins[1], ins[2]))):
+            outs.append(transformer._attention_block(xa, params, layer, c, cache, cos, sin, 0))
+            outs.append(transformer._dense_ffn(rms(xf, params["rms_ffn"][layer]), params,
+                                               layer, c))
+        return outs
+
+    plain = cfg.with_(quant_impl="plain")
+    x0, cos, sin = transformer._embed(params, plain, toks, 0)
+    # the plain run, keeping each sub-block's input
+    cache = transformer.init_kv_cache(plain, b, t, device=dev)
+    ins, x = [], x0
+    for layer in (0, 1):
+        att = transformer._attention_block(x, params, layer, plain, cache, cos, sin, 0)
+        ins.append(x + att)
+        ffn = transformer._dense_ffn(rms(x + att, params["rms_ffn"][layer]), params, layer,
+                                     plain)
+        x = x + att + ffn
+        ins.append(x)
+    x1 = ins[1]
+    # layer 1's products on the plain activations (they are the plain
+    # run's, recomputed here up to each product's input)
+    xb = rms(x1, params["rms_att"][1])
+    att_in = transformer._attend(x1, params, 1, plain, cache, cos, sin, 0)
+    h1, h3 = torch.chunk(transformer._mm(rms(ins[2], params["rms_ffn"][1]), params["w13"],
+                                         plain, 1), 2, dim=-1)
+    final = rms(x, params["rms_final"])
+    products = [("wqkv", xb, 1), ("wo", att_in, 1),
+                ("w13", rms(ins[2], params["rms_ffn"][1]), 1), ("w2", act(h1) * h3, 1),
+                ("wcls", final, None)]
+    notes = []
+    for name, xin, layer in products:
+        qt = params[name]
+        n = qt.logical_nd[0]
+        x2 = xin.reshape(-1, n)
+        p = q40.matmul_plain(x2, qt, layer)
+        k = q40.q40_matmul(x2, qt.qpacked, qt.scales, n, layer)
+        torch.cuda.synchronize()
+        err, scale = float((k - p).abs().max()), float(p.abs().max())
+        if not (torch.isfinite(k).all() and err <= KERNEL_TOL * scale):
+            raise AssertionError(f"scoring width, {name} at {x2.shape[0]} rows, plane {layer}: "
+                                 f"{err} > {KERNEL_TOL} * {scale}")
+        notes.append(f"{name} {err / scale:.2e}")
+    del p, k
+    # each sub-block, kernels against plain, on the plain inputs
+    got = {impl: sub_blocks(cfg.with_(quant_impl=impl)) for impl in ("auto", "plain")}
+    held = []
+    for name, k, p in zip(("layer 0 attention", "layer 0 FFN", "layer 1 attention",
+                           "layer 1 FFN"), got["auto"], got["plain"]):
+        k, p = k.float(), p.float()
+        err, scale = float((k - p).abs().max()), float(p.abs().max())
+        if not (torch.isfinite(k).all() and err <= E2E_TOL * scale):
+            raise AssertionError(f"scoring width, {name}: {err} > {E2E_TOL} * {scale}")
+        held.append(f"{name} {err:.4g} of {scale:.4g} ({err / scale:.2e})")
+    # the witness: plain against plain, layer 1's input one ulp away
+    moved = (x1.view(torch.int16) ^ 1).view(x1.dtype)
+    w_cache = transformer.init_kv_cache(plain, b, t, device=dev)
+    w = transformer._attention_block(moved, params, 1, plain, w_cache, cos, sin, 0).float()
+    p = got["plain"][2].float()
+    w_err, scale = float((w - p).abs().max()), float(p.abs().max())
+    return (f"{b} x {t} rows, kernels vs plain on the plain inputs (limit {E2E_TOL:g}): "
+            + ", ".join(held) + f"; the products at stacked plane 1 and wcls, kernel vs "
+            f"plain (limit {KERNEL_TOL:g}): " + ", ".join(notes) + f"; witness, layer 1 "
+            f"attention, plain vs plain with its input one ulp away: {w_err:.4g} of "
+            f"{scale:.4g} ({w_err / scale:.2e})")
+
+
+def score_end_to_end(transformer, engine_mod, q40, cfg, params, dev) -> None:
+    """Phase 20b on the phase-5 model (7B width, 2 layers): both layers of
+    the 8 x 512 scoring forward (:func:`score_layers`), then ``score_batch`` of
+    8 ragged sequences in a 64 bucket (t = 512 rows, the same tensor-core
+    plan: 128-row tiles, one split) with the kernels against
+    ``quant_impl="plain"``: logits by the phase-5 rule, ``token_lp``
+    within twice the largest logit difference (a log-prob is a logit less
+    a logsumexp, which moves by at most that much), the top-5 ids equal
+    at every rank whose plain margin exceeds twice it.  Then the
+    contiguous int8 cache: prefill + 8 teacher-forced decode steps kernel
+    against plain, and greedy bytes with the engine's graphs on and off."""
+    print(score_layers(transformer, q40, cfg, params, dev))
+    rng = np.random.RandomState(21)
+    seqs = [rng.randint(3, cfg.vocab_size, int(k)).tolist()
+            for k in (64, 50, 37, 5, 60, 28, 64, 33)]
+    bucket = 64
+    toks = torch.zeros((len(seqs), bucket), dtype=torch.long, device=dev)
+    offs = torch.tensor([bucket - len(s) for s in seqs], device=dev)
+    for r, s in enumerate(seqs):
+        toks[r, bucket - len(s):] = torch.tensor(s, device=dev)
+    logits, scores = {}, {}
+    for impl in ("auto", "plain"):
+        c = cfg.with_(quant_impl=impl)
+        eng = engine_mod.Engine(c, params, device=dev, batch=len(seqs), graphs=False,
+                                seq_len=bucket)
+        scores[impl] = eng.score_batch(seqs, top_k=5)
+        cache = transformer.init_kv_cache(c, len(seqs), bucket, device=dev)
+        lg = transformer.forward(params, c, toks, cache, 0, offsets=offs)[0]
+        logits[impl] = torch.cat([lg[r, bucket - len(s):] for r, s in enumerate(seqs)])
+        del eng, cache, lg
+    note = margin_check(logits["auto"], logits["plain"], "scoring logits")
+    err = float((logits["auto"] - logits["plain"]).abs().max())
+    (k_lp, k_ti, k_tl), (p_lp, p_ti, p_tl) = scores["auto"], scores["plain"]
+    lp_err = top_err = 0.0
+    decided = agree = 0
+    for r, s in enumerate(seqs):
+        cols = slice(bucket - len(s), bucket - 1)
+        lp_err = max(lp_err, float(np.abs(k_lp[r, cols] - p_lp[r, cols]).max()))
+        top_err = max(top_err, float(np.abs(k_tl[r, cols] - p_tl[r, cols]).max()))
+        for c in range(bucket - len(s), bucket - 1):
+            v = p_tl[r, c]
+            # the last rank's margin to the sixth is unknown: never decided
+            for i in range(4):
+                if (i == 0 or v[i - 1] - v[i] > 2 * err) and v[i] - v[i + 1] > 2 * err:
+                    decided += 1
+                    agree += int(k_ti[r, c, i] == p_ti[r, c, i])
+    if lp_err > 2 * err or top_err > 2 * err or agree != decided:
+        raise AssertionError(f"score_batch kernel vs plain: token_lp {lp_err}, top_lp "
+                             f"{top_err} (limit {2 * err}), top ids {agree}/{decided}")
+    print(f"score_batch, 8 ragged sequences (5-64 tokens) in a 64 bucket, kernels vs "
+          f"plain: logits {note}; token_lp max diff {lp_err:.4g}, top-5 log-probs "
+          f"{top_err:.4g} (limit 2 x {err:.4g}); top-5 ids equal at {decided} decisive ranks")
+    end_to_end(transformer, cfg, params, dev, "int8 contiguous cache, 2 layers, bf16",
+               quant=True)
+    streams = []
+    for graphs in (True, False):
+        eng = engine_mod.Engine(cfg, params, device=dev, kv_dtype="q8", graphs=graphs)
+        streams.append([tok for tok, _ in eng.generate_stream(seqs[2], 37 + 48,
+                                                               temperature=0.0)])
+        if graphs and not (eng.cache.quantized and eng.graphs.replays):
+            raise AssertionError("the int8 engine replayed no graph")
+        del eng
+    if streams[0] != streams[1]:
+        raise AssertionError("int8 cache: greedy tokens differ with graphs on and off")
+    print(f"int8 contiguous cache: greedy {len(streams[0]) - 37} tokens, graphs on = off "
+          f"token for token")
 
 
 def slot_end_to_end(engine_mod, transformer, attention, cfg, params, dev,
@@ -1776,10 +2224,10 @@ def batch_prompts(n: int = 8, seed: int = 14) -> list[str]:
 
 def batch_path(cli, q40, m: str, t: str, tfile, steps: int = 48) -> dict:
     """Phase 14's lockstep batch: ``batch`` of 8 ragged prompts through the
-    CLI, greedy, run twice.  The one prefill (8 x 256 rows) takes the
-    dense route (above PALLAS_MAX_ROWS) for the 4 L layer matmuls and
-    kernel 3 for wcls at its 8 last rows; every decode forward launches
-    kernel 3 4 L + 1 times (129 at 32 layers) at t = 8.  Then the profile
+    CLI, greedy, run twice.  The one prefill (8 x 256 rows) runs kernel 3's
+    tensor-core body for the 4 L layer matmuls at 2048 rows and for wcls
+    at its 8 last rows; every decode forward launches kernel 3 4 L + 1
+    times (129 at 32 layers) at t = 8.  Then the profile
     of 8 lockstep decode steps of the batch."""
     from dllama_tpu_torch.tokenizer.bpe import Tokenizer
     prompts = batch_prompts()
@@ -1804,11 +2252,9 @@ def batch_path(cli, q40, m: str, t: str, tfile, steps: int = 48) -> dict:
         if not torch.isfinite(engine.last_logits).all():
             raise AssertionError("batch ended on non-finite logits")
         if (c["kernel_launches"] or c["plain_calls"] or decode < 1
-                or c["blocked_launches"] != (per + 1) * decode + 1
-                or c["dense_prefill_calls"] != per):
+                or c["blocked_launches"] != (per + 1) * engine.forwards):
             raise AssertionError(f"batch counters {c} over {engine.forwards} forwards: "
-                                 f"want {per + 1} kernel-3 launches a decode forward, "
-                                 f"{per} dense prefill calls + 1 kernel-3 wcls")
+                                 f"want {per + 1} kernel-3 launches a forward")
         got = int(re.search(r"Generated tokens: +(\d+) over 8 streams", out).group(1))
         if got != want_tokens:
             raise AssertionError(f"batch generated {got} tokens, every row finishing "
@@ -1966,8 +2412,7 @@ def chat_path(cli, engine_mod, q40, m: str, t: str) -> None:
     if c["kernel_launches"] or c["plain_calls"] or not c["blocked_launches"]:
         raise AssertionError(f"chat counters {c}: want kernel 3 only")
     print(f"chat: 2 turns; turn 1 at positions 0-{ends[0]}, turn 2 from {starts[1]} to "
-          f"{ends[1]}; kernel-3 launches {c['blocked_launches']}, dense prefill "
-          f"{c['dense_prefill_calls']}")
+          f"{ends[1]}; kernel-3 launches {c['blocked_launches']}")
 
 
 def allreduce_bound(tp: int, t: int, d: int) -> tuple[float, str]:
@@ -2121,9 +2566,9 @@ def tp_end_to_end(mfile, params_mod, config, transformer, engine_mod, q40, atten
     torch.cuda.empty_cache()
 
 
-def kernel_entries(run, run_tp, run_mix, run_blocked, run_q8, served, table, tp_table,
-                   mix_table, blocked_table, q8_table, attn, attn_g4, ar_table, prefill,
-                   prefill_g4) -> list:
+def kernel_entries(run, run_tp, run_mix, run_blocked, run_q8, run_score, served, table,
+                   tp_table, mix_table, blocked_table, q8_table, attn, attn_g4, ar_table,
+                   prefill, prefill_g4) -> list:
     """The ``kernels`` JSON line's entries: each kernel at the shapes of the
     phase that checked it, with the launches of the main path that ran it;
     raises when a kernel of a path was never launched there."""
@@ -2142,15 +2587,28 @@ def kernel_entries(run, run_tp, run_mix, run_blocked, run_q8, served, table, tp_
     # 14), Q80 on the Q80 7B path (phase 10), kernel 7 in the serving runs
     # (phases 7, 11b).  The 7B sites of Q40 (both layouts) and Q80 also at
     # t = 16 and 128: the tensor-core body, launched by the paths' prefills
-    # (Q40: the 16-row bucket; Q80: t = 128), but for wcls (JSON_ROWS)
-    kernels = entries("q40_matmul", SRC, table, run["counts"]["launches_by_shape"])
+    # (Q40: the 16-row bucket; Q80: t = 128).  wcls's tensor-core rows:
+    # phase 20's requests launch it at SCORE_B x SCORE_T rows alone (their
+    # one scoring forward); no path launches it at the other rows, which
+    # phase 2 holds and times (launches 0)
+    wide = {k: r for k, r in table.items() if k[0] == "wcls" and k[1] > 1}
+    score_t = SCORE_B * SCORE_T
+    kernels = entries("q40_matmul", SRC, {k: r for k, r in table.items() if k not in wide},
+                      run["counts"]["launches_by_shape"])
+    kernels += entries("q40_matmul", SRC, {k: r for k, r in wide.items() if k[1] == score_t},
+                       run_score["counts"]["launches_by_shape"])
+    held_only = entries("q40_matmul", SRC, {k: r for k, r in wide.items() if k[1] != score_t},
+                        {})
+    kernels += held_only
     kernels += entries("q40_matmul", SRC, tp_table, run_tp["counts"]["launches_by_shape"])
     kernels += entries("q40_matmul", SRC, mix_table, run_mix["counts"]["launches_by_shape"])
     kernels += entries("q40_matmul_blocked", SRC, blocked_table,
                        run_blocked["counts"]["launches_by_shape"])
+    # Q80's wcls runs one row a sequence on the Q80 path (no scoring there)
     kernels += entries("q8_matmul", Q8_SRC,
                        {k: r for k, r in q8_table.items()
-                        if k[0] in {s for s, *_ in LLAMA_SITES}},
+                        if k[0] in {s for s, *_ in LLAMA_SITES}
+                        and not (k[0] == "wcls" and k[1] > 1)},
                        run_q8["counts"]["launches_by_shape"])
     attn_rows = [(c, r, served[c]) for c, r in attn.items()]
     attn_rows.append(("bf16,G=4", attn_g4["bf16"], served["g4"]))
@@ -2176,7 +2634,7 @@ def kernel_entries(run, run_tp, run_mix, run_blocked, run_q8, served, table, tp_
     kernels.append(dict(name="tp_allreduce[tp=2,t=1,d=4096]", route="cuda", source=TP_SRC,
                         launches=run_tp["allreduce_launches"],
                         **{k: v for k, v in ar_table[(2, 4096, 1)].items()}))
-    idle = [k["name"] for k in kernels if k["launches"] == 0]
+    idle = [k["name"] for k in kernels if k["launches"] == 0 and k not in held_only]
     if idle:
         raise AssertionError(f"kernels the main paths never launched: {idle}")
     return kernels
@@ -2219,6 +2677,8 @@ def main() -> int:
     if run_phase(2):
         with phase("2 kernel vs plain at the 7B shapes"):
             table = check_sites(q40, LLAMA_SITES, dev, seed=0, rows=Q40_CROSS_ROWS)
+            table.update(check_sites(q40, LLAMA_SITES[-1:], dev, seed=4, rows=WCLS_WIDE,
+                                     json_rows=WCLS_WIDE))
             check_sites(q40, RAGGED, dev, seed=3, rows=RAGGED_ROWS)
         with phase("2b kernel vs plain at a rank's 7B shapes at tp = 2 (unpadded)"):
             tp_table = check_sites(q40, TP2_SITES, dev, seed=2, pad=False, json_rows=(1,))
@@ -2258,10 +2718,10 @@ def main() -> int:
             "llama2-7b.m", "32k.t", "l2.m", "l2-chat.m", "32k-chat.t"))
         synth_tokenizer(t, tfile)
         per_fwd = 4 * LLAMA2_7B["n_layers"] + 1
-        if run_phase(3) or run_phase(7) or run_phase(14) or run_phase(17):
+        if any(map(run_phase, (3, 7, 14, 17, 20, "3q"))):
             synth_model(m, LLAMA2_7B["n_layers"], mfile, quants)
             print(f"synthesized {os.path.getsize(m) / 1e9:.2f} GB")
-        if run_phase(4) or run_phase(5) or run_phase(8) or run_phase(15) or run_phase(18):
+        if any(map(run_phase, (4, 5, 8, 15, 18, "20b"))):
             synth_model(m2, 2, mfile, quants, fresh=True)
         tp1_logits = None
         if run_phase(3):
@@ -2291,7 +2751,7 @@ def main() -> int:
         if run_phase(4):
             with phase("4 requests: generate (7B width, 2 layers)"):
                 requests(cli, q40, m2, t)
-        if run_phase(5) or run_phase(8) or run_phase(15):
+        if any(map(run_phase, (5, 8, 15, "20b"))):
             # the 2-layer model is freed before phase 7's peak-memory reading
             small = load_bf16(mfile, params_mod, config, m2, dev)
             if run_phase(5):
@@ -2304,6 +2764,10 @@ def main() -> int:
             if run_phase(15):
                 with phase("15 blocked and lockstep batch vs plain and single streams"):
                     blocked_and_batch_end_to_end(q40, transformer, engine_mod, *small, dev)
+            if run_phase("20b"):
+                with phase("20b scoring and the int8 contiguous cache: kernels vs plain "
+                           "(7B width, 2 layers)"):
+                    score_end_to_end(transformer, engine_mod, q40, *small, dev)
             del small
             torch.cuda.empty_cache()
         if run_phase(15):
@@ -2329,6 +2793,27 @@ def main() -> int:
             with phase("7b serving with --kv-quant int8"):
                 served["int8"] = serve_path(api, attention, q40, m, t, 8,
                                             ["--kv-quant", "int8"], True)
+        if run_phase(20):
+            with phase("20 the OpenAI surface at Llama-2-7B width and depth: list prompts, "
+                       "n, logprobs, echo, /metrics, /debug"):
+                run_score = openai_surface(api, q40, m, t)
+        if run_phase("3q"):
+            with phase("3q main path on the int8 contiguous cache: inference "
+                       "--kv-cache-dtype q8 at Llama-2-7B width"):
+                run_q8kv, eng = main_path(cli, q40, m, t, lambda e: per_fwd * e.forwards,
+                                          ("--kv-cache-dtype", "q8"), keep=True)
+                if not eng.cache.quantized:
+                    raise AssertionError("inference --kv-cache-dtype q8 ran a dense cache")
+                q40.reset_counters()
+                eng.decode_one(5)
+                one = q40.counters()
+                if (one["kernel_launches"], one["plain_calls"]) != (per_fwd, 0):
+                    raise AssertionError(f"an int8-cache single-token forward: {one}")
+                print(f"int8 contiguous cache: {run_q8kv['ms_token']} ms/token (bf16 cache, "
+                      f"phase 3: {run['ms_token'] if run_phase(3) else 'not run'}); "
+                      f"{per_fwd} Q40 launches a forward")
+                del eng
+                torch.cuda.empty_cache()
         if run_phase(14):
             with blocked_layout():
                 with phase("14 blocked main path: inference at Llama-2-7B width"):
@@ -2414,9 +2899,9 @@ def main() -> int:
     if only is not None:
         return 0
 
-    kernels = kernel_entries(run, run_tp, run_mix, run_blocked, run_q8, served, table,
-                             tp_table, mix_table, blocked_table, q8_table, attn, attn_g4,
-                             ar_table, prefill, prefill_g4)
+    kernels = kernel_entries(run, run_tp, run_mix, run_blocked, run_q8, run_score, served,
+                             table, tp_table, mix_table, blocked_table, q8_table, attn,
+                             attn_g4, ar_table, prefill, prefill_g4)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -19,10 +19,10 @@ over N tensor-parallel ranks (``parallel/mesh.py``): with ``--device
 cpu`` every rank on the CPU, with ``cuda:K`` every rank on card K, with
 ``cuda`` rank r on card r.  The API server (``python -m
 dllama_tpu_torch.server.api``) reuses this parser and its serving flags.
-Modes and flags of the JAX CLI outside the port (``worker``, ``--sp``,
-``--dp``, ``--ep``, ``--pld``, ``--kv-cache-dtype q8``, and the serving
-flags in ``NOT_PORTED_FLAGS``) exit with a message naming them as not yet
-ported.
+``--kv-cache-dtype q8`` keeps the KV cache in int8 with per-position
+scales.  Modes and flags of the JAX CLI outside the port (``worker``,
+``--sp``, ``--dp``, ``--ep``, ``--pld``, and the serving flags in
+``NOT_PORTED_FLAGS``) exit with a message naming them as not yet ported.
 
 ``python -m dllama_tpu_torch inference --model m.m --tokenizer t.t``
 """
@@ -74,10 +74,7 @@ NOT_PORTED_FLAGS = {
     "--preempt-age-ms": 5000.0, "--preempt-cap": 3, "--preempt-spill-dir": None,
     "--io-timeout": 15.0, "--drain-grace": 30.0, "--step-timeout": None,
     "--snapshot-dir": None, "--handoff": False, "--handoff-ttl": 0.0,
-    "--slo": None, "--log-format": None, "--log-level": None,
-    "--trace-buffer": None, "--flight-buffer": None, "--event-buffer": None,
-    "--event-log": None, "--numeric-checks": False, "--verify-weights": False,
-    "--no-preempt": False,
+    "--numeric-checks": False, "--verify-weights": False, "--no-preempt": False,
 }
 
 
@@ -140,6 +137,33 @@ def build_parser() -> argparse.ArgumentParser:
                    help="requests in flight or queued before 429")
     p.add_argument("--request-timeout", type=float, default=0.0,
                    help="default per-request deadline in seconds (0: none)")
+    # observability (obs/), the JAX CLI's flags
+    p.add_argument("--log-format", choices=["human", "json"], default=None,
+                   help="log output format: human-readable lines or JSON "
+                        "lines (one object per record, grep-able by "
+                        "request_id).  Default: DLLAMA_LOG env, else human")
+    p.add_argument("--log-level", default=None,
+                   choices=["debug", "info", "warning", "error"],
+                   help="log verbosity for the dllama_tpu_torch logger tree "
+                        "(default: DLLAMA_LOG env, else info)")
+    p.add_argument("--trace-buffer", type=int, default=None,
+                   help="span ring capacity for /debug/trace (default "
+                        "DLLAMA_TRACE_BUFFER, else 8192)")
+    p.add_argument("--flight-buffer", type=int, default=None,
+                   help="flight-recorder ring capacity for /debug/requests "
+                        "(default DLLAMA_FLIGHT_BUFFER, else 512)")
+    p.add_argument("--event-buffer", type=int, default=None,
+                   help="event-journal ring capacity for /debug/events "
+                        "(default DLLAMA_EVENT_BUFFER, else 2048)")
+    p.add_argument("--event-log", default=None, metavar="PATH",
+                   help="also append every event-journal record as a JSONL "
+                        "line to PATH (append mode: restarts extend)")
+    p.add_argument("--slo", default=None, metavar="SPEC",
+                   help="declarative latency/error objectives, e.g. "
+                        "'ttft_p95=1500ms,itl_p99=120ms,error_rate=0.5%%'. "
+                        "Burn rates over rolling windows (DLLAMA_SLO_WINDOWS, "
+                        "default 5m,1h) feed slo_burn_rate gauges and the "
+                        "/health verdict.  Default: DLLAMA_SLO env")
     # flags of the JAX CLI that this port does not carry yet
     for flag, default in NOT_PORTED_FLAGS.items():
         if isinstance(default, bool):
@@ -166,8 +190,6 @@ def not_ported(args) -> list[str]:
             out.append(f"--{flag}")
     if args.pld:
         out.append("--pld")
-    if args.kv_cache_dtype == "q8":
-        out.append("--kv-cache-dtype q8")
     for flag, default in NOT_PORTED_FLAGS.items():
         if getattr(args, flag[2:].replace("-", "_")) != default:
             out.append(flag)
@@ -207,7 +229,7 @@ def load_stack(args, batch: int = 1) -> tuple[Engine, Tokenizer]:
         except ValueError as e:
             raise SystemExit(str(e)) from None
         cfg, params = load_params(mf, cfg, fuse=mesh.tp == 1)
-    kv_dtype = DTYPES[args.kv_cache_dtype] if args.kv_cache_dtype else None
+    kv_dtype = DTYPES.get(args.kv_cache_dtype, args.kv_cache_dtype)
     engine = Engine(cfg, params, seq_len=args.max_seq_len, kv_dtype=kv_dtype,
                     device=device, batch=batch, mesh=mesh)
     tok = Tokenizer(tfile.read_tfile(args.tokenizer))
@@ -238,7 +260,7 @@ def launch_line(engine: Engine) -> str:
     ar = q40.counters()
     return (f"💡 {name} launches: kernel={c['kernel_launches']} "
             + (f"blocked={c['blocked_launches']} " if blocked else "")
-            + f"plain={c['plain_calls']} dense_prefill={c['dense_prefill_calls']} "
+            + f"plain={c['plain_calls']} "
             + (f"mma={c['mma_launches']} " if is_q8 else "")
             + (f"allreduce={ar['allreduce_launches']} "
                f"allreduce_plain={ar['allreduce_plain_calls']} tp={engine.tp} "
@@ -392,6 +414,26 @@ def cmd_chat(args) -> Engine:
     return engine
 
 
+def configure_obs(args):
+    """Apply the observability flags (log format and level, ring sizes,
+    the event log) and build the ``--slo`` engine (``DLLAMA_SLO`` when the
+    flag is absent); returns it, or None.  A bad spec exits naming it."""
+    from .obs import events as obs_events, flight as obs_flight, trace as obs_trace
+    from .obs.log import configure as configure_logging
+    from .obs.slo import SloEngine
+    configure_logging(args.log_format, args.log_level)
+    obs_trace.configure(args.trace_buffer)
+    obs_flight.configure(args.flight_buffer)
+    obs_events.configure(args.event_buffer, args.event_log)
+    spec = args.slo or os.environ.get("DLLAMA_SLO", "")
+    if not spec:
+        return None
+    try:
+        return SloEngine.from_spec(spec)
+    except ValueError as e:
+        raise SystemExit(f"--slo: {e}") from None
+
+
 def main(argv=None) -> Engine:
     """Run one command; returns its Engine (for callers in-process)."""
     args = build_parser().parse_args(argv)
@@ -399,8 +441,12 @@ def main(argv=None) -> Engine:
     if missing:
         raise SystemExit(f"not yet ported to dllama_tpu_torch: {', '.join(missing)} "
                          "(run python -m dllama_tpu for these)")
-    return {"inference": cmd_inference, "generate": cmd_generate, "chat": cmd_chat,
-            "batch": cmd_batch}[args.mode](args)
+    slo = configure_obs(args)
+    engine = {"inference": cmd_inference, "generate": cmd_generate, "chat": cmd_chat,
+              "batch": cmd_batch}[args.mode](args)
+    if slo is not None:
+        print(slo.summary_line())
+    return engine
 
 
 if __name__ == "__main__":

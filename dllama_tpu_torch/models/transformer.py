@@ -1,7 +1,8 @@
 """The forward pass — the port of ``dllama_tpu/models/transformer.py``:
 Llama (dense FFN), Mixtral and Grok-1 (mixture of experts, Grok's
-embedding and logit scales and post-block norms); a contiguous KV cache,
-contiguous slot rows, or a paged KV pool.
+embedding and logit scales and post-block norms); a contiguous KV cache
+(bf16/f32, or int8 with per-position scales), contiguous slot rows, or a
+paged KV pool.
 
 One function serves prefill (T > 1) and decode (T == 1): tokens enter as
 ``(B, T)``, the KV cache as stacked ``(L, B, Hkv, S, Dh)`` buffers, and
@@ -79,11 +80,20 @@ class ShardedKV(NamedTuple):
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, seq_len: int | None = None,
-                  dtype=None, device="cpu", tp: int = 1) -> KVCache:
+                  dtype=None, quant: bool = False, device="cpu", tp: int = 1) -> KVCache:
     """Preallocated full-length cache in ``dtype`` (default cfg.dtype);
-    ``tp`` > 1 makes one rank's cache (``n_kv_heads/tp`` heads)."""
+    ``quant`` stores int8 values plus per-(head, position) f32 scales
+    ``(L, B, Hkv, S, 1)``, quantized at write (:func:`update_cache_at`) and
+    dequantized at read; ``tp`` > 1 makes one rank's cache
+    (``n_kv_heads/tp`` heads)."""
     shape = (cfg.n_layers, batch, cfg.n_kv_heads // tp, seq_len or cfg.seq_len,
              cfg.head_size)
+    if quant:
+        sshape = shape[:-1] + (1,)
+        return KVCache(torch.zeros(shape, dtype=torch.int8, device=device),
+                       torch.zeros(shape, dtype=torch.int8, device=device),
+                       torch.zeros(sshape, dtype=torch.float32, device=device),
+                       torch.zeros(sshape, dtype=torch.float32, device=device))
     dt = dtype or cfg.dtype
     return KVCache(torch.zeros(shape, dtype=dt, device=device),
                    torch.zeros(shape, dtype=dt, device=device))
@@ -118,6 +128,20 @@ def _mm(x: torch.Tensor, w, cfg: ModelConfig, layer=None,
     stacked weight at flat index ``layer`` when given, a Python int or an
     int32 device tensor), cast to ``out_dtype`` (cfg.dtype)."""
     return mm(x, w, layer, impl=cfg.quant_impl, out_dtype=out_dtype or cfg.dtype)
+
+
+def update_cache_at(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor,
+                    layer: int, pos) -> None:
+    """Write one layer's step KV (B, Hkv, T, Dh) into the stacked cache at
+    ``(layer, pos)``, in place — quantizing to int8 values and
+    per-position scales first when the cache is quantized."""
+    if not cache.quantized:
+        update_kv_cache_at(cache.k, cache.v, k_new, v_new, layer, pos)
+        return
+    qk, sk = quantize_kv(k_new)
+    qv, sv = quantize_kv(v_new)
+    update_kv_cache_at(cache.k, cache.v, qk, qv, layer, pos)
+    update_kv_cache_at(cache.k_scale, cache.v_scale, sk, sv, layer, pos)
 
 
 def _slot_attention(q, k, v, layer: int, cfg: ModelConfig, cache: KVCache,
@@ -165,8 +189,10 @@ def _attend(x, params: Params, layer: int, cfg: ModelConfig, cache: KVCache,
     if pos_rows is not None:
         att = _slot_attention(q, k, v, layer, cfg, cache, pos_rows, paged)
     else:
-        update_kv_cache_at(cache.k, cache.v, k, v, layer, pos)
-        att = gqa_attention_at(q, cache.k, cache.v, layer, pos, t, start=offsets)
+        update_cache_at(cache, k, v, layer, pos)
+        att = gqa_attention_at(q, cache.k, cache.v, layer, pos, t, start=offsets,
+                               scales=(cache.k_scale, cache.v_scale)
+                               if cache.quantized else None)
     return att.transpose(1, 2).reshape(b, t, hq * dh)
 
 

@@ -203,37 +203,59 @@ def blocked_live_fold(qf, slice_block, k, v, pos: int, c: int,
 def decode_gqa_attention(q: torch.Tensor, k_cache: torch.Tensor,
                          v_cache: torch.Tensor, pos,
                          layer: int | None = None,
-                         start: torch.Tensor | None = None) -> torch.Tensor:
+                         start: torch.Tensor | None = None,
+                         scales: tuple[torch.Tensor, torch.Tensor] | None = None
+                         ) -> torch.Tensor:
     """Single-token causal GQA that reads only the blocks covering
     positions ``0..pos``.  With ``layer`` the caches are the stacked
     (L, B, Hkv, S, Dh) buffers and the layer is a view (no copy);
     ``start`` (B,) is the ragged batch's per-row key floor.  A
     :class:`DevicePos` walks the blocks up to its bound and masks with its
-    device position (the same mask values, so the same result)."""
+    device position (the same mask values, so the same result).
+    ``scales`` are an int8 cache's (k, v) scale planes, shaped as the
+    caches with a trailing 1: each block is dequantized after its read."""
     if layer is not None:
         k_cache, v_cache = k_cache[layer], v_cache[layer]
+        if scales is not None:
+            scales = (scales[0][layer], scales[1][layer])
     b, hq, t, dh = q.shape
     hkv = k_cache.shape[1]
     qf = q.to(torch.float32).reshape(b, hkv, hq // hkv, t, dh)
     bound, row_pos = pos, None
     if isinstance(pos, DevicePos):
         bound, row_pos = pos.bound, pos.at.expand(b)
-    _, l, acc = blocked_live_fold(qf, _slice_seq, k_cache, v_cache, bound,
-                                  k_cache.shape[2], row_pos=row_pos, row_start=start)
+    sl, kc, vc = _slice_seq, k_cache, v_cache
+    if scales is not None:
+        def sl(pair, start, length):
+            return dequant_kv(_slice_seq(pair[0], start, length),
+                              _slice_seq(pair[1], start, length))
+
+        kc, vc = (k_cache, scales[0]), (v_cache, scales[1])
+    _, l, acc = blocked_live_fold(qf, sl, kc, vc, bound, k_cache.shape[2],
+                                  row_pos=row_pos, row_start=start)
     out = acc / torch.clamp(l, min=1e-38)[..., None]
     return out.reshape(b, hq, t, dh).to(q.dtype)
 
 
 def gqa_attention_at(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
                      layer: int, pos, q_len: int,
-                     start: torch.Tensor | None = None) -> torch.Tensor:
+                     start: torch.Tensor | None = None,
+                     scales: tuple[torch.Tensor, torch.Tensor] | None = None
+                     ) -> torch.Tensor:
     """:func:`gqa_attention` over the stacked caches at ``layer``; a decode
     step over a long cache walks the live blocks straight out of them.
     ``pos`` is a Python int or a :class:`DevicePos` (both algorithms then
-    mask with the device position)."""
+    mask with the device position).  ``scales``: an int8 cache's (k, v)
+    scale planes (L, B, Hkv, S, 1) f32; the decode walk dequantizes block
+    by block, the other paths the layer's slice."""
     if _use_blocked_decode(q.shape[2], ck.shape[3]):
-        return decode_gqa_attention(q, ck, cv, pos, layer=layer, start=start)
-    return gqa_attention(q, ck[layer], cv[layer], _pos_at(pos), q_len, start=start)
+        return decode_gqa_attention(q, ck, cv, pos, layer=layer, start=start,
+                                    scales=scales)
+    k_l, v_l = ck[layer], cv[layer]
+    if scales is not None:
+        k_l = dequant_kv(k_l, scales[0][layer])
+        v_l = dequant_kv(v_l, scales[1][layer])
+    return gqa_attention(q, k_l, v_l, _pos_at(pos), q_len, start=start)
 
 
 def gqa_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,

@@ -27,17 +27,15 @@ or dense) to its matmul.
 f32, an f32 result.  Dispatch:
 
 * a CPU tensor → :func:`matmul_plain`, the plain PyTorch version;
-* a CUDA tensor with ``rows <= PALLAS_MAX_ROWS`` → the kernel
-  (:func:`q40_matmul`), which launches or raises;
-* a CUDA tensor with more rows (long prefill) → dequantize to bf16 and one
-  f32 ``torch.matmul`` — the JAX package's own dispatch rule, which leaves
-  that product to XLA.
+* a CUDA tensor of any row count → the kernel (:func:`q40_matmul`), which
+  launches or raises.  (The JAX package leaves products of more than 128
+  rows to XLA; here a long prefill or a scoring forward runs the
+  tensor-core body at its full width.)
 
 Tile-contiguous ("blocked") storage, :class:`BlockedQTensor` (the JAX
 package's ``DLLAMA_Q40_LAYOUT=blocked``): the same bytes re-cut into
-``(tn/2, td)`` tiles, each one contiguous run of memory.  A CUDA tensor of
-up to ``PALLAS_MAX_ROWS`` rows takes kernel 3 (the ``q40_matmul_blocked``
-entry of the same source), which reads the tiles in place; the plain route
+``(tn/2, td)`` tiles, each one contiguous run of memory.  A CUDA tensor
+takes kernel 3 (the ``q40_matmul_blocked`` entry of the same source), which reads the tiles in place; the plain route
 unblocks the one plane it needs.
 
 Tensor parallelism (the JAX package's ``_sharded_matmul``, ``kind=
@@ -61,7 +59,7 @@ Module counters (plain ints) record which route ran:
 the tensor-core body), ``launches_by_shape`` keyed by logical ``(n, d)``
 for kernels 1–2, ``("blocked", n, d)`` for kernel 3 and ``("mma", n, d)``,
 ``("blocked-mma", n, d)`` for their tensor-core body, ``plain_calls``,
-``dense_prefill_calls``, and kernel 4's ``allreduce_launches`` and
+and kernel 4's ``allreduce_launches`` and
 ``allreduce_plain_calls``.  :func:`reset_counters` zeroes them.
 """
 
@@ -83,22 +81,18 @@ from ..device import index_view
 # TILE_N default): padded rows carry zero scales, so the packed planes are
 # byte-identical to the JAX package's.
 TILE_N = 1024
-# Row count up to which a CUDA tensor takes the kernel; above it the
-# product is compute-bound and goes to one dense matmul.
-PALLAS_MAX_ROWS = 128
 
 kernel_launches = 0
 blocked_launches = 0
 mma_launches = 0
 plain_calls = 0
-dense_prefill_calls = 0
 launches_by_shape: dict[tuple, int] = {}
 
 
 def reset_counters() -> None:
-    global kernel_launches, blocked_launches, mma_launches, plain_calls, dense_prefill_calls
+    global kernel_launches, blocked_launches, mma_launches, plain_calls
     global allreduce_launches, allreduce_plain_calls
-    kernel_launches = blocked_launches = mma_launches = plain_calls = dense_prefill_calls = 0
+    kernel_launches = blocked_launches = mma_launches = plain_calls = 0
     allreduce_launches = allreduce_plain_calls = 0
     launches_by_shape.clear()
 
@@ -106,7 +100,7 @@ def reset_counters() -> None:
 def counters() -> dict:
     return {"kernel_launches": kernel_launches, "blocked_launches": blocked_launches,
             "mma_launches": mma_launches,
-            "plain_calls": plain_calls, "dense_prefill_calls": dense_prefill_calls,
+            "plain_calls": plain_calls,
             "allreduce_launches": allreduce_launches,
             "allreduce_plain_calls": allreduce_plain_calls,
             "launches_by_shape": dict(launches_by_shape)}
@@ -468,9 +462,7 @@ def dispatch(codec, kernel, x: torch.Tensor, qt, layer, out_dtype, impl: str
              ) -> torch.Tensor:
     """The routing :func:`matmul` and ``q8.matmul`` share, counted on
     ``codec``'s (the module's) counters: a CPU tensor or ``impl="plain"`` →
-    ``codec.matmul_plain``; a CUDA tensor of up to ``PALLAS_MAX_ROWS`` rows
-    → ``kernel(x2, qt, layer)``; more rows → the plain version
-    (``dense_prefill_calls``)."""
+    ``codec.matmul_plain``; a CUDA tensor → ``kernel(x2, qt, layer)``."""
     if impl not in ("auto", "plain"):
         raise ValueError(f"unknown {codec.__name__} matmul impl {impl!r}")
     n, d = qt.logical_nd
@@ -480,11 +472,8 @@ def dispatch(codec, kernel, x: torch.Tensor, qt, layer, out_dtype, impl: str
     if impl == "plain" or x.device.type == "cpu":
         codec.plain_calls += 1
         out = codec.matmul_plain(x2, qt, layer)
-    elif rows <= PALLAS_MAX_ROWS:
-        out = kernel(x2, qt, layer)
     else:
-        codec.dense_prefill_calls += 1
-        out = codec.matmul_plain(x2, qt, layer)
+        out = kernel(x2, qt, layer)
     return out.reshape(*lead, d).to(out_dtype or x.dtype)
 
 
@@ -790,8 +779,7 @@ def _check_operands(fn: str, x2: torch.Tensor, values: torch.Tensor,
     req(values.data_ptr() % 4 == 0 and scales.data_ptr() % 8 == 0,
         "values/scales not aligned for the kernel's vector loads")
     req(x2.dim() == 2 and x2.shape[1] == n, f"x shape {tuple(x2.shape)} != (t, {n})")
-    req(1 <= x2.shape[0] <= PALLAS_MAX_ROWS,
-        f"{x2.shape[0]} rows outside 1..{PALLAS_MAX_ROWS}")
+    req(x2.shape[0] >= 1, "x has no rows")
     req(n % 32 == 0, f"n={n} not a multiple of 32")
     return dev
 

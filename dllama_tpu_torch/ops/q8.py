@@ -20,8 +20,8 @@ layer × expert), addressed by a flat index as in :mod:`.q40`.
 :func:`matmul` computes the JAX kernel's contract: weights
 ``bf16(f32(v)·f32(s))`` (one bf16 round of the file codec's dequant),
 activations cast to bf16, products summed in f32, an f32 result.  Dispatch
-and counters (``kernel_launches``, ``launches_by_shape``, ``plain_calls``,
-``dense_prefill_calls``) are :mod:`.q40`'s.  The kernel has two bodies,
+and counters (``kernel_launches``, ``launches_by_shape``, ``plain_calls``)
+are :mod:`.q40`'s.  The kernel has two bodies,
 chosen by :func:`route` from the row count: the GEMV body below ``T_MMA``
 rows, the tensor-core body (:func:`mma_plan`; counted in ``mma_launches``)
 from ``T_MMA`` rows up.
@@ -49,7 +49,6 @@ from .q40 import (MMA_BK, MMA_BLOCKS_PER_SM, MMA_BMS, MMA_BN,  # noqa: F401 (re-
 kernel_launches = 0
 mma_launches = 0
 plain_calls = 0
-dense_prefill_calls = 0
 launches_by_shape: dict[tuple, int] = {}
 
 # Rows from which a call takes the tensor-core body (``q8_matmul_mma`` in
@@ -66,8 +65,8 @@ T_MMA = 9
 
 
 def reset_counters() -> None:
-    global kernel_launches, mma_launches, plain_calls, dense_prefill_calls
-    kernel_launches = mma_launches = plain_calls = dense_prefill_calls = 0
+    global kernel_launches, mma_launches, plain_calls
+    kernel_launches = mma_launches = plain_calls = 0
     launches_by_shape.clear()
 
 
@@ -77,7 +76,7 @@ def counters() -> dict:
     keyed ``(n, d)`` for the GEMV body and ``("mma", n, d)`` for the
     tensor-core body."""
     return {"kernel_launches": kernel_launches, "mma_launches": mma_launches,
-            "plain_calls": plain_calls, "dense_prefill_calls": dense_prefill_calls,
+            "plain_calls": plain_calls,
             "launches_by_shape": dict(launches_by_shape)}
 
 
@@ -222,10 +221,8 @@ def matmul(x: torch.Tensor, qt: Q8Tensor, layer=None, out_dtype=None,
     """``x @ dequantize(qt)`` with f32 accumulation: x (..., n) → (...,
     d) in ``out_dtype`` (default ``x.dtype``).  ``layer`` is a flat plane
     index (a Python int or an int32 device tensor).  A CPU tensor or
-    ``impl="plain"`` runs :func:`matmul_plain`; a CUDA tensor launches the
-    kernel up to ``PALLAS_MAX_ROWS`` rows and above that dequantizes and
-    runs one f32 matmul (the JAX package's ``"xla"`` route); the routing is
-    :func:`.q40.dispatch`."""
+    ``impl="plain"`` runs :func:`matmul_plain`; a CUDA tensor of any row
+    count launches the kernel; the routing is :func:`.q40.dispatch`."""
     return dispatch(sys.modules[__name__], _kernel, x, qt, layer, out_dtype, impl)
 
 

@@ -32,13 +32,38 @@ import torch
 from ..device import resolve, synchronize, upload
 from ..models.config import ModelConfig
 from ..models.params import Params, to_device
-from ..models.transformer import ShardedKV, forward_last, init_kv_cache, init_kv_pool
+from ..models.transformer import (ShardedKV, forward, forward_last, init_kv_cache,
+                                  init_kv_pool)
+from ..obs import metrics as obs_metrics, trace as obs_trace
 from ..ops import attention, q40
 from ..parallel.mesh import Mesh
 from ..parallel.sharding import Placed, place_params
 from ..sampling import Sampler
 from .decode_loop import decode_chunk, device_sample, slot_chunk
 from .graphs import DecodeGraphs
+
+
+def _cuda_memory(read):
+    """A per-card memory reader for a labeled gauge: ``{card: bytes}`` at
+    scrape time, ``{}`` without a card (no samples, never zeros)."""
+    def fn() -> dict:
+        if not torch.cuda.is_available():
+            return {}
+        return {str(i): float(read(i)) for i in range(torch.cuda.device_count())}
+    return fn
+
+
+obs_metrics.HBM_BYTES_IN_USE.fn = _cuda_memory(torch.cuda.memory_allocated)
+obs_metrics.HBM_BYTES_PEAK.fn = _cuda_memory(torch.cuda.max_memory_allocated)
+
+
+def _observe(stats: "StepStats", sent: float, recv: float) -> None:
+    """The engine-step histograms (the reference's G/I/T contract)."""
+    obs_metrics.ENGINE_GENERATION_MS.observe(stats.generation_ms)
+    obs_metrics.ENGINE_INFERENCE_MS.observe(stats.inference_ms)
+    obs_metrics.ENGINE_TRANSFER_MS.observe(stats.transfer_ms)
+    obs_metrics.HOST_DEVICE_SENT_BYTES.observe(sent)
+    obs_metrics.HOST_DEVICE_RECV_BYTES.observe(recv)
 
 
 def _next_bucket(n: int, minimum: int = 16) -> int:
@@ -159,10 +184,11 @@ class Engine:
     row is a slot with its own clock.  ``kv_pages`` > 0 replaces its
     per-row contiguous cache with a paged pool of that many
     ``kv_page_size``-token pages (page 0 is scratch), addressed through
-    per-slot page tables; ``kv_dtype="q8"`` stores the pool in int8 with
-    per-position scales.  Params already on ``device`` are shared, not
-    copied, so a slot engine built from a batch-1 engine's params adds only
-    its cache.  With a contiguous cache, ``batch`` > 1 also serves
+    per-slot page tables; ``kv_dtype="q8"`` stores the pool (or the
+    contiguous cache) in int8 with per-position scales; a slot engine
+    refuses a contiguous int8 cache, as the JAX package does.  Params
+    already on ``device`` are shared, not copied, so a slot engine built
+    from a batch-1 engine's params adds only its cache.  With a contiguous cache, ``batch`` > 1 also serves
     :meth:`generate_batch` (distinct prompts in lockstep).
 
     ``DLLAMA_Q40_LAYOUT=blocked`` (the JAX package's knob) converts every
@@ -209,7 +235,9 @@ class Engine:
             self.params = params
         else:
             self.params = place_params(params, cfg, self.mesh)
-        kv_quant = kv_dtype == "q8"
+        # "q8" (or int8, a quantized engine's own cache dtype) selects int8
+        # values with per-position f32 scales
+        kv_quant = kv_dtype == "q8" or kv_dtype == torch.int8
         self.paged = kv_pages > 0
         self.kv_pages = int(kv_pages)
         self.kv_page_size = int(kv_page_size)
@@ -227,12 +255,10 @@ class Engine:
             # a mixed slot step reads the pool through the prefill kernel:
             # refuse a pool it cannot read now, not on the first prompt
             self.check_slot_width(2)
-        elif kv_quant:
-            raise ValueError("the contiguous int8 KV cache is not yet ported to "
-                             "dllama_tpu_torch; int8 needs a paged pool (kv_pages)")
         else:
             self.cache = self._per_rank(lambda dev, tp: init_kv_cache(
-                cfg, self.batch, self.seq_len, dtype=kv_dtype, device=dev, tp=tp))
+                cfg, self.batch, self.seq_len, dtype=None if kv_quant else kv_dtype,
+                quant=kv_quant, device=dev, tp=tp))
         self.pos = 0
         #: a ragged batch's left padding (B,) on the device, set by
         #: prefill_ragged and cleared by reset
@@ -298,6 +324,9 @@ class Engine:
         stats.generation_ms = (t2 - t0) * 1000
         stats.sent_bytes = tokens_np.nbytes + 8  # token ids + pos/last scalars
         stats.recv_bytes = host_logits.nbytes
+        obs_trace.record("prefill" if tokens_np.shape[1] > 1 else "decode_step", t0, t2,
+                         pos=self.pos, n_tokens=int(tokens_np.shape[1]))
+        _observe(stats, stats.sent_bytes, stats.recv_bytes)
         return host_logits, stats
 
     def prefill(self, prompt_tokens: list[int]) -> tuple[np.ndarray, StepStats]:
@@ -438,6 +467,8 @@ class Engine:
                                 inference_ms=(t1 - g0) * 1000 / k,
                                 transfer_ms=(t2 - t1) * 1000 / k,
                                 sent_bytes=sent / k, recv_bytes=toks.nbytes / k)
+                obs_trace.record("decode_chunk", g0, t2, pos=p0, k=k)
+                _observe(per, sent, toks.nbytes)
                 for j, tk in enumerate(toks.tolist()):
                     token = int(tk)
                     yield token, per
@@ -520,7 +551,10 @@ class Engine:
                 expected += k
                 pending = dispatch(last_dev, expected) \
                     if expected < steps and self.pos < self.seq_len else None
+                t0 = time.perf_counter()
                 toks = landing.wait()[2]  # (k, B)
+                obs_trace.record("decode_chunk", t0, time.perf_counter(),
+                                 pos=self.pos - k, k=k, batch=True)
                 for j in range(toks.shape[0]):
                     yield toks[j]
         finally:
@@ -551,6 +585,10 @@ class Engine:
         ``self.pos``: the batch-1 path and the slot path may share an
         engine as long as their uses do not overlap in time (the
         scheduler's ``exclusive()``)."""
+        if self.cache.quantized and not self.paged:
+            raise ValueError("slot serving needs a dense or paged-int8 KV "
+                             "cache (contiguous per-row quantized writes "
+                             "are not wired)")
         if self.paged and page_tables_np is None:
             raise ValueError("paged engine: slot_step needs page_tables_np")
         if not self.paged and page_tables_np is not None:
@@ -618,6 +656,62 @@ class Engine:
             topps_np=topps_np, topks_np=topks_np, steps=steps,
             page_tables_np=page_tables_np).wait()
 
+    def score_batch(self, sequences: list[list[int]], top_k: int = 0
+                    ) -> tuple[np.ndarray, np.ndarray | None, np.ndarray | None]:
+        """Teacher-force B sequences through one left-padded ragged forward
+        and return per-token log-probabilities (the API's ``logprobs``).
+
+        Returns ``(token_lp, top_ids, top_lp)``: ``token_lp[r, j]`` is
+        ``log P(sequences[r][j+1] | prefix)`` for ``j+1 < len(seq_r)``;
+        rows are right-aligned in a bucketed width, so entry ``j`` lives at
+        padded column ``token_lp.shape[1] - len(seq_r) + j`` and pad columns
+        hold garbage (callers slice by their own lengths).  With ``top_k``
+        the per-position top-k ids (int32) and log-probs come back too.
+        The forward runs eagerly on a scratch cache of the engine's cache
+        dtype (bf16 or f32; an int8 engine scores on a ``cfg.dtype``
+        scratch, as the JAX package does), so the engine's own cache,
+        position and graphs are untouched."""
+        if self.paged:
+            raise ValueError("paged engine is slot-only; scoring needs a "
+                             "contiguous scratch cache")
+        if len(sequences) != self.batch:
+            raise ValueError(f"{len(sequences)} sequences for batch={self.batch}")
+        if any(len(s) < 2 for s in sequences):
+            raise ValueError("scoring needs ≥2 tokens per sequence")
+        longest = max(len(s) for s in sequences)
+        if longest > self.seq_len:
+            raise ContextOverflow(f"sequence of {longest} exceeds seq_len {self.seq_len}")
+        # bucket the padded length as a prefill does: extra left padding is
+        # invisible (offsets grow, masks and RoPE follow)
+        bucket = max(longest, min(_next_bucket(longest), self.seq_len))
+        toks = np.zeros((self.batch, bucket), np.int64)
+        offsets = np.zeros((self.batch,), np.int64)
+        for r, s in enumerate(sequences):
+            toks[r, bucket - len(s):] = s
+            offsets[r] = bucket - len(s)
+        dtype = None if self.cache.quantized else self.cache.k.dtype
+        cache = self._per_rank(lambda dev, tp: init_kv_cache(
+            self.cfg, self.batch, bucket, dtype=dtype, device=dev, tp=tp))
+        with on_device(self.device):
+            tk = torch.from_numpy(toks).to(self.device)
+            logits, _ = forward(self.params, self.cfg, tk, cache, 0,
+                                offsets=torch.from_numpy(offsets).to(self.device))
+            lg = logits.to(torch.float32)
+            # normalize by a (B, T) logsumexp instead of a second full-vocab
+            # log_softmax buffer beside the logits
+            lse = torch.logsumexp(lg, dim=-1)
+            # log P of the NEXT fed token, at the position producing it
+            nxt = torch.roll(tk, -1, dims=1)  # (B, T); the last column is garbage
+            tok_lp = torch.gather(lg, -1, nxt[..., None])[..., 0] - lse
+            ti = tl = None
+            if top_k > 0:
+                tl, ti = torch.topk(lg, top_k, dim=-1)  # (B, T, k)
+                tl = (tl - lse[..., None]).cpu().numpy()
+                ti = ti.to(torch.int32).cpu().numpy()
+            tok_lp = tok_lp.cpu().numpy()
+        self.forwards += 1
+        return tok_lp, ti, tl
+
     def generate(self, prompt_tokens: list[int], steps: int, sampler: Sampler,
                  eos_ids: tuple[int, ...] = ()):
         """Yield ``(token_id, stats)`` for up to ``steps`` tokens with the
@@ -668,4 +762,6 @@ class SlotDispatch:
             self._out = self._landing.wait()[2]
             self.ready_at = time.perf_counter()
             self._engine.last_slot_dispatch_ms = (self.ready_at - self.enqueued_at) * 1e3
+            obs_trace.record("slot_step", self.enqueued_at, self.ready_at,
+                             t=self.t, steps=self.steps)
         return self._out

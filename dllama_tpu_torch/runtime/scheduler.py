@@ -43,10 +43,18 @@ the same tokens whichever slot they land in and whatever their neighbors
 do; sampled requests draw from the engine's shared generator, so their
 draws depend on co-scheduling.
 
+Observability (``obs/``), at the JAX package's call sites: the registry's
+scheduler, KV-pool and goodput families (every millisecond between the
+first dispatch and the latest land lands in one of the ``prefill``,
+``decode``, ``pad``, ``host_gap`` and ``idle`` components), a flight
+record a request (submit, admit, prefill chunks, decode bursts, retire),
+a slot-timeline entry a dispatch, and ``sched_admit``/``sched_step``/
+``sched_retire`` spans.  ``stats`` keeps this scheduler's own counts
+(the registry is the process's).
+
 Left out of the copy (``ROADMAP.md``): priorities and preemption,
 parking, KV spill and tiering and optimistic reservation, hand-off and
-snapshots, speculative decoding, and the observability calls.  ``stats``
-keeps plain counters in their place.
+snapshots, and speculative decoding.
 """
 
 from __future__ import annotations
@@ -60,6 +68,8 @@ from collections import deque
 
 import numpy as np
 
+from ..obs import flight as obs_flight, metrics as obs_metrics, trace as obs_trace
+from ..obs.log import current_request_id, new_request_id, request_id_var
 from .engine import ContextOverflow
 from .pagepool import PagePool, PagePoolExhausted, RadixTree
 
@@ -106,6 +116,9 @@ class Ticket:
         self._cancel: str | None = None
         self._on_cancel = None  # scheduler wakeup, bound at submit
         self._page_deferred = False
+        # the submitting thread's X-Request-Id rides the ticket onto the
+        # scheduler thread (flight records, spans, log records)
+        self.rid: str = current_request_id() or new_request_id()
 
     def cancel(self, reason: str = "aborted") -> None:
         """Retire this request at the next step boundary (idempotent).  A
@@ -150,7 +163,8 @@ class _Pending:
     these beyond the dispatch it is landing (depth 2)."""
 
     __slots__ = ("handle", "error", "active", "tickets", "steps", "n_valid",
-                 "temps", "topps", "topks", "prefset", "enq_tp", "overlapped")
+                 "temps", "topps", "topks", "prefset", "enq_tp", "overlapped",
+                 "t_width", "pos_rows", "queued", "t0_mono", "host_gap_ms", "idle_ms")
 
     def __init__(self, **kw):
         for k in self.__slots__:
@@ -185,6 +199,8 @@ class SlotScheduler:
                 self.prefix_cache = RadixTree(self.pool)
             self._page_tables = np.zeros(
                 (engine.batch, engine.max_pages_per_slot), np.int32)
+            obs_metrics.KV_PAGES_TOTAL.set(self.pool.capacity)
+            obs_metrics.KV_PAGES_IN_USE.set(0)
         #: plain counters: dispatches landed, of them pipelined ones
         #: (``overlapped``) and pipelined ones landed and discarded at a
         #: flush point, prefill tokens fed, prefix-cache hits and the prompt
@@ -206,6 +222,11 @@ class SlotScheduler:
         self._inflight_n = 0     # pipelined dispatches on the device
         self._flush_req = 0      # >0: flush requested, pipelining blocked
         self._last_land: float | None = None  # perf_counter of the last land
+        self._depth = 0          # dispatches enqueued and not yet landed
+        # goodput accounting: every ms between the first dispatch and the
+        # latest land lands in exactly one component
+        self._idle_accum = 0.0   # seconds slept waiting for work since the last dispatch
+        self._comp = dict.fromkeys(("prefill", "decode", "pad", "host_gap", "idle"), 0.0)
         self._thread = threading.Thread(target=self._run, daemon=True,
                                         name="dllama-torch-slot-scheduler")
         self._thread.start()
@@ -244,6 +265,8 @@ class SlotScheduler:
             t._on_cancel = self._wake
             self._queue.append(t)
             self._cond.notify_all()
+        obs_flight.submit(t.rid, n_prompt=len(t.prompt), max_new=t.max_new,
+                          temperature=t.temperature, source="scheduler")
         return t
 
     def occupancy(self) -> dict:
@@ -340,13 +363,29 @@ class SlotScheduler:
             self.pool.decref(s.pages)
             s.pages = []
             self._page_tables[slot_idx][:] = 0
-        _log.debug("slot %d retire: %s after %d tokens", slot_idx, reason, s.produced)
+            obs_metrics.KV_PAGES_IN_USE.set(self.pool.in_use)
+        obs_metrics.SCHED_SLOT_RETIRES.inc(slot_idx, reason)
+        now = time.monotonic()
+        obs_trace.record("sched_retire", now, now, rid=t.rid, slot=slot_idx,
+                         reason=reason, produced=s.produced)
+        # the log record factory stamps the contextvar: bind the ticket's ID
+        # around the call (this thread serves many requests)
+        ctx = request_id_var.set(t.rid)
+        try:
+            _log.info("slot retire", extra={"slot": slot_idx, "reason": reason,
+                                            "produced": s.produced})
+        finally:
+            request_id_var.reset(ctx)
+        obs_flight.retire(t.rid, reason, produced=s.produced, pos=s.pos,
+                          error=repr(error) if error is not None else None)
         t._q.put(_DONE)
 
     def _fail_ticket(self, t: Ticket, reason: str,
                      error: BaseException | None = None) -> None:
         t.finish = reason
         t.error = error
+        obs_flight.retire(t.rid, reason, produced=0,
+                          error=repr(error) if error is not None else None)
         t._q.put(_DONE)
 
     def _bind_pages(self, slot_idx: int, t: Ticket) -> bool:
@@ -386,6 +425,7 @@ class SlotScheduler:
             if not t._page_deferred:
                 t._page_deferred = True
                 self.stats["kv_pool_exhausted"] += 1
+                obs_metrics.KV_POOL_EXHAUSTED.inc()
                 _log.info("kv pool exhausted: need %d pages, %d free", fresh,
                           pool.available)
             return False
@@ -400,6 +440,11 @@ class SlotScheduler:
         if matched:
             self.stats["prefix_hits"] += 1
             self.stats["prefix_tokens_reused"] += matched
+            obs_metrics.PREFIX_HITS.inc()
+            obs_metrics.PREFIX_TOKENS_REUSED.inc(matched)
+            obs_flight.phase(t.rid, "prefix_reuse", tokens=matched,
+                             pages=len(shared))
+        obs_metrics.KV_PAGES_IN_USE.set(pool.in_use)
         return True
 
     def _admit_locked(self, now: float) -> None:
@@ -428,8 +473,20 @@ class SlotScheduler:
             s.produced = 0
             s.last = 0
             t.slot = free
-            _log.debug("slot %d join: %d prompt tokens, %d reused, queued %.1f ms",
-                       free, len(t.prompt), s.pos, (now - t.submitted_at) * 1e3)
+            queued_ms = round((now - t.submitted_at) * 1e3, 3)
+            obs_metrics.SCHED_SLOT_JOINS.inc(free)
+            obs_trace.record("sched_admit", t.submitted_at, now, rid=t.rid, slot=free,
+                             queued_ms=queued_ms, n_prompt=len(t.prompt),
+                             prefix_reused=s.pos)
+            ctx = request_id_var.set(t.rid)
+            try:
+                _log.info("slot join", extra={"slot": free, "n_prompt": len(t.prompt),
+                                              "queued_ms": queued_ms,
+                                              "prefix_reused": s.pos})
+            finally:
+                request_id_var.reset(ctx)
+            obs_flight.admit(t.rid, slot=free, queued_ms=queued_ms, prefix_reused=s.pos)
+            obs_metrics.QUEUE_WAIT.observe(max(now - t.submitted_at, 0.0))
 
     def _active(self) -> list[int]:
         return [i for i, s in enumerate(self.slots) if s.ticket is not None]
@@ -455,6 +512,8 @@ class SlotScheduler:
                         self._admit_locked(now)
                     active = self._active()
                     queued = len(self._queue)
+                    obs_metrics.SCHED_SLOTS_OCCUPIED.set(len(active))
+                    obs_metrics.SCHED_QUEUE_DEPTH.set(queued)
                     if self._stop:
                         return
                     if not active:
@@ -467,7 +526,9 @@ class SlotScheduler:
                         dls = [t.deadline for t in self._queue if t.deadline is not None]
                         if dls:
                             timeout = min(timeout, max(min(dls) - now, 0.0))
+                        w0 = time.perf_counter()
                         self._cond.wait(timeout)
+                        self._idle_accum += time.perf_counter() - w0
                         continue
                 self._dispatch(active, queued)
         except BaseException:  # the loop must not die silently
@@ -552,8 +613,21 @@ class SlotScheduler:
                 n_valid[i] = c
             else:
                 tokens[i, 0] = s.last
+        obs_metrics.SCHED_BATCH_EFFICIENCY.set(len(active) / b)
         tickets = {i: slots[i].ticket for i in active}
+        # the gap since the last land: idle (slept waiting for work), the
+        # rest host_gap (fanout, admission, array prep)
         tp0 = time.perf_counter()
+        host_gap_ms = idle_ms = 0.0
+        if self._last_land is not None:
+            gap_ms = max(tp0 - self._last_land, 0.0) * 1e3
+            idle_ms = min(self._idle_accum * 1e3, gap_ms)
+            host_gap_ms = gap_ms - idle_ms
+            self._account("idle", idle_ms)
+            self._account("host_gap", host_gap_ms)
+            obs_metrics.SCHED_HOST_GAP_MS.observe(host_gap_ms)
+        self._idle_accum = 0.0
+        t0_mono = time.monotonic()
         handle, error = None, None
         try:
             handle = eng.slot_step_async(
@@ -562,10 +636,15 @@ class SlotScheduler:
                 page_tables_np=self._page_tables if self.paged else None)
         except Exception as e:
             error = e
+        if handle is not None:
+            self._depth += 1
+            obs_metrics.SCHED_INFLIGHT_DEPTH.set(self._depth)
         return _Pending(handle=handle, error=error, active=list(active),
                         tickets=tickets, steps=steps, n_valid=n_valid, temps=temps,
                         topps=topps, topks=topks, prefset=set(prefilling),
-                        enq_tp=tp0, overlapped=False)
+                        enq_tp=tp0, overlapped=False, t_width=t_width,
+                        pos_rows=pos_rows, queued=queued, t0_mono=t0_mono,
+                        host_gap_ms=host_gap_ms, idle_ms=idle_ms)
 
     def _maybe_pipeline(self, cur: _Pending) -> _Pending | None:
         """While ``cur`` is still in flight, enqueue the next pure-decode
@@ -633,11 +712,15 @@ class SlotScheduler:
                 self._cond.notify_all()
             _log.error("pipelined enqueue failed; round completes synchronously: %r", err)
             return None
+        self._depth += 1
+        obs_metrics.SCHED_INFLIGHT_DEPTH.set(self._depth)
         return _Pending(handle=handle, error=None, active=list(cur.active),
                         tickets=dict(cur.tickets), steps=steps2,
                         n_valid=np.ones((b,), np.int32), temps=cur.temps,
                         topps=cur.topps, topks=cur.topks, prefset=set(),
-                        enq_tp=time.perf_counter(), overlapped=True)
+                        enq_tp=time.perf_counter(), overlapped=True, t_width=1,
+                        pos_rows=pos2, queued=0, t0_mono=time.monotonic(),
+                        host_gap_ms=0.0, idle_ms=0.0)
 
     def _pipeline_verdict(self, nxt: _Pending) -> list[int] | None:
         """After ``nxt``'s predecessor landed and fanned out with ``nxt``
@@ -691,19 +774,29 @@ class SlotScheduler:
             # the discarded dispatch owns its own failure: nothing was
             # emitted from it; the next live dispatch re-probes the device
             _log.error("discarded in-flight dispatch failed: %r", e)
-        self._last_land = time.perf_counter()
+        tp1 = time.perf_counter()
+        prev_end, self._last_land = self._last_land, tp1
         self.stats["dispatches"] += 1
         self.stats["overlapped"] += 1
         self.stats["discarded"] += 1
+        self._note_dispatch()
         with self._cond:
             self._inflight_n -= 1
             self._cond.notify_all()
+        wall_ms = max(tp1 - prev_end, 0.0) * 1e3
+        self._account("pad", wall_ms)  # burned device capacity, not goodput
+        obs_metrics.SCHED_OVERLAP_DISCARDS.inc()
+        obs_flight.TIMELINE.record_step(
+            ts=prev_end, wall_ms=wall_ms, steps=nxt.steps, t_width=1,
+            overlapped=True, discarded=True, slots=self._slot_entries({}, set(), {}))
 
     def _land_and_fanout(self, cur: _Pending) -> bool:
         """Block until ``cur``'s tokens land and fan them out to their
         tickets.  Returns False when the dispatch failed: every active
         slot retires with the error (stale cache garbage sits above future
         occupants' ceilings) and the loop keeps serving."""
+        b = self.engine.batch
+        tw = time.perf_counter()
         error, out = cur.error, None
         if error is None:
             try:
@@ -711,28 +804,101 @@ class SlotScheduler:
             except Exception as e:
                 error = e
         tp1 = time.perf_counter()
-        # a pipelined dispatch owns the wall from its predecessor's land on
-        start = max(cur.enq_tp, self._last_land or 0.0) if cur.overlapped else cur.enq_tp
-        wall_ms = (tp1 - start) * 1e3
-        self._last_land = tp1
+        prev_end, self._last_land = self._last_land, tp1
         self.stats["dispatches"] += 1
         if cur.overlapped:
             self.stats["overlapped"] += 1
             with self._cond:
                 self._inflight_n -= 1
                 self._cond.notify_all()
+        if cur.handle is not None:
+            self._note_dispatch()
+        hidden_ms = 0.0
+        step_ms = None  # the burst clamp's wall, where the split below differs
+        if cur.overlapped:
+            # the burst clamp reads the whole span since the previous land
+            step_ms = (tp1 - max(cur.enq_tp, prev_end)) * 1e3
+            # a pipelined dispatch owns the wall from its predecessor's land
+            # on.  The host's share before wait() is hidden when the land
+            # still had to wait (the device was busy under it), else exposed
+            host_ms = max(tw - prev_end, 0.0) * 1e3
+            wait_ms = max(tp1 - tw, 0.0) * 1e3
+            if wait_ms >= 0.1:
+                hidden_ms, exposed_ms, wall_ms = host_ms, 0.0, host_ms + wait_ms
+            else:
+                exposed_ms, wall_ms = host_ms, wait_ms
+            if exposed_ms:
+                self._account("host_gap", exposed_ms)
+                obs_metrics.SCHED_HOST_GAP_MS.observe(exposed_ms)
+            if hidden_ms:
+                obs_metrics.SCHED_HOST_GAP_HIDDEN_MS.inc(hidden_ms)
+            ts0, gap_exposed, gap_idle = prev_end, exposed_ms, 0.0
+        else:
+            wall_ms = (tp1 - cur.enq_tp) * 1e3
+            ts0, gap_exposed, gap_idle = cur.enq_tp, cur.host_gap_ms, cur.idle_ms
+        # every row rode the same step: a row's share of the wall is 1/b
+        n_pref, n_act = len(cur.prefset), len(cur.active)
+        self._account("prefill", wall_ms * n_pref / b)
+        self._account("decode", wall_ms * (n_act - n_pref) / b)
+        self._account("pad", wall_ms * (b - n_act) / b)
+        total = sum(self._comp.values())
+        if total > 0:
+            obs_metrics.SCHED_GOODPUT_RATIO.set(
+                (self._comp["prefill"] + self._comp["decode"]) / total)
+        rids = {i: cur.tickets[i].rid for i in cur.active}
         if error is not None:
             _log.error("slot dispatch failed: %r", error)
+            obs_flight.TIMELINE.record_step(
+                ts=ts0, wall_ms=wall_ms, host_gap_ms=gap_exposed, idle_ms=gap_idle,
+                steps=cur.steps, t_width=cur.t_width, error=True,
+                overlapped=cur.overlapped, hidden_host_ms=hidden_ms,
+                slots=self._slot_entries(rids, cur.prefset, {}))
             with self._cond:
                 for i in self._active():
                     self._retire(i, "error", error=error)
             return False
-        self._note_step_time(wall_ms, cur.steps)
+        self._note_step_time(wall_ms if step_ms is None else step_ms, cur.steps)
+        obs_trace.record("sched_step", cur.t0_mono, time.monotonic(), active=n_act,
+                         queued=cur.queued, t=cur.t_width, steps=cur.steps,
+                         overlapped=cur.overlapped, rids=sorted(rids.values()))
+        emitted = dict.fromkeys(cur.active, 0)
         # the fanout holds _cond: slot clocks and tickets are never seen
         # half-advanced from another thread
         with self._cond:
-            self._fanout(cur.active, cur.steps, out, cur.n_valid)
+            self._fanout(cur.active, cur.steps, out, cur.n_valid, emitted)
+        # flight phases after the fanout, so the emitted counts are final
+        for i in cur.active:
+            if i in cur.prefset:
+                obs_flight.phase(rids[i], "prefill_chunk", tokens=int(cur.n_valid[i]),
+                                 ms=wall_ms, pos=int(cur.pos_rows[i]), emitted=emitted[i])
+            else:
+                obs_flight.phase(rids[i], "decode_burst", steps=cur.steps,
+                                 tokens=emitted[i], wall_ms=wall_ms,
+                                 step_ms=wall_ms / cur.steps)
+        obs_flight.TIMELINE.record_step(
+            ts=ts0, wall_ms=wall_ms, device_ms=self.engine.last_slot_dispatch_ms,
+            host_gap_ms=gap_exposed, idle_ms=gap_idle, steps=cur.steps,
+            t_width=cur.t_width, overlapped=cur.overlapped, hidden_host_ms=hidden_ms,
+            slots=self._slot_entries(rids, cur.prefset, emitted))
         return True
+
+    def _account(self, component: str, ms: float) -> None:
+        self._comp[component] += ms
+        obs_metrics.SCHED_STEP_TIME_MS.inc(component, n=ms)
+
+    def _note_dispatch(self) -> None:
+        """One dispatch landed (``stats`` already counts it): the in-flight
+        depth and the overlap ratio."""
+        self._depth -= 1
+        obs_metrics.SCHED_INFLIGHT_DEPTH.set(self._depth)
+        obs_metrics.SCHED_OVERLAP_RATIO.set(self.stats["overlapped"] / self.stats["dispatches"])
+
+    def _slot_entries(self, rids: dict, prefset: set, emitted: dict) -> list:
+        """The timeline's slot map of one dispatch."""
+        return [{"slot": i, "phase": "prefill" if i in prefset else "decode",
+                 "tokens": emitted.get(i, 0), "request_id": rids[i]} if i in rids
+                else {"slot": i, "phase": "pad", "tokens": 0}
+                for i in range(len(self.slots))]
 
     def _note_step_time(self, wall_ms: float, steps: int) -> None:
         """Fold one dispatch's per-step wall into the EMA that clamps burst
@@ -741,9 +907,11 @@ class SlotScheduler:
         self._step_ms_ema = step_ms if self._step_ms_ema is None \
             else 0.8 * self._step_ms_ema + 0.2 * step_ms
 
-    def _fanout(self, active: list[int], steps: int, out, n_valid) -> None:
+    def _fanout(self, active: list[int], steps: int, out, n_valid,
+                emitted: dict[int, int]) -> None:
         """Distribute one dispatch's sampled tokens to their tickets and
-        advance the slot clocks.  Caller holds ``self._cond``."""
+        advance the slot clocks; ``emitted`` counts the tokens each slot
+        gave its ticket.  Caller holds ``self._cond``."""
         eng = self.engine
         slots = self.slots
         for j in range(steps):
@@ -779,6 +947,7 @@ class SlotScheduler:
                 if t.first_token_at is None:
                     t.first_token_at = time.monotonic()
                 s.produced += 1
+                emitted[i] += 1
                 t.emitted.append(tok)
                 t._q.put(tok)
                 if s.produced >= t.max_new or s.pos >= eng.seq_len:

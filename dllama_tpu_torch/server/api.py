@@ -15,14 +15,25 @@
   **NaiveCache** resuming a conversation whose messages extend the cached
   prefix.  The mutex path parks the scheduler while it runs, so the two
   never use the card at once.
-* ``GET /v1/models`` and ``GET /health``.
+* **the lockstep batch** (``--batch-slots`` over contiguous slot rows,
+  ``--kv-pages 0``): a list ``prompt``, ``n > 1`` (completions and chat),
+  ``logprobs`` (up to 5 alternatives a position) and ``echo`` run as one
+  lockstep batch on the slot engine while the scheduler is parked;
+  ``logprobs`` adds one teacher-forced scoring forward
+  (``Engine.score_batch``).  With ``--kv-pages`` these answer 400, as the
+  JAX server does.
+* ``GET /v1/models``, ``GET /health`` (with the ``--slo`` verdict),
+  ``GET /metrics`` (JSON, or Prometheus text 0.0.4 with ``Accept:
+  text/plain`` or ``?format=prometheus``), and ``GET /debug/trace``,
+  ``/debug/events``, ``/debug/requests[/<id>]``, ``/debug/timeline``
+  (``obs/``).  Every response carries ``X-Request-Id`` (the client's,
+  sanitized, or a fresh one).
 * bounded admission (``--max-pending`` → 429 with a jittered
   Retry-After), per-request deadlines (``timeout``/``max_time`` body
   fields, ``--request-timeout``), and a graceful drain on SIGTERM/SIGINT.
 
-Not yet ported (each answers 400 naming itself): ``n > 1``,
-``logprobs``, ``echo``, list prompts, ``priority``, ``/metrics``, the
-``/debug`` routes and the admin and hand-off routes.
+Not yet ported (each answers 400 naming itself): ``priority``, ``POST
+/debug/profile`` and the admin and hand-off routes.
 """
 
 from __future__ import annotations
@@ -30,8 +41,8 @@ from __future__ import annotations
 import codecs
 import contextlib
 import json
-import logging
 import os
+import re
 import signal
 import threading
 import time
@@ -39,7 +50,11 @@ import uuid
 from collections import deque
 from dataclasses import dataclass, field
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from urllib.parse import parse_qs
 
+from ..obs import dispatch as obs_dispatch, events as obs_events
+from ..obs import flight as obs_flight, metrics as obs_metrics, trace as obs_trace
+from ..obs.log import get_logger, new_request_id, set_request_id
 from ..ops import attention, q8, q40
 from ..runtime.engine import ContextOverflow, Engine
 from ..runtime.scheduler import SchedulerClosed, SchedulerSaturated, SlotScheduler
@@ -49,10 +64,26 @@ from ..tokenizer.chat import ChatItem, ChatTemplate, TokenizerChatStops
 from ..tokenizer.eos import EosDetector
 from .backoff import jittered_retry_after
 
-_log = logging.getLogger("dllama_tpu_torch.server.api")
+_log = get_logger("server.api")
 
 #: request bodies above this are refused with 413
 MAX_BODY_BYTES = 8 * 1024 * 1024
+
+#: a client's X-Request-Id lands in logs and headers: keep it to this
+#: charset and length
+_RID_RE = re.compile(r"[^A-Za-z0-9._-]")
+_RID_MAX = 64
+
+
+def _decode_continuation(tok: Tokenizer, prev: int, token_ids: list[int]) -> str:
+    """Decode a continuation from ``prev``, the last prompt token — not
+    from BOS, whose decode strips the first piece's leading space — so a
+    batch reply reads exactly as the streamed one."""
+    parts = []
+    for t in token_ids:
+        parts.append(tok.decode_piece(prev, t))
+        prev = t
+    return b"".join(parts).decode("utf-8", errors="replace")
 
 
 def _not_ported_msg(what: str) -> str:
@@ -108,6 +139,7 @@ class InferenceParams:
     stream: bool = False
     seed: int | None = None
     stop: list[str] = field(default_factory=list)
+    n: int = 1  # choices; n > 1 runs on the lockstep batch
 
 
 def parse_request(body: dict, default_temp: float, default_topp: float) -> InferenceParams:
@@ -126,6 +158,8 @@ def parse_request(body: dict, default_temp: float, default_topp: float) -> Infer
         p.stream = bool(body["stream"])
     if body.get("seed") is not None:
         p.seed = int(body["seed"])
+    if body.get("n") is not None:
+        p.n = int(body["n"])
     stop = body.get("stop")
     if isinstance(stop, str):
         p.stop = [stop]
@@ -134,67 +168,92 @@ def parse_request(body: dict, default_temp: float, default_topp: float) -> Infer
     return p
 
 
-def unported_fields(path: str, body: dict) -> list[str]:
+def unported_fields(body: dict) -> list[str]:
     """The request fields of ``body`` that ask for a feature the port does
     not carry yet."""
-    out = []
-    try:
-        if int(body.get("n") or 1) != 1:
-            out.append("n > 1")
-    except (TypeError, ValueError):
-        pass  # malformed: the endpoint's own parse answers 400
-    if body.get("logprobs") is not None:
-        out.append("logprobs")
-    if body.get("priority") is not None:
-        out.append("priority")
-    if path == "/v1/completions":
-        if body.get("echo"):
-            out.append("echo")
-        if isinstance(body.get("prompt"), list):
-            out.append("a list prompt")
-    return out
+    return ["priority"] if body.get("priority") is not None else []
+
+
+#: the serving counters ServerMetrics mediates; each name is both the
+#: /metrics JSON key and the registry's json_key
+_SERVING_COUNTERS = (
+    "requests_served", "requests_rejected_429", "requests_rejected_503",
+    "read_timeouts_408", "deadline_timeouts", "client_disconnects",
+    "server_errors")
 
 
 class ServerMetrics:
-    """The serving counters and the EMA request duration that feeds the
-    Retry-After hint."""
-
-    COUNTERS = ("requests_served", "requests_rejected_429", "requests_rejected_503",
-                "read_timeouts_408", "deadline_timeouts", "client_disconnects",
-                "server_errors")
+    """A per-``ApiState`` view over the process-global registry: bumps land
+    in the registry (so both /metrics formats read the same numbers),
+    while attribute reads and :meth:`snapshot` are deltas against a
+    baseline taken at construction, so several servers in one process
+    each see their own traffic.  ``avg_request_s`` is this server's EMA
+    request duration (it feeds the Retry-After hint); the registry's
+    gauge mirrors it."""
 
     def __init__(self):
         self.started_at = time.time()
         self._lock = threading.Lock()
-        self._counts = dict.fromkeys(self.COUNTERS, 0)
-        self.avg_request_s = 0.0
+        self._counters = {n: obs_metrics.REGISTRY.counter(n) for n in _SERVING_COUNTERS}
+        self._base = {n: c.value for n, c in self._counters.items()}
+        self._avg_request_s = 0.0
 
     def bump(self, name: str, n: int = 1) -> None:
-        with self._lock:
-            self._counts[name] += n
+        self._counters[name].inc(n)
 
     def observe_duration(self, seconds: float) -> None:
         with self._lock:
-            a = self.avg_request_s
-            self.avg_request_s = seconds if a == 0.0 else 0.8 * a + 0.2 * seconds
+            a = self._avg_request_s
+            self._avg_request_s = seconds if a == 0.0 else 0.8 * a + 0.2 * seconds
+        obs_metrics.AVG_REQUEST_S.set(self._avg_request_s)
+        obs_metrics.REQUEST_DURATION.observe(seconds)
+
+    @property
+    def avg_request_s(self) -> float:
+        with self._lock:
+            return self._avg_request_s
+
+    def __getattr__(self, name: str) -> int:
+        try:
+            counters = object.__getattribute__(self, "_counters")
+            base = object.__getattribute__(self, "_base")
+        except AttributeError:
+            raise AttributeError(name) from None
+        if name in counters:
+            return counters[name].value - base[name]
+        raise AttributeError(name)
 
     def snapshot(self) -> dict:
-        with self._lock:
-            return dict(self._counts)
+        out = {"uptime_s": round(time.time() - self.started_at, 3)}
+        for n, c in self._counters.items():
+            out[n] = c.value - self._base[n]
+        out["avg_request_s"] = round(self.avg_request_s, 6)
+        return out
 
 
 class _StreamTimer:
-    """Time to first token of one request: started at admission (so queue
-    wait counts, as the client sees it), ticked as each delta is
-    emitted."""
+    """TTFT and inter-token gaps of one request: started at admission (so
+    queue wait counts, as the client sees it), ticked after each delta is
+    written.  Each value feeds its histogram and the request's flight
+    record, so the two agree."""
 
-    def __init__(self):
+    def __init__(self, rid=None):
         self.t0 = time.monotonic()
+        self.rid = rid
         self.ttft_s: float | None = None
+        self._last: float | None = None
 
     def tick(self) -> None:
-        if self.ttft_s is None:
-            self.ttft_s = time.monotonic() - self.t0
+        now = time.monotonic()
+        if self._last is None:
+            self.ttft_s = now - self.t0
+            obs_metrics.TTFT.observe(self.ttft_s)
+            obs_flight.first_token(self.rid, self.ttft_s)
+        else:
+            gap = now - self._last
+            obs_metrics.INTER_TOKEN.observe(gap)
+            obs_flight.inter_token(self.rid, gap)
+        self._last = now
 
 
 def _bounded(stream, state: "ApiState", deadline: float | None,
@@ -220,9 +279,12 @@ class ApiState:
 
     ``batch_engine`` (``--batch-slots``) is the slot engine the
     ``scheduler`` drives; it shares the batch-1 engine's weight tensors on
-    the device, so the only extra memory is its KV cache.  ``engine_lock``
-    is the mutex of the batch-1 path.  ``finished`` keeps one record per
-    served request (path, tokens, time to first token, latency)."""
+    the device, so the only extra memory is its KV cache; on contiguous
+    slot rows it also runs the one-shot lockstep batches (list prompts,
+    ``n > 1``, ``logprobs``, ``echo``).  ``engine_lock`` is the mutex of
+    the batch-1 and lockstep paths.  ``slo`` (``obs.slo.SloEngine``) adds
+    its verdict to ``/health``.  ``finished`` keeps one record per served
+    request (path, tokens, time to first token, latency)."""
 
     def __init__(self, engine: Engine, tokenizer: Tokenizer,
                  default_temperature: float = 0.7, default_topp: float = 0.9,
@@ -230,8 +292,9 @@ class ApiState:
                  batch_engine: Engine | None = None,
                  max_pending: int = 8, request_timeout: float = 0.0,
                  io_timeout: float = 15.0, drain_grace: float = 30.0,
-                 scheduler: SlotScheduler | None = None):
+                 scheduler: SlotScheduler | None = None, slo=None):
         self.engine = engine
+        self.slo = slo
         self.batch_engine = batch_engine
         self.scheduler = scheduler
         self.tokenizer = tokenizer
@@ -344,6 +407,8 @@ class ApiState:
                 **{name: {k: v for k, v in mod.counters().items() if isinstance(v, int)}
                    for name, mod in (("q40", q40), ("q8", q8))},
                 "paged_attention": attention.counters()},
+            # ok / at_risk / violating per objective, evaluated live
+            "slo": self.slo.evaluate() if self.slo is not None else None,
         }
 
     def exclusive(self):
@@ -402,6 +467,11 @@ class ApiState:
             self.naive_cache.push(engine.pos, ChatMessage("assistant", reply))
         finish = "aborted" if flag.get("aborted") \
             else "timeout" if flag.get("timed_out") else "stop"
+        # coarse flight phases for the mutex path (the request id rides
+        # the contextvar)
+        obs_flight.phase(None, "prefill_chunk", tokens=len(prompt_tokens), pos=start_pos)
+        obs_flight.phase(None, "decode_burst", tokens=n_completion)
+        obs_flight.retire(None, finish, produced=n_completion)
         return reply, len(prompt_tokens), n_completion, finish
 
     def complete_text(self, ids: list[int], max_tokens: int, *,
@@ -443,7 +513,334 @@ class ApiState:
             finish=lambda: "aborted" if flag.get("aborted")
             else "timeout" if flag.get("timed_out")
             else "stop" if flag.get("eos") else "length")
+        obs_flight.phase(None, "prefill_chunk", tokens=len(ids), pos=0)
+        obs_flight.phase(None, "decode_burst", tokens=n_comp)
+        obs_flight.retire(None, finish, produced=n_comp)
         return text, n_comp, finish
+
+    # -- the lockstep batch (list prompts, n > 1, logprobs, echo) --------
+    def _plan_ids(self, id_lists: list[list[int]], max_tokens: int,
+                  eos_id: int) -> tuple[list[list[int]], int, int, int]:
+        """The batch path's validation, padding and budget, shared by
+        completions (streamed or not) and chat ``n > 1``: pads the real
+        rows to the engine's batch by repeating row 0 and raises
+        ContextOverflow for every client-side problem, so a handler answers
+        400 before it commits to a response kind."""
+        eng = self.batch_engine
+        if eng is None:
+            raise ValueError("batched serving not enabled (--batch-slots)")
+        if eng.paged:
+            # the paged pool has no whole-batch reset or lockstep mode
+            raise ContextOverflow(
+                "prompt lists, n>1 and logprobs are not available with "
+                "--kv-pages (slot scheduling only); send requests "
+                "individually")
+        n_real = len(id_lists)
+        if not 0 < n_real <= eng.batch:
+            raise ContextOverflow(f"{n_real} prompts for {eng.batch} batch slots")
+        if any(not ids for ids in id_lists):
+            raise ContextOverflow("a prompt encoded to zero tokens")
+        longest = max(len(i) for i in id_lists)
+        if longest + 1 >= eng.seq_len:
+            raise ContextOverflow(
+                f"prompt needs {longest} of {eng.seq_len} context positions")
+        padded = [list(i) for i in id_lists] + [list(id_lists[0])] * (eng.batch - n_real)
+        budget = eng.seq_len
+        if max_tokens > 0:
+            budget = min(longest + max_tokens, eng.seq_len)
+        return padded, n_real, budget, eos_id
+
+    def _drain_batch(self, id_lists: list[list[int]], budget: int, *,
+                     temperature: float, top_p: float, seed: int | None,
+                     eos_id: int, deadline: float | None = None,
+                     n_real: int | None = None
+                     ) -> tuple[list[list[int]], list[bool]]:
+        """Run one lockstep batch (``Engine.generate_batch`` semantics:
+        per-row EOS and budget cuts) with a deadline check between device
+        chunks.  Returns ``(outs, timed_out_per_row)``; a row cut by the
+        deadline keeps what it had.  Rows past ``n_real`` are
+        :meth:`_plan_ids` padding: they decode on the device but take no
+        part in the host's EOS scan or early exit."""
+        eng = self.batch_engine
+        if n_real is None:
+            n_real = len(id_lists)
+        obs_metrics.SCHED_BATCH_EFFICIENCY.set(n_real / eng.batch)
+        outs = [list(p) for p in id_lists]
+        done = [len(o) >= budget or r >= n_real for r, o in enumerate(outs)]
+        timed = [False] * len(outs)
+        with self.exclusive():
+            eng.reset()
+            stream = eng.generate_batch_stream(
+                id_lists, budget, temperature=temperature, topp=top_p,
+                seed=seed if seed is not None else int(time.time()), chunk=self.chunk)
+            with contextlib.closing(stream):
+                for row_tokens in stream:
+                    for r, t in enumerate(row_tokens.tolist()):
+                        if done[r]:
+                            continue
+                        outs[r].append(int(t))
+                        if int(t) == eos_id or len(outs[r]) >= budget:
+                            done[r] = True
+                    if all(done):
+                        break
+                    d = self.effective_deadline(deadline)
+                    if d is not None and time.monotonic() >= d:
+                        timed = [not dn and r < n_real for r, dn in enumerate(done)]
+                        break
+        return outs, timed
+
+    def complete_n(self, params: InferenceParams, deadline: float | None = None
+                   ) -> tuple[list[tuple[str, str]], int, int]:
+        """``n > 1`` chat choices: the templated prompt n times, decoded as
+        one lockstep batch on ``batch_engine`` (n sampled alternatives a
+        weight read; greedy rows are identical).  A fresh conversation
+        each time: the NaiveCache is neither consulted nor updated.
+        Returns ``([(reply, finish)], n_prompt, n_completion)``."""
+        eng, tok = self.batch_engine, self.tokenizer
+        if eng is not None and params.n > eng.batch:
+            raise ContextOverflow(
+                f"n={params.n} exceeds the {eng.batch} batch slots; lower n "
+                "or restart the server with a larger --batch-slots")
+        items = [ChatItem(m.role, m.content) for m in params.messages]
+        prompt_tokens = tok.encode(self.template.generate(items, True), add_bos=True)
+        id_lists, _, budget, eos_id = self._plan_ids(
+            [prompt_tokens] * params.n, params.max_tokens, tok.chat_eos_id)
+        outs, timed = self._drain_batch(
+            id_lists, budget, temperature=params.temperature, top_p=params.top_p,
+            seed=params.seed, eos_id=eos_id, deadline=deadline, n_real=params.n)
+        choices = []
+        n_completion = 0
+        for r in range(params.n):
+            comp = outs[r][len(prompt_tokens):]
+            finish = "timeout" if timed[r] else "length"
+            if comp and comp[-1] == eos_id:
+                comp = comp[:-1]
+                finish = "stop"
+            n_completion += len(comp)
+            reply = _decode_continuation(tok, prompt_tokens[-1], comp)
+            for stop in self.base_stops + params.stop:
+                cut = reply.find(stop)
+                if cut != -1:
+                    reply = reply[:cut]
+                    finish = "stop"
+            choices.append((reply, finish))
+        return choices, len(prompt_tokens), n_completion
+
+    def plan_batch(self, prompts: list[str], max_tokens: int
+                   ) -> tuple[list[list[int]], int, int, int]:
+        """Tokenize a /v1/completions prompt list and run it through
+        :meth:`_plan_ids`; plain-text completion stops at the base EOS."""
+        tok = self.tokenizer
+        if self.batch_engine is None:
+            raise ValueError("batched serving not enabled (--batch-slots)")
+        id_lists = [tok.encode(p, add_bos=self.batch_engine.cfg.add_bos) for p in prompts]
+        eos_id = tok.eos_id if tok.eos_id >= 0 else tok.chat_eos_id
+        return self._plan_ids(id_lists, max_tokens, eos_id)
+
+    def complete_batch(self, prompts: list[str], *, temperature: float,
+                       top_p: float, max_tokens: int, seed: int | None,
+                       stop: list[str], echo: bool = False,
+                       logprobs: int | None = None,
+                       deadline: float | None = None
+                       ) -> tuple[list[dict], int, int]:
+        """Run B distinct prompts as one lockstep batch on ``batch_engine``;
+        returns (choices, prompt_tokens, completion_tokens).  A shorter
+        list is padded by repeating the first prompt (pad rows are
+        dropped); stop strings cut post hoc.  ``logprobs`` (0-5) scores
+        every returned completion with one teacher-forced forward
+        (:meth:`Engine.score_batch`): the chosen tokens' log-probs, and the
+        top alternatives a position when > 0."""
+        tok = self.tokenizer
+        id_lists, n_real, budget, eos_id = self.plan_batch(prompts, max_tokens)
+        outs, timed = self._drain_batch(
+            id_lists, budget, temperature=temperature, top_p=top_p, seed=seed,
+            eos_id=eos_id, deadline=deadline, n_real=n_real)
+        choices, comps = [], []
+        n_prompt = n_completion = 0
+        for r in range(n_real):
+            ids = id_lists[r]
+            comp = outs[r][len(ids):]
+            # the shared budget is sized by the longest prompt: cap each row,
+            # so a prompt in a batch gets the completion it would get alone
+            if max_tokens > 0:
+                comp = comp[:max_tokens]
+            finish = "timeout" if timed[r] else "length"
+            if comp and comp[-1] == eos_id:
+                comp = comp[:-1]
+                finish = "stop"
+            comps.append(comp)
+            n_prompt += len(ids)
+            n_completion += len(comp)
+            # echo decodes prompt + completion as one sequence, so a
+            # codepoint split across the boundary reassembles
+            text = tok.decode(ids + comp) if echo \
+                else _decode_continuation(tok, ids[-1], comp)
+            for s in stop:
+                cut = text.find(s)
+                if cut != -1:
+                    text = text[:cut]
+                    finish = "stop"
+            choices.append({"text": text, "index": r, "finish_reason": finish,
+                            "logprobs": None})
+        if logprobs is not None and n_real:
+            # an echo row owes the prompt's logprobs even with an empty
+            # completion; an all-empty non-echo batch needs no forward
+            if echo or any(comps):
+                self._attach_logprobs(choices, id_lists, comps, n_real, int(logprobs), echo)
+            else:
+                for r in range(n_real):
+                    choices[r]["logprobs"] = {
+                        "tokens": [], "token_logprobs": [],
+                        "top_logprobs": [] if int(logprobs) > 0 else None,
+                        "text_offset": []}
+        return choices, n_prompt, n_completion
+
+    def _attach_logprobs(self, choices, id_lists, comps, n_real, top_k, echo):
+        """Fill each choice's ``logprobs`` (the OpenAI completions shape)
+        from one scoring forward over the padded batch.  Alignment:
+        ``"".join(tokens)`` equals the choice's ``text`` (pieces from an
+        incremental UTF-8 decode; tokens past a stop-string cut dropped);
+        with ``echo`` the prompt's tokens lead, a leading BOS skipped, and
+        position 0 (no conditional) has a ``None`` log-prob."""
+        eng, tok = self.batch_engine, self.tokenizer
+        # pad rows never touch real rows; the scorer needs >= 2 tokens a row
+        seqs = [id_lists[r] + comps[r] if r < n_real else list(id_lists[r])
+                for r in range(eng.batch)]
+        seqs = [s if len(s) >= 2 else s + [0] for s in seqs]
+        with self.exclusive():
+            tok_lp, top_ids, top_lp = eng.score_batch(seqs, top_k=top_k)
+        bucket = tok_lp.shape[1]
+        for r in range(n_real):
+            text = choices[r]["text"]
+            if echo:
+                skip = 1 if id_lists[r] and id_lists[r][0] == tok.bos_id else 0
+                seq_tokens = (id_lists[r] + comps[r])[skip:]
+                base = skip
+            else:
+                seq_tokens = comps[r]
+                base = len(id_lists[r])  # sequence index of entry 0
+            off = bucket - len(seqs[r])
+            dec = codecs.getincrementaldecoder("utf-8")("replace")
+            prev = tok.bos_id if echo else id_lists[r][-1]
+            prevs, pieces = [], []
+            for t in seq_tokens:
+                prevs.append(prev)
+                pieces.append(dec.decode(tok.decode_piece(prev, t)))
+                prev = t
+            tail = dec.decode(b"", True)
+            if tail and pieces:
+                pieces[-1] += tail
+            tokens, lps, tops, offsets_txt = [], [], [], []
+            text_pos = 0
+            for m, piece in enumerate(pieces):
+                if text_pos + len(piece) > len(text):
+                    break  # a stop-string cut: align to the text
+                seq_idx = base + m
+                tokens.append(piece)
+                offsets_txt.append(text_pos)
+                text_pos += len(piece)
+                if seq_idx == 0:  # echo: position 0 has no conditional
+                    lps.append(None)
+                    if top_k > 0:
+                        tops.append(None)
+                    continue
+                col = off + seq_idx - 1
+                lps.append(float(tok_lp[r, col]))
+                if top_k > 0:
+                    # distinct ids can render to one piece (byte fallback):
+                    # the list is sorted descending, so keep the first
+                    d: dict = {}
+                    for i, lp in zip(top_ids[r, col], top_lp[r, col]):
+                        d.setdefault(tok.decode_piece(prevs[m], int(i))
+                                     .decode("utf-8", "replace"), float(lp))
+                    tops.append(d)
+            choices[r]["logprobs"] = {
+                "tokens": tokens, "token_logprobs": lps,
+                "top_logprobs": tops if top_k > 0 else None,
+                "text_offset": offsets_txt}
+
+    def complete_batch_stream(self, prompts: list[str], *, temperature: float,
+                              top_p: float, max_tokens: int, seed: int | None,
+                              stop: list[str], emit, plan: tuple | None = None,
+                              deadline: float | None = None, is_aborted=None) -> None:
+        """The streaming twin of :meth:`complete_batch`: the same lockstep
+        batch, calling ``emit(row_index, delta_text, finish_or_None)`` as
+        each row's text becomes safe to send; a finished row stops
+        emitting while the others decode on.  Per-row incremental UTF-8
+        decoding and a ``max(len(stop)) - 1`` character hold-back keep the
+        joined stream equal to the non-stream text.  ``plan`` is
+        :meth:`plan_batch`'s result when the handler validated first."""
+        eng, tok = self.batch_engine, self.tokenizer
+        id_lists, n_real, budget, eos_id = \
+            plan if plan is not None else self.plan_batch(prompts, max_tokens)
+        obs_metrics.SCHED_BATCH_EFFICIENCY.set(n_real / eng.batch)
+        decoders = [codecs.getincrementaldecoder("utf-8")("replace") for _ in range(n_real)]
+        hold = max((len(s) for s in stop), default=0)
+        prev = [ids[-1] for ids in id_lists[:n_real]]
+        buf = [""] * n_real   # decoded, not yet emitted
+        n_comp = [0] * n_real
+        cap = [max_tokens if max_tokens > 0 else eng.seq_len - len(id_lists[r])
+               for r in range(n_real)]
+        done = [False] * n_real
+
+        def flush(r, closing, finish="length"):
+            """Scan the row's unsent text for stops and emit what is safe;
+            while the row is live the last ``hold - 1`` characters wait (a
+            stop could still complete across the boundary)."""
+            cuts = [c for c in (buf[r].find(s) for s in stop) if c != -1]
+            if cuts:
+                emit(r, buf[r][:min(cuts)], "stop")
+                buf[r] = ""
+                done[r] = True
+            elif closing:
+                done[r] = True
+                emit(r, buf[r], finish)
+                buf[r] = ""
+            elif hold and len(buf[r]) >= hold:
+                emit(r, buf[r][:len(buf[r]) - (hold - 1)], None)
+                buf[r] = buf[r][len(buf[r]) - (hold - 1):]
+            elif not hold and buf[r]:
+                emit(r, buf[r], None)
+                buf[r] = ""
+
+        with self.exclusive():
+            eng.reset()
+            stream = eng.generate_batch_stream(
+                id_lists, budget, temperature=temperature, topp=top_p,
+                seed=seed if seed is not None else int(time.time()), chunk=self.chunk)
+            with contextlib.closing(stream):
+                for step_vec in stream:
+                    for r in range(n_real):
+                        if done[r]:
+                            continue
+                        t = int(step_vec[r])
+                        n_comp[r] += 1
+                        if t == eos_id:
+                            buf[r] += decoders[r].decode(b"", True)
+                            flush(r, closing=True, finish="stop")
+                            continue
+                        buf[r] += decoders[r].decode(tok.decode_piece(prev[r], t))
+                        prev[r] = t
+                        if n_comp[r] >= cap[r]:
+                            buf[r] += decoders[r].decode(b"", True)
+                            flush(r, closing=True)
+                        else:
+                            flush(r, closing=False)
+                    if all(done):
+                        break
+                    if is_aborted is not None and is_aborted():
+                        return  # the client is gone
+                    d = self.effective_deadline(deadline)
+                    if d is not None and time.monotonic() >= d:
+                        for r in range(n_real):
+                            if not done[r]:
+                                buf[r] += decoders[r].decode(b"", True)
+                                flush(r, closing=True, finish="timeout")
+                        return
+        for r in range(n_real):
+            if not done[r]:  # budget spent with text still held
+                buf[r] += decoders[r].decode(b"", True)
+                flush(r, closing=True)
 
     # -- scheduler path ------------------------------------------------
     def overflow_body(self, e: Exception) -> dict:
@@ -551,11 +948,25 @@ def make_handler(state: ApiState):
             self._began_response = True
             super().send_response(*a, **kw)
 
-        def _json(self, code: int, obj: dict, headers: dict | None = None):
-            data = json.dumps(obj).encode()
+        def _begin_request(self) -> str:
+            """The request ID, set at accept: the client's ``X-Request-Id``
+            (sanitized: it lands in logs and headers verbatim) or a fresh
+            one, bound to the log contextvar for this thread."""
+            client = self.headers.get("X-Request-Id") or ""
+            self._rid = _RID_RE.sub("", client)[:_RID_MAX] or new_request_id()
+            set_request_id(self._rid)
+            return self._rid
+
+        def _rid_header(self) -> None:
+            if getattr(self, "_rid", None):
+                self.send_header("X-Request-Id", self._rid)
+
+        def _send(self, code: int, data: bytes, content_type: str,
+                  headers: dict | None = None):
             self.send_response(code)
-            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Type", content_type)
             self.send_header("Content-Length", str(len(data)))
+            self._rid_header()
             for k, v in (headers or {}).items():
                 self.send_header(k, str(v))
             if state.draining:
@@ -566,11 +977,15 @@ def make_handler(state: ApiState):
             except OSError:
                 self.close_connection = True
 
+        def _json(self, code: int, obj: dict, headers: dict | None = None):
+            self._send(code, json.dumps(obj).encode(), "application/json", headers)
+
         def _sse_headers(self):
             self.send_response(200)
             self.send_header("Content-Type", "text/event-stream")
             self.send_header("Cache-Control", "no-cache")
             self.send_header("Connection", "close")
+            self._rid_header()
             self.end_headers()
 
         def _sse_emitter(self, aborted: list, chunk_of, timer: _StreamTimer | None):
@@ -583,8 +998,10 @@ def make_handler(state: ApiState):
                 if chunk is None:
                     return
                 try:
+                    e0 = time.perf_counter()
                     self.wfile.write(f"data: {json.dumps(chunk)}\n\n".encode())
                     self.wfile.flush()
+                    obs_trace.record("emit", e0, time.perf_counter())
                     if timer is not None:
                         timer.tick()
                     if finish == "timeout":
@@ -645,32 +1062,89 @@ def make_handler(state: ApiState):
             return body
 
         def do_GET(self):
-            path = self.path.partition("?")[0]
+            self._begin_request()
+            path, _, query = self.path.partition("?")
+            qs = parse_qs(query)
+
+            def qint(name, default):
+                try:
+                    return int(qs[name][0]) if name in qs else default
+                except ValueError:
+                    return default
+
             if path == "/v1/models":
                 self._json(200, {"object": "list", "data": [{
                     "id": state.model_name, "object": "model",
                     "created": int(time.time()), "owned_by": "user"}]})
             elif path in ("/health", "/healthz"):
                 self._json(200, state.health())
-            elif path == "/metrics" or path.startswith(("/debug/", "/admin/")):
+            elif path == "/metrics":
+                # one registry, two formats: Prometheus text 0.0.4 when
+                # asked for (Accept or ?format), else the JSON dict with this
+                # server's serving counters on top
+                obs_dispatch.sync()
+                accept = self.headers.get("Accept") or ""
+                if (qs.get("format", [""])[0] == "prometheus"
+                        or "text/plain" in accept or "openmetrics" in accept):
+                    self._send(200, obs_metrics.render_prometheus().encode(),
+                               "text/plain; version=0.0.4; charset=utf-8")
+                else:
+                    merged = obs_metrics.snapshot_json()
+                    merged.update(state.metrics.snapshot())
+                    self._json(200, merged)
+            elif path == "/debug/trace":
+                # Chrome trace JSON of the last N requests' spans; ?since=<seq>
+                # is the raw incremental export
+                if "since" in qs:
+                    self._json(200, obs_trace.raw(qint("since", 0)))
+                else:
+                    self._json(200, obs_trace.trace_json(qint("last", 20)))
+            elif path == "/debug/events":
+                self._json(200, obs_events.snapshot(qint("since", 0) if "since" in qs
+                                                    else None))
+            elif path == "/debug/requests":
+                self._json(200, {"requests": obs_flight.recent(qint("n", 50))})
+            elif path.startswith("/debug/requests/"):
+                rid = path[len("/debug/requests/"):]
+                rec = obs_flight.get(rid)
+                if rec is None:
+                    self._json(404, {"error": f"no flight record for request id {rid!r}"})
+                else:
+                    self._json(200, rec)
+            elif path == "/debug/timeline":
+                self._json(200, {
+                    "slots": state.scheduler.engine.batch if state.scheduler else 0,
+                    "steps": obs_flight.TIMELINE.snapshot(qint("n", 256)),
+                    "components_ms": obs_metrics.SCHED_STEP_TIME_MS.json_value(),
+                    "goodput_ratio": obs_metrics.SCHED_GOODPUT_RATIO.json_value(),
+                    "host_gap_ms": obs_metrics.SCHED_HOST_GAP_MS.json_value()})
+            elif path.startswith(("/debug/", "/admin/")):
                 self._json(400, {"error": _not_ported_msg(f"GET {path}")})
             else:
                 self._json(404, {"error": "not found"})
 
         def _sched_eligible(self, body: dict) -> bool:
-            """True when this request can ride the slot scheduler.  Seeded
-            sampling keeps the mutex path: slot rows share the engine's
-            generator, so a per-request seed is only reproducible when the
-            request owns the engine."""
+            """True when this request can ride the slot scheduler.  The
+            mutex path keeps what a slot cannot express: list prompts,
+            ``n > 1``, ``logprobs``, ``echo``, and seeded sampling (slot
+            rows share the engine's generator, so a per-request seed is
+            only reproducible when the request owns the engine)."""
             if state.scheduler is None:
                 return False
             try:
+                if int(body.get("n") or 1) != 1:
+                    return False
                 temperature = float(body["temperature"]) \
                     if body.get("temperature") is not None \
                     else state.default_temperature
             except (TypeError, ValueError):
                 return False  # malformed: the mutex handlers own the 400
-            return body.get("seed") is None or temperature == 0.0
+            if body.get("seed") is not None and temperature != 0.0:
+                return False
+            if self.path.partition("?")[0] == "/v1/completions":
+                return not isinstance(body.get("prompt"), list) \
+                    and body.get("logprobs") is None and not body.get("echo")
+            return True
 
         def _submit_or_reject(self, ids, max_tokens, *, temperature, top_p,
                               eos_id, deadline, stop=None):
@@ -693,10 +1167,19 @@ def make_handler(state: ApiState):
             return None
 
         def _completion_args(self, body: dict):
-            """(text, temperature, top_p, max_tokens, seed, stop, stream)
-            of a /v1/completions body; None after answering 400."""
+            """The parsed fields of a /v1/completions body (``n`` replicates
+            each prompt, row-major as OpenAI does; ``logprobs`` capped at 5);
+            None after answering 400."""
             try:
-                text = str(body.get("prompt") or "")
+                prompt = body.get("prompt")
+                prompts = [str(p) for p in prompt] if isinstance(prompt, list) \
+                    else [str(prompt or "")]
+                if not any(prompts):
+                    self._json(400, {"error": "prompt required"})
+                    return None
+                n = int(body.get("n") or 1)
+                if n > 1:
+                    prompts = [p for p in prompts for _ in range(n)]
                 temperature = float(body["temperature"]) \
                     if body.get("temperature") is not None else state.default_temperature
                 top_p = float(body["top_p"]) \
@@ -706,23 +1189,34 @@ def make_handler(state: ApiState):
                 stop = body.get("stop")
                 stop = [stop] if isinstance(stop, str) else \
                     [str(s) for s in stop] if isinstance(stop, list) else []
-                stream = bool(body.get("stream"))
+                logprobs = body.get("logprobs")
+                if logprobs is not None:
+                    logprobs = max(0, min(int(logprobs), 5))  # the OpenAI cap
             except (TypeError, ValueError) as e:
                 self._json(400, {"error": f"bad request: {e}"})
                 return None
-            if not text:
-                self._json(400, {"error": "prompt required"})
-                return None
-            return text, temperature, top_p, max_tokens, seed, stop, stream
+            return dict(prompts=prompts, temperature=temperature, top_p=top_p,
+                        max_tokens=max_tokens, seed=seed, stop=stop,
+                        echo=bool(body.get("echo")), stream=bool(body.get("stream")),
+                        logprobs=logprobs,
+                        lockstep=isinstance(prompt, list) or n > 1
+                        or logprobs is not None or bool(body.get("echo")))
 
         def _completions(self, body: dict, deadline: float | None,
                          timer: _StreamTimer, use_sched: bool):
-            """Single-prompt /v1/completions: over the slot scheduler when
-            ``use_sched``, else on the batch-1 engine under the mutex."""
+            """/v1/completions: a single prompt over the slot scheduler when
+            ``use_sched``, else on the batch-1 engine under the mutex; a
+            list prompt, ``n > 1``, ``logprobs`` or ``echo`` as one lockstep
+            batch on the slot engine (:meth:`_completions_batch`)."""
             args = self._completion_args(body)
             if args is None:
                 return
-            text, temperature, top_p, max_tokens, seed, stop, stream = args
+            if args["lockstep"]:
+                self._completions_batch(args, deadline, timer)
+                return
+            text, temperature, top_p = args["prompts"][0], args["temperature"], args["top_p"]
+            max_tokens, seed, stop, stream = (args["max_tokens"], args["seed"], args["stop"],
+                                              args["stream"])
             tok = state.tokenizer
             ids = tok.encode(text, add_bos=state.engine.cfg.add_bos)
             eos_id = tok.eos_id if tok.eos_id >= 0 else tok.chat_eos_id
@@ -789,6 +1283,80 @@ def make_handler(state: ApiState):
                              "logprobs": None}],
                 "usage": {"prompt_tokens": len(ids), "completion_tokens": n_comp,
                           "total_tokens": len(ids) + n_comp}})
+
+        def _completions_batch(self, args: dict, deadline: float | None,
+                               timer: _StreamTimer):
+            """The lockstep /v1/completions: every row (each prompt, ``n``
+            times) decodes as its own stream in one batch; streamed, each
+            SSE chunk carries one row's delta under its choice index (echo
+            is not streamed)."""
+            if args["stream"] and args["logprobs"] is not None:
+                self._json(400, {"error": "logprobs with stream is not supported; "
+                                          "request them non-streaming"})
+                return
+            if state.batch_engine is None:
+                self._json(400, {"error": "batched serving not enabled; start the "
+                                          "server with --batch-slots N"})
+                return
+            prompts = args["prompts"]
+            gen = {k: args[k] for k in ("temperature", "top_p", "max_tokens", "seed",
+                                        "stop")}
+            created = int(time.time())
+            cid = f"cmpl-{uuid.uuid4().hex[:12]}"
+            if not args["stream"]:
+                try:
+                    choices, n_prompt, n_comp = state.complete_batch(
+                        prompts, echo=args["echo"], logprobs=args["logprobs"],
+                        deadline=deadline, **gen)
+                except ContextOverflow as e:
+                    self._json(400, state.overflow_body(e))
+                    return
+                if any(c["finish_reason"] == "timeout" for c in choices):
+                    state.metrics.bump("deadline_timeouts")
+                self._record = dict(prompt_tokens=n_prompt, completion_tokens=n_comp,
+                                    finish=choices[0]["finish_reason"])
+                self._json(200, {
+                    "id": cid, "object": "text_completion", "created": created,
+                    "model": state.model_name, "choices": choices,
+                    "usage": {"prompt_tokens": n_prompt, "completion_tokens": n_comp,
+                              "total_tokens": n_prompt + n_comp}})
+                return
+            # validate before committing to SSE: an invalid request gets the
+            # 400 it would get without stream
+            try:
+                plan = state.plan_batch(prompts, args["max_tokens"])
+            except ContextOverflow as e:
+                self._json(400, state.overflow_body(e))
+                return
+            self._sse_headers()
+            aborted = [False]
+            emitters = {}
+
+            def emit(idx, delta, finish):
+                if idx not in emitters:
+                    emitters[idx] = self._sse_emitter(aborted, lambda d, f: {
+                        "id": cid, "object": "text_completion", "created": created,
+                        "model": state.model_name,
+                        "choices": [{"text": d, "index": idx, "finish_reason": f,
+                                     "logprobs": None}]}, timer)
+                emitters[idx](delta, finish)
+
+            try:
+                state.complete_batch_stream(prompts, emit=emit, plan=plan,
+                                            deadline=deadline,
+                                            is_aborted=lambda: aborted[0], **gen)
+            except Exception as e:
+                # mid-stream: an OpenAI-shaped error event, then [DONE]
+                err = {"error": {"message": str(e), "type": "invalid_request_error"
+                                 if isinstance(e, ContextOverflow) else "server_error"}}
+                self._safe_write(f"data: {json.dumps(err)}\n\n".encode()
+                                 + b"data: [DONE]\n\n", aborted)
+                if not isinstance(e, ContextOverflow):
+                    raise
+                return
+            self._safe_write(b"data: [DONE]\n\n", aborted)
+            self._record = dict(prompt_tokens=sum(len(i) for i in plan[0][:plan[1]]),
+                                completion_tokens=None, finish=None)
 
         def _chat_sched(self, body: dict, deadline: float | None,
                         timer: _StreamTimer):
@@ -871,6 +1439,9 @@ def make_handler(state: ApiState):
                 return
             created = int(time.time())
             cid = f"chatcmpl-{uuid.uuid4().hex[:12]}"
+            if params.n > 1:
+                self._chat_n(params, deadline, cid, created)
+                return
             if params.stream:
                 self._sse_headers()
                 aborted = [False]
@@ -920,7 +1491,38 @@ def make_handler(state: ApiState):
                 "usage": {"prompt_tokens": n_prompt, "completion_tokens": n_comp,
                           "total_tokens": n_prompt + n_comp}})
 
+        def _chat_n(self, params: InferenceParams, deadline: float | None,
+                    cid: str, created: int):
+            """Chat with ``n > 1`` choices: one lockstep batch (not
+            streamed)."""
+            if params.stream:
+                self._json(400, {"error": "stream with n>1 is not supported; "
+                                          "request them separately"})
+                return
+            if state.batch_engine is None:
+                self._json(400, {"error": "n>1 needs batched serving; start the "
+                                          "server with --batch-slots N"})
+                return
+            try:
+                choices, n_prompt, n_comp = state.complete_n(params, deadline=deadline)
+            except ContextOverflow as e:
+                self._json(400, state.overflow_body(e))
+                return
+            if any(fin == "timeout" for _, fin in choices):
+                state.metrics.bump("deadline_timeouts")
+            self._record = dict(prompt_tokens=n_prompt, completion_tokens=n_comp,
+                                finish=choices[0][1])
+            self._json(200, {
+                "id": cid, "object": "chat.completion", "created": created,
+                "model": state.model_name,
+                "choices": [{"index": i, "finish_reason": fin,
+                             "message": {"role": "assistant", "content": r}}
+                            for i, (r, fin) in enumerate(choices)],
+                "usage": {"prompt_tokens": n_prompt, "completion_tokens": n_comp,
+                          "total_tokens": n_prompt + n_comp}})
+
         def do_POST(self):
+            self._begin_request()
             path = self.path.partition("?")[0]
             if path.startswith(("/debug/", "/admin/")):
                 self._json(400, {"error": _not_ported_msg(f"POST {path}")})
@@ -931,7 +1533,7 @@ def make_handler(state: ApiState):
             body = self._read_body()
             if body is None:
                 return
-            missing = unported_fields(path, body)
+            missing = unported_fields(body)
             if missing:
                 self._json(400, {"error": _not_ported_msg(", ".join(missing))})
                 return
@@ -949,9 +1551,15 @@ def make_handler(state: ApiState):
                                state.retry_after_hint())})
                 return
             t0 = time.monotonic()
+            tp0 = time.perf_counter()
             deadline = state.request_deadline(body)
-            timer = _StreamTimer()  # starts at admission: queue wait counts
+            # starts at admission: queue wait counts into TTFT
+            timer = _StreamTimer(rid=self._rid)
+            # the flight record opens at admission; the scheduler merges its
+            # per-dispatch detail into it by request ID
+            obs_flight.submit(self._rid, path=path)
             self._record = None
+            ok = False
             try:
                 locked = False
                 use_sched = False
@@ -977,8 +1585,14 @@ def make_handler(state: ApiState):
                 else:
                     # the batch-1 engine's mutex: the wait here is the queue
                     # try_enter bounded; the scheduler parks meanwhile
+                    q0 = time.perf_counter()
                     if not locked:
                         state.engine_lock.acquire()
+                    q1 = time.perf_counter()
+                    obs_metrics.QUEUE_WAIT.observe(q1 - q0)
+                    obs_trace.record("queue_wait", q0, q1)
+                    obs_flight.admit(self._rid, queued_ms=(q1 - q0) * 1e3)
+                    _log.info("queue", extra={"wait_s": round(q1 - q0, 6)})
                     state.mark_active(True)
                     try:
                         with state.exclusive():
@@ -990,6 +1604,9 @@ def make_handler(state: ApiState):
                         state.mark_active(False)
                         state.engine_lock.release()
                 state.metrics.bump("requests_served")
+                ok = True
+                _log.info("finish", extra={"path": path,
+                                           "duration_s": round(time.monotonic() - t0, 6)})
                 if self._record is not None:
                     state.finished.append(dict(
                         self._record, path=path, stream=bool(body.get("stream")),
@@ -1005,6 +1622,10 @@ def make_handler(state: ApiState):
                 raise  # surface in the server log: a 500 is a bug to fix
             finally:
                 state.leave(time.monotonic() - t0)
+                obs_trace.record("request", tp0, time.perf_counter(), path=path)
+                # the fallback close of a path that retired no specific
+                # finish (a no-op when one did)
+                obs_flight.retire(self._rid, "served" if ok else "error")
 
     return Handler
 
@@ -1054,14 +1675,20 @@ def serve(state: ApiState, host: str = "0.0.0.0", port: int = 9990, *,
     return server
 
 
-def build_state(args) -> ApiState:
+def build_state(args, slo=None) -> ApiState:
     """Load the model and build the server state from parsed CLI args: the
     batch-1 engine, and with ``--batch-slots`` the slot engine (sharing
-    its weights) and its scheduler."""
+    its weights) and its scheduler.  A slot engine the scheduler cannot
+    drive (a contiguous int8 cache, ``--kv-cache-dtype q8`` without pages)
+    still serves the lockstep batch, as in the JAX server."""
     from ..cli import load_stack
     if args.kv_quant == "int8" and args.kv_pages <= 0:
         raise SystemExit("--kv-quant int8 needs a paged pool (--kv-pages); "
                          "contiguous slot rows have no per-page scales")
+    if args.kv_pages > 0 and args.kv_cache_dtype == "q8":
+        raise SystemExit("--kv-pages needs a dense chat-engine KV cache; drop "
+                         "--kv-cache-dtype q8 (use --kv-quant int8 to quantize "
+                         "the paged pool)")
     engine, tok = load_stack(args)
     batch_engine = scheduler = None
     if args.batch_slots > 0:
@@ -1071,17 +1698,26 @@ def build_state(args) -> ApiState:
                               device=engine.device, batch=args.batch_slots,
                               kv_pages=args.kv_pages, kv_page_size=args.kv_page_size,
                               mesh=engine.mesh)
-        scheduler = SlotScheduler(
-            batch_engine, prefill_chunk=args.sched_prefill_chunk,
-            max_wait_ms=args.sched_max_wait_ms, max_queue=args.sched_max_queue,
-            prefix_reuse=not args.no_prefix_reuse, overlap=not args.no_sched_overlap)
-        _log.info("slot scheduler: %d slots, %d pages of %d, kv %s, prefix reuse %s, "
-                  "overlap %s", args.batch_slots, args.kv_pages, args.kv_page_size,
-                  args.kv_quant, scheduler.prefix_cache is not None, scheduler.overlap)
+        try:
+            scheduler = SlotScheduler(
+                batch_engine, prefill_chunk=args.sched_prefill_chunk,
+                max_wait_ms=args.sched_max_wait_ms, max_queue=args.sched_max_queue,
+                prefix_reuse=not args.no_prefix_reuse, overlap=not args.no_sched_overlap)
+        except ValueError as e:
+            # a contiguous int8 cache: the lockstep batch still serves,
+            # only decode-step admission is off
+            _log.warning("slot_scheduler_disabled", extra={"reason": str(e)})
+        else:
+            _log.info("slot_scheduler_enabled", extra={
+                "slots": args.batch_slots, "kv_pages": args.kv_pages,
+                "kv_page_size": args.kv_page_size, "kv_quant": args.kv_quant,
+                "prefix_reuse": scheduler.prefix_cache is not None,
+                "overlap": scheduler.overlap})
     return ApiState(engine, tok, default_temperature=args.temperature,
                     default_topp=args.topp, chunk=args.chunk,
                     batch_engine=batch_engine, max_pending=args.max_pending,
-                    request_timeout=args.request_timeout, scheduler=scheduler)
+                    request_timeout=args.request_timeout, scheduler=scheduler,
+                    slo=slo)
 
 
 def parse_args(argv):
@@ -1101,8 +1737,10 @@ def start(argv) -> ApiServer:
     """Load and serve on a background thread (in-process callers: tests and
     ``chip_smoke.py``); :func:`stop` ends it.  ``--port 0`` binds a free
     port."""
+    from ..cli import configure_obs
     args = parse_args(list(argv))
-    return serve(build_state(args), host=args.host, port=args.port, block=False)
+    slo = configure_obs(args)
+    return serve(build_state(args, slo), host=args.host, port=args.port, block=False)
 
 
 def stop(server: ApiServer) -> None:
@@ -1114,14 +1752,21 @@ def stop(server: ApiServer) -> None:
 
 def main(argv=None):
     import sys
+
+    from ..cli import configure_obs
     args = parse_args(list(sys.argv[1:] if argv is None else argv))
-    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s %(message)s")
-    state = build_state(args)
+    slo = configure_obs(args)
+    if slo is not None:
+        _log.info("slo_enabled", extra={"spec": slo.spec_display,
+                                        "windows": [w for w, _ in slo.windows]})
+    state = build_state(args, slo)
     try:
         serve(state, host=args.host, port=args.port)
     finally:
         if state.scheduler is not None:
             state.scheduler.close()
+        if slo is not None:
+            print(slo.summary_line())
 
 
 if __name__ == "__main__":

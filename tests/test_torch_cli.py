@@ -50,7 +50,7 @@ def test_greedy_generate_byte_identical_to_jax(model_files):
     # 24 steps = 2 prompt tokens + 22 generated: 1 prefill + 21 decode forwards,
     # each 2 layers x (wqkv, wo, w13, w2) + wcls = 9 plain matmuls on the CPU
     assert port.stdout.splitlines()[-1] == (
-        "💡 q40 launches: kernel=0 plain=198 dense_prefill=0 forwards=22 "
+        "💡 q40 launches: kernel=0 plain=198 forwards=22 "
         "kernel_per_forward=0 device=cpu")
 
 
@@ -73,7 +73,8 @@ def test_inference_prints_stats(model_files):
     (["worker"], "mode 'worker'"),
     (["generate", "--workers", "tpu:2", "--ep", "2"], "--ep"),
     (["generate", "--pld", "4", "--sp", "2"], "--sp, --pld"),
-    (["generate", "--kv-cache-dtype", "q8"], "--kv-cache-dtype q8"),
+    (["generate", "--kv-reserve", "optimistic", "--snapshot-dir", "x"],
+     "--kv-reserve, --snapshot-dir"),
     (["router", "--backends", "127.0.0.1:1"], "mode 'router', --backends"),
     (["serve-pod", "--supervise"], "mode 'serve-pod', --supervise"),
     (["generate", "--dequantize", "--weights-float-type", "q40"],
@@ -135,6 +136,61 @@ def test_no_sched_overlap_is_accepted_and_reaches_the_scheduler(model_files):
             api.stop(server)
 
 
+OBS_FLAGS = ["--log-format", "json", "--log-level", "debug", "--trace-buffer", "64",
+             "--flight-buffer", "16", "--event-buffer", "32", "--event-log", "ev.jsonl",
+             "--slo", "ttft_p95=1500ms,error_rate=0.5%"]
+
+
+def test_observability_flags_are_accepted():
+    """The observability flags and ``--kv-cache-dtype q8`` left the
+    not-ported list: the CLI and the server accept them; a bad ``--slo``
+    exits naming the objective, as the JAX CLI does."""
+    from dllama_tpu_torch import cli
+    from dllama_tpu_torch.server import api
+    args = cli.build_parser().parse_args(["generate", "--kv-cache-dtype", "q8", *OBS_FLAGS])
+    assert cli.not_ported(args) == []
+    args = api.parse_args(["--kv-cache-dtype", "q8", *OBS_FLAGS])
+    assert (args.log_format, args.trace_buffer, args.slo) == \
+        ("json", 64, "ttft_p95=1500ms,error_rate=0.5%")
+    bad = cli.build_parser().parse_args(["generate", "--slo", "bogus_p95=1s"])
+    with pytest.raises(SystemExit, match="--slo: unknown SLO objective 'bogus_p95'"):
+        cli.configure_obs(bad)
+
+
+def test_server_runs_with_observability_flags(model_files, tmp_path):
+    """The server configured by every observability flag, on the int8
+    contiguous cache (the scheduler steps aside, the lockstep batch
+    serves): the response echoes the request id, the flight ring holds
+    the request, and /health has the SLO verdict."""
+    import json
+    import urllib.request
+
+    from dllama_tpu_torch.obs import log as obs_log
+    from dllama_tpu_torch.server import api
+    m, t = model_files
+    flags = [f if f != "ev.jsonl" else str(tmp_path / "ev.jsonl") for f in OBS_FLAGS]
+    server = api.start(["--model", m, "--tokenizer", t, "--device", "cpu", "--host",
+                        "127.0.0.1", "--port", "0", "--batch-slots", "2",
+                        "--kv-cache-dtype", "q8", *flags])
+    try:
+        assert server.state.scheduler is None and server.state.batch_engine.cache.quantized
+        base = f"http://127.0.0.1:{server.server_address[1]}"
+        req = urllib.request.Request(base + "/v1/completions", json.dumps(
+            {"prompt": ["hi", "hello"], "max_tokens": 4, "temperature": 0}).encode(),
+            headers={"X-Request-Id": "cli-obs-1"})
+        with urllib.request.urlopen(req, timeout=60) as r:
+            assert r.status == 200 and r.headers["X-Request-Id"] == "cli-obs-1"
+            assert len(json.loads(r.read())["choices"]) == 2
+        with urllib.request.urlopen(base + "/debug/requests/cli-obs-1", timeout=60) as r:
+            assert json.loads(r.read())["finish"] == "served"
+        with urllib.request.urlopen(base + "/health", timeout=60) as r:
+            slo = json.loads(r.read())["slo"]
+        assert set(slo["objectives"]) == {"ttft_p95", "error_rate"}
+    finally:
+        api.stop(server)
+        obs_log.configure("human", "info", force=True)
+
+
 def test_cuda_request_without_cuda_fails(model_files):
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA device")
@@ -159,7 +215,9 @@ for mod in pkgutil.walk_packages(dllama_tpu_torch.__path__, "dllama_tpu_torch.")
     if not mod.name.endswith("__main__"):
         importlib.import_module(mod.name)
 for name in ("server.api", "runtime.scheduler", "runtime.pagepool", "runtime.stream",
-             "tokenizer.chat", "tokenizer.eos", "server.backoff", "ops.q8"):
+             "tokenizer.chat", "tokenizer.eos", "server.backoff", "ops.q8",
+             "obs.log", "obs.metrics", "obs.trace", "obs.events", "obs.flight",
+             "obs.slo", "obs.dispatch"):
     assert "dllama_tpu_torch." + name in sys.modules, name
 from dllama_tpu_torch import cli
 for model in ({m!r}, {moe!r}):
@@ -177,6 +235,10 @@ srv = api.start(["--model", {m!r}, "--tokenizer", {t!r}, "--device", "cpu", "--p
 req = urllib.request.Request(f"http://127.0.0.1:{{srv.server_address[1]}}/v1/completions",
                              json.dumps({{"prompt": "hi", "max_tokens": 4}}).encode())
 assert urllib.request.urlopen(req, timeout=60).status == 200
+base = f"http://127.0.0.1:{{srv.server_address[1]}}"
+for path in ("/metrics", "/metrics?format=prometheus", "/debug/trace", "/debug/events",
+             "/debug/requests", "/debug/timeline", "/health"):
+    assert urllib.request.urlopen(base + path, timeout=60).status == 200, path
 api.stop(srv)
 bad = sorted(k for k in sys.modules
              if k.split(".")[0] in ("jax", "jaxlib", "dllama_tpu"))
@@ -193,7 +255,7 @@ _FOREIGN_IMPORT = re.compile(r"^\s*(?:import|from)\s+(?:jax|jaxlib|dllama_tpu)(?
 
 
 def test_static_scan_finds_no_foreign_imports():
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    files = [os.path.join(REPO, f) for f in ("chip_smoke.py", "chip_ab_serving.py")]
     for root, _, names in os.walk(PORT):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 15

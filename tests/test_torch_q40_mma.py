@@ -36,7 +36,7 @@ SCRATCH_BOUND = N_SMS * 128 * 128 * 4
 @pytest.mark.parametrize("t", [1, 2, 3, 4, 5, 8, 16, 17, 64, 128])
 def test_route_by_rows(t):
     assert tq40.route(t) == ("gemv" if t < tq40.T_MMA else "mma")
-    assert 1 < tq40.T_MMA <= tq40.PALLAS_MAX_ROWS
+    assert 1 < tq40.T_MMA <= tq40.MMA_BMS[-1]
 
 
 @pytest.mark.parametrize("t", [16, 128])
@@ -49,6 +49,19 @@ def test_mma_plan_covers_n_and_bounds_scratch(n, d, t):
     tiles = -(-t // bm) * -(-d // tq40.MMA_BN)
     assert splits == 1 or splits * tiles <= tq40.MMA_BLOCKS_PER_SM[bm] * N_SMS
     assert (splits * t * d * 4 if splits > 1 else 0) <= SCRATCH_BOUND
+
+
+@pytest.mark.parametrize("t", [512, 4096])
+@pytest.mark.parametrize("n,d", SITES)
+def test_mma_plan_at_scoring_widths(n, d, t):
+    """A scoring or long prefill forward (B·bucket rows, thousands) takes
+    the tallest tile; at 7B widths the output tiles alone fill the wave, so
+    the split count falls to 1 and no split scratch is allocated."""
+    bm, splits, per = tq40.mma_plan(t, n, d, N_SMS)
+    assert bm == tq40.MMA_BMS[-1]
+    steps = -(-n // tq40.MMA_BK)
+    assert splits * per >= steps and (splits - 1) * per < steps
+    assert splits == 1
 
 
 def test_7b_wo_scratch_against_the_gemv_plan():
