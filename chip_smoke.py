@@ -216,8 +216,43 @@ Phases (each prints its seconds; any failure exits non-zero):
 3q. ``inference --kv-cache-dtype q8`` at Llama-2-7B width and depth, as
    phase 3 (129 launches a forward, the profile, graphs on and off).
 
+21. state off the card and back, at Llama-2-7B width and depth (phase 3's
+   file, loaded once; every server of the phase has its own caches over
+   those weights, phase 7's arguments):
+   21a snapshots: on a bf16 and an int8 pool, a greedy chat, a drain with
+   ``--snapshot-dir`` and a second server booted from it: its chat reuses
+   the restored prefix (the prefill kernel and kernel 7 read the restored
+   pages, plain 0) and answers the cold server's text byte for byte; the
+   batch-1 engine (graphs on) restores in place between two turns of a
+   conversation and repeats the second turn byte for byte with replays and
+   no new capture.
+   21b hand-off: two servers with ``--handoff``; a greedy 512-token request
+   streams on A, A drains after the first chunk, ``GET
+   /admin/export/<rid>`` (once: a second fetch is 404) and ``POST
+   /admin/import?emitted_chars=N`` at B: the joined text equals B's
+   undisturbed answer; ``/admin/checkpoint`` of a live slot, and an int8
+   pool's record at a bf16 pool (409).  Prints the record's bytes, export
+   and import ms, and a plain pinned ``copy_`` of the same bytes each way.
+   21c QoS: 8 ``batch`` requests of 256 new tokens (equal-length prompts,
+   released together), then one ``interactive`` request: at least one
+   preemption, each victim's text equal to its solo run's after it
+   resumes; the interactive TTFT beside its TTFT on an idle server, the
+   export and preempt-to-resume ms; then ``--preempt-cap 0`` (a victim
+   finishes ``preempted``) and ``--no-preempt`` (no preemption).
+   21d KV tier: phase 7's 16 requests through ``--kv-reserve optimistic``
+   on 129 pages with ``--kv-host-pool-mb 2048 --spill-headroom 0`` and through full
+   reservation on 513 pages, both at prefill chunk 1 (every row's every
+   position through the single-token step, so its bytes do not depend on
+   which rows share a step): the same texts byte for byte.  Then both at
+   phase 7's chunk 16 (optimistic on 121 pages), the requests queued
+   together: each request's tokens before the first step only a pressed
+   pool takes equal, every request finishes, the prefill kernel runs.
+   Each optimistic pass: at least one spill and one page-in, no graph
+   re-captured after it; tok/s of all four, spill and page-in ms a page.
+   21b's import, 21c's resumes and 21a's restores capture no new graph.
+
 They run in the order 1, 2, 13, 9, 6, 6c, 16, 3, 17, 4, 5, 8, 15, 20b, 18,
-7, 20, 3q, 14, 10, 11, 12, 19; each synthesized model is deleted when its
+7, 20, 3q, 21, 14, 10, 11, 12, 19; each synthesized model is deleted when its
 phases end.
 ``--only 1,6c`` runs a subset of the phases (for bring-up; it prints no
 result lines; ``6`` includes ``6c``).  Phase 3 also prints each captured
@@ -2566,6 +2601,705 @@ def tp_end_to_end(mfile, params_mod, config, transformer, engine_mod, q40, atten
     torch.cuda.empty_cache()
 
 
+# phase 21: state off the card and back (snapshots, hand-off, QoS, KV tier)
+QOS_PROMPT_TOKENS = 192   # each batch request's prompt (equal lengths: see qos_round)
+QOS_NEW = 256             # each batch request's budget
+HANDOFF_PROMPT = 512      # the hand-off request's prompt, in characters (~tokens)
+# headroom 0: admission binds the prompt's pages alone, so decode growth meets
+# a pool that admissions keep full (with 16 the mix ran dry without a spill
+# in a CPU rehearsal at the same token counts)
+TIER_ARGS = ["--kv-reserve", "optimistic", "--kv-host-pool-mb", "2048", "--spill-headroom", "0"]
+# the optimistic pools: 129 pages at chunk 1; at chunk 16, with the requests
+# queued together, 129 pages never spill (admission waits, radix eviction
+# covers every growth), and 121 spill twice (the scheduler's decisions
+# depend on token counts alone: a CPU run of this pass at the card's token
+# counts repeats the card's stats at 129)
+TIER_PAGES, TIER16_PAGES = "129", "121"
+
+
+def _start(api, m: str, t: str, stack, extra=()):
+    """An API server over the already loaded ``stack`` (its own engines'
+    caches, the stack's weights) with phase 7's arguments and ``extra``."""
+    srv = api.start(["--model", m, "--tokenizer", t, *SERVE_ARGS, *extra], stack=stack)
+    return srv, f"http://127.0.0.1:{srv.server_address[1]}"
+
+
+def _ask(base: str, path: str, body: dict, rid: str | None = None):
+    """(text, answer: the JSON, or the SSE text of a streamed request) of one
+    request that must answer 200."""
+    code, _, raw = _request(base, path, body, {"X-Request-Id": rid} if rid else None)
+    if code != 200:
+        raise AssertionError(f"{path} answered {code}: {raw[:400]}")
+    ans = raw if body.get("stream") else json.loads(raw)
+    return _answer_text(path, body, ans), ans
+
+
+def _flight(base: str, rid: str) -> dict:
+    return json.loads(_request(base, f"/debug/requests/{rid}")[2])
+
+
+def _texts(n: int, k: int, seed: int) -> list[str]:
+    rng = np.random.RandomState(seed)
+    letters = list("abcdefghijklmnopqrstuvwxyz  ")
+    return ["".join(rng.choice(letters, k)) for _ in range(n)]
+
+
+def _equal_token_prompts(tok, n: int, n_tokens: int, seed: int) -> list[str]:
+    """``n`` random texts that encode to exactly ``n_tokens`` tokens each."""
+    rng = np.random.RandomState(seed)
+    letters = list("abcdefghijklmnopqrstuvwxyz  ")
+    out = []
+    while len(out) < n:
+        text = "".join(rng.choice(letters, n_tokens + 64))
+        while len(tok.encode(text, add_bos=True)) > n_tokens:
+            text = text[:-1]
+        if len(tok.encode(text, add_bos=True)) == n_tokens:
+            out.append(text)
+    return out
+
+
+def _moved(attention, label: str) -> dict:
+    """The attention counters of a window that read moved pages: kernel 7
+    launched, no plain call; returns them."""
+    c = attention.counters()
+    if not c["kernel_launches"] or c["plain_calls"] or c["prefill_plain_calls"]:
+        raise AssertionError(f"{label}: attention counters {c}")
+    print(f"{label}: kernel 7 launches {c['kernel_launches']}, plain {c['plain_calls']}; "
+          f"prefill kernel launches {c['prefill_launches']}, plain "
+          f"{c['prefill_plain_calls']}")
+    return c
+
+
+def pinned_copy_ms(nbytes: int, dev) -> dict:
+    """The yardstick of a move: one plain ``copy_`` of ``nbytes`` between
+    pinned host memory and the card, each way, the median of 5."""
+    host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    card = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    out = {}
+    for name, dst, src in (("d2h", host, card), ("h2d", card, host)):
+        dst.copy_(src, non_blocking=True)
+        torch.cuda.synchronize()
+        ts = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            dst.copy_(src, non_blocking=True)
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        out[name] = float(np.median(ts))
+    del host, card
+    return out
+
+
+def _chat_for_prefill(state) -> list[dict]:
+    """A system prompt and a user turn whose templated prompt ends 8 to 15
+    tokens past a page edge: the warm server's prefix hit then leaves a
+    suffix of that many tokens, fed as a mixed step whose prefill kernel
+    reads the restored pages (a 1-token suffix would be a decode step)."""
+    from dllama_tpu_torch.tokenizer.chat import ChatItem
+    system = "You are a terse assistant. " + _texts(1, 300, 21)[0]
+    for user in (_texts(1, 24 + i, 22 + i)[0] for i in range(64)):
+        msgs = [{"role": "system", "content": system}, {"role": "user", "content": user}]
+        text = state.template.generate([ChatItem(x["role"], x["content"]) for x in msgs], True)
+        if 8 <= len(state.tokenizer.encode(text, add_bos=True)) % 16:
+            return msgs
+    raise AssertionError("no user turn ends 8 to 15 tokens past a page edge")
+
+
+def snapshot_warm_boot(api, attention, m, t, stack, work: str, codec: str) -> dict:
+    """21a: a greedy chat on a fresh server (bf16 or int8 pool, graphs on),
+    a drain that saves its snapshot, a second server that boots from it:
+    the same chat reuses the restored prefix pages (the prefill kernel reads
+    them, then kernel 7) and answers byte for byte.  Returns the counters
+    and times."""
+    extra = ["--snapshot-dir", os.path.join(work, f"snap-{codec}")]
+    if codec == "int8":
+        extra += ["--kv-quant", "int8"]
+    cold, base = _start(api, m, t, stack, extra)
+    out = {}
+    try:
+        chat = ("/v1/chat/completions", {"messages": _chat_for_prefill(cold.state),
+                                         "max_tokens": 48, "temperature": 0})
+        want, _ = _ask(base, *chat)
+        if cold.state.scheduler.occupancy()["prefix_nodes"] == 0:
+            raise AssertionError("the cold chat cached no prompt page")
+        if codec == "int8":
+            # a live int8 request's record: phase 21b's geometry refusal
+            sched = cold.state.scheduler
+            tk = sched.submit(stack[1].encode("hello " * 40, add_bos=True), 64)
+            it = tk.tokens()
+            next(it)
+            out["int8_record"] = sched.checkpoint_export(tk.rid)
+            tk.cancel()
+            list(it)
+            if out["int8_record"] is None:
+                raise AssertionError("no live int8 slot to checkpoint")
+        cold.state.begin_drain()
+    finally:
+        t0 = time.perf_counter()
+        api.stop(cold)
+        save_s = time.perf_counter() - t0
+    snap_dir = extra[1]
+    sizes = {f: os.path.getsize(os.path.join(snap_dir, f)) for f in sorted(os.listdir(snap_dir))}
+    t0 = time.perf_counter()
+    warm, base = _start(api, m, t, stack, extra)
+    boot_s = time.perf_counter() - t0
+    try:
+        sched = warm.state.scheduler
+        if sched.occupancy()["prefix_nodes"] == 0 or os.listdir(snap_dir):
+            raise AssertionError(f"the warm boot restored no prefix: {sched.occupancy()}, "
+                                 f"left {os.listdir(snap_dir)}")
+        attention.reset_counters()
+        got, _ = _ask(base, *chat)
+        c = _moved(attention, f"21a {codec}: the warm chat over restored pages")
+        if not c["prefill_launches"]:
+            raise AssertionError("the warm chat's suffix never ran the prefill kernel")
+        reused = sched.stats["prefix_tokens_reused"]
+        if got != want or not reused:
+            raise AssertionError(f"warm boot ({codec}): reused {reused} prompt tokens; "
+                                 f"texts equal: {got == want}")
+        print(f"21a {codec} pool: snapshot {sizes} bytes, drain + save {save_s:.2f} s, "
+              f"boot + restore {boot_s:.2f} s; the warm chat reused {reused} prompt "
+              f"tokens and answered the cold server's {len(got)} characters byte for byte")
+    finally:
+        api.stop(warm)
+    return dict(out, attn=c, save_s=save_s, boot_s=boot_s, snap_bytes=sum(sizes.values()))
+
+
+def engine_snapshot_mid_conversation(eng, work: str) -> None:
+    """21a: the batch-1 engine (graphs on) snapshots after a first turn;
+    the second turn's greedy bytes after a restore (in place) equal the
+    uninterrupted second turn's, with replays and no new capture."""
+    p1, p2 = ([int(x) for x in np.random.RandomState(s).randint(5, eng.cfg.vocab_size, n)]
+              for s, n in ((23, 100), (24, 20)))
+    eng.reset()
+    list(eng.generate_stream(p1, len(p1) + 48, temperature=0.0, chunk=16))
+    path = os.path.join(work, "engine.snap")
+    t0 = time.perf_counter()
+    eng.snapshot(path)
+    save_s = time.perf_counter() - t0
+    want = [tk for tk, _ in eng.generate_stream(p2, len(p2) + 64, temperature=0.0,
+                                                seed=None, chunk=16)]
+    caps, reps = _graph_counts(eng)
+    t0 = time.perf_counter()
+    eng.restore(path)
+    restore_s = time.perf_counter() - t0
+    got = [tk for tk, _ in eng.generate_stream(p2, len(p2) + 64, temperature=0.0,
+                                               seed=None, chunk=16)]
+    os.remove(path)
+    caps2, reps2 = _graph_counts(eng)
+    if got != want or caps2 != caps or reps2 <= reps:
+        raise AssertionError(f"engine restore: tokens equal {got == want}, captures "
+                             f"{caps} -> {caps2}, replays {reps} -> {reps2}")
+    print(f"21a batch-1 engine: snapshot {save_s:.2f} s, restore in place {restore_s:.2f} s; "
+          f"the second turn's {len(got) - len(p2)} tokens byte for byte, "
+          f"{reps2 - reps} replays, no new capture")
+
+
+def _graph_counts(eng) -> tuple[int, int]:
+    """(captures, replays) of the engine's decode graphs."""
+    return eng.graphs.captures, eng.graphs.replays
+
+
+def _graph_state(eng) -> tuple[int, int, set]:
+    """(captures, replays, the keys captured) of the engine's graphs."""
+    return (*_graph_counts(eng), set(eng.graphs.graphs))
+
+
+def _fetch(base: str, path: str, data: bytes | None = None) -> tuple[int, bytes]:
+    """(status, body bytes) of a GET, or of a POST of ``data``."""
+    req = urllib.request.Request(base + path, data, headers={
+        "Content-Type": "application/octet-stream"})
+    try:
+        with urllib.request.urlopen(req, timeout=900) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def _sse_text(raw: bytes) -> tuple[str, list]:
+    text, fins = "", []
+    for line in raw.decode().splitlines():
+        if line.startswith("data: {"):
+            for ch in json.loads(line[6:]).get("choices", []):
+                text += ch.get("text") or ""
+                if ch.get("finish_reason"):
+                    fins.append(ch["finish_reason"])
+    return text, fins
+
+
+def move_breakdown(sched, snapfmt, n_pages: int) -> list[dict]:
+    """Where a record's time goes: the same number of free pages read off
+    the card (gather, pinned copy), encoded (crc32, join), decoded and
+    written back in place, timed apart, twice (the first pass allocates
+    the pinned buffers, the second finds them in PyTorch's host cache)."""
+    eng = sched.engine
+    out = []
+    with sched.exclusive():
+        with sched._cond:
+            pages = sched.pool.alloc(n_pages)
+        try:
+            for _ in range(2):
+                t = [time.perf_counter()]
+                arrays = eng.read_pool_pages(pages)
+                t.append(time.perf_counter())
+                blob = snapfmt.dumps_request(fingerprint="x", pos=0, chunk_counter=0,
+                                             arrays=arrays, extra={})
+                t.append(time.perf_counter())
+                _, back = snapfmt.loads_request(blob)
+                t.append(time.perf_counter())
+                eng.write_pool_pages(pages, back)
+                torch.cuda.synchronize()
+                t.append(time.perf_counter())
+                out.append({k: (b - a) * 1e3 for k, a, b in
+                            zip(("read", "encode", "decode", "write"), t, t[1:])})
+        finally:
+            with sched._cond:
+                sched.pool.decref(pages)
+    print(f"21b a record's parts, {n_pages} pages, ms: " + "; then ".join(
+        ", ".join(f"{k} {v:.2f}" for k, v in p.items()) for p in out))
+    return out
+
+
+def handoff_path(api, attention, snapfmt, m, t, stack, dev, int8_record) -> dict:
+    """21b: two servers in one process with --handoff.  A greedy 512-token
+    request streams on A; A drains after the first chunk (the export);
+    the record is fetched once from A and imported into B past the
+    characters the client has: the joined text equals B's undisturbed
+    answer.  Then /admin/checkpoint on a live slot, and an int8 pool's
+    record at B: 409."""
+    a, base_a = _start(api, m, t, stack, ["--handoff"])
+    b, base_b = _start(api, m, t, stack, ["--handoff"])
+    try:
+        body = {"prompt": _texts(1, HANDOFF_PROMPT, 25)[0], "max_tokens": 64,
+                "temperature": 0}
+        want, _ = _ask(base_b, "/v1/completions", body)
+        sched_b = b.state.scheduler
+        import_ms = []
+        orig = sched_b.import_request
+
+        def timed_import(blob):
+            t0 = time.perf_counter()
+            r = orig(blob)
+            import_ms.append((time.perf_counter() - t0) * 1e3)
+            return r
+        sched_b.import_request = timed_import
+        req = urllib.request.Request(base_a + "/v1/completions",
+                                     json.dumps(dict(body, stream=True)).encode(),
+                                     headers={"Content-Type": "application/json",
+                                              "X-Request-Id": "handoff-7b"})
+        got, fins, drain = "", [], {}
+
+        def drain_a():
+            t0 = time.perf_counter()
+            a.state.begin_drain()
+            drain["ms"] = (time.perf_counter() - t0) * 1e3
+        th = None
+        with urllib.request.urlopen(req, timeout=900) as r:
+            for line in r:
+                line = line.decode().strip()
+                if not line.startswith("data: {"):
+                    continue
+                ch = json.loads(line[6:])["choices"][0]
+                got += ch["text"]
+                if ch["finish_reason"]:
+                    fins.append(ch["finish_reason"])
+                if th is None and got:
+                    th = threading.Thread(target=drain_a)
+                    th.start()
+        th.join()
+        code, rec = _fetch(base_a, "/admin/export/handoff-7b")
+        again, _ = _fetch(base_a, "/admin/export/handoff-7b")
+        if fins != ["handoff"] or code != 200 or again != 404:
+            raise AssertionError(f"A's stream finished {fins}; export {code}, again {again}")
+        meta, arrays = snapfmt.loads_request(rec)
+        pos = int(meta["pos"])
+        attention.reset_counters()
+        # B served this request at these positions already: its decode
+        # after the import only replays
+        caps, reps = _graph_counts(b.state.batch_engine)
+        code, raw = _fetch(base_b, f"/admin/import?emitted_chars={len(got)}", rec)
+        caps2, reps2 = _graph_counts(b.state.batch_engine)
+        rest, fins = _sse_text(raw)
+        c = _moved(attention, "21b the imported request's decode over the moved pages")
+        if code != 200 or got + rest != want or fins != ["length"]:
+            raise AssertionError(f"import {code} {fins}: joined text equals the undisturbed "
+                                 f"one: {got + rest == want}")
+        if caps2 != caps or reps2 <= reps:
+            raise AssertionError(f"21b import: captures {caps} -> {caps2}, replays {reps} -> "
+                                 f"{reps2}")
+        yard = pinned_copy_ms(len(rec), dev)
+        print(f"21b hand-off of a {len(want)}-character request at position {pos} "
+              f"({-(-pos // 16)} pages): record {len(rec)} bytes; export (drain, one slot) "
+              f"{drain['ms']:.2f} ms, import {import_ms[0]:.2f} ms; pinned copy_ of the same "
+              f"bytes d2h {yard['d2h']:.2f} ms, h2d {yard['h2d']:.2f} ms; the client's "
+              f"{len(got)} characters from A and {len(rest)} from B join byte for byte; "
+              f"B's slot graphs after the import: {reps2 - reps} replays, no new capture")
+        parts = move_breakdown(sched_b, snapfmt, -(-pos // 16))
+        # a checkpoint of a live slot: the request keeps decoding
+        box = {}
+        live = threading.Thread(target=lambda: box.update(ans=_ask(
+            base_b, "/v1/completions", dict(body, max_tokens=128), rid="ckpt-7b")))
+        live.start()
+        deadline = time.monotonic() + 120
+        code = 404
+        while code != 200 and time.monotonic() < deadline:
+            code, ck = _fetch(base_b, "/admin/checkpoint/ckpt-7b")
+            time.sleep(0.01)
+        live.join()
+        ck_meta, _ = snapfmt.loads_request(ck)
+        if code != 200 or box["ans"][1]["choices"][0]["finish_reason"] != "length":
+            raise AssertionError(f"checkpoint {code}, live answer {box['ans'][1]}")
+        code, raw = _fetch(base_b, "/admin/import", int8_record)
+        if code != 409:
+            raise AssertionError(f"an int8 pool's record answered {code} at a bf16 pool")
+        print(f"21b /admin/checkpoint of a live slot at position {ck_meta['pos']}: 200, the "
+              f"request went on to finish; an int8 pool's record at a bf16 pool: 409")
+        return dict(attn=c, record_bytes=len(rec), export_ms=drain["ms"],
+                    import_ms=import_ms[0], yard=yard, pos=pos, parts=parts)
+    finally:
+        api.stop(a)
+        api.stop(b)
+
+
+def qos_round(api, attention, m, t, stack, extra, new: int, label: str) -> dict:
+    """8 batch requests (prompts of QOS_PROMPT_TOKENS tokens each, released
+    together, so they prefill in the same steps and then only decode), then
+    one interactive request once every batch request decodes.  Returns the
+    answers, the interactive TTFT, the victims and the counters."""
+    tok = stack[1]
+    srv, base = _start(api, m, t, stack, extra)
+    sched = srv.state.scheduler
+    eng = srv.state.batch_engine
+    at_resume = []
+    unpark = sched._unpark_locked
+
+    def unpark_seen(*a, **k):
+        if not at_resume:
+            at_resume.append(_graph_counts(eng))
+        return unpark(*a, **k)
+    sched._unpark_locked = unpark_seen
+    try:
+        prompts = _equal_token_prompts(tok, 8, QOS_PROMPT_TOKENS, 26)
+        inter = {"prompt": _equal_token_prompts(tok, 2, 64, 27)[0], "max_tokens": 16,
+                 "temperature": 0, "priority": "interactive"}
+        answers: list = [None] * 8
+        threads = [threading.Thread(target=lambda i=i: answers.__setitem__(i, _ask(
+            base, "/v1/completions", {"prompt": prompts[i], "max_tokens": new,
+                                      "temperature": 0, "priority": "batch"},
+            rid=f"{label}-b{i}"))) for i in range(8)]
+        st0 = dict(sched.stats)
+        attention.reset_counters()
+        with sched.exclusive():
+            for i, th in enumerate(threads):
+                th.start()
+                while sched.occupancy()["queued"] < i + 1:
+                    time.sleep(0.002)
+        deadline = time.monotonic() + 300
+        while sched.stats["prefill_tokens"] - st0["prefill_tokens"] < 8 * QOS_PROMPT_TOKENS:
+            if time.monotonic() > deadline:
+                raise AssertionError("the batch requests never finished their prefill")
+            time.sleep(0.002)
+        time.sleep(0.05)
+        _ask(base, "/v1/completions", inter, rid=f"{label}-i")
+        ttft = _flight(base, f"{label}-i")["ttft_s"] * 1e3
+        for th in threads:
+            th.join()
+        graphs = (at_resume[0] if at_resume else None, _graph_counts(eng))
+        c = attention.counters()
+        recs = [_flight(base, f"{label}-b{i}") for i in range(8)]
+        victims = [i for i, r in enumerate(recs) if r.get("preempt_count")]
+        parked = [p["parked_ms"] for r in recs for p in r["phases"] if p["kind"] == "resumed"]
+        export = [p["export_ms"] for r in recs for p in r["phases"]
+                  if p["kind"] == "preempted"]
+        return dict(answers=answers, prompts=prompts, ttft=ttft, victims=victims,
+                    parked_ms=parked, export_ms=export, counters=c, graphs=graphs,
+                    preemptions=sched.stats["preemptions"] - st0["preemptions"],
+                    srv=srv, base=base)
+    except BaseException:
+        api.stop(srv)
+        raise
+
+
+def qos_path(api, attention, m, t, stack) -> dict:
+    """21c: the interactive request preempts a batch slot; each victim's
+    text equals its solo run's after it resumes; the interactive TTFT
+    beside its TTFT on an idle server; --preempt-cap 0 finishes the victim
+    ``preempted``; --no-preempt preempts nothing."""
+    r = qos_round(api, attention, m, t, stack, [], QOS_NEW, "qos")
+    srv, base = r["srv"], r["base"]
+    try:
+        if r["preemptions"] < 1 or not r["victims"]:
+            raise AssertionError(f"no preemption: {r['preemptions']}, victims {r['victims']}")
+        c = r["counters"]
+        if not c["kernel_launches"] or c["plain_calls"] or c["prefill_plain_calls"]:
+            raise AssertionError(f"21c attention counters {c}")
+        # from the first unpark on, the batch requests only decode (the
+        # interactive prefill ran before it): replays, no new capture
+        at, end = r["graphs"]
+        if at is None or end[0] != at[0] or end[1] <= at[1]:
+            raise AssertionError(f"21c graphs at the first resume {at}, at the end {end}")
+        for i in r["victims"]:
+            text, ans = _ask(base, "/v1/completions", {"prompt": r["prompts"][i],
+                                                       "max_tokens": QOS_NEW,
+                                                       "temperature": 0})
+            if (text != r["answers"][i][0] or ans["choices"][0]["finish_reason"]
+                    != r["answers"][i][1]["choices"][0]["finish_reason"]):
+                raise AssertionError(f"victim {i} resumed to another text than its solo run's")
+        # the interactive request on the idle server (another prompt of the
+        # same length: the first one's pages are in the prefix cache)
+        idle = {"prompt": _equal_token_prompts(stack[1], 2, 64, 27)[1], "max_tokens": 16,
+                "temperature": 0, "priority": "interactive"}
+        _ask(base, "/v1/completions", idle, rid="qos-idle")
+        idle_ttft = _flight(base, "qos-idle")["ttft_s"] * 1e3
+        print(f"21c {r['preemptions']} preemption(s), victims {r['victims']}: each resumed to "
+              f"its solo run's text byte for byte; preempt export "
+              f"{', '.join(f'{x:.2f}' for x in r['export_ms'])} ms, preempt to resume "
+              f"{', '.join(f'{x:.1f}' for x in r['parked_ms'])} ms; interactive TTFT "
+              f"{r['ttft']:.1f} ms among 8 batch requests, {idle_ttft:.1f} ms on an idle "
+              f"server; kernel 7 launches {c['kernel_launches']}, prefill kernel "
+              f"{c['prefill_launches']}, plain 0; from the first resume on {end[1] - at[1]} "
+              f"replays, no new capture")
+    finally:
+        api.stop(srv)
+    out = dict(preemptions=r["preemptions"], parked_ms=r["parked_ms"], ttft=r["ttft"],
+               idle_ttft=idle_ttft, export_ms=r["export_ms"], attn=r["counters"])
+    for extra, label in ((["--preempt-cap", "0"], "cap0"), (["--no-preempt"], "nopre")):
+        q = qos_round(api, attention, m, t, stack, extra, 64, label)
+        api.stop(q["srv"])
+        fins = [a[1]["choices"][0]["finish_reason"] for a in q["answers"]]
+        if label == "cap0" and "preempted" not in fins:
+            raise AssertionError(f"--preempt-cap 0: finishes {fins}")
+        if label == "nopre" and (q["preemptions"] or not set(fins) <= {"length", "stop"}):
+            raise AssertionError(f"--no-preempt: {q['preemptions']} preemptions, {fins}")
+        print(f"21c {' '.join(extra)}: {q['preemptions']} preemption(s), finishes {fins}, "
+              f"interactive TTFT {q['ttft']:.1f} ms")
+        out[label] = dict(preemptions=q["preemptions"], fins=fins, ttft=q["ttft"])
+    return out
+
+
+def _tier_run(api, attention, m, t, stack, reqs, name: str, extra: list[str],
+              together: bool) -> dict:
+    """One pass of 21d: ``reqs`` through a fresh server with ``extra``.
+    ``together``: every request is queued before the first admission (in
+    order, under ``exclusive()``), so the dispatch sequence is a function
+    of the scheduler's state alone; else the first request goes first (its
+    prompt pages enter the prefix cache) and the rest follow 10 ms apart.
+    Returns the texts, finish reasons, completion tokens, tok/s, stats,
+    the spill and page-in phases, the attention counters, each request's
+    emitted count at the first step that only a pool under pressure takes
+    (a spill, a preemption or a radix eviction: until then a run's
+    dispatches are those of an unpressed pool), and the graph counts at
+    the first page-in and at the end."""
+    srv, base = _start(api, m, t, stack, extra)
+    try:
+        sched = srv.state.scheduler
+        eng = srv.state.batch_engine
+        tickets, first = {}, {}
+        submit = sched.submit
+
+        def submit_kept(*a, **k):
+            tk = submit(*a, **k)
+            tickets[tk.rid] = tk
+            return tk
+
+        def first_pressure(fn, took=lambda out: True):
+            def wrapped(*a, **k):
+                out = fn(*a, **k)
+                if took(out):
+                    first.setdefault("pressure",
+                                     {r: len(tk.emitted) for r, tk in tickets.items()})
+                return out
+            return wrapped
+        page_in = sched._try_page_in_locked
+
+        def page_in_seen():
+            n0 = sched.stats["pages_paged_in"]
+            page_in()
+            if "graphs" not in first and sched.stats["pages_paged_in"] > n0:
+                first["graphs"] = _graph_state(eng)
+                first["attn"] = attention.counters()
+        sched.submit = submit_kept
+        sched._spill_one_locked = first_pressure(sched._spill_one_locked, bool)
+        sched._preempt_locked = first_pressure(sched._preempt_locked)
+        if sched.prefix_cache is not None:
+            sched.prefix_cache.evict = first_pressure(sched.prefix_cache.evict, bool)
+        sched._try_page_in_locked = page_in_seen
+        results: list = [None] * len(reqs)
+        attention.reset_counters()
+
+        def run(i):
+            results[i] = _ask(base, *reqs[i], rid=f"tier-{name}-{i}")
+        threads = [threading.Thread(target=run, args=(i,)) for i in range(len(reqs))]
+        t0 = time.perf_counter()
+        if together:
+            with sched.exclusive():
+                for i, th in enumerate(threads):
+                    th.start()
+                    while sched.occupancy()["queued"] < i + 1:
+                        time.sleep(0.002)
+        else:
+            threads[0].start()
+            while sched.occupancy()["prefix_nodes"] == 0 and threads[0].is_alive():
+                time.sleep(0.01)
+            for th in threads[1:]:
+                th.start()
+                time.sleep(0.01)
+        for th in threads:
+            th.join()
+        wall = time.perf_counter() - t0
+        n_tok = sum(r["completion_tokens"] for r in list(srv.state.finished)[-len(reqs):])
+        phases = [p for i in range(len(reqs))
+                  for p in _flight(base, f"tier-{name}-{i}")["phases"]]
+        rids = [f"tier-{name}-{i}" for i in range(len(reqs))]
+        if sorted(tickets) != sorted(rids):
+            raise AssertionError(f"21d {name}: requests off the scheduler: {sorted(tickets)}")
+        fins = [_sse_text(a[1].encode())[1][-1] if reqs[i][1].get("stream")
+                else a[1]["choices"][0]["finish_reason"] for i, a in enumerate(results)]
+        return dict(texts=[a[0] for a in results], fins=fins, tok_s=n_tok / wall,
+                    tokens=[list(tickets[r].emitted) for r in rids],
+                    pressure=[first.get("pressure", {}).get(r) for r in rids],
+                    stats=dict(sched.stats),
+                    spill=[(p["ms"], p["pages"]) for p in phases if p["kind"] == "kv_spill"],
+                    pagein=[(p["ms"], p["pages"]) for p in phases if p["kind"] == "kv_pagein"],
+                    attn=_moved(attention, f"21d {name}"), attn_at_pagein=first.get("attn"),
+                    graphs_at_pagein=first.get("graphs"),
+                    graphs_end=_graph_state(eng))
+    finally:
+        api.stop(srv)
+
+
+def _no_capture_since_pagein(run: dict, label: str) -> str:
+    """A page-in writes the pool in place: since the first one, every
+    capture is of a key never seen before (none re-captured), and the
+    graphs kept replaying.  Returns the counts as text."""
+    if run["graphs_at_pagein"] is None:
+        raise AssertionError(f"{label}: no page-in")
+    caps, reps, keys = run["graphs_at_pagein"]
+    caps2, reps2, keys2 = run["graphs_end"]
+    if caps2 - caps != len(keys2 - keys) or reps2 <= reps:
+        raise AssertionError(f"{label}: since the first page-in captures {caps} -> {caps2} "
+                             f"(new keys {len(keys2 - keys)}), replays {reps} -> {reps2}")
+    return (f"since the first page-in {reps2 - reps} replays, {caps2 - caps} captures "
+            f"(of keys first met then)")
+
+
+def tier_path(api, attention, m, t, stack) -> dict:
+    """21d: phase 7's request mix through --kv-reserve optimistic on a pool
+    cut to 129 pages (121 at chunk 16; --kv-host-pool-mb 2048) and through
+    full reservation on 513 pages, in two pairs of passes.
+
+    At --sched-prefill-chunk 1 every position of every row goes through the
+    single-token slot step, so a row's bytes depend on its tokens alone,
+    whatever the spill pattern (a mixed step's rows take the tensor-core
+    body, whose last bits differ from the decode body's): greedy texts
+    equal byte for byte.  At phase 7's chunk 16 (the server's default) the
+    requests are queued together, bursts unclamped by the step-time
+    estimate (--sched-max-wait-ms) and aging off, so both passes dispatch
+    alike until the optimistic pool first comes under pressure: each
+    request's tokens up to then equal, every request finishes, growth runs
+    before 16-wide writes and the prefill kernel reads paged-in pages.
+    Both pairs: at least one spill and one page-in, kernel 7 (and at chunk
+    16 the prefill kernel) with 0 plain calls, no graph re-captured after
+    a page-in; tok/s of every pass and the spill and page-in ms a page."""
+    reqs = serving_requests(16)
+    runs = {}
+    fixed = ["--sched-max-wait-ms", "1e9", "--preempt-age-ms", "0"]
+    for name, extra, together in (
+            ("full", ["--sched-prefill-chunk", "1"], False),
+            ("optimistic", ["--sched-prefill-chunk", "1", "--kv-pages", TIER_PAGES,
+                            *TIER_ARGS], False),
+            ("full16", fixed, True),
+            ("optimistic16", [*fixed, "--kv-pages", TIER16_PAGES, *TIER_ARGS], True)):
+        runs[name] = _tier_run(api, attention, m, t, stack, reqs, name, extra, together)
+    opt, full = runs["optimistic"], runs["full"]
+    opt16, full16 = runs["optimistic16"], runs["full16"]
+    for r, label in ((opt, "chunk 1"), (opt16, "chunk 16")):
+        if not r["stats"]["pages_spilled"] or not r["stats"]["pages_paged_in"]:
+            raise AssertionError(f"21d {label}: no spill or page-in: {r['stats']}")
+    if opt["texts"] != full["texts"]:
+        bad = [i for i, (x, y) in enumerate(zip(opt["texts"], full["texts"])) if x != y]
+        raise AssertionError(f"21d: greedy texts differ from full reservation's at {bad}")
+    for r, label in ((full, "full"), (full16, "full16")):
+        if r["stats"]["pages_spilled"]:
+            raise AssertionError(f"21d: {label} reservation spilled")
+    if not opt16["attn"]["prefill_launches"]:
+        raise AssertionError("21d chunk 16: the prefill kernel never ran")
+    if not set(opt16["fins"]) <= {"length", "stop"}:
+        raise AssertionError(f"21d chunk 16: finishes {opt16['fins']}")
+    # each request's tokens before the first step an unpressed pool would
+    # not take (the full pass's own evictions count too): equal
+    cut = [min(x if x is not None else 1 << 30, y if y is not None else 1 << 30)
+           for x, y in zip(opt16["pressure"], full16["pressure"])]
+    bad = [i for i, (n, a, b) in enumerate(zip(cut, opt16["tokens"], full16["tokens"]))
+           if a[:n] != b[:n]]
+    if bad:
+        raise AssertionError(f"21d chunk 16: tokens before the first pressure differ at {bad}")
+    held = sum(min(n, len(a)) for n, a in zip(cut, opt16["tokens"]))
+    graphs1 = _no_capture_since_pagein(opt, "21d chunk 1")
+    graphs16 = _no_capture_since_pagein(opt16, "21d chunk 16")
+    after = {k: opt16["attn"][k] - opt16["attn_at_pagein"][k]
+             for k in ("kernel_launches", "prefill_launches")}
+    per = {k: sum(ms for ms, _ in opt[k] + opt16[k]) / sum(n for _, n in opt[k] + opt16[k])
+           for k in ("spill", "pagein")}
+    print(f"21d 16 requests, prefill chunk 1: optimistic on 129 pages {opt['tok_s']:.2f} tok/s, "
+          f"{opt['stats']['pages_spilled']} pages spilled in {len(opt['spill'])} spills, "
+          f"{opt['stats']['pages_paged_in']} paged in, {opt['stats']['preemptions']} "
+          f"preemptions; full on 513 pages {full['tok_s']:.2f} tok/s; every text byte for "
+          f"byte; {graphs1}")
+    print(f"21d 16 requests queued together, prefill chunk 16: optimistic on "
+          f"{TIER16_PAGES} pages "
+          f"{opt16['tok_s']:.2f} tok/s, {opt16['stats']['pages_spilled']} pages spilled in "
+          f"{len(opt16['spill'])} spills, {opt16['stats']['pages_paged_in']} paged in, "
+          f"{opt16['stats']['preemptions']} preemptions; full on 513 pages "
+          f"{full16['tok_s']:.2f} tok/s; finishes {sorted(set(opt16['fins']))}; {held} "
+          f"tokens before the first pressure equal the full pass's; after the first "
+          f"page-in kernel 7 launches {after['kernel_launches']}, prefill kernel "
+          f"{after['prefill_launches']}; {graphs16}")
+    print(f"21d spill {per['spill']:.3f} ms a page, page-in {per['pagein']:.3f} ms a page "
+          f"(8 MiB pages, both optimistic passes)")
+    return dict(tok_s_opt=opt["tok_s"], tok_s_full=full["tok_s"], tok_s_opt16=opt16["tok_s"],
+                tok_s_full16=full16["tok_s"], stats=opt["stats"], stats16=opt16["stats"],
+                spill_ms_page=per["spill"], pagein_ms_page=per["pagein"],
+                attn=[r["attn"] for r in runs.values()])
+
+
+def state_movement(api, cli, attention, q40, snapfmt, m: str, t: str, dev) -> dict:
+    """Phase 21 at Llama-2-7B width and depth (phase 3's Q40 file), 8 slots,
+    513 pages of 16, prefill chunk 16 (phase 7's arguments): 21a snapshots
+    and the warm boot, 21b hand-off, 21c QoS, 21d the KV tier.  One model
+    load serves every server of the phase.  Returns the numbers and the
+    launches for the kernel line."""
+    work = os.path.join(WORK, "state")
+    os.makedirs(work, exist_ok=True)
+    stack = cli.load_stack(api.parse_args(["--model", m, "--tokenizer", t, *SERVE_ARGS]))
+    q40.reset_counters()
+    out = {}
+    try:
+        for codec in ("bf16", "int8"):
+            out[f"snap_{codec}"] = snapshot_warm_boot(api, attention, m, t, stack, work, codec)
+        engine_snapshot_mid_conversation(stack[0], work)
+        out["handoff"] = handoff_path(api, attention, snapfmt, m, t, stack, dev,
+                                      out["snap_int8"].pop("int8_record"))
+        out["qos"] = qos_path(api, attention, m, t, stack)
+        out["tier"] = tier_path(api, attention, m, t, stack)
+    finally:
+        del stack
+        gc.collect()
+        torch.cuda.empty_cache()
+    qc = q40.counters()
+    if qc["plain_calls"]:
+        raise AssertionError(f"phase 21: a Q40 matmul left its kernel: {qc}")
+    out["q40"] = qc
+    bf16 = [out["snap_bf16"]["attn"], out["handoff"]["attn"], out["qos"]["attn"],
+            *out["tier"]["attn"]]
+    out["launches"] = {
+        "bf16": sum(c["kernel_launches"] for c in bf16),
+        "bf16_prefill": sum(c["prefill_launches"] for c in bf16),
+        "int8": out["snap_int8"]["attn"]["kernel_launches"],
+        "int8_prefill": out["snap_int8"]["attn"]["prefill_launches"]}
+    return out
+
+
 def kernel_entries(run, run_tp, run_mix, run_blocked, run_q8, run_score, served, table,
                    tp_table, mix_table, blocked_table, q8_table, attn, attn_g4, ar_table,
                    prefill, prefill_g4) -> list:
@@ -2657,7 +3391,7 @@ def main() -> int:
     from dllama_tpu_torch.models import config, params as params_mod, transformer
     from dllama_tpu_torch.ops import _build, attention, q8, q40
     from dllama_tpu_torch.parallel import mesh as mesh_mod, sharding
-    from dllama_tpu_torch.runtime import engine as engine_mod
+    from dllama_tpu_torch.runtime import engine as engine_mod, snapshot as snapfmt
     from dllama_tpu_torch.server import api
 
     dev = torch.device("cuda", 0)
@@ -2718,7 +3452,7 @@ def main() -> int:
             "llama2-7b.m", "32k.t", "l2.m", "l2-chat.m", "32k-chat.t"))
         synth_tokenizer(t, tfile)
         per_fwd = 4 * LLAMA2_7B["n_layers"] + 1
-        if any(map(run_phase, (3, 7, 14, 17, 20, "3q"))):
+        if any(map(run_phase, (3, 7, 14, 17, 20, "3q", 21))):
             synth_model(m, LLAMA2_7B["n_layers"], mfile, quants)
             print(f"synthesized {os.path.getsize(m) / 1e9:.2f} GB")
         if any(map(run_phase, (4, 5, 8, 15, 18, "20b"))):
@@ -2814,6 +3548,10 @@ def main() -> int:
                       f"{per_fwd} Q40 launches a forward")
                 del eng
                 torch.cuda.empty_cache()
+        if run_phase(21):
+            with phase("21 state off the card and back: snapshots, hand-off, QoS, KV tier "
+                       "(Llama-2-7B width and depth)"):
+                p21 = state_movement(api, cli, attention, q40, snapfmt, m, t, dev)
         if run_phase(14):
             with blocked_layout():
                 with phase("14 blocked main path: inference at Llama-2-7B width"):
@@ -2899,6 +3637,14 @@ def main() -> int:
     if only is not None:
         return 0
 
+    # phase 21's launches join the rows of the sites it ran: the Q40 matmuls
+    # of the 7B path, kernel 7 and the prefill kernel on bf16 and int8 pools
+    by_shape = run["counts"]["launches_by_shape"]
+    for key, n in p21["q40"]["launches_by_shape"].items():
+        by_shape[key] = by_shape.get(key, 0) + n
+    for pool in ("bf16", "int8"):
+        served[pool]["attn_launches"] += p21["launches"][pool]
+        served[pool]["prefill_launches"] += p21["launches"][f"{pool}_prefill"]
     kernels = kernel_entries(run, run_tp, run_mix, run_blocked, run_q8, run_score, served,
                              table, tp_table, mix_table, blocked_table, q8_table, attn,
                              attn_g4, ar_table, prefill, prefill_g4)

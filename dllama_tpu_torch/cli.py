@@ -69,12 +69,9 @@ NOT_PORTED_FLAGS = {
     "--scale-up-util": 0.85, "--scale-down-util": 0.15, "--scale-up-queue": 2.0,
     "--reshape-kv-low": 0.08,
     # serving
-    "--kv-reserve": "full", "--spill-headroom": 16, "--kv-host-pool-mb": 64.0,
     "--spec": "off", "--spec-k": 4, "--draft-model": None,
-    "--preempt-age-ms": 5000.0, "--preempt-cap": 3, "--preempt-spill-dir": None,
     "--io-timeout": 15.0, "--drain-grace": 30.0, "--step-timeout": None,
-    "--snapshot-dir": None, "--handoff": False, "--handoff-ttl": 0.0,
-    "--numeric-checks": False, "--verify-weights": False, "--no-preempt": False,
+    "--numeric-checks": False, "--verify-weights": False,
 }
 
 
@@ -133,6 +130,42 @@ def build_parser() -> argparse.ArgumentParser:
                    help="slot scheduler: turn off the two-deep overlapped dispatch "
                         "pipeline and dispatch synchronously (greedy output is "
                         "byte-identical either way)")
+    p.add_argument("--kv-reserve", choices=("full", "optimistic"), default="full",
+                   help="paged KV: 'full' reserves every page a request can touch at "
+                        "admission; 'optimistic' admits with ceil((prompt + "
+                        "--spill-headroom)/page) pages and grows slots page by page, "
+                        "reclaiming through radix eviction and a spill to host RAM")
+    p.add_argument("--spill-headroom", type=int, default=16,
+                   help="optimistic reservation: decode tokens of slack bound beyond "
+                        "the prompt at admission and at a resume")
+    p.add_argument("--kv-host-pool-mb", type=float, default=64.0,
+                   help="KV tiering: pinned host-RAM budget (MiB) for spilled pages; "
+                        "a spill that would not fit preempts instead (0: no spill).  "
+                        "A Llama-2-7B bf16 page of 16 positions is 8 MiB")
+    p.add_argument("--no-preempt", action="store_true",
+                   help="QoS: admission stays priority-ordered, but a higher class "
+                        "never evicts a running lower-class slot")
+    p.add_argument("--preempt-age-ms", type=float, default=5000.0,
+                   help="QoS: a queued request climbs one class per this many ms "
+                        "waited (0: no aging; admission order only, never eviction)")
+    p.add_argument("--preempt-cap", type=int, default=3,
+                   help="QoS: times one request may be preempted and parked; past it "
+                        "the victim finishes with finish_reason \"preempted\"")
+    p.add_argument("--preempt-spill-dir", default=None,
+                   help="QoS: keep preempted requests' DLREQ01 records in this "
+                        "directory instead of RAM")
+    p.add_argument("--snapshot-dir", default=None,
+                   help="API server: at a drain save the engine's state, its "
+                        "conversation cache and the paged pool with its radix tree "
+                        "here (DLSNAP02); the next boot restores them (a corrupt or "
+                        "mismatched file cold-starts)")
+    p.add_argument("--handoff", action="store_true",
+                   help="API server: a drain exports every live request as a DLREQ01 "
+                        "record (GET /admin/export/<rid>), and POST /admin/import "
+                        "resumes a peer's; needs --batch-slots and --kv-pages")
+    p.add_argument("--handoff-ttl", type=float, default=0.0,
+                   help="API server: seconds an exported record waits to be claimed "
+                        "(0: until claimed)")
     p.add_argument("--max-pending", type=int, default=8,
                    help="requests in flight or queued before 429")
     p.add_argument("--request-timeout", type=float, default=0.0,
@@ -199,11 +232,16 @@ def not_ported(args) -> list[str]:
     return out
 
 
-def load_stack(args, batch: int = 1) -> tuple[Engine, Tokenizer]:
+def load_stack(args, batch: int = 1, stack=None) -> tuple[Engine, Tokenizer]:
     """The model (loaded on the host, then uploaded by the Engine, which
     converts it to the blocked layout first when asked, or slices it over
     the ``--workers`` mesh) and its tokenizer; ``batch`` rows of
-    contiguous cache."""
+    contiguous cache.  ``stack``, an ``(engine, tokenizer)`` loaded before,
+    gives the weights, device and mesh instead of ``--model`` (several
+    servers of one model in one process, each with caches of its own)."""
+    if stack is not None:
+        base, tok = stack
+        return _engine(args, base.cfg, base.params, base.device, base.mesh, batch), tok
     if not args.model or not args.tokenizer:
         raise SystemExit("--model and --tokenizer are required for this mode")
     device = resolve(args.device)
@@ -229,13 +267,17 @@ def load_stack(args, batch: int = 1) -> tuple[Engine, Tokenizer]:
         except ValueError as e:
             raise SystemExit(str(e)) from None
         cfg, params = load_params(mf, cfg, fuse=mesh.tp == 1)
-    kv_dtype = DTYPES.get(args.kv_cache_dtype, args.kv_cache_dtype)
-    engine = Engine(cfg, params, seq_len=args.max_seq_len, kv_dtype=kv_dtype,
-                    device=device, batch=batch, mesh=mesh)
+    engine = _engine(args, cfg, params, device, mesh, batch)
     tok = Tokenizer(tfile.read_tfile(args.tokenizer))
     if tok.vocab_size != cfg.vocab_size:
         raise SystemExit("tokenizer is incompatible with model (vocab size mismatch)")
     return engine, tok
+
+
+def _engine(args, cfg, params, device, mesh, batch: int) -> Engine:
+    kv_dtype = DTYPES.get(args.kv_cache_dtype, args.kv_cache_dtype)
+    return Engine(cfg, params, seq_len=args.max_seq_len, kv_dtype=kv_dtype,
+                  device=device, batch=batch, mesh=mesh)
 
 
 def _seed(args) -> int:

@@ -26,6 +26,7 @@ from dataclasses import dataclass
 import numpy as np
 
 from .. import quants
+from .integrity import ArtifactError
 
 MAGIC_V2 = 0xA00ABCD
 
@@ -59,26 +60,6 @@ _FIELDS = {KEY_VERSION: "version", KEY_ARCH_TYPE: "arch", KEY_DIM: "dim",
            KEY_N_ACTIVE_EXPERTS: "n_active_experts",
            KEY_VOCAB_SIZE: "vocab_size", KEY_SEQ_LEN: "seq_len",
            KEY_HIDDEN_ACT: "hidden_act"}
-
-
-class ArtifactError(ValueError):
-    """A model or tokenizer file failed validation.  The message names the
-    file, the field, and where known the byte offset and the expected and
-    found values."""
-
-    def __init__(self, path, field: str, message: str, *,
-                 offset: int | None = None, expected=None, got=None):
-        self.path = str(path) if path is not None else None
-        self.field = field
-        self.offset = offset
-        self.expected = expected
-        self.got = got
-        loc = f" at byte {offset}" if offset is not None else ""
-        detail = ""
-        if expected is not None or got is not None:
-            detail = f" (expected {expected!r}, got {got!r})"
-        where = f"{self.path}: " if self.path else ""
-        super().__init__(f"{where}{field}{loc}: {message}{detail}")
 
 
 @dataclass

@@ -83,6 +83,13 @@ _RESERVED = set(vars(logging.LogRecord("", 0, "", 0, "", (), None))) | {
     "request_id", "message", "asctime", "taskName"}
 
 
+def _request_id(record: logging.LogRecord):
+    """The record's request id; where a factory installed after ours
+    cleared it (another package's, in a process that runs both), the
+    logging thread's own (handlers format on the thread that logs)."""
+    return getattr(record, "request_id", None) or request_id_var.get()
+
+
 def _extras(record: logging.LogRecord) -> dict:
     return {k: v for k, v in vars(record).items() if k not in _RESERVED}
 
@@ -96,7 +103,7 @@ class JsonFormatter(logging.Formatter):
                "level": record.levelname,
                "logger": record.name,
                "event": record.getMessage()}
-        rid = getattr(record, "request_id", None)
+        rid = _request_id(record)
         if rid:
             out["request_id"] = rid
         out.update(_extras(record))
@@ -110,7 +117,7 @@ class HumanFormatter(logging.Formatter):
 
     def format(self, record: logging.LogRecord) -> str:
         ts = time.strftime("%H:%M:%S", time.localtime(record.created))
-        rid = getattr(record, "request_id", None)
+        rid = _request_id(record)
         rid_part = f" [{rid}]" if rid else ""
         parts = [f"{ts} {record.levelname:<7} {record.name}{rid_part} "
                  f"{record.getMessage()}"]

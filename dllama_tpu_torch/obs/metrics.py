@@ -461,6 +461,10 @@ AVG_REQUEST_S = REGISTRY.gauge(
     "avg_request_s", "EMA request duration (feeds Retry-After).",
     name="dllama_request_duration_ema_seconds")
 
+# artifact-integrity counters (io/integrity.py delegates here)
+SNAPSHOT_RESTORES = REGISTRY.counter(
+    "snapshot_restores", "Engine warm starts restored from a snapshot.")
+
 # request-path histograms (server/api.py)
 TTFT = REGISTRY.histogram(
     "ttft_seconds", TTFT_BUCKETS,
@@ -538,6 +542,32 @@ KV_POOL_EXHAUSTED = REGISTRY.counter(
     "Admissions deferred because the page pool had no free pages (the "
     "request waits queued until retirements free pages).")
 
+# KV memory tiering (runtime/kvtier.py, --kv-reserve optimistic): under
+# pressure a grow evicts cold radix entries and spills the idle-longest
+# slot's pages to the pinned host pool; spilled slots page back in when
+# pages free.  Spill and page-in counters are page-granular; the host-pool
+# gauge is the live byte footprint of spilled KV.
+KV_PAGES_SPILLED = REGISTRY.counter(
+    "kv_pages_spilled",
+    "KV pages copied device-to-host and freed by the tiering policy "
+    "(--kv-reserve optimistic under pool pressure).")
+KV_PAGES_PAGED_IN = REGISTRY.counter(
+    "kv_pages_paged_in",
+    "Spilled KV pages copied back host-to-device when their slot "
+    "rejoined the dispatch.")
+KV_SPILL_BYTES = REGISTRY.counter(
+    "kv_spill_bytes",
+    "Bytes of KV page data moved device-to-host by spills (values plus "
+    "per-position scale planes for int8 pages).")
+KV_HOST_POOL_BYTES = REGISTRY.gauge(
+    "kv_host_pool_bytes",
+    "Bytes of spilled KV currently resident in the host-RAM pool "
+    "(bounded by --kv-host-pool-mb).")
+KV_PAGE_CODEC = REGISTRY.labeled_gauge(
+    "kv_page_codec", "codec",
+    "Active paged-KV page format (1 for the engine's codec: the pool "
+    "dtype, e.g. bfloat16, or int8 under --kv-quant int8).")
+
 # device-memory telemetry: per-card gauges, read at scrape time from
 # torch.cuda (runtime/engine.py binds the readers); a CPU process exposes
 # an empty family, not zeros
@@ -586,6 +616,45 @@ SCHED_OVERLAP_DISCARDS = REGISTRY.counter(
     "sched_overlap_discards",
     "Pipelined dispatches landed and thrown away at a pipeline flush "
     "point (admission, retire, cancel/deadline, drain, hand-off export).")
+
+# multi-tenant QoS (runtime/scheduler.py preemption + server shedding).
+# A higher-priority request that cannot admit evicts the lowest-priority
+# longest-remaining slot through the DLREQ01 export path and parks the
+# record; the server sheds low-priority admissions while the SLO error
+# budget burns.
+SCHED_PREEMPTIONS = REGISTRY.labeled_counter(
+    "sched_preemptions", ("reason",),
+    "Slot preemptions triggered by a higher-priority request, by trigger "
+    "(no_free_slot / pool_exhausted).")
+SCHED_PREEMPT_PARKED = REGISTRY.gauge(
+    "sched_preempt_parked",
+    "Preempted requests currently parked as DLREQ01 records awaiting "
+    "re-admission (RAM or --preempt-spill-dir).")
+ADMISSIONS_SHED = REGISTRY.labeled_counter(
+    "admissions_shed", ("class",),
+    "Admissions refused (429) by SLO-driven shedding, per priority class "
+    "(batch sheds on a fast-window burn, standard only while violating; "
+    "interactive is never shed).")
+
+# per-request KV hand-off (runtime/scheduler.py export/import + server
+# /admin/export/<rid> and /admin/import)
+HANDOFF_EXPORTS = REGISTRY.counter(
+    "handoff_exports",
+    "Hand-off records fetched from this replica via /admin/export "
+    "(one per drained in-flight request picked up by the router).")
+HANDOFF_IMPORTS = REGISTRY.counter(
+    "handoff_imports",
+    "Hand-off records accepted via /admin/import and resumed in a "
+    "local batch slot.")
+HANDOFF_IMPORT_REJECTS = REGISTRY.counter(
+    "handoff_import_rejects",
+    "Hand-off records refused at /admin/import (geometry fingerprint "
+    "mismatch or corrupt/invalid record).")
+HANDOFF_EXPIRED = REGISTRY.counter(
+    "handoff_expired",
+    "Parked DLREQ01 export records dropped unclaimed after "
+    "--handoff-ttl (the router that triggered the drain never fetched "
+    "them).")
 
 # SLO burn-rate engine (obs/slo.py)
 SLO_BURN_RATE = REGISTRY.labeled_gauge(

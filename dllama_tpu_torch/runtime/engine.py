@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from ..device import resolve, synchronize, upload
+from ..io.integrity import bump_counter
 from ..models.config import ModelConfig
 from ..models.params import Params, to_device
 from ..models.transformer import (ShardedKV, forward, forward_last, init_kv_cache,
@@ -39,6 +40,7 @@ from ..ops import attention, q40
 from ..parallel.mesh import Mesh
 from ..parallel.sharding import Placed, place_params
 from ..sampling import Sampler
+from . import snapshot as snapfmt
 from .decode_loop import decode_chunk, device_sample, slot_chunk
 from .graphs import DecodeGraphs
 
@@ -166,6 +168,41 @@ class Landing:
         return t1, time.perf_counter(), self._host.numpy()
 
 
+class _Ready:
+    """A host array that is already there (a CPU engine's page read)."""
+
+    __slots__ = ("_a",)
+
+    def __init__(self, a):
+        self._a = a
+
+    def wait(self) -> np.ndarray:
+        return self._a
+
+
+class _Copied:
+    """A pinned host tensor being filled on a side stream; :meth:`wait`
+    blocks on the copy's event and returns it as a host array."""
+
+    __slots__ = ("_host", "_done")
+
+    def __init__(self, host: torch.Tensor, done):
+        self._host = host
+        self._done = done
+
+    def wait(self) -> np.ndarray:
+        self._done.synchronize()
+        return snapfmt.to_numpy(self._host)
+
+
+def record_rng_kind(extra: dict, arrays: dict) -> str | None:
+    """The generator kind a snapshot or record's draws came from: the
+    port's records name it; the JAX package's carry a threefry key."""
+    if extra.get("rng_kind"):
+        return str(extra["rng_kind"])
+    return "jax-threefry" if "rng_key" in arrays else None
+
+
 def on_device(device: torch.device):
     """Make ``device`` the current CUDA device for the block (work issued
     from a thread other than the one that made the engine names its
@@ -274,6 +311,17 @@ class Engine:
         self.last_logits: torch.Tensor | None = None
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(0)
+        #: which sampler draws this engine's sampled tokens; rides snapshots
+        #: and hand-off records (the JAX package's default name: its draws
+        #: are made on the device too)
+        self.sampling_path = "device"
+        #: arrays of the newest :meth:`restore` that were the caller's
+        #: ``extra_arrays`` (the paged scheduler's page tables)
+        self.restored_arrays: dict = {}
+        self._copy_stream = None  # side stream of read_pool_pages_async
+        if self.paged:
+            obs_metrics.KV_PAGE_CODEC.set(
+                "int8" if kv_quant else snapfmt.dtype_of(self.cache.k.dtype), 1)
         if graphs is None:
             graphs = self.device.type == "cuda" and self.mesh is None
         if graphs and (self.device.type != "cuda" or self.mesh is not None):
@@ -305,6 +353,224 @@ class Engine:
         """Restart the sequence; cache memory is reused."""
         self.pos = 0
         self.offsets = None
+
+    # -- state snapshot and restore (runtime/snapshot.py) ---------------
+    @property
+    def rng_kind(self) -> str:
+        """The generator this engine's sampled draws come from; a sampled
+        stream continues only on an engine of the same kind (the JAX
+        package's records carry a threefry key: ``jax-threefry``)."""
+        return f"torch-{self.device.type}"
+
+    def kv_planes(self) -> dict[str, list[torch.Tensor]]:
+        """The cache's (or pool's) planes by name, one tensor a rank:
+        ``k``, ``v``, and for int8 the ``k_scale``/``v_scale`` planes."""
+        ranks = self.cache.ranks if isinstance(self.cache, ShardedKV) else (self.cache,)
+        names = ("k", "v") + (("k_scale", "v_scale") if self.cache.quantized else ())
+        return {n: [getattr(r, n) for r in ranks] for n in names}
+
+    def kv_layout(self) -> dict[str, tuple[str, list[int]]]:
+        """Each plane's dtype name and global shape: a rank holds
+        ``n_kv_heads/tp`` of the heads on axis 2, so the mesh never shows
+        (a snapshot or record taken at one tp restores at another)."""
+        out = {}
+        for n, ts in self.kv_planes().items():
+            shape = list(ts[0].shape)
+            shape[2] = sum(int(t.shape[2]) for t in ts)
+            out[n] = (snapfmt.dtype_of(ts[0].dtype), shape)
+        return out
+
+    def config_fingerprint(self) -> str:
+        """Digest of everything that must match for a snapshot to mean
+        something here: the model's hyperparameters, batch, context and the
+        cache's dtype names and global shapes, and the pool geometry (page
+        ids are physical).  The JAX package's fields and dtype names
+        (``bfloat16``, ``int8``, ``float32``), so the digests agree; the
+        mesh is left out."""
+        return snapfmt.fingerprint(dict(
+            self._model_fields(), batch=self.batch, seq_len=self.seq_len,
+            cache=[[f"cache.{n}", dt, shape] for n, (dt, shape) in self.kv_layout().items()],
+            paged=[self.kv_pages, self.kv_page_size] if self.paged else None))
+
+    def handoff_fingerprint(self) -> str:
+        """Geometry digest for a per-request hand-off: the model, the
+        context window and the page's dtype and shape (Hkv, ps, Dh) with its
+        codec; batch width and pool size are left out (the importer
+        allocates its own pages), and so is the mesh."""
+        if not self.paged:
+            raise ValueError("per-request hand-off needs a paged KV cache (kv_pages > 0)")
+        dt, shape = self.kv_layout()["k"]
+        return snapfmt.fingerprint(dict(
+            self._model_fields(), seq_len=self.seq_len, page=[dt, shape[2:]],
+            codec="int8" if self.cache.quantized else "dense", handoff=1))
+
+    def _model_fields(self) -> dict:
+        """The model's hyperparameters, as both fingerprints hash them."""
+        c = self.cfg
+        return {k: getattr(c, k) for k in (
+            "arch", "dim", "hidden_dim", "n_layers", "n_heads", "n_kv_heads", "n_experts",
+            "n_active_experts", "vocab_size", "hidden_act", "rope_theta")}
+
+    def rng_arrays(self) -> dict[str, np.ndarray]:
+        """The generator's state as a record array (``rng_state``)."""
+        return {"rng_state": self._gen.get_state().numpy().copy()}
+
+    def set_rng(self, state_np) -> None:
+        """Rebase the generator from a record's ``rng_state``: a sampled
+        stream continues where the exporter stopped."""
+        self._gen.set_state(torch.from_numpy(np.array(state_np, np.uint8)))
+
+    def snapshot(self, path, extra: dict | None = None,
+                 extra_arrays: dict | None = None) -> str:
+        """Write the engine's state (the cache or pool, ``pos``, the ragged
+        ``offsets``, the generator) to a DLSNAP02 file, atomically;
+        ``extra`` (JSON) and ``extra_arrays`` come back from
+        :meth:`restore` (the latter in :attr:`restored_arrays`).  Returns
+        the path."""
+        with on_device(self.device):
+            arrays = {f"cache.{n}": snapfmt.to_numpy(ts[0] if len(ts) == 1 else torch.cat(
+                [t.to(self.device) for t in ts], dim=2)) for n, ts in self.kv_planes().items()}
+        arrays.update(self.rng_arrays())
+        meta_extra = dict(extra or {})
+        meta_extra.setdefault("sampling_path", self.sampling_path)
+        meta_extra.setdefault("rng_kind", self.rng_kind)
+        if self.offsets is not None:
+            arrays["offsets"] = self.offsets.cpu().numpy()
+            meta_extra["has_offsets"] = True
+        for n, a in (extra_arrays or {}).items():
+            if n in arrays:
+                raise ValueError(f"extra array name {n!r} collides")
+            arrays[n] = np.asarray(a)
+        return snapfmt.save(path, fingerprint=self.config_fingerprint(), pos=self.pos,
+                            chunk_counter=0, arrays=arrays, extra=meta_extra)
+
+    def restore(self, path) -> dict:
+        """Restore the state :meth:`snapshot` saved, writing the cache in
+        place (captured graphs keep reading the same tensors: no capture
+        follows).  Raises :class:`ArtifactError` on a corrupt file and
+        :class:`snapshot.SnapshotMismatch` on one from an engine of another
+        shape, before touching anything.  The generator is restored when
+        the file's came from an engine of the same :attr:`rng_kind` (else
+        it is reseeded with 0: a greedy stream continues exactly, a sampled
+        one on fresh draws).  Returns the file's ``extra``."""
+        meta, arrays = snapfmt.load(path)
+        want = self.config_fingerprint()
+        if meta["fingerprint"] != want:
+            raise snapfmt.SnapshotMismatch(
+                path, "fingerprint", "snapshot is from a differently-configured engine",
+                expected=want, got=meta["fingerprint"])
+        layout = self.kv_layout()
+        for n, (dt, shape) in layout.items():
+            arr = arrays.get(f"cache.{n}")
+            if arr is None:
+                raise snapfmt.SnapshotMismatch(path, f"array 'cache.{n}'",
+                                               "missing cache array")
+            if list(arr.shape) != shape or snapfmt.dtype_name(arr) != dt:
+                raise snapfmt.SnapshotMismatch(
+                    path, f"array 'cache.{n}'", "cache array layout mismatch",
+                    expected=f"{dt}{tuple(shape)}",
+                    got=f"{snapfmt.dtype_name(arr)}{tuple(arr.shape)}")
+        pos = int(meta["pos"])
+        if not 0 <= pos <= self.seq_len:
+            raise snapfmt.SnapshotMismatch(
+                path, "pos", "restored position outside the context window",
+                expected=f"0..{self.seq_len}", got=pos)
+        extra = dict(meta.get("extra", {}))
+        snap_sp = extra.get("sampling_path")
+        if snap_sp is not None and snap_sp != self.sampling_path:
+            raise snapfmt.SnapshotMismatch(
+                path, "sampling_path", "snapshot sampled on a different sampling path",
+                expected=self.sampling_path, got=snap_sp)
+        with on_device(self.device):
+            for n, ts in self.kv_planes().items():
+                self._write_global(ts, arrays[f"cache.{n}"], None)
+        self.pos = pos
+        if record_rng_kind(extra, arrays) == self.rng_kind and "rng_state" in arrays:
+            self.set_rng(arrays["rng_state"])
+        else:
+            self._gen.manual_seed(0)
+        self.offsets = upload(arrays["offsets"], torch.int64, self.device) \
+            if extra.get("has_offsets") else None
+        known = {f"cache.{n}" for n in layout} | {"rng_state", "rng_key", "rng_dev_key",
+                                                   "offsets"}
+        self.restored_arrays = {n: a for n, a in arrays.items() if n not in known}
+        bump_counter("snapshot_restores")
+        return extra
+
+    # -- pages of the pool on their way off the card and back -----------
+    def _write_global(self, ranks: list[torch.Tensor], arr: np.ndarray, idx) -> None:
+        """Write the global array ``arr`` into one plane in place: the whole
+        plane (``idx`` None) or its pages ``idx`` (a device index on axis
+        1); a rank takes its heads' slice of axis 2."""
+        src = snapfmt.to_torch(arr, ranks[0].dtype)
+        h0 = 0
+        for dst in ranks:
+            part = src[:, :, h0:h0 + dst.shape[2]] if len(ranks) > 1 else src
+            h0 += dst.shape[2]
+            if idx is None:
+                dst.copy_(part)
+            else:
+                dst.index_copy_(1, idx.to(dst.device), part.to(dst.device))
+
+    def read_pool_pages(self, pages) -> dict[str, np.ndarray]:
+        """Copy the physical pages ``pages`` of the pool to the host, every
+        layer at once: ``pages.k``/``pages.v`` of shape (L, n, Hkv, ps, Dh)
+        (the ranks' heads joined on axis 2), and for an int8 pool the
+        (L, n, Hkv, ps, 1) f32 ``pages.k_scale``/``pages.v_scale``."""
+        return {k: h.wait() for k, h in self.read_pool_pages_async(pages).items()}
+
+    def read_pool_pages_async(self, pages) -> dict:
+        """Start the copies of :meth:`read_pool_pages`; returns ``{name:
+        handle}``, ``handle.wait()`` the host array.  On the card the pages
+        are gathered on the engine's stream, behind whatever is queued
+        there, an event is recorded, and a side stream waits on it and
+        copies the gather into pinned host memory; ``wait()`` blocks on that
+        copy's own event.  The caller frees or reuses the pages only after
+        ``wait()``, so no later write can reach them before the copy
+        lands."""
+        if not self.paged:
+            raise ValueError("read_pool_pages needs a paged engine")
+        dev = self.device
+        with on_device(dev):
+            idx = upload(np.asarray(pages, np.int64), torch.int64, dev)
+            gathered = {}
+            for n, ts in self.kv_planes().items():
+                parts = [t.index_select(1, idx.to(t.device)) for t in ts]
+                gathered[f"pages.{n}"] = parts[0] if len(parts) == 1 else torch.cat(
+                    [p.to(dev) for p in parts], dim=2)
+            if dev.type != "cuda":
+                return {n: _Ready(snapfmt.to_numpy(g)) for n, g in gathered.items()}
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(dev))
+            if self._copy_stream is None:
+                self._copy_stream = torch.cuda.Stream(dev)
+            side = self._copy_stream
+            out = {}
+            with torch.cuda.stream(side):
+                side.wait_event(ready)
+                for n, g in gathered.items():
+                    host = torch.empty(g.shape, dtype=g.dtype, pin_memory=True)
+                    host.copy_(g, non_blocking=True)
+                    # the gather's memory returns to the allocator only
+                    # once the side stream's copy has read it
+                    g.record_stream(side)
+                    out[n] = host
+                done = torch.cuda.Event()
+                done.record(side)
+        return {n: _Copied(h, done) for n, h in out.items()}
+
+    def write_pool_pages(self, pages, arrays: dict[str, np.ndarray]) -> None:
+        """Write page slices (from :meth:`read_pool_pages` here or on a
+        peer, at any tp) into the pool at the physical pages ``pages``, in
+        place (``index_copy_``): the captured graphs read the same tensors,
+        so nothing is captured again.  Every plane of the pool must be
+        given."""
+        if not self.paged:
+            raise ValueError("write_pool_pages needs a paged engine")
+        with on_device(self.device):
+            idx = upload(np.asarray(pages, np.int64), torch.int64, self.device)
+            for n, ts in self.kv_planes().items():
+                self._write_global(ts, arrays[f"pages.{n}"], idx)
 
     def _run(self, tokens_np: np.ndarray, last_index: int,
              offsets: torch.Tensor | None = None) -> tuple[np.ndarray, StepStats]:

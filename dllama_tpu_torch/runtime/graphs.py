@@ -79,12 +79,17 @@ What a captured step has to hold, and how the bodies hold it:
 * **Threads.**  Graphs are captured by the thread that steps the engine
   (the scheduler's thread for the slot engine) on a capture stream of
   their own, in ``thread_local`` capture mode, so another thread's work on
-  the card cannot break a capture.
+  the card cannot break a capture.  Python's cyclic collector is held off
+  during a capture: collecting an unreachable engine's graph there would
+  destroy a graph while a stream captures, which invalidates the capture.
 """
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import sys
+import threading
 import time
 from typing import NamedTuple
 
@@ -111,6 +116,34 @@ class GraphKey(NamedTuple):
     batch: int
     greedy: bool
     walk: int
+
+
+# -- captures and the cyclic collector ------------------------------------
+
+_gc_lock = threading.Lock()
+_gc_holds = 0           # captures in progress, on any thread
+_gc_was_enabled = False
+
+
+@contextlib.contextmanager
+def _no_collection():
+    """Hold Python's cyclic collector off while any capture runs (it is
+    process-wide, and captures of several engines may overlap): a
+    collection that destroyed an unreachable engine's CUDA graph during a
+    capture would invalidate the capture."""
+    global _gc_holds, _gc_was_enabled
+    with _gc_lock:
+        if _gc_holds == 0:
+            _gc_was_enabled = gc.isenabled()
+            gc.disable()
+        _gc_holds += 1
+    try:
+        yield
+    finally:
+        with _gc_lock:
+            _gc_holds -= 1
+            if _gc_holds == 0 and _gc_was_enabled:
+                gc.enable()
 
 
 # -- launch counters -----------------------------------------------------
@@ -311,7 +344,8 @@ class DecodeGraphs:
             self._stream = torch.cuda.Stream(self.device)
         before = counter_snapshot()
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=self._stream, capture_error_mode="thread_local"):
+        with _no_collection(), torch.cuda.graph(graph, stream=self._stream,
+                                                capture_error_mode="thread_local"):
             body()
         delta = counter_delta(before, counter_snapshot())
         add_counts(delta, -1)

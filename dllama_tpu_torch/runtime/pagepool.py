@@ -241,3 +241,32 @@ class RadixTree:
         self._children = {}
         self._n_nodes = 0
         return freed
+
+    # -- snapshot plumbing (runtime/snapshot.py DLSNAP02) -------------------
+
+    def export(self) -> list:
+        """JSON-serializable nested form: [[block tokens], page, children]."""
+        def walk(children):
+            return [[list(nd.block), nd.page, walk(nd.children)]
+                    for nd in children.values()]
+
+        return walk(self._children)
+
+    def restore(self, data: list) -> None:
+        """Rebuild from :meth:`export` output against a fresh pool whose
+        page contents were restored out of band (the pool arrays ride the
+        engine snapshot): claims each node's page from the free list."""
+        if self._children:
+            raise RuntimeError("restore into a non-empty prefix tree")
+
+        def walk(children, items):
+            for block, page, kids in items:
+                self.pool.claim(page)
+                nd = _Node(tuple(block), int(page))
+                nd.last_used = self._clock
+                children[tuple(block)] = nd
+                self._n_nodes += 1
+                walk(nd.children, kids)
+
+        self._clock += 1
+        walk(self._children, data)

@@ -1,6 +1,5 @@
-"""Continuous-batching slot scheduler over the slot engine — a trimmed copy
-of ``dllama_tpu/runtime/scheduler.py`` in its ``kv_reserve="full"``
-configuration.
+"""Continuous-batching slot scheduler over the slot engine — a copy of
+``dllama_tpu/runtime/scheduler.py`` without speculative decoding.
 
 One daemon thread owns the ``--batch-slots`` engine and drives
 :meth:`Engine.slot_step_async`, admitting a waiting request into any free
@@ -29,11 +28,39 @@ SOSP'23).  Per dispatch:
   byte-identical with overlap on or off.  A row that retires in N's
   fanout (EOS, budget) leaves N+1 row-wise: its burst row is ignored.
 
-Paged engines (``engine.kv_pages > 0``) reserve every page a request can
-touch at admission (prompt + budget), so a dispatch never fails on
-allocation and exhaustion surfaces as queueing.  With ``prefix_reuse`` a
-radix tree over full prompt pages lets a later prompt with the same prefix
-bind those pages copy-free and prefill only its suffix.
+Paged engines (``engine.kv_pages > 0``) reserve pages at admission.  Under
+``kv_reserve="full"`` (the default) that is every page a request can touch
+(prompt + budget), so a dispatch never fails on allocation and exhaustion
+surfaces as queueing.  Under ``"optimistic"`` admission binds only
+``ceil((prompt + spill_headroom)/page)`` pages and slots grow page by page
+between rounds through a reclaim ladder (free list, radix eviction, then a
+spill of the idle-longest neighbour's pages to a bytes-bounded pinned host
+pool, ``runtime/kvtier.py``); a spilled slot sits out the dispatches until
+its pages page back in, and a slot the ladder cannot grow is preempted.
+With ``prefix_reuse`` a radix tree over full prompt pages lets a later
+prompt with the same prefix bind those pages copy-free and prefill only its
+suffix.
+
+**Moving a request's KV off the card and back** (``runtime/snapshot.py``):
+every move happens at a step boundary with zero dispatches in flight (the
+exporters run inside :meth:`SlotScheduler._flushed`; admission, preemption
+and tiering run between rounds), and every write back lands in place in the
+engine's pool (``Engine.write_pool_pages``), so the captured graphs stay
+valid.
+
+* hand-off: :meth:`SlotScheduler.handoff_export_all` (drain),
+  :meth:`checkpoint_export` (one live slot, non-destructive) and
+  :meth:`import_request` move a live request between replicas as a DLREQ01
+  record; the importer allocates its own pages and resumes the clocks;
+* QoS: every request has a priority class (:data:`PRIORITY_LEVELS`);
+  admission takes the best effective level (aged by ``preempt_age_ms``),
+  and a request that finds no slot or pages may preempt a strictly
+  lower-priority slot, which is exported and parked (in RAM or
+  ``spill_dir``) with its ticket live and resumes byte for byte later;
+  past ``preempt_cap`` or a full parked area the victim retires
+  ``preempted``;
+* snapshots: :meth:`snapshot_paged` and :meth:`restore_paged` keep the
+  pool, the page tables and the radix tree's keys across a restart.
 
 Each request gets a :class:`Ticket`, a thread-safe token stream the HTTP
 handler consumes.  Cancellation (disconnect, stop string, deadline) takes
@@ -52,15 +79,16 @@ a slot-timeline entry a dispatch, and ``sched_admit``/``sched_step``/
 ``sched_retire`` spans.  ``stats`` keeps this scheduler's own counts
 (the registry is the process's).
 
-Left out of the copy (``ROADMAP.md``): priorities and preemption,
-parking, KV spill and tiering and optimistic reservation, hand-off and
-snapshots, and speculative decoding.
+Left out of the copy (``ROADMAP.md``): speculative decoding, the fault
+points, and the roofline cost attribution.
 """
 
 from __future__ import annotations
 
 import contextlib
 import logging
+import math
+import os
 import queue
 import threading
 import time
@@ -68,14 +96,27 @@ from collections import deque
 
 import numpy as np
 
-from ..obs import flight as obs_flight, metrics as obs_metrics, trace as obs_trace
+from ..obs import events as obs_events, flight as obs_flight
+from ..obs import metrics as obs_metrics, trace as obs_trace
 from ..obs.log import current_request_id, new_request_id, request_id_var
-from .engine import ContextOverflow
+from . import kvtier, snapshot as snapfmt
+from .engine import ContextOverflow, record_rng_kind
 from .pagepool import PagePool, PagePoolExhausted, RadixTree
 
 _log = logging.getLogger("dllama_tpu_torch.runtime.scheduler")
 
 _DONE = object()  # ticket stream terminator
+
+# QoS classes (lower level = more important): the body field ``priority``
+# and the X-Dllama-Priority header name them; admission orders by level and
+# a request preempts strictly lower-priority slots
+PRIORITY_LEVELS = {"interactive": 0, "standard": 1, "batch": 2}
+PRIORITY_NAMES = {v: k for k, v in PRIORITY_LEVELS.items()}
+
+#: a sampled request's record names its sampler so: the JAX package's
+#: importers (sampling path ``device``) refuse it, as a greedy record (which
+#: keeps ``device``) crosses either way
+SAMPLED_PATH = "torch-generator"
 
 
 class SchedulerClosed(RuntimeError):
@@ -92,7 +133,7 @@ class Ticket:
     thread; ``cancel`` may be called from either side."""
 
     def __init__(self, prompt, max_new, temperature, top_p, eos_ids,
-                 deadline, top_k: int = 0):
+                 deadline, priority: int = 1, top_k: int = 0):
         self.prompt = list(prompt)
         self.max_new = int(max_new)
         self.temperature = float(temperature)
@@ -100,16 +141,26 @@ class Ticket:
         self.top_k = int(top_k)
         self.eos_ids = tuple(eos_ids)
         self.deadline = deadline  # time.monotonic() or None
-        # finish: stop/length/timeout/aborted/error
+        # finish: stop/length/timeout/aborted/error/handoff/preempted
         self.finish: str | None = None
         self.error: BaseException | None = None
         self.slot: int | None = None
         self.submitted_at = time.monotonic()
+        # QoS: the level (PRIORITY_LEVELS), how often it was preempted and
+        # parked, and the ms it spent parked; KV tiering: the ms its pages
+        # sat in the host pool.  All four ride a DLREQ01 record.
+        self.priority = int(priority)
+        self.preempt_count = 0
+        self.parked_ms = 0.0
+        self.spill_ms = 0.0
         #: monotonic time of the first completion token (time to first token)
         self.first_token_at: float | None = None
         #: prompt tokens this request fed through the model (a prefix-cache
         #: hit skips the rest)
         self.prefilled = 0
+        # hand-off state: the server parks its stop strings here and every
+        # emitted token is kept, so an exported record can rebuild the
+        # decode and stop-scan state on the importer
         self.stop: list[str] = []
         self.emitted: list[int] = []
         self._q: queue.SimpleQueue = queue.SimpleQueue()
@@ -143,7 +194,7 @@ class Ticket:
 
 class _Slot:
     __slots__ = ("ticket", "pos", "fed", "produced", "last", "pages",
-                 "prefix_tokens", "inserted")
+                 "prefix_tokens", "inserted", "budget", "spilled", "active_at")
 
     def __init__(self):
         self.ticket: Ticket | None = None
@@ -154,6 +205,27 @@ class _Slot:
         self.pages: list[int] = []   # paged mode: owned pool pages
         self.prefix_tokens = 0       # prompt tokens bound from the radix tree
         self.inserted = False        # prompt pages handed to the tree yet?
+        # KV tiering: the most pages this request can need (the growth
+        # ceiling), whether its pages sit in the host pool (it then sits out
+        # the dispatches), and the monotonic time it last took part in a
+        # dispatch (the idle-longest slot spills first)
+        self.budget = 0
+        self.spilled = False
+        self.active_at = 0.0
+
+
+class _Parked:
+    """A preempted request: its live ticket (the consumer still waits on
+    the stream: parking is a stall) and the DLREQ01 record that resumes
+    it, in RAM (``blob``) or in ``spill_dir`` (``path``)."""
+
+    __slots__ = ("ticket", "blob", "path", "parked_at")
+
+    def __init__(self, ticket, blob, path, parked_at):
+        self.ticket = ticket
+        self.blob = blob
+        self.path = path
+        self.parked_at = parked_at
 
 
 class _Pending:
@@ -174,14 +246,27 @@ class _Pending:
 class SlotScheduler:
     """Owns the batch engine; see the module docstring.  ``max_queue``
     bounds requests waiting for a slot (beyond it submit() raises
-    :class:`SchedulerSaturated`)."""
+    :class:`SchedulerSaturated`).  QoS (paged only: a victim leaves
+    through the DLREQ01 export): ``preempt``, ``preempt_age_ms`` (a queued
+    request climbs one class per this many ms; 0: no aging),
+    ``preempt_cap`` (parks a request at most this often), ``parked_max``
+    (default ``max_queue``) and ``spill_dir`` (parked records on disk).
+    KV tiering (paged only): ``kv_reserve`` ``"full"`` or
+    ``"optimistic"``, ``spill_headroom`` tokens bound beyond the prompt,
+    ``host_pool_mb`` the host pool's budget (0: no spill)."""
 
     def __init__(self, engine, *, prefill_chunk: int = 16,
                  max_wait_ms: float = 50.0, decode_burst: int = 16,
                  max_queue: int = 32, prefix_reuse: bool = True,
-                 overlap: bool = True):
+                 overlap: bool = True, preempt: bool = True,
+                 preempt_age_ms: float = 5000.0, preempt_cap: int = 3,
+                 parked_max: int | None = None, spill_dir: str | None = None,
+                 kv_reserve: str = "full", spill_headroom: int = 16,
+                 host_pool_mb: float = 64.0):
         if engine.cache.quantized and not engine.paged:
             raise ValueError("slot scheduling needs a dense or paged-int8 KV cache")
+        if kv_reserve not in ("full", "optimistic"):
+            raise ValueError(f"kv_reserve must be 'full' or 'optimistic', got {kv_reserve!r}")
         self.engine = engine
         self.slots = [_Slot() for _ in range(engine.batch)]
         self.prefill_chunk = max(1, int(prefill_chunk))
@@ -193,23 +278,49 @@ class SlotScheduler:
         self.paged = bool(engine.paged)
         self.pool: PagePool | None = None
         self.prefix_cache: RadixTree | None = None
+        self.kv_reserve = kv_reserve
+        self.optimistic = self.paged and kv_reserve == "optimistic"
+        self.spill_headroom = max(0, int(spill_headroom))
+        self.host_pool: kvtier.HostPagePool | None = None
+        self._spilled: dict[int, dict] = {}   # slot -> its spill record's bookkeeping
+        self._page_nbytes = 0                 # one page, every plane, every layer
         if self.paged:
             self.pool = PagePool(engine.kv_pages, engine.kv_page_size)
             if prefix_reuse:
                 self.prefix_cache = RadixTree(self.pool)
             self._page_tables = np.zeros(
                 (engine.batch, engine.max_pages_per_slot), np.int32)
+            self.host_pool = kvtier.HostPagePool(int(float(host_pool_mb) * (1 << 20)))
+            self._page_nbytes = sum(
+                int(np.prod([ts[0].shape[0], sum(t.shape[2] for t in ts), *ts[0].shape[3:]]))
+                * ts[0].element_size() for ts in engine.kv_planes().values())
             obs_metrics.KV_PAGES_TOTAL.set(self.pool.capacity)
             obs_metrics.KV_PAGES_IN_USE.set(0)
+        # QoS (see the class docstring); beyond preempt_cap or parked_max a
+        # victim retires "preempted" instead of parking
+        self.preempt = bool(preempt)
+        self.preempt_age_ms = float(preempt_age_ms)
+        self.preempt_cap = max(0, int(preempt_cap))
+        self.parked_max = self.max_queue if parked_max is None else max(0, int(parked_max))
+        self.spill_dir = spill_dir
+        self._parked: list[_Parked] = []
         #: plain counters: dispatches landed, of them pipelined ones
         #: (``overlapped``) and pipelined ones landed and discarded at a
         #: flush point, prefill tokens fed, prefix-cache hits and the prompt
-        #: tokens they skipped, admissions deferred for pages
+        #: tokens they skipped, admissions deferred for pages; preemptions,
+        #: parked requests resumed, pages spilled and paged in, requests
+        #: exported and imported
         self.stats = {"dispatches": 0, "overlapped": 0, "discarded": 0,
                       "prefill_tokens": 0, "prefix_hits": 0,
-                      "prefix_tokens_reused": 0, "kv_pool_exhausted": 0}
+                      "prefix_tokens_reused": 0, "kv_pool_exhausted": 0,
+                      "preemptions": 0, "resumed": 0, "pages_spilled": 0,
+                      "pages_paged_in": 0, "exported": 0, "imported": 0}
         self._queue: deque[Ticket] = deque()
         self._cond = threading.Condition()
+        # serializes the engine's device calls between the dispatch loop and
+        # the export and import paths, which run on other threads; held
+        # only around those calls, never while taking _cond
+        self._engine_lock = threading.Lock()
         self._draining = False
         self._stop = False
         self._idle = threading.Event()  # set while paused with empty slots
@@ -235,10 +346,11 @@ class SlotScheduler:
     def submit(self, prompt: list[int], max_new: int, *,
                temperature: float = 0.0, top_p: float = 0.9,
                top_k: int = 0, eos_ids: tuple[int, ...] = (),
-               deadline: float | None = None) -> Ticket:
+               deadline: float | None = None, priority: int = 1) -> Ticket:
         """Queue one request; returns its :class:`Ticket` immediately.
         ``deadline`` is a ``time.monotonic()`` instant; an expired request
-        retires with finish ``timeout`` and what it produced."""
+        retires with finish ``timeout`` and what it produced.  ``priority``
+        is a :data:`PRIORITY_LEVELS` level."""
         if not prompt:
             raise ValueError("empty prompt")
         if max_new < 1:
@@ -253,7 +365,7 @@ class SlotScheduler:
                     f"request needs {n_pages} KV pages but the pool has "
                     f"{self.pool.capacity}; raise --kv-pages or shorten the request")
         t = Ticket(prompt, max_new, temperature, top_p, eos_ids, deadline,
-                   top_k=top_k)
+                   priority=max(0, min(max(PRIORITY_NAMES), int(priority))), top_k=top_k)
         with self._cond:
             if self._stop or self._draining:
                 raise SchedulerClosed("scheduler is draining")
@@ -266,7 +378,8 @@ class SlotScheduler:
             self._queue.append(t)
             self._cond.notify_all()
         obs_flight.submit(t.rid, n_prompt=len(t.prompt), max_new=t.max_new,
-                          temperature=t.temperature, source="scheduler")
+                          temperature=t.temperature, source="scheduler",
+                          priority=PRIORITY_NAMES.get(t.priority, "standard"))
         return t
 
     def occupancy(self) -> dict:
@@ -274,24 +387,49 @@ class SlotScheduler:
         with self._cond:
             out = {"slots": len(self.slots),
                    "active": sum(1 for s in self.slots if s.ticket is not None),
-                   "queued": len(self._queue)}
+                   "queued": len(self._queue), "parked": len(self._parked)}
             if self.pool is not None:
                 out["kv_pages_total"] = self.pool.capacity
                 out["kv_pages_free"] = self.pool.available
                 if self.prefix_cache is not None:
                     out["prefix_nodes"] = len(self.prefix_cache)
+                # tiering pressure: resident free pages plus what one spill
+                # pass could free into the host pool
+                owned = sum(len(s.pages) for s in self.slots
+                            if s.ticket is not None and not s.spilled)
+                headroom = max(0, self.host_pool.capacity_bytes
+                               - self.host_pool.bytes_used) // self._page_nbytes
+                spillable = min(owned, headroom) if self.optimistic else 0
+                out["kv_pressure"] = {
+                    "reserve": self.kv_reserve,
+                    "resident_free": self.pool.available,
+                    "spillable": spillable,
+                    "effective_free": self.pool.available + spillable,
+                    "host_pool_bytes": self.host_pool.bytes_used,
+                    "spilled_slots": len(self._spilled),
+                    "codec": "int8" if self.engine.cache.quantized
+                    else snapfmt.dtype_of(self.engine.cache.k.dtype),
+                }
             out.update(self.stats)
             return out
 
     def begin_drain(self, deadline: float | None) -> None:
-        """Stop admitting and clamp every live and queued deadline."""
+        """Stop admitting and clamp every live, queued and parked
+        deadline."""
         with self._cond:
             self._draining = True
-            for t in list(self._queue) + [s.ticket for s in self.slots
-                                          if s.ticket is not None]:
+            for t in (list(self._queue) + [s.ticket for s in self.slots if s.ticket is not None]
+                      + [e.ticket for e in self._parked]):
                 t.deadline = min(t.deadline, deadline) \
                     if (t.deadline and deadline) else (t.deadline or deadline)
             self._cond.notify_all()
+
+    def drain_with_export(self, deadline: float | None) -> dict[str, bytes]:
+        """Stop admissions, clamp every deadline, and export every live slot
+        (and every parked request) as a DLREQ01 record in one call; returns
+        the records by request id (``{}`` without a paged pool)."""
+        self.begin_drain(deadline)
+        return self.handoff_export_all()
 
     def close(self, timeout: float = 5.0) -> None:
         """Stop the loop; still-live tickets retire as ``aborted``."""
@@ -347,6 +485,282 @@ class SlotScheduler:
         with self._flushed():
             pass
 
+    # -- paged state snapshot and restore (DLSNAP02) --------------------
+    def snapshot_paged(self, path, extra: dict | None = None) -> str:
+        """Save the paged serving state: the pool rides the engine's
+        snapshot, the page tables go as an extra array and the radix tree's
+        token keys and pages in the meta.  Call with no live slot (drain or
+        ``exclusive()`` first)."""
+        if self.pool is None:
+            raise ValueError("snapshot_paged on a non-paged scheduler")
+        with self._cond:
+            if self._active():
+                raise RuntimeError("snapshot_paged with live slots; drain first")
+            meta = dict(extra or {})
+            meta["radix"] = self.prefix_cache.export() if self.prefix_cache is not None else []
+            with self._engine_lock:
+                return self.engine.snapshot(
+                    path, extra=meta, extra_arrays={"page_tables": self._page_tables.copy()})
+
+    def restore_paged(self, path) -> dict:
+        """Restore :meth:`snapshot_paged` state: the engine checks the file
+        and its fingerprint (the pool geometry is part of it, so another
+        geometry raises :class:`snapshot.SnapshotMismatch` and the caller
+        cold-starts) and writes the pool in place; the page pool and the
+        radix tree are rebuilt from the tree's keys, reclaiming their
+        pages.  Returns the snapshot's ``extra``."""
+        if self.pool is None:
+            raise ValueError("restore_paged on a non-paged scheduler")
+        with self._cond:
+            if self._active():
+                raise RuntimeError("restore_paged with live slots")
+            with self._engine_lock:
+                extra = self.engine.restore(path)
+            pt = self.engine.restored_arrays.get("page_tables")
+            if pt is not None and pt.shape == self._page_tables.shape:
+                self._page_tables[:] = pt
+            self.pool = PagePool(self.engine.kv_pages, self.engine.kv_page_size)
+            if self.prefix_cache is not None:
+                self.prefix_cache = RadixTree(self.pool)
+                self.prefix_cache.restore(extra.get("radix") or [])
+            # spill records describe the pool before the restore
+            self.host_pool.clear()
+            self._spilled.clear()
+            obs_metrics.KV_PAGES_IN_USE.set(self.pool.in_use)
+            return extra
+
+    # -- per-request KV hand-off (DLREQ01) -------------------------------
+    def _export_slot_locked(self, slot_idx: int) -> bytes:
+        """One live slot as a DLREQ01 record (caller holds ``_cond``, zero
+        dispatches in flight): its written pages (positions ``[0, pos)``),
+        the prompt and completion tokens, the sampling parameters, the
+        deadline left, the QoS clocks and the generator's state.  A spilled
+        slot's pages come from its host-pool copy."""
+        s = self.slots[slot_idx]
+        t = s.ticket
+        eng = self.engine
+        n_data = math.ceil(s.pos / self.pool.page_size)
+        deadline_left = None
+        if t.deadline is not None:
+            deadline_left = max(t.deadline - time.monotonic(), 0.0)
+        if s.spilled:
+            rec = self.host_pool.get(self._spill_key(slot_idx))
+            if rec is None:
+                raise RuntimeError(f"slot {slot_idx} marked spilled but its host-pool "
+                                   "record is missing")
+            arrays = {name: np.asanyarray(a)[:, :n_data] for name, a in rec[0].items()}
+        else:
+            with self._engine_lock:
+                arrays = eng.read_pool_pages(s.pages[:n_data])
+        arrays.update(eng.rng_arrays())
+        return snapfmt.dumps_request(
+            fingerprint=eng.handoff_fingerprint(), pos=s.pos, chunk_counter=0,
+            arrays=arrays,
+            extra={
+                "rid": t.rid, "prompt": list(t.prompt), "completion": list(t.emitted),
+                "max_new": t.max_new, "temperature": t.temperature, "top_p": t.top_p,
+                "top_k": t.top_k,
+                "sampling_path": eng.sampling_path if t.temperature == 0.0 else SAMPLED_PATH,
+                "rng_kind": eng.rng_kind,
+                "eos_ids": list(t.eos_ids), "stop": list(t.stop),
+                "deadline_left": deadline_left,
+                "fed": s.fed, "produced": s.produced, "last": s.last,
+                "priority": t.priority, "preempt_count": t.preempt_count,
+                "parked_ms": t.parked_ms, "spill_ms": t.spill_ms,
+            })
+
+    def handoff_export_all(self) -> dict[str, bytes]:
+        """Drain-time hand-off: flush the pipeline, export every live slot
+        as a DLREQ01 record keyed by request id and retire it ``handoff``;
+        parked requests ship their records as they are; queued tickets
+        retire ``handoff`` with no record (nothing was streamed: the router
+        resubmits them)."""
+        if self.pool is None:
+            return {}
+        records: dict[str, bytes] = {}
+        with self._flushed():
+            for i in self._active():
+                t = self.slots[i].ticket
+                try:
+                    records[t.rid] = self._export_slot_locked(i)
+                    self.stats["exported"] += 1
+                    obs_flight.phase(t.rid, "handoff", direction="export", slot=i,
+                                     pos=self.slots[i].pos)
+                except Exception as e:
+                    # one unexportable slot drains as a plain abort
+                    _log.error("handoff export of %s failed: %r", t.rid, e)
+                self._retire(i, "handoff")
+            for e in list(self._parked):
+                t = e.ticket
+                try:
+                    blob = e.blob
+                    if blob is None:
+                        with open(e.path, "rb") as f:
+                            blob = f.read()
+                    records[t.rid] = blob
+                except Exception as exc:
+                    _log.error("handoff export of parked %s failed: %r", t.rid, exc)
+                self._drop_parked_locked(e)
+                self._fail_ticket(t, "handoff")
+            while self._queue:
+                self._fail_ticket(self._queue.popleft(), "handoff")
+            self._cond.notify_all()
+        for rid in records:
+            obs_events.emit("handoff", direction="export", rid=rid)
+        return records
+
+    def checkpoint_export(self, rid: str) -> bytes | None:
+        """A non-destructive DLREQ01 record of the live slot serving
+        ``rid`` (the slot keeps decoding), taken with the pipeline flushed;
+        None when ``rid`` holds no live slot."""
+        if self.pool is None:
+            return None
+        with self._flushed():
+            for i in self._active():
+                t = self.slots[i].ticket
+                if t.rid == rid:
+                    return self._export_slot_locked(i)
+        return None
+
+    def import_request(self, blob) -> tuple[Ticket, dict]:
+        """Bind an exported request (DLREQ01 bytes) to a free slot: allocate
+        this pool's own pages, write the record's pages into them in place,
+        and resume the slot's clocks where the exporter stopped, so a
+        continued greedy decode equals the uninterrupted one.
+
+        Raises :class:`ArtifactError` on a corrupt record,
+        :class:`snapshot.SnapshotMismatch` on another geometry, pages that
+        disagree with the position, or a sampled stream from another kind of
+        generator (``rng_kind``), :class:`SchedulerSaturated` without a free
+        slot or pages, :class:`SchedulerClosed` while draining.  The
+        record's generator state is taken only when nothing else is live
+        here (the generator is shared by the slots).  Returns ``(ticket,
+        record extra)``."""
+        if self.pool is None:
+            raise ValueError("hand-off import needs a paged scheduler (--kv-pages)")
+        meta, arrays = snapfmt.loads_request(blob)
+        eng = self.engine
+        want = eng.handoff_fingerprint()
+        if meta["fingerprint"] != want:
+            raise snapfmt.SnapshotMismatch(
+                "<handoff record>", "fingerprint",
+                "record is from a replica with incompatible geometry",
+                expected=want, got=meta["fingerprint"])
+        extra = dict(meta.get("extra", {}))
+        kind = record_rng_kind(extra, arrays)
+        if float(extra.get("temperature", 0.0)) > 0.0 and kind != eng.rng_kind:
+            raise snapfmt.SnapshotMismatch(
+                "<handoff record>", "rng_kind",
+                "a sampled stream cannot continue on another generator",
+                expected=eng.rng_kind, got=kind)
+        prompt = [int(x) for x in extra.get("prompt") or []]
+        completion = [int(x) for x in extra.get("completion") or []]
+        pos = int(meta["pos"])
+        max_new = int(extra.get("max_new", 1))
+        fed = int(extra.get("fed", 0))
+        produced = int(extra.get("produced", len(completion)))
+        if not prompt or max_new < 1 or not (0 <= pos <= eng.seq_len) \
+                or not (0 <= fed <= len(prompt)) or produced < 0:
+            raise snapfmt.SnapshotMismatch("<handoff record>", "extra",
+                                           "inconsistent request state in hand-off record")
+        page_arrays = self._page_arrays(arrays, pos)
+        ps = self.pool.page_size
+        n_data = -(-pos // ps)
+        need = min(len(prompt) + max_new, eng.seq_len)
+        n_total = -(-need // ps)
+        if n_total > self.pool.capacity:
+            raise ContextOverflow(f"request needs {n_total} KV pages but the pool has "
+                                  f"{self.pool.capacity}")
+        deadline = None
+        if extra.get("deadline_left") is not None:
+            deadline = time.monotonic() + float(extra["deadline_left"])
+        with self._cond:
+            if self._stop or self._draining:
+                raise SchedulerClosed("scheduler is draining")
+            slot_idx = next((i for i, s in enumerate(self.slots) if s.ticket is None), None)
+            if slot_idx is None:
+                raise SchedulerSaturated("no free slot for hand-off import")
+            n_alloc = n_total
+            if self.optimistic:
+                n_alloc = max(n_data, -(-min(pos + self.spill_headroom, need) // ps))
+            pages = self._alloc_ladder_locked(n_alloc, allow_spill=False)
+            if pages is None:
+                raise SchedulerSaturated("no free KV pages for hand-off import")
+            others = any(s.ticket is not None for s in self.slots)
+            with self._engine_lock:
+                if n_data:
+                    eng.write_pool_pages(pages[:n_data], page_arrays)
+                if not others and not self._queue and kind == eng.rng_kind \
+                        and "rng_state" in arrays:
+                    eng.set_rng(arrays["rng_state"])
+            t = Ticket(prompt, max_new, float(extra.get("temperature", 0.0)),
+                       float(extra.get("top_p", 0.9)),
+                       tuple(int(e) for e in extra.get("eos_ids") or ()), deadline,
+                       priority=int(extra.get("priority", 1)),
+                       top_k=int(extra.get("top_k", 0)))
+            t.rid = str(extra.get("rid") or t.rid)
+            t.stop = [str(x) for x in extra.get("stop") or []]
+            t.emitted = list(completion)
+            t.preempt_count = int(extra.get("preempt_count", 0))
+            t.parked_ms = float(extra.get("parked_ms", 0.0))
+            t.spill_ms = float(extra.get("spill_ms", 0.0))
+            t._on_cancel = self._wake
+            self._bind_resumed_locked(slot_idx, t, pages, pos=pos, fed=fed,
+                                      produced=produced, last=int(extra.get("last", 0)),
+                                      budget=n_total)
+            self.stats["imported"] += 1
+            obs_metrics.SCHED_SLOT_JOINS.inc(slot_idx)
+            self._cond.notify_all()
+        obs_flight.submit(t.rid, n_prompt=len(prompt), max_new=max_new,
+                          temperature=t.temperature, source="handoff",
+                          priority=PRIORITY_NAMES.get(t.priority, "standard"))
+        obs_flight.admit(t.rid, slot=slot_idx, queued_ms=0.0, prefix_reused=0)
+        obs_flight.phase(t.rid, "handoff", direction="import", slot=slot_idx, pos=pos)
+        obs_events.emit("handoff", direction="import", rid=t.rid, slot=slot_idx, pos=pos,
+                        produced=produced)
+        return t, extra
+
+    def _page_arrays(self, arrays: dict, pos: int) -> dict:
+        """The record's page planes, checked against this pool: values
+        always, scale planes iff the pool is int8, each (L, ceil(pos/ps),
+        Hkv, ps, Dh | 1)."""
+        n_data = -(-pos // self.pool.page_size)
+        out = {}
+        for n, (_, shape) in self.engine.kv_layout().items():
+            name = f"pages.{n}"
+            arr = arrays.get(name)
+            want = (shape[0], n_data, *shape[2:])
+            if arr is None or tuple(arr.shape) != want:
+                raise snapfmt.SnapshotMismatch(
+                    "<handoff record>", f"array {name!r}",
+                    "page payload does not match the record position",
+                    expected=str(want), got="missing" if arr is None else str(arr.shape))
+            out[name] = arr
+        return out
+
+    def _bind_resumed_locked(self, slot_idx: int, t: Ticket, pages: list[int], *,
+                             pos: int, fed: int, produced: int, last: int,
+                             budget: int) -> None:
+        """Bind a resumed request (imported or unparked) to ``slot_idx``
+        with its written pages already in ``pages``: the clocks resume where
+        the record stopped."""
+        s = self.slots[slot_idx]
+        s.ticket = t
+        s.pages = list(pages)
+        s.prefix_tokens = 0
+        # prompt pages become shareable when prefill completes; a request
+        # resumed past it never inserts (its pages' prefix is unknown here)
+        s.inserted = fed >= len(t.prompt)
+        s.budget = budget
+        s.spilled = False
+        s.active_at = time.monotonic()
+        s.pos, s.fed, s.produced, s.last = pos, fed, produced, last
+        t.slot = slot_idx
+        row = self._page_tables[slot_idx]
+        row[:] = 0
+        row[:len(pages)] = pages
+        obs_metrics.KV_PAGES_IN_USE.set(self.pool.in_use)
+
     # -- scheduler thread ----------------------------------------------
     def _retire(self, slot_idx: int, reason: str,
                 error: BaseException | None = None) -> None:
@@ -356,6 +770,11 @@ class SlotScheduler:
             return
         t.finish = reason
         t.error = error
+        if self.pool is not None:
+            # a spilled slot owns no pages; its host-pool record dies with
+            # the request (dropped while the ticket is bound, so the time
+            # lands on its spill_ms)
+            self._drop_spilled_locked(slot_idx)
         s.ticket = None
         if self.pool is not None and s.pages:
             # drop this slot's references; pages the radix tree retained
@@ -377,7 +796,10 @@ class SlotScheduler:
         finally:
             request_id_var.reset(ctx)
         obs_flight.retire(t.rid, reason, produced=s.produced, pos=s.pos,
-                          error=repr(error) if error is not None else None)
+                          error=repr(error) if error is not None else None,
+                          preempt_count=t.preempt_count or None,
+                          parked_ms=round(t.parked_ms, 3) if t.parked_ms else None,
+                          spill_ms=round(t.spill_ms, 3) if t.spill_ms else None)
         t._q.put(_DONE)
 
     def _fail_ticket(self, t: Ticket, reason: str,
@@ -390,10 +812,12 @@ class SlotScheduler:
 
     def _bind_pages(self, slot_idx: int, t: Ticket) -> bool:
         """Paged admission: match the prompt against the radix tree, then
-        reserve every page the request can touch (matched prefix + fresh
-        pages through ``min(len(prompt) + max_new, seq_len)``).  Returns
-        False, binding nothing, when the pool cannot supply them: the
-        request stays queued.  Caller holds the lock."""
+        reserve pages: under ``full`` every page the request can touch
+        (matched prefix + fresh pages through ``min(len(prompt) + max_new,
+        seq_len)``), under ``optimistic`` only through ``prompt +
+        spill_headroom`` (the slot grows later, :meth:`_tier_round_locked`).
+        Returns False, binding nothing, when the pool cannot supply them:
+        the request stays queued.  Caller holds the lock."""
         pool = self.pool
         ps = pool.page_size
         prompt = t.prompt
@@ -409,17 +833,10 @@ class SlotScheduler:
         # evictor cannot free a page this admission just matched
         pool.incref(shared)
         need_len = min(len(prompt) + t.max_new, self.engine.seq_len)
-        fresh = -(-need_len // ps) - len(shared)
-        try:
-            new_pages = pool.alloc(fresh)
-        except PagePoolExhausted:
-            new_pages = None
-            if self.prefix_cache is not None:
-                self.prefix_cache.evict(fresh - pool.available)
-                try:
-                    new_pages = pool.alloc(fresh)
-                except PagePoolExhausted:
-                    pass
+        reserve_len = min(len(prompt) + self.spill_headroom, need_len) \
+            if self.optimistic else need_len
+        fresh = -(-reserve_len // ps) - len(shared)
+        new_pages = self._alloc_ladder_locked(fresh, allow_spill=False)
         if new_pages is None:
             pool.decref(shared)
             if not t._page_deferred:
@@ -433,6 +850,9 @@ class SlotScheduler:
         s.pages = list(shared) + new_pages
         s.prefix_tokens = matched
         s.inserted = False
+        # the growth ceiling (under full: the pages bound now)
+        s.budget = -(-need_len // ps)
+        s.spilled = False
         # the page-table row: reserved pages first, scratch page 0 after
         row = self._page_tables[slot_idx]
         row[:] = 0
@@ -447,24 +867,57 @@ class SlotScheduler:
         obs_metrics.KV_PAGES_IN_USE.set(pool.in_use)
         return True
 
+    def _eff_level(self, t: Ticket, now: float) -> int:
+        """The level after aging: a waiting ticket climbs one class per
+        ``preempt_age_ms`` waited (<= 0: no aging)."""
+        lvl = t.priority
+        if self.preempt_age_ms > 0:
+            lvl -= int((now - t.submitted_at) * 1e3 / self.preempt_age_ms)
+        return lvl
+
     def _admit_locked(self, now: float) -> None:
-        """Move waiting tickets into free slots in arrival order (caller
-        holds the lock).  A ticket that cannot get its pages keeps the head
-        of the queue and admission stops for the round."""
-        while self._queue:
-            t = self._queue[0]
-            if t._cancel is not None or (t.deadline is not None
-                                         and now >= t.deadline):
-                self._queue.popleft()
+        """Move waiting work into free slots in priority order (caller
+        holds the lock).  Candidates are the queue and the parked area; the
+        best effective level wins, parked before queued on a tie, then the
+        earlier submission.  A candidate that finds no slot or pages may
+        preempt a strictly lower-priority slot; otherwise admission stops
+        for the round and the candidate keeps its place."""
+        while True:
+            best = None  # (sort key, kind, ticket, parked entry)
+            for t in self._queue:
+                k = (self._eff_level(t, now), 1, t.submitted_at)
+                if best is None or k < best[0]:
+                    best = (k, "queued", t, None)
+            for e in self._parked:
+                k = (self._eff_level(e.ticket, now), 0, e.ticket.submitted_at)
+                if best is None or k < best[0]:
+                    best = (k, "parked", e.ticket, e)
+            if best is None:
+                return
+            _, kind, t, entry = best
+            if t._cancel is not None or (t.deadline is not None and now >= t.deadline):
+                if kind == "queued":
+                    self._queue.remove(t)
+                else:
+                    self._drop_parked_locked(entry)
                 self._fail_ticket(t, t._cancel or "timeout")
                 continue
-            free = next((i for i, s in enumerate(self.slots)
-                         if s.ticket is None), None)
+            free = next((i for i, s in enumerate(self.slots) if s.ticket is None), None)
             if free is None:
+                if self._preempt_for_locked(t, now, "no_free_slot"):
+                    continue
+                return
+            if kind == "parked":
+                if self._unpark_locked(free, entry, now):
+                    continue
+                if self._preempt_for_locked(t, now, "pool_exhausted"):
+                    continue
                 return
             if self.pool is not None and not self._bind_pages(free, t):
+                if self._preempt_for_locked(t, now, "pool_exhausted"):
+                    continue
                 return
-            self._queue.popleft()
+            self._queue.remove(t)
             s = self.slots[free]
             s.ticket = t
             # a prefix hit's matched tokens are already in the cache
@@ -472,12 +925,14 @@ class SlotScheduler:
             s.pos = s.fed = s.prefix_tokens if self.pool is not None else 0
             s.produced = 0
             s.last = 0
+            s.active_at = now
             t.slot = free
             queued_ms = round((now - t.submitted_at) * 1e3, 3)
             obs_metrics.SCHED_SLOT_JOINS.inc(free)
             obs_trace.record("sched_admit", t.submitted_at, now, rid=t.rid, slot=free,
                              queued_ms=queued_ms, n_prompt=len(t.prompt),
-                             prefix_reused=s.pos)
+                             prefix_reused=s.pos,
+                             priority=PRIORITY_NAMES.get(t.priority, t.priority))
             ctx = request_id_var.set(t.rid)
             try:
                 _log.info("slot join", extra={"slot": free, "n_prompt": len(t.prompt),
@@ -487,6 +942,344 @@ class SlotScheduler:
                 request_id_var.reset(ctx)
             obs_flight.admit(t.rid, slot=free, queued_ms=queued_ms, prefix_reused=s.pos)
             obs_metrics.QUEUE_WAIT.observe(max(now - t.submitted_at, 0.0))
+
+    # -- QoS preemption (export, park, resume) ---------------------------
+    def _preempt_for_locked(self, t: Ticket, now: float, reason: str) -> bool:
+        """Preempt the lowest-priority, longest-remaining slot so ``t`` can
+        admit.  The raw levels decide (an aged ticket admits earlier but
+        evicts nothing of its own class).  Admission runs between rounds,
+        so no dispatch is in flight; ``_inflight_n`` is checked anyway.
+        False when preemption is off, the scheduler is unpaged, or no slot
+        holds a strictly lower priority."""
+        if not self.preempt or self.pool is None or self._inflight_n:
+            return False
+        victims = [i for i, s in enumerate(self.slots)
+                   if s.ticket is not None and s.ticket.priority > t.priority]
+        if not victims:
+            return False
+        victim = max(victims, key=lambda i: (self.slots[i].ticket.priority,
+                                             self.slots[i].ticket.max_new
+                                             - self.slots[i].produced))
+        self._preempt_locked(victim, reason, now)
+        return True
+
+    def _preempt_locked(self, slot_idx: int, reason: str, now: float) -> None:
+        """Evict one slot through the DLREQ01 export: park the record (RAM,
+        or ``spill_dir``), free its pages, keep the ticket live (its
+        consumer sees a stall).  Past ``preempt_cap``, with the parked area
+        full, or when the export fails, the victim retires ``preempted``
+        with what it produced."""
+        s = self.slots[slot_idx]
+        t = s.ticket
+        obs_metrics.SCHED_PREEMPTIONS.inc(reason)
+        self.stats["preemptions"] += 1
+        obs_trace.record("sched_preempt", now, time.monotonic(), rid=t.rid, slot=slot_idx,
+                         reason=reason, produced=s.produced,
+                         priority=PRIORITY_NAMES.get(t.priority, t.priority))
+        if t.preempt_count >= self.preempt_cap or len(self._parked) >= self.parked_max:
+            self._retire(slot_idx, "preempted")
+            return
+        t0 = time.perf_counter()
+        try:
+            blob = self._export_slot_locked(slot_idx)
+        except Exception as e:
+            _log.error("preempt export of %s failed: %r", t.rid, e)
+            self._retire(slot_idx, "preempted")
+            return
+        export_ms = (time.perf_counter() - t0) * 1e3
+        path = None
+        if self.spill_dir is not None:
+            try:
+                os.makedirs(self.spill_dir, exist_ok=True)
+                path = os.path.join(self.spill_dir, f"{t.rid}.dlreq")
+                with open(path, "wb") as f:
+                    f.write(blob)
+                blob = None
+            except OSError as e:
+                path = None  # keep the record in RAM
+                _log.error("preempt spill of %s failed; record kept in RAM: %r", t.rid, e)
+        t.preempt_count += 1
+        self._parked.append(_Parked(t, blob, path, now))
+        # a spilled victim parked from its host-pool copy: drop that copy
+        # while the ticket is still bound
+        self._drop_spilled_locked(slot_idx)
+        s.ticket = None
+        t.slot = None
+        if s.pages:
+            self.pool.decref(s.pages)
+            s.pages = []
+            self._page_tables[slot_idx][:] = 0
+            obs_metrics.KV_PAGES_IN_USE.set(self.pool.in_use)
+        obs_metrics.SCHED_PREEMPT_PARKED.set(len(self._parked))
+        ctx = request_id_var.set(t.rid)
+        try:
+            _log.info("slot preempt", extra={"slot": slot_idx, "reason": reason,
+                                             "produced": s.produced,
+                                             "preempt_count": t.preempt_count})
+        finally:
+            request_id_var.reset(ctx)
+        obs_flight.phase(t.rid, "preempted", slot=slot_idx, reason=reason,
+                         produced=s.produced, preempt_count=t.preempt_count,
+                         export_ms=export_ms, on_disk=path is not None)
+        obs_events.emit("preempt", rid=t.rid, slot=slot_idx, reason=reason,
+                        produced=s.produced, spilled=path is not None)
+
+    def _unpark_locked(self, slot_idx: int, entry: _Parked, now: float) -> bool:
+        """Resume a parked request in ``slot_idx`` on its original ticket:
+        its pages are written back in place and its clocks resume, so a
+        greedy stream goes on byte for byte.  True when the entry was used
+        (resumed, or failed on an unreadable record), False when pages are
+        short and it stays parked."""
+        eng = self.engine
+        t = entry.ticket
+        try:
+            blob = entry.blob
+            if blob is None:
+                with open(entry.path, "rb") as f:
+                    blob = f.read()
+            meta, arrays = snapfmt.loads_request(blob)
+            pos = int(meta["pos"])
+            page_arrays = self._page_arrays(arrays, pos)
+        except Exception as e:
+            _log.error("parked record of %s unreadable; it cannot resume: %r", t.rid, e)
+            self._drop_parked_locked(entry)
+            self._fail_ticket(t, "preempted")
+            return True
+        ps = self.pool.page_size
+        n_data = -(-pos // ps)
+        need = min(len(t.prompt) + t.max_new, eng.seq_len)
+        n_total = -(-need // ps)
+        n_alloc = n_total
+        if self.optimistic:
+            # the written pages plus headroom, as an optimistic admission
+            n_alloc = max(n_data, -(-min(pos + self.spill_headroom, need) // ps))
+        # the whole ladder: resuming may spill an idle neighbour
+        pages = self._alloc_ladder_locked(n_alloc)
+        if pages is None:
+            return False
+        extra = dict(meta.get("extra", {}))
+        others = any(s.ticket is not None for s in self.slots)
+        t0 = time.perf_counter()
+        with self._engine_lock:
+            if n_data:
+                eng.write_pool_pages(pages[:n_data], page_arrays)
+            if not others and not self._queue and "rng_state" in arrays:
+                eng.set_rng(arrays["rng_state"])
+        write_ms = (time.perf_counter() - t0) * 1e3
+        fed = int(extra.get("fed", 0))
+        self._bind_resumed_locked(slot_idx, t, pages, pos=pos, fed=fed,
+                                  produced=int(extra.get("produced", len(t.emitted))),
+                                  last=int(extra.get("last", 0)), budget=n_total)
+        s = self.slots[slot_idx]
+        s.active_at = now
+        parked_ms = round((now - entry.parked_at) * 1e3, 3)
+        t.parked_ms += parked_ms
+        self._drop_parked_locked(entry)
+        self.stats["resumed"] += 1
+        obs_metrics.SCHED_SLOT_JOINS.inc(slot_idx)
+        obs_trace.record("sched_resume", entry.parked_at, now, rid=t.rid, slot=slot_idx,
+                         parked_ms=parked_ms, pos=pos,
+                         priority=PRIORITY_NAMES.get(t.priority, t.priority))
+        ctx = request_id_var.set(t.rid)
+        try:
+            _log.info("slot resume", extra={"slot": slot_idx, "pos": pos,
+                                            "produced": s.produced, "parked_ms": parked_ms})
+        finally:
+            request_id_var.reset(ctx)
+        obs_flight.phase(t.rid, "resumed", slot=slot_idx, parked_ms=parked_ms, pos=pos,
+                         write_ms=write_ms)
+        obs_events.emit("resume", rid=t.rid, slot=slot_idx, parked_ms=parked_ms, pos=pos)
+        return True
+
+    def _drop_parked_locked(self, entry: _Parked) -> None:
+        with contextlib.suppress(ValueError):
+            self._parked.remove(entry)
+        if entry.path is not None:
+            with contextlib.suppress(OSError):
+                os.remove(entry.path)
+        obs_metrics.SCHED_PREEMPT_PARKED.set(len(self._parked))
+
+    def _sweep_parked_locked(self, now: float) -> None:
+        for e in list(self._parked):
+            t = e.ticket
+            if t._cancel is not None:
+                self._drop_parked_locked(e)
+                self._fail_ticket(t, t._cancel)
+            elif t.deadline is not None and now >= t.deadline:
+                self._drop_parked_locked(e)
+                self._fail_ticket(t, "timeout")
+
+    # -- KV tiering (optimistic growth, spill, page-in) ------------------
+    def _spill_key(self, slot_idx: int):
+        """The host-pool key of a slot's spill record: (slot, request id),
+        so a slot bound to a new ticket never meets its predecessor's."""
+        return (slot_idx, self.slots[slot_idx].ticket.rid)
+
+    def _drop_spilled_locked(self, slot_idx: int) -> None:
+        """Forget a slot's spill record (retire, park), charging the
+        spilled time to its ticket; a no-op without one."""
+        rec = self._spilled.pop(slot_idx, None)
+        if rec is None:
+            return
+        s = self.slots[slot_idx]
+        if s.ticket is not None:
+            s.ticket.spill_ms += (time.monotonic() - rec["since"]) * 1e3
+        self.host_pool.drop(rec["key"])
+        s.spilled = False
+
+    def _spill_slot_locked(self, slot_idx: int) -> bool:
+        """Move one slot's pages to the host pool (caller holds ``_cond``,
+        zero dispatches in flight): the engine gathers them on its stream
+        and copies them into pinned memory on a side stream; only after that
+        copy has landed (``wait()``) and the host pool took the record are
+        the pages freed.  A refused spill leaves the slot resident."""
+        s = self.slots[slot_idx]
+        t = s.ticket
+        n = len(s.pages)
+        if not n or not self.host_pool.would_fit(n * self._page_nbytes):
+            return False
+        t0 = time.perf_counter()
+        with self._engine_lock:
+            handles = self.engine.read_pool_pages_async(s.pages)
+        arrays = {k: h.wait() for k, h in handles.items()}
+        ms = (time.perf_counter() - t0) * 1e3
+        key = self._spill_key(slot_idx)
+        if not self.host_pool.put(key, arrays, {"pos": s.pos}):
+            return False
+        self.pool.decref(s.pages)
+        s.pages = []
+        s.spilled = True
+        self._page_tables[slot_idx][:] = 0
+        self._spilled[slot_idx] = {"key": key, "since": time.monotonic(), "n_pages": n}
+        self.stats["pages_spilled"] += n
+        obs_metrics.KV_PAGES_SPILLED.inc(n)
+        obs_metrics.KV_SPILL_BYTES.inc(kvtier.arrays_nbytes(arrays))
+        obs_metrics.KV_PAGES_IN_USE.set(self.pool.in_use)
+        ctx = request_id_var.set(t.rid)
+        try:
+            _log.info("kv spill", extra={"slot": slot_idx, "pages": n, "pos": s.pos})
+        finally:
+            request_id_var.reset(ctx)
+        obs_flight.phase(t.rid, "kv_spill", slot=slot_idx, pages=n, ms=ms)
+        return True
+
+    def _spill_one_locked(self, exclude: int | None = None) -> bool:
+        """Spill the best victim among the live resident slots
+        (:func:`kvtier.rank_victims`), never ``exclude`` (the slot being
+        grown)."""
+        cands = [(i, self.slots[i].active_at) for i in self._active()
+                 if i != exclude and not self.slots[i].spilled and self.slots[i].pages]
+        for idx in kvtier.rank_victims(cands):
+            if self._spill_slot_locked(idx):
+                return True
+        return False
+
+    def _alloc_ladder_locked(self, n: int, exclude: int | None = None,
+                             allow_spill: bool = True):
+        """``n`` pages through the reclaim ladder: the free list, radix
+        eviction (cold shared prefixes), then spills of idle slots.  None
+        when it cannot; the caller picks the fallback.  The first two rungs
+        free only pages no slot row references, so they are safe under an
+        in-flight dispatch; a spill reads the pool and is for round
+        boundaries only (``allow_spill=False`` otherwise)."""
+        if n <= 0:
+            return []
+        pool = self.pool
+        try:
+            return pool.alloc(n)
+        except PagePoolExhausted:
+            pass
+        if self.prefix_cache is not None:
+            self.prefix_cache.evict(n - pool.available)
+            try:
+                return pool.alloc(n)
+            except PagePoolExhausted:
+                pass
+        if allow_spill:
+            while pool.available < n:
+                if not self._spill_one_locked(exclude):
+                    return None
+            try:
+                return pool.alloc(n)
+            except PagePoolExhausted:  # pragma: no cover - defensive
+                return None
+        return None
+
+    def _grow_slot_locked(self, slot_idx: int, target_pos: int,
+                          allow_spill: bool = True) -> bool:
+        """Make ``slot_idx`` own every page a write of positions ``[0,
+        target_pos)`` touches (clamped to its budget).  Growth lands before
+        the dispatch that writes there: an unbound table entry is scratch
+        page 0, which would swallow the write."""
+        s = self.slots[slot_idx]
+        need = min(-(-int(target_pos) // self.pool.page_size), s.budget)
+        extra = need - len(s.pages)
+        if extra <= 0:
+            return True
+        pages = self._alloc_ladder_locked(extra, exclude=slot_idx, allow_spill=allow_spill)
+        if pages is None:
+            return False
+        s.pages.extend(pages)
+        self._page_tables[slot_idx][:len(s.pages)] = s.pages
+        obs_metrics.KV_PAGES_IN_USE.set(self.pool.in_use)
+        return True
+
+    def _try_page_in_locked(self) -> None:
+        """Bring spilled slots back, the longest-stalled first, before any
+        admission (their consumers are waiting).  No spill rung here:
+        paging one slot in by spilling another would ping-pong."""
+        order = sorted(self._spilled.items(), key=lambda kv: (kv[1]["since"], kv[0]))
+        for slot_idx, rec in order:
+            s = self.slots[slot_idx]
+            pages = self._alloc_ladder_locked(rec["n_pages"], allow_spill=False)
+            if pages is None:
+                return
+            got = self.host_pool.pop(rec["key"])
+            if got is None:  # pragma: no cover - defensive
+                self._spilled.pop(slot_idx, None)
+                s.spilled = False
+                self.pool.decref(pages)
+                continue
+            arrays, _ = got
+            t0 = time.perf_counter()
+            with self._engine_lock:
+                self.engine.write_pool_pages(pages, arrays)
+            ms = (time.perf_counter() - t0) * 1e3
+            s.pages = list(pages)
+            s.spilled = False
+            row = self._page_tables[slot_idx]
+            row[:] = 0
+            row[:len(pages)] = pages
+            t = s.ticket
+            stalled_ms = (time.monotonic() - rec["since"]) * 1e3
+            t.spill_ms += stalled_ms
+            self._spilled.pop(slot_idx, None)
+            self.stats["pages_paged_in"] += len(pages)
+            obs_metrics.KV_PAGES_PAGED_IN.inc(len(pages))
+            obs_metrics.KV_PAGES_IN_USE.set(self.pool.in_use)
+            ctx = request_id_var.set(t.rid)
+            try:
+                _log.info("kv page-in", extra={"slot": slot_idx, "pages": len(pages),
+                                               "stalled_ms": round(stalled_ms, 3)})
+            finally:
+                request_id_var.reset(ctx)
+            obs_flight.phase(t.rid, "kv_pagein", slot=slot_idx, pages=len(pages), ms=ms,
+                             stalled_ms=stalled_ms)
+
+    def _tier_round_locked(self, now: float) -> None:
+        """Between rounds (``_cond`` held, zero in flight): grow every live
+        resident slot to cover the widest write the next dispatch can make;
+        a slot the ladder cannot grow is preempted (``kv_pressure``)."""
+        if not self.optimistic:
+            return
+        reach = max(self.prefill_chunk, self.decode_burst)
+        for i in self._active():
+            s = self.slots[i]
+            if s.spilled:
+                continue
+            target = min(s.pos + reach, int(self.engine.seq_len))
+            if not self._grow_slot_locked(i, target, allow_spill=True):
+                self._preempt_locked(i, "kv_pressure", now)
 
     def _active(self) -> list[int]:
         return [i for i, s in enumerate(self.slots) if s.ticket is not None]
@@ -508,22 +1301,34 @@ class SlotScheduler:
                               or (q.deadline is not None and now >= q.deadline)]:
                         self._queue.remove(t)
                         self._fail_ticket(t, t._cancel or "timeout")
+                    self._sweep_parked_locked(now)
+                    if self._spilled:
+                        # spilled slots hold live tickets whose consumers
+                        # wait: freed pages go to them before admissions
+                        self._try_page_in_locked()
                     if not self._paused:
                         self._admit_locked(now)
-                    active = self._active()
+                    self._tier_round_locked(now)
+                    real_active = self._active()
+                    # a spilled slot holds a ticket but no pages: it sits
+                    # out the dispatch (its table row is all scratch) until
+                    # it pages back in
+                    active = [i for i in real_active if not self.slots[i].spilled]
                     queued = len(self._queue)
                     obs_metrics.SCHED_SLOTS_OCCUPIED.set(len(active))
                     obs_metrics.SCHED_QUEUE_DEPTH.set(queued)
                     if self._stop:
                         return
                     if not active:
-                        if self._paused:
+                        if self._paused and not real_active:
                             self._idle.set()
                         # submissions, cancels and close notify at once; the
-                        # timeout only has to cover the earliest queued
-                        # deadline (a paused scheduler holds its queue)
+                        # timeout only has to cover the earliest queued or
+                        # parked deadline (a paused scheduler holds its queue)
                         timeout = 0.5
                         dls = [t.deadline for t in self._queue if t.deadline is not None]
+                        dls += [e.ticket.deadline for e in self._parked
+                                if e.ticket.deadline is not None]
                         if dls:
                             timeout = min(timeout, max(min(dls) - now, 0.0))
                         w0 = time.perf_counter()
@@ -540,6 +1345,9 @@ class SlotScheduler:
                     self._retire(i, "aborted")
                 while self._queue:
                     self._fail_ticket(self._queue.popleft(), "aborted")
+                for e in list(self._parked):
+                    self._drop_parked_locked(e)
+                    self._fail_ticket(e.ticket, "aborted")
                 self._idle.set()
 
     def _dispatch(self, active: list[int], queued: int) -> None:
@@ -628,12 +1436,20 @@ class SlotScheduler:
             obs_metrics.SCHED_HOST_GAP_MS.observe(host_gap_ms)
         self._idle_accum = 0.0
         t0_mono = time.monotonic()
+        ptab = None
+        if self.paged:
+            # only the riders' rows: a row bound under us (a hand-off
+            # import on another thread) must not take this dispatch's
+            # idle-row writes, which a zero row sends to scratch page 0
+            ptab = np.zeros_like(self._page_tables)
+            with self._cond:
+                ptab[active] = self._page_tables[active]
         handle, error = None, None
         try:
-            handle = eng.slot_step_async(
-                tokens, pos_rows, n_valid, temps_np=temps, topps_np=topps,
-                topks_np=topks, steps=steps,
-                page_tables_np=self._page_tables if self.paged else None)
+            with self._engine_lock:
+                handle = eng.slot_step_async(
+                    tokens, pos_rows, n_valid, temps_np=temps, topps_np=topps,
+                    topks_np=topks, steps=steps, page_tables_np=ptab)
         except Exception as e:
             error = e
         if handle is not None:
@@ -659,7 +1475,7 @@ class SlotScheduler:
         b = eng.batch
         with self._cond:
             if (self._stop or self._draining or self._paused
-                    or self._flush_req or self._queue):
+                    or self._flush_req or self._queue or self._parked):
                 return None
             now = time.monotonic()
             pos2 = np.zeros((b,), np.int32)
@@ -694,16 +1510,28 @@ class SlotScheduler:
             # compares dispatch pipelining alone
             steps2 = max(1, min(self.decode_burst, room))
             steps2 = 1 << (steps2.bit_length() - 1)
+            if self.optimistic:
+                # a pipelined chain runs on past the round's growth: each
+                # burst grows its rows here.  No spill: a page read would
+                # queue behind the dispatch in flight; radix eviction frees
+                # only pages no row references
+                for j in cur.active:
+                    if not self._grow_slot_locked(j, int(pos2[j]) + steps2,
+                                                  allow_spill=False):
+                        return None
+            # the import path rewrites _page_tables under _cond: the
+            # enqueue below (outside the lock) reads a frozen copy
             ptab = self._page_tables.copy() if self.paged else None
             # reserve the in-flight count before releasing the lock so a
             # concurrent _flushed() waiter sees this dispatch coming
             self._inflight_n += 1
         handle, err = None, None
         try:
-            handle = eng.slot_step_async(
-                None, pos2, np.ones((b,), np.int32), temps_np=cur.temps,
-                topps_np=cur.topps, topks_np=cur.topks, steps=steps2,
-                page_tables_np=ptab, feed_dev=cur.handle.last_dev)
+            with self._engine_lock:
+                handle = eng.slot_step_async(
+                    None, pos2, np.ones((b,), np.int32), temps_np=cur.temps,
+                    topps_np=cur.topps, topks_np=cur.topks, steps=steps2,
+                    page_tables_np=ptab, feed_dev=cur.handle.last_dev)
         except Exception as e:
             err = e
         if err is not None:
@@ -733,7 +1561,7 @@ class SlotScheduler:
         slots = self.slots
         with self._cond:
             if (self._stop or self._draining or self._paused
-                    or self._flush_req or self._queue):
+                    or self._flush_req or self._queue or self._parked):
                 return None
             now = time.monotonic()
             survivors = []
@@ -914,6 +1742,11 @@ class SlotScheduler:
         gave its ticket.  Caller holds ``self._cond``."""
         eng = self.engine
         slots = self.slots
+        now = time.monotonic()
+        for i in active:
+            # the spill victim clock: a slot that rode this dispatch was
+            # active now, whatever it emitted
+            slots[i].active_at = now
         for j in range(steps):
             for i in active:
                 s = slots[i]

@@ -31,9 +31,23 @@
 * bounded admission (``--max-pending`` → 429 with a jittered
   Retry-After), per-request deadlines (``timeout``/``max_time`` body
   fields, ``--request-timeout``), and a graceful drain on SIGTERM/SIGINT.
+* QoS: a request's class is the body field ``priority`` (an unknown class
+  answers 400) or the ``X-Dllama-Priority`` header (an unknown one falls
+  back to ``standard``); the scheduler admits by class and preempts lower
+  classes (``--no-preempt``, ``--preempt-age-ms``, ``--preempt-cap``,
+  ``--preempt-spill-dir``); with ``--slo`` a burning error budget sheds
+  ``batch`` first, ``standard`` once violating, ``interactive`` never.
+* hand-off (``--handoff``, a paged scheduler): a drain exports every live
+  request as a DLREQ01 record, fetched once by ``GET /admin/export/<rid>``
+  (kept ``--handoff-ttl`` seconds); ``GET /admin/checkpoint/<rid>`` copies
+  a live request without stopping it; ``POST
+  /admin/import?emitted_chars=N`` resumes a record here and streams the
+  text past the first N characters (409 on another geometry).
+* snapshots (``--snapshot-dir``): a drain saves the batch-1 engine, its
+  conversation cache and the paged pool with its radix tree; the next boot
+  restores them (a corrupt or mismatched file cold-starts).
 
-Not yet ported (each answers 400 naming itself): ``priority``, ``POST
-/debug/profile`` and the admin and hand-off routes.
+Not yet ported (answers 400 naming itself): ``POST /debug/profile``.
 """
 
 from __future__ import annotations
@@ -54,10 +68,13 @@ from urllib.parse import parse_qs
 
 from ..obs import dispatch as obs_dispatch, events as obs_events
 from ..obs import flight as obs_flight, metrics as obs_metrics, trace as obs_trace
+from ..io.integrity import ArtifactError
 from ..obs.log import get_logger, new_request_id, set_request_id
 from ..ops import attention, q8, q40
 from ..runtime.engine import ContextOverflow, Engine
-from ..runtime.scheduler import SchedulerClosed, SchedulerSaturated, SlotScheduler
+from ..runtime.scheduler import (PRIORITY_LEVELS, PRIORITY_NAMES, SchedulerClosed,
+                                 SchedulerSaturated, SlotScheduler)
+from ..runtime.snapshot import RecordStore, SnapshotMismatch
 from ..runtime.stream import drain_generation
 from ..tokenizer.bpe import Tokenizer
 from ..tokenizer.chat import ChatItem, ChatTemplate, TokenizerChatStops
@@ -68,6 +85,10 @@ _log = get_logger("server.api")
 
 #: request bodies above this are refused with 413
 MAX_BODY_BYTES = 8 * 1024 * 1024
+
+#: /admin/import bodies (DLREQ01 records) carry raw KV pages: their own,
+#: larger bound
+MAX_HANDOFF_BYTES = 1 << 30
 
 #: a client's X-Request-Id lands in logs and headers: keep it to this
 #: charset and length
@@ -84,6 +105,15 @@ def _decode_continuation(tok: Tokenizer, prev: int, token_ids: list[int]) -> str
         parts.append(tok.decode_piece(prev, t))
         prev = t
     return b"".join(parts).decode("utf-8", errors="replace")
+
+
+def priority_level(value) -> int | None:
+    """A QoS class name → the scheduler's level; None for anything that is
+    not a known class (the caller answers 400 or takes the default)."""
+    try:
+        return PRIORITY_LEVELS[str(value).strip().lower()]
+    except (KeyError, AttributeError):
+        return None
 
 
 def _not_ported_msg(what: str) -> str:
@@ -166,12 +196,6 @@ def parse_request(body: dict, default_temp: float, default_topp: float) -> Infer
     elif isinstance(stop, list):
         p.stop = [str(s) for s in stop]
     return p
-
-
-def unported_fields(body: dict) -> list[str]:
-    """The request fields of ``body`` that ask for a feature the port does
-    not carry yet."""
-    return ["priority"] if body.get("priority") is not None else []
 
 
 #: the serving counters ServerMetrics mediates; each name is both the
@@ -283,8 +307,12 @@ class ApiState:
     slot rows it also runs the one-shot lockstep batches (list prompts,
     ``n > 1``, ``logprobs``, ``echo``).  ``engine_lock`` is the mutex of
     the batch-1 and lockstep paths.  ``slo`` (``obs.slo.SloEngine``) adds
-    its verdict to ``/health``.  ``finished`` keeps one record per served
-    request (path, tokens, time to first token, latency)."""
+    its verdict to ``/health`` and drives shedding.  ``finished`` keeps one
+    record per served request (path, tokens, time to first token,
+    latency).  ``snapshot_dir`` turns on drain-time snapshots and the warm
+    boot; ``handoff`` (a paged scheduler) turns a drain into an export of
+    every live request, each record kept ``handoff_ttl`` seconds (0: until
+    claimed)."""
 
     def __init__(self, engine: Engine, tokenizer: Tokenizer,
                  default_temperature: float = 0.7, default_topp: float = 0.9,
@@ -292,7 +320,9 @@ class ApiState:
                  batch_engine: Engine | None = None,
                  max_pending: int = 8, request_timeout: float = 0.0,
                  io_timeout: float = 15.0, drain_grace: float = 30.0,
-                 scheduler: SlotScheduler | None = None, slo=None):
+                 scheduler: SlotScheduler | None = None, slo=None,
+                 snapshot_dir: str | None = None, handoff: bool = False,
+                 handoff_ttl: float = 0.0):
         self.engine = engine
         self.slo = slo
         self.batch_engine = batch_engine
@@ -319,6 +349,15 @@ class ApiState:
         self._active = 0    # generating
         self.draining = False
         self.drain_deadline: float | None = None
+        self.snapshot_dir = snapshot_dir
+        self.handoff = bool(handoff and scheduler is not None and scheduler.pool is not None)
+        # a drain's export records wait here for GET /admin/export/<rid>;
+        # unclaimed ones expire after handoff_ttl
+        self.handoff_records = RecordStore(ttl=handoff_ttl, on_expire=self._handoff_expired)
+
+    def _handoff_expired(self, rid: str) -> None:
+        obs_metrics.HANDOFF_EXPIRED.inc()
+        _log.warning("handoff record %s expired unclaimed", rid)
 
     # -- admission / drain ---------------------------------------------
     def try_enter(self) -> str:
@@ -352,8 +391,107 @@ class ApiState:
             self.draining = True
             g = self.drain_grace if grace is None else grace
             self.drain_deadline = time.monotonic() + max(g, 0.0)
-        if self.scheduler is not None:
-            self.scheduler.begin_drain(self.drain_deadline)
+        if self.scheduler is None:
+            return
+        if self.handoff:
+            # every live slot becomes a DLREQ01 record for GET
+            # /admin/export/<rid>; their handlers see finish "handoff" and
+            # answer at once, so the drain takes an export, not the longest
+            # decode
+            try:
+                self.handoff_records.update(
+                    self.scheduler.drain_with_export(self.drain_deadline))
+                return
+            except Exception as e:
+                # a failed export degrades to a plain drain, never a crash
+                _log.error("handoff export failed: %r", e)
+        self.scheduler.begin_drain(self.drain_deadline)
+
+    # -- engine-state snapshot (warm restart) --------------------------
+    @property
+    def snapshot_path(self) -> str | None:
+        return os.path.join(self.snapshot_dir, "engine.snap") if self.snapshot_dir else None
+
+    @property
+    def sched_snapshot_path(self) -> str | None:
+        return os.path.join(self.snapshot_dir, "scheduler.snap") if self.snapshot_dir else None
+
+    def save_snapshot(self) -> str | None:
+        """Snapshot the batch-1 engine and its conversation cache to
+        ``--snapshot-dir`` (after the drain, when no request holds the
+        engine), and a paged scheduler's pool, page tables and radix tree
+        to a sibling file.  Returns the path, or None when off or failed:
+        a failed snapshot never turns a clean drain into a crash."""
+        path = self.snapshot_path
+        if path is None:
+            return None
+        try:
+            os.makedirs(self.snapshot_dir, exist_ok=True)
+            with self.engine_lock:
+                items = [[it.end_pos, it.message.role, it.message.content]
+                         for it in self.naive_cache.items]
+                self.engine.snapshot(path, extra={"naive_cache": items})
+            _log.info("snapshot saved to %s", path)
+        except Exception as e:
+            _log.warning("snapshot to %s failed: %r", path, e)
+            return None
+        if self.scheduler is not None and self.scheduler.pool is not None:
+            try:
+                self.scheduler.snapshot_paged(self.sched_snapshot_path)
+            except Exception as e:
+                # the prefix cache only saves prefills: losing it is cheap
+                _log.warning("scheduler snapshot failed: %r", e)
+        return path
+
+    def restore_snapshot(self) -> bool:
+        """Warm boot from ``--snapshot-dir`` when a snapshot is there.  The
+        files are one-shot (deleted once restored, so a crash loop cannot
+        replay ever staler state); a corrupt or mismatched file logs why
+        and cold-starts, and is left for a post-mortem."""
+        path = self.snapshot_path
+        if path is None or not os.path.exists(path):
+            return False
+        try:
+            extra = self.engine.restore(path)
+        except Exception as e:  # ArtifactError and anything else: cold start
+            _log.warning("snapshot %s rejected, cold start: %r", path, e)
+            self.engine.reset()
+            return False
+        for end_pos, role, content in extra.get("naive_cache", []):
+            self.naive_cache.push(int(end_pos), ChatMessage(str(role), str(content)))
+        with contextlib.suppress(OSError):
+            os.remove(path)
+        _log.info("warm start from %s at pos %d", path, self.engine.pos)
+        spath = self.sched_snapshot_path
+        if self.scheduler is not None and self.scheduler.pool is not None \
+                and os.path.exists(spath):
+            try:
+                self.scheduler.restore_paged(spath)
+            except Exception as e:
+                # another geometry: a cold pool, everything else warm
+                _log.warning("scheduler snapshot %s rejected, cold pool: %r", spath, e)
+            with contextlib.suppress(OSError):
+                os.remove(spath)
+        return True
+
+    def should_shed(self, level: int) -> bool:
+        """SLO-driven shedding: ``interactive`` never; ``batch`` once any
+        objective burns its budget on the fast window; ``standard`` only
+        while the verdict is ``violating``."""
+        if self.slo is None or level <= PRIORITY_LEVELS["interactive"]:
+            return False
+        try:
+            verdict = self.slo.evaluate()
+        except Exception:
+            return False
+        if level >= PRIORITY_LEVELS["batch"]:
+            windows = verdict.get("windows") or []
+            if not windows:
+                return False
+            fast = windows[0]
+            return any((o.get("burn") or {}).get(fast, 0.0) >= 1.0
+                       for o in (verdict.get("objectives") or {}).values())
+        return verdict.get("status") == "violating"
 
     def retry_after_hint(self) -> int:
         """Retry-After seconds: queue depth × the EMA request duration."""
@@ -390,6 +528,7 @@ class ApiState:
         counters."""
         eng = self.engine
         in_flight, queued = self.queue_depths()
+        occ = self.scheduler.occupancy() if self.scheduler is not None else None
         return {
             "status": "draining" if self.draining else "ok",
             "ready": True,  # the model loads before serve() binds the port
@@ -397,7 +536,23 @@ class ApiState:
             "backend": eng.device.type,
             "seq_len": eng.seq_len,
             "batch_slots": self.batch_engine.batch if self.batch_engine else 0,
-            "scheduler": self.scheduler.occupancy() if self.scheduler else None,
+            "scheduler": occ,
+            # what a router's least-loaded pick needs in one probe: free
+            # slots and pages, queue depth, hand-off, the tiering pressure
+            # (resident free pages plus what a spill pass could free), and
+            # the QoS state (parked requests, preemption on or off)
+            "capacity": {
+                "free_slots": (occ["slots"] - occ["active"]) if occ
+                else max(self.max_pending - in_flight - queued, 0),
+                "free_kv_pages": occ.get("kv_pages_free") if occ else None,
+                "queue_depth": queued + (occ["queued"] if occ else 0),
+                "batch_efficiency": obs_metrics.SCHED_BATCH_EFFICIENCY.json_value(),
+                "handoff": self.handoff,
+                "kv_pressure": occ.get("kv_pressure") if occ else None,
+                "qos": {"preempt": self.scheduler.preempt and self.scheduler.paged,
+                        "parked": occ["parked"], "preemptions": occ["preemptions"]}
+                if occ else None,
+            },
             "in_flight": in_flight,
             "queued": queued,
             "max_pending": self.max_pending,
@@ -855,7 +1010,8 @@ class ApiState:
 
     def sched_submit(self, prompt_tokens: list[int], max_tokens: int, *,
                      temperature: float, top_p: float, eos_id: int,
-                     deadline: float | None, stop: list[str] | None = None):
+                     deadline: float | None, stop: list[str] | None = None,
+                     priority: int = PRIORITY_LEVELS["standard"]):
         """Validate and submit one request to the slot scheduler (split
         from :meth:`sched_drain` so a streaming handler can answer
         400/429/503 before committing to SSE headers).  Raises
@@ -871,7 +1027,8 @@ class ApiState:
             max_new = min(max_new, max_tokens)
         ticket = self.scheduler.submit(
             prompt_tokens, max_new, temperature=temperature, top_p=top_p,
-            eos_ids=(eos_id,), deadline=self.effective_deadline(deadline))
+            eos_ids=(eos_id,), deadline=self.effective_deadline(deadline),
+            priority=priority)
         ticket.stop = [str(s) for s in stop or []]
         return ticket
 
@@ -885,6 +1042,62 @@ class ApiState:
         return self._drain_tokens(ticket.tokens(), prev, stop=stop, emit=emit,
                                   is_aborted=is_aborted, cancel=ticket.cancel,
                                   finish=lambda: ticket.finish or "aborted")
+
+    def handoff_resume(self, ticket, extra: dict, emitted_chars: int, emit,
+                       is_aborted=None) -> tuple[str, int, str]:
+        """Drive an imported request to completion (``/admin/import``).
+        The exporter's completion tokens are replayed through a fresh
+        incremental decoder, so the decode and stop-scan state stand where
+        the exporter's stream stood; only text past ``emitted_chars`` (what
+        the client already has) is emitted.  Returns ``(completion text,
+        completion tokens including the replayed ones, finish)``."""
+        tok = self.tokenizer
+        stop = [str(s) for s in extra.get("stop") or []]
+        hold = max((len(s) for s in stop), default=0)
+        dec = codecs.getincrementaldecoder("utf-8")("replace")
+        prev = int(extra["prompt"][-1])
+        full = ""
+        cursor = max(0, int(emitted_chars))
+
+        def feed(t):
+            nonlocal full, prev
+            full += dec.decode(tok.decode_piece(prev, t))
+            prev = t
+
+        def flush(limit, finish=None):
+            nonlocal cursor
+            delta = full[cursor:limit] if limit > cursor else ""
+            if delta or finish is not None:
+                emit(delta, finish)
+            cursor = max(cursor, limit)
+
+        replay = [int(x) for x in extra.get("completion") or []]
+        for t in replay:
+            feed(t)
+        n_comp = len(replay)
+        for t in ticket.tokens():
+            if is_aborted is not None and is_aborted():
+                ticket.cancel("aborted")
+                break
+            n_comp += 1
+            feed(t)
+            # a stop inside the exporter's emitted text would have fired
+            # there: any cut found here is new text
+            cuts = [c for c in (full.find(s) for s in stop) if c != -1]
+            if cuts:
+                ticket.cancel("stop")
+                flush(min(cuts), "stop")
+                return full[:cursor], n_comp, "stop"
+            flush(len(full) - (hold - 1) if hold else len(full))
+        finish = ticket.finish or "aborted"
+        full += dec.decode(b"", True)
+        cuts = [c for c in (full.find(s) for s in stop) if c != -1]
+        limit = len(full)
+        if cuts:
+            limit = min(cuts)
+            finish = "stop"
+        flush(limit, finish)
+        return full[:limit], n_comp, finish
 
     def _drain_tokens(self, tokens, prev: int, *, stop: list[str], emit,
                       is_aborted, cancel, finish) -> tuple[str, int, str]:
@@ -955,6 +1168,11 @@ def make_handler(state: ApiState):
             client = self.headers.get("X-Request-Id") or ""
             self._rid = _RID_RE.sub("", client)[:_RID_MAX] or new_request_id()
             set_request_id(self._rid)
+            # the class from the transport header (a router relays it); the
+            # body field overrides it in do_POST, and an unknown header value
+            # falls back to the default rather than failing the request
+            hdr = self.headers.get("X-Dllama-Priority")
+            self._prio_hdr = priority_level(hdr) if hdr else None
             return self._rid
 
         def _rid_header(self) -> None:
@@ -1118,7 +1336,34 @@ def make_handler(state: ApiState):
                     "components_ms": obs_metrics.SCHED_STEP_TIME_MS.json_value(),
                     "goodput_ratio": obs_metrics.SCHED_GOODPUT_RATIO.json_value(),
                     "host_gap_ms": obs_metrics.SCHED_HOST_GAP_MS.json_value()})
-            elif path.startswith(("/debug/", "/admin/")):
+            elif path.startswith("/admin/export/"):
+                # a drain's record, fetched once: it leaves this process
+                # with the response, so a second fetch cannot resume the
+                # request twice
+                rid = path[len("/admin/export/"):]
+                rec = state.handoff_records.pop(rid, None)
+                if rec is None:
+                    self._json(404, {"error": f"no hand-off record for request id {rid!r}"})
+                else:
+                    obs_metrics.HANDOFF_EXPORTS.inc()
+                    self._send(200, rec, "application/octet-stream")
+            elif path.startswith("/admin/checkpoint/"):
+                # a non-destructive record of one live slot: the request
+                # keeps decoding here
+                rid = path[len("/admin/checkpoint/"):]
+                if not state.handoff:
+                    self._json(404, {"error": "hand-off is not enabled (--handoff)"})
+                    return
+                try:
+                    rec = state.scheduler.checkpoint_export(rid)
+                except Exception as e:  # noqa: BLE001 — never take the request down
+                    _log.warning("checkpoint of %s failed: %r", rid, e)
+                    rec = None
+                if rec is None:
+                    self._json(404, {"error": f"no live slot for request id {rid!r}"})
+                else:
+                    self._send(200, rec, "application/octet-stream")
+            elif path.startswith("/debug/"):
                 self._json(400, {"error": _not_ported_msg(f"GET {path}")})
             else:
                 self._json(404, {"error": "not found"})
@@ -1153,7 +1398,8 @@ def make_handler(state: ApiState):
             try:
                 return state.sched_submit(
                     ids, max_tokens, temperature=temperature, top_p=top_p,
-                    eos_id=eos_id, deadline=deadline, stop=stop)
+                    eos_id=eos_id, deadline=deadline, stop=stop,
+                    priority=self._priority)
             except ContextOverflow as e:
                 self._json(400, state.overflow_body(e))
             except SchedulerSaturated as e:
@@ -1521,10 +1767,98 @@ def make_handler(state: ApiState):
                 "usage": {"prompt_tokens": n_prompt, "completion_tokens": n_comp,
                           "total_tokens": n_prompt + n_comp}})
 
+        def _admin_import(self, query: str):
+            """``POST /admin/import?emitted_chars=N``: resume a DLREQ01
+            record (the octet-stream body) in a free slot and stream the
+            rest of its completion as ``text_completion`` SSE chunks, past
+            the first N characters (what the client already has from the
+            exporter).  409 on another geometry, so a router tries another
+            peer."""
+            if not state.handoff:
+                self._json(404, {"error": "hand-off is not enabled (--handoff)"})
+                return
+            try:
+                emitted_chars = max(0, int(parse_qs(query).get("emitted_chars", ["0"])[0]))
+            except ValueError:
+                emitted_chars = 0
+            try:
+                length = int(self.headers.get("Content-Length", 0) or 0)
+            except (TypeError, ValueError):
+                self._json(400, {"error": "bad Content-Length"})
+                return
+            if length > MAX_HANDOFF_BYTES:
+                self.close_connection = True
+                self._json(413, {"error": "hand-off record too large"})
+                return
+            if length <= 0:
+                self._json(400, {"error": "hand-off record body required"})
+                return
+            try:
+                raw = self.rfile.read(length)
+            except TimeoutError:
+                state.metrics.bump("read_timeouts_408")
+                self.close_connection = True
+                self._json(408, {"error": "timed out reading hand-off record"})
+                return
+            if len(raw) < length:
+                state.metrics.bump("client_disconnects")
+                self.close_connection = True
+                return
+            try:
+                ticket, extra = state.scheduler.import_request(raw)
+            except SnapshotMismatch as e:
+                obs_metrics.HANDOFF_IMPORT_REJECTS.inc()
+                self._json(409, {"error": str(e)})
+                return
+            except ArtifactError as e:
+                obs_metrics.HANDOFF_IMPORT_REJECTS.inc()
+                self._json(400, {"error": str(e)})
+                return
+            except ContextOverflow as e:
+                self._json(400, state.overflow_body(e))
+                return
+            except SchedulerSaturated as e:
+                state.metrics.bump("requests_rejected_429")
+                self._json(429, state.overflow_body(e), headers={
+                    "Retry-After": jittered_retry_after(state.retry_after_hint())})
+                return
+            except SchedulerClosed:
+                state.metrics.bump("requests_rejected_503")
+                self._json(503, {"error": "server is draining; no new requests accepted"},
+                           headers={"Retry-After": jittered_retry_after(30)})
+                return
+            obs_metrics.HANDOFF_IMPORTS.inc()
+            self._sse_headers()
+            aborted = [False]
+            emit = self._sse_emitter(aborted, lambda d, f: {
+                "object": "text_completion", "model": state.model_name,
+                "choices": [{"text": d, "index": 0, "finish_reason": f,
+                             "logprobs": None}]}, None)
+            state.mark_active(True)
+            try:
+                _, n_comp, finish = state.handoff_resume(
+                    ticket, extra, emitted_chars, emit, is_aborted=lambda: aborted[0])
+            except Exception as e:
+                ticket.cancel("aborted")
+                err = {"error": {"message": str(e), "type": "server_error"}}
+                self._safe_write(f"data: {json.dumps(err)}\n\n".encode()
+                                 + b"data: [DONE]\n\n", aborted)
+                raise
+            finally:
+                state.mark_active(False)
+            usage = {"object": "handoff.usage",
+                     "usage": {"prompt_tokens": len(extra.get("prompt") or []),
+                               "completion_tokens": n_comp, "finish_reason": finish}}
+            self._safe_write(f"data: {json.dumps(usage)}\n\n".encode()
+                             + b"data: [DONE]\n\n", aborted)
+
         def do_POST(self):
             self._begin_request()
-            path = self.path.partition("?")[0]
-            if path.startswith(("/debug/", "/admin/")):
+            path, _, query = self.path.partition("?")
+            if path == "/admin/import":
+                self._admin_import(query)
+                return
+            if path.startswith("/debug/"):
                 self._json(400, {"error": _not_ported_msg(f"POST {path}")})
                 return
             if path not in ("/v1/chat/completions", "/v1/completions"):
@@ -1533,9 +1867,28 @@ def make_handler(state: ApiState):
             body = self._read_body()
             if body is None:
                 return
-            missing = unported_fields(body)
-            if missing:
-                self._json(400, {"error": _not_ported_msg(", ".join(missing))})
+            # the class: the body field over the header, else standard; an
+            # unknown body value is the caller's error (400)
+            prio = body.get("priority")
+            if prio is not None:
+                self._priority = priority_level(prio)
+                if self._priority is None:
+                    self._json(400, {"error": f"unknown priority class {prio!r}; "
+                                              "expected interactive|standard|batch"})
+                    return
+            else:
+                self._priority = self._prio_hdr if self._prio_hdr is not None \
+                    else PRIORITY_LEVELS["standard"]
+            prio_name = PRIORITY_NAMES[self._priority]
+            # SLO shedding: before the request counts against capacity
+            if state.should_shed(self._priority):
+                state.metrics.bump("requests_rejected_429")
+                obs_metrics.ADMISSIONS_SHED.inc(prio_name)
+                _log.info("reject 429: slo shed (%s)", prio_name)
+                self._json(429, {"error": "SLO error budget burning; shedding "
+                                          f"{prio_name}-class admissions — retry later"},
+                           headers={"Retry-After": jittered_retry_after(
+                               state.retry_after_hint())})
                 return
             verdict = state.try_enter()
             if verdict == "draining":
@@ -1557,7 +1910,7 @@ def make_handler(state: ApiState):
             timer = _StreamTimer(rid=self._rid)
             # the flight record opens at admission; the scheduler merges its
             # per-dispatch detail into it by request ID
-            obs_flight.submit(self._rid, path=path)
+            obs_flight.submit(self._rid, path=path, priority=prio_name)
             self._record = None
             ok = False
             try:
@@ -1660,7 +2013,19 @@ def serve(state: ApiState, host: str = "0.0.0.0", port: int = 9990, *,
             state.begin_drain()
             _log.info("draining on %s (grace %.1f s)", signal.Signals(signum).name,
                       state.drain_grace)
-            threading.Thread(target=server.shutdown, daemon=True).start()
+
+            def _shutdown():
+                # hand-off records are pulled (GET /admin/export/<rid>) on
+                # new connections, which shutdown() stops accepting: wait,
+                # bounded by the drain deadline, until each is claimed
+                deadline = state.drain_deadline or time.monotonic()
+                while state.handoff_records and time.monotonic() < deadline:
+                    time.sleep(0.05)
+                if state.handoff_records:
+                    _log.warning("%d hand-off records unclaimed", len(state.handoff_records))
+                server.shutdown()
+
+            threading.Thread(target=_shutdown, daemon=True).start()
 
         signal.signal(signal.SIGTERM, _drain)
         signal.signal(signal.SIGINT, _drain)
@@ -1670,17 +2035,24 @@ def serve(state: ApiState, host: str = "0.0.0.0", port: int = 9990, *,
             server.serve_forever()
         finally:
             server.server_close()
+        # every request has finished and the engine is quiet: the next boot
+        # starts warm (--snapshot-dir)
+        if state.draining:
+            state.save_snapshot()
     else:
         threading.Thread(target=server.serve_forever, daemon=True).start()
     return server
 
 
-def build_state(args, slo=None) -> ApiState:
+def build_state(args, slo=None, stack=None) -> ApiState:
     """Load the model and build the server state from parsed CLI args: the
     batch-1 engine, and with ``--batch-slots`` the slot engine (sharing
     its weights) and its scheduler.  A slot engine the scheduler cannot
     drive (a contiguous int8 cache, ``--kv-cache-dtype q8`` without pages)
-    still serves the lockstep batch, as in the JAX server."""
+    still serves the lockstep batch, as in the JAX server.  ``stack``, an
+    ``(engine, tokenizer)`` loaded before, serves instead of loading
+    ``--model`` again (:func:`~dllama_tpu_torch.cli.load_stack`).  With
+    ``--snapshot-dir`` the state restores from a snapshot there."""
     from ..cli import load_stack
     if args.kv_quant == "int8" and args.kv_pages <= 0:
         raise SystemExit("--kv-quant int8 needs a paged pool (--kv-pages); "
@@ -1689,7 +2061,9 @@ def build_state(args, slo=None) -> ApiState:
         raise SystemExit("--kv-pages needs a dense chat-engine KV cache; drop "
                          "--kv-cache-dtype q8 (use --kv-quant int8 to quantize "
                          "the paged pool)")
-    engine, tok = load_stack(args)
+    if args.handoff_ttl < 0:
+        raise SystemExit("--handoff-ttl must be >= 0")
+    engine, tok = load_stack(args, stack=stack)
     batch_engine = scheduler = None
     if args.batch_slots > 0:
         batch_engine = Engine(engine.cfg, engine.params, seq_len=args.max_seq_len,
@@ -1702,7 +2076,11 @@ def build_state(args, slo=None) -> ApiState:
             scheduler = SlotScheduler(
                 batch_engine, prefill_chunk=args.sched_prefill_chunk,
                 max_wait_ms=args.sched_max_wait_ms, max_queue=args.sched_max_queue,
-                prefix_reuse=not args.no_prefix_reuse, overlap=not args.no_sched_overlap)
+                prefix_reuse=not args.no_prefix_reuse, overlap=not args.no_sched_overlap,
+                preempt=not args.no_preempt, preempt_age_ms=args.preempt_age_ms,
+                preempt_cap=args.preempt_cap, spill_dir=args.preempt_spill_dir,
+                kv_reserve=args.kv_reserve, spill_headroom=args.spill_headroom,
+                host_pool_mb=args.kv_host_pool_mb)
         except ValueError as e:
             # a contiguous int8 cache: the lockstep batch still serves,
             # only decode-step admission is off
@@ -1712,12 +2090,19 @@ def build_state(args, slo=None) -> ApiState:
                 "slots": args.batch_slots, "kv_pages": args.kv_pages,
                 "kv_page_size": args.kv_page_size, "kv_quant": args.kv_quant,
                 "prefix_reuse": scheduler.prefix_cache is not None,
-                "overlap": scheduler.overlap})
-    return ApiState(engine, tok, default_temperature=args.temperature,
-                    default_topp=args.topp, chunk=args.chunk,
-                    batch_engine=batch_engine, max_pending=args.max_pending,
-                    request_timeout=args.request_timeout, scheduler=scheduler,
-                    slo=slo)
+                "overlap": scheduler.overlap, "kv_reserve": scheduler.kv_reserve,
+                "preempt": scheduler.preempt and scheduler.paged})
+    if args.handoff and (scheduler is None or scheduler.pool is None):
+        raise SystemExit("--handoff needs the paged scheduler (--batch-slots and --kv-pages)")
+    state = ApiState(engine, tok, default_temperature=args.temperature,
+                     default_topp=args.topp, chunk=args.chunk,
+                     batch_engine=batch_engine, max_pending=args.max_pending,
+                     request_timeout=args.request_timeout, scheduler=scheduler,
+                     slo=slo, snapshot_dir=args.snapshot_dir, handoff=args.handoff,
+                     handoff_ttl=args.handoff_ttl)
+    if args.snapshot_dir:
+        state.restore_snapshot()
+    return state
 
 
 def parse_args(argv):
@@ -1733,19 +2118,24 @@ def parse_args(argv):
     return args
 
 
-def start(argv) -> ApiServer:
+def start(argv, stack=None) -> ApiServer:
     """Load and serve on a background thread (in-process callers: tests and
     ``chip_smoke.py``); :func:`stop` ends it.  ``--port 0`` binds a free
-    port."""
+    port; ``stack`` as in :func:`build_state`."""
     from ..cli import configure_obs
     args = parse_args(list(argv))
     slo = configure_obs(args)
-    return serve(build_state(args, slo), host=args.host, port=args.port, block=False)
+    return serve(build_state(args, slo, stack), host=args.host, port=args.port,
+                 block=False)
 
 
 def stop(server: ApiServer) -> None:
+    """Stop serving; a draining server then saves its snapshot
+    (``--snapshot-dir``) as a blocking :func:`serve` does."""
     server.shutdown()
     server.server_close()
+    if server.state.draining:
+        server.state.save_snapshot()
     if server.state.scheduler is not None:
         server.state.scheduler.close()
 

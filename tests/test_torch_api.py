@@ -124,6 +124,9 @@ def test_seeded_sampling_takes_the_mutex_path(servers, path, body):
 # the lockstep batch's features: on this paged server they answer the JAX
 # server's 400 (the paged pool has no lockstep mode)
 LOCKSTEP = ("n > 1", "logprobs", "echo", "a list prompt")
+# ported since: they answer as the JAX server does (an unknown priority
+# class is 400; /admin/import without --handoff is 404)
+AS_JAX = ("priority", "/admin/import")
 
 
 @pytest.mark.parametrize("method,path,body,named", [
@@ -131,13 +134,14 @@ LOCKSTEP = ("n > 1", "logprobs", "echo", "a list prompt")
     ("POST", "/v1/completions", {"prompt": "hi", "logprobs": 1}, "logprobs"),
     ("POST", "/v1/completions", {"prompt": "hi", "echo": True}, "echo"),
     ("POST", "/v1/completions", {"prompt": ["a", "b"]}, "a list prompt"),
-    ("POST", "/v1/chat/completions", {"messages": CHAT, "priority": "batch"}, "priority"),
+    ("POST", "/v1/chat/completions", {"messages": CHAT, "priority": "turbo"}, "priority"),
     ("POST", "/debug/profile", {}, "/debug/profile"),
     ("POST", "/admin/import", {}, "/admin/import"),
 ])
 def test_unported_features_answer_400(servers, method, path, body, named):
     """What the port does not carry answers 400 naming itself; the lockstep
-    batch's features answer the JAX server's 400 on a paged server."""
+    batch's features answer the JAX server's 400 on a paged server; the
+    priority field and /admin/import answer what the JAX server answers."""
     port, ref, _ = servers
     if method == "GET":
         try:
@@ -147,6 +151,11 @@ def test_unported_features_answer_400(servers, method, path, body, named):
             code, raw = e.code, e.read().decode()
     else:
         code, raw = post(port, path, body)
+    if named in AS_JAX:
+        want = post(ref, path, body)
+        assert code == want[0] and code in (400, 404)
+        assert json.loads(raw)["error"] == json.loads(want[1])["error"]
+        return
     assert code == 400
     if named in LOCKSTEP:
         want = post(ref, path, body)

@@ -73,8 +73,11 @@ def test_inference_prints_stats(model_files):
     (["worker"], "mode 'worker'"),
     (["generate", "--workers", "tpu:2", "--ep", "2"], "--ep"),
     (["generate", "--pld", "4", "--sp", "2"], "--sp, --pld"),
-    (["generate", "--kv-reserve", "optimistic", "--snapshot-dir", "x"],
-     "--kv-reserve, --snapshot-dir"),
+    # this case's flags are ported now: it keeps its name and holds that,
+    # beside them, the serving flags still outside the port are named
+    pytest.param(["generate", "--kv-reserve", "optimistic", "--snapshot-dir", "x",
+                  "--spec", "pld", "--step-timeout", "5"], "--spec, --step-timeout",
+                 id="extra3---kv-reserve, --snapshot-dir"),
     (["router", "--backends", "127.0.0.1:1"], "mode 'router', --backends"),
     (["serve-pod", "--supervise"], "mode 'serve-pod', --supervise"),
     (["generate", "--dequantize", "--weights-float-type", "q40"],
@@ -134,6 +137,57 @@ def test_no_sched_overlap_is_accepted_and_reaches_the_scheduler(model_files):
             assert server.state.scheduler.overlap is overlap
         finally:
             api.stop(server)
+
+
+# the state-movement flags (snapshots, hand-off, QoS, KV tiering), each
+# away from its default, and where it lands: (scheduler attribute, value) or
+# (server state attribute, value)
+STATE_FLAGS = [("--kv-reserve", "optimistic", "kv_reserve", "optimistic"),
+               ("--spill-headroom", "8", "spill_headroom", 8),
+               ("--kv-host-pool-mb", "2", "host_pool", 2 << 20),
+               ("--no-preempt", None, "preempt", False),
+               ("--preempt-age-ms", "250", "preempt_age_ms", 250.0),
+               ("--preempt-cap", "1", "preempt_cap", 1),
+               ("--preempt-spill-dir", "parked", "spill_dir", "parked"),
+               ("--snapshot-dir", "snaps", "snapshot_dir", "snaps"),
+               ("--handoff", None, "handoff", True),
+               ("--handoff-ttl", "7.5", "handoff_records", 7.5)]
+
+
+def test_state_movement_flags_are_accepted_and_reach_the_server(model_files, tmp_path):
+    """The ten flags left the not-ported list: the CLI and the server
+    accept them, and each reaches the slot scheduler or the server
+    state."""
+    from dllama_tpu_torch import cli
+    from dllama_tpu_torch.server import api
+    argv = []
+    for flag, value, *_ in STATE_FLAGS:
+        if value in ("parked", "snaps"):
+            value = str(tmp_path / value)
+        argv += [flag] if value is None else [flag, value]
+    assert not set(f for f, *_ in STATE_FLAGS) & set(cli.NOT_PORTED_FLAGS)
+    assert cli.not_ported(cli.build_parser().parse_args(["generate", *argv])) == []
+    m, t = model_files
+    server = api.start(["--model", m, "--tokenizer", t, "--device", "cpu", "--host",
+                        "127.0.0.1", "--port", "0", "--batch-slots", "2", "--kv-pages", "40",
+                        "--kv-page-size", "4", *argv])
+    try:
+        state, sched = server.state, server.state.scheduler
+        for flag, _, attr, want in STATE_FLAGS:
+            obj = state if hasattr(state, attr) else sched
+            got = getattr(obj, attr)
+            if attr == "host_pool":
+                got = got.capacity_bytes
+            elif attr == "handoff_records":
+                got = got.ttl
+            elif attr in ("spill_dir", "snapshot_dir"):
+                got = os.path.basename(got)
+            assert got == want, flag
+    finally:
+        api.stop(server)
+    with pytest.raises(SystemExit, match="--handoff needs the paged scheduler"):
+        api.build_state(api.parse_args(["--model", m, "--tokenizer", t, "--device", "cpu",
+                                        "--handoff"]))
 
 
 OBS_FLAGS = ["--log-format", "json", "--log-level", "debug", "--trace-buffer", "64",
@@ -217,7 +271,8 @@ for mod in pkgutil.walk_packages(dllama_tpu_torch.__path__, "dllama_tpu_torch.")
 for name in ("server.api", "runtime.scheduler", "runtime.pagepool", "runtime.stream",
              "tokenizer.chat", "tokenizer.eos", "server.backoff", "ops.q8",
              "obs.log", "obs.metrics", "obs.trace", "obs.events", "obs.flight",
-             "obs.slo", "obs.dispatch"):
+             "obs.slo", "obs.dispatch", "runtime.snapshot", "runtime.kvtier",
+             "io.integrity"):
     assert "dllama_tpu_torch." + name in sys.modules, name
 from dllama_tpu_torch import cli
 for model in ({m!r}, {moe!r}):
@@ -241,7 +296,7 @@ for path in ("/metrics", "/metrics?format=prometheus", "/debug/trace", "/debug/e
     assert urllib.request.urlopen(base + path, timeout=60).status == 200, path
 api.stop(srv)
 bad = sorted(k for k in sys.modules
-             if k.split(".")[0] in ("jax", "jaxlib", "dllama_tpu"))
+             if k.split(".")[0] in ("jax", "jaxlib", "dllama_tpu", "ml_dtypes"))
 print("FOREIGN", bad)
 """
     env = cpu_env()
@@ -251,14 +306,19 @@ print("FOREIGN", bad)
     assert r.stdout.splitlines()[-1] == "FOREIGN []"
 
 
-_FOREIGN_IMPORT = re.compile(r"^\s*(?:import|from)\s+(?:jax|jaxlib|dllama_tpu)(?:\.|\s|$)", re.M)
+_FOREIGN_IMPORT = re.compile(
+    r"^\s*(?:import|from)\s+(?:jax|jaxlib|dllama_tpu|ml_dtypes)(?:\.|\s|$)", re.M)
 
 
 def test_static_scan_finds_no_foreign_imports():
+    """No file of the port (and neither chip script) imports jax,
+    dllama_tpu or ml_dtypes (bf16 snapshots carry raw words instead)."""
     files = [os.path.join(REPO, f) for f in ("chip_smoke.py", "chip_ab_serving.py")]
     for root, _, names in os.walk(PORT):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 15
+    for new in ("runtime/snapshot.py", "runtime/kvtier.py", "io/integrity.py"):
+        assert os.path.join(PORT, *new.split("/")) in files, new
     hits = []
     for f in files:
         with open(f, encoding="utf-8") as fh:

@@ -383,3 +383,32 @@ def test_slot_body_matches_eager_and_jax(tiny, layout):
     body = _body_engine(tcfg, tp, **kw)
     ids_b, log_b = run(body, np.zeros(b, np.float32))
     np.testing.assert_array_equal(ids_b, np.concatenate(jouts))
+
+
+def test_captures_hold_the_collector_off():
+    """Python's cyclic collector stays off while any capture runs, also when
+    captures on two threads overlap, and is restored after the last."""
+    import gc
+    import threading
+
+    from dllama_tpu_torch.runtime.graphs import _no_collection
+    assert gc.isenabled()
+    inside, go = threading.Event(), threading.Event()
+    seen = []
+
+    def other():
+        with _no_collection():
+            inside.set()
+            go.wait(10)
+            seen.append(gc.isenabled())
+
+    th = threading.Thread(target=other)
+    with _no_collection():
+        th.start()
+        assert inside.wait(10)
+        seen.append(gc.isenabled())
+    seen.append(gc.isenabled())  # the other capture still runs
+    go.set()
+    th.join(10)
+    assert not th.is_alive()
+    assert seen == [False, False, False] and gc.isenabled()
