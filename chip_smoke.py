@@ -251,8 +251,28 @@ Phases (each prints its seconds; any failure exits non-zero):
    re-captured after it; tok/s of all four, spill and page-in ms a page.
    21b's import, 21c's resumes and 21a's restores capture no new graph.
 
+22. speculative decoding and the roofline gauges at Llama-2-7B width and
+   depth (phase 3's Q40 file, one load for the phase): 22a ``inference
+   --pld 4 --profile-split --profile-ops`` on a repetitive prompt (129 Q40
+   launches a forward, prompt-lookup windows replaying their captured
+   graph; the profile of graph replays names the Q40 kernel), then on the
+   same engine the PLD stream and plain greedy decode twice each in turns:
+   the same tokens (or a divergence only where the plain run's top-2 margin
+   is under KERNEL_TOL of max|logit|), tokens a verify window, ms/token
+   both ways, no capture in the timed part.  22b the API server as in
+   phase 7 with ``--spec off``, ``--spec pld`` and ``--spec draft`` (the
+   draft: the target's own file, the best case): 8 repetitive greedy
+   requests released together, a warm burst then a timed one (tok/s, TTFT,
+   accept ratio, no capture; kernel 7 on every single-token forward, the
+   prefill kernel n_layers times on every mixed and verify forward, 0
+   plain), then the same prompts through the scheduler: the tokens equal
+   ``--spec off``'s (or a recorded near tie).  22c ``/health``'s ``perf``
+   block and ``/metrics``' ``mfu``/``mbu`` of each timed burst in (0, 1],
+   source ``table``, the card's name and power limit.  22d ``POST
+   /debug/profile`` names the Q40 kernel.
+
 They run in the order 1, 2, 13, 9, 6, 6c, 16, 3, 17, 4, 5, 8, 15, 20b, 18,
-7, 20, 3q, 21, 14, 10, 11, 12, 19; each synthesized model is deleted when its
+7, 20, 3q, 21, 22, 14, 10, 11, 12, 19; each synthesized model is deleted when its
 phases end.
 ``--only 1,6c`` runs a subset of the phases (for bring-up; it prints no
 result lines; ``6`` includes ``6c``).  Phase 3 also prints each captured
@@ -3300,6 +3320,271 @@ def state_movement(api, cli, attention, q40, snapfmt, m: str, t: str, dev) -> di
     return out
 
 
+# -- phase 22: speculative decoding and the roofline gauges ---------------
+
+PLD_PROMPT = " ".join(["the quick brown fox jumps over the lazy dog"] * 8)
+PLD_K = 4
+SPEC_NEW = 64
+# a divergence of a speculative stream from the plain one is recorded as a
+# deliberate difference only where the plain run's top-2 margin is under the
+# matmul tolerance (the verify window's matmuls take another kernel body)
+NEAR_TIE = KERNEL_TOL
+
+
+def spec_prompts(n: int = 8, seed: int = 23) -> list[str]:
+    """``n`` repetitive prompts (a random six-word phrase, eight times):
+    prompt lookup finds drafts in them."""
+    rng = np.random.RandomState(seed)
+    words = ["".join(rng.choice(list("abcdefghijklmnopqrstuvwxyz"), rng.randint(2, 7)))
+             for _ in range(64)]
+    return [" ".join([" ".join(rng.choice(words, 6))] * 8) for _ in range(n)]
+
+
+def first_gap(eng, ids: list[int], want: list[int], got: list[int], label: str) -> str:
+    """Where a speculative stream ``got`` leaves the plain one ``want``
+    (both after the prompt ``ids``): the position and the plain run's top-2
+    logit margin there, against max|logit| (from a prefill of the plain
+    prefix on the batch-1 engine ``eng``).  Raises unless the margin is a
+    near tie (NEAR_TIE of max); '' when they are equal."""
+    if got == want:
+        return ""
+    p = next(i for i, (a, b) in enumerate(zip(want, got)) if a != b) \
+        if any(a != b for a, b in zip(want, got)) else min(len(want), len(got))
+    eng.reset()
+    logits, _ = eng.prefill(ids + want[:p])
+    top = np.sort(np.asarray(logits[0], np.float64))[::-1]
+    rel = (top[0] - top[1]) / max(np.abs(top).max(), 1e-30)
+    eng.reset()
+    msg = (f"{label}: leaves the plain stream at generated token {p} "
+           f"(plain {want[p] if p < len(want) else None}, speculative "
+           f"{got[p] if p < len(got) else None}); the plain run's top-2 margin there "
+           f"{top[0] - top[1]:.4g} = {rel:.3g} of max|logit|")
+    if rel >= NEAR_TIE:
+        raise AssertionError(msg + f" >= {NEAR_TIE}: not a near tie")
+    return msg + " (a near tie: recorded)"
+
+
+def pld_path(cli, q40, tok, m: str, t: str) -> tuple:
+    """22a: ``inference --pld 4 --profile-split --profile-ops`` at Llama-2-7B
+    width and depth on a repetitive prompt (every Q40 matmul on its kernel,
+    the windows replaying their captured graph), then on the same engine the
+    PLD stream against plain greedy decode, each twice in turns after a
+    warm pass: the same tokens (or a recorded near tie), ms/token both
+    ways, and no capture in the timed part.  Returns (numbers, engine)."""
+    q40.reset_counters()
+    eng, out = run_cli(cli, ["inference", "--model", m, "--tokenizer", t, "--prompt",
+                             PLD_PROMPT, "--temperature", "0", "--steps", "96", "--chunk",
+                             "16", "--pld", str(PLD_K), "--profile-split", "--profile-ops"])
+    qc = q40.counters()
+    lines = out.splitlines()
+    print("\n".join([ln for ln in lines if not ln.startswith("🔶")][-24:]))
+    per_fwd = 4 * eng.cfg.n_layers + 1
+    # the CLI's forwards: the prompt, the windows, the tail's single steps
+    # and the profile's warm and traced steps: 129 launches each
+    if qc["plain_calls"] or qc["kernel_launches"] != per_fwd * eng.forwards:
+        raise AssertionError(f"--pld: Q40 counters {qc} over {eng.forwards} forwards")
+    split = [ln for ln in lines if ln.startswith("Profiled decode step")]
+    tops = [ln for ln in lines if ln.startswith("  top op")]
+    if not split or "graph replays" not in split[0] or not any(
+            matmul_kernel(ln, "q40") for ln in tops):
+        raise AssertionError(f"--profile-split/--profile-ops: {split} {tops}")
+    m_pld = re.search(r"💡 pld: (\d+) verify windows of k=\d+, (\d+) of (\d+) drafts "
+                      r"accepted, ([\d.]+) tokens a window", out)
+    ids = tok.encode(PLD_PROMPT, add_bos=True)
+    n = len(ids) + 96
+
+    def timed(pld: bool):
+        eng.reset()
+        stream = eng.generate_pld_stream(ids, n, k=PLD_K) if pld else \
+            (tk for tk, _ in eng.generate_stream(ids, n, temperature=0.0, chunk=16))
+        toks, t1 = [], None
+        for tk in stream:
+            toks.append(tk)
+            if len(toks) == len(ids) + 1:
+                t1 = time.perf_counter()  # the prefill's token is out
+        torch.cuda.synchronize()
+        return (toks[len(ids):], (time.perf_counter() - t1) * 1e3 / (len(toks) - len(ids) - 1),
+                dict(eng.pld_stats))
+
+    timed(True)
+    timed(False)  # warm: every key captured
+    cap0, rep0 = eng.graphs.captures, eng.graphs.replays
+    runs = {"plain": [], "pld": []}
+    for pld in (False, True, True, False):
+        toks, ms, stats = timed(pld)
+        runs["pld" if pld else "plain"].append((toks, ms))
+        if pld:
+            w = stats
+    if eng.graphs.captures != cap0 or eng.graphs.replays <= rep0:
+        raise AssertionError(f"a capture in the timed part: {eng.graphs.captures} "
+                             f"against {cap0}")
+    want, got = runs["plain"][0][0], runs["pld"][0][0]
+    if runs["plain"][1][0] != want or runs["pld"][1][0] != got:
+        raise AssertionError("a stream did not repeat itself")
+    gap = first_gap(eng, ids, want, got, "--pld 4")
+    per = (w["accepted"] + w["windows"]) / max(w["windows"], 1)
+    ms_plain = [ms for _, ms in runs["plain"]]
+    ms_pld = [ms for _, ms in runs["pld"]]
+    print(f"22a --pld {PLD_K}: greedy bytes {'equal' if not gap else gap} over "
+          f"{len(want)} tokens; {per:.2f} tokens a verify window ({w['accepted']} of "
+          f"{w['proposed']} drafts accepted); ms/token plain {ms_plain[0]:.3f}, "
+          f"{ms_plain[1]:.3f}, pld {ms_pld[0]:.3f}, {ms_pld[1]:.3f}; "
+          f"{eng.graphs.captures} graphs captured, {eng.graphs.replays} replays "
+          f"({eng.graphs.replays - rep0} in the timed part, 0 captures); CLI run: "
+          f"{m_pld.group(0) if m_pld else 'no pld line'}")
+    return dict(tokens_per_window=per, ms_plain=ms_plain, ms_pld=ms_pld, gap=gap,
+                cli_windows=m_pld.group(0) if m_pld else None, q40=qc), eng
+
+
+def spec_serving(api, attention, q40, tok, m: str, t: str, stack) -> dict:
+    """22b-d: the API server over phase 3's weights, 8 slots, 513 pages of
+    16 (phase 7's arguments), with ``--spec off``, ``--spec pld`` and
+    ``--spec draft`` (the draft the target's own file: the best case).
+    Each: a warm burst of 8 repetitive greedy requests released together
+    (captures), a timed burst (tok/s, TTFT; no capture; the attention
+    kernels on every forward: kernel 7 on single-token ones, the prefill
+    kernel n_layers times on every mixed and verify forward, 0 plain), and
+    a token pass (the same prompts submitted to the scheduler together):
+    the tokens equal ``--spec off``'s, or leave them only at a recorded
+    near tie.  22c: ``/health``'s ``perf`` block and the ``mfu``/``mbu``
+    gauges of each timed burst in (0, 1], source ``table``, the card's
+    name.  22d: ``POST /debug/profile`` names the port's kernels."""
+    from dllama_tpu_torch.obs import dispatch as obs_dispatch
+    prompts = spec_prompts()
+    reqs = [("/v1/completions", {"prompt": p, "max_tokens": SPEC_NEW, "temperature": 0})
+            for p in prompts]
+    ids = [tok.encode(p, add_bos=True) for p in prompts]
+    modes = (("off", []), ("pld", ["--spec", "pld", "--spec-k", str(PLD_K)]),
+             ("draft", ["--spec", "draft", "--spec-k", str(PLD_K), "--draft-model", m]))
+    out, ref = {}, None
+    for mode, extra in modes:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        srv, base = _start(api, m, t, stack, extra)
+        load_s = time.perf_counter() - t0
+        try:
+            state = srv.state
+            eng, sched = state.batch_engine, state.scheduler
+            engines = [eng] + ([sched.spec.engine] if mode == "draft" else [])
+            controlled_burst(sched, state, base, reqs, True)  # warm: captures
+            caps = [e.graphs.captures for e in engines]
+            obs_dispatch.reset()
+            attention.reset_counters()
+            q40.reset_counters()
+            f0, d0, v0 = eng.forwards, eng.slot_decode_forwards, eng.verify_forwards
+            st0 = dict(sched.stats)
+            burst = controlled_burst(sched, state, base, reqs, True)
+            ac, qc = attention.counters(), q40.counters()
+            n_dec, n_ver = eng.slot_decode_forwards - d0, eng.verify_forwards - v0
+            n_mix = eng.forwards - f0 - n_dec - n_ver
+            L = eng.cfg.n_layers
+            if [e.graphs.captures for e in engines] != caps:
+                raise AssertionError(f"{mode}: a capture in the timed burst")
+            if (ac["kernel_launches"] != L * n_dec or ac["plain_calls"]
+                    or ac["prefill_launches"] != L * (n_mix + n_ver)
+                    or ac["prefill_plain_calls"] or qc["plain_calls"]):
+                raise AssertionError(f"{mode}: attention {ac}, Q40 {qc} over {n_dec} "
+                                     f"single-token, {n_mix} mixed, {n_ver} verify forwards")
+            if mode != "off" and n_ver == 0:
+                raise AssertionError(f"{mode}: no verify step ran")
+            recs = list(state.finished)[-len(reqs):]
+            ttft = [r["ttft_s"] * 1e3 for r in recs if r["ttft_s"] is not None]
+            health = json.loads(_request(base, "/health")[2])
+            perf = health["perf"]
+            st1 = sched.stats
+            prop = st1["spec_proposed"] - st0["spec_proposed"]
+            acc = st1["spec_accepted"] - st0["spec_accepted"]
+            name = torch.cuda.get_device_name(0)
+            if not (0 < perf["mfu"] <= 1 and 0 < perf["mbu"] <= 1
+                    and perf["peaks"]["source"] == "table" and perf["card"]["name"] == name):
+                raise AssertionError(f"{mode}: /health perf {perf}")
+            metrics = json.loads(_request(base, "/metrics")[2])
+            if not (0 < metrics["mfu"] <= 1 and 0 < metrics["mbu"] <= 1
+                    and metrics["dispatch_flops"]):
+                raise AssertionError(f"{mode}: /metrics gauges {metrics['mfu']}, "
+                                     f"{metrics['mbu']}")
+            # the token pass: the prompts queued in order while parked, then
+            # released together
+            with sched.exclusive():
+                tickets = [sched.submit(i, SPEC_NEW, temperature=0.0) for i in ids]
+            toks = [list(tk.tokens()) for tk in tickets]
+            peak = torch.cuda.max_memory_allocated()
+            row = dict(tok_s=burst["tok_s"], ttft_p50=_percentile(ttft, 50),
+                       ttft_p99=_percentile(ttft, 99), accept=acc / prop if prop else None,
+                       proposed=prop, accepted=acc, verify=n_ver, mixed=n_mix,
+                       decode=n_dec, prefill_launches=ac["prefill_launches"],
+                       attn_launches=ac["kernel_launches"], q40=qc, mfu=perf["mfu"],
+                       mbu=perf["mbu"], peak=peak, load_s=load_s,
+                       launches_by_shape=qc["launches_by_shape"])
+            if mode == "off":
+                ref = toks
+                code, _, raw = _request(base, "/debug/profile?steps=4&top=10", {})
+                prof = json.loads(raw)
+                if code != 200 or not any(matmul_kernel(o["op"], "q40") for o in prof["ops"]):
+                    raise AssertionError(f"POST /debug/profile: {code} {raw[:600]}")
+                print(f"22d POST /debug/profile ({prof['how']}): compute "
+                      f"{prof['compute_ms']} ms a step, collectives {prof['collective_ms']} ms; "
+                      f"top ops:")
+                for o in prof["ops"]:
+                    print(f"  {o['ms']:8.4f} ms  {o['op'][:90]}")
+                row["profile"] = prof
+            else:
+                gaps = [first_gap(stack[0], ids[i], ref[i], toks[i], f"{mode} request {i}")
+                        for i in range(len(ids))]
+                row["gaps"] = [g for g in gaps if g]
+                for g in row["gaps"]:
+                    print(g)
+            print(f"22b --spec {mode}: {row['tok_s']:.2f} tok/s, TTFT p50 "
+                  f"{row['ttft_p50']:.1f} p99 {row['ttft_p99']:.1f} ms; greedy tokens "
+                  f"{'(the reference)' if mode == 'off' else ('equal to off' if not row['gaps'] else str(len(row['gaps'])) + ' near-tie divergences')}; "
+                  f"accept ratio {row['accept']}, {prop} drafts, {n_ver} verify / {n_mix} mixed "
+                  f"/ {n_dec} single-token forwards; prefill kernel {ac['prefill_launches']} "
+                  f"launches ({L} a mixed or verify forward), plain "
+                  f"{ac['prefill_plain_calls']}; kernel 7 {ac['kernel_launches']}, plain "
+                  f"{ac['plain_calls']}; peak memory {peak / 2**30:.2f} GiB; server up in "
+                  f"{load_s:.1f} s")
+            print(f"22c --spec {mode}: /health perf mfu {perf['mfu']:.4g} mbu "
+                  f"{perf['mbu']:.4g} (peaks {perf['peaks']['source']}: "
+                  f"{perf['peaks']['flops']:.4g} FLOP/s, {perf['peaks']['bytes_per_s']:.4g} "
+                  f"B/s, {perf['card']['name']}, {perf['card']['power_limit']}); "
+                  f"{perf['flops_total']:.4g} FLOP, {perf['hbm_bytes_total']:.4g} B over "
+                  f"{perf['chip_wall_ms']} ms of dispatch wall")
+            out[mode] = row
+        finally:
+            api.stop(srv)
+            del srv
+    return out
+
+
+def spec_and_gauges(api, cli, attention, q40, tfile, m: str, t: str) -> dict:
+    """Phase 22 at Llama-2-7B width and depth (phase 3's Q40 file): 22a
+    prompt lookup and the profiler on the CLI, then 22b-d the server's
+    speculation, the gauges and ``/debug/profile`` over the same weights.
+    Returns the numbers and the launches for the kernel line."""
+    from dllama_tpu_torch.tokenizer.bpe import Tokenizer
+    tok = Tokenizer(tfile.read_tfile(t))
+    out = {}
+    pld, eng = pld_path(cli, q40, tok, m, t)
+    out["pld"] = pld
+    try:
+        out["serve"] = spec_serving(api, attention, q40, tok, m, t, (eng, tok))
+    finally:
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    runs = out["serve"].values()
+    out["launches"] = {"bf16": sum(r["attn_launches"] for r in runs),
+                       "bf16_prefill": sum(r["prefill_launches"] for r in runs)}
+    shapes: dict = {}
+    for r in [*runs, {"launches_by_shape": pld["q40"]["launches_by_shape"]}]:
+        for key, n in r["launches_by_shape"].items():
+            shapes[key] = shapes.get(key, 0) + n
+    out["launches_by_shape"] = shapes
+    return out
+
+
 def kernel_entries(run, run_tp, run_mix, run_blocked, run_q8, run_score, served, table,
                    tp_table, mix_table, blocked_table, q8_table, attn, attn_g4, ar_table,
                    prefill, prefill_g4) -> list:
@@ -3452,7 +3737,7 @@ def main() -> int:
             "llama2-7b.m", "32k.t", "l2.m", "l2-chat.m", "32k-chat.t"))
         synth_tokenizer(t, tfile)
         per_fwd = 4 * LLAMA2_7B["n_layers"] + 1
-        if any(map(run_phase, (3, 7, 14, 17, 20, "3q", 21))):
+        if any(map(run_phase, (3, 7, 14, 17, 20, "3q", 21, 22))):
             synth_model(m, LLAMA2_7B["n_layers"], mfile, quants)
             print(f"synthesized {os.path.getsize(m) / 1e9:.2f} GB")
         if any(map(run_phase, (4, 5, 8, 15, 18, "20b"))):
@@ -3552,6 +3837,10 @@ def main() -> int:
             with phase("21 state off the card and back: snapshots, hand-off, QoS, KV tier "
                        "(Llama-2-7B width and depth)"):
                 p21 = state_movement(api, cli, attention, q40, snapfmt, m, t, dev)
+        if run_phase(22):
+            with phase("22 speculative decoding and the roofline gauges at Llama-2-7B "
+                       "width and depth"):
+                p22 = spec_and_gauges(api, cli, attention, q40, tfile, m, t)
         if run_phase(14):
             with blocked_layout():
                 with phase("14 blocked main path: inference at Llama-2-7B width"):
@@ -3645,6 +3934,13 @@ def main() -> int:
     for pool in ("bf16", "int8"):
         served[pool]["attn_launches"] += p21["launches"][pool]
         served[pool]["prefill_launches"] += p21["launches"][f"{pool}_prefill"]
+    # phase 22's too: the verify and PLD forwards' Q40 matmuls, kernel 7 on
+    # the no-proposal rows' decode steps, the prefill kernel on every paged
+    # verify forward (bf16 pool)
+    for key, n in p22["launches_by_shape"].items():
+        by_shape[key] = by_shape.get(key, 0) + n
+    served["bf16"]["attn_launches"] += p22["launches"]["bf16"]
+    served["bf16"]["prefill_launches"] += p22["launches"]["bf16_prefill"]
     kernels = kernel_entries(run, run_tp, run_mix, run_blocked, run_q8, run_score, served,
                              table, tp_table, mix_table, blocked_table, q8_table, attn,
                              attn_g4, ar_table, prefill, prefill_g4)

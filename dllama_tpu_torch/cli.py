@@ -20,9 +20,15 @@ cpu`` every rank on the CPU, with ``cuda:K`` every rank on card K, with
 ``cuda`` rank r on card r.  The API server (``python -m
 dllama_tpu_torch.server.api``) reuses this parser and its serving flags.
 ``--kv-cache-dtype q8`` keeps the KV cache in int8 with per-position
-scales.  Modes and flags of the JAX CLI outside the port (``worker``,
-``--sp``, ``--dp``, ``--ep``, ``--pld``, and the serving flags in
-``NOT_PORTED_FLAGS``) exit with a message naming them as not yet ported.
+scales.  ``--pld K`` (``inference``, ``generate``; greedy) decodes with
+prompt-lookup speculation (``Engine.generate_pld_stream``); ``--spec
+pld|draft`` (with ``--spec-k`` and ``--draft-model``) arms the server's
+slot scheduler with a proposer (``runtime/spec.py``); ``inference
+--profile-split`` / ``--profile-ops`` trace a few decode steps under
+``torch.profiler`` after the run (``runtime/profiling.py``).  Modes and
+flags of the JAX CLI outside the port (``worker``, ``--sp``, ``--dp``,
+``--ep``, and the flags in ``NOT_PORTED_FLAGS``) exit with a message naming
+them as not yet ported.
 
 ``python -m dllama_tpu_torch inference --model m.m --tokenizer t.t``
 """
@@ -55,9 +61,9 @@ NOT_PORTED_MODES = ("worker", "router", "serve-pod")
 # flags of the JAX CLI that the port does not carry, with the JAX defaults:
 # a value other than the default exits naming the flag
 NOT_PORTED_FLAGS = {
-    # multi-host, weight loading and profiling
-    "--weights-float-type": None, "--dequantize": False, "--profile-split": False,
-    "--profile-ops": False, "--coordinator": None, "--nproc": None,
+    # multi-host and weight loading
+    "--weights-float-type": None, "--dequantize": False,
+    "--coordinator": None, "--nproc": None,
     "--proc-id": None, "--program": "generate",
     # the fleet router, the pod supervisor and the elastic pod
     "--backends": None, "--probe-interval": 2.0, "--eject-after": 3,
@@ -69,7 +75,6 @@ NOT_PORTED_FLAGS = {
     "--scale-up-util": 0.85, "--scale-down-util": 0.15, "--scale-up-queue": 2.0,
     "--reshape-kv-low": 0.08,
     # serving
-    "--spec": "off", "--spec-k": 4, "--draft-model": None,
     "--io-timeout": 15.0, "--drain-grace": 30.0, "--step-timeout": None,
     "--numeric-checks": False, "--verify-weights": False,
 }
@@ -99,6 +104,20 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--warmup", type=int, default=0,
                    help="inference mode: generate this many throwaway tokens "
                         "first so the timed stats measure steady state")
+    p.add_argument("--pld", type=int, default=0, metavar="K",
+                   help="inference and generate modes, temperature 0: prompt-lookup "
+                        "speculative decoding — propose K tokens from the latest "
+                        "matching n-gram in the context and verify them in one "
+                        "forward (a valid greedy stream; on the card the window's "
+                        "matmuls take the tensor-core body, so an argmax near-tie "
+                        "can resolve otherwise than in single-token decode)")
+    p.add_argument("--profile-split", action="store_true",
+                   help="inference mode: after the run, trace a few decode steps "
+                        "with torch.profiler and report compute against collective "
+                        "time (kernel 4, the reference's I/T split)")
+    p.add_argument("--profile-ops", action="store_true",
+                   help="inference mode: like --profile-split, and list the top "
+                        "kernels by device time")
     p.add_argument("--device", default="cuda",
                    help=f"where the model runs: one of {', '.join(DEVICES)}, or "
                         "cuda:K (default cuda)")
@@ -126,6 +145,18 @@ def build_parser() -> argparse.ArgumentParser:
                    help="requests waiting for a slot before 429")
     p.add_argument("--no-prefix-reuse", action="store_true",
                    help="turn off the paged pool's radix prefix cache")
+    p.add_argument("--spec", choices=("off", "pld", "draft"), default="off",
+                   help="slot scheduler: per-slot speculative decoding "
+                        "(runtime/spec.py).  'pld' drafts from a per-slot prompt-lookup "
+                        "n-gram index, 'draft' from a second smaller model "
+                        "(--draft-model).  Greedy output stays the 'off' output; "
+                        "sampled requests decode normally")
+    p.add_argument("--spec-k", type=int, default=4,
+                   help="speculative decoding: most draft tokens a slot proposes a "
+                        "verify step (the window is spec-k + 1 wide: one graph)")
+    p.add_argument("--draft-model", default=None,
+                   help="--spec draft: the draft model (.m, the target's vocab), "
+                        "loaded onto the target's device with contiguous slot rows")
     p.add_argument("--no-sched-overlap", action="store_true",
                    help="slot scheduler: turn off the two-deep overlapped dispatch "
                         "pipeline and dispatch synchronously (greedy output is "
@@ -209,7 +240,6 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--sp", type=int, default=1, help=argparse.SUPPRESS)
     p.add_argument("--dp", type=int, default=1, help=argparse.SUPPRESS)
     p.add_argument("--ep", type=int, default=1, help=argparse.SUPPRESS)
-    p.add_argument("--pld", type=int, default=0, help=argparse.SUPPRESS)
     return p
 
 
@@ -221,8 +251,6 @@ def not_ported(args) -> list[str]:
     for flag in ("sp", "dp", "ep"):
         if getattr(args, flag) != 1:
             out.append(f"--{flag}")
-    if args.pld:
-        out.append("--pld")
     for flag, default in NOT_PORTED_FLAGS.items():
         if getattr(args, flag[2:].replace("-", "_")) != default:
             out.append(flag)
@@ -280,6 +308,50 @@ def _engine(args, cfg, params, device, mesh, batch: int) -> Engine:
                   device=device, batch=batch, mesh=mesh)
 
 
+def load_draft_engine(args, target: Engine) -> Engine:
+    """Load ``--draft-model`` as a second, smaller Engine for ``--spec
+    draft`` (``runtime/spec.py`` ``DraftModelProposer``): on the target's
+    device (or mesh), with its slot count and context, contiguous slot rows
+    (the draft's cache is small; paging would add indirection alone).  Its
+    vocab must be the target's: drafted ids are target token ids."""
+    if not args.draft_model:
+        raise SystemExit("--spec draft needs --draft-model")
+    bft = "bf16" if args.buffer_float_type == "q80" else args.buffer_float_type
+    with mfile.MFile(args.draft_model) as mf:
+        cfg = ModelConfig.from_spec(mf.spec, dtype=DTYPES[bft])
+        if cfg.vocab_size != target.cfg.vocab_size:
+            raise SystemExit("--draft-model vocab size differs from the target's "
+                             "(drafted ids must be target token ids)")
+        print(f"💡 draft arch: {mf.spec.arch_name} ({cfg.n_layers} layers, dim {cfg.dim})")
+        cfg, params = load_params(mf, cfg, fuse=target.tp == 1)
+    return Engine(cfg, params, seq_len=target.seq_len, device=target.device,
+                  batch=target.batch, mesh=target.mesh)
+
+
+def _pld_args(args) -> None:
+    """``--pld``'s refusals (the JAX CLI's): greedy only, one stream."""
+    if args.temperature != 0:
+        raise SystemExit("--pld is greedy-only; set --temperature 0")
+
+
+def profile_report(engine: Engine, ops: bool) -> None:
+    """``--profile-split`` / ``--profile-ops``: a few decode steps of
+    ``engine`` under ``torch.profiler`` (graph replays on the card), then
+    the compute/collective split a step and the top kernels."""
+    from .runtime.profiling import profile_decode_steps, summarize_split, top_ops
+    n_steps = 3
+    times, how = profile_decode_steps(engine, n_steps)
+    if times is None:
+        print("Profiled split:      unavailable (the trace holds no time)")
+        return
+    sp = summarize_split(times, n_steps)
+    print(f"Profiled decode step ({how}; {engine.tp} rank(s), summed): "
+          f"compute {sp['compute_ms']:.3f} ms, collectives {sp['collective_ms']:.3f} ms "
+          f"({sp['collective_pct']:.1f}%)")
+    for op, ms in top_ops(times, 10 if ops else 5, n_steps):
+        print(f"  top op {ms:8.3f} ms  {op}")
+
+
 def _seed(args) -> int:
     return args.seed if args.seed is not None else int(time.time())
 
@@ -331,9 +403,16 @@ def cmd_inference(args) -> Engine:
               f"{time.perf_counter() - t0:.1f}s (excluded from stats)")
     stats = RunStats()
     prev = tok.bos_id
-    for token, st in engine.generate_stream(
+    if args.pld > 0:
+        _pld_args(args)
+        stream = ((tk, st) for toks, st in engine.pld_windows(ids, steps + len(ids),
+                                                              k=args.pld)
+                  for tk in toks)
+    else:
+        stream = engine.generate_stream(
             ids, steps + len(ids), temperature=args.temperature, topp=args.topp,
-            seed=_seed(args), chunk=args.chunk):
+            seed=_seed(args), chunk=args.chunk)
+    for token, st in stream:
         piece = tok.decode_piece(prev, token).decode("utf-8", errors="replace")
         prev = token
         if st.generation_ms > 0:
@@ -348,6 +427,13 @@ def cmd_inference(args) -> Engine:
     print(f"Avg transfer time:   {stats.avg_transfer_ms:.2f} ms")
     print(f"Avg sent / recv:     {stats.avg_sent_bytes / 1024:.1f} kB / "
           f"{stats.avg_recv_bytes / 1024:.1f} kB")
+    if args.pld > 0:
+        w = engine.pld_stats
+        per = (w["accepted"] + w["windows"]) / w["windows"] if w["windows"] else 0.0
+        print(f"💡 pld: {w['windows']} verify windows of k={args.pld}, {w['accepted']} of "
+              f"{w['proposed']} drafts accepted, {per:.2f} tokens a window")
+    if args.profile_split or args.profile_ops:
+        profile_report(engine, args.profile_ops)
     print(launch_line(engine))
     return engine
 
@@ -360,11 +446,16 @@ def cmd_generate(args) -> Engine:
     steps = args.steps or engine.seq_len
     prev = tok.bos_id
     eos = (tok.eos_id,) if tok.eos_id >= 0 else ()
-    for token, _ in engine.generate_stream(
+    if args.pld > 0:
+        _pld_args(args)
+        stream = engine.generate_pld_stream(ids, steps, k=args.pld, eos_ids=eos)
+    else:
+        stream = (token for token, _ in engine.generate_stream(
             ids, steps, temperature=args.temperature, topp=args.topp,
-            seed=_seed(args), eos_ids=eos, chunk=args.chunk):
+            seed=_seed(args), eos_ids=eos, chunk=args.chunk))
+    for token in stream:
         sys.stdout.write(tok.decode_piece(prev, token).decode("utf-8", errors="replace"))
-        sys.stdout.flush()
+        sys.stdout.flush()  # a window's tokens appear as it lands
         prev = token
     print()
     print(launch_line(engine))

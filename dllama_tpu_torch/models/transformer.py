@@ -565,3 +565,25 @@ def forward_slots(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     x_last = _each(x, lambda a: a[torch.arange(b, device=a.device),
                                   last.to(a.device)])  # (B, D)
     return _head(params, cfg, x_last), cache
+
+
+def forward_slots_all(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+                      cache: KVCache, pos_rows: torch.Tensor, n_valid: torch.Tensor,
+                      page_table: torch.Tensor | None = None
+                      ) -> tuple[torch.Tensor, KVCache]:
+    """:func:`forward_slots` keeping every position's logits (B, T, V) f32
+    instead of the per-row last-valid gather — the slot-verify forward.
+    Position ``j`` of row ``r`` is the next-token distribution after
+    ``tokens[r, :j+1]``, which is what accepting a K-token proposal needs
+    (``decode_loop.slot_verify_chunk``).  The KV writes and masks are
+    :func:`forward_slots`'s: a row's writes above ``n_valid`` land past its
+    causal ceiling (or in the scratch page when paged)."""
+    t = tokens.shape[1]
+    paged = None
+    if page_table is not None:
+        pidx, oidx = paged_write_indices(page_table, pos_rows, n_valid, t,
+                                         cache.k.shape[3])
+        paged = (page_table, pidx, oidx)
+    x, cache = run_blocks(params, cfg, tokens, cache, 0, pos_rows=pos_rows,
+                          paged=paged)
+    return _head(params, cfg, x), cache

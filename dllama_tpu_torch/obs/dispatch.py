@@ -55,3 +55,28 @@ def sync() -> None:
                 obs_metrics.MATMUL_DISPATCH.inc(*key, n=delta)
             _seen[key] = n
 
+
+
+def record_cost(entries: dict) -> None:
+    """Bump the analytic roofline counters for one landed dispatch:
+    ``entries`` is :meth:`obs.cost.CostModel.dispatch_cost`'s
+    ``{(codec, path, phase): {"flops": n, "bytes": n}}`` map (what the
+    dispatch cost, beside ``matmul_dispatch``'s which body ran)."""
+    for (codec, path, phase), e in entries.items():
+        if e.get("flops"):
+            obs_metrics.DISPATCH_FLOPS.inc(codec, path, phase, n=e["flops"])
+        if e.get("bytes"):
+            obs_metrics.DISPATCH_BYTES.inc(codec, path, phase, n=e["bytes"])
+
+
+def reset() -> None:
+    """Test isolation: clear the ledger's families, the cost families and
+    gauges and the utilization tracker."""
+    with _lock:
+        _seen.clear()
+    for fam in (obs_metrics.MATMUL_DISPATCH, obs_metrics.DISPATCH_FLOPS,
+                obs_metrics.DISPATCH_BYTES, obs_metrics.CLASS_CHIP_MS,
+                obs_metrics.MFU, obs_metrics.MBU):
+        fam.reset()
+    from . import cost as obs_cost
+    obs_cost.TRACKER.reset()

@@ -1,12 +1,13 @@
 """Per-request flight recorder and per-dispatch slot timeline — a copy of
-``dllama_tpu/obs/flight.py`` without the roofline cost block (``obs/cost.py``
-is not ported yet) and without the kernel-degrade fields (the port has no
-degrade path: a CUDA tensor launches its kernel or raises).
+``dllama_tpu/obs/flight.py`` without the kernel-degrade fields (the port
+has no degrade path: a CUDA tensor launches its kernel or raises).
 
 * :class:`FlightRecorder` keeps one lifecycle record per request, keyed by
   ``X-Request-Id``: submit time, queue wait, admit slot, every prefill
-  chunk and decode burst, the retire reason and the final TTFT and
-  inter-token stats.  The slot scheduler fills it with per-dispatch
+  chunk, decode burst and verify burst, the retire reason, the final TTFT
+  and inter-token stats, the speculation counts (``spec_proposed``,
+  ``spec_accepted``) and the roofline cost block (``obs/cost.py``:
+  ``chip_ms``, ``flops``, ``hbm_bytes``, ``kv_page_ms``).  The slot scheduler fills it with per-dispatch
   detail, the mutex and lockstep paths with coarse phases; ``GET
   /debug/requests`` serves recent summaries, ``/debug/requests/<id>`` a
   whole record.
@@ -126,6 +127,31 @@ class FlightRecorder:
                 entry[k] = round(v, 3) if isinstance(v, float) else v
             rec["phases"].append(entry)
 
+    def cost(self, rid=None, **inc) -> None:
+        """Accumulate roofline cost attribution (``chip_ms``, ``flops``,
+        ``hbm_bytes``, ``kv_page_ms``) into the record's cost block —
+        one call per dispatch the request rode, raw floats summed here
+        and rounded only at exposition (get/recent)."""
+        rid = self._rid(rid)
+        if rid is None:
+            return
+        with self._lock:
+            rec = self._get_locked(rid)
+            if rec is None:
+                return
+            cost = rec.setdefault(
+                "cost", {"chip_ms": 0.0, "flops": 0.0,
+                         "hbm_bytes": 0.0, "kv_page_ms": 0.0})
+            for k, v in inc.items():
+                cost[k] = cost.get(k, 0.0) + float(v)
+
+    @staticmethod
+    def _cost_view(rec: dict) -> dict | None:
+        cost = rec.get("cost")
+        if cost is None:
+            return None
+        return {k: round(v, 3) for k, v in cost.items()}
+
     def first_token(self, rid=None, ttft_s: float = 0.0) -> None:
         """The exact value the serving layer observed into the TTFT
         histogram — stored verbatim so record and histogram agree."""
@@ -181,6 +207,8 @@ class FlightRecorder:
             out = dict(rec)
             out["phases"] = [dict(p) for p in rec["phases"]]
             out["itl"] = dict(rec["itl"])
+            if "cost" in rec:
+                out["cost"] = self._cost_view(rec)
             return out
 
     def recent(self, n: int = 50) -> list[dict]:
@@ -194,6 +222,8 @@ class FlightRecorder:
                    ("request_id", "submitted_at", "slot", "n_prompt",
                     "produced", "queued_ms", "ttft_s", "duration_ms",
                     "finish", "path", "priority", "preempt_count")}
+            if "cost" in rec:
+                row["cost"] = self._cost_view(rec)
             out.append(row)
         return out
 
@@ -290,6 +320,10 @@ def inter_token(rid=None, gap_s: float = 0.0) -> None:
 
 def retire(rid=None, reason: str = "done", **fields) -> None:
     RECORDER.retire(rid, reason, **fields)
+
+
+def cost(rid=None, **inc) -> None:
+    RECORDER.cost(rid, **inc)
 
 
 def get(rid: str) -> dict | None:

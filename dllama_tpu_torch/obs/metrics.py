@@ -8,8 +8,8 @@ JSON dict (counters seeded at import, histograms as ``{"count", "sum",
 "avg", "buckets"}``, a ``schema_version``); :func:`render_prometheus` is
 text exposition format 0.0.4.  The families are the ones the port feeds,
 each with the JAX package's name, type, help and buckets; a family of a
-feature the port lacks (speculation, preemption, KV spill, hand-off, the
-fleet router, the roofline cost model) comes with that feature.
+feature the port lacks (the fleet router, the degrade ledger, compile
+telemetry) comes with that feature.
 
 Thread-safe (one small lock a metric) and stdlib-only.
 """
@@ -577,6 +577,54 @@ HBM_BYTES_IN_USE = REGISTRY.labeled_gauge(
 HBM_BYTES_PEAK = REGISTRY.labeled_gauge(
     "hbm_bytes_peak", "device",
     "Per-device peak HBM bytes allocated since process start.")
+
+# performance economics (obs/cost.py): the analytic roofline model's
+# FLOPs / bytes-moved per dispatch family, per-class chip-time
+# attribution, and the MFU/MBU utilization gauges (achieved rate over
+# the per-backend peak table).  Bumped by the scheduler at dispatch-land
+# time through the ledger seam (dispatch.record_cost).
+DISPATCH_FLOPS = REGISTRY.labeled_counter(
+    "dispatch_flops", ("codec", "path", "phase"),
+    "Model FLOPs per analytic dispatch family: weight codec or KV codec, "
+    "cost path (matmul / attention / paged-gather / paged-decode / "
+    "paged-fused / tp-ring), and request phase (prefill / decode / "
+    "verify).")
+DISPATCH_BYTES = REGISTRY.labeled_counter(
+    "dispatch_bytes", ("codec", "path", "phase"),
+    "Bytes moved per analytic dispatch family (same labels as "
+    "dispatch_flops): packed weight reads, KV reads+writes (page-"
+    "granular when paged), and TP ring all-reduce hop bytes.")
+CLASS_CHIP_MS = REGISTRY.labeled_counter(
+    "class_chip_ms", "class",
+    "Chip-time attributed to retired+live requests by QoS class "
+    "(interactive / standard / batch): each dispatch's wall pro-rated "
+    "across its occupied rows — cost-per-tenant as a scrape.")
+MFU = REGISTRY.gauge(
+    "mfu",
+    "Model FLOPs utilization: achieved FLOP/s over dispatch wall divided "
+    "by the backend peak (obs/cost.py peak table; CPU measures once).")
+MBU = REGISTRY.gauge(
+    "mbu",
+    "Memory-bandwidth utilization: achieved HBM bytes/s over dispatch "
+    "wall divided by the backend peak (TP ring bytes excluded).")
+
+# speculative decoding (runtime/spec.py proposers + the scheduler's
+# ragged verify bursts, --spec).  Proposed counts drafts fed into verify
+# dispatches; accepted counts the leading drafts the target model's own
+# argmax confirmed.  accepted/proposed is the acceptance rate that sets
+# the speedup (each accepted draft is one extra token per weight read).
+SCHED_SPEC_PROPOSED = REGISTRY.counter(
+    "sched_spec_proposed",
+    "Draft tokens proposed into slot-verify dispatches (--spec).")
+SCHED_SPEC_ACCEPTED = REGISTRY.labeled_counter(
+    "sched_spec_accepted", ("proposer",),
+    "Proposed draft tokens the verify step accepted, by proposer "
+    "(pld / draft).")
+SCHED_SPEC_ACCEPT_RATIO = REGISTRY.gauge(
+    "sched_spec_accept_ratio",
+    "Cumulative accepted/proposed draft-token ratio since start "
+    "(0 until the first proposal; collapses toward 0 under a reject "
+    "storm while served bytes stay exact).")
 
 # scheduler goodput accounting: every millisecond between the scheduler's
 # first and last dispatch lands in exactly one component, so the family

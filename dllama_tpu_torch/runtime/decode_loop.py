@@ -1,6 +1,7 @@
 """Device-side generation loop: K decode steps + sampling, only token ids
 cross to the host — the port of ``dllama_tpu/runtime/decode_loop.py``
-(``decode_chunk`` for one stream, ``slot_chunk`` for the slot batch).
+(``decode_chunk`` for one stream, ``slot_chunk`` for the slot batch,
+``slot_verify_chunk`` for speculative decoding's verify step).
 
 The steps run as a Python loop of eager forwards; the sampled token stays a
 device tensor that feeds the next step's embedding lookup, so a chunk is
@@ -18,7 +19,7 @@ from __future__ import annotations
 import torch
 
 from ..models.config import ModelConfig
-from ..models.transformer import KVCache, forward_last, forward_slots
+from ..models.transformer import KVCache, forward_last, forward_slots, forward_slots_all
 from ..sampling import sample_on_device
 
 
@@ -99,3 +100,51 @@ def slot_chunk(params, cfg: ModelConfig, cache: KVCache, tokens: torch.Tensor,
         toks.append(tok)
         pos_rows = pos_rows + 1
     return torch.stack(toks), cache, tok, logits
+
+
+def verify_accept(tokens: torch.Tensor, preds: torch.Tensor, n_valid: torch.Tensor
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The greedy acceptance rule of a verify window, on the device: draft
+    ``j`` (fed at column ``j + 1`` of ``tokens`` (B, T)) is accepted iff it
+    equals the prediction at column ``j`` and every earlier draft was
+    accepted — the cumprod of the match mask, clamped to ``n_valid - 1``
+    columns.  Returns ``accepted`` (B,) int32 and ``last`` (B,) int32 =
+    ``preds[r, accepted[r]]``."""
+    t = tokens.shape[1]
+    ok = (tokens[:, 1:].to(torch.int32) == preds[:, :-1]) \
+        & (torch.arange(t - 1, device=preds.device)[None, :] < (n_valid - 1)[:, None])
+    accepted = torch.cumprod(ok.to(torch.int32), dim=1).sum(dim=1).to(torch.int32)
+    last = torch.gather(preds, 1, accepted.long()[:, None])[:, 0]
+    return accepted, last
+
+
+def slot_verify_chunk(params, cfg: ModelConfig, cache: KVCache, tokens: torch.Tensor,
+                      pos_rows: torch.Tensor, n_valid: torch.Tensor,
+                      generator: torch.Generator, temps: torch.Tensor,
+                      topps: torch.Tensor, topks: torch.Tensor | None = None, *,
+                      greedy: bool, page_table: torch.Tensor | None = None):
+    """One ragged slot-verify dispatch (speculative decoding's verify side,
+    the greedy rule of Leviathan et al. 2023): row ``r`` feeds ``[last,
+    d_1..d_{n_valid[r]-1}]`` — its previous sample and its drafts — and
+    gets the model's prediction at every fed position and the count of
+    leading drafts that matched.
+
+    Returns ``(preds (B, T) int32, cache, accepted (B,) int32, last (B,)
+    int32, logits (B, V))``: ``preds[r, j]`` is the argmax after
+    ``tokens[r, :j+1]`` (a sampled row's column 0 is drawn with its own
+    parameters from ``generator``, so riding a verify step equals riding a
+    decode step); the caller emits ``preds[r, :accepted[r] + 1]``;
+    ``accepted`` is computed on the device (:func:`verify_accept`) and a
+    no-proposal row (``n_valid`` 1) gets 0 — one plain decode step;
+    ``last`` stays on the device; ``logits`` are each row's at its last
+    emitted position.  Rejected drafts' KV sits above the row's new
+    ceiling, dead under the causal mask."""
+    logits, cache = forward_slots_all(params, cfg, tokens, cache, pos_rows, n_valid,
+                                      page_table=page_table)
+    preds = torch.argmax(logits, dim=-1).to(torch.int32)  # (B, T)
+    if not greedy:
+        preds[:, 0] = device_sample_rows(logits[:, 0], generator, temps, topps, False, topks)
+    accepted, last = verify_accept(tokens, preds, n_valid)
+    b = tokens.shape[0]
+    return preds, cache, accepted, last, logits[torch.arange(b, device=logits.device),
+                                                accepted.long()]

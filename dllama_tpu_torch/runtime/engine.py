@@ -41,7 +41,8 @@ from ..parallel.mesh import Mesh
 from ..parallel.sharding import Placed, place_params
 from ..sampling import Sampler
 from . import snapshot as snapfmt
-from .decode_loop import decode_chunk, device_sample, slot_chunk
+from .decode_loop import (decode_chunk, device_sample, slot_chunk, slot_verify_chunk,
+                          verify_accept)
 from .graphs import DecodeGraphs
 
 
@@ -305,6 +306,12 @@ class Engine:
         #: single-token forwards of slot dispatches (each reads attention
         #: once per layer through the decode route)
         self.slot_decode_forwards = 0
+        #: slot verify forwards (speculative decoding; t > 1 a row, so a
+        #: paged pool is read through the prefill kernel)
+        self.verify_forwards = 0
+        #: the newest prompt-lookup run's windows verified, drafts proposed
+        #: and drafts accepted (:meth:`pld_windows`)
+        self.pld_stats = {"windows": 0, "proposed": 0, "accepted": 0}
         #: enqueue-to-ready ms of the newest landed slot dispatch
         self.last_slot_dispatch_ms = 0.0
         #: logits (B, V) of the newest forward, left on the device
@@ -922,6 +929,202 @@ class Engine:
             topps_np=topps_np, topks_np=topks_np, steps=steps,
             page_tables_np=page_tables_np).wait()
 
+    def slot_verify_async(self, tokens_np: np.ndarray, pos_rows_np: np.ndarray,
+                          n_valid_np: np.ndarray, *, temps_np: np.ndarray,
+                          topps_np: np.ndarray, topks_np: np.ndarray | None = None,
+                          page_tables_np: np.ndarray | None = None) -> "SlotVerifyDispatch":
+        """Enqueue one ragged slot-verify dispatch (speculative decoding):
+        row ``r`` feeds its previous sample and ``n_valid_np[r] - 1``
+        drafts at positions ``pos_rows_np[r]..``; the landed result holds
+        the model's prediction at every fed position and the count of
+        leading drafts accepted (:func:`decode_loop.slot_verify_chunk`).
+        A row with ``n_valid`` 1 rides as one plain decode step.  Rejected
+        drafts wrote KV above their row's ceiling, dead under the causal
+        mask (or in the scratch page when paged).  With :attr:`graphs` the
+        step replays the graph of its width (``GraphKey("verify", B,
+        greedy, T)``), whose outputs include the accepted counts and the
+        last row; the host reads them after the landing.  ``last_dev`` on
+        the handle stays on the device.  Slot clocks are the caller's;
+        ``self.pos`` is untouched."""
+        if self.cache.quantized and not self.paged:
+            raise ValueError("slot serving needs a dense or paged-int8 KV "
+                             "cache (contiguous per-row quantized writes "
+                             "are not wired)")
+        if self.paged and page_tables_np is None:
+            raise ValueError("paged engine: slot_verify needs page_tables_np")
+        if not self.paged and page_tables_np is not None:
+            raise ValueError("page tables passed to a contiguous engine")
+        t = int(tokens_np.shape[1])
+        if t < 2:
+            raise ValueError("slot_verify needs T >= 2 (a previous sample "
+                             "plus at least one proposal column)")
+        if int(np.max(n_valid_np)) > t:
+            raise ValueError("n_valid exceeds the verify window width")
+        # every fed column writes KV at pos..pos+T-1, so the whole window
+        # must fit, as slot_step_async refuses
+        hi = int(np.max(pos_rows_np)) + t
+        if hi > self.seq_len:
+            raise ContextOverflow(
+                f"slot verify would write position {hi - 1} past seq_len "
+                f"{self.seq_len}; retire rows at the context edge first")
+        greedy = bool(np.all(temps_np == 0.0))
+        if topks_np is None:
+            topks_np = np.zeros(len(pos_rows_np), np.int32)
+        dev = self.device
+
+        def put(a, dt):
+            return upload(np.asarray(a), dt, dev)
+
+        t0 = time.perf_counter()
+        with on_device(dev):
+            if self.graphs is not None:
+                out_dev, last_dev, logits = self.graphs.verify(
+                    self, tokens_np, pos_rows_np, n_valid_np, temps_np, topps_np,
+                    topks_np, page_tables_np, greedy)
+            else:
+                preds, self.cache, accepted, last_dev, logits = slot_verify_chunk(
+                    self.params, self.cfg, self.cache, put(tokens_np, torch.int32),
+                    put(pos_rows_np, torch.int32), put(n_valid_np, torch.int32),
+                    self._gen, put(temps_np, torch.float32), put(topps_np, torch.float32),
+                    put(topks_np, torch.int32), greedy=greedy,
+                    page_table=put(page_tables_np, torch.int32) if self.paged else None)
+                out_dev = torch.cat([preds, accepted[:, None]], dim=1)
+            landing = Landing(out_dev)
+        self.forwards += 1
+        self.verify_forwards += 1
+        self.last_logits = logits
+        return SlotVerifyDispatch(self, landing, last_dev, t=t, enqueued_at=t0)
+
+    def generate_pld(self, prompt_tokens: list[int], steps: int, *, ngram: int = 2,
+                     k: int = 7, eos_ids: tuple[int, ...] = ()) -> list[int]:
+        """Greedy decode with prompt-lookup speculation: propose the ``k``
+        tokens that followed the latest earlier occurrence of the current
+        ``ngram`` suffix, verify the window in one ``T = k + 1`` forward and
+        emit the accepted leading drafts plus the model's next token.  Every
+        emitted token is an argmax at its position, so the stream is the
+        plain greedy one wherever the two forwards' sums agree (on the card
+        the window's matmuls take the tensor-core body at 9 rows and more,
+        the decode step the decode body: a near-tie can resolve otherwise).
+        Returns the prompt and the continuation, ``steps`` tokens at most."""
+        return list(self.generate_pld_stream(prompt_tokens, steps, ngram=ngram, k=k,
+                                             eos_ids=eos_ids))
+
+    def generate_pld_stream(self, prompt_tokens: list[int], steps: int, *,
+                            ngram: int = 2, k: int = 7, eos_ids: tuple[int, ...] = ()):
+        """Generator core of :meth:`generate_pld`: yields the prompt echo,
+        then each verified token as its window lands."""
+        for toks, _ in self.pld_windows(prompt_tokens, steps, ngram=ngram, k=k,
+                                        eos_ids=eos_ids):
+            yield from toks
+
+    def pld_windows(self, prompt_tokens: list[int], steps: int, *, ngram: int = 2,
+                    k: int = 7, eos_ids: tuple[int, ...] = ()):
+        """:meth:`generate_pld_stream` a window at a time: yields ``(tokens,
+        StepStats)``, the prompt echo with the prefill's stats first, then
+        each window's emitted tokens with that window's stats (per token:
+        the window's wall over the tokens it emitted).  Batch-1, greedy and
+        contiguous only (the JAX package's refusals).  With :attr:`graphs`
+        each window replays the PLD graph of its width
+        (``GraphKey("pld", 1, True, k + 1)``); the tail that no longer fits
+        a window runs single-token steps (:meth:`decode_one`)."""
+        if self.batch != 1:
+            raise ValueError("speculative decode is single-stream (batch=1)")
+        if self.paged:
+            raise ValueError("paged engine is slot-only; speculative decode "
+                             "uses contiguous addressing")
+        steps = min(steps, self.seq_len - self.pos)
+        self.pld_stats = dict.fromkeys(self.pld_stats, 0)
+        out = list(prompt_tokens)
+        # latest-occurrence n-gram index, kept incrementally: value = the
+        # position after the match; only positions <= len(out) - 1 are
+        # indexed, so a lookup never matches the suffix against itself
+        index: dict[tuple, int] = {}
+        indexed = ngram - 1
+
+        def extend_index():
+            nonlocal indexed
+            hi = len(out) - 1
+            for p in range(max(indexed + 1, ngram), hi + 1):
+                index[tuple(out[p - ngram:p])] = p
+            indexed = max(indexed, hi)
+
+        logits, pstats = self.prefill(prompt_tokens[:])
+        yield list(out), pstats
+        if len(out) >= steps:
+            return  # the prompt always echoes whole
+        cur = int(np.asarray(logits)[0].argmax())
+        out.append(cur)
+        yield [cur], StepStats()
+        if cur in eos_ids:
+            return
+
+        def propose() -> list[int]:
+            """The continuation after the latest earlier occurrence of the
+            current suffix; zeros when none (wrong guesses verify short)."""
+            if len(out) > ngram:
+                i = index.get(tuple(out[-ngram:]))
+                if i is not None:
+                    cand = out[i:i + k]
+                    return cand + [0] * (k - len(cand))
+            return [0] * k
+
+        while len(out) < steps and self.pos + k + 1 <= self.seq_len:
+            extend_index()
+            window = np.asarray([[cur] + propose()], np.int32)  # (1, k+1)
+            p0 = self.pos
+            t0 = time.perf_counter()
+            with on_device(self.device):
+                if self.graphs is not None:
+                    packed = self.graphs.pld(self, window, p0)
+                else:
+                    toks = upload(window, torch.int64, self.device)
+                    logits_all, self.cache = forward(self.params, self.cfg, toks,
+                                                     self.cache, p0)
+                    preds = torch.argmax(logits_all, dim=-1).to(torch.int32)
+                    accepted, _ = verify_accept(
+                        toks, preds, torch.full((1,), k + 1, dtype=torch.int32,
+                                                device=self.device))
+                    packed = torch.cat([preds, accepted[:, None]], dim=1)
+                t1, t2, host = Landing(packed).wait()
+            self.forwards += 1
+            preds_h, accepted = host[0, :k + 1], int(host[0, k + 1])
+            self.pld_stats["windows"] += 1
+            self.pld_stats["proposed"] += k
+            self.pld_stats["accepted"] += accepted
+            # every verified position's argmax is a true greedy token: the
+            # accepted drafts plus the model's own next token
+            emit = [int(x) for x in preds_h[:accepted + 1]]
+            base = len(out)
+            out.extend(emit)
+            # the window's first accepted + 1 tokens join the sequence; rows
+            # written past them are dead (the causal mask reads <= pos)
+            self.pos = p0 + accepted + 1
+            cur = emit[-1]
+            for j, tk in enumerate(emit):
+                if tk in eos_ids or base + j + 1 >= steps:
+                    del out[base + j + 1:]
+                    self.pos = p0 + j + 1
+                    emit = emit[:j + 1]
+                    break
+            n = len(emit)
+            stats = StepStats(generation_ms=(t2 - t0) * 1e3 / n,
+                              inference_ms=(t1 - t0) * 1e3 / n,
+                              transfer_ms=(t2 - t1) * 1e3 / n,
+                              sent_bytes=window.nbytes / n, recv_bytes=host.nbytes / n)
+            obs_trace.record("pld_window", t0, t2, pos=p0, k=k, accepted=accepted)
+            _observe(stats, window.nbytes, host.nbytes)
+            yield emit, stats
+            if emit[-1] in eos_ids or len(out) >= steps:
+                return
+        # tail: single-token steps when a window no longer fits
+        while len(out) < steps and self.pos < self.seq_len:
+            logits, stats = self.decode_one(cur)
+            cur = int(np.asarray(logits)[0].argmax())
+            out.append(cur)
+            yield [cur], stats
+            if cur in eos_ids:
+                break
+
     def score_batch(self, sequences: list[list[int]], top_k: int = 0
                     ) -> tuple[np.ndarray, np.ndarray | None, np.ndarray | None]:
         """Teacher-force B sequences through one left-padded ragged forward
@@ -1030,4 +1233,36 @@ class SlotDispatch:
             self._engine.last_slot_dispatch_ms = (self.ready_at - self.enqueued_at) * 1e3
             obs_trace.record("slot_step", self.enqueued_at, self.ready_at,
                              t=self.t, steps=self.steps)
+        return self._out
+
+
+class SlotVerifyDispatch:
+    """Completion handle of one :meth:`Engine.slot_verify_async` dispatch:
+    the (B, T + 1) predictions and accepted counts on their way to the host
+    (a :class:`Landing`), and ``last_dev`` (B,), the verified next token
+    ``preds[r, accepted[r]]`` kept on the device.  ``wait()`` (idempotent)
+    returns ``(preds (B, T), accepted (B,))`` as host int32 arrays and
+    stamps the engine's ``last_slot_dispatch_ms``."""
+
+    __slots__ = ("_engine", "_landing", "last_dev", "t", "steps", "enqueued_at",
+                 "ready_at", "_out")
+
+    def __init__(self, engine, landing: Landing, last_dev, *, t: int, enqueued_at: float):
+        self._engine = engine
+        self._landing = landing
+        self.last_dev = last_dev
+        self.t = t
+        self.steps = 1
+        self.enqueued_at = enqueued_at
+        self.ready_at: float | None = None
+        self._out: tuple[np.ndarray, np.ndarray] | None = None
+
+    def wait(self) -> tuple[np.ndarray, np.ndarray]:
+        """Block until the verify lands; returns ``(preds, accepted)``."""
+        if self._out is None:
+            host = self._landing.wait()[2]
+            self.ready_at = time.perf_counter()
+            self._engine.last_slot_dispatch_ms = (self.ready_at - self.enqueued_at) * 1e3
+            obs_trace.record("slot_verify", self.enqueued_at, self.ready_at, t=self.t)
+            self._out = (host[:, :self.t], host[:, self.t].copy())
         return self._out

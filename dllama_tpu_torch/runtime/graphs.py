@@ -20,7 +20,22 @@ reading every input from static buffers and writing every output there:
   prefill step, which sets TTFT.  Its paged read is the prefill kernel
   (``ops.attention.paged_prefill_attention``); the contiguous slot rows'
   read stays the plain per-row-ceiling op.  The dispatch's later steps
-  replay the slot graph, fed the mixed step's last row on the device.
+  replay the slot graph, fed the mixed step's last row on the device;
+* :func:`verify_step` — ``decode_loop.slot_verify_chunk``, speculative
+  decoding's verify step (``Engine.slot_verify_async``): the (B, T) window
+  of every row (its last sample, then its drafts; T = ``spec_k + 1``,
+  fixed, each row's ``nvalid`` of it valid) through the slot forward with
+  every position's logits, the argmax a position, and the accepted counts
+  and ``last`` computed in the graph; read the same way as the mixed step;
+* :func:`pld_step` — the batch-1 prompt-lookup window of
+  ``Engine.generate_pld_stream``: ``T = k + 1`` tokens at the device
+  position on the contiguous cache (the plain t > 1 read), the argmax a
+  position and the accepted count in the graph.
+
+A verify or PLD step writes its predictions with the accepted counts
+appended (``vout``: (B, T + 1) int32) to a static buffer the engine lands
+through one pinned copy, so the host reads both after the landing event,
+never mid-step.
 
 :class:`DecodeGraphs` keeps one engine's graphs, keyed by what fixes a
 graph's shapes (:class:`GraphKey`: path, rows, greedy or sampled, walk
@@ -97,10 +112,11 @@ import numpy as np
 import torch
 
 from ..device import upload
-from ..models.transformer import forward_last, forward_slots
+from ..models.transformer import forward, forward_last, forward_slots, forward_slots_all
 from ..ops import attention, q8, q40
 from ..ops.attention import DevicePos, walk_bound, walk_bucket
 from ..sampling import sample_on_device
+from .decode_loop import verify_accept
 
 # the modules whose launch counters a replay advances
 COUNTED = (q40, q8, attention)
@@ -111,7 +127,8 @@ class GraphKey(NamedTuple):
     lockstep rows without offsets, ``"ragged"``: the lockstep batch with
     its offsets, ``"slot"``, ``"mixed"``), ``batch`` rows, ``greedy``
     (argmax, no coin) or sampled, and ``walk``: the walk bucket (0 where
-    there is no walk), or a mixed step's width T."""
+    there is no walk), or a mixed, verify or PLD step's width T (paths
+    ``"verify"`` and ``"pld"``)."""
     path: str
     batch: int
     greedy: bool
@@ -203,6 +220,16 @@ class ChunkBuffers:
         self.topps = torch.zeros((b,), dtype=torch.float32, device=dev)
         self.offsets = torch.zeros((b,), dtype=torch.int64, device=dev) if ragged else None
         self.logits = torch.zeros((b, vocab), dtype=torch.float32, device=dev)
+        self.windows: dict[int, tuple[torch.Tensor, torch.Tensor]] = {}
+
+    def window(self, t: int) -> tuple[torch.Tensor, torch.Tensor]:
+        """A PLD window's static (B, ``t``) input tokens and its (B,
+        ``t`` + 1) output: the predictions, then the accepted count."""
+        if t not in self.windows:
+            b, dev = self.tok.shape[0], self.tok.device
+            self.windows[t] = (torch.zeros((b, t), dtype=torch.int32, device=dev),
+                               torch.zeros((b, t + 1), dtype=torch.int32, device=dev))
+        return self.windows[t]
 
 
 class SlotBuffers:
@@ -213,7 +240,9 @@ class SlotBuffers:
     the ring ``out`` (seq_len, B) int32, ``coins``/``temps``/``topps`` (B,)
     f32, ``topks`` (B,) int32, the page table (B, maxp) int32 of a paged
     engine (else None) and ``logits`` (B, V) f32; ``wide`` holds a mixed
-    step's (B, T) input tokens, one buffer a width."""
+    or verify step's (B, T) input tokens, one buffer a width, and ``vout``
+    a verify step's (B, T + 1) output (predictions, then the accepted
+    count)."""
 
     def __init__(self, b: int, vocab: int, seq_len: int, dev, max_pages: int | None):
         self.tok = torch.zeros((b,), dtype=torch.int32, device=dev)
@@ -229,6 +258,7 @@ class SlotBuffers:
                      if max_pages else None)
         self.logits = torch.zeros((b, vocab), dtype=torch.float32, device=dev)
         self.wide: dict[int, torch.Tensor] = {}
+        self.vout: dict[int, torch.Tensor] = {}
 
     def tokens(self, t: int) -> torch.Tensor:
         """The static (B, t) input of a mixed step of width ``t``."""
@@ -236,6 +266,13 @@ class SlotBuffers:
             self.wide[t] = torch.zeros((self.tok.shape[0], t), dtype=torch.int32,
                                        device=self.tok.device)
         return self.wide[t]
+
+    def verify_out(self, t: int) -> torch.Tensor:
+        """The static (B, ``t`` + 1) output of a verify step of width ``t``."""
+        if t not in self.vout:
+            self.vout[t] = torch.zeros((self.tok.shape[0], t + 1), dtype=torch.int32,
+                                       device=self.tok.device)
+        return self.vout[t]
 
 
 def _sample(logits, buf, greedy: bool, topks) -> torch.Tensor:
@@ -287,6 +324,46 @@ def mixed_step(params, cfg, cache, buf: SlotBuffers, greedy: bool, t: int) -> No
     step (:func:`slot_step`) of the static (B, ``t``) tokens
     ``buf.tokens(t)``, row ``r`` consuming its first ``nvalid[r]``."""
     slot_step(params, cfg, cache, buf, greedy, tokens=buf.tokens(t))
+
+
+def verify_step(params, cfg, cache, buf: SlotBuffers, greedy: bool, t: int) -> None:
+    """``decode_loop.slot_verify_chunk`` on ``buf``: the slot forward of the
+    static (B, ``t``) window ``buf.tokens(t)`` at ``pos_rows`` with
+    ``nvalid`` valid tokens a row, every position's logits, their argmax (a
+    sampled batch's column 0 drawn with ``coins``), the accepted counts
+    and ``last`` on the device: ``verify_out(t)`` gets the predictions and
+    the counts, ``tok`` the last row, ``logits`` each row's logits at its
+    last emitted position.  The clocks are the host's (the scheduler
+    advances each row by its own accepted count)."""
+    tokens = buf.tokens(t)
+    logits, _ = forward_slots_all(params, cfg, tokens, cache, buf.pos_rows, buf.nvalid,
+                                  page_table=buf.ptab)
+    preds = torch.argmax(logits, dim=-1).to(torch.int32)
+    if not greedy:
+        preds[:, 0] = _sample(logits[:, 0], buf, False, buf.topks)
+    accepted, last = verify_accept(tokens, preds, buf.nvalid)
+    out = buf.verify_out(t)
+    out[:, :t].copy_(preds)
+    out[:, t].copy_(accepted)
+    buf.tok.copy_(last)
+    b = tokens.shape[0]
+    buf.logits.copy_(logits[torch.arange(b, device=logits.device), accepted.long()])
+
+
+def pld_step(params, cfg, cache, buf: ChunkBuffers, t: int) -> None:
+    """A batch-1 prompt-lookup window on ``buf``: the forward of the static
+    (1, ``t``) window at the device position ``buf.pos`` (the contiguous
+    t > 1 read over the whole cache), the argmax at every position and the
+    count of leading drafts matched (:func:`decode_loop.verify_accept`,
+    every draft column valid), written to the window's output."""
+    tokens, out = buf.window(t)
+    s = cache.k.shape[3]
+    logits, _ = forward(params, cfg, tokens, cache, DevicePos(buf.pos, s - 1))
+    preds = torch.argmax(logits, dim=-1).to(torch.int32)
+    nvalid = torch.full((tokens.shape[0],), t, dtype=torch.int32, device=tokens.device)
+    accepted, _ = verify_accept(tokens, preds, nvalid)
+    out[:, :t].copy_(preds)
+    out[:, t].copy_(accepted)
 
 
 # -- the graph cache -------------------------------------------------------
@@ -454,3 +531,36 @@ class DecodeGraphs:
                    lambda: mixed_step(engine.params, engine.cfg, engine.cache, buf, greedy, t))
         self._decode_steps(engine, buf, steps - 1, greedy)
         return buf.out[:steps], buf.tok.clone(), buf.logits.clone()
+
+    def verify(self, engine, tokens_np, pos_rows_np, n_valid_np, temps_np, topps_np,
+               topks_np, page_tables_np, greedy: bool):
+        """A slot verify dispatch: the (B, T) window copied into the
+        width's static buffer and the verify step replayed (its key
+        ``GraphKey("verify", B, greedy, T)``).  Returns (the (B, T + 1)
+        predictions and accepted counts, the last row (B,), logits (B, V))
+        on the device: a view of the static output (the caller lands it
+        before a later dispatch can overwrite it), and copies."""
+        t = int(tokens_np.shape[1])
+        buf = self._slot_buffers(engine, pos_rows_np, n_valid_np, temps_np, topps_np,
+                                 topks_np, page_tables_np)
+        buf.tokens(t).copy_(upload(tokens_np, torch.int32, self.device))
+        if not greedy:
+            buf.coins.uniform_(0.0, 1.0, generator=engine._gen)
+        self._step(GraphKey("verify", engine.batch, greedy, t),
+                   lambda: verify_step(engine.params, engine.cfg, engine.cache, buf, greedy, t))
+        return buf.verify_out(t), buf.tok.clone(), buf.logits.clone()
+
+    def pld(self, engine, window_np, p0: int) -> torch.Tensor:
+        """A batch-1 PLD window of T tokens at position ``p0``: copied into
+        the width's static buffer, the PLD step replayed (its key
+        ``GraphKey("pld", 1, True, T)``).  Returns the (1, T + 1) output
+        (predictions, then the accepted count) on the device, a view the
+        caller lands before the next window."""
+        t = int(window_np.shape[1])
+        buf = self._chunk_buffers(engine, False)
+        tokens, out = buf.window(t)
+        tokens.copy_(upload(window_np, torch.int32, self.device))
+        buf.pos.fill_(p0)
+        self._step(GraphKey("pld", engine.batch, True, t),
+                   lambda: pld_step(engine.params, engine.cfg, engine.cache, buf, t))
+        return out

@@ -1,5 +1,5 @@
 """Continuous-batching slot scheduler over the slot engine — a copy of
-``dllama_tpu/runtime/scheduler.py`` without speculative decoding.
+``dllama_tpu/runtime/scheduler.py``.
 
 One daemon thread owns the ``--batch-slots`` engine and drives
 :meth:`Engine.slot_step_async`, admitting a waiting request into any free
@@ -26,7 +26,19 @@ SOSP'23).  Per dispatch:
   its KV writes sit above every surviving row's position (masked by the
   causal ceiling exactly like slot reuse), and greedy output stays
   byte-identical with overlap on or off.  A row that retires in N's
-  fanout (EOS, budget) leaves N+1 row-wise: its burst row is ignored.
+  fanout (EOS, budget) leaves N+1 row-wise: its burst row is ignored;
+* with a ``spec`` proposer (``runtime/spec.py``, ``--spec pld|draft``),
+  each greedy decode slot drafts up to ``spec_k`` tokens after a dispatch
+  lands, and the next dispatch is a ragged verify step
+  (:meth:`Engine.slot_verify_async`, a fixed window of ``spec_k + 1``
+  columns): proposing rows feed their drafts, the others ride as one
+  plain decode step, and each row emits its accepted leading drafts and
+  one more token, all the target model's own argmax, so greedy output is
+  byte-identical with speculation on or off.  A rejection truncates that
+  row alone (its stale KV sits above its ceiling), and every flush point
+  (retire, park, export, drain) drops pending drafts.  Speculation
+  supersedes the overlapped pipeline while armed: a window's drafts
+  depend on the previous dispatch's landed tokens.
 
 Paged engines (``engine.kv_pages > 0``) reserve pages at admission.  Under
 ``kv_reserve="full"`` (the default) that is every page a request can touch
@@ -74,13 +86,15 @@ Observability (``obs/``), at the JAX package's call sites: the registry's
 scheduler, KV-pool and goodput families (every millisecond between the
 first dispatch and the latest land lands in one of the ``prefill``,
 ``decode``, ``pad``, ``host_gap`` and ``idle`` components), a flight
-record a request (submit, admit, prefill chunks, decode bursts, retire),
-a slot-timeline entry a dispatch, and ``sched_admit``/``sched_step``/
-``sched_retire`` spans.  ``stats`` keeps this scheduler's own counts
-(the registry is the process's).
+record a request (submit, admit, prefill chunks, decode and verify
+bursts, its cost block, retire), a slot-timeline entry a dispatch, and
+``sched_admit``/``sched_step``/``sched_verify``/``sched_retire`` spans.
+Every landed dispatch is costed by the roofline model (``obs/cost.py``:
+the ``dispatch_flops``/``dispatch_bytes`` families, per-request chip
+time, ``class_chip_ms``, the ``mfu``/``mbu`` gauges).  ``stats`` keeps
+this scheduler's own counts (the registry is the process's).
 
-Left out of the copy (``ROADMAP.md``): speculative decoding, the fault
-points, and the roofline cost attribution.
+Left out of the copy (``ROADMAP.md``): the fault points.
 """
 
 from __future__ import annotations
@@ -96,6 +110,7 @@ from collections import deque
 
 import numpy as np
 
+from ..obs import cost as obs_cost, dispatch as obs_dispatch
 from ..obs import events as obs_events, flight as obs_flight
 from ..obs import metrics as obs_metrics, trace as obs_trace
 from ..obs.log import current_request_id, new_request_id, request_id_var
@@ -163,6 +178,10 @@ class Ticket:
         # decode and stop-scan state on the importer
         self.stop: list[str] = []
         self.emitted: list[int] = []
+        # speculative decoding: drafts proposed for and accepted by this
+        # request's verify steps (flight record, /debug/requests)
+        self.spec_proposed = 0
+        self.spec_accepted = 0
         self._q: queue.SimpleQueue = queue.SimpleQueue()
         self._cancel: str | None = None
         self._on_cancel = None  # scheduler wakeup, bound at submit
@@ -236,7 +255,8 @@ class _Pending:
 
     __slots__ = ("handle", "error", "active", "tickets", "steps", "n_valid",
                  "temps", "topps", "topks", "prefset", "enq_tp", "overlapped",
-                 "t_width", "pos_rows", "queued", "t0_mono", "host_gap_ms", "idle_ms")
+                 "t_width", "pos_rows", "queued", "t0_mono", "host_gap_ms", "idle_ms",
+                 "verify", "proposed_by_slot")
 
     def __init__(self, **kw):
         for k in self.__slots__:
@@ -253,7 +273,9 @@ class SlotScheduler:
     (default ``max_queue``) and ``spill_dir`` (parked records on disk).
     KV tiering (paged only): ``kv_reserve`` ``"full"`` or
     ``"optimistic"``, ``spill_headroom`` tokens bound beyond the prompt,
-    ``host_pool_mb`` the host pool's budget (0: no spill)."""
+    ``host_pool_mb`` the host pool's budget (0: no spill).  Speculation:
+    ``spec`` a :class:`runtime.spec.Proposer` (None: off), ``spec_k`` the
+    most drafts a row a verify step."""
 
     def __init__(self, engine, *, prefill_chunk: int = 16,
                  max_wait_ms: float = 50.0, decode_burst: int = 16,
@@ -262,7 +284,7 @@ class SlotScheduler:
                  preempt_age_ms: float = 5000.0, preempt_cap: int = 3,
                  parked_max: int | None = None, spill_dir: str | None = None,
                  kv_reserve: str = "full", spill_headroom: int = 16,
-                 host_pool_mb: float = 64.0):
+                 host_pool_mb: float = 64.0, spec=None, spec_k: int = 4):
         if engine.cache.quantized and not engine.paged:
             raise ValueError("slot scheduling needs a dense or paged-int8 KV cache")
         if kv_reserve not in ("full", "optimistic"):
@@ -272,6 +294,15 @@ class SlotScheduler:
         self.prefill_chunk = max(1, int(prefill_chunk))
         # the widest mixed step this scheduler can emit (a power of two)
         engine.check_slot_width(1 << (min(self.prefill_chunk, engine.seq_len).bit_length() - 1))
+        # speculative decoding (runtime/spec.py): the proposer (None: off)
+        # and per-slot pending drafts collected at land time, each tagged
+        # with the ticket it was drafted for, so a re-bound slot never
+        # consumes a predecessor's drafts.  Host-side; flush points clear it
+        self.spec = spec
+        self.spec_k = max(1, int(spec_k))
+        if spec is not None:
+            engine.check_slot_width(self.spec_k + 1)
+        self._proposals: dict[int, tuple[Ticket, list[int]]] = {}
         self.max_wait_ms = float(max_wait_ms)
         self.decode_burst = max(1, int(decode_burst))
         self.max_queue = max(1, int(max_queue))
@@ -314,7 +345,8 @@ class SlotScheduler:
                       "prefill_tokens": 0, "prefix_hits": 0,
                       "prefix_tokens_reused": 0, "kv_pool_exhausted": 0,
                       "preemptions": 0, "resumed": 0, "pages_spilled": 0,
-                      "pages_paged_in": 0, "exported": 0, "imported": 0}
+                      "pages_paged_in": 0, "exported": 0, "imported": 0,
+                      "verify_dispatches": 0, "spec_proposed": 0, "spec_accepted": 0}
         self._queue: deque[Ticket] = deque()
         self._cond = threading.Condition()
         # serializes the engine's device calls between the dispatch loop and
@@ -338,6 +370,10 @@ class SlotScheduler:
         # latest land lands in exactly one component
         self._idle_accum = 0.0   # seconds slept waiting for work since the last dispatch
         self._comp = dict.fromkeys(("prefill", "decode", "pad", "host_gap", "idle"), 0.0)
+        # roofline cost attribution (obs/cost.py): analytic FLOPs and bytes
+        # a landed dispatch; None when the engine could not be modelled
+        # (serving never depends on the accounting)
+        self.cost_model = obs_cost.model_from_engine(engine)
         self._thread = threading.Thread(target=self._run, daemon=True,
                                         name="dllama-torch-slot-scheduler")
         self._thread.start()
@@ -418,6 +454,9 @@ class SlotScheduler:
         deadline."""
         with self._cond:
             self._draining = True
+            # a drain is a flush point: pending drafts die (no new ones are
+            # collected while draining)
+            self._proposals.clear()
             for t in (list(self._queue) + [s.ticket for s in self.slots if s.ticket is not None]
                       + [e.ticket for e in self._parked]):
                 t.deadline = min(t.deadline, deadline) \
@@ -776,6 +815,11 @@ class SlotScheduler:
             # lands on its spill_ms)
             self._drop_spilled_locked(slot_idx)
         s.ticket = None
+        # flush point for speculation: pending drafts die with the slot and
+        # the proposer forgets it (a later occupant rebuilds from its prompt)
+        self._proposals.pop(slot_idx, None)
+        if self.spec is not None:
+            self.spec.reset(slot_idx)
         if self.pool is not None and s.pages:
             # drop this slot's references; pages the radix tree retained
             # stay live for the next matching prompt
@@ -799,7 +843,9 @@ class SlotScheduler:
                           error=repr(error) if error is not None else None,
                           preempt_count=t.preempt_count or None,
                           parked_ms=round(t.parked_ms, 3) if t.parked_ms else None,
-                          spill_ms=round(t.spill_ms, 3) if t.spill_ms else None)
+                          spill_ms=round(t.spill_ms, 3) if t.spill_ms else None,
+                          spec_proposed=t.spec_proposed or None,
+                          spec_accepted=t.spec_accepted if t.spec_proposed else None)
         t._q.put(_DONE)
 
     def _fail_ticket(self, t: Ticket, reason: str,
@@ -971,6 +1017,11 @@ class SlotScheduler:
         with what it produced."""
         s = self.slots[slot_idx]
         t = s.ticket
+        # flush point: pending drafts die before the export, so a record
+        # never carries speculative state (the resumed slot re-drafts)
+        self._proposals.pop(slot_idx, None)
+        if self.spec is not None:
+            self.spec.reset(slot_idx)
         obs_metrics.SCHED_PREEMPTIONS.inc(reason)
         self.stats["preemptions"] += 1
         obs_trace.record("sched_preempt", now, time.monotonic(), rid=t.rid, slot=slot_idx,
@@ -1272,7 +1323,8 @@ class SlotScheduler:
         a slot the ladder cannot grow is preempted (``kv_pressure``)."""
         if not self.optimistic:
             return
-        reach = max(self.prefill_chunk, self.decode_burst)
+        reach = max(self.prefill_chunk, self.decode_burst,
+                    (self.spec_k + 1) if self.spec is not None else 1)
         for i in self._active():
             s = self.slots[i]
             if s.spilled:
@@ -1380,10 +1432,29 @@ class SlotScheduler:
         prefilling = [i for i in active
                       if slots[i].fed < len(slots[i].ticket.prompt)]
         room = min(eng.seq_len - slots[i].pos for i in active)
+        # the slots' pending drafts (runtime/spec.py) are valid for exactly
+        # this dispatch: popped unconditionally, kept only for the slot's
+        # current ticket, and dropped whole when a prefilling row joins (a
+        # mixed step has no verify shape) or the context edge is closer
+        # than a full window (the proposer re-drafts from exact state)
+        props: dict[int, list[int]] = {}
+        if self.spec is not None:
+            with self._cond:
+                pend, self._proposals = self._proposals, {}
+            if not prefilling and room >= self.spec_k + 1:
+                for i, (tk, d) in pend.items():
+                    if i in active and slots[i].ticket is tk and d:
+                        props[i] = d
         # both dispatch dimensions are rounded down to a power of two: a
         # few distinct shapes, each reused (the JAX package compiles one
         # program per shape; here it keeps step times comparable)
-        if prefilling:
+        if props:
+            # a ragged verify step of fixed width spec_k + 1 (one graph):
+            # proposing rows feed [last, d_1..], the others ride as one
+            # plain decode step (n_valid 1)
+            t_width = self.spec_k + 1
+            steps = 1
+        elif prefilling:
             # mixed step: prefill chunks ride with the decode rows' single
             # tokens; steps=1 keeps every row's clock advancing by n_valid
             t_width = min(self.prefill_chunk, room,
@@ -1421,6 +1492,10 @@ class SlotScheduler:
                 n_valid[i] = c
             else:
                 tokens[i, 0] = s.last
+                d = props.get(i)
+                if d is not None:
+                    tokens[i, 1:1 + len(d)] = d
+                    n_valid[i] = 1 + len(d)
         obs_metrics.SCHED_BATCH_EFFICIENCY.set(len(active) / b)
         tickets = {i: slots[i].ticket for i in active}
         # the gap since the last land: idle (slept waiting for work), the
@@ -1447,9 +1522,14 @@ class SlotScheduler:
         handle, error = None, None
         try:
             with self._engine_lock:
-                handle = eng.slot_step_async(
-                    tokens, pos_rows, n_valid, temps_np=temps, topps_np=topps,
-                    topks_np=topks, steps=steps, page_tables_np=ptab)
+                if props:
+                    handle = eng.slot_verify_async(
+                        tokens, pos_rows, n_valid, temps_np=temps, topps_np=topps,
+                        topks_np=topks, page_tables_np=ptab)
+                else:
+                    handle = eng.slot_step_async(
+                        tokens, pos_rows, n_valid, temps_np=temps, topps_np=topps,
+                        topks_np=topks, steps=steps, page_tables_np=ptab)
         except Exception as e:
             error = e
         if handle is not None:
@@ -1460,7 +1540,8 @@ class SlotScheduler:
                         topps=topps, topks=topks, prefset=set(prefilling),
                         enq_tp=tp0, overlapped=False, t_width=t_width,
                         pos_rows=pos_rows, queued=queued, t0_mono=t0_mono,
-                        host_gap_ms=host_gap_ms, idle_ms=idle_ms)
+                        host_gap_ms=host_gap_ms, idle_ms=idle_ms, verify=bool(props),
+                        proposed_by_slot={i: len(d) for i, d in props.items()})
 
     def _maybe_pipeline(self, cur: _Pending) -> _Pending | None:
         """While ``cur`` is still in flight, enqueue the next pure-decode
@@ -1470,6 +1551,13 @@ class SlotScheduler:
         still mid-prefill after ``cur``, no context room, every row's
         budget spent by ``cur`` — and the round then completes
         synchronously."""
+        if self.spec is not None:
+            # token speculation supersedes dispatch pipelining: a verify
+            # window's drafts depend on the previous dispatch's landed
+            # tokens, so the next dispatch cannot be built while ``cur`` is
+            # in flight; the verify step's multi-token yield amortizes the
+            # host gap instead
+            return None
         eng = self.engine
         slots = self.slots
         b = eng.batch
@@ -1548,7 +1636,7 @@ class SlotScheduler:
                         topps=cur.topps, topks=cur.topks, prefset=set(),
                         enq_tp=time.perf_counter(), overlapped=True, t_width=1,
                         pos_rows=pos2, queued=0, t0_mono=time.monotonic(),
-                        host_gap_ms=0.0, idle_ms=0.0)
+                        host_gap_ms=0.0, idle_ms=0.0, verify=False, proposed_by_slot={})
 
     def _pipeline_verdict(self, nxt: _Pending) -> list[int] | None:
         """After ``nxt``'s predecessor landed and fanned out with ``nxt``
@@ -1686,29 +1774,185 @@ class SlotScheduler:
                     self._retire(i, "error", error=error)
             return False
         self._note_step_time(wall_ms if step_ms is None else step_ms, cur.steps)
-        obs_trace.record("sched_step", cur.t0_mono, time.monotonic(), active=n_act,
-                         queued=cur.queued, t=cur.t_width, steps=cur.steps,
-                         overlapped=cur.overlapped, rids=sorted(rids.values()))
+        if cur.verify:
+            preds, accepted = out
+            self.stats["verify_dispatches"] += 1
+            obs_trace.record("sched_verify", cur.t0_mono, time.monotonic(), active=n_act,
+                             queued=cur.queued, t=cur.t_width,
+                             proposed=sum(cur.proposed_by_slot.values()),
+                             accepted=sum(int(accepted[i]) for i in cur.proposed_by_slot),
+                             rids=sorted(rids.values()))
+        else:
+            obs_trace.record("sched_step", cur.t0_mono, time.monotonic(), active=n_act,
+                             queued=cur.queued, t=cur.t_width, steps=cur.steps,
+                             overlapped=cur.overlapped, rids=sorted(rids.values()))
         emitted = dict.fromkeys(cur.active, 0)
         # the fanout holds _cond: slot clocks and tickets are never seen
         # half-advanced from another thread
         with self._cond:
-            self._fanout(cur.active, cur.steps, out, cur.n_valid, emitted)
+            if cur.verify:
+                self._fanout_verify(cur.active, preds, accepted, cur.proposed_by_slot,
+                                    emitted)
+            else:
+                self._fanout(cur.active, cur.steps, out, cur.n_valid, emitted)
         # flight phases after the fanout, so the emitted counts are final
         for i in cur.active:
             if i in cur.prefset:
                 obs_flight.phase(rids[i], "prefill_chunk", tokens=int(cur.n_valid[i]),
                                  ms=wall_ms, pos=int(cur.pos_rows[i]), emitted=emitted[i])
+            elif cur.verify:
+                obs_flight.phase(rids[i], "verify_burst",
+                                 proposed=cur.proposed_by_slot.get(i, 0),
+                                 accepted=int(accepted[i]), tokens=emitted[i],
+                                 wall_ms=wall_ms)
             else:
                 obs_flight.phase(rids[i], "decode_burst", steps=cur.steps,
                                  tokens=emitted[i], wall_ms=wall_ms,
                                  step_ms=wall_ms / cur.steps)
+        self._attribute_cost(cur, wall_ms)
         obs_flight.TIMELINE.record_step(
             ts=ts0, wall_ms=wall_ms, device_ms=self.engine.last_slot_dispatch_ms,
             host_gap_ms=gap_exposed, idle_ms=gap_idle, steps=cur.steps,
             t_width=cur.t_width, overlapped=cur.overlapped, hidden_host_ms=hidden_ms,
             slots=self._slot_entries(rids, cur.prefset, emitted))
+        if self.spec is not None:
+            self._collect_proposals()
         return True
+
+    def _attribute_cost(self, cur: _Pending, wall_ms: float) -> None:
+        """Analytic roofline attribution of one landed dispatch
+        (``obs/cost.py``): the ``dispatch_flops``/``dispatch_bytes``
+        families by (codec, path, phase), a cost block on every riding
+        request's flight record, per-class chip time and the MFU/MBU
+        gauges.  A row's chip-time share is ``wall_ms / batch`` (pad rows'
+        share is nobody's); FLOPs and bytes use each row's own useful
+        tokens, the pass's weight read split evenly over the occupied
+        rows."""
+        cm = self.cost_model
+        if cm is None or not cur.active:
+            return
+        rows = []
+        for i in cur.active:
+            if i in cur.prefset:
+                rows.append(("prefill", int(cur.pos_rows[i]), int(cur.n_valid[i])))
+            elif cur.verify and cur.proposed_by_slot.get(i):
+                rows.append(("verify", int(cur.pos_rows[i]), int(cur.n_valid[i])))
+            else:
+                # plain decode rows advance cur.steps tokens (1 inside a
+                # mixed or verify dispatch)
+                rows.append(("decode", int(cur.pos_rows[i]), int(cur.steps)))
+        out = cm.dispatch_cost(rows, steps=cur.steps)
+        obs_dispatch.record_cost(out["entries"])
+        obs_cost.TRACKER.note(out["flops"], out["hbm_bytes"], wall_ms)
+        mfu, mbu = obs_cost.TRACKER.mfu(), obs_cost.TRACKER.mbu()
+        if mfu is not None:
+            obs_metrics.MFU.set(mfu)
+        if mbu is not None:
+            obs_metrics.MBU.set(mbu)
+        chip_ms = wall_ms / self.engine.batch
+        for i, rc in zip(cur.active, out["per_row"]):
+            pages = len(self.slots[i].pages) if self.paged else 0
+            t = cur.tickets[i]
+            obs_flight.cost(t.rid, chip_ms=chip_ms, flops=rc["flops"],
+                            hbm_bytes=rc["hbm_bytes"], kv_page_ms=pages * wall_ms)
+            obs_metrics.CLASS_CHIP_MS.inc(PRIORITY_NAMES.get(t.priority, "standard"),
+                                          n=chip_ms)
+
+    def _fanout_verify(self, active: list[int], preds, accepted,
+                       proposed_by_slot: dict[int, int], emitted: dict[int, int]) -> None:
+        """Distribute one verify dispatch's tokens and advance the slot
+        clocks: row ``i`` emits ``preds[i, :accepted[i] + 1]``, every token
+        the model's own argmax, so the stream is plain decode's byte for
+        byte.  A rejection truncates that row alone (its clock advances by
+        its own accepted count; the rejected tail's KV sits above it).
+        EOS or the budget mid-window retires the row and drops the rest of
+        its window.  Caller holds ``self._cond``."""
+        eng = self.engine
+        slots = self.slots
+        now = time.monotonic()
+        for i in active:
+            s = slots[i]
+            s.active_at = now
+            t = s.ticket
+            if t is None:  # retired between enqueue and land
+                continue
+            a = int(accepted[i])
+            k = proposed_by_slot.get(i, 0)
+            if k:
+                t.spec_proposed += k
+                t.spec_accepted += a
+                self.stats["spec_proposed"] += k
+                self.stats["spec_accepted"] += a
+                obs_metrics.SCHED_SPEC_PROPOSED.inc(k)
+                if a:
+                    obs_metrics.SCHED_SPEC_ACCEPTED.inc(self.spec.name, n=a)
+            for tok in (int(preds[i, j]) for j in range(a + 1)):
+                s.pos += 1
+                s.last = tok
+                if tok in t.eos_ids:
+                    self._retire(i, "stop")
+                    break
+                if t.first_token_at is None:
+                    t.first_token_at = time.monotonic()
+                s.produced += 1
+                emitted[i] += 1
+                t.emitted.append(tok)
+                t._q.put(tok)
+                if s.produced >= t.max_new or s.pos >= eng.seq_len:
+                    self._retire(i, "length")
+                    break
+        if self.stats["spec_proposed"]:
+            obs_metrics.SCHED_SPEC_ACCEPT_RATIO.set(
+                self.stats["spec_accepted"] / self.stats["spec_proposed"])
+
+    def _collect_proposals(self) -> None:
+        """After a dispatch fans out: let each live, greedy, decoding slot
+        draft up to ``spec_k`` tokens for the next dispatch.  The proposer
+        runs outside ``_cond`` (a draft-model proposer runs its own
+        engine), so the drafts are stored only for the ticket they were
+        drafted for."""
+        spec = self.spec
+        eng = self.engine
+        slots = self.slots
+        want: dict[int, int] = {}
+        tick: dict[int, Ticket] = {}
+        with self._cond:
+            if (self._stop or self._draining or self._paused
+                    or self._flush_req or self._queue or self._parked):
+                # a flush point (or an admission, which makes the next
+                # dispatch a mixed step) is coming: drafts would be dropped
+                return
+            now = time.monotonic()
+            for i in self._active():
+                s = slots[i]
+                t = s.ticket
+                if (s.spilled or t.temperature != 0.0 or s.fed < len(t.prompt)
+                        or t._cancel is not None
+                        or (t.deadline is not None and now >= t.deadline)):
+                    continue
+                if eng.seq_len - s.pos < self.spec_k + 1:
+                    # the window is spec_k + 1 columns however few drafts a
+                    # row has, so a row this close to the edge cannot ride
+                    continue
+                # drafting past the budget is waste: the window's extra
+                # token is the one that lands on the budget
+                k = min(self.spec_k, t.max_new - s.produced - 1)
+                if k < 1:
+                    continue
+                spec.sync(i, t.rid, t.prompt, t.emitted)
+                want[i] = k
+                tick[i] = t
+        if not want:
+            return
+        props = spec.propose(want)
+        with self._cond:
+            for i, d in props.items():
+                t = slots[i].ticket
+                if t is None or t is not tick.get(i):
+                    continue
+                d = d[:want[i]]
+                if d:
+                    self._proposals[i] = (t, d)
 
     def _account(self, component: str, ms: float) -> None:
         self._comp[component] += ms

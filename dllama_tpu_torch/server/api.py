@@ -22,12 +22,17 @@
   ``logprobs`` adds one teacher-forced scoring forward
   (``Engine.score_batch``).  With ``--kv-pages`` these answer 400, as the
   JAX server does.
-* ``GET /v1/models``, ``GET /health`` (with the ``--slo`` verdict),
+* ``GET /v1/models``, ``GET /health`` (with the ``--slo`` verdict and the
+  ``perf`` block of ``obs/cost.py``: MFU/MBU, modelled work, the peaks and
+  the card's name and power limit),
   ``GET /metrics`` (JSON, or Prometheus text 0.0.4 with ``Accept:
   text/plain`` or ``?format=prometheus``), and ``GET /debug/trace``,
   ``/debug/events``, ``/debug/requests[/<id>]``, ``/debug/timeline``
-  (``obs/``).  Every response carries ``X-Request-Id`` (the client's,
-  sanitized, or a fresh one).
+  (``obs/``), and ``POST /debug/profile?steps=N&top=K`` (N single-token
+  decode steps of the batch-1 engine under ``torch.profiler``, the
+  scheduler parked: the top-K kernels and the compute/collective split).
+  Every response carries ``X-Request-Id`` (the client's, sanitized, or a
+  fresh one).
 * bounded admission (``--max-pending`` → 429 with a jittered
   Retry-After), per-request deadlines (``timeout``/``max_time`` body
   fields, ``--request-timeout``), and a graceful drain on SIGTERM/SIGINT.
@@ -46,8 +51,9 @@
 * snapshots (``--snapshot-dir``): a drain saves the batch-1 engine, its
   conversation cache and the paged pool with its radix tree; the next boot
   restores them (a corrupt or mismatched file cold-starts).
-
-Not yet ported (answers 400 naming itself): ``POST /debug/profile``.
+* speculative decoding (``--spec pld|draft``, ``--spec-k``,
+  ``--draft-model``; needs ``--batch-slots``): the slot scheduler verifies
+  each greedy slot's drafts in one step (``runtime/spec.py``).
 """
 
 from __future__ import annotations
@@ -66,7 +72,7 @@ from dataclasses import dataclass, field
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from urllib.parse import parse_qs
 
-from ..obs import dispatch as obs_dispatch, events as obs_events
+from ..obs import cost as obs_cost, dispatch as obs_dispatch, events as obs_events
 from ..obs import flight as obs_flight, metrics as obs_metrics, trace as obs_trace
 from ..io.integrity import ArtifactError
 from ..obs.log import get_logger, new_request_id, set_request_id
@@ -564,6 +570,9 @@ class ApiState:
                 "paged_attention": attention.counters()},
             # ok / at_risk / violating per objective, evaluated live
             "slo": self.slo.evaluate() if self.slo is not None else None,
+            # obs/cost.py: MFU/MBU against the card's peaks, the modelled
+            # work, chip time by QoS class, the card's name and power limit
+            "perf": obs_cost.summary(),
         }
 
     def exclusive(self):
@@ -1852,14 +1861,63 @@ def make_handler(state: ApiState):
             self._safe_write(f"data: {json.dumps(usage)}\n\n".encode()
                              + b"data: [DONE]\n\n", aborted)
 
+        def _debug_profile(self, query: str):
+            """``POST /debug/profile?steps=N&top=K``: N single-token decode
+            steps of the batch-1 engine under ``torch.profiler``
+            (``runtime/profiling.profile_decode_steps``: graph replays on the
+            card, or eager steps when the profiler saw no kernel inside
+            them, as ``how`` says), with the engine's mutex held and the
+            scheduler parked; answers the top-K kernels and the
+            compute/collective split a step.  POST because it borrows the
+            engine and rewinds its position after.  503 while draining."""
+            from ..runtime.profiling import profile_decode_steps, summarize_split, top_ops
+            if state.draining:
+                self._json(503, {"error": "server is draining"},
+                           headers={"Retry-After": jittered_retry_after(30)})
+                return
+            q = parse_qs(query)
+
+            def qint(name, default, lo, hi):
+                try:
+                    v = int(q.get(name, [default])[0])
+                except ValueError:
+                    v = default
+                return max(lo, min(hi, v))
+
+            steps = qint("steps", 3, 1, 16)
+            top = qint("top", 10, 1, 50)
+            eng = state.engine
+            with state.engine_lock:
+                state.mark_active(True)
+                try:
+                    with state.exclusive():
+                        if eng.pos + 2 * steps + 1 > eng.seq_len:
+                            # no room: drop the conversation state first
+                            state.naive_cache.clear()
+                        times, how = profile_decode_steps(eng, steps)
+                finally:
+                    state.mark_active(False)
+            if times is None:
+                self._json(503, {"error": "the profiler recorded no time"})
+                return
+            split = summarize_split(times, steps)
+            _log.info("profile", extra={"steps": steps, "n_ops": len(times)})
+            self._json(200, {
+                "steps": steps, "devices": eng.tp, "how": how,
+                "compute_ms": round(split["compute_ms"], 4),
+                "collective_ms": round(split["collective_ms"], 4),
+                "collective_pct": round(split["collective_pct"], 2),
+                "ops": [{"op": op, "ms": round(ms, 4)} for op, ms in top_ops(times, top, steps)],
+            })
+
         def do_POST(self):
             self._begin_request()
             path, _, query = self.path.partition("?")
+            if path == "/debug/profile":
+                self._debug_profile(query)
+                return
             if path == "/admin/import":
                 self._admin_import(query)
-                return
-            if path.startswith("/debug/"):
-                self._json(400, {"error": _not_ported_msg(f"POST {path}")})
                 return
             if path not in ("/v1/chat/completions", "/v1/completions"):
                 self._json(404, {"error": "not found"})
@@ -2053,7 +2111,8 @@ def build_state(args, slo=None, stack=None) -> ApiState:
     ``(engine, tokenizer)`` loaded before, serves instead of loading
     ``--model`` again (:func:`~dllama_tpu_torch.cli.load_stack`).  With
     ``--snapshot-dir`` the state restores from a snapshot there."""
-    from ..cli import load_stack
+    from ..cli import load_draft_engine, load_stack
+    from ..runtime.spec import make_proposer
     if args.kv_quant == "int8" and args.kv_pages <= 0:
         raise SystemExit("--kv-quant int8 needs a paged pool (--kv-pages); "
                          "contiguous slot rows have no per-page scales")
@@ -2063,6 +2122,10 @@ def build_state(args, slo=None, stack=None) -> ApiState:
                          "the paged pool)")
     if args.handoff_ttl < 0:
         raise SystemExit("--handoff-ttl must be >= 0")
+    if args.spec != "off" and args.batch_slots <= 0:
+        # speculation lives in the slot scheduler: fail before the load
+        raise SystemExit("--spec needs --batch-slots (speculative decoding runs "
+                         "under the slot scheduler)")
     engine, tok = load_stack(args, stack=stack)
     batch_engine = scheduler = None
     if args.batch_slots > 0:
@@ -2073,6 +2136,10 @@ def build_state(args, slo=None, stack=None) -> ApiState:
                               kv_pages=args.kv_pages, kv_page_size=args.kv_page_size,
                               mesh=engine.mesh)
         try:
+            spec = None
+            if args.spec != "off":
+                draft = load_draft_engine(args, batch_engine) if args.spec == "draft" else None
+                spec = make_proposer(args.spec, batch_engine, draft_engine=draft)
             scheduler = SlotScheduler(
                 batch_engine, prefill_chunk=args.sched_prefill_chunk,
                 max_wait_ms=args.sched_max_wait_ms, max_queue=args.sched_max_queue,
@@ -2080,7 +2147,7 @@ def build_state(args, slo=None, stack=None) -> ApiState:
                 preempt=not args.no_preempt, preempt_age_ms=args.preempt_age_ms,
                 preempt_cap=args.preempt_cap, spill_dir=args.preempt_spill_dir,
                 kv_reserve=args.kv_reserve, spill_headroom=args.spill_headroom,
-                host_pool_mb=args.kv_host_pool_mb)
+                host_pool_mb=args.kv_host_pool_mb, spec=spec, spec_k=args.spec_k)
         except ValueError as e:
             # a contiguous int8 cache: the lockstep batch still serves,
             # only decode-step admission is off
@@ -2091,7 +2158,8 @@ def build_state(args, slo=None, stack=None) -> ApiState:
                 "kv_page_size": args.kv_page_size, "kv_quant": args.kv_quant,
                 "prefix_reuse": scheduler.prefix_cache is not None,
                 "overlap": scheduler.overlap, "kv_reserve": scheduler.kv_reserve,
-                "preempt": scheduler.preempt and scheduler.paged})
+                "preempt": scheduler.preempt and scheduler.paged,
+                "spec": args.spec, "spec_k": args.spec_k})
     if args.handoff and (scheduler is None or scheduler.pool is None):
         raise SystemExit("--handoff needs the paged scheduler (--batch-slots and --kv-pages)")
     state = ApiState(engine, tok, default_temperature=args.temperature,

@@ -127,6 +127,9 @@ LOCKSTEP = ("n > 1", "logprobs", "echo", "a list prompt")
 # ported since: they answer as the JAX server does (an unknown priority
 # class is 400; /admin/import without --handoff is 404)
 AS_JAX = ("priority", "/admin/import")
+# ported since: POST /debug/profile answers 200 with the top ops and the
+# split (tests/test_torch_profiling.py holds the rest)
+ANSWERS = ("/debug/profile",)
 
 
 @pytest.mark.parametrize("method,path,body,named", [
@@ -141,7 +144,8 @@ AS_JAX = ("priority", "/admin/import")
 def test_unported_features_answer_400(servers, method, path, body, named):
     """What the port does not carry answers 400 naming itself; the lockstep
     batch's features answer the JAX server's 400 on a paged server; the
-    priority field and /admin/import answer what the JAX server answers."""
+    priority field and /admin/import answer what the JAX server answers;
+    POST /debug/profile answers."""
     port, ref, _ = servers
     if method == "GET":
         try:
@@ -151,6 +155,11 @@ def test_unported_features_answer_400(servers, method, path, body, named):
             code, raw = e.code, e.read().decode()
     else:
         code, raw = post(port, path, body)
+    if named in ANSWERS:
+        assert code == 200, raw
+        body = json.loads(raw)
+        assert body["ops"] and body["compute_ms"] > 0 and "not yet ported" not in raw
+        return
     if named in AS_JAX:
         want = post(ref, path, body)
         assert code == want[0] and code in (400, 404)
@@ -167,5 +176,5 @@ def test_unported_features_answer_400(servers, method, path, body, named):
 
 def test_unported_server_flag_exits():
     from dllama_tpu_torch.server import api
-    with pytest.raises(SystemExit, match="not yet ported.*--spec"):
-        api.parse_args(["--spec", "pld"])
+    with pytest.raises(SystemExit, match="not yet ported.*--step-timeout"):
+        api.parse_args(["--spec", "pld", "--step-timeout", "5"])

@@ -72,17 +72,21 @@ def test_inference_prints_stats(model_files):
 @pytest.mark.parametrize("extra,named", [
     (["worker"], "mode 'worker'"),
     (["generate", "--workers", "tpu:2", "--ep", "2"], "--ep"),
-    (["generate", "--pld", "4", "--sp", "2"], "--sp, --pld"),
+    # --pld is ported since: the case keeps its id and names --sp alone
+    pytest.param(["generate", "--pld", "4", "--sp", "2"], "--sp", id="extra2---sp, --pld"),
     # this case's flags are ported now: it keeps its name and holds that,
     # beside them, the serving flags still outside the port are named
     pytest.param(["generate", "--kv-reserve", "optimistic", "--snapshot-dir", "x",
-                  "--spec", "pld", "--step-timeout", "5"], "--spec, --step-timeout",
+                  "--spec", "pld", "--step-timeout", "5"], "--step-timeout",
                  id="extra3---kv-reserve, --snapshot-dir"),
     (["router", "--backends", "127.0.0.1:1"], "mode 'router', --backends"),
     (["serve-pod", "--supervise"], "mode 'serve-pod', --supervise"),
     (["generate", "--dequantize", "--weights-float-type", "q40"],
      "--weights-float-type, --dequantize"),
-    (["inference", "--profile-split", "--profile-ops"], "--profile-split, --profile-ops"),
+    # the profiling flags are ported since: the case keeps its id and runs
+    # them beside a flag still outside the port
+    pytest.param(["inference", "--profile-split", "--profile-ops", "--numeric-checks"],
+                 "--numeric-checks", id="extra7---profile-split, --profile-ops"),
     (["worker", "--coordinator", "h:1", "--nproc", "2", "--proc-id", "1",
       "--program", "chat"], "--coordinator, --nproc, --proc-id, --program"),
     (["generate", "--elastic", "--pod-devices", "4", "--max-replicas", "2"],
@@ -95,6 +99,29 @@ def test_unported_flags_exit_naming_them(model_files, extra, named):
     r = run_port(extra + ["--model", m, "--tokenizer", t, "--device", "cpu"])
     assert r.returncode != 0
     assert "not yet ported" in r.stderr and named in r.stderr
+    msg = r.stderr.split("not yet ported to dllama_tpu_torch: ", 1)[1].split(" (run", 1)[0]
+    assert not set(msg.split(", ")) & PORTED_SINCE, msg
+
+
+# flags the port carries since speculative decoding and profiling came over
+PORTED_SINCE = {"--pld", "--spec", "--spec-k", "--draft-model", "--profile-split",
+                "--profile-ops"}
+
+
+def test_spec_and_profile_flags_are_accepted():
+    """The speculation and profiling flags left ``NOT_PORTED_FLAGS`` and
+    parse with the JAX CLI's defaults; a run that sets them is not
+    refused."""
+    from dllama_tpu_torch import cli
+    assert not PORTED_SINCE & set(cli.NOT_PORTED_FLAGS)
+    args = cli.build_parser().parse_args(["inference"])
+    assert (args.pld, args.spec, args.spec_k, args.draft_model, args.profile_split,
+            args.profile_ops) == (0, "off", 4, None, False, False)
+    args = cli.build_parser().parse_args(
+        ["generate", "--pld", "3", "--spec", "draft", "--spec-k", "2", "--draft-model", "d.m",
+         "--profile-split", "--profile-ops"])
+    assert cli.not_ported(args) == []
+    assert (args.pld, args.spec, args.spec_k, args.draft_model) == (3, "draft", 2, "d.m")
 
 
 def test_nthreads_is_accepted_and_ignored(model_files):
@@ -272,7 +299,7 @@ for name in ("server.api", "runtime.scheduler", "runtime.pagepool", "runtime.str
              "tokenizer.chat", "tokenizer.eos", "server.backoff", "ops.q8",
              "obs.log", "obs.metrics", "obs.trace", "obs.events", "obs.flight",
              "obs.slo", "obs.dispatch", "runtime.snapshot", "runtime.kvtier",
-             "io.integrity"):
+             "io.integrity", "obs.cost", "runtime.spec", "runtime.profiling"):
     assert "dllama_tpu_torch." + name in sys.modules, name
 from dllama_tpu_torch import cli
 for model in ({m!r}, {moe!r}):
@@ -317,7 +344,8 @@ def test_static_scan_finds_no_foreign_imports():
     for root, _, names in os.walk(PORT):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 15
-    for new in ("runtime/snapshot.py", "runtime/kvtier.py", "io/integrity.py"):
+    for new in ("runtime/snapshot.py", "runtime/kvtier.py", "io/integrity.py", "obs/cost.py",
+                "runtime/spec.py", "runtime/profiling.py"):
         assert os.path.join(PORT, *new.split("/")) in files, new
     hits = []
     for f in files:
