@@ -109,11 +109,12 @@ Phases (each prints its seconds; any failure exits non-zero):
    expert planes addressed by an int32 index on the card.  Then the Q40
    kernel at Mixtral's shapes through the same device index, both bodies,
    t in {1, 8, 16, 128}.
-10. Q80 Llama-2-7B at full width and depth: ``inference`` as in phase 3
-   with an 84-token prompt (its prefill runs at t = 128); the Q80 counters
-   show exactly 129 kernel launches a forward, no plain call, and the
-   prompt forward's 128 matmuls on the tensor-core body; the profiler
-   split and the peak memory.
+10. Q80 at Llama-2-7B width, cut to 8 layers (CUT_LAYERS; 32 until the
+   fleet slice): ``inference`` as in phase 3 with an 84-token prompt (its
+   prefill runs at t = 128); the Q80 counters show exactly 4 * 8 + 1 = 33
+   kernel launches a forward, no plain call, and the prompt forward's 32
+   matmuls on the tensor-core body; the profiler split and the peak
+   memory.
 11. Mixtral-8x7B (mistralai/Mixtral-8x7B-v0.1's published shape) in Q40,
    cut to 8 of its 32 layers, context cut to 4096: ``inference`` as in
    phase 3 with exactly 8 * 8 + 1 = 65 Q40 launches a single-token forward
@@ -140,9 +141,10 @@ Phases (each prints its seconds; any failure exits non-zero):
    and torch.matmul on the dequantized bf16 weight, each launch on a cold
    L2, the bound from the stored (d padded to td) bytes; fails unless
    kernel 3 equals kernels 1-2 bit for bit under each body.
-14. the blocked main path at full Llama-2-7B width and depth, phase 3's
-   file with ``DLLAMA_Q40_LAYOUT=blocked``: ``inference`` as phase 3, with
-   exactly 129 kernel-3 launches a forward and no row-major launch or
+14. the blocked main path at Llama-2-7B width cut to 8 layers (CUT_LAYERS;
+   32 until the fleet slice), the file of phases 17 and 23b with
+   ``DLLAMA_Q40_LAYOUT=blocked``: ``inference`` as phase 3, with exactly
+   4 * 8 + 1 = 33 kernel-3 launches a forward and no row-major launch or
    plain call, its profiler split and peak memory (the load included);
    ``batch`` of 8 prompts (8 to 200 characters) from a prompts file,
    greedy, ``--steps 48`` (kernel 3 at t = 8 in decode, the body
@@ -169,13 +171,14 @@ Phases (each prints its seconds; any failure exits non-zero):
    launch on a cold L2.  With two or more cards it repeats the check with
    rank r on card r (peer reads); on one card it prints that it skipped
    this.
-17. tensor parallelism on the main path: phase 3's Llama-2-7B file,
-   ``inference --workers tpu:2 --device cuda:0`` as phase 3 (both ranks on
-   one card): exactly 2 * (7 * 32 + 1) = 450 Q40 launches (unfused
-   wq/wk/wv/wo/w1/w3/w2 a layer and the wcls slice, on each rank) and
-   2 * 32 = 64 kernel-4 launches a forward, no plain call; its profile and
-   peak memory; the first forward's logits within E2E_TOL of max|logit| of
-   a tp = 1 forward of the same file.
+17. tensor parallelism on the main path: a Llama-2-7B-width file cut to 8
+   layers (CUT_LAYERS; 32 until the fleet slice), ``inference --workers
+   tpu:2 --device cuda:0`` as phase 3 (both ranks on one card): exactly
+   2 * (7 * 8 + 1) = 114 Q40 launches (unfused wq/wk/wv/wo/w1/w3/w2 a layer
+   and the wcls slice, on each rank) and 2 * 8 = 16 kernel-4 launches a
+   forward, no plain call; its profile and peak memory; the first
+   forward's logits within E2E_TOL of max|logit| of a tp = 1 forward of the
+   same file.
 18. the API server at ``--workers tpu:2`` on the phase-5 model (7B width,
    2 layers), 8 slots and a paged pool a rank: 8 greedy requests as phase
    7b, then the same 8 again, each answering byte for byte; kernel 7
@@ -271,9 +274,39 @@ Phases (each prints its seconds; any failure exits non-zero):
    source ``table``, the card's name and power limit.  22d ``POST
    /debug/profile`` names the Q40 kernel.
 
+23. the fleet (``router/``, ``runtime/faults.py``, ``io/integrity.py``, the
+   engine's step watchdog and numeric guard).  23a ``serve-pod --dp 2
+   --device cuda:0 --batch-slots 8 --kv-pages 513 --handoff`` in this
+   process at Llama-2-7B width and depth (phase 3's file read once, the two
+   replicas sharing its weights): phase 7's 16 greedy requests one at a
+   time through the router, each byte for byte the same request straight to
+   replica 1; TTFT of 8 short streams through the router and straight; the
+   16 released together through the router (texts the solo ones', or a near
+   tie printed with its margin; no capture), both replicas serving >= 4,
+   ``router_dispatch`` summing to the requests sent, kernels 1-2, 7 and the
+   prefill kernel launched (counters bumped under one lock), 0 plain; tok/s,
+   peak memory, the federated ``/metrics`` replica labels.  23c on the same
+   weights: a manifest written by the port, ``generate --verify-weights``
+   (weights-read seconds with it and, from phase 3, without; the same
+   greedy bytes as the pod's weights), ``io.read_tensor=corrupt`` raising
+   ArtifactError naming the tensor, ``--numeric-checks`` with
+   ``engine.numeric=nan@1x1`` (a 500, then the next request answers as the
+   first), and the batch-1 engine's ms/token with the guard within 3 % of
+   without, graphs on.  23b ``serve-pod --supervise --dp 2 --device cuda:0
+   --handoff --checkpoint-interval 0.5 --step-timeout 5`` at 7B width, 8
+   layers: SIGTERM child 0 with 4 greedy streams on it (each finishes
+   through the hand-off splice with the uninterrupted bytes; child 0
+   respawned and readmitted); SIGKILL child 1 with 2 greedy streams and a
+   sampled one on it (the greedy ones resume on child 0 with the
+   uninterrupted bytes, tier printed with the resume gap; the sampled one
+   ends ``replica_lost``); child 1's replacement under
+   ``DLLAMA_FAULTS=engine.device_step=delay:30x1``: a 500 (StepTimeout), the
+   router's ejection, a ``hung`` respawn.
+
 They run in the order 1, 2, 13, 9, 6, 6c, 16, 3, 17, 4, 5, 8, 15, 20b, 18,
-7, 20, 3q, 21, 22, 14, 10, 11, 12, 19; each synthesized model is deleted when its
-phases end.
+7, 20, 3q, 21, 22, 23, 14, 10, 11, 12, 19; each synthesized model is deleted
+when its phases end.  The script prints its whole time on its last line but
+two.
 ``--only 1,6c`` runs a subset of the phases (for bring-up; it prints no
 result lines; ``6`` includes ``6c``).  Phase 3 also prints each captured
 key's capture seconds and memory-pool bytes.
@@ -703,6 +736,7 @@ def main_path(cli, codec, m: str, t: str, want, extra: tuple = (),
                              f"{c} over {engine.forwards} forwards, want "
                              f"{want(engine)} {key}")
     tps = float(re.search(r"Avg tokens / second: ([\d.]+)", out).group(1))
+    load_s = cli.last_read_s
     ms = float(re.search(r"Avg generation time: ([\d.]+) ms", out).group(1))
     if not torch.isfinite(engine.last_logits).all():
         raise AssertionError("main path ended on non-finite logits")
@@ -712,7 +746,8 @@ def main_path(cli, codec, m: str, t: str, want, extra: tuple = (),
     prof = profile_decode(engine, ms, codec)
     # tensor parallelism (phase 17) runs eagerly: no graphs to compare
     ab = graphs_ab(engine, codec, key) if engine.graphs is not None else {}
-    run = dict(counts=c, tok_s=tps, ms_token=ms, peak_bytes=peak, **prof, **ab)
+    run = dict(counts=c, tok_s=tps, ms_token=ms, peak_bytes=peak, load_s=load_s, **prof,
+               **ab)
     if keep:
         return run, engine
     del engine
@@ -2552,13 +2587,12 @@ def first_logits(engine) -> np.ndarray:
 
 
 def tp_main_path(cli, q40, engine_mod, params_mod, config, mfile, m: str, t: str,
-                 dev, ref: np.ndarray | None) -> dict:
-    """Phase 17: ``inference --workers tpu:2 --device cuda:0`` on the 7B
-    file through :func:`main_path` (450 Q40 launches a forward), kernel 4's
-    64 launches a forward, a single-token forward's counts, and the first
-    forward's logits against ``ref``, a tp = 1 forward of the same file
-    (phase 3's engine; loaded here when phase 3 did not run)."""
-    L = LLAMA2_7B["n_layers"]
+                 dev, ref: np.ndarray | None, L: int = LLAMA2_7B["n_layers"]) -> dict:
+    """Phase 17: ``inference --workers tpu:2 --device cuda:0`` on the 7B-width
+    file ``m`` of ``L`` layers through :func:`main_path` (2 (7 L + 1) Q40
+    launches a forward), kernel 4's 2 L launches a forward, a single-token
+    forward's counts, and the first forward's logits against ``ref``, a
+    tp = 1 forward of the same file (loaded here when ``ref`` is None)."""
     per_fwd, ar_fwd = 2 * (7 * L + 1), 2 * L
     run, eng = main_path(cli, q40, m, t, lambda e: per_fwd * e.forwards,
                          ("--workers", "tpu:2", "--device", "cuda:0"), keep=True)
@@ -3585,6 +3619,453 @@ def spec_and_gauges(api, cli, attention, q40, tfile, m: str, t: str) -> dict:
     return out
 
 
+# phase 23: the fleet — the router and serve-pod in front of replicas on the
+# card, the fault points, checksum manifests, the step watchdog and the
+# numeric guard
+FLEET_ARGS = ["--batch-slots", "8", "--kv-pages", "513", "--kv-page-size", "16",
+              "--sched-prefill-chunk", "16", "--temperature", "0", "--max-pending", "64",
+              "--handoff", "--host", "127.0.0.1", "--port", "0", "--probe-interval", "0.5"]
+# the depth of the cut 7B-width paths: phase 17 (tp = 2), phase 10 (Q80),
+# phase 14 (the blocked layout) and 23b's supervised children
+CUT_LAYERS = 8
+# 23b: the children's pod (7B width, CUT_LAYERS layers); 65-token prompts are
+# four whole pages plus one token, so once a child cached them a request
+# feeds one token and every step it rides is a single-token step
+SUPERVISED_ARGS = ["--supervise", "--dp", "2", "--device", "cuda:0", "--handoff",
+                   "--checkpoint-interval", "0.5", "--batch-slots", "8", "--kv-pages", "257",
+                   "--kv-page-size", "16", "--sched-prefill-chunk", "16", "--temperature", "0",
+                   "--max-pending", "64", "--host", "127.0.0.1", "--port", "0",
+                   "--probe-interval", "0.5", "--eject-after", "2", "--readmit-after", "1",
+                   "--step-timeout", "5"]
+DRILL_PROMPT_TOKENS = 65
+# 23c: --numeric-checks may cost at most this share of a decode token
+NUMERIC_CHECKS_TOL = 0.03
+
+
+class _Stream:
+    """One streamed request on a thread: its text, finish reasons and the
+    host clock of each chunk (TTFT and the longest gap, a resume's)."""
+
+    def __init__(self, base: str, path: str, body: dict, rid: str):
+        self.text, self.fins, self.times, self.error = "", [], [], None
+        self.t0 = time.perf_counter()
+        self._req = urllib.request.Request(
+            base + path, json.dumps(dict(body, stream=True)).encode(),
+            headers={"Content-Type": "application/json", "X-Request-Id": rid})
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.thread.start()
+
+    def _run(self):
+        try:
+            with urllib.request.urlopen(self._req, timeout=600) as r:
+                for line in r:
+                    line = line.decode().strip()
+                    if not line.startswith("data: {"):
+                        continue
+                    ch = json.loads(line[6:])["choices"][0]
+                    self.times.append(time.perf_counter())
+                    self.text += ch.get("text") or (ch.get("delta") or {}).get("content") or ""
+                    if ch.get("finish_reason"):
+                        self.fins.append(ch["finish_reason"])
+        except Exception as e:  # noqa: BLE001 — re-raised on join
+            self.error = e
+
+    def join(self) -> "_Stream":
+        self.thread.join(600)
+        if self.thread.is_alive() or self.error is not None:
+            raise AssertionError(f"a stream failed: {self.error!r}")
+        return self
+
+    @property
+    def ttft_ms(self) -> float:
+        return (self.times[0] - self.t0) * 1e3
+
+    @property
+    def max_gap_ms(self) -> float:
+        return max((b - a for a, b in zip(self.times, self.times[1:])), default=0.0) * 1e3
+
+
+def _until(cond, timeout: float, what: str) -> float:
+    """Poll ``cond`` until it holds; returns the seconds it took."""
+    t0 = time.perf_counter()
+    while not cond():
+        if time.perf_counter() - t0 > timeout:
+            raise AssertionError(f"timed out after {timeout:.0f} s waiting for {what}")
+        time.sleep(0.05)
+    return time.perf_counter() - t0
+
+
+def fleet_in_process(cli, pod_mod, obs_metrics, attention, q40, m: str, t: str):
+    """23a: ``serve-pod --dp 2 --device cuda:0`` at Llama-2-7B width and
+    depth, in this process (the file read once, the replicas sharing its
+    weights).  Phase 7's requests one at a time through the router, each
+    equal byte for byte to the same request straight to replica 1; 8 short
+    streams each way for TTFT; then the 16 released together through the
+    router (every text the solo text's, or a recorded near tie), both
+    replicas serving, ``router_dispatch`` summing to the requests sent, the
+    kernels (1-2, 7, the prefill kernel) launched with no plain call, no
+    capture in the timed burst.  Returns the pod (23c reuses its weights)
+    and the numbers."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    args = cli.build_parser().parse_args(["serve-pod", "--model", m, "--tokenizer", t,
+                                          "--dp", "2", "--device", "cuda:0", *FLEET_ARGS])
+    t0 = time.perf_counter()
+    pod = pod_mod.start(args)
+    try:
+        base = f"http://127.0.0.1:{pod.port}"
+        states = [s.state for s in pod.servers]
+        addrs = [f"127.0.0.1:{s.server_address[1]}" for s in pod.servers]
+        direct = f"http://{addrs[1]}"
+        e0, e1 = (s.engine for s in states)
+        if e0.params["wqkv"].qpacked.data_ptr() != e1.params["wqkv"].qpacked.data_ptr():
+            raise AssertionError("the replicas hold two copies of the weights")
+        _until(lambda: pod.rstate.registry.snapshot()["available"] == 2, 30,
+               "the router to admit both replicas")
+        print(f"pod up in {time.perf_counter() - t0:.1f} s: router :{pod.port} in front "
+              f"of {addrs}, one copy of the weights")
+        # every ticket the replicas take, by request ID (the tokens of a
+        # burst answer against its solo run)
+        tickets = {}
+        for st in states:
+            def record(*a, _submit=st.sched_submit, **k):
+                tk = _submit(*a, **k)
+                tickets[tk.rid] = tk
+                return tk
+            st.sched_submit = record
+        reqs = serving_requests(16)
+        attention.reset_counters()
+        q40.reset_counters()
+        slot0 = [(s.batch_engine.slot_decode_forwards, s.batch_engine.forwards,
+                  s.batch_engine.graphs.replays) for s in states]
+        disp0 = [obs_metrics.ROUTER_DISPATCH.get(a) for a in addrs]
+        sent = 0
+        for i, (path, body) in enumerate(reqs):
+            via, _ = _ask(base, path, body, f"solo-r{i}")
+            straight, _ = _ask(direct, path, body, f"solo-d{i}")
+            sent += 1
+            if via != straight or not via:
+                raise AssertionError(f"request {i} through the router differs from the "
+                                     f"same request straight to a replica: {via!r} / "
+                                     f"{straight!r}")
+        print(f"{len(reqs)} requests one at a time: through the router = straight to "
+              f"{addrs[1]}, byte for byte")
+        ttft = {"router": [], "direct": []}
+        for i in range(8):
+            path, body = reqs[1 + i]
+            for name, where in (("router", base), ("direct", direct)):
+                s = _Stream(where, path, dict(body, max_tokens=4), f"ttft-{name}{i}").join()
+                ttft[name].append(s.ttft_ms)
+            sent += 1
+        caps0 = [s.batch_engine.graphs.captures for s in states]
+        burst0 = [obs_metrics.ROUTER_DISPATCH.get(a) for a in addrs]
+        results: list = [None] * len(reqs)
+
+        def run(i):
+            path, body = reqs[i]
+            results[i] = _request(base, path, body, {"X-Request-Id": f"burst{i}"})
+
+        threads = [threading.Thread(target=run, args=(i,)) for i in range(len(reqs))]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        wall = time.perf_counter() - t0
+        sent += len(reqs)
+        bad = [(i, code, raw[:300]) for i, (code, _, raw) in enumerate(results) if code != 200]
+        if bad:
+            raise AssertionError(f"burst requests failed: {bad}")
+        caps1 = [s.batch_engine.graphs.captures for s in states]
+        if caps1 != caps0:
+            raise AssertionError(f"a graph was captured in the timed burst: {caps0} -> {caps1}")
+        gaps = []
+        for i, (path, body) in enumerate(reqs):
+            want, got = tickets[f"solo-r{i}"], tickets[f"burst{i}"]
+            gap = first_gap(states[0].engine, list(want.prompt), list(want.emitted),
+                            list(got.emitted), f"burst request {i}")
+            if gap:
+                gaps.append(gap)
+        for gap in gaps:
+            print(gap)
+        n_tok = sum(len(tickets[f"burst{i}"].emitted) for i in range(len(reqs)))
+        served = [obs_metrics.ROUTER_DISPATCH.get(a) - b for a, b in zip(addrs, burst0)]
+        total = sum(obs_metrics.ROUTER_DISPATCH.get(a) - b for a, b in zip(addrs, disp0))
+        if min(served) < 4 or total != sent:
+            raise AssertionError(f"router dispatch: burst {served} (want >= 4 each), "
+                                 f"{total} in all for {sent} requests sent")
+        ac, qc = attention.counters(), q40.counters()
+        if (not qc["kernel_launches"] or qc["plain_calls"] or not ac["kernel_launches"]
+                or ac["plain_calls"] or not ac["prefill_launches"]
+                or ac["prefill_plain_calls"]):
+            raise AssertionError(f"the pod left a kernel: q40 {qc}, attention {ac}")
+        per = []
+        for (d0, f0, r0), s in zip(slot0, states):
+            eng = s.batch_engine
+            per.append((eng.slot_decode_forwards - d0, eng.forwards - f0,
+                        eng.graphs.replays - r0))
+            if not all(per[-1]):
+                raise AssertionError(f"a replica ran no slot step through its graphs: {per}")
+        peak = torch.cuda.max_memory_allocated()
+        code, _, prom = _request(base, "/metrics?format=prometheus")
+        labels = sorted(set(re.findall(r'\breplica="([^"]+)"', prom)))
+        if code != 200 or not set(addrs) <= set(labels):
+            raise AssertionError(f"the federated /metrics lacks a replica: {labels}")
+        print(f"burst: {len(reqs)} requests released together through the router in "
+              f"{wall:.2f} s, {n_tok} completion tokens, {n_tok / wall:.2f} tok/s; "
+              f"dispatched {served} to {addrs}; every text the solo text's"
+              + (f" but {len(gaps)} near ties" if gaps else "")
+              + f"; router_dispatch {total} for {sent} requests sent")
+        print(f"TTFT of a 4-token stream, 8 each way: through the router p50 "
+              f"{_percentile(ttft['router'], 50):.1f} p99 {_percentile(ttft['router'], 99):.1f}"
+              f" ms; straight to a replica p50 {_percentile(ttft['direct'], 50):.1f} p99 "
+              f"{_percentile(ttft['direct'], 99):.1f} ms")
+        print(f"kernels over the phase (both replicas, counters bumped under one lock): "
+              f"q40 kernels 1-2 {qc['kernel_launches']} (tensor-core body "
+              f"{qc['mma_launches']}), plain {qc['plain_calls']}; kernel 7 "
+              f"{ac['kernel_launches']}, plain {ac['plain_calls']}; prefill kernel "
+              f"{ac['prefill_launches']}, plain {ac['prefill_plain_calls']}; per replica "
+              f"(single-token slot forwards, slot forwards, graph replays): {per}")
+        print(f"peak device memory {peak / 2**30:.2f} GiB (both replicas, one card); "
+              f"federated /metrics replica labels {labels}")
+        return pod, dict(tok_s=n_tok / wall, ttft=ttft, peak_bytes=peak, near_ties=len(gaps),
+                         launches_by_shape=dict(qc["launches_by_shape"]),
+                         attn_launches=ac["kernel_launches"],
+                         prefill_launches=ac["prefill_launches"])
+    except BaseException:
+        pod.stop()
+        raise
+
+
+def fleet_integrity(cli, api, engine_mod, obs_metrics, faults, integrity, pod,
+                    m: str, t: str, load_s: float | None) -> dict:
+    """23c on the 7B file: a manifest written by the port; ``generate
+    --verify-weights`` (its weights-read seconds beside phase 3's, without)
+    answers the greedy bytes of the pod's weights; ``io.read_tensor=corrupt``
+    under verification raises ArtifactError naming the tensor; under
+    ``--numeric-checks`` an ``engine.numeric`` NaN gets a 500 and the next
+    request answers as before it; the batch-1 engine's ms/token with the
+    guard within NUMERIC_CHECKS_TOL of without (graphs on)."""
+    from dllama_tpu_torch.io.integrity import ArtifactError
+    base_eng, tok = pod.servers[0].state.engine, pod.servers[0].state.tokenizer
+    t0 = time.perf_counter()
+    integrity.write_manifest(m)
+    write_s = time.perf_counter() - t0
+    prompt, steps = "Once upon a time", 48
+    eng, out = run_cli(cli, ["generate", "--model", m, "--tokenizer", t, "--prompt", prompt,
+                             "--steps", str(steps), "--temperature", "0", "--verify-weights"])
+    verified_s = cli.last_read_s
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the same greedy stream on the pod's weights, printed as generate prints it
+    shared = engine_mod.Engine(base_eng.cfg, base_eng.params, device=base_eng.device)
+    ids = tok.encode(prompt, add_bos=shared.cfg.add_bos)
+    prev, text = tok.bos_id, ""
+    for token, _ in shared.generate_stream(ids, steps, temperature=0.0,
+                                           eos_ids=(tok.eos_id,), chunk=16):
+        text += tok.decode_piece(prev, token).decode("utf-8", errors="replace")
+        prev = token
+    if text not in out:
+        raise AssertionError("generate --verify-weights answered other greedy bytes than "
+                             "the same weights unverified")
+    n_regions = len(integrity.load_manifest_for(m)["tensors"]) + 1
+    print(f"manifest of {os.path.getsize(m) / 1e9:.2f} GB ({n_regions} regions) written in "
+          f"{write_s:.2f} s; weights read in {verified_s:.2f} s with --verify-weights, "
+          + (f"{load_s:.2f} s without (phase 3)" if load_s is not None else
+             "without: not measured (phase 3 did not run)")
+          + f"; the greedy bytes equal ({len(text)} chars)")
+    try:
+        with faults.injected("io.read_tensor=corrupt@4x1"):
+            run_cli(cli, ["generate", "--model", m, "--tokenizer", t, "--prompt", prompt,
+                          "--steps", "4", "--verify-weights"])
+    except ArtifactError as e:
+        if not e.field.startswith("tensor '") or e.field[8:-1] not in str(e):
+            raise AssertionError(f"the corruption's error names no tensor: {e}") from e
+        print(f"io.read_tensor=corrupt@4x1 under --verify-weights: ArtifactError at "
+              f"{e.field}, byte {e.offset}")
+    else:
+        raise AssertionError("a corrupted tensor read was not caught by its checksum")
+    srv, base = _start(api, m, t, (base_eng, tok), ["--numeric-checks"])
+    try:
+        body = {"messages": [{"role": "user", "content": "hello there"}], "max_tokens": 16,
+                "temperature": 0.8, "seed": 5}
+        faults_before = obs_metrics.NUMERIC_FAULTS.value
+        with faults.injected("engine.numeric=nan@1x1"):
+            first, _ = _ask(base, "/v1/chat/completions", body)
+            code, _, raw = _request(base, "/v1/chat/completions", body)
+            again, _ = _ask(base, "/v1/chat/completions", body)
+        if code != 500 or "non-finite logits" not in raw or again != first:
+            raise AssertionError(f"numeric fault: {code} {raw[:300]}; next request "
+                                 f"{again!r} against {first!r}")
+        if obs_metrics.NUMERIC_FAULTS.value != faults_before + 1:
+            raise AssertionError("numeric_faults did not count the poisoned request")
+        print(f"--numeric-checks with engine.numeric=nan@1x1: the poisoned request 500 "
+              f"({raw[:120]!r}), the next one answered the first one's {len(first)} chars")
+    finally:
+        api.stop(srv)
+
+    def ms_token() -> float:
+        stats = engine_mod.RunStats()
+        shared.reset()
+        for _, st in shared.generate_stream(ids, len(ids) + 64, temperature=0.0, chunk=16):
+            if st.generation_ms > 0:
+                stats.add(st)
+        return stats.avg_generation_ms
+
+    ms_token()  # the graphs were captured above; one more warm pass
+    runs = {False: [], True: []}
+    for on in (False, True, True, False, False, True):
+        shared.numeric_checks = on
+        runs[on].append(ms_token())
+    off, on = (float(np.median(runs[k])) for k in (False, True))
+    if on > off * (1 + NUMERIC_CHECKS_TOL):
+        raise AssertionError(f"--numeric-checks costs {on:.3f} ms/token against {off:.3f}")
+    print(f"graphs on, 64 greedy tokens, 3 runs each way in turns (medians): {off:.3f} "
+          f"ms/token without the numeric guard, "
+          f"{on:.3f} with ({(on / off - 1) * 100:+.2f} %, limit "
+          f"{NUMERIC_CHECKS_TOL * 100:.0f} %): runs {runs}")
+    del shared
+    return dict(write_s=write_s, verified_s=verified_s, ms_off=off, ms_on=on)
+
+
+def fleet_supervised(cli, pod_mod, obs_metrics, tok, m8: str, t: str) -> dict:
+    """23b: ``serve-pod --supervise --dp 2 --device cuda:0 --handoff
+    --checkpoint-interval 0.5`` at 7B width, CUT_LAYERS layers: two child
+    processes behind the router.  (i) SIGTERM child 0 with 4 greedy streams
+    on it: each finishes through the hand-off splice with the uninterrupted
+    bytes, child 0 is respawned and readmitted.  (ii) SIGKILL child 1 with
+    2 greedy and 1 sampled stream on it: the greedy ones resume on child 0
+    with the uninterrupted bytes (tier 1 or 2, printed, with the resume's
+    gap), the sampled one ends ``replica_lost``.  (iii) child 1 respawns
+    with ``DLLAMA_FAULTS=engine.device_step=delay:30x1`` under
+    ``--step-timeout 5``: its first request answers 500 (StepTimeout), the
+    router ejects it, the supervisor counts a ``hung`` respawn."""
+    import signal
+    os.environ["PYTHONPATH"] = REPO + os.pathsep + os.environ.get("PYTHONPATH", "")
+    args = cli.build_parser().parse_args(["serve-pod", "--model", m8, "--tokenizer", t,
+                                          *SUPERVISED_ARGS])
+    t0 = time.perf_counter()
+    pod = pod_mod.start(args)
+    try:
+        sup, reg = pod.supervisor, pod.rstate.registry
+        reps = sup.replicas
+        addrs = [f"127.0.0.1:{r.port}" for r in reps]
+        children = [f"http://{a}" for a in addrs]
+        base = f"http://127.0.0.1:{pod.port}"
+        up_s = _until(lambda: all(r.ready for r in reps)
+                      and reg.snapshot()["available"] == 2, 300, "both children")
+        print(f"supervised pod up in {time.perf_counter() - t0:.1f} s ({up_s:.1f} s to "
+              f"ready after the spawn): children {addrs}, pids "
+              f"{[r.proc.pid for r in reps]}")
+        prompts = _equal_token_prompts(tok, 7, DRILL_PROMPT_TOKENS, 31)
+
+        def body(i, n=384, temperature=0):
+            return {"prompt": prompts[i], "max_tokens": n, "temperature": temperature}
+
+        def respawns(idx):
+            return {r: obs_metrics.POD_RESPAWNS.get(str(idx), r) for r in ("exit", "hung")}
+
+        def respawned(idx, before):
+            """A respawn of child ``idx`` since ``before`` (its ``respawns``),
+            now ready and admitted."""
+            return lambda: (respawns(idx) != before and reps[idx].ready
+                            and not reg.backends[idx].ejected
+                            and (reg.backends[idx].last_health or {}).get("status") == "ok")
+
+        # (i) the hand-off: refs on child 0 (solo, which also caches the
+        # prompts' pages there), then 4 streams on it, SIGTERM
+        want = [_ask(children[0], "/v1/completions", body(i))[0] for i in range(4)]
+        handoffs0 = obs_metrics.ROUTER_HANDOFFS.value
+        exits0 = respawns(0)
+        readmits0 = obs_metrics.ROUTER_READMITS.get(addrs[0])
+        reg.retire(addrs[1])
+        streams = [_Stream(base, "/v1/completions", body(i), f"handoff{i}") for i in range(4)]
+        _until(lambda: all(s.times for s in streams), 60, "the 4 streams' first chunks")
+        reg.backends[1].retiring = False
+        pid0 = reps[0].proc.pid
+        os.kill(pid0, signal.SIGTERM)
+        for s in streams:
+            s.join()
+        texts = [s.text for s in streams]
+        moved = obs_metrics.ROUTER_HANDOFFS.value - handoffs0
+        if texts != want or moved < 1 or any(s.fins[-1:] not in (["length"], ["stop"])
+                                             for s in streams):
+            raise AssertionError(f"hand-off: {moved} hand-offs, finishes "
+                                 f"{[s.fins for s in streams]}, texts equal "
+                                 f"{[a == b for a, b in zip(texts, want)]}")
+        back_s = _until(respawned(0, exits0), 300, "child 0's replacement")
+        # a drained child exits on its own; if its teardown outlasts the
+        # supervisor's hang probes first, it is killed and counted "hung"
+        why = [r for r, n in respawns(0).items() if n > exits0[r]]
+        print(f"(i) SIGTERM child 0 (pid {pid0}) with 4 greedy streams on it: router_handoffs "
+              f"+{moved}, every stream finished with the uninterrupted bytes "
+              f"({[len(x) for x in texts]} chars); child 0 respawned (pid "
+              f"{reps[0].proc.pid}, counted {why}) and admitted {back_s:.1f} s later (readmits "
+              f"+{obs_metrics.ROUTER_READMITS.get(addrs[0]) - readmits0})")
+        # (ii) SIGKILL: refs on child 1 and on child 0 (the resume peer, so a
+        # re-run also finds the prompts cached), then 2 greedy streams and a
+        # sampled one on child 1
+        want = [_ask(children[1], "/v1/completions", body(i, 1024))[0] for i in (4, 5)]
+        again = [_ask(children[0], "/v1/completions", body(i, 1024))[0] for i in (4, 5)]
+        if again != want:
+            raise AssertionError("the two children answer a greedy request differently")
+        resumes0 = {k: obs_metrics.ROUTER_RESUMES.get(k) for k in ("checkpoint", "rerun")}
+        lost0 = obs_metrics.ROUTER_REPLICA_LOST.value
+        exits1 = respawns(1)
+        reg.retire(addrs[0])
+        greedy = [_Stream(base, "/v1/completions", body(i, 1024), f"kill{i}") for i in (4, 5)]
+        sampled = _Stream(base, "/v1/completions", body(6, 1024, 0.8), "kill-sampled")
+        _until(lambda: all(s.times for s in greedy + [sampled]), 60, "the streams' chunks")
+        time.sleep(0.8)  # a checkpoint of each greedy stream lands (every 0.5 s)
+        reg.backends[0].retiring = False
+        # child 1's replacement comes up armed for (iii)
+        reps[1].env["DLLAMA_FAULTS"] = "engine.device_step=delay:30x1"
+        pid1 = reps[1].proc.pid
+        t_kill = time.perf_counter()
+        os.kill(pid1, signal.SIGKILL)
+        for s in greedy + [sampled]:
+            s.join()
+        tiers = {k: obs_metrics.ROUTER_RESUMES.get(k) - v for k, v in resumes0.items()}
+        if [s.text for s in greedy] != want or sampled.fins[-1:] != ["replica_lost"] \
+                or sum(tiers.values()) < 2:
+            raise AssertionError(f"SIGKILL: resumes {tiers}, greedy equal "
+                                 f"{[s.text == w for s, w in zip(greedy, want)]}, sampled "
+                                 f"finishes {sampled.fins}")
+        gap = max(s.max_gap_ms for s in greedy)
+        print(f"(ii) SIGKILL child 1 (pid {pid1}) mid-stream: both greedy streams resumed on "
+              f"child 0 with the uninterrupted bytes (tier 1 checkpoint {tiers['checkpoint']}, "
+              f"tier 2 re-run {tiers['rerun']}; the resume gap {gap:.1f} ms at the client); "
+              f"the sampled stream ended replica_lost (router_replica_lost "
+              f"+{obs_metrics.ROUTER_REPLICA_LOST.value - lost0})")
+        # (iii) the step watchdog on the armed replacement
+        _until(respawned(1, exits1), 300, "child 1's replacement")
+        hung0 = obs_metrics.POD_RESPAWNS.get("1", "hung")
+        ejected0 = obs_metrics.ROUTER_EJECTIONS.get(addrs[1])
+        t0 = time.perf_counter()
+        code, _, raw = _request(children[1], "/v1/completions",
+                                {"prompt": "hello", "max_tokens": 8, "temperature": 0})
+        timeout_s = time.perf_counter() - t0
+        reps[1].env.pop("DLLAMA_FAULTS")
+        if code != 500 or "did not become ready" not in raw:
+            raise AssertionError(f"the delayed step answered {code}: {raw[:300]}")
+        out_s = _until(lambda: obs_metrics.ROUTER_EJECTIONS.get(addrs[1]) > ejected0
+                       and obs_metrics.POD_RESPAWNS.get("1", "hung") > hung0, 60,
+                       "the ejection and the hung respawn")
+        print(f"(iii) child 1 under engine.device_step=delay:30x1 and --step-timeout 5: its "
+              f"request answered 500 after {timeout_s:.1f} s ({raw[:100]!r}); ejected by the "
+              f"router and respawned as hung {out_s:.1f} s later (pod_respawns{{replica=1,"
+              f"reason=hung}} +1)")
+        code, _, raw = _request(children[0], "/health")
+        launches = json.loads(raw)["launches"] if code == 200 else None
+        print(f"child 0's own launch counters (its process): {launches}")
+        return dict(handoffs=moved, resume_tiers=tiers, resume_gap_ms=gap,
+                    timeout_s=timeout_s)
+    finally:
+        pod.stop()
+
+
 def kernel_entries(run, run_tp, run_mix, run_blocked, run_q8, run_score, served, table,
                    tp_table, mix_table, blocked_table, q8_table, attn, attn_g4, ar_table,
                    prefill, prefill_g4) -> list:
@@ -3660,6 +4141,7 @@ def kernel_entries(run, run_tp, run_mix, run_blocked, run_q8, run_score, served,
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     ap = argparse.ArgumentParser(description="chip smoke of dllama_tpu_torch")
     ap.add_argument("--only", default=None,
                     help="comma-separated phases to run (bring-up; no result lines)")
@@ -3676,8 +4158,12 @@ def main() -> int:
     from dllama_tpu_torch.models import config, params as params_mod, transformer
     from dllama_tpu_torch.ops import _build, attention, q8, q40
     from dllama_tpu_torch.parallel import mesh as mesh_mod, sharding
-    from dllama_tpu_torch.runtime import engine as engine_mod, snapshot as snapfmt
+    from dllama_tpu_torch.io import integrity
+    from dllama_tpu_torch.obs import metrics as obs_metrics
+    from dllama_tpu_torch.router import pod as pod_mod
+    from dllama_tpu_torch.runtime import engine as engine_mod, faults, snapshot as snapfmt
     from dllama_tpu_torch.server import api
+    from dllama_tpu_torch.tokenizer.bpe import Tokenizer
 
     dev = torch.device("cuda", 0)
     with phase("1 card and build"):
@@ -3733,16 +4219,19 @@ def main() -> int:
     os.makedirs(WORK, exist_ok=True)
     served = {}
     try:
-        m, t, m2, m3, t3 = (os.path.join(WORK, f) for f in (
-            "llama2-7b.m", "32k.t", "l2.m", "l2-chat.m", "32k-chat.t"))
+        m, t, m2, m3, t3, m8 = (os.path.join(WORK, f) for f in (
+            "llama2-7b.m", "32k.t", "l2.m", "l2-chat.m", "32k-chat.t", "l8.m"))
         synth_tokenizer(t, tfile)
         per_fwd = 4 * LLAMA2_7B["n_layers"] + 1
-        if any(map(run_phase, (3, 7, 14, 17, 20, "3q", 21, 22))):
+        if any(map(run_phase, (3, 7, 20, "3q", 21, 22, 23))):
             synth_model(m, LLAMA2_7B["n_layers"], mfile, quants)
             print(f"synthesized {os.path.getsize(m) / 1e9:.2f} GB")
+        if any(map(run_phase, (14, 17, 23))):
+            synth_model(m8, CUT_LAYERS, mfile, quants)
+            print(f"synthesized {os.path.getsize(m8) / 1e9:.2f} GB (7B width, "
+                  f"{CUT_LAYERS} layers)")
         if any(map(run_phase, (4, 5, 8, 15, 18, "20b"))):
             synth_model(m2, 2, mfile, quants, fresh=True)
-        tp1_logits = None
         if run_phase(3):
             with phase("3 main path: inference at Llama-2-7B width"):
                 run, eng = main_path(cli, q40, m, t, lambda e: per_fwd * e.forwards,
@@ -3759,14 +4248,13 @@ def main() -> int:
                       f"{run['counts']['mma_launches']} on the tensor-core body")
                 greedy_repeat(eng)
                 run.update(graph_costs(eng, "batch-1 engine"))
-                tp1_logits = first_logits(eng)  # phase 17's reference
                 del eng
                 torch.cuda.empty_cache()
         if run_phase(17):
-            with phase("17 tensor parallelism: inference --workers tpu:2 at Llama-2-7B "
-                       "width, both ranks on cuda:0"):
+            with phase(f"17 tensor parallelism: inference --workers tpu:2 at Llama-2-7B "
+                       f"width, {CUT_LAYERS} layers, both ranks on cuda:0"):
                 run_tp = tp_main_path(cli, q40, engine_mod, params_mod, config, mfile,
-                                      m, t, dev, tp1_logits)
+                                      m8, t, dev, None, CUT_LAYERS)
         if run_phase(4):
             with phase("4 requests: generate (7B width, 2 layers)"):
                 requests(cli, q40, m2, t)
@@ -3841,30 +4329,53 @@ def main() -> int:
             with phase("22 speculative decoding and the roofline gauges at Llama-2-7B "
                        "width and depth"):
                 p22 = spec_and_gauges(api, cli, attention, q40, tfile, m, t)
+        if run_phase(23):
+            with phase("23a the fleet in one process: serve-pod --dp 2 --device cuda:0 at "
+                       "Llama-2-7B width and depth"):
+                pod, p23 = fleet_in_process(cli, pod_mod, obs_metrics, attention, q40, m, t)
+            try:
+                with phase("23c checksum manifests, --verify-weights, the corrupt and NaN "
+                           "drills, --numeric-checks (Llama-2-7B)"):
+                    fleet_integrity(cli, api, engine_mod, obs_metrics, faults, integrity, pod,
+                                    m, t, run["load_s"] if run_phase(3) else None)
+            finally:
+                pod.stop()
+                del pod
+                gc.collect()
+                torch.cuda.empty_cache()
+            with phase(f"23b the supervised pod: two child processes on cuda:0 (7B width, "
+                       f"{CUT_LAYERS} layers): hand-off, SIGKILL resume, step timeout"):
+                fleet_supervised(cli, pod_mod, obs_metrics, Tokenizer(tfile.read_tfile(t)),
+                                 m8, t)
         if run_phase(14):
             with blocked_layout():
-                with phase("14 blocked main path: inference at Llama-2-7B width"):
-                    run_blocked = main_path(cli, q40, m, t,
-                                            lambda e: per_fwd * e.forwards,
+                with phase(f"14 blocked main path: inference at Llama-2-7B width, "
+                           f"{CUT_LAYERS} layers"):
+                    run_blocked = main_path(cli, q40, m8, t,
+                                            lambda e: (4 * CUT_LAYERS + 1) * e.forwards,
                                             key="blocked_launches")
-                with phase("14b blocked lockstep batch: 8 prompts, twice"):
-                    batch_path(cli, q40, m, t, tfile)
-                with phase("14c blocked serving, --kv-quant int8"):
-                    served["blocked"] = serve_path(api, attention, q40, m, t, 8,
+                with phase(f"14b blocked lockstep batch: 8 prompts, twice (7B width, "
+                           f"{CUT_LAYERS} layers)"):
+                    batch_path(cli, q40, m8, t, tfile)
+                with phase(f"14c blocked serving, --kv-quant int8 (7B width, {CUT_LAYERS} "
+                           f"layers)"):
+                    served["blocked"] = serve_path(api, attention, q40, m8, t, 8,
                                                    ["--kv-quant", "int8"], False,
                                                    blocked=True)
-        for f in (m, m2):
+        for f in (m, m2, m8, m + ".sum"):
             if os.path.exists(f):
                 os.remove(f)
         if run_phase(10):
-            with phase("10 Q80 Llama-2-7B at full width and depth: inference"):
-                synth_model(m, LLAMA2_7B["n_layers"], mfile, quants, ftype=quants.Q80)
-                print(f"synthesized {os.path.getsize(m) / 1e9:.2f} GB (Q80)")
+            with phase(f"10 Q80 Llama-2-7B width, {CUT_LAYERS} layers: inference"):
+                synth_model(m, CUT_LAYERS, mfile, quants, ftype=quants.Q80)
+                print(f"synthesized {os.path.getsize(m) / 1e9:.2f} GB (Q80, {CUT_LAYERS} "
+                      f"layers)")
                 # an 84-token prompt: its prefill runs at t = 128 (the padded
                 # bucket) on the tensor-core body
-                run_q8 = main_path(cli, q8, m, t, lambda e: per_fwd * e.forwards,
+                q8_fwd = 4 * CUT_LAYERS + 1
+                run_q8 = main_path(cli, q8, m, t, lambda e: q8_fwd * e.forwards,
                                    ("--prompt", Q8_PROMPT))
-                if run_q8["counts"]["mma_launches"] < 4 * LLAMA2_7B["n_layers"]:
+                if run_q8["counts"]["mma_launches"] < 4 * CUT_LAYERS:
                     raise AssertionError(f"the Q80 prompt forward did not take the "
                                          f"tensor-core body: {run_q8['counts']}")
                 print(f"Q80 bodies: {run_q8['counts']['mma_launches']} tensor-core "
@@ -3924,6 +4435,7 @@ def main() -> int:
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     if only is not None:
+        print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all (--only {only})")
         return 0
 
     # phase 21's launches join the rows of the sites it ran: the Q40 matmuls
@@ -3941,9 +4453,15 @@ def main() -> int:
         by_shape[key] = by_shape.get(key, 0) + n
     served["bf16"]["attn_launches"] += p22["launches"]["bf16"]
     served["bf16"]["prefill_launches"] += p22["launches"]["bf16_prefill"]
+    # and phase 23a's: both replicas of the in-process pod (7B, bf16 pool)
+    for key, n in p23["launches_by_shape"].items():
+        by_shape[key] = by_shape.get(key, 0) + n
+    served["bf16"]["attn_launches"] += p23["attn_launches"]
+    served["bf16"]["prefill_launches"] += p23["prefill_launches"]
     kernels = kernel_entries(run, run_tp, run_mix, run_blocked, run_q8, run_score, served,
                              table, tp_table, mix_table, blocked_table, q8_table, attn,
                              attn_g4, ar_table, prefill, prefill_g4)
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

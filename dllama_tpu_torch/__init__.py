@@ -8,10 +8,10 @@ imports ``jax`` or anything of ``dllama_tpu``; what it needs of that
 package's jax-free modules (codecs, file formats, tokenizer, host sampler)
 is copied here, trimmed to the ported slice.
 
-The slice ported so far is the batch-1 Q40 Llama main path
-(``inference`` / ``generate``).  Its one hand-written kernel is the Q40
-dequant-matmul (``ops/csrc/q40_matmul.cu``), the twin of the Pallas
-``_q40_kernel``/``_stacked_q40_kernel``.
+Ported so far: every CLI mode of the JAX package but ``worker``, the API
+server and the fleet (``router``, ``serve-pod``).  Every Pallas kernel of
+the JAX package has a hand-written CUDA twin in ``ops/csrc/``, beside the
+port's own kernel for attention over the paged pool at t > 1.
 
 Subpackages
 -----------
@@ -21,7 +21,11 @@ Subpackages
 - ``sampling``   — host sampler + its device twin ``sample_on_device``
 - ``ops``        — rmsnorm, RoPE, attention, the Q40 matmul and its kernel
 - ``models``     — Llama forward pass over layer-stacked params
-- ``runtime``    — engine: prefill/decode, KV cache, generation, G/I/T stats
+- ``runtime``    — engine: prefill/decode, KV cache, generation, G/I/T stats;
+  the slot scheduler, snapshots, speculation, fault points
+- ``server``     — the OpenAI-compatible API server
+- ``router``     — the fleet router and ``serve-pod`` (replicas behind it)
+- ``obs``        — metrics, logs, spans, flight records, SLOs, the roofline
 - ``device``     — device resolution (``cuda`` unless the caller asks for cpu)
 """
 

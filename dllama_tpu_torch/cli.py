@@ -1,4 +1,5 @@
-"""`dllama_tpu_torch` command line: ``inference | generate | chat | batch``.
+"""`dllama_tpu_torch` command line: ``inference | generate | chat | batch |
+router | serve-pod``.
 
 The port of ``dllama_tpu/cli.py``'s single-host modes, with the same
 flags where they apply, plus ``--device {cuda,cpu}`` (default ``cuda``;
@@ -9,6 +10,11 @@ asking for ``cuda`` where there is none is an error):
 * ``chat``      — multi-turn REPL on stdin, one KV cache a conversation.
 * ``batch``     — the prompts of ``--prompts-file`` (one a line) decoded
   as one lockstep ragged batch.
+* ``router``    — the fleet router in front of ``--backends host:port,...``
+  (``router/service.py``; no model in this process).
+* ``serve-pod`` — ``--dp`` replicas of the API server behind the router on
+  ``--port`` (``router/pod.py``): in this process, the model read once, or
+  with ``--supervise`` as child processes that a supervisor respawns.
 
 Each ends with one line of launch counters of the model's matmul codec
 (Q40 or Q80: which route ran how often, and the layout; with tensor
@@ -25,10 +31,14 @@ prompt-lookup speculation (``Engine.generate_pld_stream``); ``--spec
 pld|draft`` (with ``--spec-k`` and ``--draft-model``) arms the server's
 slot scheduler with a proposer (``runtime/spec.py``); ``inference
 --profile-split`` / ``--profile-ops`` trace a few decode steps under
-``torch.profiler`` after the run (``runtime/profiling.py``).  Modes and
-flags of the JAX CLI outside the port (``worker``, ``--sp``, ``--dp``,
-``--ep``, and the flags in ``NOT_PORTED_FLAGS``) exit with a message naming
-them as not yet ported.
+``torch.profiler`` after the run (``runtime/profiling.py``).
+``--verify-weights`` checks each tensor against the model's checksum
+manifest (``io/integrity.py``); ``--step-timeout`` and
+``--numeric-checks`` arm the engine's watchdog and logits guard.  Modes
+and flags of the JAX CLI outside the port (``worker``, ``--sp``, ``--ep``,
+``--dp`` outside ``serve-pod``, and the flags in ``NOT_PORTED_FLAGS``: the
+elastic pod's, multi-host start-up's, ``--weights-float-type`` and
+``--dequantize``) exit with a message naming them as not yet ported.
 
 ``python -m dllama_tpu_torch inference --model m.m --tokenizer t.t``
 """
@@ -56,8 +66,8 @@ from .tokenizer.chat import ChatItem, ChatTemplate, TokenizerChatStops
 from .tokenizer.eos import EosDetector
 
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16, "f16": torch.float16}
-MODES = ("inference", "generate", "chat", "batch")
-NOT_PORTED_MODES = ("worker", "router", "serve-pod")
+MODES = ("inference", "generate", "chat", "batch", "router", "serve-pod")
+NOT_PORTED_MODES = ("worker",)
 # flags of the JAX CLI that the port does not carry, with the JAX defaults:
 # a value other than the default exits naming the flag
 NOT_PORTED_FLAGS = {
@@ -65,18 +75,11 @@ NOT_PORTED_FLAGS = {
     "--weights-float-type": None, "--dequantize": False,
     "--coordinator": None, "--nproc": None,
     "--proc-id": None, "--program": "generate",
-    # the fleet router, the pod supervisor and the elastic pod
-    "--backends": None, "--probe-interval": 2.0, "--eject-after": 3,
-    "--readmit-after": 2, "--router-retries": 2, "--upstream-timeout": 120.0,
-    "--stall-timeout": 0.0, "--checkpoint-interval": 0.0, "--resume-policy": "auto",
-    "--supervise": False, "--respawn-max": 5, "--respawn-window": 30.0,
+    # the elastic pod (serve-pod --supervise --elastic)
     "--elastic": False, "--pod-devices": 0, "--min-replicas": 1, "--max-replicas": 0,
     "--elastic-interval": 2.0, "--elastic-window": 5, "--elastic-cooldown": 30.0,
     "--scale-up-util": 0.85, "--scale-down-util": 0.15, "--scale-up-queue": 2.0,
     "--reshape-kv-low": 0.08,
-    # serving
-    "--io-timeout": 15.0, "--drain-grace": 30.0, "--step-timeout": None,
-    "--numeric-checks": False, "--verify-weights": False,
 }
 
 
@@ -201,6 +204,74 @@ def build_parser() -> argparse.ArgumentParser:
                    help="requests in flight or queued before 429")
     p.add_argument("--request-timeout", type=float, default=0.0,
                    help="default per-request deadline in seconds (0: none)")
+    p.add_argument("--io-timeout", type=float, default=15.0,
+                   help="API server: socket read/write timeout; a client stalled "
+                        "sending its body gets 408, one stalled reading a stream "
+                        "is treated as disconnected")
+    p.add_argument("--drain-grace", type=float, default=30.0,
+                   help="API server: on SIGTERM/SIGINT, seconds granted to "
+                        "in-flight requests before their deadlines clamp")
+    p.add_argument("--step-timeout", type=float, default=None,
+                   help="watchdog: seconds a device step may take to land before "
+                        "StepTimeout (default DLLAMA_STEP_TIMEOUT, else none); the "
+                        "server then answers 500 and marks itself degraded "
+                        "(/health 503)")
+    p.add_argument("--numeric-checks", action="store_true",
+                   help="check every host-fetched logits array for NaN/Inf and "
+                        "raise NumericFault (step, pos) instead of emitting garbage "
+                        "(default DLLAMA_NUMERIC_CHECKS)")
+    p.add_argument("--verify-weights", action="store_true",
+                   help="verify each tensor's crc32 against the model's checksum "
+                        "manifest (<model>.m.sum, written by python -m "
+                        "dllama_tpu_torch.io.integrity write) on first read; the "
+                        "header digest is verified whenever the manifest exists")
+    # the fleet router (router mode, and serve-pod's front)
+    p.add_argument("--backends", default=None,
+                   help="router mode: comma-separated replica addresses (host:port,...)")
+    p.add_argument("--probe-interval", type=float, default=2.0,
+                   help="router: seconds between /health probes of each backend")
+    p.add_argument("--eject-after", type=int, default=3,
+                   help="router: consecutive probe/dispatch failures before a "
+                        "backend is ejected")
+    p.add_argument("--readmit-after", type=int, default=2,
+                   help="router: consecutive healthy probes before an ejected "
+                        "backend is re-admitted")
+    p.add_argument("--router-retries", type=int, default=2,
+                   help="router: re-dispatches of a request whose backend failed "
+                        "before any response bytes were forwarded")
+    p.add_argument("--upstream-timeout", type=float, default=120.0,
+                   help="router: socket timeout per upstream request (connect and "
+                        "each read)")
+    p.add_argument("--stall-timeout", type=float, default=0.0,
+                   help="router: seconds an open upstream stream may stay silent "
+                        "before its replica is treated as dead (force-ejected) and "
+                        "the stream resumed elsewhere; it bounds time to first token "
+                        "too, so set it above queue + prefill + the kernels' first "
+                        "build.  0: off")
+    p.add_argument("--checkpoint-interval", type=float, default=0.0,
+                   help="router: seconds between DLREQ01 checkpoints of each "
+                        "in-flight greedy stream (GET /admin/checkpoint/<rid>; "
+                        "replicas need --handoff); a lost replica's streams resume "
+                        "from the latest.  0: off (resume re-runs the request)")
+    p.add_argument("--resume-policy", choices=["auto", "never"], default="auto",
+                   help="router: auto resumes greedy streams on a peer after a "
+                        "mid-stream loss (sampled ones end replica_lost); never "
+                        "turns resume off.  Per request: the body's resume_policy")
+    p.add_argument("--dp", type=int, default=1,
+                   help="serve-pod: replicas, each --workers tpu:N ranks wide "
+                        "(--device cuda: replica r on cards r*N..r*N+N-1; cuda:K: "
+                        "every replica on card K; cpu: the CPU)")
+    p.add_argument("--supervise", action="store_true",
+                   help="serve-pod: run each replica as a child process under a "
+                        "supervisor that respawns it when it dies or its /health "
+                        "stops answering 200; a crash-looping replica is "
+                        "quarantined (--respawn-max/--respawn-window)")
+    p.add_argument("--respawn-max", type=int, default=5,
+                   help="serve-pod --supervise: deaths tolerated inside "
+                        "--respawn-window before a replica is quarantined")
+    p.add_argument("--respawn-window", type=float, default=30.0,
+                   help="serve-pod --supervise: sliding window (seconds) of the "
+                        "crash-loop count")
     # observability (obs/), the JAX CLI's flags
     p.add_argument("--log-format", choices=["human", "json"], default=None,
                    help="log output format: human-readable lines or JSON "
@@ -238,7 +309,6 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--nthreads", type=int, default=0,
                    help="accepted for reference CLI parity; unused")
     p.add_argument("--sp", type=int, default=1, help=argparse.SUPPRESS)
-    p.add_argument("--dp", type=int, default=1, help=argparse.SUPPRESS)
     p.add_argument("--ep", type=int, default=1, help=argparse.SUPPRESS)
     return p
 
@@ -248,9 +318,11 @@ def not_ported(args) -> list[str]:
     out = []
     if args.mode in NOT_PORTED_MODES:
         out.append(f"mode {args.mode!r}")
-    for flag in ("sp", "dp", "ep"):
+    for flag in ("sp", "ep"):
         if getattr(args, flag) != 1:
             out.append(f"--{flag}")
+    if args.dp != 1 and args.mode != "serve-pod":
+        out.append("--dp (outside serve-pod)")
     for flag, default in NOT_PORTED_FLAGS.items():
         if getattr(args, flag[2:].replace("-", "_")) != default:
             out.append(flag)
@@ -277,35 +349,54 @@ def load_stack(args, batch: int = 1, stack=None) -> tuple[Engine, Tokenizer]:
         mesh = parse_workers(args.workers, device)
     except ValueError as e:
         raise SystemExit(str(e)) from None
+    name = torch.cuda.get_device_name(device) if device.type == "cuda" else "host"
+    cfg, params, tok = read_model(args, mesh.tp, f"{device} ({name})")
+    return _engine(args, cfg, params, device, mesh, batch), tok
+
+
+#: seconds the newest :func:`read_model` took to read the weights on the
+#: host (checksums included under ``--verify-weights``)
+last_read_s: float | None = None
+
+
+def read_model(args, tp: int, where: str) -> tuple[ModelConfig, dict, Tokenizer]:
+    """The ``--model`` file's config and host params (fused for tp = 1),
+    checksum-verified under ``--verify-weights``, and the ``--tokenizer``;
+    prints the model's shape, ``where`` it runs and the tp degree.  Exits
+    when tp does not divide the model or the vocabularies differ."""
+    global last_read_s
+    if not args.model or not args.tokenizer:
+        raise SystemExit("--model and --tokenizer are required for this mode")
     bft = args.buffer_float_type
     if bft == "q80":
         print("💡 bufferFloatType q80 → bf16 (activations stay on the device; "
               "Q80's wire compression has no wire to compress here)")
         bft = "bf16"
-    with mfile.MFile(args.model) as mf:
+    t0 = time.perf_counter()
+    with mfile.MFile(args.model, verify=args.verify_weights) as mf:
         cfg = ModelConfig.from_spec(mf.spec, dtype=DTYPES[bft])
         print(f"💡 arch: {mf.spec.arch_name}")
         print(f"💡 dim: {cfg.dim}\n💡 nLayers: {cfg.n_layers}\n💡 nHeads: {cfg.n_heads}")
         print(f"💡 nKvHeads: {cfg.n_kv_heads}\n💡 vocabSize: {cfg.vocab_size}\n💡 seqLen: {cfg.seq_len}")
-        name = torch.cuda.get_device_name(device) if device.type == "cuda" else "host"
-        print(f"💡 device: {device} ({name})")
-        print(f"💡 mesh: tp={mesh.tp}")
+        print(f"💡 device: {where}")
+        print(f"💡 mesh: tp={tp}")
         try:
-            check_tp_constraint(cfg, mesh.tp)
+            check_tp_constraint(cfg, tp)
         except ValueError as e:
             raise SystemExit(str(e)) from None
-        cfg, params = load_params(mf, cfg, fuse=mesh.tp == 1)
-    engine = _engine(args, cfg, params, device, mesh, batch)
+        cfg, params = load_params(mf, cfg, fuse=tp == 1)
+    last_read_s = time.perf_counter() - t0
     tok = Tokenizer(tfile.read_tfile(args.tokenizer))
     if tok.vocab_size != cfg.vocab_size:
         raise SystemExit("tokenizer is incompatible with model (vocab size mismatch)")
-    return engine, tok
+    return cfg, params, tok
 
 
 def _engine(args, cfg, params, device, mesh, batch: int) -> Engine:
     kv_dtype = DTYPES.get(args.kv_cache_dtype, args.kv_cache_dtype)
     return Engine(cfg, params, seq_len=args.max_seq_len, kv_dtype=kv_dtype,
-                  device=device, batch=batch, mesh=mesh)
+                  device=device, batch=batch, mesh=mesh, step_timeout=args.step_timeout,
+                  numeric_checks=True if args.numeric_checks else None)
 
 
 def load_draft_engine(args, target: Engine) -> Engine:
@@ -547,6 +638,20 @@ def cmd_chat(args) -> Engine:
     return engine
 
 
+def cmd_router(args) -> None:
+    """The fleet router in front of ``--backends`` (router/service.py): no
+    model in this process, it only proxies HTTP."""
+    from .router.service import main as router_main
+    router_main(args)
+
+
+def cmd_serve_pod(args) -> None:
+    """``--dp`` replicas of the API server, each ``--workers tpu:N`` ranks
+    wide, fronted by the fleet router on ``--port`` (router/pod.py)."""
+    from .router.pod import main as pod_main
+    pod_main(args)
+
+
 def configure_obs(args):
     """Apply the observability flags (log format and level, ring sizes,
     the event log) and build the ``--slo`` engine (``DLLAMA_SLO`` when the
@@ -567,8 +672,9 @@ def configure_obs(args):
         raise SystemExit(f"--slo: {e}") from None
 
 
-def main(argv=None) -> Engine:
-    """Run one command; returns its Engine (for callers in-process)."""
+def main(argv=None) -> Engine | None:
+    """Run one command; returns its Engine (for callers in-process; None
+    for ``router`` and ``serve-pod``)."""
     args = build_parser().parse_args(argv)
     missing = not_ported(args)
     if missing:
@@ -576,7 +682,8 @@ def main(argv=None) -> Engine:
                          "(run python -m dllama_tpu for these)")
     slo = configure_obs(args)
     engine = {"inference": cmd_inference, "generate": cmd_generate, "chat": cmd_chat,
-              "batch": cmd_batch}[args.mode](args)
+              "batch": cmd_batch, "router": cmd_router,
+              "serve-pod": cmd_serve_pod}[args.mode](args)
     if slo is not None:
         print(slo.summary_line())
     return engine

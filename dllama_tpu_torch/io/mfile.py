@@ -1,7 +1,7 @@
 """`.m` model-file format: reader + writer.
 
-A copy of ``dllama_tpu/io/mfile.py`` without the checksum-manifest
-verification and the fault-injection hook (both are still to be ported):
+A copy of ``dllama_tpu/io/mfile.py``, with its checksum-manifest
+verification (``io/integrity.py``) and the ``io.read_tensor`` fault point:
 
 * header: magic ``0xA00ABCD``, an i32 ``headerSize`` (total header bytes
   incl. magic+size), then (key, value) i32 pairs, the weights float type
@@ -26,7 +26,7 @@ from dataclasses import dataclass
 import numpy as np
 
 from .. import quants
-from .integrity import ArtifactError
+from .integrity import ArtifactError, load_manifest_for, verify_bytes
 
 MAGIC_V2 = 0xA00ABCD
 
@@ -256,13 +256,36 @@ def read_spec(path: str | os.PathLike) -> ModelSpec:
 
 
 class MFile:
-    """mmap-backed lazy `.m` reader."""
+    """mmap-backed lazy `.m` reader with integrity checking.
 
-    def __init__(self, path: str | os.PathLike):
+    When a sidecar checksum manifest (``<path>.sum``, io/integrity.py)
+    exists, the header digest is verified at open, always, and each
+    tensor's digest on its first read when ``verify=True`` (the CLI's
+    ``--verify-weights``).  ``verify=True`` without a manifest is an error:
+    silently skipping requested verification would defeat it."""
+
+    def __init__(self, path: str | os.PathLike, verify: bool = False):
         self.path = os.fspath(path)
         self.spec = read_spec(path)
+        self.verify_weights = verify
+        self.manifest = load_manifest_for(self.path)
+        self._verified: set[str] = set()
+        if verify and self.manifest is None:
+            raise ArtifactError(
+                self.path, "manifest",
+                "weight verification requested but no checksum manifest found at "
+                f"{self.path}.sum (write one with python -m "
+                "dllama_tpu_torch.io.integrity write)")
         self._f = open(self.path, "rb")
         self._mm = mmap.mmap(self._f.fileno(), 0, access=mmap.ACCESS_READ)
+        if self.manifest is not None:
+            # before the tensor plan is derived from the header's fields: a
+            # flipped header is caught here, not as a shape error later
+            if self.manifest["file_size"] != len(self._mm):
+                raise ArtifactError(self.path, "file size", "size mismatch vs manifest",
+                                    expected=self.manifest["file_size"], got=len(self._mm))
+            verify_bytes(self.manifest["header"], self._mm[:self.spec.header_size],
+                         self.path, "header")
         try:
             self.plan = tensor_plan(self.spec)
         except ValueError as e:
@@ -303,10 +326,32 @@ class MFile:
         return t
 
     def raw(self, name: str) -> np.ndarray:
-        """One tensor's packed file bytes (a read-only view of the map)."""
+        """One tensor's packed file bytes (a read-only view of the map),
+        checksum-verified on first read under ``verify=True``.  The
+        ``io.read_tensor`` fault point's ``corrupt`` action flips a byte of
+        the returned buffer (runtime/faults.py)."""
+        from ..runtime.faults import FAULTS
         t = self.info(name)
-        return np.frombuffer(self._mm, dtype=np.uint8, count=t.nbytes,
-                             offset=t.offset)
+        buf = np.frombuffer(self._mm, dtype=np.uint8, count=t.nbytes, offset=t.offset)
+        if "corrupt" in FAULTS.fire("io.read_tensor"):
+            buf = buf.copy()
+            buf[0] ^= 0xFF
+        if self.verify_weights and name not in self._verified:
+            ent = self.manifest["tensors"].get(name)
+            if ent is None:
+                raise ArtifactError(self.path, f"tensor {name!r}",
+                                    "tensor missing from checksum manifest "
+                                    "(stale manifest? regenerate it)")
+            if (ent["offset"], ent["nbytes"]) != (t.offset, t.nbytes):
+                raise ArtifactError(
+                    self.path, f"tensor {name!r}",
+                    "manifest byte range disagrees with the file's tensor "
+                    "plan (stale manifest? regenerate it)",
+                    offset=t.offset, expected=(ent["offset"], ent["nbytes"]),
+                    got=(t.offset, t.nbytes))
+            verify_bytes(ent, buf, self.path, f"tensor {name!r}")
+            self._verified.add(name)
+        return buf
 
     def tensor(self, name: str) -> np.ndarray:
         """Dequantize one tensor to f32 in its logical row-major shape."""

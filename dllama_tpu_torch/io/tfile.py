@@ -16,6 +16,7 @@ import os
 import struct
 from dataclasses import dataclass, field
 
+from .integrity import load_manifest_for, verify_bytes
 from .mfile import ArtifactError, _read_exact
 
 MAGIC_V1 = 0x567124
@@ -55,9 +56,18 @@ class TokenizerData:
 def read_tfile(path: str | os.PathLike) -> TokenizerData:
     """Parse + validate a `.t` tokenizer file: every read is length-checked,
     every declared length is range-checked and trailing bytes are rejected,
-    each violation raising :class:`ArtifactError`."""
+    each violation raising :class:`ArtifactError`.  When a sidecar checksum
+    manifest (``<path>.sum``) exists, the whole file is verified against it
+    first, so even a flip inside a token's bytes is caught."""
     path = os.fspath(path)
     file_size = os.path.getsize(path)
+    man = load_manifest_for(path)
+    if man is not None:
+        if man["file_size"] != file_size:
+            raise ArtifactError(path, "file size", "size mismatch vs manifest",
+                                expected=man["file_size"], got=file_size)
+        with open(path, "rb") as f:
+            verify_bytes(man["header"], f.read(), path, "file")
     t = TokenizerData()
     with open(path, "rb") as f:
         raw, _ = _read_exact(f, 4, path, "magic")

@@ -13,7 +13,11 @@
   the per-dispatch slot timeline (``/debug/timeline``);
 * :mod:`.slo` — latency and error objectives with multi-window burn rates
   (``--slo``, the ``/health`` verdict);
-* :mod:`.events` — the event journal (``/debug/events``, ``--event-log``).
+* :mod:`.events` — the event journal (``/debug/events``, ``--event-log``);
+* :mod:`.cost` — the roofline model: modelled FLOPs and bytes a dispatch,
+  the ``mfu``/``mbu`` gauges against the card's peaks.
 
-Not ported yet: ``obs/cost.py`` (the roofline MFU/MBU gauges).
+The router and the pod supervisor (``router/``) bump the ``router_*``,
+``pod_*`` and ``fleet_*`` families of the same registry, and the fleet
+trace id (``X-Dllama-Trace``) rides :mod:`.trace`.
 """

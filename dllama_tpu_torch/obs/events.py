@@ -9,10 +9,13 @@
   (``DLLAMA_EVENT_BUFFER``, default 2048) and ``--event-log``: every event
   is also appended to that file as one JSON line.
 
-The kinds the JAX package emits come from its pod supervisor, router,
-preemption and hand-off; the port has none of those yet, so its
-journal holds what a later slice emits.  Stdlib only, one small lock an
-append, a process-global journal (``JOURNAL``).
+Kinds (``KINDS``): ``spawn``, ``death``, ``respawn``, ``quarantine``
+(the pod supervisor, router/pod.py), ``eject``, ``readmit`` (the
+router's registry), ``handoff``, ``resume`` (the router and the
+scheduler), ``preempt`` (the scheduler); ``retire``, ``scale`` and
+``reshape`` belong to the elastic pod, which this package does not carry.
+Stdlib only, one small lock an append, a process-global journal
+(``JOURNAL``).
 """
 
 from __future__ import annotations
@@ -29,6 +32,10 @@ from .trace import parse_buffer_env
 _log = get_logger("obs.events")
 
 DEFAULT_CAPACITY = 2048
+
+#: the canonical kinds (the JAX package's list)
+KINDS = ("spawn", "death", "respawn", "quarantine", "eject", "readmit",
+         "retire", "scale", "reshape", "handoff", "resume", "preempt")
 
 
 def _capacity() -> int:

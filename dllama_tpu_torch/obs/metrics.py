@@ -8,7 +8,7 @@ JSON dict (counters seeded at import, histograms as ``{"count", "sum",
 "avg", "buckets"}``, a ``schema_version``); :func:`render_prometheus` is
 text exposition format 0.0.4.  The families are the ones the port feeds,
 each with the JAX package's name, type, help and buckets; a family of a
-feature the port lacks (the fleet router, the degrade ledger, compile
+feature the port lacks (the elastic pod, the degrade ledger, compile
 telemetry) comes with that feature.
 
 Thread-safe (one small lock a metric) and stdlib-only.
@@ -462,6 +462,13 @@ AVG_REQUEST_S = REGISTRY.gauge(
     name="dllama_request_duration_ema_seconds")
 
 # artifact-integrity counters (io/integrity.py delegates here)
+# artifact-integrity counters (io/integrity.py delegates here)
+CHECKSUM_VERIFIED = REGISTRY.counter(
+    "checksum_verified", "Artifact regions whose crc32 verified clean.")
+CHECKSUM_FAILURES = REGISTRY.counter(
+    "checksum_failures", "Artifact regions whose crc32 mismatched.")
+NUMERIC_FAULTS = REGISTRY.counter(
+    "numeric_faults", "NaN/Inf logits caught by --numeric-checks.")
 SNAPSHOT_RESTORES = REGISTRY.counter(
     "snapshot_restores", "Engine warm starts restored from a snapshot.")
 
@@ -704,6 +711,60 @@ HANDOFF_EXPIRED = REGISTRY.counter(
     "--handoff-ttl (the router that triggered the drain never fetched "
     "them).")
 
+# fleet router (router/ package — a separate process; these families
+# are exported by the *router's* /metrics, not a replica's).  Dispatch,
+# retry, ejection, and hand-off counters quantify the rolling-restart
+# story: a healthy fleet drains with handoffs>0 and replica_lost==0.
+ROUTER_DISPATCH = REGISTRY.labeled_counter(
+    "router_dispatch", ("backend",),
+    "Requests dispatched to each backend replica.")
+ROUTER_RETRIES = REGISTRY.counter(
+    "router_retries",
+    "Requests re-dispatched to another replica after a backend failed "
+    "before any response bytes reached the client.")
+ROUTER_EJECTIONS = REGISTRY.labeled_counter(
+    "router_ejections", ("backend",),
+    "Backend transitions into the ejected state (probe/dispatch "
+    "failure streak reached the ejection threshold).")
+ROUTER_READMITS = REGISTRY.labeled_counter(
+    "router_readmits", ("backend",),
+    "Ejected backends re-admitted after consecutive successful probes.")
+ROUTER_HANDOFFS = REGISTRY.counter(
+    "router_handoffs",
+    "In-flight requests migrated between replicas via KV hand-off "
+    "(export from a draining backend, import on a peer).")
+ROUTER_REPLICA_LOST = REGISTRY.counter(
+    "router_replica_lost",
+    "Streaming requests finished with finish_reason=replica_lost "
+    "because their backend died after response bytes were sent.")
+ROUTER_BACKEND_LATENCY_S = REGISTRY.labeled_gauge(
+    "router_backend_latency_s", ("backend",),
+    "EWMA of health-probe round-trip latency per backend, seconds.")
+ROUTER_RESUMES = REGISTRY.labeled_counter(
+    "router_resumes", ("outcome",),
+    "Mid-stream resume attempts after a backend died with bytes "
+    "already forwarded, by outcome: checkpoint (resumed from a cached "
+    "DLREQ01 checkpoint), rerun (re-dispatched and prefix-verified on "
+    "a peer), mismatch (regenerated prefix diverged — honest "
+    "replica_lost), no_peer (no healthy peer could take it), failed "
+    "(the resume dispatch itself died).")
+ROUTER_STALLS = REGISTRY.counter(
+    "router_stalls",
+    "Streams cut by the router's stall watchdog (--stall-timeout): the "
+    "backend was connected but produced no bytes for the window — a "
+    "wedged replica treated as dead.")
+
+# serve-pod --supervise (router/pod.py)
+POD_RESPAWNS = REGISTRY.labeled_counter(
+    "pod_respawns", ("replica", "reason"),
+    "serve-pod supervisor respawns of a replica process, by replica "
+    "index and reason (exit = process died, hung = health probes "
+    "stalled while the process lived).")
+POD_REPLICAS_UP = REGISTRY.gauge(
+    "pod_replicas_up",
+    "serve-pod supervised replica processes currently alive (a "
+    "quarantined crash-looper stays down and is not counted).")
+
 # SLO burn-rate engine (obs/slo.py)
 SLO_BURN_RATE = REGISTRY.labeled_gauge(
     "slo_burn_rate", ("objective", "window"),
@@ -721,3 +782,20 @@ POD_EVENTS = REGISTRY.labeled_counter(
     "(/debug/events), by kind: spawn, death, respawn, quarantine, "
     "eject, readmit, retire, scale, reshape, handoff, resume, "
     "preempt.")
+
+# fleet observability (router/fleet.py): live only in the router/pod
+# process, bumped by the federating scraper itself
+FLEET_REPLICA_UP = REGISTRY.labeled_gauge(
+    "fleet_replica_up", ("replica",),
+    "Federated-scrape reachability per registered replica: 1 = the "
+    "last fleet /metrics scrape of this replica succeeded, 0 = it "
+    "failed or timed out (the replica is still listed, marked stale, "
+    "never silently dropped).")
+FLEET_SCRAPE_ERRORS = REGISTRY.labeled_counter(
+    "fleet_scrape_errors", ("replica",),
+    "Failed or timed-out per-replica scrapes during fleet /metrics "
+    "federation, by replica address.")
+FLEET_SCRAPE_SECONDS = REGISTRY.histogram(
+    "fleet_scrape_seconds", (0.005, 0.02, 0.05, 0.1, 0.25, 1.0, 5.0),
+    "Wall time of one whole federated /metrics fan-out (all replicas "
+    "scraped concurrently, slowest replica dominates).")

@@ -1,6 +1,5 @@
 """Always-on in-process spans in a bounded ring buffer — a copy of
-``dllama_tpu/obs/trace.py`` without the fleet trace context (the
-``X-Dllama-Trace`` header belongs to the fleet router, not ported).
+``dllama_tpu/obs/trace.py``.
 
 Every request records a handful of spans (request, queue_wait, prefill,
 decode_chunk, emit; the scheduler's sched_admit, sched_step,
@@ -12,14 +11,23 @@ within one process but are not wall-clock, so ``raw()`` samples
 ``(perf_now, wall_now)`` at serve time.  Capacity comes from
 ``--trace-buffer`` / ``DLLAMA_TRACE_BUFFER`` (default 8192 spans); a
 malformed value warns once and falls back.
+
+Fleet trace context: ``X-Dllama-Trace`` carries one id for a request's
+whole life across router hops and DLREQ01 migrations.  The id rides a
+contextvar for the accepting thread plus a bounded rid→trace map
+(``set_trace``/``trace_of``) for threads that work on behalf of another
+request (the scheduler loop stamps spans with an explicit ``rid``).
 """
 
 from __future__ import annotations
 
+import contextvars
 import os
+import re
 import threading
 import time
-from collections import deque
+import uuid
+from collections import OrderedDict, deque
 from contextlib import contextmanager
 
 from .log import get_logger, request_id_var
@@ -29,6 +37,56 @@ _log = get_logger("obs.trace")
 DEFAULT_CAPACITY = 8192
 
 _warned_specs: set = set()
+
+# ---------------------------------------------------------------------------
+# Fleet trace context (X-Dllama-Trace)
+# ---------------------------------------------------------------------------
+
+#: header value charset — same shape as request ids so proxies/log greps
+#: treat them alike; anything else is stripped at the trust boundary.
+_TRACE_RE = re.compile(r"[^A-Za-z0-9._-]")
+_TRACE_MAX = 64
+
+#: ambient trace id for the thread/task that accepted the request.
+trace_id_var: contextvars.ContextVar = contextvars.ContextVar(
+    "dllama_trace_id", default=None)
+
+#: rid → trace id, bounded LRU so abandoned requests can't grow it.
+_RID_TRACE_CAP = 4096
+_rid_trace: OrderedDict = OrderedDict()
+_rid_trace_lock = threading.Lock()
+
+
+def new_trace_id() -> str:
+    """A fresh 32-hex trace id (uuid4, no dashes) — traceparent-sized."""
+    return uuid.uuid4().hex
+
+
+def sanitize_trace_id(raw: str | None) -> str | None:
+    """Clamp an untrusted header value to the id charset; None if empty."""
+    if not raw:
+        return None
+    return _TRACE_RE.sub("", raw)[:_TRACE_MAX] or None
+
+
+def set_trace(rid: str | None, trace_id: str | None) -> None:
+    """Associate a request id with a trace id (LRU-bounded)."""
+    if not rid or not trace_id:
+        return
+    with _rid_trace_lock:
+        _rid_trace[rid] = trace_id
+        _rid_trace.move_to_end(rid)
+        while len(_rid_trace) > _RID_TRACE_CAP:
+            _rid_trace.popitem(last=False)
+
+
+def trace_of(rid: str | None) -> str | None:
+    """The trace id associated with ``rid`` (or None)."""
+    if not rid:
+        return None
+    with _rid_trace_lock:
+        return _rid_trace.get(rid)
+
 
 def parse_buffer_env(var: str, default: int) -> int:
     """Ring capacity from ``var``; a value that is not a positive integer
@@ -69,12 +127,14 @@ class Tracer:
         """Record a completed span; ``t0``/``t1`` are perf_counter secs.
         ``rid`` overrides the ambient contextvar request ID — threads that
         work on behalf of another request (the scheduler loop) stamp the
-        ticket's ID explicitly."""
+        ticket's ID explicitly.  The span's fleet trace id resolves from
+        the rid→trace map first, then the ambient contextvar."""
         th = threading.current_thread()
         rid = rid if rid is not None else request_id_var.get()
+        trace = trace_of(rid) or trace_id_var.get()
         span = {"name": name, "ts": t0, "dur": max(t1 - t0, 0.0),
                 "tid": th.ident or 0, "thread": th.name,
-                "rid": rid, "args": args}
+                "rid": rid, "trace": trace, "args": args}
         with self._lock:
             self._seq += 1
             span["seq"] = self._seq
@@ -147,6 +207,8 @@ class Tracer:
             args = dict(s["args"])
             if s["rid"]:
                 args["request_id"] = s["rid"]
+            if s.get("trace"):
+                args["trace_id"] = s["trace"]
             events.append({"name": s["name"], "cat": "dllama", "ph": "X",
                            "ts": round(s["ts"] * 1e6, 3),
                            "dur": round(s["dur"] * 1e6, 3),

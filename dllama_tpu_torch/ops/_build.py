@@ -12,7 +12,9 @@ links them into one shared library with a plain C interface, loaded with
 
 The library lands in ``dllama_tpu_torch/build/`` at first use, named by a
 hash of the sources, headers and flags, so an edited source rebuilds and an
-unchanged one is reused.  Importing the package never needs ``nvcc``: the
+unchanged one is reused.  A build holds a file lock in that directory, so
+processes that start together (a supervised pod's replicas) compile once:
+the others wait and load the library the first one built.  Importing the package never needs ``nvcc``: the
 build runs at the first CUDA call (or an explicit :func:`load`).  Without
 ``nvcc`` the build raises — there is no other path to hand back.
 """
@@ -20,10 +22,12 @@ build runs at the first CUDA call (or an explicit :func:`load`).  Without
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PKG = os.path.dirname(HERE)
@@ -37,6 +41,7 @@ ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lib: ctypes.CDLL | None = None
+_load_lock = threading.Lock()
 #: nvcc's output from the build this process ran (``-Xptxas -v`` register
 #: and shared-memory report); empty when the library was already built
 build_log = ""
@@ -85,13 +90,21 @@ def _run_all(cmds: list[list[str]]) -> str:
 
 def build() -> str:
     """Compile the sources unless the library for their hash exists;
-    returns its path."""
-    global build_log
+    returns its path.  Holds ``build/.lock`` while it checks and builds."""
     path = library_path()
     if os.path.exists(path):
         return path
     nvcc = find_nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
+    with open(os.path.join(BUILD_DIR, ".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
+        if not os.path.exists(path):  # another process may have built it
+            _compile(nvcc, path)
+    return path
+
+
+def _compile(nvcc: str, path: str) -> None:
+    global build_log
     tag = f"{os.path.basename(path)[:-3]}.{os.getpid()}"
     srcs = [os.path.join(CSRC, name) for name in SOURCES]
     objs = [os.path.join(BUILD_DIR, f"{name[:-3]}-{tag}.o") for name in SOURCES]
@@ -105,14 +118,16 @@ def build() -> str:
             if os.path.exists(o):
                 os.remove(o)
     build_log = log
-    os.replace(tmp, path)  # atomic: a concurrent build never loads a partial file
-    return path
+    os.replace(tmp, path)  # atomic: a reader never loads a partial file
 
 
 def load() -> ctypes.CDLL:
     """Build if needed, load once per process, and declare signatures."""
     global _lib
-    if _lib is None:
-        from . import attention, q8, q40
-        _lib = attention.bind(q8.bind(q40.bind(ctypes.CDLL(build()))))
+    if _lib is not None:
+        return _lib
+    with _load_lock:  # several scheduler threads may launch first at once
+        if _lib is None:
+            from . import attention, q8, q40
+            _lib = attention.bind(q8.bind(q40.bind(ctypes.CDLL(build()))))
     return _lib

@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from ..device import index_view
+from . import COUNT_LOCK
 from .kernels import softmax_f32
 from .q40 import _sm_count
 
@@ -485,7 +486,7 @@ def paged_gqa_attention_at(q: torch.Tensor, pool_k: torch.Tensor,
 # ---------------------------------------------------------------------------
 # The fused paged-attention kernel (csrc/paged_attention.cu) and its wrapper.
 #
-# Counters (plain ints): ``kernel_launches`` counts launches of the kernel,
+# Counters (plain ints, bumped under ``ops.COUNT_LOCK``): ``kernel_launches`` counts launches of the kernel,
 # ``plain_calls`` calls that ran its plain version (a CPU tensor, or
 # impl="plain"); ``prefill_launches`` and ``prefill_plain_calls`` count the
 # same for the prefill kernel (csrc/paged_prefill_attention.cu, at the end
@@ -537,7 +538,8 @@ def fused_paged_attention(q: torch.Tensor, pool_k: torch.Tensor,
     if q.shape[2] != 1:
         raise ValueError("fused paged attention is decode-only (T must be 1)")
     if impl == "plain" or not q.is_cuda:
-        plain_calls += 1
+        with COUNT_LOCK:
+            plain_calls += 1
         return paged_decode_attention(q, pool_k, pool_v, layer, page_table,
                                       pos_rows, scales)
     return paged_attention(q, pool_k, pool_v, layer, page_table, pos_rows, scales)
@@ -677,7 +679,8 @@ def paged_attention(q: torch.Tensor, pool_k: torch.Tensor, pool_v: torch.Tensor,
                            f"({lib.q40_error_string(rc).decode()}) at B={b} "
                            f"Hq={hq} Hkv={hkv} ps={ps} Dh={dh} splits={splits}x{pps} "
                            f"pp={pp} smem={smem}")
-    kernel_launches += 1
+    with COUNT_LOCK:
+        kernel_launches += 1
     return out
 
 
@@ -806,7 +809,8 @@ def paged_prefill_attention(q: torch.Tensor, pool_k: torch.Tensor,
     if impl not in ("auto", "plain"):
         raise ValueError(f"unknown paged attention impl {impl!r}")
     if impl == "plain" or not q.is_cuda:
-        prefill_plain_calls += 1
+        with COUNT_LOCK:
+            prefill_plain_calls += 1
         return paged_rows_attention(q, pool_k, pool_v, layer, page_table, pos_rows, scales)
     return prefill_attention(q, pool_k, pool_v, layer, page_table, pos_rows, scales)
 
@@ -858,5 +862,6 @@ def prefill_attention(q: torch.Tensor, pool_k: torch.Tensor, pool_v: torch.Tenso
                            f"({lib.q40_error_string(rc).decode()}) at B={b} Hq={hq} "
                            f"Hkv={hkv} T={t} ps={ps} Dh={dh} splits={splits}x{pps} "
                            f"pp={pp} smem={smem}")
-    prefill_launches += 1
+    with COUNT_LOCK:
+        prefill_launches += 1
     return out

@@ -53,7 +53,8 @@ the GEMV (decode) body below ``T_MMA`` rows, one launch a call on
 up, the tensor-core body (:func:`mma_plan`, the Q80 kernel's plan), in
 both layouts.
 
-Module counters (plain ints) record which route ran:
+Module counters (plain ints, bumped under ``ops.COUNT_LOCK``) record
+which route ran:
 ``kernel_launches`` (kernels 1–2 on row-major planes), ``blocked_launches``
 (kernel 3 on blocked planes), ``mma_launches`` (those of either that took
 the tensor-core body), ``launches_by_shape`` keyed by logical ``(n, d)``
@@ -76,6 +77,7 @@ import torch
 
 from .. import quants
 from ..device import index_view
+from . import COUNT_LOCK
 
 # Pack-time padding granularity of the input dim (the JAX package's
 # TILE_N default): padded rows carry zero scales, so the packed planes are
@@ -470,7 +472,8 @@ def dispatch(codec, kernel, x: torch.Tensor, qt, layer, out_dtype, impl: str
     rows = int(np.prod(lead)) if lead else 1
     x2 = x.reshape(rows, n)
     if impl == "plain" or x.device.type == "cpu":
-        codec.plain_calls += 1
+        with COUNT_LOCK:
+            codec.plain_calls += 1
         out = codec.matmul_plain(x2, qt, layer)
     else:
         out = kernel(x2, qt, layer)
@@ -691,8 +694,9 @@ def q40_matmul(x2: torch.Tensor, qpacked: torch.Tensor, scales: torch.Tensor,
     mma = _body(body, x2) == "mma"
     out = launch("q40_matmul_mma" if mma else "q40_matmul", x2, qpacked, scales, n, layer,
                  torch.uint8, 2, mma)
-    kernel_launches += 1
-    _count(("mma", n, out.shape[1]) if mma else (n, out.shape[1]))
+    with COUNT_LOCK:
+        kernel_launches += 1
+        _count(("mma", n, out.shape[1]) if mma else (n, out.shape[1]))
     return out
 
 
@@ -755,8 +759,9 @@ def q40_blocked_matmul(x2: torch.Tensor, qpacked: torch.Tensor, scales: torch.Te
     else:
         out = _launch_gemv(fn, x2, qpacked, scales, idx, n, np_, d, n_planes, 2, td,
                            bn, td, nJ)
-    blocked_launches += 1
-    _count(("blocked-mma" if body == "mma" else "blocked", n, d))
+    with COUNT_LOCK:
+        blocked_launches += 1
+        _count(("blocked-mma" if body == "mma" else "blocked", n, d))
     return out
 
 
@@ -934,7 +939,8 @@ def tp_allreduce(parts: list[torch.Tensor], impl: str = "auto") -> list[torch.Te
     if impl not in ("auto", "plain"):
         raise ValueError(f"unknown tp_allreduce impl {impl!r}")
     if impl == "plain" or all(p.device.type == "cpu" for p in parts):
-        allreduce_plain_calls += 1
+        with COUNT_LOCK:
+            allreduce_plain_calls += 1
         return tp_allreduce_plain(parts)
     return tp_allreduce_kernel(parts)
 
@@ -1001,7 +1007,8 @@ def tp_allreduce_kernel(parts: list[torch.Tensor]) -> list[torch.Tensor]:
             raise RuntimeError(f"{fn} launch failed: CUDA error {rc} "
                                f"({lib.q40_error_string(rc).decode()}) at tp={tp} "
                                f"t={t} d={d} ranks {rank0}..{rank0 + n_ranks - 1}")
-        allreduce_launches += 1
+        with COUNT_LOCK:
+            allreduce_launches += 1
     return outs
 
 

@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from .. import quants
+from . import COUNT_LOCK
 from .q40 import (MMA_BK, MMA_BLOCKS_PER_SM, MMA_BMS, MMA_BN,  # noqa: F401 (re-exported)
                   _planes, dispatch, gemv_plan, launch, mma_plan, padded_n)
 
@@ -247,11 +248,12 @@ def q8_matmul(x2: torch.Tensor, qvals: torch.Tensor, scales: torch.Tensor,
     elif body == "mma":
         out = launch("q8_matmul_mma", x2, qvals, scales, n, layer, torch.int8, 1, mma=True)
         key = ("mma", n, out.shape[1])
-        mma_launches += 1
     else:
         raise ValueError(f"q8_matmul: unknown body {body!r}")
-    kernel_launches += 1
-    launches_by_shape[key] = launches_by_shape.get(key, 0) + 1
+    with COUNT_LOCK:
+        mma_launches += body == "mma"
+        kernel_launches += 1
+        launches_by_shape[key] = launches_by_shape.get(key, 0) + 1
     return out
 
 

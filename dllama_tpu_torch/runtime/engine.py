@@ -17,12 +17,23 @@ event, all enqueued before anything later.  Fetching a dispatch waits on
 its own events only, so the next one, enqueued first, stays in flight while
 the host fans this one out; I and T are read at those events, so they are
 the device's, not the enqueue's.
+
+Every blocking edge (the batch-1 forward's sync, each landing's wait, a
+page copy's wait) runs through :meth:`Engine._sync`: it fires the
+``engine.device_step`` fault point (``runtime/faults.py``) and, with
+``step_timeout`` set, waits on a watchdog thread so that a step that does
+not land in time raises :class:`StepTimeout`.  ``numeric_checks`` checks
+every host-fetched logits array (prefill, single-token decode, ragged
+prefill) for NaN/Inf and raises :class:`NumericFault`; the on-device decode
+chunks and slot dispatches ship token ids only, so a divergence there
+shows at the next host-logits step, as in the JAX package.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
+import threading
 import time
 from dataclasses import dataclass, field
 
@@ -43,6 +54,7 @@ from ..sampling import Sampler
 from . import snapshot as snapfmt
 from .decode_loop import (decode_chunk, device_sample, slot_chunk, slot_verify_chunk,
                           verify_accept)
+from .faults import FAULTS
 from .graphs import DecodeGraphs
 
 
@@ -78,6 +90,31 @@ def _next_bucket(n: int, minimum: int = 16) -> int:
 
 class ContextOverflow(ValueError):
     """The requested tokens do not fit the engine's context window."""
+
+
+class NumericFault(RuntimeError):
+    """NaN/Inf in the host-fetched logits under ``numeric_checks``: names
+    the step, the sequence position and a hint.  Detection is at the
+    logits (the one tensor the host already fetches), so it cannot name
+    the layer that produced the NaN.  The server answers 500 and resets
+    the engine (a NaN anywhere implies the KV cache may be poisoned)."""
+
+    def __init__(self, step: str, pos: int, hint: str = ""):
+        self.step = step
+        self.pos = pos
+        self.hint = hint
+        msg = f"non-finite logits at {step}, pos={pos}"
+        super().__init__(msg + (f" ({hint})" if hint else ""))
+
+
+class StepTimeout(RuntimeError):
+    """A device step did not land within the engine's watchdog deadline
+    (``step_timeout``, or ``DLLAMA_STEP_TIMEOUT``): a diagnosable error
+    naming the step and position instead of a thread parked forever.  A
+    wait on the card cannot be cancelled: the watchdog's helper thread stays
+    parked in it, and the card may be unusable, so the server marks itself
+    degraded (``/health`` 503) for the router to eject it and a supervisor
+    to replace the process."""
 
 
 @dataclass
@@ -183,16 +220,18 @@ class _Ready:
 
 class _Copied:
     """A pinned host tensor being filled on a side stream; :meth:`wait`
-    blocks on the copy's event and returns it as a host array."""
+    blocks on the copy's event (under the engine's watchdog) and returns it
+    as a host array."""
 
-    __slots__ = ("_host", "_done")
+    __slots__ = ("_host", "_done", "_engine")
 
-    def __init__(self, host: torch.Tensor, done):
+    def __init__(self, host: torch.Tensor, done, engine: "Engine"):
         self._host = host
         self._done = done
+        self._engine = engine
 
     def wait(self) -> np.ndarray:
-        self._done.synchronize()
+        self._engine._sync(self._done.synchronize, "page copy", point=None)
         return snapfmt.to_numpy(self._host)
 
 
@@ -247,13 +286,27 @@ class Engine:
     as captured CUDA graphs (:mod:`runtime.graphs`, kept in
     :attr:`graphs`; None runs every step eagerly).  It needs ``cuda`` and
     tp = 1; the batch-1 and lockstep prefill forwards and tp > 1 run
-    eagerly."""
+    eagerly.
+
+    ``step_timeout`` (seconds; default ``DLLAMA_STEP_TIMEOUT``, else off)
+    and ``numeric_checks`` (default ``DLLAMA_NUMERIC_CHECKS``, else off):
+    see :meth:`_sync` and :meth:`_numeric_guard`."""
 
     def __init__(self, cfg: ModelConfig, params: Params | Placed,
                  seq_len: int | None = None, kv_dtype=None, device=None,
                  batch: int = 1, kv_pages: int = 0, kv_page_size: int = 16,
-                 mesh: Mesh | None = None, graphs: bool | None = None):
+                 mesh: Mesh | None = None, graphs: bool | None = None,
+                 step_timeout: float | None = None, numeric_checks: bool | None = None):
         self.mesh = mesh if mesh is not None and mesh.tp > 1 else None
+        # the step watchdog (StepTimeout) and the logits guard
+        # (NumericFault); the environment arms them on a live server
+        if step_timeout is None:
+            step_timeout = float(os.environ.get("DLLAMA_STEP_TIMEOUT", "0"))
+        self.step_timeout = step_timeout if step_timeout > 0 else None
+        if numeric_checks is None:
+            numeric_checks = os.environ.get("DLLAMA_NUMERIC_CHECKS", "") not in (
+                "", "0", "false")
+        self.numeric_checks = bool(numeric_checks)
         self.device = resolve(mesh.device if mesh is not None else device)
         self.cfg = cfg
         self.batch = int(batch)
@@ -564,7 +617,7 @@ class Engine:
                     out[n] = host
                 done = torch.cuda.Event()
                 done.record(side)
-        return {n: _Copied(h, done) for n, h in out.items()}
+        return {n: _Copied(h, done, self) for n, h in out.items()}
 
     def write_pool_pages(self, pages, arrays: dict[str, np.ndarray]) -> None:
         """Write page slices (from :meth:`read_pool_pages` here or on a
@@ -579,6 +632,60 @@ class Engine:
             for n, ts in self.kv_planes().items():
                 self._write_global(ts, arrays[f"pages.{n}"], idx)
 
+    def _sync(self, wait, what: str, point: str | None = "engine.device_step"):
+        """Run ``wait`` — a blocking edge of a device step — after firing
+        ``point`` (the ``engine.device_step`` fault point); returns ``(the
+        actions that ask the caller to transform its value, wait's
+        result)``.  With ``step_timeout`` set the two run on a watchdog
+        thread, and a wait that outlives the deadline raises
+        :class:`StepTimeout`; the helper stays parked (a daemon), since a
+        wait on the card cannot be cancelled.  Unset, this adds no wait
+        and no thread."""
+        def run():
+            actions = FAULTS.fire(point) if point else []
+            return actions, wait()
+
+        if not self.step_timeout:
+            return run()
+        box: dict = {}
+
+        def watched():
+            try:
+                box["out"] = run()
+            except BaseException as e:  # re-raised below, on the caller
+                box["error"] = e
+
+        t = threading.Thread(target=watched, daemon=True,
+                             name=f"dllama-step-watchdog({what})")
+        t.start()
+        t.join(self.step_timeout)
+        if t.is_alive():
+            raise StepTimeout(
+                f"{what} did not become ready within {self.step_timeout}s "
+                f"(pos={self.pos}, batch={self.batch}, device={self.device}, tp={self.tp})")
+        if "error" in box:
+            raise box["error"]
+        return box["out"]
+
+    def _numeric_guard(self, host_logits: np.ndarray, step: str) -> np.ndarray:
+        """Check a host-fetched logits array for NaN/Inf under
+        ``numeric_checks`` (:class:`NumericFault`), after firing the
+        ``engine.numeric`` fault point (its ``nan`` action poisons the
+        checked array).  Off, it returns the array untouched."""
+        if not self.numeric_checks:
+            return host_logits
+        if "nan" in FAULTS.fire("engine.numeric"):
+            host_logits = np.full_like(host_logits, np.nan)
+        if not np.isfinite(host_logits).all():
+            bump_counter("numeric_faults")
+            bad = int(np.size(host_logits) - np.count_nonzero(np.isfinite(host_logits)))
+            raise NumericFault(
+                step, self.pos,
+                hint=f"{bad}/{host_logits.size} non-finite logits; detection is at the "
+                     "output logits (no layer attribution) — bisect with "
+                     "--verify-weights and a bf16 KV cache")
+        return host_logits
+
     def _run(self, tokens_np: np.ndarray, last_index: int,
              offsets: torch.Tensor | None = None) -> tuple[np.ndarray, StepStats]:
         stats = StepStats()
@@ -587,10 +694,13 @@ class Engine:
         logits, self.cache = forward_last(self.params, self.cfg, toks, self.cache,
                                           self.pos, last_index, offsets=offsets)
         self.forwards += 1
-        self.last_logits = logits
-        synchronize(self.device)
+        fired = self._sync(lambda: synchronize(self.device), "prefill/decode step")[0]
         t1 = time.perf_counter()
-        host_logits = logits.cpu().numpy()  # (B, V)
+        if "nan" in fired:  # injected device fault: poisoned logits
+            logits = torch.full_like(logits, float("nan"))
+        self.last_logits = logits
+        host_logits = self._numeric_guard(
+            logits.cpu().numpy(), "prefill" if tokens_np.shape[1] > 1 else "decode")  # (B, V)
         t2 = time.perf_counter()
         stats.inference_ms = (t1 - t0) * 1000
         stats.transfer_ms = (t2 - t1) * 1000
@@ -731,7 +841,7 @@ class Engine:
                 expected += k
                 pending = dispatch(last_dev, expected) \
                     if expected < steps and self.pos < self.seq_len else None
-                t1, t2, toks = landing.wait()
+                t1, t2, toks = self._sync(landing.wait, f"decode chunk at pos {p0}")[1]
                 toks = toks[:, 0]  # (k,)
                 # steady-state chunk wall = boundary to boundary
                 g0 = t0 if boundary is None else max(boundary, t0)
@@ -825,7 +935,7 @@ class Engine:
                 pending = dispatch(last_dev, expected) \
                     if expected < steps and self.pos < self.seq_len else None
                 t0 = time.perf_counter()
-                toks = landing.wait()[2]  # (k, B)
+                toks = self._sync(landing.wait, "batch decode chunk")[1][2]  # (k, B)
                 obs_trace.record("decode_chunk", t0, time.perf_counter(),
                                  pos=self.pos - k, k=k, batch=True)
                 for j in range(toks.shape[0]):
@@ -1085,7 +1195,7 @@ class Engine:
                         toks, preds, torch.full((1,), k + 1, dtype=torch.int32,
                                                 device=self.device))
                     packed = torch.cat([preds, accepted[:, None]], dim=1)
-                t1, t2, host = Landing(packed).wait()
+                t1, t2, host = self._sync(Landing(packed).wait, "pld verify window")[1]
             self.forwards += 1
             preds_h, accepted = host[0, :k + 1], int(host[0, k + 1])
             self.pld_stats["windows"] += 1
@@ -1228,7 +1338,7 @@ class SlotDispatch:
     def wait(self) -> np.ndarray:
         """Block until the dispatch lands; returns the (steps, B) ids."""
         if self._out is None:
-            self._out = self._landing.wait()[2]
+            self._out = self._engine._sync(self._landing.wait, "slot step")[1][2]
             self.ready_at = time.perf_counter()
             self._engine.last_slot_dispatch_ms = (self.ready_at - self.enqueued_at) * 1e3
             obs_trace.record("slot_step", self.enqueued_at, self.ready_at,
@@ -1260,7 +1370,7 @@ class SlotVerifyDispatch:
     def wait(self) -> tuple[np.ndarray, np.ndarray]:
         """Block until the verify lands; returns ``(preds, accepted)``."""
         if self._out is None:
-            host = self._landing.wait()[2]
+            host = self._engine._sync(self._landing.wait, "slot verify")[1][2]
             self.ready_at = time.perf_counter()
             self._engine.last_slot_dispatch_ms = (self.ready_at - self.enqueued_at) * 1e3
             obs_trace.record("slot_verify", self.enqueued_at, self.ready_at, t=self.t)

@@ -113,7 +113,7 @@ import torch
 
 from ..device import upload
 from ..models.transformer import forward, forward_last, forward_slots, forward_slots_all
-from ..ops import attention, q8, q40
+from ..ops import COUNT_LOCK, attention, q8, q40
 from ..ops.attention import DevicePos, walk_bound, walk_bucket
 from ..sampling import sample_on_device
 from .decode_loop import verify_accept
@@ -398,20 +398,25 @@ class DecodeGraphs:
         g = self.graphs.get(key) if self.capture else None
         if g is not None:
             g.graph.replay()
-            add_counts(g.delta)
+            with COUNT_LOCK:
+                add_counts(g.delta)
             self.replays += 1
             return
         body()
         self.eager_steps += 1
         if self.capture:
-            # the capture empties the allocator's cache first; so does this,
-            # so the reserved bytes grow by the graph's own pool alone
-            torch.cuda.synchronize(self.device)
-            torch.cuda.empty_cache()
-            t0, pool0 = time.perf_counter(), torch.cuda.memory_reserved(self.device)
-            self.graphs[key] = self._capture(body)
-            self.cost[key] = (time.perf_counter() - t0,
-                              torch.cuda.memory_reserved(self.device) - pool0)
+            # one capture at a time in the process, and no launch counted
+            # on another thread meanwhile (several servers share it): the
+            # capture's counter delta is its own
+            with COUNT_LOCK:
+                # the capture empties the allocator's cache first; so does
+                # this, so the reserved bytes grow by the graph's own pool
+                torch.cuda.synchronize(self.device)
+                torch.cuda.empty_cache()
+                t0, pool0 = time.perf_counter(), torch.cuda.memory_reserved(self.device)
+                self.graphs[key] = self._capture(body)
+                self.cost[key] = (time.perf_counter() - t0,
+                                  torch.cuda.memory_reserved(self.device) - pool0)
 
     def _capture(self, body) -> _Captured:
         """Capture ``body`` once into a graph with its own memory pool on

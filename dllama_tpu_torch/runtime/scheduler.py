@@ -94,7 +94,12 @@ the ``dispatch_flops``/``dispatch_bytes`` families, per-request chip
 time, ``class_chip_ms``, the ``mfu``/``mbu`` gauges).  ``stats`` keeps
 this scheduler's own counts (the registry is the process's).
 
-Left out of the copy (``ROADMAP.md``): the fault points.
+Fault points (``runtime/faults.py``), where the JAX package fires them:
+``kv.spill`` before a slot's pages move to the host pool (a raise there
+abandons the spill and the ladder falls back to preemption, as the JAX
+package documents; its own loop dies there instead), ``sched.host_fanout``
+after a dispatch lands.
+A hand-off record carries the request's fleet trace id (``trace_id``).
 """
 
 from __future__ import annotations
@@ -116,6 +121,7 @@ from ..obs import metrics as obs_metrics, trace as obs_trace
 from ..obs.log import current_request_id, new_request_id, request_id_var
 from . import kvtier, snapshot as snapfmt
 from .engine import ContextOverflow, record_rng_kind
+from .faults import FAULTS
 from .pagepool import PagePool, PagePoolExhausted, RadixTree
 
 _log = logging.getLogger("dllama_tpu_torch.runtime.scheduler")
@@ -606,6 +612,7 @@ class SlotScheduler:
                 "fed": s.fed, "produced": s.produced, "last": s.last,
                 "priority": t.priority, "preempt_count": t.preempt_count,
                 "parked_ms": t.parked_ms, "spill_ms": t.spill_ms,
+                "trace_id": obs_trace.trace_of(t.rid),
             })
 
     def handoff_export_all(self) -> dict[str, bytes]:
@@ -738,6 +745,10 @@ class SlotScheduler:
                        priority=int(extra.get("priority", 1)),
                        top_k=int(extra.get("top_k", 0)))
             t.rid = str(extra.get("rid") or t.rid)
+            # the exporter's fleet trace id: the resumed request's spans here
+            # join the same trace
+            if extra.get("trace_id"):
+                obs_trace.set_trace(t.rid, str(extra["trace_id"]))
             t.stop = [str(x) for x in extra.get("stop") or []]
             t.emitted = list(completion)
             t.preempt_count = int(extra.get("preempt_count", 0))
@@ -1188,6 +1199,13 @@ class SlotScheduler:
         t = s.ticket
         n = len(s.pages)
         if not n or not self.host_pool.would_fit(n * self._page_nbytes):
+            return False
+        try:
+            FAULTS.fire("kv.spill")
+        except Exception as e:  # noqa: BLE001 — an injected failed drain
+            # the spill is abandoned and the ladder falls back (to
+            # preemption): honest queueing, never wrong bytes
+            _log.warning("kv spill of slot %d aborted: %r", slot_idx, e)
             return False
         t0 = time.perf_counter()
         with self._engine_lock:
@@ -1786,6 +1804,7 @@ class SlotScheduler:
             obs_trace.record("sched_step", cur.t0_mono, time.monotonic(), active=n_act,
                              queued=cur.queued, t=cur.t_width, steps=cur.steps,
                              overlapped=cur.overlapped, rids=sorted(rids.values()))
+        FAULTS.fire("sched.host_fanout")
         emitted = dict.fromkeys(cur.active, 0)
         # the fanout holds _cond: slot clocks and tickets are never seen
         # half-advanced from another thread

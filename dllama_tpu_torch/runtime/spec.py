@@ -27,14 +27,16 @@ round, ``reset`` at every flush point (retire, cancel, preemption park,
 hand-off export).  Wrong or absent drafts merely verify short: the
 emitted stream is the model's greedy output either way.
 
-Left out of the copy: the JAX package's ``spec.propose`` fault point and
-its reject-storm drill (``runtime/faults.py`` is not ported);
-:meth:`Proposer._storm` passes proposals unchanged.
+The ``spec.propose`` fault point (:meth:`Proposer._storm`, runtime/
+faults.py) fires before drafts are returned: its ``corrupt`` action is the
+JAX package's reject-storm drill.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from .faults import FAULTS
 
 # pre-feed width for draft-model catch-up (prompt replay, resumed
 # requests): bounded so the drafting dispatch rides a handful of
@@ -81,12 +83,19 @@ class Proposer:
     def reset_all(self) -> None:
         self._states.clear()
 
+    # -- fault injection -----------------------------------------------
     def _storm(self, want: dict[int, int],
                props: dict[int, list[int]]) -> dict[int, list[int]]:
-        """Where the JAX package fires its ``spec.propose`` fault point (the
-        reject-storm drill's ``corrupt`` action).  The port has no fault
-        points yet (``runtime/faults.py`` is not ported): the proposals
-        pass unchanged."""
+        """``spec.propose`` fault point: the ``corrupt`` action swaps
+        every wanted slot's proposal for adversarial tokens (off-by-one
+        from the last real token, so they near-never match the model's
+        argmax) — the reject-storm drill's worst case."""
+        if "corrupt" in FAULTS.fire("spec.propose"):
+            for slot, k in want.items():
+                st = self._states.get(slot)
+                seq = getattr(st, "seq", None) or [0]
+                props[slot] = [int((seq[-1] + 1 + j) % self.vocab)
+                               for j in range(k)]
         return props
 
 

@@ -54,6 +54,17 @@
 * speculative decoding (``--spec pld|draft``, ``--spec-k``,
   ``--draft-model``; needs ``--batch-slots``): the slot scheduler verifies
   each greedy slot's drafts in one step (``runtime/spec.py``).
+* robustness: ``--io-timeout`` (a stalled body read is a 408),
+  ``--drain-grace``, ``--step-timeout`` (a device step that does not land
+  in time fails its requests with 500 and marks the server degraded:
+  ``/health`` then answers 503 with ``status: "degraded"``, so a router
+  ejects it and a supervisor replaces the process), ``--numeric-checks``
+  (NaN/Inf logits: a 500, the conversation cache dropped, the engine
+  reset, and serving goes on), ``--verify-weights`` (checksum manifests,
+  ``io/integrity.py``); the fault points ``server.read_body`` and
+  ``server.emit_delta`` (``runtime/faults.py``).  The router's
+  ``X-Dllama-Trace`` (the fleet trace id) and ``X-Dllama-Hop`` headers are
+  adopted and echoed.
 """
 
 from __future__ import annotations
@@ -77,7 +88,8 @@ from ..obs import flight as obs_flight, metrics as obs_metrics, trace as obs_tra
 from ..io.integrity import ArtifactError
 from ..obs.log import get_logger, new_request_id, set_request_id
 from ..ops import attention, q8, q40
-from ..runtime.engine import ContextOverflow, Engine
+from ..runtime.engine import ContextOverflow, Engine, NumericFault, StepTimeout
+from ..runtime.faults import FAULTS
 from ..runtime.scheduler import (PRIORITY_LEVELS, PRIORITY_NAMES, SchedulerClosed,
                                  SchedulerSaturated, SlotScheduler)
 from ..runtime.snapshot import RecordStore, SnapshotMismatch
@@ -360,6 +372,18 @@ class ApiState:
         # a drain's export records wait here for GET /admin/export/<rid>;
         # unclaimed ones expire after handoff_ttl
         self.handoff_records = RecordStore(ttl=handoff_ttl, on_expire=self._handoff_expired)
+        #: device steps that outlived --step-timeout; any makes the server
+        #: degraded for good (the card may be wedged)
+        self.step_timeouts = 0
+
+    def note_step_timeout(self, err: StepTimeout) -> None:
+        """A device step outlived the watchdog: from now on ``/health``
+        answers 503 ``degraded``, so a router ejects this server and a
+        supervisor replaces its process."""
+        with self._admit_lock:
+            self.step_timeouts += 1
+        _log.error("step timeout; this server is degraded: %s", err)
+        obs_events.emit("degraded", reason="step_timeout", error=str(err))
 
     def _handoff_expired(self, rid: str) -> None:
         obs_metrics.HANDOFF_EXPIRED.inc()
@@ -535,8 +559,9 @@ class ApiState:
         eng = self.engine
         in_flight, queued = self.queue_depths()
         occ = self.scheduler.occupancy() if self.scheduler is not None else None
+        degraded = self.step_timeouts > 0
         return {
-            "status": "draining" if self.draining else "ok",
+            "status": "degraded" if degraded else "draining" if self.draining else "ok",
             "ready": True,  # the model loads before serve() binds the port
             "model": self.model_name,
             "backend": eng.device.type,
@@ -564,6 +589,10 @@ class ApiState:
             "max_pending": self.max_pending,
             "uptime_s": round(time.time() - self.metrics.started_at, 3),
             **self.metrics.snapshot(),
+            # a device step outlived --step-timeout (the JAX package's key
+            # there is its kernel-degrade ledger, which the port has not)
+            "degraded": degraded,
+            "degrade_reasons": {"step_timeout": self.step_timeouts} if degraded else {},
             "launches": {
                 **{name: {k: v for k, v in mod.counters().items() if isinstance(v, int)}
                    for name, mod in (("q40", q40), ("q8", q8))},
@@ -1177,6 +1206,16 @@ def make_handler(state: ApiState):
             client = self.headers.get("X-Request-Id") or ""
             self._rid = _RID_RE.sub("", client)[:_RID_MAX] or new_request_id()
             set_request_id(self._rid)
+            # a router hop stamps X-Dllama-Hop (its instance id: the flight
+            # record links back to the router's ring) and X-Dllama-Trace (the
+            # fleet trace id, bound to the rid so the scheduler's spans for
+            # this request carry it too)
+            hop = self.headers.get("X-Dllama-Hop") or ""
+            self._hop = _RID_RE.sub("", hop)[:_RID_MAX] or None
+            self._trace = obs_trace.sanitize_trace_id(self.headers.get("X-Dllama-Trace"))
+            obs_trace.trace_id_var.set(self._trace)
+            if self._trace:
+                obs_trace.set_trace(self._rid, self._trace)
             # the class from the transport header (a router relays it); the
             # body field overrides it in do_POST, and an unknown header value
             # falls back to the default rather than failing the request
@@ -1187,6 +1226,8 @@ def make_handler(state: ApiState):
         def _rid_header(self) -> None:
             if getattr(self, "_rid", None):
                 self.send_header("X-Request-Id", self._rid)
+            if getattr(self, "_trace", None):
+                self.send_header("X-Dllama-Trace", self._trace)
 
         def _send(self, code: int, data: bytes, content_type: str,
                   headers: dict | None = None):
@@ -1226,6 +1267,7 @@ def make_handler(state: ApiState):
                     return
                 try:
                     e0 = time.perf_counter()
+                    FAULTS.fire("server.emit_delta")  # disconnect: a client gone
                     self.wfile.write(f"data: {json.dumps(chunk)}\n\n".encode())
                     self.wfile.flush()
                     obs_trace.record("emit", e0, time.perf_counter())
@@ -1258,8 +1300,10 @@ def make_handler(state: ApiState):
 
         def _read_body(self) -> dict | None:
             """Read and parse the JSON body; None when a response
-            (408/400/413) was already sent or the client vanished."""
+            (408/400/413) was already sent or the client vanished.  The
+            ``server.read_body`` fault point stands in for a stalled client."""
             try:
+                FAULTS.fire("server.read_body")
                 length = int(self.headers.get("Content-Length", 0) or 0)
                 if length > MAX_BODY_BYTES:
                     self.close_connection = True
@@ -1304,7 +1348,9 @@ def make_handler(state: ApiState):
                     "id": state.model_name, "object": "model",
                     "created": int(time.time()), "owned_by": "user"}]})
             elif path in ("/health", "/healthz"):
-                self._json(200, state.health())
+                health = state.health()
+                # a degraded server fails the probe: routers eject it
+                self._json(503 if health["degraded"] else 200, health)
             elif path == "/metrics":
                 # one registry, two formats: Prometheus text 0.0.4 when
                 # asked for (Accept or ?format), else the JSON dict with this
@@ -1968,7 +2014,10 @@ def make_handler(state: ApiState):
             timer = _StreamTimer(rid=self._rid)
             # the flight record opens at admission; the scheduler merges its
             # per-dispatch detail into it by request ID
-            obs_flight.submit(self._rid, path=path, priority=prio_name)
+            if self._hop:
+                obs_flight.submit(self._rid, path=path, priority=prio_name, hop=self._hop)
+            else:
+                obs_flight.submit(self._rid, path=path, priority=prio_name)
             self._record = None
             ok = False
             try:
@@ -2026,6 +2075,22 @@ def make_handler(state: ApiState):
             except (BrokenPipeError, ConnectionResetError):
                 state.metrics.bump("client_disconnects")
                 self.close_connection = True
+            except NumericFault as e:
+                # NaN/Inf logits (--numeric-checks): the KV cache may be
+                # poisoned, so resuming is not safe — drop the conversation
+                # cache and the position; the request gets a 500 and the
+                # server keeps serving fresh conversations
+                state.metrics.bump("server_errors")
+                state.naive_cache.clear()
+                state.engine.reset()
+                self._maybe_500(e)
+                _log.error("numeric fault on %s: %s", path, e)
+                raise  # surface in the server log — corruption is a page
+            except StepTimeout as e:
+                state.metrics.bump("server_errors")
+                state.note_step_timeout(e)
+                self._maybe_500(e)
+                raise
             except Exception as e:
                 state.metrics.bump("server_errors")
                 self._maybe_500(e)
@@ -2134,7 +2199,7 @@ def build_state(args, slo=None, stack=None) -> ApiState:
                               else engine.cache.k.dtype,
                               device=engine.device, batch=args.batch_slots,
                               kv_pages=args.kv_pages, kv_page_size=args.kv_page_size,
-                              mesh=engine.mesh)
+                              mesh=engine.mesh, step_timeout=args.step_timeout)
         try:
             spec = None
             if args.spec != "off":
@@ -2165,7 +2230,8 @@ def build_state(args, slo=None, stack=None) -> ApiState:
     state = ApiState(engine, tok, default_temperature=args.temperature,
                      default_topp=args.topp, chunk=args.chunk,
                      batch_engine=batch_engine, max_pending=args.max_pending,
-                     request_timeout=args.request_timeout, scheduler=scheduler,
+                     request_timeout=args.request_timeout, io_timeout=args.io_timeout,
+                     drain_grace=args.drain_grace, scheduler=scheduler,
                      slo=slo, snapshot_dir=args.snapshot_dir, handoff=args.handoff,
                      handoff_ttl=args.handoff_ttl)
     if args.snapshot_dir:

@@ -75,24 +75,33 @@ def test_inference_prints_stats(model_files):
     # --pld is ported since: the case keeps its id and names --sp alone
     pytest.param(["generate", "--pld", "4", "--sp", "2"], "--sp", id="extra2---sp, --pld"),
     # this case's flags are ported now: it keeps its name and holds that,
-    # beside them, the serving flags still outside the port are named
+    # beside them, the flags still outside the port are named (--step-timeout
+    # is ported since the fleet slice: --sp stands in for it)
     pytest.param(["generate", "--kv-reserve", "optimistic", "--snapshot-dir", "x",
-                  "--spec", "pld", "--step-timeout", "5"], "--step-timeout",
+                  "--spec", "pld", "--step-timeout", "5", "--sp", "2"], "--sp",
                  id="extra3---kv-reserve, --snapshot-dir"),
-    (["router", "--backends", "127.0.0.1:1"], "mode 'router', --backends"),
-    (["serve-pod", "--supervise"], "mode 'serve-pod', --supervise"),
+    # the router and serve-pod modes and their flags are ported since: each
+    # case keeps its id and names the elastic flags beside them, still out
+    pytest.param(["router", "--backends", "127.0.0.1:1", "--elastic"], "--elastic",
+                 id="extra4-mode 'router', --backends"),
+    pytest.param(["serve-pod", "--supervise", "--dp", "2", "--pod-devices", "4"],
+                 "--pod-devices", id="extra5-mode 'serve-pod', --supervise"),
     (["generate", "--dequantize", "--weights-float-type", "q40"],
      "--weights-float-type, --dequantize"),
     # the profiling flags are ported since: the case keeps its id and runs
     # them beside a flag still outside the port
-    pytest.param(["inference", "--profile-split", "--profile-ops", "--numeric-checks"],
-                 "--numeric-checks", id="extra7---profile-split, --profile-ops"),
+    pytest.param(["inference", "--profile-split", "--profile-ops", "--numeric-checks",
+                  "--dequantize"], "--dequantize", id="extra7---profile-split, --profile-ops"),
     (["worker", "--coordinator", "h:1", "--nproc", "2", "--proc-id", "1",
       "--program", "chat"], "--coordinator, --nproc, --proc-id, --program"),
     (["generate", "--elastic", "--pod-devices", "4", "--max-replicas", "2"],
      "--elastic, --pod-devices, --max-replicas"),
-    (["generate", "--stall-timeout", "5", "--checkpoint-interval", "1",
-      "--resume-policy", "never"], "--stall-timeout, --checkpoint-interval, --resume-policy"),
+    pytest.param(["generate", "--stall-timeout", "5", "--checkpoint-interval", "1",
+                  "--resume-policy", "never", "--elastic-interval", "1", "--scale-up-util",
+                  "0.5", "--reshape-kv-low", "0.1"],
+                 "--elastic-interval, --scale-up-util, --reshape-kv-low",
+                 id="extra10---stall-timeout, --checkpoint-interval, --resume-policy"),
+    (["generate", "--dp", "2"], "--dp (outside serve-pod)"),
 ])
 def test_unported_flags_exit_naming_them(model_files, extra, named):
     m, t = model_files
@@ -100,12 +109,44 @@ def test_unported_flags_exit_naming_them(model_files, extra, named):
     assert r.returncode != 0
     assert "not yet ported" in r.stderr and named in r.stderr
     msg = r.stderr.split("not yet ported to dllama_tpu_torch: ", 1)[1].split(" (run", 1)[0]
-    assert not set(msg.split(", ")) & PORTED_SINCE, msg
+    assert not set(msg.split(", ")) & (PORTED_SINCE | FLEET_FLAGS), msg
 
 
 # flags the port carries since speculative decoding and profiling came over
 PORTED_SINCE = {"--pld", "--spec", "--spec-k", "--draft-model", "--profile-split",
                 "--profile-ops"}
+# and since the fleet came over (router, serve-pod, the robustness flags)
+FLEET_FLAGS = {"--backends", "--probe-interval", "--eject-after", "--readmit-after",
+               "--router-retries", "--upstream-timeout", "--stall-timeout",
+               "--checkpoint-interval", "--resume-policy", "--supervise", "--respawn-max",
+               "--respawn-window", "--io-timeout", "--drain-grace", "--step-timeout",
+               "--numeric-checks", "--verify-weights"}
+
+
+def test_fleet_modes_and_flags_left_the_refusal_lists():
+    """``router`` and ``serve-pod`` left ``NOT_PORTED_MODES``, and the
+    fleet's flags (with ``--dp``, for serve-pod) left ``NOT_PORTED_FLAGS``;
+    nothing else did.  They parse with the JAX CLI's defaults."""
+    from dllama_tpu.cli import build_parser as jparser
+    from dllama_tpu_torch import cli
+    assert cli.NOT_PORTED_MODES == ("worker",)
+    assert {"router", "serve-pod"} <= set(cli.MODES)
+    assert set(cli.NOT_PORTED_FLAGS) == {
+        "--weights-float-type", "--dequantize", "--coordinator", "--nproc", "--proc-id",
+        "--program", "--elastic", "--pod-devices", "--min-replicas", "--max-replicas",
+        "--elastic-interval", "--elastic-window", "--elastic-cooldown", "--scale-up-util",
+        "--scale-down-util", "--scale-up-queue", "--reshape-kv-low"}
+    args = cli.build_parser().parse_args(["serve-pod"])
+    jargs = jparser().parse_args(["serve-pod"])
+    for flag in sorted(FLEET_FLAGS | {"--dp"}):
+        key = flag[2:].replace("-", "_")
+        assert getattr(args, key) == getattr(jargs, key), flag
+    assert cli.not_ported(cli.build_parser().parse_args(
+        ["serve-pod", "--dp", "2", "--supervise", "--respawn-max", "2", "--stall-timeout",
+         "3", "--checkpoint-interval", "0.5", "--step-timeout", "9", "--numeric-checks",
+         "--verify-weights", "--io-timeout", "3", "--drain-grace", "1"])) == []
+    assert cli.not_ported(cli.build_parser().parse_args(
+        ["router", "--backends", "h:1,h:2", "--probe-interval", "0.5"])) == []
 
 
 def test_spec_and_profile_flags_are_accepted():
@@ -299,7 +340,9 @@ for name in ("server.api", "runtime.scheduler", "runtime.pagepool", "runtime.str
              "tokenizer.chat", "tokenizer.eos", "server.backoff", "ops.q8",
              "obs.log", "obs.metrics", "obs.trace", "obs.events", "obs.flight",
              "obs.slo", "obs.dispatch", "runtime.snapshot", "runtime.kvtier",
-             "io.integrity", "obs.cost", "runtime.spec", "runtime.profiling"):
+             "io.integrity", "obs.cost", "runtime.spec", "runtime.profiling",
+             "runtime.faults", "router.registry", "router.fleet", "router.service",
+             "router.pod"):
     assert "dllama_tpu_torch." + name in sys.modules, name
 from dllama_tpu_torch import cli
 for model in ({m!r}, {moe!r}):
@@ -322,6 +365,15 @@ for path in ("/metrics", "/metrics?format=prometheus", "/debug/trace", "/debug/e
              "/debug/requests", "/debug/timeline", "/health"):
     assert urllib.request.urlopen(base + path, timeout=60).status == 200, path
 api.stop(srv)
+from dllama_tpu_torch.router import pod
+p = pod.start(cli.build_parser().parse_args(
+    ["serve-pod", "--model", {m!r}, "--tokenizer", {t!r}, "--device", "cpu", "--dp", "2",
+     "--host", "127.0.0.1", "--port", "0", "--batch-slots", "2", "--kv-pages", "40",
+     "--kv-page-size", "4", "--probe-interval", "0.2"]))
+req = urllib.request.Request(f"http://127.0.0.1:{{p.port}}/v1/completions",
+                             json.dumps({{"prompt": "hi", "max_tokens": 4}}).encode())
+assert urllib.request.urlopen(req, timeout=60).status == 200
+p.stop()
 bad = sorted(k for k in sys.modules
              if k.split(".")[0] in ("jax", "jaxlib", "dllama_tpu", "ml_dtypes"))
 print("FOREIGN", bad)
@@ -345,7 +397,9 @@ def test_static_scan_finds_no_foreign_imports():
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 15
     for new in ("runtime/snapshot.py", "runtime/kvtier.py", "io/integrity.py", "obs/cost.py",
-                "runtime/spec.py", "runtime/profiling.py"):
+                "runtime/spec.py", "runtime/profiling.py", "runtime/faults.py",
+                "router/__init__.py", "router/__main__.py", "router/registry.py",
+                "router/fleet.py", "router/service.py", "router/pod.py"):
         assert os.path.join(PORT, *new.split("/")) in files, new
     hits = []
     for f in files:

@@ -78,11 +78,18 @@ def paged_engine(weights, kv_pages=None, **kw):
 
 def run_sched(weights, kv_pages=None, kv_dtype=None, **kw):
     """Three greedy requests through a 2-slot scheduler; returns (token
-    lists, final occupancy)."""
+    lists, final occupancy).  As in ``_decisions``, the three are queued
+    at once under the scheduler's lock, ``max_wait_ms`` is out of reach and
+    aging is off, so the rounds do not depend on how loaded the machine
+    is: a test thread descheduled between two submissions would let the
+    first request run alone and finish, and no pressure would build."""
+    kw = {"max_wait_ms": 1e9, "preempt_age_ms": 0.0, **kw}
     sched = SlotScheduler(paged_engine(weights, kv_pages, kv_dtype=kv_dtype),
                           prefill_chunk=8, decode_burst=4, **kw)
     try:
-        tickets = [sched.submit(list(p), max_new=MAX_NEW, temperature=0.0) for p in PROMPTS]
+        with sched._cond:
+            tickets = [sched.submit(list(p), max_new=MAX_NEW, temperature=0.0)
+                       for p in PROMPTS]
         outs = [list(t.tokens()) for t in tickets]
         sched.pool.check()
         return outs, sched.occupancy()
