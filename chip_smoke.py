@@ -23,6 +23,14 @@ Phases (each prints its seconds; any failure exits non-zero):
    L2, and an empty kernel the same way (the timing's floor).  2b: a
    rank's shapes at tp = 2.  2c: the decode body as a decode token meets
    it, each stacked 7B site over 32 planes back to back, Q40 and Q80.
+2v. the fma, folded and exact dequant bodies of kernels 1-2
+   (DLLAMA_Q40_VARIANT) against their plain versions (``matmul_plain(...,
+   variant=...)``) at the five 7B sites, stacked planes at layers 0 and
+   L-1, t in {1, 4, 8, 9, 16, 128}, both bodies at every t, and the ragged
+   shape at t = 17: max|kernel - plain| <= KERNEL_TOL * max|plain|.  At t =
+   1, 16 and 128 each variant and classic timed side by side on the same
+   inputs (the routed body, cold L2) beside the plain version, the bound
+   and torch.matmul on the dequantized weight.
 3. the main path at full width: a Llama-2-7B-shaped Q40 model synthesized
    from a seed (random nibbles, constant f16 scale 0.008; no weights needed),
    ``inference --temperature 0 --steps 64 --chunk 16 --warmup 16`` on cuda
@@ -35,6 +43,15 @@ Phases (each prints its seconds; any failure exits non-zero):
    one greedy stream with the engine's graphs on and off: the same tokens
    byte for byte, the same launch counters, each pass's ms/token.  Phases
    10, 11 and 14 do the same.
+3v. the dequant variants on the main path, each in a child process with
+   ``DLLAMA_Q40_VARIANT`` set (read when ``ops.q40`` is imported):
+   ``exact`` on phase 3's file (7B width and depth), ``folded`` and ``fma``
+   on the 8-layer file of phases 14, 17 and 23b, each as phase 3 (every
+   Q40 launch under the variant, 4 L + 1 a forward, 0 plain; a
+   single-token forward on the decode body, the 16-row prompt bucket on
+   the tensor-core body; ms/token, the profile, graphs on and off, a greedy
+   repeat byte for byte), then the phase-5 model's kernel path against its
+   plain path under the variant.
 4. a few requests: ``generate`` with three prompts, two greedy (each run
    twice, byte-identical) and one at temperature 0.8 seed 1; every run ends
    on finite logits.  On the phase-5 model (7B width, 2 layers): five
@@ -102,8 +119,8 @@ Phases (each prints its seconds; any failure exits non-zero):
    8, 12, 16, 24, 32, 128}, both of its bodies (the decode and the tensor-core body:
    the crossover that sets q8.T_MMA) checked and timed, the routed one
    reported: the five 7B sites, Mixtral's wqkv and experts (up/gate
-   4096->14336, down 14336->4096) in an (8 layers, 8 experts) stack at
-   flat indices 0 and 63, Grok-1's experts (6144->32768, 32768->6144) in a
+   4096->14336, down 14336->4096) in an (MIXTRAL_LAYERS, 8 experts) stack
+   at flat indices 0 and its last, Grok-1's experts (6144->32768, 32768->6144) in a
    (2, 8) stack, a rank's 7B sites at tp = 2, and a ragged shape (n = 4128,
    n/32 odd; d = 1000; t = 17) for the tensor-core body's masks; the
    expert planes addressed by an int32 index on the card.  Then the Q40
@@ -116,8 +133,9 @@ Phases (each prints its seconds; any failure exits non-zero):
    matmuls on the tensor-core body; the profiler split and the peak
    memory.
 11. Mixtral-8x7B (mistralai/Mixtral-8x7B-v0.1's published shape) in Q40,
-   cut to 8 of its 32 layers, context cut to 4096: ``inference`` as in
-   phase 3 with exactly 8 * 8 + 1 = 65 Q40 launches a single-token forward
+   cut to 4 of its 32 layers (MIXTRAL_LAYERS; 8 until the dequant-variant
+   slice), context cut to 4096: ``inference`` as in phase 3 with exactly
+   8 * 4 + 1 = 33 Q40 launches a single-token forward
    (wqkv, wo, 2 experts x 3 a layer, wcls) and no plain call; the
    decode-route MoE FFN (1 and 3 tokens) under
    ``torch.cuda.set_sync_debug_mode("error")``, so the experts chosen on
@@ -216,12 +234,15 @@ Phases (each prints its seconds; any failure exits non-zero):
    largest logit difference, top-5 ids where the margin decides), prefill
    + 8 teacher-forced steps on the contiguous int8 cache kernel against
    plain, and a greedy stream on the int8 cache with graphs on and off.
-3q. ``inference --kv-cache-dtype q8`` at Llama-2-7B width and depth, as
-   phase 3 (129 launches a forward, the profile, graphs on and off).
+3q. ``inference --kv-cache-dtype q8`` at Llama-2-7B width cut to 8 layers
+   (CUT_LAYERS; 32 until the dequant-variant slice), the file of phases 14,
+   17 and 23b, as phase 3 (33 launches a forward, the profile, graphs on
+   and off).
 
-21. state off the card and back, at Llama-2-7B width and depth (phase 3's
-   file, loaded once; every server of the phase has its own caches over
-   those weights, phase 7's arguments):
+21. state off the card and back, at Llama-2-7B width cut to 8 layers
+   (CUT_LAYERS; full depth until the dequant-variant slice), the file of
+   phases 14, 17 and 23b, loaded once; every server of the phase has its
+   own caches over those weights, phase 7's arguments:
    21a snapshots: on a bf16 and an int8 pool, a greedy chat, a drain with
    ``--snapshot-dir`` and a second server booted from it: its chat reuses
    the restored prefix (the prefill kernel and kernel 7 read the restored
@@ -254,9 +275,10 @@ Phases (each prints its seconds; any failure exits non-zero):
    re-captured after it; tok/s of all four, spill and page-in ms a page.
    21b's import, 21c's resumes and 21a's restores capture no new graph.
 
-22. speculative decoding and the roofline gauges at Llama-2-7B width and
-   depth (phase 3's Q40 file, one load for the phase): 22a ``inference
-   --pld 4 --profile-split --profile-ops`` on a repetitive prompt (129 Q40
+22. speculative decoding and the roofline gauges at Llama-2-7B width cut
+   to 8 layers (CUT_LAYERS; full depth until the dequant-variant slice;
+   the 8-layer Q40 file, one load for the phase): 22a ``inference --pld 4
+   --profile-split --profile-ops`` on a repetitive prompt (4 L + 1 Q40
    launches a forward, prompt-lookup windows replaying their captured
    graph; the profile of graph replays names the Q40 kernel), then on the
    same engine the PLD stream and plain greedy decode twice each in turns:
@@ -303,8 +325,8 @@ Phases (each prints its seconds; any failure exits non-zero):
    ``DLLAMA_FAULTS=engine.device_step=delay:30x1``: a 500 (StepTimeout), the
    router's ejection, a ``hung`` respawn.
 
-They run in the order 1, 2, 13, 9, 6, 6c, 16, 3, 17, 4, 5, 8, 15, 20b, 18,
-7, 20, 3q, 21, 22, 23, 14, 10, 11, 12, 19; each synthesized model is deleted
+They run in the order 1, 2, 2v, 13, 9, 6, 6c, 16, 3, 3v, 17, 4, 5, 8, 15, 20b,
+18, 7, 20, 3q, 21, 22, 23, 14, 10, 11, 12, 19; each synthesized model is deleted
 when its phases end.  The script prints its whole time on its last line but
 two.
 ``--only 1,6c`` runs a subset of the phases (for bring-up; it prints no
@@ -348,12 +370,13 @@ E2E_TOL = 3e-2
 
 LLAMA2_7B = dict(dim=4096, hidden_dim=11008, n_layers=32, n_heads=32,
                  n_kv_heads=32, vocab_size=32000, seq_len=4096, rope_theta=10000.0)
-# mistralai/Mixtral-8x7B-v0.1's published config; run cut to 8 of its 32
-# layers (a ~7 GB file to write and load) and to a 4096-token context
+# mistralai/Mixtral-8x7B-v0.1's published config; run cut to 4 of its 32
+# layers (a ~3.5 GB file to write and load; 8 until the dequant-variant
+# slice) and to a 4096-token context
 MIXTRAL_8X7B = dict(dim=4096, hidden_dim=14336, n_layers=32, n_heads=32,
                     n_kv_heads=8, n_experts=8, n_active_experts=2,
                     vocab_size=32000, seq_len=32768, rope_theta=1e6)
-MIXTRAL_LAYERS = 8
+MIXTRAL_LAYERS = 4
 MIXTRAL_CTX = "4096"
 SRC = "dllama_tpu_torch/ops/csrc/q40_matmul.cu"
 Q8_SRC = "dllama_tpu_torch/ops/csrc/q8_matmul.cu"
@@ -391,6 +414,12 @@ MIX_ROWS = (1, 8, 16, 128)
 # rows of the JSON line: the routed body at t = 1, 16 and 128 (the last two
 # the tensor-core body, launched by the main paths' prefills)
 JSON_ROWS = (1, 16, 128)
+# the Q40 dequant variants of kernels 1-2 other than classic
+# (DLLAMA_Q40_VARIANT; phases 2v and 3v), each held to its plain version
+# at the 7B sites in both bodies at these rows (t = 8 the decode body's
+# widest, 9 the tensor-core body's narrowest), and the ragged shape
+VARIANTS = ("fma", "folded", "exact")
+VARIANT_ROWS = (1, 4, 8, 9, 16, 128)
 # phase 20's scoring forwards: 8 sequences in a 512-token bucket, so every
 # matmul of the forward, wcls among them, runs at 4096 rows
 SCORE_B, SCORE_T = 8, 512
@@ -635,6 +664,158 @@ def decode_sequence(codec, dev, layers: int = 32) -> dict:
     return out
 
 
+def check_variants(q40, dev) -> dict:
+    """Phase 2v: each dequant variant of kernels 1-2 (fma, folded, exact)
+    against its plain version (``matmul_plain(variant=...)``) at the five 7B
+    sites (stacked planes at layers 0 and L-1, wcls flat) for t in
+    VARIANT_ROWS and at the ragged shape (t = 17), both bodies at every t:
+    max|kernel - plain| <= KERNEL_TOL * max|plain|.  Then, at t in
+    JSON_ROWS, each variant and classic timed side by side on the same
+    inputs (the routed body, cold L2), beside the plain version, the bound
+    and torch.matmul on the dequantized bf16 weight.  Returns {(variant,
+    site, t): numbers} for the JSON line."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(5)
+    flush = torch.ones(16 << 20, dtype=torch.float32, device=dev)
+    warm_clocks(dev)
+    out = {}
+    print("site           t  variant  route  kernel_ms  plain_ms  library_ms  bound_ms(by)  "
+          "max_abs_err  rel       gemv_rel  mma_rel")
+    for site, n, d, lead in LLAMA_SITES + RAGGED:
+        qt = random_planes(q40, lead, n, d, g, dev)
+        layers = (0, lead[0] - 1) if lead else (None,)
+        w_lib = q40.dequantize(qt, torch.bfloat16, layer=layers[-1])
+        for t in RAGGED_ROWS if site == "ragged" else VARIANT_ROWS:
+            x = torch.randn((t, n), generator=g, device=dev).to(torch.bfloat16)
+            timed = t in JSON_ROWS and site != "ragged"
+            l_ms = cold_ms(lambda: torch.matmul(x, w_lib), 20, flush) if timed else None
+            b_ms, by = bound(t, n, d)
+            for v in ("classic",) + VARIANTS:
+                rel = {"gemv": 0.0, "mma": 0.0}
+                err = scale = 0.0
+                for layer in layers if v != "classic" else ():  # classic: phase 2
+                    p = q40.matmul_plain(x, qt, layer, variant=v)
+                    sc = float(p.abs().max())
+                    for body in ("gemv", "mma"):
+                        k = q40.q40_matmul(x, qt.qpacked, qt.scales, n, layer, body=body,
+                                           variant=v)
+                        torch.cuda.synchronize()
+                        e = float((k - p).abs().max())
+                        if not (torch.isfinite(k).all() and e <= KERNEL_TOL * sc):
+                            raise AssertionError(
+                                f"{v} {site} t={t} index={layer} body={body}: "
+                                f"max|kernel-plain| {e} > {KERNEL_TOL} * {sc}")
+                        rel[body] = max(rel[body], e / sc)
+                        if body == q40.route(t) and e >= err:
+                            err, scale = e, sc
+                if not timed:
+                    if v != "classic":
+                        print(f"{site:12s} {t:4d} {v:8s} {q40.route(t):5s} {'':>10s} "
+                              f"{'':>9s} {'':>11s} {'':>13s} {err:12.6g} "
+                              f"{err / scale:.2e}  {rel['gemv']:.2e}  {rel['mma']:.2e}")
+                    continue
+                layer = layers[-1]
+                k_ms = cold_ms(lambda: q40.q40_matmul(x, qt.qpacked, qt.scales, n, layer,
+                                                      variant=v), 20, flush)
+                p_ms = cold_ms(lambda: q40.matmul_plain(x, qt, layer, variant=v), 5, flush)
+                print(f"{site:12s} {t:4d} {v:8s} {q40.route(t):5s} {k_ms:10.4f} {p_ms:9.4f} "
+                      f"{l_ms:11.4f} {b_ms:9.4f}({by[0]}) {err:12.6g} "
+                      f"{err / scale if scale else 0.0:.2e}  {rel['gemv']:.2e}  "
+                      f"{rel['mma']:.2e}")
+                key = (("mma",) if q40.route(t) == "mma" else ()) + (n, d)
+                out[(v, site, t)] = dict(replaces=Q40_REPLACES[1 if lead else 0],
+                                         max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+                                         bound_ms=b_ms, bound_by=by, library_ms=l_ms,
+                                         key=key if v == "classic" else key + (v,))
+        del qt, w_lib
+    for t in JSON_ROWS:
+        row = {v: sum(r["ms"] for (v_, s_, t_), r in out.items()
+                      if v_ == v and t_ == t and s_ != "wcls")
+               for v in ("classic",) + VARIANTS}
+        print(f"a 7B layer's four matmuls at t = {t}: " + ", ".join(
+            f"{v} {ms:.4f} ms" for v, ms in row.items()))
+    del flush
+    torch.cuda.empty_cache()
+    return out
+
+
+def variant_path(variant: str, m: str, t: str, n_layers: int, m2: str) -> dict:
+    """Phase 3v: ``DLLAMA_Q40_VARIANT=variant`` in a child process (the
+    variant is read when ``ops.q40`` is imported, as the JAX package reads
+    it), which runs :func:`variant_child` on the Q40 file ``m`` of
+    ``n_layers`` layers and the 2-layer file ``m2``.  Prints the child's
+    report and returns its numbers; raises when it fails."""
+    env = dict(os.environ, DLLAMA_Q40_VARIANT=variant)
+    r = subprocess.run([sys.executable, "-c", "import sys, chip_smoke; "
+                        "sys.exit(chip_smoke.variant_child(*sys.argv[1:]))",
+                        m, t, str(n_layers), m2], cwd=REPO, env=env, capture_output=True,
+                       text=True, timeout=900)
+    lines = r.stdout.splitlines()
+    print("\n".join(ln for ln in lines if not ln.startswith('{"variant_run"')))
+    if r.returncode != 0:
+        print(r.stderr[-6000:], file=sys.stderr)
+        raise AssertionError(f"the {variant} path failed (exit {r.returncode})")
+    res = json.loads(next(ln for ln in lines if ln.startswith('{"variant_run"')))
+    res = res["variant_run"]
+    res["counts"]["launches_by_shape"] = {tuple(k): n for k, n in
+                                          res["counts"]["launches_by_shape"]}
+    return res
+
+
+def variant_child(m: str, t: str, n_layers: str, m2: str) -> int:
+    """Phase 3v's child process, with ``DLLAMA_Q40_VARIANT`` set: the main
+    path (``inference --temperature 0 --steps 64 --chunk 16`` through the
+    CLI, graphs on) on ``m`` with exactly 4 * n_layers + 1 Q40 launches a
+    forward, every one under the variant and none plain; a single-token
+    forward all on the decode body, the 16-row prompt bucket's on the
+    tensor-core body; ms/token, the profile, graphs on and off, a greedy
+    repeat (phase 3's checks); then the 2-layer model's kernel path against
+    its plain path under the variant (phase 5).  Prints a ``variant_run``
+    JSON line last."""
+    sys.path.insert(0, REPO)
+    from dllama_tpu_torch import cli
+    from dllama_tpu_torch.io import mfile
+    from dllama_tpu_torch.models import config, params as params_mod, transformer
+    from dllama_tpu_torch.ops import _build, q40
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.load()
+    dev = torch.device("cuda", 0)
+    v = q40.check_variant()
+    per_fwd = 4 * int(n_layers) + 1
+    print(f"DLLAMA_Q40_VARIANT={v}: q40.KERNEL_VARIANT = {q40.KERNEL_VARIANT}")
+    run, eng = main_path(cli, q40, m, t, lambda e: per_fwd * e.forwards, keep=True)
+    c = run["counts"]
+    by_var = q40.launches_by_variant(c["launches_by_shape"])
+    mma_keys = {k: n for k, n in c["launches_by_shape"].items() if k[0] == "mma"}
+    if by_var != {v: c["kernel_launches"]} or c["plain_calls"] or not mma_keys \
+            or any(k[-1] != v for k in mma_keys):
+        raise AssertionError(f"the {v} path: launches by variant {by_var}, plain "
+                             f"{c['plain_calls']}, tensor-core keys {mma_keys}")
+    q40.reset_counters()
+    eng.decode_one(5)
+    one = q40.counters()
+    if (one["kernel_launches"], one["mma_launches"], one["plain_calls"]) != (per_fwd, 0, 0) \
+            or q40.launches_by_variant(one["launches_by_shape"]) != {v: per_fwd}:
+        raise AssertionError(f"a single-token {v} forward: {one}")
+    print(f"{v}: {c['kernel_launches']} Q40 launches over {eng.forwards} forwards "
+          f"({per_fwd} a forward), all {v}, 0 plain; a single-token forward: {per_fwd} on "
+          f"the decode body; the prompt forwards: {c['mma_launches']} on the tensor-core body")
+    greedy_repeat(eng)
+    del eng
+    torch.cuda.empty_cache()
+    small = load_bf16(mfile, params_mod, config, m2, dev)
+    end_to_end(transformer, *small, dev, f"7B width, 2 layers, bf16, {v}")
+    del small
+    c["launches_by_shape"] = [[list(k), n] for k, n in c["launches_by_shape"].items()]
+    print(json.dumps({"variant_run": dict(variant=v, layers=int(n_layers), counts=c,
+                                          **{k: run[k] for k in ("tok_s", "ms_token",
+                                                                 "peak_bytes", "busy_ms",
+                                                                 "idle", "ms_on", "ms_off")
+                                             if k in run})}))
+    return 0
+
+
 def synth_model(path_m: str, n_layers: int, mfile, quants, fresh: bool = False,
                 dims: dict = LLAMA2_7B, ftype: int | None = None,
                 boost_rows: dict | None = None) -> None:
@@ -758,8 +939,9 @@ def main_path(cli, codec, m: str, t: str, want, extra: tuple = (),
 def matmul_kernel(name: str, codec_name: str) -> bool:
     """Is profiler kernel ``name`` one of the ``codec_name`` (q40 or q8)
     kernel's: its tensor-core body and split reduce (``q40_...``), or its
-    decode body (``gemv_kernel<(anonymous namespace)::Q4, ...>``)?"""
-    codec_tag = {"q40": "::Q4,", "q8": "::Q8,"}[codec_name]
+    decode body (``gemv_kernel<(anonymous namespace)::Q4V<v>, ...>``, v the
+    dequant variant; Q80's ``...::Q8, ...``)?"""
+    codec_tag = {"q40": "::Q4V<", "q8": "::Q8,"}[codec_name]
     return f"{codec_name}_" in name or codec_tag in name
 
 
@@ -3318,7 +3500,7 @@ def tier_path(api, attention, m, t, stack) -> dict:
 
 
 def state_movement(api, cli, attention, q40, snapfmt, m: str, t: str, dev) -> dict:
-    """Phase 21 at Llama-2-7B width and depth (phase 3's Q40 file), 8 slots,
+    """Phase 21 at Llama-2-7B width (the CUT_LAYERS Q40 file), 8 slots,
     513 pages of 16, prefill chunk 16 (phase 7's arguments): 21a snapshots
     and the warm boot, 21b hand-off, 21c QoS, 21d the KV tier.  One model
     load serves every server of the phase.  Returns the numbers and the
@@ -3414,7 +3596,7 @@ def pld_path(cli, q40, tok, m: str, t: str) -> tuple:
     print("\n".join([ln for ln in lines if not ln.startswith("🔶")][-24:]))
     per_fwd = 4 * eng.cfg.n_layers + 1
     # the CLI's forwards: the prompt, the windows, the tail's single steps
-    # and the profile's warm and traced steps: 129 launches each
+    # and the profile's warm and traced steps: 4 L + 1 launches each
     if qc["plain_calls"] or qc["kernel_launches"] != per_fwd * eng.forwards:
         raise AssertionError(f"--pld: Q40 counters {qc} over {eng.forwards} forwards")
     split = [ln for ln in lines if ln.startswith("Profiled decode step")]
@@ -3593,7 +3775,7 @@ def spec_serving(api, attention, q40, tok, m: str, t: str, stack) -> dict:
 
 
 def spec_and_gauges(api, cli, attention, q40, tfile, m: str, t: str) -> dict:
-    """Phase 22 at Llama-2-7B width and depth (phase 3's Q40 file): 22a
+    """Phase 22 at Llama-2-7B width (the CUT_LAYERS Q40 file): 22a
     prompt lookup and the profiler on the CLI, then 22b-d the server's
     speculation, the gauges and ``/debug/profile`` over the same weights.
     Returns the numbers and the launches for the kernel line."""
@@ -4068,7 +4250,7 @@ def fleet_supervised(cli, pod_mod, obs_metrics, tok, m8: str, t: str) -> dict:
 
 def kernel_entries(run, run_tp, run_mix, run_blocked, run_q8, run_score, served, table,
                    tp_table, mix_table, blocked_table, q8_table, attn, attn_g4, ar_table,
-                   prefill, prefill_g4) -> list:
+                   prefill, prefill_g4, var_table, var_runs) -> list:
     """The ``kernels`` JSON line's entries: each kernel at the shapes of the
     phase that checked it, with the launches of the main path that ran it;
     raises when a kernel of a path was never launched there."""
@@ -4100,6 +4282,19 @@ def kernel_entries(run, run_tp, run_mix, run_blocked, run_q8, run_score, served,
     held_only = entries("q40_matmul", SRC, {k: r for k, r in wide.items() if k[1] != score_t},
                         {})
     kernels += held_only
+    # the fma, folded and exact bodies of kernels 1-2 (phase 2v) with the
+    # launches of their paths (phase 3v: exact at 7B depth, the others at
+    # CUT_LAYERS); wcls at 16 and 128 rows runs on no variant path (a
+    # prompt's logits are its last row's)
+    for v in VARIANTS:
+        rows = {(s_, t_): r for (v_, s_, t_), r in var_table.items() if v_ == v}
+        var_wide = {k: r for k, r in rows.items() if k[0] == "wcls" and k[1] > 1}
+        kernels += entries(f"q40_matmul.{v}", SRC,
+                           {k: r for k, r in rows.items() if k not in var_wide},
+                           var_runs[v]["counts"]["launches_by_shape"])
+        var_held = entries(f"q40_matmul.{v}", SRC, var_wide, {})
+        held_only += var_held
+        kernels += var_held
     kernels += entries("q40_matmul", SRC, tp_table, run_tp["counts"]["launches_by_shape"])
     kernels += entries("q40_matmul", SRC, mix_table, run_mix["counts"]["launches_by_shape"])
     kernels += entries("q40_matmul_blocked", SRC, blocked_table,
@@ -4190,6 +4385,10 @@ def main() -> int:
         with phase("2c the decode body as a decode token meets it, Q40 and Q80"):
             decode_sequence(q40, dev)
             decode_sequence(q8, dev)
+    if run_phase(2) or run_phase("2v"):
+        with phase("2v the fma, folded and exact bodies of kernels 1-2 vs plain at the "
+                   "7B shapes, both bodies"):
+            var_table = check_variants(q40, dev)
     if run_phase(13):
         with phase("13 kernel 3 (blocked planes) vs plain at the 7B shapes"):
             blocked_table = check_blocked(q40, dev)
@@ -4223,14 +4422,14 @@ def main() -> int:
             "llama2-7b.m", "32k.t", "l2.m", "l2-chat.m", "32k-chat.t", "l8.m"))
         synth_tokenizer(t, tfile)
         per_fwd = 4 * LLAMA2_7B["n_layers"] + 1
-        if any(map(run_phase, (3, 7, 20, "3q", 21, 22, 23))):
+        if any(map(run_phase, (3, "3v", 7, 20, 23))):
             synth_model(m, LLAMA2_7B["n_layers"], mfile, quants)
             print(f"synthesized {os.path.getsize(m) / 1e9:.2f} GB")
-        if any(map(run_phase, (14, 17, 23))):
+        if any(map(run_phase, (14, 17, 23, "3v", "3q", 21, 22))):
             synth_model(m8, CUT_LAYERS, mfile, quants)
             print(f"synthesized {os.path.getsize(m8) / 1e9:.2f} GB (7B width, "
                   f"{CUT_LAYERS} layers)")
-        if any(map(run_phase, (4, 5, 8, 15, 18, "20b"))):
+        if any(map(run_phase, (4, 5, 8, 15, 18, "20b", "3v"))):
             synth_model(m2, 2, mfile, quants, fresh=True)
         if run_phase(3):
             with phase("3 main path: inference at Llama-2-7B width"):
@@ -4250,6 +4449,14 @@ def main() -> int:
                 run.update(graph_costs(eng, "batch-1 engine"))
                 del eng
                 torch.cuda.empty_cache()
+        if run_phase("3v"):
+            var_runs = {}
+            for v, path, layers in (("exact", m, LLAMA2_7B["n_layers"]),
+                                    ("folded", m8, CUT_LAYERS), ("fma", m8, CUT_LAYERS)):
+                with phase(f"3v the {v} path: DLLAMA_Q40_VARIANT={v} inference at Llama-2-7B "
+                           f"width, {layers} layers, in a child process; its 2-layer "
+                           f"kernels vs plain"):
+                    var_runs[v] = variant_path(v, path, t, layers, m2)
         if run_phase(17):
             with phase(f"17 tensor parallelism: inference --workers tpu:2 at Llama-2-7B "
                        f"width, {CUT_LAYERS} layers, both ranks on cuda:0"):
@@ -4305,30 +4512,30 @@ def main() -> int:
                        "n, logprobs, echo, /metrics, /debug"):
                 run_score = openai_surface(api, q40, m, t)
         if run_phase("3q"):
-            with phase("3q main path on the int8 contiguous cache: inference "
-                       "--kv-cache-dtype q8 at Llama-2-7B width"):
-                run_q8kv, eng = main_path(cli, q40, m, t, lambda e: per_fwd * e.forwards,
+            with phase(f"3q main path on the int8 contiguous cache: inference "
+                       f"--kv-cache-dtype q8 at Llama-2-7B width, {CUT_LAYERS} layers"):
+                per8 = 4 * CUT_LAYERS + 1
+                run_q8kv, eng = main_path(cli, q40, m8, t, lambda e: per8 * e.forwards,
                                           ("--kv-cache-dtype", "q8"), keep=True)
                 if not eng.cache.quantized:
                     raise AssertionError("inference --kv-cache-dtype q8 ran a dense cache")
                 q40.reset_counters()
                 eng.decode_one(5)
                 one = q40.counters()
-                if (one["kernel_launches"], one["plain_calls"]) != (per_fwd, 0):
+                if (one["kernel_launches"], one["plain_calls"]) != (per8, 0):
                     raise AssertionError(f"an int8-cache single-token forward: {one}")
-                print(f"int8 contiguous cache: {run_q8kv['ms_token']} ms/token (bf16 cache, "
-                      f"phase 3: {run['ms_token'] if run_phase(3) else 'not run'}); "
-                      f"{per_fwd} Q40 launches a forward")
+                print(f"int8 contiguous cache ({CUT_LAYERS} layers): {run_q8kv['ms_token']} "
+                      f"ms/token; {per8} Q40 launches a forward")
                 del eng
                 torch.cuda.empty_cache()
         if run_phase(21):
-            with phase("21 state off the card and back: snapshots, hand-off, QoS, KV tier "
-                       "(Llama-2-7B width and depth)"):
-                p21 = state_movement(api, cli, attention, q40, snapfmt, m, t, dev)
+            with phase(f"21 state off the card and back: snapshots, hand-off, QoS, KV tier "
+                       f"(Llama-2-7B width, {CUT_LAYERS} layers)"):
+                p21 = state_movement(api, cli, attention, q40, snapfmt, m8, t, dev)
         if run_phase(22):
-            with phase("22 speculative decoding and the roofline gauges at Llama-2-7B "
-                       "width and depth"):
-                p22 = spec_and_gauges(api, cli, attention, q40, tfile, m, t)
+            with phase(f"22 speculative decoding and the roofline gauges at Llama-2-7B "
+                       f"width, {CUT_LAYERS} layers"):
+                p22 = spec_and_gauges(api, cli, attention, q40, tfile, m8, t)
         if run_phase(23):
             with phase("23a the fleet in one process: serve-pod --dp 2 --device cuda:0 at "
                        "Llama-2-7B width and depth"):
@@ -4388,7 +4595,7 @@ def main() -> int:
             synth_model(m, L, mfile, quants, dims=mix)
             print(f"synthesized {os.path.getsize(m) / 1e9:.2f} GB (Mixtral-8x7B, Q40, "
                   f"{L} layers)")
-            with phase("11 Mixtral-8x7B Q40 (8 layers): inference"):
+            with phase(f"11 Mixtral-8x7B Q40 ({MIXTRAL_LAYERS} layers): inference"):
                 # two prefills (warmup, then the timed run) take the
                 # all-experts route; every other forward is a single token
                 run_mix, eng = main_path(
@@ -4398,7 +4605,7 @@ def main() -> int:
                 moe_decode_checks(eng, transformer, q40, dev)
                 del eng
                 torch.cuda.empty_cache()
-            with phase("11b Mixtral-8x7B Q40 (8 layers): serving"):
+            with phase(f"11b Mixtral-8x7B Q40 ({MIXTRAL_LAYERS} layers): serving"):
                 served["g4"] = serve_path(api, attention, q40, m, t, 8,
                                           ["--max-seq-len", MIXTRAL_CTX], True, repeat=True)
             os.remove(m)
@@ -4460,7 +4667,7 @@ def main() -> int:
     served["bf16"]["prefill_launches"] += p23["prefill_launches"]
     kernels = kernel_entries(run, run_tp, run_mix, run_blocked, run_q8, run_score, served,
                              table, tp_table, mix_table, blocked_table, q8_table, attn,
-                             attn_g4, ar_table, prefill, prefill_g4)
+                             attn_g4, ar_table, prefill, prefill_g4, var_table, var_runs)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

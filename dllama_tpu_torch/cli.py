@@ -326,10 +326,17 @@ def not_ported(args) -> list[str]:
     for flag, default in NOT_PORTED_FLAGS.items():
         if getattr(args, flag[2:].replace("-", "_")) != default:
             out.append(flag)
-    variant = os.environ.get("DLLAMA_Q40_VARIANT", "classic")
-    if variant != "classic":
-        out.append(f"DLLAMA_Q40_VARIANT={variant} (only classic)")
     return out
+
+
+def check_q40_variant() -> None:
+    """Refuse an unknown ``DLLAMA_Q40_VARIANT`` (read when ``ops.q40`` was
+    imported) before any weight is read, with the JAX package's error,
+    which it raises at the first Q40 matmul."""
+    try:
+        q40.check_variant()
+    except ValueError as e:
+        raise SystemExit(f"DLLAMA_Q40_VARIANT: {e}") from None
 
 
 def load_stack(args, batch: int = 1, stack=None) -> tuple[Engine, Tokenizer]:
@@ -680,6 +687,7 @@ def main(argv=None) -> Engine | None:
     if missing:
         raise SystemExit(f"not yet ported to dllama_tpu_torch: {', '.join(missing)} "
                          "(run python -m dllama_tpu for these)")
+    check_q40_variant()
     slo = configure_obs(args)
     engine = {"inference": cmd_inference, "generate": cmd_generate, "chat": cmd_chat,
               "batch": cmd_batch, "router": cmd_router,

@@ -7,6 +7,13 @@
 //   y (t, d) f32 = bf16(x) (t, n) @ W,  W[k, j] = bf16(f32(w(k, j)) * f32(s[k/32, j]))
 //
 // with w = nib - 8 (Q40) or the int8 value (Q80): the "classic" numerics.
+// The Q40 codec also computes two other dequant variants of the JAX
+// kernel (dllama_tpu/ops/q40.py _q40_kernel, DLLAMA_Q40_VARIANT; ops/q40.py
+// here), with bs_b the f32 sum of bf16(x) over block b (its lo half's sum
+// plus its hi half's), taken once a call from the staged x pairs:
+//   folded: y = x @ bf16(bf16(v) * bf16(s)) - 8 * sum_b bf16(bs_b) * bf16(s_b)
+//   exact:  y = sum_b (p_b - 8 * bs_b) * s_b,  p_b = x . v over block b
+// (v the raw nibble).  "fma" takes the classic codec (q40_matmul.cu).
 //
 // What bounds it on this card: at t = 1 each weight is read once and used
 // once, so the bytes of the planes (0.5625 B a weight for Q40, 1.0625 for
@@ -166,17 +173,62 @@ __device__ __forceinline__ uint32_t bf16x2_bits(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&w);
 }
 
+// The Q40 dequant variants (ops/q40.py VARIANTS, by index: "fma", 1, is
+// served by kClassic's arithmetic).
+enum Variant : int { kClassic = 0, kFma = 1, kFolded = 2, kExact = 3 };
+
+// d = a * b + c on two bf16 lanes, rounded once to nearest even
+__device__ __forceinline__ uint32_t fma_bf16x2(uint32_t a, uint32_t b, uint32_t c) {
+  uint32_t d;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  return d;
+}
+
+// f32 to bf16 bits, rounded to nearest even
+__device__ __forceinline__ uint32_t bf16_bits(float f) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(f));
+}
+
+// f32 rounded to the nearest bf16 (even on a tie), as an f32
+__device__ __forceinline__ float bf16_round(float f) {
+  return __bfloat162float(__float2bfloat16_rn(f));
+}
+
+// Of a bf16x2 word (128 + a, 128 + b) (nibbles a, b under the exponent of
+// 128, exact): (a * sb, b * sb) each rounded once to bf16 (folded; s2 is
+// bf16x2 (sb, sb), m2 (-128 sb, -128 sb), the product exact inside the
+// FMA), or the raw (a, b) (exact: s2 1.0, m2 -128).
+struct NibScale {
+  uint32_t s2, m2;
+  __device__ static NibScale of(float sb) {
+    const uint32_t b = bf16_bits(sb), m = bf16_bits(-128.f * sb);
+    return {b | b << 16, m | m << 16};
+  }
+  __device__ static NibScale raw() { return {0x3F803F80u, 0xC300C300u}; }
+  __device__ uint32_t operator()(uint32_t biased) const { return fma_bf16x2(biased, s2, m2); }
+};
+
 // Q40: packed row 16b + r holds rows 32b + r (low nibble) and 32b + 16 + r
 // (high nibble).  A thread owns 16 columns (a 16-byte piece of a packed
 // row) and reads 4 packed rows of each block, r = tig + 4j (j = 0..3): the
-// k pairs tig and tig + 4 of the block's two mma steps.
-struct Q4 {
+// k pairs tig and tig + 4 of the block's two mma steps.  V: the variant.
+template <int V>
+struct Q4V {
+  static constexpr int kVariant = V;
   static constexpr int kCols = 16;          // columns a thread
   static constexpr int kRowsPerBlock = 16;  // stored rows a quantization block
   static constexpr int kRows = 4;           // stored rows a thread reads a block
   static constexpr int kValWords = kRows * kCols / 4;
   __device__ static int row(int j, int tig) { return tig + 4 * j; }
-  // the bf16 pair (w(32b + r, c), w(32b + 16 + r, c)) of pair row j
+  // folded, exact: the nibble pair (v(32b + r, c), v(32b + 16 + r, c)) of
+  // pair row j as bf16x2 (128 + lo, 128 + hi): one byte permute puts the
+  // byte at bits 0 and (shifted by 4) 16, one LOP3 masks and adds 128
+  __device__ static uint32_t biased_pair(const uint32_t* w, int j, int c) {
+    const uint32_t u = w[j * (kCols / 4) + (c >> 2)];
+    const int k = c & 3;
+    return (__byte_perm(u, u >> 4, k * 0x11 + (4 + k) * 0x1100) & 0x000F000Fu) | 0x43004300u;
+  }
+  // classic: the bf16 pair (w(32b + r, c), w(32b + 16 + r, c)) of pair row j
   __device__ static uint32_t pair(const uint32_t* w, int j, int c, float s) {
     const uint32_t u = w[j * (kCols / 4) + (c >> 2)];
     float lo, hi;
@@ -200,11 +252,13 @@ struct Q4 {
     return bf16x2_bits(lo, hi);
   }
 };
+using Q4 = Q4V<kClassic>;
 
 // Q80: one int8 row per position.  A thread owns 8 columns (an 8-byte
 // piece of a row) and reads rows r and r + 16 of each block for
 // r = tig + 4j: stored row j (< 4) is 32b + r, j + 4 is 32b + 16 + r.
 struct Q8 {
+  static constexpr int kVariant = kClassic;
   static constexpr int kCols = 8;
   static constexpr int kRowsPerBlock = 32;
   static constexpr int kRows = 8;
@@ -302,22 +356,55 @@ __device__ __forceinline__ void gemv_load(Frag<Codec>& f, const uint8_t* qp, con
 
 // The block's products: kCols/2 m16 tiles (columns c = 2i for the mma rows
 // of the lane group, 2i + 1 for the rows 8 below), two k16 steps each; x
-// pairs (4 words, one for each pair row j) from shared memory
+// pairs (4 words, one for each pair row j) from shared memory.  The C
+// fragment's rows are x rows 2 tig (acc[i][0], [2]) and 2 tig + 1 ([1],
+// [3]); bs holds those two rows' block sums (folded: rounded to bf16).
 template <class Codec>
 __device__ __forceinline__ void gemv_mma(float (&acc)[Codec::kCols / 2][4], const Frag<Codec>& f,
-                                         const uint4 xw) {
+                                         const uint4 xw, const float2 bs) {
   const uint32_t* w = f.w;
   const uint32_t xr[4] = {xw.x, xw.y, xw.z, xw.w};
 #pragma unroll
   for (int i = 0; i < Codec::kCols / 2; ++i) {
     const uint32_t sb = w[Codec::kValWords + i];
     const float s0 = f16_bits(sb), s1 = f16_bits(sb >> 16);
+    if constexpr (Codec::kVariant == kClassic) {
 #pragma unroll
-    for (int k = 0; k < 2; ++k) {
-      const uint32_t a[4] = {Codec::pair(w, 2 * k, 2 * i, s0), Codec::pair(w, 2 * k, 2 * i + 1, s1),
-                             Codec::pair(w, 2 * k + 1, 2 * i, s0),
-                             Codec::pair(w, 2 * k + 1, 2 * i + 1, s1)};
-      mma_bf16(acc[i], a, xr[2 * k], xr[2 * k + 1]);
+      for (int k = 0; k < 2; ++k) {
+        const uint32_t a[4] = {Codec::pair(w, 2 * k, 2 * i, s0),
+                               Codec::pair(w, 2 * k, 2 * i + 1, s1),
+                               Codec::pair(w, 2 * k + 1, 2 * i, s0),
+                               Codec::pair(w, 2 * k + 1, 2 * i + 1, s1)};
+        mma_bf16(acc[i], a, xr[2 * k], xr[2 * k + 1]);
+      }
+    } else {
+      // folded: bf16(v) * bf16(s) a pair, into acc, then the bias;
+      // exact: raw nibbles into a fresh fragment, then (p - 8 bs) * s
+      constexpr bool kFold = Codec::kVariant == kFolded;
+      const float b0 = kFold ? bf16_round(s0) : s0, b1 = kFold ? bf16_round(s1) : s1;
+      const NibScale n0 = kFold ? NibScale::of(b0) : NibScale::raw();
+      const NibScale n1 = kFold ? NibScale::of(b1) : NibScale::raw();
+      float p[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        const uint32_t a[4] = {n0(Codec::biased_pair(w, 2 * k, 2 * i)),
+                               n1(Codec::biased_pair(w, 2 * k, 2 * i + 1)),
+                               n0(Codec::biased_pair(w, 2 * k + 1, 2 * i)),
+                               n1(Codec::biased_pair(w, 2 * k + 1, 2 * i + 1))};
+        mma_bf16(kFold ? acc[i] : p, a, xr[2 * k], xr[2 * k + 1]);
+      }
+      const float r0 = -8.f * bs.x, r1 = -8.f * bs.y;  // exact: 8 bs is exact
+      if constexpr (kFold) {
+        acc[i][0] = fmaf(r0, b0, acc[i][0]);
+        acc[i][1] = fmaf(r1, b0, acc[i][1]);
+        acc[i][2] = fmaf(r0, b1, acc[i][2]);
+        acc[i][3] = fmaf(r1, b1, acc[i][3]);
+      } else {
+        acc[i][0] = fmaf(p[0] + r0, s0, acc[i][0]);
+        acc[i][1] = fmaf(p[1] + r1, s0, acc[i][1]);
+        acc[i][2] = fmaf(p[2] + r0, s1, acc[i][2]);
+        acc[i][3] = fmaf(p[3] + r1, s1, acc[i][3]);
+      }
     }
   }
 }
@@ -339,7 +426,10 @@ gemv_kernel(const __nv_bfloat16* __restrict__ x,   // (t, n), t <= kGemvRows
   constexpr int kCols = Codec::kCols * 8;  // a column tile
   constexpr int kPieces = Codec::kCols / VW;
   static_assert(kGemvWarps * kGemvRows * kCols <= kGemvSmemWords, "partials fit");
+  constexpr bool kSums = Codec::kVariant != kClassic;
   __shared__ __align__(16) uint32_t smem[kGemvSmemWords];
+  // folded, exact: the block sums of x, (block of the chunk, row)
+  __shared__ float bsm[kSums ? kGemvSmemWords / 16 : 1];
   __shared__ int last;
   float* red = reinterpret_cast<float*>(smem);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -396,10 +486,30 @@ gemv_kernel(const __nv_bfloat16* __restrict__ x,   // (t, n), t <= kGemvRows
       smem[e] = (uint32_t)xr[0] | (uint32_t)xr[16] << 16;
     }
     __syncthreads();
+    if constexpr (kSums) {
+      // block sums, once a call: the lo halves' sum plus the hi halves'
+      for (int e = threadIdx.x; e < len * tg; e += kGemvThreads) {
+        float lo = 0.f, hi = 0.f;
+#pragma unroll
+        for (int q = 0; q < 16; ++q) {
+          const uint32_t v = smem[e * 16 + q];
+          lo += __uint_as_float(v << 16);
+          hi += __uint_as_float(v & 0xFFFF0000u);
+        }
+        bsm[e] = Codec::kVariant == kFolded ? bf16_round(lo + hi) : lo + hi;
+      }
+      __syncthreads();
+    }
     auto xpairs = [&](int kb) {
       return gid < tg ? *reinterpret_cast<const uint4*>(smem + ((kb - cb) * tg + gid) * 16 +
                                                         4 * tig)
                       : make_uint4(0u, 0u, 0u, 0u);
+    };
+    // this lane's two C rows' block sums (rows past t: 0)
+    auto xsums = [&](int kb) {
+      if constexpr (!kSums) return make_float2(0.f, 0.f);
+      const float* b = bsm + (kb - cb) * tg;
+      return make_float2(2 * tig < tg ? b[2 * tig] : 0.f, 2 * tig + 1 < tg ? b[2 * tig + 1] : 0.f);
     };
     // two blocks in registers: one unpacked while the other's loads fly,
     // its registers then refilled with the block two ahead (four deep, at
@@ -408,7 +518,7 @@ gemv_kernel(const __nv_bfloat16* __restrict__ x,   // (t, n), t <= kGemvRows
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         if (kb + i < k1) {
-          gemv_mma<Codec>(acc, f[i], xpairs(kb + i));
+          gemv_mma<Codec>(acc, f[i], xpairs(kb + i), xsums(kb + i));
           if (kb + i + 2 < k1) {
             gemv_load<Codec, VW>(f[i], qp, sc, lay, cur, vcol, scol, live, tig);
             lay.gemv_next(cur);

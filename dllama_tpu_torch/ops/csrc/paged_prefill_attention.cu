@@ -71,10 +71,6 @@ constexpr int kThreads = 128;     // python: ops/attention.py PREFILL_THREADS
 constexpr int kStages = 3;        // python: ops/attention.py PREFILL_STAGES
 constexpr float kNeg = -1e30f;
 
-__device__ __forceinline__ uint32_t bf16_bits(float x) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(x)));
-}
-
 // The shared-memory carve-up, mirrored by ops/attention.py
 // prefill_smem_bytes: the query tile (mt_n·16 rows of ld bf16), then the
 // ring (kStages stages), then, for int8, the dequantized K and V tiles;

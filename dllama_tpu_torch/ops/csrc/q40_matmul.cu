@@ -5,9 +5,24 @@
 // (entered through _pallas_matmul_stacked, the layer-stacked
 // wqkv/wo/w13/w2) and, through the q40_matmul_blocked entry (kernel 3),
 // _stacked_q40_kernel over tile-contiguous planes (entered through
-// _pallas_matmul_blocked, DLLAMA_Q40_LAYOUT=blocked); "classic" variant:
+// _pallas_matmul_blocked, DLLAMA_Q40_LAYOUT=blocked).  Kernels 1-2 compute
+// the JAX kernel's four dequant variants (DLLAMA_Q40_VARIANT; the `variant`
+// int of the entry points, ops/q40.py VARIANTS), x rounded to bf16, v the
+// nibble, s the block's f16 scale, bs_b the f32 sum of x over block b:
 //
-//   y (t, d) f32 = bf16(x) (t, n) @ W,   W[k, j] = bf16(f32(nib(k, j) - 8) * f32(s[k/32, j]))
+//   classic  y (t, d) f32 = bf16(x) (t, n) @ W,   W[k, j] = bf16(f32(v(k, j) - 8) * f32(s[k/32, j]))
+//   fma      W = bf16(v * s + (-8 * s)): equal in value to classic's (both
+//            products are exact in f32; only a zero's sign differs, which
+//            no f32 sum sees: tests/test_torch_q40_variants.py
+//            test_fma_equals_classic_for_every_nibble_and_finite_scale
+//            checks every nibble against every finite f16 scale), so it
+//            runs classic's arithmetic, counted under its own name
+//   folded   y = x @ bf16(bf16(v) * bf16(s)) - 8 * sum_b bf16(bs_b) * bf16(s_b)
+//   exact    y = sum_b (p_b - 8 * bs_b) * s_b,   p_b = x . v over block b
+//            (the raw nibbles, exact in bf16: no weight rounds to bf16)
+//
+// Kernel 3 (blocked planes) computes classic only, as the JAX package's
+// _pallas_matmul_blocked does.
 //
 // Stacked planes (layers, or layer x expert of an MoE stack) are one
 // buffer; the plane to read is an int32 in device memory, read by every
@@ -45,7 +60,12 @@
 // of t < T_MMA rows (decode) the decode body of csrc/gemv_common.cuh, one
 // template with the Q80 kernel's (the Q4 codec here), one launch a call;
 // the tensor-core body below for t >= T_MMA (prefill chunks, mixed steps,
-// lockstep batches; ops/q40.py route).
+// lockstep batches; ops/q40.py route).  In both, folded and exact cost
+// fewer instructions a weight than classic (a byte permute, a LOP3 and one
+// bf16x2 FMA for two weights, against a LOP3 and an FMA a weight and a
+// bf16x2 convert) plus a per-block fold of the block sums into the
+// accumulators; the block sums are taken once a call (decode body) or once
+// a step (tensor-core body) from the staged x.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -164,7 +184,25 @@ __device__ __forceinline__ void store_w4(__nv_bfloat16* p, uint32_t v, float s0,
   *reinterpret_cast<uint2*>(p) = packed;
 }
 
-template <int BM, class Layout>
+// folded / exact: four weights of nibble bytes `v` into p[0..3], two a
+// bf16x2 FMA: columns 0, 1 and 2, 3 as bf16x2 (128 + nib) (a byte permute
+// and an OR), then n01 / n23 (NibScale: bf16(nib * sb), or the raw nib)
+__device__ __forceinline__ void store_w4_nib(__nv_bfloat16* p, uint32_t v, const NibScale& n01,
+                                             const NibScale& n23) {
+  uint2 packed;
+  packed.x = n01(__byte_perm(v, 0u, 0x4140) | 0x43004300u);
+  packed.y = n23(__byte_perm(v, 0u, 0x4342) | 0x43004300u);
+  *reinterpret_cast<uint2*>(p) = packed;
+}
+
+// a NibScale over two columns' scales (folded: bf16(s0), bf16(s1))
+__device__ __forceinline__ NibScale nib_scale2(float sb0, float sb1) {
+  const uint32_t b0 = bf16_bits(sb0), b1 = bf16_bits(sb1);
+  const uint32_t m0 = bf16_bits(-128.f * sb0), m1 = bf16_bits(-128.f * sb1);
+  return {b0 | b1 << 16, m0 | m1 << 16};
+}
+
+template <int BM, class Layout, int V>
 __global__ void __launch_bounds__(MmaShape<BM>::Threads, MmaShape<BM>::MinBlocks)
 q40_matmul_mma_kernel(const __nv_bfloat16* __restrict__ x,   // (t, n)
                       const uint8_t* __restrict__ qpacked,    // n_planes planes
@@ -174,11 +212,17 @@ q40_matmul_mma_kernel(const __nv_bfloat16* __restrict__ x,   // (t, n)
                       int t, int n, int np, int d, int n_planes, int steps_per, int w_al,
                       int s_al, Layout lay) {
   using S = MmaShape<BM>;
+  constexpr bool kSums = V == kFolded || V == kExact;
+  static_assert(V == kClassic || kSums, "fma runs the classic body");
+  static_assert(BM * 4 <= S::Threads, "four threads a row take the block sums");
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int kStage = q4_stage_bytes<BM>();
   // packed rows a thread unpacks a step: 4 (256 threads) or 2, in one block
   constexpr int kPk = kMmaBK / 2 * 32 / S::Threads;
   __nv_bfloat16* wbs = reinterpret_cast<__nv_bfloat16*>(smem + kQ4Stages * kStage);
+  // folded, exact: a step's block sums of x, (row, block), two buffers as
+  // the bf16 tiles (folded: rounded to bf16)
+  __shared__ float bsm[2][kSums ? BM * 2 : 1];
 
   const size_t plane = (size_t)min(max(*plane_p, 0), n_planes - 1);
   const uint8_t* qp = qpacked + plane * (size_t)(np / 2) * (size_t)lay.cols();
@@ -258,12 +302,43 @@ q40_matmul_mma_kernel(const __nv_bfloat16* __restrict__ x,   // (t, n)
         *reinterpret_cast<const uint2*>(st + kQ4Tile + blk * 2 * kMmaBN + cg * 8);
     const float s0 = f16_bits(sraw.x & 0xFFFFu), s1 = f16_bits(sraw.x >> 16);
     const float s2 = f16_bits(sraw.y & 0xFFFFu), s3 = f16_bits(sraw.y >> 16);
+    NibScale n01 = NibScale::raw(), n23 = NibScale::raw();  // exact: the raw nibbles
+    if constexpr (V == kFolded) {
+      n01 = nib_scale2(bf16_round(s0), bf16_round(s1));
+      n23 = nib_scale2(bf16_round(s2), bf16_round(s3));
+    }
 #pragma unroll
     for (int r = 0; r < kPk; ++r) {
       const uint32_t u = *reinterpret_cast<const uint32_t*>(st + (r0 + r) * kMmaBN + cg * 4);
       const int lo = 32 * blk + ((r0 + r) & 15);  // logical row of the low nibbles
-      store_w4(wb + lo * kWS + cg * 4, u & 0x0F0F0F0Fu, s0, s1, s2, s3);
-      store_w4(wb + (lo + 16) * kWS + cg * 4, (u >> 4) & 0x0F0F0F0Fu, s0, s1, s2, s3);
+      if constexpr (kSums) {
+        store_w4_nib(wb + lo * kWS + cg * 4, u & 0x0F0F0F0Fu, n01, n23);
+        store_w4_nib(wb + (lo + 16) * kWS + cg * 4, (u >> 4) & 0x0F0F0F0Fu, n01, n23);
+      } else {
+        store_w4(wb + lo * kWS + cg * 4, u & 0x0F0F0F0Fu, s0, s1, s2, s3);
+        store_w4(wb + (lo + 16) * kWS + cg * 4, (u >> 4) & 0x0F0F0F0Fu, s0, s1, s2, s3);
+      }
+    }
+    if constexpr (kSums) {
+      // the step's block sums from its staged x tile: thread 4 row + 2 b + h
+      // sums half h (16 columns) of block b of the row, its neighbour the
+      // other half; lo half + hi half, as the JAX kernel adds them
+      if (threadIdx.x < BM * 4) {
+        const int row = threadIdx.x >> 2, b = (threadIdx.x >> 1) & 1, h = threadIdx.x & 1;
+        const uint4* xp = reinterpret_cast<const uint4*>(
+            st + kQ4Tile + kQ4Scales + (row * kXS + 32 * b + 16 * h) * 2);
+        float sum = 0.f;
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const uint4 v = xp[q];
+          const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            sum = sum + __uint_as_float(w[e] << 16) + __uint_as_float(w[e] & 0xFFFF0000u);
+        }
+        const float hi = __shfl_xor_sync(0xFFFFFFFFu, sum, 1);  // h = 0: the hi half's
+        if (h == 0) bsm[i & 1][row * 2 + b] = V == kFolded ? bf16_round(sum + hi) : sum + hi;
+      }
     }
   };
 
@@ -300,24 +375,76 @@ q40_matmul_mma_kernel(const __nv_bfloat16* __restrict__ x,   // (t, n)
     cp_async_commit();
     if (it + 1 < n_mine) dequant(it + 1);
 
-    const __nv_bfloat16* xs = reinterpret_cast<const __nv_bfloat16*>(
-        smem + (it % kQ4Stages) * kStage + kQ4Tile + kQ4Scales);
+    const unsigned char* st = smem + (it % kQ4Stages) * kStage;
+    const __nv_bfloat16* xs = reinterpret_cast<const __nv_bfloat16*>(st + kQ4Tile + kQ4Scales);
     const __nv_bfloat16* wb = wbs + (it & 1) * kMmaBK * kWS;
+    // the step's two quantization blocks, two k16 steps each: classic and
+    // folded into acc; exact into a fresh fragment p, folded into acc as
+    // (p - 8 bs) * s after its block (folded adds -8 bf16(bs) bf16(s) then)
 #pragma unroll
-    for (int kk = 0; kk < kMmaBK / 16; ++kk) {
-      uint32_t a[S::MT][4];
+    for (int b = 0; b < 2; ++b) {
+      float p[V == kExact ? S::MT : 1][V == kExact ? S::NT : 1][4];
+      if constexpr (V == kExact) {
 #pragma unroll
-      for (int i = 0; i < S::MT; ++i)
-        ldmatrix_x4(a[i], xs + (wm * (BM / S::WM) + i * 16 + lr) * kXS + kk * 16 + lc);
+        for (int i = 0; i < S::MT; ++i)
 #pragma unroll
-      for (int j = 0; j < S::NT; j += 2) {
-        uint32_t bfr[4];
-        ldmatrix_x4_trans(bfr, wb + (kk * 16 + lr) * kWS + wn * (kMmaBN / S::WN) + j * 8 + lc);
+          for (int j = 0; j < S::NT; ++j)
 #pragma unroll
-        for (int i = 0; i < S::MT; ++i) {
-          mma_bf16(acc[i][j], a[i], bfr[0], bfr[1]);
-          mma_bf16(acc[i][j + 1], a[i], bfr[2], bfr[3]);
+            for (int k = 0; k < 4; ++k) p[i][j][k] = 0.f;
+      }
+#pragma unroll
+      for (int kk = 2 * b; kk < 2 * b + 2; ++kk) {
+        uint32_t a[S::MT][4];
+#pragma unroll
+        for (int i = 0; i < S::MT; ++i)
+          ldmatrix_x4(a[i], xs + (wm * (BM / S::WM) + i * 16 + lr) * kXS + kk * 16 + lc);
+#pragma unroll
+        for (int j = 0; j < S::NT; j += 2) {
+          uint32_t bfr[4];
+          ldmatrix_x4_trans(bfr, wb + (kk * 16 + lr) * kWS + wn * (kMmaBN / S::WN) + j * 8 + lc);
+#pragma unroll
+          for (int i = 0; i < S::MT; ++i) {
+            if constexpr (V == kExact) {
+              mma_bf16(p[i][j], a[i], bfr[0], bfr[1]);
+              mma_bf16(p[i][j + 1], a[i], bfr[2], bfr[3]);
+            } else {
+              mma_bf16(acc[i][j], a[i], bfr[0], bfr[1]);
+              mma_bf16(acc[i][j + 1], a[i], bfr[2], bfr[3]);
+            }
+          }
         }
+      }
+      if constexpr (kSums) {
+        // C fragment: rows gid, gid + 8 of the m16 tile, columns 2 tig, +1
+        // of the n8 tile; block b's scales from the step's stage, read once
+        // a column pair, its block sums once a row
+        float sc[S::NT][2];
+#pragma unroll
+        for (int j = 0; j < S::NT; ++j) {
+          const int col = wn * (kMmaBN / S::WN) + j * 8 + (lane & 3) * 2;
+          const uint32_t sr = *reinterpret_cast<const uint32_t*>(
+              st + kQ4Tile + b * 2 * kMmaBN + col * 2);
+          sc[j][0] = f16_bits(sr & 0xFFFFu);
+          sc[j][1] = f16_bits(sr >> 16);
+          if constexpr (V == kFolded) sc[j][0] = bf16_round(sc[j][0]), sc[j][1] = bf16_round(sc[j][1]);
+        }
+#pragma unroll
+        for (int i = 0; i < S::MT; ++i)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int row = wm * (BM / S::WM) + i * 16 + (lane >> 2) + h * 8;
+            const float r = -8.f * bsm[it & 1][row * 2 + b];
+#pragma unroll
+            for (int j = 0; j < S::NT; ++j)
+#pragma unroll
+              for (int c = 0; c < 2; ++c) {
+                float& o = acc[i][j][2 * h + c];
+                if constexpr (V == kExact)
+                  o = fmaf(p[i][j][2 * h + c] + r, sc[j][c], o);
+                else
+                  o = fmaf(r, sc[j][c], o);
+              }
+          }
       }
     }
   }
@@ -343,19 +470,22 @@ q40_matmul_mma_kernel(const __nv_bfloat16* __restrict__ x,   // (t, n)
   }
 }
 
-template <int BM, class Layout>
+template <int BM, class Layout, int V>
 cudaError_t launch_mma(const __nv_bfloat16* x, const uint8_t* qp, const __half* sc,
                        const int* idx, float* part, int t, int n, int np, int d,
                        int n_planes, int splits, int steps_per, int w_al, int s_al, Layout lay,
                        cudaStream_t stream) {
-  auto kern = q40_matmul_mma_kernel<BM, Layout>;
+  auto kern = q40_matmul_mma_kernel<BM, Layout, V>;
   // the dynamic shared-memory opt-in, once per instantiation and device
   static unsigned done = 0;
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
   if (dev >= 32 || !(done >> dev & 1u)) {
-    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    // the body's own need: static shared memory (folded and exact's block
+    // sums) and the dynamic opt-in together stay under the block's limit
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             q4_smem_bytes<BM>());
     if (e != cudaSuccess) return e;
     if (dev < 32) done |= 1u << dev;
   }
@@ -367,7 +497,7 @@ cudaError_t launch_mma(const __nv_bfloat16* x, const uint8_t* qp, const __half* 
 
 // Both tensor-core entry points: the tile height by bm, then the
 // fixed-order reduce of the splits.
-template <class Layout>
+template <class Layout, int V>
 int run_mma(const void* x, const void* qpacked, const void* scales, void* out, void* scratch,
             const void* idx, int t, int n, int np, int d, int n_planes, int bm, int splits,
             int steps_per, int w_al, int s_al, Layout lay, void* stream) {
@@ -380,19 +510,19 @@ int run_mma(const void* x, const void* qpacked, const void* scales, void* out, v
   cudaError_t e;
   switch (bm) {
     case 16:
-      e = launch_mma<16>(xb, qp, sc, ip, part, t, n, np, d, n_planes, splits, steps_per, w_al,
+      e = launch_mma<16, Layout, V>(xb, qp, sc, ip, part, t, n, np, d, n_planes, splits, steps_per, w_al,
                          s_al, lay, s);
       break;
     case 32:
-      e = launch_mma<32>(xb, qp, sc, ip, part, t, n, np, d, n_planes, splits, steps_per, w_al,
+      e = launch_mma<32, Layout, V>(xb, qp, sc, ip, part, t, n, np, d, n_planes, splits, steps_per, w_al,
                          s_al, lay, s);
       break;
     case 64:
-      e = launch_mma<64>(xb, qp, sc, ip, part, t, n, np, d, n_planes, splits, steps_per, w_al,
+      e = launch_mma<64, Layout, V>(xb, qp, sc, ip, part, t, n, np, d, n_planes, splits, steps_per, w_al,
                          s_al, lay, s);
       break;
     case 128:
-      e = launch_mma<128>(xb, qp, sc, ip, part, t, n, np, d, n_planes, splits, steps_per, w_al,
+      e = launch_mma<128, Layout, V>(xb, qp, sc, ip, part, t, n, np, d, n_planes, splits, steps_per, w_al,
                           s_al, lay, s);
       break;
     default:
@@ -417,13 +547,27 @@ int run_mma(const void* x, const void* qpacked, const void* scales, void* out, v
 // quantization blocks (ops/q40.py gemv_plan); with splits > 1, part
 // (splits, ceil(d / 128), t, 128) f32 and count (ceil(d / 128)) int32, zero
 // and left zero, the workspace where the splits of a column tile meet; vw
-// the bytes of a value piece (16, 8, 4 or 1, dividing d and the pointers).
-// One launch.  Returns cudaGetLastError() after it (0 = success).
+// the bytes of a value piece (16, 8, 4 or 1, dividing d and the pointers);
+// variant the dequant variant (Variant: 0 classic, 1 fma, 2 folded, 3
+// exact).  One launch.  Returns cudaGetLastError() after it (0 = success).
 extern "C" int q40_matmul(const void* x, const void* qpacked, const void* scales, void* out,
                           const void* idx, void* part, void* count, int t, int n, int np, int d,
-                          int n_planes, int splits, int kb_per, int vw, void* stream) {
-  return launch_gemv<Q4>(x, qpacked, scales, out, idx, part, count, t, n, np, d, n_planes,
-                         splits, kb_per, vw, RowMajor{d}, stream);
+                          int n_planes, int splits, int kb_per, int vw, int variant,
+                          void* stream) {
+  switch (variant) {
+    case kClassic:
+    case kFma:
+      return launch_gemv<Q4>(x, qpacked, scales, out, idx, part, count, t, n, np, d, n_planes,
+                             splits, kb_per, vw, RowMajor{d}, stream);
+    case kFolded:
+      return launch_gemv<Q4V<kFolded>>(x, qpacked, scales, out, idx, part, count, t, n, np, d,
+                                       n_planes, splits, kb_per, vw, RowMajor{d}, stream);
+    case kExact:
+      return launch_gemv<Q4V<kExact>>(x, qpacked, scales, out, idx, part, count, t, n, np, d,
+                                      n_planes, splits, kb_per, vw, RowMajor{d}, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 // Kernel 3: the same product over blocked planes, qpacked (n_planes, np/2/bn,
@@ -443,13 +587,28 @@ extern "C" int q40_matmul_blocked(const void* x, const void* qpacked, const void
 // 128; the reduction over n cut into `splits` ranges of `steps_per` 64-row
 // steps (ops/q40.py mma_plan), scratch (splits, t, d) f32 when splits > 1;
 // w_al / s_al the widest copy (16, 8, 4, or 0 for plain loads) that the
-// value / scale rows allow.
+// value / scale rows allow; variant as q40_matmul's.
 extern "C" int q40_matmul_mma(const void* x, const void* qpacked, const void* scales,
                               void* out, void* scratch, const void* idx, int t, int n,
                               int np, int d, int n_planes, int bm, int splits, int steps_per,
-                              int w_al, int s_al, void* stream) {
-  return run_mma(x, qpacked, scales, out, scratch, idx, t, n, np, d, n_planes, bm, splits,
-                 steps_per, w_al, s_al, RowMajor{d}, stream);
+                              int w_al, int s_al, int variant, void* stream) {
+  switch (variant) {
+    case kClassic:
+    case kFma:
+      return run_mma<RowMajor, kClassic>(x, qpacked, scales, out, scratch, idx, t, n, np, d,
+                                         n_planes, bm, splits, steps_per, w_al, s_al,
+                                         RowMajor{d}, stream);
+    case kFolded:
+      return run_mma<RowMajor, kFolded>(x, qpacked, scales, out, scratch, idx, t, n, np, d,
+                                        n_planes, bm, splits, steps_per, w_al, s_al,
+                                        RowMajor{d}, stream);
+    case kExact:
+      return run_mma<RowMajor, kExact>(x, qpacked, scales, out, scratch, idx, t, n, np, d,
+                                       n_planes, bm, splits, steps_per, w_al, s_al,
+                                       RowMajor{d}, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 // The tensor-core body of kernel 3: operands as q40_matmul_blocked, the
@@ -460,8 +619,9 @@ extern "C" int q40_matmul_blocked_mma(const void* x, const void* qpacked, const 
                                       int np, int d, int n_planes, int bm, int splits,
                                       int steps_per, int w_al, int s_al, int bn, int td,
                                       int nJ, void* stream) {
-  return run_mma(x, qpacked, scales, out, scratch, idx, t, n, np, d, n_planes, bm, splits,
-                 steps_per, w_al, s_al, Blocked{bn, td, nJ}, stream);
+  return run_mma<Blocked, kClassic>(x, qpacked, scales, out, scratch, idx, t, n, np, d,
+                                    n_planes, bm, splits, steps_per, w_al, s_al,
+                                    Blocked{bn, td, nJ}, stream);
 }
 
 extern "C" const char* q40_error_string(int code) {

@@ -22,9 +22,25 @@ the kernel reads from device memory, so an expert id chosen on the card is
 never read back by the host.  :func:`mm` dispatches any weight (Q40, Q80
 or dense) to its matmul.
 
-:func:`matmul` computes the ``classic`` contract of the JAX kernel: weights
-``bf16(f32(v-8)·s)``, activations cast to bf16 first, products summed in
-f32, an f32 result.  Dispatch:
+:func:`matmul` computes one of the JAX kernel's four dequant variants
+(``DLLAMA_Q40_VARIANT``, read at import into :data:`KERNEL_VARIANT`, as
+the JAX package reads it).  x is rounded to bf16, v is a nibble in
+[0, 15], s the f16 scale of its 32-row block, every sum is f32:
+
+* ``classic`` — ``x · bf16(f32(v-8)·s)``;
+* ``fma`` — ``x · bf16(v·s + (-8·s))``: equal in value to ``classic``
+  (both products are exact in f32), up to the sign of a zero; the kernel
+  serves it with ``classic``'s arithmetic, under its own name and counts;
+* ``folded`` — ``x · bf16(bf16(v)·bf16(s)) - 8·Σ_b bf16(bs_b)·bf16(s_b)``,
+  bs_b the f32 sum of x over block b (its lo half's sum plus its hi
+  half's);
+* ``exact`` — ``Σ_b (p_b - 8·bs_b)·s_b``, p_b the dot of x with the raw
+  nibbles of block b: no weight is rounded to bf16.
+
+As in the JAX package, the variant governs row-major weights at up to
+``PALLAS_MAX_ROWS`` = 128 rows (:func:`variant_for`); a call of more rows
+(which the JAX package dequantizes in XLA) and a blocked plane compute
+``classic``.  Dispatch:
 
 * a CPU tensor → :func:`matmul_plain`, the plain PyTorch version;
 * a CUDA tensor of any row count → the kernel (:func:`q40_matmul`), which
@@ -59,7 +75,9 @@ which route ran:
 (kernel 3 on blocked planes), ``mma_launches`` (those of either that took
 the tensor-core body), ``launches_by_shape`` keyed by logical ``(n, d)``
 for kernels 1–2, ``("blocked", n, d)`` for kernel 3 and ``("mma", n, d)``,
-``("blocked-mma", n, d)`` for their tensor-core body, ``plain_calls``,
+``("blocked-mma", n, d)`` for their tensor-core body, each key of a
+variant other than ``classic`` ending in its name (``(n, d, "exact")``,
+``("mma", n, d, "exact")``; :func:`launches_by_variant`), ``plain_calls``,
 and kernel 4's ``allreduce_launches`` and
 ``allreduce_plain_calls``.  :func:`reset_counters` zeroes them.
 """
@@ -83,6 +101,14 @@ from . import COUNT_LOCK
 # TILE_N default): padded rows carry zero scales, so the packed planes are
 # byte-identical to the JAX package's.
 TILE_N = 1024
+# The dequant variant of kernels 1-2 (the module docstring), fixed for the
+# process as the JAX package fixes it: every captured graph replays it.
+KERNEL_VARIANT = os.environ.get("DLLAMA_Q40_VARIANT", "classic")
+VARIANTS = ("classic", "fma", "folded", "exact")
+# Rows up to which a row-major call takes the variant (the JAX package's
+# PALLAS_MAX_ROWS: its Pallas kernel's reach; more rows dequantize in XLA,
+# classic's numerics).
+PALLAS_MAX_ROWS = 128
 
 kernel_launches = 0
 blocked_launches = 0
@@ -106,6 +132,37 @@ def counters() -> dict:
             "allreduce_launches": allreduce_launches,
             "allreduce_plain_calls": allreduce_plain_calls,
             "launches_by_shape": dict(launches_by_shape)}
+
+
+def check_variant(variant: str | None = None) -> str:
+    """``variant``, or :data:`KERNEL_VARIANT` when None; raises the JAX
+    package's error on any other name."""
+    v = variant or KERNEL_VARIANT
+    if v not in VARIANTS:
+        raise ValueError(f"unknown q40 kernel variant {v!r} "
+                         "(expected classic | fma | folded | exact)")
+    return v
+
+
+def variant_for(t: int, blocked: bool = False) -> str:
+    """The variant a call of ``t`` rows computes (the JAX package's rule):
+    :data:`KERNEL_VARIANT` on a row-major weight at up to
+    ``PALLAS_MAX_ROWS`` rows, else ``classic`` (more rows; ``blocked``
+    planes)."""
+    v = check_variant()
+    return "classic" if blocked or t > PALLAS_MAX_ROWS else v
+
+
+def launches_by_variant(by_shape: dict | None = None) -> dict[str, int]:
+    """Kernel launches of ``by_shape`` (a ``launches_by_shape`` dict; the
+    module's own when None) summed by the variant the body computed: a key
+    ending in a variant's name counts under it, every other key (kernel 3
+    too) under ``classic``."""
+    out: dict[str, int] = {}
+    for key, n in (launches_by_shape if by_shape is None else by_shape).items():
+        v = key[-1] if isinstance(key[-1], str) else "classic"
+        out[v] = out.get(v, 0) + n
+    return out
 
 
 def padded_n(n: int) -> int:
@@ -426,17 +483,66 @@ def dequantize(qt: QTensor, dtype=torch.float32, layer=None) -> torch.Tensor:
     return w.to(dtype)
 
 
+def _codes(qt: QTensor, layer) -> tuple[torch.Tensor, torch.Tensor]:
+    """The raw nibbles ``v`` (nb, 32, d) f32 in [0, 15], logical row order,
+    and the scales (nb, d) f32 of the plane at ``layer``, over the logical
+    n's nb = n/32 blocks (the pack-time padding dropped)."""
+    qp, sc = (qt.qpacked, qt.scales) if layer is None else _planes(qt, layer)
+    nb = qt.logical_nd[0] // 32
+    d = qp.shape[-1]
+    v = qp[:nb * 16].to(torch.int32).reshape(nb, 16, d)
+    v = torch.cat([v & 0xF, v >> 4], dim=-2).to(torch.float32)
+    return v, sc[:nb].to(torch.float32)
+
+
+def variant_weights(qt: QTensor, variant: str, layer=None) -> torch.Tensor:
+    """The bf16 ``(n, d)`` matmul operand of ``classic`` (``bf16(f32(v-8)·
+    s)``, :func:`dequantize`), ``fma`` (``bf16(v·s + (-8·s))``) or
+    ``folded`` (``bf16(bf16(v)·bf16(s))``, the -8 left to the block sums);
+    ``exact`` rounds no weight and has none."""
+    if variant == "classic":
+        return dequantize(qt, torch.bfloat16, layer)
+    v, s = _codes(qt, layer)
+    if variant == "fma":
+        w = (v * s[:, None, :] + (-8.0 * s)[:, None, :]).to(torch.bfloat16)
+    elif variant == "folded":
+        w = v.to(torch.bfloat16) * s.to(torch.bfloat16)[:, None, :]  # one bf16 round
+    else:
+        raise ValueError(f"variant {variant!r} has no weight operand")
+    return w.reshape(-1, w.shape[-1])
+
+
 def matmul_plain(x2: torch.Tensor, qt: QTensor | BlockedQTensor,
-                 layer=None) -> torch.Tensor:
-    """The plain version: ``bf16(x) (t, n) @ bf16(W) (n, d)`` with products
-    summed in f32, result f32.  Both bf16 operands are widened to f32 before
-    the product (exact), because a bf16×bf16 ``torch.matmul`` rounds its
-    result to bf16.  A blocked tensor unblocks the one plane first."""
+                 layer=None, variant: str | None = None) -> torch.Tensor:
+    """The plain version: ``bf16(x) (t, n) @ W`` with products summed in f32,
+    result f32, in ``variant``'s numerics (the module docstring; None: the
+    routing's, :func:`variant_for`).  bf16 operands are widened to f32
+    before a product (exact), because a bf16×bf16 ``torch.matmul`` rounds
+    its result to bf16.  A blocked tensor unblocks the one plane first."""
+    t = x2.shape[0]
+    variant = (check_variant(variant) if variant
+               else variant_for(t, isinstance(qt, BlockedQTensor)))
     if isinstance(qt, BlockedQTensor):
         qt, layer = unblock_plane(qt, layer), None
-    w = dequantize(qt, torch.bfloat16, layer)
-    return torch.matmul(x2.to(torch.bfloat16).to(torch.float32),
-                        w.to(torch.float32))
+    bf16, f32 = torch.bfloat16, torch.float32
+    xb = x2.to(bf16).to(f32)
+    if variant in ("classic", "fma"):
+        return torch.matmul(xb, variant_weights(qt, variant, layer).to(f32))
+    v, s = _codes(qt, layer)
+    nb, _, d = v.shape
+    xr = xb.reshape(t, nb, 32)
+    bs = xr[..., :16].sum(-1) + xr[..., 16:].sum(-1)       # (t, nb) f32
+    if variant == "folded":
+        sb = s.to(bf16).to(f32)
+        bias = 8.0 * torch.matmul(bs.to(bf16).to(f32), sb)
+        return torch.matmul(xb, variant_weights(qt, variant, layer).to(f32)) - bias
+    out = torch.zeros((t, d), dtype=f32, device=x2.device)
+    step = max(1, (1 << 25) // (t * d))                      # blocks a pass
+    for b0 in range(0, nb, step):
+        b1 = min(nb, b0 + step)
+        p = torch.einsum("tbk,bkd->tbd", xr[:, b0:b1], v[b0:b1])
+        out += ((p - 8.0 * bs[:, b0:b1, None]) * s[None, b0:b1]).sum(1)
+    return out
 
 
 def matmul(x: torch.Tensor, qt: QTensor | BlockedQTensor, layer=None,
@@ -457,7 +563,8 @@ def matmul(x: torch.Tensor, qt: QTensor | BlockedQTensor, layer=None,
 def _kernel(x2: torch.Tensor, qt, layer) -> torch.Tensor:
     if isinstance(qt, BlockedQTensor):
         return q40_blocked_matmul(x2, qt.qpacked, qt.scales, qt.logical_nd, layer)
-    return q40_matmul(x2, qt.qpacked, qt.scales, qt.logical_nd[0], layer)
+    return q40_matmul(x2, qt.qpacked, qt.scales, qt.logical_nd[0], layer,
+                      variant=variant_for(x2.shape[0]))
 
 
 def dispatch(codec, kernel, x: torch.Tensor, qt, layer, out_dtype, impl: str
@@ -681,22 +788,28 @@ def plane_index(planes: torch.Tensor, layer, dev: torch.device, who: str,
 
 
 def q40_matmul(x2: torch.Tensor, qpacked: torch.Tensor, scales: torch.Tensor,
-               n: int, layer=None, body: str | None = None) -> torch.Tensor:
+               n: int, layer=None, body: str | None = None,
+               variant: str | None = None) -> torch.Tensor:
     """Launch the Q40 dequant-matmul kernel: ``bf16(x2) (t, n) @ W`` → f32
     ``(t, d)``, reading plane ``layer`` of stacked ``(..., np/2, d)`` planes
     in place (a flat index over the leading dims, a Python int or an int32
     device tensor, see :func:`plane_index`), or the 2-D plane when
     ``layer`` is None.  The body is :func:`route`'s for ``t`` rows;
     ``body`` ("gemv" or "mma") names one, to time the two against each
-    other.  CUDA tensors only: it launches the kernel or raises; it never
-    computes on another path."""
+    other.  ``variant`` names the numerics (the module docstring); None
+    takes the routing's for ``t`` rows (:func:`variant_for`).  CUDA tensors
+    only: it launches the kernel or raises; it never computes on another
+    path."""
     global kernel_launches
     mma = _body(body, x2) == "mma"
+    t = x2.shape[0]
+    variant = check_variant(variant) if variant else variant_for(t)
     out = launch("q40_matmul_mma" if mma else "q40_matmul", x2, qpacked, scales, n, layer,
-                 torch.uint8, 2, mma)
+                 torch.uint8, 2, mma, tail=(VARIANTS.index(variant),))
+    key = ("mma", n, out.shape[1]) if mma else (n, out.shape[1])
     with COUNT_LOCK:
         kernel_launches += 1
-        _count(("mma", n, out.shape[1]) if mma else (n, out.shape[1]))
+        _count(key if variant == "classic" else key + (variant,))
     return out
 
 
@@ -791,12 +904,13 @@ def _check_operands(fn: str, x2: torch.Tensor, values: torch.Tensor,
 
 def launch(fn: str, x2: torch.Tensor, values: torch.Tensor, scales: torch.Tensor,
            n: int, layer, value_dtype: torch.dtype, per_byte: int,
-           mma: bool = False) -> torch.Tensor:
+           mma: bool = False, tail: tuple = ()) -> torch.Tensor:
     """Check the operands of the Q40 or Q80 kernel over row-major planes (C
     entry point ``fn``, values of ``value_dtype`` holding ``per_byte``
     weights a byte: 2 for Q40's nibbles, 1 for Q80's int8) and launch its
     GEMV body, or with ``mma`` its tensor-core body, on the current stream;
-    returns the f32 ``(t, d)`` output."""
+    ``tail`` ints follow the entry point's own (the Q40 variant's index in
+    :data:`VARIANTS`).  Returns the f32 ``(t, d)`` output."""
     dev = _check_operands(fn, x2, values, scales, n, value_dtype)
     idx, n_planes = plane_index(values, layer, dev, fn)
     np_ = values.shape[-2] * per_byte
@@ -807,19 +921,21 @@ def launch(fn: str, x2: torch.Tensor, values: torch.Tensor, scales: torch.Tensor
              f"scales shape {tuple(scales.shape)} does not match values "
              f"{tuple(values.shape)}", fn)
     if mma:
-        return _launch_mma(fn, x2, values, scales, idx, n, np_, d, n_planes, d)
-    return _launch_gemv(fn, x2, values, scales, idx, n, np_, d, n_planes, per_byte, d)
+        return _launch_mma(fn, x2, values, scales, idx, n, np_, d, n_planes, d, tail=tail)
+    return _launch_gemv(fn, x2, values, scales, idx, n, np_, d, n_planes, per_byte, d,
+                        tail=tail)
 
 
 def _launch_gemv(fn: str, x2: torch.Tensor, values: torch.Tensor, scales: torch.Tensor,
                  idx: torch.Tensor, n: int, np_: int, d: int, n_planes: int, per_byte: int,
-                 row_bytes: int, *layout: int) -> torch.Tensor:
+                 row_bytes: int, *layout: int, tail: tuple = ()) -> torch.Tensor:
     """Call decode-body entry point ``fn`` (the Q40 or Q80 kernel's, values
     of ``per_byte`` weights a byte) on checked operands with
     :func:`gemv_plan`; value rows start ``row_bytes`` apart (d row-major,
     td blocked), which sets the load width; ``layout`` ints follow it
-    (kernel 3's tile shape).  One launch for up to ``GEMV_ROWS`` rows (one
-    a group of them above); raises on a launch error."""
+    (kernel 3's tile shape), then ``tail`` ints (:func:`launch`).  One
+    launch for up to ``GEMV_ROWS`` rows (one a group of them above); raises
+    on a launch error."""
     from . import _build
     lib = _build.load()
     dev, t = x2.device, x2.shape[0]
@@ -835,23 +951,25 @@ def _launch_gemv(fn: str, x2: torch.Tensor, values: torch.Tensor, scales: torch.
             rc = getattr(lib, fn)(xb[g0:].data_ptr(), values.data_ptr(), scales.data_ptr(),
                                   out[g0:].data_ptr(), idx.data_ptr(), part.data_ptr(),
                                   count.data_ptr(), tg, n, np_, d, n_planes, splits, per, vw,
-                                  *layout, stream)
+                                  *layout, *tail, stream)
             if rc != 0:
                 raise RuntimeError(f"{fn} launch failed: CUDA error {rc} "
                                    f"({lib.q40_error_string(rc).decode()}) at t={t} n={n} "
-                                   f"d={d} splits={splits}x{per} width={vw} layout={layout}")
+                                   f"d={d} splits={splits}x{per} width={vw} layout={layout}"
+                                   f" tail={tail}")
     return out
 
 
 def _launch_mma(fn: str, x2: torch.Tensor, values: torch.Tensor, scales: torch.Tensor,
                 idx: torch.Tensor, n: int, np_: int, d: int, n_planes: int,
-                row_bytes: int, *layout: int) -> torch.Tensor:
+                row_bytes: int, *layout: int, tail: tuple = ()) -> torch.Tensor:
     """Call tensor-core entry point ``fn`` (the Q40 or Q80 kernel's) on
     checked operands with :func:`mma_plan`; value rows start ``row_bytes``
     apart (d row-major, td blocked) and scale rows ``2·row_bytes``, which
     sets the copy widths; ``layout`` ints follow them (kernel 3's tile
-    shape).  Returns the f32 ``(t, d)`` output; raises on a blocked tile the
-    body cannot copy and on a launch error."""
+    shape), then ``tail`` ints (:func:`launch`).  Returns the f32 ``(t, d)``
+    output; raises on a blocked tile the body cannot copy and on a launch
+    error."""
     from . import _build
     lib = _build.load()
     dev, t = x2.device, x2.shape[0]
@@ -871,12 +989,12 @@ def _launch_mma(fn: str, x2: torch.Tensor, values: torch.Tensor, scales: torch.T
         rc = getattr(lib, fn)(xb.data_ptr(), values.data_ptr(), scales.data_ptr(),
                               out.data_ptr(), scratch.data_ptr(), idx.data_ptr(),
                               t, n, np_, d, n_planes, bm, splits, per, w_al, s_al, *layout,
-                              stream)
+                              *tail, stream)
     if rc != 0:
         raise RuntimeError(f"{fn} launch failed: CUDA error {rc} "
                            f"({lib.q40_error_string(rc).decode()}) at t={t} n={n} d={d} "
                            f"bm={bm} splits={splits}x{per} copies={w_al}/{s_al} "
-                           f"layout={layout}")
+                           f"layout={layout} tail={tail}")
     return out
 
 
@@ -1037,16 +1155,16 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     # the decode body: x, values, scales, out, the plane index, the
     # workspace (partials, counts); t, n, np, d, the plane count, the plan
-    # (splits, blocks a split), the load width
-    lib.q40_matmul.argtypes = [vp] * 7 + [ci] * 8 + [vp]
+    # (splits, blocks a split), the load width, the variant (VARIANTS index)
+    lib.q40_matmul.argtypes = [vp] * 7 + [ci] * 9 + [vp]
     lib.q40_matmul.restype = ci
     # kernel 3: the same operands, then the tile shape (bn, td, nJ)
     lib.q40_matmul_blocked.argtypes = [vp] * 7 + [ci] * 11 + [vp]
     lib.q40_matmul_blocked.restype = ci
     # the tensor-core body: a scratch pointer before the plane index, the
-    # plan (bm, splits, steps) and the copy widths, then kernel 3's tile
-    # shape
-    lib.q40_matmul_mma.argtypes = [vp] * 6 + [ci] * 10 + [vp]
+    # plan (bm, splits, steps) and the copy widths, then the variant (kernels
+    # 1-2) or kernel 3's tile shape
+    lib.q40_matmul_mma.argtypes = [vp] * 6 + [ci] * 11 + [vp]
     lib.q40_matmul_mma.restype = ci
     lib.q40_matmul_blocked_mma.argtypes = [vp] * 6 + [ci] * 13 + [vp]
     lib.q40_matmul_blocked_mma.restype = ci

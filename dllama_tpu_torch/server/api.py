@@ -955,14 +955,18 @@ class ApiState:
     def complete_batch_stream(self, prompts: list[str], *, temperature: float,
                               top_p: float, max_tokens: int, seed: int | None,
                               stop: list[str], emit, plan: tuple | None = None,
-                              deadline: float | None = None, is_aborted=None) -> None:
+                              deadline: float | None = None, is_aborted=None
+                              ) -> tuple[list, int]:
         """The streaming twin of :meth:`complete_batch`: the same lockstep
         batch, calling ``emit(row_index, delta_text, finish_or_None)`` as
         each row's text becomes safe to send; a finished row stops
         emitting while the others decode on.  Per-row incremental UTF-8
         decoding and a ``max(len(stop)) - 1`` character hold-back keep the
         joined stream equal to the non-stream text.  ``plan`` is
-        :meth:`plan_batch`'s result when the handler validated first."""
+        :meth:`plan_batch`'s result when the handler validated first.
+        Returns each row's finish reason (None for a row cut by the
+        client's leaving) and the completion tokens produced, EOS not
+        counted."""
         eng, tok = self.batch_engine, self.tokenizer
         id_lists, n_real, budget, eos_id = \
             plan if plan is not None else self.plan_batch(prompts, max_tokens)
@@ -975,6 +979,8 @@ class ApiState:
         cap = [max_tokens if max_tokens > 0 else eng.seq_len - len(id_lists[r])
                for r in range(n_real)]
         done = [False] * n_real
+        fin = [None] * n_real
+        n_eos = 0
 
         def flush(r, closing, finish="length"):
             """Scan the row's unsent text for stops and emit what is safe;
@@ -985,8 +991,10 @@ class ApiState:
                 emit(r, buf[r][:min(cuts)], "stop")
                 buf[r] = ""
                 done[r] = True
+                fin[r] = "stop"
             elif closing:
                 done[r] = True
+                fin[r] = finish
                 emit(r, buf[r], finish)
                 buf[r] = ""
             elif hold and len(buf[r]) >= hold:
@@ -1009,6 +1017,7 @@ class ApiState:
                         t = int(step_vec[r])
                         n_comp[r] += 1
                         if t == eos_id:
+                            n_eos += 1
                             buf[r] += decoders[r].decode(b"", True)
                             flush(r, closing=True, finish="stop")
                             continue
@@ -1022,18 +1031,19 @@ class ApiState:
                     if all(done):
                         break
                     if is_aborted is not None and is_aborted():
-                        return  # the client is gone
+                        return fin, sum(n_comp) - n_eos  # the client is gone
                     d = self.effective_deadline(deadline)
                     if d is not None and time.monotonic() >= d:
                         for r in range(n_real):
                             if not done[r]:
                                 buf[r] += decoders[r].decode(b"", True)
                                 flush(r, closing=True, finish="timeout")
-                        return
+                        return fin, sum(n_comp) - n_eos
         for r in range(n_real):
             if not done[r]:  # budget spent with text still held
                 buf[r] += decoders[r].decode(b"", True)
                 flush(r, closing=True)
+        return fin, sum(n_comp) - n_eos
 
     # -- scheduler path ------------------------------------------------
     def overflow_body(self, e: Exception) -> dict:
@@ -1616,6 +1626,7 @@ def make_handler(state: ApiState):
                     state.metrics.bump("deadline_timeouts")
                 self._record = dict(prompt_tokens=n_prompt, completion_tokens=n_comp,
                                     finish=choices[0]["finish_reason"])
+                self._retire_lockstep([c["finish_reason"] for c in choices], n_comp)
                 self._json(200, {
                     "id": cid, "object": "text_completion", "created": created,
                     "model": state.model_name, "choices": choices,
@@ -1643,9 +1654,9 @@ def make_handler(state: ApiState):
                 emitters[idx](delta, finish)
 
             try:
-                state.complete_batch_stream(prompts, emit=emit, plan=plan,
-                                            deadline=deadline,
-                                            is_aborted=lambda: aborted[0], **gen)
+                finishes, n_comp = state.complete_batch_stream(
+                    prompts, emit=emit, plan=plan, deadline=deadline,
+                    is_aborted=lambda: aborted[0], **gen)
             except Exception as e:
                 # mid-stream: an OpenAI-shaped error event, then [DONE]
                 err = {"error": {"message": str(e), "type": "invalid_request_error"
@@ -1655,9 +1666,22 @@ def make_handler(state: ApiState):
                 if not isinstance(e, ContextOverflow):
                     raise
                 return
+            self._retire_lockstep(finishes, n_comp)
             self._safe_write(b"data: [DONE]\n\n", aborted)
             self._record = dict(prompt_tokens=sum(len(i) for i in plan[0][:plan[1]]),
                                 completion_tokens=None, finish=None)
+
+        def _retire_lockstep(self, finishes: list, n_comp: int):
+            """Close a lockstep request's flight record before its reply (or
+            its stream's last event) is written: a client that reads
+            ``/debug/requests/<id>`` as soon as it has the reply finds
+            ``finish``, ``produced`` and each choice's finish reason.  The
+            record's ``finish`` is ``served``, the handler fallback's reason
+            for these paths.  A deliberate difference from the JAX server
+            (``dllama_tpu/server/api.py`` retires them only in the handler's
+            ``finally``, after the reply)."""
+            obs_flight.retire(self._rid, "served", produced=n_comp,
+                              finish_reasons=list(finishes))
 
         def _chat_sched(self, body: dict, deadline: float | None,
                         timer: _StreamTimer):
@@ -1813,6 +1837,7 @@ def make_handler(state: ApiState):
                 state.metrics.bump("deadline_timeouts")
             self._record = dict(prompt_tokens=n_prompt, completion_tokens=n_comp,
                                 finish=choices[0][1])
+            self._retire_lockstep([fin for _, fin in choices], n_comp)
             self._json(200, {
                 "id": cid, "object": "chat.completion", "created": created,
                 "model": state.model_name,
@@ -2243,12 +2268,13 @@ def parse_args(argv):
     """The server's flags: the CLI's parser without a positional mode;
     flags of the JAX server that the port does not carry exit naming
     them."""
-    from ..cli import build_parser, not_ported
+    from ..cli import build_parser, check_q40_variant, not_ported
     args = build_parser().parse_args(["inference", *argv])
     missing = not_ported(args)
     if missing:
         raise SystemExit(f"not yet ported to dllama_tpu_torch: {', '.join(missing)} "
                          "(run python -m dllama_tpu.server.api for these)")
+    check_q40_variant()
     return args
 
 

@@ -178,14 +178,19 @@ def test_nthreads_is_accepted_and_ignored(model_files):
 
 
 def test_q40_variant_other_than_classic_is_refused(model_files):
+    """Every variant of the JAX package is ported (fma, folded and exact
+    run: tests/test_torch_q40_variants.py); a name outside the four is
+    refused before the model is read, with the JAX package's error."""
     m, t = model_files
-    env = dict(os.environ, DLLAMA_Q40_VARIANT="fma",
+    env = dict(os.environ, DLLAMA_Q40_VARIANT="fmaa",
                PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
     r = subprocess.run([sys.executable, "-m", "dllama_tpu_torch", "generate", "--model", m,
                         "--tokenizer", t, "--prompt", "hi", "--device", "cpu"],
                        cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
     assert r.returncode != 0
-    assert "not yet ported" in r.stderr and "DLLAMA_Q40_VARIANT=fma" in r.stderr
+    assert ("DLLAMA_Q40_VARIANT: unknown q40 kernel variant 'fmaa' "
+            "(expected classic | fma | folded | exact)") in r.stderr
+    assert "not yet ported" not in r.stderr
 
 
 def test_no_sched_overlap_is_accepted_and_reaches_the_scheduler(model_files):

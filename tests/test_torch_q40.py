@@ -182,7 +182,10 @@ def test_bind_declares_pointer_arguments():
         assert argt[:7] == [ctypes.c_void_p] * 7 and argt[-1] is ctypes.c_void_p
         assert set(argt[7:-1]) == {ctypes.c_int}
         assert fn.restype is ctypes.c_int
-    assert len(lib.q40_matmul_blocked.argtypes) == len(lib.q40_matmul.argtypes) + 3
+    # kernel 3 takes the tile shape (bn, td, nJ) where kernels 1-2 take the
+    # variant: always classic on blocked planes
+    assert len(lib.q40_matmul_blocked.argtypes) == len(lib.q40_matmul.argtypes) - 1 + 3
+    assert len(lib.q40_matmul_blocked_mma.argtypes) == len(lib.q40_matmul_mma.argtypes) - 1 + 3
     # kernel 4: the host arrays of the ranks' pointers, then ints, the stream
     argt = lib.tp_allreduce.argtypes
     assert argt[:2] == [ctypes.POINTER(ctypes.c_void_p)] * 2 and argt[-1] is ctypes.c_void_p

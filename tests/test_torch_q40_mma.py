@@ -126,7 +126,8 @@ def test_cpu_dispatch_counts_plain_only(t):
 
 def test_bind_declares_the_tensor_core_entry_points():
     """Pointers and the stream cross ctypes as c_void_p (64-bit); the plan
-    and copy widths, then kernel 3's tile shape, as c_int."""
+    and copy widths, then the variant (kernels 1-2) or kernel 3's tile
+    shape, as c_int."""
     class Fake:
         class _Fn:
             pass
@@ -140,7 +141,7 @@ def test_bind_declares_the_tensor_core_entry_points():
 
     lib = tq40.bind(Fake())
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    assert lib.q40_matmul_mma.argtypes == [vp] * 6 + [ci] * 10 + [vp]
+    assert lib.q40_matmul_mma.argtypes == [vp] * 6 + [ci] * 11 + [vp]
     assert lib.q40_matmul_blocked_mma.argtypes == [vp] * 6 + [ci] * 13 + [vp]
     assert lib.q40_matmul_mma.restype is ci and lib.q40_matmul_blocked_mma.restype is ci
 
