@@ -73,16 +73,35 @@ Phases (each prints its seconds; any failure exits non-zero):
 6c. the prefill attention kernel (t > 1 query rows over the paged pool,
    the mixed slot step's read) against its plain version (the gather, then
    the one-shot per-row-ceiling attention) at the 7B shape (G = 1) and at
-   Mixtral's (G = 4), bf16 and int8 pools, T in {2, 8, 16} and the widest
-   step (128 query rows a block: T = 128 at G = 1, 32 at G = 4): B = 8 rows
-   at position 0, mid-page, across a page edge and near 4095, the step's
-   K/V written first as the slot step writes it (rows with n_valid < T
-   send their padded tokens to scratch page 0; one row's table runs out
-   into page 0): for each query row (row, head, token), max|kernel - plain|
-   <= ATTN_TOL * max|plain| over that row.  Times the kernel
-   (cold L2), the plain version and SDPA on K/V pre-gathered to bf16 with
-   the boolean per-row mask (a yardstick the port never calls); prints the
-   bound and the kernel's share of it.
+   Mixtral's (G = 4), bf16, int8 and f32 pools, T in {2, 8, 16}, the widest
+   step before the row cap went (128 query rows a kv head: T = 128 at G =
+   1, 32 at G = 4) and one past it (256 rows, two row groups: T = 256, 64):
+   B = 8 rows at position 0, mid-page, across a page edge and near 4095,
+   the step's K/V written first as the slot step writes it (rows with
+   n_valid < T send their padded tokens to scratch page 0; one row's table
+   runs out into page 0): for each query row (row, head, token),
+   max|kernel - plain| <= ATTN_TOL * max|plain| over that row, both in f32
+   before their outputs round (PREFILL_F32_TOL = 1e-4 on an f32 pool), the
+   main path's bf16 output that f32 output rounded, and two launches equal,
+   bit for bit; then at the 7B shape on pages of 4, 24 and 100 positions
+   (PREFILL_PAGES), bf16 and int8, T = 16 and 256, the same checks.
+   Prints each instantiation's registers and spills from the build, the
+   plan (splits, row groups), the block's layout from the build (consumer
+   warpgroups, threads, shared memory, ring stages, consumer registers
+   after setmaxnreg), times the kernel (cold L2), the plain version
+   and SDPA on K/V pre-gathered to the operand type with the boolean
+   per-row mask (a yardstick the port never calls); prints the bound and
+   the kernel's share of it.
+6s. serving on the pools and widths the prefill kernel took no body for
+   before: the API server (phase 7's arguments) at 7B width cut to 8
+   layers (CUT_LAYERS) with ``--kv-cache-dtype f32 --kv-pages 257`` and
+   with ``--sched-prefill-chunk 256``, and Mixtral cut to 4 layers with
+   ``--sched-prefill-chunk 64`` (256 query rows a kv head): four greedy
+   requests each, every answer 200, the prefill kernel n_layers times a
+   mixed forward and 0 plain calls, a mixed step at the chunk's width; then
+   three mixed steps at that width on a fresh paged engine of the same
+   pool (warm-up, capture, replay) against an ``attn_impl="plain"``
+   engine: logits within E2E_TOL of max|plain|.
 7. the serving path at full width: the API server in-process on the
    phase-3 model (--batch-slots 8 --kv-pages 513 --kv-page-size 16
    --sched-prefill-chunk 16) answers 16 concurrent greedy requests (prompts
@@ -326,7 +345,8 @@ Phases (each prints its seconds; any failure exits non-zero):
    router's ejection, a ``hung`` respawn.
 
 They run in the order 1, 2, 2v, 13, 9, 6, 6c, 16, 3, 3v, 17, 4, 5, 8, 15, 20b,
-18, 7, 20, 3q, 21, 22, 23, 14, 10, 11, 12, 19; each synthesized model is deleted
+18, 7, 20, 3q, 21, 22, 23, 14, 6s (7B width), 10, 11, 6s (Mixtral), 12, 19; each
+synthesized model is deleted
 when its phases end.  The script prints its whole time on its last line but
 two.
 ``--only 1,6c`` runs a subset of the phases (for bring-up; it prints no
@@ -451,11 +471,23 @@ ATTN_POS = (0, 15, 16, 700, 1500, 2047, 3001, 4095)  # ragged rows
 PREFILL_SRC = "dllama_tpu_torch/ops/csrc/paged_prefill_attention.cu"
 PREFILL_REPLACES = "dllama_tpu/ops/attention.py:106 _rows_ceiling_attention"
 PREFILL_T = (2, 8, 16)
-# and the widest step of each shape, 128 query rows a block (two m16 tiles
-# a warp): t = 128 at G = 1 (7B), t = 32 at Mixtral's G = 4
-PREFILL_T_WIDE = {1: 128, 4: 32}
+# and the wide steps of each shape: the widest before the row cap went
+# (128 query rows a kv head: t = 128 at G = 1, t = 32 at Mixtral's G = 4)
+# and one past it (256 rows, two row groups: t = 256 at G = 1, 64 at G = 4)
+PREFILL_T_WIDE = {1: (128, 256), 4: (32, 64)}
 PREFILL_POS = (0, 7, 14, 300, 1000, 2040, 3001, 4095)
 PAGE = 16
+# row 5's table runs out into scratch page 0 at this position
+PREFILL_PAGE0_POS = 640
+# an f32 pool keeps f32 operands end to end, so its body is held closer than
+# ATTN_TOL: a sound body reads under 3e-5 of a query row's max, one that ran
+# single-pass TF32 or bf16 operands about 1e-3 or more
+PREFILL_F32_TOL = 1e-4
+# page sizes whose TMA boxes differ from 16's (--kv-page-size): 4 (a tile
+# is 8 pages of 8-row boxes, each reading past its page), 24 (a 32-row box
+# reads 8 rows past the page) and 100 (two 64-row segments, the second
+# short)
+PREFILL_PAGES = (4, 24, 100)
 # kernel 4, the TP all-reduce (phase 16): t rows a rank at decode, the
 # lockstep batch and a prefill chunk; d of Llama-2-7B/Mixtral and Grok-1
 TP_SRC = "dllama_tpu_torch/ops/csrc/tp_allreduce.cu"
@@ -1395,36 +1427,149 @@ def prefill_bound(pos, t: int, hkv: int, dh: int, hq: int, kv_bytes: float,
     """Least time for one mixed-step attention read of ``t`` query tokens a
     row: each row's live K/V positions (0..pos_b + t - 1, at most
     ``ceiling``; K and V, ``kv_bytes`` an element plus 4-byte scales for
-    int8) read once, q read and the output written once, against the HBM
-    rate; 4 flops a visible (query, key) pair an element (QK and PV; token
-    i of row b sees pos_b + i + 1 keys) against the bf16 peak."""
+    int8) read once, q read and the output written once (in the operand
+    type: f32 for an f32 pool, else bf16), against the HBM rate; 4 flops a
+    visible (query, key) pair an element (QK and PV; token i of row b sees
+    pos_b + i + 1 keys) against the bf16 tensor-core peak, or the f32 peak
+    outside the tensor cores for an f32 pool (its body runs FFMA)."""
     live = sum(min(int(p) + t, ceiling) for p in pos)
     nbytes = live * hkv * 2 * (dh * kv_bytes + (4 if kv_bytes == 1 else 0))
-    nbytes += len(pos) * hq * t * dh * 2 * 2 + len(pos) * 4
+    nbytes += len(pos) * hq * t * dh * (8 if kv_bytes == 4 else 4) + len(pos) * 4
     pairs = sum(min(int(p) + i + 1, ceiling) for p in pos for i in range(t))
     b_ms = nbytes / HBM_BYTES_S * 1e3
-    o_ms = 4.0 * pairs * hq * dh / BF16_FLOPS * 1e3
+    o_ms = 4.0 * pairs * hq * dh / (F32_FLOPS if kv_bytes == 4 else BF16_FLOPS) * 1e3
     return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
 
 
-def check_prefill_attention(attention, dev, hkv: int, codecs=("bf16", "int8")) -> dict:
+def prefill_build_report() -> None:
+    """The prefill kernel's instantiations from this process's nvcc run
+    (``-Xptxas -v``): registers, spills and shared memory of each."""
+    from dllama_tpu_torch.ops import _build
+    lines = _build.build_log.splitlines()
+    hits = [i for i, ln in enumerate(lines) if "Compiling entry function" in ln and "prefill" in ln]
+    if not hits:
+        print("prefill kernel build report: the library was built before this process")
+    for i in hits:
+        name = re.search(r"'(_Z[^']*)'", lines[i])
+        notes = [ln.split("ptxas info    :")[-1].strip() for ln in lines[i + 1:i + 5]
+                 if "ptxas info" in ln and "Compiling" not in ln and "Function properties" not in ln]
+        spills = [ln.strip() for ln in lines[i + 1:i + 5] if "spill" in ln]
+        print(f"  {name.group(1) if name else lines[i]}: {'; '.join(notes + spills)}")
+
+
+def _prefill_rows_agree(attention, args, tol: float, label: str, pos_np):
+    """Launch the prefill kernel twice on ``args`` (q of the main path's
+    type) and once on an f32 q, whose output is f32 (the same operands:
+    q rounds to the pool's operand either way); run the plain version on
+    the f32 q.  Raise unless the two launches are equal bit for bit, the
+    main path's output is the f32 one rounded, bit for bit, everything is
+    finite, and each query row (row, head, token) of the f32 output is
+    within ``tol`` of its own max|plain| (a long row averages over
+    thousands of keys, and its outputs are far smaller than those of a row
+    at position 0).  The two f32 outputs are compared before either rounds
+    to bf16: that rounding alone moves a bf16 row up to one ulp (2^-7 of
+    its max), and two roundings of answers that each sit within 0.7 % of
+    the exact one (f64) can land 1.15e-2 of the max apart.  Returns
+    (max|kernel - plain|, max|plain|, each query row's relative error, and
+    the same of the two outputs rounded to q's type)."""
+    q, rest = args[0], args[1:]
+    k = attention.prefill_attention(q, *rest)
+    k2 = attention.prefill_attention(q, *rest)
+    kf = attention.prefill_attention(q.float(), *rest)
+    p = attention.paged_rows_attention(q.float(), *rest)
+    torch.cuda.synchronize()
+    repeat = bool(torch.equal(k, k2)) and bool(torch.equal(k, kf.to(k.dtype)))
+    diff = (kf - p).abs().amax(-1)  # (B, H, T): a query row each
+    mag = p.abs().amax(-1)
+    bad = diff > tol * mag
+    if not torch.isfinite(kf).all() or bool(bad.any()) or not repeat:
+        b_, h_, i_ = (int(x) for x in bad.nonzero()[0]) if bad.any() else (0, 0, 0)
+        raise AssertionError(
+            f"{label}: row {b_} (position {pos_np[b_]}) head {h_} token {i_}: "
+            f"max|kernel-plain| {float(diff[b_, h_, i_])} > {tol} * {float(mag[b_, h_, i_])}; "
+            f"finite {bool(torch.isfinite(kf).all())}, two launches equal and the output the "
+            f"f32 one rounded {repeat}")
+    tiny = torch.finfo(torch.float32).tiny
+    rel = diff / mag.clamp_min(tiny)
+    pr = p.to(k.dtype).float()
+    rel_q = (k.float() - pr).abs().amax(-1) / pr.abs().amax(-1).clamp_min(tiny)
+    return float(diff.max()), float(mag.max()), rel, rel_q
+
+
+def check_prefill_pages(attention, dev) -> None:
+    """Phase 6c at the page sizes of PREFILL_PAGES (7B shape, B = 8 rows at
+    PREFILL_POS, 4096 positions a row, bf16 and int8 pools of 2 layers, T =
+    16 and 256): the boxes of other sizes than 16's, boxes read past a
+    short page and masked, pages of several segments.  The checks of
+    ``_prefill_rows_agree`` at ATTN_TOL; prints the plan and the errors."""
+    B, H, DH, L = 8, LLAMA2_7B["n_heads"], 128, 2
+    hkv, seq = LLAMA2_7B["n_kv_heads"], LLAMA2_7B["seq_len"]
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    g = torch.Generator(device=dev)
+    g.manual_seed(17)
+    rng = np.random.RandomState(17)
+    print("page codec    t  splits x pages  groups  max_abs_err  rel  row_rel  bf16_row_rel  "
+          "repeat")
+    for ps in PREFILL_PAGES:
+        maxp = -(-seq // ps)
+        table_np = (1 + rng.permutation(B * maxp)).reshape(B, maxp).astype(np.int32)
+        table_np[5, PREFILL_PAGE0_POS // ps:] = 0  # this row's table runs out into page 0
+        table = torch.from_numpy(table_np).to(dev)
+        shape = (L, 1 + B * maxp, hkv, ps, DH)
+        for codec in ("bf16", "int8"):
+            if codec == "int8":
+                pk, sk = attention.quantize_kv(torch.randn(shape, generator=g, device=dev) * 0.5)
+                pv, sv = attention.quantize_kv(torch.randn(shape, generator=g, device=dev) * 0.5)
+                scales, kv_bytes = (sk, sv), 1
+            else:
+                pk = (torch.randn(shape, generator=g, device=dev) * 0.5).to(torch.bfloat16)
+                pv = (torch.randn(shape, generator=g, device=dev) * 0.5).to(torch.bfloat16)
+                scales, kv_bytes = None, 2
+            for t in (16, 256):
+                pos_np = np.array([min(p, seq - t) for p in PREFILL_POS], np.int32)
+                pos = torch.from_numpy(pos_np).to(dev)
+                q = torch.randn((B, H, t, DH), generator=g, device=dev).to(torch.bfloat16)
+                err = row_err = abs_err = q_err = 0.0
+                for layer in (0, L - 1):
+                    e, scale, rel, rel_q = _prefill_rows_agree(
+                        attention, (q, pk, pv, layer, table, pos, scales), ATTN_TOL,
+                        f"prefill attention, pages of {ps}, {codec} t={t} layer {layer}", pos_np)
+                    err, abs_err = max(err, e / scale), max(abs_err, e)
+                    row_err = max(row_err, float(rel.max()))
+                    q_err = max(q_err, float(rel_q.max()))
+                plan = attention.prefill_plan(B, H, hkv, t, ps, DH, maxp, kv_bytes, n_sms)
+                print(f"{ps:4d} {codec:5s} {t:4d} {plan.splits:4d} x {plan.pps:4d} "
+                      f"{plan.groups:7d} {abs_err:12.6g} {err:.2e} {row_err:.2e} {q_err:.2e}  "
+                      "True")
+                del q
+            del pk, pv, scales
+            torch.cuda.empty_cache()
+
+
+def check_prefill_attention(attention, dev, hkv: int, codecs=("bf16", "int8", "f32")) -> dict:
     """Phase 6c: the prefill kernel (t > 1 query rows over the paged pool)
     against its plain version (the gather, then the one-shot per-row-ceiling
     attention), 32 query heads on ``hkv`` kv heads, B = 8 rows at
     PREFILL_POS (position 0, mid-page, across a page edge, near 4095), 256
-    pages of 16 a row, layers 0 and L-1 of a 3-layer pool, bf16 and int8.
-    Before each read the step's K/V is written as the slot step writes it
-    (``paged_write_indices``): rows 1, 3 and 6 have n_valid < T, so their
-    padded tokens go to scratch page 0; row 5's table runs out after 40
-    pages (its later positions read page 0).  The widths are PREFILL_T and
-    the shape's widest step (PREFILL_T_WIDE, 128 query rows a block).  Each
-    query row (row, head, token) is held to ATTN_TOL of its own max|plain|.
-    Prints max|kernel - plain| / max|plain| over the case, the worst query
-    row's relative error, and the worst among the rows at positions >= 300,
-    the kernel's time (cold L2, median of 20), the plain
-    version's, the bound and SDPA's on K/V pre-gathered to bf16 with the
-    boolean per-row mask (a yardstick the port never calls).  Returns
-    {(codec, t): numbers}."""
+    pages of 16 a row, layers 0 and L-1 of a 3-layer pool, bf16, int8 and
+    f32 pools.  Before each read the step's K/V is written as the slot step
+    writes it (``paged_write_indices``): rows 1, 3 and 6 have n_valid < T,
+    so their padded tokens go to scratch page 0; row 5's table runs out
+    after 40 pages (its later positions read page 0).  The widths are
+    PREFILL_T and the shape's wide steps (PREFILL_T_WIDE: 128 query rows a
+    kv head, and 256 in two row groups).  Each query row (row, head, token)
+    of the kernel's f32 output is held to ATTN_TOL of its own max|plain|
+    (an f32 pool to PREFILL_F32_TOL), the main path's output must be that
+    output rounded, and a second launch must equal the first, bit for bit
+    (``_prefill_rows_agree``).
+    Prints the plan (splits of pages, row groups) and the block's layout as
+    the build reports it (consumer warpgroups, threads, shared memory, ring
+    stages, consumer registers), max|kernel -
+    plain| / max|plain| over the case, the worst query row's relative
+    error, and the worst among the rows at positions >= 300, the kernel's
+    time (cold L2, median of 20), the plain version's, the bound and SDPA's
+    on K/V pre-gathered to the operand type with the boolean per-row mask
+    (a yardstick the port never calls).  Returns {(codec, t): numbers}."""
     B, H, DH, L = 8, LLAMA2_7B["n_heads"], 128, 3
     maxp = LLAMA2_7B["seq_len"] // PAGE
     n_pages = 1 + B * maxp
@@ -1432,36 +1577,42 @@ def check_prefill_attention(attention, dev, hkv: int, codecs=("bf16", "int8")) -
     g.manual_seed(16)
     rng = np.random.RandomState(16)
     table_np = (1 + rng.permutation(B * maxp)).reshape(B, maxp).astype(np.int32)
-    table_np[5, 40:] = 0  # this row's table runs out: page 0 from position 640
+    table_np[5, PREFILL_PAGE0_POS // PAGE:] = 0  # this row's table runs out into page 0
     table = torch.from_numpy(table_np).to(dev)
     flush = torch.ones(16 << 20, dtype=torch.float32, device=dev)
     shape = (L, n_pages, hkv, PAGE, DH)
     n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    splits, pps = attention.split_plan(maxp, B, hkv, n_sms)
-    widths = PREFILL_T + (PREFILL_T_WIDE[H // hkv],)
+    widths = PREFILL_T + PREFILL_T_WIDE[H // hkv]
     out = {}
-    print(f"{H} query heads on {hkv} kv heads; split page walk: {splits} splits of {pps} pages")
-    print("codec    t  pp  smem_B  kernel_ms  plain_ms  sdpa_ms  bound_ms(by)  share  "
-          "max_abs_err  rel  row_rel  long_row_rel")
+    print(f"{H} query heads on {hkv} kv heads, 256 pages of {PAGE} a row, tiles of "
+          f"{attention.PREFILL_KEYS} keys; the block's layout as the build reports it "
+          "(consumer warpgroups, threads, shared memory, ring stages, consumer registers "
+          "after setmaxnreg, 0: unchanged)")
+    print("codec    t  splits x pages  groups wgs thr  smem_B stg regs  kernel_ms  plain_ms  "
+          "sdpa_ms  bound_ms(by)  share  max_abs_err  rel  row_rel  long_row_rel  "
+          "bf16_row_rel  repeat")
     for codec in codecs:
-        if codec == "bf16":
-            pk = (torch.randn(shape, generator=g, device=dev) * 0.5).to(torch.bfloat16)
-            pv = (torch.randn(shape, generator=g, device=dev) * 0.5).to(torch.bfloat16)
-            scales, kv_bytes = None, 2
-        else:
+        kv_dt = {"bf16": torch.bfloat16, "f32": torch.float32}.get(codec)
+        q_dt = torch.float32 if codec == "f32" else torch.bfloat16
+        tol = PREFILL_F32_TOL if codec == "f32" else ATTN_TOL
+        if codec == "int8":
             pk, sk = attention.quantize_kv(torch.randn(shape, generator=g, device=dev) * 0.5)
             pv, sv = attention.quantize_kv(torch.randn(shape, generator=g, device=dev) * 0.5)
             scales, kv_bytes = (sk, sv), 1
+        else:
+            pk = (torch.randn(shape, generator=g, device=dev) * 0.5).to(kv_dt)
+            pv = (torch.randn(shape, generator=g, device=dev) * 0.5).to(kv_dt)
+            scales, kv_bytes = None, pk.element_size()
         for t in widths:
             pos_np = np.array([min(p, LLAMA2_7B["seq_len"] - t) for p in PREFILL_POS], np.int32)
             pos = torch.from_numpy(pos_np).to(dev)
             n_valid = torch.from_numpy(np.array([t, max(1, t // 2), t, 1, t, t, t - 1, t],
                                                 np.int32)).to(dev)
-            q = torch.randn((B, H, t, DH), generator=g, device=dev).to(torch.bfloat16)
-            err = row_err = long_err = abs_err = 0.0
+            q = torch.randn((B, H, t, DH), generator=g, device=dev).to(q_dt)
+            err = row_err = long_err = abs_err = q_err = 0.0
             for layer in (0, L - 1):
-                kn = torch.randn((B, hkv, t, DH), generator=g, device=dev).to(torch.bfloat16)
-                vn = torch.randn((B, hkv, t, DH), generator=g, device=dev).to(torch.bfloat16)
+                kn = torch.randn((B, hkv, t, DH), generator=g, device=dev).to(q_dt)
+                vn = torch.randn((B, hkv, t, DH), generator=g, device=dev).to(q_dt)
                 pidx, oidx = attention.paged_write_indices(table, pos, n_valid, t, PAGE)
                 if scales is None:
                     attention.paged_update_kv_rows(pk, pv, kn, vn, layer, pidx, oidx)
@@ -1469,25 +1620,12 @@ def check_prefill_attention(attention, dev, hkv: int, codecs=("bf16", "int8")) -
                     (qk, s_k), (qv, s_v) = attention.quantize_kv(kn), attention.quantize_kv(vn)
                     attention.paged_update_kv_rows(pk, pv, qk, qv, layer, pidx, oidx)
                     attention.paged_update_kv_rows(*scales, s_k, s_v, layer, pidx, oidx)
-                k = attention.prefill_attention(q, pk, pv, layer, table, pos, scales)
-                p = attention.paged_rows_attention(q, pk, pv, layer, table, pos, scales)
-                torch.cuda.synchronize()
-                diff = (k.float() - p.float()).abs().amax(-1)  # (B, H, T): a query row each
-                mag = p.float().abs().amax(-1)
-                e, scale = float(diff.max()), float(mag.max())
-                # each query row against its own scale: a long row averages
-                # over thousands of keys, and its outputs are far smaller
-                # than those of a row at position 0
-                bad = diff > ATTN_TOL * mag
-                if not torch.isfinite(k).all() or bool(bad.any()):
-                    b_, h_, i_ = (int(x) for x in bad.nonzero()[0]) if bad.any() else (0, 0, 0)
-                    raise AssertionError(
-                        f"prefill attention {codec} t={t} layer {layer}: row {b_} (position "
-                        f"{pos_np[b_]}) head {h_} token {i_}: max|kernel-plain| "
-                        f"{float(diff[b_, h_, i_])} > {ATTN_TOL} * {float(mag[b_, h_, i_])}")
-                rel = diff / mag.clamp_min(torch.finfo(torch.float32).tiny)
+                e, scale, rel, rel_q = _prefill_rows_agree(
+                    attention, (q, pk, pv, layer, table, pos, scales), tol,
+                    f"prefill attention {codec} t={t} layer {layer}", pos_np)
                 err, abs_err = max(err, e / scale), max(abs_err, e)
                 row_err = max(row_err, float(rel.max()))
+                q_err = max(q_err, float(rel_q.max()))
                 long_err = max(long_err, float(rel[torch.from_numpy(pos_np >= 300).to(dev)].max()))
             layer = L - 1
             k_ms = cold_ms(lambda: attention.prefill_attention(q, pk, pv, layer, table, pos,
@@ -1495,8 +1633,8 @@ def check_prefill_attention(attention, dev, hkv: int, codecs=("bf16", "int8")) -
             p_ms = cold_ms(lambda: attention.paged_rows_attention(q, pk, pv, layer, table, pos,
                                                                   scales), 3, flush)
             ks, vs = scales if scales is not None else (None, None)
-            kg = attention.paged_gather_layer(pk, layer, table, ks).to(torch.bfloat16)
-            vg = attention.paged_gather_layer(pv, layer, table, vs).to(torch.bfloat16)
+            kg = attention.paged_gather_layer(pk, layer, table, ks).to(q_dt)
+            vg = attention.paged_gather_layer(pv, layer, table, vs).to(q_dt)
             s_idx = torch.arange(kg.shape[2], device=dev)
             mask = s_idx[None, None, :] <= (pos.long()[:, None, None]
                                             + torch.arange(t, device=dev)[None, :, None])
@@ -1505,16 +1643,19 @@ def check_prefill_attention(attention, dev, hkv: int, codecs=("bf16", "int8")) -
                 q, kg, vg, attn_mask=mask, enable_gqa=H != hkv), 20, flush)
             del kg, vg, mask
             b_ms, by = prefill_bound(pos_np, t, hkv, DH, H, kv_bytes, maxp * PAGE)
-            rows = H // hkv * t
-            pp = attention.prefill_stage_pages(PAGE, pps, rows)
-            smem = attention.prefill_smem_bytes(rows, PAGE, DH, kv_bytes, pp)
-            print(f"{codec:5s} {t:4d} {pp:3d} {smem:7d} {k_ms:10.4f} {p_ms:9.4f} {l_ms:8.4f} "
-                  f"{b_ms:9.4f}({by[0]}) {b_ms / k_ms:6.1%} {abs_err:12.6g} {err:.2e} "
-                  f"{row_err:.2e} {long_err:.2e}")
+            plan = attention.prefill_plan(B, H, hkv, t, PAGE, DH, maxp, kv_bytes, n_sms)
+            lay = attention.prefill_layout(pk.dtype, DH, H // hkv * t)
+            print(f"{codec:5s} {t:4d} {plan.splits:4d} x {plan.pps:4d} {plan.groups:7d} "
+                  f"{lay['warpgroups']:3d} {lay['threads']:3d} {lay['smem']:7d} "
+                  f"{lay['stages']:3d} {lay['consumer_regs']:4d} {k_ms:10.4f} "
+                  f"{p_ms:9.4f} {l_ms:8.4f} {b_ms:9.4f}({by[0]}) {b_ms / k_ms:6.1%} "
+                  f"{abs_err:12.6g} {err:.2e} {row_err:.2e} {long_err:.2e} {q_err:.2e}  True")
             out[(codec, t)] = dict(max_abs_err=abs_err, rel_err=err, row_rel_err=row_err,
                                    long_row_rel_err=long_err, ms=k_ms, plain_ms=p_ms,
                                    bound_ms=b_ms, bound_by=by, library_ms=l_ms)
+            del q
         del pk, pv, scales
+        torch.cuda.empty_cache()
     del flush
     torch.cuda.empty_cache()
     return out
@@ -1659,6 +1800,7 @@ def profile_slot_step(engine, scheduler, q40, attention, steps: int = 4) -> dict
                 continue
             busy = sum(r[0] for r in rows)
             attn = sum(r[0] for r in rows if "paged_attention" in r[2] or "prefill_" in r[2])
+            k8 = sum(r[0] for r in rows if "prefill_" in r[2])  # kernel 8's passes
             q40k = sum(r[0] for r in rows if matmul_kernel(r[2], "q40"))
             gemm = [r for r in rows if "gemm" in r[2].lower() and not matmul_kernel(r[2], "q40")]
             if t > 1 and not engine.cfg.is_moe and gemm:
@@ -1668,6 +1810,8 @@ def profile_slot_step(engine, scheduler, q40, attention, steps: int = 4) -> dict
             key = "step" if t == 1 else "mixed"
             out.update({f"{key}_ms": wall, f"{key}_busy_ms": busy,
                         f"{key}_idle": 1 - busy / wall, f"{key}_ms_off": out[f"ms_off_{t}"]})
+            if t > 1:
+                out["mixed_k8_ms"] = k8
             print(f"8-slot {what}: wall {wall:.3f} ms replaying its graph, "
                   f"{out[f'ms_off_{t}']:.3f} ms eager")
             print(f"8-slot {what}, {steps} profiled ({how}): device busy {busy:.3f} ms -> "
@@ -1675,7 +1819,9 @@ def profile_slot_step(engine, scheduler, q40, attention, steps: int = 4) -> dict
                   f"({ac[k_attn] // steps} {k_attn} a step, {ac[p_attn]} plain), q40 "
                   f"{q40k:.3f} ms, other {busy - attn - q40k:.3f} ms; "
                   f"{sum(r[1] for r in rows)} kernel launches a step, Q40 {mm // steps} "
-                  f"({c['mma_launches'] // steps} on the tensor-core body)")
+                  f"({c['mma_launches'] // steps} on the tensor-core body)"
+                  + (f"; kernel 8 (the prefill attention kernel) {k8:.4f} ms a step"
+                     if t > 1 else ""))
             for ms_, k, name in sorted(rows, reverse=True)[:8]:
                 print(f"  {ms_:8.4f} ms/step {k:5d}x  {name[:90]}")
     return out
@@ -1873,6 +2019,136 @@ def serve_path(api, attention, q40, m: str, t: str, n_requests: int,
     finally:
         api.stop(server)
         del server
+        torch.cuda.empty_cache()
+
+
+# phase 6s: serving on the pools and at the widths the prefill kernel took
+# no body for before (an f32 pool; steps past 128 query rows a kv head)
+WIDE_PROMPTS = (600, 300, 90, 20)  # characters, about a token each
+WIDE_NEW = 16
+
+
+def wide_serving(api, engine_mod, attention, m: str, t: str, extra: list[str], width: int,
+                 label: str) -> dict:
+    """Phase 6s, one configuration: the API server on ``m`` with phase 7's
+    arguments and ``extra`` answers four greedy requests released together
+    (prompts of WIDE_PROMPTS characters): every answer 200, every mixed
+    slot forward launches the prefill kernel once a layer and no forward
+    its plain version, and a mixed step of ``width`` tokens a row ran.
+    Then, on the server's weights and pool type, a fresh paged engine with
+    its graphs on runs three mixed steps of ``width`` tokens a row (4 rows
+    at n_valid width, 3/4, 1/2 and 1/4 of it, positions 0, width, 2·width:
+    the first warms the key, the second captures its graph, the third
+    replays it) beside an ``attn_impl="plain"`` engine on the same inputs:
+    each step's logits within E2E_TOL of max|plain|, the kernel engine
+    ``n_layers`` prefill launches a step and 0 plain calls, the plain one
+    none."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    server = api.start(["--model", m, "--tokenizer", t, *SERVE_ARGS, *extra])
+    out = {}
+    try:
+        state = server.state
+        eng, sched = state.batch_engine, state.scheduler
+        L = eng.cfg.n_layers
+        pool = "int8" if eng.cache.quantized else str(eng.cache.k.dtype).split(".")[-1]
+        print(f"{label}: server up in {time.perf_counter() - t0:.1f} s, a {pool} pool of "
+              f"{eng.kv_pages} pages, prefill chunk {sched.prefill_chunk}")
+        widths = []
+        real = eng.slot_step_async
+
+        def spy(*a, **kw):
+            toks = a[0] if a else kw.get("tokens_np")
+            if toks is not None:
+                widths.append(np.asarray(toks).shape[1])
+            return real(*a, **kw)
+
+        eng.slot_step_async = spy
+        base = f"http://127.0.0.1:{server.server_address[1]}"
+        rng = np.random.RandomState(24)
+        reqs = [("/v1/completions", {"prompt": "".join(rng.choice(list("abcdefgh  "), k)),
+                                     "max_tokens": WIDE_NEW, "temperature": 0})
+                for k in WIDE_PROMPTS]
+        attention.reset_counters()
+        f0, fwd0 = eng.slot_decode_forwards, eng.forwards
+        results: list = [None] * len(reqs)
+        threads = [threading.Thread(target=lambda i=i: results.__setitem__(
+            i, _post(base, *reqs[i]))) for i in range(len(reqs))]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        wall = time.perf_counter() - t0
+        eng.slot_step_async = real
+        ac = attention.counters()
+        n_dec = eng.slot_decode_forwards - f0
+        n_mix = eng.forwards - fwd0 - n_dec
+        if any(code != 200 for code, _ in results):
+            raise AssertionError(f"{label}: a request failed: {str(results)[:600]}")
+        if (not n_mix or ac["prefill_launches"] != L * n_mix or ac["prefill_plain_calls"]
+                or ac["kernel_launches"] != L * n_dec or ac["plain_calls"]):
+            raise AssertionError(f"{label}: attention counters {ac} over {n_mix} mixed and "
+                                 f"{n_dec} single-token forwards (want {L} launches each)")
+        if max(widths) != width:
+            raise AssertionError(f"{label}: the widest mixed step was {max(widths)} tokens a "
+                                 f"row, not {width}")
+        print(f"{label}: {len(reqs)} requests in {wall:.2f} s, every answer 200; {n_mix} mixed "
+              f"forwards ({ac['prefill_launches']} prefill launches, {L} each, plain "
+              f"{ac['prefill_plain_calls']}), widths {sorted(set(widths))}; {n_dec} "
+              f"single-token forwards ({ac['kernel_launches']} kernel-7 launches)")
+        out["prefill_launches"] = ac["prefill_launches"]
+        # the first mixed forwards against the plain read, on a fresh pair
+        b = 4
+        kv = "q8" if eng.cache.quantized else eng.cache.k.dtype
+        pages = 3 * width // PAGE  # a row's pages for the three steps
+        n_valid = np.array([width, 3 * width // 4, width // 2, width // 4], np.int32)
+        toks = np.random.RandomState(25).randint(3, eng.cfg.vocab_size, (3, b, width))
+        zeros = np.zeros(b, np.float32)
+        logits = {}
+        with sched.exclusive():
+            for impl in ("auto", "plain"):
+                e2 = engine_mod.Engine(eng.cfg.with_(attn_impl=impl), eng.params,
+                                       device=eng.device, batch=b, kv_dtype=kv,
+                                       kv_pages=1 + b * pages, kv_page_size=PAGE,
+                                       graphs=impl == "auto")
+                ptab = np.zeros((b, e2.max_pages_per_slot), np.int32)
+                ptab[:, :pages] = 1 + np.arange(b * pages, dtype=np.int32).reshape(b, pages)
+                steps = []
+                for i in range(3):
+                    attention.reset_counters()
+                    e2.slot_step(toks[i].astype(np.int32), np.full(b, i * width, np.int32),
+                                 n_valid, temps_np=zeros, topps_np=zeros + 0.9,
+                                 page_tables_np=ptab)
+                    steps.append(e2.last_logits.float())
+                    ac = attention.counters()
+                    want = (L, 0) if impl == "auto" else (0, L)
+                    if (ac["prefill_launches"], ac["prefill_plain_calls"]) != want:
+                        raise AssertionError(f"{label}: {impl} mixed step {i}: {ac}")
+                logits[impl] = torch.stack(steps)
+                if impl == "auto":
+                    mixed = [k for k in e2.graphs.cost if k.path == "mixed" and k.walk == width]
+                    if not mixed:
+                        raise AssertionError(f"{label}: no mixed graph captured at width "
+                                             f"{width}: {list(e2.graphs.cost)}")
+                del e2
+                torch.cuda.empty_cache()
+        k, p = logits["auto"], logits["plain"]
+        err, scale = float((k - p).abs().max()), float(p.abs().max())
+        if not (torch.isfinite(k).all() and err <= E2E_TOL * scale):
+            raise AssertionError(f"{label}: mixed-step logits kernel vs plain {err} > "
+                                 f"{E2E_TOL} * {scale}")
+        print(f"{label}: three mixed steps of {width} tokens a row (warm-up, capture, replay) "
+              f"against attn_impl='plain': max|kernel-plain| {err:.4g} of max|plain| "
+              f"{scale:.4g} ({err / scale:.2e}, limit {E2E_TOL:g}); {L} prefill launches a "
+              f"step, 0 plain")
+        out["logit_rel_err"] = err / scale
+        return out
+    finally:
+        api.stop(server)
+        del server
+        gc.collect()
         torch.cuda.empty_cache()
 
 
@@ -4250,7 +4526,7 @@ def fleet_supervised(cli, pod_mod, obs_metrics, tok, m8: str, t: str) -> dict:
 
 def kernel_entries(run, run_tp, run_mix, run_blocked, run_q8, run_score, served, table,
                    tp_table, mix_table, blocked_table, q8_table, attn, attn_g4, ar_table,
-                   prefill, prefill_g4, var_table, var_runs) -> list:
+                   prefill, prefill_g4, var_table, var_runs, served_wide) -> list:
     """The ``kernels`` JSON line's entries: each kernel at the shapes of the
     phase that checked it, with the launches of the main path that ran it;
     raises when a kernel of a path was never launched there."""
@@ -4315,10 +4591,15 @@ def kernel_entries(run, run_tp, run_mix, run_blocked, run_q8, run_score, served,
                 for label, r, run_ in attn_rows]
     # the prefill kernel (the port's own: no Pallas counterpart) at the
     # serving paths' width T = 16, with the mixed steps' launches of the
-    # run on that pool (phases 7, 7b, 11b)
+    # run on that pool (phases 7, 7b, 11b); the f32 pool at T = 16 and the
+    # steps past 128 query rows a kv head (T = 256 at G = 1, 64 at G = 4)
+    # with phase 6s's servers' launches
     pre_rows = [("bf16,t=16", prefill[("bf16", 16)], served["bf16"]),
                 ("int8,t=16", prefill[("int8", 16)], served["int8"]),
-                ("bf16,G=4,t=16", prefill_g4[("bf16", 16)], served["g4"])]
+                ("bf16,G=4,t=16", prefill_g4[("bf16", 16)], served["g4"]),
+                ("f32,t=16", prefill[("f32", 16)], served_wide["f32"]),
+                ("bf16,t=256", prefill[("bf16", 256)], served_wide["t256"]),
+                ("bf16,G=4,t=64", prefill_g4[("bf16", 64)], served_wide["g4_t64"])]
     kernels += [dict(name=f"paged_prefill_attention[{label}]", route="cuda",
                      source=PREFILL_SRC, replaces=PREFILL_REPLACES,
                      launches=run_["prefill_launches"], max_abs_err=r["max_abs_err"],
@@ -4409,14 +4690,17 @@ def main() -> int:
                                             ("bf16",))
     if run_phase(6) or run_phase("6c"):
         with phase("6c prefill attention kernel (t > 1) vs plain at the 7B shape"):
+            prefill_build_report()
             prefill = check_prefill_attention(attention, dev, LLAMA2_7B["n_kv_heads"])
         with phase("6c prefill attention kernel (t > 1) vs plain at Mixtral's shape (G = 4)"):
             prefill_g4 = check_prefill_attention(attention, dev, MIXTRAL_8X7B["n_kv_heads"])
+        with phase("6c prefill attention kernel (t > 1) vs plain at other page sizes"):
+            check_prefill_pages(attention, dev)
     if run_phase(16):
         with phase("16 kernel 4 (TP all-reduce) vs plain, every rank on cuda:0"):
             ar_table = check_allreduce(q40, dev)
     os.makedirs(WORK, exist_ok=True)
-    served = {}
+    served, wide = {}, {}
     try:
         m, t, m2, m3, t3, m8 = (os.path.join(WORK, f) for f in (
             "llama2-7b.m", "32k.t", "l2.m", "l2-chat.m", "32k-chat.t", "l8.m"))
@@ -4425,7 +4709,7 @@ def main() -> int:
         if any(map(run_phase, (3, "3v", 7, 20, 23))):
             synth_model(m, LLAMA2_7B["n_layers"], mfile, quants)
             print(f"synthesized {os.path.getsize(m) / 1e9:.2f} GB")
-        if any(map(run_phase, (14, 17, 23, "3v", "3q", 21, 22))):
+        if any(map(run_phase, (14, 17, 23, "3v", "3q", 21, 22, "6s"))):
             synth_model(m8, CUT_LAYERS, mfile, quants)
             print(f"synthesized {os.path.getsize(m8) / 1e9:.2f} GB (7B width, "
                   f"{CUT_LAYERS} layers)")
@@ -4569,6 +4853,14 @@ def main() -> int:
                     served["blocked"] = serve_path(api, attention, q40, m8, t, 8,
                                                    ["--kv-quant", "int8"], False,
                                                    blocked=True)
+        if run_phase("6s"):
+            with phase(f"6s serving on an f32 pool and at a 256-token chunk (7B width, "
+                       f"{CUT_LAYERS} layers)"):
+                wide["f32"] = wide_serving(api, engine_mod, attention, m8, t,
+                                           ["--kv-cache-dtype", "f32", "--kv-pages", "257"],
+                                           16, "f32 pool")
+                wide["t256"] = wide_serving(api, engine_mod, attention, m8, t,
+                                            ["--sched-prefill-chunk", "256"], 256, "chunk 256")
         for f in (m, m2, m8, m + ".sum"):
             if os.path.exists(f):
                 os.remove(f)
@@ -4589,12 +4881,13 @@ def main() -> int:
                       f"launches, {run_q8['counts']['kernel_launches'] - run_q8['counts']['mma_launches']} GEMV")
                 os.remove(m)
         mix = {**MIXTRAL_8X7B, "n_layers": MIXTRAL_LAYERS}
-        if run_phase(11):
+        if run_phase(11) or run_phase("6s"):
             L, E, k = MIXTRAL_LAYERS, mix["n_experts"], mix["n_active_experts"]
             per_tok, per_prefill = (2 + 3 * k) * L + 1, (2 + 3 * E) * L + 1
             synth_model(m, L, mfile, quants, dims=mix)
             print(f"synthesized {os.path.getsize(m) / 1e9:.2f} GB (Mixtral-8x7B, Q40, "
                   f"{L} layers)")
+        if run_phase(11):
             with phase(f"11 Mixtral-8x7B Q40 ({MIXTRAL_LAYERS} layers): inference"):
                 # two prefills (warmup, then the timed run) take the
                 # all-experts route; every other forward is a single token
@@ -4608,6 +4901,14 @@ def main() -> int:
             with phase(f"11b Mixtral-8x7B Q40 ({MIXTRAL_LAYERS} layers): serving"):
                 served["g4"] = serve_path(api, attention, q40, m, t, 8,
                                           ["--max-seq-len", MIXTRAL_CTX], True, repeat=True)
+        if run_phase("6s"):
+            with phase(f"6s serving Mixtral-8x7B ({MIXTRAL_LAYERS} layers) at a 64-token chunk "
+                       f"(256 query rows a kv head)"):
+                wide["g4_t64"] = wide_serving(api, engine_mod, attention, m, t,
+                                              ["--max-seq-len", MIXTRAL_CTX,
+                                               "--sched-prefill-chunk", "64"], 64,
+                                              "Mixtral, chunk 64")
+        if os.path.exists(m):
             os.remove(m)
         if run_phase(12):
             for name, ftype in (("Q40", quants.Q40), ("Q80", quants.Q80)):
@@ -4667,7 +4968,8 @@ def main() -> int:
     served["bf16"]["prefill_launches"] += p23["prefill_launches"]
     kernels = kernel_entries(run, run_tp, run_mix, run_blocked, run_q8, run_score, served,
                              table, tp_table, mix_table, blocked_table, q8_table, attn,
-                             attn_g4, ar_table, prefill, prefill_g4, var_table, var_runs)
+                             attn_g4, ar_table, prefill, prefill_g4, var_table, var_runs,
+                             wide)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -690,8 +690,10 @@ def bind(lib):
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.paged_attention.argtypes = [vp] * 10 + [ci] * 13 + [ctypes.c_float, vp]
     lib.paged_attention.restype = ci
-    lib.paged_prefill_attention.argtypes = [vp] * 10 + [ci] * 14 + [ctypes.c_float, vp]
+    lib.paged_prefill_attention.argtypes = [vp] * 10 + [ci] * 13 + [ctypes.c_float, vp]
     lib.paged_prefill_attention.restype = ci
+    lib.paged_prefill_layout.argtypes = [ci, ci, ci, ctypes.POINTER(ci)]
+    lib.paged_prefill_layout.restype = ci
     return lib
 
 
@@ -699,100 +701,103 @@ def bind(lib):
 # The prefill kernel (csrc/paged_prefill_attention.cu): t > 1 query rows
 # over the paged pool with per-row ceilings, the mixed slot step's read.
 
-# threads per block and ring stages: must match kThreads and kStages in the
-# source
-PREFILL_THREADS = 128
-PREFILL_STAGES = 3
-# query rows (G·T) a block takes: eight m16 tiles, two a warp above 64
+# query rows a block takes (a row group; wider steps have more groups) and
+# keys a tile: the split plan's two numbers from the source (kRows, kKeys),
+# which owns the rest of the block's layout (:func:`prefill_layout`)
 PREFILL_MAX_ROWS = 128
-# head dims the source instantiates
+PREFILL_KEYS = 64
+# head dims the source instantiates, and the pools it reads
 PREFILL_DH = (64, 128)
+_PREFILL_KV = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+# the split plan: the partials, written and read back, stay under this
+# share of the K/V bytes at full table length; the grid aims for this many
+# blocks an SM (ragged rows balance)
+PREFILL_PARTIAL_SHARE = 0.1
+PREFILL_BLOCKS_PER_SM = 4
 _PREFILL = "paged_prefill_attention"
 
 
-def prefill_max_t(g: int) -> int:
-    """The widest step the kernel takes with ``g`` query heads a kv head:
-    ``PREFILL_MAX_ROWS // g`` tokens (128 for Llama-2-7B, 32 for
-    Mixtral's G = 4)."""
-    return PREFILL_MAX_ROWS // g
+class PrefillPlan(NamedTuple):
+    """The prefill kernel's launch (:func:`prefill_plan`): the grid is
+    ``(hkv, b, groups * splits)``, ``groups`` row groups of up to
+    ``PREFILL_MAX_ROWS`` query rows, ``splits`` ranges of ``pps`` pages;
+    ``partial_bytes`` the f32 partials written and read back at full table
+    length (0 with one split: pass 1 writes the output) beside
+    ``kv_bytes``, the K/V bytes of full tables."""
+    splits: int
+    pps: int
+    groups: int
+    partial_bytes: int
+    kv_bytes: int
 
 
-def prefill_warps(rows: int) -> tuple[int, int, int]:
-    """How the four warps share a block's ``rows`` query rows (mirrors the
-    source): ``(mpw, mtw, kg)`` — m16 tiles a warp (2 above 64 rows), tile
-    slots, and key groups a tile (warps that share a tile take alternate
-    16-key chunks)."""
-    mt = -(-rows // 16)
-    if mt > 4:
-        return 2, 4, 1
-    mtw = 1 if mt <= 1 else (2 if mt <= 2 else 4)
-    return 1, mtw, PREFILL_THREADS // 32 // mtw
+def prefill_pages_a_tile(ps: int) -> int:
+    """Pages of ``ps`` positions a 64-key tile holds (1 when a page fills a
+    tile or more): the source reads a page in boxes of the power of two
+    from 8 to 64 rows that covers it, so a tile is 64 / that many whole
+    pages or a 64-row slice of one.  A split of whole tiles wastes no box."""
+    br = 8
+    while br < ps and br < PREFILL_KEYS:
+        br *= 2
+    return max(1, PREFILL_KEYS // br // -(-ps // br))
 
 
-def prefill_stage_pages(ps: int, pps: int, rows: int) -> int:
-    """Pages a ring stage holds: 16 keys for each key group, at least 32
-    positions (one __syncthreads a stage), no more than a split walks."""
-    want = max(32, 16 * prefill_warps(rows)[2])
-    return max(1, min(pps, want // ps))
-
-
-def prefill_smem_bytes(rows: int, ps: int, dh: int, kv_bytes: int, pp: int) -> int:
-    """Dynamic shared memory of one pass-1 block (mirrors the source's
-    ``Carve``): the query tile (rows rounded up to 16, rows of dh + 8 bf16),
-    then ``PREFILL_STAGES`` ring stages of ``pp`` pages — for bf16 the K
-    and V tiles in the padded layout the products read, for int8 the raw
-    pages and their scales (each stage rounded up to 16 bytes) plus one
-    dequantized bf16 K/V tile pair; the warps' ``(acc[dh], m, l)`` records
-    reuse everything past the query tile."""
-    ld = dh + 8
-    skp = -(-(pp * ps) // 16) * 16
-    q_bytes = -(-rows // 16) * 16 * ld * 2
-    tile = skp * ld * 2
-    if kv_bytes == 1:
-        stage, conv = -(-(pp * ps * dh * 2 + pp * ps * 8) // 16) * 16, 2 * tile
-    else:
-        stage, conv = 2 * tile, 0
-    records = PREFILL_THREADS // 32 * prefill_warps(rows)[0] * 16 * (dh + 2) * 4
-    return q_bytes + max(PREFILL_STAGES * stage + conv, records)
+def prefill_layout(pool_dtype: torch.dtype, dh: int, rows: int) -> dict:
+    """The pass-1 block the source launches for ``rows`` = G·T query rows a
+    kv head on a ``pool_dtype`` pool, as the build reports it
+    (``paged_prefill_layout``): consumer ``warpgroups`` (0 for the f32
+    body), ``threads``, dynamic shared memory ``smem`` in bytes, ring
+    ``stages`` and ``consumer_regs`` (registers a consumer thread after
+    setmaxnreg, 0 when unchanged).  Builds the kernels (needs ``nvcc``)."""
+    _require(pool_dtype in _PREFILL_KV, f"a {pool_dtype} pool", _PREFILL)
+    from . import _build
+    lib = _build.load()
+    out = (ctypes.c_int * 5)()
+    rc = lib.paged_prefill_layout(_PREFILL_KV[pool_dtype], dh, rows, out)
+    _require(rc == 0, f"no layout at head dim {dh}", _PREFILL)
+    return dict(zip(("warpgroups", "threads", "smem", "stages", "consumer_regs"), out))
 
 
 def prefill_plan(b: int, hq: int, hkv: int, t: int, ps: int, dh: int, maxp: int,
-                 kv_bytes: int, n_sms: int) -> tuple[int, int, int, int]:
-    """The prefill kernel's launch for these shapes, from host shapes alone:
-    ``(splits, pps, pp, smem)`` — the grid ``(hkv, b, splits)`` of kernel
-    7's :func:`split_plan`, ``pp`` pages a ring stage and the dynamic
-    shared memory of a block.  Raises on a head dim the source does not
-    instantiate, on more than ``PREFILL_MAX_ROWS`` query rows a block (the
-    widest step is :func:`prefill_max_t`) and on a block past the card's
-    shared memory."""
+                 kv_bytes: int, n_sms: int) -> PrefillPlan:
+    """The prefill kernel's launch for these shapes, from host shapes alone
+    (no position, so a captured graph keeps it).  The split count comes
+    from the table length and G·T: as many splits as keep the partials (G·T
+    records of dh + 2 floats a split and kv head, written and read back)
+    under ``PREFILL_PARTIAL_SHARE`` of the K/V bytes at full table length,
+    up to ``PREFILL_BLOCKS_PER_SM`` blocks an SM (ragged rows balance); a
+    grid under half the SMs takes enough splits to fill them whatever the
+    partials cost.  A split walks whole tiles.  Raises on a head dim the
+    source does not instantiate."""
     _require(dh in PREFILL_DH, f"head dim {dh} (the kernel takes {PREFILL_DH})", _PREFILL)
     _require(hq % hkv == 0, f"{hq} query heads not a multiple of {hkv} kv heads", _PREFILL)
-    g = hq // hkv
-    _require(1 <= t <= prefill_max_t(g),
-             f"{t} tokens a row with {g} query heads a kv head: the kernel takes "
-             f"at most {prefill_max_t(g)} (G·T <= {PREFILL_MAX_ROWS} query rows "
-             "a block); lower --sched-prefill-chunk", _PREFILL)
-    splits, pps = split_plan(maxp, b, hkv, n_sms)
-    pp = prefill_stage_pages(ps, pps, g * t)
-    smem = prefill_smem_bytes(g * t, ps, dh, kv_bytes, pp)
-    _require(smem <= MAX_SMEM, f"pages of {ps}x{dh} with {g * t} query rows need "
-             f"{smem} B of shared memory (max {MAX_SMEM})", _PREFILL)
-    return splits, pps, pp, smem
+    _require(t >= 1, f"{t} tokens a row", _PREFILL)
+    rows = hq // hkv * t
+    groups = -(-rows // PREFILL_MAX_ROWS)
+    kv_pair = maxp * ps * 2 * (dh * kv_bytes + (4 if kv_bytes == 1 else 0))
+    part_split = 2 * rows * (dh + 2) * 4
+    blocks = b * hkv * groups
+    cap = int(kv_pair * PREFILL_PARTIAL_SHARE // part_split)
+    splits = max(1, min(cap, -(-PREFILL_BLOCKS_PER_SM * n_sms // blocks)))
+    if 2 * blocks < n_sms:
+        splits = max(splits, -(-n_sms // blocks))
+    ppt = prefill_pages_a_tile(ps)
+    per = -(-maxp // min(splits, maxp))
+    pps = -(-per // ppt) * ppt
+    splits = -(-maxp // pps)
+    return PrefillPlan(splits, pps, groups, b * hkv * part_split * splits if splits > 1 else 0,
+                       b * hkv * kv_pair)
 
 
-def check_prefill_config(pool_dtype: torch.dtype, dh: int, g: int, max_t: int = 2) -> None:
+def check_prefill_config(pool_dtype: torch.dtype, dh: int) -> None:
     """Raise, before any request, when the prefill kernel could not read a
-    paged pool on the card: a pool other than bf16 or int8, a head dim the
-    source does not instantiate, or a widest step ``max_t`` past
-    :func:`prefill_max_t` with ``g`` query heads a kv head."""
-    _require(pool_dtype in (torch.bfloat16, torch.int8),
-             f"a {pool_dtype} pool on the card: the kernel reads bf16 or int8 pools "
-             "(set the KV cache dtype to bf16 or q8, or use attn_impl='plain')", _PREFILL)
+    paged pool on the card: a pool other than f32, bf16 or int8 (f16 has no
+    body), or a head dim the source does not instantiate.  Any step width
+    and page size passes."""
+    _require(pool_dtype in _PREFILL_KV,
+             f"a {pool_dtype} pool on the card: the kernel reads f32, bf16 or int8 pools "
+             "(set the KV cache dtype to f32, bf16 or q8, or use attn_impl='plain')", _PREFILL)
     _require(dh in PREFILL_DH, f"head dim {dh} (the kernel takes {PREFILL_DH})", _PREFILL)
-    _require(max_t <= prefill_max_t(g),
-             f"{max_t} tokens a row with {g} query heads a kv head: the kernel takes "
-             f"at most {prefill_max_t(g)} (G·T <= {PREFILL_MAX_ROWS} query rows "
-             "a block); lower --sched-prefill-chunk", _PREFILL)
 
 
 def paged_prefill_attention(q: torch.Tensor, pool_k: torch.Tensor,
@@ -820,48 +825,54 @@ def prefill_attention(q: torch.Tensor, pool_k: torch.Tensor, pool_v: torch.Tenso
                       scales: tuple[torch.Tensor, torch.Tensor] | None = None
                       ) -> torch.Tensor:
     """Launch the prefill kernel: q (B, Hq, T, Dh) f32/bf16 (rounded to the
-    bf16 operand) against the pools (L, P, Hkv, ps, Dh) bf16, or int8 with
-    (k, v) f32 scale planes (L, P, Hkv, ps, 1), through ``page_table``
-    (B, maxp) int32 at per-row positions ``pos_rows`` (B,) int32 →
-    (B, Hq, T, Dh) in q's dtype.  CUDA tensors only; no host sync (the
-    page table, the positions and the layer are read on the device)."""
+    pool's operand: bf16 for a bf16 or int8 pool, f32 for an f32 one)
+    against the pools (L, P, Hkv, ps, Dh) f32 or bf16, or int8 with (k, v)
+    f32 scale planes (L, P, Hkv, ps, 1), through ``page_table`` (B, maxp)
+    int32 at per-row positions ``pos_rows`` (B,) int32 → (B, Hq, T, Dh) in
+    q's dtype.  CUDA tensors only; no host sync (the page table, the
+    positions and the layer are read on the device)."""
     global prefill_launches
     _require(q.is_cuda, f"q must be a CUDA tensor, got device {q.device}", _PREFILL)
     dev = q.device
     _require(q.dim() == 4, f"q shape {tuple(q.shape)} != (B, Hq, T, Dh)", _PREFILL)
     b, hq, t, dh = q.shape
-    # bf16 or int8 pools: the tensor cores' bf16 operand (an f32 pool has no kernel)
     layer = _check_pools(q, pool_k, pool_v, layer, page_table, pos_rows, scales,
-                         {torch.bfloat16: 1, torch.int8: 2}, _PREFILL)
+                         _PREFILL_KV, _PREFILL)
     n_layers, n_pages, hkv, ps, _ = pool_k.shape
+    _require(n_layers * n_pages * hkv * ps < 2 ** 31,
+             f"a pool of {n_layers * n_pages * hkv * ps} rows (the tensor maps take < 2^31)",
+             _PREFILL)
+    if scales is not None:
+        _require(all(sc.data_ptr() % 16 == 0 for sc in scales),
+                 "scale planes not 16-byte aligned for the kernel's TMA copies", _PREFILL)
     maxp = page_table.shape[1]
-    splits, pps, pp, smem = prefill_plan(b, hq, hkv, t, ps, dh, maxp,
-                                         pool_k.element_size(), _sm_count(dev))
+    plan = prefill_plan(b, hq, hkv, t, ps, dh, maxp, pool_k.element_size(), _sm_count(dev))
     from . import _build
     lib = _build.load()
-    qb = q.to(torch.bfloat16).contiguous()
-    if qb.data_ptr() % 16:  # the query tile is read in 16-byte pieces
-        qb = qb.clone()
+    qc = q.to(torch.float32 if pool_k.dtype == torch.float32 else torch.bfloat16).contiguous()
+    if qc.data_ptr() % 16:  # the query tile is read in 16-byte pieces
+        qc = qc.clone()
     out = torch.empty(q.shape, dtype=q.dtype, device=dev)
     if b == 0:
         return out
-    part = torch.empty((b, hq, t, splits, dh + 2), dtype=torch.float32, device=dev)
+    part = out  # unused with one split
+    if plan.splits > 1:
+        part = torch.empty((b, hq, t, plan.splits, dh + 2), dtype=torch.float32, device=dev)
     layer_t = index_view(dev, layer, n_layers)
     sk_ptr = scales[0].data_ptr() if scales is not None else None
     sv_ptr = scales[1].data_ptr() if scales is not None else None
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         rc = lib.paged_prefill_attention(
-            qb.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), sk_ptr, sv_ptr,
+            qc.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), sk_ptr, sv_ptr,
             layer_t.data_ptr(), page_table.data_ptr(), pos_rows.data_ptr(),
             out.data_ptr(), part.data_ptr(), _QTYPES[q.dtype],
-            _KVTYPES[pool_k.dtype], b, hq, hkv, t, ps, dh, maxp, n_pages, n_layers,
-            splits, pps, pp, _sqrt_dh(dh), stream)
+            _PREFILL_KV[pool_k.dtype], b, hq, hkv, t, ps, dh, maxp, n_pages, n_layers,
+            plan.splits, plan.pps, _sqrt_dh(dh), stream)
     if rc != 0:
         raise RuntimeError(f"paged_prefill_attention launch failed: CUDA error {rc} "
                            f"({lib.q40_error_string(rc).decode()}) at B={b} Hq={hq} "
-                           f"Hkv={hkv} T={t} ps={ps} Dh={dh} splits={splits}x{pps} "
-                           f"pp={pp} smem={smem}")
+                           f"Hkv={hkv} T={t} ps={ps} Dh={dh} pool={pool_k.dtype} {plan}")
     with COUNT_LOCK:
         prefill_launches += 1
     return out

@@ -4,62 +4,98 @@
 // The port's own kernel: it has no Pallas counterpart.  It computes what
 // the JAX package leaves to XLA at dllama_tpu/ops/attention.py:106
 // _rows_ceiling_attention over the view that paged_gather_layer (:218)
-// gathers, but reads the pages in place.  q (B, Hq, T, Dh) bf16 against a
-// paged pool (L, P, Hkv, ps, Dh) through a page table (B, maxp) int32, at
-// per-row positions (B,) int32 and a layer index, all three read from
-// device memory (the launch needs no host value, so a captured CUDA graph
-// can replay it).  The pool is bf16, or int8 with a per-position f32 scale
-// plane (L, P, Hkv, ps, 1).  Query token i of row b sees keys at positions
-// <= pos_rows[b] + i.
+// gathers, but reads the pages in place.  q (B, Hq, T, Dh) against a paged
+// pool (L, P, Hkv, ps, Dh) through a page table (B, maxp) int32, at per-row
+// positions (B,) int32 and a layer index, all three read from device
+// memory (the launch needs no host value, so a captured CUDA graph can
+// replay it).  The pool is bf16, int8 with a per-position f32 scale plane
+// (L, P, Hkv, ps, 1), or f32.  Query token i of row b sees keys at
+// positions <= pos_rows[b] + i.
 //
-// Numerics follow the plain version: q and the keys are the bf16 operands
-// (int8 values dequantize as bf16(f32(v) * scale), kernel 7's rule), the
-// scores accumulate in f32 and are divided by sqrt(Dh) in f32, masked keys
-// take the score -1e30, the softmax is f32, the probabilities round to
-// bf16 before the PV product, whose sums are f32, and the output is
-// acc / max(l, 1e-38) in the output's type.  The softmax is online: the
-// probabilities round at exp(s - m) for a running max m, not the global
-// one, so the kernel differs from the one-shot plain version by bf16
-// rounding of the probabilities (the plain version rounds the normalized
-// ones).
+// Numerics follow the plain version: q and the keys are operands of the
+// pool's type (int8 values dequantize as bf16(f32(v) * scale), kernel 7's
+// rule), the scores accumulate in f32, masked keys take the score -1e30,
+// the softmax is f32, the probabilities round to the operand type before
+// the PV product, whose sums are f32, and the output is acc / max(l,
+// 1e-38) in the output's type.  Two differences: the softmax is online, so
+// a bf16 or int8 pool's probabilities round at exp(s - m) for a running
+// max m, not the global one (the plain version rounds the normalized
+// ones); and the scores are scaled once by log2(e) / sqrt(Dh) and
+// exponentiated in base 2 (exp2f), where the plain version divides by
+// sqrt(Dh) and calls exp: a few f32 ulps of each probability.  An f32
+// pool differs only by those ulps and the order of its f32 sums.  Keys a
+// row's table maps to scratch page 0 are read as the plain version reads
+// them.
 //
 // Bound: bytes at the serving path's shapes.  A block reads each live K/V
-// byte of its (row, kv head) once and does 4·G·T flops on each element
-// (QK and PV for G·T query rows): at G·T = 16-64 that is 32-128 flops a
-// bf16 byte, under the card's ~295.  The design:
-//  * Pass 1, grid (Hkv, B, S): split s of row b walks its own `pps`
-//    pages, clipped on the device to the row's live pages, those that hold
-//    a position <= pos_rows[b] + T - 1; a split past them returns at once.
-//    S and pps come from host shapes alone (ops/attention.py split_plan,
-//    kernel 7's plan).
-//  * Pages arrive in a ring of kStages stages in shared memory through
-//    16-byte cp.async, `pp` pages a stage.  A bf16 page lands straight in
-//    the tile layout the products read (rows padded to Dh + 8 elements, so
-//    ldmatrix meets no bank conflict); an int8 stage lands raw and is
-//    dequantized through registers into one bf16 tile pair.
-//  * The block's G·T query rows (one to eight m16 tiles) form the A
-//    operand of bf16 mma.sync m16n8k16 with f32 accumulators, for both
-//    QK^T (K rows read by ldmatrix) and PV (V by ldmatrix.trans, P taken
-//    from the score accumulators in registers).  Each warp owns one m16
-//    tile (two above 64 rows); with fewer tiles than warps, warps that
-//    share a tile take alternate 16-key chunks, each with its own online
-//    softmax, and merge at the split's end.
-//  * Each query row has its own online softmax (running max, denominator,
-//    numerator), kept in the accumulators' registers.
-//  * Pass 2, grid (Hq·T, B): a query row's live splits combine in split
-//    order, m = max m_s, l = sum exp(m_s - m) l_s, acc = sum exp(m_s - m)
-//    acc_s: no atomics, so results repeat bit for bit.  Split 0 holds
-//    position 0, which every query row sees, so the combined max is a real
-//    score.
-// Rows, pads and the table: keys the stage did not load (past the table,
-// or the padding of the last 16-key chunk) are zero in shared memory and
-// masked, so a masked key adds exactly 0; keys a row's table maps to
-// scratch page 0 are read as the plain version reads them.
+// byte of its (row, kv head) once and does 4·G·T flops on each element:
+// even with the query rows padded to 64 (a warpgroup's tile) that is 128
+// flops a bf16 byte, under the card's ~295.  The design:
+//  * Grid (Hkv, B, groups · splits).  A block takes up to 128 of its
+//    (row, kv head)'s G·T query rows (a row group; wider steps have more
+//    groups, each walking keys only up to its own last visible position)
+//    and split s of the row's pages (ops/attention.py prefill_plan: from
+//    the table length and G·T, so that the f32 partials of full tables stay
+//    near a tenth of their K/V bytes).  A split past the group's live pages
+//    returns at once; a group with one live split writes the output itself.
+//    The groups run as a grid dimension, not a loop, so that they run side
+//    by side and a second group's read of a page mostly hits L2.
+//  * Keys arrive in tiles of 64 positions: 64/br segments of br rows (br
+//    the power of two from 8 to 64 that covers a page, so a tile is several
+//    whole pages or a 64-row slice of one), each one TMA box a 64-wide slab
+//    of Dh, of a tensor map over the pool seen as rows of Dh (built once per
+//    pool pointer on the host, passed __grid_constant__; 128-byte
+//    swizzle).  Rows a box reads past its page (the rest of a short page's
+//    segment, the tail of a walk) are masked; past the pool's end TMA reads
+//    zeros.  A whole tile is always read, so every stage expects the same
+//    bytes.
+//  * bf16: one producer warp reads the page table on the device, a tile
+//    ahead, and keeps a ring of kStages stages full (a K and a V tile
+//    each), with full and empty mbarriers: no __syncthreads in the walk.  int8: a loader
+//    warpgroup keeps a kStages ring of raw stages full (int8 values by TMA,
+//    their f32 scales by 4-byte cp.async tracked by the same barrier) and
+//    dequantizes each landed stage into a two-stage ring of swizzled bf16
+//    tiles, bf16(f32(v) * scale), while the consumers run on the previous
+//    one: the dequant is off the products' path (design (i)), and the tiles
+//    equal the plain version's operands.
+//  * Consumer warpgroups (one up to 64 query rows, two up to 128) each own
+//    64 rows.  QK^T is wgmma.mma_async m64n64k16 (bf16, f32 accumulators)
+//    with Q (staged once, swizzled) and the K tile from shared memory; the
+//    online softmax runs on the score registers (each thread two rows,
+//    four lanes a row); PV is m64n{Dh}k16 with P from those registers as
+//    the bf16 A operand and V as a transposed (MN-major) B operand.  No
+//    warps share a tile, so no merge at a split's end.
+//  * f32 pool: a plain CUDA-core body (FFMA in f32, one thread a query row,
+//    16-key tiles through shared memory) with the same grid and records:
+//    its time is only recorded.
+//  * Pass 2, with two or more splits: a warp a query row of a group with
+//    several live splits combines them in a fixed order, m = max m_s, l =
+//    sum 2^(m_s - m) l_s, acc = sum 2^(m_s - m) acc_s: no atomics, so
+//    results repeat bit for bit.  Split 0 holds position 0, which every
+//    query row sees, so the combined max is a real score.
+//  * Registers (ptxas -v, printed by chip_smoke.py phase 6c).  A block of
+//    two consumer warpgroups has 384 threads (bf16: the producer warp's
+//    warpgroup is padded with three idle warps), so each thread starts at
+//    168 registers, the cap of three warps a sub-partition.  For bf16,
+//    setmaxnreg moves registers from the producer warpgroup (40: it only
+//    computes addresses) to the consumers (232), which removes their spill.
+//    int8 keeps 168 throughout: its loader holds a stage's converted words
+//    and spills below 152 registers, its consumers spill 4 bytes at 176 or
+//    less, and three warps a sub-partition hold 504 (120 / 192 spilled 228
+//    bytes and ran 21 % slower, 136 / 184 spilled 56, 152 / 176 the same 4
+//    as none).  A one-warpgroup block has at most two warps a
+//    sub-partition: its 255 registers need no transfer.
+//
+// The block's layout (threads, shared memory, ring stages, registers) is
+// decided here alone; paged_prefill_layout reports it to the host.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <climits>
+#include <mutex>
 #include <type_traits>
 
 #include "gemv_common.cuh"
@@ -67,403 +103,839 @@
 
 namespace {
 
-constexpr int kThreads = 128;     // python: ops/attention.py PREFILL_THREADS
-constexpr int kStages = 3;        // python: ops/attention.py PREFILL_STAGES
+// kKeys and kRows are the two numbers the host's split plan needs
+// (ops/attention.py PREFILL_KEYS, PREFILL_MAX_ROWS)
+constexpr int kKeys = 64;       // keys a tile
+constexpr int kRows = 128;      // query rows a block (a row group)
+constexpr int kWgRows = 64;     // query rows a consumer warpgroup (wgmma's M)
+constexpr int kStages = 4;      // the TMA ring
+constexpr int kCvStages = 2;    // int8's dequantized ring
+constexpr int kF32Keys = 16;    // the f32 body's tile
+constexpr int kSlab = kKeys * 128;  // one 64-row slab of 128 bytes (64 bf16 of Dh)
 constexpr float kNeg = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
 
-// The shared-memory carve-up, mirrored by ops/attention.py
-// prefill_smem_bytes: the query tile (mt_n·16 rows of ld bf16), then the
-// ring (kStages stages), then, for int8, the dequantized K and V tiles;
-// after the walk the warps' (acc[Dh], m, l) records reuse everything past
-// the query tile.
-struct Carve {
-  int ld, skp, q_bytes, tile_bytes, stage_bytes, ring_bytes, conv_bytes;
-  __host__ __device__ Carve(int rows, int ps, int dh, int pp, bool int8) {
-    ld = dh + 8;
-    skp = (pp * ps + 15) / 16 * 16;
-    q_bytes = (rows + 15) / 16 * 16 * ld * 2;
-    tile_bytes = skp * ld * 2;
-    stage_bytes = int8 ? (pp * ps * dh * 2 + pp * ps * 8 + 15) / 16 * 16 : 2 * tile_bytes;
-    ring_bytes = kStages * stage_bytes;
-    conv_bytes = int8 ? 2 * tile_bytes : 0;
+// How a page's positions map onto tile rows:
+// `br` rows a segment (the power of two, 8 to 64, that covers a page),
+// `spp` segments a page, `spt` segments a tile, `lbr` = log2(br).
+struct Seg {
+  int br, lbr, spp, spt;
+  __host__ __device__ explicit Seg(int ps) {
+    br = 8;
+    lbr = 3;
+    while (br < ps && br < kKeys) {
+      br *= 2;
+      ++lbr;
+    }
+    spp = (ps + br - 1) / br;
+    spt = kKeys / br;
   }
 };
 
-// Pass 1: split blockIdx.z of row blockIdx.y for kv head blockIdx.x.  DH:
-// the head dim; MPW: m16 tiles a warp (2 above 64 query rows).
-template <int DH, typename KV, int MPW>
-__global__ void __launch_bounds__(kThreads)
-prefill_split(const __nv_bfloat16* __restrict__ q, const KV* __restrict__ pool_k,
-              const KV* __restrict__ pool_v, const float* __restrict__ scale_k,
-              const float* __restrict__ scale_v, const int* __restrict__ layer_p,
-              const int* __restrict__ page_table, const int* __restrict__ pos_rows,
-              float* __restrict__ part, int hq, int hkv, int t_q, int ps, int maxp, int n_pages,
-              int n_layers, int n_splits, int pps, int pp, float sqrt_dh) {
-  constexpr bool kInt8 = std::is_same<KV, int8_t>::value;
-  constexpr int LD = DH + 8;
-  constexpr int REC = DH + 2;
-  const int h = blockIdx.x;
-  const int b = blockIdx.y;
-  const int split = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
+// The last token a row group [r0, r_end) of G·T rows (row m = g·T + i)
+// holds: T - 1 when it holds the end of a head's tokens.
+__host__ __device__ __forceinline__ int group_last_token(int r0, int r_end, int t_q) {
+  return (r_end - 1) / t_q != r0 / t_q ? t_q - 1 : (r_end - 1) % t_q;
+}
+
+// The pages of a row at position `pos` that hold a position its row group
+// [r0, r_end) sees.
+__device__ __forceinline__ int live_pages(int pos, int r0, int r_end, int t_q, int ps,
+                                          int maxp) {
+  return min(pos + group_last_token(r0, r_end, t_q), maxp * ps - 1) / ps + 1;
+}
+
+// What one block walks: split `split` (pps pages) of the live pages of its
+// (row, row group), as segments [seg_begin, seg_end) in n_tiles tiles;
+// n_split is the group's live splits (one: the block writes the output).
+struct Walk {
+  int h, b, grp, split, n_split, r0, r_end, layer, pos, seg_begin, seg_end, n_tiles;
+  long q_row0;  // q's row of the block's first query row
+};
+
+// Split blockIdx.z % n_splits of row group blockIdx.z / n_splits of row
+// blockIdx.y for kv head blockIdx.x.  The layer was validated on the host;
+// clamping keeps a bad device value from reading outside the pool.
+__device__ __forceinline__ Walk walk_of(const int* layer_p, const int* pos_rows, int hq,
+                                        int hkv, int t_q, int ps, int maxp, int n_layers,
+                                        int n_splits, int pps, const Seg& sg) {
+  Walk w;
+  w.h = blockIdx.x;
+  w.b = blockIdx.y;
+  w.grp = blockIdx.z / n_splits;
+  w.split = blockIdx.z % n_splits;
   const int g_n = hq / hkv;
-  const int rows = g_n * t_q;
-  const int mt_n = (rows + 15) / 16;
+  w.r0 = w.grp * kRows;
+  w.r_end = min(g_n * t_q, w.r0 + kRows);
+  w.layer = min(max(*layer_p, 0), n_layers - 1);
+  w.pos = min(max(pos_rows[w.b], 0), maxp * ps - 1);
+  const int n_live = live_pages(w.pos, w.r0, w.r_end, t_q, ps, maxp);
+  w.n_split = min((n_live + pps - 1) / pps, n_splits);
+  const int p0 = w.split * pps, p1 = min(n_live, p0 + pps);
+  w.seg_begin = p0 * sg.spp;
+  w.seg_end = p1 * sg.spp;
+  w.n_tiles = p0 < p1 ? (w.seg_end - w.seg_begin + sg.spt - 1) / sg.spt : 0;
+  w.q_row0 = (static_cast<long>(w.b) * hq + static_cast<long>(w.h) * g_n) * t_q;
+  return w;
+}
 
-  // the wrapper validates the layer on the host; clamping keeps a bad
-  // device value from reading outside the pool
-  const int layer = min(max(*layer_p, 0), n_layers - 1);
-  const int pos = min(max(pos_rows[b], 0), maxp * ps - 1);
-  const int hi = min(pos + t_q - 1, maxp * ps - 1);  // the block's last visible key
-  const int n_live = hi / ps + 1;
-  const int p_begin = split * pps;
-  const int p_end = min(n_live, p_begin + pps);
-  if (p_begin >= p_end) return;  // a dead split: pass 2 stops before it
+// The pool row (of Dh elements) of segment `sg_i` of the walk: its page's
+// physical id through the table (a slot past the table re-reads the last
+// one; the keys are masked), then the segment's offset in the page.
+__device__ __forceinline__ int segment_row(const Walk& w, const Seg& sg, int sg_i,
+                                           const int* page_table, int maxp, int n_pages,
+                                           int hkv, int ps) {
+  const int at = w.seg_begin + sg_i;
+  const int page = min(at / sg.spp, maxp - 1);
+  const int pid = min(max(page_table[static_cast<long>(w.b) * maxp + page], 0), n_pages - 1);
+  const long head = (static_cast<long>(w.layer) * n_pages + pid) * hkv + w.h;
+  return static_cast<int>(head * ps + (at % sg.spp) * sg.br);
+}
 
-  // warp roles: `mtw` tile slots, `kg_n` key groups a tile
-  const int mtw = MPW == 2 ? 4 : (mt_n <= 1 ? 1 : (mt_n <= 2 ? 2 : 4));
-  const int kg_n = kThreads / 32 / mtw;
-  const int kg = warp / mtw;
-  const int mt0 = warp % mtw;
+// The position of tile row r of tile t, or INT_MAX where the row holds no
+// key of this walk (past its page, or past the split's segments).  A page
+// of at most 64 positions is one segment (spp == 1): no division.
+__device__ __forceinline__ int key_position(const Walk& w, const Seg& sg, int ps, int t, int r) {
+  const int at = w.seg_begin + t * sg.spt + (r >> sg.lbr);
+  const int off0 = r & (sg.br - 1);
+  if (sg.spp == 1) return off0 < ps && at < w.seg_end ? at * ps + off0 : INT_MAX;
+  const int off = (at % sg.spp) * sg.br + off0;
+  return off < ps && at < w.seg_end ? at / sg.spp * ps + off : INT_MAX;
+}
 
-  const Carve cv(rows, ps, DH, pp, kInt8);
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem);
-  unsigned char* ring = smem + cv.q_bytes;
-  __nv_bfloat16* k_conv = reinterpret_cast<__nv_bfloat16*>(ring + cv.ring_bytes);
-  __nv_bfloat16* v_conv = k_conv + cv.skp * LD;
+// -- mbarriers, TMA, wgmma ---------------------------------------------------
 
-  // the query tile: the block's rows are contiguous in q, row m = g·T + i
-  const long q_off = (static_cast<long>(b) * hq + static_cast<long>(h) * g_n) * t_q * DH;
-  for (int e = tid; e < mt_n * 16 * (DH / 8); e += kThreads) {
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void bar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+// wait for the completion of the barrier's phase of parity `parity`
+__device__ __forceinline__ void bar_wait(uint32_t bar, int parity) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void bar_expect(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void tma_2d(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                       uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+
+// the barrier's phase also waits for this thread's cp.async copies so far
+__device__ __forceinline__ void bar_track_cp_async(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
+}
+
+// generic-proxy shared-memory writes made visible to the async proxy
+// (wgmma reads the tiles the threads wrote)
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// the accumulators are written by wgmma behind the compiler's back: pin
+// them after a wait
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// A wgmma descriptor of a 128-byte-swizzled operand at shared address
+// `addr`: `lbo` the byte stride between 64-element blocks of an MN-major
+// operand's MN extent (unused K-major), `sbo` between 8-row groups.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a, uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <int DH>
+__device__ __forceinline__ void wgmma_pv(float (&o)[DH / 2], const uint32_t (&a)[4], uint64_t b);
+template <>
+__device__ __forceinline__ void wgmma_pv<64>(float (&o)[32], const uint32_t (&a)[4], uint64_t b) {
+  wgmma_rs_n64(o, a, b);
+}
+template <>
+__device__ __forceinline__ void wgmma_pv<128>(float (&o)[64], const uint32_t (&a)[4], uint64_t b) {
+  wgmma_rs_n128(o, a, b);
+}
+
+// Byte offset of 16-byte chunk `ch` (8 elements of Dh) of row r in a
+// swizzled bf16 tile of 64 rows (the query tile, a K or V tile): Dh/64
+// slabs of 64 rows of 128 bytes, the chunk index XORed with the row's low
+// three bits (TMA's 128-byte swizzle, which the wgmma descriptors name).
+__device__ __forceinline__ int sw_chunk(int r, int ch) {
+  return (ch >> 3) * kSlab + r * 128 + (((ch & 7) ^ (r & 7)) << 4);
+}
+
+// The shared-memory carve-up of the tensor-core body: the consumers' query
+// tiles, the ring they read (bf16 K and V tiles: the TMA ring for a bf16
+// pool, the dequantized ring for int8), int8's raw TMA ring (values, then
+// the K and V scale slots), the mbarriers; 1024 bytes of slack align the
+// base for the swizzle.
+template <int DH, typename KV, int NWG>
+struct Body {
+  static constexpr bool kInt8 = std::is_same<KV, int8_t>::value;
+  // bf16 with two consumer warpgroups: a whole producer warpgroup, and
+  // setmaxnreg moves its registers to the consumers (kProducerRegs,
+  // kConsumerRegs a thread)
+  static constexpr bool kRebalance = !kInt8 && NWG == 2;
+  static constexpr int kThreads = NWG * 128 + (kInt8 || kRebalance ? 128 : 32);
+  static constexpr int kProducerRegs = 40;
+  static constexpr int kConsumerRegs = 232;
+  static_assert(kProducerRegs + 2 * kConsumerRegs <= 3 * 168,
+                "setmaxnreg hands out no more than the block holds at launch");
+  static constexpr int kTile = kKeys * DH * 2;
+  static constexpr int kRing = kInt8 ? kCvStages : kStages;
+  static constexpr int kQ = NWG * kWgRows * DH * 2;
+  static constexpr int kRawStage = 2 * kKeys * DH + 2 * kKeys * 4;  // values, then scales
+  static constexpr int kRaw = kQ + kRing * 2 * kTile;
+  static constexpr int kBars = kRaw + (kInt8 ? kStages * kRawStage : 0);
+  static constexpr int kNBars = kInt8 ? 2 * kStages + 2 * kCvStages : 2 * kStages;
+  static constexpr int kSmem = kBars + 8 * kNBars + 1024;
+  static_assert(kSmem <= kMaxSmem, "a pass-1 block exceeds the opt-in shared memory");
+};
+
+// The f32 body's shared memory: 128 query rows of Dh + 1 floats, one
+// 16-key K and V tile.
+template <int DH>
+constexpr int f32_smem() {
+  return (kRows * (DH + 1) + 2 * kF32Keys * DH) * 4;
+}
+
+// Consumer warpgroup threadIdx.x / 128: its 64 query rows against every
+// tile of the walk; `full0`/`empty0` are the first barriers of the ring it
+// reads.
+template <int DH, typename KV, int NWG>
+__device__ __forceinline__ void consume(const Walk& w, const Seg& sg, unsigned char* base,
+                                        uint32_t full0, uint32_t empty0,
+                                        const __nv_bfloat16* __restrict__ q, void* __restrict__ out,
+                                        float* __restrict__ part, int out_f32, int t_q, int ps,
+                                        int n_splits, float sqrt_dh) {
+  using B = Body<DH, KV, NWG>;
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7;
+  const int ct = tid & 127;
+  const int lane = tid & 31;
+  unsigned char* q_s = base + wg * kWgRows * DH * 2;
+  const int m0 = w.r0 + wg * kWgRows;  // the warpgroup's first query row
+  // the query tile, swizzled as the K tiles; rows past the group are zero
+  for (int e = ct; e < kWgRows * (DH / 8); e += 128) {
     const int r = e / (DH / 8);
-    const int c = e % (DH / 8);
+    const int ch = e % (DH / 8);
     uint4 v = make_uint4(0, 0, 0, 0);
-    if (r < rows) {
-      v = *reinterpret_cast<const uint4*>(q + q_off + static_cast<long>(r) * DH + c * 8);
+    if (m0 + r < w.r_end) {
+      v = *reinterpret_cast<const uint4*>(q + (w.q_row0 + m0 + r) * DH + ch * 8);
     }
-    *reinterpret_cast<uint4*>(q_s + r * LD + c * 8) = v;
+    *reinterpret_cast<uint4*>(q_s + sw_chunk(r, ch)) = v;
+  }
+  fence_async_smem();
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+  const uint32_t q_a = smem_u32(q_s);
+  // this thread's two rows (wgmma's accumulator layout) and their ceilings
+  const int ra = m0 + (ct >> 5) * 16 + (lane >> 2);
+  const int rb = ra + 8;
+  const int ceil_a = ra < w.r_end ? w.pos + ra % t_q : -1;
+  const int ceil_b = rb < w.r_end ? w.pos + rb % t_q : -1;
+  float o[DH / 2];
+  float sc[32];
+#pragma unroll
+  for (int i = 0; i < DH / 2; ++i) o[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) sc[i] = 0.f;
+  float m_a = kNeg, m_b = kNeg, l_a = 0.f, l_b = 0.f;
+  // scores in log2 units (exp2 of them is exp of the plain version's)
+  const float c2 = kLog2e / sqrt_dh;
+  // a warp whose 16 rows are all padding skips the softmax (its P is zero)
+  const bool live = m0 + (ct >> 5) * 16 < w.r_end;
+
+  for (int t = 0; t < w.n_tiles; ++t) {
+    const int s = t % B::kRing;
+    bar_wait(full0 + 8 * s, (t / B::kRing) & 1);
+    const uint32_t kt = smem_u32(base + B::kQ + s * 2 * B::kTile);
+    const uint32_t vt = kt + B::kTile;
+    // S = Q K^T: both operands K-major, 16 of Dh a step
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk) {
+      const uint32_t off = (kk >> 2) * kSlab + (kk & 3) * 32;
+      wgmma_ss_n64(sc, sw128_desc(q_a + off, 16, 1024), sw128_desc(kt + off, 16, 1024), kk > 0);
+    }
+    wg_commit();
+    wg_wait();
+    reg_fence(sc);
+    // mask and scale: column 8j + 2(lane & 3) + e of rows ra (sc[4j + e])
+    // and rb (sc[4j + 2 + e])
+    uint32_t pa[kKeys / 16][4];
+    if (live) {
+      float mx_a = kNeg, mx_b = kNeg;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int kp = key_position(w, sg, ps, t, 8 * j + 2 * (lane & 3) + e);
+          sc[4 * j + e] = kp <= ceil_a ? sc[4 * j + e] * c2 : kNeg;
+          sc[4 * j + 2 + e] = kp <= ceil_b ? sc[4 * j + 2 + e] * c2 : kNeg;
+          mx_a = fmaxf(mx_a, sc[4 * j + e]);
+          mx_b = fmaxf(mx_b, sc[4 * j + 2 + e]);
+        }
+      }
+      mx_a = fmaxf(mx_a, __shfl_xor_sync(0xFFFFFFFFu, mx_a, 1));
+      mx_a = fmaxf(mx_a, __shfl_xor_sync(0xFFFFFFFFu, mx_a, 2));
+      mx_b = fmaxf(mx_b, __shfl_xor_sync(0xFFFFFFFFu, mx_b, 1));
+      mx_b = fmaxf(mx_b, __shfl_xor_sync(0xFFFFFFFFu, mx_b, 2));
+      const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
+      const float al_a = exp2f(m_a - mn_a), al_b = exp2f(m_b - mn_b);
+      m_a = mn_a;
+      m_b = mn_b;
+      l_a *= al_a;
+      l_b *= al_b;
+      // P into the A operand of PV: keys 16kk..16kk+15 are n8 blocks 2kk, 2kk+1
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float p0 = exp2f(sc[4 * j] - m_a), p1 = exp2f(sc[4 * j + 1] - m_a);
+        const float p2 = exp2f(sc[4 * j + 2] - m_b), p3 = exp2f(sc[4 * j + 3] - m_b);
+        l_a += p0;
+        l_a += p1;
+        l_b += p2;
+        l_b += p3;
+        pa[j >> 1][(j & 1) * 2] = bf16x2_bits(p0, p1);
+        pa[j >> 1][(j & 1) * 2 + 1] = bf16x2_bits(p2, p3);
+      }
+#pragma unroll
+      for (int j = 0; j < DH / 8; ++j) {
+        o[4 * j] *= al_a;
+        o[4 * j + 1] *= al_a;
+        o[4 * j + 2] *= al_b;
+        o[4 * j + 3] *= al_b;
+      }
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < kKeys / 16; ++kk) pa[kk][0] = pa[kk][1] = pa[kk][2] = pa[kk][3] = 0u;
+    }
+    // O += P V: V's tile is the MN-major B operand (Dh contiguous), 16 keys
+    // (two 8-row groups, 1024 bytes apart) a step, its 64-wide slabs kSlab apart
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < kKeys / 16; ++kk) {
+      wgmma_pv<DH>(o, pa[kk], sw128_desc(vt + kk * 16 * 128, kSlab, 1024));
+    }
+    wg_commit();
+    wg_wait();
+    reg_fence(o);
+    __syncwarp();
+    if (lane == 0) bar_arrive(empty0 + 8 * s);
   }
 
-  const int page_elems = ps * DH;
-  const int* row_table = page_table + static_cast<long>(b) * maxp;
-  const int n_tiles = (p_end - p_begin + pp - 1) / pp;
-
-  auto fetch = [&](int t) {
-    unsigned char* st = ring + (t % kStages) * cv.stage_bytes;
-    const int p0 = p_begin + t * pp;
-    const int npg = min(pp, p_end - p0);
-    for (int j = 0; j < npg; ++j) {
-      const int pid = min(max(row_table[p0 + j], 0), n_pages - 1);
-      const long head = (static_cast<long>(layer) * n_pages + pid) * hkv + h;
-      if (kInt8) {
-        int8_t* ks = reinterpret_cast<int8_t*>(st);
-        int8_t* vs = ks + pp * page_elems;
-        float* sks = reinterpret_cast<float*>(vs + pp * page_elems);
-        float* svs = sks + pp * ps;
-        const char* gk = reinterpret_cast<const char*>(pool_k) + head * page_elems;
-        const char* gv = reinterpret_cast<const char*>(pool_v) + head * page_elems;
-        for (int i = tid; i < page_elems / 16; i += kThreads) {
-          cp_async_zfill<16>(ks + j * page_elems + 16 * i, gk + 16 * i, true);
-          cp_async_zfill<16>(vs + j * page_elems + 16 * i, gv + 16 * i, true);
+  l_a += __shfl_xor_sync(0xFFFFFFFFu, l_a, 1);
+  l_a += __shfl_xor_sync(0xFFFFFFFFu, l_a, 2);
+  l_b += __shfl_xor_sync(0xFFFFFFFFu, l_b, 1);
+  l_b += __shfl_xor_sync(0xFFFFFFFFu, l_b, 2);
+  const int col0 = 2 * (lane & 3);
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = half ? rb : ra;
+    if (r >= w.r_end) continue;
+    const float mr = half ? m_b : m_a;
+    const float lr = half ? l_b : l_a;
+    const long row = w.q_row0 + r;
+    if (w.n_split == 1) {
+      const float inv = 1.f / fmaxf(lr, 1e-38f);
+#pragma unroll
+      for (int j = 0; j < DH / 8; ++j) {
+        const float v0 = o[4 * j + 2 * half] * inv, v1 = o[4 * j + 2 * half + 1] * inv;
+        const long at = row * DH + 8 * j + col0;
+        if (out_f32) {
+          *reinterpret_cast<float2*>(static_cast<float*>(out) + at) = make_float2(v0, v1);
+        } else {
+          *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(out) + at) =
+              __floats2bfloat162_rn(v0, v1);
         }
-        for (int i = tid; i < ps; i += kThreads) {
-          cp_async_zfill<4>(sks + j * ps + i, scale_k + head * ps + i, true);
-          cp_async_zfill<4>(svs + j * ps + i, scale_v + head * ps + i, true);
-        }
-      } else {
-        __nv_bfloat16* kt = reinterpret_cast<__nv_bfloat16*>(st);
-        __nv_bfloat16* vt = kt + cv.skp * LD;
-        const __nv_bfloat16* gk =
-            reinterpret_cast<const __nv_bfloat16*>(pool_k) + head * page_elems;
-        const __nv_bfloat16* gv =
-            reinterpret_cast<const __nv_bfloat16*>(pool_v) + head * page_elems;
-        for (int i = tid; i < page_elems / 8; i += kThreads) {
-          const int r = j * ps + i / (DH / 8);
-          const int c = i % (DH / 8);
-          cp_async_zfill<16>(kt + r * LD + c * 8, gk + 8 * i, true);
-          cp_async_zfill<16>(vt + r * LD + c * 8, gv + 8 * i, true);
-        }
+      }
+    } else {
+      float* rec = part + (row * n_splits + w.split) * (DH + 2);
+#pragma unroll
+      for (int j = 0; j < DH / 8; ++j) {
+        *reinterpret_cast<float2*>(rec + 8 * j + col0) =
+            make_float2(o[4 * j + 2 * half], o[4 * j + 2 * half + 1]);
+      }
+      if ((lane & 3) == 0) {
+        rec[DH] = mr;
+        rec[DH + 1] = lr;
       }
     }
-    if (!kInt8) {
-      // tile rows past this stage's pages: zero, so a masked key adds 0
-      __nv_bfloat16* kt = reinterpret_cast<__nv_bfloat16*>(st);
-      __nv_bfloat16* vt = kt + cv.skp * LD;
-      for (int e = npg * ps * (DH / 8) + tid; e < cv.skp * (DH / 8); e += kThreads) {
-        const int r = e / (DH / 8);
-        const int c = e % (DH / 8);
-        *reinterpret_cast<uint4*>(kt + r * LD + c * 8) = make_uint4(0, 0, 0, 0);
-        *reinterpret_cast<uint4*>(vt + r * LD + c * 8) = make_uint4(0, 0, 0, 0);
+  }
+}
+
+// The bf16 pool's producer warp: for each tile, lane j < spt finds segment
+// j's pool row through the page table (read a tile ahead, so its latency
+// hides behind the wait for a free stage), lane 0 waits for the stage to be
+// free and arms its full barrier with the tile's bytes, and each lane
+// copies its segment's K and V rows, one TMA box a 64-wide slab.
+template <int DH, int NWG>
+__device__ __forceinline__ void load_bf16(const Walk& w, const Seg& sg, unsigned char* base,
+                                          uint32_t bars, const CUtensorMap* mk,
+                                          const CUtensorMap* mv, const int* page_table,
+                                          int maxp, int n_pages, int hkv, int ps) {
+  using B = Body<DH, __nv_bfloat16, NWG>;
+  const int lane = threadIdx.x & 31;
+  int next = lane < sg.spt ? segment_row(w, sg, lane, page_table, maxp, n_pages, hkv, ps) : 0;
+  for (int t = 0; t < w.n_tiles; ++t) {
+    const int s = t % kStages;
+    const int row = next;
+    if (lane < sg.spt && t + 1 < w.n_tiles) {
+      next = segment_row(w, sg, (t + 1) * sg.spt + lane, page_table, maxp, n_pages, hkv, ps);
+    }
+    const uint32_t full = bars + 8 * s;
+    if (lane == 0) {
+      if (t >= kStages) bar_wait(bars + 8 * (kStages + s), (t / kStages - 1) & 1);
+      bar_expect(full, 2 * B::kTile);
+    }
+    __syncwarp();
+    if (lane < sg.spt) {
+      const uint32_t kt = smem_u32(base + B::kQ + s * 2 * B::kTile) + lane * sg.br * 128;
+#pragma unroll
+      for (int sl = 0; sl < DH / 64; ++sl) {
+        tma_2d(kt + sl * kSlab, mk, sl * 64, row, full);
+        tma_2d(kt + B::kTile + sl * kSlab, mv, sl * 64, row, full);
       }
+    }
+  }
+}
+
+// The int8 pool's loader warpgroup: warp 0 keeps the raw ring full (each
+// lane < spt one segment: its K and V rows, and two rows' scales a lane);
+// all four warps dequantize each landed stage into the swizzled bf16 ring,
+// then release both.  A raw stage is refilled once its dequant is done, so
+// its wait never blocks on the consumers; the page-table reads for that
+// refill are made before the dequant, so their latency hides behind it.
+template <int DH, int NWG>
+__device__ __forceinline__ void load_int8(const Walk& w, const Seg& sg, unsigned char* base,
+                                          uint32_t bars, const CUtensorMap* mk,
+                                          const CUtensorMap* mv, const float* scale_k,
+                                          const float* scale_v, const int* page_table,
+                                          int maxp, int n_pages, int n_layers, int hkv, int ps) {
+  using B = Body<DH, int8_t, NWG>;
+  const int lt = threadIdx.x - NWG * 128;
+  const int lw = lt >> 5;
+  const int lane = lt & 31;
+  unsigned char* raw = base + B::kRaw;
+  const uint32_t raw_full = bars, raw_empty = bars + 8 * kStages;
+  const uint32_t cv_full = bars + 16 * kStages, cv_empty = cv_full + 8 * kCvStages;
+  const long n_rows = static_cast<long>(n_layers) * n_pages * hkv * ps;
+  auto row_of = [&](int t) {
+    return lane < sg.spt ? segment_row(w, sg, t * sg.spt + lane, page_table, maxp, n_pages, hkv,
+                                       ps)
+                         : 0;
+  };
+  // the scales (4 bytes a position) by cp.async, tracked by the stage's
+  // barrier (a TMA box a page of them would double the boxes a tile); then
+  // the values, one TMA box a segment
+  auto issue = [&](int t, int row) {
+    const int s = t % kStages;
+    const uint32_t full = raw_full + 8 * s;
+    unsigned char* st = raw + s * B::kRawStage;
+    float* sks = reinterpret_cast<float*>(st + 2 * kKeys * DH);
+#pragma unroll
+    for (int i = 0; i < kKeys / 32; ++i) {
+      const int r = lane + 32 * i;
+      const long at = static_cast<long>(__shfl_sync(0xFFFFFFFFu, row, r >> sg.lbr)) +
+                      (r & (sg.br - 1));
+      const bool ok = at < n_rows;
+      cp_async_zfill<4>(sks + r, scale_k + (ok ? at : 0), ok);
+      cp_async_zfill<4>(sks + kKeys + r, scale_v + (ok ? at : 0), ok);
+    }
+    bar_track_cp_async(full);
+    __syncwarp();
+    if (lane == 0) bar_expect(full, 2 * kKeys * DH);
+    __syncwarp();
+    if (lane < sg.spt) {
+      const uint32_t sa = smem_u32(st);
+      tma_2d(sa + lane * sg.br * DH, mk, 0, row, full);
+      tma_2d(sa + kKeys * DH + lane * sg.br * DH, mv, 0, row, full);
     }
   };
-
+  if (lw == 0) {
+    int rows[kStages];
 #pragma unroll
-  for (int t = 0; t < kStages - 1; ++t) {
-    if (t < n_tiles) fetch(t);
-    cp_async_commit();
+    for (int t = 0; t < kStages; ++t) rows[t] = t < w.n_tiles ? row_of(t) : 0;
+#pragma unroll
+    for (int t = 0; t < kStages; ++t) {
+      if (t < w.n_tiles) issue(t, rows[t]);
+    }
   }
-  __syncthreads();  // the query tile is in shared memory
+  for (int t = 0; t < w.n_tiles; ++t) {
+    const int s = t % kStages;
+    const int c = t % kCvStages;
+    const bool refill = lw == 0 && t + kStages < w.n_tiles;
+    const int next = refill ? row_of(t + kStages) : 0;
+    bar_wait(raw_full + 8 * s, (t / kStages) & 1);
+    const unsigned char* st = raw + s * B::kRawStage;
+    unsigned char* cv = base + B::kQ + c * 2 * B::kTile;
+    // the thread's chunks of 8 elements of the stage, converted in
+    // registers before the wait for the dequantized stage to be free
+    constexpr int kChunks = 2 * kKeys * (DH / 8) / 128;
+    uint4 words[kChunks];
+#pragma unroll
+    for (int k = 0; k < kChunks; ++k) {
+      const int e = lt + 128 * k;
+      const int kv = e / (kKeys * (DH / 8));
+      const int r = (e / (DH / 8)) % kKeys;
+      const int ch = e % (DH / 8);
+      const uint2 u = *reinterpret_cast<const uint2*>(st + kv * kKeys * DH + r * DH + ch * 8);
+      const float sv = reinterpret_cast<const float*>(st + 2 * kKeys * DH)[kv * kKeys + r];
+      // v + 128 under the exponent of 2^23 (the sign bit flipped), so
+      // float(v) = that float - (2^23 + 128), exactly; then bf16(f32(v) * s)
+      uint32_t wd[4];
+      const uint32_t x = u.x ^ 0x80808080u, y = u.y ^ 0x80808080u;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const uint32_t word = i < 2 ? x : y;
+        const uint32_t b0 = (i & 1) * 2;
+        const float v0 = __uint_as_float(__byte_perm(word, 0x4B000000u, 0x7440 + b0)) - 8388736.f;
+        const float v1 =
+            __uint_as_float(__byte_perm(word, 0x4B000000u, 0x7440 + b0 + 1)) - 8388736.f;
+        wd[i] = bf16x2_bits(v0 * sv, v1 * sv);
+      }
+      words[k] = make_uint4(wd[0], wd[1], wd[2], wd[3]);
+    }
+    if (t >= kCvStages) bar_wait(cv_empty + 8 * c, (t / kCvStages - 1) & 1);
+#pragma unroll
+    for (int k = 0; k < kChunks; ++k) {
+      const int e = lt + 128 * k;
+      const int kv = e / (kKeys * (DH / 8));
+      *reinterpret_cast<uint4*>(cv + kv * B::kTile +
+                                sw_chunk((e / (DH / 8)) % kKeys, e % (DH / 8))) = words[k];
+    }
+    fence_async_smem();
+    __syncwarp();
+    if (lane == 0) {
+      bar_arrive(cv_full + 8 * c);
+      bar_arrive(raw_empty + 8 * s);
+    }
+    if (refill) {
+      if (lane == 0) bar_wait(raw_empty + 8 * s, (t / kStages) & 1);
+      __syncwarp();
+      issue(t + kStages, next);
+    }
+  }
+}
 
-  uint32_t qf[MPW][DH / 16][4];
-  float acc[MPW][DH / 8][4];
-  float m[MPW][2], l[MPW][2];
-#pragma unroll
-  for (int j = 0; j < MPW; ++j) {
-    const int mt = mt0 + 4 * j;
-#pragma unroll
-    for (int ks = 0; ks < DH / 16; ++ks) {
-      if (mt < mt_n) {
-        ldmatrix_x4(qf[j][ks], q_s + (mt * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
-                                   ks * 16 + (lane >> 4) * 8);
+// Pass 1 of the bf16 and int8 pools: one split of a (row, row group) for a
+// kv head (walk_of).
+template <int DH, typename KV, int NWG>
+__global__ void __launch_bounds__(Body<DH, KV, NWG>::kThreads, 1)
+prefill_tc(const __grid_constant__ CUtensorMap map_k, const __grid_constant__ CUtensorMap map_v,
+           const float* __restrict__ scale_k, const float* __restrict__ scale_v,
+           const __nv_bfloat16* __restrict__ q, const int* __restrict__ layer_p,
+           const int* __restrict__ page_table, const int* __restrict__ pos_rows,
+           void* __restrict__ out, float* __restrict__ part, int out_f32, int hq, int hkv,
+           int t_q, int ps, int maxp, int n_pages, int n_layers, int n_splits, int pps,
+           float sqrt_dh) {
+  using B = Body<DH, KV, NWG>;
+  const Seg sg(ps);
+  const Walk w = walk_of(layer_p, pos_rows, hq, hkv, t_q, ps, maxp, n_layers, n_splits, pps, sg);
+  if (w.n_tiles == 0) return;  // a dead split: pass 2 stops before it
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t bars = smem_u32(base + B::kBars);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < B::kNBars; ++i) {
+      // bf16: full (the producer's arrival), empty (each consumer warp);
+      // int8: raw full, raw empty (each loader warp), dequantized full
+      // (each loader warp), dequantized empty (each consumer warp)
+      int count;
+      if (B::kInt8) {
+        count = i < kStages ? 1 : (i < 2 * kStages + kCvStages ? 4 : 4 * NWG);
       } else {
-        qf[j][ks][0] = qf[j][ks][1] = qf[j][ks][2] = qf[j][ks][3] = 0u;
+        count = i < kStages ? 1 : 4 * NWG;
       }
+      bar_init(bars + 8 * i, count);
     }
-#pragma unroll
-    for (int n = 0; n < DH / 8; ++n) {
-      acc[j][n][0] = acc[j][n][1] = acc[j][n][2] = acc[j][n][3] = 0.f;
-    }
-    m[j][0] = m[j][1] = kNeg;
-    l[j][0] = l[j][1] = 0.f;
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  // each thread's two rows of a tile, and their causal ceilings
-  int ceil_r[MPW][2];
-#pragma unroll
-  for (int j = 0; j < MPW; ++j) {
-    const int r0 = (mt0 + 4 * j) * 16 + (lane >> 2);
-    ceil_r[j][0] = pos + r0 % t_q;
-    ceil_r[j][1] = pos + (r0 + 8) % t_q;
-  }
-
-  for (int t = 0; t < n_tiles; ++t) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();  // stage t landed for all; stage t-1 and the tiles are free again
-    if (t + kStages - 1 < n_tiles) fetch(t + kStages - 1);
-    cp_async_commit();
-
-    const int p0 = p_begin + t * pp;
-    const int npg = min(pp, p_end - p0);
-    const int key0 = p0 * ps;                          // logical position of tile row 0
-    const int nvalid = min(npg * ps, hi - key0 + 1);   // rows that may be visible
-    unsigned char* st = ring + (t % kStages) * cv.stage_bytes;
-    const __nv_bfloat16* kt;
-    const __nv_bfloat16* vt;
-    if (kInt8) {
-      const int8_t* ks = reinterpret_cast<const int8_t*>(st);
-      const int8_t* vs = ks + pp * page_elems;
-      const float* sks = reinterpret_cast<const float*>(vs + pp * page_elems);
-      const float* svs = sks + pp * ps;
-      // dequantize the stage into the bf16 tiles: bf16(f32(v) * scale);
-      // rows past the stage's pages are zero
-      for (int e = tid; e < cv.skp * (DH / 8); e += kThreads) {
-        const int r = e / (DH / 8);
-        const int c = e % (DH / 8);
-        uint4 ko = make_uint4(0, 0, 0, 0), vo = make_uint4(0, 0, 0, 0);
-        if (r < npg * ps) {
-          const uint2 ku = *reinterpret_cast<const uint2*>(ks + r * DH + c * 8);
-          const uint2 vu = *reinterpret_cast<const uint2*>(vs + r * DH + c * 8);
-          const float sk = sks[r], sv = svs[r];
-          uint32_t kw[4], vw[4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const uint32_t kb = i < 2 ? ku.x : ku.y;
-            const uint32_t vb = i < 2 ? vu.x : vu.y;
-            const int sh = (i & 1) * 16;
-            const float k0 = static_cast<float>(static_cast<int8_t>((kb >> sh) & 0xFF));
-            const float k1 = static_cast<float>(static_cast<int8_t>((kb >> (sh + 8)) & 0xFF));
-            const float v0 = static_cast<float>(static_cast<int8_t>((vb >> sh) & 0xFF));
-            const float v1 = static_cast<float>(static_cast<int8_t>((vb >> (sh + 8)) & 0xFF));
-            kw[i] = bf16_bits(k0 * sk) | (bf16_bits(k1 * sk) << 16);
-            vw[i] = bf16_bits(v0 * sv) | (bf16_bits(v1 * sv) << 16);
-          }
-          ko = make_uint4(kw[0], kw[1], kw[2], kw[3]);
-          vo = make_uint4(vw[0], vw[1], vw[2], vw[3]);
-        }
-        *reinterpret_cast<uint4*>(k_conv + r * LD + c * 8) = ko;
-        *reinterpret_cast<uint4*>(v_conv + r * LD + c * 8) = vo;
-      }
-      __syncthreads();
-      kt = k_conv;
-      vt = v_conv;
-    } else {
-      kt = reinterpret_cast<const __nv_bfloat16*>(st);
-      vt = kt + cv.skp * LD;
+  __syncthreads();  // the barriers are ready: no block-wide sync after this
+  if (threadIdx.x < NWG * 128) {
+    if constexpr (B::kRebalance) {
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(B::kConsumerRegs));
     }
-
-    const int n_chunks = (nvalid + 15) / 16;
-    for (int ch = kg; ch < n_chunks; ch += kg_n) {
-      if (mt0 >= mt_n) break;  // a warp with no query tile (3 tiles on 4 warps)
-      // S = Q K^T for the chunk's 16 keys: two n8 tiles a warp tile
-      float s[MPW][2][4];
-#pragma unroll
-      for (int j = 0; j < MPW; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][0][e] = s[j][1][e] = 0.f;
-#pragma unroll
-      for (int ks = 0; ks < DH / 16; ++ks) {
-        uint32_t kb[4];
-        ldmatrix_x4(kb, kt + (ch * 16 + (lane & 7) + (lane >> 4) * 8) * LD + ks * 16 +
-                            ((lane >> 3) & 1) * 8);
-#pragma unroll
-        for (int j = 0; j < MPW; ++j) {
-          mma_bf16(s[j][0], qf[j][ks], kb[0], kb[1]);
-          mma_bf16(s[j][1], qf[j][ks], kb[2], kb[3]);
-        }
-      }
-      // the online softmax of each row; P into the A operand of PV
-      uint32_t pa[MPW][4];
-#pragma unroll
-      for (int j = 0; j < MPW; ++j) {
-        float mx[2] = {kNeg, kNeg};
-#pragma unroll
-        for (int nt = 0; nt < 2; ++nt) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int kr = ch * 16 + nt * 8 + 2 * (lane & 3) + (e & 1);
-            const bool ok = kr < nvalid && key0 + kr <= ceil_r[j][e >> 1];
-            s[j][nt][e] = ok ? s[j][nt][e] / sqrt_dh : kNeg;
-            mx[e >> 1] = fmaxf(mx[e >> 1], s[j][nt][e]);
-          }
-        }
-        float alpha[2];
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xFFFFFFFFu, mx[r], 1));
-          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xFFFFFFFFu, mx[r], 2));
-          const float m_new = fmaxf(m[j][r], mx[r]);
-          alpha[r] = expf(m[j][r] - m_new);
-          m[j][r] = m_new;
-          l[j][r] *= alpha[r];
-        }
-        float p[2][4];
-#pragma unroll
-        for (int nt = 0; nt < 2; ++nt) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            p[nt][e] = expf(s[j][nt][e] - m[j][e >> 1]);
-            l[j][e >> 1] += p[nt][e];
-          }
-        }
-#pragma unroll
-        for (int n = 0; n < DH / 8; ++n) {
-          acc[j][n][0] *= alpha[0];
-          acc[j][n][1] *= alpha[0];
-          acc[j][n][2] *= alpha[1];
-          acc[j][n][3] *= alpha[1];
-        }
-        pa[j][0] = bf16x2_bits(p[0][0], p[0][1]);
-        pa[j][1] = bf16x2_bits(p[0][2], p[0][3]);
-        pa[j][2] = bf16x2_bits(p[1][0], p[1][1]);
-        pa[j][3] = bf16x2_bits(p[1][2], p[1][3]);
-      }
-      // O += P V: V by ldmatrix.trans, two n8 tiles of the head dim a load
-#pragma unroll
-      for (int n = 0; n < DH / 8; n += 2) {
-        uint32_t vb[4];
-        ldmatrix_x4_trans(vb, vt + (ch * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
-                                  (n + (lane >> 4)) * 8);
-#pragma unroll
-        for (int j = 0; j < MPW; ++j) {
-          mma_bf16(acc[j][n], pa[j], vb[0], vb[1]);
-          mma_bf16(acc[j][n + 1], pa[j], vb[2], vb[3]);
-        }
-      }
+    const uint32_t full0 = B::kInt8 ? bars + 16 * kStages : bars;
+    const uint32_t empty0 = B::kInt8 ? full0 + 8 * kCvStages : bars + 8 * kStages;
+    consume<DH, KV, NWG>(w, sg, base, full0, empty0, q, out, part, out_f32, t_q, ps, n_splits,
+                         sqrt_dh);
+  } else {
+    if constexpr (B::kRebalance) {
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(B::kProducerRegs));
+    }
+    if constexpr (B::kInt8) {
+      load_int8<DH, NWG>(w, sg, base, bars, &map_k, &map_v, scale_k, scale_v, page_table, maxp,
+                         n_pages, n_layers, hkv, ps);
+    } else if (threadIdx.x < NWG * 128 + 32) {
+      load_bf16<DH, NWG>(w, sg, base, bars, &map_k, &map_v, page_table, maxp, n_pages, hkv, ps);
     }
   }
-  cp_async_wait<0>();
-  __syncthreads();  // the ring is free: reuse it for the warps' records
+}
 
-  // each warp's (acc[Dh], m, l) of its rows; l summed over the quad first
-  float* cs = reinterpret_cast<float*>(ring);
-#pragma unroll
-  for (int j = 0; j < MPW; ++j) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      l[j][r] += __shfl_xor_sync(0xFFFFFFFFu, l[j][r], 1);
-      l[j][r] += __shfl_xor_sync(0xFFFFFFFFu, l[j][r], 2);
-    }
-    float* rec = cs + (warp * MPW + j) * 16 * REC;
-    const int r0 = lane >> 2;
-#pragma unroll
-    for (int n = 0; n < DH / 8; ++n) {
-      const int col = n * 8 + 2 * (lane & 3);
-      rec[r0 * REC + col] = acc[j][n][0];
-      rec[r0 * REC + col + 1] = acc[j][n][1];
-      rec[(r0 + 8) * REC + col] = acc[j][n][2];
-      rec[(r0 + 8) * REC + col + 1] = acc[j][n][3];
-    }
-    if ((lane & 3) == 0) {
-      rec[r0 * REC + DH] = m[j][0];
-      rec[r0 * REC + DH + 1] = l[j][0];
-      rec[(r0 + 8) * REC + DH] = m[j][1];
-      rec[(r0 + 8) * REC + DH + 1] = l[j][1];
-    }
+// Pass 1 of the f32 pool: the same grid and records on CUDA cores, in f32
+// throughout (FFMA): thread i owns query row r0 + i, the keys come 16
+// positions at a time through shared memory (the query rows padded to Dh + 1
+// floats, so the threads' reads of their own rows meet no bank conflict).
+template <int DH>
+__global__ void __launch_bounds__(kRows)
+prefill_f32(const float* __restrict__ q, const float* __restrict__ pool_k,
+            const float* __restrict__ pool_v, const int* __restrict__ layer_p,
+            const int* __restrict__ page_table, const int* __restrict__ pos_rows,
+            void* __restrict__ out, float* __restrict__ part, int out_f32, int hq, int hkv,
+            int t_q, int ps, int maxp, int n_pages, int n_layers, int n_splits, int pps,
+            float sqrt_dh) {
+  const Seg sg(ps);
+  const Walk w = walk_of(layer_p, pos_rows, hq, hkv, t_q, ps, maxp, n_layers, n_splits, pps, sg);
+  if (w.n_tiles == 0) return;
+  extern __shared__ float fsm[];
+  float* q_s = fsm;
+  float* k_s = q_s + kRows * (DH + 1);
+  float* v_s = k_s + kF32Keys * DH;
+  const int tid = threadIdx.x;
+  for (int e = tid; e < kRows * DH; e += kRows) {
+    const int r = e / DH;
+    const int d = e % DH;
+    q_s[r * (DH + 1) + d] = w.r0 + r < w.r_end ? q[(w.q_row0 + w.r0 + r) * DH + d] : 0.f;
   }
-  __syncthreads();
-  // the key groups of each row merge in group order into the split's record
-  for (int i = tid; i < rows * DH; i += kThreads) {
-    const int row = i / DH;
-    const int d = i % DH;
-    const int mt = row / 16;
-    const int r = row % 16;
+  const int m = w.r0 + tid;
+  const int ceil_m = m < w.r_end ? w.pos + m % t_q : -1;
+  const float* qr = q_s + tid * (DH + 1);
+  float acc[DH];
+#pragma unroll
+  for (int d = 0; d < DH; ++d) acc[d] = 0.f;
+  float mrun = kNeg, l = 0.f;
+  const float c2 = kLog2e / sqrt_dh;  // scores in log2 units, as the tensor-core body's
+  // the split's positions: its segments' (contiguous: a page's segments in
+  // order, then the next page's)
+  const int k_begin = w.seg_begin / sg.spp * ps + w.seg_begin % sg.spp * sg.br;
+  const int k_end = min(w.seg_end / sg.spp * ps + w.seg_end % sg.spp * sg.br, maxp * ps);
+  const int* row_table = page_table + static_cast<long>(w.b) * maxp;
+  for (int k0 = k_begin; k0 < k_end; k0 += kF32Keys) {
+    __syncthreads();  // the query tile is written, the previous keys read
+    for (int e = tid; e < kF32Keys * (DH / 4); e += kRows) {
+      const int kk = e / (DH / 4);
+      const int c4 = e % (DH / 4);
+      const int p = k0 + kk;
+      float4 kv = make_float4(0.f, 0.f, 0.f, 0.f), vv = kv;
+      if (p < k_end) {
+        const int pid = min(max(row_table[p / ps], 0), n_pages - 1);
+        const long at = ((static_cast<long>(w.layer) * n_pages + pid) * hkv + w.h) * ps * DH +
+                        static_cast<long>(p % ps) * DH + c4 * 4;
+        kv = *reinterpret_cast<const float4*>(pool_k + at);
+        vv = *reinterpret_cast<const float4*>(pool_v + at);
+      }
+      *reinterpret_cast<float4*>(k_s + kk * DH + c4 * 4) = kv;
+      *reinterpret_cast<float4*>(v_s + kk * DH + c4 * 4) = vv;
+    }
+    __syncthreads();
+    float s[kF32Keys];
     float mx = kNeg;
-    for (int k = 0; k < kg_n; ++k) {
-      const int w = MPW == 2 ? mt % 4 : k * mtw + mt;
-      const int j = MPW == 2 ? mt / 4 : 0;
-      mx = fmaxf(mx, cs[((w * MPW + j) * 16 + r) * REC + DH]);
+#pragma unroll
+    for (int kk = 0; kk < kF32Keys; ++kk) {
+      float a = 0.f;
+#pragma unroll 16
+      for (int d = 0; d < DH; ++d) a = fmaf(qr[d], k_s[kk * DH + d], a);
+      const int p = k0 + kk;
+      s[kk] = p < k_end && p <= ceil_m ? a * c2 : kNeg;
+      mx = fmaxf(mx, s[kk]);
     }
-    float lsum = 0.f, a = 0.f;
-    for (int k = 0; k < kg_n; ++k) {
-      const int w = MPW == 2 ? mt % 4 : k * mtw + mt;
-      const int j = MPW == 2 ? mt / 4 : 0;
-      const float* e = cs + ((w * MPW + j) * 16 + r) * REC;
-      const float wgt = expf(e[DH] - mx);
-      lsum += wgt * e[DH + 1];
-      a += wgt * e[d];
+    const float mn = fmaxf(mrun, mx);
+    const float al = exp2f(mrun - mn);
+    mrun = mn;
+    l *= al;
+#pragma unroll
+    for (int d = 0; d < DH; ++d) acc[d] *= al;
+#pragma unroll
+    for (int kk = 0; kk < kF32Keys; ++kk) {
+      const float p = exp2f(s[kk] - mn);
+      l += p;
+#pragma unroll
+      for (int d = 0; d < DH; ++d) acc[d] = fmaf(p, v_s[kk * DH + d], acc[d]);
     }
-    float* dst = part + ((static_cast<long>(b) * hq + static_cast<long>(h) * g_n) * t_q + row) *
-                            n_splits * REC + static_cast<long>(split) * REC;
-    dst[d] = a;
-    if (d == 0) {
-      dst[DH] = mx;
-      dst[DH + 1] = lsum;
+  }
+  if (m >= w.r_end) return;
+  const long row = w.q_row0 + m;
+  if (w.n_split == 1) {
+    const float inv = 1.f / fmaxf(l, 1e-38f);
+#pragma unroll
+    for (int d = 0; d < DH; ++d) {
+      if (out_f32) {
+        static_cast<float*>(out)[row * DH + d] = acc[d] * inv;
+      } else {
+        static_cast<__nv_bfloat16*>(out)[row * DH + d] = __float2bfloat16_rn(acc[d] * inv);
+      }
     }
+  } else {
+    float* rec = part + (row * n_splits + w.split) * (DH + 2);
+#pragma unroll
+    for (int d = 0; d < DH; ++d) rec[d] = acc[d];
+    rec[DH] = mrun;
+    rec[DH + 1] = l;
   }
 }
 
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
 
-// Pass 2: query row blockIdx.x (head·T + token) of row blockIdx.y combines
-// its row's live splits in split order.
+// Pass 2: a warp a query row (8 a block, rows in (row, head, token)
+// order); a row whose group has several live splits (as walk_of counts
+// them) combines them: lane s takes split s's max m_s and denominator l_s,
+// m = max m_s and l = sum 2^(m_s - m) l_s by a fixed shuffle tree, then each
+// lane adds acc = sum_s 2^(m_s - m) acc_s over its elements in split order,
+// every split's loads in flight at once.  Fixed orders, no atomics: the
+// results repeat bit for bit.
+constexpr int kCombineWarps = 8;
+
 template <typename OT>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(32 * kCombineWarps)
 prefill_combine(const float* __restrict__ part, const int* __restrict__ pos_rows,
-                OT* __restrict__ out, int hq, int t_q, int ps, int dh, int maxp, int n_splits,
-                int pps) {
-  const int row = blockIdx.x;
-  const int b = blockIdx.y;
+                OT* __restrict__ out, int b_n, int hq, int hkv, int t_q, int ps, int dh,
+                int maxp, int n_splits, int pps) {
+  const int lane = threadIdx.x & 31;
+  const long row = static_cast<long>(blockIdx.x) * kCombineWarps + (threadIdx.x >> 5);
+  if (row >= static_cast<long>(b_n) * hq * t_q) return;
+  const int tok = static_cast<int>(row % t_q);
+  const int head = static_cast<int>(row / t_q % hq);
+  const int b = static_cast<int>(row / t_q / hq);
+  const int g_n = hq / hkv;
+  const int r0 = ((head % g_n) * t_q + tok) / kRows * kRows;
   const int pos = min(max(pos_rows[b], 0), maxp * ps - 1);
-  const int hi = min(pos + t_q - 1, maxp * ps - 1);
-  const int live = min((hi / ps + 1 + pps - 1) / pps, n_splits);
+  const int n_live = live_pages(pos, r0, min(g_n * t_q, r0 + kRows), t_q, ps, maxp);
+  const int n = min((n_live + pps - 1) / pps, n_splits);
+  if (n == 1) return;  // pass 1 wrote this row
   const int rec = dh + 2;
-  const long r = static_cast<long>(b) * hq * t_q + row;
-  const float* src = part + r * n_splits * rec;
+  const float* src = part + row * n_splits * rec;
   float mx = kNeg;
-  for (int s = 0; s < live; ++s) mx = fmaxf(mx, src[s * rec + dh]);
+  for (int sp = lane; sp < n; sp += 32) mx = fmaxf(mx, src[sp * rec + dh]);
+#pragma unroll
+  for (int o = 16; o; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xFFFFFFFFu, mx, o));
   float l = 0.f;
-  for (int s = 0; s < live; ++s) l += expf(src[s * rec + dh] - mx) * src[s * rec + dh + 1];
+  for (int sp = lane; sp < n; sp += 32) {
+    l += exp2f(src[sp * rec + dh] - mx) * src[sp * rec + dh + 1];
+  }
+#pragma unroll
+  for (int o = 16; o; o >>= 1) l += __shfl_xor_sync(0xFFFFFFFFu, l, o);
   const float inv = 1.f / fmaxf(l, 1e-38f);
-  for (int d = threadIdx.x; d < dh; d += kThreads) {
-    float a = 0.f;
-    for (int s = 0; s < live; ++s) a += expf(src[s * rec + dh] - mx) * src[s * rec + d];
-    store(out + r * dh + d, a * inv);
+  for (int d0 = 0; d0 < dh; d0 += 128) {
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 4
+    for (int sp = 0; sp < n; ++sp) {
+      const float w = exp2f(src[sp * rec + dh] - mx);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int d = d0 + lane + 32 * k;
+        if (d < dh) acc[k] += w * src[sp * rec + d];
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int d = d0 + lane + 32 * k;
+      if (d < dh) store(out + row * dh + d, acc[k] * inv);
+    }
   }
 }
+
+// -- host --------------------------------------------------------------------
 
 // the dynamic shared-memory opt-in, once per instantiation and device
 template <typename K>
@@ -477,106 +949,242 @@ cudaError_t opt_in(K kern, unsigned* done) {
   return e;
 }
 
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// Tensor maps: a bf16 pool as rows of Dh (boxes of 64 x br, the 128-byte
+// swizzle), an int8 pool as rows of Dh bytes (boxes of Dh x br).  Pools
+// are static, so each map is encoded once and kept, keyed by everything it
+// encodes.
+enum MapKind { kMapBf16 = 0, kMapInt8 = 1 };
+struct MapEntry {
+  const void* ptr;
+  unsigned long long rows;
+  int dh, kind, br;
+  CUtensorMap map;
+};
+constexpr int kMaps = 32;
+std::mutex g_map_mu;
+MapEntry g_maps[kMaps];
+int g_map_n = 0, g_map_next = 0;
+EncodeTiled g_encode = nullptr;
+
+cudaError_t tensor_map(int kind, const void* ptr, unsigned long long rows, int dh, int br,
+                       CUtensorMap* out) {
+  std::lock_guard<std::mutex> lock(g_map_mu);
+  for (int i = 0; i < g_map_n; ++i) {
+    const MapEntry& e = g_maps[i];
+    if (e.ptr == ptr && e.rows == rows && e.dh == dh && e.kind == kind && e.br == br) {
+      *out = e.map;
+      return cudaSuccess;
+    }
+  }
+  if (g_encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult got;
+#if CUDART_VERSION >= 12050
+    cudaError_t e =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault, &got);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &got);
+#endif
+    if (e != cudaSuccess) return e;
+    if (fn == nullptr || got != cudaDriverEntryPointSuccess) return cudaErrorNotSupported;
+    g_encode = reinterpret_cast<EncodeTiled>(fn);
+  }
+  MapEntry& m = g_maps[g_map_next];
+  m.ptr = nullptr;
+  CUresult r;
+  const cuuint32_t unit[2] = {1, 1};
+  const bool b16 = kind == kMapBf16;
+  const cuuint64_t dim[2] = {static_cast<cuuint64_t>(dh), rows};
+  const cuuint64_t stride[1] = {static_cast<cuuint64_t>(dh) * (b16 ? 2 : 1)};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(b16 ? 64 : dh), static_cast<cuuint32_t>(br)};
+  r = g_encode(&m.map, b16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_UINT8, 2,
+               const_cast<void*>(ptr), dim, stride, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+               b16 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
+               CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (r != CUDA_SUCCESS) return cudaErrorInvalidValue;
+  m.ptr = ptr;
+  m.rows = rows;
+  m.dh = dh;
+  m.kind = kind;
+  m.br = br;
+  g_map_next = (g_map_next + 1) % kMaps;
+  if (g_map_n < kMaps) ++g_map_n;
+  *out = m.map;
+  return cudaSuccess;
+}
+
 struct Args {
   const void *q, *pool_k, *pool_v, *scale_k, *scale_v, *layer, *page_table, *pos_rows;
   void *out, *part;
-  int b, hq, hkv, t_q, ps, dh, maxp, n_pages, n_layers, n_splits, pps, pp;
+  int out_f32, b, hq, hkv, t_q, ps, dh, maxp, n_pages, n_layers, n_splits, pps;
   float sqrt_dh;
   cudaStream_t stream;
+  // grid (Hkv, B, row groups x splits)
+  dim3 grid() const {
+    return dim3(hkv, b, (hq / hkv * t_q + kRows - 1) / kRows * n_splits);
+  }
 };
 
-template <typename OT>
-cudaError_t combine(const Args& a) {
-  prefill_combine<OT><<<dim3(a.hq * a.t_q, a.b), kThreads, 0, a.stream>>>(
-      static_cast<const float*>(a.part), static_cast<const int*>(a.pos_rows),
-      static_cast<OT*>(a.out), a.hq, a.t_q, a.ps, a.dh, a.maxp, a.n_splits, a.pps);
-  return cudaGetLastError();
-}
-
-template <int DH, typename KV, int MPW>
-cudaError_t split_pass(const Args& a) {
-  const bool int8 = std::is_same<KV, int8_t>::value;
-  const int rows = a.hq / a.hkv * a.t_q;
-  const Carve cv(rows, a.ps, DH, a.pp, int8);
-  const int records = kThreads / 32 * MPW * 16 * (DH + 2) * 4;
-  const int walk = cv.ring_bytes + cv.conv_bytes;
-  const int rest = walk > records ? walk : records;
-  const size_t smem = static_cast<size_t>(cv.q_bytes) + rest;
-  auto kern = prefill_split<DH, KV, MPW>;
-  static unsigned done = 0;
-  cudaError_t e = opt_in(kern, &done);
+template <int DH, typename KV, int NWG>
+cudaError_t launch_tc(const Args& a) {
+  using B = Body<DH, KV, NWG>;
+  const Seg sg(a.ps);
+  const unsigned long long rows =
+      static_cast<unsigned long long>(a.n_layers) * a.n_pages * a.hkv * a.ps;
+  const int kind = B::kInt8 ? kMapInt8 : kMapBf16;
+  CUtensorMap mk, mv;
+  cudaError_t e = tensor_map(kind, a.pool_k, rows, DH, sg.br, &mk);
+  if (e == cudaSuccess) e = tensor_map(kind, a.pool_v, rows, DH, sg.br, &mv);
   if (e != cudaSuccess) return e;
-  kern<<<dim3(a.hkv, a.b, a.n_splits), kThreads, smem, a.stream>>>(
-      static_cast<const __nv_bfloat16*>(a.q), static_cast<const KV*>(a.pool_k),
-      static_cast<const KV*>(a.pool_v), static_cast<const float*>(a.scale_k),
-      static_cast<const float*>(a.scale_v), static_cast<const int*>(a.layer),
-      static_cast<const int*>(a.page_table), static_cast<const int*>(a.pos_rows),
-      static_cast<float*>(a.part), a.hq, a.hkv, a.t_q, a.ps, a.maxp, a.n_pages, a.n_layers,
-      a.n_splits, a.pps, a.pp, a.sqrt_dh);
+  auto kern = prefill_tc<DH, KV, NWG>;
+  static unsigned done = 0;
+  e = opt_in(kern, &done);
+  if (e != cudaSuccess) return e;
+  kern<<<a.grid(), B::kThreads, B::kSmem, a.stream>>>(
+      mk, mv, static_cast<const float*>(a.scale_k), static_cast<const float*>(a.scale_v),
+      static_cast<const __nv_bfloat16*>(a.q), static_cast<const int*>(a.layer),
+      static_cast<const int*>(a.page_table), static_cast<const int*>(a.pos_rows), a.out,
+      static_cast<float*>(a.part), a.out_f32, a.hq, a.hkv, a.t_q, a.ps, a.maxp, a.n_pages,
+      a.n_layers, a.n_splits, a.pps, a.sqrt_dh);
   return cudaGetLastError();
-}
-
-template <int DH, typename KV>
-cudaError_t split_mpw(const Args& a) {
-  const int rows = a.hq / a.hkv * a.t_q;
-  if (rows <= 64) return split_pass<DH, KV, 1>(a);
-  if (rows <= 128) return split_pass<DH, KV, 2>(a);
-  return cudaErrorInvalidValue;
 }
 
 template <int DH>
-cudaError_t split_kv(int kv_dtype, const Args& a) {
+cudaError_t launch_f32(const Args& a) {
+  auto kern = prefill_f32<DH>;
+  static unsigned done = 0;
+  cudaError_t e = opt_in(kern, &done);
+  if (e != cudaSuccess) return e;
+  kern<<<a.grid(), kRows, f32_smem<DH>(), a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.pool_k),
+      static_cast<const float*>(a.pool_v), static_cast<const int*>(a.layer),
+      static_cast<const int*>(a.page_table), static_cast<const int*>(a.pos_rows), a.out,
+      static_cast<float*>(a.part), a.out_f32, a.hq, a.hkv, a.t_q, a.ps, a.maxp, a.n_pages,
+      a.n_layers, a.n_splits, a.pps, a.sqrt_dh);
+  return cudaGetLastError();
+}
+
+// consumer warpgroups a block for G·T = rows query rows a kv head: one up
+// to 64, two above (a block takes at most kRows of them)
+int warpgroups(int rows) { return (rows < kRows ? rows : kRows) > kWgRows ? 2 : 1; }
+
+template <int DH, typename KV>
+cudaError_t launch_wg(const Args& a) {
+  return warpgroups(a.hq / a.hkv * a.t_q) == 2 ? launch_tc<DH, KV, 2>(a)
+                                               : launch_tc<DH, KV, 1>(a);
+}
+
+template <int DH>
+cudaError_t pass1(int kv_dtype, const Args& a) {
   switch (kv_dtype) {
+    case 0:
+      return launch_f32<DH>(a);
     case 1:
-      return split_mpw<DH, __nv_bfloat16>(a);
+      return launch_wg<DH, __nv_bfloat16>(a);
     case 2:
-      return split_mpw<DH, int8_t>(a);
+      return launch_wg<DH, int8_t>(a);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
+template <typename OT>
+cudaError_t combine(const Args& a) {
+  const long rows = static_cast<long>(a.b) * a.hq * a.t_q;
+  const unsigned blocks = static_cast<unsigned>((rows + kCombineWarps - 1) / kCombineWarps);
+  prefill_combine<OT><<<blocks, 32 * kCombineWarps, 0, a.stream>>>(
+      static_cast<const float*>(a.part), static_cast<const int*>(a.pos_rows),
+      static_cast<OT*>(a.out), a.b, a.hq, a.hkv, a.t_q, a.ps, a.dh, a.maxp, a.n_splits, a.pps);
+  return cudaGetLastError();
+}
+
+template <int DH, typename KV, int NWG>
+void tc_layout(int* out) {
+  using B = Body<DH, KV, NWG>;
+  out[0] = NWG;
+  out[1] = B::kThreads;
+  out[2] = B::kSmem;
+  out[3] = kStages;
+  out[4] = B::kRebalance ? B::kConsumerRegs : 0;
+}
+
+template <int DH>
+int layout(int kv_dtype, int rows, int* out) {
+  const bool two = warpgroups(rows) == 2;
+  switch (kv_dtype) {
+    case 0:
+      out[0] = 0;
+      out[1] = kRows;
+      out[2] = f32_smem<DH>();
+      out[3] = 1;
+      out[4] = 0;
+      return 0;
+    case 1:
+      two ? tc_layout<DH, __nv_bfloat16, 2>(out) : tc_layout<DH, __nv_bfloat16, 1>(out);
+      return 0;
+    case 2:
+      two ? tc_layout<DH, int8_t, 2>(out) : tc_layout<DH, int8_t, 1>(out);
+      return 0;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
-// q: bf16 (B, Hq, T, Dh); out_dtype: 0 float32, 1 bfloat16; kv_dtype: 1
-// bfloat16, 2 int8 (scale_k/scale_v then point at the f32 scale planes).
-// part: f32 scratch (B, Hq, T, n_splits, Dh + 2); the split plan (n_splits
-// splits of pps pages, pp pages a stage) comes from ops/attention.py
-// split_plan and prefill_stage_pages.  Dh is 64 or 128, Hq/Hkv·T at most
-// 128.  Returns a cudaError_t: 0 when both launches were accepted.
+// The pass-1 block a launch of `rows` = G·T query rows a kv head takes on a
+// pool of kv_dtype (as below) at head dim dh: out[0] consumer warpgroups (0
+// for the f32 body), out[1] threads, out[2] dynamic shared memory in bytes,
+// out[3] stages of the copy ring, out[4] registers a consumer thread after
+// setmaxnreg (0: the block keeps its launch count).  Launches nothing.
+extern "C" int paged_prefill_layout(int kv_dtype, int dh, int rows, int* out) {
+  switch (dh) {
+    case 64:
+      return layout<64>(kv_dtype, rows, out);
+    case 128:
+      return layout<128>(kv_dtype, rows, out);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// q: (B, Hq, T, Dh), bf16 for a bf16 or int8 pool, f32 for an f32 pool;
+// out_dtype: 0 float32, 1 bfloat16; kv_dtype: 0 float32, 1 bfloat16, 2
+// int8 (scale_k/scale_v then point at the f32 scale planes).  part: f32
+// scratch (B, Hq, T, n_splits, Dh + 2), unused with one split; the plan
+// (n_splits splits of pps pages) comes from ops/attention.py prefill_plan.
+// Dh is 64 or 128; the pool holds fewer than 2^31 rows of Dh.  Returns a
+// cudaError_t: 0 when every launch was accepted.
 extern "C" int paged_prefill_attention(const void* q, const void* pool_k, const void* pool_v,
                                        const void* scale_k, const void* scale_v,
                                        const void* layer, const void* page_table,
                                        const void* pos_rows, void* out, void* part,
                                        int out_dtype, int kv_dtype, int b, int hq, int hkv,
                                        int t_q, int ps, int dh, int maxp, int n_pages,
-                                       int n_layers, int n_splits, int pps, int pp,
-                                       float sqrt_dh, void* stream) {
-  const Args a{q,   pool_k, pool_v,  scale_k, scale_v, layer,    page_table, pos_rows,
-               out, part,   b,       hq,      hkv,     t_q,      ps,         dh,
-               maxp, n_pages, n_layers, n_splits, pps, pp,      sqrt_dh,
-               static_cast<cudaStream_t>(stream)};
+                                       int n_layers, int n_splits, int pps, float sqrt_dh,
+                                       void* stream) {
+  if (out_dtype != 0 && out_dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  const Args a{q,       pool_k,   pool_v,          scale_k, scale_v, layer, page_table,
+               pos_rows, out,     part,            out_dtype == 0,   b,     hq,
+               hkv,     t_q,      ps,              dh,      maxp,    n_pages, n_layers,
+               n_splits, pps,     sqrt_dh,         static_cast<cudaStream_t>(stream)};
   cudaError_t e;
   switch (dh) {
     case 64:
-      e = split_kv<64>(kv_dtype, a);
+      e = pass1<64>(kv_dtype, a);
       break;
     case 128:
-      e = split_kv<128>(kv_dtype, a);
+      e = pass1<128>(kv_dtype, a);
       break;
     default:
       e = cudaErrorInvalidValue;
   }
-  if (e != cudaSuccess) return static_cast<int>(e);
-  switch (out_dtype) {
-    case 0:
-      e = combine<float>(a);
-      break;
-    case 1:
-      e = combine<__nv_bfloat16>(a);
-      break;
-    default:
-      e = cudaErrorInvalidValue;
-  }
+  if (e != cudaSuccess || n_splits == 1) return static_cast<int>(e);
+  e = out_dtype == 0 ? combine<float>(a) : combine<__nv_bfloat16>(a);
   return static_cast<int>(e);
 }

@@ -345,7 +345,7 @@ class Engine:
                 quant=kv_quant, device=dev, tp=tp))
             # a mixed slot step reads the pool through the prefill kernel:
             # refuse a pool it cannot read now, not on the first prompt
-            self.check_slot_width(2)
+            self.check_prefill_read()
         else:
             self.cache = self._per_rank(lambda dev, tp: init_kv_cache(
                 cfg, self.batch, self.seq_len, dtype=None if kv_quant else kv_dtype,
@@ -390,14 +390,14 @@ class Engine:
         #: the decode-step graph cache (runtime.graphs); None: every step eager
         self.graphs: DecodeGraphs | None = DecodeGraphs(self.device) if graphs else None
 
-    def check_slot_width(self, t: int) -> None:
+    def check_prefill_read(self) -> None:
         """Raise when a paged engine on the card could not run a mixed slot
-        step of ``t`` tokens a row: the prefill kernel reads its pool
-        (:func:`attention.check_prefill_config`) unless ``attn_impl`` is
-        ``"plain"``.  A contiguous or CPU engine takes any width."""
+        step: the prefill kernel reads its pool at any width
+        (:func:`attention.check_prefill_config`: an f16 pool or a head dim
+        other than 64 or 128 has no body) unless ``attn_impl`` is
+        ``"plain"``.  A contiguous or CPU engine takes any pool."""
         if self.paged and self.device.type == "cuda" and self.cfg.attn_impl != "plain":
-            attention.check_prefill_config(self.cache.k.dtype, self.cfg.head_size,
-                                           self.cfg.n_heads // self.cfg.n_kv_heads, t)
+            attention.check_prefill_config(self.cache.k.dtype, self.cfg.head_size)
 
     @property
     def tp(self) -> int:

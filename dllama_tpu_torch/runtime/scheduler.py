@@ -298,16 +298,12 @@ class SlotScheduler:
         self.engine = engine
         self.slots = [_Slot() for _ in range(engine.batch)]
         self.prefill_chunk = max(1, int(prefill_chunk))
-        # the widest mixed step this scheduler can emit (a power of two)
-        engine.check_slot_width(1 << (min(self.prefill_chunk, engine.seq_len).bit_length() - 1))
         # speculative decoding (runtime/spec.py): the proposer (None: off)
         # and per-slot pending drafts collected at land time, each tagged
         # with the ticket it was drafted for, so a re-bound slot never
         # consumes a predecessor's drafts.  Host-side; flush points clear it
         self.spec = spec
         self.spec_k = max(1, int(spec_k))
-        if spec is not None:
-            engine.check_slot_width(self.spec_k + 1)
         self._proposals: dict[int, tuple[Ticket, list[int]]] = {}
         self.max_wait_ms = float(max_wait_ms)
         self.decode_burst = max(1, int(decode_burst))
