@@ -8,7 +8,10 @@ Phases (each prints its seconds; any failure exits non-zero):
 1. card and build — the card's name and power limit from nvidia-smi, TF32
    off for matmuls and cuDNN, the kernels built with nvcc from
    ``dllama_tpu_torch/ops/csrc`` (one process per source).
-2. Q40 kernel against its plain version at the five Llama-2-7B matmul
+2. Q40 kernel against its plain version, after the tensor-core body's
+   build report (each instantiation's registers and spills, any wgmma the
+   assembler serialized, the build's block at each tile height against
+   ``q40.MMA_SMEM``/``MMA_STAGES``), at the five Llama-2-7B matmul
    shapes (wqkv, wo, w13, w2 stacked; wcls flat) for t in {1, 2, 4, 5, 8,
    12, 16, 24, 32, 128}, both of its bodies (the decode body, with its
    plan, and the tensor-core body: the crossover that sets q40.T_MMA,
@@ -17,7 +20,8 @@ Phases (each prints its seconds; any failure exits non-zero):
    rows, 8 x 512), and a ragged
    shape (n = 4128, n/32 odd; d = 1000; t = 17); stacked calls at layers 0
    and L-1, random packed planes made on the card from a seed:
-   max|kernel - plain| <= KERNEL_TOL * max|plain|.  Times the kernel, the
+   max|kernel - plain| <= KERNEL_TOL * max|plain|, and two launches of each
+   body equal bit for bit (also in 2v, 9, 9b and 13).  Times the kernel, the
    plain version and torch.matmul on the pre-dequantized bf16 weight (a
    yardstick the port never calls), each the median of launches on a cold
    L2, and an empty kernel the same way (the timing's floor).  2b: a
@@ -618,11 +622,15 @@ def check_sites(codec, sites, dev, seed: int, pad: bool = True, rows=ROWS,
                 scale = float(p.abs().max())
                 for body in ("gemv", "mma"):
                     k = kernel(x, qt.qpacked, qt.scales, n, layer, body=body)
+                    k2 = kernel(x, qt.qpacked, qt.scales, n, layer, body=body)
                     torch.cuda.synchronize()
                     e = float((k - p).abs().max())
                     if not (torch.isfinite(k).all() and e <= KERNEL_TOL * scale):
                         raise AssertionError(f"{site} t={t} index={layer} body={body}: "
                                              f"max|kernel-plain| {e} > {KERNEL_TOL} * {scale}")
+                    if not torch.equal(k, k2):
+                        raise AssertionError(f"{site} t={t} index={layer} body={body}: two "
+                                             f"launches differ")
                     if body == codec.route(t):
                         err = max(err, e)
             layer = layers[-1]
@@ -731,12 +739,17 @@ def check_variants(q40, dev) -> dict:
                     for body in ("gemv", "mma"):
                         k = q40.q40_matmul(x, qt.qpacked, qt.scales, n, layer, body=body,
                                            variant=v)
+                        k2 = q40.q40_matmul(x, qt.qpacked, qt.scales, n, layer, body=body,
+                                            variant=v)
                         torch.cuda.synchronize()
                         e = float((k - p).abs().max())
                         if not (torch.isfinite(k).all() and e <= KERNEL_TOL * sc):
                             raise AssertionError(
                                 f"{v} {site} t={t} index={layer} body={body}: "
                                 f"max|kernel-plain| {e} > {KERNEL_TOL} * {sc}")
+                        if not torch.equal(k, k2):
+                            raise AssertionError(f"{v} {site} t={t} index={layer} body={body}: "
+                                                 f"two launches differ")
                         rel[body] = max(rel[body], e / sc)
                         if body == q40.route(t) and e >= err:
                             err, scale = e, sc
@@ -1441,20 +1454,44 @@ def prefill_bound(pos, t: int, hkv: int, dh: int, hq: int, kv_bytes: float,
     return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
 
 
-def prefill_build_report() -> None:
-    """The prefill kernel's instantiations from this process's nvcc run
-    (``-Xptxas -v``): registers, spills and shared memory of each."""
+def build_report(tag: str, what: str) -> None:
+    """The instantiations of kernels whose mangled name holds ``tag``, from
+    this process's nvcc run (``-Xptxas -v``): registers, spills and shared
+    memory of each (``what`` names them)."""
     from dllama_tpu_torch.ops import _build
     lines = _build.build_log.splitlines()
-    hits = [i for i, ln in enumerate(lines) if "Compiling entry function" in ln and "prefill" in ln]
+    hits = [i for i, ln in enumerate(lines) if "Compiling entry function" in ln and tag in ln]
     if not hits:
-        print("prefill kernel build report: the library was built before this process")
+        print(f"{what} build report: the library was built before this process")
     for i in hits:
         name = re.search(r"'(_Z[^']*)'", lines[i])
         notes = [ln.split("ptxas info    :")[-1].strip() for ln in lines[i + 1:i + 5]
                  if "ptxas info" in ln and "Compiling" not in ln and "Function properties" not in ln]
         spills = [ln.strip() for ln in lines[i + 1:i + 5] if "spill" in ln]
         print(f"  {name.group(1) if name else lines[i]}: {'; '.join(notes + spills)}")
+
+
+def prefill_build_report() -> None:
+    """The prefill kernel's instantiations from this process's nvcc run."""
+    build_report("prefill", "prefill kernel")
+
+
+def q40_body_report(q40) -> None:
+    """Phase 2's head: the Q40 tensor-core body's instantiations from the
+    build (registers and spills of each, and any wgmma the assembler
+    serialized), and its block at each tile height as the build reports it
+    against the plan's numbers (ops/q40.py MMA_SMEM, MMA_STAGES)."""
+    from dllama_tpu_torch.ops import _build
+    build_report("q40_matmul_wgmma", "Q40 tensor-core body")
+    serial = [ln for ln in _build.build_log.splitlines() if "wgmma" in ln and "serializ" in ln]
+    print(f"wgmma serialized by ptxas: {len(serial)} warning(s)" +
+          "".join(f"\n  {ln.strip()}" for ln in serial))
+    for bm in q40.MMA_BMS:
+        lay = q40.mma_layout(bm)
+        print(f"tensor-core block, bm = {bm}: {lay}")
+        if lay["smem"] != q40.MMA_SMEM[bm] or lay["stages"] != q40.MMA_STAGES[bm]:
+            raise AssertionError(f"bm = {bm}: the build's block {lay} is not the plan's "
+                                 f"(smem {q40.MMA_SMEM[bm]}, stages {q40.MMA_STAGES[bm]})")
 
 
 def _prefill_rows_agree(attention, args, tol: float, label: str, pos_np):
@@ -2719,8 +2756,13 @@ def check_blocked(q40, dev, seed: int = 13) -> dict:
                 for body in ("gemv", "mma"):
                     k = q40.q40_blocked_matmul(x, bqt.qpacked, bqt.scales, (n, d), layer,
                                                body=body)
+                    k2 = q40.q40_blocked_matmul(x, bqt.qpacked, bqt.scales, (n, d), layer,
+                                                body=body)
                     k12 = q40.q40_matmul(x, qt.qpacked, qt.scales, n, layer, body=body)
                     torch.cuda.synchronize()
+                    if not torch.equal(k, k2):
+                        raise AssertionError(f"kernel 3 {site} t={t} plane={layer} "
+                                             f"body={body}: two launches differ")
                     e = float((k - p).abs().max())
                     if not (k.shape == (t, d) and torch.isfinite(k).all()
                             and e <= KERNEL_TOL * scale):
@@ -4657,6 +4699,7 @@ def main() -> int:
         print(_build.build_log.strip() or f"kernel library {_build.library_path()}")
     if run_phase(2):
         with phase("2 kernel vs plain at the 7B shapes"):
+            q40_body_report(q40)
             table = check_sites(q40, LLAMA_SITES, dev, seed=0, rows=Q40_CROSS_ROWS)
             table.update(check_sites(q40, LLAMA_SITES[-1:], dev, seed=4, rows=WCLS_WIDE,
                                      json_rows=WCLS_WIDE))

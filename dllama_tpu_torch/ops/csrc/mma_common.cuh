@@ -1,8 +1,9 @@
-// The tensor-core machinery the Q80 and Q40 dequant-matmul kernels share
-// (q8_matmul.cu, q40_matmul.cu): the BM x 128 output tile, the cp.async
-// copies that stage a step's tiles into shared memory with zero-fill, and
-// the ldmatrix / mma.sync m16n8k16 (bf16 in, f32 accumulate) wrappers.
-// The two bodies differ only in how a weight tile is staged and unpacked.
+// The Q80 dequant-matmul's tensor-core machinery (q8_matmul.cu): the BM x
+// 128 output tile, the cp.async copies that stage a step's tiles into
+// shared memory with zero-fill (also the Q40 tensor-core body's fallback
+// copies, q40_matmul.cu, and kernel 8's scale copies), and the ldmatrix /
+// mma.sync m16n8k16 (bf16 in, f32 accumulate) wrappers.  The Q40 body is a
+// Hopper body of its own (sm90_common.cuh).
 
 #pragma once
 
@@ -13,8 +14,8 @@
 
 namespace {
 
-constexpr int kMmaBN = 128;       // output columns a block: ops/q40.py MMA_BN
-constexpr int kMmaBK = 64;        // rows of n a step: ops/q40.py MMA_BK
+constexpr int kMmaBN = 128;       // output columns a block: ops/q8.py MMA_BN
+constexpr int kMmaBK = 64;        // rows of n a step: ops/q8.py MMA_BK
 constexpr int kXS = kMmaBK + 8;   // bf16 row stride of the x tile
 constexpr int kWS = kMmaBN + 8;   // bf16 row stride of a dequantized tile
 constexpr int kMaxSmem = 232448;

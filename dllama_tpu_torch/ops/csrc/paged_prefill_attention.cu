@@ -95,11 +95,11 @@
 #include <stdint.h>
 
 #include <climits>
-#include <mutex>
 #include <type_traits>
 
 #include "gemv_common.cuh"
 #include "mma_common.cuh"
+#include "sm90_common.cuh"
 
 namespace {
 
@@ -112,6 +112,7 @@ constexpr int kStages = 4;      // the TMA ring
 constexpr int kCvStages = 2;    // int8's dequantized ring
 constexpr int kF32Keys = 16;    // the f32 body's tile
 constexpr int kSlab = kKeys * 128;  // one 64-row slab of 128 bytes (64 bf16 of Dh)
+static_assert(kSlab == kSw128Slab, "a K/V tile is sm90_common.cuh's swizzled slab");
 constexpr float kNeg = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -203,148 +204,9 @@ __device__ __forceinline__ int key_position(const Walk& w, const Seg& sg, int ps
   return off < ps && at < w.seg_end ? at / sg.spp * ps + off : INT_MAX;
 }
 
-// -- mbarriers, TMA, wgmma ---------------------------------------------------
+// -- wgmma (the helpers are csrc/sm90_common.cuh's) --------------------------
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void bar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-// wait for the completion of the barrier's phase of parity `parity`
-__device__ __forceinline__ void bar_wait(uint32_t bar, int parity) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "LAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@p bra DONE;\n"
-      "bra LAB_WAIT;\n"
-      "DONE:\n}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-
-__device__ __forceinline__ void bar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void bar_expect(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void tma_2d(uint32_t dst, const CUtensorMap* map, int c0, int c1,
-                                       uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
-      : "memory");
-}
-
-// the barrier's phase also waits for this thread's cp.async copies so far
-__device__ __forceinline__ void bar_track_cp_async(uint32_t bar) {
-  asm volatile("cp.async.mbarrier.arrive.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
-}
-
-// generic-proxy shared-memory writes made visible to the async proxy
-// (wgmma reads the tiles the threads wrote)
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// the accumulators are written by wgmma behind the compiler's back: pin
-// them after a wait
-template <int N>
-__device__ __forceinline__ void reg_fence(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-// A wgmma descriptor of a 128-byte-swizzled operand at shared address
-// `addr`: `lbo` the byte stride between 64-element blocks of an MN-major
-// operand's MN extent (unused K-major), `sbo` between 8-row groups.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a, uint64_t b, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(acc));
-}
-
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
+// PV: m64n{Dh}k16, P from registers
 template <int DH>
 __device__ __forceinline__ void wgmma_pv(float (&o)[DH / 2], const uint32_t (&a)[4], uint64_t b);
 template <>
@@ -354,14 +216,6 @@ __device__ __forceinline__ void wgmma_pv<64>(float (&o)[32], const uint32_t (&a)
 template <>
 __device__ __forceinline__ void wgmma_pv<128>(float (&o)[64], const uint32_t (&a)[4], uint64_t b) {
   wgmma_rs_n128(o, a, b);
-}
-
-// Byte offset of 16-byte chunk `ch` (8 elements of Dh) of row r in a
-// swizzled bf16 tile of 64 rows (the query tile, a K or V tile): Dh/64
-// slabs of 64 rows of 128 bytes, the chunk index XORed with the row's low
-// three bits (TMA's 128-byte swizzle, which the wgmma descriptors name).
-__device__ __forceinline__ int sw_chunk(int r, int ch) {
-  return (ch >> 3) * kSlab + r * 128 + (((ch & 7) ^ (r & 7)) << 4);
 }
 
 // The shared-memory carve-up of the tensor-core body: the consumers' query
@@ -949,73 +803,18 @@ cudaError_t opt_in(K kern, unsigned* done) {
   return e;
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
 // Tensor maps: a bf16 pool as rows of Dh (boxes of 64 x br, the 128-byte
 // swizzle), an int8 pool as rows of Dh bytes (boxes of Dh x br).  Pools
-// are static, so each map is encoded once and kept, keyed by everything it
-// encodes.
+// are static, so each map is encoded once and kept (cached_map_2d).
 enum MapKind { kMapBf16 = 0, kMapInt8 = 1 };
-struct MapEntry {
-  const void* ptr;
-  unsigned long long rows;
-  int dh, kind, br;
-  CUtensorMap map;
-};
-constexpr int kMaps = 32;
-std::mutex g_map_mu;
-MapEntry g_maps[kMaps];
-int g_map_n = 0, g_map_next = 0;
-EncodeTiled g_encode = nullptr;
 
 cudaError_t tensor_map(int kind, const void* ptr, unsigned long long rows, int dh, int br,
                        CUtensorMap* out) {
-  std::lock_guard<std::mutex> lock(g_map_mu);
-  for (int i = 0; i < g_map_n; ++i) {
-    const MapEntry& e = g_maps[i];
-    if (e.ptr == ptr && e.rows == rows && e.dh == dh && e.kind == kind && e.br == br) {
-      *out = e.map;
-      return cudaSuccess;
-    }
-  }
-  if (g_encode == nullptr) {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult got;
-#if CUDART_VERSION >= 12050
-    cudaError_t e =
-        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault, &got);
-#else
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &got);
-#endif
-    if (e != cudaSuccess) return e;
-    if (fn == nullptr || got != cudaDriverEntryPointSuccess) return cudaErrorNotSupported;
-    g_encode = reinterpret_cast<EncodeTiled>(fn);
-  }
-  MapEntry& m = g_maps[g_map_next];
-  m.ptr = nullptr;
-  CUresult r;
-  const cuuint32_t unit[2] = {1, 1};
   const bool b16 = kind == kMapBf16;
-  const cuuint64_t dim[2] = {static_cast<cuuint64_t>(dh), rows};
-  const cuuint64_t stride[1] = {static_cast<cuuint64_t>(dh) * (b16 ? 2 : 1)};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(b16 ? 64 : dh), static_cast<cuuint32_t>(br)};
-  r = g_encode(&m.map, b16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_UINT8, 2,
-               const_cast<void*>(ptr), dim, stride, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-               b16 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
-               CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  if (r != CUDA_SUCCESS) return cudaErrorInvalidValue;
-  m.ptr = ptr;
-  m.rows = rows;
-  m.dh = dh;
-  m.kind = kind;
-  m.br = br;
-  g_map_next = (g_map_next + 1) % kMaps;
-  if (g_map_n < kMaps) ++g_map_n;
-  *out = m.map;
-  return cudaSuccess;
+  return cached_map_2d(out, b16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_UINT8,
+                       ptr, dh, rows, static_cast<unsigned long long>(dh) * (b16 ? 2 : 1),
+                       b16 ? 64 : dh, br,
+                       b16 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE);
 }
 
 struct Args {

@@ -71,9 +71,13 @@
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
+
+#include <type_traits>
 
 #include "gemv_common.cuh"
 #include "mma_common.cuh"
+#include "sm90_common.cuh"
 
 namespace {
 
@@ -91,416 +95,549 @@ __global__ void q40_reduce_splits(const float* __restrict__ part,
 
 // ---------------------------------------------------------------------------
 // The tensor-core body, for t >= T_MMA rows (python: ops/q40.py T_MMA,
-// route), in both layouts: the Q80 kernel's tensor-core body (q8_matmul.cu
-// q8_matmul_mma_kernel, its machinery in mma_common.cuh) with a Q40 weight
-// tile.  The decode body dequantizes every weight once a group of up to 8
-// rows of x; this body dequantizes it once per BM rows:
-//  * A block owns a BM x 128 output tile (BM in 16, 32, 64, 128: the least
-//    that covers t; ops/q40.py mma_plan, the Q80 body's plan) and walks its
-//    share of n in steps of 64 logical rows: two quantization blocks, 32
-//    packed rows.  Partial sums of the split-K go to f32 scratch (splits, t,
-//    d) and add in a fixed order (q40_reduce_splits): results repeat bit for
-//    bit.
-//  * cp.async brings a step's packed tile (32 x 128 bytes), its two f16
-//    scale rows and the bf16 x tile (BM x 64) into a ring of kQ4Stages
-//    stages, zero-filling rows of x past t, a second block past n/32 (n/32
-//    odd) and columns past the plane's stored width; copies of 16, 8 or 4
-//    bytes, the widest every row start allows.  Each quantization block's 16
-//    packed rows are addressed through the Layout (val, scale, stride), so
-//    in the blocked layout a step's two blocks may lie in two row tiles and
-//    a 128-column tile may span column tiles: a copy never crosses one, as
-//    its width divides td.  The blocked pad columns d..dp carry zero scales
-//    and are never written.
-//  * The threads unpack step s+1's tile into one of two bf16 (k, d) tiles in
-//    shared memory while the warps run mma.sync on step s's: a byte of packed
-//    row 16b + r gives logical row 32b + r (low nibble) and 32b + 16 + r
-//    (high nibble), each bf16(f32(nib - 8) * f32(s)) rounded to nearest even,
-//    the GEMV body's numerics (nibbles widen four at a time with byte
-//    permutes, the 2^23 trick).  Then ldmatrix (x), ldmatrix.trans (the
-//    weight tile) and mma.sync m16n8k16 with f32 accumulation, as the Q80
-//    body.  One barrier a step.
+// route, mma_plan), in both layouts; the Hopper machinery is
+// sm90_common.cuh's.  It dequantizes a weight once per BM rows of x (the
+// decode body once per 8), so at the main path's widths (prefill chunks,
+// the 8-slot mixed step's 128 rows, the scoring forward's 4096) it is
+// bound by the tensor cores' operations, not by the 0.5625 bytes a weight.
+// The design:
+//  * A block owns 128 output columns by BM rows of x (BM 32 or 128:
+//    ops/q40.py mma_plan) and walks its share of n in steps of 64 logical
+//    rows (two quantization blocks, 32 packed rows).  Partial sums of the
+//    split-K go to f32 scratch (splits, t, d) and add in a fixed order
+//    (q40_reduce_splits): results repeat bit for bit.
+//  * The product is computed transposed, y^T = W^T x^T: the dequantized
+//    weights are wgmma's A operand, straight from registers (wgmma RS,
+//    m64nBMk16), and x the B operand, K-major from shared memory.  So no
+//    bf16 weight tile is written to or read from shared memory: a step's
+//    shared-memory traffic is its copies and x's reads (an SS-mode body
+//    that staged a swizzled bf16 weight tile was shared-memory bound).
+//  * 288 threads: two consumer warpgroups, 64 output columns each, and a
+//    producer warp.  Nine warps put three on one sub-partition, so a thread
+//    holds at most 168 registers (setmaxnreg does not lift what ptxas
+//    allocates; a 256-row tile, 128 accumulators a thread, had its wgmma
+//    serialized for want of registers and was dropped).  The producer keeps
+//    a ring of kStages stages full, with full and empty mbarriers: a stage
+//    holds the BM x 64 bf16 x tile (one TMA box of a map over (t, n),
+//    128-byte swizzled; rows past t and columns past n read as zeros), the
+//    step's 32 x 128 packed bytes (one 16-row TMA box a quantization block,
+//    128-byte swizzled so that the consumers' reads of one column pair from
+//    four rows meet no bank conflict) and its two 128-wide f16 scale rows,
+//    from maps over the planes seen as rows of their stored stride (d, or
+//    kernel 3's td; the plane index is read on the card).  Where TMA cannot
+//    take the weights (a row stride or a pointer off 16 bytes, a blocked
+//    td that 128 does not divide) the producer warp copies them with
+//    cp.async (or plain loads) addressed through the Layout cursor, into
+//    the same swizzled places, and the stage barrier tracks the copies.
+//  * A consumer thread (lane g·4 + q of warp w of warpgroup wg) owns output
+//    columns c, c + 1 (c = 64 wg + 16 w + 2 g): the A fragment's rows g and
+//    g + 8.  Its A registers of a k16 step hold logical rows 2q, 2q + 1,
+//    2q + 8, 2q + 9 of the step's k16 slice; in Q40's storage those are the
+//    low nibbles (first k16 of a block) or the high nibbles (second) of
+//    packed rows 2q, 2q+1, 2q+8, 2q+9 of the block: two bytes a row, one
+//    16-bit load.  Each weight is bf16(f32(nib - 8) * f32(s)) rounded to
+//    nearest even (one LOP3 and one FFMA, the decode body's exact trick),
+//    the decode body's numerics; blocks past n are zero.  The warpgroup
+//    unpacks step s+1's registers (a second buffer) after issuing step s's
+//    wgmma (commit, then wait_group 1): no barrier between the warpgroups.
+//    Measured on an H100, the unpacking does not overlap the products in
+//    flight: a step costs their sum (PERF.md).
+//  * folded adds -8 bf16(bs) bf16(s) a block into a second register set
+//    (wgmma owns the accumulators while a product is in flight), added at
+//    the end; exact keeps a second set p for each block's products (scale-d
+//    0 at the block's first k16), waits for them and folds (p - 8 bs) s
+//    into the accumulators; both take the block sums bs of x from shared
+//    memory, summed once a step by all consumer threads (then one named
+//    barrier a step).  (q40_matmul.cu's top: the variants.)
 // Both layouts take the same plan on the logical d and add the same
-// products in the same order, so kernel 3 equals kernels 1-2 bit for bit
-// under this body too; products of bf16 values are exact in f32, so the
-// result differs from the GEMV body's only in the order of the f32 sums.
+// products in the same order, so kernel 3 equals kernels 1-2 bit for bit;
+// products of bf16 values are exact in f32, so the result differs from the
+// decode body's only in the order of the f32 sums.
 
-constexpr int kQ4Stages = 4;                  // ring stages
-constexpr int kQ4Tile = kMmaBK / 2 * kMmaBN;  // packed bytes a step: 32 rows x 128 columns
-constexpr int kQ4Scales = 2 * kMmaBN * 2;     // two f16 scale rows
+constexpr int kWgBN = 128;                     // output columns a block: ops/q40.py MMA_BN
+constexpr int kWgBK = 64;                      // rows of n a step: ops/q40.py MMA_BK
+constexpr int kWgConsumers = 256;              // two consumer warpgroups
+constexpr int kWgThreads = kWgConsumers + 32;  // and the producer warp
+constexpr int kWgVals = kWgBK / 2 * kWgBN;     // packed bytes a step: 32 rows x 128
+constexpr int kWgScales = 2 * kWgBN * 2;       // two f16 scale rows
 
+// The block's shared memory (from a 1024-byte-aligned base): the ring's x
+// tiles, packed tiles and scale rows, three buffers of a step's block sums
+// (folded, exact), then the full and empty barriers; kStages ring stages
+// (a stage's copies take about a microsecond to land, so the ring runs
+// several steps ahead), kAcc accumulators a thread.
 template <int BM>
-__host__ __device__ constexpr int q4_stage_bytes() {
-  return kQ4Tile + kQ4Scales + BM * kXS * 2;  // packed tile, scales, x tile
+struct WgShape {
+  static constexpr int kStages = 8;  // ops/q40.py MMA_STAGES
+  static constexpr int kAcc = BM / 2;
+  static constexpr int kX = BM * kWgBK * 2;
+  static constexpr int kVOff = kStages * kX;
+  static constexpr int kSOff = kVOff + kStages * kWgVals;
+  static constexpr int kBsOff = kSOff + kStages * kWgScales;
+  static constexpr int kBarOff = kBsOff + 3 * 2 * BM * 4;
+  static constexpr int kSmem = kBarOff + 16 * kStages + 1024;
+  static_assert(kSmem <= kMaxSmem, "the tensor-core body exceeds the opt-in shared memory");
+};
+
+// Byte of packed row r, column c in a step's swizzled packed tile (TMA's
+// 128-byte swizzle: the 16-byte chunk XORed with the row's low three bits;
+// a block's 16 rows start 2048 bytes apart, on 1024)
+__device__ __forceinline__ int vsw(int r, int c) {
+  return r * kWgBN + ((((c >> 4) ^ r) & 7) << 4) + (c & 15);
 }
 
-template <int BM>
-__host__ __device__ constexpr int q4_smem_bytes() {
-  return kQ4Stages * q4_stage_bytes<BM>() + 2 * kMmaBK * kWS * 2;  // + two bf16 tiles
-}
-
-// Packed rows r0, r0 + rs, ... < 32 of a step's tile at byte column c, in
-// copies of N bytes (N = 1: plain byte loads, for a row-major plane of
-// d % 4 != 0) from qp + v0|v1 (the step's two blocks) + vc (the column) +
-// the row within the block; rows of a block at or past n_blk, and a column
-// that is not `live`, are zero.
-template <int N>
-__device__ __forceinline__ void stage_packed(unsigned char* dst, const uint8_t* qp, size_t v0,
-                                             size_t v1, size_t vc, int stride, int r0, int rs,
-                                             int c, bool live, int n_blk) {
-  for (int r = r0; r < 32; r += rs) {
-    const bool ok = live && (r >> 4) < n_blk;
-    const uint8_t* src = ok ? qp + ((r >> 4) ? v1 : v0) + vc + (size_t)(r & 15) * stride : qp;
-    if constexpr (N >= 4)
-      cp_async_zfill<N>(dst + r * kMmaBN + c, src, ok);
-    else
-      dst[r * kMmaBN + c] = ok ? *src : static_cast<unsigned char>(0);
+// The A registers of a block's two k16 slices: `v` the raw bytes of packed
+// rows 2q and 2q+1 (bytes 0, 1: columns c, c+1 of row 2q; bytes 2, 3: of
+// row 2q+1), `w` those of rows 2q+8, 2q+9; s0, s1 the two columns' scales.
+// A register holds (k, k+1) of one column: reg 0 column c at k = 2q, 2q+1;
+// reg 1 column c+1 there; regs 2, 3 the same at k = 2q+8, 2q+9; lo the
+// slice of the low nibbles (the block's first 16 rows), hi the high.
+// classic: each weight is one LOP3 and one FFMA before its bf16 round (the
+// decode body's exact trick, gemv_common.cuh field_f32: the nibble ORed
+// at mantissa bit p into the exponent of 2^(23-p) is 2^(23-p) + nib, and
+// fma(2^(23-p) + nib, s, -(2^(23-p) + 8) s) = (nib - 8) s exactly for p in
+// 8, 12, 16); folded, exact: two weights a bf16x2 FMA (NibScale).
+template <int V>
+__device__ __forceinline__ void a_frags(uint32_t (&lo)[4], uint32_t (&hi)[4], uint32_t v,
+                                        uint32_t w, float s0, float s1) {
+  if constexpr (V == kClassic) {
+    // (word, mask, exponent) of each nibble: byte 0 of `u` from u << 8,
+    // byte 1 from u, byte 2 from u >> 8, byte 3 from u >> 12
+    const float c0[3] = {-32776.f * s0, -2056.f * s0, -136.f * s0};
+    const float c1[3] = {-32776.f * s1, -2056.f * s1, -136.f * s1};
+    auto pair = [&](uint32_t u, uint32_t (&l)[4], uint32_t (&h)[4], int e) {
+      const uint32_t u8 = u << 8, d8 = u >> 8, d12 = u >> 12;
+      // column c: bytes 0 (row k) and 2 (row k + 1); column c+1: bytes 1, 3
+      l[e] = bf16x2_bits(fmaf(field_f32<0xF00u, 0x47000000u>(u8), s0, c0[0]),
+                         fmaf(field_f32<0xF00u, 0x47000000u>(d8), s0, c0[0]));
+      h[e] = bf16x2_bits(fmaf(field_f32<0xF000u, 0x45000000u>(u8), s0, c0[1]),
+                         fmaf(field_f32<0xF000u, 0x45000000u>(d8), s0, c0[1]));
+      l[e + 1] = bf16x2_bits(fmaf(field_f32<0xF00u, 0x47000000u>(u), s1, c1[0]),
+                             fmaf(field_f32<0xF000u, 0x45000000u>(d12), s1, c1[1]));
+      h[e + 1] = bf16x2_bits(fmaf(field_f32<0xF000u, 0x45000000u>(u), s1, c1[1]),
+                             fmaf(field_f32<0xF0000u, 0x43000000u>(d12), s1, c1[2]));
+    };
+    pair(v, lo, hi, 0);
+    pair(w, lo, hi, 2);
+  } else {
+    NibScale n0 = NibScale::raw(), n1 = NibScale::raw();  // exact: the raw nibbles
+    if constexpr (V == kFolded) {
+      n0 = NibScale::of(bf16_round(s0));
+      n1 = NibScale::of(bf16_round(s1));
+    }
+    // bf16x2 (128 + nib) of bytes 0, 2 (column c) or 1, 3 (column c+1)
+    const uint32_t vl = v & 0x0F0F0F0Fu, vh = (v >> 4) & 0x0F0F0F0Fu;
+    const uint32_t wl = w & 0x0F0F0F0Fu, wh = (w >> 4) & 0x0F0F0F0Fu;
+    lo[0] = n0(__byte_perm(vl, 0u, 0x4240) | 0x43004300u);
+    lo[1] = n1(__byte_perm(vl, 0u, 0x4341) | 0x43004300u);
+    lo[2] = n0(__byte_perm(wl, 0u, 0x4240) | 0x43004300u);
+    lo[3] = n1(__byte_perm(wl, 0u, 0x4341) | 0x43004300u);
+    hi[0] = n0(__byte_perm(vh, 0u, 0x4240) | 0x43004300u);
+    hi[1] = n1(__byte_perm(vh, 0u, 0x4341) | 0x43004300u);
+    hi[2] = n0(__byte_perm(wh, 0u, 0x4240) | 0x43004300u);
+    hi[3] = n1(__byte_perm(wh, 0u, 0x4341) | 0x43004300u);
   }
 }
 
-// One copy of N bytes of a scale row (N = 2: a plain load of one scale)
-template <int N>
-__device__ __forceinline__ void stage_scale(unsigned char* dst, const __half* src, bool ok) {
-  if constexpr (N >= 4)
-    cp_async_zfill<N>(dst, src, ok);
+// The producer warp's copies of a step's weights where TMA cannot take
+// them: 32 packed rows of 128 bytes in pieces of N (16, 8, 4; 1 = plain
+// byte loads) into their swizzled places in `vals`, and two scale rows in
+// pieces of SN bytes (16, 8, 4; 2 = plain loads) into `scs`; row r of the
+// step lives at qp + v[r >> 4] + (r & 15) * stride (scales: sc + s[r]),
+// column c of the tile at lay.vcol / lay.scol(col0 + c).  Columns at or
+// past vc (the plane's stored width) and blocks at or past n_blk are zero.
+template <int N, class Layout>
+__device__ __forceinline__ void copy_vals(unsigned char* vals, const uint8_t* qp,
+                                          const size_t* v, const Layout& lay, int col0, int vc,
+                                          int n_blk, int lane) {
+  constexpr int kPer = kWgBN / N;
+  for (int e = lane; e < 32 * kPer; e += 32) {
+    const int r = e / kPer, c = (e % kPer) * N;
+    const bool ok = c + N <= vc && (r >> 4) < n_blk;
+    const uint8_t* src =
+        ok ? qp + v[r >> 4] + lay.vcol(col0 + c) + (size_t)(r & 15) * lay.stride() : qp;
+    if constexpr (N >= 4)
+      cp_async_zfill<N>(vals + vsw(r, c), src, ok);
+    else
+      vals[vsw(r, c)] = ok ? *src : static_cast<unsigned char>(0);
+  }
+}
+
+template <int SN, class Layout>
+__device__ __forceinline__ void copy_scales(unsigned char* scs, const __half* sc,
+                                            const size_t* s, const Layout& lay, int col0, int vc,
+                                            int n_blk, int lane) {
+  constexpr int kPer = 2 * kWgBN / SN;
+  for (int e = lane; e < 2 * kPer; e += 32) {
+    const int r = e / kPer, c = (e % kPer) * (SN / 2);
+    const bool ok = c + SN / 2 <= vc && r < n_blk;
+    const __half* src = ok ? sc + s[r] + lay.scol(col0 + c) : sc;
+    unsigned char* dst = scs + r * 2 * kWgBN + c * 2;
+    if constexpr (SN >= 4)
+      cp_async_zfill<SN>(dst, src, ok);
+    else
+      *reinterpret_cast<__half*>(dst) = ok ? *src : __ushort_as_half(static_cast<unsigned short>(0));
+  }
+}
+
+// The TMA coordinates of a step's two quantization blocks: the stored row
+// (of the plane's rows of `stride`) of each block's first packed row and
+// of its scale row in column tile `ct` (kernel 3's c / td; 0 row-major),
+// moving the cursor on as step_rows does; no division.
+__device__ __forceinline__ void tma_rows(const RowMajor&, RowMajor::Cursor& c, int, int* v,
+                                         int* s) {
+  v[0] = (int)c.b * 16;
+  v[1] = v[0] + 16;
+  s[0] = (int)c.b;
+  s[1] = s[0] + 1;
+  c.b += 2;
+}
+
+__device__ __forceinline__ void tma_rows(const Blocked& l, Blocked::Cursor& c, int ct, int* v,
+                                         int* s) {
+  unsigned q1 = c.q, rem1 = c.rem;
+  l.next_block(q1, rem1);
+  v[0] = (int)((c.q * l.nJ + ct) * l.bn + c.rem);
+  v[1] = (int)((q1 * l.nJ + ct) * l.bn + rem1);
+  s[0] = (int)((c.q * l.nJ + ct) * (l.bn / 16) + c.rem / 16);
+  s[1] = (int)((q1 * l.nJ + ct) * (l.bn / 16) + rem1 / 16);
+  l.next_block(q1, rem1);
+  c = {q1, rem1};
+}
+
+// wgmma m64nBMk16 RS with a K-major B
+template <int BM>
+__device__ __forceinline__ void wgmma_rs(float (&d)[BM / 2], const uint32_t (&a)[4], uint64_t b,
+                                         int acc) {
+  if constexpr (BM == 32)
+    wgmma_rs_kmaj_n32(d, a, b, acc);
   else
-    *reinterpret_cast<__half*>(dst) = ok ? *src : __ushort_as_half(static_cast<unsigned short>(0));
-}
-
-// nibble byte `k` of `v` (bytes 0..15) minus 8 as a float, exactly: the
-// byte permute builds 2^23 + nib, the subtraction of 2^23 + 8 is exact
-template <int K>
-__device__ __forceinline__ float nib4_f32(uint32_t v) {
-  return __uint_as_float(__byte_perm(v, 0x4B000000u, 0x7650 + K)) - 8388616.0f;
-}
-
-// four weights bf16((nib_c - 8) * s_c) of nibble bytes `v` into p[0..3]
-__device__ __forceinline__ void store_w4(__nv_bfloat16* p, uint32_t v, float s0, float s1,
-                                         float s2, float s3) {
-  const __nv_bfloat162 a = __floats2bfloat162_rn(nib4_f32<0>(v) * s0, nib4_f32<1>(v) * s1);
-  const __nv_bfloat162 b = __floats2bfloat162_rn(nib4_f32<2>(v) * s2, nib4_f32<3>(v) * s3);
-  uint2 packed;
-  packed.x = *reinterpret_cast<const uint32_t*>(&a);
-  packed.y = *reinterpret_cast<const uint32_t*>(&b);
-  *reinterpret_cast<uint2*>(p) = packed;
-}
-
-// folded / exact: four weights of nibble bytes `v` into p[0..3], two a
-// bf16x2 FMA: columns 0, 1 and 2, 3 as bf16x2 (128 + nib) (a byte permute
-// and an OR), then n01 / n23 (NibScale: bf16(nib * sb), or the raw nib)
-__device__ __forceinline__ void store_w4_nib(__nv_bfloat16* p, uint32_t v, const NibScale& n01,
-                                             const NibScale& n23) {
-  uint2 packed;
-  packed.x = n01(__byte_perm(v, 0u, 0x4140) | 0x43004300u);
-  packed.y = n23(__byte_perm(v, 0u, 0x4342) | 0x43004300u);
-  *reinterpret_cast<uint2*>(p) = packed;
-}
-
-// a NibScale over two columns' scales (folded: bf16(s0), bf16(s1))
-__device__ __forceinline__ NibScale nib_scale2(float sb0, float sb1) {
-  const uint32_t b0 = bf16_bits(sb0), b1 = bf16_bits(sb1);
-  const uint32_t m0 = bf16_bits(-128.f * sb0), m1 = bf16_bits(-128.f * sb1);
-  return {b0 | b1 << 16, m0 | m1 << 16};
+    wgmma_rs_kmaj_n128(d, a, b, acc);
 }
 
 template <int BM, class Layout, int V>
-__global__ void __launch_bounds__(MmaShape<BM>::Threads, MmaShape<BM>::MinBlocks)
-q40_matmul_mma_kernel(const __nv_bfloat16* __restrict__ x,   // (t, n)
-                      const uint8_t* __restrict__ qpacked,    // n_planes planes
-                      const __half* __restrict__ scales,      // n_planes planes
-                      const int* __restrict__ plane_p,        // the plane to read
-                      float* __restrict__ part,               // (splits, t, d)
-                      int t, int n, int np, int d, int n_planes, int steps_per, int w_al,
-                      int s_al, Layout lay) {
-  using S = MmaShape<BM>;
+__global__ void __launch_bounds__(kWgThreads, 1)
+q40_matmul_wgmma(const __grid_constant__ CUtensorMap map_x,  // x (t, n) bf16, boxes 64 x BM
+                 const __grid_constant__ CUtensorMap map_v,  // values as rows of stride bytes
+                 const __grid_constant__ CUtensorMap map_s,  // scales as rows of stride f16
+                 const uint8_t* __restrict__ qpacked, const __half* __restrict__ scales,
+                 const int* __restrict__ plane_p, float* __restrict__ part, int t, int n,
+                 int np, int d, int n_planes, int steps_per, int tma, int w_al, int s_al,
+                 Layout lay) {
+  using S = WgShape<BM>;
   constexpr bool kSums = V == kFolded || V == kExact;
   static_assert(V == kClassic || kSums, "fma runs the classic body");
-  static_assert(BM * 4 <= S::Threads, "four threads a row take the block sums");
-  extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int kStage = q4_stage_bytes<BM>();
-  // packed rows a thread unpacks a step: 4 (256 threads) or 2, in one block
-  constexpr int kPk = kMmaBK / 2 * 32 / S::Threads;
-  __nv_bfloat16* wbs = reinterpret_cast<__nv_bfloat16*>(smem + kQ4Stages * kStage);
-  // folded, exact: a step's block sums of x, (row, block), two buffers as
-  // the bf16 tiles (folded: rounded to bf16)
-  __shared__ float bsm[2][kSums ? BM * 2 : 1];
-
-  const size_t plane = (size_t)min(max(*plane_p, 0), n_planes - 1);
-  const uint8_t* qp = qpacked + plane * (size_t)(np / 2) * (size_t)lay.cols();
-  const __half* sc = scales + plane * (size_t)(np / 32) * (size_t)lay.cols();
   const int m0 = blockIdx.x * BM;
-  const int col0 = blockIdx.y * kMmaBN;
-  const int n_steps = (n + kMmaBK - 1) / kMmaBK;
+  const int col0 = blockIdx.y * kWgBN;
+  const int n_steps = (n + kWgBK - 1) / kWgBK;
   const int s_begin = blockIdx.z * steps_per;
   const int n_mine = min(n_steps, s_begin + steps_per) - s_begin;
-  const int vc = min(kMmaBN, lay.cols() - col0);  // stored columns of the tile
+  if (n_mine <= 0) return;
   const int nb = n / 32;
-
-  // the copies this thread issues every step, fixed for the block: packed
-  // rows wr0, wr0 + wrs, ... < 32 of the tile at byte column wc in copies of
-  // wcp bytes, and, when sr < 2, scale row sr at column scn in copies of scp
-  // bytes.  The widths (w_al, s_al: 16, 8, 4, or 0 for plain loads) divide
-  // every row start and, blocked, td and 2 td: no copy crosses a column
-  // tile.  Columns at or past vc are zero.
-  const int wcp = w_al ? w_al : 1, wper = kMmaBN / wcp;
-  const int wc = threadIdx.x % wper * wcp;
-  const int wr0 = threadIdx.x / wper, wrs = S::Threads / wper;
-  const bool wlive = wc + wcp <= vc;
-  const size_t wcol = lay.vcol(col0 + wc);
-  const int scp = s_al ? s_al : 2, sper = 2 * kMmaBN / scp;
-  const int scn = threadIdx.x % sper * (scp / 2);
-  const int sr = threadIdx.x / sper;
-  const bool slive = scn + scp / 2 <= vc;
-  const size_t scol = lay.scol(col0 + scn);
-  // fetch runs for steps 0, 1, 2, ... in order: the cursor follows it
-  auto cur = lay.cursor((unsigned)s_begin * 2);
-
-  auto fetch = [&](int i) {
-    unsigned char* st = smem + (i % kQ4Stages) * kStage;
-    const int k0 = (s_begin + i) * kMmaBK;
-    const int n_blk = nb - k0 / 32;  // blocks of the step inside n: 1 or more
-    size_t vrow[2], srow[2];
-    lay.step_rows(cur, vrow, srow);
-    const int stride = lay.stride();
-    switch (wcp) {
-      case 16:
-        stage_packed<16>(st, qp, vrow[0], vrow[1], wcol, stride, wr0, wrs, wc, wlive, n_blk);
-        break;
-      case 8:
-        stage_packed<8>(st, qp, vrow[0], vrow[1], wcol, stride, wr0, wrs, wc, wlive, n_blk);
-        break;
-      case 4:
-        stage_packed<4>(st, qp, vrow[0], vrow[1], wcol, stride, wr0, wrs, wc, wlive, n_blk);
-        break;
-      default:
-        stage_packed<1>(st, qp, vrow[0], vrow[1], wcol, stride, wr0, wrs, wc, wlive, n_blk);
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t full0 = smem_u32(base + S::kBarOff);
+  const uint32_t empty0 = full0 + 8 * S::kStages;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < S::kStages; ++i) {
+      bar_init(full0 + 8 * i, 1);   // the producer's arrival (and its copies' bytes)
+      bar_init(empty0 + 8 * i, 8);  // each consumer warp
     }
-    if (sr < 2) {
-      const bool ok = slive && sr < n_blk;
-      const __half* src = ok ? sc + (sr ? srow[1] : srow[0]) + scol : sc;
-      unsigned char* sdst = st + kQ4Tile + sr * 2 * kMmaBN + scn * 2;
-      switch (scp) {
-        case 16: stage_scale<16>(sdst, src, ok); break;
-        case 8: stage_scale<8>(sdst, src, ok); break;
-        case 4: stage_scale<4>(sdst, src, ok); break;
-        default: stage_scale<2>(sdst, src, ok);
-      }
-    }
-    stage_rows(st + kQ4Tile + kQ4Scales, kXS * 2,
-               reinterpret_cast<const unsigned char*>(x + (size_t)m0 * n + k0), 2L * n, BM,
-               2 * kMmaBK, t - m0, 2 * min(kMmaBK, n - k0), 16);
-  };
-
-  // unpacking: thread owns columns 4*cg..4*cg+3 of packed rows kPk*rg ..
-  // kPk*rg + kPk - 1, all in quantization block blk of the step
-  const int cg = threadIdx.x & 31;
-  const int r0 = (threadIdx.x >> 5) * kPk;
-  const int blk = r0 >> 4;
-  auto dequant = [&](int i) {
-    const unsigned char* st = smem + (i % kQ4Stages) * kStage;
-    __nv_bfloat16* wb = wbs + (i & 1) * kMmaBK * kWS;
-    const uint2 sraw =
-        *reinterpret_cast<const uint2*>(st + kQ4Tile + blk * 2 * kMmaBN + cg * 8);
-    const float s0 = f16_bits(sraw.x & 0xFFFFu), s1 = f16_bits(sraw.x >> 16);
-    const float s2 = f16_bits(sraw.y & 0xFFFFu), s3 = f16_bits(sraw.y >> 16);
-    NibScale n01 = NibScale::raw(), n23 = NibScale::raw();  // exact: the raw nibbles
-    if constexpr (V == kFolded) {
-      n01 = nib_scale2(bf16_round(s0), bf16_round(s1));
-      n23 = nib_scale2(bf16_round(s2), bf16_round(s3));
-    }
-#pragma unroll
-    for (int r = 0; r < kPk; ++r) {
-      const uint32_t u = *reinterpret_cast<const uint32_t*>(st + (r0 + r) * kMmaBN + cg * 4);
-      const int lo = 32 * blk + ((r0 + r) & 15);  // logical row of the low nibbles
-      if constexpr (kSums) {
-        store_w4_nib(wb + lo * kWS + cg * 4, u & 0x0F0F0F0Fu, n01, n23);
-        store_w4_nib(wb + (lo + 16) * kWS + cg * 4, (u >> 4) & 0x0F0F0F0Fu, n01, n23);
-      } else {
-        store_w4(wb + lo * kWS + cg * 4, u & 0x0F0F0F0Fu, s0, s1, s2, s3);
-        store_w4(wb + (lo + 16) * kWS + cg * 4, (u >> 4) & 0x0F0F0F0Fu, s0, s1, s2, s3);
-      }
-    }
-    if constexpr (kSums) {
-      // the step's block sums from its staged x tile: thread 4 row + 2 b + h
-      // sums half h (16 columns) of block b of the row, its neighbour the
-      // other half; lo half + hi half, as the JAX kernel adds them
-      if (threadIdx.x < BM * 4) {
-        const int row = threadIdx.x >> 2, b = (threadIdx.x >> 1) & 1, h = threadIdx.x & 1;
-        const uint4* xp = reinterpret_cast<const uint4*>(
-            st + kQ4Tile + kQ4Scales + (row * kXS + 32 * b + 16 * h) * 2);
-        float sum = 0.f;
-#pragma unroll
-        for (int q = 0; q < 2; ++q) {
-          const uint4 v = xp[q];
-          const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            sum = sum + __uint_as_float(w[e] << 16) + __uint_as_float(w[e] & 0xFFFF0000u);
-        }
-        const float hi = __shfl_xor_sync(0xFFFFFFFFu, sum, 1);  // h = 0: the hi half's
-        if (h == 0) bsm[i & 1][row * 2 + b] = V == kFolded ? bf16_round(sum + hi) : sum + hi;
-      }
-    }
-  };
-
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int wm = warp / S::WN;
-  const int wn = warp - wm * S::WN;
-  // ldmatrix: this lane's row (of 16) and 8-column half of the four 8x8
-  // matrices it addresses
-  const int lr = (lane & 7) + ((lane >> 3) & 1) * 8;
-  const int lc = (lane >> 4) * 8;
-  float acc[S::MT][S::NT][4];
-#pragma unroll
-  for (int i = 0; i < S::MT; ++i)
-#pragma unroll
-    for (int j = 0; j < S::NT; ++j)
-#pragma unroll
-      for (int k = 0; k < 4; ++k) acc[i][j][k] = 0.f;
-
-#pragma unroll
-  for (int i = 0; i < kQ4Stages - 1; ++i) {
-    if (i < n_mine) fetch(i);
-    cp_async_commit();
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  cp_async_wait<kQ4Stages - 2>();
-  __syncthreads();
-  dequant(0);
-  for (int it = 0; it < n_mine; ++it) {
-    cp_async_wait<kQ4Stages - 3>();
-    // step it+1 landed and step it's bf16 tile is whole; step it-1's mma
-    // is done with its stage and its bf16 tile
-    __syncthreads();
-    if (it + kQ4Stages - 1 < n_mine) fetch(it + kQ4Stages - 1);
-    cp_async_commit();
-    if (it + 1 < n_mine) dequant(it + 1);
+  __syncthreads();  // the barriers are ready: no block-wide sync after this
 
-    const unsigned char* st = smem + (it % kQ4Stages) * kStage;
-    const __nv_bfloat16* xs = reinterpret_cast<const __nv_bfloat16*>(st + kQ4Tile + kQ4Scales);
-    const __nv_bfloat16* wb = wbs + (it & 1) * kMmaBK * kWS;
-    // the step's two quantization blocks, two k16 steps each: classic and
-    // folded into acc; exact into a fresh fragment p, folded into acc as
-    // (p - 8 bs) * s after its block (folded adds -8 bf16(bs) bf16(s) then)
+  if (threadIdx.x >= kWgConsumers) {
+    // -- the producer warp ----------------------------------------------------
+    const int lane = threadIdx.x & 31;
+    const int plane = min(max(*plane_p, 0), n_planes - 1);
+    const int stride = lay.stride();
+    const int per_row = lay.cols() / stride;  // stored rows a packed row: nJ blocked, 1
+    const uint8_t* qp = qpacked + (size_t)plane * (size_t)(np / 2) * (size_t)lay.cols();
+    const __half* sc = scales + (size_t)plane * (size_t)(np / 32) * (size_t)lay.cols();
+    const int vrow0 = plane * (np / 2) * per_row, srow0 = plane * (np / 32) * per_row;
+    const int vc = min(kWgBN, lay.cols() - col0);  // stored columns of the tile
+    const int ctile = col0 / stride, ccol = col0 - ctile * stride;  // the box's column
+    auto cur = lay.cursor((unsigned)s_begin * 2);
+    const int tx = S::kX + (tma ? kWgVals + kWgScales : 0);
+    for (int i = 0; i < n_mine; ++i) {
+      const int s = i % S::kStages;
+      const uint32_t full = full0 + 8 * s;
+      const int k0 = (s_begin + i) * kWgBK;
+      size_t v[2], sr[2];
+      int vr[2], srr[2];
+      if (tma)
+        tma_rows(lay, cur, ctile, vr, srr);
+      else
+        lay.step_rows(cur, v, sr);
+      if (i >= S::kStages) bar_wait(empty0 + 8 * s, (i / S::kStages - 1) & 1);
+      unsigned char* vals = base + S::kVOff + s * kWgVals;
+      unsigned char* scs = base + S::kSOff + s * kWgScales;
+      if (!tma) {
+        const int n_blk = nb - k0 / 32;
+        switch (w_al) {
+          case 16: copy_vals<16>(vals, qp, v, lay, col0, vc, n_blk, lane); break;
+          case 8: copy_vals<8>(vals, qp, v, lay, col0, vc, n_blk, lane); break;
+          case 4: copy_vals<4>(vals, qp, v, lay, col0, vc, n_blk, lane); break;
+          default: copy_vals<1>(vals, qp, v, lay, col0, vc, n_blk, lane);
+        }
+        switch (s_al) {
+          case 16: copy_scales<16>(scs, sc, sr, lay, col0, vc, n_blk, lane); break;
+          case 8: copy_scales<8>(scs, sc, sr, lay, col0, vc, n_blk, lane); break;
+          case 4: copy_scales<4>(scs, sc, sr, lay, col0, vc, n_blk, lane); break;
+          default: copy_scales<2>(scs, sc, sr, lay, col0, vc, n_blk, lane);
+        }
+        bar_track_cp_async(full);
+      }
+      __syncwarp();
+      if (lane == 0) {
+        bar_expect(full, tx);
+        tma_2d(smem_u32(base + s * S::kX), &map_x, k0, m0, full);
+        if (tma) {
+          // a block's 16 packed rows and its scale row
+#pragma unroll
+          for (int b = 0; b < 2; ++b) {
+            tma_2d(smem_u32(vals + b * 16 * kWgBN), &map_v, ccol, vrow0 + vr[b], full);
+            tma_2d(smem_u32(scs + b * 2 * kWgBN), &map_s, ccol, srow0 + srr[b], full);
+          }
+        }
+      }
+    }
+    if (!tma) cp_async_wait<0>();
+    return;
+  }
+
+  // -- the consumer warpgroups ------------------------------------------------
+  const int lane = threadIdx.x & 31;
+  const int q = lane & 3;
+  const int c = (threadIdx.x >> 7) * 64 + ((threadIdx.x >> 5) & 3) * 16 + (lane >> 2) * 2;
+  float* bsm = reinterpret_cast<float*>(base + S::kBsOff);  // [3][2][BM]
+
+  // step i's A registers (a[kk], kk the k16 slice: block kk / 2, the low
+  // nibbles at even kk) from its stage
+  auto dequant = [&](int i, uint32_t (&a)[4][4]) {
+    const int s = i % S::kStages;
+    const unsigned char* vals = base + S::kVOff + s * kWgVals;
+    const unsigned char* scs = base + S::kSOff + s * kWgScales;
 #pragma unroll
     for (int b = 0; b < 2; ++b) {
-      float p[V == kExact ? S::MT : 1][V == kExact ? S::NT : 1][4];
-      if constexpr (V == kExact) {
+      if ((s_begin + i) * 2 + b >= nb) {  // a block past n holds no weights
 #pragma unroll
-        for (int i = 0; i < S::MT; ++i)
-#pragma unroll
-          for (int j = 0; j < S::NT; ++j)
-#pragma unroll
-            for (int k = 0; k < 4; ++k) p[i][j][k] = 0.f;
+        for (int e = 0; e < 4; ++e) a[2 * b][e] = a[2 * b + 1][e] = 0u;
+        continue;
       }
-#pragma unroll
-      for (int kk = 2 * b; kk < 2 * b + 2; ++kk) {
-        uint32_t a[S::MT][4];
-#pragma unroll
-        for (int i = 0; i < S::MT; ++i)
-          ldmatrix_x4(a[i], xs + (wm * (BM / S::WM) + i * 16 + lr) * kXS + kk * 16 + lc);
-#pragma unroll
-        for (int j = 0; j < S::NT; j += 2) {
-          uint32_t bfr[4];
-          ldmatrix_x4_trans(bfr, wb + (kk * 16 + lr) * kWS + wn * (kMmaBN / S::WN) + j * 8 + lc);
-#pragma unroll
-          for (int i = 0; i < S::MT; ++i) {
-            if constexpr (V == kExact) {
-              mma_bf16(p[i][j], a[i], bfr[0], bfr[1]);
-              mma_bf16(p[i][j + 1], a[i], bfr[2], bfr[3]);
-            } else {
-              mma_bf16(acc[i][j], a[i], bfr[0], bfr[1]);
-              mma_bf16(acc[i][j + 1], a[i], bfr[2], bfr[3]);
-            }
-          }
-        }
-      }
-      if constexpr (kSums) {
-        // C fragment: rows gid, gid + 8 of the m16 tile, columns 2 tig, +1
-        // of the n8 tile; block b's scales from the step's stage, read once
-        // a column pair, its block sums once a row
-        float sc[S::NT][2];
-#pragma unroll
-        for (int j = 0; j < S::NT; ++j) {
-          const int col = wn * (kMmaBN / S::WN) + j * 8 + (lane & 3) * 2;
-          const uint32_t sr = *reinterpret_cast<const uint32_t*>(
-              st + kQ4Tile + b * 2 * kMmaBN + col * 2);
-          sc[j][0] = f16_bits(sr & 0xFFFFu);
-          sc[j][1] = f16_bits(sr >> 16);
-          if constexpr (V == kFolded) sc[j][0] = bf16_round(sc[j][0]), sc[j][1] = bf16_round(sc[j][1]);
-        }
-#pragma unroll
-        for (int i = 0; i < S::MT; ++i)
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int row = wm * (BM / S::WM) + i * 16 + (lane >> 2) + h * 8;
-            const float r = -8.f * bsm[it & 1][row * 2 + b];
-#pragma unroll
-            for (int j = 0; j < S::NT; ++j)
-#pragma unroll
-              for (int c = 0; c < 2; ++c) {
-                float& o = acc[i][j][2 * h + c];
-                if constexpr (V == kExact)
-                  o = fmaf(p[i][j][2 * h + c] + r, sc[j][c], o);
-                else
-                  o = fmaf(r, sc[j][c], o);
-              }
-          }
-      }
+      const unsigned char* vb = vals + b * 16 * kWgBN;
+      const uint32_t r0 = *reinterpret_cast<const uint16_t*>(vb + vsw(2 * q, c));
+      const uint32_t r1 = *reinterpret_cast<const uint16_t*>(vb + vsw(2 * q + 1, c));
+      const uint32_t r8 = *reinterpret_cast<const uint16_t*>(vb + vsw(2 * q + 8, c));
+      const uint32_t r9 = *reinterpret_cast<const uint16_t*>(vb + vsw(2 * q + 9, c));
+      const uint32_t v = r0 | r1 << 16, w = r8 | r9 << 16;
+      const uint32_t sr = *reinterpret_cast<const uint32_t*>(scs + b * 2 * kWgBN + c * 2);
+      a_frags<V>(a[2 * b], a[2 * b + 1], v, w, f16_bits(sr & 0xFFFFu), f16_bits(sr >> 16));
     }
-  }
-  cp_async_wait<0>();
+  };
 
-  float* dst = part + (size_t)blockIdx.z * t * d;
-  const int gid = lane >> 2;
-  const int tig = lane & 3;
+  // the k16 products of step i's x tile (B) and A registers, k16 slices
+  // kk0 .. kk1 - 1, into dst (a fresh sum at kk0 when `fresh`)
+  auto products = [&](int i, const uint32_t (&a)[4][4], float (&dst)[S::kAcc], int kk0, int kk1,
+                      bool fresh) {
+    const uint32_t xt = smem_u32(base + (i % S::kStages) * S::kX);
+    wg_fence();
 #pragma unroll
-  for (int i = 0; i < S::MT; ++i) {
-#pragma unroll
-    for (int j = 0; j < S::NT; ++j) {
-      const int col = col0 + wn * (kMmaBN / S::WN) + j * 8 + tig * 2;
+    for (int kk = kk0; kk < kk1; ++kk)
+      wgmma_rs<BM>(dst, a[kk], sw128_desc(xt + kk * 32, 16, 1024), !(fresh && kk == kk0));
+    wg_commit();
+  };
+
+  // folded, exact: step i's block sums of x, rows m x blocks b, into buffer
+  // i % 3: thread u sums block u & 1 of row u >> 1 (its low 16 columns,
+  // then its high 16, as the JAX kernel adds them) from the swizzled x tile
+  auto block_sums = [&](int i) {
+    const unsigned char* xs = base + (i % S::kStages) * S::kX;
+    for (int u = threadIdx.x; u < 2 * BM; u += kWgConsumers) {
+      const int r = u >> 1, b = u & 1;
+      float half[2];
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const int row = m0 + wm * (BM / S::WM) + i * 16 + gid + h * 8;
-        if (row >= t) continue;
-        float* o = dst + (size_t)row * d;
-        if (col < d) o[col] = acc[i][j][2 * h];
-        if (col + 1 < d) o[col + 1] = acc[i][j][2 * h + 1];
+        float sum = 0.f;
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          const int ch = 4 * b + 2 * h + k;
+          const uint4 x4 = *reinterpret_cast<const uint4*>(xs + r * 128 + (((ch ^ r) & 7) << 4));
+          const uint32_t wd[4] = {x4.x, x4.y, x4.z, x4.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            sum = sum + __uint_as_float(wd[e] << 16) + __uint_as_float(wd[e] & 0xFFFF0000u);
+        }
+        half[h] = sum;
+      }
+      const float bs = half[0] + half[1];
+      bsm[((i % 3) * 2 + b) * BM + r] = V == kFolded ? bf16_round(bs) : bs;
+    }
+  };
+
+  float acc[S::kAcc];
+  float ext[S::kAcc];  // folded: the folds; exact: a block's p (unused classic)
+#pragma unroll
+  for (int e = 0; e < S::kAcc; ++e) acc[e] = 0.f;
+  if constexpr (kSums) {
+#pragma unroll
+    for (int e = 0; e < S::kAcc; ++e) ext[e] = 0.f;
+  }
+
+  // fold block b of step i: exact acc += (p - 8 bs) s, folded ext += -8 bs s;
+  // accumulator 4j + e is x row 8j + 2q + e at column c, 4j + 2 + e at c + 1
+  auto fold = [&](int i, int b) {
+    if ((s_begin + i) * 2 + b >= nb) return;  // a block past n holds no weights
+    const uint32_t sr = *reinterpret_cast<const uint32_t*>(
+        base + S::kSOff + (i % S::kStages) * kWgScales + b * 2 * kWgBN + c * 2);
+    float s0 = f16_bits(sr & 0xFFFFu), s1 = f16_bits(sr >> 16);
+    if constexpr (V == kFolded) s0 = bf16_round(s0), s1 = bf16_round(s1);
+    const float* bsr = bsm + ((i % 3) * 2 + b) * BM;
+#pragma unroll
+    for (int j = 0; j < BM / 8; ++j) {
+      const float2 bs = *reinterpret_cast<const float2*>(bsr + 8 * j + 2 * q);
+      const float r[2] = {-8.f * bs.x, -8.f * bs.y};
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        if constexpr (V == kExact) {
+          acc[4 * j + e] = fmaf(ext[4 * j + e] + r[e], s0, acc[4 * j + e]);
+          acc[4 * j + 2 + e] = fmaf(ext[4 * j + 2 + e] + r[e], s1, acc[4 * j + 2 + e]);
+        } else {
+          ext[4 * j + e] = fmaf(r[e], s0, ext[4 * j + e]);
+          ext[4 * j + 2 + e] = fmaf(r[e], s1, ext[4 * j + 2 + e]);
+        }
       }
     }
+  };
+
+  uint32_t a[2][4][4];  // the A registers of two steps
+  // step i, its A registers in buffer P (the next step's go to 1 - P)
+  auto step = [&](int i, auto P) {
+    constexpr int p = decltype(P)::value;
+    if constexpr (V == kExact) {
+      // block 0 alone, waited for and folded; block 1 runs under the dequant
+      products(i, a[p], ext, 0, 2, true);
+      wg_wait();
+      reg_fence(ext);
+      fold(i, 0);
+      products(i, a[p], ext, 2, 4, true);
+    } else {
+      products(i, a[p], acc, 0, 4, false);
+    }
+    wg_wait_n<1>();  // step i-1's products are done: its stage and registers are free
+    if (i > 0) {
+      __syncwarp();
+      if ((threadIdx.x & 31) == 0) bar_arrive(empty0 + 8 * ((i - 1) % S::kStages));
+    }
+    if (i + 1 < n_mine) {
+      bar_wait(full0 + 8 * ((i + 1) % S::kStages), ((i + 1) / S::kStages) & 1);
+      dequant(i + 1, a[1 - p]);
+      if constexpr (kSums) block_sums(i + 1);
+    }
+    if constexpr (V == kFolded) {
+      fold(i, 0);
+      fold(i, 1);
+    }
+    if constexpr (V == kExact) {
+      wg_wait();
+      reg_fence(ext);
+      fold(i, 1);
+    }
+    // step i + 1's block sums are written; step i's were read (by both
+    // warpgroups) before buffer (i + 1) % 3's next write, at step i + 3
+    if constexpr (kSums) asm volatile("bar.sync 1, %0;\n" ::"n"(kWgConsumers) : "memory");
+  };
+
+  bar_wait(full0, 0);
+  dequant(0, a[0]);
+  if constexpr (kSums) {
+    block_sums(0);
+    asm volatile("bar.sync 1, %0;\n" ::"n"(kWgConsumers) : "memory");
   }
+  for (int i = 0; i < n_mine; i += 2) {
+    step(i, std::integral_constant<int, 0>{});
+    if (i + 1 < n_mine) step(i + 1, std::integral_constant<int, 1>{});
+  }
+  wg_wait();
+  reg_fence(acc);
+  if constexpr (V == kFolded) {
+#pragma unroll
+    for (int e = 0; e < S::kAcc; ++e) acc[e] += ext[e];
+  }
+
+  // accumulator 4j + e: x row 8j + 2q + e, column c; 4j + 2 + e: column c + 1
+  float* dst = part + (size_t)blockIdx.z * t * d;
+  const int col = col0 + c;
+  const bool pairs = (d & 1) == 0 && col + 1 < d;
+#pragma unroll
+  for (int j = 0; j < BM / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int row = m0 + 8 * j + 2 * q + e;
+      if (row >= t) continue;
+      float* o = dst + (size_t)row * d + col;
+      const float v0 = acc[4 * j + e], v1 = acc[4 * j + 2 + e];
+      if (pairs) {
+        *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
+      } else {
+        if (col < d) o[0] = v0;
+        if (col + 1 < d) o[1] = v1;
+      }
+    }
 }
 
+// The tensor-core body's launch: the x map each call (x moves), the
+// weight maps once per plane pointer and shape (cached_map_2d); with `tma`
+// 0 the weights go by the producer's copies and their maps are unused.
 template <int BM, class Layout, int V>
-cudaError_t launch_mma(const __nv_bfloat16* x, const uint8_t* qp, const __half* sc,
-                       const int* idx, float* part, int t, int n, int np, int d,
-                       int n_planes, int splits, int steps_per, int w_al, int s_al, Layout lay,
-                       cudaStream_t stream) {
-  auto kern = q40_matmul_mma_kernel<BM, Layout, V>;
+cudaError_t launch_wgmma(const __nv_bfloat16* x, const uint8_t* qp, const __half* sc,
+                         const int* idx, float* part, int t, int n, int np, int d, int n_planes,
+                         int splits, int steps_per, int tma, int w_al, int s_al, Layout lay,
+                         int stride, int per_row, cudaStream_t stream) {
+  using S = WgShape<BM>;
+  CUtensorMap mx, mv, ms;
+  cudaError_t e = encode_2d(&mx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, n, t, 2ull * n, kWgBK, BM,
+                            CU_TENSOR_MAP_SWIZZLE_128B);
+  if (e != cudaSuccess) return e;
+  memset(&mv, 0, sizeof(mv));
+  memset(&ms, 0, sizeof(ms));
+  if (tma) {
+    const unsigned long long rows = (unsigned long long)n_planes * (np / 2) * per_row;
+    e = cached_map_2d(&mv, CU_TENSOR_MAP_DATA_TYPE_UINT8, qp, stride, rows, stride, kWgBN, 16,
+                      CU_TENSOR_MAP_SWIZZLE_128B);
+    if (e == cudaSuccess)
+      e = cached_map_2d(&ms, CU_TENSOR_MAP_DATA_TYPE_FLOAT16, sc, stride,
+                        (unsigned long long)n_planes * (np / 32) * per_row, 2ull * stride, kWgBN,
+                        1, CU_TENSOR_MAP_SWIZZLE_NONE);
+    if (e != cudaSuccess) return e;
+  }
+  auto kern = q40_matmul_wgmma<BM, Layout, V>;
   // the dynamic shared-memory opt-in, once per instantiation and device
   static unsigned done = 0;
   int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
+  e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
   if (dev >= 32 || !(done >> dev & 1u)) {
-    // the body's own need: static shared memory (folded and exact's block
-    // sums) and the dynamic opt-in together stay under the block's limit
-    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             q4_smem_bytes<BM>());
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, S::kSmem);
     if (e != cudaSuccess) return e;
     if (dev < 32) done |= 1u << dev;
   }
-  const dim3 grid((t + BM - 1) / BM, (d + kMmaBN - 1) / kMmaBN, splits);
-  kern<<<grid, MmaShape<BM>::Threads, q4_smem_bytes<BM>(), stream>>>(
-      x, qp, sc, idx, part, t, n, np, d, n_planes, steps_per, w_al, s_al, lay);
+  const dim3 grid((t + BM - 1) / BM, (d + kWgBN - 1) / kWgBN, splits);
+  kern<<<grid, kWgThreads, S::kSmem, stream>>>(mx, mv, ms, qp, sc, idx, part, t, n, np, d,
+                                               n_planes, steps_per, tma, w_al, s_al, lay);
   return cudaGetLastError();
 }
 
 // Both tensor-core entry points: the tile height by bm, then the
-// fixed-order reduce of the splits.
+// fixed-order reduce of the splits.  `stride` is the bytes between two
+// stored rows (d, or kernel 3's td), `per_row` the stored rows of a packed
+// row (1, or kernel 3's nJ column tiles).
 template <class Layout, int V>
-int run_mma(const void* x, const void* qpacked, const void* scales, void* out, void* scratch,
-            const void* idx, int t, int n, int np, int d, int n_planes, int bm, int splits,
-            int steps_per, int w_al, int s_al, Layout lay, void* stream) {
+int run_wgmma(const void* x, const void* qpacked, const void* scales, void* out, void* scratch,
+              const void* idx, int t, int n, int np, int d, int n_planes, int bm, int splits,
+              int steps_per, int tma, int w_al, int s_al, Layout lay, int stride, int per_row,
+              void* stream) {
   const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
   const uint8_t* qp = static_cast<const uint8_t*>(qpacked);
   const __half* sc = static_cast<const __half*>(scales);
@@ -509,21 +646,13 @@ int run_mma(const void* x, const void* qpacked, const void* scales, void* out, v
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   switch (bm) {
-    case 16:
-      e = launch_mma<16, Layout, V>(xb, qp, sc, ip, part, t, n, np, d, n_planes, splits, steps_per, w_al,
-                         s_al, lay, s);
-      break;
     case 32:
-      e = launch_mma<32, Layout, V>(xb, qp, sc, ip, part, t, n, np, d, n_planes, splits, steps_per, w_al,
-                         s_al, lay, s);
-      break;
-    case 64:
-      e = launch_mma<64, Layout, V>(xb, qp, sc, ip, part, t, n, np, d, n_planes, splits, steps_per, w_al,
-                         s_al, lay, s);
+      e = launch_wgmma<32, Layout, V>(xb, qp, sc, ip, part, t, n, np, d, n_planes, splits,
+                                      steps_per, tma, w_al, s_al, lay, stride, per_row, s);
       break;
     case 128:
-      e = launch_mma<128, Layout, V>(xb, qp, sc, ip, part, t, n, np, d, n_planes, splits, steps_per, w_al,
-                          s_al, lay, s);
+      e = launch_wgmma<128, Layout, V>(xb, qp, sc, ip, part, t, n, np, d, n_planes, splits,
+                                       steps_per, tma, w_al, s_al, lay, stride, per_row, s);
       break;
     default:
       return (int)cudaErrorInvalidValue;
@@ -535,6 +664,13 @@ int run_mma(const void* x, const void* qpacked, const void* scales, void* out, v
         part, static_cast<float*>(out), splits, total);
   }
   return (int)cudaGetLastError();
+}
+
+template <int BM>
+void wg_layout(int* out) {
+  out[0] = kWgThreads;
+  out[1] = WgShape<BM>::kSmem;
+  out[2] = WgShape<BM>::kStages;
 }
 
 }  // namespace
@@ -583,45 +719,60 @@ extern "C" int q40_matmul_blocked(const void* x, const void* qpacked, const void
 }
 
 // The tensor-core body (t >= T_MMA) of kernels 1-2: x (t, n) bf16 (16-byte
-// aligned); qpacked, scales, idx and out as q40_matmul; bm in 16, 32, 64,
-// 128; the reduction over n cut into `splits` ranges of `steps_per` 64-row
-// steps (ops/q40.py mma_plan), scratch (splits, t, d) f32 when splits > 1;
-// w_al / s_al the widest copy (16, 8, 4, or 0 for plain loads) that the
-// value / scale rows allow; variant as q40_matmul's.
+// aligned); qpacked, scales, idx and out as q40_matmul; bm 32 or 128; the
+// reduction over n cut into `splits` ranges of
+// `steps_per` 64-row steps (ops/q40.py mma_plan), scratch (splits, t, d)
+// f32 when splits > 1; tma 1 when the planes' rows and pointers are
+// 16-byte aligned (the weights by TMA), else 0 and w_al / s_al the widest
+// copy (16, 8, 4, or 0 for plain loads) that the value / scale rows
+// allow; variant as q40_matmul's.
 extern "C" int q40_matmul_mma(const void* x, const void* qpacked, const void* scales,
                               void* out, void* scratch, const void* idx, int t, int n,
                               int np, int d, int n_planes, int bm, int splits, int steps_per,
-                              int w_al, int s_al, int variant, void* stream) {
+                              int tma, int w_al, int s_al, int variant, void* stream) {
+  const RowMajor lay{d};
   switch (variant) {
     case kClassic:
     case kFma:
-      return run_mma<RowMajor, kClassic>(x, qpacked, scales, out, scratch, idx, t, n, np, d,
-                                         n_planes, bm, splits, steps_per, w_al, s_al,
-                                         RowMajor{d}, stream);
+      return run_wgmma<RowMajor, kClassic>(x, qpacked, scales, out, scratch, idx, t, n, np, d,
+                                           n_planes, bm, splits, steps_per, tma, w_al, s_al,
+                                           lay, d, 1, stream);
     case kFolded:
-      return run_mma<RowMajor, kFolded>(x, qpacked, scales, out, scratch, idx, t, n, np, d,
-                                        n_planes, bm, splits, steps_per, w_al, s_al,
-                                        RowMajor{d}, stream);
+      return run_wgmma<RowMajor, kFolded>(x, qpacked, scales, out, scratch, idx, t, n, np, d,
+                                          n_planes, bm, splits, steps_per, tma, w_al, s_al,
+                                          lay, d, 1, stream);
     case kExact:
-      return run_mma<RowMajor, kExact>(x, qpacked, scales, out, scratch, idx, t, n, np, d,
-                                       n_planes, bm, splits, steps_per, w_al, s_al,
-                                       RowMajor{d}, stream);
+      return run_wgmma<RowMajor, kExact>(x, qpacked, scales, out, scratch, idx, t, n, np, d,
+                                         n_planes, bm, splits, steps_per, tma, w_al, s_al, lay,
+                                         d, 1, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
 // The tensor-core body of kernel 3: operands as q40_matmul_blocked, the
-// plan as q40_matmul_mma's on the logical d; w_al / s_al copy widths that
-// divide td / 2*td (never 0: td % 4 == 0).
+// plan as q40_matmul_mma's on the logical d; tma 1 when td, its pointers
+// and the 128-column tile allow TMA boxes (td % 128 == 0), else the copy
+// widths w_al / s_al that divide td / 2*td (never 0: td % 4 == 0).
 extern "C" int q40_matmul_blocked_mma(const void* x, const void* qpacked, const void* scales,
                                       void* out, void* scratch, const void* idx, int t, int n,
                                       int np, int d, int n_planes, int bm, int splits,
-                                      int steps_per, int w_al, int s_al, int bn, int td,
+                                      int steps_per, int tma, int w_al, int s_al, int bn, int td,
                                       int nJ, void* stream) {
-  return run_mma<Blocked, kClassic>(x, qpacked, scales, out, scratch, idx, t, n, np, d,
-                                    n_planes, bm, splits, steps_per, w_al, s_al,
-                                    Blocked{bn, td, nJ}, stream);
+  return run_wgmma<Blocked, kClassic>(x, qpacked, scales, out, scratch, idx, t, n, np, d,
+                                      n_planes, bm, splits, steps_per, tma, w_al, s_al,
+                                      Blocked{bn, td, nJ}, td, nJ, stream);
+}
+
+// The tensor-core body's block at tile height bm (ops/q40.py MMA_SMEM,
+// MMA_STAGES hold the same numbers): out[0] threads, out[1] dynamic shared
+// memory in bytes, out[2] ring stages.  Launches nothing.
+extern "C" int q40_mma_layout(int bm, int* out) {
+  switch (bm) {
+    case 32: wg_layout<32>(out); return 0;
+    case 128: wg_layout<128>(out); return 0;
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 extern "C" const char* q40_error_string(int code) {

@@ -66,7 +66,7 @@ kernel lives in the JAX package's ``q40.py``.
 The kernel has two bodies, chosen by :func:`route` from the row count:
 the GEMV (decode) body below ``T_MMA`` rows, one launch a call on
 :func:`gemv_plan` (shared with the Q80 kernel), and, from ``T_MMA`` rows
-up, the tensor-core body (:func:`mma_plan`, the Q80 kernel's plan), in
+up, the Hopper tensor-core body (TMA ring, wgmma; :func:`mma_plan`), in
 both layouts.
 
 Module counters (plain ints, bumped under ``ops.COUNT_LOCK``) record
@@ -89,6 +89,7 @@ import functools
 import os
 import sys
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -706,17 +707,38 @@ def _gemv_width(row_bytes: int, vptr: int, sptr: int, cols: int) -> int:
 # decode body.  The crossover chip_smoke.py phase 2 measures at the five
 # Llama-2-7B sites (PERF.md): up to t = 8 (one pass of the decode body's
 # 8-row mma tile) the decode body is faster over a 7B layer's four
-# matmuls; from t = 9 it makes a second pass over the weights, and at
-# t = 12 the tensor-core body is faster at every site.
+# matmuls; from t = 9 it makes a second pass over the weights.
 T_MMA = 9
-# The tensor-core body's block, shared with the Q80 kernel's (``q8``
-# re-exports these): output columns and rows of n a step (kMmaBN, kMmaBK in
-# csrc/mma_common.cuh), and the blocks an SM holds at each tile height
-# (MmaShape::MinBlocks: 256 threads up to 64 rows, 512 at 128).
+# The tensor-core body's block (csrc/q40_matmul.cu kWgBN, kWgBK, WgShape):
+# output columns and rows of n a step, the tile heights (rows of x a
+# block), each height's copy-ring stages and dynamic shared memory (one
+# block an SM at every height: 288 threads of up to 168 registers).  Q80's
+# body keeps its own (ops/q8.py).
 MMA_BN = 128
 MMA_BK = 64
-MMA_BLOCKS_PER_SM = {16: 2, 32: 2, 64: 2, 128: 1}
-MMA_BMS = tuple(MMA_BLOCKS_PER_SM)
+MMA_BMS = (32, 128)
+MMA_STAGES = {32: 8, 128: 8}
+MMA_SMEM = {bm: MMA_STAGES[bm] * (bm * MMA_BK * 2 + MMA_BK // 2 * MMA_BN + 4 * MMA_BN + 16)
+            + 3 * 2 * bm * 4 + 1024 for bm in MMA_BMS}
+# The plan's cost model, from chip_smoke-style timings of other grids
+# (chip_ab_q40.py --plans, H100 80GB HBM3): a block's 64-row step takes
+# about MMA_STEP_US[bm] microseconds whatever the shape, and the f32 split
+# scratch is written, read and its sum written at about MMA_SCRATCH_RATE
+# bytes a microsecond.
+MMA_STEP_US = {32: 0.47, 128: 0.61}
+MMA_SCRATCH_RATE = 3.0e6
+# at most this many waves of split blocks
+MMA_MAX_WAVES = 4
+
+
+class MmaPlan(NamedTuple):
+    """The tensor-core body's grid: tile height ``bm`` and width ``bn``,
+    ``splits`` ranges of n of ``steps_per`` 64-row steps each."""
+
+    bm: int
+    bn: int
+    splits: int
+    steps_per: int
 
 
 def route(t: int) -> str:
@@ -725,21 +747,43 @@ def route(t: int) -> str:
     return "mma" if t >= T_MMA else "gemv"
 
 
-def mma_plan(t: int, n: int, d: int, n_sms: int) -> tuple[int, int, int]:
-    """The tensor-core body's grid (Q40 and Q80): returns ``(bm, splits,
-    steps_per)``.  ``bm`` is the least tile height in ``MMA_BMS`` that
-    covers ``t``, else the tallest (a weight is dequantized once per ``bm``
-    rows of x); the ``ceil(t/bm)·ceil(d/128)`` output tiles take just enough
-    split-K over the ``ceil(n/64)`` steps of n to fill one wave of the SMs'
-    blocks (``MMA_BLOCKS_PER_SM[bm]`` each), each split ``steps_per`` steps
-    and none empty.  The f32 scratch is ``splits·t·d`` floats, at most one
-    wave of output tiles (Llama-2-7B's wo at t = 128: 4 splits, 8 MB)."""
-    bm = next((b for b in MMA_BMS if b >= t), MMA_BMS[-1])
+def mma_plan(t: int, n: int, d: int, n_sms: int) -> MmaPlan:
+    """The Q40 tensor-core body's grid (every variant alike).  ``bm`` is 32
+    up to 32 rows, else 128; the ``ceil(t/bm)·ceil(d/128)`` output tiles
+    take the split-K over the ``ceil(n/64)`` steps of n, each split
+    ``steps_per`` steps and none empty, that the cost model puts first:
+    the waves of blocks on
+    ``n_sms`` SMs times a split's steps at ``MMA_STEP_US[bm]``, plus the
+    split scratch's traffic (``splits·t·d`` f32 written and read, the sum
+    written) at ``MMA_SCRATCH_RATE``; at most ``MMA_MAX_WAVES`` waves, and
+    the fewest splits on a tie."""
+    bm = 32 if t <= 32 else 128
     tiles = -(-t // bm) * -(-d // MMA_BN)
     steps = -(-n // MMA_BK)
-    want = max(1, min(steps, MMA_BLOCKS_PER_SM[bm] * n_sms // tiles))
-    per = -(-steps // want)
-    return bm, -(-steps // per), per
+    best = None
+    for splits in range(1, steps + 1):
+        per = -(-steps // splits)
+        if -(-steps // per) != splits:
+            continue
+        if splits > 1 and tiles * splits > MMA_MAX_WAVES * n_sms:
+            break
+        waves = -(-tiles * splits // n_sms)
+        us = waves * per * MMA_STEP_US[bm]
+        if splits > 1:
+            us += (2 * splits + 1) * t * d * 4 / MMA_SCRATCH_RATE
+        if best is None or us < best[0]:
+            best = (us, MmaPlan(bm, MMA_BN, splits, per))
+    return best[1]
+
+
+def mma_tma(row_bytes: int, vptr: int, sptr: int, blocked: bool) -> bool:
+    """Can the tensor-core body read a plane's weights by TMA boxes?  Value
+    rows ``row_bytes`` apart (d, or kernel 3's td; scale rows twice that)
+    and both pointers on 16 bytes, and blocked, a td that the 128-column
+    tile divides (a box never crosses a column tile).  Else the producer
+    warp copies them (:func:`_copy_width`)."""
+    return (row_bytes % 16 == 0 and vptr % 16 == 0 and sptr % 16 == 0
+            and (not blocked or row_bytes % MMA_BN == 0))
 
 
 def _copy_width(row_bytes: int, ptr: int) -> int:
@@ -805,7 +849,8 @@ def q40_matmul(x2: torch.Tensor, qpacked: torch.Tensor, scales: torch.Tensor,
     t = x2.shape[0]
     variant = check_variant(variant) if variant else variant_for(t)
     out = launch("q40_matmul_mma" if mma else "q40_matmul", x2, qpacked, scales, n, layer,
-                 torch.uint8, 2, mma, tail=(VARIANTS.index(variant),))
+                 torch.uint8, 2, _launch_wgmma if mma else None,
+                 tail=(VARIANTS.index(variant),))
     key = ("mma", n, out.shape[1]) if mma else (n, out.shape[1])
     with COUNT_LOCK:
         kernel_launches += 1
@@ -868,7 +913,7 @@ def q40_blocked_matmul(x2: torch.Tensor, qpacked: torch.Tensor, scales: torch.Te
     else:
         idx, n_planes = plane_index(qpacked, layer, dev, fn, plane_dims=4)
     if body == "mma":
-        out = _launch_mma(fn, x2, qpacked, scales, idx, n, np_, d, n_planes, td, bn, td, nJ)
+        out = _launch_wgmma(fn, x2, qpacked, scales, idx, n, np_, d, n_planes, td, bn, td, nJ)
     else:
         out = _launch_gemv(fn, x2, qpacked, scales, idx, n, np_, d, n_planes, 2, td,
                            bn, td, nJ)
@@ -904,13 +949,15 @@ def _check_operands(fn: str, x2: torch.Tensor, values: torch.Tensor,
 
 def launch(fn: str, x2: torch.Tensor, values: torch.Tensor, scales: torch.Tensor,
            n: int, layer, value_dtype: torch.dtype, per_byte: int,
-           mma: bool = False, tail: tuple = ()) -> torch.Tensor:
+           mma=None, tail: tuple = ()) -> torch.Tensor:
     """Check the operands of the Q40 or Q80 kernel over row-major planes (C
     entry point ``fn``, values of ``value_dtype`` holding ``per_byte``
     weights a byte: 2 for Q40's nibbles, 1 for Q80's int8) and launch its
-    GEMV body, or with ``mma`` its tensor-core body, on the current stream;
-    ``tail`` ints follow the entry point's own (the Q40 variant's index in
-    :data:`VARIANTS`).  Returns the f32 ``(t, d)`` output."""
+    GEMV body, or with ``mma`` (the codec's tensor-core launcher:
+    :func:`_launch_wgmma`, or Q80's ``q8._launch_mma``) its tensor-core
+    body, on the current stream; ``tail`` ints follow the entry point's own
+    (the Q40 variant's index in :data:`VARIANTS`).  Returns the f32 ``(t,
+    d)`` output."""
     dev = _check_operands(fn, x2, values, scales, n, value_dtype)
     idx, n_planes = plane_index(values, layer, dev, fn)
     np_ = values.shape[-2] * per_byte
@@ -921,7 +968,7 @@ def launch(fn: str, x2: torch.Tensor, values: torch.Tensor, scales: torch.Tensor
              f"scales shape {tuple(scales.shape)} does not match values "
              f"{tuple(values.shape)}", fn)
     if mma:
-        return _launch_mma(fn, x2, values, scales, idx, n, np_, d, n_planes, d, tail=tail)
+        return mma(fn, x2, values, scales, idx, n, np_, d, n_planes, d, tail=tail)
     return _launch_gemv(fn, x2, values, scales, idx, n, np_, d, n_planes, per_byte, d,
                         tail=tail)
 
@@ -960,42 +1007,56 @@ def _launch_gemv(fn: str, x2: torch.Tensor, values: torch.Tensor, scales: torch.
     return out
 
 
-def _launch_mma(fn: str, x2: torch.Tensor, values: torch.Tensor, scales: torch.Tensor,
-                idx: torch.Tensor, n: int, np_: int, d: int, n_planes: int,
-                row_bytes: int, *layout: int, tail: tuple = ()) -> torch.Tensor:
-    """Call tensor-core entry point ``fn`` (the Q40 or Q80 kernel's) on
-    checked operands with :func:`mma_plan`; value rows start ``row_bytes``
-    apart (d row-major, td blocked) and scale rows ``2·row_bytes``, which
-    sets the copy widths; ``layout`` ints follow them (kernel 3's tile
-    shape), then ``tail`` ints (:func:`launch`).  Returns the f32 ``(t, d)``
-    output; raises on a blocked tile the body cannot copy and on a launch
-    error."""
+def _launch_wgmma(fn: str, x2: torch.Tensor, values: torch.Tensor, scales: torch.Tensor,
+                  idx: torch.Tensor, n: int, np_: int, d: int, n_planes: int,
+                  row_bytes: int, *layout: int, tail: tuple = ()) -> torch.Tensor:
+    """Call the Q40 tensor-core entry point ``fn`` (kernels 1-2, or kernel
+    3 with its tile shape in ``layout``) on checked operands with
+    :func:`mma_plan`; value rows start ``row_bytes`` apart (d row-major, td
+    blocked), which decides whether the weights go by TMA
+    (:func:`mma_tma`) or by the producer's copies of the widths
+    :func:`_copy_width` allows; ``tail`` holds the variant's index.
+    Returns the f32 ``(t, d)`` output; raises on a blocked tile the body
+    cannot copy and on a launch error."""
     from . import _build
     lib = _build.load()
     dev, t = x2.device, x2.shape[0]
     xb = x2.to(torch.bfloat16).contiguous()
-    if xb.data_ptr() % 16:  # cp.async reads x in 16-byte pieces
+    if xb.data_ptr() % 16:  # the x tiles are TMA boxes
         xb = xb.clone()
+    tma = mma_tma(row_bytes, values.data_ptr(), scales.data_ptr(), bool(layout))
     w_al = _copy_width(row_bytes, values.data_ptr())
     s_al = _copy_width(2 * row_bytes, scales.data_ptr())
-    _require(not layout or (w_al and s_al),
-             f"tiles of {row_bytes} columns: no cp.async width divides them", fn)
-    bm, splits, per = mma_plan(t, n, d, _sm_count(dev))
+    _require(not layout or tma or (w_al and s_al),
+             f"tiles of {row_bytes} columns: no copy width divides them", fn)
+    plan = mma_plan(t, n, d, _sm_count(dev))
     out = torch.empty((t, d), dtype=torch.float32, device=dev)
-    scratch = (torch.empty((splits, t, d), dtype=torch.float32, device=dev)
-               if splits > 1 else out)
+    scratch = (torch.empty((plan.splits, t, d), dtype=torch.float32, device=dev)
+               if plan.splits > 1 else out)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         rc = getattr(lib, fn)(xb.data_ptr(), values.data_ptr(), scales.data_ptr(),
                               out.data_ptr(), scratch.data_ptr(), idx.data_ptr(),
-                              t, n, np_, d, n_planes, bm, splits, per, w_al, s_al, *layout,
-                              *tail, stream)
+                              t, n, np_, d, n_planes, plan.bm, plan.splits, plan.steps_per,
+                              int(tma), w_al, s_al, *layout, *tail, stream)
     if rc != 0:
         raise RuntimeError(f"{fn} launch failed: CUDA error {rc} "
                            f"({lib.q40_error_string(rc).decode()}) at t={t} n={n} d={d} "
-                           f"bm={bm} splits={splits}x{per} copies={w_al}/{s_al} "
-                           f"layout={layout} tail={tail}")
+                           f"{plan} tma={tma} copies={w_al}/{s_al} layout={layout} "
+                           f"tail={tail}")
     return out
+
+
+def mma_layout(bm: int) -> dict:
+    """The tensor-core body's block at tile height ``bm`` as the build
+    reports it (``q40_mma_layout``): threads, dynamic shared memory, ring
+    stages."""
+    from . import _build
+    out = (ctypes.c_int * 3)()
+    rc = _build.load().q40_mma_layout(bm, out)
+    if rc != 0:
+        raise ValueError(f"q40_mma_layout: no tile of {bm} rows")
+    return dict(zip(("threads", "smem", "stages"), out))
 
 
 # ---------------------------------------------------------------------------
@@ -1162,12 +1223,14 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.q40_matmul_blocked.argtypes = [vp] * 7 + [ci] * 11 + [vp]
     lib.q40_matmul_blocked.restype = ci
     # the tensor-core body: a scratch pointer before the plane index, the
-    # plan (bm, splits, steps) and the copy widths, then the variant (kernels
-    # 1-2) or kernel 3's tile shape
-    lib.q40_matmul_mma.argtypes = [vp] * 6 + [ci] * 11 + [vp]
+    # plan (bm, splits, steps), TMA or not and the copy widths, then the
+    # variant (kernels 1-2) or kernel 3's tile shape
+    lib.q40_matmul_mma.argtypes = [vp] * 6 + [ci] * 12 + [vp]
     lib.q40_matmul_mma.restype = ci
-    lib.q40_matmul_blocked_mma.argtypes = [vp] * 6 + [ci] * 13 + [vp]
+    lib.q40_matmul_blocked_mma.argtypes = [vp] * 6 + [ci] * 14 + [vp]
     lib.q40_matmul_blocked_mma.restype = ci
+    lib.q40_mma_layout.argtypes = [ci, ctypes.POINTER(ci)]
+    lib.q40_mma_layout.restype = ci
     # kernel 4: host arrays of the tp input and output pointers
     lib.tp_allreduce.argtypes = [ctypes.POINTER(vp), ctypes.POINTER(vp)] + [ci] * 6 + [vp]
     lib.tp_allreduce.restype = ci

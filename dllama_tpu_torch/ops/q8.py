@@ -44,8 +44,7 @@ import torch
 
 from .. import quants
 from . import COUNT_LOCK
-from .q40 import (MMA_BK, MMA_BLOCKS_PER_SM, MMA_BMS, MMA_BN,  # noqa: F401 (re-exported)
-                  _planes, dispatch, gemv_plan, launch, mma_plan, padded_n)
+from .q40 import _copy_width, _planes, _sm_count, dispatch, gemv_plan, launch, padded_n
 
 kernel_launches = 0
 mma_launches = 0
@@ -60,9 +59,63 @@ launches_by_shape: dict[tuple, int] = {}
 # t = 9 it makes a second pass, and at t = 12 the tensor-core body wins at
 # every site (PERF.md).
 T_MMA = 9
-# The tensor-core body's block and plan (MMA_BN, MMA_BK, MMA_BLOCKS_PER_SM,
-# MMA_BMS, mma_plan) and the decode body's plan (gemv_plan) are the Q40
-# kernel's, imported above.
+# The tensor-core body's block (csrc/mma_common.cuh kMmaBN, kMmaBK,
+# MmaShape): output columns and rows of n a step, and the blocks an SM
+# holds at each tile height (256 threads up to 64 rows, 512 at 128).  The
+# decode body's plan (gemv_plan) is the Q40 kernel's, imported above.
+MMA_BN = 128
+MMA_BK = 64
+MMA_BLOCKS_PER_SM = {16: 2, 32: 2, 64: 2, 128: 1}
+MMA_BMS = tuple(MMA_BLOCKS_PER_SM)
+
+
+def mma_plan(t: int, n: int, d: int, n_sms: int) -> tuple[int, int, int]:
+    """The tensor-core body's grid: returns ``(bm, splits, steps_per)``.
+    ``bm`` is the least tile height in ``MMA_BMS`` that covers ``t``, else
+    the tallest (a weight is dequantized once per ``bm`` rows of x); the
+    ``ceil(t/bm)·ceil(d/128)`` output tiles take just enough split-K over
+    the ``ceil(n/64)`` steps of n to fill one wave of the SMs' blocks
+    (``MMA_BLOCKS_PER_SM[bm]`` each), each split ``steps_per`` steps and
+    none empty.  The f32 scratch is ``splits·t·d`` floats, at most one wave
+    of output tiles (Llama-2-7B's wo at t = 128: 4 splits, 8 MB)."""
+    bm = next((b for b in MMA_BMS if b >= t), MMA_BMS[-1])
+    tiles = -(-t // bm) * -(-d // MMA_BN)
+    steps = -(-n // MMA_BK)
+    want = max(1, min(steps, MMA_BLOCKS_PER_SM[bm] * n_sms // tiles))
+    per = -(-steps // want)
+    return bm, -(-steps // per), per
+
+
+def _launch_mma(fn: str, x2: torch.Tensor, values: torch.Tensor, scales: torch.Tensor,
+                idx: torch.Tensor, n: int, np_: int, d: int, n_planes: int,
+                row_bytes: int, tail: tuple = ()) -> torch.Tensor:
+    """Call the tensor-core entry point ``fn`` on checked operands with
+    :func:`mma_plan`; value rows start ``row_bytes`` apart and scale rows
+    ``2·row_bytes``, which sets the cp.async copy widths.  Returns the f32
+    ``(t, d)`` output; raises on a launch error."""
+    from . import _build
+    lib = _build.load()
+    dev, t = x2.device, x2.shape[0]
+    xb = x2.to(torch.bfloat16).contiguous()
+    if xb.data_ptr() % 16:  # cp.async reads x in 16-byte pieces
+        xb = xb.clone()
+    w_al = _copy_width(row_bytes, values.data_ptr())
+    s_al = _copy_width(2 * row_bytes, scales.data_ptr())
+    bm, splits, per = mma_plan(t, n, d, _sm_count(dev))
+    out = torch.empty((t, d), dtype=torch.float32, device=dev)
+    scratch = (torch.empty((splits, t, d), dtype=torch.float32, device=dev)
+               if splits > 1 else out)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        rc = getattr(lib, fn)(xb.data_ptr(), values.data_ptr(), scales.data_ptr(),
+                              out.data_ptr(), scratch.data_ptr(), idx.data_ptr(),
+                              t, n, np_, d, n_planes, bm, splits, per, w_al, s_al, *tail,
+                              stream)
+    if rc != 0:
+        raise RuntimeError(f"{fn} launch failed: CUDA error {rc} "
+                           f"({lib.q40_error_string(rc).decode()}) at t={t} n={n} d={d} "
+                           f"bm={bm} splits={splits}x{per} copies={w_al}/{s_al}")
+    return out
 
 
 def reset_counters() -> None:
@@ -246,7 +299,8 @@ def q8_matmul(x2: torch.Tensor, qvals: torch.Tensor, scales: torch.Tensor,
         out = launch("q8_matmul", x2, qvals, scales, n, layer, torch.int8, 1)
         key = (n, out.shape[1])
     elif body == "mma":
-        out = launch("q8_matmul_mma", x2, qvals, scales, n, layer, torch.int8, 1, mma=True)
+        out = launch("q8_matmul_mma", x2, qvals, scales, n, layer, torch.int8, 1,
+                     mma=_launch_mma)
         key = ("mma", n, out.shape[1])
     else:
         raise ValueError(f"q8_matmul: unknown body {body!r}")

@@ -172,6 +172,7 @@ def test_bind_declares_pointer_arguments():
         q40_matmul_blocked = _Fn()
         q40_matmul_mma = _Fn()
         q40_matmul_blocked_mma = _Fn()
+        q40_mma_layout = _Fn()
         q40_error_string = _Fn()
         tp_allreduce = _Fn()
         tp_enable_peer = _Fn()
