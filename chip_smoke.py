@@ -37,11 +37,13 @@ Phases (each prints its seconds; any failure exits non-zero):
    and torch.matmul on the dequantized weight.
 3. the main path at full width: a Llama-2-7B-shaped Q40 model synthesized
    from a seed (random nibbles, constant f16 scale 0.008; no weights needed),
-   ``inference --temperature 0 --steps 64 --chunk 16 --warmup 16`` on cuda
-   through the CLI entry point, every decode step a replay of its captured
-   CUDA graph; the Q40 counters must show exactly 4 * 32 + 1 = 129 kernel
-   launches per forward and no plain call, a single-token forward's 129 all
-   on the GEMV body (the 16-row prompt bucket's on the tensor-core body).
+   cut to 8 layers (CUT_LAYERS; 32 until the Q80 Hopper slice, which cut
+   phases 3, 7, 20 and 23a for the script's time), ``inference
+   --temperature 0 --steps 64 --chunk 16 --warmup 16`` on cuda through the
+   CLI entry point, every decode step a replay of its captured CUDA graph;
+   the Q40 counters must show exactly 4 * 8 + 1 = 33 kernel launches per
+   forward and no plain call, a single-token forward's 33 all on the GEMV
+   body (the 16-row prompt bucket's on the tensor-core body).
    Then torch.profiler over 8 decode steps (graph replays): device busy
    time per token, the idle share, and the kernels that take the time; then
    one greedy stream with the engine's graphs on and off: the same tokens
@@ -49,8 +51,9 @@ Phases (each prints its seconds; any failure exits non-zero):
    10, 11 and 14 do the same.
 3v. the dequant variants on the main path, each in a child process with
    ``DLLAMA_Q40_VARIANT`` set (read when ``ops.q40`` is imported):
-   ``exact`` on phase 3's file (7B width and depth), ``folded`` and ``fma``
-   on the 8-layer file of phases 14, 17 and 23b, each as phase 3 (every
+   ``exact``, ``folded`` and ``fma`` on the 2-layer file of phases 4 and 5
+   (8 layers, ``exact`` 32, until the Q80 Hopper slice cut them for the
+   script's time), each as phase 3 (every
    Q40 launch under the variant, 4 L + 1 a forward, 0 plain; a
    single-token forward on the decode body, the 16-row prompt bucket on
    the tensor-core body; ms/token, the profile, graphs on and off, a greedy
@@ -138,14 +141,18 @@ Phases (each prints its seconds; any failure exits non-zero):
    agreement where the margin is decisive; the kernels' steps with the
    engine's graphs on and off give the same logits bit for bit.  Then
    contiguous slot rows (no pool) the same way, graphs on against off.
-9. the Q80 kernel against its plain version as in phase 2, at t in {1, 4,
-   8, 12, 16, 24, 32, 128}, both of its bodies (the decode and the tensor-core body:
-   the crossover that sets q8.T_MMA) checked and timed, the routed one
-   reported: the five 7B sites, Mixtral's wqkv and experts (up/gate
+9. the Q80 kernel against its plain version as in phase 2, after its
+   tensor-core body's build report (the ``wgmma_matmul<Q8, ...>``
+   instantiations' registers and spills, any wgmma serialized, the block
+   at each tile height against ``q8.MMA_SMEM``/``MMA_STAGES``), at t in
+   {1, 4, 5, 8, 12, 16, 24, 32, 128}, both of its bodies (the decode and the
+   tensor-core body: the crossover that sets q8.T_MMA) checked and timed,
+   the routed one reported: the five 7B sites, Mixtral's wqkv and experts (up/gate
    4096->14336, down 14336->4096) in an (MIXTRAL_LAYERS, 8 experts) stack
    at flat indices 0 and its last, Grok-1's experts (6144->32768, 32768->6144) in a
    (2, 8) stack, a rank's 7B sites at tp = 2, and a ragged shape (n = 4128,
-   n/32 odd; d = 1000; t = 17) for the tensor-core body's masks; the
+   n/32 odd; d = 1000; t = 9 and 17, the 16- and the 32-row tile) for the
+   tensor-core body's masks and the producer's copies; the
    expert planes addressed by an int32 index on the card.  Then the Q40
    kernel at Mixtral's shapes through the same device index, both bodies,
    t in {1, 8, 16, 128}.
@@ -154,7 +161,9 @@ Phases (each prints its seconds; any failure exits non-zero):
    prefill runs at t = 128); the Q80 counters show exactly 4 * 8 + 1 = 33
    kernel launches a forward, no plain call, and the prompt forward's 32
    matmuls on the tensor-core body; the profiler split and the peak
-   memory.
+   memory; then torch.profiler over one 84-token prompt forward (device
+   busy ms, the Q80 tensor-core body's ms and share) and a greedy decode
+   twice, token for token.
 11. Mixtral-8x7B (mistralai/Mixtral-8x7B-v0.1's published shape) in Q40,
    cut to 4 of its 32 layers (MIXTRAL_LAYERS; 8 until the dequant-variant
    slice), context cut to 4096: ``inference`` as in phase 3 with exactly
@@ -230,7 +239,7 @@ Phases (each prints its seconds; any failure exits non-zero):
    and 1): the kernel path against the plain path (plain matmuls and
    kernel 4's plain version) end to end, batch-1 and slot paths, as
    phases 5, 8 and 12.
-20. the OpenAI surface at Llama-2-7B width and depth: phase 3's file
+20. the OpenAI surface at Llama-2-7B width (8 layers): phase 3's file
    served with ``--batch-slots 8 --kv-pages 0`` (the lockstep engine):
    a list of 8 greedy prompts twice (the same bytes), chat ``n = 4`` at
    temperature 0.8 seed 1 twice (four choices, their usage, the same
@@ -322,7 +331,7 @@ Phases (each prints its seconds; any failure exits non-zero):
 23. the fleet (``router/``, ``runtime/faults.py``, ``io/integrity.py``, the
    engine's step watchdog and numeric guard).  23a ``serve-pod --dp 2
    --device cuda:0 --batch-slots 8 --kv-pages 513 --handoff`` in this
-   process at Llama-2-7B width and depth (phase 3's file read once, the two
+   process at Llama-2-7B width, 8 layers (phase 3's file read once, the two
    replicas sharing its weights): phase 7's 16 greedy requests one at a
    time through the router, each byte for byte the same request straight to
    replica 1; TTFT of 8 short streams through the router and straight; the
@@ -404,6 +413,8 @@ MIXTRAL_LAYERS = 4
 MIXTRAL_CTX = "4096"
 SRC = "dllama_tpu_torch/ops/csrc/q40_matmul.cu"
 Q8_SRC = "dllama_tpu_torch/ops/csrc/q8_matmul.cu"
+# the tensor-core body of both codecs (a template each .cu instantiates)
+WG_SRC = "dllama_tpu_torch/ops/csrc/wgmma_matmul.cuh"
 # the TPU kernels replaced: (2-D plane, stacked planes)
 Q40_REPLACES = ("dllama_tpu/ops/q40.py:330", "dllama_tpu/ops/q40.py:449")
 Q8_REPLACES = ("dllama_tpu/ops/q8.py:192", "dllama_tpu/ops/q8.py:220")
@@ -431,6 +442,8 @@ ROWS = (1, 16, 128)
 CROSS_ROWS = (1, 4, 8, 12, 16, 24, 32, 128)
 # Q40's 7B sites (phase 2) also run t = 2 and 5
 Q40_CROSS_ROWS = (1, 2, 4, 5, 8, 12, 16, 24, 32, 128)
+# Q80's (phase 9) t = 5, its tensor-core body's narrowest call (q8.T_MMA)
+Q8_CROSS_ROWS = (1, 4, 5, 8, 12, 16, 24, 32, 128)
 RAGGED = [("ragged", 4128, 1000, (STACK_L,))]
 RAGGED_ROWS = (17,)
 # Q40 at Mixtral's shapes (phase 9b) adds t = 8, the 8-slot step's experts
@@ -452,6 +465,7 @@ SCORE_B, SCORE_T = 8, 512
 WCLS_WIDE = (512, SCORE_B * SCORE_T)
 # phase 10's prompt: 84 tokens of the synthesized tokenizer, a t = 128 prefill
 Q8_PROMPT = "Once upon a time the capital of France is" * 2
+Q8_PROMPT_TOKENS = 84
 # kernel 3 (phase 13): the 7B sites in the default tiles, then two narrow
 # shapes whose column tiles cut through a 512-column thread block: d = 320
 # (td clamped to 384, one partial tile) and d = 1000 in tiles (256, 384);
@@ -983,11 +997,20 @@ def main_path(cli, codec, m: str, t: str, want, extra: tuple = (),
 
 def matmul_kernel(name: str, codec_name: str) -> bool:
     """Is profiler kernel ``name`` one of the ``codec_name`` (q40 or q8)
-    kernel's: its tensor-core body and split reduce (``q40_...``), or its
-    decode body (``gemv_kernel<(anonymous namespace)::Q4V<v>, ...>``, v the
-    dequant variant; Q80's ``...::Q8, ...``)?"""
-    codec_tag = {"q40": "::Q4V<", "q8": "::Q8,"}[codec_name]
-    return f"{codec_name}_" in name or codec_tag in name
+    kernel's: its decode body (``gemv_kernel<(anonymous namespace)::Q4V<v>,
+    ...>``, v the dequant variant; Q80's ``...::Q8, ...``), its tensor-core
+    body (``wgmma_matmul<...::Q4V<v>, ...>``, ``wgmma_matmul<...::Q8,
+    ...>``) and split reduce (``reduce_splits<...::Q4V<0> >``,
+    ``reduce_splits<...::Q8>``), or a kernel named ``q40_...``/``q8_...``
+    (an older tree's tensor-core body)?"""
+    codec_tags = {"q40": ("::Q4V<",), "q8": ("::Q8,", "::Q8>")}[codec_name]
+    return f"{codec_name}_" in name or any(tag in name for tag in codec_tags)
+
+
+def tensor_core_kernel(name: str, codec_name: str) -> bool:
+    """Is profiler kernel ``name`` the ``codec_name`` kernel's tensor-core
+    body or its split reduce (any of its kernels but the decode body)?"""
+    return matmul_kernel(name, codec_name) and "gemv_kernel" not in name
 
 
 def device_rows(fn, n: int) -> list:
@@ -1083,6 +1106,38 @@ def profile_decode(engine, ms_token: float | None, codec, steps: int = 8,
     return dict(busy_ms=busy, idle=1 - busy / ms_token, ms=ms_token)
 
 
+def prompt_profile(engine, codec, n_tokens: int) -> dict:
+    """Phase 10: where a prompt forward's time goes.  torch.profiler over one
+    ``Engine.prefill`` of ``n_tokens`` tokens (padded to its bucket; eager,
+    after one unprofiled prefill), on a reset engine: device busy ms, the
+    ``codec`` kernel's tensor-core body (and its split reduce) and its
+    share, and the kernels that take the time.  Returns the numbers (None:
+    not measured)."""
+    ids = np.random.RandomState(6).randint(3, engine.cfg.vocab_size, n_tokens).tolist()
+
+    def run():
+        engine.reset()
+        engine.prefill(ids)
+        torch.cuda.synchronize()
+
+    run()
+    codec.reset_counters()
+    rows = device_rows(run, 1)
+    c = codec.counters()
+    kname = codec.__name__.rsplit(".", 1)[1]
+    if not rows:
+        print("prompt-forward profile: the profiler recorded no device time (not measured)")
+        return dict(prompt_busy_ms=None, prompt_tc_ms=None)
+    busy = sum(r[0] for r in rows)
+    tc = sum(r[0] for r in rows if tensor_core_kernel(r[2], kname))
+    print(f"prompt forward ({n_tokens} tokens, one prefill): device busy {busy:.3f} ms; the "
+          f"{kname} tensor-core body {tc:.3f} ms ({tc / busy:.3f} of busy), "
+          f"{c['mma_launches']} of {c['kernel_launches']} {kname} launches on it")
+    for ms_, n, name in sorted(rows, reverse=True)[:8]:
+        print(f"  {ms_:8.4f} ms {n:5d}x  {name[:90]}")
+    return dict(prompt_busy_ms=busy, prompt_tc_ms=tc)
+
+
 def graphs_ab(engine, codec, key: str, steps: int = 48) -> dict:
     """Phases 3, 10, 11 and 14: one greedy stream on the main path's engine
     with its decode graphs on, then off (every step eager) on the same
@@ -1121,7 +1176,7 @@ def graphs_ab(engine, codec, key: str, steps: int = 48) -> dict:
 
 
 def greedy_repeat(engine, steps: int = 24) -> None:
-    """Phase 3: the same greedy decode twice from position 0 (a 16-row
+    """Phases 3 and 10: the same greedy decode twice from position 0 (a 16-row
     prompt forward, then single-token forwards on the decode body) gives
     the same tokens."""
     prompt = np.random.RandomState(3).randint(3, LLAMA2_7B["vocab_size"], 5).tolist()
@@ -1454,13 +1509,16 @@ def prefill_bound(pos, t: int, hkv: int, dh: int, hq: int, kv_bytes: float,
     return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
 
 
-def build_report(tag: str, what: str) -> None:
-    """The instantiations of kernels whose mangled name holds ``tag``, from
-    this process's nvcc run (``-Xptxas -v``): registers, spills and shared
+def build_report(tag, what: str) -> None:
+    """The instantiations of kernels whose mangled name holds ``tag`` (a
+    string, or a tuple of strings that must all be there), from this
+    process's nvcc run (``-Xptxas -v``): registers, spills and shared
     memory of each (``what`` names them)."""
     from dllama_tpu_torch.ops import _build
+    tags = (tag,) if isinstance(tag, str) else tag
     lines = _build.build_log.splitlines()
-    hits = [i for i, ln in enumerate(lines) if "Compiling entry function" in ln and tag in ln]
+    hits = [i for i, ln in enumerate(lines)
+            if "Compiling entry function" in ln and all(t in ln for t in tags)]
     if not hits:
         print(f"{what} build report: the library was built before this process")
     for i in hits:
@@ -1476,22 +1534,28 @@ def prefill_build_report() -> None:
     build_report("prefill", "prefill kernel")
 
 
-def q40_body_report(q40) -> None:
-    """Phase 2's head: the Q40 tensor-core body's instantiations from the
-    build (registers and spills of each, and any wgmma the assembler
-    serialized), and its block at each tile height as the build reports it
-    against the plan's numbers (ops/q40.py MMA_SMEM, MMA_STAGES)."""
+def body_report(codec) -> None:
+    """Phases 2 and 9's head: the tensor-core body's instantiations for
+    ``codec`` (q40 or q8: ``wgmma_matmul<Q4V<v>, ...>`` or ``<Q8, ...>``)
+    from the build (registers and spills of each, and any wgmma the
+    assembler serialized), and its block at each tile height as the build
+    reports it against the plan's numbers (the codec's MMA_SMEM,
+    MMA_STAGES)."""
     from dllama_tpu_torch.ops import _build
-    build_report("q40_matmul_wgmma", "Q40 tensor-core body")
+    is_q8 = codec.__name__.endswith(".q8")
+    tags = ("wgmma_matmul", "2Q8E" if is_q8 else "Q4V")
+    what = "Q80 tensor-core body" if is_q8 else "Q40 tensor-core body"
+    build_report(tags, what)
     serial = [ln for ln in _build.build_log.splitlines() if "wgmma" in ln and "serializ" in ln]
-    print(f"wgmma serialized by ptxas: {len(serial)} warning(s)" +
-          "".join(f"\n  {ln.strip()}" for ln in serial))
-    for bm in q40.MMA_BMS:
-        lay = q40.mma_layout(bm)
-        print(f"tensor-core block, bm = {bm}: {lay}")
-        if lay["smem"] != q40.MMA_SMEM[bm] or lay["stages"] != q40.MMA_STAGES[bm]:
+    mine = [ln for ln in serial if all(t in ln for t in tags)]
+    print(f"wgmma serialized by ptxas: {len(mine)} warning(s) in the {what}, {len(serial)} in "
+          f"the build" + "".join(f"\n  {ln.strip()}" for ln in serial))
+    for bm in codec.MMA_BMS:
+        lay = codec.mma_layout(bm)
+        print(f"{what} block, bm = {bm}: {lay}")
+        if lay["smem"] != codec.MMA_SMEM[bm] or lay["stages"] != codec.MMA_STAGES[bm]:
             raise AssertionError(f"bm = {bm}: the build's block {lay} is not the plan's "
-                                 f"(smem {q40.MMA_SMEM[bm]}, stages {q40.MMA_STAGES[bm]})")
+                                 f"(smem {codec.MMA_SMEM[bm]}, stages {codec.MMA_STAGES[bm]})")
 
 
 def _prefill_rows_agree(attention, args, tol: float, label: str, pos_np):
@@ -2258,7 +2322,7 @@ def scoring_forward(eng, q40, seed: int = 20) -> dict:
 
 
 def openai_surface(api, q40, m: str, t: str) -> dict:
-    """Phase 20: the API server at Llama-2-7B width and depth on contiguous
+    """Phase 20: the API server at Llama-2-7B width on contiguous
     slot rows (``--batch-slots 8 --kv-pages 0``): list prompts, chat
     ``n = 4``, ``logprobs`` with ``echo``, a streamed list prompt,
     ``/metrics`` in both formats and the ``/debug`` routes, with the Q40
@@ -3900,7 +3964,7 @@ def first_gap(eng, ids: list[int], want: list[int], got: list[int], label: str) 
 
 def pld_path(cli, q40, tok, m: str, t: str) -> tuple:
     """22a: ``inference --pld 4 --profile-split --profile-ops`` at Llama-2-7B
-    width and depth on a repetitive prompt (every Q40 matmul on its kernel,
+    width on a repetitive prompt (every Q40 matmul on its kernel,
     the windows replaying their captured graph), then on the same engine the
     PLD stream against plain greedy decode, each twice in turns after a
     warm pass: the same tokens (or a recorded near tie), ms/token both
@@ -4125,8 +4189,9 @@ def spec_and_gauges(api, cli, attention, q40, tfile, m: str, t: str) -> dict:
 FLEET_ARGS = ["--batch-slots", "8", "--kv-pages", "513", "--kv-page-size", "16",
               "--sched-prefill-chunk", "16", "--temperature", "0", "--max-pending", "64",
               "--handoff", "--host", "127.0.0.1", "--port", "0", "--probe-interval", "0.5"]
-# the depth of the cut 7B-width paths: phase 17 (tp = 2), phase 10 (Q80),
-# phase 14 (the blocked layout) and 23b's supervised children
+# the depth of the 7B-width paths: every one but the 2-layer checks (phase 3
+# and the ones that serve its file, 17 (tp = 2), 10 (Q80), 14 (the blocked
+# layout), 21, 22, 23)
 CUT_LAYERS = 8
 # 23b: the children's pod (7B width, CUT_LAYERS layers); 65-token prompts are
 # four whole pages plus one token, so once a child cached them a request
@@ -4196,8 +4261,8 @@ def _until(cond, timeout: float, what: str) -> float:
 
 
 def fleet_in_process(cli, pod_mod, obs_metrics, attention, q40, m: str, t: str):
-    """23a: ``serve-pod --dp 2 --device cuda:0`` at Llama-2-7B width and
-    depth, in this process (the file read once, the replicas sharing its
+    """23a: ``serve-pod --dp 2 --device cuda:0`` at Llama-2-7B width
+    (CUT_LAYERS), in this process (the file read once, the replicas sharing its
     weights).  Phase 7's requests one at a time through the router, each
     equal byte for byte to the same request straight to replica 1; 8 short
     streams each way for TTFT; then the 16 released together through the
@@ -4572,9 +4637,14 @@ def kernel_entries(run, run_tp, run_mix, run_blocked, run_q8, run_score, served,
     """The ``kernels`` JSON line's entries: each kernel at the shapes of the
     phase that checked it, with the launches of the main path that ran it;
     raises when a kernel of a path was never launched there."""
-    def entries(name, src, sites, counts):
-        return [dict(name=f"{name}[{site}]" if t == 1 else f"{name}[{site},t={t}]",
-                     route="cuda", source=src, replaces=r["replaces"],
+    def entries(name, src, sites, counts, mma_name=None):
+        # a tensor-core row's source is the body both codecs share
+        def label(r):
+            return mma_name if mma_name and r["key"][0] == "mma" else name
+        return [dict(name=f"{label(r)}[{site}]" if t == 1 else f"{label(r)}[{site},t={t}]",
+                     route="cuda",
+                     source=WG_SRC if r["key"][0] in ("mma", "blocked-mma") else src,
+                     replaces=r["replaces"],
                      launches=counts.get(r["key"], 0),
                      max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
                      bound_ms=r["bound_ms"], bound_by=r["bound_by"],
@@ -4601,8 +4671,7 @@ def kernel_entries(run, run_tp, run_mix, run_blocked, run_q8, run_score, served,
                         {})
     kernels += held_only
     # the fma, folded and exact bodies of kernels 1-2 (phase 2v) with the
-    # launches of their paths (phase 3v: exact at 7B depth, the others at
-    # CUT_LAYERS); wcls at 16 and 128 rows runs on no variant path (a
+    # launches of their paths (phase 3v, at CUT_LAYERS); wcls at 16 and 128 rows runs on no variant path (a
     # prompt's logits are its last row's)
     for v in VARIANTS:
         rows = {(s_, t_): r for (v_, s_, t_), r in var_table.items() if v_ == v}
@@ -4622,7 +4691,7 @@ def kernel_entries(run, run_tp, run_mix, run_blocked, run_q8, run_score, served,
                        {k: r for k, r in q8_table.items()
                         if k[0] in {s for s, *_ in LLAMA_SITES}
                         and not (k[0] == "wcls" and k[1] > 1)},
-                       run_q8["counts"]["launches_by_shape"])
+                       run_q8["counts"]["launches_by_shape"], mma_name="q8_matmul.wgmma")
     attn_rows = [(c, r, served[c]) for c, r in attn.items()]
     attn_rows.append(("bf16,G=4", attn_g4["bf16"], served["g4"]))
     kernels += [dict(name=f"paged_attention[{label}]", route="cuda", source=ATTN_SRC,
@@ -4699,7 +4768,7 @@ def main() -> int:
         print(_build.build_log.strip() or f"kernel library {_build.library_path()}")
     if run_phase(2):
         with phase("2 kernel vs plain at the 7B shapes"):
-            q40_body_report(q40)
+            body_report(q40)
             table = check_sites(q40, LLAMA_SITES, dev, seed=0, rows=Q40_CROSS_ROWS)
             table.update(check_sites(q40, LLAMA_SITES[-1:], dev, seed=4, rows=WCLS_WIDE,
                                      json_rows=WCLS_WIDE))
@@ -4718,10 +4787,11 @@ def main() -> int:
             blocked_table = check_blocked(q40, dev)
     if run_phase(9):
         with phase("9 Q80 kernel vs plain at the 7B, Mixtral and Grok-1 shapes"):
+            body_report(q8)
             q8_table = check_sites(q8, LLAMA_SITES + MIXTRAL_SITES + GROK_SITES, dev, seed=9,
-                                   rows=CROSS_ROWS)
-            check_sites(q8, TP2_SITES, dev, seed=11, pad=False, rows=CROSS_ROWS)
-            check_sites(q8, RAGGED, dev, seed=12, rows=RAGGED_ROWS)
+                                   rows=Q8_CROSS_ROWS)
+            check_sites(q8, TP2_SITES, dev, seed=11, pad=False, rows=Q8_CROSS_ROWS)
+            check_sites(q8, RAGGED, dev, seed=12, rows=(9,) + RAGGED_ROWS)
         with phase("9b Q40 kernel vs plain at Mixtral's shapes, experts by device index"):
             mix_table = check_sites(q40, MIXTRAL_SITES, dev, seed=10, rows=MIX_ROWS,
                                     json_rows=(1,))
@@ -4748,19 +4818,19 @@ def main() -> int:
         m, t, m2, m3, t3, m8 = (os.path.join(WORK, f) for f in (
             "llama2-7b.m", "32k.t", "l2.m", "l2-chat.m", "32k-chat.t", "l8.m"))
         synth_tokenizer(t, tfile)
-        per_fwd = 4 * LLAMA2_7B["n_layers"] + 1
-        if any(map(run_phase, (3, "3v", 7, 20, 23))):
-            synth_model(m, LLAMA2_7B["n_layers"], mfile, quants)
-            print(f"synthesized {os.path.getsize(m) / 1e9:.2f} GB")
-        if any(map(run_phase, (14, 17, 23, "3v", "3q", 21, 22, "6s"))):
+        # the Q40 7B-width file of every path but the 2-layer checks (the
+        # main path, serving, the OpenAI surface and the fleet ran at 32
+        # layers until the Q80 Hopper slice cut them for the script's time)
+        per_fwd = 4 * CUT_LAYERS + 1
+        if any(map(run_phase, (3, 7, 20, 23, 14, 17, "3q", 21, 22, "6s"))):
             synth_model(m8, CUT_LAYERS, mfile, quants)
             print(f"synthesized {os.path.getsize(m8) / 1e9:.2f} GB (7B width, "
                   f"{CUT_LAYERS} layers)")
         if any(map(run_phase, (4, 5, 8, 15, 18, "20b", "3v"))):
             synth_model(m2, 2, mfile, quants, fresh=True)
         if run_phase(3):
-            with phase("3 main path: inference at Llama-2-7B width"):
-                run, eng = main_path(cli, q40, m, t, lambda e: per_fwd * e.forwards,
+            with phase(f"3 main path: inference at Llama-2-7B width, {CUT_LAYERS} layers"):
+                run, eng = main_path(cli, q40, m8, t, lambda e: per_fwd * e.forwards,
                                      keep=True)
                 q40.reset_counters()
                 eng.decode_one(5)
@@ -4778,12 +4848,10 @@ def main() -> int:
                 torch.cuda.empty_cache()
         if run_phase("3v"):
             var_runs = {}
-            for v, path, layers in (("exact", m, LLAMA2_7B["n_layers"]),
-                                    ("folded", m8, CUT_LAYERS), ("fma", m8, CUT_LAYERS)):
+            for v in ("exact", "folded", "fma"):
                 with phase(f"3v the {v} path: DLLAMA_Q40_VARIANT={v} inference at Llama-2-7B "
-                           f"width, {layers} layers, in a child process; its 2-layer "
-                           f"kernels vs plain"):
-                    var_runs[v] = variant_path(v, path, t, layers, m2)
+                           f"width, 2 layers, in a child process; its kernels vs plain"):
+                    var_runs[v] = variant_path(v, m2, t, 2, m2)
         if run_phase(17):
             with phase(f"17 tensor parallelism: inference --workers tpu:2 at Llama-2-7B "
                        f"width, {CUT_LAYERS} layers, both ranks on cuda:0"):
@@ -4828,16 +4896,17 @@ def main() -> int:
                                            ["--workers", "tpu:2", "--device", "cuda:0"],
                                            False, tp=2, repeat=True)
         if run_phase(7):
-            with phase("7 serving: API server, slot scheduler, paged KV at 7B width"):
-                served["bf16"] = serve_path(api, attention, q40, m, t, 16, [], True,
+            with phase(f"7 serving: API server, slot scheduler, paged KV at 7B width, "
+                       f"{CUT_LAYERS} layers"):
+                served["bf16"] = serve_path(api, attention, q40, m8, t, 16, [], True,
                                             repeat=True)
             with phase("7b serving with --kv-quant int8"):
-                served["int8"] = serve_path(api, attention, q40, m, t, 8,
+                served["int8"] = serve_path(api, attention, q40, m8, t, 8,
                                             ["--kv-quant", "int8"], True)
         if run_phase(20):
-            with phase("20 the OpenAI surface at Llama-2-7B width and depth: list prompts, "
-                       "n, logprobs, echo, /metrics, /debug"):
-                run_score = openai_surface(api, q40, m, t)
+            with phase(f"20 the OpenAI surface at Llama-2-7B width, {CUT_LAYERS} layers: list "
+                       f"prompts, n, logprobs, echo, /metrics, /debug"):
+                run_score = openai_surface(api, q40, m8, t)
         if run_phase("3q"):
             with phase(f"3q main path on the int8 contiguous cache: inference "
                        f"--kv-cache-dtype q8 at Llama-2-7B width, {CUT_LAYERS} layers"):
@@ -4864,14 +4933,14 @@ def main() -> int:
                        f"width, {CUT_LAYERS} layers"):
                 p22 = spec_and_gauges(api, cli, attention, q40, tfile, m8, t)
         if run_phase(23):
-            with phase("23a the fleet in one process: serve-pod --dp 2 --device cuda:0 at "
-                       "Llama-2-7B width and depth"):
-                pod, p23 = fleet_in_process(cli, pod_mod, obs_metrics, attention, q40, m, t)
+            with phase(f"23a the fleet in one process: serve-pod --dp 2 --device cuda:0 at "
+                       f"Llama-2-7B width, {CUT_LAYERS} layers"):
+                pod, p23 = fleet_in_process(cli, pod_mod, obs_metrics, attention, q40, m8, t)
             try:
                 with phase("23c checksum manifests, --verify-weights, the corrupt and NaN "
                            "drills, --numeric-checks (Llama-2-7B)"):
                     fleet_integrity(cli, api, engine_mod, obs_metrics, faults, integrity, pod,
-                                    m, t, run["load_s"] if run_phase(3) else None)
+                                    m8, t, run["load_s"] if run_phase(3) else None)
             finally:
                 pod.stop()
                 del pod
@@ -4904,7 +4973,7 @@ def main() -> int:
                                            16, "f32 pool")
                 wide["t256"] = wide_serving(api, engine_mod, attention, m8, t,
                                             ["--sched-prefill-chunk", "256"], 256, "chunk 256")
-        for f in (m, m2, m8, m + ".sum"):
+        for f in (m, m2, m8, m8 + ".sum"):
             if os.path.exists(f):
                 os.remove(f)
         if run_phase(10):
@@ -4915,13 +4984,17 @@ def main() -> int:
                 # an 84-token prompt: its prefill runs at t = 128 (the padded
                 # bucket) on the tensor-core body
                 q8_fwd = 4 * CUT_LAYERS + 1
-                run_q8 = main_path(cli, q8, m, t, lambda e: q8_fwd * e.forwards,
-                                   ("--prompt", Q8_PROMPT))
+                run_q8, eng = main_path(cli, q8, m, t, lambda e: q8_fwd * e.forwards,
+                                        ("--prompt", Q8_PROMPT), keep=True)
                 if run_q8["counts"]["mma_launches"] < 4 * CUT_LAYERS:
                     raise AssertionError(f"the Q80 prompt forward did not take the "
                                          f"tensor-core body: {run_q8['counts']}")
                 print(f"Q80 bodies: {run_q8['counts']['mma_launches']} tensor-core "
                       f"launches, {run_q8['counts']['kernel_launches'] - run_q8['counts']['mma_launches']} GEMV")
+                run_q8.update(prompt_profile(eng, q8, Q8_PROMPT_TOKENS))
+                greedy_repeat(eng)
+                del eng
+                torch.cuda.empty_cache()
                 os.remove(m)
         mix = {**MIXTRAL_8X7B, "n_layers": MIXTRAL_LAYERS}
         if run_phase(11) or run_phase("6s"):

@@ -35,7 +35,7 @@ CSRC = os.path.join(HERE, "csrc")
 SOURCES = ("q40_matmul.cu", "q8_matmul.cu", "paged_attention.cu", "tp_allreduce.cu",
            "paged_prefill_attention.cu")
 # headers the sources include: hashed with them, so an edit rebuilds
-HEADERS = ("mma_common.cuh", "gemv_common.cuh", "sm90_common.cuh")
+HEADERS = ("mma_common.cuh", "gemv_common.cuh", "sm90_common.cuh", "wgmma_matmul.cuh")
 BUILD_DIR = os.path.join(PKG, "build")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

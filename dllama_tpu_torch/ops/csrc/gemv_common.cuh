@@ -91,7 +91,8 @@ constexpr int kGemvRows = 8;                      // rows of x a launch: the mma
 // stored row and its scale row within a plane), gemv_next moves the cursor
 // on by one block; vcol/scol add a column; stride() is the distance of two
 // stored rows, cols() a plane's stored width (d, or dp when blocked).  The
-// tensor-core body of q40_matmul.cu walks two blocks a step (step_rows).
+// tensor-core body (wgmma_matmul.cuh) walks two blocks a step (its
+// step_rows and tma_rows).
 struct RowMajor {
   int d;
   __device__ int stride() const { return d; }
@@ -107,13 +108,6 @@ struct RowMajor {
     s = (size_t)c.b * d;
   }
   __device__ void gemv_next(Cursor& c) const { ++c.b; }
-  __device__ void step_rows(Cursor& c, size_t* v, size_t* s) const {
-    v[0] = (size_t)c.b * 16 * d;
-    v[1] = v[0] + (size_t)16 * d;
-    s[0] = (size_t)c.b * d;
-    s[1] = s[0] + d;
-    c.b += 2;
-  }
   __device__ size_t vcol(int c) const { return c; }
   __device__ size_t scol(int c) const { return c; }
 };
@@ -144,16 +138,6 @@ struct Blocked {
     s = ((size_t)c.q * nJ * (bn / 16) + c.rem / 16) * td;
   }
   __device__ void gemv_next(Cursor& c) const { next_block(c.q, c.rem); }
-  __device__ void step_rows(Cursor& c, size_t* v, size_t* s) const {
-    unsigned q1 = c.q, rem1 = c.rem;
-    next_block(q1, rem1);
-    v[0] = ((size_t)c.q * nJ * bn + c.rem) * td;
-    v[1] = ((size_t)q1 * nJ * bn + rem1) * td;
-    s[0] = ((size_t)c.q * nJ * (bn / 16) + c.rem / 16) * td;
-    s[1] = ((size_t)q1 * nJ * (bn / 16) + rem1 / 16) * td;
-    next_block(q1, rem1);
-    c = {q1, rem1};
-  }
   __device__ size_t vcol(int c) const { return (size_t)(c / td) * bn * td + c % td; }
   __device__ size_t scol(int c) const { return (size_t)(c / td) * (bn / 16) * td + c % td; }
 };

@@ -1,6 +1,6 @@
 // The Hopper (sm_90a) machinery the port's TMA / wgmma kernels share
-// (paged_prefill_attention.cu: kernel 8; q40_matmul.cu: the Q40
-// tensor-core body of kernels 1-3): mbarriers, TMA tile copies and the
+// (paged_prefill_attention.cu: kernel 8; wgmma_matmul.cuh: the
+// tensor-core body of the Q40 and Q80 kernels, 1-3 and 5-6): mbarriers, TMA tile copies and the
 // cp.async arrivals a stage barrier can track, the async-proxy fence,
 // wgmma's fence / commit / wait, the 128-byte-swizzle descriptors and
 // the SS / RS wgmma wrappers (bf16 in, f32 accumulate), and the host's
@@ -170,6 +170,19 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
 // d (+)= A B, m64nNk16, A from registers (bf16 pairs: wgmma's A fragment),
 // B K-major from shared memory (no transpose); `acc` 0 ignores d's old
 // value (scale-d)
+__device__ __forceinline__ void wgmma_rs_kmaj_n16(float (&d)[8], const uint32_t (&a)[4], uint64_t b,
+                                                  int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+}
+
 __device__ __forceinline__ void wgmma_rs_kmaj_n32(float (&d)[16], const uint32_t (&a)[4], uint64_t b,
                                                   int acc) {
   asm volatile(

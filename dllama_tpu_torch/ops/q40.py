@@ -67,7 +67,7 @@ The kernel has two bodies, chosen by :func:`route` from the row count:
 the GEMV (decode) body below ``T_MMA`` rows, one launch a call on
 :func:`gemv_plan` (shared with the Q80 kernel), and, from ``T_MMA`` rows
 up, the Hopper tensor-core body (TMA ring, wgmma; :func:`mma_plan`), in
-both layouts.
+both layouts; both bodies are templates the Q80 kernel shares.
 
 Module counters (plain ints, bumped under ``ops.COUNT_LOCK``) record
 which route ran:
@@ -709,11 +709,12 @@ def _gemv_width(row_bytes: int, vptr: int, sptr: int, cols: int) -> int:
 # 8-row mma tile) the decode body is faster over a 7B layer's four
 # matmuls; from t = 9 it makes a second pass over the weights.
 T_MMA = 9
-# The tensor-core body's block (csrc/q40_matmul.cu kWgBN, kWgBK, WgShape):
-# output columns and rows of n a step, the tile heights (rows of x a
-# block), each height's copy-ring stages and dynamic shared memory (one
+# The tensor-core body's block (csrc/wgmma_matmul.cuh kWgBN, kWgBK,
+# WgShape): output columns and rows of n a step, the tile heights (rows of
+# x a block), each height's copy-ring stages and dynamic shared memory (one
 # block an SM at every height: 288 threads of up to 168 registers).  Q80's
-# body keeps its own (ops/q8.py).
+# body is the same template on its own step (ops/q8.py: 64 int8 rows, no
+# block sums), with its own step times and the same plan.
 MMA_BN = 128
 MMA_BK = 64
 MMA_BMS = (32, 128)
@@ -748,16 +749,23 @@ def route(t: int) -> str:
 
 
 def mma_plan(t: int, n: int, d: int, n_sms: int) -> MmaPlan:
-    """The Q40 tensor-core body's grid (every variant alike).  ``bm`` is 32
-    up to 32 rows, else 128; the ``ceil(t/bm)·ceil(d/128)`` output tiles
-    take the split-K over the ``ceil(n/64)`` steps of n, each split
-    ``steps_per`` steps and none empty, that the cost model puts first:
-    the waves of blocks on
-    ``n_sms`` SMs times a split's steps at ``MMA_STEP_US[bm]``, plus the
-    split scratch's traffic (``splits·t·d`` f32 written and read, the sum
-    written) at ``MMA_SCRATCH_RATE``; at most ``MMA_MAX_WAVES`` waves, and
-    the fewest splits on a tie."""
-    bm = 32 if t <= 32 else 128
+    """The Q40 tensor-core body's grid (every variant alike):
+    :func:`plan_wgmma` at this codec's ``MMA_STEP_US``."""
+    return plan_wgmma(t, n, d, n_sms, MMA_STEP_US)
+
+
+def plan_wgmma(t: int, n: int, d: int, n_sms: int, step_us: dict) -> MmaPlan:
+    """The tensor-core body's grid (csrc/wgmma_matmul.cuh, both codecs).
+    ``bm`` is the least tile height in ``step_us`` (the codec's tile
+    heights and their measured step times) that covers ``t``, else the
+    tallest; the ``ceil(t/bm)·ceil(d/128)`` output tiles take the split-K
+    over the ``ceil(n/64)`` steps of n, each split ``steps_per`` steps and
+    none empty, that the cost model puts first: the waves of blocks on
+    ``n_sms`` SMs times a split's steps at ``step_us[bm]`` microseconds,
+    plus the split scratch's traffic (``splits·t·d`` f32 written and read,
+    the sum written) at ``MMA_SCRATCH_RATE``; at most ``MMA_MAX_WAVES``
+    waves, and the fewest splits on a tie."""
+    bm = next((b for b in sorted(step_us) if b >= t), max(step_us))
     tiles = -(-t // bm) * -(-d // MMA_BN)
     steps = -(-n // MMA_BK)
     best = None
@@ -768,7 +776,7 @@ def mma_plan(t: int, n: int, d: int, n_sms: int) -> MmaPlan:
         if splits > 1 and tiles * splits > MMA_MAX_WAVES * n_sms:
             break
         waves = -(-tiles * splits // n_sms)
-        us = waves * per * MMA_STEP_US[bm]
+        us = waves * per * step_us[bm]
         if splits > 1:
             us += (2 * splits + 1) * t * d * 4 / MMA_SCRATCH_RATE
         if best is None or us < best[0]:
@@ -953,9 +961,9 @@ def launch(fn: str, x2: torch.Tensor, values: torch.Tensor, scales: torch.Tensor
     """Check the operands of the Q40 or Q80 kernel over row-major planes (C
     entry point ``fn``, values of ``value_dtype`` holding ``per_byte``
     weights a byte: 2 for Q40's nibbles, 1 for Q80's int8) and launch its
-    GEMV body, or with ``mma`` (the codec's tensor-core launcher:
-    :func:`_launch_wgmma`, or Q80's ``q8._launch_mma``) its tensor-core
-    body, on the current stream; ``tail`` ints follow the entry point's own
+    GEMV body, or with ``mma`` (the tensor-core launcher,
+    :func:`_launch_wgmma`, with the codec's plan) its tensor-core body, on
+    the current stream; ``tail`` ints follow the entry point's own
     (the Q40 variant's index in :data:`VARIANTS`).  Returns the f32 ``(t,
     d)`` output."""
     dev = _check_operands(fn, x2, values, scales, n, value_dtype)
@@ -1009,13 +1017,14 @@ def _launch_gemv(fn: str, x2: torch.Tensor, values: torch.Tensor, scales: torch.
 
 def _launch_wgmma(fn: str, x2: torch.Tensor, values: torch.Tensor, scales: torch.Tensor,
                   idx: torch.Tensor, n: int, np_: int, d: int, n_planes: int,
-                  row_bytes: int, *layout: int, tail: tuple = ()) -> torch.Tensor:
-    """Call the Q40 tensor-core entry point ``fn`` (kernels 1-2, or kernel
-    3 with its tile shape in ``layout``) on checked operands with
-    :func:`mma_plan`; value rows start ``row_bytes`` apart (d row-major, td
-    blocked), which decides whether the weights go by TMA
+                  row_bytes: int, *layout: int, tail: tuple = (), codec=None) -> torch.Tensor:
+    """Call the tensor-core entry point ``fn`` (Q40 kernels 1-2, kernel 3
+    with its tile shape in ``layout``, or Q80 kernels 5-6) on checked
+    operands with ``codec``'s ``mma_plan`` (this module's, or ``q8``'s;
+    looked up at each call); value rows start ``row_bytes`` apart (d
+    row-major, td blocked), which decides whether the weights go by TMA
     (:func:`mma_tma`) or by the producer's copies of the widths
-    :func:`_copy_width` allows; ``tail`` holds the variant's index.
+    :func:`_copy_width` allows; ``tail`` holds the Q40 variant's index.
     Returns the f32 ``(t, d)`` output; raises on a blocked tile the body
     cannot copy and on a launch error."""
     from . import _build
@@ -1029,7 +1038,7 @@ def _launch_wgmma(fn: str, x2: torch.Tensor, values: torch.Tensor, scales: torch
     s_al = _copy_width(2 * row_bytes, scales.data_ptr())
     _require(not layout or tma or (w_al and s_al),
              f"tiles of {row_bytes} columns: no copy width divides them", fn)
-    plan = mma_plan(t, n, d, _sm_count(dev))
+    plan = (codec or sys.modules[__name__]).mma_plan(t, n, d, _sm_count(dev))
     out = torch.empty((t, d), dtype=torch.float32, device=dev)
     scratch = (torch.empty((plan.splits, t, d), dtype=torch.float32, device=dev)
                if plan.splits > 1 else out)
@@ -1047,15 +1056,15 @@ def _launch_wgmma(fn: str, x2: torch.Tensor, values: torch.Tensor, scales: torch
     return out
 
 
-def mma_layout(bm: int) -> dict:
+def mma_layout(bm: int, fn: str = "q40_mma_layout") -> dict:
     """The tensor-core body's block at tile height ``bm`` as the build
-    reports it (``q40_mma_layout``): threads, dynamic shared memory, ring
-    stages."""
+    reports it (``fn``: this codec's ``q40_mma_layout``, or Q80's
+    ``q8_mma_layout``): threads, dynamic shared memory, ring stages."""
     from . import _build
     out = (ctypes.c_int * 3)()
-    rc = _build.load().q40_mma_layout(bm, out)
+    rc = getattr(_build.load(), fn)(bm, out)
     if rc != 0:
-        raise ValueError(f"q40_mma_layout: no tile of {bm} rows")
+        raise ValueError(f"{fn}: no tile of {bm} rows")
     return dict(zip(("threads", "smem", "stages"), out))
 
 

@@ -21,10 +21,13 @@ layer × expert), addressed by a flat index as in :mod:`.q40`.
 ``bf16(f32(v)·f32(s))`` (one bf16 round of the file codec's dequant),
 activations cast to bf16, products summed in f32, an f32 result.  Dispatch
 and counters (``kernel_launches``, ``launches_by_shape``, ``plain_calls``)
-are :mod:`.q40`'s.  The kernel has two bodies,
-chosen by :func:`route` from the row count: the GEMV body below ``T_MMA``
-rows, the tensor-core body (:func:`mma_plan`; counted in ``mma_launches``)
-from ``T_MMA`` rows up.
+are :mod:`.q40`'s.  The kernel has two bodies, chosen by :func:`route` from
+the row count, each a template it shares with the Q40 kernel: the GEMV
+body below ``T_MMA`` rows (``csrc/gemv_common.cuh``), and from ``T_MMA``
+rows up the Hopper tensor-core body (``csrc/wgmma_matmul.cuh``: the int8
+tile and its scales by a TMA ring on mbarriers, the weights dequantized
+into wgmma's A registers; :func:`mma_plan`, :func:`mma_tma`; counted in
+``mma_launches``).
 
 Tensor parallelism: on a mesh the JAX package runs Q80 as an XLA dequant
 and lets GSPMD insert the all-reduce (its ``q8.py:309-365``).  The port
@@ -36,6 +39,7 @@ on the f32 partials before the cast (``models/transformer``).
 from __future__ import annotations
 
 import ctypes
+import functools
 import sys
 from dataclasses import dataclass
 
@@ -44,7 +48,9 @@ import torch
 
 from .. import quants
 from . import COUNT_LOCK
-from .q40 import _copy_width, _planes, _sm_count, dispatch, gemv_plan, launch, padded_n
+from . import q40
+from .q40 import (MMA_BK, MMA_BN, MmaPlan, _launch_wgmma, _planes, dispatch, gemv_plan,
+                  launch, padded_n, plan_wgmma)
 
 kernel_launches = 0
 mma_launches = 0
@@ -53,69 +59,52 @@ launches_by_shape: dict[tuple, int] = {}
 
 # Rows from which a call takes the tensor-core body (``q8_matmul_mma`` in
 # csrc/q8_matmul.cu); fewer rows take the decode body (the Q40 kernel's
-# template, csrc/gemv_common.cuh).  Phase 9 of chip_smoke.py times both:
-# up to t = 8 (one pass of the decode body's 8-row mma tile) the decode
-# body is faster over a 7B layer's four matmuls and at most sites; from
-# t = 9 it makes a second pass, and at t = 12 the tensor-core body wins at
-# every site (PERF.md).
-T_MMA = 9
-# The tensor-core body's block (csrc/mma_common.cuh kMmaBN, kMmaBK,
-# MmaShape): output columns and rows of n a step, and the blocks an SM
-# holds at each tile height (256 threads up to 64 rows, 512 at 128).  The
-# decode body's plan (gemv_plan) is the Q40 kernel's, imported above.
-MMA_BN = 128
-MMA_BK = 64
-MMA_BLOCKS_PER_SM = {16: 2, 32: 2, 64: 2, 128: 1}
-MMA_BMS = tuple(MMA_BLOCKS_PER_SM)
+# template, csrc/gemv_common.cuh).  Phase 9 of chip_smoke.py times both at
+# every t and prints the crossover (PERF.md): the decode body wins over a
+# 7B layer's four matmuls at t = 1; the tensor-core body's 16-row tile
+# wins them by 4 % at t = 4 (two of the four sites slower) and by 9-15 %
+# from t = 5 to 8, where the decode body still reads each weight once
+# (Q40's crossover stays at 9: ops/q40.py T_MMA).
+T_MMA = 5
+# The tensor-core body's block (csrc/wgmma_matmul.cuh WgShape<Q8, BM>):
+# the tile heights (rows of x a block), each height's ring stages and
+# dynamic shared memory (a stage: the BM x 64 bf16 x tile, the 64 x 128
+# int8 tile, two 128-wide f16 scale rows, two barriers; no block sums).
+# 288 threads a block, as Q40's (ops/q40.py, whose MMA_BN and MMA_BK it
+# shares); Q80 adds the 16-row tile (wgmma m64n16k16), which took 2-16 %
+# less time than the 32-row one at every 7B site at t = 16 (PERF.md).  The decode
+# body's plan (gemv_plan) is the Q40 kernel's, imported above.
+MMA_BMS = (16, 32, 128)
+MMA_STAGES = {bm: 8 for bm in MMA_BMS}
+MMA_SMEM = {bm: MMA_STAGES[bm] * (bm * MMA_BK * 2 + MMA_BK * MMA_BN + 4 * MMA_BN + 16) + 1024
+            for bm in MMA_BMS}
+# The plan's cost model (ops/q40.py plan_wgmma) at this codec's step: a
+# block's 64-row step takes about MMA_STEP_US[bm] microseconds whatever the
+# shape (chip_ab_q40.py --codec q8 --plans, H100 80GB HBM3: a one-split
+# grid's time over its steps; any value from 0.6 to 0.9 at 128 rows picks
+# the measured best grid at every 7B site)
+MMA_STEP_US = {16: 0.6, 32: 0.6, 128: 0.74}
 
 
-def mma_plan(t: int, n: int, d: int, n_sms: int) -> tuple[int, int, int]:
-    """The tensor-core body's grid: returns ``(bm, splits, steps_per)``.
-    ``bm`` is the least tile height in ``MMA_BMS`` that covers ``t``, else
-    the tallest (a weight is dequantized once per ``bm`` rows of x); the
-    ``ceil(t/bm)·ceil(d/128)`` output tiles take just enough split-K over
-    the ``ceil(n/64)`` steps of n to fill one wave of the SMs' blocks
-    (``MMA_BLOCKS_PER_SM[bm]`` each), each split ``steps_per`` steps and
-    none empty.  The f32 scratch is ``splits·t·d`` floats, at most one wave
-    of output tiles (Llama-2-7B's wo at t = 128: 4 splits, 8 MB)."""
-    bm = next((b for b in MMA_BMS if b >= t), MMA_BMS[-1])
-    tiles = -(-t // bm) * -(-d // MMA_BN)
-    steps = -(-n // MMA_BK)
-    want = max(1, min(steps, MMA_BLOCKS_PER_SM[bm] * n_sms // tiles))
-    per = -(-steps // want)
-    return bm, -(-steps // per), per
+def mma_plan(t: int, n: int, d: int, n_sms: int) -> MmaPlan:
+    """The Q80 tensor-core body's grid: :func:`.q40.plan_wgmma` at this
+    codec's ``MMA_STEP_US``."""
+    return plan_wgmma(t, n, d, n_sms, MMA_STEP_US)
 
 
-def _launch_mma(fn: str, x2: torch.Tensor, values: torch.Tensor, scales: torch.Tensor,
-                idx: torch.Tensor, n: int, np_: int, d: int, n_planes: int,
-                row_bytes: int, tail: tuple = ()) -> torch.Tensor:
-    """Call the tensor-core entry point ``fn`` on checked operands with
-    :func:`mma_plan`; value rows start ``row_bytes`` apart and scale rows
-    ``2·row_bytes``, which sets the cp.async copy widths.  Returns the f32
-    ``(t, d)`` output; raises on a launch error."""
-    from . import _build
-    lib = _build.load()
-    dev, t = x2.device, x2.shape[0]
-    xb = x2.to(torch.bfloat16).contiguous()
-    if xb.data_ptr() % 16:  # cp.async reads x in 16-byte pieces
-        xb = xb.clone()
-    w_al = _copy_width(row_bytes, values.data_ptr())
-    s_al = _copy_width(2 * row_bytes, scales.data_ptr())
-    bm, splits, per = mma_plan(t, n, d, _sm_count(dev))
-    out = torch.empty((t, d), dtype=torch.float32, device=dev)
-    scratch = (torch.empty((splits, t, d), dtype=torch.float32, device=dev)
-               if splits > 1 else out)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        rc = getattr(lib, fn)(xb.data_ptr(), values.data_ptr(), scales.data_ptr(),
-                              out.data_ptr(), scratch.data_ptr(), idx.data_ptr(),
-                              t, n, np_, d, n_planes, bm, splits, per, w_al, s_al, *tail,
-                              stream)
-    if rc != 0:
-        raise RuntimeError(f"{fn} launch failed: CUDA error {rc} "
-                           f"({lib.q40_error_string(rc).decode()}) at t={t} n={n} d={d} "
-                           f"bm={bm} splits={splits}x{per} copies={w_al}/{s_al}")
-    return out
+def mma_tma(row_bytes: int, vptr: int, sptr: int) -> bool:
+    """Can the tensor-core body read a plane's int8 values and scales by
+    TMA boxes?  Value rows ``row_bytes`` (d) apart, scale rows twice that,
+    both pointers on 16 bytes (:func:`.q40.mma_tma`); else the producer
+    warp copies them."""
+    return q40.mma_tma(row_bytes, vptr, sptr, False)
+
+
+def mma_layout(bm: int) -> dict:
+    """The tensor-core body's block at tile height ``bm`` as the build
+    reports it (``q8_mma_layout``): threads, dynamic shared memory, ring
+    stages."""
+    return q40.mma_layout(bm, "q8_mma_layout")
 
 
 def reset_counters() -> None:
@@ -300,7 +289,7 @@ def q8_matmul(x2: torch.Tensor, qvals: torch.Tensor, scales: torch.Tensor,
         key = (n, out.shape[1])
     elif body == "mma":
         out = launch("q8_matmul_mma", x2, qvals, scales, n, layer, torch.int8, 1,
-                     mma=_launch_mma)
+                     mma=functools.partial(_launch_wgmma, codec=sys.modules[__name__]))
         key = ("mma", n, out.shape[1])
     else:
         raise ValueError(f"q8_matmul: unknown body {body!r}")
@@ -317,6 +306,8 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.q8_matmul.argtypes = [vp] * 7 + [ci] * 8 + [vp]
     lib.q8_matmul.restype = ci
-    lib.q8_matmul_mma.argtypes = [vp] * 6 + [ci] * 10 + [vp]
+    lib.q8_matmul_mma.argtypes = [vp] * 6 + [ci] * 11 + [vp]
     lib.q8_matmul_mma.restype = ci
+    lib.q8_mma_layout.argtypes = [ci, ctypes.POINTER(ci)]
+    lib.q8_mma_layout.restype = ci
     return lib

@@ -18,7 +18,7 @@ import torch
 
 from dllama_tpu.ops import attention as ja
 from dllama_tpu_torch.ops import attention as ta
-from dllama_tpu_torch.ops import q8 as tq8
+from dllama_tpu_torch.ops import q8 as tq8, q40 as tq40
 
 N_SMS = 132  # an H100 SXM
 # (n, d) of every Q80 site the card runs: Llama-2-7B, Mixtral-8x7B, Grok-1's
@@ -27,9 +27,9 @@ SITES = [(4096, 12288), (4096, 4096), (4096, 22016), (11008, 4096), (4096, 32000
          (4096, 6144), (4096, 14336), (14336, 4096),
          (6144, 32768), (32768, 6144),
          (4096, 2048), (2048, 4096), (4096, 5504), (5504, 4096), (4096, 16000)]
-# the scratch of the tensor-core body stays within one wave of f32 output
-# tiles (two 64 x 128 or one 128 x 128 tile an SM) whenever it splits: 8.65 MB
-SCRATCH_BOUND = N_SMS * 128 * 128 * 4
+# the scratch of the tensor-core body stays within MMA_MAX_WAVES waves of
+# f32 output tiles (one 128 x 128 tile an SM) whenever it splits: 34.6 MB
+SCRATCH_BOUND = 4 * N_SMS * 128 * 128 * 4
 
 
 def _t(a) -> torch.Tensor:
@@ -133,19 +133,20 @@ def test_split_combine_matches_jax_interpret_kernel(quantized, n_sms):
 @pytest.mark.parametrize("t", [16, 128])
 @pytest.mark.parametrize("n,d", SITES)
 def test_mma_plan_covers_n_and_bounds_scratch(n, d, t):
-    bm, splits, per = tq8.mma_plan(t, n, d, N_SMS)
-    assert bm in tq8.MMA_BMS and bm >= t
+    bm, bn, splits, per = tq8.mma_plan(t, n, d, N_SMS)
+    assert bm in tq8.MMA_BMS and bm >= t and bn == tq8.MMA_BN
     steps = -(-n // tq8.MMA_BK)
     assert splits * per >= steps and (splits - 1) * per < steps  # all of n, no empty split
     tiles = -(-t // bm) * -(-d // tq8.MMA_BN)
-    assert splits == 1 or splits * tiles <= tq8.MMA_BLOCKS_PER_SM[bm] * N_SMS
+    assert splits == 1 or splits * tiles <= tq40.MMA_MAX_WAVES * N_SMS
     assert (splits * t * d * 4 if splits > 1 else 0) <= SCRATCH_BOUND
 
 
 def test_mma_plan_of_the_7b_wo_at_prefill_width():
-    """wo (4096→4096) at t = 128: 32 output tiles of 128 x 128, 4 splits of
-    16 steps, 8 MB of scratch (the decode body needs none)."""
-    assert tq8.mma_plan(128, 4096, 4096, N_SMS) == (128, 4, 16)
+    """wo (4096→4096) at t = 128: 32 output tiles of 128 x 128 on 132 SMs,
+    so the cost model splits n (64 steps) rather than leave 100 SMs idle:
+    4 splits of 16 steps, 8 MB of scratch (the decode body needs none)."""
+    assert tq8.mma_plan(128, 4096, 4096, N_SMS) == (128, 128, 4, 16)
 
 
 @pytest.mark.parametrize("t", [1, 2, 3, 4, 5, 8, 16, 17, 64, 128])

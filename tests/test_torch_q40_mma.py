@@ -104,17 +104,23 @@ def test_7b_wo_scratch_against_the_gemv_plan():
 
 
 def test_q8_shares_the_plan():
-    """The Q80 kernel keeps its own tensor-core body (csrc/q8_matmul.cu over
-    csrc/mma_common.cuh) and so its own plan, which the Q40 body's redesign
-    leaves as it was: the 128 x 64 step, tile heights 16-128 at two blocks
-    an SM up to 64 rows, and the same grids."""
-    assert tq8.mma_plan is not tq40.mma_plan
+    """The Q80 kernel's tensor-core body is the same template
+    (csrc/wgmma_matmul.cuh) on its own step, so it takes the same plan
+    (q40.plan_wgmma) at its own tile heights and measured step times: the
+    128 x 64 step, Q40's tile heights and the 16-row one, 8 ring stages, and
+    at every shape the grid the cost model puts first at Q80's
+    MMA_STEP_US."""
     assert (tq8.MMA_BN, tq8.MMA_BK) == (tq40.MMA_BN, tq40.MMA_BK)
-    assert tq8.MMA_BLOCKS_PER_SM == {16: 2, 32: 2, 64: 2, 128: 1}
-    assert tq8.MMA_BMS == (16, 32, 64, 128)
-    assert tq8.mma_plan(128, 4096, 4096, N_SMS) == (128, 4, 16)
-    assert tq8.mma_plan(16, 4096, 12288, N_SMS) == (16, 2, 32)
-    assert tq8.mma_plan(4096, 4096, 32000, N_SMS) == (128, 1, 64)
+    assert set(tq40.MMA_BMS) < set(tq8.MMA_BMS) == set(tq8.MMA_STEP_US) == {16, 32, 128}
+    assert set(tq40.MMA_STEP_US) == set(tq40.MMA_BMS)
+    assert all(tq8.MMA_STAGES[bm] == tq40.MMA_STAGES[bm] for bm in tq40.MMA_BMS)
+    for t, n, d in ((128, 4096, 4096), (16, 4096, 12288), (4096, 4096, 32000),
+                    (128, 11008, 4096), (17, 4128, 1000)):
+        assert tq8.mma_plan(t, n, d, N_SMS) == tq40.plan_wgmma(t, n, d, N_SMS,
+                                                                tq8.MMA_STEP_US)
+        assert tq40.mma_plan(t, n, d, N_SMS) == tq40.plan_wgmma(t, n, d, N_SMS,
+                                                                 tq40.MMA_STEP_US)
+    assert tq8.mma_plan(4096, 4096, 32000, N_SMS) == (128, 128, 1, 64)
 
 
 def _qt(seed, lead, n, d):
@@ -182,11 +188,11 @@ def test_bind_declares_the_tensor_core_entry_points():
     assert lib.q40_mma_layout.argtypes == [ci, ctypes.POINTER(ci)]
 
 
-@pytest.mark.parametrize("header", ["mma_common.cuh", "sm90_common.cuh"])
+@pytest.mark.parametrize("header", ["mma_common.cuh", "sm90_common.cuh", "wgmma_matmul.cuh"])
 def test_library_hash_covers_the_shared_header(monkeypatch, tmp_path, header):
-    """An edit to a shared header (the Ampere-style machinery, or the
-    Hopper one of kernel 8 and the Q40 tensor-core body) names another
-    library (a rebuild)."""
+    """An edit to a shared header (the small shared pieces, the Hopper
+    machinery of kernel 8 and the tensor-core body, or the tensor-core body
+    both codecs instantiate) names another library (a rebuild)."""
     src = tmp_path / "csrc"
     shutil.copytree(_build.CSRC, src)
     monkeypatch.setattr(_build, "CSRC", str(src))

@@ -218,12 +218,15 @@ def test_plane_index_checks():
 
 
 def test_bind_declares_pointer_arguments():
-    """Every pointer and the stream cross ctypes as c_void_p (64-bit)."""
+    """Every pointer and the stream cross ctypes as c_void_p (64-bit); the
+    tensor-core body takes its plan, TMA or not and the copy widths as
+    c_int, and its layout report a tile height and an int array."""
     class Fake:
         class _Fn:
             pass
         q8_matmul = _Fn()
         q8_matmul_mma = _Fn()
+        q8_mma_layout = _Fn()
 
     lib = tq8.bind(Fake())
     argt = lib.q8_matmul.argtypes  # the decode body: x, values, scales, out, index, workspace
@@ -231,4 +234,6 @@ def test_bind_declares_pointer_arguments():
     assert argt[7:15] == [ctypes.c_int] * 8 and lib.q8_matmul.restype is ctypes.c_int
     argt = lib.q8_matmul_mma.argtypes
     assert argt[:6] == [ctypes.c_void_p] * 6 and argt[-1] is ctypes.c_void_p
-    assert argt[6:16] == [ctypes.c_int] * 10 and lib.q8_matmul_mma.restype is ctypes.c_int
+    assert argt[6:17] == [ctypes.c_int] * 11 and len(argt) == 18
+    assert lib.q8_matmul_mma.restype is ctypes.c_int
+    assert lib.q8_mma_layout.argtypes == [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
