@@ -74,13 +74,17 @@ Phases (each prints its seconds; any failure exits non-zero):
    ATTN_TOL * max|plain|.  Times the kernel (cold L2), the plain version
    and torch's scaled_dot_product_attention on the K/V pre-gathered to
    contiguous bf16 with a per-row mask (a yardstick the port never calls);
-   prints the bound, the kernel's share of it and the split plan.  Then
-   the bf16 pool at Mixtral's shape: 32 query heads on 8 kv heads (G = 4
-   query heads a block).
+   prints the bound, the kernel's share of it and the split plan; the same
+   on an f16 pool with f16 queries (``--buffer-float-type f16``).  Then
+   the bf16 and f16 pools at Mixtral's shape: 32 query heads on 8 kv heads
+   (G = 4 query heads a block).  Then head dims 16, 32, 80, 96 and 256
+   (ATTN_DH) on bf16 and int8 pools, f32 at 96, and G = 16 (32 query heads
+   on 2 kv heads: two blocks of 8 heads a kv head), bf16 and int8, the
+   same checks and times; the build's registers and spills of kernel 7.
 6c. the prefill attention kernel (t > 1 query rows over the paged pool,
    the mixed slot step's read) against its plain version (the gather, then
    the one-shot per-row-ceiling attention) at the 7B shape (G = 1) and at
-   Mixtral's (G = 4), bf16, int8 and f32 pools, T in {2, 8, 16}, the widest
+   Mixtral's (G = 4), bf16, int8, f32 and f16 pools, T in {2, 8, 16}, the widest
    step before the row cap went (128 query rows a kv head: T = 128 at G =
    1, 32 at G = 4) and one past it (256 rows, two row groups: T = 256, 64):
    B = 8 rows at position 0, mid-page, across a page edge and near 4095,
@@ -91,7 +95,10 @@ Phases (each prints its seconds; any failure exits non-zero):
    before their outputs round (PREFILL_F32_TOL = 1e-4 on an f32 pool), the
    main path's bf16 output that f32 output rounded, and two launches equal,
    bit for bit; then at the 7B shape on pages of 4, 24 and 100 positions
-   (PREFILL_PAGES), bf16 and int8, T = 16 and 256, the same checks.
+   (PREFILL_PAGES), bf16 and int8, T = 16 and 256, the same checks; then
+   at head dims 16, 32, 80, 96 and 256 (bf16 and int8; f32 at 96) at T = 16
+   and a step of two row groups (T = 256; 128 at Dh 256, where a block
+   takes 64 query rows), the build's row group checked against the plan's.
    Prints each instantiation's registers and spills from the build, the
    plan (splits, row groups), the block's layout from the build (consumer
    warpgroups, threads, shared memory, ring stages, consumer registers
@@ -108,7 +115,19 @@ Phases (each prints its seconds; any failure exits non-zero):
    mixed forward and 0 plain calls, a mixed step at the chunk's width; then
    three mixed steps at that width on a fresh paged engine of the same
    pool (warm-up, capture, replay) against an ``attn_impl="plain"``
-   engine: logits within E2E_TOL of max|plain|.
+   engine: logits within E2E_TOL of max|plain|; then 8 greedy single-token
+   steps on each (kernel 7 n_layers times a step, 0 plain): the tokens
+   equal, or first differ at a near tie (top-2 margin < NEAR_TIE of max).
+   The same at 7B width, 8 layers, with ``--kv-cache-dtype f16`` (an f16
+   pool under bf16 activations: at f16 ones the synthesized weights
+   overflow f16's range, on the plain path too), and on a 2-layer model of
+   Phi-3-mini's widths (DH96: 32 heads of 96).
+24. a legacy-magic file (the reference's older converters: the 9-int
+   header with no weights float type) written from the phase-5 file's
+   bytes: ``generate --weights-float-type q40`` on it and on the v2 file,
+   the same greedy bytes, every Q40 matmul on the kernels; then
+   ``inference --dequantize`` on it: dense bf16 weights, no Q40 launch,
+   finite logits.
 7. the serving path at full width: the API server in-process on the
    phase-3 model (--batch-slots 8 --kv-pages 513 --kv-page-size 16
    --sched-prefill-chunk 16) answers 16 concurrent greedy requests (prompts
@@ -357,8 +376,9 @@ Phases (each prints its seconds; any failure exits non-zero):
    ``DLLAMA_FAULTS=engine.device_step=delay:30x1``: a 500 (StepTimeout), the
    router's ejection, a ``hung`` respawn.
 
-They run in the order 1, 2, 2v, 13, 9, 6, 6c, 16, 3, 3v, 17, 4, 5, 8, 15, 20b,
-18, 7, 20, 3q, 21, 22, 23, 14, 6s (7B width), 10, 11, 6s (Mixtral), 12, 19; each
+They run in the order 1, 2, 2v, 13, 9, 6, 6c, 16, 3, 3v, 17, 4, 24, 5, 8, 15, 20b,
+18, 7, 20, 3q, 21, 22, 23, 14, 6s (7B width), 6s (Dh 96), 10, 11, 6s (Mixtral),
+12, 19; each
 synthesized model is deleted
 when its phases end.  The script prints its whole time on its last line but
 two.
@@ -379,6 +399,7 @@ import json
 import os
 import re
 import shutil
+import struct
 import subprocess
 import sys
 import threading
@@ -411,6 +432,12 @@ MIXTRAL_8X7B = dict(dim=4096, hidden_dim=14336, n_layers=32, n_heads=32,
                     vocab_size=32000, seq_len=32768, rope_theta=1e6)
 MIXTRAL_LAYERS = 4
 MIXTRAL_CTX = "4096"
+# microsoft/Phi-3-mini-4k-instruct's published widths (32 heads of 96 on 32
+# kv heads, hidden 8192), its vocab cut to the synthesized tokenizer's
+# 32000 (it has 32064): phase 6s serves it at 2 layers, the head dim the
+# paged kernels took no body for before
+DH96 = dict(dim=3072, hidden_dim=8192, n_layers=32, n_heads=32, n_kv_heads=32,
+            vocab_size=32000, seq_len=4096, rope_theta=10000.0)
 SRC = "dllama_tpu_torch/ops/csrc/q40_matmul.cu"
 Q8_SRC = "dllama_tpu_torch/ops/csrc/q8_matmul.cu"
 # the tensor-core body of both codecs (a template each .cu instantiates)
@@ -486,7 +513,7 @@ ATTN_POS = (0, 15, 16, 700, 1500, 2047, 3001, 4095)  # ragged rows
 # the prefill kernel (phase 6c): every width the scheduler emits at
 # --sched-prefill-chunk 16 is a power of two; these rows sit at position 0,
 # mid-page, across a page edge and near 4095 (clipped to 4096 - T)
-PREFILL_SRC = "dllama_tpu_torch/ops/csrc/paged_prefill_attention.cu"
+PREFILL_SRC = "dllama_tpu_torch/ops/csrc/paged_prefill_attention.cuh"
 PREFILL_REPLACES = "dllama_tpu/ops/attention.py:106 _rows_ceiling_attention"
 PREFILL_T = (2, 8, 16)
 # and the wide steps of each shape: the widest before the row cap went
@@ -501,6 +528,13 @@ PREFILL_PAGE0_POS = 640
 # ATTN_TOL: a sound body reads under 3e-5 of a query row's max, one that ran
 # single-pass TF32 or bf16 operands about 1e-3 or more
 PREFILL_F32_TOL = 1e-4
+# below this head dim phase 6c holds a query row to ATTN_TOL of its head's
+# max over the step's rows (``_prefill_rows_agree``), not of its own max
+PREFILL_NARROW_DH = 32
+# the widths of phase 6c's head dims other than 128: the serving chunk,
+# and a step of two row groups (256 query rows a kv head up to a padded Dh
+# of 128; 128 above it, where a block takes 64 rows)
+PREFILL_T_DH = {False: (16, 256), True: (16, 128)}
 # page sizes whose TMA boxes differ from 16's (--kv-page-size): 4 (a tile
 # is 8 pages of 8-row boxes, each reading past its page), 24 (a 32-row box
 # reads 8 rows past the page) and 100 (two 64-row segments, the second
@@ -1213,6 +1247,70 @@ def requests(cli, q40, m: str, t: str) -> None:
     torch.cuda.empty_cache()
 
 
+LEGACY_PROMPT = "Once upon a time"
+
+
+def write_legacy(mfile, v2_path: str, path: str) -> None:
+    """The legacy-magic twin of a v2 file, as the reference's older
+    converters wrote it: the arch as the magic, the 9-int header (no
+    weights float type), then the v2 file's tensor bytes."""
+    spec = mfile.read_spec(v2_path)
+    head = struct.pack("<10i", spec.arch, spec.dim, spec.hidden_dim, spec.n_layers,
+                       spec.n_heads, spec.n_kv_heads, spec.n_experts, spec.n_active_experts,
+                       spec.vocab_size, spec.seq_len)
+    with open(v2_path, "rb") as src, open(path, "wb") as dst:
+        dst.write(head)
+        src.seek(spec.header_size)
+        shutil.copyfileobj(src, dst, 16 << 20)
+
+
+def legacy_and_dense(cli, q40, mfile, m2: str, t: str) -> None:
+    """Phase 24: the same synthesized weights from a legacy-magic file (read
+    with ``--weights-float-type q40``) and from the v2 file: ``generate``'s
+    greedy bytes equal, every Q40 matmul on the kernels; then ``inference
+    --dequantize`` on the legacy file: dense bf16 weights (their products
+    plain matmuls: no Q40 launch), finite logits, its greedy text beside the
+    kernels' (the dequantized weights round to bf16, so a near tie may go
+    the other way)."""
+    legacy = m2 + ".legacy"
+    write_legacy(mfile, m2, legacy)
+    base = ["--tokenizer", t, "--prompt", LEGACY_PROMPT, "--temperature", "0"]
+    texts = {}
+    try:
+        for label, extra in (("v2", ["--model", m2]),
+                             ("legacy", ["--model", legacy, "--weights-float-type", "q40"])):
+            q40.reset_counters()
+            eng, out = run_cli(cli, ["generate", "--steps", "48", *base, *extra])
+            c = q40.counters()
+            if c["plain_calls"] or not c["kernel_launches"] or not torch.isfinite(
+                    eng.last_logits).all():
+                raise AssertionError(f"{label}: Q40 counters {c}, finite logits "
+                                     f"{bool(torch.isfinite(eng.last_logits).all())}")
+            texts[label] = [ln for ln in out.splitlines() if not ln.startswith("💡")]
+            del eng
+        if texts["v2"] != texts["legacy"]:
+            raise AssertionError(f"the legacy file's greedy text differs from its v2 twin's: "
+                                 f"{texts['legacy']!r} vs {texts['v2']!r}")
+        print(f"legacy-magic file (--weights-float-type q40) and its v2 twin: the same "
+              f"{len(texts['v2'][0])} greedy chars, every Q40 matmul on the kernels")
+        q40.reset_counters()
+        eng, out = run_cli(cli, ["inference", "--steps", "32", "--model", legacy,
+                                 "--weights-float-type", "q40", "--dequantize", *base])
+        c = q40.counters()
+        packed = [k for k, v in eng.params.items() if not isinstance(v, torch.Tensor)]
+        if c["kernel_launches"] or c["plain_calls"] or packed or not torch.isfinite(
+                eng.last_logits).all():
+            raise AssertionError(f"--dequantize: Q40 counters {c}, packed weights {packed}")
+        dense = {str(eng.params[k].dtype) for k in ("wq", "wo", "w1", "w2", "wcls")}
+        rate = [ln for ln in out.splitlines() if ln.startswith("Avg tokens / second")]
+        print(f"--dequantize inference on the legacy file: weights {sorted(dense)}, no Q40 "
+              f"launch, finite logits; {rate[0] if rate else ''}")
+        del eng
+    finally:
+        os.remove(legacy)
+    torch.cuda.empty_cache()
+
+
 @contextlib.contextmanager
 def routing_log(transformer, cfg, log: list):
     """Record the experts each MoE layer selects during one run (phase
@@ -1410,25 +1508,56 @@ def _percentile(xs, q: float) -> float:
     return float(np.percentile(np.asarray(xs, np.float64), q)) if xs else float("nan")
 
 
-def attn_bound(pos, hkv: int, dh: int, hq: int, kv_bytes: float) -> tuple[float, str]:
+def attn_bound(pos, hkv: int, dh: int, hq: int, kv_bytes: float,
+               q_bytes: int = 2) -> tuple[float, str]:
     """Least time for one paged decode read: the live K/V positions
     (pos_b + 1 per row, K and V, ``kv_bytes`` per element plus 4-byte
-    scales for int8) read once, q read and the output written once,
-    against the HBM rate; 4 flops per K/V element (QK and PV) against the
-    bf16 peak."""
+    scales for int8) read once, q read and the output written once
+    (``q_bytes`` an element), against the HBM rate; 4 flops per K/V
+    element (QK and PV) against the bf16 peak."""
     live = sum(int(p) + 1 for p in pos)
     nbytes = live * hkv * 2 * (dh * kv_bytes + (4 if kv_bytes == 1 else 0))
-    nbytes += len(pos) * hq * dh * 2 * 2 + len(pos) * 4
+    nbytes += len(pos) * hq * dh * q_bytes * 2 + len(pos) * 4
     b_ms = nbytes / HBM_BYTES_S * 1e3
     o_ms = 4.0 * live * hq * dh / BF16_FLOPS * 1e3
     return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
 
 
+# a pool codec's (pool dtype, q dtype) in phases 6 and 6c: an int8 pool's
+# operand is bf16; an f16 pool takes f16 queries (--buffer-float-type f16;
+# phase 6s serves it under bf16 ones), an f32 pool f32 ones
+ATTN_CODECS = {"bf16": (torch.bfloat16, torch.bfloat16), "int8": (torch.int8, torch.bfloat16),
+               "f16": (torch.float16, torch.float16), "f32": (torch.float32, torch.float32)}
+# head dims other than 128 (phases 6 and 6c): the widths the kernels took
+# no body for before (16 and 32 whole 64-column slabs of zeros for the
+# tensor cores; 80 and 96 a partial slab; 256 one consumer warpgroup a
+# block), on the bf16 and int8 pools, and f32 at 96 (kernel 8's FFMA body)
+ATTN_DH = (16, 32, 80, 96, 256)
+ATTN_DH_F32 = 96
+# query heads on kv heads past kernel 7's 8 a block (G = 16: two head
+# groups of 8 a kv head)
+ATTN_G16_HKV = 2
+
+
+def _pools(attention, codec: str, shape, g) -> tuple:
+    """Random K and V pools of ``codec`` (values 0.5·N(0, 1); int8 with its
+    scale planes) on the card: (pk, pv, scales, bytes an element)."""
+    dev = g.device
+    if codec == "int8":
+        pk, sk = attention.quantize_kv(torch.randn(shape, generator=g, device=dev) * 0.5)
+        pv, sv = attention.quantize_kv(torch.randn(shape, generator=g, device=dev) * 0.5)
+        return pk, pv, (sk, sv), 1
+    dt = ATTN_CODECS[codec][0]
+    pk = (torch.randn(shape, generator=g, device=dev) * 0.5).to(dt)
+    pv = (torch.randn(shape, generator=g, device=dev) * 0.5).to(dt)
+    return pk, pv, None, pk.element_size()
+
+
 def check_paged_attention(attention, dev, hkv: int = LLAMA2_7B["n_kv_heads"],
-                          codecs=("bf16", "int8")) -> dict:
-    """Phase 6, 32 query heads on ``hkv`` kv heads; returns {codec:
-    numbers} for the JSON line."""
-    B, H, DH, L = 8, LLAMA2_7B["n_heads"], 128, 3
+                          codecs=("bf16", "int8"), dh: int = 128) -> dict:
+    """Phase 6, 32 query heads on ``hkv`` kv heads of ``dh``; returns
+    {codec: numbers} for the JSON line."""
+    B, H, DH, L = 8, LLAMA2_7B["n_heads"], dh, 3
     maxp = LLAMA2_7B["seq_len"] // PAGE
     n_pages = 1 + B * maxp
     g = torch.Generator(device=dev)
@@ -1438,24 +1567,20 @@ def check_paged_attention(attention, dev, hkv: int = LLAMA2_7B["n_kv_heads"],
     table = torch.from_numpy((1 + rng.permutation(B * maxp)).reshape(B, maxp)
                              .astype(np.int32)).to(dev)
     pos = torch.tensor(ATTN_POS, dtype=torch.int32, device=dev)
-    q = torch.randn((B, H, 1, DH), generator=g, device=dev).to(torch.bfloat16)
+    q32 = torch.randn((B, H, 1, DH), generator=g, device=dev)
     flush = torch.ones(16 << 20, dtype=torch.float32, device=dev)
     shape = (L, n_pages, hkv, PAGE, DH)
     out = {}
-    splits, pps = attention.split_plan(maxp, B, hkv,
+    n_hg, gb = attention.head_groups(H // hkv)
+    splits, pps = attention.split_plan(maxp, B, hkv * n_hg,
                                        torch.cuda.get_device_properties(dev).multi_processor_count)
-    print(f"{H} query heads on {hkv} kv heads; split page walk: {splits} splits of {pps} "
-          f"pages, {attention.stage_pages(PAGE, pps)} pages a ring stage")
+    print(f"{H} query heads on {hkv} kv heads of {DH} ({n_hg} block(s) of {gb} a kv head); "
+          f"split page walk: {splits} splits of {pps} pages, "
+          f"{attention.stage_pages(PAGE, pps)} pages a ring stage")
     print("codec  kernel_ms  plain_ms  sdpa_ms  bound_ms(by)  share  max_abs_err  rel")
     for codec in codecs:
-        if codec == "bf16":
-            pk = (torch.randn(shape, generator=g, device=dev) * 0.5).to(torch.bfloat16)
-            pv = (torch.randn(shape, generator=g, device=dev) * 0.5).to(torch.bfloat16)
-            scales, kv_bytes = None, 2
-        else:
-            pk, sk = attention.quantize_kv(torch.randn(shape, generator=g, device=dev) * 0.5)
-            pv, sv = attention.quantize_kv(torch.randn(shape, generator=g, device=dev) * 0.5)
-            scales, kv_bytes = (sk, sv), 1
+        q = q32.to(ATTN_CODECS[codec][1])
+        pk, pv, scales, kv_bytes = _pools(attention, codec, shape, g)
         err = 0.0
         for layer in (0, L - 1):
             k = attention.paged_attention(q, pk, pv, layer, table, pos, scales)
@@ -1473,13 +1598,13 @@ def check_paged_attention(attention, dev, hkv: int = LLAMA2_7B["n_kv_heads"],
         p_ms = cold_ms(lambda: attention.paged_decode_attention(q, pk, pv, layer, table,
                                                                 pos, scales), 3, flush)
         ks, vs = scales if scales is not None else (None, None)
-        kg = attention.paged_gather_layer(pk, layer, table, ks).to(torch.bfloat16)
-        vg = attention.paged_gather_layer(pv, layer, table, vs).to(torch.bfloat16)
+        kg = attention.paged_gather_layer(pk, layer, table, ks).to(q.dtype)
+        vg = attention.paged_gather_layer(pv, layer, table, vs).to(q.dtype)
         mask = (torch.arange(kg.shape[2], device=dev)[None, :] <= pos[:, None].long())
         mask = mask[:, None, None, :]
         l_ms = cold_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
             q, kg, vg, attn_mask=mask, enable_gqa=H != hkv), 20, flush)
-        b_ms, by = attn_bound(ATTN_POS, hkv, DH, H, kv_bytes)
+        b_ms, by = attn_bound(ATTN_POS, hkv, DH, H, kv_bytes, q.element_size())
         print(f"{codec:5s} {k_ms:10.4f} {p_ms:9.4f} {l_ms:8.4f} {b_ms:9.4f}({by[0]}) "
               f"{b_ms / k_ms:6.1%} {err:12.6g} {err / scale:.2e}")
         out[codec] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
@@ -1558,7 +1683,8 @@ def body_report(codec) -> None:
                                  f"(smem {codec.MMA_SMEM[bm]}, stages {codec.MMA_STAGES[bm]})")
 
 
-def _prefill_rows_agree(attention, args, tol: float, label: str, pos_np):
+def _prefill_rows_agree(attention, args, tol: float, label: str, pos_np,
+                        head_max: bool = False):
     """Launch the prefill kernel twice on ``args`` (q of the main path's
     type) and once on an f32 q, whose output is f32 (the same operands:
     q rounds to the pool's operand either way); run the plain version on
@@ -1570,7 +1696,11 @@ def _prefill_rows_agree(attention, args, tol: float, label: str, pos_np):
     at position 0).  The two f32 outputs are compared before either rounds
     to bf16: that rounding alone moves a bf16 row up to one ulp (2^-7 of
     its max), and two roundings of answers that each sit within 0.7 % of
-    the exact one (f64) can land 1.15e-2 of the max apart.  Returns
+    the exact one (f64) can land 1.15e-2 of the max apart.  ``head_max``
+    (head dims below 32: PREFILL_NARROW_DH): a query row's yardstick is the
+    max|plain| over its (row, head)'s T query rows, since the max of a
+    16-wide row is too small a scale for the probabilities' bf16 rounding
+    (a row of 1000 keys at Dh 16 read 1.05e-2 of its own max).  Returns
     (max|kernel - plain|, max|plain|, each query row's relative error, and
     the same of the two outputs rounded to q's type)."""
     q, rest = args[0], args[1:]
@@ -1582,6 +1712,8 @@ def _prefill_rows_agree(attention, args, tol: float, label: str, pos_np):
     repeat = bool(torch.equal(k, k2)) and bool(torch.equal(k, kf.to(k.dtype)))
     diff = (kf - p).abs().amax(-1)  # (B, H, T): a query row each
     mag = p.abs().amax(-1)
+    if head_max:
+        mag = mag.amax(-1, keepdim=True).expand_as(mag)
     bad = diff > tol * mag
     if not torch.isfinite(kf).all() or bool(bad.any()) or not repeat:
         b_, h_, i_ = (int(x) for x in bad.nonzero()[0]) if bad.any() else (0, 0, 0)
@@ -1647,7 +1779,8 @@ def check_prefill_pages(attention, dev) -> None:
             torch.cuda.empty_cache()
 
 
-def check_prefill_attention(attention, dev, hkv: int, codecs=("bf16", "int8", "f32")) -> dict:
+def check_prefill_attention(attention, dev, hkv: int, codecs=("bf16", "int8", "f32"),
+                            dh: int = 128, widths=None) -> dict:
     """Phase 6c: the prefill kernel (t > 1 query rows over the paged pool)
     against its plain version (the gather, then the one-shot per-row-ceiling
     attention), 32 query heads on ``hkv`` kv heads, B = 8 rows at
@@ -1670,8 +1803,10 @@ def check_prefill_attention(attention, dev, hkv: int, codecs=("bf16", "int8", "f
     error, and the worst among the rows at positions >= 300, the kernel's
     time (cold L2, median of 20), the plain version's, the bound and SDPA's
     on K/V pre-gathered to the operand type with the boolean per-row mask
-    (a yardstick the port never calls).  Returns {(codec, t): numbers}."""
-    B, H, DH, L = 8, LLAMA2_7B["n_heads"], 128, 3
+    (a yardstick the port never calls).  ``dh`` and ``widths`` (default
+    PREFILL_T and the shape's wide steps) vary the head dim and the steps.
+    Returns {(codec, t): numbers}."""
+    B, H, DH, L = 8, LLAMA2_7B["n_heads"], dh, 3
     maxp = LLAMA2_7B["seq_len"] // PAGE
     n_pages = 1 + B * maxp
     g = torch.Generator(device=dev)
@@ -1683,9 +1818,9 @@ def check_prefill_attention(attention, dev, hkv: int, codecs=("bf16", "int8", "f
     flush = torch.ones(16 << 20, dtype=torch.float32, device=dev)
     shape = (L, n_pages, hkv, PAGE, DH)
     n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    widths = PREFILL_T + PREFILL_T_WIDE[H // hkv]
+    widths = widths or PREFILL_T + PREFILL_T_WIDE[H // hkv]
     out = {}
-    print(f"{H} query heads on {hkv} kv heads, 256 pages of {PAGE} a row, tiles of "
+    print(f"{H} query heads on {hkv} kv heads of {DH}, 256 pages of {PAGE} a row, tiles of "
           f"{attention.PREFILL_KEYS} keys; the block's layout as the build reports it "
           "(consumer warpgroups, threads, shared memory, ring stages, consumer registers "
           "after setmaxnreg, 0: unchanged)")
@@ -1693,17 +1828,9 @@ def check_prefill_attention(attention, dev, hkv: int, codecs=("bf16", "int8", "f
           "sdpa_ms  bound_ms(by)  share  max_abs_err  rel  row_rel  long_row_rel  "
           "bf16_row_rel  repeat")
     for codec in codecs:
-        kv_dt = {"bf16": torch.bfloat16, "f32": torch.float32}.get(codec)
-        q_dt = torch.float32 if codec == "f32" else torch.bfloat16
+        q_dt = ATTN_CODECS[codec][1]
         tol = PREFILL_F32_TOL if codec == "f32" else ATTN_TOL
-        if codec == "int8":
-            pk, sk = attention.quantize_kv(torch.randn(shape, generator=g, device=dev) * 0.5)
-            pv, sv = attention.quantize_kv(torch.randn(shape, generator=g, device=dev) * 0.5)
-            scales, kv_bytes = (sk, sv), 1
-        else:
-            pk = (torch.randn(shape, generator=g, device=dev) * 0.5).to(kv_dt)
-            pv = (torch.randn(shape, generator=g, device=dev) * 0.5).to(kv_dt)
-            scales, kv_bytes = None, pk.element_size()
+        pk, pv, scales, kv_bytes = _pools(attention, codec, shape, g)
         for t in widths:
             pos_np = np.array([min(p, LLAMA2_7B["seq_len"] - t) for p in PREFILL_POS], np.int32)
             pos = torch.from_numpy(pos_np).to(dev)
@@ -1723,7 +1850,8 @@ def check_prefill_attention(attention, dev, hkv: int, codecs=("bf16", "int8", "f
                     attention.paged_update_kv_rows(*scales, s_k, s_v, layer, pidx, oidx)
                 e, scale, rel, rel_q = _prefill_rows_agree(
                     attention, (q, pk, pv, layer, table, pos, scales), tol,
-                    f"prefill attention {codec} t={t} layer {layer}", pos_np)
+                    f"prefill attention {codec} t={t} layer {layer}", pos_np,
+                    head_max=DH < PREFILL_NARROW_DH)
                 err, abs_err = max(err, e / scale), max(abs_err, e)
                 row_err = max(row_err, float(rel.max()))
                 q_err = max(q_err, float(rel_q.max()))
@@ -1746,6 +1874,9 @@ def check_prefill_attention(attention, dev, hkv: int, codecs=("bf16", "int8", "f
             b_ms, by = prefill_bound(pos_np, t, hkv, DH, H, kv_bytes, maxp * PAGE)
             plan = attention.prefill_plan(B, H, hkv, t, PAGE, DH, maxp, kv_bytes, n_sms)
             lay = attention.prefill_layout(pk.dtype, DH, H // hkv * t)
+            if lay["group_rows"] != attention.prefill_group_rows(DH):
+                raise AssertionError(f"the build's row group {lay} is not the plan's "
+                                     f"{attention.prefill_group_rows(DH)} rows at Dh {DH}")
             print(f"{codec:5s} {t:4d} {plan.splits:4d} x {plan.pps:4d} {plan.groups:7d} "
                   f"{lay['warpgroups']:3d} {lay['threads']:3d} {lay['smem']:7d} "
                   f"{lay['stages']:3d} {lay['consumer_regs']:4d} {k_ms:10.4f} "
@@ -2127,6 +2258,8 @@ def serve_path(api, attention, q40, m: str, t: str, n_requests: int,
 # no body for before (an f32 pool; steps past 128 query rows a kv head)
 WIDE_PROMPTS = (600, 300, 90, 20)  # characters, about a token each
 WIDE_NEW = 16
+# single-token greedy steps each engine of 6s decodes after its mixed steps
+WIDE_GREEDY = 8
 
 
 def wide_serving(api, engine_mod, attention, m: str, t: str, extra: list[str], width: int,
@@ -2143,7 +2276,10 @@ def wide_serving(api, engine_mod, attention, m: str, t: str, extra: list[str], w
     replays it) beside an ``attn_impl="plain"`` engine on the same inputs:
     each step's logits within E2E_TOL of max|plain|, the kernel engine
     ``n_layers`` prefill launches a step and 0 plain calls, the plain one
-    none."""
+    none.  Then each engine decodes WIDE_GREEDY single-token greedy steps
+    from its own tokens (the kernel engine's kernel 7, ``n_layers`` launches
+    a step): its greedy tokens equal the plain engine's, or first differ
+    where the plain run's top-2 margin is a near tie (< NEAR_TIE of max)."""
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -2200,14 +2336,15 @@ def wide_serving(api, engine_mod, attention, m: str, t: str, extra: list[str], w
               f"{ac['prefill_plain_calls']}), widths {sorted(set(widths))}; {n_dec} "
               f"single-token forwards ({ac['kernel_launches']} kernel-7 launches)")
         out["prefill_launches"] = ac["prefill_launches"]
+        out["attn_launches"] = ac["kernel_launches"]
         # the first mixed forwards against the plain read, on a fresh pair
         b = 4
         kv = "q8" if eng.cache.quantized else eng.cache.k.dtype
-        pages = 3 * width // PAGE  # a row's pages for the three steps
+        pages = 3 * width // PAGE + 1  # a row's pages: the three steps, the greedy ones
         n_valid = np.array([width, 3 * width // 4, width // 2, width // 4], np.int32)
         toks = np.random.RandomState(25).randint(3, eng.cfg.vocab_size, (3, b, width))
         zeros = np.zeros(b, np.float32)
-        logits = {}
+        logits, greedy = {}, {}
         with sched.exclusive():
             for impl in ("auto", "plain"):
                 e2 = engine_mod.Engine(eng.cfg.with_(attn_impl=impl), eng.params,
@@ -2228,6 +2365,19 @@ def wide_serving(api, engine_mod, attention, m: str, t: str, extra: list[str], w
                     if (ac["prefill_launches"], ac["prefill_plain_calls"]) != want:
                         raise AssertionError(f"{label}: {impl} mixed step {i}: {ac}")
                 logits[impl] = torch.stack(steps)
+                tok, run = steps[-1].argmax(-1), [steps[-1]]
+                for j in range(WIDE_GREEDY):
+                    attention.reset_counters()
+                    e2.slot_step(tok.cpu().numpy().astype(np.int32)[:, None],
+                                 2 * width + n_valid + j, np.ones(b, np.int32),
+                                 temps_np=zeros, topps_np=zeros + 0.9, page_tables_np=ptab)
+                    ac = attention.counters()
+                    want = (L, 0) if impl == "auto" else (0, L)
+                    if (ac["kernel_launches"], ac["plain_calls"]) != want:
+                        raise AssertionError(f"{label}: {impl} greedy step {j}: {ac}")
+                    run.append(e2.last_logits.float())
+                    tok = run[-1].argmax(-1)
+                greedy[impl] = torch.stack(run, 1)  # (B, steps, V)
                 if impl == "auto":
                     mixed = [k for k in e2.graphs.cost if k.path == "mixed" and k.walk == width]
                     if not mixed:
@@ -2245,6 +2395,24 @@ def wide_serving(api, engine_mod, attention, m: str, t: str, extra: list[str], w
               f"{scale:.4g} ({err / scale:.2e}, limit {E2E_TOL:g}); {L} prefill launches a "
               f"step, 0 plain")
         out["logit_rel_err"] = err / scale
+        kt, pt = greedy["auto"].argmax(-1), greedy["plain"].argmax(-1)
+        ties = []
+        for r in range(b):
+            diff = (kt[r] != pt[r]).nonzero()
+            if len(diff):
+                j = int(diff[0])
+                top2 = greedy["plain"][r, j].topk(2).values
+                margin = float(top2[0] - top2[1])
+                big = float(greedy["plain"][r, j].abs().max())
+                if margin >= NEAR_TIE * big:
+                    raise AssertionError(f"{label}: greedy row {r} differs from the plain "
+                                         f"engine's at step {j}, top-2 margin {margin:.4g} of "
+                                         f"{big:.4g}: not a near tie")
+                ties.append((r, j, margin / big))
+        print(f"{label}: {WIDE_GREEDY + 1} greedy tokens a row, kernels against plain: "
+              + ("equal" if not ties else f"first differ at near ties {ties}") + "; kernel "
+              f"7 {L} launches a single-token step, 0 plain")
+        out["greedy_near_ties"] = len(ties)
         return out
     finally:
         api.stop(server)
@@ -4633,7 +4801,8 @@ def fleet_supervised(cli, pod_mod, obs_metrics, tok, m8: str, t: str) -> dict:
 
 def kernel_entries(run, run_tp, run_mix, run_blocked, run_q8, run_score, served, table,
                    tp_table, mix_table, blocked_table, q8_table, attn, attn_g4, ar_table,
-                   prefill, prefill_g4, var_table, var_runs, served_wide) -> list:
+                   prefill, prefill_g4, var_table, var_runs, served_wide, attn_dh, attn_g16,
+                   prefill_dh) -> list:
     """The ``kernels`` JSON line's entries: each kernel at the shapes of the
     phase that checked it, with the launches of the main path that ran it;
     raises when a kernel of a path was never launched there."""
@@ -4692,14 +4861,25 @@ def kernel_entries(run, run_tp, run_mix, run_blocked, run_q8, run_score, served,
                         if k[0] in {s for s, *_ in LLAMA_SITES}
                         and not (k[0] == "wcls" and k[1] > 1)},
                        run_q8["counts"]["launches_by_shape"], mma_name="q8_matmul.wgmma")
-    attn_rows = [(c, r, served[c]) for c, r in attn.items()]
-    attn_rows.append(("bf16,G=4", attn_g4["bf16"], served["g4"]))
-    kernels += [dict(name=f"paged_attention[{label}]", route="cuda", source=ATTN_SRC,
-                     replaces=ATTN_REPLACES, launches=run_["attn_launches"],
-                     max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
-                     bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-                     library_ms=r["library_ms"])
-                for label, r, run_ in attn_rows]
+    # kernel 7's bodies no path runs (Mixtral's shape on an f16 pool, the
+    # head dims and G no served model has) are held and timed in phase 6
+    # alone: launches 0
+    none = {"attn_launches": 0, "prefill_launches": 0}
+    attn_rows = [(c, r, served[c]) for c, r in attn.items() if c != "f16"]
+    attn_rows += [("bf16,G=4", attn_g4["bf16"], served["g4"]),
+                  ("f16", attn["f16"], served_wide["f16"]),
+                  ("f16,G=4", attn_g4["f16"], none)]
+    attn_rows += [(f"{c},dh={dh}", r, served_wide["dh96"] if (c, dh) == ("bf16", 96) else none)
+                  for (c, dh), r in attn_dh.items()]
+    attn_rows += [(f"{c},G=16", r, none) for c, r in attn_g16.items()]
+    attn_k = [dict(name=f"paged_attention[{label}]", route="cuda", source=ATTN_SRC,
+                   replaces=ATTN_REPLACES, launches=run_["attn_launches"],
+                   max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+                   bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                   library_ms=r["library_ms"])
+              for label, r, run_ in attn_rows]
+    held_only += [k for (_, _, run_), k in zip(attn_rows, attn_k) if run_ is none]
+    kernels += attn_k
     # the prefill kernel (the port's own: no Pallas counterpart) at the
     # serving paths' width T = 16, with the mixed steps' launches of the
     # run on that pool (phases 7, 7b, 11b); the f32 pool at T = 16 and the
@@ -4710,13 +4890,22 @@ def kernel_entries(run, run_tp, run_mix, run_blocked, run_q8, run_score, served,
                 ("bf16,G=4,t=16", prefill_g4[("bf16", 16)], served["g4"]),
                 ("f32,t=16", prefill[("f32", 16)], served_wide["f32"]),
                 ("bf16,t=256", prefill[("bf16", 256)], served_wide["t256"]),
-                ("bf16,G=4,t=64", prefill_g4[("bf16", 64)], served_wide["g4_t64"])]
-    kernels += [dict(name=f"paged_prefill_attention[{label}]", route="cuda",
-                     source=PREFILL_SRC, replaces=PREFILL_REPLACES,
-                     launches=run_["prefill_launches"], max_abs_err=r["max_abs_err"],
-                     ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-                     bound_by=r["bound_by"], library_ms=r["library_ms"])
-                for label, r, run_ in pre_rows]
+                ("bf16,G=4,t=64", prefill_g4[("bf16", 64)], served_wide["g4_t64"]),
+                ("f16,t=16", prefill[("f16", 16)], served_wide["f16"]),
+                ("f16,G=4,t=16", prefill_g4[("f16", 16)], none)]
+    # the new head dims at the serving chunk (T = 16) and at two row groups;
+    # phase 6s serves Dh 96 on a bf16 pool at T = 16
+    pre_rows += [(f"{c},dh={dh},t={t}", r,
+                  served_wide["dh96"] if (c, t, dh) == ("bf16", 16, 96) else none)
+                 for (c, t, dh), r in prefill_dh.items()]
+    pre_k = [dict(name=f"paged_prefill_attention[{label}]", route="cuda",
+                  source=PREFILL_SRC, replaces=PREFILL_REPLACES,
+                  launches=run_["prefill_launches"], max_abs_err=r["max_abs_err"],
+                  ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                  bound_by=r["bound_by"], library_ms=r["library_ms"])
+             for label, r, run_ in pre_rows]
+    held_only += [k for (_, _, run_), k in zip(pre_rows, pre_k) if run_ is none]
+    kernels += pre_k
     # kernel 4 on the tp = 2 7B path (phase 17), at its decode shape
     kernels.append(dict(name="tp_allreduce[tp=2,t=1,d=4096]", route="cuda", source=TP_SRC,
                         launches=run_tp["allreduce_launches"],
@@ -4797,18 +4986,36 @@ def main() -> int:
                                     json_rows=(1,))
     if run_phase(6):
         with phase("6 paged attention kernel vs plain at the 7B shape"):
-            attn = check_paged_attention(attention, dev)
+            build_report("paged_attention_split", "kernel 7")
+            attn = check_paged_attention(attention, dev, codecs=("bf16", "int8", "f16"))
         with phase("6b paged attention kernel vs plain at Mixtral's shape (G = 4)"):
             attn_g4 = check_paged_attention(attention, dev, MIXTRAL_8X7B["n_kv_heads"],
-                                            ("bf16",))
+                                            ("bf16", "f16"))
+        with phase(f"6 paged attention kernel vs plain at head dims {ATTN_DH} and at G = 16"):
+            attn_dh = {}
+            for dh in ATTN_DH:
+                codecs = ("bf16", "int8") + (("f32",) if dh == ATTN_DH_F32 else ())
+                for c, r in check_paged_attention(attention, dev, codecs=codecs, dh=dh).items():
+                    attn_dh[(c, dh)] = r
+            attn_g16 = check_paged_attention(attention, dev, ATTN_G16_HKV, ("bf16", "int8"))
     if run_phase(6) or run_phase("6c"):
         with phase("6c prefill attention kernel (t > 1) vs plain at the 7B shape"):
             prefill_build_report()
-            prefill = check_prefill_attention(attention, dev, LLAMA2_7B["n_kv_heads"])
+            prefill = check_prefill_attention(attention, dev, LLAMA2_7B["n_kv_heads"],
+                                              ("bf16", "int8", "f32", "f16"))
         with phase("6c prefill attention kernel (t > 1) vs plain at Mixtral's shape (G = 4)"):
-            prefill_g4 = check_prefill_attention(attention, dev, MIXTRAL_8X7B["n_kv_heads"])
+            prefill_g4 = check_prefill_attention(attention, dev, MIXTRAL_8X7B["n_kv_heads"],
+                                                 ("bf16", "int8", "f32", "f16"))
         with phase("6c prefill attention kernel (t > 1) vs plain at other page sizes"):
             check_prefill_pages(attention, dev)
+        with phase(f"6c prefill attention kernel (t > 1) vs plain at head dims {ATTN_DH}"):
+            prefill_dh = {}
+            for dh in ATTN_DH:
+                codecs = ("bf16", "int8") + (("f32",) if dh == ATTN_DH_F32 else ())
+                widths = PREFILL_T_DH[dh > 128]
+                for k, r in check_prefill_attention(attention, dev, LLAMA2_7B["n_kv_heads"],
+                                                    codecs, dh=dh, widths=widths).items():
+                    prefill_dh[(*k, dh)] = r
     if run_phase(16):
         with phase("16 kernel 4 (TP all-reduce) vs plain, every rank on cuda:0"):
             ar_table = check_allreduce(q40, dev)
@@ -4826,7 +5033,7 @@ def main() -> int:
             synth_model(m8, CUT_LAYERS, mfile, quants)
             print(f"synthesized {os.path.getsize(m8) / 1e9:.2f} GB (7B width, "
                   f"{CUT_LAYERS} layers)")
-        if any(map(run_phase, (4, 5, 8, 15, 18, "20b", "3v"))):
+        if any(map(run_phase, (4, 5, 8, 15, 18, "20b", "3v", 24))):
             synth_model(m2, 2, mfile, quants, fresh=True)
         if run_phase(3):
             with phase(f"3 main path: inference at Llama-2-7B width, {CUT_LAYERS} layers"):
@@ -4860,6 +5067,10 @@ def main() -> int:
         if run_phase(4):
             with phase("4 requests: generate (7B width, 2 layers)"):
                 requests(cli, q40, m2, t)
+        if run_phase(24):
+            with phase("24 a legacy-magic file with --weights-float-type, and --dequantize "
+                       "(7B width, 2 layers)"):
+                legacy_and_dense(cli, q40, mfile, m2, t)
         if any(map(run_phase, (5, 8, 15, "20b"))):
             # the 2-layer model is freed before phase 7's peak-memory reading
             small = load_bf16(mfile, params_mod, config, m2, dev)
@@ -4973,9 +5184,22 @@ def main() -> int:
                                            16, "f32 pool")
                 wide["t256"] = wide_serving(api, engine_mod, attention, m8, t,
                                             ["--sched-prefill-chunk", "256"], 256, "chunk 256")
+            # bf16 activations: at f16 ones the synthesized weights'
+            # activations overflow f16's range (NaN logits on the kernel
+            # and the plain engines alike)
+            with phase(f"6s serving on an f16 pool (7B width, {CUT_LAYERS} layers)"):
+                wide["f16"] = wide_serving(api, engine_mod, attention, m8, t,
+                                           ["--kv-cache-dtype", "f16"], 16, "f16 pool")
         for f in (m, m2, m8, m8 + ".sum"):
             if os.path.exists(f):
                 os.remove(f)
+        if run_phase("6s"):
+            with phase(f"6s serving at head dim 96 ({DH96['dim'] // DH96['n_heads']}: "
+                       f"Phi-3-mini's widths, 2 layers)"):
+                synth_model(m, 2, mfile, quants, fresh=True, dims=DH96)
+                wide["dh96"] = wide_serving(api, engine_mod, attention, m, t, [], 16,
+                                            "head dim 96")
+                os.remove(m)
         if run_phase(10):
             with phase(f"10 Q80 Llama-2-7B width, {CUT_LAYERS} layers: inference"):
                 synth_model(m, CUT_LAYERS, mfile, quants, ftype=quants.Q80)
@@ -5085,7 +5309,7 @@ def main() -> int:
     kernels = kernel_entries(run, run_tp, run_mix, run_blocked, run_q8, run_score, served,
                              table, tp_table, mix_table, blocked_table, q8_table, attn,
                              attn_g4, ar_table, prefill, prefill_g4, var_table, var_runs,
-                             wide)
+                             wide, attn_dh, attn_g16, prefill_dh)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -34,11 +34,14 @@ slot scheduler with a proposer (``runtime/spec.py``); ``inference
 ``torch.profiler`` after the run (``runtime/profiling.py``).
 ``--verify-weights`` checks each tensor against the model's checksum
 manifest (``io/integrity.py``); ``--step-timeout`` and
-``--numeric-checks`` arm the engine's watchdog and logits guard.  Modes
-and flags of the JAX CLI outside the port (``worker``, ``--sp``, ``--ep``,
-``--dp`` outside ``serve-pod``, and the flags in ``NOT_PORTED_FLAGS``: the
-elastic pod's, multi-host start-up's, ``--weights-float-type`` and
-``--dequantize``) exit with a message naming them as not yet ported.
+``--numeric-checks`` arm the engine's watchdog and logits guard.
+``--weights-float-type`` names the weights' type of a file whose header
+does not (the reference's legacy-magic files); ``--dequantize`` loads Q40
+and Q80 weights dense in the compute dtype (their products plain
+matmuls).  Modes and flags of the JAX CLI outside the port (``worker``,
+``--sp``, ``--ep``, ``--dp`` outside ``serve-pod``, and the flags in
+``NOT_PORTED_FLAGS``: the elastic pod's and multi-host start-up's) exit
+with a message naming them as not yet ported.
 
 ``python -m dllama_tpu_torch inference --model m.m --tokenizer t.t``
 """
@@ -52,6 +55,7 @@ import time
 
 import torch
 
+from . import quants
 from .device import DEVICES, resolve
 from .io import mfile, tfile
 from .models.config import ModelConfig
@@ -71,8 +75,7 @@ NOT_PORTED_MODES = ("worker",)
 # flags of the JAX CLI that the port does not carry, with the JAX defaults:
 # a value other than the default exits naming the flag
 NOT_PORTED_FLAGS = {
-    # multi-host and weight loading
-    "--weights-float-type": None, "--dequantize": False,
+    # multi-host start-up
     "--coordinator": None, "--nproc": None,
     "--proc-id": None, "--program": "generate",
     # the elastic pod (serve-pod --supervise --elastic)
@@ -97,6 +100,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--temperature", type=float, default=0.8)
     p.add_argument("--topp", type=float, default=0.9)
     p.add_argument("--seed", type=int, default=None, help="default: the clock")
+    p.add_argument("--weights-float-type", choices=list(quants.FLOAT_TYPE_BY_NAME),
+                   default=None,
+                   help="the weights' float type of a model file whose header names "
+                        "none (the reference's legacy-magic files); a header's own "
+                        "wins")
+    p.add_argument("--dequantize", action="store_true",
+                   help="load Q40/Q80 weights dense in the compute dtype instead of "
+                        "packed for their kernels (their products then run as plain "
+                        "matmuls; for numerics comparison)")
     p.add_argument("--buffer-float-type", choices=list(DTYPES) + ["q80"], default="bf16",
                    help="compute dtype; 'q80' is accepted for reference-command "
                         "parity and maps to bf16")
@@ -380,7 +392,8 @@ def read_model(args, tp: int, where: str) -> tuple[ModelConfig, dict, Tokenizer]
               "Q80's wire compression has no wire to compress here)")
         bft = "bf16"
     t0 = time.perf_counter()
-    with mfile.MFile(args.model, verify=args.verify_weights) as mf:
+    with mfile.MFile(args.model, verify=args.verify_weights,
+                     weights_ftype=weights_ftype(args)) as mf:
         cfg = ModelConfig.from_spec(mf.spec, dtype=DTYPES[bft])
         print(f"💡 arch: {mf.spec.arch_name}")
         print(f"💡 dim: {cfg.dim}\n💡 nLayers: {cfg.n_layers}\n💡 nHeads: {cfg.n_heads}")
@@ -391,12 +404,18 @@ def read_model(args, tp: int, where: str) -> tuple[ModelConfig, dict, Tokenizer]
             check_tp_constraint(cfg, tp)
         except ValueError as e:
             raise SystemExit(str(e)) from None
-        cfg, params = load_params(mf, cfg, fuse=tp == 1)
+        cfg, params = load_params(mf, cfg, fuse=tp == 1, keep_quantized=not args.dequantize)
     last_read_s = time.perf_counter() - t0
     tok = Tokenizer(tfile.read_tfile(args.tokenizer))
     if tok.vocab_size != cfg.vocab_size:
         raise SystemExit("tokenizer is incompatible with model (vocab size mismatch)")
     return cfg, params, tok
+
+
+def weights_ftype(args) -> int | None:
+    """``--weights-float-type`` as the file format's code, or None."""
+    name = args.weights_float_type
+    return quants.FLOAT_TYPE_BY_NAME[name] if name else None
 
 
 def _engine(args, cfg, params, device, mesh, batch: int) -> Engine:
@@ -415,13 +434,14 @@ def load_draft_engine(args, target: Engine) -> Engine:
     if not args.draft_model:
         raise SystemExit("--spec draft needs --draft-model")
     bft = "bf16" if args.buffer_float_type == "q80" else args.buffer_float_type
-    with mfile.MFile(args.draft_model) as mf:
+    with mfile.MFile(args.draft_model, weights_ftype=weights_ftype(args)) as mf:
         cfg = ModelConfig.from_spec(mf.spec, dtype=DTYPES[bft])
         if cfg.vocab_size != target.cfg.vocab_size:
             raise SystemExit("--draft-model vocab size differs from the target's "
                              "(drafted ids must be target token ids)")
         print(f"💡 draft arch: {mf.spec.arch_name} ({cfg.n_layers} layers, dim {cfg.dim})")
-        cfg, params = load_params(mf, cfg, fuse=target.tp == 1)
+        cfg, params = load_params(mf, cfg, fuse=target.tp == 1,
+                                  keep_quantized=not args.dequantize)
     return Engine(cfg, params, seq_len=target.seq_len, device=target.device,
                   batch=target.batch, mesh=target.mesh)
 

@@ -5,7 +5,11 @@ verification (``io/integrity.py``) and the ``io.read_tensor`` fault point:
 
 * header: magic ``0xA00ABCD``, an i32 ``headerSize`` (total header bytes
   incl. magic+size), then (key, value) i32 pairs, the weights float type
-  among them (legacy-magic files without it are not read).
+  among them; or a legacy magic ``0xABCD00``/``0xABCD01`` (the reference's
+  older converters: the magic is the architecture) and a fixed struct of 9
+  i32 (dim, hidden_dim, n_layers, n_heads, n_kv_heads, n_experts,
+  n_active_experts, vocab_size, seq_len), which names no weights float
+  type: the reader is given it (the CLI's ``--weights-float-type``).
 * tensor walk: embedding, then per layer q/k/v/wo, (router + per-expert
   up/gate/down | w1/w2/w3), rms_att, rms_ffn, (grok: rms_moe, rms_ffn2),
   then rms_final and wcls.  Matmul weights are stored row-major
@@ -29,6 +33,7 @@ from .. import quants
 from .integrity import ArtifactError, load_manifest_for, verify_bytes
 
 MAGIC_V2 = 0xA00ABCD
+LEGACY_MAGICS = (0xABCD00, 0xABCD01)
 
 ARCH_LLAMA = 0xABCD00
 ARCH_GROK1 = 0xABCD01
@@ -209,19 +214,29 @@ def validate_spec(spec: ModelSpec, path) -> ModelSpec:
     return spec
 
 
-def read_spec(path: str | os.PathLike) -> ModelSpec:
-    """Parse + validate a v2 `.m` header; the file must name its weights
-    float type.  (Legacy-magic files carry none; reading them needs the JAX
-    CLI's --weights-float-type, which is not ported.)"""
+def read_spec(path: str | os.PathLike, weights_ftype: int | None = None) -> ModelSpec:
+    """Parse + validate a `.m` header, v2 or legacy-magic.  A header's
+    weights float type wins over ``weights_ftype`` (the reference's
+    precedence); ``weights_ftype`` covers a file without one (every
+    legacy-magic file), and such a file without it is refused."""
     spec = ModelSpec()
     found_wft = False
     file_size = os.path.getsize(path)
     with open(path, "rb") as f:
         raw, _ = _read_exact(f, 4, path, "magic")
         (magic,) = struct.unpack("<i", raw)
+        if magic in LEGACY_MAGICS:
+            raw, _ = _read_exact(f, 36, path, "legacy header")
+            spec.arch = magic
+            (spec.dim, spec.hidden_dim, spec.n_layers, spec.n_heads, spec.n_kv_heads,
+             spec.n_experts, spec.n_active_experts, spec.vocab_size,
+             spec.seq_len) = struct.unpack("<9i", raw)
+            spec.header_size = 4 + 36
+            return _with_ftype(spec, found_wft, weights_ftype, path)
         if magic != MAGIC_V2:
             raise ArtifactError(path, "magic", "unsupported model file magic",
-                                offset=0, expected=hex(MAGIC_V2),
+                                offset=0,
+                                expected=[hex(MAGIC_V2)] + [hex(m) for m in LEGACY_MAGICS],
                                 got=hex(magic & 0xFFFFFFFF))
         raw, off = _read_exact(f, 4, path, "headerSize")
         (header_size,) = struct.unpack("<i", raw)
@@ -249,9 +264,20 @@ def read_spec(path: str | os.PathLike) -> ModelSpec:
             raise ArtifactError(path, "header key", "unsupported .m header key",
                                 offset=body_off + 8 * i,
                                 expected=f"0..{KEY_WEIGHTS_FLOAT_TYPE}", got=k)
+    return _with_ftype(spec, found_wft, weights_ftype, path)
+
+
+def _with_ftype(spec: ModelSpec, found_wft: bool, weights_ftype: int | None,
+                path) -> ModelSpec:
+    """``spec`` with the caller's weights float type where the header names
+    none (refused without one), validated."""
     if not found_wft:
-        raise ArtifactError(path, "header field weights_ftype",
-                            "model file does not specify weights float type")
+        if weights_ftype is None:
+            raise ArtifactError(
+                path, "header field weights_ftype",
+                "model file does not specify weights float type; pass weights_ftype "
+                "(the CLI's --weights-float-type)")
+        spec.weights_ftype = weights_ftype
     return validate_spec(spec, path)
 
 
@@ -264,9 +290,10 @@ class MFile:
     ``--verify-weights``).  ``verify=True`` without a manifest is an error:
     silently skipping requested verification would defeat it."""
 
-    def __init__(self, path: str | os.PathLike, verify: bool = False):
+    def __init__(self, path: str | os.PathLike, verify: bool = False,
+                 weights_ftype: int | None = None):
         self.path = os.fspath(path)
-        self.spec = read_spec(path)
+        self.spec = read_spec(path, weights_ftype)
         self.verify_weights = verify
         self.manifest = load_manifest_for(self.path)
         self._verified: set[str] = set()

@@ -128,17 +128,20 @@ def _stack_q_experts(mf: mfile.MFile, cfg: ModelConfig, fname: str, codec):
 
 
 def load_params(mf: mfile.MFile, cfg: ModelConfig | None = None,
-                device="cpu", fuse: bool = True) -> tuple[ModelConfig, Params]:
+                device="cpu", fuse: bool = True,
+                keep_quantized: bool = True) -> tuple[ModelConfig, Params]:
     """Load a `.m` file into the runtime layout on ``device``.
 
     Q40 and Q80 files keep their matmuls packed, fused into ``wqkv`` and
     ``w13`` unless ``fuse`` is False (the JAX package's
     ``keep_quantized=True, fuse=...``: tensor parallelism loads unfused,
     since a fused concat axis mixes the ranks' slices); F32/F16 files load
-    dense."""
+    dense, and so do Q40/Q80 ones with ``keep_quantized=False`` (the CLI's
+    ``--dequantize``: every weight dequantized to ``cfg.dtype``, its
+    products plain ``x @ w``, as the JAX package leaves them to XLA)."""
     if cfg is None:
         cfg = ModelConfig.from_spec(mf.spec)
-    codec = CODECS.get(mf.spec.weights_ftype)
+    codec = CODECS.get(mf.spec.weights_ftype) if keep_quantized else None
     L, dt = cfg.n_layers, cfg.dtype
 
     def per_layer(key):

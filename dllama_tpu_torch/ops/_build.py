@@ -28,14 +28,17 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PKG = os.path.dirname(HERE)
 CSRC = os.path.join(HERE, "csrc")
 SOURCES = ("q40_matmul.cu", "q8_matmul.cu", "paged_attention.cu", "tp_allreduce.cu",
-           "paged_prefill_attention.cu")
+           "paged_prefill_attention.cu", "paged_prefill_f32.cu", "paged_prefill_f16.cu",
+           "paged_prefill_int8.cu")
 # headers the sources include: hashed with them, so an edit rebuilds
-HEADERS = ("mma_common.cuh", "gemv_common.cuh", "sm90_common.cuh", "wgmma_matmul.cuh")
+HEADERS = ("mma_common.cuh", "gemv_common.cuh", "sm90_common.cuh", "wgmma_matmul.cuh",
+           "paged_prefill_attention.cuh")
 BUILD_DIR = os.path.join(PKG, "build")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -77,10 +80,22 @@ def library_path() -> str:
 
 def _run_all(cmds: list[list[str]]) -> str:
     """Run the commands as parallel processes; returns their joined output,
-    raises naming every one that failed, with its output."""
+    each command's followed by a line of its seconds; raises naming every
+    one that failed, with its output."""
+    t0 = time.perf_counter()
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                               text=True) for c in cmds]
-    outs = [p.communicate()[0] for p in procs]
+    outs = [""] * len(procs)
+
+    def wait(i):
+        out = procs[i].communicate()[0]
+        outs[i] = out + f"{os.path.basename(cmds[i][-1])}: {time.perf_counter() - t0:.1f} s\n"
+
+    waiters = [threading.Thread(target=wait, args=(i,)) for i in range(len(procs))]
+    for w in waiters:
+        w.start()
+    for w in waiters:
+        w.join()
     failed = [f"nvcc failed ({p.returncode}): {' '.join(cmd)}\n{out}"
               for cmd, p, out in zip(cmds, procs, outs) if p.returncode != 0]
     if failed:

@@ -489,18 +489,20 @@ def paged_gqa_attention_at(q: torch.Tensor, pool_k: torch.Tensor,
 # Counters (plain ints, bumped under ``ops.COUNT_LOCK``): ``kernel_launches`` counts launches of the kernel,
 # ``plain_calls`` calls that ran its plain version (a CPU tensor, or
 # impl="plain"); ``prefill_launches`` and ``prefill_plain_calls`` count the
-# same for the prefill kernel (csrc/paged_prefill_attention.cu, at the end
+# same for the prefill kernel (csrc/paged_prefill_attention.cuh, at the end
 # of the module).  :func:`reset_counters` zeroes them.
 
 kernel_launches = 0
 plain_calls = 0
 prefill_launches = 0
 prefill_plain_calls = 0
-# threads per block, ring stages, head-dim elements a thread holds: must
-# match kThreads, kStages and kVec in the source
+# threads per block, ring stages, head-dim elements a thread holds, query
+# heads a block serves at most: must match kThreads, kStages, kVec and
+# kHeads in the source
 THREADS = 128
 STAGES = 3
 VEC = 8
+HEADS_A_BLOCK = 8
 # the card's shared-memory limit per block (H100: 227 KB)
 MAX_SMEM = 232448
 # blocks the split plan aims for, per SM: about four waves of four
@@ -508,8 +510,22 @@ MAX_SMEM = 232448
 BLOCKS_PER_SM = 16
 # positions a ring stage aims to hold: one __syncthreads per stage
 STAGE_POSITIONS = 32
-_QTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_KVTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_QTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_KVTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2, torch.float16: 3}
+# head dims both paged kernels take: TMA copies rows whose strides are
+# multiples of 16 bytes (an int8 pool's row is Dh bytes) and wgmma's k is 16
+MAX_HEAD_DIM = 256
+
+
+def head_dim_ok(dh: int) -> bool:
+    """A head dim both paged kernels take: a multiple of 16 up to 256."""
+    return 0 < dh <= MAX_HEAD_DIM and dh % 16 == 0
+
+
+def _head_dim_refusal(dh: int) -> str:
+    return (f"head dim {dh}: the kernels take multiples of 16 up to {MAX_HEAD_DIM} (TMA "
+            "copies rows whose strides are multiples of 16 bytes, an int8 pool's row is "
+            "Dh bytes, and wgmma's k is 16)")
 
 
 def reset_counters() -> None:
@@ -545,14 +561,33 @@ def fused_paged_attention(q: torch.Tensor, pool_k: torch.Tensor,
     return paged_attention(q, pool_k, pool_v, layer, page_table, pos_rows, scales)
 
 
+def head_groups(g: int) -> tuple[int, int]:
+    """How pass 1 cuts the ``g`` query heads of a kv head: ``(n, heads)``,
+    ``n`` blocks side by side of up to ``heads`` (<= HEADS_A_BLOCK) query
+    heads each (one block up to G = 8; G = 16: two of 8; G = 12: two of 6)."""
+    n = -(-g // HEADS_A_BLOCK)
+    return n, -(-g // n)
+
+
+def lanes(dh: int) -> int:
+    """Threads a position takes in pass 1: the power of two at or above
+    ``dh / VEC`` (lanes past the head dim hold zeros)."""
+    c = 1
+    while c < dh // VEC:
+        c *= 2
+    return c
+
+
 def split_plan(maxp: int, b: int, hkv: int, n_sms: int) -> tuple[int, int]:
     """How pass 1 cuts each row's page walk: returns ``(splits, pps)``,
     ``splits`` ranges of ``pps`` consecutive pages that cover pages
     ``0..maxp-1`` once.  From host shapes alone (no position): the grid
     ``(hkv, b, splits)`` aims for ``BLOCKS_PER_SM`` blocks an SM, the split
     count a power of two (Llama-2-7B at B = 8 on 132 SMs: 8 splits of 32
-    pages; Mixtral's 8 kv heads: 32 of 8).  The kernel clips each split to
-    the row's live pages on the device; pass 2 combines the live ones."""
+    pages; Mixtral's 8 kv heads: 32 of 8).  Above 8 query heads a kv head
+    the caller passes ``hkv`` times its head groups (:func:`head_groups`),
+    the grid's first extent.  The kernel clips each split to the row's
+    live pages on the device; pass 2 combines the live ones."""
     want = max(1, -(-BLOCKS_PER_SM * n_sms // max(1, b * hkv)))
     splits = min(1 << (want.bit_length() - 1), maxp)
     pps = -(-maxp // splits)
@@ -566,13 +601,14 @@ def stage_pages(ps: int, pps: int) -> int:
 
 
 def smem_bytes(g: int, ps: int, dh: int, kv_bytes: int, pp: int) -> int:
-    """Dynamic shared memory of one pass-1 block (mirrors the source's
-    carve-up): ``STAGES`` ring stages of ``pp`` K and V pages (plus their
-    f32 scale rows for an int8 pool), each stage rounded up to 16 bytes;
-    the position groups' ``(acc[dh], m, l)`` reuse the ring at the end."""
+    """Dynamic shared memory of one pass-1 block of ``g`` query heads
+    (mirrors the source's carve-up): ``STAGES`` ring stages of ``pp`` K and
+    V pages (plus their f32 scale rows for an int8 pool), each stage
+    rounded up to 16 bytes; the position groups' ``(acc[dh], m, l)`` reuse
+    the ring at the end."""
     stage = pp * (2 * ps * dh * kv_bytes + (8 * ps if kv_bytes == 1 else 0))
     stage = -(-stage // 16) * 16
-    groups = THREADS // (dh // VEC) * g * (dh + 2) * 4
+    groups = THREADS // lanes(dh) * g * (dh + 2) * 4
     return max(STAGES * stage, groups)
 
 
@@ -597,7 +633,8 @@ def _check_pools(q: torch.Tensor, pool_k: torch.Tensor, pool_v: torch.Tensor, la
     n_layers, n_pages, hkv, ps, dh_kv = pool_k.shape
     _require(dh_kv == dh, f"head dim {dh_kv} vs q's {dh}", who)
     _require(hq % hkv == 0, f"{hq} query heads not a multiple of {hkv} kv heads", who)
-    _require(q.dtype in _QTYPES, f"q dtype {q.dtype} not float32/bfloat16", who)
+    _require(q.dtype in _QTYPES, f"q dtype {q.dtype} not float32/bfloat16/float16", who)
+    _require(head_dim_ok(dh), _head_dim_refusal(dh), who)
     _require(pool_k.dtype in kv_types and pool_v.dtype == pool_k.dtype,
              f"pool dtypes {pool_k.dtype}/{pool_v.dtype} not one of "
              f"{'/'.join(str(t).split('.')[-1] for t in kv_types)}", who)
@@ -632,12 +669,13 @@ def paged_attention(q: torch.Tensor, pool_k: torch.Tensor, pool_v: torch.Tensor,
                     layer: int, page_table: torch.Tensor, pos_rows: torch.Tensor,
                     scales: tuple[torch.Tensor, torch.Tensor] | None = None
                     ) -> torch.Tensor:
-    """Launch the fused paged-attention kernel: q (B, Hq, 1, Dh) f32/bf16
-    against the pools (L, P, Hkv, ps, Dh) bf16/f32, or int8 with (k, v)
-    f32 scale planes (L, P, Hkv, ps, 1), through ``page_table`` (B, maxp)
-    int32 at per-row positions ``pos_rows`` (B,) int32 → (B, Hq, 1, Dh) in
-    q's dtype.  CUDA tensors only; no host sync (the page table, the
-    positions and the layer are read on the device)."""
+    """Launch the fused paged-attention kernel: q (B, Hq, 1, Dh)
+    f32/bf16/f16 against the pools (L, P, Hkv, ps, Dh) f32/bf16/f16, or
+    int8 with (k, v) f32 scale planes (L, P, Hkv, ps, 1), through
+    ``page_table`` (B, maxp) int32 at per-row positions ``pos_rows`` (B,)
+    int32 → (B, Hq, 1, Dh) in q's dtype; Dh a multiple of 16 up to 256, any
+    number of query heads a kv head.  CUDA tensors only; no host sync (the
+    page table, the positions and the layer are read on the device)."""
     global kernel_launches
     _require(q.is_cuda, f"q must be a CUDA tensor, got device {q.device}")
     dev = q.device
@@ -646,14 +684,12 @@ def paged_attention(q: torch.Tensor, pool_k: torch.Tensor, pool_v: torch.Tensor,
     layer = _check_pools(q, pool_k, pool_v, layer, page_table, pos_rows, scales,
                          _KVTYPES, "paged_attention")
     n_layers, n_pages, hkv, ps, _ = pool_k.shape
-    _require(dh in (16, 32, 64, 128, 256), f"head dim {dh} (one of 16, 32, 64, 128, 256)")
-    _require(hq // hkv <= 8, f"{hq} query heads on {hkv} kv heads: at most 8 a kv head")
-    g = hq // hkv
+    n_hg, gb = head_groups(hq // hkv)
     maxp = page_table.shape[1]
-    splits, pps = split_plan(maxp, b, hkv, _sm_count(dev))
+    splits, pps = split_plan(maxp, b, hkv * n_hg, _sm_count(dev))
     pp = stage_pages(ps, pps)
-    smem = smem_bytes(g, ps, dh, pool_k.element_size(), pp)
-    _require(smem <= MAX_SMEM, f"page of {ps}x{dh} with {g} query heads needs "
+    smem = smem_bytes(gb, ps, dh, pool_k.element_size(), pp)
+    _require(smem <= MAX_SMEM, f"page of {ps}x{dh} with {gb} query heads a block needs "
              f"{smem} B of shared memory (max {MAX_SMEM})")
     from . import _build
     lib = _build.load()
@@ -698,17 +734,18 @@ def bind(lib):
 
 
 # ---------------------------------------------------------------------------
-# The prefill kernel (csrc/paged_prefill_attention.cu): t > 1 query rows
+# The prefill kernel (csrc/paged_prefill_attention.cuh): t > 1 query rows
 # over the paged pool with per-row ceilings, the mixed slot step's read.
 
-# query rows a block takes (a row group; wider steps have more groups) and
-# keys a tile: the split plan's two numbers from the source (kRows, kKeys),
+# query rows a block takes (a row group; wider steps have more groups), 64
+# above a padded head dim of 128 (:func:`prefill_group_rows`), and keys a
+# tile: the split plan's numbers from the source (kRows, kWgRows, kKeys),
 # which owns the rest of the block's layout (:func:`prefill_layout`)
 PREFILL_MAX_ROWS = 128
+PREFILL_WG_ROWS = 64
 PREFILL_KEYS = 64
-# head dims the source instantiates, and the pools it reads
-PREFILL_DH = (64, 128)
-_PREFILL_KV = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+# the pools it reads, by the source's codes
+_PREFILL_KV = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2, torch.float16: 3}
 # the split plan: the partials, written and read back, stay under this
 # share of the K/V bytes at full table length; the grid aims for this many
 # blocks an SM (ragged rows balance)
@@ -742,20 +779,36 @@ def prefill_pages_a_tile(ps: int) -> int:
     return max(1, PREFILL_KEYS // br // -(-ps // br))
 
 
+def prefill_padded_dh(dh: int) -> int:
+    """The head dim the tensor-core body computes at: ``dh`` rounded up to
+    whole 64-column slabs (the columns past ``dh`` are zeros)."""
+    return -(-dh // 64) * 64
+
+
+def prefill_group_rows(dh: int) -> int:
+    """Query rows a block of the prefill kernel takes at head dim ``dh``
+    (the source's rows_a_group): 128, or 64 above a padded head dim of 128,
+    where one consumer warpgroup holds the 96-128 PV accumulators a
+    thread that two could not without spilling."""
+    return PREFILL_WG_ROWS if prefill_padded_dh(dh) > 128 else PREFILL_MAX_ROWS
+
+
 def prefill_layout(pool_dtype: torch.dtype, dh: int, rows: int) -> dict:
     """The pass-1 block the source launches for ``rows`` = G·T query rows a
     kv head on a ``pool_dtype`` pool, as the build reports it
     (``paged_prefill_layout``): consumer ``warpgroups`` (0 for the f32
     body), ``threads``, dynamic shared memory ``smem`` in bytes, ring
-    ``stages`` and ``consumer_regs`` (registers a consumer thread after
-    setmaxnreg, 0 when unchanged).  Builds the kernels (needs ``nvcc``)."""
+    ``stages``, ``consumer_regs`` (registers a consumer thread after
+    setmaxnreg, 0 when unchanged) and ``group_rows`` (query rows a block).
+    Builds the kernels (needs ``nvcc``)."""
     _require(pool_dtype in _PREFILL_KV, f"a {pool_dtype} pool", _PREFILL)
     from . import _build
     lib = _build.load()
-    out = (ctypes.c_int * 5)()
+    out = (ctypes.c_int * 6)()
     rc = lib.paged_prefill_layout(_PREFILL_KV[pool_dtype], dh, rows, out)
     _require(rc == 0, f"no layout at head dim {dh}", _PREFILL)
-    return dict(zip(("warpgroups", "threads", "smem", "stages", "consumer_regs"), out))
+    return dict(zip(("warpgroups", "threads", "smem", "stages", "consumer_regs",
+                     "group_rows"), out))
 
 
 def prefill_plan(b: int, hq: int, hkv: int, t: int, ps: int, dh: int, maxp: int,
@@ -767,13 +820,14 @@ def prefill_plan(b: int, hq: int, hkv: int, t: int, ps: int, dh: int, maxp: int,
     under ``PREFILL_PARTIAL_SHARE`` of the K/V bytes at full table length,
     up to ``PREFILL_BLOCKS_PER_SM`` blocks an SM (ragged rows balance); a
     grid under half the SMs takes enough splits to fill them whatever the
-    partials cost.  A split walks whole tiles.  Raises on a head dim the
-    source does not instantiate."""
-    _require(dh in PREFILL_DH, f"head dim {dh} (the kernel takes {PREFILL_DH})", _PREFILL)
+    partials cost.  A split walks whole tiles; a row group is
+    :func:`prefill_group_rows` query rows.  Raises on a head dim the
+    kernels do not take."""
+    _require(head_dim_ok(dh), _head_dim_refusal(dh), _PREFILL)
     _require(hq % hkv == 0, f"{hq} query heads not a multiple of {hkv} kv heads", _PREFILL)
     _require(t >= 1, f"{t} tokens a row", _PREFILL)
     rows = hq // hkv * t
-    groups = -(-rows // PREFILL_MAX_ROWS)
+    groups = -(-rows // prefill_group_rows(dh))
     kv_pair = maxp * ps * 2 * (dh * kv_bytes + (4 if kv_bytes == 1 else 0))
     part_split = 2 * rows * (dh + 2) * 4
     blocks = b * hkv * groups
@@ -790,14 +844,21 @@ def prefill_plan(b: int, hq: int, hkv: int, t: int, ps: int, dh: int, maxp: int,
 
 
 def check_prefill_config(pool_dtype: torch.dtype, dh: int) -> None:
-    """Raise, before any request, when the prefill kernel could not read a
-    paged pool on the card: a pool other than f32, bf16 or int8 (f16 has no
-    body), or a head dim the source does not instantiate.  Any step width
-    and page size passes."""
+    """Raise, before any request, when the paged kernels could not read a
+    paged pool on the card: a pool other than f32, bf16, f16 or int8, or a
+    head dim that is not a multiple of 16 up to 256 (TMA's row strides,
+    wgmma's k).  Any step width and page size passes."""
     _require(pool_dtype in _PREFILL_KV,
-             f"a {pool_dtype} pool on the card: the kernel reads f32, bf16 or int8 pools "
-             "(set the KV cache dtype to f32, bf16 or q8, or use attn_impl='plain')", _PREFILL)
-    _require(dh in PREFILL_DH, f"head dim {dh} (the kernel takes {PREFILL_DH})", _PREFILL)
+             f"a {pool_dtype} pool on the card: the kernels read f32, bf16, f16 or int8 "
+             "pools (set the KV cache dtype to one of them, or use attn_impl='plain')",
+             _PREFILL)
+    _require(head_dim_ok(dh), _head_dim_refusal(dh), _PREFILL)
+
+
+def _prefill_operand(pool_dtype: torch.dtype) -> torch.dtype:
+    """The operand type of q and the probabilities on a pool: the pool's
+    own, bf16 for int8 (its dequantized values are bf16)."""
+    return torch.bfloat16 if pool_dtype == torch.int8 else pool_dtype
 
 
 def paged_prefill_attention(q: torch.Tensor, pool_k: torch.Tensor,
@@ -824,13 +885,14 @@ def prefill_attention(q: torch.Tensor, pool_k: torch.Tensor, pool_v: torch.Tenso
                       layer: int, page_table: torch.Tensor, pos_rows: torch.Tensor,
                       scales: tuple[torch.Tensor, torch.Tensor] | None = None
                       ) -> torch.Tensor:
-    """Launch the prefill kernel: q (B, Hq, T, Dh) f32/bf16 (rounded to the
-    pool's operand: bf16 for a bf16 or int8 pool, f32 for an f32 one)
-    against the pools (L, P, Hkv, ps, Dh) f32 or bf16, or int8 with (k, v)
-    f32 scale planes (L, P, Hkv, ps, 1), through ``page_table`` (B, maxp)
-    int32 at per-row positions ``pos_rows`` (B,) int32 → (B, Hq, T, Dh) in
-    q's dtype.  CUDA tensors only; no host sync (the page table, the
-    positions and the layer are read on the device)."""
+    """Launch the prefill kernel: q (B, Hq, T, Dh) f32/bf16/f16 (rounded to
+    the pool's operand: bf16 for a bf16 or int8 pool, f16 for an f16 one,
+    f32 for an f32 one) against the pools (L, P, Hkv, ps, Dh) f32, bf16 or
+    f16, or int8 with (k, v) f32 scale planes (L, P, Hkv, ps, 1), through
+    ``page_table`` (B, maxp) int32 at per-row positions ``pos_rows`` (B,)
+    int32 → (B, Hq, T, Dh) in q's dtype; Dh a multiple of 16 up to 256.
+    CUDA tensors only; no host sync (the page table, the positions and the
+    layer are read on the device)."""
     global prefill_launches
     _require(q.is_cuda, f"q must be a CUDA tensor, got device {q.device}", _PREFILL)
     dev = q.device
@@ -849,7 +911,7 @@ def prefill_attention(q: torch.Tensor, pool_k: torch.Tensor, pool_v: torch.Tenso
     plan = prefill_plan(b, hq, hkv, t, ps, dh, maxp, pool_k.element_size(), _sm_count(dev))
     from . import _build
     lib = _build.load()
-    qc = q.to(torch.float32 if pool_k.dtype == torch.float32 else torch.bfloat16).contiguous()
+    qc = q.to(_prefill_operand(pool_k.dtype)).contiguous()
     if qc.data_ptr() % 16:  # the query tile is read in 16-byte pieces
         qc = qc.clone()
     out = torch.empty(q.shape, dtype=q.dtype, device=dev)

@@ -1,0 +1,10 @@
+// Kernel 8's int8 pool bodies (paged_prefill_attention.cuh), instantiated
+// apart from the others so that nvcc builds them in parallel.
+
+#include "paged_prefill_attention.cuh"
+
+namespace dllama_prefill {
+
+cudaError_t pass1_int8(int dhp, const Args& a) { return pass1_tc<int8_t>(dhp, a); }
+
+}  // namespace dllama_prefill

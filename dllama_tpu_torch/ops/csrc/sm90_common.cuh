@@ -3,17 +3,21 @@
 // tensor-core body of the Q40 and Q80 kernels, 1-3 and 5-6): mbarriers, TMA tile copies and the
 // cp.async arrivals a stage barrier can track, the async-proxy fence,
 // wgmma's fence / commit / wait, the 128-byte-swizzle descriptors and
-// the SS / RS wgmma wrappers (bf16 in, f32 accumulate), and the host's
+// the SS / RS wgmma wrappers (bf16 or f16 in, f32 accumulate: templates
+// on the operand type, bf16 by default), and the host's
 // tensor-map encoder (cuTensorMapEncodeTiled through the runtime's driver
 // entry point: no -lcuda) with a cache of encoded maps.
 
 #pragma once
 
 #include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <mutex>
+#include <type_traits>
 
 namespace {
 
@@ -82,6 +86,11 @@ __device__ __forceinline__ void wg_wait_n() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
+// the operand types of the wrappers below
+template <typename T>
+constexpr bool kWgmmaOperand =
+    std::is_same<T, __nv_bfloat16>::value || std::is_same<T, __half>::value;
+
 // the accumulators are written by wgmma behind the compiler's back: pin
 // them after a wait
 template <int N>
@@ -98,134 +107,299 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint
          (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
 }
 
-// d (+)= A B, m64nNk16, A and B from shared memory, both K-major; `acc`
+// d (+)= A B, m64n64k16, A and B from shared memory, both K-major; `acc`
 // 0 ignores d's old value (scale-d)
+#define DLLAMA_WGMMA(TY) \
+  asm volatile( \
+        "{\n.reg .pred p;\n" \
+        "setp.ne.b32 p, %34, 0;\n" \
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {" \
+        "%0, %1, %2, %3, %4, %5, %6, %7, " \
+        "%8, %9, %10, %11, %12, %13, %14, %15, " \
+        "%16, %17, %18, %19, %20, %21, %22, %23, " \
+        "%24, %25, %26, %27, %28, %29, %30, %31" \
+        "}, %32, %33, p, 1, 1, 0, 0;\n}\n" \
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), \
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), \
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), \
+          "+f"(d[30]), "+f"(d[31]) \
+        : "l"(a), "l"(b), "r"(acc))
+template <typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a, uint64_t b, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(acc));
+  static_assert(kWgmmaOperand<T>, "wgmma's operands here are bf16 or f16");
+  if constexpr (std::is_same<T, __half>::value) {
+    DLLAMA_WGMMA("f16");
+  } else {
+    DLLAMA_WGMMA("bf16");
+  }
 }
+#undef DLLAMA_WGMMA
 
-// d += A B, m64nNk16, A from registers (bf16 pairs), B MN-major
+// d += A B, m64n64k16, A from registers (operand pairs), B MN-major
+#define DLLAMA_WGMMA(TY) \
+  asm volatile( \
+        "{\n.reg .pred p;\n" \
+        "setp.ne.b32 p, %37, 0;\n" \
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {" \
+        "%0, %1, %2, %3, %4, %5, %6, %7, " \
+        "%8, %9, %10, %11, %12, %13, %14, %15, " \
+        "%16, %17, %18, %19, %20, %21, %22, %23, " \
+        "%24, %25, %26, %27, %28, %29, %30, %31" \
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n" \
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), \
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), \
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), \
+          "+f"(d[30]), "+f"(d[31]) \
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1))
+template <typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  static_assert(kWgmmaOperand<T>, "wgmma's operands here are bf16 or f16");
+  if constexpr (std::is_same<T, __half>::value) {
+    DLLAMA_WGMMA("f16");
+  } else {
+    DLLAMA_WGMMA("bf16");
+  }
 }
+#undef DLLAMA_WGMMA
 
+// d += A B, m64n128k16, A from registers (operand pairs), B MN-major
+#define DLLAMA_WGMMA(TY) \
+  asm volatile( \
+        "{\n.reg .pred p;\n" \
+        "setp.ne.b32 p, %69, 0;\n" \
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " {" \
+        "%0, %1, %2, %3, %4, %5, %6, %7, " \
+        "%8, %9, %10, %11, %12, %13, %14, %15, " \
+        "%16, %17, %18, %19, %20, %21, %22, %23, " \
+        "%24, %25, %26, %27, %28, %29, %30, %31, " \
+        "%32, %33, %34, %35, %36, %37, %38, %39, " \
+        "%40, %41, %42, %43, %44, %45, %46, %47, " \
+        "%48, %49, %50, %51, %52, %53, %54, %55, " \
+        "%56, %57, %58, %59, %60, %61, %62, %63" \
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n" \
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), \
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), \
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), \
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), \
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), \
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), \
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), \
+          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), \
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]) \
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1))
+template <typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  static_assert(kWgmmaOperand<T>, "wgmma's operands here are bf16 or f16");
+  if constexpr (std::is_same<T, __half>::value) {
+    DLLAMA_WGMMA("f16");
+  } else {
+    DLLAMA_WGMMA("bf16");
+  }
 }
+#undef DLLAMA_WGMMA
 
-// d (+)= A B, m64nNk16, A from registers (bf16 pairs: wgmma's A fragment),
-// B K-major from shared memory (no transpose); `acc` 0 ignores d's old
-// value (scale-d)
-__device__ __forceinline__ void wgmma_rs_kmaj_n16(float (&d)[8], const uint32_t (&a)[4], uint64_t b,
-                                                  int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7"
-      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+// d += A B, m64n192k16, A from registers (operand pairs), B MN-major
+#define DLLAMA_WGMMA(TY) \
+  asm volatile( \
+        "{\n.reg .pred p;\n" \
+        "setp.ne.b32 p, %101, 0;\n" \
+        "wgmma.mma_async.sync.aligned.m64n192k16.f32." TY "." TY " {" \
+        "%0, %1, %2, %3, %4, %5, %6, %7, " \
+        "%8, %9, %10, %11, %12, %13, %14, %15, " \
+        "%16, %17, %18, %19, %20, %21, %22, %23, " \
+        "%24, %25, %26, %27, %28, %29, %30, %31, " \
+        "%32, %33, %34, %35, %36, %37, %38, %39, " \
+        "%40, %41, %42, %43, %44, %45, %46, %47, " \
+        "%48, %49, %50, %51, %52, %53, %54, %55, " \
+        "%56, %57, %58, %59, %60, %61, %62, %63, " \
+        "%64, %65, %66, %67, %68, %69, %70, %71, " \
+        "%72, %73, %74, %75, %76, %77, %78, %79, " \
+        "%80, %81, %82, %83, %84, %85, %86, %87, " \
+        "%88, %89, %90, %91, %92, %93, %94, %95" \
+        "}, {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n" \
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), \
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), \
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), \
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), \
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), \
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), \
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), \
+          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), \
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), \
+          "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), \
+          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), \
+          "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), \
+          "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), \
+          "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]) \
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1))
+template <typename T = __nv_bfloat16>
+__device__ __forceinline__ void wgmma_rs_n192(float (&d)[96], const uint32_t (&a)[4], uint64_t b) {
+  static_assert(kWgmmaOperand<T>, "wgmma's operands here are bf16 or f16");
+  if constexpr (std::is_same<T, __half>::value) {
+    DLLAMA_WGMMA("f16");
+  } else {
+    DLLAMA_WGMMA("bf16");
+  }
 }
+#undef DLLAMA_WGMMA
 
-__device__ __forceinline__ void wgmma_rs_kmaj_n32(float (&d)[16], const uint32_t (&a)[4], uint64_t b,
-                                                  int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15"
-      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+// d += A B, m64n256k16, A from registers (operand pairs), B MN-major
+#define DLLAMA_WGMMA(TY) \
+  asm volatile( \
+        "{\n.reg .pred p;\n" \
+        "setp.ne.b32 p, %133, 0;\n" \
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32." TY "." TY " {" \
+        "%0, %1, %2, %3, %4, %5, %6, %7, " \
+        "%8, %9, %10, %11, %12, %13, %14, %15, " \
+        "%16, %17, %18, %19, %20, %21, %22, %23, " \
+        "%24, %25, %26, %27, %28, %29, %30, %31, " \
+        "%32, %33, %34, %35, %36, %37, %38, %39, " \
+        "%40, %41, %42, %43, %44, %45, %46, %47, " \
+        "%48, %49, %50, %51, %52, %53, %54, %55, " \
+        "%56, %57, %58, %59, %60, %61, %62, %63, " \
+        "%64, %65, %66, %67, %68, %69, %70, %71, " \
+        "%72, %73, %74, %75, %76, %77, %78, %79, " \
+        "%80, %81, %82, %83, %84, %85, %86, %87, " \
+        "%88, %89, %90, %91, %92, %93, %94, %95, " \
+        "%96, %97, %98, %99, %100, %101, %102, %103, " \
+        "%104, %105, %106, %107, %108, %109, %110, %111, " \
+        "%112, %113, %114, %115, %116, %117, %118, %119, " \
+        "%120, %121, %122, %123, %124, %125, %126, %127" \
+        "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n" \
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), \
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), \
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), \
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), \
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), \
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), \
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), \
+          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), \
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), \
+          "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), \
+          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), \
+          "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), \
+          "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), \
+          "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), \
+          "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), \
+          "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), \
+          "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), \
+          "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), \
+          "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), \
+          "+f"(d[126]), "+f"(d[127]) \
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1))
+template <typename T = __nv_bfloat16>
+__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128], const uint32_t (&a)[4], uint64_t b) {
+  static_assert(kWgmmaOperand<T>, "wgmma's operands here are bf16 or f16");
+  if constexpr (std::is_same<T, __half>::value) {
+    DLLAMA_WGMMA("f16");
+  } else {
+    DLLAMA_WGMMA("bf16");
+  }
 }
+#undef DLLAMA_WGMMA
 
-__device__ __forceinline__ void wgmma_rs_kmaj_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t b,
-                                                  int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+// d (+)= A B, m64n16k16, A from registers (operand pairs: wgmma's A
+// fragment), B K-major from shared memory (no transpose); `acc` 0 ignores
+// d's old value (scale-d)
+#define DLLAMA_WGMMA(TY) \
+  asm volatile( \
+        "{\n.reg .pred p;\n" \
+        "setp.ne.b32 p, %13, 0;\n" \
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32." TY "." TY " {" \
+        "%0, %1, %2, %3, %4, %5, %6, %7" \
+        "}, {%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n" \
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), \
+          "+f"(d[6]), "+f"(d[7]) \
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc))
+template <typename T = __nv_bfloat16>
+__device__ __forceinline__ void wgmma_rs_kmaj_n16(float (&d)[8], const uint32_t (&a)[4],
+                                                  uint64_t b, int acc) {
+  static_assert(kWgmmaOperand<T>, "wgmma's operands here are bf16 or f16");
+  if constexpr (std::is_same<T, __half>::value) {
+    DLLAMA_WGMMA("f16");
+  } else {
+    DLLAMA_WGMMA("bf16");
+  }
 }
+#undef DLLAMA_WGMMA
+
+// d (+)= A B, m64n32k16, A from registers (operand pairs: wgmma's A
+// fragment), B K-major from shared memory (no transpose); `acc` 0 ignores
+// d's old value (scale-d)
+#define DLLAMA_WGMMA(TY) \
+  asm volatile( \
+        "{\n.reg .pred p;\n" \
+        "setp.ne.b32 p, %21, 0;\n" \
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY " {" \
+        "%0, %1, %2, %3, %4, %5, %6, %7, " \
+        "%8, %9, %10, %11, %12, %13, %14, %15" \
+        "}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n" \
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), \
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]) \
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc))
+template <typename T = __nv_bfloat16>
+__device__ __forceinline__ void wgmma_rs_kmaj_n32(float (&d)[16], const uint32_t (&a)[4],
+                                                  uint64_t b, int acc) {
+  static_assert(kWgmmaOperand<T>, "wgmma's operands here are bf16 or f16");
+  if constexpr (std::is_same<T, __half>::value) {
+    DLLAMA_WGMMA("f16");
+  } else {
+    DLLAMA_WGMMA("bf16");
+  }
+}
+#undef DLLAMA_WGMMA
+
+// d (+)= A B, m64n128k16, A from registers (operand pairs: wgmma's A
+// fragment), B K-major from shared memory (no transpose); `acc` 0 ignores
+// d's old value (scale-d)
+#define DLLAMA_WGMMA(TY) \
+  asm volatile( \
+        "{\n.reg .pred p;\n" \
+        "setp.ne.b32 p, %69, 0;\n" \
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " {" \
+        "%0, %1, %2, %3, %4, %5, %6, %7, " \
+        "%8, %9, %10, %11, %12, %13, %14, %15, " \
+        "%16, %17, %18, %19, %20, %21, %22, %23, " \
+        "%24, %25, %26, %27, %28, %29, %30, %31, " \
+        "%32, %33, %34, %35, %36, %37, %38, %39, " \
+        "%40, %41, %42, %43, %44, %45, %46, %47, " \
+        "%48, %49, %50, %51, %52, %53, %54, %55, " \
+        "%56, %57, %58, %59, %60, %61, %62, %63" \
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n" \
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), \
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), \
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), \
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), \
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), \
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), \
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), \
+          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), \
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]) \
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc))
+template <typename T = __nv_bfloat16>
+__device__ __forceinline__ void wgmma_rs_kmaj_n128(float (&d)[64], const uint32_t (&a)[4],
+                                                   uint64_t b, int acc) {
+  static_assert(kWgmmaOperand<T>, "wgmma's operands here are bf16 or f16");
+  if constexpr (std::is_same<T, __half>::value) {
+    DLLAMA_WGMMA("f16");
+  } else {
+    DLLAMA_WGMMA("bf16");
+  }
+}
+#undef DLLAMA_WGMMA
 
 // One 64-row slab of a 128-byte-swizzled bf16 tile: 64 rows of 128 bytes
 // (64 bf16 of the row's contiguous extent).

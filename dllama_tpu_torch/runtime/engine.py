@@ -391,11 +391,12 @@ class Engine:
         self.graphs: DecodeGraphs | None = DecodeGraphs(self.device) if graphs else None
 
     def check_prefill_read(self) -> None:
-        """Raise when a paged engine on the card could not run a mixed slot
-        step: the prefill kernel reads its pool at any width
-        (:func:`attention.check_prefill_config`: an f16 pool or a head dim
-        other than 64 or 128 has no body) unless ``attn_impl`` is
-        ``"plain"``.  A contiguous or CPU engine takes any pool."""
+        """Raise when a paged engine on the card could not run its slot
+        steps: the paged kernels read f32, bf16, f16 and int8 pools at any
+        step width (:func:`attention.check_prefill_config`: a head dim that
+        is not a multiple of 16 up to 256 has no body, since TMA copies rows
+        of multiples of 16 bytes and wgmma's k is 16) unless ``attn_impl``
+        is ``"plain"``.  A contiguous or CPU engine takes any pool."""
         if self.paged and self.device.type == "cuda" and self.cfg.attn_impl != "plain":
             attention.check_prefill_config(self.cache.k.dtype, self.cfg.head_size)
 

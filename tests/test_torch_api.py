@@ -176,7 +176,9 @@ def test_unported_features_answer_400(servers, method, path, body, named):
 
 def test_unported_server_flag_exits():
     from dllama_tpu_torch.server import api
-    # --step-timeout is ported since the fleet slice: a flag still outside
-    # the port stands in for it
-    with pytest.raises(SystemExit, match="not yet ported.*--weights-float-type"):
-        api.parse_args(["--spec", "pld", "--weights-float-type", "q40"])
+    # --step-timeout is ported since the fleet slice, --weights-float-type
+    # since the loading flags came over: the server takes it, and a flag
+    # still outside the port stands in for it
+    with pytest.raises(SystemExit, match=r"not yet ported to dllama_tpu_torch: --elastic \(run"):
+        api.parse_args(["--spec", "pld", "--weights-float-type", "q40", "--dequantize",
+                        "--elastic"])

@@ -86,12 +86,16 @@ def test_inference_prints_stats(model_files):
                  id="extra4-mode 'router', --backends"),
     pytest.param(["serve-pod", "--supervise", "--dp", "2", "--pod-devices", "4"],
                  "--pod-devices", id="extra5-mode 'serve-pod', --supervise"),
-    (["generate", "--dequantize", "--weights-float-type", "q40"],
-     "--weights-float-type, --dequantize"),
+    # the loading flags are ported since: the case keeps its id and holds
+    # that they are accepted, named the flag still outside the port beside them
+    pytest.param(["generate", "--dequantize", "--weights-float-type", "q40", "--elastic"],
+                 "--elastic", id="extra6---weights-float-type, --dequantize"),
     # the profiling flags are ported since: the case keeps its id and runs
-    # them beside a flag still outside the port
+    # them beside a flag still outside the port (--dequantize is ported
+    # since the loading flags came over: --min-replicas stands in for it)
     pytest.param(["inference", "--profile-split", "--profile-ops", "--numeric-checks",
-                  "--dequantize"], "--dequantize", id="extra7---profile-split, --profile-ops"),
+                  "--dequantize", "--min-replicas", "2"], "--min-replicas",
+                 id="extra7---profile-split, --profile-ops"),
     (["worker", "--coordinator", "h:1", "--nproc", "2", "--proc-id", "1",
       "--program", "chat"], "--coordinator, --nproc, --proc-id, --program"),
     (["generate", "--elastic", "--pod-devices", "4", "--max-replicas", "2"],
@@ -109,12 +113,14 @@ def test_unported_flags_exit_naming_them(model_files, extra, named):
     assert r.returncode != 0
     assert "not yet ported" in r.stderr and named in r.stderr
     msg = r.stderr.split("not yet ported to dllama_tpu_torch: ", 1)[1].split(" (run", 1)[0]
-    assert not set(msg.split(", ")) & (PORTED_SINCE | FLEET_FLAGS), msg
+    assert not set(msg.split(", ")) & (PORTED_SINCE | FLEET_FLAGS | LOAD_FLAGS), msg
 
 
 # flags the port carries since speculative decoding and profiling came over
 PORTED_SINCE = {"--pld", "--spec", "--spec-k", "--draft-model", "--profile-split",
                 "--profile-ops"}
+# and since the legacy-magic files and dense loading came over
+LOAD_FLAGS = {"--weights-float-type", "--dequantize"}
 # and since the fleet came over (router, serve-pod, the robustness flags)
 FLEET_FLAGS = {"--backends", "--probe-interval", "--eject-after", "--readmit-after",
                "--router-retries", "--upstream-timeout", "--stall-timeout",
@@ -125,20 +131,21 @@ FLEET_FLAGS = {"--backends", "--probe-interval", "--eject-after", "--readmit-aft
 
 def test_fleet_modes_and_flags_left_the_refusal_lists():
     """``router`` and ``serve-pod`` left ``NOT_PORTED_MODES``, and the
-    fleet's flags (with ``--dp``, for serve-pod) left ``NOT_PORTED_FLAGS``;
-    nothing else did.  They parse with the JAX CLI's defaults."""
+    fleet's flags (with ``--dp``, for serve-pod) left ``NOT_PORTED_FLAGS``,
+    and so did the loading flags since; nothing else did.  They parse with
+    the JAX CLI's defaults."""
     from dllama_tpu.cli import build_parser as jparser
     from dllama_tpu_torch import cli
     assert cli.NOT_PORTED_MODES == ("worker",)
     assert {"router", "serve-pod"} <= set(cli.MODES)
     assert set(cli.NOT_PORTED_FLAGS) == {
-        "--weights-float-type", "--dequantize", "--coordinator", "--nproc", "--proc-id",
-        "--program", "--elastic", "--pod-devices", "--min-replicas", "--max-replicas",
+        "--coordinator", "--nproc", "--proc-id", "--program", "--elastic", "--pod-devices",
+        "--min-replicas", "--max-replicas",
         "--elastic-interval", "--elastic-window", "--elastic-cooldown", "--scale-up-util",
         "--scale-down-util", "--scale-up-queue", "--reshape-kv-low"}
     args = cli.build_parser().parse_args(["serve-pod"])
     jargs = jparser().parse_args(["serve-pod"])
-    for flag in sorted(FLEET_FLAGS | {"--dp"}):
+    for flag in sorted(FLEET_FLAGS | LOAD_FLAGS | {"--dp"}):
         key = flag[2:].replace("-", "_")
         assert getattr(args, key) == getattr(jargs, key), flag
     assert cli.not_ported(cli.build_parser().parse_args(
@@ -302,9 +309,13 @@ def test_server_runs_with_observability_flags(model_files, tmp_path):
     try:
         assert server.state.scheduler is None and server.state.batch_engine.cache.quantized
         base = f"http://127.0.0.1:{server.server_address[1]}"
+        # interactive: never shed.  The --slo engine's first verdict judges
+        # the process-global totals, which the test files that ran before
+        # this one in its worker process may have filled with errors or
+        # slow first tokens; a standard request would then be shed (429)
         req = urllib.request.Request(base + "/v1/completions", json.dumps(
             {"prompt": ["hi", "hello"], "max_tokens": 4, "temperature": 0}).encode(),
-            headers={"X-Request-Id": "cli-obs-1"})
+            headers={"X-Request-Id": "cli-obs-1", "X-Dllama-Priority": "interactive"})
         with urllib.request.urlopen(req, timeout=60) as r:
             assert r.status == 200 and r.headers["X-Request-Id"] == "cli-obs-1"
             assert len(json.loads(r.read())["choices"]) == 2

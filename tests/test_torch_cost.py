@@ -20,6 +20,7 @@ import json
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from dllama_tpu import quants
 from dllama_tpu.io import mfile as jmfile
@@ -45,7 +46,8 @@ WIDTHS = {
                    vocab_size=131072, n_experts=8, n_active_experts=2),
 }
 CODECS = {"q40": ("q40", 2), "q8": ("q8", 2), "dense": ("dense", 2)}
-KV = {"bf16": ("kv_bfloat16", 2), "int8": ("kv_int8", 1), "f32": ("kv_float32", 4)}
+KV = {"bf16": ("kv_bfloat16", 2), "int8": ("kv_int8", 1), "f32": ("kv_float32", 4),
+      "f16": ("kv_float16", 2)}
 ROWS = [("prefill", 0, 16), ("decode", 100, 16), ("verify", 37, 5), ("decode", 4090, 1),
         ("prefill", 513, 128)]
 
@@ -87,20 +89,23 @@ def file_pair(request, tmp_path_factory):
     return jcfg, jp, tcfg, tp, tcfg2, tp2
 
 
-@pytest.mark.parametrize("kind", ["contiguous", "paged", "paged-int8", "tp2"])
+@pytest.mark.parametrize("kind", ["contiguous", "paged", "paged-int8", "tp2", "paged-f16"])
 def test_model_from_engine_equals_jax(file_pair, kind):
     jcfg, jp, tcfg, tp, tcfg2, tp2 = file_pair
-    kw = {}
+    kw, jkw = {}, {}
     if kind.startswith("paged"):
         kw = dict(kv_pages=33, kv_page_size=4)
     if kind == "paged-int8":
         kw["kv_dtype"] = "q8"
+    if kind == "paged-f16":
+        jkw["kv_dtype"] = jnp.float16
+        kw["kv_dtype"] = torch.float16
     if kind == "tp2":
         mine = tcost.model_from_engine(Engine(tcfg2, tp2, device="cpu", batch=2,
                                               mesh=make_mesh(2, "cpu")))
     else:
         mine = tcost.model_from_engine(Engine(tcfg, tp, device="cpu", batch=2, **kw))
-    ref = jcost.model_from_engine(JEngine(jcfg, jp, batch=2, **kw))
+    ref = jcost.model_from_engine(JEngine(jcfg, jp, batch=2, **{**kw, **jkw}))
     assert mine is not None and ref is not None
     want = dict(vars(ref))
     if kind == "tp2":
@@ -110,6 +115,8 @@ def test_model_from_engine_equals_jax(file_pair, kind):
         want["tp"] = 2
     assert vars(mine) == want
     assert mine.weight_codec in ("q40", "q8") and mine.fused is False
+    if kind == "paged-f16":
+        assert (mine.kv_codec, mine.kv_el_bytes) == ("kv_float16", 2)
 
 
 def test_peak_table_h100_unknown_card_env_and_cpu(monkeypatch):

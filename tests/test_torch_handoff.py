@@ -475,3 +475,45 @@ def test_sampled_record_carries_the_generator(weights):
     finally:
         sa.close()
         sb.close()
+
+
+def test_f16_pool_records_cross_implementations(weights):
+    """An f16 pool's DLREQ01 record (``--kv-cache-dtype f16``): the port's
+    export carries f16 pages, which the JAX package reads as float16, and
+    resumes in the JAX scheduler on its f16 pool to the uninterrupted f16
+    run's tokens; JAX's export of the same request resumes in the port's."""
+    ref_sched = scheduler(paged_engine(weights, kv_dtype=torch.float16))
+    try:
+        ref = list(ref_sched.submit(P, N, temperature=0.0).tokens())
+    finally:
+        ref_sched.close()
+    sa = slowed(scheduler(paged_engine(weights, kv_dtype=torch.float16)))
+    jb = JScheduler(jax_paged_engine(weights, kv_dtype=jnp.float16), prefill_chunk=4,
+                    max_wait_ms=20.0, decode_burst=4, overlap=False)
+    sb = scheduler(paged_engine(weights, kv_dtype=torch.float16))
+    try:
+        _, rec, replayed = export_mid_decode(sa, consume=5)
+        _, arrays = snapfmt.loads_request(rec)
+        _, jarrays = jsnap.loads_request(rec)
+        assert arrays["pages.k"].dtype == np.float16 == jarrays["pages.k"].dtype
+        np.testing.assert_array_equal(arrays["pages.v"], jarrays["pages.v"])
+        t2, _ = jb.import_request(rec)
+        assert replayed + list(t2.tokens()) == ref
+        ja = JScheduler(jax_paged_engine(weights, kv_dtype=jnp.float16), prefill_chunk=4,
+                        max_wait_ms=20.0, decode_burst=4, overlap=False)
+        try:
+            with injected("engine.device_step=delay:0.05"):
+                t = ja.submit(P, N, temperature=0.0)
+                it = t.tokens()
+                for _ in range(6):
+                    next(it)
+                jrec = ja.handoff_export_all()[t.rid]
+            list(it)
+        finally:
+            ja.close()
+        meta, _ = snapfmt.loads_request(jrec)
+        jreplayed = [int(x) for x in meta["extra"]["completion"]]
+        assert jreplayed + list(sb.import_request(jrec)[0].tokens()) == ref
+    finally:
+        for s in (sa, jb, sb):
+            s.close()

@@ -165,23 +165,25 @@ def test_scheduler_widths_reach_the_mixed_body(tiny, keys):
 def test_a_pool_the_kernel_cannot_read_is_refused_at_start_up(tiny):
     """On the card the mixed step reads a paged pool through the prefill
     kernel, so ``Engine.check_prefill_read`` (called when a paged engine is
-    built) refuses a pool the kernel has no body for: an f16 pool, and this
-    model's head dim 16 (its f32 pool alone would pass; the other cases:
-    ``test_torch_prefill_attention.py``); with ``attn_impl="plain"`` (the
-    plain read), a contiguous layout, or on the CPU, every pool passes.
-    The CPU engine is asked as if it were on the card (its device set to
-    ``cuda``): nothing is launched."""
+    built) refuses a pool the kernel has no body for: since the widened
+    kernels, this model's head dim 16 and an f16 pool pass, and a head dim
+    that is not a multiple of 16 (8: the config's dim halved) is refused
+    with the reason (the other cases: ``test_torch_prefill_attention.py``);
+    with ``attn_impl="plain"`` (the plain read), a contiguous layout, or on
+    the CPU, every pool passes.  The CPU engine is asked as if it were on
+    the card (its device set to ``cuda``): nothing is launched."""
     tcfg, tp = tiny
     eng = Engine(tcfg, tp, device="cpu", **_engine_kw("paged"))
     eng.check_prefill_read()
     eng.device = torch.device("cuda")
-    with pytest.raises(ValueError, match="head dim 16"):
-        eng.check_prefill_read()
+    eng.check_prefill_read()
     half = Engine(tcfg, tp, device="cpu", **{**_engine_kw("paged"), "kv_dtype": torch.float16})
     half.device = torch.device("cuda")
-    with pytest.raises(ValueError, match="torch.float16 pool on the card"):
-        half.check_prefill_read()
-    eng.cfg = tcfg.with_(attn_impl="plain")
+    half.check_prefill_read()
+    eng.cfg = tcfg.with_(dim=tcfg.dim // 2)
+    with pytest.raises(ValueError, match="head dim 8: the kernels take multiples of 16"):
+        eng.check_prefill_read()
+    eng.cfg = tcfg.with_(dim=tcfg.dim // 2, attn_impl="plain")
     eng.check_prefill_read()
     cont = Engine(tcfg, tp, device="cpu", **_engine_kw("contiguous"))
     cont.device = torch.device("cuda")

@@ -360,14 +360,17 @@ def test_prefill_plan_at_the_serving_shapes():
 
 
 def test_prefill_plan_refuses_what_the_kernel_cannot_take():
-    """Only a head dim the source does not instantiate is refused: a step
+    """Only a head dim that is not a multiple of 16 up to 256 is refused
+    (96 is taken since the kernel pads to whole 64-column slabs): a step
     past 128 rows a kv head (Mixtral at T = 64) and a page of 1024
     positions (16 segments of 64 rows) are taken: its 8 blocks take a
     split a page."""
     p = ta.prefill_plan(8, 32, 8, 64, 16, 128, 256, 2, 132)
     assert (p.groups, p.splits) == (2, 1)
-    with pytest.raises(ValueError, match="head dim 96"):
-        ta.prefill_plan(8, 32, 32, 16, 16, 96, 256, 2, 132)
+    assert ta.prefill_plan(8, 32, 32, 16, 16, 96, 256, 2, 132).groups == 1
+    for dh in (72, 8, 272):
+        with pytest.raises(ValueError, match=f"head dim {dh}: the kernels take multiples of 16"):
+            ta.prefill_plan(8, 32, 32, 16, 16, dh, 256, 2, 132)
     p = ta.prefill_plan(2, 8, 8, 16, 1024, 128, 4, 2, 132)
     assert (p.splits, p.pps, p.groups) == (4, 1, 1)
 
@@ -393,24 +396,29 @@ def test_pool_checks_both_kernels_share():
         ta._check_pools(qt, pk, pv, 1, tab.long(), p, (sk, sv), kv, "k")
     with pytest.raises(ValueError, match="layer 2 outside 0..1"):
         ta._check_pools(qt, pk, pv, 2, tab, p, (sk, sv), kv, "k")
-    # the prefill kernel takes an f32 pool, not an f16 one
+    # the prefill kernel takes f32 and (since the f16 body) f16 pools, not
+    # an f64 one
     ta._check_pools(qt.float(), pk.float(), pv.float(), 1, tab, p, None, ta._PREFILL_KV, "k")
-    with pytest.raises(ValueError, match="k: pool dtypes torch.float16/torch.float16"):
-        ta._check_pools(qt, pk.half(), pv.half(), 1, tab, p, None, ta._PREFILL_KV, "k")
+    ta._check_pools(qt.half(), pk.half(), pv.half(), 1, tab, p, None, ta._PREFILL_KV, "k")
+    with pytest.raises(ValueError, match="k: pool dtypes torch.float64/torch.float64"):
+        ta._check_pools(qt, pk.double(), pv.double(), 1, tab, p, None, ta._PREFILL_KV, "k")
 
 
 def test_prefill_config_refused_before_any_request():
     """What a paged engine refuses at start-up on the card
     (``Engine.check_prefill_read``), so no request meets it in a mixed
-    step: an f16 pool and a head dim the source does not instantiate.  f32,
-    bf16 and int8 pools pass at either head dim, whatever the step width."""
-    for dt in (torch.float32, torch.bfloat16, torch.int8):
-        for dh in (64, 128):
+    step: a pool the kernels do not read (f64) and a head dim that is not
+    a multiple of 16 up to 256, with the reason.  f32, bf16, f16 and int8
+    pools pass at every multiple of 16 up to 256, whatever the step width."""
+    for dt in (torch.float32, torch.bfloat16, torch.int8, torch.float16):
+        for dh in range(16, 257, 16):
             ta.check_prefill_config(dt, dh)
-    with pytest.raises(ValueError, match="torch.float16 pool on the card"):
-        ta.check_prefill_config(torch.float16, 128)
-    with pytest.raises(ValueError, match="head dim 96"):
-        ta.check_prefill_config(torch.bfloat16, 96)
+    with pytest.raises(ValueError, match="torch.float64 pool on the card"):
+        ta.check_prefill_config(torch.float64, 128)
+    for dh in (96 + 8, 272, 4):
+        with pytest.raises(ValueError, match=f"head dim {dh}: .*TMA copies rows whose "
+                                             "strides are multiples of 16 bytes"):
+            ta.check_prefill_config(torch.bfloat16, dh)
 
 
 # -- the kernel's walk, transcribed -------------------------------------------
@@ -439,7 +447,8 @@ def _kernel_walk(q, pk, pv, layer, table, pos, scales, n_sms):
     plan = ta.prefill_plan(b, hq, hkv, t, ps, dh, maxp, pk.element_size(), n_sms)
     br, spp, spt = _segments(ps)
     g, rows = hq // hkv, hq // hkv * t
-    op = torch.float32 if pk.dtype == torch.float32 else torch.bfloat16
+    op = ta._prefill_operand(pk.dtype)
+    gr = ta.prefill_group_rows(dh)
     flat = [x.reshape(-1, dh) for x in (pk, pv)]
     n_rows = flat[0].shape[0]
     sq = float(np.sqrt(np.float32(dh)))
@@ -458,7 +467,7 @@ def _kernel_walk(q, pk, pv, layer, table, pos, scales, n_sms):
     for bi in range(b):
         p0 = min(max(int(pos[bi]), 0), maxp * ps - 1)
         for grp in range(plan.groups):
-            r0, r_end = grp * 128, min(rows, grp * 128 + 128)
+            r0, r_end = grp * gr, min(rows, grp * gr + gr)
             last = t - 1 if (r_end - 1) // t != r0 // t else (r_end - 1) % t
             n_live = min(p0 + last, maxp * ps - 1) // ps + 1
             n_split = min(-(-n_live // plan.pps), plan.splits)
@@ -498,16 +507,16 @@ def _kernel_walk(q, pk, pv, layer, table, pos, scales, n_sms):
     return out.reshape(b, hq, t, dh), plan, counts
 
 
-def _pool_case(codec, b, hkv, g, t, ps, maxp, seed):
+def _pool_case(codec, b, hkv, g, t, ps, maxp, seed, dh=64):
     """Random pools, q, positions (0, mid-table, the last step) and a table
-    that runs into scratch page 0 for row 1, at dh 64."""
+    that runs into scratch page 0 for row 1, at head dim ``dh``."""
     rng = np.random.RandomState(seed)
-    dh, n_pages = 64, 1 + b * maxp
+    n_pages = 1 + b * maxp
     shape = (L, n_pages, hkv, ps, dh)
     table = torch.from_numpy((1 + rng.permutation(b * maxp)).reshape(b, maxp).astype(np.int32))
     table[1, maxp // 2:] = 0
     pos = torch.tensor([0, ps * maxp // 2 - 3, ps * maxp - t][:b], dtype=torch.int32)
-    dt = torch.float32 if codec == "f32" else torch.bfloat16
+    dt = {"f32": torch.float32, "f16": torch.float16}.get(codec, torch.bfloat16)
     q = torch.from_numpy(rng.randn(b, hkv * g, t, dh).astype(np.float32)).to(dt)
     if codec == "int8":
         pk, sk = ta.quantize_kv(torch.from_numpy(rng.randn(*shape).astype(np.float32)))

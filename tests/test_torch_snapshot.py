@@ -57,12 +57,16 @@ def weights():
 
 def make_engine(weights, seq_len=SEQ, **kw):
     _, _, tcfg, tp = weights
+    if kw.get("kv_dtype") == "f16":
+        kw["kv_dtype"] = torch.float16
     return Engine(tcfg.with_(seq_len=seq_len) if seq_len != SEQ else tcfg, tp,
                   device="cpu", **kw)
 
 
 def make_jax_engine(weights, **kw):
     jcfg, jp, _, _ = weights
+    if kw.get("kv_dtype") == "f16":
+        kw["kv_dtype"] = jax.numpy.float16
     return JEngine(jcfg, jp, mesh=jmake_mesh(tp=1, devices=jax.devices()[:1]), **kw)
 
 
@@ -279,13 +283,16 @@ def test_jax_file_loads_in_the_port_and_back(tmp_path):
                                   jarrays["bf16"].view(np.uint16))
 
 
-@pytest.mark.parametrize("kw", [{}, {"batch": 2, "kv_pages": 17, "kv_page_size": 8}],
-                         ids=["contiguous", "paged"])
+@pytest.mark.parametrize("kw", [{}, {"batch": 2, "kv_pages": 17, "kv_page_size": 8},
+                                {"batch": 2, "kv_pages": 17, "kv_page_size": 8,
+                                 "kv_dtype": "f16"}],
+                         ids=["contiguous", "paged", "paged-f16"])
 def test_engine_snapshots_cross_implementations(weights, tmp_path, kw):
     """A JAX engine's snapshot restores into the port's engine with the
-    same cache bytes and position, and the port's into JAX's; the sampled
-    stream is each engine's own (a threefry key does not seed a torch
-    generator: the port reseeds, the JAX engine starts its key afresh)."""
+    same cache bytes and position, and the port's into JAX's (an f16 pool
+    as f16 arrays both ways); the sampled stream is each engine's own (a
+    threefry key does not seed a torch generator: the port reseeds, the JAX
+    engine starts its key afresh)."""
     je = make_jax_engine(weights, **kw)
     te = make_engine(weights, **kw)
     if not kw:
