@@ -374,10 +374,35 @@ Phases (each prints its seconds; any failure exits non-zero):
    uninterrupted bytes, tier printed with the resume gap; the sampled one
    ends ``replica_lost``); child 1's replacement under
    ``DLLAMA_FAULTS=engine.device_step=delay:30x1``: a 500 (StepTimeout), the
-   router's ejection, a ``hung`` respawn.
+   router's ejection, a ``hung`` respawn.  23d ``serve-pod --supervise
+   --elastic --device cuda:0 --pod-devices 4 --max-replicas 2`` at 7B
+   width, 8 layers, booting one tp = 1 child (the tp = 1 children's steps
+   slowed by ``DLLAMA_FAULTS=engine.device_step=delay:0.15`` so streams
+   outlive a retire): 8 greedy streams fill its slots and the policy
+   scales up on load (a child on ordinal 1, admitted after its first
+   healthy probe; decision-to-admission and boot seconds); ``POST
+   /admin/scale?n=1`` with 4 greedy streams on each child (every stream
+   ends with the uninterrupted bytes, the victim's through the hand-off
+   splice; the victim not respawned, its ordinal back in the pool;
+   ``pod_scale_events`` up/load and down/manual); back to 2×tp=1, then
+   ``POST /admin/reshape?tp=2`` with greedy streams on the old children;
+   as the first old child retires the other is SIGKILLed (its streams
+   resume on a peer, its respawn is retired too) and the retiring one 0.3
+   s into its drain (never respawned): converged
+   to 2×tp=2 (``fleet_status``, the registry and ``pod_replicas_desired``
+   agree), each stream the uninterrupted tp = 1 text or a divergence at a
+   printed near tie (NEAR_TIE of max, from the batch-1 engine);
+   ``reshape?tp=1`` back; ``pod_reshape_seconds`` each way, the longest
+   window with no backend (the router's ``/health`` every 0.25 s), the
+   card's peak memory (nvidia-smi); every child's counters
+   (``/debug/launches``) read before it was retired, killed or stopped:
+   kernels 1-2, 7 and the prefill kernel in each, kernel 4 in each tp = 2
+   child, 0 plain calls (the kernel line's rows the children ran carry
+   their sum as ``pod_children``, beside the main path's ``launches``).
+   ``--only 23d`` runs it alone.
 
 They run in the order 1, 2, 2v, 13, 9, 6, 6c, 16, 3, 3v, 17, 4, 24, 5, 8, 15, 20b,
-18, 7, 20, 3q, 21, 22, 23, 14, 6s (7B width), 6s (Dh 96), 10, 11, 6s (Mixtral),
+18, 7, 20, 3q, 21, 22, 23 (a, c, b, d), 14, 6s (7B width), 6s (Dh 96), 10, 11, 6s (Mixtral),
 12, 19; each
 synthesized model is deleted
 when its phases end.  The script prints its whole time on its last line but
@@ -4799,14 +4824,487 @@ def fleet_supervised(cli, pod_mod, obs_metrics, tok, m8: str, t: str) -> dict:
         pod.stop()
 
 
+# 23d: the elastic pod (serve-pod --supervise --elastic --device cuda:0): dp 1
+# at boot over a 4-ordinal budget (bookkeeping on cuda:0, every child on it),
+# the policy acting on load only (a 3-sample window at 0.5 s, a 2 s cooldown,
+# --scale-down-util -1, --reshape-kv-low -1 as tools/chaos_drill.py), the
+# /admin commands the rest.  The tp = 1 children's steps are slowed by
+# ELASTIC_DELAY (a fault point, each burst of up to 16 tokens) so a stream is
+# still on a child when the controller retires it; the tp = 2 children,
+# spawned after it is unset, run eagerly at speed (~53 ms a token)
+ELASTIC_ARGS = ["--supervise", "--elastic", "--dp", "1", "--device", "cuda:0", "--handoff",
+                "--checkpoint-interval", "0.5", "--pod-devices", "4", "--min-replicas", "1",
+                "--max-replicas", "2", "--batch-slots", "8", "--kv-pages", "513",
+                "--kv-page-size", "16", "--sched-prefill-chunk", "16", "--temperature", "0",
+                "--max-pending", "64", "--host", "127.0.0.1", "--port", "0",
+                "--probe-interval", "0.5", "--eject-after", "2", "--readmit-after", "1",
+                "--elastic-interval", "0.5", "--elastic-window", "3", "--elastic-cooldown", "2",
+                "--scale-down-util", "-1", "--reshape-kv-low", "-1"]
+ELASTIC_DELAY = "engine.device_step=delay:0.15"
+# tokens a stream: the load (8, no queue: a queue shrinks the bursts to one
+# token), the scale-down (tp = 1 throughout), and the reshape's, whose tail
+# runs on an eager tp = 2 child
+LOAD_NEW, ELASTIC_NEW, RESHAPE_NEW = 384, 256, 160
+
+
+class _PodWatch:
+    """Samples an elastic pod on a thread: the router's ``/health``
+    ``available`` every 0.25 s (tools/chaos_drill.py's AvailabilitySampler),
+    the card's memory as nvidia-smi sees it and the children alive every
+    0.5 s, and when each
+    backend was first admitted (a healthy probe), with its server's uptime
+    then (the rest of its boot is the interpreter, torch and the weights)."""
+
+    def __init__(self, base: str, reg, sup):
+        self.base, self.reg, self.sup = base, reg, sup
+        self.avail: list[tuple[float, bool]] = []
+        self.peak_mib = self.max_alive = 0
+        self.admitted: dict[str, float] = {}
+        self.uptime: dict[str, float] = {}
+        self._stop = threading.Event()
+        self._threads = [threading.Thread(target=f, daemon=True)
+                         for f in (self._health, self._memory, self._admission)]
+        for th in self._threads:
+            th.start()
+
+    def _health(self):
+        while not self._stop.wait(0.25):
+            try:
+                ok = json.loads(_request(self.base, "/health")[2])["available"] >= 1
+            except (OSError, ValueError, KeyError):
+                ok = False
+            self.avail.append((time.perf_counter(), ok))
+
+    def _memory(self):
+        while not self._stop.wait(0.5):
+            self.max_alive = max(self.max_alive, sum(
+                1 for r in self.sup.snapshot() if r.proc is not None and r.proc.poll() is None))
+            try:
+                out = subprocess.run(["nvidia-smi", "--query-gpu=memory.used",
+                                      "--format=csv,noheader,nounits", "-i", "0"],
+                                     capture_output=True, text=True).stdout.strip()
+            except OSError:
+                return
+            if out.isdigit():
+                self.peak_mib = max(self.peak_mib, int(out))
+
+    def _admission(self):
+        while not self._stop.wait(0.05):
+            for b in self.reg.eligible_backends():
+                if b.addr not in self.admitted:
+                    self.admitted[b.addr] = time.perf_counter()
+                    self.uptime[b.addr] = (b.last_health or {}).get("uptime_s", float("nan"))
+
+    def longest_gap(self, t0: float, t1: float) -> float:
+        """The longest run of samples in [t0, t1] with no backend available."""
+        out, start = 0.0, None
+        for t, ok in self.avail:
+            if t < t0 or t > t1:
+                continue
+            if not ok and start is None:
+                start = t
+            elif ok and start is not None:
+                out, start = max(out, t - start), None
+        if start is not None:
+            out = max(out, t1 - start)
+        return out
+
+    def stop(self):
+        self._stop.set()
+        for th in self._threads:
+            th.join(5)
+
+
+def text_gap(engine, tok, prompt: str, want: str, got: str, label: str) -> str:
+    """Where a stream's text ``got`` leaves the uninterrupted ``want``: the
+    batch-1 engine (``engine()``) re-runs ``prompt`` greedily and gives
+    the top-2 logit margin of the token that covers the first differing
+    character, against max|logit|.  Raises unless it is a near tie
+    (NEAR_TIE of max, phase 22's rule); '' when the texts are equal."""
+    if got == want:
+        return ""
+    c = next((i for i, (a, b) in enumerate(zip(want, got)) if a != b), min(len(want), len(got)))
+    eng = engine()
+    ids = tok.encode(prompt, add_bos=True)
+    eng.reset()
+    logits, _ = eng.prefill(ids)
+    text, prev = b"", ids[-1]
+    while True:
+        lg = np.asarray(logits[0], np.float64)
+        nxt = int(lg.argmax())
+        piece = tok.decode_piece(prev, nxt)
+        if len((text + piece).decode("utf-8", "replace")) > c or len(text) > 4 * len(want):
+            break
+        text, prev = text + piece, nxt
+        logits, _ = eng.decode_one(nxt)
+    eng.reset()
+    top = np.sort(lg)[::-1]
+    rel = (top[0] - top[1]) / max(np.abs(lg).max(), 1e-30)
+    msg = (f"{label}: leaves the uninterrupted text at character {c} ({want[c:c + 8]!r} / "
+           f"{got[c:c + 8]!r}); the batch-1 engine's top-2 margin at the token there "
+           f"{top[0] - top[1]:.4g} = {rel:.3g} of max|logit|")
+    if text.decode("utf-8", "replace") != want[:len(text.decode('utf-8', 'replace'))] \
+            or rel >= NEAR_TIE:
+        raise AssertionError(msg + f" (limit {NEAR_TIE}; the engine's own text "
+                                   f"{text.decode('utf-8', 'replace')[-40:]!r})")
+    return msg + " (a near tie: recorded)"
+
+
+def _ask_all(base: str, bodies: list[dict]) -> list[str]:
+    """The texts of ``bodies`` sent together (greedy, prompts whose pages
+    the child caches: every step they ride is a single-token one, so
+    together they give the bytes each gives alone)."""
+    out: list = [None] * len(bodies)
+
+    def one(i):
+        out[i] = _ask(base, "/v1/completions", bodies[i])[0]
+    threads = [threading.Thread(target=one, args=(i,)) for i in range(len(bodies))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(600)
+    if any(o is None for o in out):
+        raise AssertionError(f"{base}: a request failed")
+    return out
+
+
+def _healthy(port: int) -> bool:
+    try:
+        return _request(f"http://127.0.0.1:{port}", "/health")[0] == 200
+    except OSError:
+        return False
+
+
+def _launch_block(port: int) -> dict:
+    code, _, raw = _request(f"http://127.0.0.1:{port}", "/debug/launches")
+    if code != 200:
+        raise AssertionError(f"child :{port} /debug/launches answered {code}")
+    return json.loads(raw)
+
+
+def _check_child_launches(seen: dict) -> str:
+    """Each child's counters (read before it was retired, killed or
+    stopped; a respawn retired during its boot served nothing and has
+    none): kernels 1-2, 7 and 8 launched, kernel 4 at tp = 2, 0 plain."""
+    lines = []
+    for (idx, pid), (tp, lb) in sorted(seen.items()):
+        if lb is None:
+            lines.append(f"child {idx} (pid {pid}) retired during its boot")
+            continue
+        q, a = lb["q40"], lb["paged_attention"]
+        plain = (q["plain_calls"], q["allreduce_plain_calls"], a["plain_calls"],
+                 a["prefill_plain_calls"])
+        if not q["kernel_launches"] or not a["kernel_launches"] \
+                or not a["prefill_launches"] or any(plain) \
+                or (tp > 1) != bool(q["allreduce_launches"]):
+            raise AssertionError(f"child {idx} (pid {pid}, tp={tp}): q40 {q}, attention {a}")
+        lines.append(f"child {idx} tp={tp}: kernels 1-2 {q['kernel_launches']} (tensor-core "
+                     f"{q['mma_launches']}), 7 {a['kernel_launches']}, 8 "
+                     f"{a['prefill_launches']}, 4 {q['allreduce_launches']}, plain 0")
+    return "; ".join(lines)
+
+
+def fleet_elastic(cli, pod_mod, obs_metrics, tok, m8: str, t: str, card: str) -> dict:
+    """23d: ``serve-pod --supervise --elastic --device cuda:0`` at 7B width,
+    CUT_LAYERS layers, booting dp = 1 over ``--pod-devices 4``.  (i) Greedy
+    streams fill the child's 8 slots: the policy scales up on load (a second
+    child on ordinal 1, taking traffic only after its first healthy probe);
+    the decision-to-admission seconds and the child's boot.  (ii) ``POST
+    /admin/scale?n=1`` with 4 greedy streams on each child: every stream ends
+    with the uninterrupted bytes (the victim's through the hand-off splice),
+    the victim is not respawned, its ordinal returns to the pool,
+    ``pod_scale_events`` read up/load and down/manual.  (iii) back to
+    2×tp=1, then ``POST /admin/reshape?tp=2`` with greedy streams on the old
+    children; as the first old child retires, the other is SIGKILLed (its
+    streams resume on a peer; its respawn is retired too) and the retiring
+    one 0.3 s into its drain (never respawned): the reshape converges to
+    2×tp=2 (``fleet_status``, the registry and ``pod_replicas_desired``
+    agree), each stream's text the uninterrupted tp = 1 text or a
+    divergence at a printed near tie; then ``reshape?tp=1`` back.
+    ``pod_reshape_seconds`` each way, the longest window in which the
+    router had no backend, the card's peak memory.  (iv) every child's
+    launch counters (``/debug/launches``): kernels 1-2, 7 and 8 in each,
+    kernel 4 in each tp = 2 child, 0 plain calls.  Returns each child's ``(tp, launch block)`` by
+    ``(idx, pid)``."""
+    import signal
+    os.environ["PYTHONPATH"] = REPO + os.pathsep + os.environ.get("PYTHONPATH", "")
+    os.environ["DLLAMA_FAULTS"] = ELASTIC_DELAY
+    args = cli.build_parser().parse_args(["serve-pod", "--model", m8, "--tokenizer", t,
+                                          *ELASTIC_ARGS])
+    t_start = time.perf_counter()
+    pod = pod_mod.start(args)
+    watch = None
+    seen: dict = {}        # (idx, pid) -> (tp, launch block)
+    spawned: dict = {}     # idx -> perf_counter of its spawn
+    try:
+        ctl, reg, sup = pod.rstate.elastic, pod.rstate.registry, pod.supervisor
+        base = f"http://127.0.0.1:{pod.port}"
+        watch = _PodWatch(base, reg, sup)
+        ops = ctl.ops
+        spawn0, retire0, kill_next, killed = ops.spawn, ops.retire, [], []
+
+        def spawn(tp, ordinals):
+            rep = spawn0(tp, ordinals)
+            spawned[rep.idx] = time.perf_counter()
+            return rep
+
+        def retire(rep, *, grace):
+            # the counters of the child's whole life (none for a respawn
+            # still booting); then, at the reshape's first retire, the
+            # chaos: every other old child SIGKILLed at once (not retiring:
+            # its streams resume on a peer, the supervisor respawns it and
+            # the reshape retires the replacement) and this one 0.3 s into
+            # its drain (retiring: it only ends sooner)
+            if rep.proc is not None and rep.proc.poll() is None:
+                seen[(rep.idx, rep.proc.pid)] = (
+                    rep.tp, _launch_block(rep.port) if _healthy(rep.port) else None)
+            if kill_next and rep.tp == 1:
+                kill_next.pop()
+                for other in ops.live_replicas():
+                    if other is rep or other.tp != 1 or other.retiring \
+                            or other.proc is None or other.proc.poll() is not None:
+                        continue
+                    seen[(other.idx, other.proc.pid)] = (
+                        other.tp, _launch_block(other.port) if _healthy(other.port) else None)
+                    os.kill(other.proc.pid, signal.SIGKILL)
+                    killed.append(other.idx)
+                    print(f"SIGKILL of old child {other.idx} (pid {other.proc.pid}) as child "
+                          f"{rep.idx} retires")
+                threading.Timer(0.3, lambda p=rep.proc: p.poll() is None
+                                and os.kill(p.pid, signal.SIGKILL)).start()
+                killed.append(rep.idx)
+                print(f"SIGKILL of child {rep.idx} (pid {rep.proc.pid}, retiring) 0.3 s into "
+                      f"its drain")
+            return retire0(rep, grace=grace)
+
+        wait0, placing = ctl._wait_admitted, []
+
+        def wait_admitted(addr):
+            # the reshape's streams go out as its first tp = 2 child is
+            # admitted, fenced until they are dispatched: they ride the old
+            # children, which the controller retires next
+            if placing:
+                reg.retire(addr)
+            ok = wait0(addr)
+            if placing:
+                placing.pop()()
+                reg.get(addr).retiring = False
+            return ok
+
+        ops.spawn, ops.retire, ctl._wait_admitted = spawn, retire, wait_admitted
+        spawned[0] = t_start
+        addr0 = f"127.0.0.1:{sup.replicas[0].port}"
+        _until(lambda: addr0 in watch.admitted, 300, "the first child")
+        print(f"elastic pod up: child 0 admitted {watch.admitted[addr0] - t_start:.1f} s after "
+              f"the start ({card})")
+
+        def body(p, n):
+            return {"prompt": p, "max_tokens": n, "temperature": 0}
+
+        def events():
+            return {k: obs_metrics.POD_SCALE_EVENTS.get(*k)
+                    for k in (("up", "load"), ("up", "manual"), ("down", "manual"),
+                              ("reshape", "manual"))}
+
+        ev0 = events()
+        # (i) scale up on load: 8 streams on 8 slots
+        prompts = _equal_token_prompts(tok, 20, DRILL_PROMPT_TOKENS, 37)
+        t_load = time.perf_counter()
+        load = [_Stream(base, "/v1/completions", body(prompts[i], LOAD_NEW), f"load{i}")
+                for i in range(8)]
+        _until(lambda: len(ops.live_replicas()) == 2, 120, "the policy's scale-up")
+        t_decide = max(spawned.values())
+        (new,) = [r for r in ops.live_replicas() if r.idx != 0]
+        addr1 = f"127.0.0.1:{new.port}"
+        _until(lambda: addr1 in watch.admitted, 300, "the new child's admission")
+        for s in load:
+            s.join()
+        up = obs_metrics.POD_SCALE_EVENTS.get("up", "load") - ev0[("up", "load")]
+        boot = watch.admitted[addr1] - spawned[new.idx]
+        if up != 1 or new.ordinals != [1]:
+            raise AssertionError(f"scale-up on load: pod_scale_events up/load +{up}, the new "
+                                 f"child's ordinals {new.ordinals}")
+        print(f"(i) 8 greedy streams on child 0's 8 slots: the policy scaled up after "
+              f"{t_decide - t_load:.1f} s of load (up/load +1); child {new.idx} on ordinal 1 "
+              f"admitted {watch.admitted[addr1] - t_decide:.1f} s after the decision (boot "
+              f"{boot:.1f} s spawn to first healthy probe, {boot - watch.uptime[addr1]:.1f} s of it "
+              f"before its server existed: interpreter, torch, the card, the weights; {card})")
+        # the manual phases: the policy stops acting on load
+        ctl.policy.up_util, ctl.policy.up_queue = 2.0, 1e9
+
+        # (ii) scale down with 4 greedy streams on each child
+        children = {r.idx: f"http://127.0.0.1:{r.port}" for r in ops.live_replicas()}
+        down_p = prompts[8:16]
+        for u in children.values():   # cache the prompts' pages: each then feeds one token
+            _ask_all(u, [body(p, 1) for p in down_p])
+        want = _ask_all(children[0], [body(p, ELASTIC_NEW) for p in down_p])
+        handoffs0 = obs_metrics.ROUTER_HANDOFFS.value
+        streams = []
+        for k, idx in enumerate(sorted(children)):
+            other = [f"127.0.0.1:{r.port}" for r in ops.live_replicas() if r.idx != idx]
+            for a in other:
+                reg.retire(a)
+            streams += [_Stream(base, "/v1/completions", body(down_p[4 * k + i], ELASTIC_NEW),
+                                f"down{4 * k + i}") for i in range(4)]
+            _until(lambda: all(s.times for s in streams), 60, "the streams' first chunks")
+            for a in other:
+                reg.get(a).retiring = False
+        before = {r.idx: r for r in ops.live_replicas()}
+        free0 = ctl.pool.free
+        t0 = time.perf_counter()
+        code, _, raw = _request(base, "/admin/scale?n=1", {})
+        if code != 202:
+            raise AssertionError(f"/admin/scale?n=1 answered {code}: {raw}")
+        texts = [s.join().text for s in streams]
+        _until(lambda: len(ops.live_replicas()) == 1 and ctl.fleet_status()["busy"] is None,
+               120, "the scale-down")
+        (victim,) = [r for i, r in before.items() if i not in {x.idx for x in ops.live_replicas()}]
+        moved = obs_metrics.ROUTER_HANDOFFS.value - handoffs0
+        ev = {k: v - ev0[k] for k, v in events().items()}
+        if texts != want or moved < 1 or victim.proc.poll() is None or victim in sup.snapshot() \
+                or ctl.pool.free != free0 + 1 or ev[("down", "manual")] != 1:
+            raise AssertionError(f"scale-down: texts equal {[a == b for a, b in zip(texts, want)]}"
+                                 f", hand-offs {moved}, victim {victim.idx} exit "
+                                 f"{victim.proc.poll()}, pool free {ctl.pool.free}, events {ev}")
+        print(f"(ii) POST /admin/scale?n=1 with 4 greedy streams on each child: child "
+              f"{victim.idx} retired in {time.perf_counter() - t0:.1f} s, not respawned, ordinal "
+              f"{victim.ordinals} back in the pool ({ctl.pool.free} free); router_handoffs "
+              f"+{moved}; all 8 streams ended with the uninterrupted bytes; pod_scale_events "
+              f"up/load +{ev[('up', 'load')]}, down/manual +{ev[('down', 'manual')]}")
+
+        # (iii) back to 2 x tp=1, then the live reshape to tp = 2 under a SIGKILL
+        _request(base, "/admin/scale?n=2", {})
+        _until(lambda: len(reg.eligible_backends()) == 2 and ctl.fleet_status()["busy"] is None,
+               300, "2 x tp=1 again")
+        old = {r.idx: r for r in ops.live_replicas()}
+        re_p = prompts[16:20]
+        for r in old.values():
+            _ask_all(f"http://127.0.0.1:{r.port}", [body(p, 1) for p in re_p])
+        want = _ask_all(f"http://127.0.0.1:{next(iter(old.values())).port}",
+                        [body(p, RESHAPE_NEW) for p in re_p])
+        del os.environ["DLLAMA_FAULTS"]          # the tp = 2 children at speed
+        resumes0 = {k: obs_metrics.ROUTER_RESUMES.get(k) for k in ("checkpoint", "rerun")}
+        handoffs0 = obs_metrics.ROUTER_HANDOFFS.value
+        respawns0 = {r.idx: obs_metrics.POD_RESPAWNS.get(str(r.idx), "exit") for r in old.values()}
+        hist0 = obs_metrics.POD_RESHAPE_SECONDS.snapshot()[1]
+        kill_next.append(True)
+        streams = []
+
+        def place():
+            streams.extend(_Stream(base, "/v1/completions", body(p, RESHAPE_NEW), f"reshape{i}")
+                           for i, p in enumerate(re_p))
+            _until(lambda: all(s.times for s in streams), 60, "the reshape streams' chunks")
+        placing.append(place)
+        t0 = time.perf_counter()
+        code, _, raw = _request(base, "/admin/reshape?tp=2", {})
+        if code != 202 or json.loads(raw) != {"accepted": True, "target_tp": 2}:
+            raise AssertionError(f"/admin/reshape?tp=2 answered {code}: {raw}")
+        _until(lambda: len(streams) == len(re_p), 300, "the first tp=2 child's admission")
+
+        def converged(tp):
+            fs, snap = ctl.fleet_status(), reg.snapshot()
+            return (fs["busy"] is None and fs["tp"] == tp and fs["n_replicas"] == 2
+                    and all(r["tp"] == tp and not r["retiring"] for r in fs["replicas"])
+                    and snap["total"] == 2 and snap["available"] == 2
+                    and obs_metrics.POD_REPLICAS_DESIRED.value == 2)
+
+        texts = [s.join().text for s in streams]
+        _until(lambda: converged(2), 600, "the reshape to 2 x tp=2")
+        wide_s = obs_metrics.POD_RESHAPE_SECONDS.snapshot()[1] - hist0
+        t_wide = time.perf_counter()
+        gap_wide = watch.longest_gap(t0, t_wide)
+        loaded: list = []
+
+        def engine():   # loaded on a divergence only
+            if not loaded:
+                loaded.append(cli.load_stack(cli.build_parser().parse_args(
+                    ["inference", "--model", m8, "--tokenizer", t, "--device", args.device]))[0])
+            return loaded[0]
+        gaps = [g for g in (text_gap(engine, tok, p, w, x, f"reshape stream {i}")
+                            for i, (p, w, x) in enumerate(zip(re_p, want, texts))) if g]
+        loaded.clear()
+        tiers = {k: obs_metrics.ROUTER_RESUMES.get(k) - v for k, v in resumes0.items()}
+        moved = obs_metrics.ROUTER_HANDOFFS.value - handoffs0
+        respawned = {i: obs_metrics.POD_RESPAWNS.get(str(i), "exit") - n
+                     for i, n in respawns0.items()}
+        # the retiring child killed mid-drain is never respawned; the other
+        # (killed while serving) may be, and then the reshape retired it
+        if moved + sum(tiers.values()) < 1 or len(killed) != 2 or respawned[killed[-1]] \
+                or set(old) & {r.idx for r in ops.live_replicas()}:
+            raise AssertionError(f"reshape: hand-offs {moved}, resumes {tiers}, killed "
+                                 f"{killed}, respawns of the old children {respawned}")
+        print(f"(iii) POST /admin/reshape?tp=2 with {len(streams)} greedy streams on the old "
+              f"children: converged to 2 x tp=2 (fleet_status, registry, pod_replicas_desired "
+              f"agree) in {t_wide - t0:.1f} s, pod_reshape_seconds {wide_s:.2f}; "
+              f"router_handoffs +{moved}, resumes {tiers}; the child killed mid-drain "
+              f"{killed[-1]} not respawned, the one killed serving {killed[0]} respawned "
+              f"{respawned[killed[0]]} time(s) and retired; "
+              f"the longest window with no backend {gap_wide:.2f} s; streams' bytes against the "
+              f"uninterrupted tp = 1 run: {sum(a == b for a, b in zip(texts, want))}/"
+              f"{len(texts)} equal ({[len(x) for x in texts]} chars)")
+        for g in gaps:
+            print(f"  {g}")
+        wide = {r.idx: r for r in ops.live_replicas()}
+        for i, r in enumerate(wide.values()):   # every tp = 2 child prefills and decodes
+            _ask(f"http://127.0.0.1:{r.port}", "/v1/completions", body(prompts[i], 8))
+        for r in wide.values():
+            seen[(r.idx, r.proc.pid)] = (r.tp, _launch_block(r.port))
+        hist0 = obs_metrics.POD_RESHAPE_SECONDS.snapshot()[1]
+        t1 = time.perf_counter()
+        code, _, raw = _request(base, "/admin/reshape?tp=1", {})
+        if code != 202:
+            raise AssertionError(f"/admin/reshape?tp=1 answered {code}: {raw}")
+        _until(lambda: converged(1), 600, "the reshape back to 2 x tp=1")
+        narrow_s = obs_metrics.POD_RESHAPE_SECONDS.snapshot()[1] - hist0
+        gap_narrow = watch.longest_gap(t1, time.perf_counter())
+        for i, r in enumerate(ops.live_replicas()):
+            _ask(f"http://127.0.0.1:{r.port}", "/v1/completions", body(prompts[i], 8))
+            seen[(r.idx, r.proc.pid)] = (r.tp, _launch_block(r.port))
+        ev = {k: v - ev0[k] for k, v in events().items()}
+        print(f"POST /admin/reshape?tp=1: back to 2 x tp=1 in {time.perf_counter() - t1:.1f} s, "
+              f"pod_reshape_seconds {narrow_s:.2f}, the longest window with no backend "
+              f"{gap_narrow:.2f} s; pod_scale_events {ev}")
+        # (iv) the children's launches
+        print(f"(iv) {len(seen)} children: {_check_child_launches(seen)}")
+        total = time.perf_counter() - t_start
+        print(f"23d: {total:.1f} s; peak card memory {watch.peak_mib} MiB (nvidia-smi; "
+              f"{len(seen)} children in all, at most {watch.max_alive} alive at once, all on "
+              f"cuda:0); {card}")
+        return seen
+    finally:
+        os.environ.pop("DLLAMA_FAULTS", None)
+        if watch is not None:
+            watch.stop()
+        pod.stop()
+
+
+def pod_children(seen: dict) -> dict:
+    """Phase 23d's children's launches, summed: the Q40 matmuls by shape
+    for each tp, kernels 7, 8 and 4.  Each child's counters run from its
+    boot (warm-up and graph capture included), in another process."""
+    out = {"q40": {}, "attn": 0, "prefill": 0, "allreduce": 0}
+    for tp, lb in seen.values():
+        if lb is None:      # a respawn retired during its boot
+            continue
+        shapes = out["q40"].setdefault(tp, {})
+        for *key, n in lb["q40"]["by_shape"]:
+            shapes[tuple(key)] = shapes.get(tuple(key), 0) + n
+        out["attn"] += lb["paged_attention"]["kernel_launches"]
+        out["prefill"] += lb["paged_attention"]["prefill_launches"]
+        out["allreduce"] += lb["q40"]["allreduce_launches"]
+    return out
+
+
 def kernel_entries(run, run_tp, run_mix, run_blocked, run_q8, run_score, served, table,
                    tp_table, mix_table, blocked_table, q8_table, attn, attn_g4, ar_table,
                    prefill, prefill_g4, var_table, var_runs, served_wide, attn_dh, attn_g16,
-                   prefill_dh) -> list:
+                   prefill_dh, pod) -> list:
     """The ``kernels`` JSON line's entries: each kernel at the shapes of the
     phase that checked it, with the launches of the main path that ran it;
-    raises when a kernel of a path was never launched there."""
-    def entries(name, src, sites, counts, mma_name=None):
+    raises when a kernel of a path was never launched there.  The rows the
+    elastic pod's children ran (23d) carry their launches apart, as
+    ``pod_children``: ``pod_children(seen)``."""
+    def entries(name, src, sites, counts, mma_name=None, children=None):
         # a tensor-core row's source is the body both codecs share
         def label(r):
             return mma_name if mma_name and r["key"][0] == "mma" else name
@@ -4817,7 +5315,9 @@ def kernel_entries(run, run_tp, run_mix, run_blocked, run_q8, run_score, served,
                      launches=counts.get(r["key"], 0),
                      max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
                      bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-                     library_ms=r["library_ms"])
+                     library_ms=r["library_ms"],
+                     **({} if children is None
+                        else {"pod_children": children.get(r["key"], 0)}))
                 for (site, t), r in sites.items()]
 
     # each kernel at the shapes of the path that ran it, with that path's
@@ -4832,10 +5332,11 @@ def kernel_entries(run, run_tp, run_mix, run_blocked, run_q8, run_score, served,
     # phase 2 holds and times (launches 0)
     wide = {k: r for k, r in table.items() if k[0] == "wcls" and k[1] > 1}
     score_t = SCORE_B * SCORE_T
+    tp1, tp2 = pod["q40"].get(1, {}), pod["q40"].get(2, {})
     kernels = entries("q40_matmul", SRC, {k: r for k, r in table.items() if k not in wide},
-                      run["counts"]["launches_by_shape"])
+                      run["counts"]["launches_by_shape"], children=tp1)
     kernels += entries("q40_matmul", SRC, {k: r for k, r in wide.items() if k[1] == score_t},
-                       run_score["counts"]["launches_by_shape"])
+                       run_score["counts"]["launches_by_shape"], children=tp1)
     held_only = entries("q40_matmul", SRC, {k: r for k, r in wide.items() if k[1] != score_t},
                         {})
     kernels += held_only
@@ -4851,7 +5352,8 @@ def kernel_entries(run, run_tp, run_mix, run_blocked, run_q8, run_score, served,
         var_held = entries(f"q40_matmul.{v}", SRC, var_wide, {})
         held_only += var_held
         kernels += var_held
-    kernels += entries("q40_matmul", SRC, tp_table, run_tp["counts"]["launches_by_shape"])
+    kernels += entries("q40_matmul", SRC, tp_table, run_tp["counts"]["launches_by_shape"],
+                       children=tp2)
     kernels += entries("q40_matmul", SRC, mix_table, run_mix["counts"]["launches_by_shape"])
     kernels += entries("q40_matmul_blocked", SRC, blocked_table,
                        run_blocked["counts"]["launches_by_shape"])
@@ -4876,7 +5378,8 @@ def kernel_entries(run, run_tp, run_mix, run_blocked, run_q8, run_score, served,
                    replaces=ATTN_REPLACES, launches=run_["attn_launches"],
                    max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
                    bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-                   library_ms=r["library_ms"])
+                   library_ms=r["library_ms"],
+                   **({"pod_children": pod["attn"]} if label == "bf16" else {}))
               for label, r, run_ in attn_rows]
     held_only += [k for (_, _, run_), k in zip(attn_rows, attn_k) if run_ is none]
     kernels += attn_k
@@ -4902,14 +5405,16 @@ def kernel_entries(run, run_tp, run_mix, run_blocked, run_q8, run_score, served,
                   source=PREFILL_SRC, replaces=PREFILL_REPLACES,
                   launches=run_["prefill_launches"], max_abs_err=r["max_abs_err"],
                   ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-                  bound_by=r["bound_by"], library_ms=r["library_ms"])
+                  bound_by=r["bound_by"], library_ms=r["library_ms"],
+                  **({"pod_children": pod["prefill"]} if label == "bf16,t=16" else {}))
              for label, r, run_ in pre_rows]
     held_only += [k for (_, _, run_), k in zip(pre_rows, pre_k) if run_ is none]
     kernels += pre_k
     # kernel 4 on the tp = 2 7B path (phase 17), at its decode shape
     kernels.append(dict(name="tp_allreduce[tp=2,t=1,d=4096]", route="cuda", source=TP_SRC,
                         launches=run_tp["allreduce_launches"],
-                        **{k: v for k, v in ar_table[(2, 4096, 1)].items()}))
+                        **{k: v for k, v in ar_table[(2, 4096, 1)].items()},
+                        pod_children=pod["allreduce"]))
     idle = [k["name"] for k in kernels if k["launches"] == 0 and k not in held_only]
     if idle:
         raise AssertionError(f"kernels the main paths never launched: {idle}")
@@ -5029,7 +5534,7 @@ def main() -> int:
         # main path, serving, the OpenAI surface and the fleet ran at 32
         # layers until the Q80 Hopper slice cut them for the script's time)
         per_fwd = 4 * CUT_LAYERS + 1
-        if any(map(run_phase, (3, 7, 20, 23, 14, 17, "3q", 21, 22, "6s"))):
+        if any(map(run_phase, (3, 7, 20, 23, "23d", 14, 17, "3q", 21, 22, "6s"))):
             synth_model(m8, CUT_LAYERS, mfile, quants)
             print(f"synthesized {os.path.getsize(m8) / 1e9:.2f} GB (7B width, "
                   f"{CUT_LAYERS} layers)")
@@ -5161,6 +5666,12 @@ def main() -> int:
                        f"{CUT_LAYERS} layers): hand-off, SIGKILL resume, step timeout"):
                 fleet_supervised(cli, pod_mod, obs_metrics, Tokenizer(tfile.read_tfile(t)),
                                  m8, t)
+        if run_phase(23) or run_phase("23d"):
+            with phase(f"23d the elastic pod: serve-pod --supervise --elastic on cuda:0 (7B "
+                       f"width, {CUT_LAYERS} layers): scale up on load, down with live "
+                       f"streams, reshape to tp=2 under a SIGKILL and back"):
+                p23d = fleet_elastic(cli, pod_mod, obs_metrics, Tokenizer(tfile.read_tfile(t)),
+                                     m8, t, card)
         if run_phase(14):
             with blocked_layout():
                 with phase(f"14 blocked main path: inference at Llama-2-7B width, "
@@ -5306,10 +5817,12 @@ def main() -> int:
         by_shape[key] = by_shape.get(key, 0) + n
     served["bf16"]["attn_launches"] += p23["attn_launches"]
     served["bf16"]["prefill_launches"] += p23["prefill_launches"]
+    # phase 23d's children are processes of their own, counted from their
+    # boot: their launches stand beside the rows they ran, not in them
     kernels = kernel_entries(run, run_tp, run_mix, run_blocked, run_q8, run_score, served,
                              table, tp_table, mix_table, blocked_table, q8_table, attn,
                              attn_g4, ar_table, prefill, prefill_g4, var_table, var_runs,
-                             wide, attn_dh, attn_g16, prefill_dh)
+                             wide, attn_dh, attn_g16, prefill_dh, pod_children(p23d))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -14,7 +14,9 @@ asking for ``cuda`` where there is none is an error):
   (``router/service.py``; no model in this process).
 * ``serve-pod`` — ``--dp`` replicas of the API server behind the router on
   ``--port`` (``router/pod.py``): in this process, the model read once, or
-  with ``--supervise`` as child processes that a supervisor respawns.
+  with ``--supervise`` as child processes that a supervisor respawns;
+  ``--supervise --elastic`` grows, shrinks and reshapes them
+  (``router/elastic.py``).
 
 Each ends with one line of launch counters of the model's matmul codec
 (Q40 or Q80: which route ran how often, and the layout; with tensor
@@ -40,7 +42,7 @@ does not (the reference's legacy-magic files); ``--dequantize`` loads Q40
 and Q80 weights dense in the compute dtype (their products plain
 matmuls).  Modes and flags of the JAX CLI outside the port (``worker``,
 ``--sp``, ``--ep``, ``--dp`` outside ``serve-pod``, and the flags in
-``NOT_PORTED_FLAGS``: the elastic pod's and multi-host start-up's) exit
+``NOT_PORTED_FLAGS``: multi-host start-up's) exit
 with a message naming them as not yet ported.
 
 ``python -m dllama_tpu_torch inference --model m.m --tokenizer t.t``
@@ -78,11 +80,6 @@ NOT_PORTED_FLAGS = {
     # multi-host start-up
     "--coordinator": None, "--nproc": None,
     "--proc-id": None, "--program": "generate",
-    # the elastic pod (serve-pod --supervise --elastic)
-    "--elastic": False, "--pod-devices": 0, "--min-replicas": 1, "--max-replicas": 0,
-    "--elastic-interval": 2.0, "--elastic-window": 5, "--elastic-cooldown": 30.0,
-    "--scale-up-util": 0.85, "--scale-down-util": 0.15, "--scale-up-queue": 2.0,
-    "--reshape-kv-low": 0.08,
 }
 
 
@@ -284,6 +281,52 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--respawn-window", type=float, default=30.0,
                    help="serve-pod --supervise: sliding window (seconds) of the "
                         "crash-loop count")
+    # the elastic pod (router/elastic.py), the JAX CLI's flags
+    p.add_argument("--elastic", action="store_true",
+                   help="serve-pod --supervise: load-driven autoscaling "
+                        "and live tp reshape — a control loop samples "
+                        "fleet /health signals and spawns, drains, or "
+                        "reshapes replicas within the --pod-devices "
+                        "budget.  Needs --handoff + --batch-slots/"
+                        "--kv-pages (in-flight requests migrate over "
+                        "the hand-off wire)")
+    p.add_argument("--pod-devices", type=int, default=0,
+                   help="serve-pod --elastic: total device budget the "
+                        "pod may partition into replicas (default "
+                        "dp × tp — no headroom to grow)")
+    p.add_argument("--min-replicas", type=int, default=1,
+                   help="serve-pod --elastic: scale-down floor")
+    p.add_argument("--max-replicas", type=int, default=0,
+                   help="serve-pod --elastic: scale-up ceiling "
+                        "(default: the boot dp)")
+    p.add_argument("--elastic-interval", type=float, default=2.0,
+                   help="serve-pod --elastic: seconds between control-"
+                        "loop ticks (one fleet sample per tick)")
+    p.add_argument("--elastic-window", type=int, default=5,
+                   help="serve-pod --elastic: samples in the sliding "
+                        "window; EVERY sample must agree before a "
+                        "policy action fires (sustained signal, not a "
+                        "spike)")
+    p.add_argument("--elastic-cooldown", type=float, default=30.0,
+                   help="serve-pod --elastic: seconds after any "
+                        "topology action before the policy may act "
+                        "again (the window also refills from empty)")
+    p.add_argument("--scale-up-util", type=float, default=0.85,
+                   help="serve-pod --elastic: sustained fleet slot "
+                        "utilization at or above this adds a replica")
+    p.add_argument("--scale-down-util", type=float, default=0.15,
+                   help="serve-pod --elastic: sustained utilization at "
+                        "or below this (with an empty queue) retires "
+                        "the most-idle replica")
+    p.add_argument("--scale-up-queue", type=float, default=2.0,
+                   help="serve-pod --elastic: sustained queued requests "
+                        "per replica at or above this also triggers "
+                        "scale-up")
+    p.add_argument("--reshape-kv-low", type=float, default=0.08,
+                   help="serve-pod --elastic: sustained effective-free "
+                        "KV fraction at or below this reshapes to "
+                        "fewer, wider replicas (tp×2) — the long-"
+                        "context answer")
     # observability (obs/), the JAX CLI's flags
     p.add_argument("--log-format", choices=["human", "json"], default=None,
                    help="log output format: human-readable lines or JSON "

@@ -12,8 +12,9 @@
 Kinds (``KINDS``): ``spawn``, ``death``, ``respawn``, ``quarantine``
 (the pod supervisor, router/pod.py), ``eject``, ``readmit`` (the
 router's registry), ``handoff``, ``resume`` (the router and the
-scheduler), ``preempt`` (the scheduler); ``retire``, ``scale`` and
-``reshape`` belong to the elastic pod, which this package does not carry.
+scheduler), ``preempt`` (the scheduler); ``retire`` (the registry's
+admission fence), ``scale`` and ``reshape`` (the elastic pod's controller,
+router/elastic.py).
 Stdlib only, one small lock an append, a process-global journal
 (``JOURNAL``).
 """

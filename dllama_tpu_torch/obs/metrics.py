@@ -8,8 +8,8 @@ JSON dict (counters seeded at import, histograms as ``{"count", "sum",
 "avg", "buckets"}``, a ``schema_version``); :func:`render_prometheus` is
 text exposition format 0.0.4.  The families are the ones the port feeds,
 each with the JAX package's name, type, help and buckets; a family of a
-feature the port lacks (the elastic pod, the degrade ledger, compile
-telemetry) comes with that feature.
+feature the port lacks (the degrade ledger, compile telemetry) comes
+with that feature.
 
 Thread-safe (one small lock a metric) and stdlib-only.
 """
@@ -754,7 +754,7 @@ ROUTER_STALLS = REGISTRY.counter(
     "backend was connected but produced no bytes for the window — a "
     "wedged replica treated as dead.")
 
-# serve-pod --supervise (router/pod.py)
+# serve-pod --supervise [--elastic] (router/pod.py, router/elastic.py)
 POD_RESPAWNS = REGISTRY.labeled_counter(
     "pod_respawns", ("replica", "reason"),
     "serve-pod supervisor respawns of a replica process, by replica "
@@ -764,6 +764,19 @@ POD_REPLICAS_UP = REGISTRY.gauge(
     "pod_replicas_up",
     "serve-pod supervised replica processes currently alive (a "
     "quarantined crash-looper stays down and is not counted).")
+POD_REPLICAS_DESIRED = REGISTRY.gauge(
+    "pod_replicas_desired",
+    "Elastic pod replica target: what the control loop is converging "
+    "toward (desired > up means a scale-up or reshape is in flight).")
+POD_SCALE_EVENTS = REGISTRY.labeled_counter(
+    "pod_scale_events", ("direction", "reason"),
+    "Elastic pod topology actions by direction (up / down / reshape) "
+    "and reason (load, idle, kv_pressure, manual, quarantined).")
+POD_RESHAPE_SECONDS = REGISTRY.histogram(
+    "pod_reshape_seconds", (1.0, 5.0, 15.0, 30.0, 60.0, 120.0, 300.0),
+    "Wall time of one live tp reshape, first spawn/retire to "
+    "convergence — every in-flight request migrated, all replicas on "
+    "the new shape.")
 
 # SLO burn-rate engine (obs/slo.py)
 SLO_BURN_RATE = REGISTRY.labeled_gauge(

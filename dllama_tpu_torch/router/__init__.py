@@ -13,9 +13,12 @@ the port of ``dllama_tpu/router/`` (registry, fleet, service, pod).
   ``/debug/events``;
 * :mod:`.pod` is ``serve-pod``: ``--dp`` replicas of the port's server in
   this process (one model read, an engine and scheduler each), or
-  ``--supervise``d child processes that a supervisor respawns.
+  ``--supervise``d child processes that a supervisor respawns;
+* :mod:`.elastic` is ``--supervise --elastic``'s control loop: it scales
+  the children up on load, down when idle, and reshapes their tp degree,
+  by its policy or by ``/admin/scale`` and ``/admin/reshape``.
 
 The router itself is stdlib HTTP plumbing: ``python -m
 dllama_tpu_torch.router --backends host:port,...`` starts it without
-loading a model.  The elastic pod (``--elastic``) is not ported.
+loading a model.
 """

@@ -1,6 +1,6 @@
 """``serve-pod``: ``--dp`` replicas of the API server, each ``--workers
 tpu:N`` ranks wide, fronted by the fleet router on one public port — the
-port of ``dllama_tpu/router/pod.py`` (its elastic branch is not ported).
+port of ``dllama_tpu/router/pod.py``.
 
 Placement follows the port's rule (``parallel/mesh.py``), not the TPU's:
 
@@ -32,6 +32,15 @@ supervisor builds the kernels once before it spawns (``ops/_build.py``,
 which also holds a file lock), so the children load the library instead
 of compiling it twice; a child that still fails to build or to reach its
 card dies, and that death counts in the crash-loop window.
+
+``--supervise --elastic`` adds the control loop of :mod:`.elastic`: the
+pod grows, shrinks and reshapes its replica set under load or through
+``/admin/scale`` and ``/admin/reshape``, within a ``--pod-devices``
+budget of ordinals (a card under ``--device cuda``; bookkeeping under
+``cuda:K``, where every child runs on card K, and under ``cpu``).
+:class:`_PodOps` is the process side it drives: a spawn seats a new child
+on its ordinals, a retire marks it ``retiring`` (so the supervisor does
+not respawn it) before the SIGTERM drain.
 """
 
 from __future__ import annotations
@@ -76,9 +85,10 @@ def parse_pod_tp(workers: str | None, n_devices: int, dp: int) -> int:
 
 
 def partition_devices(device: str, dp: int, tp: int, n_cards: int) -> list[tuple[str, ...]]:
-    """Each replica's device a rank, as the module docstring places them:
-    ``cuda`` gives replica r cards r·tp … r·tp + tp − 1 (raises when
-    ``n_cards`` is short), ``cuda:K`` and ``cpu`` put every rank there."""
+    """Each replica's device a rank, replica r on ordinals r·tp … r·tp +
+    tp − 1 placed by :func:`ordinal_devices`; raises when ``cuda`` has too
+    few cards, ``cuda:K`` names a card not present, or the device is none
+    of ``cuda``, ``cuda:K``, ``cpu``."""
     dev = device.strip().lower()
     if dev == "cuda":
         need = dp * tp
@@ -88,15 +98,12 @@ def partition_devices(device: str, dp: int, tp: int, n_cards: int) -> list[tuple
                 "present (--device cuda:K puts every replica on card K)")
         if need < n_cards:
             _log.warning("pod_devices_idle", extra={"used": need, "present": n_cards})
-        return [tuple(f"cuda:{r * tp + i}" for i in range(tp)) for r in range(dp)]
-    if dev.startswith("cuda:"):
-        k = int(dev.split(":", 1)[1])
-        if k >= n_cards:
+    elif dev.startswith("cuda:"):
+        if int(dev.split(":", 1)[1]) >= n_cards:
             raise SystemExit(f"serve-pod: --device {device} but only {n_cards} card(s)")
-        return [(f"cuda:{k}",) * tp] * dp
-    if dev == "cpu":
-        return [("cpu",) * tp] * dp
-    raise SystemExit(f"serve-pod: --device takes cuda, cuda:K or cpu, got {device!r}")
+    elif dev != "cpu":
+        raise SystemExit(f"serve-pod: --device takes cuda, cuda:K or cpu, got {device!r}")
+    return [ordinal_devices(dev, range(r * tp, r * tp + tp)) for r in range(dp)]
 
 
 def child_placement(devs: tuple[str, ...]) -> tuple[list[int] | None, str]:
@@ -108,6 +115,19 @@ def child_placement(devs: tuple[str, ...]) -> tuple[list[int] | None, str]:
         return None, "cpu"
     ordinals = sorted({int(d.split(":", 1)[1]) for d in devs})
     return ordinals, "cuda:0" if len(ordinals) == 1 else "cuda"
+
+
+def ordinal_devices(device: str, ordinals) -> tuple[str, ...]:
+    """A replica's device a rank, from its ordinals (the pool's, or the
+    boot's r·tp …): under ``cuda`` each ordinal is a card, under
+    ``cuda:K`` and ``cpu`` every rank sits on that device (the ordinals are
+    bookkeeping)."""
+    dev = device.strip().lower()
+    if dev == "cuda":
+        return tuple(f"cuda:{o}" for o in ordinals)
+    if dev.startswith("cuda:"):
+        dev = f"cuda:{int(dev.split(':', 1)[1])}"
+    return (dev,) * len(ordinals)
 
 
 # -- supervised (crash-isolated) pod ------------------------------------
@@ -205,15 +225,19 @@ class _Replica:
     """One supervised child: its spawn recipe plus crash-loop history."""
 
     def __init__(self, idx: int, port: int, argv: list[str], env: dict,
-                 *, sock: socket.socket | None = None):
+                 *, tp: int = 1, ordinals: list[int] | None = None,
+                 sock: socket.socket | None = None):
         self.idx = idx
         self.port = port
         self.argv = argv
         self.env = env
+        self.tp = tp                      # mesh shape (elastic reshape)
+        self.ordinals = ordinals if ordinals is not None else []
         self.sock = sock                  # held bound port (race fence)
         self.proc: subprocess.Popen | None = None
         self.deaths: collections.deque = collections.deque()
         self.quarantined = False
+        self.retiring = False    # elastic drain in progress: no respawn
         self.ready = False       # answered /health since last spawn
         self.hang_streak = 0
 
@@ -250,7 +274,7 @@ class Supervisor:
         self.hang_probes = max(1, int(hang_probes))
         self.poll_interval = float(poll_interval)
         self.probe_timeout = float(probe_timeout)
-        self._lock = threading.Lock()     # replicas-list reads
+        self._lock = threading.Lock()     # the list; a retire against a respawn
         self._stop = threading.Event()
         self._thread: threading.Thread | None = None
 
@@ -269,7 +293,33 @@ class Supervisor:
         _log.info("pod_replica_spawned", extra={
             "replica": rep.idx, "port": rep.port, "pid": rep.proc.pid})
         obs_events.emit("spawn", replica=f"127.0.0.1:{rep.port}",
-                        idx=rep.idx, pid=rep.proc.pid)
+                        idx=rep.idx, pid=rep.proc.pid, tp=rep.tp)
+
+    # -- runtime membership (elastic pod) -------------------------------
+    def add(self, rep: _Replica) -> None:
+        """Spawn and adopt a replica mid-flight (elastic scale-up)."""
+        self.spawn(rep)
+        with self._lock:
+            self.replicas.append(rep)
+        obs_metrics.POD_REPLICAS_UP.set(self.replicas_up())
+
+    def begin_retire(self, rep: _Replica) -> subprocess.Popen | None:
+        """Mark ``rep`` retiring (no respawn from here on) and return its
+        process: under the lock a respawn takes, so a child respawned
+        just before is the one returned."""
+        with self._lock:
+            rep.retiring = True
+            return rep.proc
+
+    def remove(self, rep: _Replica) -> None:
+        """Forget a replica (elastic scale-down; process already
+        reaped by the caller)."""
+        with self._lock:
+            try:
+                self.replicas.remove(rep)
+            except ValueError:
+                return
+        obs_metrics.POD_REPLICAS_UP.set(self.replicas_up())
 
     def snapshot(self) -> list[_Replica]:
         with self._lock:
@@ -321,7 +371,9 @@ class Supervisor:
     def _watch(self) -> None:
         while not self._stop.wait(self.poll_interval):
             for rep in self.snapshot():
-                if rep.quarantined:
+                if rep.quarantined or rep.retiring:
+                    # retiring: the elastic controller owns the drain —
+                    # its exit is completion, not a death to respawn
                     continue
                 if rep.proc is None:
                     # a previous respawn attempt itself failed: treat
@@ -353,6 +405,10 @@ class Supervisor:
                    and rep.proc.poll() is None)
 
     def _died(self, rep: _Replica, reason: str) -> None:
+        if rep.retiring:
+            # the controller set it before its SIGTERM (a SIGKILL landing
+            # on a retiring child only ends the retire sooner)
+            return
         now = time.monotonic()
         rep.deaths.append(now)
         while rep.deaths and now - rep.deaths[0] > self.respawn_window:
@@ -379,8 +435,13 @@ class Supervisor:
                             window_s=self.respawn_window)
             return
         try:
-            FAULTS.fire("pod.respawn")
-            self.spawn(rep)
+            with self._lock:
+                # a retire that began since the check above owns the
+                # replica now: no respawn for it to miss
+                if rep.retiring:
+                    return
+                FAULTS.fire("pod.respawn")
+                self.spawn(rep)
         except Exception as e:  # noqa: BLE001 — injected or exec failure
             _log.error("pod_respawn_failed", extra={
                 "replica": rep.idx, "error": str(e)})
@@ -392,13 +453,78 @@ class Supervisor:
                         pid=rep.proc.pid if rep.proc else None)
 
 
+def _new_replica(args, idx: int, tp: int, ordinals: list[int],
+                 snapshot_root: str | None) -> _Replica:
+    """Replica ``idx``'s spawn recipe: a held loopback port, its snapshot
+    directory, and its child's placement on ``ordinals`` (the module
+    docstring's rule)."""
+    port, sock = _hold_port()
+    snapdir = None
+    if snapshot_root:
+        snapdir = os.path.join(snapshot_root, f"replica{idx}")
+        os.makedirs(snapdir, exist_ok=True)
+    visible, child_dev = child_placement(ordinal_devices(args.device, ordinals))
+    return _Replica(idx, port, _replica_argv(args, port, snapdir, child_dev, tp),
+                    _child_env(os.environ, visible), tp=tp, ordinals=ordinals, sock=sock)
+
+
+class _PodOps:
+    """Process mechanics the elastic controller drives.  Lives here so
+    :mod:`.elastic` never touches subprocess/sockets and stays
+    unit-testable with fakes."""
+
+    def __init__(self, sup: Supervisor, args):
+        self.sup = sup
+        self.args = args
+        self._next_idx = 1 + max(
+            (r.idx for r in sup.snapshot()), default=-1)
+
+    def spawn(self, tp: int, ordinals: list[int]) -> _Replica:
+        """A new child on ``ordinals``, adopted by the supervisor.  It
+        builds no kernels: the supervisor built the library once before
+        the first spawn."""
+        idx, self._next_idx = self._next_idx, self._next_idx + 1
+        rep = _new_replica(self.args, idx, tp, list(ordinals), self.args.snapshot_dir)
+        self.sup.add(rep)
+        return rep
+
+    def retire(self, rep: _Replica, *, grace: float) -> None:
+        """SIGTERM → drain (live slots export DLREQ01, streams finish
+        ``handoff``) → bounded wait → SIGKILL if the grace blows.  The
+        ``retiring`` flag, set first, stops the supervisor treating the
+        exit as a death to respawn."""
+        proc = self.sup.begin_retire(rep)
+        if proc is not None and proc.poll() is None:
+            proc.terminate()
+            try:
+                proc.wait(timeout=grace + 10.0)
+            except subprocess.TimeoutExpired:
+                _log.warning("pod_retire_kill", extra={
+                    "replica": rep.idx, "grace_s": grace})
+                proc.kill()
+                try:
+                    proc.wait(timeout=10.0)
+                except subprocess.TimeoutExpired:
+                    pass
+        self.sup.remove(rep)
+
+    def live_replicas(self) -> list[_Replica]:
+        return [r for r in self.sup.snapshot() if not r.quarantined]
+
+    def reap_quarantined(self) -> list[_Replica]:
+        out = [r for r in self.sup.snapshot() if r.quarantined]
+        for r in out:
+            self.sup.remove(r)
+        return out
+
+
 # -- the pod --------------------------------------------------------------
 
 class Pod:
     """A serve-pod's parts: the router's state, its HTTP server once it
     serves (:func:`start`), and the replicas — ``servers`` (in-process API
     servers) or ``supervisor`` (child processes).  :meth:`stop` ends them
-    all."""
+    all.  An elastic pod's controller is ``rstate.elastic``."""
 
     def __init__(self, rstate, *, servers=(), supervisor: Supervisor | None = None):
         self.rstate = rstate
@@ -415,6 +541,8 @@ class Pod:
         if self.router is not None:
             router_stop(self.router)
             self.router = None
+        if self.rstate.elastic is not None:
+            self.rstate.elastic.stop()
         if self.supervisor is not None:
             self.supervisor.stop()
         if self.servers:
@@ -467,30 +595,52 @@ def _pod_tp(args, n_cards: int, dp: int) -> int:
     return 1
 
 
+def elastic_policy(args):
+    """The controller's policy from the elastic flags, as the JAX pod reads
+    them: ``--max-replicas 0`` (the default) is clamped to
+    ``--min-replicas`` by the policy."""
+    from .elastic import ElasticPolicy
+    return ElasticPolicy(
+        window=args.elastic_window, cooldown=args.elastic_cooldown,
+        up_util=args.scale_up_util, down_util=args.scale_down_util,
+        up_queue=args.scale_up_queue, kv_low=args.reshape_kv_low,
+        min_replicas=args.min_replicas, max_replicas=args.max_replicas)
+
+
 def build_supervised(args) -> Pod:
-    """The supervised pod's children (spawned) and the router's state."""
+    """The supervised pod's children (spawned) and the router's state;
+    with ``--elastic``, its controller too (started, as ``rstate.elastic``)."""
     if not args.model or not args.tokenizer:
         raise SystemExit("--model and --tokenizer are required for serve-pod")
+    from .elastic import DevicePool, ElasticController
     dp = max(args.dp, 1)
     n_cards = _card_count(args.device)
     tp = _pod_tp(args, n_cards, dp)
     groups = partition_devices(args.device, dp, tp, n_cards)
+    if args.elastic:
+        if not args.handoff:
+            raise SystemExit("serve-pod: --elastic needs --handoff "
+                             "(scale-down migrates in-flight requests "
+                             "over the hand-off wire)")
+        if args.batch_slots <= 0 or args.kv_pages <= 0:
+            raise SystemExit("serve-pod: --elastic needs --batch-slots "
+                             "and --kv-pages (fleet signals come from "
+                             "slot-scheduler occupancy)")
+    pool_size = args.pod_devices or dp * tp
+    if pool_size < dp * tp:
+        raise SystemExit(f"serve-pod: --pod-devices {pool_size} cannot "
+                         f"seat the boot shape dp={dp} × tp={tp}")
+    if args.device.strip().lower() == "cuda" and pool_size > n_cards:
+        raise SystemExit(f"serve-pod: --pod-devices {pool_size} needs {pool_size} cards, "
+                         f"only {n_cards} present (--device cuda:K puts every replica "
+                         "on card K)")
+    pool = DevicePool(pool_size)
     if groups[0][0] != "cpu":
         # nvcc only (no CUDA context here): the children load this library
         from ..ops import _build
         _build.build()
-    snapshot_root = args.snapshot_dir
-    replicas = []
-    for r, devs in enumerate(groups):
-        port, sock = _hold_port()
-        snapdir = None
-        if snapshot_root:
-            snapdir = os.path.join(snapshot_root, f"replica{r}")
-            os.makedirs(snapdir, exist_ok=True)
-        ordinals, child_dev = child_placement(devs)
-        replicas.append(_Replica(
-            r, port, _replica_argv(args, port, snapdir, child_dev, tp),
-            _child_env(os.environ, ordinals), sock=sock))
+    replicas = [_new_replica(args, r, tp, pool.allocate(tp), args.snapshot_dir)
+                for r in range(dp)]
     sup = Supervisor(
         replicas, respawn_max=args.respawn_max, respawn_window=args.respawn_window,
         poll_interval=min(1.0, float(args.probe_interval)),
@@ -498,11 +648,20 @@ def build_supervised(args) -> Pod:
     sup.start()
     try:
         rstate = _router_state(args, [f"127.0.0.1:{rep.port}" for rep in replicas])
+        if args.elastic:
+            policy = elastic_policy(args)
+            rstate.elastic = ElasticController(
+                _PodOps(sup, args), rstate.registry, pool, policy,
+                tp=tp, interval=args.elastic_interval,
+                drain_grace=float(args.drain_grace))
+            rstate.elastic.start()
     except BaseException:
         sup.stop()
         raise
+    elastic = (f" [elastic {policy.min_replicas}–{policy.max_replicas} over {pool_size} "
+               "devices]" if args.elastic else "")
     print(f"💡 serve-pod: supervising {dp} replica process(es) × tp={tp} on "
-          f"{', '.join(g[0] for g in groups)}; router on :{args.port}")
+          f"{', '.join(g[0] for g in groups)}{elastic}; router on :{args.port}")
     return Pod(rstate, supervisor=sup)
 
 
@@ -559,7 +718,13 @@ def build_in_process(args) -> Pod:
 
 
 def build(args) -> Pod:
-    return build_supervised(args) if args.supervise else build_in_process(args)
+    if args.supervise:
+        return build_supervised(args)
+    if args.elastic:
+        raise SystemExit("serve-pod: --elastic requires --supervise "
+                         "(only process replicas can be spawned, "
+                         "drained, and reshaped at runtime)")
+    return build_in_process(args)
 
 
 def start(args) -> Pod:

@@ -37,8 +37,10 @@ wire is the same):
   registry (router_* families; ``?scope=fleet`` federates every
   replica's), ``/debug/requests`` the router-side flight ring.
 
-The elastic pod's ``/admin/scale`` and ``/admin/reshape`` answer 404 here:
-``--elastic`` is not ported.
+* ``POST /admin/scale?n=N`` and ``/admin/reshape?tp=N`` hand a command to
+  the elastic pod's controller (``serve-pod --supervise --elastic``,
+  :mod:`.elastic`): 202 with the accepted target, 400 on a bad argument,
+  404 on a router without a controller.
 """
 
 from __future__ import annotations
@@ -132,8 +134,8 @@ class RouterState:
         # router created (X-Dllama-Hop) with this process
         self.hop = f"router-{uuid.uuid4().hex[:8]}"
         self.started_at = time.time()
-        # the JAX package's elastic pod controller (serve-pod --elastic),
-        # not ported: stays None, so /admin/scale and /admin/reshape 404
+        # elastic pod controller (router/elastic.py), wired by
+        # serve-pod --supervise --elastic; None → /admin/scale 404s
         self.elastic = None
         # fleet federation (router/fleet.py): /metrics?scope=fleet
         # scrapes every registered replica and re-exposes everything
@@ -394,8 +396,8 @@ def make_handler(state: RouterState):
             ctl = state.elastic
             if ctl is None:
                 self._json(404, {"error": "this router has no elastic "
-                                          "controller (--elastic is not yet "
-                                          "ported to dllama_tpu_torch)"})
+                                          "controller (run serve-pod "
+                                          "--supervise --elastic)"})
                 return
             q = parse_qs(query)
             try:

@@ -28,7 +28,8 @@
   ``GET /metrics`` (JSON, or Prometheus text 0.0.4 with ``Accept:
   text/plain`` or ``?format=prometheus``), and ``GET /debug/trace``,
   ``/debug/events``, ``/debug/requests[/<id>]``, ``/debug/timeline``
-  (``obs/``), and ``POST /debug/profile?steps=N&top=K`` (N single-token
+  (``obs/``), ``GET /debug/launches`` (the kernels' launch counters, the
+  matmuls' by shape too; the port's own), and ``POST /debug/profile?steps=N&top=K`` (N single-token
   decode steps of the batch-1 engine under ``torch.profiler``, the
   scheduler parked: the top-K kernels and the compute/collective split).
   Every response carries ``X-Request-Id`` (the client's, sanitized, or a
@@ -316,6 +317,18 @@ def _bounded(stream, state: "ApiState", deadline: float | None,
                 return
 
 
+def launch_counters(by_shape: bool = False) -> dict:
+    """This process's kernel launch and plain-call counters; with
+    ``by_shape``, the matmuls' launches by shape too, as ``[*key, n]``."""
+    def matmul(c):
+        out = {k: v for k, v in c.items() if isinstance(v, int)}
+        if by_shape:
+            out["by_shape"] = [[*k, n] for k, n in c["launches_by_shape"].items()]
+        return out
+    return {"q40": matmul(q40.counters()), "q8": matmul(q8.counters()),
+            "paged_attention": attention.counters()}
+
+
 class ApiState:
     """Engine + tokenizer + conversation cache shared across requests.
 
@@ -593,10 +606,7 @@ class ApiState:
             # there is its kernel-degrade ledger, which the port has not)
             "degraded": degraded,
             "degrade_reasons": {"step_timeout": self.step_timeouts} if degraded else {},
-            "launches": {
-                **{name: {k: v for k, v in mod.counters().items() if isinstance(v, int)}
-                   for name, mod in (("q40", q40), ("q8", q8))},
-                "paged_attention": attention.counters()},
+            "launches": launch_counters(),
             # ok / at_risk / violating per objective, evaluated live
             "slo": self.slo.evaluate() if self.slo is not None else None,
             # obs/cost.py: MFU/MBU against the card's peaks, the modelled
@@ -1394,6 +1404,10 @@ def make_handler(state: ApiState):
                     self._json(404, {"error": f"no flight record for request id {rid!r}"})
                 else:
                     self._json(200, rec)
+            elif path == "/debug/launches":
+                # /health's launch counters with the matmuls' by shape, as
+                # [*key, n] (read once per replica, not by every probe)
+                self._json(200, launch_counters(by_shape=True))
             elif path == "/debug/timeline":
                 self._json(200, {
                     "slots": state.scheduler.engine.batch if state.scheduler else 0,

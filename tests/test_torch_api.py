@@ -106,6 +106,22 @@ def test_health_and_models(servers):
     assert set(health["launches"]) == {"q40", "q8", "paged_attention"}
 
 
+def test_debug_launches_adds_the_matmuls_by_shape(servers):
+    """``/debug/launches`` is ``/health``'s launch block with each matmul's
+    launches by shape as ``[*key, n]`` (none on the CPU: every call there
+    is plain); the probed ``/health`` carries no shape table."""
+    port, _, _ = servers
+    with urllib.request.urlopen(port + "/health", timeout=10) as r:
+        health = json.loads(r.read())["launches"]
+    with urllib.request.urlopen(port + "/debug/launches", timeout=10) as r:
+        debug = json.loads(r.read())
+    for codec in ("q40", "q8"):
+        assert "by_shape" not in health[codec]
+        assert debug[codec].pop("by_shape") == []
+        assert debug[codec]["kernel_launches"] == 0
+    assert debug == health
+
+
 @pytest.mark.parametrize("path,body", [
     ("/v1/chat/completions", {"messages": CHAT, "max_tokens": 6}),
     ("/v1/completions", {"prompt": "hello", "max_tokens": 6, "stream": True}),
@@ -177,8 +193,9 @@ def test_unported_features_answer_400(servers, method, path, body, named):
 def test_unported_server_flag_exits():
     from dllama_tpu_torch.server import api
     # --step-timeout is ported since the fleet slice, --weights-float-type
-    # since the loading flags came over: the server takes it, and a flag
-    # still outside the port stands in for it
-    with pytest.raises(SystemExit, match=r"not yet ported to dllama_tpu_torch: --elastic \(run"):
+    # since the loading flags came over, --elastic since the elastic slice:
+    # the server takes them, and a flag still outside the port stands in
+    with pytest.raises(SystemExit,
+                       match=r"not yet ported to dllama_tpu_torch: --coordinator \(run"):
         api.parse_args(["--spec", "pld", "--weights-float-type", "q40", "--dequantize",
-                        "--elastic"])
+                        "--elastic", "--coordinator", "h:1"])

@@ -80,30 +80,36 @@ def test_inference_prints_stats(model_files):
     pytest.param(["generate", "--kv-reserve", "optimistic", "--snapshot-dir", "x",
                   "--spec", "pld", "--step-timeout", "5", "--sp", "2"], "--sp",
                  id="extra3---kv-reserve, --snapshot-dir"),
-    # the router and serve-pod modes and their flags are ported since: each
-    # case keeps its id and names the elastic flags beside them, still out
-    pytest.param(["router", "--backends", "127.0.0.1:1", "--elastic"], "--elastic",
+    # the router and serve-pod modes and their flags are ported since, and
+    # the elastic pod's flags since the elastic slice: each case keeps its id
+    # and names a flag still outside the port beside them (--sp, --coordinator)
+    pytest.param(["router", "--backends", "127.0.0.1:1", "--elastic", "--sp", "2"], "--sp",
                  id="extra4-mode 'router', --backends"),
-    pytest.param(["serve-pod", "--supervise", "--dp", "2", "--pod-devices", "4"],
-                 "--pod-devices", id="extra5-mode 'serve-pod', --supervise"),
+    pytest.param(["serve-pod", "--supervise", "--dp", "2", "--pod-devices", "4", "--sp", "2"],
+                 "--sp", id="extra5-mode 'serve-pod', --supervise"),
     # the loading flags are ported since: the case keeps its id and holds
     # that they are accepted, named the flag still outside the port beside them
-    pytest.param(["generate", "--dequantize", "--weights-float-type", "q40", "--elastic"],
-                 "--elastic", id="extra6---weights-float-type, --dequantize"),
+    pytest.param(["generate", "--dequantize", "--weights-float-type", "q40", "--elastic",
+                  "--coordinator", "h:1"], "--coordinator",
+                 id="extra6---weights-float-type, --dequantize"),
     # the profiling flags are ported since: the case keeps its id and runs
     # them beside a flag still outside the port (--dequantize is ported
-    # since the loading flags came over: --min-replicas stands in for it)
+    # since the loading flags came over, --min-replicas since the elastic
+    # slice: --sp stands in for them)
     pytest.param(["inference", "--profile-split", "--profile-ops", "--numeric-checks",
-                  "--dequantize", "--min-replicas", "2"], "--min-replicas",
+                  "--dequantize", "--min-replicas", "2", "--sp", "2"], "--sp",
                  id="extra7---profile-split, --profile-ops"),
     (["worker", "--coordinator", "h:1", "--nproc", "2", "--proc-id", "1",
       "--program", "chat"], "--coordinator, --nproc, --proc-id, --program"),
-    (["generate", "--elastic", "--pod-devices", "4", "--max-replicas", "2"],
-     "--elastic, --pod-devices, --max-replicas"),
+    # the elastic flags are ported since: the two cases keep their ids, run
+    # them beside the multi-host flags and name only those
+    pytest.param(["generate", "--elastic", "--pod-devices", "4", "--max-replicas", "2",
+                  "--coordinator", "h:1", "--nproc", "2"], "--coordinator, --nproc",
+                 id="extra9---elastic, --pod-devices, --max-replicas"),
     pytest.param(["generate", "--stall-timeout", "5", "--checkpoint-interval", "1",
                   "--resume-policy", "never", "--elastic-interval", "1", "--scale-up-util",
-                  "0.5", "--reshape-kv-low", "0.1"],
-                 "--elastic-interval, --scale-up-util, --reshape-kv-low",
+                  "0.5", "--reshape-kv-low", "0.1", "--proc-id", "1", "--program", "chat"],
+                 "--proc-id, --program",
                  id="extra10---stall-timeout, --checkpoint-interval, --resume-policy"),
     (["generate", "--dp", "2"], "--dp (outside serve-pod)"),
 ])
@@ -113,7 +119,8 @@ def test_unported_flags_exit_naming_them(model_files, extra, named):
     assert r.returncode != 0
     assert "not yet ported" in r.stderr and named in r.stderr
     msg = r.stderr.split("not yet ported to dllama_tpu_torch: ", 1)[1].split(" (run", 1)[0]
-    assert not set(msg.split(", ")) & (PORTED_SINCE | FLEET_FLAGS | LOAD_FLAGS), msg
+    assert not set(msg.split(", ")) & (PORTED_SINCE | FLEET_FLAGS | LOAD_FLAGS
+                                       | ELASTIC_FLAGS), msg
 
 
 # flags the port carries since speculative decoding and profiling came over
@@ -127,33 +134,105 @@ FLEET_FLAGS = {"--backends", "--probe-interval", "--eject-after", "--readmit-aft
                "--checkpoint-interval", "--resume-policy", "--supervise", "--respawn-max",
                "--respawn-window", "--io-timeout", "--drain-grace", "--step-timeout",
                "--numeric-checks", "--verify-weights"}
+# and since the elastic pod came over
+ELASTIC_FLAGS = {"--elastic", "--pod-devices", "--min-replicas", "--max-replicas",
+                 "--elastic-interval", "--elastic-window", "--elastic-cooldown",
+                 "--scale-up-util", "--scale-down-util", "--scale-up-queue",
+                 "--reshape-kv-low"}
 
 
 def test_fleet_modes_and_flags_left_the_refusal_lists():
     """``router`` and ``serve-pod`` left ``NOT_PORTED_MODES``, and the
     fleet's flags (with ``--dp``, for serve-pod) left ``NOT_PORTED_FLAGS``,
-    and so did the loading flags since; nothing else did.  They parse with
-    the JAX CLI's defaults."""
+    and so did the loading flags and the elastic pod's since; the four
+    multi-host flags stay.  They parse with the JAX CLI's defaults."""
     from dllama_tpu.cli import build_parser as jparser
     from dllama_tpu_torch import cli
     assert cli.NOT_PORTED_MODES == ("worker",)
     assert {"router", "serve-pod"} <= set(cli.MODES)
-    assert set(cli.NOT_PORTED_FLAGS) == {
-        "--coordinator", "--nproc", "--proc-id", "--program", "--elastic", "--pod-devices",
-        "--min-replicas", "--max-replicas",
-        "--elastic-interval", "--elastic-window", "--elastic-cooldown", "--scale-up-util",
-        "--scale-down-util", "--scale-up-queue", "--reshape-kv-low"}
+    assert set(cli.NOT_PORTED_FLAGS) == {"--coordinator", "--nproc", "--proc-id", "--program"}
     args = cli.build_parser().parse_args(["serve-pod"])
     jargs = jparser().parse_args(["serve-pod"])
-    for flag in sorted(FLEET_FLAGS | LOAD_FLAGS | {"--dp"}):
+    for flag in sorted(FLEET_FLAGS | LOAD_FLAGS | ELASTIC_FLAGS | {"--dp"}):
         key = flag[2:].replace("-", "_")
         assert getattr(args, key) == getattr(jargs, key), flag
     assert cli.not_ported(cli.build_parser().parse_args(
         ["serve-pod", "--dp", "2", "--supervise", "--respawn-max", "2", "--stall-timeout",
          "3", "--checkpoint-interval", "0.5", "--step-timeout", "9", "--numeric-checks",
-         "--verify-weights", "--io-timeout", "3", "--drain-grace", "1"])) == []
+         "--verify-weights", "--io-timeout", "3", "--drain-grace", "1", "--elastic",
+         "--pod-devices", "4", "--min-replicas", "1", "--max-replicas", "2",
+         "--elastic-interval", "0.5", "--elastic-window", "3", "--elastic-cooldown", "5",
+         "--scale-up-util", "0.9", "--scale-down-util", "0.1", "--scale-up-queue", "3",
+         "--reshape-kv-low", "-1"])) == []
     assert cli.not_ported(cli.build_parser().parse_args(
         ["router", "--backends", "h:1,h:2", "--probe-interval", "0.5"])) == []
+
+
+def test_elastic_flags_parse_and_build_the_policy_as_jax():
+    """The elastic flags' types and defaults are the JAX CLI's, value for
+    value, on the options a user sets too; the policy the supervised pod
+    gives its controller is the one the JAX pod builds from the same argv
+    at dp = 2 (``dllama_tpu/router/pod.py:533-541``): the default
+    ``--max-replicas 0`` is clamped to ``--min-replicas`` on both."""
+    from dllama_tpu.cli import build_parser as jparser
+    from dllama_tpu.router.elastic import ElasticPolicy as JPolicy
+    from dllama_tpu_torch import cli
+    from dllama_tpu_torch.router import pod
+    argv = ["serve-pod", "--elastic", "--pod-devices", "6", "--min-replicas", "2",
+            "--max-replicas", "3", "--elastic-interval", "0.25", "--elastic-window", "4",
+            "--elastic-cooldown", "7.5", "--scale-up-util", "0.7", "--scale-down-util", "0.2",
+            "--scale-up-queue", "1.5", "--reshape-kv-low", "0.05"]
+    policies = []
+    for given in ([], argv[1:]):
+        args = cli.build_parser().parse_args(["serve-pod", "--dp", "2", *given])
+        jargs = jparser().parse_args(["serve-pod", "--dp", "2", *given])
+        for flag in sorted(ELASTIC_FLAGS):
+            key = flag[2:].replace("-", "_")
+            got, want = getattr(args, key), getattr(jargs, key)
+            assert (got, type(got)) == (want, type(want)), flag
+        want = JPolicy(
+            window=getattr(jargs, "elastic_window", 5),
+            cooldown=getattr(jargs, "elastic_cooldown", 30.0),
+            up_util=getattr(jargs, "scale_up_util", 0.85),
+            down_util=getattr(jargs, "scale_down_util", 0.15),
+            up_queue=getattr(jargs, "scale_up_queue", 2.0),
+            kv_low=getattr(jargs, "reshape_kv_low", 0.08),
+            min_replicas=getattr(jargs, "min_replicas", 1),
+            max_replicas=getattr(jargs, "max_replicas", jargs.dp))
+        got = pod.elastic_policy(args)
+        fields = ("window", "cooldown", "up_util", "down_util", "up_queue", "kv_low",
+                  "min_replicas", "max_replicas")
+        assert {f: getattr(got, f) for f in fields} == {f: getattr(want, f) for f in fields}
+        policies.append(got)
+    assert (policies[0].min_replicas, policies[0].max_replicas) == (1, 1)
+    assert (policies[1].min_replicas, policies[1].max_replicas) == (2, 3)
+
+
+ELASTIC_POD = ["--model", "m.m", "--tokenizer", "t.t", "--port", "0"]
+
+
+@pytest.mark.parametrize("extra", [
+    ["--elastic"],                                                   # no --supervise
+    ["--supervise", "--elastic", "--batch-slots", "2", "--kv-pages", "40"],  # no --handoff
+    ["--supervise", "--elastic", "--handoff"],                       # no slots
+    ["--supervise", "--elastic", "--handoff", "--batch-slots", "2", "--kv-pages", "40",
+     "--dp", "2", "--pod-devices", "1"],                             # the boot shape
+], ids=["without-supervise", "without-handoff", "without-slots", "pod-devices-short"])
+def test_elastic_start_up_refusals_equal_jax(extra):
+    """``--elastic`` without ``--supervise``, and the supervised pod's
+    three start-up checks, exit before any child with JAX's messages."""
+    from dllama_tpu.cli import build_parser as jparser
+    from dllama_tpu.router import pod as jpod
+    from dllama_tpu_torch import cli
+    from dllama_tpu_torch.router import pod
+    msgs = []
+    for main, parser, dev in ((pod.main, cli.build_parser, ["--device", "cpu"]),
+                              (jpod.main, jparser, [])):
+        with pytest.raises(SystemExit) as e:
+            main(parser().parse_args(["serve-pod", *ELASTIC_POD, *dev, *extra]))
+        msgs.append(str(e.value))
+    assert msgs[0] == msgs[1]
+    assert msgs[0].startswith("serve-pod: --")
 
 
 def test_spec_and_profile_flags_are_accepted():
@@ -358,7 +437,7 @@ for name in ("server.api", "runtime.scheduler", "runtime.pagepool", "runtime.str
              "obs.slo", "obs.dispatch", "runtime.snapshot", "runtime.kvtier",
              "io.integrity", "obs.cost", "runtime.spec", "runtime.profiling",
              "runtime.faults", "router.registry", "router.fleet", "router.service",
-             "router.pod"):
+             "router.pod", "router.elastic"):
     assert "dllama_tpu_torch." + name in sys.modules, name
 from dllama_tpu_torch import cli
 for model in ({m!r}, {moe!r}):
@@ -415,7 +494,7 @@ def test_static_scan_finds_no_foreign_imports():
     for new in ("runtime/snapshot.py", "runtime/kvtier.py", "io/integrity.py", "obs/cost.py",
                 "runtime/spec.py", "runtime/profiling.py", "runtime/faults.py",
                 "router/__init__.py", "router/__main__.py", "router/registry.py",
-                "router/fleet.py", "router/service.py", "router/pod.py"):
+                "router/fleet.py", "router/service.py", "router/pod.py", "router/elastic.py"):
         assert os.path.join(PORT, *new.split("/")) in files, new
     hits = []
     for f in files:
