@@ -98,7 +98,8 @@ Phases (each prints its seconds; any failure exits non-zero):
    (PREFILL_PAGES), bf16 and int8, T = 16 and 256, the same checks; then
    at head dims 16, 32, 80, 96 and 256 (bf16 and int8; f32 at 96) at T = 16
    and a step of two row groups (T = 256; 128 at Dh 256, where a block
-   takes 64 query rows), the build's row group checked against the plan's.
+   takes 64 query rows), the build's row group checked against the plan's;
+   then G = 16 (32 query heads on 2 kv heads), bf16 and int8, T = 16.
    Prints each instantiation's registers and spills from the build, the
    plan (splits, row groups), the block's layout from the build (consumer
    warpgroups, threads, shared memory, ring stages, consumer registers
@@ -240,6 +241,17 @@ Phases (each prints its seconds; any failure exits non-zero):
    launch on a cold L2.  With two or more cards it repeats the check with
    rank r on card r (peer reads); on one card it prints that it skipped
    this.
+16b. kernel 4 across processes (its CUDA IPC body): two child processes
+   on cuda:0 joined in a gloo group through 127.0.0.1, tp = 2 with one
+   rank each, both ranks' partials made from one seed in each child, at
+   d = 4096, t in {1, 16, 128}, and d = 4102 at t = 3 (the scalar path):
+   each child's sum equal to ``tp_allreduce_plain`` bit for bit.  Times,
+   each the median of calls on a cold L2: the cross-process call (one card
+   that the two CUDA contexts share in time slices, no MPS: a rank waiting
+   for its peer's flag holds the card until its slice ends), the
+   one-process kernel on both partials, the plain version and
+   ``torch.stack(parts).sum(0)``; and 50 cross-process calls back to back
+   by the host clock; prints the bound.
 17. tensor parallelism on the main path: a Llama-2-7B-width file cut to 8
    layers (CUT_LAYERS; 32 until the fleet slice), ``inference --workers
    tpu:2 --device cuda:0`` as phase 3 (both ranks on one card): exactly
@@ -248,6 +260,20 @@ Phases (each prints its seconds; any failure exits non-zero):
    forward, no plain call; its profile and peak memory; the first
    forward's logits within E2E_TOL of max|logit| of a tp = 1 forward of the
    same file.
+25. the worker path: two CLI processes on cuda:0 at ``--workers tpu:2``
+   (one rank each; phase 17's 7B-width file of CUT_LAYERS layers), process
+   0 the mode, process 1 ``worker --program`` of it, joined through
+   ``--coordinator 127.0.0.1:P --nproc 2 --proc-id K``: ``inference``
+   greedy with phase 17's prompt for WORKER_STEPS tokens (its pieces
+   phase 17's single-process tp = 2 pieces byte for byte, process 0's
+   ms/token beside phase 17's: one card in time slices), ``generate`` of
+   the same prompt (process 0's text those pieces joined, up to its EOS),
+   ``batch`` over phase 14b's 8 prompts (the streams those of the
+   single-process tp = 2 batch, run in-process).  Both processes exit 0,
+   process 1 prints nothing on stdout, and each process's counter line
+   (stderr) shows 7 L + 1 Q40 launches (its rank) and 2 L cross-process
+   kernel-4 launches a forward, 0 plain calls; each process's peak device
+   memory and IPC region bytes.
 18. the API server at ``--workers tpu:2`` on the phase-5 model (7B width,
    2 layers), 8 slots and a paged pool a rank: 8 greedy requests as phase
    7b, then the same 8 again, each answering byte for byte; kernel 7
@@ -401,7 +427,7 @@ Phases (each prints its seconds; any failure exits non-zero):
    their sum as ``pod_children``, beside the main path's ``launches``).
    ``--only 23d`` runs it alone.
 
-They run in the order 1, 2, 2v, 13, 9, 6, 6c, 16, 3, 3v, 17, 4, 24, 5, 8, 15, 20b,
+They run in the order 1, 2, 2v, 13, 9, 6, 6c, 16, 16b, 3, 3v, 17, 25, 4, 24, 5, 8, 15, 20b,
 18, 7, 20, 3q, 21, 22, 23 (a, c, b, d), 14, 6s (7B width), 6s (Dh 96), 10, 11, 6s (Mixtral),
 12, 19; each
 synthesized model is deleted
@@ -417,6 +443,7 @@ line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import ast
 import contextlib
 import gc
 import io
@@ -1046,12 +1073,18 @@ def main_path(cli, codec, m: str, t: str, want, extra: tuple = (),
     # tensor parallelism (phase 17) runs eagerly: no graphs to compare
     ab = graphs_ab(engine, codec, key) if engine.graphs is not None else {}
     run = dict(counts=c, tok_s=tps, ms_token=ms, peak_bytes=peak, load_s=load_s, **prof,
-               **ab)
+               **ab, pieces=token_pieces(out))
     if keep:
         return run, engine
     del engine
     torch.cuda.empty_cache()
     return run
+
+
+def token_pieces(out: str) -> list[str]:
+    """The token pieces an ``inference`` run printed, one a G/I/T line
+    (their repr, as printed)."""
+    return [ln.split("| ", 1)[1] for ln in out.splitlines() if ln.startswith("🔶")]
 
 
 def matmul_kernel(name: str, codec_name: str) -> bool:
@@ -3412,6 +3445,253 @@ def tp_end_to_end(mfile, params_mod, config, transformer, engine_mod, q40, atten
     torch.cuda.empty_cache()
 
 
+# phases 16b and 25: one process a rank group, both processes on cuda:0
+GROUP_SHAPES = [(2, t, 4096) for t in (1, 16, 128)] + [(2, 3, 4102)]
+GROUP_TIMEOUT = "300"   # DLLAMA_GROUP_TIMEOUT of the children (seconds)
+WORKER_STEPS = 32        # phase 25's generated tokens (inference, generate)
+WORKER_BATCH_STEPS = 48  # phase 25's batch: tokens a stream, prompt included (14b's)
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+def allreduce_group_child(proc: str, port: str, out_path: str) -> int:
+    """Phase 16b's child process ``proc`` of two, joined through
+    ``127.0.0.1:port``, one rank of tp = 2 on cuda:0: for each of
+    GROUP_SHAPES both ranks' partials made from one seed (the same on both
+    processes), kernel 4's cross-process body on its rank's, held to
+    ``tp_allreduce_plain`` of both bit for bit, then timed (cold L2, the
+    median of 30 calls; both processes make the same calls).  Process 0
+    also times the plain version, the one-process kernel on both partials
+    and ``torch.stack(parts).sum(0)``, and writes the numbers to
+    ``out_path``; both time 50 calls back to back by the host clock."""
+    sys.path.insert(0, REPO)
+    from dllama_tpu_torch.ops import _build, q40
+    from dllama_tpu_torch.parallel import distributed
+    from dllama_tpu_torch.parallel.mesh import make_mesh
+    proc = int(proc)
+    dev = torch.device("cuda", 0)
+    _build.load()
+    distributed.init_distributed(f"127.0.0.1:{port}", 2, proc, max_retries=0)
+    group = distributed.current_group()
+    group.reserve_rows(max(t for _, t, _ in GROUP_SHAPES))
+    mesh = make_mesh(2, "cuda:0", group)
+    flush = torch.ones(16 << 20, dtype=torch.float32, device=dev)
+    out = {}
+    for tp, t, d in GROUP_SHAPES:
+        # process 0 times more than process 1 a shape: meet on the host
+        # before the first call of the next, so no rank waits on the card
+        group.barrier()
+        g = torch.Generator()
+        g.manual_seed(160 + t)
+        parts = [(torch.randn((t, d), generator=g)
+                  * 10 ** (torch.rand((t, d), generator=g) * 4 - 2)).to(dev) for _ in range(tp)]
+        mine = [parts[r] for r in mesh.ranks]
+        q40.reset_counters()
+        got = q40.tp_allreduce(mine, mesh=mesh)[0]
+        want = q40.tp_allreduce_plain(parts)[proc]
+        torch.cuda.synchronize()
+        c = q40.counters()
+        err = float((got - want).abs().max())
+        if err != 0 or (c["allreduce_ipc_launches"], c["allreduce_plain_calls"]) != (1, 0):
+            raise AssertionError(f"process {proc}: kernel 4 across processes at t={t} d={d}: "
+                                 f"max|kernel-plain| {err}, counters {c}")
+        row = dict(max_abs_err=err,
+                   ms=cold_ms(lambda: q40.tp_allreduce(mine, mesh=mesh), 30, flush))
+        # back to back, as a forward's calls come: the host clock over 50
+        group.barrier()
+        t0 = time.perf_counter()
+        for _ in range(50):
+            q40.tp_allreduce(mine, mesh=mesh)
+        torch.cuda.synchronize()
+        row["warm_ms"] = (time.perf_counter() - t0) * 1e3 / 50
+        if proc == 0:
+            row.update(plain_ms=cold_ms(lambda: q40.tp_allreduce_plain(parts), 20, flush),
+                       one_ms=cold_ms(lambda: q40.tp_allreduce_kernel(parts), 30, flush),
+                       library_ms=cold_ms(lambda: torch.stack(parts).sum(0), 30, flush))
+        out[f"{tp},{t},{d}"] = row
+    group.agree(sorted(out), "phase 16b's shapes")
+    if proc == 0:
+        with open(out_path, "w") as f:
+            json.dump(out, f)
+    return 0
+
+
+def _children(argvs: list[list[str]], timeout: float, env: dict | None = None) -> list:
+    """Start the commands together (process 1 first), wait for all;
+    returns their CompletedProcess-like (returncode, stdout, stderr), every
+    child killed if the wait runs out."""
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""),
+               DLLAMA_GROUP_TIMEOUT=GROUP_TIMEOUT, **(env or {}))
+    procs = [subprocess.Popen(a, cwd=REPO, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True) for a in reversed(argvs)]
+    procs.reverse()
+    outs = []
+    try:
+        for p in procs:
+            o, e = p.communicate(timeout=timeout)
+            outs.append((p.returncode, o, e))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return outs
+
+
+def allreduce_across_processes() -> dict:
+    """Phase 16b: kernel 4's cross-process body in two child processes on
+    cuda:0 (:func:`allreduce_group_child`); prints and returns {(tp, d, t):
+    numbers}.  Its times are of one card that the two processes' CUDA
+    contexts share in time slices (no MPS): a rank waiting on its peer's
+    flag holds the card until its slice ends."""
+    path = os.path.join(WORK, "allreduce16b.json")
+    port = str(free_port())
+    code = "import sys, chip_smoke; sys.exit(chip_smoke.allreduce_group_child(*sys.argv[1:]))"
+    res = _children([[sys.executable, "-c", code, str(k), port, path] for k in (0, 1)], 600)
+    for k, (rc, o, e) in enumerate(res):
+        if rc != 0:
+            print(o[-3000:], e[-6000:], sep="\n", file=sys.stderr)
+            raise AssertionError(f"phase 16b: process {k} exited {rc}")
+    with open(path) as f:
+        rows = json.load(f)
+    os.remove(path)
+    print("one card, two processes in time slices: kernel 4's cross-process body against "
+          "tp_allreduce_plain (bit for bit on both ranks)")
+    print("tp    t     d   ipc_ms(1 card, sliced)  back_to_back_ms  one_process_ms  plain_ms  "
+          "stack_sum_ms  bound_ms(by)  max_abs_err")
+    out = {}
+    for tp, t, d in GROUP_SHAPES:
+        r = rows[f"{tp},{t},{d}"]
+        b_ms, by = allreduce_bound(tp, t, d)
+        print(f"{tp:2d} {t:4d} {d:5d} {r['ms']:22.4f} {r['warm_ms']:16.4f} {r['one_ms']:15.4f} "
+              f"{r['plain_ms']:9.4f} {r['library_ms']:13.4f} {b_ms:9.5f}({by[0]}) "
+              f"{r['max_abs_err']:12.6g}")
+        out[(tp, d, t)] = dict(replaces=TP_REPLACES, max_abs_err=r["max_abs_err"],
+                               ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=b_ms,
+                               bound_by=by, library_ms=r["library_ms"],
+                               one_process_ms=r["one_ms"])
+    return out
+
+
+def _group_run(mode: str, args: list[str], label: str, per_fwd: int, ar_fwd: int) -> dict:
+    """One worker group on cuda:0: process 1 ``worker --program mode``,
+    process 0 ``mode``, both with ``args`` and their coordinates.  Both
+    must exit 0, process 1 print no stream, and each process's counter line
+    (stderr) show ``per_fwd`` Q40 launches and ``ar_fwd`` cross-process
+    kernel-4 launches a forward and no plain call.  Returns process 0's
+    stdout, both counter lines and the wall seconds."""
+    coords = ["--coordinator", f"127.0.0.1:{free_port()}", "--nproc", "2"]
+    base = [sys.executable, "-m", "dllama_tpu_torch"]
+    t0 = time.perf_counter()
+    res = _children([base + [mode, *args, *coords, "--proc-id", "0"],
+                     base + ["worker", "--program", mode, *args, *coords, "--proc-id", "1"]],
+                    900)
+    wall = time.perf_counter() - t0
+    lines = []
+    for k, (rc, o, e) in enumerate(res):
+        if rc != 0:
+            print(o[-3000:], e[-6000:], sep="\n", file=sys.stderr)
+            raise AssertionError(f"{label}: process {k} exited {rc}")
+        got = [json.loads(ln) for ln in e.splitlines() if ln.startswith('{"process"')]
+        if len(got) != 1:
+            raise AssertionError(f"{label}: process {k} printed {len(got)} counter lines")
+        c, n = got[0]["q40"], got[0]["forwards"]
+        if (c["kernel_launches"], c["allreduce_ipc_launches"], c["allreduce_launches"],
+                c["plain_calls"], c["allreduce_plain_calls"]) != (
+                    per_fwd * n, ar_fwd * n, ar_fwd * n, 0, 0):
+            raise AssertionError(f"{label}: process {k}'s counters {c} over {n} forwards, "
+                                 f"want {per_fwd} Q40 and {ar_fwd} cross-process kernel-4 "
+                                 "launches a forward, 0 plain")
+        lines.append(got[0])
+    if res[1][1].strip():
+        raise AssertionError(f"{label}: process 1 printed {res[1][1][:200]!r}")
+    f0, f1 = (x["forwards"] for x in lines)
+    print(f"{label}: both processes exit 0 in {wall:.1f} s; process 0 {f0}, process 1 {f1} "
+          f"forwards; each {per_fwd} Q40 and {ar_fwd} cross-process kernel-4 launches a "
+          f"forward, 0 plain; peak device memory (PyTorch) {lines[0]['peak_bytes'] / 2**30:.2f}"
+          f" / {lines[1]['peak_bytes'] / 2**30:.2f} GiB, IPC regions "
+          f"{lines[0]['ipc_bytes'] / 2**20:.1f} / {lines[1]['ipc_bytes'] / 2**20:.1f} MiB")
+    return dict(stdout=res[0][1], counters=lines, wall_s=wall)
+
+
+def worker_path(cli, m: str, t: str, run_tp: dict | None, L: int) -> dict:
+    """Phase 25: the worker path, two processes of one rank each (tp = 2)
+    on cuda:0, at 7B width and ``L`` layers (phase 17's file): ``inference``
+    with phase 17's prompt, greedy, against phase 17's single-process tp = 2
+    pieces (its first WORKER_STEPS tokens) and its ms/token; ``generate``
+    of the same prompt, whose text must be those pieces joined; ``batch``
+    over phase 14b's prompts against the single-process tp = 2 batch (run
+    here in-process).  Each process: 7 L + 1 Q40 launches (its rank) and
+    2 L cross-process kernel-4 launches a forward, 0 plain."""
+    per_fwd, ar_fwd = 7 * L + 1, 2 * L
+    dev_args = ["--model", m, "--tokenizer", t, "--temperature", "0", "--workers", "tpu:2",
+                "--device", "cuda:0"]
+    out = {"ipc_launches": 0}
+    inf = _group_run("inference", [*dev_args, "--steps", str(WORKER_STEPS), "--chunk", "16"],
+                     "inference over 2 processes", per_fwd, ar_fwd)
+    pieces = token_pieces(inf["stdout"])
+    ms = float(re.search(r"Avg generation time: ([\d.]+) ms", inf["stdout"]).group(1))
+    out.update(ms_token=ms, peak_bytes=[c["peak_bytes"] for c in inf["counters"]],
+               ipc_bytes=[c["ipc_bytes"] for c in inf["counters"]])
+    if run_tp is not None:
+        ref = run_tp["pieces"][:len(pieces)]
+        if pieces != ref:
+            gap = next(i for i, (a, b) in enumerate(zip(pieces, ref)) if a != b)
+            raise AssertionError(f"inference over 2 processes: token {gap} is {pieces[gap]} "
+                                 f"where one process's tp = 2 run has {ref[gap]}")
+        print(f"inference over 2 processes: {len(pieces)} tokens, the single-process tp = 2 "
+              f"run's (phase 17) byte for byte; process 0 {ms} ms/token (one card, two "
+              f"processes in time slices) against phase 17's {run_tp['ms_token']} ms/token")
+    text = "".join(ast.literal_eval(p.strip()) for p in pieces)
+    n_prompt = len(cli.Tokenizer(cli.tfile.read_tfile(t)).encode("Hello world",
+                                                                 add_bos=True))
+    gen = _group_run("generate", [*dev_args, "--prompt", "Hello world", "--steps",
+                                  str(len(pieces))], "generate over 2 processes",
+                     per_fwd, ar_fwd)
+    body = "\n".join(ln for ln in gen["stdout"].split("\n")
+                     if not ln.startswith(("💡", "⚠️"))).rstrip("\n")
+    # generate stops at the tokenizer's EOS, inference runs on: the text is
+    # the inference run's pieces up to where generate stopped
+    upto = [i for i in range(n_prompt + 1, len(pieces) + 1)
+            if "".join(ast.literal_eval(p.strip()) for p in pieces[:i]).rstrip("\n") == body]
+    if not upto:
+        raise AssertionError(f"generate over 2 processes: {body!r} is not the inference "
+                             f"run's text {text!r}")
+    print(f"generate over 2 processes: the inference run's text ({n_prompt} prompt + "
+          f"{upto[-1] - n_prompt} generated tokens of {len(pieces) - n_prompt}) byte for "
+          "byte")
+    prompts = batch_prompts()
+    pf = os.path.join(WORK, "prompts25.txt")
+    with open(pf, "w", encoding="utf-8") as f:
+        f.write("\n".join(prompts) + "\n")
+    batch_args = [*dev_args, "--prompts-file", pf, "--steps", str(WORKER_BATCH_STEPS)]
+    gc.collect()
+    torch.cuda.empty_cache()
+    eng, one = run_cli(cli, ["batch", *batch_args])
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    bat = _group_run("batch", batch_args, "batch over 2 processes", per_fwd, ar_fwd)
+
+    def streams(o):
+        return [ln for ln in o.splitlines()
+                if not ln.startswith(("💡", "⚠️", "Batched throughput"))]
+
+    if streams(bat["stdout"]) != streams(one):
+        raise AssertionError("batch over 2 processes differs from the single-process tp = 2 "
+                             "batch")
+    print(f"batch over 2 processes: {len(prompts)} streams, the single-process tp = 2 "
+          "batch's byte for byte")
+    out["ipc_launches"] = sum(c["q40"]["allreduce_ipc_launches"]
+                              for r in (inf, gen, bat) for c in r["counters"])
+    return out
+
+
 # phase 21: state off the card and back (snapshots, hand-off, QoS, KV tier)
 QOS_PROMPT_TOKENS = 192   # each batch request's prompt (equal lengths: see qos_round)
 QOS_NEW = 256             # each batch request's budget
@@ -5298,7 +5578,7 @@ def pod_children(seen: dict) -> dict:
 def kernel_entries(run, run_tp, run_mix, run_blocked, run_q8, run_score, served, table,
                    tp_table, mix_table, blocked_table, q8_table, attn, attn_g4, ar_table,
                    prefill, prefill_g4, var_table, var_runs, served_wide, attn_dh, attn_g16,
-                   prefill_dh, pod) -> list:
+                   prefill_dh, pod, prefill_g16, ar_group, p25) -> list:
     """The ``kernels`` JSON line's entries: each kernel at the shapes of the
     phase that checked it, with the launches of the main path that ran it;
     raises when a kernel of a path was never launched there.  The rows the
@@ -5401,6 +5681,8 @@ def kernel_entries(run, run_tp, run_mix, run_blocked, run_q8, run_score, served,
     pre_rows += [(f"{c},dh={dh},t={t}", r,
                   served_wide["dh96"] if (c, t, dh) == ("bf16", 16, 96) else none)
                  for (c, t, dh), r in prefill_dh.items()]
+    # G = 16 (32 query heads on 2 kv heads) at T = 16: no served model has it
+    pre_rows += [(f"{c},G=16,t={t}", r, none) for (c, t), r in prefill_g16.items()]
     pre_k = [dict(name=f"paged_prefill_attention[{label}]", route="cuda",
                   source=PREFILL_SRC, replaces=PREFILL_REPLACES,
                   launches=run_["prefill_launches"], max_abs_err=r["max_abs_err"],
@@ -5415,6 +5697,13 @@ def kernel_entries(run, run_tp, run_mix, run_blocked, run_q8, run_score, served,
                         launches=run_tp["allreduce_launches"],
                         **{k: v for k, v in ar_table[(2, 4096, 1)].items()},
                         pod_children=pod["allreduce"]))
+    # its cross-process body (phase 16b, one card in time slices) with the
+    # launches of the worker path's processes (phase 25), each counted from
+    # its start in its own process
+    kernels.append(dict(name="tp_allreduce_ipc[tp=2,t=1,d=4096]", route="cuda",
+                        source=TP_SRC, launches=p25["ipc_launches"],
+                        **{k: v for k, v in ar_group[(2, 4096, 1)].items()
+                           if k != "one_process_ms"}))
     idle = [k["name"] for k in kernels if k["launches"] == 0 and k not in held_only]
     if idle:
         raise AssertionError(f"kernels the main paths never launched: {idle}")
@@ -5521,10 +5810,16 @@ def main() -> int:
                 for k, r in check_prefill_attention(attention, dev, LLAMA2_7B["n_kv_heads"],
                                                     codecs, dh=dh, widths=widths).items():
                     prefill_dh[(*k, dh)] = r
+        with phase("6c prefill attention kernel (t > 1) vs plain at G = 16 (2 kv heads)"):
+            prefill_g16 = check_prefill_attention(attention, dev, ATTN_G16_HKV,
+                                                  ("bf16", "int8"), widths=(16,))
     if run_phase(16):
         with phase("16 kernel 4 (TP all-reduce) vs plain, every rank on cuda:0"):
             ar_table = check_allreduce(q40, dev)
     os.makedirs(WORK, exist_ok=True)
+    if run_phase(16) or run_phase("16b"):
+        with phase("16b kernel 4 across two processes on cuda:0 (CUDA IPC) vs plain"):
+            ar_group = allreduce_across_processes()
     served, wide = {}, {}
     try:
         m, t, m2, m3, t3, m8 = (os.path.join(WORK, f) for f in (
@@ -5534,7 +5829,7 @@ def main() -> int:
         # main path, serving, the OpenAI surface and the fleet ran at 32
         # layers until the Q80 Hopper slice cut them for the script's time)
         per_fwd = 4 * CUT_LAYERS + 1
-        if any(map(run_phase, (3, 7, 20, 23, "23d", 14, 17, "3q", 21, 22, "6s"))):
+        if any(map(run_phase, (3, 7, 20, 23, "23d", 14, 17, 25, "3q", 21, 22, "6s"))):
             synth_model(m8, CUT_LAYERS, mfile, quants)
             print(f"synthesized {os.path.getsize(m8) / 1e9:.2f} GB (7B width, "
                   f"{CUT_LAYERS} layers)")
@@ -5569,6 +5864,11 @@ def main() -> int:
                        f"width, {CUT_LAYERS} layers, both ranks on cuda:0"):
                 run_tp = tp_main_path(cli, q40, engine_mod, params_mod, config, mfile,
                                       m8, t, dev, None, CUT_LAYERS)
+        if run_phase(25):
+            with phase(f"25 the worker path: two processes of one rank each (tp = 2) on "
+                       f"cuda:0, inference, generate and batch at Llama-2-7B width, "
+                       f"{CUT_LAYERS} layers"):
+                p25 = worker_path(cli, m8, t, run_tp if run_phase(17) else None, CUT_LAYERS)
         if run_phase(4):
             with phase("4 requests: generate (7B width, 2 layers)"):
                 requests(cli, q40, m2, t)
@@ -5822,7 +6122,8 @@ def main() -> int:
     kernels = kernel_entries(run, run_tp, run_mix, run_blocked, run_q8, run_score, served,
                              table, tp_table, mix_table, blocked_table, q8_table, attn,
                              attn_g4, ar_table, prefill, prefill_g4, var_table, var_runs,
-                             wide, attn_dh, attn_g16, prefill_dh, pod_children(p23d))
+                             wide, attn_dh, attn_g16, prefill_dh, pod_children(p23d),
+                             prefill_g16, ar_group, p25)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,5 +1,5 @@
 """`dllama_tpu_torch` command line: ``inference | generate | chat | batch |
-router | serve-pod``.
+worker | router | serve-pod``.
 
 The port of ``dllama_tpu/cli.py``'s single-host modes, with the same
 flags where they apply, plus ``--device {cuda,cpu}`` (default ``cuda``;
@@ -10,6 +10,9 @@ asking for ``cuda`` where there is none is an error):
 * ``chat``      — multi-turn REPL on stdin, one KV cache a conversation.
 * ``batch``     — the prompts of ``--prompts-file`` (one a line) decoded
   as one lockstep ragged batch.
+* ``worker``    — join a process group as one of its processes and run
+  ``--program`` (``generate``, ``inference`` or ``batch``) over this
+  process's ranks; without coordinates it explains the mapping.
 * ``router``    — the fleet router in front of ``--backends host:port,...``
   (``router/service.py``; no model in this process).
 * ``serve-pod`` — ``--dp`` replicas of the API server behind the router on
@@ -40,10 +43,20 @@ manifest (``io/integrity.py``); ``--step-timeout`` and
 ``--weights-float-type`` names the weights' type of a file whose header
 does not (the reference's legacy-magic files); ``--dequantize`` loads Q40
 and Q80 weights dense in the compute dtype (their products plain
-matmuls).  Modes and flags of the JAX CLI outside the port (``worker``,
-``--sp``, ``--ep``, ``--dp`` outside ``serve-pod``, and the flags in
-``NOT_PORTED_FLAGS``: multi-host start-up's) exit
-with a message naming them as not yet ported.
+matmuls).
+
+A process group (``parallel/distributed.py``): every process runs the same
+command with its coordinates, ``--coordinator host:port --nproc N
+--proc-id K`` (or the DLLAMA_COORDINATOR/DLLAMA_NPROC/DLLAMA_PROC_ID
+variables); process 0 runs a mode (``generate``, ``inference``,
+``batch``), the others ``worker --program`` of it, or the mode itself.
+Each process holds ``tp / N`` of the ``--workers tpu:tp`` ranks
+(``parallel/mesh.py``); only process 0 prints (the others' stdout goes to
+``os.devnull``), and each process ends with one JSON line of its launch
+counters on stderr.  ``chat``, ``router``, ``serve-pod`` and ``--pld`` are
+refused with coordinates.  Flags of the JAX CLI outside the port
+(``--sp``, ``--ep``, ``--dp`` outside ``serve-pod``) exit with a message
+naming them as not yet ported.
 
 ``python -m dllama_tpu_torch inference --model m.m --tokenizer t.t``
 """
@@ -51,6 +64,7 @@ with a message naming them as not yet ported.
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import sys
 import time
@@ -61,9 +75,10 @@ from . import quants
 from .device import DEVICES, resolve
 from .io import mfile, tfile
 from .models.config import ModelConfig
-from .models.params import load_params
+from .models.params import load_params, load_placed
 from .ops import q8, q40
-from .parallel.mesh import parse_workers
+from .parallel import distributed
+from .parallel.mesh import check_split, parse_workers, workers_tp
 from .parallel.sharding import check_tp_constraint
 from .runtime.engine import Engine, RunStats
 from .runtime.stream import drain_generation
@@ -72,15 +87,13 @@ from .tokenizer.chat import ChatItem, ChatTemplate, TokenizerChatStops
 from .tokenizer.eos import EosDetector
 
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16, "f16": torch.float16}
-MODES = ("inference", "generate", "chat", "batch", "router", "serve-pod")
-NOT_PORTED_MODES = ("worker",)
+MODES = ("inference", "generate", "chat", "batch", "worker", "router", "serve-pod")
+NOT_PORTED_MODES: tuple[str, ...] = ()
 # flags of the JAX CLI that the port does not carry, with the JAX defaults:
 # a value other than the default exits naming the flag
-NOT_PORTED_FLAGS = {
-    # multi-host start-up
-    "--coordinator": None, "--nproc": None,
-    "--proc-id": None, "--program": "generate",
-}
+NOT_PORTED_FLAGS: dict = {}
+# modes that do not run over a process group
+ONE_PROCESS_MODES = ("chat", "router", "serve-pod")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -137,6 +150,18 @@ def build_parser() -> argparse.ArgumentParser:
                    help="tpu:N — N-way tensor parallelism (the JAX CLI's spelling): "
                         "every rank on the CPU with --device cpu, on card K with "
                         "cuda:K, rank r on card r with cuda")
+    # a process group (parallel/distributed.py), the JAX CLI's flags
+    p.add_argument("--coordinator", default=None,
+                   help="multi-process: process-0 host:port for the process group "
+                        "(parallel/distributed.py); every process runs the same "
+                        "command with the same model flags")
+    p.add_argument("--nproc", type=int, default=None,
+                   help="multi-process: total process count")
+    p.add_argument("--proc-id", type=int, default=None,
+                   help="multi-process: this process's id (0 = root)")
+    p.add_argument("--program", choices=list(WORKER_PROGRAMS), default="generate",
+                   help="worker mode: which root program this worker mirrors (every "
+                        "process runs the same program over its own ranks)")
     # serving (python -m dllama_tpu_torch.server.api), the JAX defaults
     p.add_argument("--host", default="0.0.0.0", help="API server bind address")
     p.add_argument("--port", type=int, default=9990, help="API server port")
@@ -408,11 +433,11 @@ def load_stack(args, batch: int = 1, stack=None) -> tuple[Engine, Tokenizer]:
         raise SystemExit("--model and --tokenizer are required for this mode")
     device = resolve(args.device)
     try:
-        mesh = parse_workers(args.workers, device)
+        mesh = parse_workers(args.workers, device, distributed.current_group())
     except ValueError as e:
         raise SystemExit(str(e)) from None
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "host"
-    cfg, params, tok = read_model(args, mesh.tp, f"{device} ({name})")
+    cfg, params, tok = read_model(args, mesh.tp, f"{device} ({name})", mesh)
     return _engine(args, cfg, params, device, mesh, batch), tok
 
 
@@ -421,11 +446,13 @@ def load_stack(args, batch: int = 1, stack=None) -> tuple[Engine, Tokenizer]:
 last_read_s: float | None = None
 
 
-def read_model(args, tp: int, where: str) -> tuple[ModelConfig, dict, Tokenizer]:
+def read_model(args, tp: int, where: str, mesh=None) -> tuple[ModelConfig, dict, Tokenizer]:
     """The ``--model`` file's config and host params (fused for tp = 1),
     checksum-verified under ``--verify-weights``, and the ``--tokenizer``;
     prints the model's shape, ``where`` it runs and the tp degree.  Exits
-    when tp does not divide the model or the vocabularies differ."""
+    when tp does not divide the model or the vocabularies differ.  Over a
+    ``mesh`` that spans processes the params are this process's ranks'
+    slices, placed (``models.params.load_placed``)."""
     global last_read_s
     if not args.model or not args.tokenizer:
         raise SystemExit("--model and --tokenizer are required for this mode")
@@ -447,7 +474,13 @@ def read_model(args, tp: int, where: str) -> tuple[ModelConfig, dict, Tokenizer]
             check_tp_constraint(cfg, tp)
         except ValueError as e:
             raise SystemExit(str(e)) from None
-        cfg, params = load_params(mf, cfg, fuse=tp == 1, keep_quantized=not args.dequantize)
+        if mesh is not None and mesh.multi:
+            print(f"💡 processes: {mesh.nproc}, ranks {mesh.rank0}..{mesh.rank0 + len(mesh.devices) - 1} "
+                  f"in process {mesh.proc}")
+            params = load_placed(mf, cfg, mesh, keep_quantized=not args.dequantize)
+        else:
+            cfg, params = load_params(mf, cfg, fuse=tp == 1,
+                                      keep_quantized=not args.dequantize)
     last_read_s = time.perf_counter() - t0
     tok = Tokenizer(tfile.read_tfile(args.tokenizer))
     if tok.vocab_size != cfg.vocab_size:
@@ -506,6 +539,9 @@ def profile_report(engine: Engine, ops: bool) -> None:
         print("Profiled split:      unavailable (the trace holds no time)")
         return
     sp = summarize_split(times, n_steps)
+    if engine.group is not None:
+        print(f"💡 profiled on process 0's {len(engine.mesh.devices)} rank(s); its kernel-4 "
+              "time includes the wait for the other processes' partials")
     print(f"Profiled decode step ({how}; {engine.tp} rank(s), summed): "
           f"compute {sp['compute_ms']:.3f} ms, collectives {sp['collective_ms']:.3f} ms "
           f"({sp['collective_pct']:.1f}%)")
@@ -533,6 +569,7 @@ def launch_line(engine: Engine) -> str:
     launches = c["blocked_launches"] if blocked else c["kernel_launches"]
     per = launches / engine.forwards if engine.forwards else 0.0
     ar = q40.counters()
+    nproc = engine.group.count if engine.group is not None else 1
     return (f"💡 {name} launches: kernel={c['kernel_launches']} "
             + (f"blocked={c['blocked_launches']} " if blocked else "")
             + f"plain={c['plain_calls']} "
@@ -540,9 +577,33 @@ def launch_line(engine: Engine) -> str:
             + (f"allreduce={ar['allreduce_launches']} "
                f"allreduce_plain={ar['allreduce_plain_calls']} tp={engine.tp} "
                if engine.tp > 1 else "")
+            + (f"allreduce_ipc={ar['allreduce_ipc_launches']} "
+               f"allreduce_gloo={ar['allreduce_gloo_calls']} nproc={nproc} "
+               if nproc > 1 else "")
             + f"forwards={engine.forwards} kernel_per_forward={per:g} "
             + ("layout=blocked " if blocked else "")
             + f"device={engine.device.type}")
+
+
+def end_of_run(engine: Engine) -> None:
+    """A worker group's last words: every process's token stream checked
+    against the others' (a mismatch raises on every process), then this
+    process's launch counters as one JSON line on stderr, with its peak
+    device memory (PyTorch's allocator) and the bytes of its CUDA IPC
+    regions (allocated outside it)."""
+    if engine.group is None:
+        return
+    engine.check_agreement()
+    c = {name: {k: v for k, v in mod.counters().items() if k != "launches_by_shape"}
+         for name, mod in (("q40", q40), ("q8", q8))}
+    cuda = engine.device.type == "cuda"
+    regions = engine.group.regions.values()
+    print(json.dumps({"process": engine.group.index, "nproc": engine.group.count,
+                      "forwards": engine.forwards, **c,
+                      "peak_bytes": torch.cuda.max_memory_allocated(engine.device) if cuda
+                      else 0,
+                      "ipc_bytes": sum(r.nbytes * len(r.own) for r in regions)}),
+          file=sys.stderr, flush=True)
 
 
 def cmd_inference(args) -> Engine:
@@ -550,6 +611,9 @@ def cmd_inference(args) -> Engine:
     engine, tok = load_stack(args)
     ids = _encode_prompt(engine, tok, args.prompt or "Hello world")
     steps = args.steps or 64
+    if engine.group is not None:
+        print(f"💡 G/I/T are process 0's own times; kernel 4's share includes the wait "
+              f"for the {engine.group.count - 1} other process(es)' partials")
     if args.chunk > 1:
         print(f"💡 decode runs on-device in chunks of {args.chunk}; G/I/T "
               "lines within a chunk are that chunk's per-token averages")
@@ -595,6 +659,7 @@ def cmd_inference(args) -> Engine:
               f"{w['proposed']} drafts accepted, {per:.2f} tokens a window")
     if args.profile_split or args.profile_ops:
         profile_report(engine, args.profile_ops)
+    end_of_run(engine)
     print(launch_line(engine))
     return engine
 
@@ -619,6 +684,7 @@ def cmd_generate(args) -> Engine:
         sys.stdout.flush()  # a window's tokens appear as it lands
         prev = token
     print()
+    end_of_run(engine)
     print(launch_line(engine))
     return engine
 
@@ -651,6 +717,7 @@ def cmd_batch(args) -> Engine:
     print(f"Generated tokens:    {generated} over {len(prompts)} streams")
     if dt > 0:
         print(f"Batched throughput:  {generated / dt:.2f} tok/s")
+    end_of_run(engine)
     print(launch_line(engine))
     return engine
 
@@ -708,6 +775,27 @@ def cmd_chat(args) -> Engine:
     return engine
 
 
+def cmd_worker(args) -> Engine | None:
+    """Join a process group as one of its processes (the reference's TCP
+    worker, dllama.cpp:205-219, which executes the root's task list,
+    tasks.cpp:230-256) and run ``--program`` over this process's ranks.
+    Without coordinates there is nothing to join: the mapping is printed
+    and the mode exits 0."""
+    if not args.coordinator and distributed.distributed_env() is None:
+        print("Within one host the reference's worker processes are the ranks of one\n"
+              "program: run the root command with --workers tpu:N, the ranks on cards\n"
+              "0..N-1 (--device cuda), all on card K (--device cuda:K) or on the CPU\n"
+              "(--device cpu).  To split the ranks over processes, start this mode in\n"
+              "every process but the root with --coordinator host:port --nproc N\n"
+              "--proc-id K and the same --model/--tokenizer/--prompt/--workers flags;\n"
+              "process 0 prints, the rest compute (reference: dllama.cpp:205-219 TCP\n"
+              "worker; here gloo carries the host traffic and, on the card, kernel 4\n"
+              "reads its peers' partials through CUDA IPC — one host; see\n"
+              "dllama_tpu_torch/parallel/distributed.py)")
+        return None
+    return WORKER_PROGRAMS[args.program](args)
+
+
 def cmd_router(args) -> None:
     """The fleet router in front of ``--backends`` (router/service.py): no
     model in this process, it only proxies HTTP."""
@@ -742,9 +830,41 @@ def configure_obs(args):
         raise SystemExit(f"--slo: {e}") from None
 
 
+# One table drives the --program choices AND the worker dispatch, so a
+# new mirrored program cannot be added to one and missed in the other
+# (chat stays out: interactive, one process only).
+WORKER_PROGRAMS = {"generate": cmd_generate, "inference": cmd_inference,
+                   "batch": cmd_batch}
+
+
+def join_group(args) -> None:
+    """With coordinates (flags or DLLAMA_* variables): refuse what does
+    not run over a process group, check that ``--workers`` splits over the
+    processes (before any connection), join the group, and send the stdout
+    of every process but 0 to ``os.devnull``."""
+    if not args.coordinator and distributed.distributed_env() is None:
+        return
+    if args.mode in ONE_PROCESS_MODES:
+        raise SystemExit(f"mode {args.mode!r} does not run over a process group "
+                         "(--coordinator/--nproc/--proc-id): the group's programs are "
+                         f"{', '.join(WORKER_PROGRAMS)}, as worker --program or as the mode")
+    if args.pld:
+        raise SystemExit("--pld is not yet ported over a process group "
+                         "(--coordinator/--nproc/--proc-id): run it in one process")
+    env = distributed.distributed_env() or (None, None, None)
+    nproc = args.nproc if args.nproc is not None else env[1]
+    try:
+        check_split(workers_tp(args.workers), nproc or 1)
+        distributed.init_distributed(args.coordinator, args.nproc, args.proc_id)
+    except ValueError as e:
+        raise SystemExit(str(e)) from None
+    if not distributed.is_output_process():
+        sys.stdout = open(os.devnull, "w")
+
+
 def main(argv=None) -> Engine | None:
     """Run one command; returns its Engine (for callers in-process; None
-    for ``router`` and ``serve-pod``)."""
+    for ``router``, ``serve-pod`` and ``worker`` without coordinates)."""
     args = build_parser().parse_args(argv)
     missing = not_ported(args)
     if missing:
@@ -752,8 +872,9 @@ def main(argv=None) -> Engine | None:
                          "(run python -m dllama_tpu for these)")
     check_q40_variant()
     slo = configure_obs(args)
+    join_group(args)
     engine = {"inference": cmd_inference, "generate": cmd_generate, "chat": cmd_chat,
-              "batch": cmd_batch, "router": cmd_router,
+              "batch": cmd_batch, "worker": cmd_worker, "router": cmd_router,
               "serve-pod": cmd_serve_pod}[args.mode](args)
     if slo is not None:
         print(slo.summary_line())

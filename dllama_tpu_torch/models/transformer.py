@@ -30,6 +30,10 @@ the sum to its own copy of the residual.  The MoE router runs on rank 0
 (the reference's root, ``grok1-tasks.cpp:59``) and its choice goes to
 every rank, so the ranks never disagree on an expert.  The vocab-sliced
 logits are gathered in rank order on rank 0's device, where sampling runs.
+Over a mesh that spans processes each process walks its own ranks only,
+and the moves between ranks cross processes (``parallel/comm.py``:
+kernel 4's cross-process body, the logits gathered to process 0 — the
+other processes' heads return None —, the routing broadcast from rank 0).
 """
 
 from __future__ import annotations
@@ -45,6 +49,7 @@ from ..ops.attention import (DevicePos, gqa_attention_at, paged_gqa_attention_at
 from ..ops.kernels import (ACTIVATIONS, apply_rope, rmsnorm, rope_angles,
                            softmax_f32, top_k)
 from ..ops.q40 import mm, tp_allreduce
+from ..parallel import comm
 from ..parallel.sharding import COL, ROW, Placed
 from .config import ModelConfig
 from .params import Params
@@ -365,23 +370,25 @@ def _col_mm(hs: list, placed: Placed, key: str, cfg: ModelConfig, layer=None,
     replicated weight (it did not divide) gathers the whole input on every
     rank instead and runs the whole product there."""
     out_dtype = out_dtype or cfg.dtype
+    mesh = placed.mesh
     if placed.kinds[key] == COL:
         parts = [mm(h, p[key], _on(layer, h.device), impl=cfg.quant_impl,
                     out_dtype=torch.float32) for h, p in zip(hs, placed.ranks)]
-        return [s.to(out_dtype) for s in tp_allreduce(parts, cfg.quant_impl)]
+        return [s.to(out_dtype) for s in tp_allreduce(parts, cfg.quant_impl, mesh)]
+    every = comm.all_gather(mesh, hs) if mesh.multi else hs
     outs = []
-    for p, dev in zip(placed.ranks, placed.mesh.devices):
-        whole = torch.cat([h.to(dev) for h in hs], dim=-1)
+    for p, dev in zip(placed.ranks, mesh.devices):
+        whole = torch.cat([h.to(dev) for h in every], dim=-1)
         outs.append(_mm(whole, p[key], cfg, _on(layer, dev), out_dtype))
     return outs
 
 
-def _allreduce_as(parts: list, cfg: ModelConfig) -> list:
+def _allreduce_as(parts: list, cfg: ModelConfig, mesh) -> list:
     """Kernel 4 over partials of any float dtype: summed in f32, returned
     in the partials' dtype."""
     dt = parts[0].dtype
     return [s.to(dt) for s in tp_allreduce([p.to(torch.float32).contiguous()
-                                            for p in parts], cfg.quant_impl)]
+                                            for p in parts], cfg.quant_impl, mesh)]
 
 
 def _dense_ffn_tp(xbs: list, placed: Placed, layer: int, cfg: ModelConfig) -> list:
@@ -395,12 +402,15 @@ def _moe_ffn_tp(xbs: list, placed: Placed, layer: int, cfg: ModelConfig) -> list
     """:func:`moe_ffn` over the ranks: the experts sliced on their hidden
     dim (``up``/``gate`` row, ``down`` col), the routing on rank 0, each
     expert's down partials summed by kernel 4 before the routing weight
-    (the JAX package's order)."""
+    (the JAX package's order).  Across processes every process routes on
+    its first rank (for the shapes) and takes global rank 0's choice."""
     n, d = xbs[0].shape
     e, k = cfg.n_experts, cfg.n_active_experts
     act = ACTIVATIONS[cfg.hidden_act]
     ranks, devs = placed.ranks, placed.mesh.devices
     top_idx, weights = _route(xbs[0], ranks[0]["router"][layer], k)
+    if placed.mesh.multi:
+        top_idx, weights = comm.broadcast_from_root(placed.mesh, [top_idx, weights])
     w_at = [weights.to(dev) for dev in devs]
     quant = not isinstance(ranks[0]["up"], torch.Tensor)
 
@@ -433,7 +443,7 @@ def _moe_ffn_tp(xbs: list, placed: Placed, layer: int, cfg: ModelConfig) -> list
                 torch.einsum("nd,nkdf->nkf", xb, up_w)
             parts.append(torch.einsum("nkf,nkfd->nkd", h, down_w))
         return [torch.einsum("nk,nkd->nd", w.to(o.dtype), o)
-                for w, o in zip(w_at, _allreduce_as(parts, cfg))]
+                for w, o in zip(w_at, _allreduce_as(parts, cfg, placed.mesh))]
 
     dense_w = torch.zeros((n, e), dtype=weights.dtype, device=weights.device)
     dense_w = dense_w.scatter(-1, top_idx, weights)
@@ -451,7 +461,7 @@ def _moe_ffn_tp(xbs: list, placed: Placed, layer: int, cfg: ModelConfig) -> list
             torch.einsum("nd,edf->nef", xb, p["up"][layer])
         parts.append(torch.einsum("nef,efd->ned", h, p["down"][layer]))
     return [torch.einsum("ne,ned->nd", dw.to(o.dtype), o)
-            for dw, o in zip(dw_at, _allreduce_as(parts, cfg))]
+            for dw, o in zip(dw_at, _allreduce_as(parts, cfg, placed.mesh))]
 
 
 def _run_blocks_tp(placed: Placed, cfg: ModelConfig, tokens: torch.Tensor,
@@ -507,14 +517,24 @@ def _head(params: Params, cfg: ModelConfig, x) -> torch.Tensor:
     return logits
 
 
-def _head_tp(placed: Placed, cfg: ModelConfig, xs: list) -> torch.Tensor:
+def _head_tp(placed: Placed, cfg: ModelConfig, xs: list) -> torch.Tensor | None:
     """The vocab-sliced logits of every rank, gathered in rank order on
-    rank 0's device (a replicated wcls: rank 0's whole product)."""
+    rank 0's device (a replicated wcls: rank 0's whole product).  Across
+    processes each process computes its ranks' slices and process 0
+    gathers them; the other processes return None."""
     xs = [rmsnorm(x, p["rms_final"]) for x, p in zip(xs, placed.ranks)]
-    dev0 = placed.mesh.device
+    mesh = placed.mesh
+    dev0 = mesh.device
     if placed.kinds["wcls"] == ROW:
-        logits = torch.cat([_mm(x, p["wcls"], cfg, out_dtype=torch.float32).to(dev0)
-                            for x, p in zip(xs, placed.ranks)], dim=-1)
+        parts = [_mm(x, p["wcls"], cfg, out_dtype=torch.float32)
+                 for x, p in zip(xs, placed.ranks)]
+        if mesh.multi:
+            parts = comm.gather_to_root(mesh, parts)
+            if parts is None:
+                return None
+        logits = torch.cat([x.to(dev0) for x in parts], dim=-1)
+    elif mesh.proc != 0:
+        return None
     else:
         logits = _mm(xs[0], placed.ranks[0]["wcls"], cfg, out_dtype=torch.float32)
     if cfg.logit_scale != 1.0:

@@ -143,6 +143,7 @@ def load() -> ctypes.CDLL:
         return _lib
     with _load_lock:  # several scheduler threads may launch first at once
         if _lib is None:
+            from ..parallel import comm
             from . import attention, q8, q40
-            _lib = attention.bind(q8.bind(q40.bind(ctypes.CDLL(build()))))
+            _lib = comm.bind(attention.bind(q8.bind(q40.bind(ctypes.CDLL(build())))))
     return _lib

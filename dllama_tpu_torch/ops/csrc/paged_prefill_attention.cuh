@@ -24,9 +24,18 @@
 // the softmax is f32, the probabilities round to the operand type before
 // the PV product, whose sums are f32, and the output is acc / max(l,
 // 1e-38) in the output's type (q's: f32, bf16 or f16).  Two differences:
-// the softmax is online, so a bf16, f16 or int8 pool's probabilities round
-// at exp(s - m) for a running max m, not the global one (the plain version
-// rounds the normalized ones); and the scores are scaled once by log2(e) / sqrt(Dh) and
+// the softmax is online, so the probabilities are exp(s - m) for a running
+// max m, not the normalized ones the plain version rounds.  A rounding
+// there and one of the plain version's are independent, and on a row whose
+// keys repeat (a table run out into scratch page 0 repeats one page's 16
+// keys a hundred times) each repeats coherently: two single bf16 roundings
+// (8 bits) read up to 1.04e-2 of a query row's max apart (chip_smoke.py
+// phase 6c on an H100).  So with bf16
+// operands (bf16 and int8 pools) P goes into PV as two terms, hi = bf16(p)
+// and lo = bf16(p - hi), each its own product into the same accumulators:
+// p to about 16 bits, and the output is the plain version's up to that
+// version's own rounding.  An f16 pool's P rounds once (11 bits).  And the
+// scores are scaled once by log2(e) / sqrt(Dh) and
 // exponentiated in base 2 (exp2f), where the plain version divides by
 // sqrt(Dh) and calls exp: a few f32 ulps of each probability.  An f32
 // pool differs only by those ulps and the order of its f32 sums.  Keys a
@@ -86,8 +95,12 @@
 //    shared memory; the online softmax runs on the score registers (each
 //    thread two rows, four lanes a row); PV is m64n{DHP}k16 with P from
 //    those registers as the A operand (the pool's operand type) and V as a
-//    transposed (MN-major) B operand.  No warps share a tile, so no merge
-//    at a split's end.
+//    transposed (MN-major) B operand; with bf16 operands a second PV of
+//    the remainders follows once the first has read its registers (the
+//    remainders wait in the score registers, so the terms need no new
+//    arrays, though int8's two-warpgroup bodies at 168 registers spill 36
+//    bytes; their cost is a third more tensor-core work a tile).  No
+//    warps share a tile, so no merge at a split's end.
 //  * f32 pool: a plain CUDA-core body (FFMA in f32, one thread a query row,
 //    two above a padded Dh of 128, 16-key tiles through shared memory) with
 //    the same grid and records: its time is only recorded.
@@ -363,6 +376,8 @@ __device__ __forceinline__ void consume(const Walk& w, const Seg& sg, unsigned c
                                         int dh, int n_splits, float sqrt_dh) {
   using B = Body<DHP, KV, NWG>;
   using Op = typename B::Op;
+  // bf16 operands carry P as two terms (the design's numerics)
+  constexpr bool kTwoTerm = std::is_same<Op, __nv_bfloat16>::value;
   const int tid = threadIdx.x;
   const int wg = tid >> 7;
   const int ct = tid & 127;
@@ -442,7 +457,9 @@ __device__ __forceinline__ void consume(const Walk& w, const Seg& sg, unsigned c
       m_b = mn_b;
       l_a *= al_a;
       l_b *= al_b;
-      // P into the A operand of PV: keys 16kk..16kk+15 are n8 blocks 2kk, 2kk+1
+      // P into the A operand of PV: keys 16kk..16kk+15 are n8 blocks 2kk, 2kk+1;
+      // with bf16 operands sc keeps each p's remainder p - bf16(p) for the
+      // second product
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const float p0 = exp2f(sc[4 * j] - m_a), p1 = exp2f(sc[4 * j + 1] - m_a);
@@ -451,8 +468,15 @@ __device__ __forceinline__ void consume(const Walk& w, const Seg& sg, unsigned c
         l_a += p1;
         l_b += p2;
         l_b += p3;
-        pa[j >> 1][(j & 1) * 2] = pair_bits<Op>(p0, p1);
-        pa[j >> 1][(j & 1) * 2 + 1] = pair_bits<Op>(p2, p3);
+        const uint32_t w01 = pair_bits<Op>(p0, p1), w23 = pair_bits<Op>(p2, p3);
+        pa[j >> 1][(j & 1) * 2] = w01;
+        pa[j >> 1][(j & 1) * 2 + 1] = w23;
+        if constexpr (kTwoTerm) {
+          sc[4 * j] = p0 - __uint_as_float(w01 << 16);
+          sc[4 * j + 1] = p1 - __uint_as_float(w01 & 0xFFFF0000u);
+          sc[4 * j + 2] = p2 - __uint_as_float(w23 << 16);
+          sc[4 * j + 3] = p3 - __uint_as_float(w23 & 0xFFFF0000u);
+        }
       }
 #pragma unroll
       for (int j = 0; j < DHP / 8; ++j) {
@@ -464,15 +488,35 @@ __device__ __forceinline__ void consume(const Walk& w, const Seg& sg, unsigned c
     } else {
 #pragma unroll
       for (int kk = 0; kk < kKeys / 16; ++kk) pa[kk][0] = pa[kk][1] = pa[kk][2] = pa[kk][3] = 0u;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) sc[i] = 0.f;
     }
     // O += P V: V's tile is the MN-major B operand (Dh contiguous), 16 keys
-    // (two 8-row groups, 1024 bytes apart) a step, its 64-wide slabs kSlab apart
+    // (two 8-row groups, 1024 bytes apart) a step, its 64-wide slabs kSlab apart.
+    // The fences keep the remainders' arithmetic off the registers the
+    // in-flight product reads: done before it is issued, packed after it ends.
+    if constexpr (kTwoTerm) reg_fence(sc);
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < kKeys / 16; ++kk) {
       wgmma_pv<DHP, Op>(o, pa[kk], sw128_desc(vt + kk * 16 * 128, kSlab, 1024));
     }
     wg_commit();
+    if constexpr (kTwoTerm) {
+      wg_wait();
+      reg_fence(sc);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        pa[j >> 1][(j & 1) * 2] = pair_bits<Op>(sc[4 * j], sc[4 * j + 1]);
+        pa[j >> 1][(j & 1) * 2 + 1] = pair_bits<Op>(sc[4 * j + 2], sc[4 * j + 3]);
+      }
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < kKeys / 16; ++kk) {
+        wgmma_pv<DHP, Op>(o, pa[kk], sw128_desc(vt + kk * 16 * 128, kSlab, 1024));
+      }
+      wg_commit();
+    }
     wg_wait();
     reg_fence(o);
     __syncwarp();

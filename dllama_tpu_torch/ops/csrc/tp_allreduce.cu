@@ -43,9 +43,38 @@
 // A later PR may fold the two calls of a layer into one persistent launch,
 // or go two-shot (reduce-scatter + all-gather) for t = 128 prefill across
 // cards, where the bytes start to matter.
+//
+// Across processes (a worker group: each process holds tp / nproc
+// contiguous ranks, parallel/mesh.py) a rank cannot name a peer's partial,
+// a tensor of another process.  So every rank owns a communication region
+// (tp_ipc_alloc: cudaMalloc, outside PyTorch's caching allocator, exported
+// with cudaIpcGetMemHandle; the peers map it once with
+// cudaIpcOpenMemHandle, the handles crossing the process group's gloo
+// channel at start-up):
+//
+//   [flag: u32 at 0 | pad to kRegionHead | parity 0: cap f32 | parity 1: cap f32]
+//
+// A call of generation g (each process counts its calls; every process
+// makes the same calls) copies each launched rank's (t, d) partial into
+// parity g & 1 of its own region, then tp_allreduce_ipc_kernel publishes
+// flag = g with release semantics at system scope, waits (acquire, system
+// scope) until every other rank's flag reads >= g, and sums all tp
+// partials from the regions in the ring order above: the result equals the
+// one-process kernel and tp_allreduce_plain bit for bit.  The two parities
+// let a fast rank write call g + 1 while a slow one still reads call g; a
+// rank reaches call g + 2 only after every peer has started call g + 1,
+// so after it has finished reading call g.  The wait is bounded by
+// %globaltimer: a peer that never arrives ends the kernel in __trap(), so
+// the caller's next synchronization raises; it never hangs and never sums
+// a stale partial.  On one card shared by the processes (no MPS) the
+// processes' kernels take turns in time slices: a rank that spins on its
+// peer's flag holds the card until its slice ends, and only then does the
+// peer run, so a call may cost up to a time slice there.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <stdio.h>
+#include <string.h>
 
 namespace {
 
@@ -85,6 +114,76 @@ tp_allreduce_kernel(Ranks ranks, int tp, int rank0, long long n_vec, int d_vec,
       src += step;
       if (src >= tp) src -= tp;
       add_to(acc, reinterpret_cast<const T*>(ranks.in[src])[i]);
+    }
+    out[i] = acc;
+  }
+}
+
+constexpr int kRegionHead = 256;  // python: parallel/comm.py REGION_HEAD
+
+__device__ __forceinline__ unsigned ld_acquire_sys(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.sys.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release_sys(unsigned* p, unsigned v) {
+  asm volatile("st.release.sys.global.u32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+}
+
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// a load that skips L1: a region's bytes are written by another process
+__device__ __forceinline__ float load_cg(const float* p) { return __ldcg(p); }
+__device__ __forceinline__ float4 load_cg(const float4* p) { return __ldcg(p); }
+
+struct Regions {
+  char* base[kMaxTp];  // every rank's region, mapped into this process
+  float* out[kMaxTp];  // the launched ranks' outputs (by launched index)
+};
+
+// The launched ranks rank0 .. rank0 + gridDim.y - 1: publish their flags
+// (every block's thread 0 stores the same g, so no block waits on one not
+// yet scheduled), wait for every other rank's flag, then rank r sums the
+// tp partials of parity `parity` in its ring order.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+tp_allreduce_ipc_kernel(Regions reg, int tp, int rank0, long long n_vec, int d_vec,
+                        int h_vec, long long data_off, unsigned gen,
+                        long long timeout_ns) {
+  if (threadIdx.x == 0) {
+    __threadfence_system();
+    for (int j = 0; j < (int)gridDim.y; ++j)
+      st_release_sys(reinterpret_cast<unsigned*>(reg.base[rank0 + j]), gen);
+    const unsigned long long t0 = global_ns();
+    for (int s = 0; s < tp; ++s) {
+      const unsigned* flag = reinterpret_cast<const unsigned*>(reg.base[s]);
+      while ((int)(ld_acquire_sys(flag) - gen) < 0) {
+        if (global_ns() - t0 > (unsigned long long)timeout_ns) {
+          printf("tp_allreduce_ipc: rank %d's partial of call %u did not arrive within "
+                 "%lld ns; trapping\n", s, gen, timeout_ns);
+          __trap();
+        }
+        __nanosleep(256);
+      }
+    }
+  }
+  __syncthreads();
+  const int r = rank0 + blockIdx.y;
+  T* out = reinterpret_cast<T*>(reg.out[blockIdx.y]);
+  for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x; i < n_vec;
+       i += (long long)gridDim.x * kThreads) {
+    const int step = (int)(i % d_vec) < h_vec ? tp - 1 : 1;
+    int src = r;
+    T acc = load_cg(reinterpret_cast<const T*>(reg.base[src] + data_off) + i);
+    for (int s = 1; s < tp; ++s) {
+      src += step;
+      if (src >= tp) src -= tp;
+      add_to(acc, load_cg(reinterpret_cast<const T*>(reg.base[src] + data_off) + i));
     }
     out[i] = acc;
   }
@@ -141,4 +240,74 @@ extern "C" int tp_enable_peer(int dev, int peer) {
   }
   cudaSetDevice(cur);
   return (int)e;
+}
+
+// -- across processes ---------------------------------------------------------
+
+// A communication region of `bytes` on the current device, zeroed, and its
+// IPC handle (64 bytes, cudaIpcMemHandle_t) in `handle`.
+extern "C" int tp_ipc_alloc(long long bytes, void** ptr, void* handle) {
+  cudaError_t e = cudaMalloc(ptr, (size_t)bytes);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaMemset(*ptr, 0, (size_t)bytes);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaIpcGetMemHandle(static_cast<cudaIpcMemHandle_t*>(handle), *ptr);
+}
+
+// A peer's region mapped into this process (peer access enabled lazily).
+extern "C" int tp_ipc_open(const void* handle, void** ptr) {
+  cudaIpcMemHandle_t h;
+  memcpy(&h, handle, sizeof(h));
+  return (int)cudaIpcOpenMemHandle(ptr, h, cudaIpcMemLazyEnablePeerAccess);
+}
+
+extern "C" int tp_ipc_close(void* ptr) { return (int)cudaIpcCloseMemHandle(ptr); }
+
+extern "C" int tp_ipc_free(void* ptr) { return (int)cudaFree(ptr); }
+
+extern "C" int tp_ipc_handle_bytes() { return (int)sizeof(cudaIpcMemHandle_t); }
+
+// `bytes` from `src` to `dst` on `stream` (device memory of this process or
+// a mapped peer region): the cross-process collectives that compute nothing.
+extern "C" int tp_copy(void* dst, const void* src, long long bytes, void* stream) {
+  return (int)cudaMemcpyAsync(dst, src, (size_t)bytes, cudaMemcpyDeviceToDevice,
+                              static_cast<cudaStream_t>(stream));
+}
+
+// Call `gen` of kernel 4 across processes for the launched global ranks
+// rank0 .. rank0 + n_ranks - 1 (this process's, on one card): ins/outs their
+// (t, d) f32 partials and outputs, regions[0..tp-1] every rank's region
+// (this process's own and the peers' mapped ones), cap the f32 a parity
+// holds.  Copies each launched partial into its region's parity gen & 1,
+// then launches tp_allreduce_ipc_kernel on `stream`.  Returns a CUDA error
+// code, or cudaErrorInvalidValue for a call the region cannot hold.
+extern "C" int tp_allreduce_ipc(const void* const* ins, void* const* outs,
+                                void* const* regions, int tp, int rank0, int n_ranks,
+                                long long cap, int t, int d, int vec, unsigned gen,
+                                long long timeout_ns, void* stream) {
+  if (tp < 2 || tp > kMaxTp || rank0 < 0 || n_ranks < 1 || rank0 + n_ranks > tp ||
+      t < 1 || d < 2 || d % 2 || (vec != 1 && vec != 4) || (vec == 4 && (d / 2) % 4) ||
+      (long long)t * d > cap || cap % 4 || gen == 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long data_off = kRegionHead + (long long)(gen & 1u) * cap * 4;
+  const size_t bytes = (size_t)t * d * 4;
+  Regions reg = {};
+  for (int i = 0; i < tp; ++i) reg.base[i] = static_cast<char*>(regions[i]);
+  for (int j = 0; j < n_ranks; ++j) {
+    cudaError_t e = cudaMemcpyAsync(reg.base[rank0 + j] + data_off, ins[j], bytes,
+                                    cudaMemcpyDeviceToDevice, s);
+    if (e != cudaSuccess) return (int)e;
+    reg.out[j] = static_cast<float*>(outs[j]);
+  }
+  const long long n_vec = (long long)t * d / vec;
+  const long long want = (n_vec + kThreads - 1) / kThreads;
+  const dim3 grid((unsigned)(want < kMaxBlocks ? want : kMaxBlocks), (unsigned)n_ranks);
+  if (vec == 4)
+    tp_allreduce_ipc_kernel<float4><<<grid, kThreads, 0, s>>>(
+        reg, tp, rank0, n_vec, d / 4, d / 8, data_off, gen, timeout_ns);
+  else
+    tp_allreduce_ipc_kernel<float><<<grid, kThreads, 0, s>>>(
+        reg, tp, rank0, n_vec, d, d / 2, data_off, gen, timeout_ns);
+  return (int)cudaGetLastError();
 }

@@ -61,7 +61,12 @@ column-sliced one each rank's kernel, then :func:`tp_allreduce` on the f32
 partials, then the cast.  :func:`tp_shardable` says which slices are
 legal.  Kernel 4 (``csrc/tp_allreduce.cu``), its plain version
 :func:`tp_allreduce_plain` and its counters live here, as the TPU ring
-kernel lives in the JAX package's ``q40.py``.
+kernel lives in the JAX package's ``q40.py``.  Over a mesh that spans
+processes (``parallel/mesh.py``) :func:`tp_allreduce` takes the mesh: on
+the card it launches kernel 4's cross-process body
+(:func:`tp_allreduce_ipc`, the peers' partials read through CUDA IPC), on
+the CPU its plain version gathers every rank's partial over gloo
+(:func:`tp_allreduce_group_plain`) and sums them in the same order.
 
 The kernel has two bodies, chosen by :func:`route` from the row count:
 the GEMV (decode) body below ``T_MMA`` rows, one launch a call on
@@ -79,7 +84,10 @@ for kernels 1–2, ``("blocked", n, d)`` for kernel 3 and ``("mma", n, d)``,
 variant other than ``classic`` ending in its name (``(n, d, "exact")``,
 ``("mma", n, d, "exact")``; :func:`launches_by_variant`), ``plain_calls``,
 and kernel 4's ``allreduce_launches`` and
-``allreduce_plain_calls``.  :func:`reset_counters` zeroes them.
+``allreduce_plain_calls`` (every launch and every plain call, in one
+process or across processes), of which ``allreduce_ipc_launches`` and
+``allreduce_gloo_calls`` crossed processes.  :func:`reset_counters`
+zeroes them.
 """
 
 from __future__ import annotations
@@ -121,8 +129,10 @@ launches_by_shape: dict[tuple, int] = {}
 def reset_counters() -> None:
     global kernel_launches, blocked_launches, mma_launches, plain_calls
     global allreduce_launches, allreduce_plain_calls
+    global allreduce_ipc_launches, allreduce_gloo_calls
     kernel_launches = blocked_launches = mma_launches = plain_calls = 0
     allreduce_launches = allreduce_plain_calls = 0
+    allreduce_ipc_launches = allreduce_gloo_calls = 0
     launches_by_shape.clear()
 
 
@@ -132,6 +142,8 @@ def counters() -> dict:
             "plain_calls": plain_calls,
             "allreduce_launches": allreduce_launches,
             "allreduce_plain_calls": allreduce_plain_calls,
+            "allreduce_ipc_launches": allreduce_ipc_launches,
+            "allreduce_gloo_calls": allreduce_gloo_calls,
             "launches_by_shape": dict(launches_by_shape)}
 
 
@@ -1092,16 +1104,18 @@ def tp_shardable(n: int, d: int, kind: str | None, tp: int) -> bool:
     return False
 
 
-def tp_allreduce_plain(parts: list[torch.Tensor]) -> list[torch.Tensor]:
+def tp_allreduce_plain(parts: list[torch.Tensor], ranks=None) -> list[torch.Tensor]:
     """The plain version of kernel 4: rank ``r``'s sum of the ``tp``
     partials ``(..., d)`` on rank ``r``'s device, with the TPU ring's adds
     in its order — the first half of the columns from the left neighbour,
     ``((x_r + x_{r-1}) + x_{r-2}) + ...``, the second half from the right
-    one, ``((x_r + x_{r+1}) + ...)`` (indices mod tp, ``h = d // 2``)."""
+    one, ``((x_r + x_{r+1}) + ...)`` (indices mod tp, ``h = d // 2``).
+    ``ranks`` (default all) names the ranks whose sums are returned."""
     tp = len(parts)
     h = parts[0].shape[-1] // 2
     outs = []
-    for r, own in enumerate(parts):
+    for r in (range(tp) if ranks is None else ranks):
+        own = parts[r]
         lo, hi = own[..., :h].clone(), own[..., h:].clone()
         for s in range(1, tp):
             lo = lo + parts[(r - s) % tp][..., :h].to(own.device)
@@ -1112,25 +1126,123 @@ def tp_allreduce_plain(parts: list[torch.Tensor]) -> list[torch.Tensor]:
 
 allreduce_launches = 0
 allreduce_plain_calls = 0
+allreduce_ipc_launches = 0
+allreduce_gloo_calls = 0
 _peers_enabled: set[tuple[int, int]] = set()
+# seconds the cross-process body waits for a peer's partial before it traps
+IPC_TIMEOUT_S = 5.0
 
 
-def tp_allreduce(parts: list[torch.Tensor], impl: str = "auto") -> list[torch.Tensor]:
-    """Sum the ranks' f32 partials: ``parts[r]`` ``(..., d)`` lies on rank
-    ``r``'s device; returns every rank's sum (:func:`tp_allreduce_plain`'s
-    function) on its device.  CPU tensors, or ``impl="plain"`` (the
-    reference path of a comparison on the card, as :func:`matmul`'s), take
-    the plain version; CUDA tensors launch kernel 4
+def tp_allreduce(parts: list[torch.Tensor], impl: str = "auto",
+                 mesh=None) -> list[torch.Tensor]:
+    """Sum the ranks' f32 partials: ``parts[j]`` ``(..., d)`` lies on local
+    rank ``j``'s device; returns each local rank's sum
+    (:func:`tp_allreduce_plain`'s function) on its device.  In one process
+    (``mesh`` None, or of one process) CPU tensors, or ``impl="plain"``
+    (the reference path of a comparison on the card, as :func:`matmul`'s),
+    take the plain version; CUDA tensors launch kernel 4
     (:func:`tp_allreduce_kernel`), which raises on anything it does not
-    take."""
-    global allreduce_plain_calls
+    take.  Over a mesh that spans processes: CPU tensors or ``"plain"``
+    take :func:`tp_allreduce_group_plain`, CUDA tensors the cross-process
+    body (:func:`tp_allreduce_ipc`)."""
+    global allreduce_plain_calls, allreduce_gloo_calls
     if impl not in ("auto", "plain"):
         raise ValueError(f"unknown tp_allreduce impl {impl!r}")
+    multi = mesh is not None and mesh.multi
     if impl == "plain" or all(p.device.type == "cpu" for p in parts):
         with COUNT_LOCK:
             allreduce_plain_calls += 1
-        return tp_allreduce_plain(parts)
-    return tp_allreduce_kernel(parts)
+            allreduce_gloo_calls += multi
+        return tp_allreduce_group_plain(parts, mesh) if multi else tp_allreduce_plain(parts)
+    return tp_allreduce_ipc(parts, mesh) if multi else tp_allreduce_kernel(parts)
+
+
+def tp_allreduce_group_plain(parts: list[torch.Tensor], mesh) -> list[torch.Tensor]:
+    """The plain version across processes: every rank's partial gathered
+    over gloo (``all_gather``), then :func:`tp_allreduce_plain`'s adds for
+    this process's ranks — the one-process plain version's sums, bit for
+    bit."""
+    from ..parallel import comm
+    every = comm.all_gather(mesh, [p.cpu() for p in parts])
+    sums = tp_allreduce_plain(every, mesh.ranks)
+    return [s.to(p.device) for s, p in zip(sums, parts)]
+
+
+def allreduce_regions(mesh, d: int):
+    """The group's kernel-4 regions (``parallel.comm.RankRegions``), made at
+    the first call (a collective point: every process makes the same
+    calls) with two parities of ``max_rows × d`` f32 a rank, ``max_rows``
+    the rows the group's engines reserved (``Group.reserve_rows``)."""
+    from ..parallel import comm
+    regions = mesh.group.regions
+    if "allreduce" not in regions:
+        rows = mesh.group.max_rows
+        _require(rows > 0, "no rows reserved for the communication region "
+                 "(Group.reserve_rows: an Engine over the mesh reserves its largest "
+                 "forward)", "tp_allreduce_ipc")
+        cap = -(-rows * d // 4) * 4
+        regions["allreduce"] = comm.RankRegions(mesh, comm.REGION_HEAD + 2 * cap * 4)
+    return regions["allreduce"]
+
+
+def tp_allreduce_ipc(parts: list[torch.Tensor], mesh) -> list[torch.Tensor]:
+    """Kernel 4 across processes: this process's ranks' partials (CUDA,
+    on one card) copied into their IPC regions, every rank's read from the
+    regions and summed in the ring order (one launch on the current
+    stream; ``csrc/tp_allreduce.cu``).  Raises for a call larger than the
+    region (no fallback) and for local ranks on more than one card.  Each
+    launch adds one to ``allreduce_launches`` and to
+    ``allreduce_ipc_launches``."""
+    global allreduce_launches, allreduce_ipc_launches
+    fn = "tp_allreduce_ipc"
+
+    def req(cond, msg):
+        _require(cond, msg, fn)
+
+    tp = mesh.tp
+    req(2 <= tp <= TP_MAX, f"{tp} ranks outside 2..{TP_MAX}")
+    req(len(parts) == len(mesh.devices), f"{len(parts)} partials for "
+        f"{len(mesh.devices)} local ranks")
+    shape = parts[0].shape
+    d = shape[-1] if len(shape) else 0
+    for p in parts:
+        req(p.is_cuda, f"every partial must be a CUDA tensor, got device {p.device}")
+        req(p.dtype == torch.float32, f"partial dtype {p.dtype} != float32")
+        req(p.shape == shape, f"partial shapes differ: {tuple(p.shape)} != {tuple(shape)}")
+        req(p.is_contiguous(), "partials must be contiguous")
+    req(d >= 2 and d % 2 == 0, f"d={d} must be even")
+    dev = parts[0].device
+    req(all(p.device == dev for p in parts), "this process's ranks must share one card "
+        f"for the cross-process body, got {[p.device for p in parts]}")
+    t = parts[0].numel() // d
+    from ..parallel import comm
+    reg = allreduce_regions(mesh, d)
+    cap = (reg.nbytes - comm.REGION_HEAD) // 8  # f32 a parity
+    req(t * d <= cap, f"a call of {t} rows at d={d} is more than the communication "
+        f"region holds: max_rows {cap // d} at d={d} (the group reserved "
+        f"{mesh.group.max_rows} rows)")
+    outs = [torch.empty_like(p) for p in parts]
+    vec = 4 if (d // 2) % 4 == 0 and all(o.data_ptr() % 16 == 0 for o in outs) else 1
+    reg.gen += 1
+    arr = ctypes.c_void_p
+    ins = (arr * len(parts))(*(p.data_ptr() for p in parts))
+    out_ptrs = (arr * len(outs))(*(o.data_ptr() for o in outs))
+    bases = (arr * tp)(*reg.base)
+    from . import _build
+    lib = _build.load()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        rc = lib.tp_allreduce_ipc(ins, out_ptrs, bases, tp, mesh.rank0, len(parts),
+                                  cap, t, d, vec, reg.gen,
+                                  int(IPC_TIMEOUT_S * 1e9), stream)
+    if rc != 0:
+        raise RuntimeError(f"{fn} launch failed: CUDA error {rc} "
+                           f"({lib.q40_error_string(rc).decode()}) at tp={tp} t={t} d={d} "
+                           f"ranks {mesh.rank0}..{mesh.rank0 + len(parts) - 1}")
+    with COUNT_LOCK:
+        allreduce_launches += 1
+        allreduce_ipc_launches += 1
+    return outs
 
 
 def tp_allreduce_kernel(parts: list[torch.Tensor]) -> list[torch.Tensor]:

@@ -21,6 +21,11 @@ a padded row.  A leaf that does not divide stays replicated, with a ⚠️
 line, as in the JAX package; the forward then gathers its input instead
 (``models/transformer.py``).  Each rank's KV cache or paged pool holds
 ``n_kv_heads / tp`` heads; the page table is shared.
+
+Over a process group a process places only its own ranks' slices
+(``Mesh.ranks``); ``models/params.py`` ``load_placed`` reads only those
+slices' bytes of a packed `.m` file, so each process holds about 1/nproc
+of the sliced weights.
 """
 
 from __future__ import annotations
@@ -111,8 +116,24 @@ def divides(v, kind: str | None, tp: int) -> bool:
     if kind is None:
         return True
     if isinstance(v, (q40.QTensor, q8.Q8Tensor)):
-        return q40.tp_shardable(*v.logical_nd, kind, tp)
-    return v.shape[-1 if kind == ROW else -2] % tp == 0
+        return divides_nd(*v.logical_nd, kind, tp, packed=True)
+    return divides_nd(v.shape[-2], v.shape[-1], kind, tp, packed=False)
+
+
+def divides_nd(n: int, d: int, kind: str | None, tp: int, packed: bool) -> bool:
+    """:func:`divides` from a weight's logical ``(n, d)``: a packed ``col``
+    slice must hold whole 32-row blocks."""
+    if kind is None:
+        return True
+    if packed:
+        return q40.tp_shardable(n, d, kind, tp)
+    return (d if kind == ROW else n) % tp == 0
+
+
+def warn_replicated(key: str, shape, tp: int) -> None:
+    """The ⚠️ line of a leaf left replicated (``shape``: its logical one)."""
+    print(f"⚠️  sharding: {key} {tuple(shape)} does not divide tp={tp} evenly; "
+          "replicating")
 
 
 def shard(v, kind: str | None, rank: int, tp: int):
@@ -136,10 +157,10 @@ def shard(v, kind: str | None, rank: int, tp: int):
 
 @dataclass
 class Placed:
-    """Params placed over a mesh: ``ranks[r]`` is rank r's param dict on
-    ``mesh.devices[r]``; ``kinds[k]`` is how ``k`` was placed (``"row"``,
-    ``"col"``, or None when replicated — by plan or because it did not
-    divide)."""
+    """Params placed over a mesh: ``ranks[j]`` is local rank j's (global
+    rank ``mesh.rank0 + j``) param dict on ``mesh.devices[j]``;
+    ``kinds[k]`` is how ``k`` was placed (``"row"``, ``"col"``, or None
+    when replicated — by plan or because it did not divide)."""
 
     mesh: Mesh
     ranks: list[dict]
@@ -155,10 +176,10 @@ class Placed:
 
 
 def place_params(params: dict, cfg: ModelConfig, mesh: Mesh) -> Placed:
-    """Slice host (or device) params over ``mesh`` and upload each rank's
-    slices to its device — the reference's weight-distribution phase
-    (``transformer.cpp:389-404``).  Fused weights are unfused first, a
-    blocked Q40 weight returns to row-major; a leaf that does not divide
+    """Slice host (or device) params over ``mesh`` and upload each local
+    rank's slices to its device — the reference's weight-distribution
+    phase (``transformer.cpp:389-404``).  Fused weights are unfused first,
+    a blocked Q40 weight returns to row-major; a leaf that does not divide
     stays replicated with a ⚠️ line."""
     check_tp_constraint(cfg, mesh.tp)
     params = {k: q40.unblock(v) if isinstance(v, q40.BlockedQTensor) else v
@@ -168,19 +189,17 @@ def place_params(params: dict, cfg: ModelConfig, mesh: Mesh) -> Placed:
     for k, v in params.items():
         kind = plan[k]
         if not divides(v, kind, mesh.tp):
-            shape = tuple(v.qpacked.shape if hasattr(v, "qpacked") else v.shape)
-            print(f"⚠️  sharding: {k} {shape} does not divide tp={mesh.tp} evenly; "
-                  "replicating")
+            warn_replicated(k, v.shape, mesh.tp)
             kind = None
         kinds[k] = kind
     ranks: list[dict] = [{} for _ in mesh.devices]
     for k, v in params.items():
         uploaded = {}  # a replicated leaf goes to each distinct device once
-        for r, dev in enumerate(mesh.devices):
+        for j, (r, dev) in enumerate(zip(mesh.ranks, mesh.devices)):
             if kinds[k] is None:
                 if dev not in uploaded:
                     uploaded[dev] = v.to(dev)
-                ranks[r][k] = uploaded[dev]
+                ranks[j][k] = uploaded[dev]
             else:
-                ranks[r][k] = shard(v, kinds[k], r, mesh.tp).to(dev)
+                ranks[j][k] = shard(v, kinds[k], r, mesh.tp).to(dev)
     return Placed(mesh, ranks, kinds)

@@ -41,18 +41,21 @@ def device_sample(logits: torch.Tensor, generator: torch.Generator,
 def decode_chunk(params, cfg: ModelConfig, cache: KVCache, token: torch.Tensor,
                  pos: int, generator: torch.Generator, *, steps: int,
                  temperature: float, topp: float,
-                 offsets: torch.Tensor | None = None):
+                 offsets: torch.Tensor | None = None, pick=None):
     """Generate ``steps`` tokens from ``token`` (B,) at ``pos``; every row
     samples its own next token.  ``offsets`` (B,) is a ragged batch's left
     padding (per-row RoPE positions and key floors, see
-    ``transformer.run_blocks``).  Returns (tokens (steps, B), cache,
-    last_token, new_pos, last_logits)."""
+    ``transformer.run_blocks``).  ``pick(logits)`` replaces
+    :func:`device_sample` (a worker group's: process 0 samples and
+    broadcasts).  Returns (tokens (steps, B), cache, last_token, new_pos,
+    last_logits)."""
     toks = []
     logits = None
     for i in range(steps):
         logits, cache = forward_last(params, cfg, token[:, None], cache, pos + i, 0,
                                      offsets=offsets)
-        token = device_sample(logits, generator, temperature, topp)
+        token = device_sample(logits, generator, temperature, topp) if pick is None \
+            else pick(logits)
         toks.append(token)
     return torch.stack(toks), cache, token, pos + steps, logits
 

@@ -27,11 +27,22 @@ every host-fetched logits array (prefill, single-token decode, ragged
 prefill) for NaN/Inf and raises :class:`NumericFault`; the on-device decode
 chunks and slot dispatches ship token ids only, so a divergence there
 shows at the next host-logits step, as in the JAX package.
+
+Over a mesh that spans processes (a worker group, ``parallel/mesh.py``)
+the engine keeps KV for its own ranks; process 0 picks every token
+(greedy, or from its seeded generator) from the logits it gathered and
+broadcasts it over the group, and the others feed it to their next
+forward (:meth:`Engine._pick`).  Every process hashes the tokens it
+picked or received; :meth:`Engine.check_agreement` compares the hashes
+over the group at the end of a run.  Such an engine runs the batch-1
+and lockstep-batch streams (``generate_stream``, ``generate_batch``,
+``decode``), eagerly; the slot, speculative and scoring paths refuse it.
 """
 
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import os
 import threading
 import time
@@ -288,6 +299,11 @@ class Engine:
     tp = 1; the batch-1 and lockstep prefill forwards and tp > 1 run
     eagerly.
 
+    A ``mesh`` that spans processes gives the engine its local ranks only
+    (``params`` may be the ``Placed`` that ``models.params.load_placed``
+    read) and reserves its largest forward's rows (batch × seq_len, × the
+    active experts of a MoE model) for kernel 4's communication region.
+
     ``step_timeout`` (seconds; default ``DLLAMA_STEP_TIMEOUT``, else off)
     and ``numeric_checks`` (default ``DLLAMA_NUMERIC_CHECKS``, else off):
     see :meth:`_sync` and :meth:`_numeric_guard`."""
@@ -298,6 +314,10 @@ class Engine:
                  mesh: Mesh | None = None, graphs: bool | None = None,
                  step_timeout: float | None = None, numeric_checks: bool | None = None):
         self.mesh = mesh if mesh is not None and mesh.tp > 1 else None
+        #: the process group of a mesh that spans processes, else None
+        self.group = mesh.group if mesh is not None and mesh.multi else None
+        #: the tokens this engine picked or received (a multi-process check)
+        self._stream_hash, self._stream_tokens = hashlib.sha256(), 0
         # the step watchdog (StepTimeout) and the logits guard
         # (NumericFault); the environment arms them on a live server
         if step_timeout is None:
@@ -311,6 +331,9 @@ class Engine:
         self.cfg = cfg
         self.batch = int(batch)
         self.seq_len = min(seq_len or cfg.seq_len, cfg.seq_len)
+        if self.group is not None:
+            self.group.reserve_rows(self.batch * self.seq_len
+                                    * (cfg.n_active_experts if cfg.is_moe else 1))
         if os.environ.get("DLLAMA_Q40_LAYOUT", "") == "blocked":
             if self.mesh is None:
                 params = q40.blocked_params(params)
@@ -403,6 +426,37 @@ class Engine:
     @property
     def tp(self) -> int:
         return 1 if self.mesh is None else self.mesh.tp
+
+    def _pick(self, logits: torch.Tensor | None, temperature: float, topp: float,
+              rows: int) -> torch.Tensor:
+        """The next token of each of ``rows`` rows (int32 on the engine's
+        device), sampled on the device.  Over a process group process 0
+        samples its gathered ``logits`` and broadcasts the ids; the other
+        processes (``logits`` None) receive them.  Every id goes into the
+        stream hash (:meth:`check_agreement`)."""
+        if self.group is None:
+            return device_sample(logits, self._gen, temperature, topp)
+        if self.group.index == 0:
+            tok = device_sample(logits, self._gen, temperature, topp)
+        else:
+            tok = torch.zeros((rows,), dtype=torch.int32, device=self.device)
+        tok = self.group.broadcast(tok)
+        self._stream_hash.update(tok.cpu().numpy().astype(np.int32).tobytes())
+        self._stream_tokens += rows
+        return tok
+
+    def check_agreement(self) -> None:
+        """Over a process group: raise on every process unless every
+        process picked or received the same token stream (its hash and
+        length); a no-op in one process."""
+        if self.group is not None:
+            self.group.agree((self._stream_tokens, self._stream_hash.hexdigest()),
+                             "the token stream (count, sha256)")
+
+    def _one_process(self, what: str) -> None:
+        if self.group is not None:
+            raise ValueError(f"{what} runs in one process; this engine's mesh spans "
+                             f"{self.group.count} processes")
 
     def _per_rank(self, make):
         """``make(device, tp)`` once (one device), or once a rank."""
@@ -697,17 +751,18 @@ class Engine:
         self.forwards += 1
         fired = self._sync(lambda: synchronize(self.device), "prefill/decode step")[0]
         t1 = time.perf_counter()
-        if "nan" in fired:  # injected device fault: poisoned logits
+        if "nan" in fired and logits is not None:  # injected device fault
             logits = torch.full_like(logits, float("nan"))
         self.last_logits = logits
-        host_logits = self._numeric_guard(
+        # a worker process other than 0 gathers no logits (None)
+        host_logits = None if logits is None else self._numeric_guard(
             logits.cpu().numpy(), "prefill" if tokens_np.shape[1] > 1 else "decode")  # (B, V)
         t2 = time.perf_counter()
         stats.inference_ms = (t1 - t0) * 1000
         stats.transfer_ms = (t2 - t1) * 1000
         stats.generation_ms = (t2 - t0) * 1000
         stats.sent_bytes = tokens_np.nbytes + 8  # token ids + pos/last scalars
-        stats.recv_bytes = host_logits.nbytes
+        stats.recv_bytes = 0 if host_logits is None else host_logits.nbytes
         obs_trace.record("prefill" if tokens_np.shape[1] > 1 else "decode_step", t0, t2,
                          pos=self.pos, n_tokens=int(tokens_np.shape[1]))
         _observe(stats, stats.sent_bytes, stats.recv_bytes)
@@ -786,9 +841,11 @@ class Engine:
             else:
                 tok = token if isinstance(token, torch.Tensor) else \
                     upload(np.asarray(token), torch.int64, self.device)
+                pick = None if self.group is None else \
+                    (lambda lg: self._pick(lg, temperature, topp, tok.shape[0]))
                 toks, self.cache, last, _, logits = decode_chunk(
                     self.params, self.cfg, self.cache, tok, p0, self._gen, steps=steps,
-                    temperature=temperature, topp=topp, offsets=self.offsets)
+                    temperature=temperature, topp=topp, offsets=self.offsets, pick=pick)
         self.forwards += steps
         self.last_logits = logits
         self.pos = p0 + steps
@@ -818,7 +875,7 @@ class Engine:
         produced = len(prompt_tokens)
         if produced >= steps:
             return
-        token = int(device_sample(self.last_logits, self._gen, temperature, topp)[0])
+        token = int(self._pick(self.last_logits, temperature, topp, 1)[0])
         yield token, StepStats()  # prefill cost already attributed above
         produced += 1
         if token in eos_ids or produced >= steps or self.pos >= self.seq_len:
@@ -916,7 +973,7 @@ class Engine:
         if seed is not None:
             self._gen.manual_seed(seed)
         self.prefill_ragged(prompts)
-        tok_vec = device_sample(self.last_logits, self._gen, temperature, topp)
+        tok_vec = self._pick(self.last_logits, temperature, topp, self.batch)
         yield tok_vec.cpu().numpy()
 
         def dispatch(in_tok, done):
@@ -969,6 +1026,7 @@ class Engine:
         ``self.pos``: the batch-1 path and the slot path may share an
         engine as long as their uses do not overlap in time (the
         scheduler's ``exclusive()``)."""
+        self._one_process("the slot step")
         if self.cache.quantized and not self.paged:
             raise ValueError("slot serving needs a dense or paged-int8 KV "
                              "cache (contiguous per-row quantized writes "
@@ -1057,6 +1115,7 @@ class Engine:
         last row; the host reads them after the landing.  ``last_dev`` on
         the handle stays on the device.  Slot clocks are the caller's;
         ``self.pos`` is untouched."""
+        self._one_process("the slot step")
         if self.cache.quantized and not self.paged:
             raise ValueError("slot serving needs a dense or paged-int8 KV "
                              "cache (contiguous per-row quantized writes "
@@ -1138,6 +1197,7 @@ class Engine:
         each window replays the PLD graph of its width
         (``GraphKey("pld", 1, True, k + 1)``); the tail that no longer fits
         a window runs single-token steps (:meth:`decode_one`)."""
+        self._one_process("prompt-lookup decoding")
         if self.batch != 1:
             raise ValueError("speculative decode is single-stream (batch=1)")
         if self.paged:
@@ -1251,6 +1311,7 @@ class Engine:
         dtype (bf16 or f32; an int8 engine scores on a ``cfg.dtype``
         scratch, as the JAX package does), so the engine's own cache,
         position and graphs are untouched."""
+        self._one_process("scoring")
         if self.paged:
             raise ValueError("paged engine is slot-only; scoring needs a "
                              "contiguous scratch cache")
@@ -1296,6 +1357,7 @@ class Engine:
                  eos_ids: tuple[int, ...] = ()):
         """Yield ``(token_id, stats)`` for up to ``steps`` tokens with the
         host sampler, one decode step per token (the reference loop)."""
+        self._one_process("the host sampler's loop")
         steps = min(steps, self.seq_len - self.pos)
         logits, stats = self.prefill(prompt_tokens[:])
         produced = len(prompt_tokens)

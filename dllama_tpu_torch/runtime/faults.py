@@ -34,8 +34,10 @@ this package, each where the JAX package fires it:
   before a dead or hung replica is respawned; a raise counts as another
   death in the crash-loop window.
 
-The JAX package's ``distributed.initialize`` point belongs to its
-multi-host start-up, which this package does not carry.
+* ``distributed.initialize``— before ``torch.distributed.init_process_group``
+  (parallel/distributed.py ``init_distributed``); a ``raise:ConnectionError``
+  here is the coordinator not being up yet, which the init retries with
+  backoff.
 
 Spec grammar (``DLLAMA_FAULTS`` or :meth:`FaultRegistry.install`)::
 

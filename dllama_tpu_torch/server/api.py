@@ -2288,6 +2288,10 @@ def parse_args(argv):
     if missing:
         raise SystemExit(f"not yet ported to dllama_tpu_torch: {', '.join(missing)} "
                          "(run python -m dllama_tpu.server.api for these)")
+    if args.coordinator or args.nproc is not None or args.proc_id is not None:
+        raise SystemExit("the API server does not run over a process group "
+                         "(--coordinator/--nproc/--proc-id): serve with --workers tpu:N "
+                         "in one process")
     check_q40_variant()
     return args
 

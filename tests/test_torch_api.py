@@ -195,7 +195,9 @@ def test_unported_server_flag_exits():
     # --step-timeout is ported since the fleet slice, --weights-float-type
     # since the loading flags came over, --elastic since the elastic slice:
     # the server takes them, and a flag still outside the port stands in
+    # (--coordinator since the worker slice, which the server refuses by
+    # name: tests/test_torch_multihost.py; --sp stands in for it)
     with pytest.raises(SystemExit,
-                       match=r"not yet ported to dllama_tpu_torch: --coordinator \(run"):
+                       match=r"not yet ported to dllama_tpu_torch: --sp \(run"):
         api.parse_args(["--spec", "pld", "--weights-float-type", "q40", "--dequantize",
-                        "--elastic", "--coordinator", "h:1"])
+                        "--elastic", "--sp", "2"])

@@ -70,7 +70,10 @@ def test_inference_prints_stats(model_files):
 
 
 @pytest.mark.parametrize("extra,named", [
-    (["worker"], "mode 'worker'"),
+    # worker and the process group's flags are ported since the worker
+    # slice: the cases that named them keep their ids, hold that they are
+    # accepted, and name a flag still outside the port beside them (--sp)
+    pytest.param(["worker", "--sp", "2"], "--sp", id="extra0-mode 'worker'"),
     (["generate", "--workers", "tpu:2", "--ep", "2"], "--ep"),
     # --pld is ported since: the case keeps its id and names --sp alone
     pytest.param(["generate", "--pld", "4", "--sp", "2"], "--sp", id="extra2---sp, --pld"),
@@ -90,7 +93,7 @@ def test_inference_prints_stats(model_files):
     # the loading flags are ported since: the case keeps its id and holds
     # that they are accepted, named the flag still outside the port beside them
     pytest.param(["generate", "--dequantize", "--weights-float-type", "q40", "--elastic",
-                  "--coordinator", "h:1"], "--coordinator",
+                  "--coordinator", "h:1", "--sp", "2"], "--sp",
                  id="extra6---weights-float-type, --dequantize"),
     # the profiling flags are ported since: the case keeps its id and runs
     # them beside a flag still outside the port (--dequantize is ported
@@ -99,17 +102,22 @@ def test_inference_prints_stats(model_files):
     pytest.param(["inference", "--profile-split", "--profile-ops", "--numeric-checks",
                   "--dequantize", "--min-replicas", "2", "--sp", "2"], "--sp",
                  id="extra7---profile-split, --profile-ops"),
-    (["worker", "--coordinator", "h:1", "--nproc", "2", "--proc-id", "1",
-      "--program", "chat"], "--coordinator, --nproc, --proc-id, --program"),
+    # (--program chat is refused by argparse, as by the JAX CLI: chat is no
+    # worker program; batch stands in for it)
+    pytest.param(["worker", "--coordinator", "h:1", "--nproc", "2", "--proc-id", "1",
+                  "--program", "batch", "--sp", "2"], "--sp",
+                 id="extra8---coordinator, --nproc, --proc-id, --program"),
     # the elastic flags are ported since: the two cases keep their ids, run
-    # them beside the multi-host flags and name only those
+    # them beside the process group's flags (ported since the worker slice)
+    # and name only --sp
     pytest.param(["generate", "--elastic", "--pod-devices", "4", "--max-replicas", "2",
-                  "--coordinator", "h:1", "--nproc", "2"], "--coordinator, --nproc",
+                  "--coordinator", "h:1", "--nproc", "2", "--sp", "2"], "--sp",
                  id="extra9---elastic, --pod-devices, --max-replicas"),
     pytest.param(["generate", "--stall-timeout", "5", "--checkpoint-interval", "1",
                   "--resume-policy", "never", "--elastic-interval", "1", "--scale-up-util",
-                  "0.5", "--reshape-kv-low", "0.1", "--proc-id", "1", "--program", "chat"],
-                 "--proc-id, --program",
+                  "0.5", "--reshape-kv-low", "0.1", "--proc-id", "1", "--program", "batch",
+                  "--sp", "2"],
+                 "--sp",
                  id="extra10---stall-timeout, --checkpoint-interval, --resume-policy"),
     (["generate", "--dp", "2"], "--dp (outside serve-pod)"),
 ])
@@ -120,7 +128,8 @@ def test_unported_flags_exit_naming_them(model_files, extra, named):
     assert "not yet ported" in r.stderr and named in r.stderr
     msg = r.stderr.split("not yet ported to dllama_tpu_torch: ", 1)[1].split(" (run", 1)[0]
     assert not set(msg.split(", ")) & (PORTED_SINCE | FLEET_FLAGS | LOAD_FLAGS
-                                       | ELASTIC_FLAGS), msg
+                                       | ELASTIC_FLAGS | GROUP_FLAGS), msg
+    assert "mode 'worker'" not in msg
 
 
 # flags the port carries since speculative decoding and profiling came over
@@ -139,21 +148,26 @@ ELASTIC_FLAGS = {"--elastic", "--pod-devices", "--min-replicas", "--max-replicas
                  "--elastic-interval", "--elastic-window", "--elastic-cooldown",
                  "--scale-up-util", "--scale-down-util", "--scale-up-queue",
                  "--reshape-kv-low"}
+# and since the worker mode and the process group came over
+GROUP_FLAGS = {"--coordinator", "--nproc", "--proc-id", "--program"}
 
 
 def test_fleet_modes_and_flags_left_the_refusal_lists():
-    """``router`` and ``serve-pod`` left ``NOT_PORTED_MODES``, and the
-    fleet's flags (with ``--dp``, for serve-pod) left ``NOT_PORTED_FLAGS``,
-    and so did the loading flags and the elastic pod's since; the four
-    multi-host flags stay.  They parse with the JAX CLI's defaults."""
-    from dllama_tpu.cli import build_parser as jparser
+    """``router``, ``serve-pod`` and, since the worker slice, ``worker``
+    left ``NOT_PORTED_MODES``, which is empty; the fleet's flags (with
+    ``--dp``, for serve-pod), the loading flags, the elastic pod's and the
+    process group's four left ``NOT_PORTED_FLAGS``, which is empty.  They
+    parse with the JAX CLI's defaults; ``--program`` offers the JAX CLI's
+    worker programs."""
+    from dllama_tpu.cli import WORKER_PROGRAMS as JPROGRAMS, build_parser as jparser
     from dllama_tpu_torch import cli
-    assert cli.NOT_PORTED_MODES == ("worker",)
-    assert {"router", "serve-pod"} <= set(cli.MODES)
-    assert set(cli.NOT_PORTED_FLAGS) == {"--coordinator", "--nproc", "--proc-id", "--program"}
+    assert cli.NOT_PORTED_MODES == ()
+    assert {"router", "serve-pod", "worker"} <= set(cli.MODES)
+    assert not cli.NOT_PORTED_FLAGS
+    assert set(cli.WORKER_PROGRAMS) == set(JPROGRAMS) == {"generate", "inference", "batch"}
     args = cli.build_parser().parse_args(["serve-pod"])
     jargs = jparser().parse_args(["serve-pod"])
-    for flag in sorted(FLEET_FLAGS | LOAD_FLAGS | ELASTIC_FLAGS | {"--dp"}):
+    for flag in sorted(FLEET_FLAGS | LOAD_FLAGS | ELASTIC_FLAGS | GROUP_FLAGS | {"--dp"}):
         key = flag[2:].replace("-", "_")
         assert getattr(args, key) == getattr(jargs, key), flag
     assert cli.not_ported(cli.build_parser().parse_args(
@@ -437,7 +451,7 @@ for name in ("server.api", "runtime.scheduler", "runtime.pagepool", "runtime.str
              "obs.slo", "obs.dispatch", "runtime.snapshot", "runtime.kvtier",
              "io.integrity", "obs.cost", "runtime.spec", "runtime.profiling",
              "runtime.faults", "router.registry", "router.fleet", "router.service",
-             "router.pod", "router.elastic"):
+             "router.pod", "router.elastic", "parallel.distributed", "parallel.comm"):
     assert "dllama_tpu_torch." + name in sys.modules, name
 from dllama_tpu_torch import cli
 for model in ({m!r}, {moe!r}):
@@ -485,16 +499,18 @@ _FOREIGN_IMPORT = re.compile(
 
 
 def test_static_scan_finds_no_foreign_imports():
-    """No file of the port (and neither chip script) imports jax,
+    """No file of the port (and none of the chip scripts) imports jax,
     dllama_tpu or ml_dtypes (bf16 snapshots carry raw words instead)."""
-    files = [os.path.join(REPO, f) for f in ("chip_smoke.py", "chip_ab_serving.py")]
+    files = [os.path.join(REPO, f)
+             for f in ("chip_smoke.py", "chip_ab_serving.py", "chip_prefill_rounding.py")]
     for root, _, names in os.walk(PORT):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 15
     for new in ("runtime/snapshot.py", "runtime/kvtier.py", "io/integrity.py", "obs/cost.py",
                 "runtime/spec.py", "runtime/profiling.py", "runtime/faults.py",
                 "router/__init__.py", "router/__main__.py", "router/registry.py",
-                "router/fleet.py", "router/service.py", "router/pod.py", "router/elastic.py"):
+                "router/fleet.py", "router/service.py", "router/pod.py", "router/elastic.py",
+                "parallel/distributed.py", "parallel/comm.py"):
         assert os.path.join(PORT, *new.split("/")) in files, new
     hits = []
     for f in files:

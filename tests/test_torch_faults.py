@@ -415,3 +415,74 @@ def test_step_timeout_marks_the_server_degraded(tmp_path):
         assert h["status"] == "degraded" and h["degrade_reasons"] == {"step_timeout": 1}
     finally:
         api.stop(srv)
+
+
+# --- distributed.initialize: init_distributed's retry and backoff (the port
+# of tests/test_faults.py:114-140, on torch.distributed.init_process_group) ---
+
+def _fake_init(monkeypatch):
+    import torch.distributed as dist
+
+    from dllama_tpu_torch.parallel import distributed
+    calls = []
+    monkeypatch.setattr(dist, "init_process_group", lambda *a, **kw: calls.append((a, kw)))
+    monkeypatch.setattr(distributed, "_GROUP", None)
+    return calls
+
+
+def test_init_distributed_retries_through_injected_failures(monkeypatch):
+    import time
+
+    from dllama_tpu_torch.parallel import distributed
+    calls = _fake_init(monkeypatch)
+    with faults.injected("distributed.initialize=raise:ConnectionErrorx2"):
+        t0 = time.monotonic()
+        assert distributed.init_distributed("127.0.0.1:1234", 2, 1,
+                                            max_retries=5, backoff=0.01) == 1
+        (f,) = faults.FAULTS.snapshot()
+    assert f.fired == 2          # two coordinator failures before success
+    assert len(calls) == 1       # the real init reached exactly once
+    assert time.monotonic() - t0 >= 0.01 + 0.02  # exponential backoff slept
+    (args, kw), = calls
+    assert args == ("gloo",) and kw["init_method"] == "tcp://127.0.0.1:1234"
+    assert (kw["world_size"], kw["rank"]) == (2, 1)
+    g = distributed.current_group()
+    assert (g.index, g.count) == (1, 2) and not distributed.is_output_process()
+
+
+def test_init_distributed_gives_up_after_max_retries(monkeypatch):
+    from dllama_tpu_torch.parallel import distributed
+    calls = _fake_init(monkeypatch)
+    with faults.injected("distributed.initialize=raise:ConnectionError"):
+        with pytest.raises(ConnectionError):
+            distributed.init_distributed("127.0.0.1:1234", 2, 0,
+                                         max_retries=1, backoff=0.01)
+    assert calls == []  # every attempt failed at the (injected) connect
+    assert distributed.current_group() is None and distributed.is_output_process()
+
+
+def test_init_distributed_bad_args_never_retry(monkeypatch):
+    import time
+
+    from dllama_tpu_torch.parallel import distributed
+    calls = _fake_init(monkeypatch)
+    t0 = time.monotonic()
+    with pytest.raises(ValueError, match="--proc-id"):
+        distributed.init_distributed("127.0.0.1:1234", 2, None, backoff=5.0)
+    assert time.monotonic() - t0 < 1.0  # fail-fast, no backoff sleep
+    assert calls == []
+
+
+def test_init_distributed_reads_the_environment_field_by_field(monkeypatch):
+    """Flags win per field; the DLLAMA_* variables fill the gaps (the JAX
+    package's ``distributed_env`` contract)."""
+    from dllama_tpu.parallel.distributed import distributed_env as jenv
+    from dllama_tpu_torch.parallel import distributed
+    calls = _fake_init(monkeypatch)
+    monkeypatch.setenv("DLLAMA_COORDINATOR", "10.0.0.1:5000")
+    monkeypatch.setenv("DLLAMA_NPROC", "4")
+    monkeypatch.setenv("DLLAMA_PROC_ID", "3")
+    assert distributed.distributed_env() == jenv() == ("10.0.0.1:5000", 4, 3)
+    assert distributed.init_distributed(None, None, 2) == 2
+    kw = calls[0][1]
+    assert (kw["init_method"], kw["world_size"], kw["rank"]) == ("tcp://10.0.0.1:5000", 4, 2)

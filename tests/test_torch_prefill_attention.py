@@ -25,6 +25,10 @@ version at page sizes 4, 16, 24 and 100, so the index arithmetic the card
 runs is checked here too.
 """
 
+import os
+import subprocess
+import sys
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -40,6 +44,7 @@ from dllama_tpu_torch.models import config as tconfig, params as tparams
 from dllama_tpu_torch.ops import attention as ta
 from dllama_tpu_torch.runtime.engine import Engine
 from dllama_tpu_torch.runtime.scheduler import SlotScheduler
+from fixtures import REPO
 from test_torch_scheduler import _serve
 
 PS, MAXP, L = 4, 8, 2
@@ -438,7 +443,8 @@ def _kernel_walk(q, pk, pv, layer, table, pos, scales, n_sms):
     split's pages in 64-key tiles of TMA segments (a segment reads past its
     page into the pool's next rows, zeros past the pool's end; keys outside
     the page or the split masked), the online softmax with probabilities
-    rounded to the operand before PV; a group with one live split writes
+    into PV as the operand type (bf16 operands: two terms, the rounded
+    probability and its rounded remainder); a group with one live split writes
     its output, the others records that pass 2 combines.  Returns the
     output, the plan and the groups' live split counts."""
     b, hq, t, dh = q.shape
@@ -497,7 +503,11 @@ def _kernel_walk(q, pk, pv, layer, table, pos, scales, n_sms):
                         al = torch.exp(m - mn)
                         pr = torch.exp(s - mn[:, None])
                         l = l * al + pr.sum(1)
-                        acc = acc * al[:, None] + pr.to(op).float() @ vt
+                        hi = pr.to(op).float()
+                        pv_ = hi @ vt
+                        if op == torch.bfloat16:
+                            pv_ = pv_ + (pr - hi).to(op).float() @ vt
+                        acc = acc * al[:, None] + pv_
                         m = mn
                     recs.append((acc, m, l))
                 mx = torch.stack([x[1] for x in recs]).amax(0)
@@ -532,8 +542,9 @@ def _pool_case(codec, b, hkv, g, t, ps, maxp, seed, dh=64):
                          ids=["ps4", "ps16-2groups", "ps24", "ps100-2groups"])
 def test_kernel_walk_matches_the_plain_version(codec, ps, maxp, g, t):
     """The transcribed walk against the plain version, each query row within
-    ATTN_TOL (1e-2) of its own max|plain| (bf16 and int8: the probabilities
-    round before their normalization, as on the card) or 1e-5 (f32), at
+    ATTN_TOL (1e-2) of its own max|plain| (bf16 and int8: the plain
+    version rounds the normalized probabilities, the card carries them as
+    two bf16 terms) or 1e-5 (f32), at
     page sizes whose tiles hold 8, 4 or 2 pages or a 64-row slice of one,
     with rows split several ways (a grid of a few blocks on 132 SMs) and
     with two row groups."""
@@ -545,3 +556,17 @@ def test_kernel_walk_matches_the_plain_version(codec, ps, maxp, g, t):
         mag = ref.float().abs().amax(-1)
         assert bool((diff <= (1e-5 if codec == "f32" else 1e-2) * mag).all())
     assert max(counts) > 1 or plan.groups > 1
+
+
+def test_rounding_script_needs_the_card():
+    """``chip_prefill_rounding.py`` (kernel 8 against an f64 reference over
+    draws of scratch page 0) exits non-zero and prints no table without a
+    CUDA card."""
+    env = {k: v for k, v in os.environ.items() if k != "CUDA_VISIBLE_DEVICES"}
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    r = subprocess.run([sys.executable, os.path.join(REPO, "chip_prefill_rounding.py"),
+                        "--repeats", "1"], cwd=REPO, env=env, capture_output=True,
+                       text=True, timeout=120)
+    assert r.returncode != 0
+    assert "needs a CUDA card" in r.stderr
+    assert "max kernel-plain" not in r.stdout
