@@ -192,7 +192,8 @@ Phases (each prints its seconds; any failure exits non-zero):
    decode-route MoE FFN (1 and 3 tokens) under
    ``torch.cuda.set_sync_debug_mode("error")``, so the experts chosen on
    the card are never read by the host, against its plain version; then
-   the API server as in phase 7 with 8 requests.
+   the API server as in phase 7 with 8 requests, on phase 11's weights
+   (as 6s's Mixtral server: one read of the file).
 12. MoE kernels against plain versions end to end: Mixtral width cut to 2
    layers, Q40 and Q80, the phase-5 and phase-8 checks (batch-1 and slot
    paths, both MoE routes: all experts for the prompt, the selected ones
@@ -427,9 +428,35 @@ Phases (each prints its seconds; any failure exits non-zero):
    their sum as ``pod_children``, beside the main path's ``launches``).
    ``--only 23d`` runs it alone.
 
+26. the mesh's other axes, every rank on cuda:0 (the ranks run one after
+   another, so no time here is a speed result; each case prints its
+   kernels' launches a single-token forward, 0 plain calls, eager ms/token
+   and peak device memory beside the one-rank run's).  26a ``generate --sp
+   2`` at Llama-2-7B width, CUT_LAYERS layers (2048 positions a shard): a
+   64-token prompt through the ring prefill (one ring a layer), then on its
+   engine a 20-token second turn (the window written over the shards at pos
+   > 0, the one-round combine) and 32 tokens each turn (kernel 4 once a
+   layer a forward, over the sp group); greedy bytes against sp = 1's
+   (equal, or a divergence at a near tie: NEAR_TIE of max, printed).  26b
+   Mixtral-8x7B Q40 at MIXTRAL_LAYERS layers: ``generate`` at ep = 1, ``--ep
+   2`` and ``--ep 2 --workers tpu:2``: ep = 2's greedy bytes equal ep = 1's,
+   a single-token forward launches the matmul kernel as often and at the
+   same shapes as ep = 1's (a non-owner launches nothing; the shards share
+   the attention) with 3·k·L kernel-4 sums, the ranks hold the model's
+   expert bytes once and share every other leaf; ep = 2 x tp = 2 equal or
+   a near tie; the 8-slot server at ``--ep 2`` (built on the CLI engine's
+   weights) answers two released bursts of 8 greedy requests as the ep = 1
+   server does, kernels 7 and 8 n_layers times a single-token and a mixed
+   forward, 0 plain; then a 2-layer Mixtral-width Q80 file the same way
+   (kernel 6 on the owners), without the server.  26c ``batch --dp 2`` of
+   4 prompts at Llama-2-7B width, CUT_LAYERS layers, against dp = 1: each
+   stream equal, or a divergence at a near tie.
+
 They run in the order 1, 2, 2v, 13, 9, 6, 6c, 16, 16b, 3, 3v, 17, 25, 4, 24, 5, 8, 15, 20b,
-18, 7, 20, 3q, 21, 22, 23 (a, c, b, d), 14, 6s (7B width), 6s (Dh 96), 10, 11, 6s (Mixtral),
-12, 19; each
+18, 7, 20, 3q, 21, 22, 23 (a, c, b, d), 14, 6s (7B width), 26a, 26c, 6s (Dh 96), 10, 11,
+6s (Mixtral), 26b, 12 (26b's Q80 case on its Q80 weights), 19.  The servers of phases 7,
+7b and 20 share one read of the 7B-width file's weights, 6s's three 7B servers another,
+and 11b and 6s's Mixtral server phase 11's (each server with caches of its own); each
 synthesized model is deleted
 when its phases end.  The script prints its whole time on its last line but
 two.
@@ -2151,7 +2178,7 @@ def controlled_burst(sched, state, base: str, reqs: list, overlap: bool) -> dict
 
 def serve_path(api, attention, q40, m: str, t: str, n_requests: int,
                extra: list[str], profile: bool, blocked: bool = False,
-               tp: int = 1, repeat: bool = False) -> dict:
+               tp: int = 1, repeat: bool = False, stack=None) -> dict:
     """Phase 7, one pass; returns its numbers.  ``blocked``: the weights are
     in the blocked layout, so every Q40 launch must be kernel 3's.  ``tp``
     > 1 (phase 18, ``--workers`` in ``extra``): kernel 7 runs on every
@@ -2162,14 +2189,16 @@ def serve_path(api, attention, q40, m: str, t: str, n_requests: int,
     burst's co-scheduling depends on timing, and a decode row that rides
     a mixed prefill step takes the tensor-core body, whose sums differ in
     the last bits from the decode body's: a burst repeated with other
-    timing may pick another greedy token at a near tie.)"""
+    timing may pick another greedy token at a near tie.)  ``stack``, an
+    ``(engine, tokenizer)`` of ``m`` loaded before, gives the server its
+    weights (``api.start``) instead of a read of its own."""
     # a previous pass's server can linger in reference cycles: free it
     # before the peak-memory reading starts
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t_load = time.perf_counter()
-    server = api.start(["--model", m, "--tokenizer", t, *SERVE_ARGS, *extra])
+    server = api.start(["--model", m, "--tokenizer", t, *SERVE_ARGS, *extra], stack=stack)
     print(f"server up in {time.perf_counter() - t_load:.1f} s")
     try:
         state = server.state
@@ -2321,7 +2350,7 @@ WIDE_GREEDY = 8
 
 
 def wide_serving(api, engine_mod, attention, m: str, t: str, extra: list[str], width: int,
-                 label: str) -> dict:
+                 label: str, stack=None) -> dict:
     """Phase 6s, one configuration: the API server on ``m`` with phase 7's
     arguments and ``extra`` answers four greedy requests released together
     (prompts of WIDE_PROMPTS characters): every answer 200, every mixed
@@ -2341,7 +2370,7 @@ def wide_serving(api, engine_mod, attention, m: str, t: str, extra: list[str], w
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    server = api.start(["--model", m, "--tokenizer", t, *SERVE_ARGS, *extra])
+    server = api.start(["--model", m, "--tokenizer", t, *SERVE_ARGS, *extra], stack=stack)
     out = {}
     try:
         state = server.state
@@ -2547,18 +2576,19 @@ def scoring_forward(eng, q40, seed: int = 20) -> dict:
                 score_peak_bytes=peak, score_extra_bytes=peak - resident)
 
 
-def openai_surface(api, q40, m: str, t: str) -> dict:
+def openai_surface(api, q40, m: str, t: str, stack=None) -> dict:
     """Phase 20: the API server at Llama-2-7B width on contiguous
     slot rows (``--batch-slots 8 --kv-pages 0``): list prompts, chat
     ``n = 4``, ``logprobs`` with ``echo``, a streamed list prompt,
     ``/metrics`` in both formats and the ``/debug`` routes, with the Q40
     counters set to 0 before the requests and read after them; then the
-    scoring forward alone (:func:`scoring_forward`)."""
+    scoring forward alone (:func:`scoring_forward`).  ``stack`` as
+    :func:`serve_path`'s."""
     from dllama_tpu_torch.tokenizer.chat import ChatItem
     gc.collect()
     torch.cuda.empty_cache()
     t_load = time.perf_counter()
-    server = api.start(["--model", m, "--tokenizer", t, *SURFACE_ARGS])
+    server = api.start(["--model", m, "--tokenizer", t, *SURFACE_ARGS], stack=stack)
     print(f"server up in {time.perf_counter() - t_load:.1f} s")
     try:
         state = server.state
@@ -5558,6 +5588,431 @@ def fleet_elastic(cli, pod_mod, obs_metrics, tok, m8: str, t: str, card: str) ->
         pod.stop()
 
 
+# phase 26: the mesh's sequence-, expert- and data-parallel axes, every rank
+# on cuda:0 (the ranks run one after another: no speed result)
+SP_PROMPT = 64     # 26a's first turn, in tokens (BOS included): the ring prefill
+SP_TURN = 20       # its second turn: the continuation at pos > 0
+SP_NEW = 32        # tokens each turn generates
+AXES_TIMED = 8     # eager single-token forwards timed a case
+AXES_DEVICE = "cuda:0"  # every rank's card
+EP_PROMPT_TOKENS = 24
+EP_NEW = 32
+
+
+def _axes_counters(q40, q8, attention) -> dict:
+    return {"q40": q40.counters(), "q8": q8.counters(), "attn": attention.counters()}
+
+
+def axes_run(cli, q40, q8, attention, argv: list[str], label: str) -> dict:
+    """One CLI command of phase 26 in-process, every counter 0 just before
+    it and read just after: its engine, text (the lines that are not 💡 or
+    ⚠️), counters, the peak device memory it added (above what the runs
+    before it still hold) and seconds.  Raises on a plain call
+    of any kernel (matmuls, kernel 4, kernels 7 and 8)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    for mod in (q40, q8, attention):
+        mod.reset_counters()
+    t0 = time.perf_counter()
+    eng, out = run_cli(cli, argv)
+    secs = time.perf_counter() - t0
+    c = _axes_counters(q40, q8, attention)
+    plain = (c["q40"]["plain_calls"], c["q8"]["plain_calls"], c["q40"]["allreduce_plain_calls"],
+             c["attn"]["plain_calls"], c["attn"]["prefill_plain_calls"])
+    if any(plain):
+        raise AssertionError(f"{label}: plain calls on the card {plain}: {c}")
+    if not torch.isfinite(eng.last_logits).all():
+        raise AssertionError(f"{label}: non-finite logits")
+    text = [ln for ln in out.splitlines() if not ln.startswith(("💡", "⚠️"))]
+    peak = torch.cuda.max_memory_allocated() - base
+    print(f"{label}: {secs:.1f} s, peak device memory {peak / 2**30:.2f} GiB above the "
+          f"{base / 2**30:.2f} GiB held before; {out.splitlines()[-1]}")
+    return dict(engine=eng, text=text, counts=c, peak=peak, s=secs,
+                mesh=next(ln for ln in out.splitlines() if ln.startswith("💡 mesh")))
+
+
+def forward_launches(eng, codec, q40, label: str) -> dict:
+    """A single-token forward's launches (the matmul codec's by shape,
+    kernel 4), 0 plain calls, then the eager ms of ``AXES_TIMED`` more."""
+    codec.reset_counters()
+    q40.reset_counters()
+    eng.decode_one(5)
+    torch.cuda.synchronize()
+    c, a = codec.counters(), q40.counters()
+    if c["plain_calls"] or a["allreduce_plain_calls"]:
+        raise AssertionError(f"{label}: a single-token forward left a kernel: {c} {a}")
+    t0 = time.perf_counter()
+    for _ in range(AXES_TIMED):
+        eng.decode_one(5)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / AXES_TIMED
+    out = dict(kernel=c["kernel_launches"], mma=c["mma_launches"],
+               allreduce=a["allreduce_launches"], plain=0,
+               by_shape=dict(c["launches_by_shape"]), ms=ms)
+    print(f"{label}: a single-token forward {out['kernel']} matmul launches "
+          f"({out['mma']} tensor-core), {out['allreduce']} kernel-4 launches, 0 plain; "
+          f"{ms:.2f} ms a token (eager, {eng.batch} row(s))")
+    return out
+
+
+def _tally(total: dict, c: dict) -> None:
+    """Add a run's launches to phase 26's totals (the kernel line's
+    ``mesh_axes``)."""
+    for codec in ("q40", "q8"):
+        for key, n in c[codec]["launches_by_shape"].items():
+            total[codec][key] = total[codec].get(key, 0) + n
+    total["allreduce"] += c["q40"]["allreduce_launches"]
+    total["attn"] += c["attn"]["kernel_launches"]
+    total["prefill"] += c["attn"]["prefill_launches"]
+
+
+def _spy(module, name: str, calls: list):
+    """Count calls of ``module.name`` (restored by the returned undo)."""
+    real = getattr(module, name)
+    setattr(module, name, lambda *a, **k: calls.append(name) or real(*a, **k))
+    return lambda: setattr(module, name, real)
+
+
+def _greedy_ids(eng, ids: list[int], new: int, eos: tuple) -> list[int]:
+    """The generated ids of a greedy stream of ``ids`` from position 0 (the
+    CLI's ``generate`` run again on its engine)."""
+    eng.reset()
+    return [tk for tk, _ in eng.generate_stream(ids, len(ids) + new, temperature=0.0,
+                                                eos_ids=eos)][len(ids):]
+
+
+def sp_path(cli, transformer, q40, q8, attention, tok, m: str, t: str, total: dict) -> dict:
+    """26a: ``generate --sp 2 --device cuda:0`` at Llama-2-7B width,
+    CUT_LAYERS layers: a SP_PROMPT-token prompt (the ring prefill, one
+    ring a layer), then on the same engine a SP_TURN-token second turn (the
+    window written over the shards at pos > 0, the one-round combine) and
+    its SP_NEW tokens (the combine, kernel 4 once a layer); greedy bytes
+    and tokens against the sp = 1 run of the same file (equal, or a
+    divergence at a near tie, printed)."""
+    L = CUT_LAYERS
+    prompt = _equal_token_prompts(tok, 1, SP_PROMPT, seed=26)[0]
+    ids = tok.encode(prompt, add_bos=True)
+    turn = tok.encode(_equal_token_prompts(tok, 1, SP_TURN + 1, seed=27)[0], add_bos=True)[1:]
+    eos = (tok.eos_id,)
+    runs = {}
+    for sp in (1, 2):
+        calls: list = []
+        undo = [_spy(transformer, n, calls) for n in ("ring_attention", "sp_gqa_attention")]
+        try:
+            r = axes_run(cli, q40, q8, attention,
+                         ["generate", "--model", m, "--tokenizer", t, "--prompt", prompt,
+                          "--steps", str(SP_PROMPT + SP_NEW), "--temperature", "0",
+                          "--device", AXES_DEVICE, "--sp", str(sp)], f"26a sp={sp} generate")
+            eng = r["engine"]
+            rings, combines, fwd = calls.count("ring_attention"), len(calls), eng.forwards
+            r["gen"] = _greedy_ids(eng, ids, SP_NEW, eos)  # the CLI's stream, as ids
+            q40.reset_counters()
+            p0 = eng.pos
+            r["turn"] = [tk for tk, _ in eng.generate_stream(
+                turn, len(turn) + SP_NEW, temperature=0.0, seed=None)][len(turn):]
+            torch.cuda.synchronize()
+            turn_ar = q40.counters()["allreduce_launches"]
+            _tally(total, r["counts"])
+        finally:
+            for u in undo:
+                u()
+        if sp > 1:
+            # the prompt: a ring a layer; every later forward: a combine a layer
+            if eng.sp != 2 or rings != L or combines - rings != L * (fwd - 1):
+                raise AssertionError(f"26a: {rings} rings and {combines - rings} combines "
+                                     f"over {fwd} forwards, want {L} and {L * (fwd - 1)}")
+            shards = [c.k.shape[3] for c in eng.cache.ranks]
+            if shards != [LLAMA2_7B["seq_len"] // 2] * 2:
+                raise AssertionError(f"26a: the shards' caches hold {shards} positions")
+            if turn_ar != L * SP_NEW:
+                raise AssertionError(f"26a: kernel 4 launched {turn_ar} times in the second "
+                                     f"turn, want {L * SP_NEW} (a combine a layer a forward)")
+            print(f"26a sp=2: the {SP_PROMPT}-token prompt took the ring ({rings} rings), "
+                  f"{combines - rings} one-round combines after it over {fwd - 1} forwards; "
+                  f"the second turn's window of {len(turn)} written over the shards at pos "
+                  f"{p0}; kernel 4 {turn_ar} launches in that turn ({L} a forward)")
+        r["fwd"] = forward_launches(eng, q40, q40, f"26a sp={sp}")
+        runs[sp] = r
+    one, two = runs[1], runs[2]
+    if two["fwd"]["kernel"] != one["fwd"]["kernel"] or two["fwd"]["allreduce"] != L:
+        raise AssertionError(f"26a: a decode forward's launches {two['fwd']} against sp=1's "
+                             f"{one['fwd']} (want the same matmuls, {L} kernel-4 launches)")
+    e1 = one["engine"]
+    gaps = [first_gap(e1, ids, one["gen"], two["gen"], "26a first turn")]
+    if two["gen"] == one["gen"]:
+        gaps.append(first_gap(e1, ids + one["gen"] + turn, one["turn"], two["turn"],
+                              "26a second turn"))
+    if (two["text"] == one["text"]) != (two["gen"] == one["gen"]):
+        raise AssertionError(f"26a: the CLI's texts and the repeated streams disagree: "
+                             f"{one['text']!r} {two['text']!r}")
+    for g in filter(None, gaps):
+        print(g)
+    print(f"26a sp=2 against sp=1 (7B width, {L} layers): greedy bytes "
+          f"{'equal' if not any(gaps) else 'equal up to a near tie'} over both turns "
+          f"({SP_NEW} + {SP_NEW} tokens); ms/token {two['fwd']['ms']:.2f} against "
+          f"{one['fwd']['ms']:.2f} (eager, two ranks on one card in turn); peak device "
+          f"memory {two['peak'] / 2**30:.2f} GiB against {one['peak'] / 2**30:.2f} GiB")
+    out = {f"sp{sp}": {k: v for k, v in r.items() if k not in ("engine", "counts")}
+           for sp, r in runs.items()}
+    out["gaps"] = [g for g in gaps if g]
+    del runs, one, two, e1
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _distinct_bytes(placed, keys) -> int:
+    """The bytes of the distinct tensors the ranks of ``placed`` hold
+    under ``keys`` (a tensor two ranks share counts once)."""
+    seen = {}
+    for p in placed.ranks:
+        for k in keys:
+            v = p[k]
+            for a in ((v.qpacked, v.scales) if hasattr(v, "qpacked") else (v,)):
+                seen[a.data_ptr()] = a.numel() * a.element_size()
+    return sum(seen.values())
+
+
+def ep_serving(api, attention, q40, tok, m: str, t: str, stack, label: str) -> dict:
+    """26b's server: 8 greedy requests (phase 7's mix) released at once on
+    8 slots: every answer 200, kernel 7 n_layers times a single-token slot forward,
+    kernel 8 n_layers times a mixed one, 0 plain calls."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    server = api.start(["--model", m, "--tokenizer", t, *SERVE_ARGS,
+                        "--max-seq-len", MIXTRAL_CTX], stack=(stack, tok))
+    try:
+        state = server.state
+        eng, sched = state.batch_engine, state.scheduler
+        base = f"http://127.0.0.1:{server.server_address[1]}"
+        reqs = serving_requests(eng.batch, seed=26)
+        attention.reset_counters()
+        q40.reset_counters()
+        f0, fwd0 = eng.slot_decode_forwards, eng.forwards
+        bursts = [controlled_burst(sched, state, base, reqs, True)]
+        ac, qc = attention.counters(), q40.counters()
+        n_dec = eng.slot_decode_forwards - f0
+        n_mix = eng.forwards - fwd0 - n_dec
+        L = eng.cfg.n_layers
+        if (n_dec == 0 or ac["kernel_launches"] != L * n_dec or n_mix == 0
+                or ac["prefill_launches"] != L * n_mix or ac["plain_calls"]
+                or ac["prefill_plain_calls"] or qc["plain_calls"]
+                or qc["allreduce_plain_calls"]):
+            raise AssertionError(f"{label}: attention {ac} over {n_dec} single-token and "
+                                 f"{n_mix} mixed slot forwards; q40 {qc}")
+        if (eng.ep > 1) != bool(qc["allreduce_launches"]):
+            raise AssertionError(f"{label}: kernel 4 launches {qc['allreduce_launches']} at "
+                                 f"ep={eng.ep}")
+        print(f"{label}: 8 requests released at once, {bursts[0]['tok_s']:.2f} tok/s; "
+              f"kernel 7 {ac['kernel_launches']} launches "
+              f"over {n_dec} single-token slot forwards ({L} each), kernel 8 "
+              f"{ac['prefill_launches']} over {n_mix} mixed ones ({L} each), kernel 4 "
+              f"{qc['allreduce_launches']}, 0 plain")
+        return dict(texts=[b["texts"] for b in bursts],
+                    counts={"q40": qc, "q8": {"launches_by_shape": {}}, "attn": ac},
+                    tok_s=[b["tok_s"] for b in bursts])
+    finally:
+        api.stop(server)
+        del server
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def built_run(make, ids: list[int], new: int, eos: tuple, q40, q8, attention,
+              label: str) -> dict:
+    """A comparison run of phase 26 on an Engine built from params read
+    before (``make()``), counters 0 just before it: its greedy ids,
+    counters, the peak device memory it added and its seconds."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    for mod in (q40, q8, attention):
+        mod.reset_counters()
+    t0 = time.perf_counter()
+    eng = make()
+    gen = _greedy_ids(eng, ids, new, eos)
+    torch.cuda.synchronize()
+    c = _axes_counters(q40, q8, attention)
+    if c["q40"]["plain_calls"] or c["q8"]["plain_calls"] or c["q40"]["allreduce_plain_calls"]:
+        raise AssertionError(f"{label}: plain calls on the card: {c}")
+    out = dict(engine=eng, gen=gen, counts=c, peak=torch.cuda.max_memory_allocated() - base,
+               s=time.perf_counter() - t0)
+    print(f"{label}: {out['s']:.1f} s, peak device memory {out['peak'] / 2**30:.2f} GiB "
+          f"above the {base / 2**30:.2f} GiB held before")
+    return out
+
+
+def _joined_experts(placed, sharding) -> dict:
+    """The whole params of an ep mesh's tp = 1 engine: its expert shards
+    joined on the card (the file's stacks, byte for byte), every other
+    leaf the one the ranks share."""
+    mesh = placed.mesh
+    out = dict(placed.ranks[0])
+    for key in sharding.EXPERT_KEYS:
+        shards = [placed.ranks[mesh.local(mesh.rank(e=e))][key] for e in range(mesh.ep)]
+        v = shards[0]
+        out[key] = (type(v)(torch.cat([x.qpacked for x in shards], 1),
+                            torch.cat([x.scales for x in shards], 1), v.logical_nd)
+                    if hasattr(v, "qpacked") else torch.cat(shards, 1))
+    return out
+
+
+def ep_path(cli, api, sharding, engine_mod, mesh_mod, q40, q8, attention, tok, m: str,
+            t: str, total: dict, label: str, codec, loaded=None) -> dict:
+    """26b on the Mixtral-width file ``m``.  Without ``loaded``: ``generate
+    --ep 2 --device cuda:0`` through the CLI, then on the same weights (its
+    expert shards joined on the card) an ep = 1 engine and an ep = 2 x tp =
+    2 one, and the 8-slot servers at ep = 1 and ep = 2.  With ``loaded``,
+    ``(cfg, params)`` of ``m`` another phase read: engines at ep = 1 and ep
+    = 2 on them.  ep = 2's greedy ids equal ep = 1's (the owner's product
+    plus exact zeros is the owner's product); its single-token forward
+    launches the matmul kernel exactly as often, at the same shapes, as ep
+    = 1's (the shards share the attention; a non-owner launches nothing),
+    with 3·k·L kernel-4 sums; its ranks hold the model's expert bytes once
+    and share every other leaf; ep = 2 x tp = 2 equal or a divergence at a
+    near tie; the ep = 2 server answers the ep = 1 server's text."""
+    prompt = _equal_token_prompts(tok, 1, EP_PROMPT_TOKENS, seed=28)[0]
+    ids, eos = tok.encode(prompt, add_bos=True), (tok.eos_id,)
+    seq = int(MIXTRAL_CTX)
+
+    def engine(params, cfg, **kw):
+        return lambda: engine_mod.Engine(cfg, params, seq_len=seq, device=AXES_DEVICE, **kw)
+
+    runs = {}
+    if loaded is None:
+        argv = ["generate", "--model", m, "--tokenizer", t, "--prompt", prompt,
+                "--steps", str(EP_PROMPT_TOKENS + EP_NEW), "--temperature", "0",
+                "--device", AXES_DEVICE, "--max-seq-len", MIXTRAL_CTX, "--ep", "2"]
+        runs["ep2"] = axes_run(cli, q40, q8, attention, argv, f"26b {label} ep2 (CLI)")
+        e2 = runs["ep2"]["engine"]
+        runs["ep2"]["gen"] = _greedy_ids(e2, ids, EP_NEW, eos)  # the CLI's stream, as ids
+        cfg, params = e2.cfg, _joined_experts(e2.params, sharding)
+        runs["ep1"] = built_run(engine(params, cfg), ids, EP_NEW, eos, q40, q8, attention,
+                                f"26b {label} ep1")
+        runs["ep2tp2"] = built_run(engine(params, cfg,
+                                          mesh=mesh_mod.make_mesh(2, AXES_DEVICE, ep=2)),
+                                   ids, EP_NEW, eos, q40, q8, attention,
+                                   f"26b {label} ep2 x tp2")
+    else:
+        cfg, params = loaded
+        runs["ep1"] = built_run(engine(params, cfg), ids, EP_NEW, eos, q40, q8, attention,
+                                f"26b {label} ep1")
+        runs["ep2"] = built_run(engine(params, cfg,
+                                       mesh=mesh_mod.make_mesh(1, AXES_DEVICE, ep=2)),
+                                ids, EP_NEW, eos, q40, q8, attention, f"26b {label} ep2")
+        e2 = runs["ep2"]["engine"]
+    del params
+    for name, r in runs.items():
+        _tally(total, r["counts"])
+        r["fwd"] = forward_launches(r["engine"], codec, q40, f"26b {label} {name}")
+    e1 = runs["ep1"]["engine"]
+    L, k = e1.cfg.n_layers, e1.cfg.n_active_experts
+    if runs["ep2"]["gen"] != runs["ep1"]["gen"]:
+        raise AssertionError(f"26b {label}: ep=2's greedy ids {runs['ep2']['gen']} != ep=1's "
+                             f"{runs['ep1']['gen']}")
+    f1, f2 = runs["ep1"]["fwd"], runs["ep2"]["fwd"]
+    if f2["kernel"] != f1["kernel"] or f2["by_shape"] != f1["by_shape"] \
+            or f2["allreduce"] != 3 * k * L:
+        raise AssertionError(f"26b {label}: a decode forward at ep=2 {f2} against ep=1's "
+                             f"{f1}: want the same launches by shape and {3 * k * L} "
+                             f"kernel-4 sums")
+    experts = _distinct_bytes(e2.params, sharding.EXPERT_KEYS)
+    whole = sum(a.numel() * a.element_size() for key in sharding.EXPERT_KEYS
+                for a in (e1.params[key].qpacked, e1.params[key].scales))
+    if experts != whole or any(p[key] is not e2.params.ranks[0][key]
+                               for p in e2.params.ranks for key in p
+                               if key not in sharding.EXPERT_KEYS):
+        raise AssertionError(f"26b {label}: the ep=2 ranks hold {experts} expert bytes "
+                             f"against ep=1's {whole}, or a copy of a shared leaf")
+    gap = ""
+    if "ep2tp2" in runs:
+        gap = first_gap(e1, ids, runs["ep1"]["gen"], runs["ep2tp2"]["gen"],
+                        f"26b {label} ep=2 x tp=2")
+        if gap:
+            print(gap)
+        runs["ep2tp2"].pop("engine")
+        gc.collect()
+        torch.cuda.empty_cache()
+    tp2 = "ep2tp2" in runs
+    print(f"26b {label}: ep=2 greedy bytes equal ep=1's ({EP_NEW} tokens); a decode forward "
+          f"{f2['kernel']} matmul launches at ep=2 and at ep=1 ({f2['allreduce']} kernel-4 "
+          f"sums at ep=2); ms/token ep=1 {f1['ms']:.2f}, ep=2 {f2['ms']:.2f}"
+          + (f", ep=2 x tp=2 {runs['ep2tp2']['fwd']['ms']:.2f}" if tp2 else "")
+          + f" (eager); peak device memory ep=1 {runs['ep1']['peak'] / 2**30:.2f}, ep=2 "
+          f"{runs['ep2']['peak'] / 2**30:.2f}"
+          + (f", ep=2 x tp=2 {runs['ep2tp2']['peak'] / 2**30:.2f}" if tp2 else "")
+          + f" GiB (each above what the runs before it held); expert bytes "
+          f"{experts / 2**30:.2f} GiB at both")
+    out = {n: {key: v for key, v in r.items() if key not in ("engine", "counts")}
+           for n, r in runs.items()}
+    out["ep2tp2_gap"] = gap
+    if loaded is None:
+        served = {}
+        for name, eng in (("ep1", e1), ("ep2", e2)):
+            served[name] = ep_serving(api, attention, q40, tok, m, t, eng,
+                                      f"26b {label} server {name}")
+            _tally(total, served[name]["counts"])
+        if served["ep2"]["texts"] != served["ep1"]["texts"]:
+            raise AssertionError(f"26b {label}: the ep=2 server answered otherwise than ep=1's")
+        print(f"26b {label}: the ep=2 server's greedy answers equal the ep=1 server's")
+        out["served"] = {n: s_["tok_s"] for n, s_ in served.items()}
+    del runs, e1, e2
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def dp_path(cli, q40, q8, attention, tok, m: str, t: str, total: dict) -> dict:
+    """26c: ``batch`` of 4 distinct prompts at Llama-2-7B width, CUT_LAYERS
+    layers, at dp = 1 and ``--dp 2`` (two rows a data group): each stream
+    equal, or diverging only at a near tie (phase 22's rule on the dp = 1
+    engine)."""
+    prompts = batch_prompts(4, seed=29)
+    pf = os.path.join(WORK, "dp_prompts.txt")
+    with open(pf, "w") as f:
+        f.write("\n".join(prompts) + "\n")
+    argv = ["batch", "--model", m, "--tokenizer", t, "--prompts-file", pf, "--steps", "48",
+            "--temperature", "0", "--device", AXES_DEVICE]
+    runs = {}
+    for dp in (1, 2):
+        r = axes_run(cli, q40, q8, attention, argv + ["--dp", str(dp)], f"26c dp={dp} batch")
+        _tally(total, r["counts"])
+        if r["engine"].dp != dp or (dp > 1 and r["mesh"] != "💡 mesh: dp=2"):
+            raise AssertionError(f"26c: {r['mesh']} at dp={dp}")
+        r["streams"] = [ln for ln in r["text"] if not ln.startswith(("Generated", "Batched"))]
+        r["fwd"] = forward_launches(r["engine"], q40, q40, f"26c dp={dp}")
+        runs[dp] = r
+    one, two = runs[1], runs[2]
+    gaps = []
+    if two["streams"] != one["streams"]:
+        ids = [tok.encode(p, add_bos=True) for p in prompts]
+        want = one["engine"].generate_batch(ids, 48)
+        got = two["engine"].generate_batch(ids, 48)
+        one["engine"].reset()
+        solo = cli.Engine(one["engine"].cfg, one["engine"].params, device=one["engine"].device)
+        for r_, (i, w, g) in enumerate(zip(ids, want, got)):
+            gaps.append(first_gap(solo, i, w[len(i):], g[len(i):], f"26c stream {r_}"))
+        del solo
+        for g in gaps:
+            if g:
+                print(g)
+    print(f"26c dp=2 against dp=1 (7B width, {CUT_LAYERS} layers, 4 prompts): streams "
+          f"{'equal byte for byte' if not any(gaps) else 'equal up to near ties'}; a "
+          f"single-token forward {two['fwd']['kernel']} matmul launches (two groups) against "
+          f"{one['fwd']['kernel']}; ms/token {two['fwd']['ms']:.2f} against "
+          f"{one['fwd']['ms']:.2f} (eager, 4 rows); peak device memory "
+          f"{two['peak'] / 2**30:.2f} GiB against {one['peak'] / 2**30:.2f} GiB")
+    out = {f"dp{dp}": {k: v for k, v in r.items() if k not in ("engine", "counts")}
+           for dp, r in runs.items()}
+    del runs, one, two
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def pod_children(seen: dict) -> dict:
     """Phase 23d's children's launches, summed: the Q40 matmuls by shape
     for each tp, kernels 7, 8 and 4.  Each child's counters run from its
@@ -5578,13 +6033,15 @@ def pod_children(seen: dict) -> dict:
 def kernel_entries(run, run_tp, run_mix, run_blocked, run_q8, run_score, served, table,
                    tp_table, mix_table, blocked_table, q8_table, attn, attn_g4, ar_table,
                    prefill, prefill_g4, var_table, var_runs, served_wide, attn_dh, attn_g16,
-                   prefill_dh, pod, prefill_g16, ar_group, p25) -> list:
+                   prefill_dh, pod, prefill_g16, ar_group, p25, axes) -> list:
     """The ``kernels`` JSON line's entries: each kernel at the shapes of the
     phase that checked it, with the launches of the main path that ran it;
     raises when a kernel of a path was never launched there.  The rows the
     elastic pod's children ran (23d) carry their launches apart, as
-    ``pod_children``: ``pod_children(seen)``."""
-    def entries(name, src, sites, counts, mma_name=None, children=None):
+    ``pod_children``: ``pod_children(seen)``; the rows phase 26's paths ran
+    (sp, ep, dp on one card) carry theirs as ``mesh_axes`` (``axes``: its
+    launches by kernel and shape)."""
+    def entries(name, src, sites, counts, mma_name=None, children=None, by_axes=None):
         # a tensor-core row's source is the body both codecs share
         def label(r):
             return mma_name if mma_name and r["key"][0] == "mma" else name
@@ -5597,7 +6054,8 @@ def kernel_entries(run, run_tp, run_mix, run_blocked, run_q8, run_score, served,
                      bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                      library_ms=r["library_ms"],
                      **({} if children is None
-                        else {"pod_children": children.get(r["key"], 0)}))
+                        else {"pod_children": children.get(r["key"], 0)}),
+                     **({} if by_axes is None else {"mesh_axes": by_axes.get(r["key"], 0)}))
                 for (site, t), r in sites.items()]
 
     # each kernel at the shapes of the path that ran it, with that path's
@@ -5614,7 +6072,7 @@ def kernel_entries(run, run_tp, run_mix, run_blocked, run_q8, run_score, served,
     score_t = SCORE_B * SCORE_T
     tp1, tp2 = pod["q40"].get(1, {}), pod["q40"].get(2, {})
     kernels = entries("q40_matmul", SRC, {k: r for k, r in table.items() if k not in wide},
-                      run["counts"]["launches_by_shape"], children=tp1)
+                      run["counts"]["launches_by_shape"], children=tp1, by_axes=axes["q40"])
     kernels += entries("q40_matmul", SRC, {k: r for k, r in wide.items() if k[1] == score_t},
                        run_score["counts"]["launches_by_shape"], children=tp1)
     held_only = entries("q40_matmul", SRC, {k: r for k, r in wide.items() if k[1] != score_t},
@@ -5634,7 +6092,8 @@ def kernel_entries(run, run_tp, run_mix, run_blocked, run_q8, run_score, served,
         kernels += var_held
     kernels += entries("q40_matmul", SRC, tp_table, run_tp["counts"]["launches_by_shape"],
                        children=tp2)
-    kernels += entries("q40_matmul", SRC, mix_table, run_mix["counts"]["launches_by_shape"])
+    kernels += entries("q40_matmul", SRC, mix_table, run_mix["counts"]["launches_by_shape"],
+                       by_axes=axes["q40"])
     kernels += entries("q40_matmul_blocked", SRC, blocked_table,
                        run_blocked["counts"]["launches_by_shape"])
     # Q80's wcls runs one row a sequence on the Q80 path (no scoring there)
@@ -5642,7 +6101,8 @@ def kernel_entries(run, run_tp, run_mix, run_blocked, run_q8, run_score, served,
                        {k: r for k, r in q8_table.items()
                         if k[0] in {s for s, *_ in LLAMA_SITES}
                         and not (k[0] == "wcls" and k[1] > 1)},
-                       run_q8["counts"]["launches_by_shape"], mma_name="q8_matmul.wgmma")
+                       run_q8["counts"]["launches_by_shape"], mma_name="q8_matmul.wgmma",
+                       by_axes=axes["q8"])
     # kernel 7's bodies no path runs (Mixtral's shape on an f16 pool, the
     # head dims and G no served model has) are held and timed in phase 6
     # alone: launches 0
@@ -5659,7 +6119,8 @@ def kernel_entries(run, run_tp, run_mix, run_blocked, run_q8, run_score, served,
                    max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
                    bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                    library_ms=r["library_ms"],
-                   **({"pod_children": pod["attn"]} if label == "bf16" else {}))
+                   **({"pod_children": pod["attn"]} if label == "bf16" else {}),
+                   **({"mesh_axes": axes["attn"]} if label == "bf16,G=4" else {}))
               for label, r, run_ in attn_rows]
     held_only += [k for (_, _, run_), k in zip(attn_rows, attn_k) if run_ is none]
     kernels += attn_k
@@ -5688,7 +6149,8 @@ def kernel_entries(run, run_tp, run_mix, run_blocked, run_q8, run_score, served,
                   launches=run_["prefill_launches"], max_abs_err=r["max_abs_err"],
                   ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                   bound_by=r["bound_by"], library_ms=r["library_ms"],
-                  **({"pod_children": pod["prefill"]} if label == "bf16,t=16" else {}))
+                  **({"pod_children": pod["prefill"]} if label == "bf16,t=16" else {}),
+                  **({"mesh_axes": axes["prefill"]} if label == "bf16,G=4,t=16" else {}))
              for label, r, run_ in pre_rows]
     held_only += [k for (_, _, run_), k in zip(pre_rows, pre_k) if run_ is none]
     kernels += pre_k
@@ -5696,7 +6158,7 @@ def kernel_entries(run, run_tp, run_mix, run_blocked, run_q8, run_score, served,
     kernels.append(dict(name="tp_allreduce[tp=2,t=1,d=4096]", route="cuda", source=TP_SRC,
                         launches=run_tp["allreduce_launches"],
                         **{k: v for k, v in ar_table[(2, 4096, 1)].items()},
-                        pod_children=pod["allreduce"]))
+                        pod_children=pod["allreduce"], mesh_axes=axes["allreduce"]))
     # its cross-process body (phase 16b, one card in time slices) with the
     # launches of the worker path's processes (phase 25), each counted from
     # its start in its own process
@@ -5821,6 +6283,8 @@ def main() -> int:
         with phase("16b kernel 4 across two processes on cuda:0 (CUDA IPC) vs plain"):
             ar_group = allreduce_across_processes()
     served, wide = {}, {}
+    # phase 26's results and its launches (the kernel line's ``mesh_axes``)
+    p26 = {"launches": {"q40": {}, "q8": {}, "allreduce": 0, "attn": 0, "prefill": 0}}
     try:
         m, t, m2, m3, t3, m8 = (os.path.join(WORK, f) for f in (
             "llama2-7b.m", "32k.t", "l2.m", "l2-chat.m", "32k-chat.t", "l8.m"))
@@ -5829,10 +6293,21 @@ def main() -> int:
         # main path, serving, the OpenAI surface and the fleet ran at 32
         # layers until the Q80 Hopper slice cut them for the script's time)
         per_fwd = 4 * CUT_LAYERS + 1
-        if any(map(run_phase, (3, 7, 20, 23, "23d", 14, 17, 25, "3q", 21, 22, "6s"))):
+        if any(map(run_phase, (3, 7, 20, 23, "23d", 14, 17, 25, "3q", 21, 22, "6s", 26))):
             synth_model(m8, CUT_LAYERS, mfile, quants)
             print(f"synthesized {os.path.getsize(m8) / 1e9:.2f} GB (7B width, "
                   f"{CUT_LAYERS} layers)")
+        shared8: dict = {}
+
+        def stack8():
+            """The 7B-width file's weights, read once for the servers of
+            phases 7, 7b and 20, and once for 6s's (each server with caches
+            of its own)."""
+            if not shared8:
+                shared8["s"] = cli.load_stack(api.parse_args(["--model", m8, "--tokenizer", t,
+                                                              *SERVE_ARGS]))
+            return shared8["s"]
+
         if any(map(run_phase, (4, 5, 8, 15, 18, "20b", "3v", 24))):
             synth_model(m2, 2, mfile, quants, fresh=True)
         if run_phase(3):
@@ -5915,14 +6390,18 @@ def main() -> int:
             with phase(f"7 serving: API server, slot scheduler, paged KV at 7B width, "
                        f"{CUT_LAYERS} layers"):
                 served["bf16"] = serve_path(api, attention, q40, m8, t, 16, [], True,
-                                            repeat=True)
+                                            repeat=True, stack=stack8())
             with phase("7b serving with --kv-quant int8"):
                 served["int8"] = serve_path(api, attention, q40, m8, t, 8,
-                                            ["--kv-quant", "int8"], True)
+                                            ["--kv-quant", "int8"], True, stack=stack8())
         if run_phase(20):
             with phase(f"20 the OpenAI surface at Llama-2-7B width, {CUT_LAYERS} layers: list "
                        f"prompts, n, logprobs, echo, /metrics, /debug"):
-                run_score = openai_surface(api, q40, m8, t)
+                run_score = openai_surface(api, q40, m8, t, stack=stack8())
+        # the later phases read their own peak memory: free the shared weights
+        shared8.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
         if run_phase("3q"):
             with phase(f"3q main path on the int8 contiguous cache: inference "
                        f"--kv-cache-dtype q8 at Llama-2-7B width, {CUT_LAYERS} layers"):
@@ -5992,15 +6471,29 @@ def main() -> int:
                        f"{CUT_LAYERS} layers)"):
                 wide["f32"] = wide_serving(api, engine_mod, attention, m8, t,
                                            ["--kv-cache-dtype", "f32", "--kv-pages", "257"],
-                                           16, "f32 pool")
+                                           16, "f32 pool", stack=stack8())
                 wide["t256"] = wide_serving(api, engine_mod, attention, m8, t,
-                                            ["--sched-prefill-chunk", "256"], 256, "chunk 256")
+                                            ["--sched-prefill-chunk", "256"], 256, "chunk 256",
+                                            stack=stack8())
             # bf16 activations: at f16 ones the synthesized weights'
             # activations overflow f16's range (NaN logits on the kernel
             # and the plain engines alike)
             with phase(f"6s serving on an f16 pool (7B width, {CUT_LAYERS} layers)"):
                 wide["f16"] = wide_serving(api, engine_mod, attention, m8, t,
-                                           ["--kv-cache-dtype", "f16"], 16, "f16 pool")
+                                           ["--kv-cache-dtype", "f16"], 16, "f16 pool",
+                                           stack=stack8())
+        shared8.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+        if run_phase(26):
+            tok32k = Tokenizer(tfile.read_tfile(t))
+            with phase(f"26a sequence parallelism: generate --sp 2 at Llama-2-7B width, "
+                       f"{CUT_LAYERS} layers, both ranks on cuda:0"):
+                p26["sp"] = sp_path(cli, transformer, q40, q8, attention, tok32k, m8, t,
+                                    p26["launches"])
+            with phase(f"26c data parallelism: batch --dp 2 of 4 prompts at Llama-2-7B "
+                       f"width, {CUT_LAYERS} layers, both ranks on cuda:0"):
+                p26["dp"] = dp_path(cli, q40, q8, attention, tok32k, m8, t, p26["launches"])
         for f in (m, m2, m8, m8 + ".sum"):
             if os.path.exists(f):
                 os.remove(f)
@@ -6032,12 +6525,13 @@ def main() -> int:
                 torch.cuda.empty_cache()
                 os.remove(m)
         mix = {**MIXTRAL_8X7B, "n_layers": MIXTRAL_LAYERS}
-        if run_phase(11) or run_phase("6s"):
+        if run_phase(11) or run_phase("6s") or run_phase(26):
             L, E, k = MIXTRAL_LAYERS, mix["n_experts"], mix["n_active_experts"]
             per_tok, per_prefill = (2 + 3 * k) * L + 1, (2 + 3 * E) * L + 1
             synth_model(m, L, mfile, quants, dims=mix)
             print(f"synthesized {os.path.getsize(m) / 1e9:.2f} GB (Mixtral-8x7B, Q40, "
                   f"{L} layers)")
+        mix_stack = None  # phase 11's weights, which 11b and 6s serve (one read of the file)
         if run_phase(11):
             with phase(f"11 Mixtral-8x7B Q40 ({MIXTRAL_LAYERS} layers): inference"):
                 # two prefills (warmup, then the timed run) take the
@@ -6047,20 +6541,41 @@ def main() -> int:
                     lambda e: per_tok * (e.forwards - 2) + 2 * per_prefill,
                     ("--max-seq-len", MIXTRAL_CTX), keep=True)
                 moe_decode_checks(eng, transformer, q40, dev)
+                mix_stack = (eng, Tokenizer(tfile.read_tfile(t)))
                 del eng
-                torch.cuda.empty_cache()
             with phase(f"11b Mixtral-8x7B Q40 ({MIXTRAL_LAYERS} layers): serving"):
                 served["g4"] = serve_path(api, attention, q40, m, t, 8,
-                                          ["--max-seq-len", MIXTRAL_CTX], True, repeat=True)
+                                          ["--max-seq-len", MIXTRAL_CTX], True, repeat=True,
+                                          stack=mix_stack)
         if run_phase("6s"):
             with phase(f"6s serving Mixtral-8x7B ({MIXTRAL_LAYERS} layers) at a 64-token chunk "
                        f"(256 query rows a kv head)"):
                 wide["g4_t64"] = wide_serving(api, engine_mod, attention, m, t,
                                               ["--max-seq-len", MIXTRAL_CTX,
                                                "--sched-prefill-chunk", "64"], 64,
-                                              "Mixtral, chunk 64")
+                                              "Mixtral, chunk 64", stack=mix_stack)
+        mix_stack = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        if run_phase(26):
+            tok32k = Tokenizer(tfile.read_tfile(t))
+            with phase(f"26b expert parallelism: generate --ep 2 (and x tp=2) and the "
+                       f"8-slot server at --ep 2, Mixtral-8x7B Q40 ({MIXTRAL_LAYERS} layers), "
+                       f"cuda:0"):
+                p26["ep"] = ep_path(cli, api, sharding, engine_mod, mesh_mod, q40, q8,
+                                    attention, tok32k, m, t, p26["launches"], "Q40", q40)
         if os.path.exists(m):
             os.remove(m)
+        q80_ep = ("26b expert parallelism: ep = 2 against ep = 1, Mixtral-8x7B width in "
+                  "Q80 (2 layers, phase 12's weights), cuda:0")
+        if run_phase(26) and not run_phase(12):
+            with phase(q80_ep):
+                synth_model(m2, 2, mfile, quants, fresh=True,
+                            dims={**mix, "seq_len": LLAMA2_7B["seq_len"]}, ftype=quants.Q80)
+                p26["ep_q8"] = ep_path(cli, api, sharding, engine_mod, mesh_mod, q40, q8,
+                                       attention, tok32k, m2, t, p26["launches"], "Q80", q8,
+                                       loaded=load_bf16(mfile, params_mod, config, m2, dev))
+                os.remove(m2)
         if run_phase(12):
             for name, ftype in (("Q40", quants.Q40), ("Q80", quants.Q80)):
                 with phase(f"12 Mixtral width, 2 layers, {name}: kernels vs plain end to end"):
@@ -6072,9 +6587,15 @@ def main() -> int:
                     end_to_end(transformer, *small, dev, label)
                     slot_end_to_end(engine_mod, transformer, attention, *small, dev, (None,),
                                     label)
-                    del small
-                    torch.cuda.empty_cache()
-                    os.remove(m2)
+                if name == "Q80" and run_phase(26):
+                    # on phase 12's Q80 weights: no synthesis and no read of its own
+                    with phase(q80_ep):
+                        p26["ep_q8"] = ep_path(cli, api, sharding, engine_mod, mesh_mod, q40,
+                                               q8, attention, Tokenizer(tfile.read_tfile(t)),
+                                               m2, t, p26["launches"], "Q80", q8, loaded=small)
+                del small
+                torch.cuda.empty_cache()
+                os.remove(m2)
         if run_phase(19):
             # both ranks on cuda:0; with two or more cards, rank r on card r too
             meshes = [("cuda:0", mesh_mod.make_mesh(2, dev))]
@@ -6123,7 +6644,7 @@ def main() -> int:
                              table, tp_table, mix_table, blocked_table, q8_table, attn,
                              attn_g4, ar_table, prefill, prefill_g4, var_table, var_runs,
                              wide, attn_dh, attn_g16, prefill_dh, pod_children(p23d),
-                             prefill_g16, ar_group, p25)
+                             prefill_g16, ar_group, p25, p26["launches"])
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -54,9 +54,19 @@ Each process holds ``tp / N`` of the ``--workers tpu:tp`` ranks
 (``parallel/mesh.py``); only process 0 prints (the others' stdout goes to
 ``os.devnull``), and each process ends with one JSON line of its launch
 counters on stderr.  ``chat``, ``router``, ``serve-pod`` and ``--pld`` are
-refused with coordinates.  Flags of the JAX CLI outside the port
-(``--sp``, ``--ep``, ``--dp`` outside ``serve-pod``) exit with a message
-naming them as not yet ported.
+refused with coordinates.
+
+``--sp``, ``--ep`` and ``--dp`` add the JAX mesh's other axes to
+``inference``, ``generate``, ``chat`` and ``batch`` in one process
+(``parallel/mesh.py``: ``dp × sp × ep × tp`` ranks): sp cuts the KV
+cache's sequence axis (ring prefill, the one-round decode combine of
+``ops/sp_attention.py``), ep a MoE model's expert stacks (only an expert's
+owner runs it), dp the batch rows (``batch``: distinct prompts, a multiple
+of dp of them; the single-prompt modes: dp replicas of the prompt, stream
+0 printed).  What the port leaves out exits naming it as not yet ported:
+any of them over a process group, and ``--dp`` on the API server (where
+``--sp`` needs no ``--batch-slots``); ``serve-pod`` refuses ``--sp`` and
+``--ep`` as the JAX package does.
 
 ``python -m dllama_tpu_torch inference --model m.m --tokenizer t.t``
 """
@@ -79,7 +89,7 @@ from .models.params import load_params, load_placed
 from .ops import q8, q40
 from .parallel import distributed
 from .parallel.mesh import check_split, parse_workers, workers_tp
-from .parallel.sharding import check_tp_constraint
+from .parallel.sharding import check_ep_constraint, check_tp_constraint
 from .runtime.engine import Engine, RunStats
 from .runtime.stream import drain_generation
 from .tokenizer.bpe import Tokenizer
@@ -291,10 +301,26 @@ def build_parser() -> argparse.ArgumentParser:
                    help="router: auto resumes greedy streams on a peer after a "
                         "mid-stream loss (sampled ones end replica_lost); never "
                         "turns resume off.  Per request: the body's resume_policy")
+    p.add_argument("--sp", type=int, default=1,
+                   help="sequence-parallel degree: shards the KV cache's "
+                        "sequence axis over the mesh for long context "
+                        "(beyond-reference capability; see ops/sp_attention.py)")
     p.add_argument("--dp", type=int, default=1,
-                   help="serve-pod: replicas, each --workers tpu:N ranks wide "
-                        "(--device cuda: replica r on cards r*N..r*N+N-1; cuda:K: "
-                        "every replica on card K; cpu: the CPU)")
+                   help="data-parallel degree: shards the batch axis over a "
+                        "dp mesh axis (beyond-reference capability). In "
+                        "batch mode the dp shards carry DISTINCT prompts; "
+                        "in the single-prompt modes the dp rows are "
+                        "replicas and only stream 0 is printed.  serve-pod: "
+                        "replicas, each --workers tpu:N ranks wide (--device "
+                        "cuda: replica r on cards r*N..r*N+N-1; cuda:K: every "
+                        "replica on card K; cpu: the CPU)")
+    p.add_argument("--ep", type=int, default=1,
+                   help="expert-parallel degree for MoE models: expert "
+                        "stacks — dense AND packed Q40/Q80 — shard over experts "
+                        "instead of replicating (beyond-reference; the "
+                        "reference TP-slices all experts everywhere, "
+                        "transformer.cpp:299-317; packed path: ops/q40.py "
+                        "ep_matmul, only an expert's owner reads its tiles)")
     p.add_argument("--supervise", action="store_true",
                    help="serve-pod: run each replica as a child process under a "
                         "supervisor that respawns it when it dies or its /health "
@@ -388,21 +414,27 @@ def build_parser() -> argparse.ArgumentParser:
                            type=type(default) if default is not None else str)
     p.add_argument("--nthreads", type=int, default=0,
                    help="accepted for reference CLI parity; unused")
-    p.add_argument("--sp", type=int, default=1, help=argparse.SUPPRESS)
-    p.add_argument("--ep", type=int, default=1, help=argparse.SUPPRESS)
     return p
 
 
-def not_ported(args) -> list[str]:
-    """The modes and flags of ``args`` that the port does not carry."""
+def in_group(args) -> bool:
+    """Does ``args`` (or the environment) give process-group coordinates?"""
+    return bool(args.coordinator or args.nproc is not None or args.proc_id is not None
+                or distributed.distributed_env() is not None)
+
+
+def not_ported(args, server: bool = False) -> list[str]:
+    """The modes and flags of ``args`` that the port does not carry: the
+    mesh's sp, ep and dp axes over a process group, and (``server``, the
+    API server's flags) ``--dp`` there."""
     out = []
     if args.mode in NOT_PORTED_MODES:
         out.append(f"mode {args.mode!r}")
-    for flag in ("sp", "ep"):
-        if getattr(args, flag) != 1:
-            out.append(f"--{flag}")
-    if args.dp != 1 and args.mode != "serve-pod":
-        out.append("--dp (outside serve-pod)")
+    if in_group(args):
+        out += [f"--{a} over a process group" for a in ("sp", "ep", "dp")
+                if getattr(args, a) != 1]
+    elif server and args.dp != 1:
+        out.append("--dp on the API server")
     for flag, default in NOT_PORTED_FLAGS.items():
         if getattr(args, flag[2:].replace("-", "_")) != default:
             out.append(flag)
@@ -419,26 +451,29 @@ def check_q40_variant() -> None:
         raise SystemExit(f"DLLAMA_Q40_VARIANT: {e}") from None
 
 
-def load_stack(args, batch: int = 1, stack=None) -> tuple[Engine, Tokenizer]:
+def load_stack(args, batch: int | None = None, stack=None) -> tuple[Engine, Tokenizer]:
     """The model (loaded on the host, then uploaded by the Engine, which
     converts it to the blocked layout first when asked, or slices it over
-    the ``--workers`` mesh) and its tokenizer; ``batch`` rows of
-    contiguous cache.  ``stack``, an ``(engine, tokenizer)`` loaded before,
-    gives the weights, device and mesh instead of ``--model`` (several
-    servers of one model in one process, each with caches of its own)."""
+    the mesh of ``--workers``, ``--sp``, ``--ep`` and ``--dp``) and its
+    tokenizer; ``batch`` rows of contiguous cache (default: the mesh's dp,
+    the JAX CLI's ``max(dp, 1)``).  ``stack``, an ``(engine, tokenizer)``
+    loaded before, gives the weights, device and mesh instead of
+    ``--model`` (several servers of one model in one process, each with
+    caches of its own)."""
     if stack is not None:
         base, tok = stack
-        return _engine(args, base.cfg, base.params, base.device, base.mesh, batch), tok
+        return _engine(args, base.cfg, base.params, base.device, base.mesh, batch or 1), tok
     if not args.model or not args.tokenizer:
         raise SystemExit("--model and --tokenizer are required for this mode")
     device = resolve(args.device)
     try:
-        mesh = parse_workers(args.workers, device, distributed.current_group())
+        mesh = parse_workers(args.workers, device, distributed.current_group(),
+                             sp=args.sp, dp=args.dp, ep=args.ep)
     except ValueError as e:
         raise SystemExit(str(e)) from None
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "host"
     cfg, params, tok = read_model(args, mesh.tp, f"{device} ({name})", mesh)
-    return _engine(args, cfg, params, device, mesh, batch), tok
+    return _engine(args, cfg, params, device, mesh, batch or mesh.dp), tok
 
 
 #: seconds the newest :func:`read_model` took to read the weights on the
@@ -452,7 +487,9 @@ def read_model(args, tp: int, where: str, mesh=None) -> tuple[ModelConfig, dict,
     prints the model's shape, ``where`` it runs and the tp degree.  Exits
     when tp does not divide the model or the vocabularies differ.  Over a
     ``mesh`` that spans processes the params are this process's ranks'
-    slices, placed (``models.params.load_placed``)."""
+    slices, placed (``models.params.load_placed``).  Prints the mesh's
+    axes above 1 as the JAX CLI does (``💡 mesh: dp=2 sp=2``); exits on an
+    ep the model refuses."""
     global last_read_s
     if not args.model or not args.tokenizer:
         raise SystemExit("--model and --tokenizer are required for this mode")
@@ -469,9 +506,10 @@ def read_model(args, tp: int, where: str, mesh=None) -> tuple[ModelConfig, dict,
         print(f"💡 dim: {cfg.dim}\n💡 nLayers: {cfg.n_layers}\n💡 nHeads: {cfg.n_heads}")
         print(f"💡 nKvHeads: {cfg.n_kv_heads}\n💡 vocabSize: {cfg.vocab_size}\n💡 seqLen: {cfg.seq_len}")
         print(f"💡 device: {where}")
-        print(f"💡 mesh: tp={tp}")
+        print(f"💡 mesh: {mesh.axes_line() if mesh is not None else f'tp={tp}'}")
         try:
             check_tp_constraint(cfg, tp)
+            check_ep_constraint(cfg, mesh.ep if mesh is not None else 1)
         except ValueError as e:
             raise SystemExit(str(e)) from None
         if mesh is not None and mesh.multi:
@@ -526,6 +564,9 @@ def _pld_args(args) -> None:
     """``--pld``'s refusals (the JAX CLI's): greedy only, one stream."""
     if args.temperature != 0:
         raise SystemExit("--pld is greedy-only; set --temperature 0")
+    if args.dp > 1 or args.sp > 1:
+        raise SystemExit("--pld is single-stream; drop --dp/--sp "
+                         "(tp/ep meshes are fine)")
 
 
 def profile_report(engine: Engine, ops: bool) -> None:
@@ -575,8 +616,8 @@ def launch_line(engine: Engine) -> str:
             + f"plain={c['plain_calls']} "
             + (f"mma={c['mma_launches']} " if is_q8 else "")
             + (f"allreduce={ar['allreduce_launches']} "
-               f"allreduce_plain={ar['allreduce_plain_calls']} tp={engine.tp} "
-               if engine.tp > 1 else "")
+               f"allreduce_plain={ar['allreduce_plain_calls']} {engine.mesh.axes_line()} "
+               if engine.mesh is not None else "")
             + (f"allreduce_ipc={ar['allreduce_ipc_launches']} "
                f"allreduce_gloo={ar['allreduce_gloo_calls']} nproc={nproc} "
                if nproc > 1 else "")
@@ -701,6 +742,8 @@ def cmd_batch(args) -> Engine:
         prompts = [args.prompt]
     else:
         raise SystemExit("batch mode requires --prompts-file or --prompt")
+    if args.dp > 1 and len(prompts) % args.dp:
+        raise SystemExit(f"{len(prompts)} prompts do not shard over dp={args.dp}")
     engine, tok = load_stack(args, batch=len(prompts))
     id_lists = [_encode_prompt(engine, tok, p) for p in prompts]
     steps = args.steps or engine.seq_len

@@ -42,6 +42,11 @@ class ModelConfig:
     # "auto" launches the kernel on the card; "plain" runs its plain
     # version on any device (the same reference path as quant_impl)
     attn_impl: str = "auto"
+    # set by the engine for a from-scratch prefill on an sp > 1 mesh:
+    # attention runs blockwise ring attention over the fresh
+    # sequence-sharded q/k/v (ops/sp_attention.py) instead of the
+    # cache-reading one-round combine
+    ring_prefill: bool = False
 
     @property
     def head_size(self) -> int:

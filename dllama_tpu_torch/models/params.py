@@ -11,8 +11,9 @@ parallelism); MoE experts stack as
 ``(L, E, ...)`` planes that the kernels read at a flat index
 ``layer·E + expert``.  Norms, the embedding and the MoE router load dense.
 F32/F16 files load dense.  :func:`load_placed` loads only this process's
-tensor-parallel ranks' slices of a file (a process group's member,
-``parallel/mesh.py``), reading only those bytes of its packed planes.
+ranks' slices of a file (a process group's member, ``parallel/mesh.py``),
+reading only those bytes of its packed planes — an expert-parallel rank's
+own experts' bytes alone.
 """
 
 from __future__ import annotations
@@ -152,11 +153,15 @@ def _stack_q(mf: mfile.MFile, names: list[list[str]], codec, cut=None, stacked=T
                                         stacked=stacked), cut)
 
 
-def _stack_q_experts(mf: mfile.MFile, cfg: ModelConfig, fname: str, codec, cut=None):
+def _stack_q_experts(mf: mfile.MFile, cfg: ModelConfig, fname: str, codec, cut=None,
+                     experts: range | None = None):
     """Layer × expert stacked packed expert weights ``(L, E, ...)``, filled
     tensor by tensor into preallocated host planes: host transit is bounded
-    by the packed size, with no f32 copy.  ``cut`` as :func:`_stack_q`."""
-    L, E = cfg.n_layers, cfg.n_experts
+    by the packed size, with no f32 copy.  ``cut`` as :func:`_stack_q`;
+    ``experts`` (default all) the experts to read, an expert shard's."""
+    L = cfg.n_layers
+    experts = experts if experts is not None else range(cfg.n_experts)
+    E = len(experts)
     t0 = mf.info(f"layers.0.experts.0.{fname}")
     d0, n0 = int(np.prod(t0.shape[:-1])), t0.shape[-1]
 
@@ -169,8 +174,8 @@ def _stack_q_experts(mf: mfile.MFile, cfg: ModelConfig, fname: str, codec, cut=N
     qp = codec.alloc_value_plane((L, E), np_, d)
     sc = np.zeros((L, E, np_ // 32, d), np.float16)
     for l in range(L):
-        for e in range(E):
-            codec.repack_file_bytes_into(raw(l, e), d, n, qp[l, e], sc[l, e])
+        for i, e in enumerate(experts):
+            codec.repack_file_bytes_into(raw(l, e), d, n, qp[l, i], sc[l, i])
     codec.check_finite(sc, f"{fname} expert scale plane")
     return _trim(codec.from_np(qp, sc, (n, d)), cut)
 
@@ -190,15 +195,23 @@ def load_params(mf: mfile.MFile, cfg: ModelConfig | None = None,
 
     ``shard`` = (kinds, rank, tp) loads only TP rank ``rank``'s slice of
     every leaf that ``kinds`` (leaf → ``"row"``, ``"col"`` or None, as
-    ``parallel.sharding`` plans them) slices, unfused: packed planes from
-    only the slice's file bytes, dense ones read whole, then sliced.  Each
-    slice equals ``sharding.shard`` of the whole leaf, bit for bit."""
+    ``parallel.sharding`` plans them) slices, unfused at tp > 1: packed
+    planes from only the slice's file bytes, dense ones read whole, then
+    sliced.  A fourth element ``(e, ep)`` keeps only expert shard e's
+    experts of the expert stacks (packed: only their bytes are read).  Each
+    slice equals ``sharding.place_params``' of the whole leaf, bit for
+    bit."""
     if cfg is None:
         cfg = ModelConfig.from_spec(mf.spec)
     codec = CODECS.get(mf.spec.weights_ftype) if keep_quantized else None
     L, dt = cfg.n_layers, cfg.dtype
+    experts = None
     if shard is not None:
-        fuse = False
+        fuse = fuse and shard[2] == 1
+        if len(shard) > 3:
+            e, ep = shard[3]
+            size = cfg.n_experts // ep
+            experts = range(e * size, (e + 1) * size)
 
     def per_layer(key):
         return [f"layers.{i}.{key}" for i in range(L)]
@@ -226,11 +239,11 @@ def load_params(mf: mfile.MFile, cfg: ModelConfig | None = None,
         p["router"] = _stack(mf, per_layer("moe_router"), True, dt)
         for key in ("up", "gate", "down"):
             if codec is not None:
-                p[key] = _stack_q_experts(mf, cfg, key, codec, cut(key))
+                p[key] = _stack_q_experts(mf, cfg, key, codec, cut(key), experts)
             else:
                 p[key] = torch.from_numpy(np.stack([np.stack(
                     [np.ascontiguousarray(mf.tensor(f"layers.{i}.experts.{e}.{key}").T)
-                     for e in range(cfg.n_experts)]) for i in range(L)])).to(dt)
+                     for e in (experts or range(cfg.n_experts))]) for i in range(L)])).to(dt)
         if cfg.post_block_norms:
             p["rms_moe"] = _stack(mf, per_layer("rms_moe"), False, torch.float32)
             p["rms_ffn2"] = _stack(mf, per_layer("rms_ffn2"), False, torch.float32)
@@ -277,23 +290,28 @@ def leaf_kinds(mf: mfile.MFile, cfg: ModelConfig, tp: int,
 def load_placed(mf: mfile.MFile, cfg: ModelConfig, mesh,
                 keep_quantized: bool = True) -> sharding.Placed:
     """This process's ranks of ``mesh`` (``mesh.ranks``, each on its
-    device): :func:`load_params` with ``shard`` once a local rank, a
-    replicated leaf shared by the ranks of one device.  The slices equal
-    ``sharding.place_params`` of the whole file's params, bit for bit."""
+    device): :func:`load_params` with ``shard`` once a distinct (expert
+    shard, tp slice) of the local ranks, each leaf's slice going to each
+    device once.  The slices equal ``sharding.place_params`` of the whole
+    file's params, bit for bit."""
     sharding.check_tp_constraint(cfg, mesh.tp)
-    kinds = leaf_kinds(mf, cfg, mesh.tp, keep_quantized)
-    ranks, shared = [], {}
+    sharding.check_ep_constraint(cfg, mesh.ep)
+    kinds = leaf_kinds(mf, cfg, mesh.tp, keep_quantized) if mesh.tp > 1 else \
+        dict.fromkeys(sharding.param_kinds(cfg))
+    ranks, read, shared = [], {}, {}
     for r, dev in zip(mesh.ranks, mesh.devices):
-        _, p = load_params(mf, cfg, keep_quantized=keep_quantized,
-                           shard=(kinds, r, mesh.tp))
+        _, _, e, t = mesh.coords(r)
+        e = e if mesh.ep > 1 else 0
+        if (e, t) not in read:
+            cut = (kinds, t, mesh.tp) + (((e, mesh.ep),) if mesh.ep > 1 else ())
+            read[(e, t)] = load_params(mf, cfg, keep_quantized=keep_quantized, shard=cut)[1]
         placed = {}
-        for k, v in p.items():
-            if kinds[k] is None:
-                placed[k] = shared.setdefault((k, dev), v.to(dev))
-            else:
-                placed[k] = v.to(dev)
+        for k, v in read[(e, t)].items():
+            key = (k, e if k in sharding.EXPERT_KEYS else None,
+                   t if kinds.get(k) is not None else None, dev)
+            placed[k] = shared.setdefault(key, v.to(dev))
         ranks.append(placed)
-    return sharding.Placed(mesh, ranks, kinds)
+    return sharding.Placed(mesh, ranks, {k: kinds.get(k) for k in ranks[0]})
 
 
 def to_device(params: Params, device) -> Params:
@@ -315,7 +333,8 @@ def from_jax_params(arrays: dict, cfg: ModelConfig, device="cpu") -> Params:
     (``(L, E, ...)`` expert stacks) — a blocked Q40 weight (the JAX
     ``BlockedQTensor``) as ``(qpacked 5-D, scales 5-D uint16, logical_nd,
     tiles, lead_2d)``, every other leaf as an array.  Bits are kept
-    exactly, so both packages then run on the same weights."""
+    exactly, so both packages then run on the same weights (an Engine over
+    a mesh places them: tp slices, ep expert shards)."""
     out: Params = {}
     for k, v in arrays.items():
         if isinstance(v, tuple):

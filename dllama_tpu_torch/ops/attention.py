@@ -170,7 +170,7 @@ def _slice_seq(cache, start: int, length: int):
 def blocked_live_fold(qf, slice_block, k, v, pos: int, c: int,
                       row_pos: torch.Tensor | None = None,
                       block: int | None = None,
-                      row_start: torch.Tensor | None = None):
+                      row_start: torch.Tensor | None = None, base: int = 0):
     """Walk only the KV blocks of a cache of length ``c`` that cover live
     positions ≤ ``pos``, folding each into the running softmax state.
     ``slice_block(cache, start, length)`` cuts one (B, Hkv, length, Dh)
@@ -179,15 +179,17 @@ def blocked_live_fold(qf, slice_block, k, v, pos: int, c: int,
     walk (pass the row max).  ``block`` fixes the block width where the
     storage does (a paged pool walks page-sized blocks).  ``row_start``
     (B,) adds a per-row key floor (a ragged batch's left padding).
+    ``base`` is the global position of the cache's first key (a sequence
+    shard's chunk start, ``ops.sp_attention``); ``pos`` stays global.
     Returns raw ``(m, l, acc)``; the caller normalizes."""
     b, hkv, g, t, dh = qf.shape
     block = block or _kv_chunk(c)
     scale = float(np.float32(1.0) / np.sqrt(np.float32(dh)))
-    n_live = min(max(pos, 0), c - 1) // block + 1
+    n_live = min(max(pos - base, 0), c - 1) // block + 1
     m, l, acc = _fold_init(b, hkv, g, t, dh, qf.device)
     for i in range(n_live):
         start = i * block
-        s_idx = start + torch.arange(block, device=qf.device)
+        s_idx = base + start + torch.arange(block, device=qf.device)
         if row_pos is not None:
             mask = s_idx[None, None, :] <= row_pos[:, None, None]  # (B, 1, blk)
         else:

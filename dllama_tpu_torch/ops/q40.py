@@ -618,6 +618,45 @@ def mm(x: torch.Tensor, w, layer=None, impl: str = "auto",
     return out.to(out_dtype) if out_dtype is not None else out
 
 
+def ep_matmul(xs: list, ws: list, flat: int, kind: str, ep: int, impl: str = "auto"
+              ) -> list[torch.Tensor]:
+    """Expert-parallel matmul on packed ``(L, E/ep, n, d)`` expert stacks
+    (Q40 or Q80), the counterpart of the JAX package's
+    ``_sharded_matmul_ep``: ``ws[e·tp + t]`` is expert shard e's stack on
+    tensor-parallel slice t (``len(ws) = ep·tp``), ``xs`` the same ranks'
+    inputs — the whole ``(rows, n)`` for ``kind`` ``"row"``, rank t's
+    slice of it for ``"col"``.  ``flat`` (a host int) is the flat index
+    ``layer·E + expert``: only the owning shard's ranks launch the kernel
+    (kernel 2, Q80's kernel 6), at its local plane ``layer·E/ep + expert −
+    e·E/ep``; the others launch nothing, read no tile and add exact zeros.
+    Kernel 4 then sums over ep — and over tp for ``"col"`` — so each rank
+    gets the product (a row rank its tp slice) in f32, as the JAX
+    package's psum leaves it."""
+    tp = len(ws) // ep
+    e_local = ws[0].qpacked.shape[1]
+    layer, sel = divmod(int(flat), e_local * ep)
+    owner, local = divmod(sel, e_local)
+    parts = []
+    for r, (x, w) in enumerate(zip(xs, ws)):
+        if r // tp == owner:
+            parts.append(mm(x, w, layer * e_local + local, impl=impl,
+                            out_dtype=torch.float32).contiguous())
+        else:  # a non-owner: zeros, no launch
+            parts.append(torch.zeros((*x.shape[:-1], w.logical_nd[1]), dtype=torch.float32,
+                                     device=x.device))
+    if kind == "col":
+        if len(parts) <= TP_MAX:
+            return tp_allreduce(parts, impl)
+        # more ranks than one call takes: over tp within each shard, then over ep
+        parts = [s for e in range(ep) for s in tp_allreduce(parts[e * tp:(e + 1) * tp], impl)]
+    out: list = [None] * len(parts)
+    for t in range(tp):
+        group = list(range(t, len(parts), tp))
+        for r, s in zip(group, tp_allreduce([parts[r] for r in group], impl)):
+            out[r] = s
+    return out
+
+
 # ---------------------------------------------------------------------------
 # The CUDA kernel (csrc/q40_matmul.cu) and its wrapper
 # ---------------------------------------------------------------------------

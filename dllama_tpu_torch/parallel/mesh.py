@@ -1,5 +1,5 @@
-"""The tensor-parallel mesh — the port of ``dllama_tpu/parallel/mesh.py``
-(``make_mesh``, ``parse_workers``), tensor parallelism only.
+"""The device mesh — the port of ``dllama_tpu/parallel/mesh.py``
+(``make_mesh``, ``parse_workers``).
 
 The reference's cluster is ``--workers host:port ...``, a TCP star of
 nodes that each hold a slice of every weight; the JAX package keeps the
@@ -24,9 +24,16 @@ local ranks follows the ``--device`` the caller names:
   several hosts each host's own cards.  A ``cuda`` group whose processes
   are on different hosts is refused: CUDA IPC does not reach another host.
 
-There is no active-mesh global: the mesh is passed explicitly.  The
-sequence-, data- and expert-parallel axes (``--sp``, ``--dp``, ``--ep``)
-are not ported.
+There is no active-mesh global: the mesh is passed explicitly.
+
+The mesh has the JAX package's four axes, ``(dp, sp, ep, tp)`` with tp
+innermost (``dllama_tpu/parallel/mesh.py`` ``make_mesh``): global rank
+``((d·sp + s)·ep + e)·tp + t`` holds data-parallel group d's batch rows,
+sequence shard s of the KV cache, expert shard e of a MoE model's expert
+stacks and tensor-parallel slice t.  ``--sp``, ``--ep`` and ``--dp`` run
+in one process only: a process group with any of them above 1 is refused
+(``cli.not_ported``).  Placement by ``--device`` is as above over all
+``dp·sp·ep·tp`` ranks.
 """
 
 from __future__ import annotations
@@ -37,22 +44,45 @@ import torch
 
 from ..ops.q40 import TP_MAX
 
+#: the mesh's axes, outermost first (the JAX package's order)
+AXES = ("dp", "sp", "ep", "tp")
+
 
 @dataclass(frozen=True)
 class Mesh:
     """``devices[j]`` holds this process's local rank j, global rank
     ``rank0 + j``; ``nproc`` processes hold ``len(devices)`` ranks each and
-    this one is process ``proc`` of ``group`` (None in one process)."""
+    this one is process ``proc`` of ``group`` (None in one process).  The
+    ranks form a ``(dp, sp, ep, tp)`` grid, tp innermost; tp is what the
+    other three degrees leave of the rank count."""
 
     devices: tuple[torch.device, ...]
     nproc: int = 1
     proc: int = 0
     group: object = field(default=None, compare=False, repr=False)
+    dp: int = 1
+    sp: int = 1
+    ep: int = 1
+
+    def __post_init__(self):
+        if self.size % (self.dp * self.sp * self.ep):
+            raise ValueError(f"{self.size} ranks do not form a dp={self.dp} x sp={self.sp} "
+                             f"x ep={self.ep} mesh")
+
+    @property
+    def size(self) -> int:
+        """Every rank of the mesh, over all processes."""
+        return len(self.devices) * self.nproc
 
     @property
     def tp(self) -> int:
         """The global tensor-parallel degree."""
-        return len(self.devices) * self.nproc
+        return self.size // (self.dp * self.sp * self.ep)
+
+    @property
+    def shape(self) -> dict[str, int]:
+        """Each axis's degree, outermost first (the JAX mesh's ``shape``)."""
+        return {"dp": self.dp, "sp": self.sp, "ep": self.ep, "tp": self.tp}
 
     @property
     def rank0(self) -> int:
@@ -75,6 +105,37 @@ class Mesh:
         """Does the mesh span processes?"""
         return self.nproc > 1
 
+    def coords(self, r: int) -> tuple[int, int, int, int]:
+        """Global rank ``r``'s ``(d, s, e, t)``."""
+        r, t = divmod(r, self.tp)
+        r, e = divmod(r, self.ep)
+        d, s = divmod(r, self.sp)
+        return d, s, e, t
+
+    def rank(self, d: int = 0, s: int = 0, e: int = 0, t: int = 0) -> int:
+        """The global rank at ``(d, s, e, t)``."""
+        return ((d * self.sp + s) * self.ep + e) * self.tp + t
+
+    def group_ranks(self, axes: tuple[str, ...], r: int) -> list[int]:
+        """The ranks that share every coordinate of rank ``r`` but those of
+        ``axes``, in rank order: ``("sp",)`` is r's sequence-parallel
+        group, ``("ep", "tp")`` the ranks of r's (d, s) cell that hold an
+        expert stack's slices."""
+        fixed = dict(zip(AXES, self.coords(r)))
+        spans = [range(self.shape[a]) if a in axes else (fixed[a],) for a in AXES]
+        return [self.rank(d, s, e, t) for d in spans[0] for s in spans[1]
+                for e in spans[2] for t in spans[3]]
+
+    def local(self, r: int) -> int:
+        """Global rank ``r``'s index into :attr:`devices` (this process's)."""
+        return r - self.rank0
+
+    def axes_line(self) -> str:
+        """The axes above 1 as the JAX CLI prints them (``dp=2 tp=2``;
+        ``tp=1`` for one rank)."""
+        axes = {k: v for k, v in self.shape.items() if v > 1} or {"tp": 1}
+        return " ".join(f"{k}={v}" for k, v in axes.items())
+
 
 def valid_counts(nproc: int) -> list[int]:
     """The tp degrees a group of ``nproc`` processes can hold: multiples
@@ -90,17 +151,24 @@ def check_split(tp: int, nproc: int) -> None:
                          f"{nproc} processes: {valid_counts(nproc)}")
 
 
-def make_mesh(tp: int = 1, device: str | torch.device = "cuda", group=None) -> Mesh:
-    """A ``tp``-rank mesh placed as the module docstring says, over
-    ``group`` (a ``distributed.Group``) when it has more than one process;
-    raises when a plain ``cuda`` mesh needs more cards than there are, when
-    tp does not split over the processes, and for a ``cuda`` group across
-    hosts."""
-    if tp < 1:
-        raise ValueError(f"tensor-parallel degree must be >= 1, got {tp}")
+def make_mesh(tp: int = 1, device: str | torch.device = "cuda", group=None, *,
+              sp: int = 1, dp: int = 1, ep: int = 1) -> Mesh:
+    """A ``dp × sp × ep × tp`` mesh placed as the module docstring says,
+    over ``group`` (a ``distributed.Group``) when it has more than one
+    process; raises when a plain ``cuda`` mesh needs more cards than there
+    are (the JAX package's "needs N devices, have M"), when tp does not
+    split over the processes, for a ``cuda`` group across hosts, and for a
+    group with sp, dp or ep above 1."""
+    for name, v in (("tensor", tp), ("sequence", sp), ("data", dp), ("expert", ep)):
+        if v < 1:
+            raise ValueError(f"{name}-parallel degree must be >= 1, got {v}")
     dev = torch.device(device)
+    n = dp * sp * ep * tp
     nproc = group.count if group is not None else 1
     if nproc > 1:
+        if (dp, sp, ep) != (1, 1, 1):
+            raise ValueError(f"a mesh with dp={dp} sp={sp} ep={ep} runs in one process; "
+                             "over a process group only tp is ported")
         check_split(tp, nproc)
         if dev.type == "cuda":
             hosts = group.hosts()
@@ -113,18 +181,18 @@ def make_mesh(tp: int = 1, device: str | torch.device = "cuda", group=None) -> M
         local = tp // nproc
         k = group.index
         if dev.type == "cuda" and dev.index is None:
-            n = torch.cuda.device_count()
-            devs = tuple(torch.device("cuda", (k * local + j) % n) for j in range(local))
+            count = torch.cuda.device_count()
+            devs = tuple(torch.device("cuda", (k * local + j) % count) for j in range(local))
         else:
             devs = (dev,) * local
         return Mesh(devs, nproc, k, group)
     if dev.type == "cuda" and dev.index is None:
         have = torch.cuda.device_count()
-        if tp > have:
-            raise ValueError(f"mesh tp={tp} needs {tp} devices, have {have} (pass "
-                             "--device cuda:0 to put every rank on one card)")
-        return Mesh(tuple(torch.device("cuda", r) for r in range(tp)))
-    return Mesh((dev,) * tp)
+        if n > have:
+            raise ValueError(f"mesh {dp}x{sp}x{ep}x{tp} needs {n} devices, have {have} "
+                             "(pass --device cuda:0 to put every rank on one card)")
+        return Mesh(tuple(torch.device("cuda", r) for r in range(n)), dp=dp, sp=sp, ep=ep)
+    return Mesh((dev,) * n, dp=dp, sp=sp, ep=ep)
 
 
 def workers_tp(workers: str | None) -> int:
@@ -144,8 +212,8 @@ def workers_tp(workers: str | None) -> int:
 
 
 def parse_workers(workers: str | None, device: str | torch.device = "cuda",
-                  group=None) -> Mesh:
-    """The CLI's ``--workers`` value as a mesh over ``group``: ``tpu:N`` is
-    N-way tensor parallelism (the JAX CLI's spelling, so scripts carry
-    over); ``None`` or ``""`` is one rank."""
-    return make_mesh(workers_tp(workers), device, group)
+                  group=None, *, sp: int = 1, dp: int = 1, ep: int = 1) -> Mesh:
+    """The CLI's ``--workers`` value (and ``--sp``/``--dp``/``--ep``) as a
+    mesh over ``group``: ``tpu:N`` is N-way tensor parallelism (the JAX
+    CLI's spelling, so scripts carry over); ``None`` or ``""`` is tp = 1."""
+    return make_mesh(workers_tp(workers), device, group, sp=sp, dp=dp, ep=ep)

@@ -26,6 +26,15 @@ Over a process group a process places only its own ranks' slices
 (``Mesh.ranks``); ``models/params.py`` ``load_placed`` reads only those
 slices' bytes of a packed `.m` file, so each process holds about 1/nproc
 of the sliced weights.
+
+The other axes of the mesh (the JAX package's ``param_specs``): every
+leaf is replicated over dp and sp; with ep > 1 a MoE model's expert stacks
+(``up``, ``gate``, ``down``: ``(L, E, n, d)``) are cut on the expert axis,
+expert shard e holding experts ``e·E/ep ..`` with their hidden dim still
+cut over tp (``P(None, "ep", None, "tp")``).  A leaf goes to each
+distinct device once: ranks on one card that hold the same slice share
+it, so ep on one card holds the model's expert bytes once.  At tp = 1 no
+leaf is cut over tp and fused ``wqkv``/``w13`` stay fused.
 """
 
 from __future__ import annotations
@@ -65,6 +74,20 @@ def check_tp_constraint(cfg: ModelConfig, tp: int) -> None:
     if cfg.hidden_dim % tp:
         raise ValueError(f"hidden_dim {cfg.hidden_dim} not divisible by "
                          f"tp={tp}; {hint}")
+
+
+#: the MoE expert stacks, the leaves ep cuts on their expert axis
+EXPERT_KEYS = ("up", "gate", "down")
+
+
+def check_ep_constraint(cfg: ModelConfig, ep: int) -> None:
+    """The JAX Engine's refusals of an expert-parallel degree: a dense
+    model has no expert axis, and the experts must split evenly."""
+    if ep > 1:
+        if not cfg.is_moe:
+            raise ValueError("ep>1 needs an MoE model (no expert axis to shard)")
+        if cfg.n_experts % ep:
+            raise ValueError(f"n_experts {cfg.n_experts} not divisible by ep={ep}")
 
 
 def param_kinds(cfg: ModelConfig) -> dict[str, str | None]:
@@ -155,12 +178,24 @@ def shard(v, kind: str | None, rank: int, tp: int):
     return v.narrow(dim, rank * size, size).contiguous()
 
 
+def shard_experts(v, e: int, ep: int):
+    """Expert shard ``e``'s experts of an ``(L, E, n, d)`` stack (dense or
+    packed), as its own contiguous storage."""
+    size = v.shape[1] // ep
+    if isinstance(v, (q40.QTensor, q8.Q8Tensor)):
+        return type(v)(v.qpacked[:, e * size:(e + 1) * size].contiguous(),
+                       v.scales[:, e * size:(e + 1) * size].contiguous(), v.logical_nd)
+    return v[:, e * size:(e + 1) * size].contiguous()
+
+
 @dataclass
 class Placed:
     """Params placed over a mesh: ``ranks[j]`` is local rank j's (global
     rank ``mesh.rank0 + j``) param dict on ``mesh.devices[j]``;
-    ``kinds[k]`` is how ``k`` was placed (``"row"``, ``"col"``, or None
-    when replicated — by plan or because it did not divide)."""
+    ``kinds[k]`` is how ``k`` was placed over tp (``"row"``, ``"col"``, or
+    None when replicated — by plan, at tp = 1, or because it did not
+    divide); with ``mesh.ep`` > 1 the :data:`EXPERT_KEYS` also hold only
+    their rank's expert shard."""
 
     mesh: Mesh
     ranks: list[dict]
@@ -178,28 +213,33 @@ class Placed:
 def place_params(params: dict, cfg: ModelConfig, mesh: Mesh) -> Placed:
     """Slice host (or device) params over ``mesh`` and upload each local
     rank's slices to its device — the reference's weight-distribution
-    phase (``transformer.cpp:389-404``).  Fused weights are unfused first,
-    a blocked Q40 weight returns to row-major; a leaf that does not divide
-    stays replicated with a ⚠️ line."""
+    phase (``transformer.cpp:389-404``).  At tp > 1 fused weights are
+    unfused first; a blocked Q40 weight returns to row-major; a leaf that
+    does not divide tp stays replicated with a ⚠️ line; with ep > 1 the
+    expert stacks are cut on their expert axis.  Each distinct slice goes
+    to each device once."""
     check_tp_constraint(cfg, mesh.tp)
+    check_ep_constraint(cfg, mesh.ep)
     params = {k: q40.unblock(v) if isinstance(v, q40.BlockedQTensor) else v
-              for k, v in unfuse(params, cfg).items()}
+              for k, v in (unfuse(params, cfg) if mesh.tp > 1 else params).items()}
     plan = param_kinds(cfg)
     kinds = {}
     for k, v in params.items():
-        kind = plan[k]
+        kind = plan.get(k) if mesh.tp > 1 else None
         if not divides(v, kind, mesh.tp):
             warn_replicated(k, v.shape, mesh.tp)
             kind = None
         kinds[k] = kind
     ranks: list[dict] = [{} for _ in mesh.devices]
     for k, v in params.items():
-        uploaded = {}  # a replicated leaf goes to each distinct device once
+        uploaded = {}  # (expert shard, tp slice, device) -> the slice there
         for j, (r, dev) in enumerate(zip(mesh.ranks, mesh.devices)):
-            if kinds[k] is None:
-                if dev not in uploaded:
-                    uploaded[dev] = v.to(dev)
-                ranks[j][k] = uploaded[dev]
-            else:
-                ranks[j][k] = shard(v, kinds[k], r, mesh.tp).to(dev)
+            _, _, e, t = mesh.coords(r)
+            key = (e if mesh.ep > 1 and k in EXPERT_KEYS else None,
+                   t if kinds[k] is not None else None, dev)
+            if key not in uploaded:
+                w = v if key[0] is None else shard_experts(v, key[0], mesh.ep)
+                w = w if key[1] is None else shard(w, kinds[k], key[1], mesh.tp)
+                uploaded[key] = w.to(dev)
+            ranks[j][k] = uploaded[key]
     return Placed(mesh, ranks, kinds)

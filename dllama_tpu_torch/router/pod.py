@@ -674,9 +674,6 @@ def build_in_process(args) -> Pod:
     from ..parallel.mesh import Mesh
     from ..server import api
 
-    if args.sp > 1 or args.ep > 1:
-        raise SystemExit("serve-pod partitions devices into dp × tp replicas; "
-                         "--sp/--ep are not supported here")
     dp = max(args.dp, 1)
     n_cards = _card_count(args.device)
     tp = _pod_tp(args, n_cards, dp)
@@ -718,6 +715,10 @@ def build_in_process(args) -> Pod:
 
 
 def build(args) -> Pod:
+    if args.sp > 1 or args.ep > 1:
+        raise SystemExit("serve-pod partitions devices into dp × tp "
+                         "replicas; --sp/--ep are not supported here "
+                         "(run a single replica with dllama-api instead)")
     if args.supervise:
         return build_supervised(args)
     if args.elastic:

@@ -60,7 +60,7 @@ from ..models.transformer import (ShardedKV, forward, forward_last, init_kv_cach
 from ..obs import metrics as obs_metrics, trace as obs_trace
 from ..ops import attention, q40
 from ..parallel.mesh import Mesh
-from ..parallel.sharding import Placed, place_params
+from ..parallel.sharding import Placed, check_ep_constraint, place_params
 from ..sampling import Sampler
 from . import snapshot as snapfmt
 from .decode_loop import (decode_chunk, device_sample, slot_chunk, slot_verify_chunk,
@@ -286,11 +286,18 @@ class Engine:
 
     ``mesh`` (a :class:`parallel.mesh.Mesh` of more than one rank) slices
     the params over its ranks (``parallel.sharding.place_params``; a
-    ``Placed`` made for the same mesh is shared) and gives every rank its
-    own cache or pool of ``n_kv_heads/tp`` heads (:class:`ShardedKV`);
+    ``Placed`` made for the same mesh is shared) and gives every rank at
+    expert shard 0 its own cache or pool of ``n_kv_heads/tp`` heads,
+    ``batch/dp`` rows and ``seq_len/sp`` positions (:class:`ShardedKV`);
     ``device`` is then rank 0's, where logits land and sampling runs.  The
     blocked layout is single-device, as in the JAX package: on a mesh the
-    weights stay row-major, with a warning.
+    weights stay row-major, with a warning.  The JAX Engine's refusals of
+    the mesh's axes hold: sp needs a seq_len it divides and a dense,
+    contiguous cache, and refuses ragged batches, slot serving, scoring and
+    speculative decoding; ep needs a MoE model whose experts it divides.
+    ``batch`` must divide over dp; a paged pool over dp is not yet ported.
+    A from-scratch prefill on an sp mesh whose width sp divides runs ring
+    attention (``cfg.ring_prefill``).
 
     ``graphs`` (default: on for ``cuda`` at tp = 1) replays the decode
     steps of :meth:`decode` and every slot dispatch, pure decode and mixed,
@@ -313,7 +320,7 @@ class Engine:
                  batch: int = 1, kv_pages: int = 0, kv_page_size: int = 16,
                  mesh: Mesh | None = None, graphs: bool | None = None,
                  step_timeout: float | None = None, numeric_checks: bool | None = None):
-        self.mesh = mesh if mesh is not None and mesh.tp > 1 else None
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
         #: the process group of a mesh that spans processes, else None
         self.group = mesh.group if mesh is not None and mesh.multi else None
         #: the tokens this engine picked or received (a multi-process check)
@@ -331,6 +338,12 @@ class Engine:
         self.cfg = cfg
         self.batch = int(batch)
         self.seq_len = min(seq_len or cfg.seq_len, cfg.seq_len)
+        # the JAX Engine's refusals of the mesh's axes (its messages)
+        if self.sp > 1 and self.seq_len % self.sp:
+            raise ValueError(f"seq_len {self.seq_len} not divisible by sp={self.sp}")
+        check_ep_constraint(cfg, self.ep)
+        if self.batch % self.dp:
+            raise ValueError(f"batch {self.batch} does not shard over dp={self.dp}")
         if self.group is not None:
             self.group.reserve_rows(self.batch * self.seq_len
                                     * (cfg.n_active_experts if cfg.is_moe else 1))
@@ -352,10 +365,20 @@ class Engine:
         # "q8" (or int8, a quantized engine's own cache dtype) selects int8
         # values with per-position f32 scales
         kv_quant = kv_dtype == "q8" or kv_dtype == torch.int8
+        if kv_quant and self.sp > 1:
+            raise ValueError("quantized KV cache is not supported on sp "
+                             "meshes (shard-local sp cache writes are "
+                             "dense); use sp=1 or a dense cache dtype")
         self.paged = kv_pages > 0
         self.kv_pages = int(kv_pages)
         self.kv_page_size = int(kv_page_size)
         if self.paged:
+            if self.sp > 1:
+                raise ValueError("paged KV is not supported on sp meshes "
+                                 "(sequence-sharded pools are not wired)")
+            if self.dp > 1:
+                raise ValueError(f"a paged KV pool over dp={self.dp} is not yet ported to "
+                                 "dllama_tpu_torch (its pages would ride the dp axis)")
             if self.kv_pages < 2:
                 raise ValueError("kv_pages must be >= 2 (page 0 is the "
                                  "reserved scratch page)")
@@ -371,8 +394,8 @@ class Engine:
             self.check_prefill_read()
         else:
             self.cache = self._per_rank(lambda dev, tp: init_kv_cache(
-                cfg, self.batch, self.seq_len, dtype=None if kv_quant else kv_dtype,
-                quant=kv_quant, device=dev, tp=tp))
+                cfg, self.batch // self.dp, self.seq_len // self.sp,
+                dtype=None if kv_quant else kv_dtype, quant=kv_quant, device=dev, tp=tp))
         self.pos = 0
         #: a ragged batch's left padding (B,) on the device, set by
         #: prefill_ragged and cleared by reset
@@ -427,6 +450,18 @@ class Engine:
     def tp(self) -> int:
         return 1 if self.mesh is None else self.mesh.tp
 
+    @property
+    def sp(self) -> int:
+        return 1 if self.mesh is None else self.mesh.sp
+
+    @property
+    def dp(self) -> int:
+        return 1 if self.mesh is None else self.mesh.dp
+
+    @property
+    def ep(self) -> int:
+        return 1 if self.mesh is None else self.mesh.ep
+
     def _pick(self, logits: torch.Tensor | None, temperature: float, topp: float,
               rows: int) -> torch.Tensor:
         """The next token of each of ``rows`` rows (int32 on the engine's
@@ -459,10 +494,19 @@ class Engine:
                              f"{self.group.count} processes")
 
     def _per_rank(self, make):
-        """``make(device, tp)`` once (one device), or once a rank."""
+        """``make(device, tp)`` once (one device), or once a rank at expert
+        shard 0 (the ranks that attend), in rank order."""
         if self.mesh is None:
             return make(self.device, 1)
-        return ShardedKV(tuple(make(dev, self.tp) for dev in self.mesh.devices))
+        m = self.mesh
+        return ShardedKV(tuple(make(dev, self.tp) for r, dev in zip(m.ranks, m.devices)
+                               if m.coords(r)[2] == 0))
+
+    def _kv_coords(self) -> list[tuple[int, int, int]]:
+        """Each cache rank's (d, s, t), in :attr:`cache`'s order."""
+        if self.mesh is None:
+            return [(0, 0, 0)]
+        return [(d, s, t) for d, s, e, t in map(self.mesh.coords, self.mesh.ranks) if e == 0]
 
     def reset(self):
         """Restart the sequence; cache memory is reused."""
@@ -486,14 +530,28 @@ class Engine:
 
     def kv_layout(self) -> dict[str, tuple[str, list[int]]]:
         """Each plane's dtype name and global shape: a rank holds
-        ``n_kv_heads/tp`` of the heads on axis 2, so the mesh never shows
-        (a snapshot or record taken at one tp restores at another)."""
+        ``n_kv_heads/tp`` of the heads on axis 2 (``batch/dp`` rows on axis
+        1, ``seq_len/sp`` positions on axis 3), so the mesh never shows (a
+        snapshot or record taken at one tp restores at another)."""
         out = {}
         for n, ts in self.kv_planes().items():
             shape = list(ts[0].shape)
-            shape[2] = sum(int(t.shape[2]) for t in ts)
+            shape[1] *= self.dp
+            shape[2] *= len(ts) // (self.dp * self.sp)
+            shape[3] *= self.sp
             out[n] = (snapfmt.dtype_of(ts[0].dtype), shape)
         return out
+
+    def _global(self, ts: list[torch.Tensor]) -> torch.Tensor:
+        """One plane's ranks joined on the engine's device: heads (axis 2)
+        over tp, positions (axis 3) over sp, rows (axis 1) over dp."""
+        if len(ts) == 1:
+            return ts[0]
+        at = {c: t.to(self.device) for c, t in zip(self._kv_coords(), ts)}
+        tps = sorted({c[2] for c in at})
+        return torch.cat([torch.cat([torch.cat([at[(d, s, t)] for t in tps], dim=2)
+                                     for s in range(self.sp)], dim=3)
+                          for d in range(self.dp)], dim=1)
 
     def config_fingerprint(self) -> str:
         """Digest of everything that must match for a snapshot to mean
@@ -543,8 +601,8 @@ class Engine:
         :meth:`restore` (the latter in :attr:`restored_arrays`).  Returns
         the path."""
         with on_device(self.device):
-            arrays = {f"cache.{n}": snapfmt.to_numpy(ts[0] if len(ts) == 1 else torch.cat(
-                [t.to(self.device) for t in ts], dim=2)) for n, ts in self.kv_planes().items()}
+            arrays = {f"cache.{n}": snapfmt.to_numpy(self._global(ts))
+                      for n, ts in self.kv_planes().items()}
         arrays.update(self.rng_arrays())
         meta_extra = dict(extra or {})
         meta_extra.setdefault("sampling_path", self.sampling_path)
@@ -616,12 +674,16 @@ class Engine:
     def _write_global(self, ranks: list[torch.Tensor], arr: np.ndarray, idx) -> None:
         """Write the global array ``arr`` into one plane in place: the whole
         plane (``idx`` None) or its pages ``idx`` (a device index on axis
-        1); a rank takes its heads' slice of axis 2."""
+        1); a rank takes its heads' slice of axis 2 (and of a whole plane,
+        its rows' of axis 1 and its positions' of axis 3)."""
         src = snapfmt.to_torch(arr, ranks[0].dtype)
-        h0 = 0
-        for dst in ranks:
-            part = src[:, :, h0:h0 + dst.shape[2]] if len(ranks) > 1 else src
-            h0 += dst.shape[2]
+        tps = sorted({c[2] for c in self._kv_coords()})
+        for dst, (d, s, t) in zip(ranks, self._kv_coords()):
+            b, h, n = dst.shape[1], dst.shape[2], dst.shape[3]
+            h0 = tps.index(t) * h
+            part = src[:, :, h0:h0 + h] if len(ranks) > 1 else src
+            if idx is None and len(ranks) > 1:
+                part = part[:, d * b:(d + 1) * b, :, s * n:(s + 1) * n]
             if idx is None:
                 dst.copy_(part)
             else:
@@ -746,7 +808,12 @@ class Engine:
         stats = StepStats()
         t0 = time.perf_counter()
         toks = torch.from_numpy(tokens_np).to(self.device)
-        logits, self.cache = forward_last(self.params, self.cfg, toks, self.cache,
+        # a from-scratch prefill on an sp mesh: ring attention over the
+        # window's tokens cut over the shards (the JAX Engine's choice)
+        t = tokens_np.shape[1]
+        use_ring = self.sp > 1 and self.pos == 0 and t > 1 and t % self.sp == 0
+        cfg = self.cfg.with_(ring_prefill=True) if use_ring else self.cfg
+        logits, self.cache = forward_last(self.params, cfg, toks, self.cache,
                                           self.pos, last_index, offsets=offsets)
         self.forwards += 1
         fired = self._sync(lambda: synchronize(self.device), "prefill/decode step")[0]
@@ -778,7 +845,8 @@ class Engine:
                 f"prompt of {n} exceeds seq_len {self.seq_len} at pos {self.pos}")
         # the padded bucket must also fit the cache
         bucket = max(n, min(_next_bucket(n), self.seq_len - self.pos))
-        toks = np.zeros((1, bucket), np.int64)
+        # every row the prompt (a dp mesh's replicas; the JAX package's rows)
+        toks = np.zeros((self.batch, bucket), np.int64)
         toks[:, :n] = prompt_tokens
         logits, stats = self._run(toks, n - 1)
         self.pos += n
@@ -795,6 +863,9 @@ class Engine:
         would alone.  Returns the (B, V) logits of the last index."""
         if len(prompts) != self.batch:
             raise ValueError(f"{len(prompts)} prompts for batch={self.batch}")
+        if self.sp > 1:
+            raise ValueError("ragged batches are not supported on sp meshes "
+                             "(sequence-sharded cache); use sp=1")
         if self.paged:
             raise ValueError("ragged batches run on a contiguous cache (kv_pages=0)")
         if any(len(p) == 0 for p in prompts):
@@ -819,7 +890,7 @@ class Engine:
         """One autoregressive step at the current position."""
         if self.pos >= self.seq_len:
             raise ContextOverflow(f"position {self.pos} at seq_len limit {self.seq_len}")
-        logits, stats = self._run(np.full((1, 1), token, np.int64), 0)
+        logits, stats = self._run(np.full((self.batch, 1), token, np.int64), 0)
         self.pos += 1
         return logits, stats
 
@@ -890,7 +961,7 @@ class Engine:
             toks_dev, last_dev = self.decode(in_tok, k, temperature=temperature, topp=topp)
             return k, p0, Landing(toks_dev), last_dev, t0, sent, gen_state
 
-        pending = dispatch(np.full((1,), token, np.int64), produced)
+        pending = dispatch(np.full((self.batch,), token, np.int64), produced)
         expected = produced
         boundary = None
         try:
@@ -1027,6 +1098,9 @@ class Engine:
         engine as long as their uses do not overlap in time (the
         scheduler's ``exclusive()``)."""
         self._one_process("the slot step")
+        if self.sp > 1:
+            raise ValueError("slot serving is not supported on sp meshes "
+                             "(sequence-sharded cache); use sp=1")
         if self.cache.quantized and not self.paged:
             raise ValueError("slot serving needs a dense or paged-int8 KV "
                              "cache (contiguous per-row quantized writes "
@@ -1116,6 +1190,9 @@ class Engine:
         the handle stays on the device.  Slot clocks are the caller's;
         ``self.pos`` is untouched."""
         self._one_process("the slot step")
+        if self.sp > 1:
+            raise ValueError("slot serving is not supported on sp meshes "
+                             "(sequence-sharded cache); use sp=1")
         if self.cache.quantized and not self.paged:
             raise ValueError("slot serving needs a dense or paged-int8 KV "
                              "cache (contiguous per-row quantized writes "
@@ -1198,6 +1275,8 @@ class Engine:
         (``GraphKey("pld", 1, True, k + 1)``); the tail that no longer fits
         a window runs single-token steps (:meth:`decode_one`)."""
         self._one_process("prompt-lookup decoding")
+        if self.sp > 1:
+            raise ValueError("speculative decode is not supported on sp meshes")
         if self.batch != 1:
             raise ValueError("speculative decode is single-stream (batch=1)")
         if self.paged:
@@ -1312,6 +1391,8 @@ class Engine:
         scratch, as the JAX package does), so the engine's own cache,
         position and graphs are untouched."""
         self._one_process("scoring")
+        if self.sp > 1:
+            raise ValueError("score_batch is not supported on sp meshes")
         if self.paged:
             raise ValueError("paged engine is slot-only; scoring needs a "
                              "contiguous scratch cache")
@@ -1332,7 +1413,7 @@ class Engine:
             offsets[r] = bucket - len(s)
         dtype = None if self.cache.quantized else self.cache.k.dtype
         cache = self._per_rank(lambda dev, tp: init_kv_cache(
-            self.cfg, self.batch, bucket, dtype=dtype, device=dev, tp=tp))
+            self.cfg, self.batch // self.dp, bucket, dtype=dtype, device=dev, tp=tp))
         with on_device(self.device):
             tk = torch.from_numpy(toks).to(self.device)
             logits, _ = forward(self.params, self.cfg, tk, cache, 0,

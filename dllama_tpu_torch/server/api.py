@@ -2230,6 +2230,11 @@ def build_state(args, slo=None, stack=None) -> ApiState:
         # speculation lives in the slot scheduler: fail before the load
         raise SystemExit("--spec needs --batch-slots (speculative decoding runs "
                          "under the slot scheduler)")
+    if args.batch_slots > 0 and args.sp > 1:
+        # the slot engine's ragged prefill needs the whole sequence axis a
+        # shard: refuse at start-up, before the load (the JAX server's)
+        raise SystemExit("--batch-slots is not supported with --sp "
+                         "(sequence-sharded KV cache); drop one of them")
     engine, tok = load_stack(args, stack=stack)
     batch_engine = scheduler = None
     if args.batch_slots > 0:
@@ -2284,7 +2289,7 @@ def parse_args(argv):
     them."""
     from ..cli import build_parser, check_q40_variant, not_ported
     args = build_parser().parse_args(["inference", *argv])
-    missing = not_ported(args)
+    missing = not_ported(args, server=True)
     if missing:
         raise SystemExit(f"not yet ported to dllama_tpu_torch: {', '.join(missing)} "
                          "(run python -m dllama_tpu.server.api for these)")

@@ -196,8 +196,10 @@ def test_unported_server_flag_exits():
     # since the loading flags came over, --elastic since the elastic slice:
     # the server takes them, and a flag still outside the port stands in
     # (--coordinator since the worker slice, which the server refuses by
-    # name: tests/test_torch_multihost.py; --sp stands in for it)
-    with pytest.raises(SystemExit,
-                       match=r"not yet ported to dllama_tpu_torch: --sp \(run"):
+    # name: tests/test_torch_multihost.py; --sp stood in for it until the
+    # mesh-axes slice, which serves --sp and --ep: --dp, still refused on the
+    # server, stands in now, and --sp beside it is accepted)
+    with pytest.raises(SystemExit, match=r"not yet ported to dllama_tpu_torch: "
+                                         r"--dp on the API server \(run"):
         api.parse_args(["--spec", "pld", "--weights-float-type", "q40", "--dequantize",
-                        "--elastic", "--sp", "2"])
+                        "--elastic", "--sp", "2", "--dp", "2"])

@@ -71,55 +71,66 @@ def test_inference_prints_stats(model_files):
 
 @pytest.mark.parametrize("extra,named", [
     # worker and the process group's flags are ported since the worker
-    # slice: the cases that named them keep their ids, hold that they are
-    # accepted, and name a flag still outside the port beside them (--sp)
-    pytest.param(["worker", "--sp", "2"], "--sp", id="extra0-mode 'worker'"),
-    (["generate", "--workers", "tpu:2", "--ep", "2"], "--ep"),
+    # slice, --sp, --ep and --dp in one process since the mesh-axes slice:
+    # each case keeps its id, holds that the flags beside it are accepted,
+    # and names what is still outside the port, a mesh axis over a process
+    # group (its coordinates: --coordinator, --nproc or --proc-id)
+    pytest.param(["worker", "--sp", "2", "--coordinator", "h:1"], "--sp over a process group",
+                 id="extra0-mode 'worker'"),
+    pytest.param(["generate", "--workers", "tpu:2", "--ep", "2", "--nproc", "2"],
+                 "--ep over a process group", id="extra1---ep"),
     # --pld is ported since: the case keeps its id and names --sp alone
-    pytest.param(["generate", "--pld", "4", "--sp", "2"], "--sp", id="extra2---sp, --pld"),
+    pytest.param(["generate", "--pld", "4", "--sp", "2", "--coordinator", "h:1"],
+                 "--sp over a process group", id="extra2---sp, --pld"),
     # this case's flags are ported now: it keeps its name and holds that,
     # beside them, the flags still outside the port are named (--step-timeout
     # is ported since the fleet slice: --sp stands in for it)
     pytest.param(["generate", "--kv-reserve", "optimistic", "--snapshot-dir", "x",
-                  "--spec", "pld", "--step-timeout", "5", "--sp", "2"], "--sp",
-                 id="extra3---kv-reserve, --snapshot-dir"),
+                  "--spec", "pld", "--step-timeout", "5", "--sp", "2", "--coordinator", "h:1"],
+                 "--sp over a process group", id="extra3---kv-reserve, --snapshot-dir"),
     # the router and serve-pod modes and their flags are ported since, and
     # the elastic pod's flags since the elastic slice: each case keeps its id
-    # and names a flag still outside the port beside them (--sp, --coordinator)
-    pytest.param(["router", "--backends", "127.0.0.1:1", "--elastic", "--sp", "2"], "--sp",
+    # and names a flag still outside the port beside them
+    pytest.param(["router", "--backends", "127.0.0.1:1", "--elastic", "--sp", "2",
+                  "--coordinator", "h:1"], "--sp over a process group",
                  id="extra4-mode 'router', --backends"),
-    pytest.param(["serve-pod", "--supervise", "--dp", "2", "--pod-devices", "4", "--sp", "2"],
-                 "--sp", id="extra5-mode 'serve-pod', --supervise"),
+    pytest.param(["serve-pod", "--supervise", "--dp", "2", "--pod-devices", "4", "--sp", "2",
+                  "--coordinator", "h:1"], "--sp over a process group",
+                 id="extra5-mode 'serve-pod', --supervise"),
     # the loading flags are ported since: the case keeps its id and holds
     # that they are accepted, named the flag still outside the port beside them
     pytest.param(["generate", "--dequantize", "--weights-float-type", "q40", "--elastic",
-                  "--coordinator", "h:1", "--sp", "2"], "--sp",
+                  "--coordinator", "h:1", "--sp", "2"], "--sp over a process group",
                  id="extra6---weights-float-type, --dequantize"),
     # the profiling flags are ported since: the case keeps its id and runs
     # them beside a flag still outside the port (--dequantize is ported
     # since the loading flags came over, --min-replicas since the elastic
-    # slice: --sp stands in for them)
+    # slice: --sp over a process group stands in for them)
     pytest.param(["inference", "--profile-split", "--profile-ops", "--numeric-checks",
-                  "--dequantize", "--min-replicas", "2", "--sp", "2"], "--sp",
-                 id="extra7---profile-split, --profile-ops"),
+                  "--dequantize", "--min-replicas", "2", "--sp", "2", "--nproc", "2"],
+                 "--sp over a process group", id="extra7---profile-split, --profile-ops"),
     # (--program chat is refused by argparse, as by the JAX CLI: chat is no
     # worker program; batch stands in for it)
     pytest.param(["worker", "--coordinator", "h:1", "--nproc", "2", "--proc-id", "1",
-                  "--program", "batch", "--sp", "2"], "--sp",
+                  "--program", "batch", "--sp", "2"], "--sp over a process group",
                  id="extra8---coordinator, --nproc, --proc-id, --program"),
     # the elastic flags are ported since: the two cases keep their ids, run
     # them beside the process group's flags (ported since the worker slice)
-    # and name only --sp
+    # and name only --sp over the group
     pytest.param(["generate", "--elastic", "--pod-devices", "4", "--max-replicas", "2",
-                  "--coordinator", "h:1", "--nproc", "2", "--sp", "2"], "--sp",
+                  "--coordinator", "h:1", "--nproc", "2", "--sp", "2"],
+                 "--sp over a process group",
                  id="extra9---elastic, --pod-devices, --max-replicas"),
     pytest.param(["generate", "--stall-timeout", "5", "--checkpoint-interval", "1",
                   "--resume-policy", "never", "--elastic-interval", "1", "--scale-up-util",
                   "0.5", "--reshape-kv-low", "0.1", "--proc-id", "1", "--program", "batch",
                   "--sp", "2"],
-                 "--sp",
+                 "--sp over a process group",
                  id="extra10---stall-timeout, --checkpoint-interval, --resume-policy"),
-    (["generate", "--dp", "2"], "--dp (outside serve-pod)"),
+    # --dp outside serve-pod is ported since the mesh-axes slice (see
+    # test_mesh_axes_run_and_print_the_mesh): over a process group it is not
+    pytest.param(["generate", "--dp", "2", "--coordinator", "h:1"], "--dp over a process group",
+                 id="extra11---dp (outside serve-pod)"),
 ])
 def test_unported_flags_exit_naming_them(model_files, extra, named):
     m, t = model_files
@@ -130,6 +141,35 @@ def test_unported_flags_exit_naming_them(model_files, extra, named):
     assert not set(msg.split(", ")) & (PORTED_SINCE | FLEET_FLAGS | LOAD_FLAGS
                                        | ELASTIC_FLAGS | GROUP_FLAGS), msg
     assert "mode 'worker'" not in msg
+
+
+@pytest.mark.parametrize("extra,mesh_line", [
+    (["generate", "--dp", "2"], "💡 mesh: dp=2"),
+    (["generate", "--workers", "tpu:2", "--ep", "2"], "💡 mesh: ep=2 tp=2"),
+    (["generate", "--sp", "2", "--workers", "tpu:2"], "💡 mesh: sp=2 tp=2"),
+], ids=["dp", "ep-tp", "sp-tp"])
+def test_mesh_axes_run_and_print_the_mesh(tmp_path, model_files, extra, mesh_line):
+    """The two commands that named --dp and --ep as not yet ported
+    (``generate --dp 2``, ``--workers tpu:2 --ep 2``) run since the
+    mesh-axes slice, with sp beside them: the JAX CLI's mesh line and its
+    greedy text byte for byte (ep on a Mixtral file; the JAX CLI given the
+    same mesh's device count)."""
+    m, t = model_files
+    if "--ep" in extra:
+        m = str(tmp_path / "mix.m")
+        write_tiny_model(m, arch=mfile.ARCH_MIXTRAL, ftype=quants.Q40, n_experts=4)
+    args = extra + ["--model", m, "--tokenizer", t, "--prompt", "hello", "--steps", "16",
+                    "--temperature", "0", "--buffer-float-type", "f32"]
+    port = run_port(args + ["--device", "cpu"])
+    assert port.returncode == 0, port.stderr[-2000:]
+    assert mesh_line in port.stdout.splitlines()
+    assert mesh_line.split(": ")[1] in port.stdout.splitlines()[-1]
+    jargs = args if "--workers" in args else args + ["--workers", "tpu:1"]
+    ref = run_cli(jargs, n_devices=4)
+    assert ref.returncode == 0, ref.stderr[-2000:]
+    assert mesh_line in ref.stdout.splitlines()
+    assert [ln for ln in _text(port.stdout) if not ln.startswith("⚠️")] == \
+        [ln for ln in _text(ref.stdout) if not ln.startswith("⚠️")]
 
 
 # flags the port carries since speculative decoding and profiling came over
@@ -247,6 +287,24 @@ def test_elastic_start_up_refusals_equal_jax(extra):
         msgs.append(str(e.value))
     assert msgs[0] == msgs[1]
     assert msgs[0].startswith("serve-pod: --")
+
+
+@pytest.mark.parametrize("axis", ["--sp", "--ep"])
+def test_serve_pod_refuses_sp_and_ep_as_jax(axis):
+    """``serve-pod`` partitions the cards into dp × tp replicas: ``--sp`` and
+    ``--ep`` exit before any replica with the JAX pod's message."""
+    from dllama_tpu.cli import build_parser as jparser
+    from dllama_tpu.router import pod as jpod
+    from dllama_tpu_torch import cli
+    from dllama_tpu_torch.router import pod
+    msgs = []
+    for main, parser, dev in ((pod.main, cli.build_parser, ["--device", "cpu"]),
+                              (jpod.main, jparser, [])):
+        with pytest.raises(SystemExit) as e:
+            main(parser().parse_args(["serve-pod", *ELASTIC_POD, *dev, axis, "2"]))
+        msgs.append(str(e.value))
+    assert msgs[0] == msgs[1]
+    assert "--sp/--ep are not supported here" in msgs[0]
 
 
 def test_spec_and_profile_flags_are_accepted():
